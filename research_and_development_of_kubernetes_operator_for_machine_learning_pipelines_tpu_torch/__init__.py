@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of the JAX package's Llama text-generation path.
+
+Mirrors the layout of
+``research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu``
+(``ops/``, ``models/``, ``server/``) with the same function names, so each
+port module sits at the same relative path as its reference:
+
+- ``ops``     -- hand-written Hopper kernels (``csrc/*.cu``, built with
+  nvcc and loaded with ctypes) beside their plain PyTorch versions;
+- ``models``  -- Llama (int8 weights, dense and int8 ragged KV caches),
+  quantization and sampling;
+- ``server``  -- the continuous-batching engine, the native-artifact
+  loader and a standard-library HTTP server for ``/generate``;
+- ``convert`` -- carries a JAX parameter tree (as numpy) across.
+
+The package imports torch and numpy only.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,620 @@
+"""Llama-2 decoder in PyTorch (port of the JAX package's ``models/llama.py``).
+
+Pre-RMSNorm, rotate-half RoPE, grouped-query attention, SwiGLU MLP,
+untied LM head.  The parameter tree keeps the reference layout: layer
+weights stacked ``[L, in, out]``, int8 leaves ``{"q8", "scale"}``.
+
+Numerics follow the reference step for step: every product the
+reference runs with ``preferred_element_type=float32`` returns f32 here
+too (an f64 product is rounded to f32, as XLA does), RoPE tables are f32,
+norms run in f32, and the int8 cache scales fold into the score and
+probability rows.  That is what lets the CPU tests hold this module to
+the JAX one in f64.
+
+Where the reference donates a buffer, this module writes the cache in
+place: ``forward``, ``decode_ragged`` and ``insert_sequence`` return a
+cache tuple that SHARES the input's buffers (with new lengths); the
+caller must treat the input cache as consumed.
+
+Kernels on this path: ``models.common.rms_norm`` (2L+1 launches per
+forward) and, on the int8 cache, the fused decode attention (one launch
+per layer per decode step).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.decode_attention import decode_attention_batched, decode_attention_vpu
+from .common import rms_norm
+from .quantization import is_quantized, quantize_tensor
+
+# ---------------------------------------------------------------------------
+# Products with an f32 result (the reference's preferred_element_type=f32)
+# ---------------------------------------------------------------------------
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., in] @ w [in, out]`` with an f32 result.  A bf16 product
+    on the card keeps cuBLAS's f32 accumulator as its output
+    (``out_dtype``) instead of rounding it to bf16 first."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.matmul(x, w).to(torch.float32)
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with an f32 result: f64 operands contract in f64 and
+    round, half-precision operands contract in f32."""
+    if a.dtype == torch.float64:
+        return torch.einsum(eq, a, b).to(torch.float32)
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def _qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ dequantize(w)`` with the scale applied to the OUTPUT.
+
+    The int8 scale is per output channel (``[..., 1, out]``), so ``x @
+    (q8 * scale) == (x @ q8) * scale`` exactly; the f32 scale multiplies
+    the f32 product.  On the card ``q8.to(x.dtype)`` is a transient bf16
+    copy of the weight for each call (a W8A16 kernel is later work)."""
+    if is_quantized(w):
+        y = _matmul_f32(x, w["q8"].to(x.dtype))
+        return y * w["scale"].to(torch.float32)
+    return _matmul_f32(x, w.to(x.dtype))
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    intermediate_size: int = 11008
+    max_seq: int = 4096
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def llama2_7b(cls, **kw) -> "LlamaConfig":
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "LlamaConfig":
+        defaults = dict(
+            vocab_size=256,
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            num_kv_heads=2,
+            intermediate_size=128,
+            max_seq=64,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+class KVCache(NamedTuple):
+    """Single-length cache, position-major: k/v ``[L, B, T, NKV, D]``;
+    ``length`` (int) is the number of valid positions."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
+               device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            length=0,
+        )
+
+
+class RaggedKVCache(NamedTuple):
+    """Multi-slot cache with per-row lengths, head-major:
+    k/v ``[L, B, NKV, T, D]``, lengths int32 ``[B]``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
+               device=None) -> "RaggedKVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq, cfg.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+
+class QuantRaggedKVCache(NamedTuple):
+    """Int8 variant of :class:`RaggedKVCache`: k8/v8 int8 ``[L, B, NKV,
+    T, D]`` with f32 per-(position, head) scales ``[L, B, NKV, T, 1]``.
+    Head-major, so one (slot, kv head)'s window is a strided view the
+    decode kernel reads in place."""
+
+    k8: torch.Tensor
+    k_scale: torch.Tensor
+    v8: torch.Tensor
+    v_scale: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, device=None) -> "QuantRaggedKVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq, cfg.head_dim)
+        sshape = shape[:-1] + (1,)
+        return cls(
+            k8=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v8=torch.zeros(shape, dtype=torch.int8, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) int8 over the trailing head_dim axis."""
+    q = quantize_tensor(x, axis=-1)
+    return q["q8"], q["scale"]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init(generator: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,
+         device=None) -> dict:
+    """Random weights (normal, std 0.02; norms at 1) drawn from
+    ``generator``, which must live on ``device``."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers
+
+    def normal(shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (w.mul_(0.02)).to(dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return {
+        "embed": normal((v, h)),
+        "layers": {
+            "attn_norm": ones((L, h)),
+            "q": normal((L, h, nh * hd)),
+            "k": normal((L, h, nkv * hd)),
+            "v": normal((L, h, nkv * hd)),
+            "o": normal((L, nh * hd, h)),
+            "mlp_norm": ones((L, h)),
+            "gate": normal((L, h, i)),
+            "up": normal((L, h, i)),
+            "down": normal((L, i, h)),
+        },
+        "final_norm": ones((h,)),
+        "lm_head": normal((h, v)),
+    }
+
+
+def _layer(layers: dict, l: int) -> dict:
+    """Layer ``l`` of the stacked layer tree (int8 leaves stay dicts)."""
+    return {
+        name: ({"q8": w["q8"][l], "scale": w["scale"][l]} if is_quantized(w) else w[l])
+        for name, w in layers.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# RoPE (HF rotate-half convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, cfg: LlamaConfig, dtype=torch.float32):
+    """cos/sin tables for ``positions`` [S] (or [B, S]) -> [..., head_dim],
+    computed in f32 whatever the model's type."""
+    hd = cfg.head_dim
+    exponent = torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
+    inv_freq = 1.0 / (cfg.rope_theta ** exponent)
+    freqs = positions.to(torch.float32)[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, N, D]; cos/sin: [S, D] (shared) or [B, S, D] (per row)."""
+    if cos.dim() == 2:
+        c = cos[None, :, None, :]
+        s = sin[None, :, None, :]
+    else:
+        c = cos[:, :, None, :]
+        s = sin[:, :, None, :]
+    return (x * c + _rotate_half(x) * s).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _mlp(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
+    xn = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    gate = _qmatmul(xn, lp["gate"])
+    up = _qmatmul(xn, lp["up"])
+    act = F.silu(gate) * up
+    down = _qmatmul(act.to(x.dtype), lp["down"]).to(x.dtype)
+    return x + down
+
+
+def _qkv(x: torch.Tensor, lp: dict, cos, sin, cfg: LlamaConfig):
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    q = _qmatmul(xn, lp["q"]).to(x.dtype).reshape(b, s, nh, hd)
+    k = _qmatmul(xn, lp["k"]).to(x.dtype).reshape(b, s, nkv, hd)
+    v = _qmatmul(xn, lp["v"]).to(x.dtype).reshape(b, s, nkv, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _block(
+    x: torch.Tensor,
+    lp: dict,
+    cache_k,
+    cache_v,
+    start: int,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask_bias: torch.Tensor,
+    cfg: LlamaConfig,
+    window: int | None = None,
+):
+    """One decoder layer over a fixed-capacity cache (prefill and chunked
+    prefill).  x: [B,S,H]; cache_k/v: [B,T,NKV,D] views of the layer's
+    buffer, or (int8 values, f32 scales [B,T,NKV,1]) pairs; ``start`` is
+    the write offset shared by the batch.  This chunk's K/V is written
+    into the cache IN PLACE at [start, start+S).  ``window`` restricts
+    attention to cache positions [0, window); ``mask_bias``'s key axis is
+    window-sized.  Returns (y, cache_k, cache_v)."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(x, lp, cos, sin, cfg)
+
+    quant_cache = isinstance(cache_k, tuple)
+    if quant_cache:
+        k8, ks = cache_k
+        v8, vs = cache_v
+        kq, kqs = _quant_kv(k)
+        vq, vqs = _quant_kv(v)
+        k8[:, start:start + s] = kq
+        ks[:, start:start + s] = kqs
+        v8[:, start:start + s] = vq
+        vs[:, start:start + s] = vqs
+    else:
+        cache_k[:, start:start + s] = k.to(cache_k.dtype)
+        cache_v[:, start:start + s] = v.to(cache_v.dtype)
+
+    # GQA: q grouped [B,S,NKV,G,D] contracts directly against the cache.
+    group = nh // nkv
+    qg = q.reshape(b, s, nkv, group, hd)
+    sqrt_d = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    if quant_cache:
+        if window is not None:
+            k8, ks = k8[:, :window], ks[:, :window]
+            v8, vs = v8[:, :window], vs[:, :window]
+        scores = _einsum_f32("bqngd,bknd->bngqk", qg, k8.to(x.dtype)) / sqrt_d
+        kscale = ks[..., 0].movedim(1, 2)[:, :, None, None, :]
+        scores = scores * kscale + mask_bias[:, None]
+        probs = torch.softmax(scores, dim=-1)
+        vscale = vs[..., 0].movedim(1, 2)[:, :, None, None, :]
+        probs = (probs * vscale).to(x.dtype)
+        ctx = torch.einsum("bngqk,bknd->bqngd", probs, v8.to(x.dtype))
+    else:
+        kk = cache_k if window is None else cache_k[:, :window]
+        vv = cache_v if window is None else cache_v[:, :window]
+        scores = _einsum_f32("bqngd,bknd->bngqk", qg, kk.to(x.dtype)) / sqrt_d
+        scores = scores + mask_bias[:, None]
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bngqk,bknd->bqngd", probs, vv.to(x.dtype))
+    ctx = ctx.reshape(b, s, nh * hd)
+    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
+    return _mlp(x, lp, cfg), cache_k, cache_v
+
+
+def _block_decode_deferred(
+    x: torch.Tensor,
+    lp: dict,
+    cache_k,
+    cache_v,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask_bias: torch.Tensor,
+    cfg: LlamaConfig,
+    window: int,
+):
+    """One decoder layer for single-token ragged decode with the cache
+    READ-ONLY: returns ``(y, k_new, v_new)``; :func:`decode_ragged`
+    commits every layer's new row after the layer loop.
+
+    The current token enters through an exact self-term, so ``mask_bias``
+    is STRICT (``key_pos < position``).  On the int8 cache the attention
+    is the fused decode-attention kernel (its plain version on the CPU);
+    the dense cache runs the reference's einsum chain."""
+    b, s, _ = x.shape  # s == 1
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    group = nh // nkv
+    qg = q.reshape(b, s, nkv, group, hd)
+
+    if isinstance(cache_k, tuple):
+        attn = decode_attention_vpu if group == 1 else decode_attention_batched
+        k8, ks = cache_k
+        v8, vs = cache_v
+        ctx4 = attn(
+            qg[:, 0],                                   # [B, NKV, G, D]
+            k8[:, :, :window],                          # strided views
+            ks[:, :, :window],
+            v8[:, :, :window],
+            vs[:, :, :window],
+            k[:, 0][:, :, None, :],                     # [B, NKV, 1, D]
+            v[:, 0][:, :, None, :],
+            mask_bias[:, 0],                            # [B, 1, W]
+        )
+        ctx = ctx4[:, None].to(x.dtype).reshape(b, s, nh * hd)
+    else:
+        sqrt_d = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+        kk = cache_k[:, :, :window].to(x.dtype)
+        scores = _einsum_f32("bqngd,bnkd->bngqk", qg, kk) / sqrt_d
+        scores = scores + mask_bias[:, None]
+        score_self = (_einsum_f32("bqngd,bqnd->bngq", qg, k) / sqrt_d)[..., None]
+        probs = torch.softmax(torch.cat([scores, score_self], dim=-1), dim=-1)
+        probs_cache, prob_self = probs[..., :-1], probs[..., -1:]
+        vv = cache_v[:, :, :window].to(x.dtype)
+        ctx = torch.einsum("bngqk,bnkd->bqngd", probs_cache.to(x.dtype), vv)
+        ctx = ctx + torch.einsum("bngqk,bknd->bqngd", prob_self.to(x.dtype), v)
+        ctx = ctx.reshape(b, s, nh * hd)
+    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
+    return _mlp(x, lp, cfg), k, v
+
+
+def forward(
+    params: dict,
+    input_ids: torch.Tensor,
+    cache: KVCache,
+    cfg: LlamaConfig,
+    dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, KVCache]:
+    """Run ``input_ids`` [B,S] from ``cache.length`` (prefill, S = prompt;
+    decode, S = 1).  Writes the cache in place.  Returns (logits
+    [B,S,vocab] float32, cache).
+
+    Attention reads only positions [0, start+S): the reference attends
+    the whole buffer under a mask whose later columns are -1e9, whose
+    softmax weights are exactly 0, so the result is the same."""
+    b, s = input_ids.shape
+    if s > cfg.max_seq:
+        raise ValueError(
+            f"sequence chunk of {s} tokens exceeds KV-cache capacity "
+            f"max_seq={cfg.max_seq}"
+        )
+    start = int(cache.length)
+    if start + s > cfg.max_seq:
+        raise ValueError(
+            f"chunk at {start} + {s} tokens exceeds KV-cache capacity "
+            f"max_seq={cfg.max_seq}"
+        )
+    device = input_ids.device
+    x = params["embed"][input_ids].to(dtype)
+    positions = start + torch.arange(s, device=device)
+    cos, sin = rope_cos_sin(positions, cfg)
+    window = start + s
+    key_pos = torch.arange(window, device=device)
+    valid = key_pos[None, :] <= positions[:, None]
+    mask_bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[None, None]
+
+    for l in range(cfg.num_layers):
+        ck = cache.k[l] if not isinstance(cache.k, tuple) else tuple(t[l] for t in cache.k)
+        cv = cache.v[l] if not isinstance(cache.v, tuple) else tuple(t[l] for t in cache.v)
+        x, _, _ = _block(x, _layer(params["layers"], l), ck, cv, start, cos, sin,
+                         mask_bias, cfg, window=window)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _qmatmul(x, params["lm_head"])
+    return logits, KVCache(cache.k, cache.v, start + s)
+
+
+def prefill(params, input_ids, cfg, dtype=torch.bfloat16):
+    cache = KVCache.create(cfg, input_ids.shape[0], dtype, input_ids.device)
+    return forward(params, input_ids, cache, cfg, dtype)
+
+
+def decode_step(params, token_ids, cache, cfg, dtype=torch.bfloat16):
+    """One greedy decode step: token_ids [B,1] -> (logits [B,1,V], cache)."""
+    return forward(params, token_ids, cache, cfg, dtype)
+
+
+def generate_greedy(
+    params: dict,
+    prompt_ids: torch.Tensor,
+    num_new_tokens: int,
+    cfg: LlamaConfig,
+    dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Greedy generation: prefill, then ``num_new_tokens`` decode steps
+    (the first new token comes from the prefill).  Returns [B, new]."""
+    total = prompt_ids.shape[1] + num_new_tokens
+    if total > cfg.max_seq:
+        raise ValueError(
+            f"prompt ({prompt_ids.shape[1]}) + new tokens ({num_new_tokens}) "
+            f"= {total} exceeds KV-cache capacity max_seq={cfg.max_seq}"
+        )
+    logits, cache = prefill(params, prompt_ids, cfg, dtype)
+    tok = torch.argmax(logits[:, -1:, :], dim=-1)
+    out = []
+    for _ in range(num_new_tokens):
+        out.append(tok)
+        logits, cache = decode_step(params, tok, cache, cfg, dtype)
+        tok = torch.argmax(logits[:, -1:, :], dim=-1)
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching primitives (per-row positions)
+# ---------------------------------------------------------------------------
+
+
+def decode_ragged(
+    params: dict,
+    token_ids: torch.Tensor,
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    cfg: LlamaConfig,
+    active: torch.Tensor | None = None,
+    dtype=torch.bfloat16,
+    window: int | None = None,
+):
+    """One decode step where every batch row is at its OWN position.
+
+    token_ids ``[B, 1]``; row i attends keys ``0..lengths[i]`` (the cache
+    strictly below, itself through the exact self-term) and its new K/V
+    row is committed at ``lengths[i]`` after the layer loop.  ``active``
+    (bool ``[B]``) gates the length advance and the commit: an inactive
+    row computes but writes nothing.  ``window`` bounds the attended
+    prefix (a bucket above every active row's position).  The cache is
+    updated in place.  Returns (logits ``[B, 1, vocab]`` f32, cache with
+    advanced lengths)."""
+    b, s = token_ids.shape
+    if s != 1:
+        raise ValueError(f"decode_ragged is single-token: got chunk of {s}")
+    quant = isinstance(cache, QuantRaggedKVCache)
+    lengths = cache.lengths
+    x = params["embed"][token_ids].to(dtype)
+    positions = lengths[:, None]
+    cos, sin = rope_cos_sin(positions, cfg)  # [B, 1, D]
+
+    capacity = (cache.k8 if quant else cache.k).shape[3]
+    window = capacity if window is None else min(int(window), capacity)
+    key_pos = torch.arange(window, device=lengths.device)
+    valid = key_pos[None, None, :] < positions[:, :, None]  # [B, 1, W]
+    mask_bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None]
+
+    k_news, v_news = [], []
+    for l in range(cfg.num_layers):
+        if quant:
+            ck = (cache.k8[l], cache.k_scale[l])
+            cv = (cache.v8[l], cache.v_scale[l])
+        else:
+            ck, cv = cache.k[l], cache.v[l]
+        x, k_new, v_new = _block_decode_deferred(
+            x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg,
+            window=window,
+        )
+        k_news.append(k_new[:, 0])
+        v_news.append(v_new[:, 0])
+    return _finish_decode(
+        params, x, torch.stack(k_news), torch.stack(v_news), cache, lengths,
+        active, quant, cfg,
+    )
+
+
+def _finish_decode(params, x, k_news, v_news, cache, lengths, active, quant, cfg):
+    """Shared decode tail: final norm, lm_head, and the cache commit of
+    every layer's new row ``[L, B, NKV, D]``."""
+    b = x.shape[0]
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _qmatmul(x, params["lm_head"])
+    if active is None:
+        advance = torch.ones((b,), dtype=torch.int32, device=lengths.device)
+        write_pos = lengths
+    else:
+        advance = active.to(torch.int32)
+        # Inactive rows write NOTHING: parked at capacity, dropped below.
+        capacity = (cache.k8 if quant else cache.k).shape[3]
+        write_pos = torch.where(active, lengths, torch.full_like(lengths, capacity))
+    if quant:
+        kq, kqs = _quant_kv(k_news)
+        vq, vqs = _quant_kv(v_news)
+        _commit_rows(cache.k8, kq, write_pos)
+        _commit_rows(cache.k_scale, kqs, write_pos)
+        _commit_rows(cache.v8, vq, write_pos)
+        _commit_rows(cache.v_scale, vqs, write_pos)
+        return logits, cache._replace(lengths=lengths + advance)
+    _commit_rows(cache.k, k_news.to(cache.k.dtype), write_pos)
+    _commit_rows(cache.v, v_news.to(cache.v.dtype), write_pos)
+    return logits, cache._replace(lengths=lengths + advance)
+
+
+def _commit_rows(buf: torch.Tensor, vals: torch.Tensor, lengths: torch.Tensor) -> None:
+    """Write row ``b``'s new K/V at its own position, in place.
+
+    ``buf`` is head-major ``[L, B, NKV, T, ...]``, ``vals`` ``[L, B, NKV,
+    ...]``; row ``b`` writes at ``lengths[b]`` on axis 3, and a row parked
+    at capacity (``lengths[b] >= T``) is DROPPED — never clamped onto its
+    last real position.  PyTorch has no drop mode, so a dropped row
+    stores back what its (clamped) target already holds: the buffer is
+    unchanged there, and no host sync is needed to find the live rows."""
+    b, t = buf.shape[1], buf.shape[3]
+    rows = torch.arange(b, device=buf.device)
+    keep = lengths < t
+    pos = torch.clamp(lengths, max=t - 1).to(torch.int64)
+    # Advanced indices at axes 1 and 3 move to the front: [B, L, NKV, ...].
+    new = vals.movedim(1, 0).to(buf.dtype)
+    old = buf[:, rows, :, pos]
+    keep = keep.reshape((b,) + (1,) * (new.dim() - 1))
+    buf[:, rows, :, pos] = torch.where(keep, new, old)
+
+
+def insert_sequence(
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    seq: KVCache,
+    slot: int,
+    length: int,
+):
+    """Install a prefilled single-sequence cache into batch row ``slot``.
+
+    ``seq`` is a batch-1 :class:`KVCache` (k/v ``[L, 1, Tp, NKV, D]``,
+    ``Tp <= capacity``) holding ``seq.length`` written positions;
+    ``length`` is the sequence's real token count (<= ``seq.length``:
+    the rest is prompt padding).  The written prefix is copied into the
+    row in place (quantized on the int8 cache).  The reference copies the
+    whole ``Tp``; positions past ``seq.length`` hold nothing either way
+    and are never attended before decode overwrites them (the decode mask
+    is strict), so copying the prefix alone gives the same tokens at a
+    fraction of the work on a 4096-position cache.  Returns the cache with
+    row ``slot``'s length set."""
+    slot = int(slot)
+    lengths = cache.lengths.clone()
+    lengths[slot] = int(length)
+    tp = min(int(seq.length), seq.k.shape[2])
+    # position-major [L, 1, Tp, NKV, D] -> head-major [L, 1, NKV, Tp, D]
+    seq_k = seq.k[:, :, :tp].transpose(2, 3)
+    seq_v = seq.v[:, :, :tp].transpose(2, 3)
+    if isinstance(cache, QuantRaggedKVCache):
+        k8, ks = _quant_kv(seq_k)
+        v8, vs = _quant_kv(seq_v)
+        cache.k8[:, slot:slot + 1, :, :tp] = k8
+        cache.k_scale[:, slot:slot + 1, :, :tp] = ks
+        cache.v8[:, slot:slot + 1, :, :tp] = v8
+        cache.v_scale[:, slot:slot + 1, :, :tp] = vs
+        return cache._replace(lengths=lengths)
+    cache.k[:, slot:slot + 1, :, :tp] = seq_k.to(cache.k.dtype)
+    cache.v[:, slot:slot + 1, :, :tp] = seq_v.to(cache.v.dtype)
+    return cache._replace(lengths=lengths)

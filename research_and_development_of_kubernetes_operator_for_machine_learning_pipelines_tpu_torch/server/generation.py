@@ -1,0 +1,645 @@
+"""Continuous-batching text-generation engine (port of the JAX package's
+``server/generation.py``, legacy single-admission tick).
+
+The engine owns a ragged KV cache with a fixed number of rows ("slots").
+A request is prefilled as batch 1 — the whole prompt right-padded to a
+power-of-two bucket, or fixed-size chunks interleaved with decode ticks
+(``prefill_chunk``) — and its K/V inserted into a free slot.  Every
+scheduler tick runs ONE batched decode step over all slots at their own
+positions; requests join and leave between ticks.  Inactive slots still
+compute and write nothing.
+
+Device work runs on the single scheduler thread, eagerly: the JAX
+engine's jitted programs are plain functions here, and the cache is
+updated in place where the reference donates it.  Decode reads only a
+window bucket of the cache (``decode_window_bucket``); on the int8 cache
+each layer's attention is the fused decode-attention kernel.
+
+Not ported yet (each raises ``ValueError("... not yet ported")`` when
+asked for): the prefix cache, speculative decoding, packed prefill,
+multi-step decode, the unified super-step, SLO classes and preemption,
+the mesh, multi-host, the watchdog, the flight recorder, device
+telemetry, admission budgets and poison quarantine.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..models import llama
+from ..models.sampling import sample_logits
+from .batching import next_bucket
+
+_log = logging.getLogger("tpumlops_torch.generation")
+
+
+class EngineShutdown(RuntimeError):
+    """The engine shut down before this request's admission completed."""
+
+
+def _safe_resolve(fut: Future, value) -> None:
+    try:
+        fut.set_result(value)
+    except Exception:  # InvalidStateError: client cancelled in the gap
+        pass
+
+
+def _safe_fail(fut: Future, exc: Exception) -> None:
+    try:
+        fut.set_exception(exc)
+    except Exception:
+        pass
+
+
+_MIN_BUCKET = 16
+
+
+def prefill_bucket(length: int, capacity: int) -> int:
+    """Power-of-two prompt bucket (>= _MIN_BUCKET, <= cache capacity)."""
+    return min(max(_MIN_BUCKET, next_bucket(length, capacity)), capacity)
+
+
+def decode_window_bucket(length: int, capacity: int) -> int:
+    """Attention-window bucket: smallest of {2^k, 3*2^(k-1)} >= length.
+
+    Decode attention cost is linear in the attended window, so the 1.5x
+    steps (96, 192, 384, ...) cap the overshoot at 33%.  The decode
+    kernel takes every bucket width."""
+    w = prefill_bucket(length, capacity)
+    if length > 0 and w >= 2 * _MIN_BUCKET and w & (w - 1) == 0:
+        threeq = 3 * (w // 4)
+        if length <= threeq:
+            return threeq
+    return w
+
+
+def decode_window_buckets(capacity: int) -> list[int]:
+    """Every window :func:`decode_window_bucket` can return, ascending."""
+    out = {min(capacity, _MIN_BUCKET)}
+    b = _MIN_BUCKET
+    while b < capacity:
+        out.add(b)
+        if 2 * b <= capacity:
+            out.add(3 * (b // 2))
+        b *= 2
+    out.add(capacity)
+    return sorted(out)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; no card and no explicit
+    request is an error, never a quiet run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclass
+class _Slot:
+    future: Future
+    remaining: int  # new tokens still to produce
+    eos_id: int | None
+    sampling: bool = False  # temperature > 0 (selects the sampling step)
+    prompt_len: int = 0  # for the decode attention window
+    generated: list[int] = field(default_factory=list)
+
+
+@dataclass
+class _Request:
+    prompt: np.ndarray  # int32 [L]
+    max_new_tokens: int
+    eos_id: int | None
+    future: Future
+    temperature: float = 0.0  # <= 0: greedy
+    top_k: int = 0  # <= 0: disabled
+    top_p: float = 1.0  # >= 1: disabled
+    seed: int | None = None  # None: engine-assigned
+    t_submit: float = 0.0  # perf_counter at submit (TTFT)
+
+
+@dataclass(eq=False)  # identity semantics: numpy fields
+class _PrefillProgress:
+    """A chunked admission in flight (at most one: the batch-1 scratch
+    cache serializes admissions)."""
+
+    req: _Request
+    chunks: list  # padded [1, C] int32 arrays
+    next_idx: int = 0
+
+
+# Engine options of the reference that this port does not have yet, with
+# the value that means "off".  Anything else raises instead of being
+# silently ignored.
+_NOT_PORTED = {
+    "channel": None,
+    "prefix_cache": None,
+    "speculative": None,
+    "prefill_batch": 1,
+    "prefill_token_budget": 0,
+    "recorder": None,
+    "admission_queue_budget": 0,
+    "telemetry": None,
+    "decode_steps": 1,
+    "unified_step": False,
+    "watchdog": None,
+    "mesh_shape": None,
+    "slo_class": None,
+    "preemption": False,
+}
+
+
+def _is_off(name: str, value) -> bool:
+    if value is None or value == _NOT_PORTED[name]:
+        return True
+    if name == "prefix_cache":
+        return not getattr(value, "enabled", True)
+    if name == "speculative":
+        return not getattr(value, "enabled", True)
+    if name == "mesh_shape":
+        return int(np.prod([int(n) for n in dict(value).values()] or [1])) == 1
+    return False
+
+
+class GenerationEngine:
+    """Schedules concurrent generation requests onto one ragged KV cache.
+
+    ``submit`` is thread-safe and returns a ``concurrent.futures.Future``
+    resolving to the generated token ids (``np.ndarray[int32]``).  All
+    tensor work happens on the single scheduler thread."""
+
+    def __init__(
+        self,
+        params,
+        cfg,
+        *,
+        max_slots: int = 4,
+        dtype=None,
+        eos_id: int | None = None,
+        kv_quant: bool = False,
+        prefill_chunk: int | None = None,
+        device=None,
+        on_ttft: Callable[[float], None] | None = None,
+        **unported,
+    ):
+        for name, value in unported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected engine option {name!r}")
+            if not _is_off(name, value):
+                raise ValueError(f"engine option {name}={value!r} is not yet ported")
+        self._device = resolve_device(device)
+        embed_dev = params["embed"].device
+        if embed_dev.type != self._device.type:
+            raise ValueError(
+                f"params live on {embed_dev}, engine device is {self._device}"
+            )
+        self._params = params
+        self._cfg = cfg
+        self._eos_default = eos_id
+        self.max_slots = int(max_slots)
+        self.capacity = int(cfg.max_seq)
+        self._dtype = dtype or torch.bfloat16
+        self._kv_quant = bool(kv_quant)
+        # Called with each request's submit-to-first-token seconds.
+        self.on_ttft = on_ttft
+        self._prefill_chunk_size = int(prefill_chunk) if prefill_chunk else None
+        if self._prefill_chunk_size is not None:
+            C = self._prefill_chunk_size
+            if C <= 0:
+                raise ValueError(f"prefill_chunk must be positive, got {C}")
+            if self.capacity % C != 0:
+                raise ValueError(
+                    f"prefill_chunk {C} must divide KV capacity {self.capacity}"
+                )
+        # Device dispatches by tick kind, as the reference keeps them.
+        self.dispatches_total: dict[str, int] = {}
+        self.tokens_generated = 0
+        self.prefill_forwards = 0  # whole-prompt prefills + chunk forwards
+        self.decode_forwards = 0
+        self._slots: list[_Slot | None] = [None] * self.max_slots
+        self._pending: list[_PrefillProgress] = []
+        self._seq_state = None  # (last_logits, seq KVCache) of a chunked admission
+        # Engine-assigned seeds fold a per-boot nonce, so unseeded streams
+        # never replay across restarts.
+        self._boot_nonce = os.urandom(8)
+        self._seed_counter = 0
+        self._queue: queue.Queue[_Request | None] = queue.Queue()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._reset_device_state()
+
+    def _reset_device_state(self) -> None:
+        """(Re)allocate the KV cache and the per-slot token and sampling
+        state — also the recovery path after a failed step, whose in-place
+        writes may have left the cache half-updated."""
+        dev = self._device
+        if self._kv_quant:
+            self._cache = llama.QuantRaggedKVCache.create(self._cfg, self.max_slots, dev)
+        else:
+            self._cache = llama.RaggedKVCache.create(
+                self._cfg, self.max_slots, self._dtype, dev
+            )
+        self._tokens = torch.zeros((self.max_slots, 1), dtype=torch.int64, device=dev)
+        self._temps = torch.zeros((self.max_slots,), dtype=torch.float32, device=dev)
+        self._topk = torch.zeros((self.max_slots,), dtype=torch.int32, device=dev)
+        self._topp = torch.ones((self.max_slots,), dtype=torch.float32, device=dev)
+        self._gens: list[torch.Generator | None] = [None] * self.max_slots
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self, warmup: bool = True) -> None:
+        """Start the scheduler thread.  ``warmup`` builds the CUDA kernels
+        first (nothing to compile on the CPU), so no request pays nvcc."""
+        if warmup and self._device.type == "cuda":
+            from ..ops import _build
+
+            _build.build()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="generation-scheduler"
+        )
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self._queue.put(None)  # unblock the scheduler
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        for prog in self._pending:
+            if not prog.req.future.done():
+                _safe_fail(
+                    prog.req.future,
+                    EngineShutdown(
+                        "engine shut down mid-prefill; retry on another replica"
+                    ),
+                )
+        self._pending = []
+        self._seq_state = None
+        for slot in self._slots:
+            if slot is not None and not slot.future.done():
+                slot.future.cancel()
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None and not req.future.done():
+                _safe_fail(
+                    req.future,
+                    EngineShutdown(
+                        "engine shut down before admission; retry on "
+                        "another replica"
+                    ),
+                )
+
+    # -- client API ----------------------------------------------------------
+
+    def validate(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int | None = None,
+    ) -> np.ndarray:
+        """Check a request without admitting it; returns the int32 prompt."""
+        try:
+            prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+        except (OverflowError, ValueError, TypeError) as e:
+            raise ValueError(f"prompt ids must be integers: {e}") from None
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        vocab = int(getattr(self._cfg, "vocab_size", 0))
+        if int(prompt.min()) < 0 or (vocab and int(prompt.max()) >= vocab):
+            raise ValueError(
+                f"prompt ids must be in [0, {vocab}), got range "
+                f"[{int(prompt.min())}, {int(prompt.max())}]"
+            )
+        prompt = prompt.astype(np.int32)
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        total = prompt.size + max_new_tokens
+        if total > self.capacity:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
+                f"= {total} exceeds KV-cache capacity {self.capacity}"
+            )
+        if not (0.0 <= float(temperature) <= 100.0):
+            raise ValueError(f"temperature must be in [0, 100], got {temperature}")
+        if not (0 <= int(top_k) < 2**31):
+            raise ValueError(f"top_k must be in [0, 2**31), got {top_k}")
+        if not (0.0 < float(top_p) <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if seed is not None and not (0 <= int(seed) < 2**63):
+            raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+        return prompt
+
+    def submit(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        eos_id: int | None = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int | None = None,
+    ) -> Future:
+        prompt = self.validate(
+            prompt_ids, max_new_tokens, temperature, top_k, top_p, seed
+        )
+        fut: Future = Future()
+        # None means "use the engine default"; 0 is a legitimate eos token.
+        eos = self._eos_default if eos_id is None else eos_id
+        self._queue.put(
+            _Request(
+                prompt,
+                int(max_new_tokens),
+                eos,
+                fut,
+                temperature=float(temperature),
+                top_k=int(top_k),
+                top_p=float(top_p),
+                seed=None if seed is None else int(seed),
+                t_submit=time.perf_counter(),
+            )
+        )
+        return fut
+
+    def generate(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        eos_id: int | None = None,
+        timeout: float | None = 120.0,
+        **sampling,
+    ) -> np.ndarray:
+        """Blocking convenience wrapper around :meth:`submit`."""
+        return self.submit(prompt_ids, max_new_tokens, eos_id, **sampling).result(timeout)
+
+    # -- scheduler -----------------------------------------------------------
+
+    def _free_slot(self) -> int | None:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _record_tick(self, kind: str) -> None:
+        self.dispatches_total[kind] = self.dispatches_total.get(kind, 0) + 1
+
+    def _note_ttft(self, req: _Request) -> None:
+        if self.on_ttft is not None and req.t_submit > 0.0:
+            self.on_ttft(time.perf_counter() - req.t_submit)
+
+    def _slot_generator(self, req: _Request) -> torch.Generator | None:
+        """The request's sampling stream: seeded from the request seed, or
+        from the boot nonce and a counter; None for a greedy request."""
+        if req.temperature <= 0:
+            return None
+        if req.seed is None:
+            self._seed_counter += 1
+            digest = hashlib.sha256(
+                self._boot_nonce + self._seed_counter.to_bytes(8, "little")
+            ).digest()
+            seed = int.from_bytes(digest[:8], "little") % 2**63
+        else:
+            seed = req.seed
+        gen = torch.Generator(device=self._device)
+        gen.manual_seed(seed)
+        return gen
+
+    def _install_slot(self, slot_idx, row_logits, gen, req: _Request) -> int:
+        """Set the slot's sampling state and draw its first token from the
+        prefill's last real row (the same rule decode uses)."""
+        self._temps[slot_idx] = req.temperature
+        self._topk[slot_idx] = req.top_k
+        self._topp[slot_idx] = req.top_p
+        self._gens[slot_idx] = gen
+        first = sample_logits(
+            row_logits[None], [gen], self._temps[slot_idx:slot_idx + 1],
+            self._topk[slot_idx:slot_idx + 1], self._topp[slot_idx:slot_idx + 1],
+        )[0]
+        self._tokens[slot_idx, 0] = first
+        return int(first)
+
+    def _new_slot(self, req: _Request) -> _Slot:
+        return _Slot(
+            future=req.future,
+            remaining=req.max_new_tokens,
+            eos_id=req.eos_id,
+            sampling=req.temperature > 0,
+            prompt_len=int(req.prompt.size),
+        )
+
+    def _admit(self, req: _Request) -> None:
+        """Whole-prompt admission: prefill the bucket-padded prompt and
+        insert it into a free slot."""
+        slot_idx = self._free_slot()
+        assert slot_idx is not None
+        L = int(req.prompt.size)
+        bucket = prefill_bucket(L, self.capacity)
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :L] = req.prompt
+        first = self._device_admit(ids, slot_idx, L, self._slot_generator(req), req)
+        self.prefill_forwards += 1
+        self._record_tick("prefill")
+        self._slots[slot_idx] = self._new_slot(req)
+        self._note_ttft(req)
+        self._record_token(slot_idx, first)
+
+    def _device_admit(self, ids, slot_idx, L, gen, req) -> int:
+        ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
+        logits, seq = llama.prefill(self._params, ids_t, self._cfg, self._dtype)
+        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
+        return self._install_slot(slot_idx, logits[0, L - 1], gen, req)
+
+    # -- chunked prefill (one chunk shape; decode interleaves) ---------------
+
+    def _split_chunks(self, prompt: np.ndarray) -> list:
+        C = self._prefill_chunk_size
+        L = int(prompt.size)
+        n = -(-L // C)
+        padded = np.zeros((n * C,), np.int32)
+        padded[:L] = prompt
+        return [padded[i * C: (i + 1) * C][None, :] for i in range(n)]
+
+    def _device_chunk(self, ids: np.ndarray, fresh: bool) -> None:
+        if fresh:
+            seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device)
+            self._seq_state = (None, seq)
+        _, seq = self._seq_state
+        ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
+        logits, seq = llama.forward(self._params, ids_t, seq, self._cfg, self._dtype)
+        self._seq_state = (logits[0], seq)
+
+    def _device_insert(self, slot_idx, L, gen, req, last_idx) -> int:
+        last_logits, seq = self._seq_state
+        self._seq_state = None
+        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
+        return self._install_slot(slot_idx, last_logits[last_idx], gen, req)
+
+    def _chunk_tick(self) -> None:
+        """Advance the in-flight chunked admission by ONE prefill chunk; on
+        the final chunk, install the sequence into its slot."""
+        assert self._pending
+        prog = self._pending[0]
+        ids = prog.chunks[prog.next_idx]
+        self._device_chunk(ids, fresh=prog.next_idx == 0)
+        self.prefill_forwards += 1
+        self._record_tick("prefill")
+        prog.next_idx += 1
+        if prog.next_idx < len(prog.chunks):
+            return
+        req = prog.req
+        self._pending.pop(0)
+        slot_idx = self._free_slot()
+        assert slot_idx is not None  # reserved by the admission policy
+        L = int(req.prompt.size)
+        C = self._prefill_chunk_size
+        first = self._device_insert(
+            slot_idx, L, self._slot_generator(req), req,
+            last_idx=(L - 1) - C * (len(prog.chunks) - 1),
+        )
+        self._record_tick("prefill")
+        self._slots[slot_idx] = self._new_slot(req)
+        self._note_ttft(req)
+        self._record_token(slot_idx, first)
+
+    def _record_token(self, slot_idx: int, token: int) -> None:
+        """Credit one emitted token to a slot; finish it on EOS or budget."""
+        slot = self._slots[slot_idx]
+        assert slot is not None
+        if slot.future.cancelled():
+            self._slots[slot_idx] = None
+            return
+        slot.generated.append(token)
+        slot.remaining -= 1
+        self.tokens_generated += 1
+        done = slot.remaining <= 0 or (
+            slot.eos_id is not None and token == slot.eos_id
+        )
+        if done:
+            _safe_resolve(slot.future, np.asarray(slot.generated, np.int32))
+            self._slots[slot_idx] = None
+
+    def _step(self) -> None:
+        """One batched decode tick over every occupied slot."""
+        active_np = np.array([s is not None for s in self._slots])
+        if not active_np.any():
+            return
+        # Attention window: smallest bucket covering every active row's
+        # next write position (prompt + tokens emitted so far).
+        needed = max(
+            s.prompt_len + len(s.generated) for s in self._slots if s is not None
+        )
+        window = decode_window_bucket(needed, self.capacity)
+        sampling = any(s is not None and s.sampling for s in self._slots)
+        self._device_step(active_np, window, sampling)
+        toks = self._tokens[:, 0].cpu().numpy()
+        self.decode_forwards += 1
+        self._record_tick("decode")
+        for i, was_active in enumerate(active_np):
+            if was_active and self._slots[i] is not None:
+                self._record_token(i, int(toks[i]))
+
+    def _device_step(self, active_np, window: int, sampling: bool) -> None:
+        active = torch.as_tensor(active_np, device=self._device)
+        logits, self._cache = llama.decode_ragged(
+            self._params, self._tokens, self._cache, self._cfg, active,
+            self._dtype, window,
+        )
+        last = logits[:, -1, :]
+        if sampling:
+            gens = [g if a else None for g, a in zip(self._gens, active_np)]
+            nxt = sample_logits(last, gens, self._temps, self._topk, self._topp)
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        # Finished slots keep their last token so their rows stay inert.
+        self._tokens = torch.where(active, nxt.to(torch.int64), self._tokens[:, 0])[:, None]
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._admit_phase():
+                return  # shutdown sentinel
+            try:
+                self._step()
+            except Exception:
+                _log.exception("decode step failed")
+                self._fail_all_and_recover()
+
+    def _admit_phase(self) -> bool:
+        """Admission work for one scheduler iteration: whole-prompt mode
+        drains every free slot; chunked mode advances the in-flight
+        admission by ONE chunk (or starts a new one), so a decode tick is
+        never more than one prefill chunk away.  Returns False on the
+        shutdown sentinel."""
+        if self._pending:
+            prog = self._pending[0]  # _chunk_tick pops it on finish
+            try:
+                self._chunk_tick()
+            except Exception as exc:
+                _log.exception("chunked prefill failed")
+                self._pending = []
+                self._seq_state = None
+                if not prog.req.future.done():
+                    _safe_fail(prog.req.future, exc)
+                self._fail_all_and_recover()
+            return True
+        while self._free_slot() is not None:
+            try:
+                idle = all(s is None for s in self._slots)
+                req = self._queue.get(block=idle, timeout=1.0)
+            except queue.Empty:
+                break
+            if req is None or self._stop.is_set():
+                if req is not None and not req.future.done():
+                    _safe_fail(
+                        req.future,
+                        EngineShutdown(
+                            "engine shut down before admission; retry on "
+                            "another replica"
+                        ),
+                    )
+                return False
+            if self._prefill_chunk_size is not None:
+                self._pending.append(
+                    _PrefillProgress(req=req, chunks=self._split_chunks(req.prompt))
+                )
+                return True  # first chunk runs next iteration's admit phase
+            try:
+                self._admit(req)
+            except Exception as exc:  # keep the scheduler alive
+                _log.exception("admit failed")
+                if not req.future.done():
+                    _safe_fail(req.future, exc)
+                self._fail_all_and_recover()
+        return True
+
+    def _fail_all_and_recover(self) -> None:
+        """Fail every in-flight sequence and reallocate device state: a
+        failed step may have written part of the cache in place."""
+        for i, slot in enumerate(self._slots):
+            if slot is not None and not slot.future.done():
+                _safe_fail(
+                    slot.future,
+                    RuntimeError("generation step failed; see server log"),
+                )
+            self._slots[i] = None
+        try:
+            self._reset_device_state()
+        except Exception:
+            _log.exception("device state reallocation failed")

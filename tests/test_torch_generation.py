@@ -1,0 +1,313 @@
+"""The port's GenerationEngine against the JAX package, in float64 on CPU.
+
+Scenarios are those of ``tests/test_generation.py`` (five prompts, three
+slots, so slots are reused).  References:
+
+- dense cache: JAX ``llama.generate_greedy`` per prompt;
+- int8 KV cache: JAX ``prefill`` + ``insert_sequence`` + ``decode_ragged``
+  stepped per token, with the decode attention through the Pallas kernel
+  (interpret mode) and through the XLA chain;
+
+and one JAX ``GenerationEngine`` (no warmup) for the EOS behaviour.
+Greedy tokens must be equal.  Sampling has no bitwise reference (the
+port's streams are ``torch.Generator``s, not threefry), so a sampled
+token must lie inside the JAX top-k/top-p kept set and a seeded request
+must repeat itself.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch import (
+    convert,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
+    llama as T,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
+    sampling as TS,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models.quantization import (
+    quantize_llama as t_quantize_llama,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (
+    generation as TG,
+)
+from tpumlops.models import llama as J
+from tpumlops.models import sampling as JS
+from tpumlops.models.quantization import quantize_llama as j_quantize_llama
+from tpumlops.server.generation import GenerationEngine as JaxEngine
+
+PROMPTS = [
+    ([5, 9, 2], 6),
+    ([7, 1, 4, 8, 3], 9),
+    ([42], 4),
+    ([10, 20, 30, 40, 50, 60, 70], 5),
+    ([2, 3], 7),  # 5 requests > 3 slots: forces slot reuse
+]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors gain nothing from intra-op threads; one thread keeps
+    this module from crowding tests that run beside it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", False)
+
+
+@pytest.fixture(scope="module")
+def tiny(x64):
+    cfg = J.LlamaConfig.tiny(max_seq=64)
+    jp = J.init(jax.random.key(0), cfg, dtype=jnp.float64)
+    tp = convert.from_jax_numpy(jax.device_get(jp))
+    return cfg, T.LlamaConfig.tiny(max_seq=64), jp, tp
+
+
+@pytest.fixture(scope="module")
+def dense_refs(tiny):
+    cfg, _, jp, _ = tiny
+    gen = jax.jit(J.generate_greedy, static_argnums=(2, 3), static_argnames=("dtype",))
+    return [
+        np.asarray(gen(jp, jnp.asarray([p], jnp.int32), n, cfg, dtype=jnp.float64))[0].tolist()
+        for p, n in PROMPTS
+    ]
+
+
+def _int8kv_refs(cfg, jpq, impl):
+    """Greedy tokens per prompt through the reference's int8 KV path: a
+    bucket-padded prefill inserted into a capacity-64 quant cache, then
+    single-token ``decode_ragged`` steps."""
+    prefill = jax.jit(J.prefill, static_argnums=(2,), static_argnames=("dtype",))
+
+    def step(*a, **kw):
+        prev = J._DECODE_ATTN
+        try:
+            J._DECODE_ATTN = impl
+            return J.decode_ragged(*a, **kw)
+        finally:
+            J._DECODE_ATTN = prev
+
+    decode = jax.jit(step, static_argnums=(3,), static_argnames=("dtype", "window"))
+    insert = jax.jit(J.insert_sequence)
+    refs = []
+    for prompt, n in PROMPTS:
+        ids = np.zeros((1, 16), np.int32)
+        ids[0, : len(prompt)] = prompt
+        logits, seq = prefill(jpq, jnp.asarray(ids), cfg, dtype=jnp.float64)
+        cache = insert(J.QuantRaggedKVCache.create(cfg, 1), seq, jnp.int32(0),
+                       jnp.int32(len(prompt)))
+        tok = int(jnp.argmax(logits[0, len(prompt) - 1]))
+        out = [tok]
+        while len(out) < n:
+            lg, cache = decode(jpq, jnp.asarray([[tok]], jnp.int32), cache, cfg,
+                               dtype=jnp.float64, window=64)
+            tok = int(jnp.argmax(lg[0, -1]))
+            out.append(tok)
+        refs.append(out)
+    return refs
+
+
+@pytest.fixture(scope="module")
+def int8kv(tiny):
+    cfg, tcfg, jp, _ = tiny
+    jpq = j_quantize_llama(jp)
+    tpq = convert.from_jax_numpy(jax.device_get(jpq))
+    refs = {impl: _int8kv_refs(cfg, jpq, impl) for impl in ("pallas", "xla")}
+    return tcfg, tpq, refs
+
+
+def _run_engine(tp, tcfg, **kw):
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=3, dtype=torch.float64,
+                                 device="cpu", **kw)
+    engine.start()
+    try:
+        futs = [engine.submit(p, n) for p, n in PROMPTS]
+        outs = [f.result(timeout=120).tolist() for f in futs]
+    finally:
+        engine.shutdown()
+    return outs, engine
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["whole", "chunked"])
+def test_engine_dense_matches_generate_greedy(tiny, dense_refs, chunk):
+    _, tcfg, _, tp = tiny
+    outs, engine = _run_engine(tp, tcfg, prefill_chunk=chunk)
+    assert outs == dense_refs
+    assert engine.tokens_generated == sum(n for _, n in PROMPTS)
+    assert engine.dispatches_total["decode"] == engine.decode_forwards > 0
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["whole", "chunked"])
+def test_engine_int8kv_matches_stepped_reference(int8kv, chunk):
+    tcfg, tpq, refs = int8kv
+    outs, _ = _run_engine(tpq, tcfg, kv_quant=True, prefill_chunk=chunk)
+    assert outs == refs["pallas"]
+    assert outs == refs["xla"]
+
+
+def test_port_int8_quantizer_serves_the_same_tokens(tiny, int8kv):
+    """The port's own quantize_llama (not the converted reference tree)."""
+    _, tcfg, _, tp = tiny
+    _, _, refs = int8kv
+    outs, _ = _run_engine(t_quantize_llama(tp), tcfg, kv_quant=True)
+    assert outs == refs["pallas"]
+
+
+@pytest.fixture(scope="module")
+def jax_engine(tiny):
+    """The one JAX engine of this module (no warmup: compiles lazily)."""
+    cfg, _, jp, _ = tiny
+    engine = JaxEngine(jp, cfg, max_slots=2, dtype=jnp.float64)
+    engine.start(warmup=False)
+    yield engine
+    engine.shutdown()
+
+
+def test_engine_eos_and_budget_match_jax_engine(tiny, dense_refs, jax_engine):
+    _, tcfg, _, tp = tiny
+    eos = dense_refs[0][2]  # stop after the 3rd token
+    ref = jax_engine.generate([5, 9, 2], 8, eos_id=eos).tolist()
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=2, dtype=torch.float64, device="cpu")
+    engine.start()
+    try:
+        out = engine.generate([5, 9, 2], 8, eos_id=eos).tolist()
+        budget = engine.generate([5, 9, 2], 2).tolist()
+    finally:
+        engine.shutdown()
+    assert out == ref == dense_refs[0][:3]
+    assert budget == dense_refs[0][:2]
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((list(range(60)), 10), {}),                          # past capacity
+    (([], 4), {}),                                        # empty prompt
+    (([1, 2], 0), {}),                                    # no new tokens
+    (([1, 256], 2), {}),                                  # id outside the vocab
+    (([1, 2], 2), {"temperature": 1.0, "top_p": 0.0}),
+    (([1, 2], 2), {"temperature": -1.0}),
+    (([1, 2], 2), {"top_k": -1}),
+    (([1, 2], 2), {"seed": -1}),
+])
+def test_engine_rejects_like_the_reference(tiny, jax_engine, args, kw):
+    _, tcfg, _, tp = tiny
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=2, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError) as ref:
+        jax_engine.validate(*args, **kw)
+    with pytest.raises(ValueError) as got:
+        engine.submit(*args, **kw)
+    assert str(got.value) == str(ref.value)
+
+
+def test_engine_shutdown_fails_queued_with_engine_shutdown(tiny):
+    _, tcfg, _, tp = tiny
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=2, dtype=torch.float64, device="cpu")
+    fut = engine.submit([1, 2, 3], 4)  # never started: stays queued
+    engine.shutdown()
+    with pytest.raises(TG.EngineShutdown, match="before admission"):
+        fut.result(timeout=5)
+
+
+def test_engine_recovers_after_failed_step(tiny, dense_refs):
+    _, tcfg, _, tp = tiny
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=2, dtype=torch.float64, device="cpu")
+    engine.start()
+    try:
+        assert engine.generate([5, 9, 2], 6).tolist() == dense_refs[0]
+        real = engine._device_step
+
+        def bomb(*a, **kw):
+            raise RuntimeError("injected failure")
+
+        engine._device_step = bomb
+        with pytest.raises(RuntimeError):
+            engine.submit([7, 1, 4], 5).result(timeout=30)
+        engine._device_step = real
+        assert engine.generate([5, 9, 2], 6).tolist() == dense_refs[0]
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize("option,value", [
+    ("decode_steps", 4), ("unified_step", True), ("prefill_batch", 2),
+    ("preemption", True), ("slo_class", "batch"), ("mesh_shape", {"tp": 2}),
+    ("admission_queue_budget", 64),
+])
+def test_unported_engine_options_raise(tiny, option, value):
+    _, tcfg, _, tp = tiny
+    with pytest.raises(ValueError, match="not yet ported"):
+        TG.GenerationEngine(tp, tcfg, device="cpu", **{option: value})
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(tiny, monkeypatch):
+    _, tcfg, _, tp = tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TG.GenerationEngine(tp, tcfg)
+    TG.GenerationEngine(tp, tcfg, device="cpu")  # explicit CPU is fine
+
+
+def test_sampled_tokens_stay_in_the_reference_kept_set():
+    rng = np.random.default_rng(0)
+    B, V = 6, 64
+    logits = rng.standard_normal((B, V)).astype(np.float32) * 3
+    logits[1, 7] = logits[1, 9] = logits[1].max() + 1  # a tie at the top
+    temp = np.array([0.0, 0.7, 1.0, 1.3, 0.9, 0.5], np.float32)
+    top_k = np.array([0, 5, 0, 12, 3, 0], np.int32)
+    top_p = np.array([1.0, 1.0, 0.8, 0.9, 1.0, 0.5], np.float32)
+    # The reference's kept set, from its own sort and masks.
+    scaled = jnp.asarray(logits) / jnp.maximum(jnp.asarray(temp), 1e-6)[:, None]
+    order = np.asarray(jnp.argsort(-scaled, axis=-1))
+    sorted_l = np.take_along_axis(np.asarray(scaled), order, axis=-1)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(sorted_l), axis=-1))
+    keep = (np.arange(V)[None] < np.where(top_k <= 0, V, top_k)[:, None]) & (
+        (np.cumsum(probs, -1) - probs) < top_p[:, None])
+    kept = [set(order[i][keep[i]].tolist()) for i in range(B)]
+    args = (torch.from_numpy(temp), torch.from_numpy(top_k), torch.from_numpy(top_p))
+    seen = [set() for _ in range(B)]
+    for seed in range(60):
+        gens = [torch.Generator().manual_seed(seed * B + i) for i in range(B)]
+        toks = TS.sample_logits(torch.from_numpy(logits), gens, *args).tolist()
+        for i, t in enumerate(toks):
+            assert t in kept[i], (i, t)
+            seen[i].add(t)
+    # greedy row: the first index of the max, as the reference's argmax
+    greedy = int(JS.sample_logits(jnp.asarray(logits), jax.random.split(jax.random.key(0), B),
+                                  jnp.asarray(temp), jnp.asarray(top_k),
+                                  jnp.asarray(top_p))[0])
+    assert seen[0] == {greedy}
+    assert len(seen[2]) > 1  # row 2 really samples
+    again = TS.sample_logits(torch.from_numpy(logits),
+                             [torch.Generator().manual_seed(i) for i in range(B)], *args)
+    first = TS.sample_logits(torch.from_numpy(logits),
+                             [torch.Generator().manual_seed(i) for i in range(B)], *args)
+    assert again.tolist() == first.tolist()
+
+
+def test_seeded_request_repeats_itself(tiny):
+    _, tcfg, _, tp = tiny
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=3, dtype=torch.float64, device="cpu")
+    engine.start()
+    try:
+        kw = dict(temperature=0.9, top_k=20, top_p=0.95)
+        a = engine.submit([5, 9, 2], 12, seed=7, **kw)
+        b = engine.submit([7, 1, 4], 12, **kw)  # a neighbour with its own stream
+        c = engine.submit([5, 9, 2], 12, seed=7, **kw)
+        d = engine.submit([5, 9, 2], 12, seed=8, **kw)
+        ra, _, rc, rd = (f.result(timeout=60).tolist() for f in (a, b, c, d))
+        assert ra == rc
+        assert ra != rd
+        assert all(0 <= t < tcfg.vocab_size for t in ra + rd)
+    finally:
+        engine.shutdown()
