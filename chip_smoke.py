@@ -11,8 +11,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    decode attention at every window bucket up to 4096 (G = 1, 2, 4, 8;
    strided windows of a real cache buffer; lengths 0, mid and W), within
    1e-4 absolute + 1e-4 relative in f32; RMSNorm at rows 1, 4, 512 and
-   H = 4096 in bf16, within one bf16 ulp.  Times each kernel, its plain
-   version and, where one exists, the one PyTorch call for the function.
+   H = 4096 in bf16, within one bf16 ulp; flash attention at BERT-base
+   B32/H12/S128/D64 with a ragged key bias (one row masked everywhere),
+   the same from strided views of one projection buffer, B8/S512, causal
+   and kv_len forms at D=128 S=T=1024, S=T=50 and f32 I/O, within
+   FLASH_TOL.  Times each kernel, its plain version and, where one exists,
+   the one PyTorch call for the function (SDPA for flash attention).
 4. Loader: writes a tiny native artifact, starts ``python -m
    <port>.server --quantize int8kv`` as a subprocess and calls /generate.
 5. Serving at full width: Llama-2-7B (all 32 layers, random bf16 weights
@@ -22,6 +26,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the engine's decode dispatches and the RMSNorm launches 65 x its
    forwards.  Prints tokens/s, TTFT and the token agreement of a greedy
    request with a teacher-forced forward of its own output.
+6. Serving BERT-base at full width (12 layers, random weights from a
+   seed) over ``/v2/models/{name}/infer``: a native artifact written by
+   the port's writer, loaded with quantize none (bf16, erf GELU) and int8
+   (int8 GEMMs, tanh GELU), each behind ``build_server``: 64 single
+   requests 32 at a time, one 32 x 128 client batch and one 600-token
+   request (a 400).  Every logit must agree with an in-process classify
+   through the plain attention (BERT_TOL), flash launches must equal 12 x
+   the engine's batch dispatches, and ``/metrics`` must count the 200s and
+   the 400.  Prints B32/S128 batch latency p50/p99, requests/s, peak memory
+   and the device busy share.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.  Details, and the server
@@ -39,6 +53,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -50,7 +65,12 @@ OUT_DIR = ROOT / "chiprun_out"  # run outputs, ignored by git
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12 # H100 SXM, dense bf16 on the tensor cores
 DA_TOL = 1e-4              # decode attention, absolute and relative, f32
+# flash attention against its plain version (computed in f32 from the same
+# inputs), absolute and relative: f32 I/O, and bf16 I/O, whose output is
+# one bf16 rounding (2^-8 relative) of the kernel's f32 result.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 DETAIL: dict = {}
 
@@ -346,6 +366,131 @@ def phase_rmsnorm(rn) -> dict:
             "library_ms": t["library_ms"], "device_ms": t["device_ms"]}
 
 
+def _flash_case(gen, B, H, S, T, D, dtype, *, bias_lengths=None, causal=False,
+                kv_len=None, strided=False):
+    """Inputs of one flash case: q/k/v [B, H, S|T, D] (strided: sliced from
+    one [B, S, 3*H*D] projection buffer as BERT's views are), an optional
+    f32 key bias from per-row lengths (0 = every key masked)."""
+    import torch
+
+    dev = "cuda"
+    if strided:
+        buf = torch.randn((B, S, 3 * H * D), generator=gen, device=dev).to(dtype)
+        q, k, v = (buf[:, :, i * H * D:(i + 1) * H * D].view(B, S, H, D).transpose(1, 2)
+                   for i in range(3))
+    else:
+        q = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, H, T, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, H, T, D), generator=gen, device=dev).to(dtype)
+    bias = None
+    if bias_lengths is not None:
+        lens = torch.as_tensor(bias_lengths, device=dev)
+        bias = torch.where(torch.arange(T, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        bias = bias.to(torch.float32)
+    return {"q": q, "k": k, "v": v, "bias": bias, "causal": causal, "kv_len": kv_len}
+
+
+def _flash_work(c) -> tuple[float, float]:
+    """Bytes (each input read once, the output written once) and flops
+    (4 * D a (query, key) pair that the masks leave: kv_len and causal
+    pairs are skipped work, a bias is not)."""
+    q, k = c["q"], c["k"]
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    kv = T if c["kv_len"] is None else min(c["kv_len"], T)
+    if c["causal"]:
+        pairs = sum(min(i + 1, kv) for i in range(S))
+    else:
+        pairs = S * kv
+    size = q.element_size()
+    nbytes = 2 * B * H * S * D * size + 2 * B * H * T * D * size
+    if c["bias"] is not None:
+        nbytes += B * T * 4
+    return nbytes, 4.0 * B * H * pairs * D
+
+
+def phase_flash_attention(fa) -> dict:
+    """The flash kernel against its plain version at the listed shapes,
+    with times, the profiler's device time, the plain chain's, SDPA's and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    lens_rng = np.random.default_rng(11)
+    bert_lens = lens_rng.integers(8, 129, 32).tolist()
+    bert_lens[3] = 0  # one row with every key masked: BERT averages V
+    long_lens = lens_rng.integers(32, 513, 8).tolist()
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "bert_b32_s128_bias": dict(shape=(32, 12, 128, 128, 64, bf), bias_lengths=bert_lens),
+        "bert_b32_s128_bias_strided": dict(shape=(32, 12, 128, 128, 64, bf),
+                                           bias_lengths=bert_lens, strided=True),
+        "b8_s512_bias": dict(shape=(8, 12, 512, 512, 64, bf), bias_lengths=long_lens),
+        "causal_d128_s1024": dict(shape=(2, 16, 1024, 1024, 128, bf), causal=True),
+        "kv_len_d128_s1024": dict(shape=(2, 16, 1024, 1024, 128, bf), kv_len=700),
+        "ragged_s50": dict(shape=(4, 12, 50, 50, 64, bf)),
+        "f32_small": dict(shape=(2, 3, 70, 130, 64, f32), kv_len=97),
+    }
+    results = {}
+    worst = 0.0
+    for name, spec in cases.items():
+        B, H, S, T, D, dtype = spec.pop("shape")
+        c = _flash_case(gen, B, H, S, T, D, dtype, **spec)
+        args = (c["q"], c["k"], c["v"])
+        kw = dict(causal=c["causal"], kv_len=c["kv_len"], bias=c["bias"])
+        out = fa.flash_attention(*args, **kw)
+        ref = fa.flash_attention_reference(*(x.float() for x in args), **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).replace("torch.", "")]
+        err = (out.float() - ref).abs()
+        if not bool(torch.isfinite(out.float()).all()) or bool((err > tol + tol * ref.abs()).any()):
+            raise AssertionError(f"flash attention disagrees on {name}: max_abs_err "
+                                 f"{float(err.max()):.3e} (tol {tol} abs + {tol} rel)")
+        if c["bias"] is not None and 0 in spec.get("bias_lengths", []):
+            row = spec["bias_lengths"].index(0)
+            uniform = c["v"][row].float().mean(dim=1, keepdim=True).expand(-1, S, -1)
+            if float((out[row].float() - uniform).abs().max()) > tol + tol * float(uniform.abs().max()):
+                raise AssertionError(f"{name}: the fully masked row is not the mean of V")
+        worst = max(worst, float(err.max()))
+        fn = lambda: fa.flash_attention(*args, **kw)  # noqa: E731
+        ms = cuda_time_ms(fn, iters=100)
+        device_ms = kernel_device_ms(fn, "flash_attention_kernel")
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(*args, **kw), iters=20)
+        if c["bias"] is not None:
+            mask = c["bias"][:, None, None, :].to(dtype)
+        elif c["kv_len"] is not None:
+            mask = (torch.arange(T, device="cuda") < c["kv_len"])[None, None, None, :]
+        else:
+            mask = None
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            *args, attn_mask=mask, is_causal=c["causal"])
+        library_ms = cuda_time_ms(sdpa, iters=100)
+        nbytes, flops = _flash_work(c)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        f32_bound_ms, f32_bound_by = bound(nbytes, flops, F32_FLOPS)
+        results[name] = {
+            "shape": [B, H, S, T, D, str(dtype).replace("torch.", "")],
+            "max_abs_err": float(err.max()), "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "f32_cuda_core_bound_ms": f32_bound_ms,
+            "f32_cuda_core_bound_by": f32_bound_by, "flops": flops, "bytes": nbytes,
+        }
+        log(f"flash {name} {results[name]['shape']}: max_abs_err {float(err.max()):.3e}; "
+            f"kernel {ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} ms, SDPA "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; f32 CUDA-core "
+            f"{f32_bound_ms:.5f} ms)")
+    DETAIL["flash_attention"] = results
+    head = results["bert_b32_s128_bias"]
+    return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "f32_cuda_core_bound_ms": head["f32_cuda_core_bound_ms"],
+            "shape": head["shape"]}
+
+
 # ---------------------------------------------------------------------------
 # HTTP helpers
 # ---------------------------------------------------------------------------
@@ -579,6 +724,203 @@ def phase_serve_7b(da, rn) -> dict:
         th.join(timeout=30)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: BERT-base at full width over /v2/models/{name}/infer
+# ---------------------------------------------------------------------------
+
+# Logits of a served request against an in-process classify of the same
+# unpadded ids through the plain attention, absolute and relative.  Both
+# run bf16 weights; the served batch differs in shape (sequence and batch
+# buckets), so cuBLAS may sum in another order, and int8 adds the per-token
+# activation rounding of the other batch's GEMM shapes.
+BERT_TOL = {"none": 3e-2, "int8": 5e-2}
+
+
+def _post_code(url: str, body: dict, timeout: float = 600) -> tuple[int, dict]:
+    try:
+        return 200, _post(url, body, timeout)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _v2_ids(ids) -> dict:
+    return {"inputs": [{"name": "input_ids", "datatype": "INT32",
+                        "shape": list(ids.shape), "data": ids.reshape(-1).tolist()}]}
+
+
+def _metric_count(text: str, family: str, code: str) -> float:
+    """Sum of ``family_count`` samples labelled ``code``."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(family + "_count{") and f'code="{code}"' in line:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _serve_bert_once(fa, bert, loader, app, art, cfg, quantize: str) -> dict:
+    import numpy as np
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = loader.load_predictor(str(art), quantize=quantize, device="cuda",
+                                 dtype=torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    want_act = "gelu" if quantize == "none" else "gelu_tanh"
+    if pred.metadata["hidden_act"] != want_act:
+        raise AssertionError(f"{quantize}: hidden_act {pred.metadata['hidden_act']}")
+    config = app.ServerConfig(model_name="bert-base", host="127.0.0.1", port=0,
+                              quantize=quantize, device="cuda", max_batch_size=32,
+                              max_batch_delay_ms=5)
+    t0 = time.perf_counter()
+    srv = app.build_server(pred, config)
+    warmup_s = time.perf_counter() - t0
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    url = base + "/v2/models/bert-base/infer"
+    rng = np.random.default_rng(21)
+    lens = rng.integers(8, 129, 60).tolist() + rng.integers(200, 513, 4).tolist()
+    rng.shuffle(lens)
+    singles = [rng.integers(1, cfg.vocab_size, (1, n)).astype(np.int32) for n in lens]
+    batch = rng.integers(1, cfg.vocab_size, (32, 128)).astype(np.int32)
+    eng = srv.engine
+    try:
+        d0 = eng.dispatches
+        fa.launches = 0
+        t_s = time.perf_counter()
+        with ThreadPoolExecutor(32) as pool:
+            single_resps = list(pool.map(lambda ids: _post_code(url, _v2_ids(ids)), singles))
+        singles_s = time.perf_counter() - t_s
+        batch_resp = _post_code(url, _v2_ids(batch))
+        long_resp = _post_code(url, _v2_ids(np.ones((1, 600), np.int32)))
+        torch.cuda.synchronize()
+        launches, dispatches = fa.launches, eng.dispatches - d0
+
+        if dispatches == 0 or launches != cfg.num_layers * dispatches:
+            raise AssertionError(f"{quantize}: flash attention launched {launches} times for "
+                                 f"{dispatches} batch dispatches; expected {cfg.num_layers} x")
+        bad = [c for c, _ in single_resps if c != 200]
+        if bad or batch_resp[0] != 200:
+            raise AssertionError(f"{quantize}: non-200 answers {bad} / {batch_resp[0]}: "
+                                 f"{batch_resp[1] if batch_resp[0] != 200 else ''}")
+        if long_resp[0] != 400 or "exceeds" not in long_resp[1].get("error", ""):
+            raise AssertionError(f"{quantize}: a 600-token request got {long_resp}")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        fam = "seldon_api_executor_server_requests_seconds"
+        n200, n400 = _metric_count(text, fam, "200"), _metric_count(text, fam, "400")
+        if n200 != len(singles) + 1 or n400 != 1:
+            raise AssertionError(f"{quantize}: /metrics counts 200={n200} 400={n400}, "
+                                 f"expected {len(singles) + 1} and 1")
+
+        def logits(resp):
+            out = resp["outputs"][0]
+            return np.asarray(out["data"], np.float32).reshape(out["shape"])
+
+        got = [logits(r) for _, r in single_resps] + [logits(batch_resp[1])]
+        # The same ids, unpadded, through the plain attention (the kernel
+        # is swapped out for this reference only; the server is idle).
+        orig = bert.flash_attention
+        bert.flash_attention = fa.flash_attention_reference
+        try:
+            ref = [pred.predict(ids).float().cpu().numpy() for ids in singles + [batch]]
+        finally:
+            bert.flash_attention = orig
+        tol = BERT_TOL[quantize]
+        errs = [np.abs(g - r) for g, r in zip(got, ref)]
+        max_err = max(float(e.max()) for e in errs)
+        if any(not np.isfinite(g).all() or (e > tol + tol * np.abs(r)).any()
+               for g, r, e in zip(got, ref, errs)):
+            raise AssertionError(f"{quantize}: served logits disagree with the plain "
+                                 f"path: max_abs_err {max_err:.3e} (tol {tol} abs + rel)")
+        g_all, r_all = np.concatenate(got), np.concatenate(ref)
+        agree = float((g_all.argmax(-1) == r_all.argmax(-1)).mean())
+
+        # Batch latency at the headline shape, B32/S128, straight through
+        # the engine with a synchronize per batch.
+        ex = {"input_ids": batch, "attention_mask": np.ones_like(batch)}
+        for _ in range(5):
+            eng.predict(ex)
+        lat = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            eng.predict(ex)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng.predict(ex)
+        torch.cuda.synchronize()
+        wall10_ms = (time.perf_counter() - t0) * 1e3
+        prof, prof_wall_ms = profile_device(lambda: eng.predict(ex), iters=10)
+        busy_ms = sum(prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1])[:12]
+        flash_dev = sum(v for k, v in prof.items() if "flash_attention_kernel" in k)
+        res = {
+            "load_s": load_s, "warmup_s": warmup_s,
+            "requests": len(singles) + 1, "singles_s": singles_s,
+            "requests_per_s": len(singles) / singles_s,
+            "lengths": lens, "flash_launches": launches, "batch_dispatches": dispatches,
+            "metrics_200": n200, "metrics_400": n400,
+            "max_abs_err": max_err, "argmax_agreement": agree,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "latencies_ms": lat, "busy_ms_10": busy_ms, "wall_ms_10": wall10_ms,
+            "profiled_wall_ms_10": prof_wall_ms,
+            "busy_share": busy_ms / wall10_ms, "flash_device_ms_10": flash_dev,
+            "profile_top": top,
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        log(f"BERT-base {quantize}: {len(singles)} single requests (32 at a time, lengths "
+            f"8-128 and four of 200-512) in {singles_s:.3f} s = "
+            f"{res['requests_per_s']:.1f} req/s; one 32x128 client batch; a 600-token "
+            f"request -> 400")
+        log(f"  flash launches {launches} = {cfg.num_layers} x {dispatches} batch dispatches; "
+            f"/metrics code=200 {n200:.0f}, code=400 {n400:.0f}; logits vs plain path "
+            f"max_abs_err {max_err:.3e} (tol {tol}), argmax agreement {agree:.3f}")
+        log(f"  B32/S128 batch latency p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms "
+            f"(60 batches); device busy {busy_ms:.1f} of {wall10_ms:.1f} ms over 10 batches "
+            f"(share {res['busy_share']:.3f}; flash kernel {flash_dev:.2f} ms); peak "
+            f"{res['max_memory_gib']:.2f} GiB; load {load_s:.1f} s, warmup {warmup_s:.1f} s")
+        for name, ms_ in top[:8]:
+            log(f"  {ms_:9.3f} ms  {name[:110]}")
+        return res
+    finally:
+        srv.shutdown_all()
+        th.join(timeout=30)
+
+
+def phase_serve_bert(fa) -> dict:
+    """BERT-base (random weights from a seed) written as a native artifact
+    by the port's writer, loaded by the port's loader twice (quantize none:
+    bf16 with erf GELU; int8: int8 x int8 encoder GEMMs with tanh GELU) and
+    served through ``build_server`` over HTTP."""
+    import torch
+    from importlib import import_module
+
+    bert = import_module(f"{PKG}.models.bert")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    cfg = bert.BertConfig.base()
+    torch.cuda.empty_cache()
+    params = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    # No hidden_act in the config: the int8 load switches to tanh-GELU.
+    config = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "hidden_act"}
+    scratch = ROOT / "build"  # ignored by git
+    scratch.mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        art = loader.save_native_model(Path(tmp) / "bert-base", "bert-classifier", params,
+                                       config=config, builder_kwargs={"seq_len": 128})
+        del params
+        for quantize in ("none", "int8"):
+            out[quantize] = _serve_bert_once(fa, bert, loader, app, art, cfg, quantize)
+    DETAIL["serve_bert"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -609,10 +951,13 @@ def main() -> int:
     rn = import_module(f"{PKG}.ops.rmsnorm")
     gen_mod = import_module(f"{PKG}.server.generation")
     buckets = gen_mod.decode_window_buckets(4096)
+    fa = import_module(f"{PKG}.ops.flash_attention")
     da_res = phase_decode_attention(da, buckets)
     rn_res = phase_rmsnorm(rn)
+    fa_res = phase_flash_attention(fa)
     phase_loader_subprocess()
     serve = phase_serve_7b(da, rn)
+    bert = phase_serve_bert(fa)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
     # jax itself may arrive with torch.profiler's own imports where it is
@@ -630,6 +975,10 @@ def main() -> int:
          "source": f"{PKG}/csrc/rmsnorm.cu",
          "replaces": f"{jax_pkg}/ops/rmsnorm.py:24",
          "launches": serve["rn_launches"], **rn_res},
+        {"name": "flash_attention", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_attention.cu",
+         "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
+         "launches": sum(r["flash_launches"] for r in bert.values()), **fa_res},
     ]
     DETAIL["kernels"] = kernels
     DETAIL["wall_s"] = time.perf_counter() - t_start

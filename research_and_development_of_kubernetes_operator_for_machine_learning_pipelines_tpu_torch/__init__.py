@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the JAX package's Llama text-generation path.
+"""PyTorch/CUDA port of the JAX package's Llama text-generation path and
+its BERT V2 predict path.
 
 Mirrors the layout of
 ``research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu``
@@ -8,9 +9,11 @@ port module sits at the same relative path as its reference:
 - ``ops``     -- hand-written Hopper kernels (``csrc/*.cu``, built with
   nvcc and loaded with ctypes) beside their plain PyTorch versions;
 - ``models``  -- Llama (int8 weights, dense and int8 ragged KV caches),
-  quantization and sampling;
-- ``server``  -- the continuous-batching engine, the native-artifact
-  loader and a standard-library HTTP server for ``/generate``;
+  BERT (float or int8 x int8 encoder matmuls), quantization and sampling;
+- ``server``  -- the continuous-batching engine, the inference engine and
+  dynamic batcher, the native-artifact loader, Prometheus metrics and a
+  standard-library HTTP server for ``/generate`` and
+  ``/v2/models/{name}/infer``;
 - ``convert`` -- carries a JAX parameter tree (as numpy) across.
 
 The package imports torch and numpy only.  Entry points run on ``cuda``

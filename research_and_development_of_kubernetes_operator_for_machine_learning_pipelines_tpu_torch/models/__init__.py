@@ -1,2 +1,2 @@
-"""Llama, int8 quantization and sampling in PyTorch (port of the JAX
+"""Llama, BERT, int8 quantization and sampling in PyTorch (port of the JAX
 package's ``models/``)."""

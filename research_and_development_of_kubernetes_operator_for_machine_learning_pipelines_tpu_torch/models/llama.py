@@ -30,24 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.decode_attention import decode_attention_batched, decode_attention_vpu
-from .common import rms_norm
+from .common import matmul_f32, rms_norm
 from .quantization import is_quantized, quantize_tensor
 
 # ---------------------------------------------------------------------------
 # Products with an f32 result (the reference's preferred_element_type=f32)
 # ---------------------------------------------------------------------------
-
-
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., in] @ w [in, out]`` with an f32 result.  A bf16 product
-    on the card keeps cuBLAS's f32 accumulator as its output
-    (``out_dtype``) instead of rounding it to bf16 first."""
-    if x.dtype in (torch.float32, torch.float64):
-        return torch.matmul(x, w).to(torch.float32)
-    if x.device.type == "cuda":
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,9 +54,9 @@ def _qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     the f32 product.  On the card ``q8.to(x.dtype)`` is a transient bf16
     copy of the weight for each call (a W8A16 kernel is later work)."""
     if is_quantized(w):
-        y = _matmul_f32(x, w["q8"].to(x.dtype))
+        y = matmul_f32(x, w["q8"].to(x.dtype))
         return y * w["scale"].to(torch.float32)
-    return _matmul_f32(x, w.to(x.dtype))
+    return matmul_f32(x, w.to(x.dtype))
 
 
 @dataclass(frozen=True)

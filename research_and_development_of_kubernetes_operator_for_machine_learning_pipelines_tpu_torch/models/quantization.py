@@ -1,4 +1,5 @@
-"""Weight-only int8 quantization (symmetric, per-output-channel).
+"""Int8 quantization: symmetric, per-output-channel weights, and BERT's
+dynamic per-row activations (``dense_q8``).
 
 Port of the JAX package's ``models/quantization.py``.  A quantized leaf
 is a dict ``{"q8": int8, "scale": float32}`` with the scale kept at the
@@ -51,4 +52,60 @@ def quantize_llama(params: dict) -> dict:
     for name in _LLAMA_LAYER_MATS:
         out["layers"][name] = quantize_tensor(params["layers"][name])
     out["lm_head"] = quantize_tensor(params["lm_head"])
+    return out
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] int8 @ b [K, N] int8`` -> int32, exact.
+
+    On the card this is cuBLASLt's int8 GEMM (``torch._int_mm``), which
+    takes only M > 16: smaller row counts are padded with zero rows and
+    sliced back.  On the CPU the int32 product is exact as well."""
+    m = a.shape[0]
+    if a.device.type == "cuda" and m <= 16:
+        a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
+        return torch._int_mm(a, b)[:m]
+    return torch._int_mm(a, b)
+
+
+def dense_q8(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Dynamic-activation int8 matmul: ``x [..., in] @ q8 [in, out]``.
+
+    Activations quantize per row (per token) with :func:`quantize_tensor`
+    over the contraction axis, multiply the int8 weight into an exact
+    int32 product, and rescale by ``a_scale * w_scale`` in f32 (the
+    reference's ``dense_q8``).  The reference runs this under jit, where
+    ``/ 127`` becomes ``* (1/127)``; this port divides, as the formula is
+    written (ROADMAP C), so an activation code can sit one step away."""
+    qa = quantize_tensor(x, axis=-1)
+    x8, a_scale = qa["q8"], qa["scale"]
+    k = x8.shape[-1]
+    y = _int_mm(x8.reshape(-1, k), qw["q8"]).reshape(*x8.shape[:-1], -1)
+    y32 = y.to(torch.float32) * a_scale * qw["scale"].reshape(-1)
+    if b is not None:
+        y32 = y32 + b.to(torch.float32)
+    return y32.to(x.dtype)
+
+
+# BERT dense layers worth int8-ing: the six big matmuls of each encoder
+# layer.  The pooler, classifier and embeddings stay as they are.
+_BERT_LAYER_MATS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+                    ("mlp", "up"), ("mlp", "down"))
+
+
+def quantize_bert(params: dict) -> dict:
+    """A params tree with each encoder layer's six dense weights as int8
+    leaves: the dense dicts keep their ``b`` and hold ``{"q8", "scale"}``
+    in place of ``w``, which ``models/bert.py`` routes through
+    :func:`dense_q8`."""
+    out = dict(params)
+    layers = []
+    for layer in params["layers"]:
+        new_layer = {k: dict(v) for k, v in layer.items()}
+        for group, name in _BERT_LAYER_MATS:
+            d = dict(new_layer[group][name])
+            d["w"] = quantize_tensor(d["w"])
+            new_layer[group][name] = d
+        layers.append(new_layer)
+    out["layers"] = layers
     return out

@@ -1,0 +1,189 @@
+"""Flash attention: a CUDA kernel (``csrc/flash_attention.cu``) and its
+plain version.
+
+Replaces ``_flash_kernel`` of the JAX package's ``ops/flash_attention.py``:
+blockwise online-softmax attention over ``[B, H, S, D]`` queries and
+``[B, H, T, D]`` keys/values, f32 or bf16 in, q's type out.  Scores are
+``(q * scale) . k`` in f32; the ``kv_len`` mask (keys at or past
+``kv_len``) and the causal mask (key > query) replace a score with
+-1e30; a row with no key to attend (``kv_len <= 0``) comes out 0.  Any
+S and T; the kernel masks its ragged tiles itself.
+
+Two additions let BERT's ``_self_attention`` run through it unchanged;
+both compute what ``models/bert.py`` computes:
+
+- **strided q/k/v**: any batch, head and position strides with a dense
+  last axis, so the ``[B, S, NH, HD]`` projection outputs go in as their
+  ``.transpose(1, 2)`` views, without a copy.  The output is returned as
+  a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so such a caller
+  takes it back with ``.transpose(1, 2)``, again without a copy;
+- **an additive f32 key bias** ``[B, T]`` (BERT's ``mask_bias``), added
+  to the scaled scores BEFORE the replacement masks.  A row whose bias
+  masks every key therefore averages V uniformly, as BERT's reference
+  does, where a ``kv_len`` mask of every key would give 0.
+
+On the H100 the kernel is bound by its f32 arithmetic (see the source for
+the design note).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+
+# Kernel launches since import (the plain version never counts).
+launches = 0
+
+_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q . k`` over the last axis with an f32 result: f64 operands
+    contract in f64 and round, narrower ones contract in f32."""
+    if q.dtype == torch.float64:
+        return torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
+    return torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32))
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    kv_len: int | None = None,
+    scale: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version with the kernel's contract: the
+    ``attention_reference`` chain plus the key bias, with the softmax
+    in f32 and the probabilities kept in f32 (f64 for f64 inputs) for
+    the product with V, as the kernel keeps them."""
+    d = q.shape[-1]
+    s_q, t = q.shape[2], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    s = _scores_f32(q, k) * scale
+    if bias is not None:
+        s = s + bias.to(torch.float32)[:, None, None, :]
+    valid = torch.ones((s_q, t), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        valid = valid & (torch.arange(t, device=q.device) < kv_len)[None, :]
+    if causal:
+        qi = torch.arange(s_q, device=q.device)[:, None]
+        valid = valid & (torch.arange(t, device=q.device)[None, :] <= qi)
+    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid.any(dim=-1, keepdim=True), p, torch.zeros((), device=q.device))
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(wide), v.to(wide))
+    return out.to(q.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_attention").flash_attention_launch
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [
+            i32, i32, i32,
+            vp, ll, ll, ll,
+            vp, ll, ll, ll,
+            vp, ll, ll, ll,
+            vp, ll,
+            vp, ll, ll, ll,
+            i32, i32, i32, i32, i32, ctypes.c_float, vp,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(q, k, v, causal, kv_len, scale, bias):
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    for name, t in (("k", k), ("v", v)) + ((("bias", bias),) if bias is not None else ()):
+        if t.device != q.device:
+            raise ValueError(f"flash attention: {name} on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash attention kernel takes float32 or bfloat16 q/k/v of one "
+            f"type, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if q.dim() != 4:
+        raise ValueError(f"flash attention: q must be [B, H, S, D], got {tuple(q.shape)}")
+    b, h, s_q, d = q.shape
+    t = k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes D in {_HEAD_DIMS}, got {d}")
+    if k.shape != (b, h, t, d) or v.shape != (b, h, t, d):
+        raise ValueError(
+            f"flash attention: shapes disagree: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    if s_q == 0 or t == 0:
+        raise ValueError(f"flash attention: empty sequence (S={s_q}, T={t})")
+    if b * h > 2**31 - 1 or (s_q + 63) // 64 > 65535:
+        raise ValueError(f"flash attention: grid too large for B*H={b * h}, S={s_q}")
+    if bias is not None and (
+        bias.dtype != torch.float32 or bias.shape != (b, t) or bias.stride(1) != 1
+    ):
+        raise ValueError(
+            f"flash attention: bias must be float32 [B, T] = [{b}, {t}] with a "
+            f"dense last axis, got {bias.dtype} {tuple(bias.shape)}"
+        )
+    size = q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"flash attention: {name} needs a dense last axis, "
+                             f"got strides {x.stride()}")
+    for name, x in (("k", k), ("v", v)):
+        # K/V tiles are staged with 16-byte loads.
+        if x.data_ptr() % 16 or any((st * size) % 16 for st in x.stride()[:3]):
+            raise ValueError(
+                f"flash attention: {name} needs 16-byte aligned base and "
+                f"strides, got strides {x.stride()} at {x.data_ptr():#x}"
+            )
+    kv = t if kv_len is None else int(kv_len)
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = _kernel()(
+        _DTYPES[q.dtype], d, int(bool(causal)),
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+        bias.data_ptr() if bias is not None else None,
+        bias.stride(0) if bias is not None else 0,
+        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        b, h, s_q, t, kv, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
+    launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    kv_len: int | None = None,
+    scale: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Attention over ``[B, H, S, D]`` x ``[B, H, T, D]`` -> ``[B, H, S, D]``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises (unsupported type, D, device, alignment, build or
+    launch), never falling back."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, kv_len, scale, bias)
+    return _launch(q, k, v, causal, kv_len, scale, bias)

@@ -1,4 +1,5 @@
-"""``python -m <package>.server`` — start the port's /generate server."""
+"""``python -m <package>.server`` — start the port's model server (/generate
+or /v2/models/{name}/infer, by the artifact's flavor)."""
 
 from .app import main
 

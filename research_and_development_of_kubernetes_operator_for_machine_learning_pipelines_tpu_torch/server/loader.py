@@ -1,6 +1,6 @@
 """Model loading: URI -> artifact directory -> Predictor (port of the JAX
 package's ``server/loader.py``; the native ``params.npz`` + ``config.json``
-artifact of flavor ``llama-generate``).
+artifact of flavors ``llama-generate`` and ``bert-classifier``).
 
 The artifact layout is the reference's, so an artifact written by the
 JAX package's ``save_native_model`` loads here unchanged: ``params.npz``
@@ -12,6 +12,8 @@ bit for bit (``convert.to_tensor``).
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import logging
 from pathlib import Path
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..convert import to_numpy, to_tensor
-from ..models.registry import Predictor, _build_llama
+from ..models.registry import BUILDERS, Predictor
 from .generation import resolve_device
 
 _log = logging.getLogger("tpumlops_torch.loader")
@@ -115,6 +117,41 @@ def save_native_model(
     return path
 
 
+_CONFIG_CLASSES = {
+    "bert-classifier": ("bert", "BertConfig"),
+    "llama-generate": ("llama", "LlamaConfig"),
+}
+
+
+def _build_config(flavor: str, config_dict: dict) -> Any:
+    mod_name, cls_name = _CONFIG_CLASSES[flavor]
+    cls = getattr(importlib.import_module(f"..models.{mod_name}", __package__), cls_name)
+    known = set(cls.__dataclass_fields__)
+    return cls(**{k: v for k, v in config_dict.items() if k in known})
+
+
+def _cast_floats(tree: Any, dtype) -> Any:
+    """Cast float leaves to ``dtype``; int8 leaves keep their q8 and f32 scale."""
+    if isinstance(tree, dict):
+        if "q8" in tree and "scale" in tree:
+            return tree
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_floats(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
+    with np.load(path, allow_pickle=False) as npz:
+        flat = {}
+        for key in npz.files:
+            # int8 leaves of a pre-quantized tree keep their type; their
+            # scales stay f32 whatever the serving type.
+            leaf_dtype = None if key.endswith(f"{_SEP}scale") else dtype
+            flat[key] = to_tensor(npz[key], dev, leaf_dtype)
+    return _unflatten(flat)
+
+
 def load_predictor(
     model_uri: str,
     flavor: str | None = None,
@@ -122,13 +159,19 @@ def load_predictor(
     device=None,
     dtype=torch.bfloat16,
 ) -> Predictor:
-    """Load a native ``llama-generate`` artifact onto ``device`` (``cuda``
-    unless named).  Float leaves are cast to ``dtype`` (None keeps them as
-    stored); ``quantize`` ``int8``/``int8kv`` turns the layer matmuls and
-    the LM head into int8 leaves on the device (``int8kv`` also selects
-    the int8 KV cache, which is the engine's option)."""
-    from ..models import llama
-    from ..models.quantization import quantize_llama
+    """Load a native artifact onto ``device`` (``cuda`` unless named).
+
+    Float leaves are cast to ``dtype`` (None keeps them as stored).
+
+    - ``llama-generate``: ``quantize`` ``int8``/``int8kv`` turns the layer
+      matmuls and the LM head into int8 leaves on the device (``int8kv``
+      also selects the int8 KV cache, which is the engine's option).
+    - ``bert-classifier``: ``int8`` quantizes each encoder layer's six
+      dense weights from the stored values (``quantize_bert``) and, unless
+      the artifact pins ``hidden_act``, switches the MLP to tanh-GELU, as
+      the reference's loader does; ``int8kv`` is an error (BERT has no KV
+      cache)."""
+    from ..models.quantization import quantize_bert, quantize_llama
 
     quantize = quantize or "none"
     if quantize not in QUANTIZE_MODES:
@@ -143,26 +186,35 @@ def load_predictor(
             f"{path} has no params.npz: only the native artifact is ported "
             "(the HF loader is not yet ported)"
         )
-    if flavor != "llama-generate":
+    if flavor not in BUILDERS:
         raise ModelLoadError(
-            f"flavor {flavor!r} is not yet ported (the port serves llama-generate)"
+            f"flavor {flavor!r} is not yet ported (the port serves "
+            f"{', '.join(sorted(BUILDERS))})"
         )
-    with np.load(path / "params.npz", allow_pickle=False) as npz:
-        flat = {}
-        for key in npz.files:
-            arr = npz[key]
-            # int8 leaves of a pre-quantized tree keep their type; their
-            # scales stay f32 whatever the serving type.
-            leaf_dtype = None if key.endswith(f"{_SEP}scale") else dtype
-            flat[key] = to_tensor(arr, dev, leaf_dtype)
-    params = _unflatten(flat)
-    known = set(llama.LlamaConfig.__dataclass_fields__)
-    cfg = llama.LlamaConfig(
-        **{k: v for k, v in meta.get("config", {}).items() if k in known}
-    )
-    if quantize != "none":
-        params = quantize_llama(params)
+    raw_config = meta.get("config", {})
+    cfg = _build_config(flavor, raw_config)
+    if flavor == "llama-generate":
+        params = _read_npz(path / "params.npz", dev, dtype)
+        if quantize != "none":
+            params = quantize_llama(params)
+    else:
+        if quantize == "int8kv":
+            raise ModelLoadError(
+                "int8kv quantizes a KV cache; bert-classifier has none -- use "
+                "quantize: int8"
+            )
+        params = _read_npz(path / "params.npz", dev, None)
+        if quantize == "int8":
+            params = quantize_bert(params)
+            if "hidden_act" not in raw_config:
+                cfg = dataclasses.replace(cfg, hidden_act="gelu_tanh")
+                _log.info("int8 path substituting hidden_act=gelu_tanh for an "
+                          "artifact without a hidden_act pin")
+        if dtype is not None:
+            params = _cast_floats(params, dtype)
     _log.info("loaded native %s model from %s onto %s (quantize=%s)",
               flavor, path, dev, quantize)
     kwargs = dict(meta.get("builder_kwargs", {}))
-    return _build_llama(params, cfg, dtype=dtype or torch.bfloat16, **kwargs)
+    if flavor == "llama-generate":
+        dtype = dtype or torch.bfloat16
+    return BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs)

@@ -1,0 +1,175 @@
+"""The port's flash attention (its plain version, on CPU tensors) against
+the JAX package's Pallas flash kernel and its XLA oracle.
+
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
+this plain version there).  Here the five cases of the JAX package's own
+flash tests go through both packages with the same inputs, made from a
+seeded numpy generator; the Pallas kernel runs in interpret mode, as the
+JAX package's tests run it.  Then the port's additions: the additive key
+bias and strided q/k/v, against the einsum chain of BERT's
+``_self_attention``.
+
+Tolerances: f32 2e-5 absolute and relative, as the JAX package's own
+flash tests (summation order and where the scale is applied).  bf16 I/O:
+1e-2 against the Pallas kernel (both keep the probabilities in f32 and
+round the output once, so they differ by at most about one bf16 ulp), and
+3e-2 against the oracle, which also rounds the probabilities to bf16 (the
+JAX package's own bf16 tolerance).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch import (
+    convert,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
+    bert as TB,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.ops import (
+    flash_attention as tfa,
+)
+from tpumlops.models import bert as JB
+
+jfa = importlib.import_module("tpumlops.ops.flash_attention")
+
+# The JAX side jitted: one compile per shape.
+_jflash = jax.jit(jfa.flash_attention, static_argnames=(
+    "causal", "kv_len", "scale", "block_q", "block_k", "interpret"))
+_joracle = jax.jit(jfa.attention_reference, static_argnames=("causal", "kv_len", "scale"))
+
+F32_TOL = dict(atol=2e-5, rtol=2e-5)
+BF16_TOL_FLASH = dict(atol=1e-2, rtol=1e-2)
+BF16_TOL_ORACLE = dict(atol=3e-2, rtol=3e-2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors gain nothing from intra-op threads; one thread keeps
+    this module from crowding tests that run beside it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(b=2, h=3, s=64, d=16, t=None, seed=0):
+    t = t or s
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, s, d)).astype(np.float32),
+            rng.standard_normal((b, h, t, d)).astype(np.float32),
+            rng.standard_normal((b, h, t, d)).astype(np.float32))
+
+
+# The cases of the JAX package's tests/test_ops.py flash tests: shapes,
+# masks and Pallas tiles.
+CASES = {
+    "full": dict(shape=dict(), kw=dict(), tiles=32),
+    "causal": dict(shape=dict(s=48), kw=dict(causal=True), tiles=16),
+    "non_divisible": dict(shape=dict(s=50, t=50), kw=dict(), tiles=16),
+    "kv_len": dict(shape=dict(s=32, t=64), kw=dict(kv_len=40), tiles=16),
+    "bf16_io": dict(shape=dict(s=32), kw=dict(), tiles=16, bf16=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_pallas_and_oracle(case):
+    c = CASES[case]
+    q, k, v = _qkv(**c["shape"], seed=len(case))
+    bf16 = c.get("bf16", False)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32) for x in (q, k, v))
+    pallas = _jflash(jq, jk, jv, interpret=True, block_q=c["tiles"], block_k=c["tiles"],
+                     **c["kw"])
+    oracle = _joracle(jq, jk, jv, **c["kw"])
+    tq, tk, tv = (convert.to_tensor(np.asarray(x)) for x in (jq, jk, jv))
+    launches = tfa.launches
+    out = tfa.flash_attention(tq, tk, tv, **c["kw"])
+    assert tfa.launches == launches  # CPU tensors never reach the kernel
+    assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert out.shape == q.shape
+    got = out.float().numpy()
+    tol_flash = BF16_TOL_FLASH if bf16 else F32_TOL
+    tol_oracle = BF16_TOL_ORACLE if bf16 else F32_TOL
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **tol_flash)
+    np.testing.assert_allclose(got, np.asarray(oracle, np.float32), **tol_oracle)
+
+
+def test_no_key_to_attend_gives_zero_rows():
+    """kv_len 0 leaves every row without a key: the kernel's l == 0 rule."""
+    q, k, v = _qkv(s=8, t=8)
+    out = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), kv_len=0)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def _bert_chain(q, k, v, mask_bias):
+    """The attention lines of the JAX package's ``bert._self_attention``
+    on [B, S, NH, HD] projections and a [B, 1, 1, S] bias."""
+    hd = q.shape[-1]
+    scores = jnp.einsum("bqnd,bknd->bnqk", q, k,
+                        preferred_element_type=jnp.float32) / jnp.sqrt(jnp.float32(hd))
+    probs = jax.nn.softmax(scores + mask_bias, axis=-1).astype(q.dtype)
+    return jnp.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_bias_and_strided_views_match_the_bert_chain(hd):
+    """q/k/v sliced from one [B, S, 3*NH*HD] projection buffer, taken as
+    [B, NH, S, HD] views without a copy; a ragged mask with one row
+    masked everywhere, which BERT averages uniformly."""
+    b, s, nh = 3, 20, 2
+    rng = np.random.default_rng(hd)
+    buf = rng.standard_normal((b, s, 3 * nh * hd)).astype(np.float32)
+    mask = np.ones((b, s), np.float32)
+    mask[1, 13:] = 0
+    mask[2, :] = 0  # all keys masked
+    mask_bias = (1.0 - mask) * -1e9
+    jq, jk, jv = (jnp.asarray(buf[..., i * nh * hd:(i + 1) * nh * hd].reshape(b, s, nh, hd))
+                  for i in range(3))
+    want = np.asarray(jax.jit(_bert_chain)(jq, jk, jv, jnp.asarray(mask_bias)[:, None, None, :]))
+
+    tbuf = torch.from_numpy(buf)
+    views = [tbuf[..., i * nh * hd:(i + 1) * nh * hd].view(b, s, nh, hd).transpose(1, 2)
+             for i in range(3)]
+    assert views[0].data_ptr() == tbuf.data_ptr()  # views, not copies
+    out = tfa.flash_attention(*views, scale=1.0 / hd**0.5, bias=torch.from_numpy(mask_bias))
+    got = out.transpose(1, 2).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    # The fully masked row is the uniform average of V, not 0.
+    np.testing.assert_allclose(got[2], np.broadcast_to(np.asarray(jv[2]).mean(0), got[2].shape),
+                               **F32_TOL)
+
+
+def test_self_attention_block_matches_jax_in_f64():
+    """The whole attention block (projections, flash attention with the
+    bias, output projection) in f64: f32 scores and softmax on both sides,
+    so the two agree to f32 rounding."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        cfg = JB.BertConfig.tiny()
+        jp = JB.init(jax.random.key(1), cfg)
+        jp = jax.tree.map(lambda x: x.astype(jnp.float64), jp)
+        p = jp["layers"][0]["attn"]
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal((2, 24, cfg.hidden_size))
+        mask = np.ones((2, 24), np.int32)
+        mask[0, 17:] = 0
+        jbias = (1.0 - jnp.asarray(mask)[:, None, None, :].astype(jnp.float32)) * -1e9
+        want = np.asarray(jax.jit(JB._self_attention, static_argnums=(3,))(
+            p, jnp.asarray(x), jbias, cfg))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    tp = convert.from_jax_numpy(jax.device_get(p))
+    tbias = (1.0 - torch.from_numpy(mask).float()) * -1e9
+    got = TB._self_attention(tp, torch.from_numpy(x), tbias, TB.BertConfig.tiny()).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_unsupported_device_raises_instead_of_falling_back():
+    q, k, v = (torch.from_numpy(x).to("meta") for x in _qkv(s=8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention(q, k, v)

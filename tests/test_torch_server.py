@@ -133,7 +133,7 @@ def test_loader_rejects_what_is_not_ported(tmp_path, artifact):
     with pytest.raises(tloader.ModelLoadError, match="quantize"):
         tloader.load_predictor(str(path), quantize="int4", device="cpu")
     with pytest.raises(tloader.ModelLoadError, match="not yet ported"):
-        tloader.load_predictor(str(path), flavor="bert-classifier", device="cpu")
+        tloader.load_predictor(str(path), flavor="resnet-classifier", device="cpu")
 
 
 @pytest.fixture(scope="module")
