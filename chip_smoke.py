@@ -14,9 +14,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    H = 4096 in bf16, within one bf16 ulp; flash attention at BERT-base
    B32/H12/S128/D64 with a ragged key bias (one row masked everywhere),
    the same from strided views of one projection buffer, B8/S512, causal
-   and kv_len forms at D=128 S=T=1024, S=T=50 and f32 I/O, within
-   FLASH_TOL.  Times each kernel, its plain version and, where one exists,
-   the one PyTorch call for the function (SDPA for flash attention).
+   and kv_len forms at D=128 S=T=1024, S=T=50, f32 I/O and kv_len 0 (every
+   row the mean of V), within FLASH_TOL.  Times each kernel, its plain
+   version and, where one exists, the one PyTorch call for the function
+   (``F.rms_norm``, SDPA for flash attention), each with the profiler's
+   device time beside its CUDA-event time.
+3b. D-major decode attention against its plain version at the layout
+   probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
+   768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
+   buffer (one fully masked row, ragged lengths), within 1e-4 absolute +
+   1e-4 relative; against the head-major decode kernel through the
+   self-row identity at the probe's shapes; its time, the profiler's
+   device time, the head-major kernel's on the same values and the byte
+   bound.  Then the path that runs it: the port's layout probe
+   (``<port>.scripts.proto_dmajor_attention``) in process, with its
+   parity assert and its launch counts.
 4. Loader: writes a tiny native artifact, starts ``python -m
    <port>.server --quantize int8kv`` as a subprocess and calls /generate.
 5. Serving at full width: Llama-2-7B (all 32 layers, random bf16 weights
@@ -124,9 +136,24 @@ def profile_device(fn, iters: int = 20) -> tuple[dict[str, float], float]:
 def kernel_device_ms(fn, needle: str, iters: int = 50) -> float | None:
     """Mean device ms per call of the kernels whose name holds ``needle``;
     None when the profiler saw no device time for them."""
-    by_kernel, _ = profile_device(fn, iters)
-    total = sum(v for k, v in by_kernel.items() if needle in k)
-    return total / iters if total else None
+    for _ in range(2):  # a profiler window now and then comes back empty
+        by_kernel, _ = profile_device(fn, iters)
+        total = sum(v for k, v in by_kernel.items() if needle in k)
+        if total:
+            return total / iters
+    return None
+
+
+def device_ms_per_call(fn, iters: int = 50) -> float | None:
+    """Mean device ms per call of ``fn``, all the kernels it launches
+    together (a library call may launch several); None when the profiler
+    saw no device time."""
+    for _ in range(2):  # a profiler window now and then comes back empty
+        by_kernel, _ = profile_device(fn, iters)
+        total = sum(by_kernel.values())
+        if total:
+            return total / iters
+    return None
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -348,6 +375,8 @@ def phase_rmsnorm(rn) -> dict:
                            if lib is not None else None),
         }
         t["device_ms"] = kernel_device_ms(lambda: rn.rmsnorm(x, scale, 1e-5), "rmsnorm_kernel")
+        t["library_device_ms"] = (device_ms_per_call(lambda: lib(x, (H,), scale, 1e-5))
+                                  if lib is not None else None)
         nbytes = 2 * rows * H * 2 + H * 2
         t["bound_ms"], t["bound_by"] = bound(nbytes, 4 * rows * H, F32_FLOPS)
         timings[rows] = t
@@ -357,13 +386,15 @@ def phase_rmsnorm(rn) -> dict:
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  rows={rows}: kernel {t['ms']:.4f} ms a call (device time alone "
             f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, "
-            f"F.rms_norm {lib} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"F.rms_norm {lib} ms (device time alone {t['library_device_ms']} ms), "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     DETAIL["rmsnorm"] = {"max_ulp": worst_ulp, "max_abs_err": worst_abs,
                          "timings": timings}
     t = timings[4]  # decode: one row per slot, the path's most frequent shape
     return {"max_abs_err": worst_abs, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "device_ms": t["device_ms"]}
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"]}
 
 
 def _flash_case(gen, B, H, S, T, D, dtype, *, bias_lengths=None, causal=False,
@@ -398,7 +429,11 @@ def _flash_work(c) -> tuple[float, float]:
     B, H, S, D = q.shape
     T = k.shape[2]
     kv = T if c["kv_len"] is None else min(c["kv_len"], T)
-    if c["causal"]:
+    if kv <= 0:  # every key masked: the softmax still runs over all T keys
+        kv, causal = T, False
+    else:
+        causal = c["causal"]
+    if causal:
         pairs = sum(min(i + 1, kv) for i in range(S))
     else:
         pairs = S * kv
@@ -433,6 +468,9 @@ def phase_flash_attention(fa) -> dict:
         "kv_len_d128_s1024": dict(shape=(2, 16, 1024, 1024, 128, bf), kv_len=700),
         "ragged_s50": dict(shape=(4, 12, 50, 50, 64, bf)),
         "f32_small": dict(shape=(2, 3, 70, 130, 64, f32), kv_len=97),
+        # every key masked, T not a multiple of the kernel's tiles: the mean
+        # of V over the T keys, as attention_reference gives
+        "f32_kv_len0": dict(shape=(2, 3, 70, 130, 64, f32), kv_len=0),
     }
     results = {}
     worst = 0.0
@@ -454,6 +492,10 @@ def phase_flash_attention(fa) -> dict:
             uniform = c["v"][row].float().mean(dim=1, keepdim=True).expand(-1, S, -1)
             if float((out[row].float() - uniform).abs().max()) > tol + tol * float(uniform.abs().max()):
                 raise AssertionError(f"{name}: the fully masked row is not the mean of V")
+        if c["kv_len"] == 0:
+            mean_v = c["v"].float().mean(dim=2, keepdim=True).expand(-1, -1, S, -1)
+            if float((out.float() - mean_v).abs().max()) > tol + tol * float(mean_v.abs().max()):
+                raise AssertionError(f"{name}: kv_len 0 rows are not the mean of V")
         worst = max(worst, float(err.max()))
         fn = lambda: fa.flash_attention(*args, **kw)  # noqa: E731
         ms = cuda_time_ms(fn, iters=100)
@@ -468,27 +510,190 @@ def phase_flash_attention(fa) -> dict:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             *args, attn_mask=mask, is_causal=c["causal"])
         library_ms = cuda_time_ms(sdpa, iters=100)
+        library_device_ms = device_ms_per_call(sdpa)
         nbytes, flops = _flash_work(c)
         bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
         f32_bound_ms, f32_bound_by = bound(nbytes, flops, F32_FLOPS)
         results[name] = {
             "shape": [B, H, S, T, D, str(dtype).replace("torch.", "")],
             "max_abs_err": float(err.max()), "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "f32_cuda_core_bound_ms": f32_bound_ms,
             "f32_cuda_core_bound_by": f32_bound_by, "flops": flops, "bytes": nbytes,
         }
         log(f"flash {name} {results[name]['shape']}: max_abs_err {float(err.max()):.3e}; "
             f"kernel {ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} ms, SDPA "
-            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; f32 CUDA-core "
+            f"{library_ms:.4f} ms (device {library_device_ms} ms), bound {bound_ms:.5f} ms "
+            f"({bound_by}; f32 CUDA-core "
             f"{f32_bound_ms:.5f} ms)")
     DETAIL["flash_attention"] = results
     head = results["bert_b32_s128_bias"]
     return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "library_device_ms": head["library_device_ms"],
             "f32_cuda_core_bound_ms": head["f32_cuda_core_bound_ms"],
             "shape": head["shape"]}
+
+
+def _dm_case(dm, gen, B, NKV, D, W, lengths, qdtype=None, pad_w=None, copies=1):
+    """Inputs of one D-major case as the probe draws them, on the card:
+    head-major int8 K/V [copies, B, NKV, W, D], scales, f32 (or bf16) q,
+    the 0 / -1e9 mask, and real D-major copies.  ``pad_w``: the D-major
+    window is a [..., :W] slice of a buffer ``pad_w`` wide."""
+    import torch
+
+    dev = "cuda"
+    wb = pad_w or W
+    shape = (copies, B, NKV, wb, D)
+    k8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.randn(shape[:4] + (1,), generator=gen, device=dev).abs() * 0.01 + 1e-3
+    vs = torch.randn(shape[:4] + (1,), generator=gen, device=dev).abs() * 0.01 + 1e-3
+    q = torch.randn((B, NKV, 1, D), generator=gen, device=dev).to(qdtype or torch.float32)
+    mask = dm.length_mask(torch.as_tensor(lengths, device=dev), W)
+    t = lambda x: x.transpose(-2, -1).contiguous()  # noqa: E731
+    k8t, v8t, kst, vst = t(k8)[..., :W], t(v8)[..., :W], t(ks)[..., :W], t(vs)[..., :W]
+    k8, v8, ks, vs = k8[:, :, :, :W], v8[:, :, :, :W], ks[:, :, :, :W], vs[:, :, :, :W]
+    return {"q": q, "qt": t(q), "mask": mask, "lengths": lengths,
+            "head": [(k8[i], ks[i], v8[i], vs[i]) for i in range(copies)],
+            "dmajor": [(k8t[i], kst[i], v8t[i], vst[i]) for i in range(copies)]}
+
+
+def _dm_bytes_flops(B, NKV, D, W, itemsize):
+    nbytes = (B * NKV * D * itemsize      # q
+              + 2 * B * NKV * D * W       # k8t, v8t
+              + 2 * B * NKV * W * 4       # ks, vs
+              + B * W * 4                 # mask
+              + B * NKV * D * 4)          # out
+    # q * scale; the scores (2DW), * ks + mask, - max, exp, p * vs, the sum
+    # of p; the context (2DW); the division.
+    flops = B * NKV * (4 * D * W + 6 * W + 2 * D)
+    return nbytes, flops
+
+
+def phase_dmajor_attention(dm, da) -> dict:
+    """The D-major kernel against its plain version at the listed shapes,
+    against the head-major decode kernel through the self-row identity,
+    its times beside the head-major kernel's and the bound, then the
+    port's layout probe in process (the path that runs the kernel)."""
+    import math
+
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    gen = torch.Generator(device="cuda").manual_seed(3141)
+    rng = np.random.default_rng(17)
+    NKV, D, W = dm.NKV, dm.D, dm.W
+    probe_lengths = {b: (np.arange(b) * (W // b) + 1).tolist() for b in (8, 32)}
+    cases = {f"probe_b{b}": dict(B=b, NKV=NKV, D=D, W=W, lengths=probe_lengths[b])
+             for b in (8, 32)}
+    for w in (96, 192, 768, 4096):  # one fully masked row, ragged lengths
+        cases[f"w{w}"] = dict(B=4, NKV=NKV, D=D, W=w, lengths=[0, 1, w // 3, w])
+    cases["d64"] = dict(B=4, NKV=NKV, D=64, W=W, lengths=rng.integers(1, W + 1, 4).tolist())
+    cases["bf16_q"] = dict(B=4, NKV=NKV, D=D, W=W, lengths=[0, 37, 300, W],
+                           qdtype=torch.bfloat16)
+    # W not a multiple of 4, as a slice of a wider buffer: the byte-load tail
+    cases["w97_sliced"] = dict(B=3, NKV=4, D=32, W=97, lengths=[0, 50, 97], pad_w=100)
+    worst = 0.0
+    for name, spec in cases.items():
+        c = _dm_case(dm, gen, **spec)
+        args = (c["qt"], *c["dmajor"][0], c["mask"])
+        out = dm.attn_dmajor(*args)
+        ref = dm.attn_dmajor_reference(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
+            raise AssertionError(f"dmajor attention disagrees on {name}: max_abs_err "
+                                 f"{float(err.max()):.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+        if spec["lengths"][0] == 0:  # masked everywhere: the mean over W of vs * v
+            k8t, kst, v8t, vst = c["dmajor"][0]
+            uniform = (v8t[0].float() * vst[0]).mean(dim=-1, keepdim=True)
+            if float((out[0] - uniform).abs().max()) > DA_TOL + DA_TOL * float(uniform.abs().max()):
+                raise AssertionError(f"dmajor {name}: the fully masked row is not uniform")
+        worst = max(worst, float(err.max()))
+        if name.startswith("probe_"):
+            hm_in = dm.headmajor_self_row_inputs(c["q"], *c["head"][0], c["lengths"])
+            hm = da.decode_attention(*hm_in).transpose(2, 3)
+            torch.cuda.synchronize()
+            herr = (out - hm).abs()
+            if bool((herr > DA_TOL + DA_TOL * hm.abs()).any()):
+                raise AssertionError(f"dmajor vs head-major kernel on {name}: max_abs_err "
+                                     f"{float(herr.max()):.3e}")
+            log(f"dmajor {name}: vs the head-major kernel through the self-row identity "
+                f"max_abs_err {float(herr.max()):.3e}")
+    log(f"dmajor attention: {len(cases)} shapes against the plain version, max_abs_err "
+        f"{worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+
+    # Timing at the probe's shapes.  Calls rotate over enough copies of the
+    # window that the working set exceeds the 50 MB L2, as 24 layers would.
+    timings = {}
+    for b in (8, 32):
+        nbytes, flops = _dm_bytes_flops(b, NKV, D, W, 4)
+        copies = max(2, math.ceil(150e6 / nbytes))
+        c = _dm_case(dm, gen, b, NKV, D, W, probe_lengths[b], copies=copies)
+        dviews = [(c["qt"], k, ks, v, vs, c["mask"]) for k, ks, v, vs in c["dmajor"]]
+        hviews = [dm.headmajor_self_row_inputs(c["q"], *h, c["lengths"]) for h in c["head"]]
+        it = {"i": 0}
+
+        def rotate(fn, views, it=it):
+            it["i"] += 1
+            return fn(*views[it["i"] % len(views)])
+
+        kern = lambda: rotate(dm.attn_dmajor, dviews)  # noqa: E731
+        head = lambda: rotate(da.decode_attention, hviews)  # noqa: E731
+        t = {
+            "ms": cuda_time_ms(kern, iters=200),
+            "device_ms": kernel_device_ms(kern, "dmajor_attention_kernel"),
+            # the same window every call, as the probe's chain sees it (L2-warm)
+            "device_ms_same_window": kernel_device_ms(lambda: dm.attn_dmajor(*dviews[0]),
+                                                      "dmajor_attention_kernel"),
+            "plain_ms": cuda_time_ms(lambda: rotate(dm.attn_dmajor_reference, dviews), iters=20),
+            "headmajor_ms": cuda_time_ms(head, iters=200),
+            "headmajor_device_ms": kernel_device_ms(head, "decode_attention_kernel"),
+            "headmajor_device_ms_same_window": kernel_device_ms(
+                lambda: da.decode_attention(*hviews[0]), "decode_attention_kernel"),
+            "copies": copies, "bytes": nbytes, "flops": flops,
+        }
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        timings[b] = t
+        log(f"dmajor B={b} NKV={NKV} D={D} W={W} f32 q: kernel {t['ms']:.4f} ms a call "
+            f"(device {t['device_ms']} ms; same window {t['device_ms_same_window']} ms), "
+            f"plain {t['plain_ms']:.4f} ms, head-major kernel {t['headmajor_ms']:.4f} ms "
+            f"(device {t['headmajor_device_ms']} ms; same window "
+            f"{t['headmajor_device_ms_same_window']} ms), bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}; {nbytes / 1e6:.2f} MB), {copies} windows rotated")
+        del c, dviews, hviews
+    torch.cuda.empty_cache()
+
+    # The path that runs the kernel: the layout probe, counts from 0.
+    probe_mod = import_module(f"{PKG}.scripts.proto_dmajor_attention")
+    slots, rounds = (8, 32), 2
+    for mod in (dm, da):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    probe = probe_mod.main(["--slots", ",".join(map(str, slots)), "--rounds", str(rounds)])
+    probe_s = time.perf_counter() - t0
+    launches, hm_launches = dm.launches, da.launches
+    n1, n2, runs = dm.LAYERS, 5 * dm.LAYERS, max(3, 2 * rounds)
+    want = len(slots) * (1 + (runs + 1) * (n1 + n2))  # parity, warm-up pair, timed pairs
+    if launches != want or hm_launches != want:
+        raise AssertionError(f"the probe launched the dmajor kernel {launches} times and the "
+                             f"head-major kernel {hm_launches}; expected {want} each")
+    log(f"probe ({probe_s:.1f} s): dmajor launches {launches}, head-major {hm_launches} "
+        f"(= {len(slots)} x (1 + {runs + 1} x {n1 + n2})); {json.dumps(probe)}")
+    DETAIL["dmajor_attention"] = {"max_abs_err": worst, "cases": list(cases),
+                                  "timings": timings, "probe": probe, "probe_s": probe_s,
+                                  "launches": launches, "headmajor_launches": hm_launches}
+    t = timings[8]
+    return {"max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "device_ms": t["device_ms"], "headmajor_device_ms": t["headmajor_device_ms"],
+            "shape": [8, NKV, D, W, "float32"], "launches": launches,
+            "b32": {k: timings[32][k] for k in ("ms", "device_ms", "bound_ms",
+                                                "headmajor_device_ms")}}
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1160,8 @@ def main() -> int:
     da_res = phase_decode_attention(da, buckets)
     rn_res = phase_rmsnorm(rn)
     fa_res = phase_flash_attention(fa)
+    dm = import_module(f"{PKG}.ops.dmajor_attention")
+    dm_res = phase_dmajor_attention(dm, da)
     phase_loader_subprocess()
     serve = phase_serve_7b(da, rn)
     bert = phase_serve_bert(fa)
@@ -979,6 +1186,9 @@ def main() -> int:
          "source": f"{PKG}/csrc/flash_attention.cu",
          "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
          "launches": sum(r["flash_launches"] for r in bert.values()), **fa_res},
+        {"name": "dmajor_attention", "route": "cuda",
+         "source": f"{PKG}/csrc/dmajor_attention.cu",
+         "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},
     ]
     DETAIL["kernels"] = kernels
     DETAIL["wall_s"] = time.perf_counter() - t_start

@@ -12,10 +12,13 @@
 //
 // scores = (q * scale) . k in f32, plus bias[b, key]; then the kv_len mask
 // (key >= kv_len) and the causal mask (key > query) each REPLACE the score
-// with -1e30, as the Pallas kernel does.  The online softmax starts from
-// m = -1e30, l = 0; a row that saw no key tile at all (kv_len <= 0) has
-// l == 0 and writes 0.  Any S and T: the ragged query tile and key tile are
-// masked here, nothing is padded on the host.  f32 or bf16 I/O, f32 math.
+// with -1e30, as the Pallas kernel does, and masked keys still take part
+// in the softmax: kv_len <= 0 masks every key, all T scores are -1e30, and
+// the row comes out as the mean of V over the T keys, as the kernel's
+// oracle `attention_reference` gives.  Keys past T, which only pad the
+// ragged last tile, take no part (-inf).  Any S and T: the ragged query
+// tile and key tile are masked here, nothing is padded on the host.  f32
+// or bf16 I/O, f32 math.
 //
 // Bound on the H100: operations.  At BERT-base (S = T = 128, D = 64) each
 // (batch, head) reads 3 * S * D inputs and does 4 * S * T * D flops: 43
@@ -137,8 +140,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float m = kNegInf, l = 0.f;
 
   const int kv_eff = kv_len < T_len ? kv_len : T_len;
-  int kv_end = kv_eff;
-  if (CAUSAL && q0 + kBQ < kv_end) kv_end = q0 + kBQ;  // keys past the tile's last query
+  const bool no_key = kv_eff <= 0;  // every key masked: the row averages all T
+  int kv_end = no_key ? T_len : kv_eff;
+  if (!no_key && CAUSAL && q0 + kBQ < kv_end) kv_end = q0 + kBQ;  // keys past the tile's last query
   const T* kbase = k + (long long)b * k_sb + (long long)h * k_sh;
   const T* vbase = v + (long long)b * v_sb + (long long)h * v_sh;
   const float* brow = bias ? bias + (long long)b * bias_sb : nullptr;
@@ -182,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         const int key = k0 + c0 + j;
         dot += sbias[c0 + j];
         const bool masked = key >= kv_eff || (CAUSAL && key > qi);
-        s[j] = masked ? kNegInf : dot;
+        s[j] = key >= T_len ? -INFINITY : masked ? kNegInf : dot;
         mx = fmaxf(mx, s[j]);
       }
       const float m_new = fmaxf(m, mx);
@@ -208,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 
   if (row_valid) {
-    const float inv = l == 0.f ? 0.f : 1.f / l;
+    const float inv = 1.f / l;  // l >= 1: the largest score gives p = 1
     T* orow = o + (long long)b * o_sb + (long long)h * o_sh + (long long)qi * o_ss;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {

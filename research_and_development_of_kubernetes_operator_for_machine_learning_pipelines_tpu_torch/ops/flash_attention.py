@@ -6,8 +6,10 @@ blockwise online-softmax attention over ``[B, H, S, D]`` queries and
 ``[B, H, T, D]`` keys/values, f32 or bf16 in, q's type out.  Scores are
 ``(q * scale) . k`` in f32; the ``kv_len`` mask (keys at or past
 ``kv_len``) and the causal mask (key > query) replace a score with
--1e30; a row with no key to attend (``kv_len <= 0``) comes out 0.  Any
-S and T; the kernel masks its ragged tiles itself.
+-1e30, and masked keys still take part in the softmax: with ``kv_len <=
+0`` every score is -1e30 and a row comes out as the mean of V over the T
+keys, as the JAX package's ``attention_reference`` gives.  Any S and T;
+the kernel masks its ragged tiles itself (their padding takes no part).
 
 Two additions let BERT's ``_self_attention`` run through it unchanged;
 both compute what ``models/bert.py`` computes:
@@ -20,7 +22,7 @@ both compute what ``models/bert.py`` computes:
 - **an additive f32 key bias** ``[B, T]`` (BERT's ``mask_bias``), added
   to the scaled scores BEFORE the replacement masks.  A row whose bias
   masks every key therefore averages V uniformly, as BERT's reference
-  does, where a ``kv_len`` mask of every key would give 0.
+  does.
 
 On the H100 the kernel is bound by its f32 arithmetic (see the source for
 the design note).
@@ -79,7 +81,6 @@ def flash_attention_reference(
         valid = valid & (torch.arange(t, device=q.device)[None, :] <= qi)
     s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
-    p = torch.where(valid.any(dim=-1, keepdim=True), p, torch.zeros((), device=q.device))
     wide = torch.float64 if q.dtype == torch.float64 else torch.float32
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(wide), v.to(wide))
     return out.to(q.dtype)

@@ -99,11 +99,24 @@ def test_plain_flash_matches_pallas_and_oracle(case):
     np.testing.assert_allclose(got, np.asarray(oracle, np.float32), **tol_oracle)
 
 
-def test_no_key_to_attend_gives_zero_rows():
-    """kv_len 0 leaves every row without a key: the kernel's l == 0 rule."""
-    q, k, v = _qkv(s=8, t=8)
-    out = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), kv_len=0)
-    assert torch.equal(out, torch.zeros_like(out))
+def test_no_key_to_attend_averages_v_as_the_oracle():
+    """kv_len 0 masks every key: each score is -1e30, so every row is the
+    mean of V over the T keys, as ``attention_reference`` gives, causal or
+    not.  The Pallas kernel agrees where T is a tile multiple (T=8); with a
+    ragged T it also counts its zero padding, so it is compared only there."""
+    for t in (8, 5):
+        q, k, v = _qkv(s=8, t=t, seed=t)
+        jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+        mean_v = np.broadcast_to(v.mean(axis=2, keepdims=True), q.shape[:3] + (v.shape[3],))
+        for causal in (False, True):
+            out = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), kv_len=0,
+                                      causal=causal).numpy()
+            oracle = _joracle(jq, jk, jv, kv_len=0, causal=causal)
+            np.testing.assert_allclose(out, np.asarray(oracle), **F32_TOL)
+            np.testing.assert_allclose(out, mean_v, **F32_TOL)
+            if t == 8:
+                pallas = _jflash(jq, jk, jv, kv_len=0, causal=causal, interpret=True)
+                np.testing.assert_allclose(out, np.asarray(pallas), **F32_TOL)
 
 
 def _bert_chain(q, k, v, mask_bias):
