@@ -6,19 +6,27 @@
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: every CUDA kernel from ``csrc/`` (one nvcc each, in parallel).
+2. Build: every CUDA kernel from ``csrc/`` (one nvcc each, in parallel),
+   with each kernel instance's registers, static shared memory and spills
+   from the ``ptxas`` report.
 3. Kernels against their plain PyTorch versions, on the card:
    decode attention at every window bucket up to 4096 (G = 1, 2, 4, 8;
-   strided windows of a real cache buffer; lengths 0, mid and W), within
-   1e-4 absolute + 1e-4 relative in f32; RMSNorm at rows 1, 4, 512 and
-   H = 4096 in bf16, within one bf16 ulp; flash attention at BERT-base
-   B32/H12/S128/D64 with a ragged key bias (one row masked everywhere),
-   the same from strided views of one projection buffer, B8/S512, causal
-   and kv_len forms at D=128 S=T=1024, S=T=50, f32 I/O and kv_len 0 (every
-   row the mean of V), within FLASH_TOL.  Times each kernel, its plain
-   version and, where one exists, the one PyTorch call for the function
-   (``F.rms_norm``, SDPA for flash attention), each with the profiler's
-   device time beside its CUDA-event time.
+   strided windows of a real cache buffer; lengths 0, mid and W), and
+   where its split over the window can go wrong (lengths on and beside
+   every split boundary, W = 997 of a 1000-wide window, W = 97 of 100,
+   16-byte and 4-byte row loads, G = 8 and a length-0 row with several
+   splits, a split past W), within 1e-4 absolute + 1e-4 relative in f32;
+   RMSNorm at rows 1, 4, 512 and H = 4096 in bf16, within one bf16 ulp;
+   flash attention at BERT-base B32/H12/S128/D64 with a ragged key bias
+   (one row masked everywhere), the same from strided views of one
+   projection buffer, B8/S512, causal and kv_len forms at D=128 S=T=1024,
+   S=T=50, D=16 and D=32 at S=T=200 with a bias, causal at S=T=200, f32
+   I/O and kv_len 0 (every row the mean of V), within FLASH_TOL, and a q
+   that is not 16-byte aligned (a ValueError).  Times each kernel, its
+   plain version and, where one exists, the one PyTorch call for the
+   function (``F.rms_norm``, SDPA for flash attention), each with the
+   profiler's device time beside its CUDA-event time; decode attention
+   also over a ladder of windows, with its split count.
 3b. D-major decode attention against its plain version at the layout
    probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
    768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
@@ -59,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -181,6 +190,44 @@ def phase_device() -> str:
     return out
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel template instance (``bf16``/``f32``
+    for the type, the integer arguments in order)."""
+    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z]+)*_kernel(?:_[a-z0-9]+)?)I"
+                  r"((?:13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f)+)E", mangled)
+    if not m:
+        return mangled
+    args = []
+    for a in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f", m.group(2)):
+        if a.startswith("S"):  # a repeated type
+            args.append(next(x for x in reversed(args) if x in ("bf16", "f32")))
+        else:
+            args.append("bf16" if a.startswith("13") else "f32" if a == "f"
+                        else re.sub(r"\D", "", a))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_summary(report: str) -> dict[str, dict]:
+    """Registers, static shared memory and spills of each kernel instance
+    in an ``nvcc -Xptxas -v`` report."""
+    out: dict[str, dict] = {}
+    name = None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                sm = re.search(r"(\d+) bytes smem", ln)
+                out[name].update(registers=int(m[1]), static_smem=int(sm[1]) if sm else 0)
+    return out
+
+
 def phase_build() -> None:
     from importlib import import_module
 
@@ -189,12 +236,15 @@ def phase_build() -> None:
     per = build.build()
     wall = time.perf_counter() - t0
     log(f"build: {wall:.1f} s wall, per source {json.dumps({k: round(v, 1) for k, v in per.items()})}")
+    summary = {}
     for name, report in build.ptxas_reports.items():
-        lines = [ln for ln in report.splitlines() if "registers" in ln or "spill" in ln]
-        for ln in lines[:12]:
-            log(f"  {name}: {ln.strip()}")
+        summary[name] = ptxas_summary(report)
+        for kernel, r in summary[name].items():
+            log(f"  {kernel}: {r.get('registers')} registers, {r.get('static_smem')} bytes "
+                f"static smem, spills {r.get('spill_stores')}/{r.get('spill_loads')} bytes")
     DETAIL["build_s"] = wall
     DETAIL["ptxas"] = build.ptxas_reports
+    DETAIL["ptxas_summary"] = summary
 
 
 # ---------------------------------------------------------------------------
@@ -202,16 +252,16 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _da_inputs(B, NKV, G, D, T, layers, dtype, gen):
+def _da_inputs(B, NKV, G, D, T, layers, dtype, gen, row=None):
     """Decode-attention inputs whose K/V windows are strided views of a
-    head-major cache buffer [layers, B, NKV, T, D] (layer 0 is checked)."""
+    head-major cache buffer [layers, B, NKV, T, D] (layer 0 is checked).
+    ``row``: the cache rows are ``[..., :D]`` slices of rows ``row`` wide."""
     import torch
 
     dev = "cuda"
-    k8 = torch.randint(-127, 128, (layers, B, NKV, T, D), generator=gen, device=dev,
-                       dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (layers, B, NKV, T, D), generator=gen, device=dev,
-                       dtype=torch.int8)
+    shape = (layers, B, NKV, T, row or D)
+    k8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
+    v8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
     ks = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
     vs = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
     q = torch.randn((B, NKV, G, D), generator=gen, device=dev).to(dtype)
@@ -239,6 +289,86 @@ def _da_bytes_flops(B, NKV, G, D, W, itemsize):
     return nbytes, flops
 
 
+def _da_check(da, inputs, W, lengths, what, fn=None) -> float:
+    """The kernel on layer 0's window [:W] of ``inputs`` against its plain
+    version (DA_TOL absolute + relative); a length-0 row must be exactly
+    v_self.  Returns the max abs error."""
+    import torch
+
+    q, k8, ks, v8, vs, k_self, v_self = inputs
+    args = (q, k8[0, :, :, :W], ks[0, :, :, :W], v8[0, :, :, :W], vs[0, :, :, :W],
+            k_self, v_self, _mask(lengths, W))
+    out = (fn or da.decode_attention)(*args)
+    ref = da.decode_attention_reference(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
+        raise AssertionError(f"decode attention disagrees: {what} W={W} lengths={lengths} "
+                             f"splits={da.num_splits(q.shape[0], q.shape[1], W)} "
+                             f"max_abs_err={float(err.max()):.3e}")
+    for i in (i for i, n in enumerate(lengths) if n == 0):
+        row = float((out[i] - v_self[i].float()).abs().max())
+        if row > DA_TOL:  # a length-0 row attends only itself
+            raise AssertionError(f"{what}: length-0 row is not v_self (W={W}): {row}")
+    return float(err.max())
+
+
+def _da_split_checks(da) -> dict:
+    """The split kernel where it can go wrong: lengths on and beside every
+    split boundary, a window that is not a multiple of the split width,
+    both load widths, G = 8 and a length-0 row with splits > 1, and a
+    split with no position (past W)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    D, bf = 128, torch.bfloat16
+    out = {}
+
+    def run(what, B, NKV, G, W, T, lengths_all, vec, row=None, dtype=bf):
+        inputs = _da_inputs(B, NKV, G, D, T, 1, dtype, gen, row=row)
+        k8w, v8w = inputs[1][0, :, :, :W], inputs[3][0, :, :, :W]
+        if da.load_width(k8w, v8w) != vec:
+            raise AssertionError(f"{what}: load width {da.load_width(k8w, v8w)}, expected {vec}")
+        worst, n = 0.0, 0
+        for i in range(0, len(lengths_all), B):
+            lengths = (lengths_all[i:i + B] + [W] * B)[:B]
+            worst = max(worst, _da_check(da, inputs, W, lengths, what))
+            n += 1
+        splits = da.num_splits(B, NKV, W)
+        out[what] = {"shape": [B, NKV, G, D, W], "splits": splits,
+                     "split_len": da.split_len(W, splits), "vec": vec, "checks": n,
+                     "max_abs_err": worst}
+        return splits
+
+    def boundaries(B, NKV, W):
+        s = da.num_splits(B, NKV, W)
+        c = da.split_len(W, s)
+        return [0, W, W - 1] + [j * c + o for j in range(1, s) for o in (-1, 0, 1)]
+
+    # Llama-2-7B's decode shape, 16-byte rows of a head-major cache view.
+    s = run("boundaries_w768", 4, 32, 1, 768, 1024, boundaries(4, 32, 768), 16)
+    if s < 2:
+        raise AssertionError(f"W=768 at 4 slots x 32 heads takes {s} split")
+    # W not a multiple of the split width, sliced from a wider window.
+    run("ragged_w997_of_1000", 4, 32, 1, 997, 1000, boundaries(4, 32, 997), 16)
+    run("w97_of_100", 4, 32, 1, 97, 100, [0, 96, 97, 1, 50, 48, 49, 2], 16)
+    # 4-byte rows: [..., :128] of a 132-wide buffer.
+    run("vec4_w768", 4, 32, 1, 768, 800, boundaries(4, 32, 768), 4, row=132)
+    run("vec4_w97_of_100", 4, 32, 1, 97, 100, [0, 96, 97, 1], 4, row=132)
+    # G = 8 with splits > 1, a length-0 row among them; both load widths.
+    for what, row, vec in (("g8_split", None, 16), ("g8_split_vec4", 132, 4)):
+        if run(what, 2, 8, 8, 768, 768, boundaries(2, 8, 768)[:6] + [0, 65], vec,
+               row=row, dtype=torch.float32) < 2:
+            raise AssertionError(f"{what} took 1 split")
+    # The last split owns no position: it must add nothing, and no NaN.
+    W = 4225
+    s = da.num_splits(1, 1, W)
+    if (s - 1) * da.split_len(W, s) < W:
+        raise AssertionError(f"W={W} at one (slot, head) has no empty split ({s} splits)")
+    run("empty_last_split_w4225", 1, 1, 1, W, W, [W, 0, W - 1, 4160], 16)
+    return out
+
+
 def phase_decode_attention(da, buckets) -> dict:
     import torch
 
@@ -248,48 +378,31 @@ def phase_decode_attention(da, buckets) -> dict:
     checks = 0
     for (NKV, G) in ((32, 1), (16, 2), (8, 4), (8, 8)):
         for B in (1, 4):
-            q, k8, ks, v8, vs, k_self, v_self = _da_inputs(
-                B, NKV, G, D, T, 1, torch.float32, gen)
+            inputs = _da_inputs(B, NKV, G, D, T, 1, torch.float32, gen)
+            fn = da.decode_attention_vpu if G == 1 else da.decode_attention_batched
             for wi, W in enumerate(buckets):
                 if B == 1:
                     lengths = [(0, W // 2, W)[wi % 3]]
                 else:
                     lengths = [0, W // 2, W, max(W - 1, 0)]
-                mask = _mask(lengths, W)
-                args = (q, k8[0, :, :, :W], ks[0, :, :, :W], v8[0, :, :, :W],
-                        vs[0, :, :, :W], k_self, v_self, mask)
-                fn = da.decode_attention_vpu if G == 1 else da.decode_attention_batched
-                out = fn(*args)
-                ref = da.decode_attention_reference(*args)
-                torch.cuda.synchronize()
-                err = (out - ref).abs()
-                lim = DA_TOL + DA_TOL * ref.abs()
-                if not bool(torch.isfinite(out).all()) or bool((err > lim).any()):
-                    raise AssertionError(
-                        f"decode attention disagrees: B={B} NKV={NKV} G={G} W={W} "
-                        f"lengths={lengths} max_abs_err={float(err.max()):.3e}")
-                if lengths[0] == 0:
-                    # a length-0 row attends only itself: exactly v_self
-                    row = (out[0] - v_self[0].float()).abs().max()
-                    if float(row) > DA_TOL:
-                        raise AssertionError(f"length-0 row is not v_self (W={W}): {float(row)}")
-                worst = max(worst, float(err.max()))
+                worst = max(worst, _da_check(da, inputs, W, lengths,
+                                             f"B={B} NKV={NKV} G={G}", fn=fn))
                 checks += 1
     # bf16 inputs (the model's type) at the main path's shapes.
-    q, k8, ks, v8, vs, k_self, v_self = _da_inputs(4, 32, 1, D, T, 1, torch.bfloat16, gen)
+    inputs = _da_inputs(4, 32, 1, D, T, 1, torch.bfloat16, gen)
     for W in buckets:
-        mask = _mask([0, W // 2, W, W - 1], W)
-        args = (q, k8[0, :, :, :W], ks[0, :, :, :W], v8[0, :, :, :W], vs[0, :, :, :W],
-                k_self, v_self, mask)
-        out = da.decode_attention_vpu(*args)
-        ref = da.decode_attention_reference(*args)
-        err = (out - ref).abs()
-        if bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
-            raise AssertionError(f"decode attention (bf16 q) disagrees at W={W}: {float(err.max())}")
-        worst = max(worst, float(err.max()))
+        worst = max(worst, _da_check(da, inputs, W, [0, W // 2, W, W - 1], "bf16 q",
+                                     fn=da.decode_attention_vpu))
         checks += 1
+    split_checks = _da_split_checks(da)
+    for r in split_checks.values():
+        worst = max(worst, r["max_abs_err"])
+        checks += r["checks"]
     log(f"decode attention: {checks} checks over windows {buckets[0]}..{buckets[-1]}, "
         f"G in (1, 2, 4, 8), max_abs_err {worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+    log(f"  split checks (shape [B, NKV, G, D, W], splits, load width): "
+        + "; ".join(f"{k} {v['shape']} {v['splits']}x{v['split_len']} vec{v['vec']}"
+                    for k, v in split_checks.items()))
 
     # Timing at the main path's widest window: B=4 slots, 32 heads, G=1,
     # W=768, bf16 queries; the window rotates over 8 layers of one cache
@@ -309,33 +422,61 @@ def phase_decode_attention(da, buckets) -> dict:
         it["i"] += 1
         return da.decode_attention_reference(*views[it["i"] % layers])
 
+    splits = da.num_splits(B, NKV, W)
     ms = cuda_time_ms(kernel, iters=200)
     device_ms = kernel_device_ms(kernel, "decode_attention_kernel")
     plain_ms = cuda_time_ms(plain, iters=50)
     nbytes, flops = _da_bytes_flops(B, NKV, G, D, W, 2)
     bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-    ladder = {}
-    for Wl in (16, 48, 192, 768, 1536, 4096):
+    def rotating(Wl):
+        """The kernel over layer after layer of the cache at window Wl."""
         vws = [(q, k8[l, :, :, :Wl], ks[l, :, :, :Wl], v8[l, :, :, :Wl], vs[l, :, :, :Wl],
                 k_self, v_self, _mask([Wl] * B, Wl)) for l in range(layers)]
         j = {"i": 0}
 
-        def kl(vws=vws, j=j):
+        def kl():
             j["i"] += 1
             return da.decode_attention_vpu(*vws[j["i"] % layers])
 
+        return kl
+
+    ladder = {}
+    for Wl in (16, 48, 192, 768, 1536, 4096):
+        kl = rotating(Wl)
         nb, fl = _da_bytes_flops(B, NKV, G, D, Wl, 2)
-        ladder[Wl] = {"ms": cuda_time_ms(kl, iters=100), "bound_ms": bound(nb, fl, F32_FLOPS)[0]}
-    log(f"decode attention B=4 NKV=32 G=1 D=128 W=768: kernel {ms:.4f} ms a call "
-        f"(device time alone {device_ms} ms), plain {plain_ms:.4f} ms, bound "
+        ladder[Wl] = {"ms": cuda_time_ms(kl, iters=100),
+                      "device_ms": kernel_device_ms(kl, "decode_attention_kernel"),
+                      "bound_ms": bound(nb, fl, F32_FLOPS)[0],
+                      "splits": da.num_splits(B, NKV, Wl)}
+    # The split count: num_splits fills one wave of BLOCKS_PER_SM blocks an
+    # SM; the same windows with the constant moved give fewer and more.
+    sweep = {}
+    keep = da.BLOCKS_PER_SM
+    try:
+        for bps in (2, 3, 4, 5, 6, 8):
+            da.BLOCKS_PER_SM = bps
+            for Wl in (768, 4096):
+                sweep.setdefault(Wl, {})[da.num_splits(B, NKV, Wl)] = kernel_device_ms(
+                    rotating(Wl), "decode_attention_kernel")
+    finally:
+        da.BLOCKS_PER_SM = keep
+    log(f"decode attention B=4 NKV=32 G=1 D=128 W=768 ({splits} splits): kernel {ms:.4f} "
+        f"ms a call (device time alone {device_ms} ms), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by})")
-    log(f"  window ladder (ms, bound): {json.dumps({k: [round(v['ms'], 4), round(v['bound_ms'], 4)] for k, v in ladder.items()})}")
+    log("  window ladder (W: ms, device ms, bound ms, splits): " + json.dumps(
+        {k: [round(v["ms"], 4), v["device_ms"] and round(v["device_ms"], 4),
+             round(v["bound_ms"], 4), v["splits"]] for k, v in ladder.items()}))
+    log(f"  split sweep (W: {{splits: device ms}}; num_splits takes {splits}): "
+        + json.dumps(sweep))
     DETAIL["decode_attention"] = {"checks": checks, "max_abs_err": worst, "ms": ms,
-                                  "device_ms": device_ms,
+                                  "device_ms": device_ms, "splits": splits,
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                  "ladder": ladder, "shape": [B, NKV, G, D, W]}
+                                  "ladder": ladder, "split_sweep": sweep,
+                                  "shape": [B, NKV, G, D, W],
+                                  "split_checks": split_checks}
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "device_ms": device_ms}
+            "bound_by": bound_by, "library_ms": None, "device_ms": device_ms,
+            "splits": splits}
 
 
 def _bf16_ulps(out, ref):
@@ -467,6 +608,11 @@ def phase_flash_attention(fa) -> dict:
         "causal_d128_s1024": dict(shape=(2, 16, 1024, 1024, 128, bf), causal=True),
         "kv_len_d128_s1024": dict(shape=(2, 16, 1024, 1024, 128, bf), kv_len=700),
         "ragged_s50": dict(shape=(4, 12, 50, 50, 64, bf)),
+        # every tensor-core head dim, ragged S = T = 200, a bias with a row
+        # masked everywhere; causal with ragged tiles
+        "d16_s200_bias": dict(shape=(4, 8, 200, 200, 16, bf), bias_lengths=[0, 57, 133, 200]),
+        "d32_s200_bias": dict(shape=(4, 8, 200, 200, 32, bf), bias_lengths=[200, 1, 99, 0]),
+        "causal_s200": dict(shape=(4, 8, 200, 200, 64, bf), causal=True),
         "f32_small": dict(shape=(2, 3, 70, 130, 64, f32), kv_len=97),
         # every key masked, T not a multiple of the kernel's tiles: the mean
         # of V over the T keys, as attention_reference gives
@@ -527,6 +673,22 @@ def phase_flash_attention(fa) -> dict:
             f"{library_ms:.4f} ms (device {library_device_ms} ms), bound {bound_ms:.5f} ms "
             f"({bound_by}; f32 CUDA-core "
             f"{f32_bound_ms:.5f} ms)")
+    # A q whose base is not 16-byte aligned: the bf16 kernel copies Q with
+    # 16-byte cp.async, so the wrapper raises (it never reroutes).
+    c = _flash_case(gen, 2, 4, 64, 64, 64, bf)
+    buf = torch.empty(c["q"].numel() + 1, dtype=bf, device="cuda")
+    q_off = buf[1:].view(c["q"].shape).copy_(c["q"])
+    before = fa.launches
+    try:
+        fa.flash_attention(q_off, c["k"], c["v"])
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash attention took a q that is not 16-byte aligned")
+    if fa.launches != before:
+        raise AssertionError("a refused flash call counted a launch")
+    log("flash: a q that is not 16-byte aligned raises ValueError")
     DETAIL["flash_attention"] = results
     head = results["bert_b32_s128_bias"]
     return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -655,6 +817,7 @@ def phase_dmajor_attention(dm, da) -> dict:
             "headmajor_device_ms": kernel_device_ms(head, "decode_attention_kernel"),
             "headmajor_device_ms_same_window": kernel_device_ms(
                 lambda: da.decode_attention(*hviews[0]), "decode_attention_kernel"),
+            "headmajor_splits": da.num_splits(b, NKV, W),
             "copies": copies, "bytes": nbytes, "flops": flops,
         }
         t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
@@ -663,7 +826,8 @@ def phase_dmajor_attention(dm, da) -> dict:
             f"(device {t['device_ms']} ms; same window {t['device_ms_same_window']} ms), "
             f"plain {t['plain_ms']:.4f} ms, head-major kernel {t['headmajor_ms']:.4f} ms "
             f"(device {t['headmajor_device_ms']} ms; same window "
-            f"{t['headmajor_device_ms_same_window']} ms), bound {t['bound_ms']:.5f} ms "
+            f"{t['headmajor_device_ms_same_window']} ms; {t['headmajor_splits']} splits), "
+            f"bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}; {nbytes / 1e6:.2f} MB), {copies} windows rotated")
         del c, dviews, hviews
     torch.cuda.empty_cache()
@@ -692,8 +856,9 @@ def phase_dmajor_attention(dm, da) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"], "headmajor_device_ms": t["headmajor_device_ms"],
             "shape": [8, NKV, D, W, "float32"], "launches": launches,
+            "headmajor_splits": t["headmajor_splits"],
             "b32": {k: timings[32][k] for k in ("ms", "device_ms", "bound_ms",
-                                                "headmajor_device_ms")}}
+                                                "headmajor_device_ms", "headmajor_splits")}}
 
 
 # ---------------------------------------------------------------------------

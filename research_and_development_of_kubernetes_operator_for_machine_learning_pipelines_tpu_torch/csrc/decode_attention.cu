@@ -1,11 +1,12 @@
 // Fused int8-KV decode attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces the Pallas kernels `_decode_attn_kernel_mxu` and
-// `_decode_attn_kernel_vpu` of the JAX package's ops/decode_attention.py:
-// one layer's single-token attention over an int8 KV window, with the
-// per-(position, head) f32 scales folded into the score and probability
-// rows, a strict additive mask, and the current token's exact K/V joined
-// into the softmax without a concat.
+// Replaces the Pallas kernels `_decode_attn_kernel_mxu` (line 52, its
+// pallas_call at 114) and `_decode_attn_kernel_vpu` (line 173, pallas_call
+// at 260) of the JAX package's ops/decode_attention.py: one layer's
+// single-token attention over an int8 KV window, with the per-(position,
+// head) f32 scales folded into the score and probability rows, a strict
+// additive mask, and the current token's exact K/V joined into the
+// softmax without a concat.
 //
 //   q       [B, NKV, G, D]  f32 or bf16, contiguous
 //   k8, v8  [B, NKV, W, D]  int8, any batch/head/position strides, D dense
@@ -18,17 +19,48 @@
 // Bound on the H100: bytes.  Per (slot, head) the kernel reads the W x D
 // int8 K and V rows once (2 * W * D bytes) and does ~4 * G * W * D flops:
 // at G <= 8 that is < 16 flops a byte, far under the ~295 a byte where the
-// tensor cores would become the limit.
+// tensor cores would become the limit.  At Llama-2-7B's 4 slots x 32 heads
+// x W = 768 the bytes take 7.8 us.
 //
-// Design (simple and right first): one thread block per (slot, kv head);
-// the G query rows, pre-scaled by 1/sqrt(D), sit in registers; each warp
-// splits into D/4-lane sub-rows, so one sub-row reads one cache row with a
-// 4-byte int8 load per lane (128 contiguous bytes a row at D = 128); every
-// sub-row keeps its own online softmax over the positions it visits; the
-// sub-rows of a warp merge by shuffles, the warps through shared memory,
-// and the self term joins the final max and denominator.  The window is
-// read in place through its strides, so a layer's window of the head-major
-// cache is never copied.  wgmma, TMA and split-K come later.
+// Design (flash-decoding).  To reach that bound the card needs many bytes
+// in flight, so the window is split:
+//
+// - Grid B x NKV x splits.  The host picks `splits` (ops/decode_attention.py
+//   `num_splits`): as many as fill one wave of 4 blocks an SM, >= 64
+//   positions a split, 1 for windows of 192 or less.  At G = 1 the launch
+//   bounds hold the kernel to 64 registers, so 4 blocks of 256 threads fit
+//   an SM.  Block (slot, head, split) owns `chunk` consecutive positions;
+//   a block past W owns none and contributes nothing.
+// - Wide loads.  A lane reads VEC bytes of a cache row: 16 (an `int4`)
+//   when the base and every stride of k8 and v8 are 16-byte aligned, as
+//   the head-major cache [L, B, NKV, T, D] always is, else 4.  D / VEC
+//   lanes share a row; a block reads 8 warps x 32 / (D / VEC) rows a
+//   round, 2 rounds unrolled, with every load of both rounds issued before
+//   their arithmetic.  VEC is a template parameter the wrapper picks
+//   explicitly.
+// - Two phases per split, not a per-position online softmax.  Phase 1:
+//   every row's score, (q * scale) . k8 reduced over the row's lanes by
+//   shuffles, times ks, plus the mask, goes to shared memory.  Then one
+//   block max, exp and the sum (p * vs replaces the score in place).
+//   Phase 2: P . V over the split's V rows, each lane accumulating its VEC
+//   columns, then a reduction over the rows of a warp (shuffles) and over
+//   the warps (shared memory).  No dependent shuffle -> exp -> rescale
+//   chain per position remains.
+// - With one split the block joins the self term and writes `out`.  With
+//   more, each writes its partial (m, l, acc[G][D]) in f32 to the scratch
+//   the wrapper allocates, and a second small kernel, launched by the
+//   same C call, merges them with the usual max-rescale and joins the self
+//   term once.  The mask is finite (-1e9), so a split masked everywhere
+//   has a finite partial that the merge weighs to 0; a split with no
+//   position has m = -inf, l = 0, acc = 0, which weighs exactly 0.  A
+//   length-0 row is exactly v_self.
+//
+// What still holds it back: the two phases of a split run back to back,
+// so a block waits on its K rows, then on its V rows (loading the first V
+// rows with the K rows was tried and gained nothing); the merge is a
+// second launch; a whole window of 192 runs in 128 blocks; and at G = 8
+// with 16-byte loads the q registers (G x 16 floats a lane) leave one
+// block an SM.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -39,17 +71,61 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxD = 128;
+constexpr int kUnroll = 2;           // row rounds whose loads go out together
+constexpr int kMaxChunk = 2048;      // positions a split's scores may hold
+constexpr int kSmemNoOptIn = 48 * 1024;  // bytes a block may use without opting in
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// exp(a - b) that is 0 when a is -inf (an empty online-softmax state).
-__device__ __forceinline__ float exp_diff(float a, float b) {
-  return a == -INFINITY ? 0.f : expf(a - b);
+// VEC int8 of a cache row, as VEC / 4 words.
+template <int VEC> struct Row { int w[VEC / 4]; };
+
+__device__ __forceinline__ void load_row(const int8_t* p, Row<16>& r) {
+  const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+  r.w[0] = x.x; r.w[1] = x.y; r.w[2] = x.z; r.w[3] = x.w;
+}
+__device__ __forceinline__ void load_row(const int8_t* p, Row<4>& r) {
+  r.w[0] = __ldg(reinterpret_cast<const int*>(p));
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
+// Element e of a row (byte e of the little-endian words), sign-extended.
+template <int VEC>
+__device__ __forceinline__ float elem(const Row<VEC>& r, int e) {
+  const unsigned x = (unsigned)r.w[e / 4];
+  return (float)((int)(x << (24 - 8 * (e % 4))) >> 24);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// s_self[g] = (q[g] * scale) . k_self for this (slot, head), one warp a g.
+template <typename T>
+__device__ __forceinline__ void self_scores(const T* qh, const T* kself, int G, int D,
+                                            float scale, float* s_self) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int g = warp; g < G; g += kWarps) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s += to_f32(qh[g * D + d]) * scale * to_f32(kself[d]);
+    s = warp_sum(s);
+    if (lane == 0) s_self[g] = s;
+  }
+}
+
+// G = 1 (Llama-2-7B) keeps to 64 registers, so 4 blocks fit an SM and a
+// grid of ~4 x 132 blocks runs as one wave; G = 2 keeps to 128 (2 blocks);
+// larger G needs its registers for q (G x VEC floats a lane).
+template <typename T, int G, int VEC>
+__global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_attention_kernel(
     const T* __restrict__ q,
     const int8_t* __restrict__ k8, long long k_sb, long long k_sh, long long k_sw,
     const float* __restrict__ ks, long long ks_sb, long long ks_sh, long long ks_sw,
@@ -57,219 +133,312 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const float* __restrict__ vs, long long vs_sb, long long vs_sh, long long vs_sw,
     const T* __restrict__ k_self, const T* __restrict__ v_self,
     const float* __restrict__ mask, long long m_sb,
-    float* __restrict__ out, int nkv, int W, int D, float scale) {
-  __shared__ float sm_q[G][kMaxD];
-  __shared__ float sm_self[G];
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][kMaxD];
+    float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int nkv, int W, int D, int chunk, int splits, float scale) {
+  extern __shared__ float smem[];
+  float* sm_s = smem;                    // [G][chunk]: scores, then p * vs
+  float* sm_acc = smem + G * chunk;      // [kWarps][G][D]: per-warp P . V
+  __shared__ float sm_red[kWarps][G];
+  __shared__ float sm_self[G], sm_m[G], sm_l[G];
 
-  const int b = blockIdx.x / nkv;
-  const int n = blockIdx.x % nkv;
+  const int bn = blockIdx.x / splits;    // slot * nkv + head
+  const int split = blockIdx.x % splits;
+  const int b = bn / nkv;
+  const int n = bn % nkv;
+  const int p0 = split * chunk;
+  const int len = max(min(W - p0, chunk), 0);  // 0: a split past W
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int lpr = D / 4;          // lanes per cache row
-  const int rpw = 32 / lpr;       // rows a warp reads at once
-  const int sl = lane % lpr;      // this lane's 4-element slice of a row
-  const int workers = kWarps * rpw;
-  const int worker = warp * rpw + lane / lpr;
+  const int lpr = D / VEC;               // lanes per row: 1..32
+  const int sub = lane % lpr;            // this lane's VEC columns of a row
+  const int round_rows = kWarps * (32 / lpr);
+  const int my_row = warp * (32 / lpr) + lane / lpr;  // row within a round
 
-  const long long qh = ((long long)b * nkv + n);
-  for (int i = tid; i < G * D; i += kThreads) {
-    sm_q[i / D][i % D] = to_f32(q[qh * G * D + i]) * scale;
+  const T* qh = q + (long long)bn * G * D;
+  float qr[G][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qr[g][e] = to_f32(qh[g * D + sub * VEC + e]) * scale;
+  }
+  if (splits == 1) self_scores(qh, k_self + (long long)bn * D, G, D, scale, sm_self);
+
+  const int8_t* kb = k8 + (long long)b * k_sb + (long long)n * k_sh + sub * VEC;
+  const int8_t* vb = v8 + (long long)b * v_sb + (long long)n * v_sh + sub * VEC;
+  const float* ksb = ks + (long long)b * ks_sb + (long long)n * ks_sh;
+  const float* vsb = vs + (long long)b * vs_sb + (long long)n * vs_sh;
+  const float* mrow = mask + (long long)b * m_sb;
+
+  // Phase 1: scores.  Loop bounds are block-uniform, so every shuffle has
+  // the whole warp; a lane past the split's end works on zeros.
+  for (int base = 0; base < len; base += kUnroll * round_rows) {
+    Row<VEC> kr[kUnroll];
+    float ksv[kUnroll], mk[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * round_rows + my_row;
+      const int p = p0 + i;
+#pragma unroll
+      for (int j = 0; j < VEC / 4; ++j) kr[u].w[j] = 0;
+      ksv[u] = 0.f;
+      mk[u] = 0.f;
+      if (i < len) {
+        load_row(kb + (long long)p * k_sw, kr[u]);
+        if (sub == 0) {
+          ksv[u] = __ldg(ksb + (long long)p * ks_sw);
+          mk[u] = __ldg(mrow + p);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * round_rows + my_row;
+      float kf[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kf[e] = elem(kr[u], e);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s += qr[g][e] * kf[e];
+        for (int off = lpr / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (sub == 0 && i < len) sm_s[g * chunk + i] = s * ksv[u] + mk[u];
+      }
+    }
   }
   __syncthreads();
 
-  // Self term: s_self[g] = q[g] . k_self (q already scaled).
-  if (warp == 0) {
-    const T* kself = k_self + qh * D;
+  // Softmax over the split: the block max, then p * vs in place and the sum.
+  float m[G], l[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s += sm_q[g][d] * to_f32(kself[d]);
+  for (int g = 0; g < G; ++g) {
+    float x = -INFINITY;
+    for (int i = tid; i < len; i += kThreads) x = fmaxf(x, sm_s[g * chunk + i]);
+    x = warp_max(x);
+    if (lane == 0) sm_red[warp][g] = x;
+  }
+  __syncthreads();
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) sm_self[g] = s;
+  for (int g = 0; g < G; ++g) {
+    m[g] = sm_red[0][g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) m[g] = fmaxf(m[g], sm_red[w][g]);
+  }
+  __syncthreads();  // every thread has read sm_red before it is reused
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float x = 0.f;
+    for (int i = tid; i < len; i += kThreads) {
+      const float p = expf(sm_s[g * chunk + i] - m[g]);
+      x += p;
+      sm_s[g * chunk + i] = p * __ldg(vsb + (long long)(p0 + i) * vs_sw);
     }
+    x = warp_sum(x);
+    if (lane == 0) sm_red[warp][g] = x;
   }
-
-  float qr[G][4];
+  __syncthreads();
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qr[g][i] = sm_q[g][4 * sl + i];
-  }
-  float m[G], l[G], acc[G][4];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+    for (int w = 0; w < kWarps; ++w) l[g] += sm_red[w][g];
+    if (tid == 0) {
+      sm_m[g] = m[g];
+      sm_l[g] = l[g];
+    }
   }
 
-  const int8_t* kbase = k8 + (long long)b * k_sb + (long long)n * k_sh + 4 * sl;
-  const int8_t* vbase = v8 + (long long)b * v_sb + (long long)n * v_sh + 4 * sl;
-  const float* ksbase = ks + (long long)b * ks_sb + (long long)n * ks_sh;
-  const float* vsbase = vs + (long long)b * vs_sb + (long long)n * vs_sh;
-  const float* mrow = mask + (long long)b * m_sb;
-
-  // Every lane runs the same number of rounds, so the shuffles below are
-  // always warp-uniform; a lane past the window's end skips its update.
-  for (int base = 0; base < W; base += workers) {
-    const int p = base + worker;
-    const bool valid = p < W;
-    char4 kc = make_char4(0, 0, 0, 0);
-    char4 vc = make_char4(0, 0, 0, 0);
-    float ksv = 0.f, vsv = 0.f, mk = 0.f;
-    if (valid) {
-      kc = *reinterpret_cast<const char4*>(kbase + (long long)p * k_sw);
-      vc = *reinterpret_cast<const char4*>(vbase + (long long)p * v_sw);
-      ksv = ksbase[(long long)p * ks_sw];
-      vsv = vsbase[(long long)p * vs_sw];
-      mk = mrow[p];
+  // Phase 2: P . V, each lane accumulating its VEC columns over its rows.
+  float acc[G][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+  }
+  for (int base = 0; base < len; base += kUnroll * round_rows) {
+    Row<VEC> vr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * round_rows + my_row;
+#pragma unroll
+      for (int j = 0; j < VEC / 4; ++j) vr[u].w[j] = 0;
+      if (i < len) load_row(vb + (long long)(p0 + i) * v_sw, vr[u]);
     }
-    const float kf[4] = {(float)kc.x, (float)kc.y, (float)kc.z, (float)kc.w};
-    const float vf[4] = {(float)vc.x, (float)vc.y, (float)vc.z, (float)vc.w};
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = qr[g][0] * kf[0] + qr[g][1] * kf[1] + qr[g][2] * kf[2] + qr[g][3] * kf[3];
-      for (int off = lpr / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (valid) {
-        s = s * ksv + mk;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = exp_diff(m[g], m_new);
-        const float pr = exp_diff(s, m_new);
-        const float pv = pr * vsv;
-        l[g] = l[g] * alpha + pr;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * round_rows + my_row;
+      if (i < len) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[g][i] = acc[g][i] * alpha + pv * vf[i];
-        m[g] = m_new;
+        for (int g = 0; g < G; ++g) {
+          const float pv = sm_s[g * chunk + i];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][e] += pv * elem(vr[u], e);
+        }
       }
     }
   }
-
-  // Merge the sub-rows of each warp (lanes with the same slice pair up).
+  // The rows of a warp (lanes with the same columns), then the warps.
   for (int off = lpr; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float mx = fmaxf(m[g], mo);
-      const float fa = exp_diff(m[g], mx);
-      const float fb = exp_diff(mo, mx);
-      l[g] = l[g] * fa + lo * fb;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
-        acc[g][i] = acc[g][i] * fa + ao * fb;
-      }
-      m[g] = mx;
+      for (int e = 0; e < VEC; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
     }
   }
   if (lane < lpr) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sm_acc[warp][g][4 * sl + i] = acc[g][i];
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
+      for (int e = 0; e < VEC; ++e) sm_acc[(warp * G + g) * D + sub * VEC + e] = acc[g][e];
     }
   }
   __syncthreads();
 
-  // Merge the warps and the self term; one thread per output element.
-  const T* vself = v_self + qh * D;
+  const long long slot = (long long)bn * splits + split;
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D;
     const int d = i % D;
-    float mx = sm_self[g];
+    float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    const float p_self = expf(sm_self[g] - mx);
-    float den = p_self;
-    float num = p_self * to_f32(vself[d]);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = exp_diff(sm_m[w][g], mx);
-      den += sm_l[w][g] * f;
-      num += sm_acc[w][g][d] * f;
+    for (int w = 0; w < kWarps; ++w) a += sm_acc[(w * G + g) * D + d];
+    if (splits == 1) {  // join the self term and finish (len >= 1, so m is finite)
+      const float mx = fmaxf(sm_m[g], sm_self[g]);
+      const float f = expf(sm_m[g] - mx);
+      const float p_self = expf(sm_self[g] - mx);
+      out[(long long)bn * G * D + i] =
+          (a * f + p_self * to_f32(v_self[(long long)bn * D + d])) / (sm_l[g] * f + p_self);
+    } else {
+      part_acc[slot * G * D + i] = a;
+      if (d == 0) {
+        part_ml[(slot * G + g) * 2] = sm_m[g];
+        part_ml[(slot * G + g) * 2 + 1] = sm_l[g];
+      }
     }
-    out[qh * G * D + i] = num / den;
   }
 }
 
-template <typename T, int G>
-cudaError_t launch(const void* q, const void* k8, long long k_sb, long long k_sh, long long k_sw,
-                   const void* ks, long long ks_sb, long long ks_sh, long long ks_sw,
-                   const void* v8, long long v_sb, long long v_sh, long long v_sw,
-                   const void* vs, long long vs_sb, long long vs_sh, long long vs_sw,
-                   const void* k_self, const void* v_self, const void* mask, long long m_sb,
-                   void* out, int B, int nkv, int W, int D, float scale, cudaStream_t stream) {
-  decode_attention_kernel<T, G><<<B * nkv, kThreads, 0, stream>>>(
-      static_cast<const T*>(q),
-      static_cast<const int8_t*>(k8), k_sb, k_sh, k_sw,
-      static_cast<const float*>(ks), ks_sb, ks_sh, ks_sw,
-      static_cast<const int8_t*>(v8), v_sb, v_sh, v_sw,
-      static_cast<const float*>(vs), vs_sb, vs_sh, vs_sw,
-      static_cast<const T*>(k_self), static_cast<const T*>(v_self),
-      static_cast<const float*>(mask), m_sb,
-      static_cast<float*>(out), nkv, W, D, scale);
+// Merges the splits' partials of one (slot, head) and joins the self term.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) decode_attention_kernel_combine(
+    const T* __restrict__ q, const T* __restrict__ k_self, const T* __restrict__ v_self,
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    float* __restrict__ out, int G, int D, int splits, float scale) {
+  __shared__ float sm_self[8];
+  const int bn = blockIdx.x;
+  self_scores(q + (long long)bn * G * D, k_self + (long long)bn * D, G, D, scale, sm_self);
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i % D;
+    const float s_self = sm_self[g];
+    float mx = s_self;
+    for (int s = 0; s < splits; ++s) {
+      mx = fmaxf(mx, part_ml[(((long long)bn * splits + s) * G + g) * 2]);
+    }
+    const float p_self = expf(s_self - mx);
+    float den = p_self;
+    float num = p_self * to_f32(v_self[(long long)bn * D + d]);
+    for (int s = 0; s < splits; ++s) {
+      const long long slot = (long long)bn * splits + s;
+      const float f = expf(part_ml[(slot * G + g) * 2] - mx);  // 0 for an empty split
+      den += part_ml[(slot * G + g) * 2 + 1] * f;
+      num += part_acc[slot * G * D + i] * f;
+    }
+    out[(long long)bn * G * D + i] = num / den;
+  }
+}
+
+struct Args {
+  const void* q;
+  const void* k8; long long k_s[3];
+  const void* ks; long long ks_s[3];
+  const void* v8; long long v_s[3];
+  const void* vs; long long vs_s[3];
+  const void* k_self; const void* v_self;
+  const void* mask; long long m_sb;
+  void* out; void* part;
+  int B, nkv, W, D, chunk, splits;
+  float scale;
+};
+
+template <typename T, int G, int VEC>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = ((size_t)G * a.chunk + (size_t)kWarps * G * a.D) * sizeof(float);
+  auto kernel = decode_attention_kernel<T, G, VEC>;
+  if (smem > kSmemNoOptIn) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long slots = (long long)a.B * a.nkv;
+  float* part_acc = static_cast<float*>(a.part);
+  float* part_ml = part_acc ? part_acc + slots * a.splits * G * a.D : nullptr;
+  kernel<<<(unsigned)(slots * a.splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q),
+      static_cast<const int8_t*>(a.k8), a.k_s[0], a.k_s[1], a.k_s[2],
+      static_cast<const float*>(a.ks), a.ks_s[0], a.ks_s[1], a.ks_s[2],
+      static_cast<const int8_t*>(a.v8), a.v_s[0], a.v_s[1], a.v_s[2],
+      static_cast<const float*>(a.vs), a.vs_s[0], a.vs_s[1], a.vs_s[2],
+      static_cast<const T*>(a.k_self), static_cast<const T*>(a.v_self),
+      static_cast<const float*>(a.mask), a.m_sb,
+      static_cast<float*>(a.out), part_acc, part_ml, a.nkv, a.W, a.D, a.chunk, a.splits,
+      a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  decode_attention_kernel_combine<T><<<(unsigned)slots, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_self),
+      static_cast<const T*>(a.v_self), part_acc, part_ml, static_cast<float*>(a.out), G, a.D,
+      a.splits, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_g(int G, const void* q, const void* k8, long long k_sb, long long k_sh,
-                     long long k_sw, const void* ks, long long ks_sb, long long ks_sh,
-                     long long ks_sw, const void* v8, long long v_sb, long long v_sh,
-                     long long v_sw, const void* vs, long long vs_sb, long long vs_sh,
-                     long long vs_sw, const void* k_self, const void* v_self, const void* mask,
-                     long long m_sb, void* out, int B, int nkv, int W, int D, float scale,
-                     cudaStream_t stream) {
-#define DA_CASE(GG)                                                                        \
-  case GG:                                                                                 \
-    return launch<T, GG>(q, k8, k_sb, k_sh, k_sw, ks, ks_sb, ks_sh, ks_sw, v8, v_sb, v_sh, \
-                         v_sw, vs, vs_sb, vs_sh, vs_sw, k_self, v_self, mask, m_sb, out, B, \
-                         nkv, W, D, scale, stream);
+template <typename T, int VEC>
+cudaError_t by_group(int G, const Args& a, cudaStream_t st) {
   switch (G) {
-    DA_CASE(1)
-    DA_CASE(2)
-    DA_CASE(4)
-    DA_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return launch<T, 1, VEC>(a, st);
+    case 2: return launch<T, 2, VEC>(a, st);
+    case 4: return launch<T, 4, VEC>(a, st);
+    case 8: return launch<T, 8, VEC>(a, st);
+    default: return cudaErrorInvalidValue;
   }
-#undef DA_CASE
+}
+
+template <typename T>
+cudaError_t by_vec(int vec, int G, const Args& a, cudaStream_t st) {
+  if (vec == 16) return by_group<T, 16>(G, a, st);
+  if (vec == 4) return by_group<T, 4>(G, a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_self and v_self).  Returns the
-// launch's cudaError_t; nothing is synchronised.
+// dtype: 0 = float32, 1 = bfloat16 (q, k_self and v_self).  vec: the
+// bytes a lane loads of a cache row, 16 or 4; the base and the (batch,
+// head, position) strides of k8 and v8 are multiples of it.  splits,
+// chunk: the window is cut into `splits` runs of `chunk` positions
+// (splits * chunk >= W); with splits > 1, `part` holds B * nkv * splits *
+// G * (D + 2) floats of scratch.  Returns the first launch error;
+// nothing is synchronised.
 extern "C" int decode_attention_launch(
-    int dtype, int G, const void* q,
+    int dtype, int G, int vec, const void* q,
     const void* k8, long long k_sb, long long k_sh, long long k_sw,
     const void* ks, long long ks_sb, long long ks_sh, long long ks_sw,
     const void* v8, long long v_sb, long long v_sh, long long v_sw,
     const void* vs, long long vs_sb, long long vs_sh, long long vs_sw,
     const void* k_self, const void* v_self, const void* mask, long long m_sb,
-    void* out, int B, int nkv, int W, int D, float scale, void* stream) {
-  if (D % 4 != 0 || D > kMaxD || 32 % (D / 4) != 0 || B <= 0 || nkv <= 0 || W <= 0) {
+    void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, float scale,
+    void* stream) {
+  if (D % vec != 0 || D > kMaxD || 32 % (D / vec) != 0 || B <= 0 || nkv <= 0 || W <= 0 ||
+      splits <= 0 || chunk <= 0 || chunk > kMaxChunk || (long long)splits * chunk < W ||
+      (splits > 1 && part == nullptr) || (long long)B * nkv * splits > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
+  const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
+               vs, {vs_sb, vs_sh, vs_sw}, k_self, v_self, mask, m_sb, out, part,
+               B, nkv, W, D, chunk, splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch_g<float>(G, q, k8, k_sb, k_sh, k_sw, ks, ks_sb, ks_sh, ks_sw, v8, v_sb,
-                                v_sh, v_sw, vs, vs_sb, vs_sh, vs_sw, k_self, v_self, mask, m_sb,
-                                out, B, nkv, W, D, scale, st);
-  }
-  if (dtype == 1) {
-    return (int)launch_g<__nv_bfloat16>(G, q, k8, k_sb, k_sh, k_sw, ks, ks_sb, ks_sh, ks_sw, v8,
-                                        v_sb, v_sh, v_sw, vs, vs_sb, vs_sh, vs_sw, k_self, v_self,
-                                        mask, m_sb, out, B, nkv, W, D, scale, st);
-  }
+  if (dtype == 0) return (int)by_vec<float>(vec, G, a, st);
+  if (dtype == 1) return (int)by_vec<__nv_bfloat16>(vec, G, a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,10 @@
 """Fused int8-KV decode attention: a CUDA kernel and its plain version.
 
 Replaces the JAX package's Pallas kernels in ``ops/decode_attention.py``:
-``_decode_attn_kernel_mxu`` (behind ``decode_attention`` and
-``decode_attention_batched``) and ``_decode_attn_kernel_vpu`` (behind
-``decode_attention_vpu``, G == 1).  On Hopper all three wrappers launch
-ONE kernel, ``csrc/decode_attention.cu``, templated on G: the TPU's
+``_decode_attn_kernel_mxu`` (line 52, behind ``decode_attention`` and
+``decode_attention_batched``) and ``_decode_attn_kernel_vpu`` (line 173,
+behind ``decode_attention_vpu``, G == 1).  On Hopper all three wrappers
+launch ONE kernel, ``csrc/decode_attention.cu``, templated on G: the TPU's
 split between an MXU and a VPU formulation and its slot blocking have no
 counterpart on the card, and the kernel takes every window width (the
 VPU kernel's ``W % 128 == 0`` rule is gone).
@@ -22,10 +22,14 @@ Layouts (B slots, W window, NKV kv heads, G = heads / kv head, D head dim):
   out     [B, NKV, G, D]   f32
 
 Bound on the H100: bytes — the 2 * W * D int8 bytes of each (slot, head)
-window dominate, at < 16 flops a byte.  The kernel reads each window row
-once, 4 bytes a lane, in place through the view's strides (no
-``.contiguous()`` copy of the cache per layer), and keeps the scores in
-registers (see the source for the design note).
+window dominate, at < 16 flops a byte.  The kernel is a flash-decoding
+kernel (see the source for the design note): the window is split over
+``num_splits(B, NKV, W)`` blocks per (slot, head), each reads its rows
+once in place through the view's strides (no ``.contiguous()`` copy of
+the cache per layer) with 16-byte loads where the view is 16-byte
+aligned (4-byte ones otherwise), computes its scores, then its softmax
+and P . V, and a merge kernel launched by the same call joins the
+splits and the self term.  One call counts one launch.
 """
 
 from __future__ import annotations
@@ -37,8 +41,19 @@ import torch
 
 from . import _build
 
-# Kernel launches since import, all three wrappers together (one kernel).
+# Kernel launches since import, all three wrappers together: one per
+# call, the split kernel and its merge together.
 launches = 0
+
+# How the window is split (``num_splits``): the H100's SMs, the blocks of
+# the G = 1 kernel an SM holds at once (its launch bounds), the fewest
+# positions worth a block, the most whose scores a block holds in shared
+# memory (the kernel's kMaxChunk), and the widest window that stays whole.
+NUM_SMS = 132
+BLOCKS_PER_SM = 4
+MIN_SPLIT = 64
+MAX_SPLIT = 2048
+WHOLE_WINDOW = 192
 
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -65,19 +80,37 @@ def decode_attention_reference(q, k8, ks, v8, vs, k_self, v_self, mask):
     return ctx / denom
 
 
+def num_splits(b: int, nkv: int, w: int) -> int:
+    """Blocks per (slot, kv head) over a window of ``w`` positions: as
+    many as fit one wave of ``BLOCKS_PER_SM`` blocks on each SM, where the
+    window has ``MIN_SPLIT`` positions a block for them; never a split
+    wider than ``MAX_SPLIT``; 1 up to ``WHOLE_WINDOW`` (no merge launch).
+    On the H100 one full wave beats a wave and a part (the split sweep of
+    ``chip_smoke.py``, in ``PERF.md``)."""
+    if w <= WHOLE_WINDOW:
+        return 1
+    wave = NUM_SMS * BLOCKS_PER_SM // (b * nkv)
+    return max(1, min(wave, w // MIN_SPLIT), -(-w // MAX_SPLIT))
+
+
+def split_len(w: int, splits: int) -> int:
+    """Positions each split owns; the last may own fewer, or none."""
+    return -(-w // splits)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [
-            i32, i32, vp,
+            i32, i32, i32, vp,
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, vp, vp, ll,
-            vp, i32, i32, i32, i32, ctypes.c_float, vp,
+            vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -119,26 +152,33 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
             f"{tuple(mask.shape)}"
         )
     for name, t in (("k8", k8), ("v8", v8)):
-        # 4-byte int8 loads: dense D, every stride and the base 4-aligned.
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 4:
+        # int8 loads of 4 bytes at least: dense D, every stride and the base 4-aligned.
+        st = t.stride()
+        if st[3] != 1 or (t.data_ptr() | st[0] | st[1] | st[2]) % 4:
             raise ValueError(
                 f"decode attention: {name} needs a dense last axis and "
-                f"4-byte aligned strides, got strides {t.stride()}"
+                f"4-byte aligned strides, got strides {st}"
             )
+    vec = load_width(k8, v8)
     if mask.stride(2) != 1:
         raise ValueError("decode attention: mask needs a dense last axis")
     q = q.contiguous()          # [B, NKV, G, D]: a few KB, never the cache
     k_self = k_self.contiguous()
     v_self = v_self.contiguous()
     out = torch.empty((b, nkv, g, d), dtype=torch.float32, device=q.device)
+    splits = num_splits(b, nkv, w)
+    # The splits' partials (acc [G, D], then m and l per g); none for one split.
+    part = (torch.empty(b * nkv * splits * g * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     rc = _kernel()(
-        _DTYPES[q.dtype], g, q.data_ptr(),
+        _DTYPES[q.dtype], g, vec, q.data_ptr(),
         k8.data_ptr(), k8.stride(0), k8.stride(1), k8.stride(2),
         ks.data_ptr(), ks.stride(0), ks.stride(1), ks.stride(2),
         v8.data_ptr(), v8.stride(0), v8.stride(1), v8.stride(2),
         vs.data_ptr(), vs.stride(0), vs.stride(1), vs.stride(2),
         k_self.data_ptr(), v_self.data_ptr(), mask.data_ptr(), mask.stride(0),
-        out.data_ptr(), b, nkv, w, d, 1.0 / math.sqrt(d),
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        b, nkv, w, d, splits, split_len(w, splits), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -147,8 +187,19 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     return out
 
 
+def load_width(k8: torch.Tensor, v8: torch.Tensor) -> int:
+    """Bytes a lane loads of a cache row: 16 when the bases and the batch,
+    head and position strides of both windows are 16-byte aligned (the
+    head-major cache always is), else 4."""
+    bits = 0
+    for t in (k8, v8):
+        st = t.stride()
+        bits |= t.data_ptr() | st[0] | st[1] | st[2]
+    return 4 if bits % 16 else 16
+
+
 def decode_attention(q, k8, ks, v8, vs, k_self, v_self, mask):
-    """Fused int8-KV decode attention, one block per (slot, kv head).
+    """Fused int8-KV decode attention, split over the window.
     CPU tensors take the plain version; CUDA tensors the kernel."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k8, ks, v8, vs, k_self, v_self, mask)

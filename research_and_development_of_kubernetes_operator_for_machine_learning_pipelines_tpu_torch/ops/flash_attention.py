@@ -1,15 +1,16 @@
 """Flash attention: a CUDA kernel (``csrc/flash_attention.cu``) and its
 plain version.
 
-Replaces ``_flash_kernel`` of the JAX package's ``ops/flash_attention.py``:
-blockwise online-softmax attention over ``[B, H, S, D]`` queries and
-``[B, H, T, D]`` keys/values, f32 or bf16 in, q's type out.  Scores are
-``(q * scale) . k`` in f32; the ``kv_len`` mask (keys at or past
-``kv_len``) and the causal mask (key > query) replace a score with
--1e30, and masked keys still take part in the softmax: with ``kv_len <=
-0`` every score is -1e30 and a row comes out as the mean of V over the T
-keys, as the JAX package's ``attention_reference`` gives.  Any S and T;
-the kernel masks its ragged tiles itself (their padding takes no part).
+Replaces ``_flash_kernel`` of the JAX package's ``ops/flash_attention.py``
+(line 62, its ``pallas_call`` at line 136): blockwise online-softmax attention over
+``[B, H, S, D]`` queries and ``[B, H, T, D]`` keys/values, f32 or bf16
+in, q's type out.  Scores are ``(q . k) * scale`` in f32; the ``kv_len``
+mask (keys at or past ``kv_len``) and the causal mask (key > query)
+replace a score with -1e30, and masked keys still take part in the
+softmax: with ``kv_len <= 0`` every score is -1e30 and a row comes out as
+the mean of V over the T keys, as the JAX package's ``attention_reference``
+gives.  Any S and T; the kernel masks its ragged tiles itself (their
+padding takes no part).
 
 Two additions let BERT's ``_self_attention`` run through it unchanged;
 both compute what ``models/bert.py`` computes:
@@ -24,8 +25,17 @@ both compute what ``models/bert.py`` computes:
   masks every key therefore averages V uniformly, as BERT's reference
   does.
 
-On the H100 the kernel is bound by its f32 arithmetic (see the source for
-the design note).
+On the H100 (see the source for the design note): bf16, the serving
+type, runs on the tensor cores (``mma.sync`` m16n8k16, ``cp.async``
+double-buffered K/V tiles), bound by its bytes at BERT's shapes and by
+its operations at S = 1024, D = 128.  It rounds the probabilities to
+bf16 before the product with V (relative 2^-9 each, against the running
+max, the row sum over the rounded values), which the plain version does
+not: both stay within the bf16 tolerance of each other.  f32 keeps the
+CUDA-core kernel.  The bf16 kernel copies Q, K and V tiles with 16-byte
+``cp.async`` (the f32 one K and V with 16-byte loads), so the wrapper
+asks q, k and v for 16-byte aligned bases and strides; it raises
+otherwise and never reroutes.
 """
 
 from __future__ import annotations
@@ -141,15 +151,15 @@ def _launch(q, k, v, causal, kv_len, scale, bias):
         )
     size = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
+        st = x.stride()
+        if st[3] != 1:
             raise ValueError(f"flash attention: {name} needs a dense last axis, "
-                             f"got strides {x.stride()}")
-    for name, x in (("k", k), ("v", v)):
-        # K/V tiles are staged with 16-byte loads.
-        if x.data_ptr() % 16 or any((st * size) % 16 for st in x.stride()[:3]):
+                             f"got strides {st}")
+        # Q, K and V tiles are staged with 16-byte loads.
+        if (x.data_ptr() | (st[0] * size) | (st[1] * size) | (st[2] * size)) % 16:
             raise ValueError(
                 f"flash attention: {name} needs 16-byte aligned base and "
-                f"strides, got strides {x.stride()} at {x.data_ptr():#x}"
+                f"strides, got strides {st} at {x.data_ptr():#x}"
             )
     kv = t if kv_len is None else int(kv_len)
     scale = scale if scale is not None else 1.0 / (d**0.5)

@@ -1,0 +1,182 @@
+"""In-process A/B of the port's attention kernels against another checkout.
+
+The counterpart of the JAX repository's ``scripts/ab_attention.py``: times
+compared across processes (or across calls, which may land on other cards
+and hosts) drift, so two versions are compared only in one process, in
+turns.  The other checkout's port is loaded under the module name
+``ab_other`` (it builds its own kernels into its own ``build/``), and for
+every shape this checkout's wrapper and the other's run on the same
+inputs, this, other, other, this in each round:
+
+- ``ms``: CUDA-event milliseconds a call over back-to-back calls, the
+  host's launch included (``chip_smoke.py``'s "ms");
+- ``device_ms``: the profiler's device milliseconds a call of the
+  kernels whose names hold ``decode_attention_kernel`` or
+  ``flash_attention_kernel``.
+
+Each is the minimum over rounds.  Shapes: ``chip_smoke.py``'s decode
+window ladder (4 slots, 32 kv heads, G = 1, D = 128, bf16 q, windows
+rotated over 8 layers of a cache) and its bf16 flash cases.  Run on the
+card, with the other checkout unpacked where ``.gitignore`` lists it::
+
+    mkdir -p build/ab_other && git archive <commit> | tar -x -C build/ab_other
+    python -m <port>.scripts.ab_kernels --other build/ab_other --rounds 2 \
+        [--shapes decode_w16,flash_bert_b32_s128_bias]
+
+One JSON line per shape, then one line with the card and every shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import decode_attention as da
+from ..ops import flash_attention as fa
+
+_PKG = Path(__file__).resolve().parents[1].name
+LADDER = (16, 48, 192, 768, 1536, 4096)
+LAYERS = 8
+
+
+def load_other(root: str):
+    """The other checkout's ``ops.decode_attention`` and
+    ``ops.flash_attention`` modules, imported as package ``ab_other``."""
+    pkg_dir = Path(root).resolve() / _PKG
+    spec = importlib.util.spec_from_file_location(
+        "ab_other", pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ab_other"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("ab_other.ops.decode_attention"),
+            importlib.import_module("ab_other.ops.flash_attention"))
+
+
+def event_ms(fn, iters: int = 100) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, needle: str, iters: int = 50) -> float | None:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a profiler window now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages() if needle in e.key)
+        if total:
+            return total / iters / 1e3
+    return None
+
+
+def decode_shapes(gen):
+    """name -> a call taking the module: the ladder's windows rotated over
+    LAYERS layers of one head-major cache."""
+    b, nkv, d, t = 4, 32, 128, 4096
+    shape = (LAYERS, b, nkv, t, d)
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.01 + 1e-3
+    vs = torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.01 + 1e-3
+    q = torch.randn((b, nkv, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k_self = torch.randn((b, nkv, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v_self = torch.randn((b, nkv, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for w in LADDER:
+        mask = torch.zeros((b, 1, w), device="cuda")
+        views = [(q, k8[i, :, :, :w], ks[i, :, :, :w], v8[i, :, :, :w], vs[i, :, :, :w],
+                  k_self, v_self, mask) for i in range(LAYERS)]
+        it = {"i": 0}
+
+        def call(mod, views=views, it=it):
+            it["i"] += 1
+            return mod.decode_attention_vpu(*views[it["i"] % LAYERS])
+
+        out[f"decode_w{w}"] = call
+    return out
+
+
+def flash_shapes(gen):
+    """name -> a call taking the module: chip_smoke.py's bf16 flash cases
+    (same shapes and masks; other random values)."""
+    def case(b, h, s, d, bias_lengths=None, **kw):
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        if bias_lengths is not None:
+            lens = torch.as_tensor(bias_lengths, device="cuda")
+            kw["bias"] = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None],
+                                     0.0, -1e9).to(torch.float32)
+        return lambda mod: mod.flash_attention(q, k, v, **kw)
+
+    lens = torch.randint(8, 129, (32,), generator=torch.Generator().manual_seed(11)).tolist()
+    return {
+        "flash_bert_b32_s128_bias": case(32, 12, 128, 64, lens),
+        "flash_b8_s512_bias": case(8, 12, 512, 64, [300, 512, 100, 32, 400, 511, 256, 64]),
+        "flash_causal_d128_s1024": case(2, 16, 1024, 128, causal=True),
+        "flash_kv_len_d128_s1024": case(2, 16, 1024, 128, kv_len=700),
+        "flash_ragged_s50": case(4, 12, 50, 64),
+        "flash_d16_s200_bias": case(4, 8, 200, 16, [0, 57, 133, 200]),
+        "flash_d32_s200_bias": case(4, 8, 200, 32, [200, 1, 99, 0]),
+        "flash_causal_s200": case(4, 8, 200, 64, causal=True),
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--shapes", default="", help="comma-separated shape names (default: all)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device; the A/B times the card")
+    other_da, other_fa = load_other(args.other)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = [(name, call, (da, other_da), "decode_attention_kernel")
+              for name, call in decode_shapes(gen).items()]
+    shapes += [(name, call, (fa, other_fa), "flash_attention_kernel")
+               for name, call in flash_shapes(gen).items()]
+    if args.shapes:
+        shapes = [x for x in shapes if x[0] in args.shapes.split(",")]
+    results = {}
+    for name, call, (this, other), needle in shapes:
+        r = {"this": {"ms": [], "device_ms": []}, "other": {"ms": [], "device_ms": []}}
+        for _ in range(args.rounds):
+            for side, mod in (("this", this), ("other", other), ("other", other),
+                              ("this", this)):
+                r[side]["ms"].append(event_ms(lambda mod=mod: call(mod)))
+                r[side]["device_ms"].append(device_ms(lambda mod=mod: call(mod), needle))
+        for side in ("this", "other"):
+            for key in ("ms", "device_ms"):
+                vals = [x for x in r[side][key] if x is not None]
+                r[side][key] = min(vals) if vals else None
+        if name.startswith("decode_w"):
+            r["splits"] = da.num_splits(4, 32, int(name[len("decode_w"):]))
+        results[name] = r
+        print(json.dumps({name: r}), flush=True)
+    summary = {"device": torch.cuda.get_device_name(0), "rounds": args.rounds,
+               "other": str(args.other), "shapes": results}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -157,6 +157,77 @@ def test_bias_and_strided_views_match_the_bert_chain(hd):
                                **F32_TOL)
 
 
+# chip_smoke.FLASH_TOL["bfloat16"]: the kernel's bf16 output against its
+# plain version on the card, absolute and relative.
+FLASH_TOL_BF16 = 2e-2
+
+
+def _flash_bf16_p(q, k, v, scale, bias=None, causal=False, kv_len=None, tile=64):
+    """The tensor-core kernel's arithmetic in f32 torch: bf16 q/k/v,
+    scores (q . k) * scale + bias, then the replacement masks (-1e30); an
+    online softmax over 64-key tiles from a running max of -1e30, whose
+    probabilities are rounded to bf16 against the running max (the row sum
+    adds the rounded values) before the product with V; the output
+    rounded to bf16."""
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    b, h, s_q, d = q.shape
+    t = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    key = torch.arange(t)[None, :]
+    masked = key >= (t if kv_len is None else kv_len)
+    if causal:
+        masked = masked | (key > torch.arange(s_q)[:, None])
+    s = torch.where(masked, torch.tensor(-1e30), s)
+    m = torch.full((b, h, s_q, 1), -1e30)
+    l = torch.zeros((b, h, s_q, 1))
+    acc = torch.zeros((b, h, s_q, d))
+    for k0 in range(0, t, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new).to(torch.bfloat16).float()
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p @ vf[..., k0:k0 + tile, :]
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["bert_bias", "causal_kv_len", "kv_len0"])
+def test_bf16_probabilities_fit_the_bf16_tolerance(case):
+    """At BERT-base width (H12, D64, S=T=128) the kernel's bf16 rounding of
+    P, emulated, stays within the card's unchanged bf16 tolerance of the
+    JAX package's f32 chains: BERT's einsum chain with a bias that masks
+    some keys (one row masked everywhere), ``attention_reference`` with
+    causal and kv_len masks, and kv_len 0 (the mean of V)."""
+    b, h, s, d = 3, 12, 128, 64
+    rng = np.random.default_rng(len(case))
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (q, k, v))
+    scale = 1.0 / d**0.5
+    if case == "bert_bias":
+        mask = (np.arange(s)[None, :] < np.array([s, 77, 0])[:, None]).astype(np.float32)
+        bias = (1.0 - mask) * -1e9
+        got = _flash_bf16_p(q, k, v, scale, bias=torch.from_numpy(bias))
+        t = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731  [B, H, S, D] <-> [B, S, H, D]
+        want = np.asarray(t(_bert_chain(t(jq), t(jk), t(jv),
+                                        jnp.asarray(bias)[:, None, None, :])))
+        plain = tfa.flash_attention_reference(q.float(), k.float(), v.float(), scale=scale,
+                                              bias=torch.from_numpy(bias))
+    else:
+        kw = dict(causal=True, kv_len=100) if case == "causal_kv_len" else dict(kv_len=0)
+        got = _flash_bf16_p(q, k, v, scale, **kw)
+        want = np.asarray(_joracle(jq, jk, jv, scale=scale, **kw))
+        plain = tfa.flash_attention_reference(q.float(), k.float(), v.float(), scale=scale,
+                                              **kw)
+    got = got.float().numpy()
+    tol = dict(atol=FLASH_TOL_BF16, rtol=FLASH_TOL_BF16)
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, plain.numpy(), **tol)
+
+
 def test_self_attention_block_matches_jax_in_f64():
     """The whole attention block (projections, flash attention with the
     bias, output projection) in f64: f32 scores and softmax on both sides,

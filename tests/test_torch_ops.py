@@ -26,6 +26,9 @@ from research_and_development_of_kubernetes_operator_for_machine_learning_pipeli
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.ops import (
     rmsnorm as trn,
 )
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.scripts import (
+    ab_kernels as tab,
+)
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (
     generation as tgen,
 )
@@ -110,6 +113,163 @@ def test_decode_attention_reads_strided_cache_window():
     dense = tda.decode_attention(t(q), *(v.contiguous() for v in views),
                                  t(k_self), t(v_self), t(mask))
     torch.testing.assert_close(out, dense, rtol=0, atol=0)
+
+
+def _split_emulation(q, k8, ks, v8, vs, k_self, v_self, mask, splits):
+    """The split kernel's arithmetic in f64 torch: each split's scores
+    (q * scale) . k8 * ks + mask, its max m, sum l and P . V partial acc,
+    then the merge that joins the self term once.  A split past W has m =
+    -inf, l = 0, acc = 0, as the kernel writes it."""
+    q, k8, ks, v8, vs, k_self, v_self, mask = (
+        torch.as_tensor(a).to(torch.float64)
+        for a in (q, k8, ks, v8, vs, k_self, v_self, mask))
+    b, nkv, g, d = q.shape
+    w = k8.shape[2]
+    chunk = tda.split_len(w, splits)
+    qs = q * (1.0 / d ** 0.5)
+    parts = []
+    for i in range(splits):
+        lo, hi = i * chunk, min(w, (i + 1) * chunk)
+        if hi <= lo:
+            parts.append((torch.full((b, nkv, g), -torch.inf, dtype=torch.float64),
+                          torch.zeros((b, nkv, g), dtype=torch.float64),
+                          torch.zeros((b, nkv, g, d), dtype=torch.float64)))
+            continue
+        sc = torch.einsum("bngd,bnwd->bngw", qs, k8[:, :, lo:hi])
+        sc = sc * ks[:, :, None, lo:hi, 0] + mask[:, :, None, lo:hi]
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        acc = torch.einsum("bngw,bnwd->bngd", p * vs[:, :, None, lo:hi, 0], v8[:, :, lo:hi])
+        parts.append((m, p.sum(-1), acc))
+    s_self = torch.einsum("bngd,bnsd->bng", qs, k_self)
+    mx = s_self
+    for m, _, _ in parts:
+        mx = torch.maximum(mx, m)
+    p_self = torch.exp(s_self - mx)
+    den, num = p_self, p_self[..., None] * v_self
+    for m, l, acc in parts:
+        f = torch.exp(m - mx)  # 0 for a split past W
+        den = den + l * f
+        num = num + acc * f[..., None]
+    return num / den[..., None]
+
+
+def _lengths_mask(lengths, w):
+    lengths = np.asarray(lengths)
+    mask = np.where(np.arange(w)[None, :] < lengths[:, None], 0.0, -1e9)
+    return mask.astype(np.float32)[:, None, :]
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("W", [16, 96, 97, 768, 4096])
+def test_split_partials_and_merge_match_the_reference(W, G):
+    """The kernel's split-and-merge algebra, with the splits the wrapper
+    picks, equals the JAX package's decode_attention_reference: lengths on
+    and beside the split boundaries, 0 (exactly v_self) and W; a row whose
+    later splits are masked everywhere.  f64 emulation against the f32
+    reference: 1e-5, the f32 summation-order tolerance of this file."""
+    B, NKV, D = 8, 2, 16
+    splits = tda.num_splits(B, NKV, W)
+    c = tda.split_len(W, splits)
+    if splits > 1:
+        cuts = sorted({c, (splits // 2) * c, (splits - 1) * c})
+        lengths = [0, W] + [x + o for x in cuts for o in (-1, 0, 1)]
+        lengths = (lengths + [c // 2] * B)[:B]
+        assert any(0 < n <= (splits - 1) * c - c for n in lengths)  # a split masked everywhere
+    else:
+        lengths = [0, W, W - 1, 1, W // 2, W // 3, 2, W - 2]
+    args = list(_da_inputs(B, NKV, G, D, W, seed=W + G))
+    args[-1] = _lengths_mask(lengths, W)
+    got = _split_emulation(*args, splits).numpy()
+    ref = np.asarray(jda.decode_attention_reference(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, ref, rtol=DA_TOL, atol=DA_TOL)
+    np.testing.assert_allclose(got[0], np.broadcast_to(args[6][0], got[0].shape),
+                               rtol=DA_TOL, atol=DA_TOL)
+    port = tda.decode_attention(*(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_allclose(got, port, rtol=DA_TOL, atol=DA_TOL)
+
+
+@pytest.mark.parametrize("W,splits", [(96, 13), (97, 3), (16, 7), (130, 2)])
+def test_split_merge_takes_empty_and_ragged_splits(W, splits):
+    """Forced split counts: a split past W (96 in 13 runs of 8, 16 in 7 of
+    3) contributes nothing and no NaN; a ragged last split (97 = 33 + 33 +
+    31); one split masked everywhere (the length-40 row at W = 130)."""
+    B, NKV, G, D = 4, 2, 2, 16
+    args = list(_da_inputs(B, NKV, G, D, W, seed=splits))
+    args[-1] = _lengths_mask([0, W, W // 3, min(40, W)], W)
+    got = _split_emulation(*args, splits).numpy()
+    assert np.isfinite(got).all()
+    ref = np.asarray(jda.decode_attention_reference(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, ref, rtol=DA_TOL, atol=DA_TOL)
+
+
+@pytest.mark.parametrize("b,nkv", [(1, 1), (1, 8), (2, 8), (4, 32), (8, 16), (32, 16),
+                                   (64, 32), (1, 32)])
+def test_num_splits_properties(b, nkv):
+    """At least 1 and at most W; 1 for small windows; at least MIN_SPLIT
+    positions a split; where W allows, the grid fills one wave of 4 blocks
+    on each of the 132 SMs (one more split would pass it)."""
+    wave = tda.NUM_SMS * tda.BLOCKS_PER_SM
+    assert wave == 4 * 132
+    for w in list(range(1, 300)) + [384, 512, 768, 997, 1000, 1536, 2049, 4096, 4225,
+                                    8192, 40000]:
+        s = tda.num_splits(b, nkv, w)
+        c = tda.split_len(w, s)
+        fewest = -(-w // tda.MAX_SPLIT)  # the splits whose scores fit shared memory
+        assert 1 <= s <= w
+        assert s * c >= w and c <= tda.MAX_SPLIT
+        if w <= tda.WHOLE_WINDOW:
+            assert s == 1
+        else:
+            assert s >= fewest
+            if w // tda.MIN_SPLIT * b * nkv >= wave and fewest <= wave // (b * nkv):
+                assert b * nkv * s <= wave < b * nkv * (s + 1)
+        if s > fewest:
+            assert c >= tda.MIN_SPLIT
+    assert tda.num_splits(4, 32, 768) == 4  # Llama-2-7B, 4 slots: 512 blocks of 192
+    assert tda.num_splits(1, 32, 768) == 12  # one slot: 384 blocks of 64
+    assert tda.num_splits(4, 32, 192) == 1
+
+
+def test_load_width_follows_alignment():
+    """16-byte rows where the bases and strides allow them (the head-major
+    cache), 4-byte ones for a [..., :128] view of a 132-wide buffer."""
+    cache = torch.zeros((2, 4, 8, 64, 128), dtype=torch.int8)
+    window = cache[1, :, :, :48]
+    assert tda.load_width(window, window) == 16
+    wide = torch.zeros((4, 8, 64, 132), dtype=torch.int8)[..., :128]
+    assert tda.load_width(wide, wide) == 4
+    assert tda.load_width(window, wide) == 4
+    odd = torch.zeros((4 * 8 * 48 * 128 + 4,), dtype=torch.int8)[4:].view(4, 8, 48, 128)
+    assert tda.load_width(odd, odd) == 4
+
+
+def test_ab_kernels_loads_another_checkout_as_its_own_package(monkeypatch):
+    """The A/B script imports the other checkout (here this one) under its
+    own name: its modules, build paths and launch counters are its own."""
+    import sys
+    from pathlib import Path
+
+    for name in [m for m in sys.modules if m == "ab_other" or m.startswith("ab_other.")]:
+        monkeypatch.delitem(sys.modules, name)
+    root = Path(__file__).resolve().parents[1]
+    other_da, other_fa = tab.load_other(str(root))
+    try:
+        assert other_da.__name__ == "ab_other.ops.decode_attention" and other_da is not tda
+        assert other_fa.__name__ == "ab_other.ops.flash_attention"
+        assert other_da._build is not tda._build
+        args = [torch.from_numpy(a) for a in _da_inputs(3, 2, 2, 16, 24, seed=5)]
+        torch.testing.assert_close(other_da.decode_attention(*args), tda.decode_attention(*args),
+                                   rtol=0, atol=0)
+    finally:
+        for name in [m for m in sys.modules if m == "ab_other" or m.startswith("ab_other.")]:
+            del sys.modules[name]
+
+
+def test_ab_kernels_refuses_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tab.main(["--other", "."])
 
 
 def test_decode_attention_vpu_rejects_grouped_heads():
