@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    every split boundary, W = 997 of a 1000-wide window, W = 97 of 100,
    16-byte and 4-byte row loads, G = 8 and a length-0 row with several
    splits, a split past W), within 1e-4 absolute + 1e-4 relative in f32;
-   RMSNorm at rows 1, 4, 512 and H = 4096 in bf16, within one bf16 ulp;
+   RMSNorm at H = 4096 and rows 1, 4, 32, 256, 512 in bf16 within one
+   bf16 ulp, f32 x within 1e-6, a misaligned view that must take the
+   scalar instance and a 32768-wide row that must take the cluster
+   instance, each with the plan that ran and the host's time a call, and
+   the plan taken against other cuts of a row (a plan sweep);
    flash attention at BERT-base B32/H12/S128/D64 with a ragged key bias
    (one row masked everywhere), the same from strided views of one
    projection buffer, B8/S512, causal and kv_len forms at D=128 S=T=1024,
@@ -30,11 +34,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 3b. D-major decode attention against its plain version at the layout
    probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
    768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
-   buffer (one fully masked row, ragged lengths), within 1e-4 absolute +
-   1e-4 relative; against the head-major decode kernel through the
-   self-row identity at the probe's shapes; its time, the profiler's
-   device time, the head-major kernel's on the same values and the byte
-   bound.  Then the path that runs it: the port's layout probe
+   buffer (one fully masked row, ragged lengths), and where its split
+   over W can go wrong (lengths on and beside
+   every split edge, B = 1 at W = 4096 with the cap of 8 splits, a split
+   past W, 16- and 4-byte copies), within 1e-4 absolute + 1e-4 relative;
+   against the head-major decode kernel through the self-row identity at
+   the probe's shapes; its time, the profiler's device time, the
+   head-major kernel's on the same values and the byte bound, a split
+   sweep (1, 2, 4, 8) with the merge that ran and a window ladder (96 to
+   4096).  Then the path that runs it: the port's layout probe
    (``<port>.scripts.proto_dmajor_attention``) in process, with its
    parity assert and its launch counts.
 4. Loader: writes a tiny native artifact, starts ``python -m
@@ -117,10 +125,12 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_device(fn, iters: int = 20) -> tuple[dict[str, float], float]:
+def profile_device(fn, iters: int = 20, launches: dict | None = None
+                   ) -> tuple[dict[str, float], float]:
     """Device milliseconds by kernel name over ``iters`` calls of ``fn``
     (torch.profiler, device activity only, so the host is not slowed by
-    op tracing), and the wall milliseconds of the window."""
+    op tracing), and the wall milliseconds of the window.  ``launches``,
+    when given, receives the launches the profiler saw of each name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,17 +149,23 @@ def profile_device(fn, iters: int = 20) -> tuple[dict[str, float], float]:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us:
             by_kernel[evt.key] = dev_us / 1e3
+            if launches is not None:
+                launches[evt.key] = evt.count
     return by_kernel, wall_ms
 
 
 def kernel_device_ms(fn, needle: str, iters: int = 50) -> float | None:
-    """Mean device ms per call of the kernels whose name holds ``needle``;
-    None when the profiler saw no device time for them."""
+    """Mean device ms per call of the kernels whose name holds ``needle``,
+    each launched once a call: the sum over those names of their mean time
+    a launch the profiler saw (a window that misses launches, as one now
+    and then does, must not read as a faster kernel); None when the
+    profiler saw no device time for them."""
     for _ in range(2):  # a profiler window now and then comes back empty
-        by_kernel, _ = profile_device(fn, iters)
-        total = sum(v for k, v in by_kernel.items() if needle in k)
-        if total:
-            return total / iters
+        launches: dict[str, int] = {}
+        by_kernel, _ = profile_device(fn, iters, launches)
+        per_launch = [v / launches[k] for k, v in by_kernel.items() if needle in k]
+        if per_launch:
+            return sum(per_launch)
     return None
 
 
@@ -489,53 +505,131 @@ def _bf16_ulps(out, ref):
     return ((out.float() - ref.float()).abs() / ulp)
 
 
+def _rn_case(rn, x, scale, what) -> dict:
+    """RMSNorm of ``x`` against its plain version (one bf16 ulp; f32 within
+    1e-6 absolute + relative), with the plan that ran."""
+    import torch
+
+    out = rn.rmsnorm(x, scale, 1e-5)
+    ref = rn.rmsnorm_reference(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    if x.dtype == torch.bfloat16:
+        bad = float(_bf16_ulps(out, ref).max()) > 1.0
+    else:
+        bad = bool((err > 1e-6 + 1e-6 * ref.abs()).any())
+    if not bool(torch.isfinite(out.float()).all()) or bad:
+        raise AssertionError(f"rmsnorm disagrees on {what}: max_abs_err {float(err.max()):.3e}, "
+                             f"{float(_bf16_ulps(out, ref).max()):.2f} bf16 ulp")
+    aligned = (x.data_ptr() | out.data_ptr() | scale.data_ptr()) % 16 == 0
+    plan = rn.rmsnorm_plan(x.numel() // x.shape[-1], x.shape[-1], x.element_size(), aligned)
+    return {"max_abs_err": float(err.max()), "ulp": float(_bf16_ulps(out, ref).max()),
+            "dtype": str(x.dtype).replace("torch.", ""), "plan": plan._asdict()}
+
+
 def phase_rmsnorm(rn) -> dict:
+    """RMSNorm at Llama-2-7B's width (H = 4096): bf16 at rows 1 and 4
+    (decode), 32, 256 and 512 (prefill chunks), f32 x, a misaligned view
+    (``buf[1:]``) that must run the scalar instance, and a 32768-wide row
+    that must run the cluster instance.  Times the kernel (CUDA events and
+    the profiler's device time, the host's share a call between them), its
+    plain version and ``F.rms_norm``, and the plan taken against other cuts
+    of a row at 4 and 512 rows."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     H = 4096
+    lib = getattr(F, "rms_norm", None)
     worst_ulp, worst_abs = 0.0, 0.0
-    timings = {}
-    for rows in (1, 4, 512):
+    cases, timings = {}, {}
+    scale = (1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")).to(torch.bfloat16)
+    for rows in (1, 4, 32, 256, 512):
         x = torch.randn((rows, H), generator=gen, device="cuda").to(torch.bfloat16)
-        scale = (1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")).to(torch.bfloat16)
-        out = rn.rmsnorm(x, scale, 1e-5)
-        ref = rn.rmsnorm_reference(x, scale, 1e-5)
-        torch.cuda.synchronize()
-        ulps = _bf16_ulps(out, ref)
-        if not bool(torch.isfinite(out.float()).all()) or float(ulps.max()) > 1.0:
-            raise AssertionError(f"rmsnorm disagrees at rows={rows}: {float(ulps.max())} ulp")
-        worst_ulp = max(worst_ulp, float(ulps.max()))
-        worst_abs = max(worst_abs, float((out.float() - ref.float()).abs().max()))
-        lib = getattr(F, "rms_norm", None)
+        c = cases[f"rows{rows}"] = _rn_case(rn, x, scale, f"rows={rows}")
         t = {
             "ms": cuda_time_ms(lambda: rn.rmsnorm(x, scale, 1e-5), iters=200),
             "plain_ms": cuda_time_ms(lambda: rn.rmsnorm_reference(x, scale, 1e-5), iters=200),
             "library_ms": (cuda_time_ms(lambda: lib(x, (H,), scale, 1e-5), iters=200)
                            if lib is not None else None),
+            "device_ms": kernel_device_ms(lambda: rn.rmsnorm(x, scale, 1e-5), "rmsnorm_kernel"),
+            "library_device_ms": (device_ms_per_call(lambda: lib(x, (H,), scale, 1e-5))
+                                  if lib is not None else None),
+            "plan": c["plan"],
         }
-        t["device_ms"] = kernel_device_ms(lambda: rn.rmsnorm(x, scale, 1e-5), "rmsnorm_kernel")
-        t["library_device_ms"] = (device_ms_per_call(lambda: lib(x, (H,), scale, 1e-5))
-                                  if lib is not None else None)
+        # What a call costs beyond the kernel: the wrapper's host time
+        # between back-to-back launches.
+        t["host_us"] = (t["ms"] - t["device_ms"]) * 1e3 if t["device_ms"] else None
+        t["faster_than_library"] = (t["device_ms"] is not None and t["library_device_ms"]
+                                    is not None and t["device_ms"] < t["library_device_ms"])
         nbytes = 2 * rows * H * 2 + H * 2
         t["bound_ms"], t["bound_by"] = bound(nbytes, 4 * rows * H, F32_FLOPS)
         timings[rows] = t
-    log(f"rmsnorm: rows (1, 4, 512) x H=4096 bf16, max {worst_ulp:.2f} bf16 ulp "
-        f"(max_abs_err {worst_abs:.3e})")
+    # The plan: the one rmsnorm_plan takes against other cuts of a row (a
+    # cluster of 8 CTAs of 64 threads, one CTA of 512, 128 threads a row).
+    plan_sweep = {}
+    keep = rn.rmsnorm_plan
+    try:
+        for rows in (4, 512):
+            x = torch.randn((rows, H), generator=gen, device="cuda").to(torch.bfloat16)
+            nvec = H // 8
+            for name, forced in (
+                    ("taken", keep(rows, H, 2, True)),
+                    ("cluster8x64", rn.Plan(8, 1, 8, nvec // 8, 64, 64)),
+                    ("cta512", rn.Plan(8, 1, 1, nvec, 512, 512)),
+                    ("tpr128", rn.Plan(8, 4, 1, nvec, 128, 256))):
+                rn.rmsnorm_plan = lambda *a, forced=forced: forced  # noqa: E731
+                _rn_case(rn, x, scale, f"plan {name}, rows={rows}")
+                plan_sweep.setdefault(rows, {})[name] = kernel_device_ms(
+                    lambda: rn.rmsnorm(x, scale, 1e-5), "rmsnorm_kernel")
+    finally:
+        rn.rmsnorm_plan = keep
+    x32 = torch.randn((4, H), generator=gen, device="cuda")
+    cases["f32_rows4"] = _rn_case(rn, x32, scale, "f32 x, rows=4")
+    cases["f32_rows4"]["device_ms"] = kernel_device_ms(lambda: rn.rmsnorm(x32, scale, 1e-5),
+                                                       "rmsnorm_kernel")
+    buf = torch.randn((4 * H + 1,), generator=gen, device="cuda").to(torch.bfloat16)
+    xm = buf[1:].view(4, H)  # 2 bytes off 16: the scalar instance
+    cases["misaligned_rows4"] = _rn_case(rn, xm, scale, "buf[1:] view, rows=4")
+    if cases["misaligned_rows4"]["plan"]["vec"] != 1:
+        raise AssertionError(f"a misaligned x took {cases['misaligned_rows4']['plan']}")
+    cases["misaligned_rows4"]["device_ms"] = kernel_device_ms(
+        lambda: rn.rmsnorm(xm, scale, 1e-5), "rmsnorm_kernel")
+    wide_scale = (1 + 0.1 * torch.randn((32768,), generator=gen, device="cuda")).to(torch.bfloat16)
+    xw = torch.randn((4, 32768), generator=gen, device="cuda").to(torch.bfloat16)
+    cases["wide_h32768_rows4"] = _rn_case(rn, xw, wide_scale, "H=32768, rows=4")
+    if cases["wide_h32768_rows4"]["plan"]["cluster"] < 2:
+        raise AssertionError(f"a 32768-wide row took {cases['wide_h32768_rows4']['plan']}")
+    cases["wide_h32768_rows4"]["device_ms"] = kernel_device_ms(
+        lambda: rn.rmsnorm(xw, wide_scale, 1e-5), "rmsnorm_kernel")
+    for c in cases.values():
+        worst_ulp = max(worst_ulp, c["ulp"] if c["dtype"] == "bfloat16" else 0.0)
+        worst_abs = max(worst_abs, c["max_abs_err"])
+    log(f"rmsnorm: {len(cases)} cases, bf16 within {worst_ulp:.2f} ulp, f32 within 1e-6 "
+        f"(max_abs_err {worst_abs:.3e}); plans (vec, nv, cluster, threads a row piece, "
+        f"threads a CTA): " + "; ".join(
+            f"{k} {v['plan']['vec']}/{v['plan']['nv']}/{v['plan']['cluster']}/"
+            f"{v['plan']['tpr']}/{v['plan']['threads']}" for k, v in cases.items()))
+    for k in ("f32_rows4", "misaligned_rows4", "wide_h32768_rows4"):
+        log(f"  {k}: device {cases[k]['device_ms']} ms")
+    log(f"  plan sweep (rows: {{plan: device ms}}): {json.dumps(plan_sweep)}")
     for rows, t in timings.items():
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  rows={rows}: kernel {t['ms']:.4f} ms a call (device time alone "
-            f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, "
-            f"F.rms_norm {lib} ms (device time alone {t['library_device_ms']} ms), "
-            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"{t['device_ms']} ms; host {t['host_us']} us a call), plain {t['plain_ms']:.4f} ms, "
+            f"F.rms_norm {lib_ms} ms (device time alone {t['library_device_ms']} ms; kernel "
+            f"faster: {t['faster_than_library']}), bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     DETAIL["rmsnorm"] = {"max_ulp": worst_ulp, "max_abs_err": worst_abs,
-                         "timings": timings}
+                         "timings": timings, "cases": cases, "plan_sweep": plan_sweep}
     t = timings[4]  # decode: one row per slot, the path's most frequent shape
     return {"max_abs_err": worst_abs, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "library_device_ms": t["library_device_ms"]}
+            "library_device_ms": t["library_device_ms"], "host_us": t["host_us"],
+            "plan": t["plan"],
+            "rows": {r: {k: timings[r][k] for k in ("device_ms", "library_device_ms",
+                                                    "bound_ms", "host_us")}
+                     for r in timings}}
 
 
 def _flash_case(gen, B, H, S, T, D, dtype, *, bias_lengths=None, causal=False,
@@ -735,11 +829,80 @@ def _dm_bytes_flops(B, NKV, D, W, itemsize):
     return nbytes, flops
 
 
+def _dm_check(dm, c, what) -> float:
+    """The D-major kernel on copy 0 of case ``c`` against its plain version
+    (DA_TOL absolute + relative); a row masked everywhere must be the
+    uniform average over W of vs * v.  Returns the max abs error."""
+    import torch
+
+    args = (c["qt"], *c["dmajor"][0], c["mask"])
+    out = dm.attn_dmajor(*args)
+    ref = dm.attn_dmajor_reference(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
+        raise AssertionError(f"dmajor attention disagrees on {what}: max_abs_err "
+                             f"{float(err.max()):.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+    k8t, kst, v8t, vst = c["dmajor"][0]
+    for i in (i for i, n in enumerate(c["lengths"]) if n == 0):
+        uniform = (v8t[i].float() * vst[i]).mean(dim=-1, keepdim=True)
+        if float((out[i] - uniform).abs().max()) > DA_TOL + DA_TOL * float(uniform.abs().max()):
+            raise AssertionError(f"dmajor {what}: the fully masked row is not uniform")
+    return float(err.max())
+
+
+def _dm_split_checks(dm) -> dict:
+    """The split kernel where it can go wrong:
+    lengths on and beside every split edge, B = 1 at W = 4096 (the cap of
+    8 splits), a split past W, 16- and 4-byte copies with splits."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2718)
+    out = {}
+
+    def edges(B, NKV, W):
+        s = dm.dmajor_splits(B, NKV, W)
+        c = dm.split_len(W, s)
+        return [0, W, W - 1] + [j * c + o for j in range(1, s) for o in (-1, 0, 1)
+                                if j * c + o <= W]
+
+    def run(what, B, NKV, W, lengths_all, vec, pad_w=None, want_splits=None):
+        c0 = _dm_case(dm, gen, B, NKV, 128, W, [W] * B, pad_w=pad_w)
+        k8t, _, v8t, _ = c0["dmajor"][0]
+        if dm.load_width(k8t, v8t) != vec:
+            raise AssertionError(f"{what}: load width {dm.load_width(k8t, v8t)}, expected {vec}")
+        s = dm.dmajor_splits(B, NKV, W)
+        if want_splits is not None and s != want_splits:
+            raise AssertionError(f"{what}: {s} splits, expected {want_splits}")
+        worst, n = 0.0, 0
+        for i in range(0, len(lengths_all), B):
+            lengths = (lengths_all[i:i + B] + [W] * B)[:B]
+            c = dict(c0, lengths=lengths, mask=dm.length_mask(
+                torch.as_tensor(lengths, device="cuda"), W))
+            worst = max(worst, _dm_check(dm, c, what))
+            n += 1
+        out[what] = {"shape": [B, NKV, 128, W], "splits": s, "split_len": dm.split_len(W, s),
+                     "vec": vec, "checks": n, "max_abs_err": worst}
+
+    run("edges_b2_w4096", 2, 16, 4096, edges(2, 16, 4096), 16)
+    run("b1_w4096_cap8", 1, 16, 4096, edges(1, 16, 4096), 16, want_splits=dm.MAX_SPLITS)
+    # 513 positions in 8 runs of 80: the last split owns none.
+    s, c = dm.dmajor_splits(1, 16, 513), dm.split_len(513, dm.dmajor_splits(1, 16, 513))
+    if (s - 1) * c < 513:
+        raise AssertionError(f"W=513 at one slot has no empty split ({s} x {c})")
+    run("split_past_w513", 1, 16, 513, [513, 481, 480, 479, 1, 0], 16, pad_w=528)
+    # 4-byte copies with splits: rows 4100 bytes apart.
+    run("vec4_edges_b2_w4096", 2, 16, 4096, edges(2, 16, 4096), 4, pad_w=4100)
+    return out
+
+
 def phase_dmajor_attention(dm, da) -> dict:
     """The D-major kernel against its plain version at the listed shapes,
-    against the head-major decode kernel through the self-row identity,
-    its times beside the head-major kernel's and the bound, then the
-    port's layout probe in process (the path that runs the kernel)."""
+    where its split over W can go wrong, against the head-major decode
+    kernel through the self-row identity, its times beside the head-major
+    kernel's and the bound (a window ladder and a split sweep), then the
+    port's layout probe in process (the path that runs
+    the kernel)."""
     import math
 
     import numpy as np
@@ -757,26 +920,14 @@ def phase_dmajor_attention(dm, da) -> dict:
     cases["d64"] = dict(B=4, NKV=NKV, D=64, W=W, lengths=rng.integers(1, W + 1, 4).tolist())
     cases["bf16_q"] = dict(B=4, NKV=NKV, D=D, W=W, lengths=[0, 37, 300, W],
                            qdtype=torch.bfloat16)
-    # W not a multiple of 4, as a slice of a wider buffer: the byte-load tail
+    # W not a multiple of 4, as a slice of a wider buffer: 4-byte copies, a zero-filled tail
     cases["w97_sliced"] = dict(B=3, NKV=4, D=32, W=97, lengths=[0, 50, 97], pad_w=100)
     worst = 0.0
     for name, spec in cases.items():
         c = _dm_case(dm, gen, **spec)
-        args = (c["qt"], *c["dmajor"][0], c["mask"])
-        out = dm.attn_dmajor(*args)
-        ref = dm.attn_dmajor_reference(*args)
-        torch.cuda.synchronize()
-        err = (out - ref).abs()
-        if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
-            raise AssertionError(f"dmajor attention disagrees on {name}: max_abs_err "
-                                 f"{float(err.max()):.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
-        if spec["lengths"][0] == 0:  # masked everywhere: the mean over W of vs * v
-            k8t, kst, v8t, vst = c["dmajor"][0]
-            uniform = (v8t[0].float() * vst[0]).mean(dim=-1, keepdim=True)
-            if float((out[0] - uniform).abs().max()) > DA_TOL + DA_TOL * float(uniform.abs().max()):
-                raise AssertionError(f"dmajor {name}: the fully masked row is not uniform")
-        worst = max(worst, float(err.max()))
+        worst = max(worst, _dm_check(dm, c, name))
         if name.startswith("probe_"):
+            out = dm.attn_dmajor(c["qt"], *c["dmajor"][0], c["mask"])
             hm_in = dm.headmajor_self_row_inputs(c["q"], *c["head"][0], c["lengths"])
             hm = da.decode_attention(*hm_in).transpose(2, 3)
             torch.cuda.synchronize()
@@ -786,8 +937,15 @@ def phase_dmajor_attention(dm, da) -> dict:
                                      f"{float(herr.max()):.3e}")
             log(f"dmajor {name}: vs the head-major kernel through the self-row identity "
                 f"max_abs_err {float(herr.max()):.3e}")
-    log(f"dmajor attention: {len(cases)} shapes against the plain version, max_abs_err "
+    split_checks = _dm_split_checks(dm)
+    for r in split_checks.values():
+        worst = max(worst, r["max_abs_err"])
+    log(f"dmajor attention: {len(cases)} shapes against the plain version, and "
+        f"{sum(r['checks'] for r in split_checks.values())} split checks, max_abs_err "
         f"{worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+    log("  split checks (shape [B, NKV, D, W], splits x split_len, copy width): " + "; ".join(
+        f"{k} {v['shape']} {v['splits']}x{v['split_len']} vec{v['vec']}"
+        for k, v in split_checks.items()))
 
     # Timing at the probe's shapes.  Calls rotate over enough copies of the
     # window that the working set exceeds the 50 MB L2, as 24 layers would.
@@ -818,18 +976,54 @@ def phase_dmajor_attention(dm, da) -> dict:
             "headmajor_device_ms_same_window": kernel_device_ms(
                 lambda: da.decode_attention(*hviews[0]), "decode_attention_kernel"),
             "headmajor_splits": da.num_splits(b, NKV, W),
+            "splits": dm.dmajor_splits(b, NKV, W),
             "copies": copies, "bytes": nbytes, "flops": flops,
         }
         t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
         timings[b] = t
+        if b == 8:
+            # The split count: dmajor_splits fills one wave of BLOCKS_PER_SM
+            # blocks an SM; the constant moved gives 1, 2, 4 and 8 splits here
+            # (more than 1: the merge kernel runs too).
+            sweep = {}
+            keep = dm.BLOCKS_PER_SM
+            try:
+                for bps in (1, 2, 4, 8):
+                    dm.BLOCKS_PER_SM = bps
+                    sweep[dm.dmajor_splits(b, NKV, W)] = kernel_device_ms(
+                        kern, "dmajor_attention_kernel")
+            finally:
+                dm.BLOCKS_PER_SM = keep
         log(f"dmajor B={b} NKV={NKV} D={D} W={W} f32 q: kernel {t['ms']:.4f} ms a call "
             f"(device {t['device_ms']} ms; same window {t['device_ms_same_window']} ms), "
             f"plain {t['plain_ms']:.4f} ms, head-major kernel {t['headmajor_ms']:.4f} ms "
             f"(device {t['headmajor_device_ms']} ms; same window "
             f"{t['headmajor_device_ms_same_window']} ms; {t['headmajor_splits']} splits), "
             f"bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']}; {nbytes / 1e6:.2f} MB), {copies} windows rotated")
+            f"({t['bound_by']}; {nbytes / 1e6:.2f} MB), {copies} windows rotated, "
+            f"{t['splits']} splits ({'with' if t['splits'] > 1 else 'no'} merge kernel)")
         del c, dviews, hviews
+    log(f"  split sweep at B=8 ({{splits: device ms}}; dmajor_splits takes "
+        f"{timings[8]['splits']}): {json.dumps(sweep)}")
+    # A window ladder at 8 slots, rotated over copies beyond the L2.
+    ladder = {}
+    for Wl in (96, 512, 1536, 4096):
+        nb, fl = _dm_bytes_flops(8, NKV, D, Wl, 4)
+        c = _dm_case(dm, gen, 8, NKV, D, Wl, [Wl] * 8, copies=max(2, math.ceil(150e6 / nb)))
+        dviews = [(c["qt"], k, ks, v, vs, c["mask"]) for k, ks, v, vs in c["dmajor"]]
+        it = {"i": 0}
+
+        def kl(dviews=dviews, it=it):
+            it["i"] += 1
+            return dm.attn_dmajor(*dviews[it["i"] % len(dviews)])
+
+        ladder[Wl] = {"device_ms": kernel_device_ms(kl, "dmajor_attention_kernel"),
+                      "bound_ms": bound(nb, fl, F32_FLOPS)[0],
+                      "splits": dm.dmajor_splits(8, NKV, Wl)}
+        del c, dviews
+    log("  window ladder at B=8 (W: device ms, bound ms, splits): " + json.dumps(
+        {k: [v["device_ms"] and round(v["device_ms"], 5), round(v["bound_ms"], 5), v["splits"]]
+         for k, v in ladder.items()}))
     torch.cuda.empty_cache()
 
     # The path that runs the kernel: the layout probe, counts from 0.
@@ -849,16 +1043,20 @@ def phase_dmajor_attention(dm, da) -> dict:
     log(f"probe ({probe_s:.1f} s): dmajor launches {launches}, head-major {hm_launches} "
         f"(= {len(slots)} x (1 + {runs + 1} x {n1 + n2})); {json.dumps(probe)}")
     DETAIL["dmajor_attention"] = {"max_abs_err": worst, "cases": list(cases),
-                                  "timings": timings, "probe": probe, "probe_s": probe_s,
+                                  "split_checks": split_checks, "timings": timings,
+                                  "split_sweep": sweep, "ladder": ladder,
+                                  "probe": probe, "probe_s": probe_s,
                                   "launches": launches, "headmajor_launches": hm_launches}
     t = timings[8]
     return {"max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"], "headmajor_device_ms": t["headmajor_device_ms"],
             "shape": [8, NKV, D, W, "float32"], "launches": launches,
-            "headmajor_splits": t["headmajor_splits"],
+            "headmajor_splits": t["headmajor_splits"], "splits": t["splits"],
+            "merge": "kernel" if t["splits"] > 1 else "none",
             "b32": {k: timings[32][k] for k in ("ms", "device_ms", "bound_ms",
-                                                "headmajor_device_ms", "headmajor_splits")}}
+                                                "headmajor_device_ms", "headmajor_splits",
+                                                "splits")}}
 
 
 # ---------------------------------------------------------------------------

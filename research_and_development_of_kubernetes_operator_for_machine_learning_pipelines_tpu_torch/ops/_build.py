@@ -90,6 +90,16 @@ def build(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
+def current_stream(device) -> int:
+    """The raw ``cudaStream_t`` of the current stream on a CUDA ``device``:
+    what ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch (host time that a small
+    kernel's call cannot hide)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _lock:

@@ -24,7 +24,16 @@ and raises on a view.
 
 ``NKV, D, W, LAYERS`` are the probe's geometry (the JAX bench's 1.35B
 model: 16 KV heads of 128, a 512-position window, 24 layers); the
-functions take any B, NKV and W, and D in (16, 32, 64, 128).
+functions take any B, NKV and W up to ``MAX_W``, and D in (16, 32, 64,
+128).
+
+On the H100 the kernel is bound by bytes (2 * D * W int8 bytes a (slot,
+head), ~2 flops a byte).  It splits the window over ``dmajor_splits(B,
+NKV, W)`` blocks a (slot, head), copies each split's K and V tiles into
+shared memory with 16-byte ``cp.async`` where the views are 16-byte
+aligned (``load_width``; 4-byte copies otherwise), and merges the splits
+of a (slot, head) with a second kernel from the same C call (see the
+source's design note).  One call counts one launch.
 """
 
 from __future__ import annotations
@@ -35,6 +44,11 @@ import math
 import torch
 
 from . import _build
+# Bytes a copy moves of a D-major row: 16 when the bases and the batch, head
+# and row strides of both windows are 16-byte aligned (a dense window whose
+# W is a multiple of 16), else 4 -- the head-major kernel's rule, on the
+# same three strides.
+from .decode_attention import load_width
 
 NKV, D, W = 16, 128, 512
 LAYERS = 24  # one attention call per layer of a decode step
@@ -44,8 +58,23 @@ launches = 0
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The scores live in dynamic shared memory, 4 bytes a position.
-MAX_W = 49152
+
+# How the window is split (``dmajor_splits``): the H100's SMs, the blocks
+# a wave holds on each (one: in the smoke's split sweep, PERF.md section 6,
+# one block an SM beat two, four and eight, whose smaller blocks pay the
+# merge), the fewest positions worth a block, the widest window that stays
+# whole, the most splits a (slot, head) takes, and the most positions whose
+# scores a block keeps in shared memory (the kernel's kMaxChunk).  A split
+# is a multiple of SPLIT_ALIGN positions, so that every tile's copy starts
+# 16-byte aligned.
+NUM_SMS = 132
+BLOCKS_PER_SM = 1
+MIN_SPLIT = 64
+WHOLE_WINDOW = 192
+MAX_SPLITS = 8
+MAX_CHUNK = 6144
+SPLIT_ALIGN = 16
+MAX_W = MAX_SPLITS * MAX_CHUNK
 _fn = None
 
 
@@ -79,6 +108,28 @@ def attn_xla(q, k8, ks, v8, vs, mask):
     return ctx / denom
 
 
+def dmajor_splits(b: int, nkv: int, w: int) -> int:
+    """Blocks per (slot, kv head) over a window of ``w`` positions, as
+    ``ops.decode_attention.num_splits`` picks them: as many as fit one wave
+    of ``BLOCKS_PER_SM`` blocks on each SM where the window has
+    ``MIN_SPLIT`` positions a block for them, 1 up to ``WHOLE_WINDOW``,
+    never more than ``MAX_SPLITS``, and enough
+    that no split holds more than ``MAX_CHUNK`` scores."""
+    if w <= WHOLE_WINDOW:
+        s = 1
+    else:
+        wave = NUM_SMS * BLOCKS_PER_SM // (b * nkv)
+        s = max(1, min(wave, w // MIN_SPLIT, MAX_SPLITS))
+    return max(s, -(-w // MAX_CHUNK))
+
+
+def split_len(w: int, splits: int) -> int:
+    """Positions each split owns: ``ceil(w / splits)`` rounded up to
+    ``SPLIT_ALIGN``; the last split may own fewer, or none."""
+    c = -(-w // splits)
+    return -(-c // SPLIT_ALIGN) * SPLIT_ALIGN
+
+
 def check_inputs(q, k8t, ks, v8t, vs, mask) -> tuple[int, int, int, int]:
     """``(B, NKV, D, W)`` of inputs the kernel takes; ``ValueError`` for
     anything else (the device type is the caller's check)."""
@@ -107,10 +158,11 @@ def check_inputs(q, k8t, ks, v8t, vs, mask) -> tuple[int, int, int, int]:
         raise ValueError(f"dmajor attention kernel takes D in {_HEAD_DIMS}, got {d}")
     if not 1 <= w <= MAX_W:
         raise ValueError(f"dmajor attention kernel takes 1 <= W <= {MAX_W}, got {w}")
-    if b * nkv > 2**31 - 1:
+    if b * nkv * dmajor_splits(b, nkv, w) > 2**31 - 1:
         raise ValueError(f"dmajor attention: grid too large for B*NKV={b * nkv}")
     for name, t in (("k8t", k8t), ("v8t", v8t)):
-        # 4-byte int8 loads along W: W dense, every other stride and the base 4-aligned.
+        # int8 copies of 4 bytes at least along W: W dense, the base and every
+        # other stride 4-aligned.
         if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 4:
             raise ValueError(
                 f"dmajor attention: {name} needs a dense W axis and 4-byte aligned "
@@ -130,13 +182,13 @@ def _kernel():
         fn = _build.load("dmajor_attention").dmajor_attention_launch
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [
-            i32, vp,
+            i32, i32, vp,
             vp, ll, ll, ll,
             vp, ll, ll,
             vp, ll, ll, ll,
             vp, ll, ll,
             vp, ll,
-            vp, i32, i32, i32, i32, ctypes.c_float, vp,
+            vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -150,15 +202,20 @@ def _launch(q, k8t, ks, v8t, vs, mask):
     b, nkv, d, w = check_inputs(q, k8t, ks, v8t, vs, mask)
     q = q.contiguous()  # [B, NKV, D, 1]: a few KB, never the window
     out = torch.empty((b, nkv, d, 1), dtype=torch.float32, device=q.device)
+    splits = dmajor_splits(b, nkv, w)
+    # The splits' partials (m, l, ctx[D]) for the merge kernel; none for one.
+    part = (torch.empty(b * nkv * splits * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     rc = _kernel()(
-        _DTYPES[q.dtype], q.data_ptr(),
+        _DTYPES[q.dtype], load_width(k8t, v8t), q.data_ptr(),
         k8t.data_ptr(), k8t.stride(0), k8t.stride(1), k8t.stride(2),
         ks.data_ptr(), ks.stride(0), ks.stride(1),
         v8t.data_ptr(), v8t.stride(0), v8t.stride(1), v8t.stride(2),
         vs.data_ptr(), vs.stride(0), vs.stride(1),
         mask.data_ptr(), mask.stride(0),
-        out.data_ptr(), b, nkv, d, w, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        b, nkv, d, w, splits, split_len(w, splits), 1.0 / math.sqrt(d),
+        _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"dmajor attention kernel launch failed: cudaError {rc}")
@@ -167,9 +224,9 @@ def _launch(q, k8t, ks, v8t, vs, mask):
 
 
 def attn_dmajor(q, k8t, ks, v8t, vs, mask):
-    """D-major int8 decode attention, one block per (slot, kv head).  A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises, never falling back."""
+    """D-major int8 decode attention, split over the window.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises, never falling back."""
     if q.device.type == "cpu":
         return attn_dmajor_reference(q, k8t, ks, v8t, vs, mask)
     return _launch(q, k8t, ks, v8t, vs, mask)

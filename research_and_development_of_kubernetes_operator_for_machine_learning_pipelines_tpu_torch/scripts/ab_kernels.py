@@ -1,4 +1,4 @@
-"""In-process A/B of the port's attention kernels against another checkout.
+"""In-process A/B of the port's kernels against another checkout.
 
 The counterpart of the JAX repository's ``scripts/ab_attention.py``: times
 compared across processes (or across calls, which may land on other cards
@@ -10,14 +10,20 @@ inputs, this, other, other, this in each round:
 
 - ``ms``: CUDA-event milliseconds a call over back-to-back calls, the
   host's launch included (``chip_smoke.py``'s "ms");
-- ``device_ms``: the profiler's device milliseconds a call of the
-  kernels whose names hold ``decode_attention_kernel`` or
-  ``flash_attention_kernel``.
+- ``device_ms``: the profiler's device milliseconds a call (each one's
+  mean a launch) of the kernels whose names hold ``decode_attention_kernel``,
+  ``flash_attention_kernel``, ``dmajor_attention_kernel`` or
+  ``rmsnorm_kernel``.
 
-Each is the minimum over rounds.  Shapes: ``chip_smoke.py``'s decode
+Each is the minimum over rounds; every reading is kept beside it
+(``ms_runs``, ``device_ms_runs``).  Shapes: ``chip_smoke.py``'s decode
 window ladder (4 slots, 32 kv heads, G = 1, D = 128, bf16 q, windows
-rotated over 8 layers of a cache) and its bf16 flash cases.  Run on the
-card, with the other checkout unpacked where ``.gitignore`` lists it::
+rotated over 8 layers of a cache), its bf16 flash cases, the D-major
+kernel at the layout probe's shapes (8 and 32 slots, 16 kv heads, D =
+128, W = 512, f32 q, windows rotated over copies that exceed the 50 MB
+L2) and RMSNorm at Llama-2-7B's width (4 and 512 rows of 4096, bf16).
+Run on the card, with the other checkout unpacked where ``.gitignore``
+lists it::
 
     mkdir -p build/ab_other && git archive <commit> | tar -x -C build/ab_other
     python -m <port>.scripts.ab_kernels --other build/ab_other --rounds 2 \
@@ -32,13 +38,16 @@ import argparse
 import importlib
 import importlib.util
 import json
+import math
 import sys
 from pathlib import Path
 
 import torch
 
 from ..ops import decode_attention as da
+from ..ops import dmajor_attention as dm
 from ..ops import flash_attention as fa
+from ..ops import rmsnorm as rn
 
 _PKG = Path(__file__).resolve().parents[1].name
 LADDER = (16, 48, 192, 768, 1536, 4096)
@@ -56,6 +65,11 @@ def load_other(root: str):
     spec.loader.exec_module(mod)
     return (importlib.import_module("ab_other.ops.decode_attention"),
             importlib.import_module("ab_other.ops.flash_attention"))
+
+
+def other_module(name: str):
+    """``ops.<name>`` of the checkout :func:`load_other` imported."""
+    return importlib.import_module(f"ab_other.ops.{name}")
 
 
 def event_ms(fn, iters: int = 100) -> float:
@@ -81,10 +95,12 @@ def device_ms(fn, needle: str, iters: int = 50) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in prof.key_averages() if needle in e.key)
-        if total:
-            return total / iters / 1e3
+        # Each matching kernel runs once a call: its mean a launch the
+        # profiler saw, so a window that misses launches reads no faster.
+        per_launch = [e.self_device_time_total / e.count for e in prof.key_averages()
+                      if needle in e.key and e.count and e.self_device_time_total]
+        if per_launch:
+            return sum(per_launch) / 1e3
     return None
 
 
@@ -140,6 +156,43 @@ def flash_shapes(gen):
     }
 
 
+def dmajor_shapes(gen):
+    """name -> a call taking the module: the D-major kernel at the layout
+    probe's shapes, f32 q, full lengths, over enough copies of the window
+    (real D-major tensors) that the calls exceed the 50 MB L2."""
+    out = {}
+    for b in (8, 32):
+        window = b * dm.NKV * dm.D * dm.W * 2
+        copies = max(2, math.ceil(150e6 / window))
+        shape = (copies, b, dm.NKV, dm.D, dm.W)
+        k8t = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        v8t = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((copies, b, dm.NKV, 1, dm.W), generator=gen, device="cuda") * 0.01 + 1e-3
+        vs = torch.rand((copies, b, dm.NKV, 1, dm.W), generator=gen, device="cuda") * 0.01 + 1e-3
+        q = torch.randn((b, dm.NKV, dm.D, 1), generator=gen, device="cuda")
+        mask = torch.zeros((b, 1, dm.W), device="cuda")
+        views = [(q, k8t[i], ks[i], v8t[i], vs[i], mask) for i in range(copies)]
+        it = {"i": 0}
+
+        def call(mod, views=views, it=it):
+            it["i"] += 1
+            return mod.attn_dmajor(*views[it["i"] % len(views)])
+
+        out[f"dmajor_b{b}"] = call
+    return out
+
+
+def rmsnorm_shapes(gen):
+    """name -> a call taking the module: RMSNorm of 4 (decode) and 512
+    (prefill) rows of Llama-2-7B's 4096-wide bf16 hidden state."""
+    out = {}
+    scale = (1 + 0.1 * torch.randn((4096,), generator=gen, device="cuda")).to(torch.bfloat16)
+    for rows in (4, 512):
+        x = torch.randn((rows, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+        out[f"rmsnorm_rows{rows}"] = lambda mod, x=x: mod.rmsnorm(x, scale, 1e-5)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
@@ -154,6 +207,10 @@ def main(argv=None) -> dict:
               for name, call in decode_shapes(gen).items()]
     shapes += [(name, call, (fa, other_fa), "flash_attention_kernel")
                for name, call in flash_shapes(gen).items()]
+    shapes += [(name, call, (dm, other_module("dmajor_attention")), "dmajor_attention_kernel")
+               for name, call in dmajor_shapes(gen).items()]
+    shapes += [(name, call, (rn, other_module("rmsnorm")), "rmsnorm_kernel")
+               for name, call in rmsnorm_shapes(gen).items()]
     if args.shapes:
         shapes = [x for x in shapes if x[0] in args.shapes.split(",")]
     results = {}
@@ -167,9 +224,12 @@ def main(argv=None) -> dict:
         for side in ("this", "other"):
             for key in ("ms", "device_ms"):
                 vals = [x for x in r[side][key] if x is not None]
+                r[side][f"{key}_runs"] = vals
                 r[side][key] = min(vals) if vals else None
         if name.startswith("decode_w"):
             r["splits"] = da.num_splits(4, 32, int(name[len("decode_w"):]))
+        elif name.startswith("dmajor_b"):
+            r["splits"] = dm.dmajor_splits(int(name[len("dmajor_b"):]), dm.NKV, dm.W)
         results[name] = r
         print(json.dumps({name: r}), flush=True)
     summary = {"device": torch.cuda.get_device_name(0), "rounds": args.rounds,

@@ -228,3 +228,146 @@ def test_probe_refuses_to_run_without_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         tprobe.main(["--slots", "2"])
+
+
+# ---------------------------------------------------------------------------
+# The split kernel's algebra: partials per split and their merge
+# ---------------------------------------------------------------------------
+
+
+def _dmajor_split_emulation(q, k8t, ks, v8t, vs, mask, splits):
+    """The split kernel's arithmetic in f32 torch (the kernel's type: a
+    score plus the -1e9 mask is exactly -1e9 only in f32, which makes a
+    row masked everywhere uniform), splits of ``split_len(W, splits)``
+    positions: each split's scores (q * scale) . k8t * ks + mask, its max
+    m, sum l and context sum_w v8t * (p * vs), then the merge that
+    rescales by exp(m_i - M).  A split past W has m = -inf, l = 0, ctx =
+    0, as the kernel writes it."""
+    f32 = torch.float32
+    q, k8t, ks, v8t, vs, mask = (torch.as_tensor(a).to(f32)
+                                 for a in (q, k8t, ks, v8t, vs, mask))
+    b, nkv, d, w = k8t.shape
+    chunk = tdm.split_len(w, splits)
+    qs = q * (1.0 / d ** 0.5)                                            # [B,NKV,D,1]
+    parts = []
+    for i in range(splits):
+        lo, hi = i * chunk, min(w, (i + 1) * chunk)
+        if hi <= lo:
+            parts.append((torch.full((b, nkv, 1, 1), -torch.inf, dtype=f32),
+                          torch.zeros((b, nkv, 1, 1), dtype=f32),
+                          torch.zeros((b, nkv, d, 1), dtype=f32)))
+            continue
+        s = torch.sum(k8t[..., lo:hi] * qs, dim=2, keepdim=True)         # [B,NKV,1,n]
+        s = s * ks[..., lo:hi] + mask[:, None, :, lo:hi]
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        ctx = torch.sum(v8t[..., lo:hi] * (p * vs[..., lo:hi]), dim=-1, keepdim=True)
+        parts.append((m, p.sum(-1, keepdim=True), ctx))
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    num = torch.zeros((b, nkv, d, 1), dtype=f32)
+    den = torch.zeros((b, nkv, 1, 1), dtype=f32)
+    for m, l, ctx in parts:
+        f = torch.exp(m - mx)  # 0 for a split past W
+        num = num + ctx * f
+        den = den + l * f
+    return num / den
+
+
+def _split_edges(w, splits):
+    """Lengths on and beside every split edge, 0 (a row masked everywhere)
+    and W."""
+    c = tdm.split_len(w, splits)
+    edges = [j * c + o for j in range(1, splits) for o in (-1, 0, 1)]
+    return sorted({n for n in [0, w, max(w - 1, 1), 1] + edges if 0 <= n <= w})
+
+
+def _pallas_geometry(monkeypatch, nkv, d, w):
+    """The JAX probe's kernel reads its geometry from module globals."""
+    monkeypatch.setattr(jprobe, "NKV", nkv)
+    monkeypatch.setattr(jprobe, "D", d)
+    monkeypatch.setattr(jprobe, "W", w)
+
+
+@pytest.mark.parametrize("w", [1, 97, 512, 4096])
+def test_split_partials_and_merge_match_the_pallas_kernel(w, monkeypatch):
+    """The kernel's split-and-merge algebra, with the splits the wrapper
+    picks (8 at 4 slots x 2 heads from W = 512), equals the probe's Pallas
+    kernel in interpret mode and the port's plain version: lengths on and
+    beside every split edge, a row masked everywhere (the uniform average
+    over W of vs * v) and W.  f32 on every side, summed in other orders:
+    TOL."""
+    nkv, d = 2, 16
+    b = 4
+    splits = tdm.dmajor_splits(b, nkv, w)
+    assert splits == (1 if w <= tdm.WHOLE_WINDOW else 8)
+    lengths = _split_edges(w, splits)
+    lengths += [w] * (-len(lengths) % b)
+    _pallas_geometry(monkeypatch, nkv, d, w)
+    for i in range(0, len(lengths), b):
+        dmaj = _dmajor(*_inputs(lengths[i:i + b], seed=w + i, nkv=nkv, d=d, w=w))
+        got = _dmajor_split_emulation(*dmaj, splits).numpy()
+        pallas = np.asarray(jprobe.attn_dmajor(*(jnp.asarray(a) for a in dmaj), interpret=True))
+        np.testing.assert_allclose(got, pallas, **TOL)
+        plain = tdm.attn_dmajor(*(torch.from_numpy(a) for a in dmaj)).numpy()
+        np.testing.assert_allclose(got, plain, **TOL)
+        for row, n in enumerate(lengths[i:i + b]):
+            if n == 0:
+                _, _, _, v8t, vst, _ = dmaj
+                uniform = (v8t[row].astype(np.float64) * vst[row]).mean(axis=-1, keepdims=True)
+                np.testing.assert_allclose(got[row], uniform, **TOL)
+
+
+@pytest.mark.parametrize("w,splits", [(513, 8), (97, 8), (16, 3), (130, 2), (4096, 5)])
+def test_split_merge_takes_empty_ragged_and_masked_splits(w, splits):
+    """Forced split counts: a split past W (513 in 8 runs of 80, 97 in 8
+    of 16, 16 in 3 of 16) weighs nothing and gives no NaN; a ragged last
+    split (4096 in 5 runs of 832); a split masked everywhere (the
+    length-40 row at W = 130)."""
+    c = tdm.split_len(w, splits)
+    assert c % tdm.SPLIT_ALIGN == 0 and splits * c >= w
+    lengths = [0, w, min(40, w), max(1, w - c)]
+    dmaj = _dmajor(*_inputs(lengths, seed=splits, nkv=2, d=16, w=w))
+    got = _dmajor_split_emulation(*dmaj, splits).numpy()
+    assert np.isfinite(got).all()
+    ref = tdm.attn_dmajor_reference(*(torch.from_numpy(a) for a in dmaj)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("b,nkv", [(1, 1), (1, 16), (2, 8), (4, 2), (8, 16), (32, 16), (64, 32)])
+def test_dmajor_splits_properties(b, nkv):
+    """1..8 splits (one cluster's worth, the merge's bound) whose runs of
+    split_len positions (a multiple of 16, at most MAX_CHUNK) cover W; 1
+    up to WHOLE_WINDOW; at least MIN_SPLIT positions a split; where W
+    allows, the grid fills one wave of BLOCKS_PER_SM blocks an SM and one
+    more split would pass it."""
+    wave = tdm.NUM_SMS * tdm.BLOCKS_PER_SM
+    for w in list(range(1, 300)) + [384, 512, 513, 768, 1536, 4096, 4225, 6145, 12289,
+                                    tdm.MAX_W - 1, tdm.MAX_W]:
+        s = tdm.dmajor_splits(b, nkv, w)
+        c = tdm.split_len(w, s)
+        fewest = -(-w // tdm.MAX_CHUNK)
+        assert 1 <= s <= tdm.MAX_SPLITS
+        assert s * c >= w and c % tdm.SPLIT_ALIGN == 0 and c <= tdm.MAX_CHUNK
+        if w <= tdm.WHOLE_WINDOW:
+            assert s == 1
+        if s > fewest:
+            assert w // s >= tdm.MIN_SPLIT and b * nkv * s <= wave
+            if s < tdm.MAX_SPLITS and w // (s + 1) >= tdm.MIN_SPLIT:
+                assert b * nkv * (s + 1) > wave
+    assert tdm.dmajor_splits(8, tdm.NKV, tdm.W) == 1  # the probe's shapes
+    assert tdm.dmajor_splits(32, tdm.NKV, tdm.W) == 1
+    assert tdm.dmajor_splits(1, tdm.NKV, 4096) == tdm.MAX_SPLITS  # the cap of 8 holds
+
+
+def test_dmajor_load_width_follows_alignment():
+    """16-byte copies for a dense window whose W is a multiple of 16, 4-byte
+    ones for a W = 97 slice of a 100-wide buffer or a base off 16 bytes."""
+    dense = torch.zeros((2, 4, 32, 512), dtype=torch.int8)
+    assert tdm.load_width(dense, dense) == 16
+    sliced = torch.zeros((3, 4, 32, 100), dtype=torch.int8)[..., :97]
+    assert tdm.load_width(sliced, sliced) == 4
+    assert tdm.load_width(dense, sliced) == 4
+    off = torch.zeros((2 * 4 * 32 * 512 + 4,), dtype=torch.int8)[4:].view(2, 4, 32, 512)
+    assert tdm.load_width(off, off) == 4

@@ -266,6 +266,31 @@ def test_ab_kernels_loads_another_checkout_as_its_own_package(monkeypatch):
             del sys.modules[name]
 
 
+def test_ab_kernels_loads_the_other_dmajor_and_rmsnorm_modules(monkeypatch):
+    """The A/B's D-major and RMSNorm shapes take the other checkout's
+    modules under its own name, with their own launch counters."""
+    import sys
+    from pathlib import Path
+
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.ops import (
+        dmajor_attention as tdm,
+    )
+
+    for name in [m for m in sys.modules if m == "ab_other" or m.startswith("ab_other.")]:
+        monkeypatch.delitem(sys.modules, name)
+    tab.load_other(str(Path(__file__).resolve().parents[1]))
+    try:
+        other_dm, other_rn = tab.other_module("dmajor_attention"), tab.other_module("rmsnorm")
+        assert other_dm.__name__ == "ab_other.ops.dmajor_attention" and other_dm is not tdm
+        assert other_rn.__name__ == "ab_other.ops.rmsnorm" and other_rn is not trn
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 64)).astype(np.float32))
+        torch.testing.assert_close(other_rn.rmsnorm(x, torch.ones(64)),
+                                   trn.rmsnorm(x, torch.ones(64)), rtol=0, atol=0)
+    finally:
+        for name in [m for m in sys.modules if m == "ab_other" or m.startswith("ab_other.")]:
+            del sys.modules[name]
+
+
 def test_ab_kernels_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -354,3 +379,127 @@ def test_window_buckets_match_reference(capacity):
     for n in range(1, capacity + 1):
         assert tgen.decode_window_bucket(n, capacity) == jgen.decode_window_bucket(n, capacity)
         assert tgen.prefill_bucket(n, capacity) == jgen.prefill_bucket(n, capacity)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm: the kernel's plan and its order of partial sums
+# ---------------------------------------------------------------------------
+
+
+def _rmsnorm_plan_emulation(x, scale, eps, plan):
+    """The kernel's sum of squares in f32 torch, in its order under
+    ``plan``: each thread's elements in order, the butterfly of shuffles
+    over a group's lanes, the group's warps in order, then the C cluster
+    partials in rank order; then rsqrt and (x * r) * scale in f32."""
+    f32 = torch.float32
+    xf = torch.as_tensor(x).to(f32)
+    rows, h = xf.shape
+    vec, nvec = plan.vec, h // plan.vec
+    xv = xf.reshape(rows, nvec, vec)
+    total = torch.zeros(rows, dtype=f32)
+    for rank in range(plan.cluster):
+        lanes = []
+        for j in range(plan.tpr):
+            s = torch.zeros(rows, dtype=f32)
+            for k in range(plan.nv):
+                local = k * plan.tpr + j
+                idx = rank * plan.per_cta + local
+                if local < plan.per_cta and idx < nvec:
+                    for e in range(vec):
+                        s = s + xv[:, idx, e] * xv[:, idx, e]
+            lanes.append(s)
+        lanes = torch.stack(lanes, dim=1)                  # [rows, tpr]
+        width = min(plan.tpr, 32)
+        for w0 in range(0, plan.tpr, width):
+            warp = lanes[:, w0:w0 + width].clone()
+            off = width // 2
+            while off:
+                warp = warp + warp[:, torch.arange(width) ^ off]
+                off //= 2
+            lanes[:, w0:w0 + width] = warp
+        part = torch.zeros(rows, dtype=f32)
+        for w0 in range(0, plan.tpr, width):               # the group's warps, in order
+            part = part + lanes[:, w0]
+        total = total + part if rank else part
+    r = torch.rsqrt(total / h + torch.tensor(eps, dtype=f32))
+    out = xf * r[:, None] * torch.as_tensor(scale).to(f32)
+    return out.to(torch.as_tensor(x).dtype)
+
+
+def _bf16_ulp(ref):
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [64, 1000, 4096])
+def test_rmsnorm_plan_emulation_matches_reference_and_pallas(h, dtype):
+    """The kernel's partial-sum order under the plan it takes (16-byte
+    vectors), under the scalar instance (a misaligned x), and under a
+    forced cluster of 2 CTAs a row (C partials, then the cluster total),
+    against the port's plain version and the JAX package's Pallas rmsnorm
+    in interpret mode: bf16 within one ulp, f32 within 1e-6."""
+    rng = np.random.default_rng(h)
+    x32 = rng.standard_normal((3, h)).astype(np.float32)
+    s32 = (1 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    jx, js = jnp.asarray(x32).astype(dtype), jnp.asarray(s32).astype(dtype)
+    tdt = getattr(torch, dtype)
+    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    ts = torch.tensor(np.asarray(js.astype(jnp.float32))).to(tdt)
+    item = tx.element_size()
+    vec_plan = trn.rmsnorm_plan(3, h, item, True)
+    assert vec_plan.vec == 16 // item
+    per = -(-(h // vec_plan.vec) // 2)
+    plans = {
+        "vector": vec_plan,
+        "scalar": trn.rmsnorm_plan(3, h, item, False),
+        "cluster2": trn.Plan(vec_plan.vec, 1, 2, per, trn._pow2_at_least(per),
+                             trn._pow2_at_least(per)),
+    }
+    refs = {
+        "reference": trn.rmsnorm_reference(tx, ts, 1e-5).to(torch.float32).numpy(),
+        "pallas": np.asarray(jrn.rmsnorm(jx, js, 1e-5, interpret=True).astype(jnp.float32)),
+    }
+    for pname, plan in plans.items():
+        got = _rmsnorm_plan_emulation(tx, ts, 1e-5, plan).to(torch.float32).numpy()
+        for rname, ref in refs.items():
+            if dtype == "float32":
+                np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6,
+                                           err_msg=f"{pname} {rname}")
+            else:
+                assert np.all(np.abs(got - ref) <= _bf16_ulp(ref)), f"{pname} {rname}"
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows", [1, 4, 32, 256, 512])
+def test_rmsnorm_plan_covers_every_element_once(rows, itemsize):
+    """Every vector of a row belongs to exactly one (CTA, thread, slot);
+    whole warps; the thread limits of the 16-byte (512) and scalar (1024)
+    instances; a cluster only where one CTA cannot hold the row; the
+    scalar instance for a misaligned base or a row that is not a whole
+    number of 16 bytes; ValueError past the longest row."""
+    for h, aligned in ((64, True), (1000, True), (1001, True), (4096, True),
+                       (4096, False), (8192, True), (32768, True), (65536, True)):
+        p = trn.rmsnorm_plan(rows, h, itemsize, aligned)
+        if not aligned or (h * itemsize) % 16:
+            assert p.vec == 1
+        else:
+            assert p.vec == 16 // itemsize
+        nvec = h // p.vec
+        seen = []
+        for rank in range(p.cluster):
+            for j in range(p.tpr):
+                for k in range(p.nv):
+                    local = k * p.tpr + j
+                    idx = rank * p.per_cta + local
+                    if local < p.per_cta and idx < nvec:
+                        seen.append(idx)
+        assert sorted(seen) == list(range(nvec)), (h, aligned, p)
+        assert p.nv in (1, 2, 4) and p.threads % 32 == 0 and p.threads % p.tpr == 0
+        max_threads = trn.MAX_THREADS if p.vec > 1 else trn.MAX_SCALAR_THREADS
+        assert p.threads <= max_threads
+        assert p.cluster == 1 or (p.threads == p.tpr and nvec > max_threads * trn.MAX_NV)
+        assert 1 <= p.cluster <= trn.MAX_CLUSTER
+    bf16_row = trn.rmsnorm_plan(rows, 4096, 2, True)  # Llama-2-7B's hidden, bf16
+    assert (bf16_row.vec, bf16_row.nv, bf16_row.cluster, bf16_row.tpr) == (8, 2, 1, 256)
+    with pytest.raises(ValueError, match="elements a row"):
+        trn.rmsnorm_plan(rows, 8 * 1024 * 4 + 1, 2, False)
