@@ -49,11 +49,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    <port>.server --quantize int8kv`` as a subprocess and calls /generate.
 5. Serving at full width: Llama-2-7B (all 32 layers, random bf16 weights
    from a seed, int8 weights and int8 KV cache) behind the same
-   ``build_server`` over HTTP; one request alone, then four concurrent
-   ones (one sampled).  The decode-attention launches must equal 32 x
-   the engine's decode dispatches and the RMSNorm launches 65 x its
-   forwards.  Prints tokens/s, TTFT and the token agreement of a greedy
-   request with a teacher-forced forward of its own output.
+   ``build_server`` over HTTP. First the port's threefry (``models/prng``)
+   on the card against the same code on the CPU at seeds 0, 7, 2^31-1,
+   2^32+5 and 2^63-1 ([4, 32000] draws): keys, splits, folds and bits
+   identical, uniforms bit-equal, gumbels within 2 f32 ulp of max(|g|, 1).
+   Then one request alone, four concurrent ones (one sampled); a seeded
+   sampled request (0.8 / top_k 50 / top_p 0.95 / seed 1234, 32 new
+   tokens) streamed as Server-Sent Events and again without stream, whose
+   tokens must be equal (event indices 0..n-1, the done event's
+   ``output_ids``), with the client's TTFT and ITL p50 and max from the
+   events' arrival, then four such streams at once (seeds 1234-1237),
+   whose ITL p50/p99 take every gap of every stream; ``/metrics`` against the answers (generated tokens,
+   TTFT, ITL and request-token counts, the seldon counts by code,
+   ``tpumlops_model_ready`` 1); a lossless drain (a 64-token stream in
+   flight, ``POST /admin/drain``: ``/readyz`` 503 draining with the
+   request in flight, a new request 429 ``draining`` with
+   ``Retry-After``, the stream ends whole, the drain answers drained,
+   cancel restores 200s, the shed counter moves by one); and a second
+   server on the same weights with one slot and an admission budget one
+   long prompt fills, where a request over the budget is a 429 ``budget``
+   while a stream runs and an oversized request on the idle engine is
+   admitted.  The decode-attention launches must equal 32 x the engines'
+   decode dispatches and the RMSNorm launches 65 x their forwards, over
+   every request of the phase.  Prints tokens/s, TTFT, the token
+   agreement of a greedy request with a teacher-forced forward of its own
+   output, what the threefry draw and the whole sampling step add to a
+   decode tick at V = 32000 (device ms, launches, host ms), beside the
+   per-row ``torch.Generator`` draw it replaced, and a summary
+   line with the card's name and power limit.  The HuggingFace loader is
+   not driven here: the card's machine has no ``transformers`` (its tests
+   run on the CPU).
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -1156,8 +1181,215 @@ def phase_loader_subprocess() -> None:
 # Phase 5: Llama-2-7B at full width over /generate
 # ---------------------------------------------------------------------------
 
+PRNG_SEEDS = (0, 7, 2**31 - 1, 2**32 + 5, 2**63 - 1)
 
-def phase_serve_7b(da, rn) -> dict:
+
+def _prng_checks(prng) -> dict:
+    """The port's threefry on the card against the same code on the CPU:
+    keys, splits, folds and bits identical, uniforms bit-equal, gumbels
+    within 2 f32 ulp of max(|g|, 1) (the device's log)."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for seed in PRNG_SEEDS:
+        got, want = {}, {}
+        for dev, out in (("cuda", got), ("cpu", want)):
+            k = prng.key(seed, dev)
+            keys = prng.split(k, 4)
+            out["key"] = k
+            out["split"] = keys
+            out["fold_in"] = prng.fold_in(keys, torch.arange(4, device=dev) * 977 + 1)
+            out["bits"] = prng.random_bits(keys, (32000,))
+            out["uniform"] = prng.uniform(keys, (32000,)).view(torch.int32)
+            out["gumbel"] = prng.gumbel(keys, (32000,))
+        for name in ("key", "split", "fold_in", "bits", "uniform"):
+            if not torch.equal(got[name].cpu(), want[name]):
+                raise AssertionError(f"threefry {name} differs between cuda and cpu at seed {seed}")
+        g, w = got["gumbel"].cpu().numpy(), want["gumbel"].numpy()
+        ulp = np.spacing(np.maximum(np.abs(w), 1.0).astype(np.float32))
+        err = float((np.abs(g - w) / ulp).max())
+        if err > 2.0:
+            raise AssertionError(f"gumbel differs by {err} ulp at seed {seed}")
+        worst = max(worst, err)
+    log(f"threefry: key/split/fold_in/bits/uniform identical on cuda and cpu at seeds "
+        f"{PRNG_SEEDS} ([4, 32000] draws); gumbel within {worst:.2f} ulp of max(|g|, 1)")
+    return {"gumbel_max_ulp": worst}
+
+
+def _generator_gumbel(gens):
+    """The draw that the threefry draw replaced: one ``torch.rand`` a row
+    from the row's own ``torch.Generator``, in ``prng.gumbel``'s place."""
+    import torch
+
+    tiny = torch.finfo(torch.float32).tiny
+
+    def gumbel(keys, shape):
+        out = torch.zeros(len(gens), *shape, device=keys.device)
+        for i, gen in enumerate(gens):
+            u = torch.rand(*shape, generator=gen, device=keys.device, dtype=torch.float32)
+            out[i] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        return out
+
+    return gumbel
+
+
+def _sampling_tick_cost(prng, sampling) -> dict:
+    """What the threefry draw, and the whole sampling step, add to a decode
+    tick at V = 32000: device ms and launches a call (profiler), the host's
+    enqueue ms a call and the wall ms a call (synchronized).  The same for
+    the per-row ``torch.Generator`` draw it replaced, and for that draw in
+    the step in place of the key split and the threefry draw."""
+    import torch
+
+    out = {}
+    names = ("threefry_draw", "sampling_step", "generator_draw", "generator_sampling_step",
+             "argmax")
+    for B in (1, 4):
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        logits = torch.randn(B, 32000, device="cuda", generator=gen, dtype=torch.float32) * 3
+        keys = prng.split(prng.key(1234, "cuda"), B)
+        temps = torch.full((B,), 0.8, device="cuda")
+        topk = torch.full((B,), 50, dtype=torch.int32, device="cuda")
+        topp = torch.full((B,), 0.95, device="cuda")
+        gens = [torch.Generator(device="cuda").manual_seed(1234 + i) for i in range(B)]
+        gen_gumbel = _generator_gumbel(gens)
+
+        def draw():
+            _, use = sampling.split_keys(keys)
+            return prng.gumbel(use, (32000,))
+
+        def step():
+            carry, use = sampling.split_keys(keys)
+            return sampling.sample_logits(logits, use, temps, topk, topp)
+
+        def gen_draw():
+            return gen_gumbel(keys, (32000,))
+
+        def gen_step():
+            threefry_gumbel, prng.gumbel = prng.gumbel, gen_gumbel
+            try:
+                return sampling.sample_logits(logits, keys, temps, topk, topp)
+            finally:
+                prng.gumbel = threefry_gumbel
+
+        def greedy():
+            return torch.argmax(logits, dim=-1)
+
+        for name, fn in zip(names, (draw, step, gen_draw, gen_step, greedy)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            iters = 50
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3 / iters
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            launches: dict[str, int] = {}
+            by_kernel, _ = profile_device(fn, iters=20, launches=launches)
+            out[f"{name}_b{B}"] = {
+                "device_ms": sum(by_kernel.values()) / 20,
+                "launches": sum(launches.values()) / 20,
+                "host_ms": host_ms, "wall_ms": wall_ms,
+            }
+        log(f"sampling at V=32000, B={B}: " + "; ".join(
+            f"{n} device {out[f'{n}_b{B}']['device_ms']:.4f} ms, "
+            f"{out[f'{n}_b{B}']['launches']:.0f} launches, host {out[f'{n}_b{B}']['host_ms']:.3f} ms, "
+            f"wall {out[f'{n}_b{B}']['wall_ms']:.3f} ms"
+            for n in names))
+    return out
+
+
+def _call(method: str, url: str, body=None, timeout: float = 600):
+    """(status, parsed body, headers) of one HTTP call, errors included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, headers = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, status, headers = e.read(), e.code, dict(e.headers)
+    try:
+        return status, json.loads(raw), headers
+    except ValueError:
+        return status, raw.decode(), headers
+
+
+def _sse(port: int, path: str, body: dict, on_event=None) -> dict:
+    """POST a streamed /generate and read its events as they arrive:
+    tokens, indices, arrival times (perf_counter) and the final event."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t_send = time.perf_counter()
+    conn.request("POST", path, json.dumps({**body, "stream": True}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"stream answered {resp.status}: {resp.read()[:200]}")
+    out = {"t_send": t_send, "tokens": [], "indices": [], "times": [], "final": None,
+           "event": ""}
+    name = ""
+    try:
+        for raw in resp:
+            line = raw.decode().rstrip("\r\n")
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+                continue
+            if not line.startswith("data: "):
+                continue
+            payload = json.loads(line[len("data: "):])
+            if payload.get("done"):
+                out["final"], out["event"] = payload, name
+                break
+            out["times"].append(time.perf_counter())
+            out["tokens"].append(payload["token"])
+            out["indices"].append(payload["index"])
+            if on_event is not None:
+                on_event(len(out["tokens"]))
+    finally:
+        conn.close()
+    if out["final"] is None or out["event"] == "error" or "error" in out["final"]:
+        raise AssertionError(f"stream ended without its result: {out['final']}")
+    if out["indices"] != list(range(len(out["tokens"]))):
+        raise AssertionError(f"event indices {out['indices'][:8]}... are not 0..n-1")
+    if out["final"]["output_ids"] != out["tokens"]:
+        raise AssertionError("the done event's output_ids differ from the streamed tokens")
+    return out
+
+
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _scrape(base: str) -> list[tuple[str, dict, float]]:
+    """``/metrics`` as (sample name, labels, value)."""
+    status, text, _ = _call("GET", base + "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = []
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if m and not line.startswith("#"):
+            out.append((m.group(1), dict(_LABEL.findall(m.group(2) or "")), float(m.group(3))))
+    return out
+
+
+def _value(samples, name: str, **labels) -> float:
+    return sum(v for n, lab, v in samples
+               if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+
+def _percentile_ms(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def phase_serve_7b(da, rn, smi: str) -> dict:
     import numpy as np
     import torch
     from importlib import import_module
@@ -1165,8 +1397,11 @@ def phase_serve_7b(da, rn) -> dict:
     llama = import_module(f"{PKG}.models.llama")
     quant = import_module(f"{PKG}.models.quantization")
     registry = import_module(f"{PKG}.models.registry")
+    prng = import_module(f"{PKG}.models.prng")
+    sampling = import_module(f"{PKG}.models.sampling")
     app = import_module(f"{PKG}.server.app")
 
+    prng_res = _prng_checks(prng)
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1182,16 +1417,22 @@ def phase_serve_7b(da, rn) -> dict:
     srv = app.build_server(predictor, config)
     engine = srv.engine
     ttfts: list[float] = []
-    engine.on_ttft = ttfts.append
+    metric_ttft = engine.on_ttft
+    engine.on_ttft = lambda s: (ttfts.append(s), metric_ttft(s))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}/v2/models/llama2-7b/generate"
+    port = srv.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    path = "/v2/models/llama2-7b/generate"
+    url = base + path
     rng = np.random.default_rng(7)
+    srv2 = th2 = None
     try:
         # Warm-up request (first cuBLAS calls, allocator growth), as a
         # replica warms up before it reads ready; not measured.
         _post(url, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})
         ttfts.clear()
+        scrape0 = _scrape(base)
         disp0 = dict(engine.dispatches_total)
         dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
         da.launches = 0
@@ -1233,6 +1474,186 @@ def phase_serve_7b(da, rn) -> dict:
             f"forwards; decode attention {da_launches} launches (= {cfg.num_layers} x "
             f"{decodes}), rmsnorm {rn_launches} (= {2 * cfg.num_layers + 1} x {forwards})")
 
+        # A seeded sampled request streamed, then the same request not
+        # streamed: the same tokens, by the event indices and the done event.
+        seeded = {"prompt_ids": rng.integers(1, cfg.vocab_size, 24).tolist(),
+                  "max_new_tokens": 32, "temperature": 0.8, "top_k": 50, "top_p": 0.95,
+                  "seed": 1234}
+        streamed = _sse(port, path, seeded)
+        plain = _check_outputs(_post(url, seeded), [32], cfg.vocab_size)[0]
+        if streamed["tokens"] != plain:
+            raise AssertionError(f"streamed tokens {streamed['tokens'][:8]}... differ from "
+                                 f"the answer without stream {plain[:8]}...")
+        # Four such streams at once (seeds 1234-1237), every slot busy: the
+        # ITL percentiles take every gap of every stream, the TTFTs every
+        # stream's first event.
+        with ThreadPoolExecutor(4) as pool:
+            streams = list(pool.map(lambda i: _sse(port, path, {**seeded, "seed": 1234 + i}),
+                                    range(4)))
+        alone_itl = np.diff(streamed["times"])
+        itl = np.concatenate([np.diff(st["times"]) for st in streams])
+        ttft4 = [(st["times"][0] - st["t_send"]) * 1e3 for st in streams]
+        stream_res = {
+            "ttft_ms": (streamed["times"][0] - streamed["t_send"]) * 1e3,
+            "alone_itl_p50_ms": _percentile_ms(alone_itl, 50),
+            "alone_itl_max_ms": float(alone_itl.max() * 1e3), "alone_itl_n": len(alone_itl),
+            "itl_p50_ms": _percentile_ms(itl, 50), "itl_p99_ms": _percentile_ms(itl, 99),
+            "itl_n": len(itl), "ttft4_ms": ttft4,
+            "tokens": streamed["tokens"],
+        }
+        log(f"7B stream: 24+32 tokens seeded (0.8/50/0.95/1234), equal to the answer "
+            f"without stream; client TTFT {stream_res['ttft_ms']:.1f} ms, ITL p50 "
+            f"{stream_res['alone_itl_p50_ms']:.2f} ms max {stream_res['alone_itl_max_ms']:.2f} "
+            f"ms over its {len(alone_itl)} gaps. 4 streams at once: ITL p50 "
+            f"{stream_res['itl_p50_ms']:.2f} ms p99 {stream_res['itl_p99_ms']:.2f} ms over "
+            f"{len(itl)} gaps, TTFT ms {[round(t, 1) for t in ttft4]}")
+
+        # /metrics against the answers since the scrape before.
+        answers = ([single_toks] + conc_toks + [streamed["tokens"], plain]
+                   + [st["tokens"] for st in streams])
+        scrape1 = _scrape(base)
+        fams = {}
+        for name, labels in (
+                ("tpumlops_generated_tokens_total", {}), ("tpumlops_ttft_seconds_count", {}),
+                ("tpumlops_itl_seconds_count", {}), ("tpumlops_request_tokens_count", {}),
+                ("seldon_api_executor_server_requests_seconds_count", {"code": "200"}),
+                ("seldon_api_executor_client_requests_seconds_count", {})):
+            fams[name] = _value(scrape1, name, **labels) - _value(scrape0, name, **labels)
+        tokens = sum(len(a) for a in answers)
+        want = {"tpumlops_generated_tokens_total": tokens,
+                "tpumlops_ttft_seconds_count": len(answers),
+                "tpumlops_itl_seconds_count": tokens - len(answers),
+                "tpumlops_request_tokens_count": len(answers),
+                "seldon_api_executor_server_requests_seconds_count": len(answers),
+                "seldon_api_executor_client_requests_seconds_count": len(answers)}
+        if fams != want:
+            raise AssertionError(f"/metrics {fams} against the answers {want}")
+        if _value(scrape1, "tpumlops_model_ready") != 1.0:
+            raise AssertionError("tpumlops_model_ready is not 1")
+        codes = {lab["code"] for n, lab, _ in scrape1
+                 if n == "seldon_api_executor_server_requests_seconds_count"}
+        if codes != {"200"}:
+            raise AssertionError(f"answers by code {codes}, expected only 200")
+        log(f"7B /metrics: {tokens} tokens, {len(answers)} requests: generated_tokens, "
+            f"ttft/itl/request_tokens counts and the seldon counts equal the answers; "
+            f"model_ready 1")
+
+        # A lossless drain with a stream in flight.
+        drain, probes = {}, {}
+
+        def drain_call():
+            t = time.perf_counter()
+            drain["status"], drain["body"], _ = _call("POST", base + "/admin/drain",
+                                                      {"grace_s": 120})
+            drain["s"] = time.perf_counter() - t
+
+        drainer = threading.Thread(target=drain_call)
+
+        def on_event(n):
+            if n != 1:
+                return
+            drainer.start()
+            deadline = time.time() + 30
+            while srv.lifecycle != "draining" and time.time() < deadline:
+                time.sleep(0.001)
+            probes["readyz"] = _call("GET", base + "/readyz")
+            probes["shed"] = _call("POST", url, {"prompt_ids": [1, 2], "max_new_tokens": 2})
+
+        shed0 = _value(_scrape(base), "tpumlops_engine_shed_total", reason="draining")
+        drained_stream = _sse(port, path, {"prompt_ids": rng.integers(1, cfg.vocab_size, 8).tolist(),
+                                           "max_new_tokens": 64}, on_event=on_event)
+        drainer.join(timeout=180)
+        rz_status, rz, _ = probes["readyz"]
+        if rz_status != 503 or rz.get("lifecycle") != "draining" or rz.get("inFlight", 0) < 1:
+            raise AssertionError(f"/readyz while draining: {rz_status} {rz}")
+        sh_status, sh, sh_headers = probes["shed"]
+        if sh_status != 429 or sh.get("reason") != "draining" or "Retry-After" not in sh_headers:
+            raise AssertionError(f"/generate while draining: {sh_status} {sh} {sh_headers}")
+        if len(drained_stream["tokens"]) != 64:
+            raise AssertionError(f"the drained stream ended with {len(drained_stream['tokens'])} tokens")
+        if drain.get("status") != 200 or drain["body"].get("drained") is not True:
+            raise AssertionError(f"drain answered {drain}")
+        c_status, c_body, _ = _call("POST", base + "/admin/drain", {"cancel": True})
+        if c_status != 200 or _call("GET", base + "/readyz")[0] != 200:
+            raise AssertionError(f"drain cancel: {c_status} {c_body}")
+        after = _check_outputs(_post(url, {"prompt_ids": [4, 5, 6], "max_new_tokens": 4}),
+                               [4], cfg.vocab_size)
+        shed1 = _value(_scrape(base), "tpumlops_engine_shed_total", reason="draining")
+        if shed1 - shed0 != 1:
+            raise AssertionError(f"tpumlops_engine_shed_total{{reason=draining}} moved by {shed1 - shed0}")
+        drain_res = {"drain_s": drain["s"], "drain_body": drain["body"], "readyz": rz,
+                     "shed": sh, "after_cancel": after}
+        log(f"7B drain: stream of 64 finished whole through the drain ({drain['s']:.2f} s, "
+            f"{drain['body']}); /readyz 503 {rz}; 429 {sh['reason']} with Retry-After "
+            f"{sh_headers.get('Retry-After')}; cancel restored 200s; shed counter +1")
+
+        # Shed on budget: a second server on the same weights, one slot and
+        # a budget one long prompt fills.
+        budget = 1100
+        config2 = dataclasses.replace(config, max_slots=1, admission_queue_budget=budget)
+        srv2 = app.build_server(predictor, config2)
+        engine2 = srv2.engine
+        th2 = threading.Thread(target=srv2.serve_forever, daemon=True)
+        th2.start()
+        port2 = srv2.server_address[1]
+        url2 = f"http://127.0.0.1:{port2}{path}"
+        occupied = threading.Event()
+        results: dict = {}
+
+        def occupant():
+            results["a"] = _sse(port2, path, {"prompt_ids": [3, 1, 4, 1, 5],
+                                              "max_new_tokens": 64},
+                                on_event=lambda n: occupied.set())
+
+        ta = threading.Thread(target=occupant)
+        ta.start()
+        if not occupied.wait(120):
+            raise AssertionError("the occupant stream sent no token")
+        long_prompt = rng.integers(1, cfg.vocab_size, 1000).tolist()
+        tb = threading.Thread(target=lambda: results.update(
+            b=_post(url2, {"prompt_ids": long_prompt, "max_new_tokens": 32})))
+        tb.start()
+        deadline = time.time() + 30
+        while engine2._queue.qsize() < 1 and time.time() < deadline:
+            time.sleep(0.001)
+        over = _call("POST", url2, {"prompt_ids": rng.integers(1, cfg.vocab_size, 100).tolist(),
+                                    "max_new_tokens": 32})
+        if over[0] != 429 or over[1].get("reason") != "budget" or "Retry-After" not in over[2]:
+            raise AssertionError(f"a request over the budget answered {over[0]} {over[1]}")
+        ta.join(timeout=300)
+        tb.join(timeout=300)
+        _check_outputs(results["b"], [32], cfg.vocab_size)
+        if len(results["a"]["tokens"]) != 64:
+            raise AssertionError("the occupant stream lost tokens")
+        oversized = _post(url2, {"prompt_ids": rng.integers(1, cfg.vocab_size, 1200).tolist(),
+                                 "max_new_tokens": 32})  # est 1232 > budget, queue empty
+        _check_outputs(oversized, [32], cfg.vocab_size)
+        shed_budget = _value(_scrape(f"http://127.0.0.1:{port2}"), "tpumlops_engine_shed_total",
+                             reason="budget")
+        if shed_budget != 1:
+            raise AssertionError(f"tpumlops_engine_shed_total{{reason=budget}} is {shed_budget}")
+        log(f"7B budget shed (1 slot, budget {budget}): 429 {over[1]['reason']} with "
+            f"Retry-After {over[2].get('Retry-After')} while a stream ran and 1032 tokens "
+            f"queued; an oversized request (1232) on the idle engine admitted")
+
+        # The launch counts hold over every request since the reset, both
+        # servers' engines together.
+        torch.cuda.synchronize()
+        all_decodes = (engine.decode_forwards - dec0) + engine2.decode_forwards
+        all_forwards = all_decodes + (engine.prefill_forwards - pre0) + engine2.prefill_forwards
+        if da.launches != cfg.num_layers * all_decodes:
+            raise AssertionError(f"decode attention launched {da.launches} times for "
+                                 f"{all_decodes} decode dispatches")
+        if rn.launches != (2 * cfg.num_layers + 1) * all_forwards:
+            raise AssertionError(f"rmsnorm launched {rn.launches} times for {all_forwards} forwards")
+        da_launches, rn_launches = da.launches, rn.launches
+        log(f"7B serve, every request of the phase: decode attention {da_launches} launches "
+            f"(= {cfg.num_layers} x {all_decodes}), rmsnorm {rn_launches} "
+            f"(= {2 * cfg.num_layers + 1} x {all_forwards})")
+        srv2.shutdown_all()
+        th2.join(timeout=30)
+        srv2 = None
+
         # Teacher-forced agreement of a greedy request with its own output.
         p, o = prompts[2], conc_toks[2]
         ids = torch.tensor([p + o[:-1]], dtype=torch.int64, device="cuda")
@@ -1242,7 +1663,8 @@ def phase_serve_7b(da, rn) -> dict:
         pred = torch.argmax(logits[0, len(p) - 1:], dim=-1).tolist()
         agreement = float(np.mean([a == b for a, b in zip(pred, o)]))
 
-        ttft_main = list(ttfts)
+        tick = _sampling_tick_cost(prng, sampling)
+        ttft_main = list(ttfts)[:5]
         # Where the time goes: device time by kernel over one request of
         # 5 prompt + 16 new tokens (one prefill chunk, 15 decode steps).
         # The profiler slows the host, so the idle share divides the device
@@ -1278,6 +1700,10 @@ def phase_serve_7b(da, rn) -> dict:
             "rn_launches": rn_launches,
             "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "single_tokens": single_toks,
+            "prng": prng_res,
+            "stream": stream_res,
+            "drain": drain_res,
+            "sampling_tick": tick,
         }
         log(f"7B serve: single request 5+40 tokens in {single_s:.3f} s "
             f"({40 / single_s:.2f} tok/s); 4 concurrent (17/130/300/700 + 32) in "
@@ -1285,9 +1711,22 @@ def phase_serve_7b(da, rn) -> dict:
         log(f"7B serve: TTFT s {[round(t, 4) for t in ttft_main]}; token_agreement "
             f"(greedy 300-token prompt, teacher-forced) {agreement:.3f}; peak "
             f"{res['max_memory_gib']:.2f} GiB")
+        summary = {
+            "tok_s_single": 40 / single_s, "tok_s_concurrent": 32 * len(lens) / conc_s,
+            "itl_p50_ms": stream_res["itl_p50_ms"], "itl_p99_ms": stream_res["itl_p99_ms"],
+            "itl_n": stream_res["itl_n"], "alone_itl_p50_ms": stream_res["alone_itl_p50_ms"],
+            "alone_itl_max_ms": stream_res["alone_itl_max_ms"],
+            "ttft_ms": stream_res["ttft_ms"], "drain_s": drain["s"],
+            "sampling_tick_ms": tick["sampling_step_b4"]["wall_ms"],
+            "generator_sampling_tick_ms": tick["generator_sampling_step_b4"]["wall_ms"],
+        }
+        log(f"7B summary: {json.dumps(summary)} on {smi}")
         DETAIL["serve_7b"] = res
         return res
     finally:
+        if srv2 is not None:
+            srv2.shutdown_all()
+            th2.join(timeout=30)
         srv.shutdown_all()
         th.join(timeout=30)
 
@@ -1526,7 +1965,7 @@ def main() -> int:
     dm = import_module(f"{PKG}.ops.dmajor_attention")
     dm_res = phase_dmajor_attention(dm, da)
     phase_loader_subprocess()
-    serve = phase_serve_7b(da, rn)
+    serve = phase_serve_7b(da, rn, smi)
     bert = phase_serve_bert(fa)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")

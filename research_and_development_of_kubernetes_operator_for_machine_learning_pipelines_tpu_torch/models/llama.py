@@ -201,6 +201,37 @@ def init(generator: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,
     }
 
 
+def from_torch(torch_model, cfg: LlamaConfig) -> dict:
+    """Convert a HuggingFace ``LlamaForCausalLM`` (or its state dict) into
+    the parameter tree, float32 on the CPU: per-layer weights stacked on a
+    leading layer axis, projections transposed to ``[in, out]``."""
+    sd = torch_model if isinstance(torch_model, dict) else torch_model.state_dict()
+    sd = {k: v.detach().cpu().float() for k, v in sd.items()}
+
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        mats = [sd[fmt.format(i)] for i in range(cfg.num_layers)]
+        if transpose:
+            mats = [m.T for m in mats]
+        return torch.stack(mats, dim=0).contiguous()
+
+    return {
+        "embed": sd["model.embed_tokens.weight"].contiguous(),
+        "layers": {
+            "attn_norm": stack("model.layers.{}.input_layernorm.weight"),
+            "q": stack("model.layers.{}.self_attn.q_proj.weight", transpose=True),
+            "k": stack("model.layers.{}.self_attn.k_proj.weight", transpose=True),
+            "v": stack("model.layers.{}.self_attn.v_proj.weight", transpose=True),
+            "o": stack("model.layers.{}.self_attn.o_proj.weight", transpose=True),
+            "mlp_norm": stack("model.layers.{}.post_attention_layernorm.weight"),
+            "gate": stack("model.layers.{}.mlp.gate_proj.weight", transpose=True),
+            "up": stack("model.layers.{}.mlp.up_proj.weight", transpose=True),
+            "down": stack("model.layers.{}.mlp.down_proj.weight", transpose=True),
+        },
+        "final_norm": sd["model.norm.weight"].contiguous(),
+        "lm_head": sd["lm_head.weight"].T.contiguous(),
+    }
+
+
 def _layer(layers: dict, l: int) -> dict:
     """Layer ``l`` of the stacked layer tree (int8 leaves stay dicts)."""
     return {

@@ -12,41 +12,37 @@ one stable descending sort per row, a rank mask (top-k) AND an exclusive
 cumulative-probability mask (top-p, the first token always kept), then a
 categorical draw over the surviving logits by the Gumbel-max rule.
 
-Randomness: the reference threads a JAX PRNG key per row (``split_keys``);
-here each sampled row carries its own ``torch.Generator`` seeded from the
-request seed, so a row is reproducible for its seed and independent of
-its neighbours.  The streams differ from JAX's threefry bits.
+Randomness: every row carries a threefry key (``models/prng.py``, int64
+words ``[B, 2]``, the reference's ``jax.random.key_data``) and draws
+``argmax(masked + gumbel(key))`` as ``jax.random.categorical`` does, so a
+seeded row draws the reference's stream.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
+
+from . import prng
 
 _NEG_INF = -1e30
 
 
 def sample_logits(
     logits: torch.Tensor,
-    generators: Sequence[torch.Generator | None],
+    keys: torch.Tensor,
     temperature: torch.Tensor,
     top_k: torch.Tensor,
     top_p: torch.Tensor,
 ) -> torch.Tensor:
     """Draw one token per row.
 
-    logits ``[B, V]`` (any float type); ``generators`` one per row: a row
-    with a generator draws once from it (its token is used only where its
-    temperature is > 0), a row with None takes the greedy token;
-    temperature/top_p float ``[B]``; top_k int ``[B]``.  Returns int32
-    ``[B]``."""
+    logits ``[B, V]`` (any float type); keys ``[B, 2]`` int64 threefry
+    words; temperature/top_p float ``[B]``; top_k int ``[B]``.  Every row
+    draws from its key; rows with temperature <= 0 take the greedy token.
+    Returns int32 ``[B]``."""
     b, v = logits.shape
     logits = logits.to(torch.float32)
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    rows = [i for i in range(b) if generators[i] is not None]
-    if not rows:
-        return greedy_tok
 
     temp = torch.clamp(temperature.to(torch.float32), min=1e-6)[:, None]
     scaled = logits / temp
@@ -64,13 +60,54 @@ def sample_logits(
     masked = torch.where(keep_k & keep_p, sorted_logits,
                          torch.full_like(sorted_logits, _NEG_INF))
 
-    # Gumbel-max draw for the sampled rows only, each from its own stream.
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = torch.zeros_like(masked)
-    for i in rows:
-        u = torch.rand(v, generator=generators[i], device=logits.device,
-                       dtype=torch.float32)
-        gumbel[i] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
-    choice = torch.argmax(masked + gumbel, dim=-1)
+    # jax.random.categorical per row: gumbel noise over the row's V slots.
+    choice = torch.argmax(prng.gumbel(keys, (v,)) + masked, dim=-1)
     sampled_tok = torch.gather(order, 1, choice[:, None])[:, 0].to(torch.int32)
     return torch.where(temperature > 0, sampled_tok, greedy_tok)
+
+
+def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance a batch of per-row keys: returns (carry, use)."""
+    pairs = prng.split(keys, 2)
+    return pairs[..., 0, :], pairs[..., 1, :]
+
+
+def sample_chain_step(
+    logits: torch.Tensor,
+    keys: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sampling step of a decode chain: advance EVERY row's key and
+    draw one token per row, the engine's single-step discipline
+    (``split_keys`` then :func:`sample_logits`).  Returns
+    ``(carry_keys, tokens)``."""
+    carry, use = split_keys(keys)
+    return carry, sample_logits(logits, use, temperature, top_k, top_p)
+
+
+def speculative_accept(
+    tokens: torch.Tensor,
+    greedy: torch.Tensor,
+    draft_len: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact greedy acceptance for self-speculative verify.
+
+    ``tokens`` int ``[B, S]``: column 0 is the row's pending token, columns
+    ``1..S-1`` its drafted continuation; ``greedy`` int ``[B, S]`` the
+    verify forward's argmax at each position; ``draft_len`` int ``[B]``
+    caps acceptance at each row's real draft count.  Returns ``(accepted,
+    next_token)``: the longest draft prefix that agrees with greedy, and
+    the greedy token after it.  int32."""
+    b, s = tokens.shape
+    if s == 1:
+        return (torch.zeros((b,), dtype=torch.int32, device=tokens.device),
+                greedy[:, 0].to(torch.int32))
+    match = (tokens[:, 1:] == greedy[:, :-1]).to(torch.int32)
+    prefix = torch.cumprod(match, dim=-1)
+    in_budget = (torch.arange(s - 1, device=tokens.device)[None, :]
+                 < draft_len[:, None]).to(torch.int32)
+    accepted = torch.sum(prefix * in_budget, dim=-1).to(torch.int32)
+    nxt = torch.gather(greedy, 1, accepted[:, None].to(torch.int64))[:, 0]
+    return accepted, nxt.to(torch.int32)

@@ -179,7 +179,7 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
         k_self.data_ptr(), v_self.data_ptr(), mask.data_ptr(), mask.stride(0),
         out.data_ptr(), part.data_ptr() if part is not None else None,
         b, nkv, w, d, splits, split_len(w, splits), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {rc}")

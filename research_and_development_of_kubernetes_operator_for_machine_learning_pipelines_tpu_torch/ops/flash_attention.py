@@ -173,7 +173,7 @@ def _launch(q, k, v, causal, kv_len, scale, bias):
         bias.stride(0) if bias is not None else 0,
         out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
         b, h, s_q, t, kv, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")

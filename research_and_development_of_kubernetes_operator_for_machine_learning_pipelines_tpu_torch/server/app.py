@@ -13,9 +13,18 @@ Routes:
   ``{"prompt_ids": [[...]] or [...], "max_new_tokens": N, ...}`` or the V2
   tensor form ``{"inputs": [{"name": "prompt_ids", ...}, {"name":
   "lengths", ...}?], "parameters": {...}}``; parameters ``max_new_tokens``,
-  ``eos_id``, ``temperature``, ``top_k``, ``top_p`` and ``seed`` (row i
-  samples with ``seed + i``).  Unknown keys are a 400; ``stream: true`` is a
-  400 (not yet ported).
+  ``eos_id``, ``temperature``, ``top_k``, ``top_p``, ``seed`` (row i
+  samples with ``seed + i``) and ``stream``.  Unknown keys are a 400.
+  ``"stream": true`` (one prompt) answers Server-Sent Events over a
+  chunked body: ``data: {"index": i, "token": t}`` per token, then
+  ``data: {"done": true, "output_ids": [...]}``, or a terminal ``event:
+  error`` whose data names the ``reason``.  The status line is out before
+  the outcome is known, so the gate's request metric records 499 for a
+  client that went away (its future is cancelled and its slot freed at
+  the next tick) and 500 for an engine failure.  A request over the
+  admission budget, or any while draining, is a 429 with ``Retry-After``
+  and a body naming ``reason`` (``budget`` or ``draining``); a
+  multi-prompt request is admitted whole or shed whole.
 - ``POST /v2/models/{name}/infer`` (classifiers) -- V2 tensors in and out.
   Inputs are padded onto the predictor's sequence buckets; a batch of one
   goes through the dynamic batcher, a larger client batch is padded to a
@@ -24,7 +33,20 @@ Routes:
 - ``GET /v2/models/{name}`` -- model metadata.
 - ``GET /metrics`` -- Prometheus text exposition (``server/metrics.py``);
   both POST routes record every answered request in the gate's families.
-- ``GET /v2/health/live`` and ``GET /v2/health/ready``.
+- ``GET /readyz``, ``/healthz``, ``/v2/health/ready`` and
+  ``/v2/models/{name}/ready`` -- one handler: 200 only while ``ready``,
+  503 while loading, draining or shut down, with the ``lifecycle`` (and
+  ``inFlight`` while draining).  ``GET /livez`` and ``/v2/health/live``
+  stay 200 through a drain.
+- ``POST /admin/drain`` -- ``{"grace_s": s}`` stops admissions and waits up
+  to ``s`` seconds (default ``--drain-grace-seconds``) for every admitted
+  request, streams included, to finish; answers ``lifecycle``, ``drained``
+  and ``inFlight``.  ``{"cancel": true}`` reopens admissions.  SIGTERM
+  runs the same drain before the server exits.
+
+Every response echoes ``X-Request-Id`` (the request's, a W3C
+``traceparent`` trace id, or a new one), and every 400, 429 and 500 body
+of ``/generate`` carries it as ``request_id``.
 """
 
 from __future__ import annotations
@@ -32,11 +54,15 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import queue
 import re
 import signal
+import sys
 import threading
 import time
+import uuid
 from concurrent.futures import wait
+from contextlib import contextmanager
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -45,7 +71,7 @@ import torch
 
 from .batching import DynamicBatcher, apply_seq_pad, next_bucket
 from .engine import InferenceEngine
-from .generation import EngineShutdown, GenerationEngine
+from .generation import EngineOverloaded, EngineShutdown, GenerationEngine
 from .metrics import CONTENT_TYPE, ServerMetrics
 
 _log = logging.getLogger("tpumlops_torch.server")
@@ -59,7 +85,26 @@ _GEN_NOT_PORTED = frozenset({"debug", "slo_class"})
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
 
-_MODEL_ROUTE = re.compile(r"^/v2/models/([^/]+)(?:/(generate|infer))?$")
+_MODEL_ROUTE = re.compile(r"^/v2/models/([^/]+)(?:/(generate|infer|ready))?$")
+_READY_ROUTES = frozenset({"/readyz", "/healthz", "/v2/health/ready"})
+_LIVE_ROUTES = frozenset({"/livez", "/v2/health/live"})
+
+# W3C traceparent: version-traceid-spanid-flags.
+_TRACEPARENT = re.compile(r"^[0-9a-f]{2}-([0-9a-f]{32})-[0-9a-f]{16}-[0-9a-f]{2}$")
+
+
+def request_id_from_headers(headers) -> str:
+    """``X-Request-Id`` (at most 128 printable characters), else the
+    ``traceparent`` trace id, else a new uuid4 hex."""
+    rid = "".join(c for c in (headers.get("X-Request-Id") or "").strip()[:128]
+                  if c.isprintable())
+    if rid:
+        return rid
+    m = _TRACEPARENT.match((headers.get("traceparent") or "").strip().lower())
+    if m:
+        return m.group(1)
+    return uuid.uuid4().hex
+
 
 _V2_TO_NP = {
     "FP32": np.float32,
@@ -107,14 +152,20 @@ class ServerConfig:
     # The V2 predict path's dynamic batcher.
     max_batch_size: int = 32
     max_batch_delay_ms: float = 5.0
+    # Admission control and drain (the generation engine).
+    admission_queue_budget: int = 0
+    drain_grace_s: float = 20.0
     # Metric identity (the gate's {deployment_name, predictor_name, namespace}).
     predictor_name: str = "v1"
     deployment_name: str = ""
     namespace: str = "default"
 
 
-def make_gen_engine(predictor, config: ServerConfig) -> GenerationEngine:
-    """Construct the GenerationEngine for a causal-LM predictor."""
+def make_gen_engine(predictor, config: ServerConfig,
+                    metrics: ServerMetrics) -> GenerationEngine:
+    """Construct the GenerationEngine for a causal-LM predictor, its hooks
+    feeding ``metrics``' generation families."""
+    m = metrics
     return GenerationEngine(
         predictor.causal_lm["params"],
         predictor.causal_lm["cfg"],
@@ -124,6 +175,16 @@ def make_gen_engine(predictor, config: ServerConfig) -> GenerationEngine:
         kv_quant=config.quantize == "int8kv",
         prefill_chunk=config.prefill_chunk,
         device=config.device,
+        admission_queue_budget=config.admission_queue_budget,
+        on_step=m.observe_decode_step,
+        on_tokens=m.inc_generated_tokens,
+        on_admission_wait=m.observe_admission_wait,
+        on_ttft=m.observe_ttft,
+        on_itl=m.observe_itl,
+        on_request_tokens=m.observe_request_tokens,
+        on_tick=m.observe_tick,
+        on_shed=m.inc_shed,
+        on_dispatch=m.inc_dispatch,
     )
 
 
@@ -233,25 +294,121 @@ class ModelServer(ThreadingHTTPServer):
     request_queue_size = 128
 
     def __init__(self, address, engine, model_name: str, metrics: ServerMetrics,
-                 predictor, batcher: DynamicBatcher | None = None):
+                 predictor, batcher: DynamicBatcher | None = None,
+                 drain_grace_s: float = 20.0, cold_start_anchor: float | None = None):
         self.engine = engine
         self.model_name = model_name
         self.metrics = metrics
         self.predictor = predictor
         self.batcher = batcher
+        self.drain_grace_s = float(drain_grace_s)
         self.lifecycle = "loading"
+        # SIGTERM committed the process to exit: a drain can no longer be
+        # cancelled.
+        self.terminating = False
+        self._cold_anchor = cold_start_anchor  # wall of boot, until first token
+        # Prediction requests whose answer is not fully written yet: a
+        # drain waits for these as well as for the engine, so the last
+        # event of a stream is out before the server goes.
+        self._answering = 0
+        self._answering_lock = threading.Lock()
         super().__init__(address, _Handler)
 
     @property
     def serves(self) -> str:
         return "infer" if self.batcher is not None else "generate"
 
+    def handle_error(self, request, client_address) -> None:
+        # A client that closes its kept-alive connection (or a stream)
+        # resets the socket the handler waits on: routine, not a fault.
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            _log.debug("client %s went away", client_address)
+            return
+        super().handle_error(request, client_address)
+
+    @property
+    def gen_engine(self) -> GenerationEngine | None:
+        return None if self.batcher is not None else self.engine
+
+    def note_first_token(self) -> None:
+        """Close the cold-start ladder at the first token served (once)."""
+        anchor, self._cold_anchor = self._cold_anchor, None
+        if anchor is not None:
+            self.metrics.observe_cold_start("first_token", time.time() - anchor)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def begin_drain(self) -> None:
+        """Readiness goes (503 ``draining``), new /generate requests shed
+        with 429, and everything admitted runs to completion."""
+        if self.lifecycle == "shutdown":
+            return
+        self.lifecycle = "draining"
+        self.metrics.set_ready(False)
+        if self.gen_engine is not None:
+            self.gen_engine.begin_drain()
+
+    def cancel_drain(self) -> bool:
+        """Reopen admissions and readiness; refused (False) once the
+        process is terminating or shut down."""
+        if self.terminating:
+            return False
+        if self.lifecycle != "draining":
+            return self.lifecycle == "ready"
+        if self.gen_engine is not None:
+            self.gen_engine.cancel_drain()
+        self.lifecycle = "ready"
+        self.metrics.set_ready(True)
+        return True
+
+    def inflight(self) -> int:
+        return self.gen_engine.inflight() if self.gen_engine is not None else 0
+
+    @contextmanager
+    def answering(self):
+        with self._answering_lock:
+            self._answering += 1
+        try:
+            yield
+        finally:
+            with self._answering_lock:
+                self._answering -= 1
+
+    def drained(self) -> bool:
+        """Draining, no admitted request left, and every answer written."""
+        engine_drained = self.gen_engine is None or self.gen_engine.drained()
+        return self.lifecycle != "ready" and engine_drained and self._answering == 0
+
+    def wait_drained(self, grace_s: float | None = None) -> bool:
+        """Wait (at most ``grace_s``) until no admitted request is left."""
+        grace = self.drain_grace_s if grace_s is None else float(grace_s)
+        deadline = time.monotonic() + max(0.0, grace)
+        while True:
+            if self.drained():
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
+    def terminate(self, grace_s: float | None = None) -> bool:
+        """The SIGTERM path: drain (bounded by ``grace_s``), then shut
+        down.  Returns whether the drain completed."""
+        self.terminating = True
+        self.begin_drain()
+        drained = self.wait_drained(grace_s)
+        if not drained:
+            _log.warning("drain grace %.1fs expired with %d request(s) in flight",
+                         self.drain_grace_s if grace_s is None else grace_s,
+                         self.inflight())
+        self.shutdown_all()
+        return drained
+
     # -- /generate -----------------------------------------------------------
 
-    def generate(self, body: dict) -> dict:
+    def prepare_generate(self, body: dict):
+        """Parse and validate a /generate body: (prompts, max_new, eos_id,
+        sampling, stream)."""
         prompts, params = parse_generate(body)
-        if params.get("stream"):
-            raise ValueError("stream=true is not yet ported")
         max_new = int(params.get("max_new_tokens", 16))
         eos_id = params.get("eos_id")
         eos_id = int(eos_id) if eos_id is not None else None
@@ -265,18 +422,28 @@ class ModelServer(ThreadingHTTPServer):
         # Validate every prompt before admitting any: a bad sibling must
         # not leave earlier ones generating into abandoned futures.
         prompts = [self.engine.validate(p, max_new, **sampling) for p in prompts]
+        stream = bool(params.get("stream", False))
+        if stream and len(prompts) != 1:
+            raise ValueError("stream=true supports exactly one prompt")
+        return prompts, max_new, eos_id, sampling, stream
 
+    def generate(self, body: dict, prompts, max_new, eos_id, sampling) -> dict:
         def row_seed(i: int) -> int | None:
             # Distinct stream per row, reproducible from the request seed.
             base = sampling["seed"]
             return None if base is None else (base + i) % (2**63)
 
+        # Reserve the whole request's estimate first: admitted whole or
+        # shed whole, never siblings generating into abandoned futures.
+        self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts))
         futures = [
-            self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)})
+            self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
+                               est_reserved=True)
             for i, p in enumerate(prompts)
         ]
         wait(futures)
         outs = [f.result() for f in futures]
+        self.note_first_token()
         return {
             "model_name": self.model_name,
             "id": body.get("id", ""),
@@ -336,6 +503,7 @@ class ModelServer(ThreadingHTTPServer):
     def shutdown_all(self) -> None:
         """Stop serving, then stop the engine (failing what is queued)."""
         self.lifecycle = "shutdown"
+        self.metrics.set_ready(False)
         self.shutdown()
         self.server_close()
         if self.batcher is not None:
@@ -351,25 +519,42 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access lines to logging
         _log.debug("%s - " + fmt, self.address_string(), *args)
 
-    def _send(self, code: int, data: bytes, content_type: str) -> None:
+    def _send(self, code: int, data: bytes, content_type: str,
+              headers: dict | None = None) -> None:
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        self.send_header("X-Request-Id", self._rid)
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
 
-    def _reply(self, code: int, payload: dict) -> None:
-        self._send(code, json.dumps(payload).encode(), "application/json")
+    def _reply(self, code: int, payload: dict, headers: dict | None = None) -> None:
+        self._send(code, json.dumps(payload).encode(), "application/json", headers)
+
+    def _read_body(self) -> bytes:
+        length = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(length) if length else b""
+
+    # -- GET -----------------------------------------------------------------
 
     def do_GET(self):
+        self._rid = request_id_from_headers(self.headers)
         srv = self.server
         m = _MODEL_ROUTE.match(self.path)
-        if self.path == "/v2/health/live":
+        if self.path in _LIVE_ROUTES:
+            # Live through loading and draining: a replica finishing its
+            # in-flight tail must not be killed.
             live = srv.lifecycle != "shutdown"
             self._reply(200 if live else 503, {"live": live, "lifecycle": srv.lifecycle})
-        elif self.path == "/v2/health/ready":
+        elif self.path in _READY_ROUTES or (
+                m is not None and m.group(2) == "ready" and m.group(1) == srv.model_name):
             ready = srv.lifecycle == "ready"
-            self._reply(200 if ready else 503, {"ready": ready, "lifecycle": srv.lifecycle})
+            body = {"ready": ready, "lifecycle": srv.lifecycle}
+            if srv.lifecycle == "draining":
+                body["inFlight"] = srv.inflight()
+            self._reply(200 if ready else 503, body)
         elif self.path == "/metrics":
             self._send(200, srv.metrics.render(), CONTENT_TYPE)
         elif m is not None and m.group(2) is None and m.group(1) == srv.model_name:
@@ -377,11 +562,16 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
+    # -- POST ----------------------------------------------------------------
+
     def do_POST(self):
+        self._rid = request_id_from_headers(self.headers)
         srv = self.server
+        raw = self._read_body()
+        if self.path == "/admin/drain":
+            self._admin_drain(raw)
+            return
         m = _MODEL_ROUTE.match(self.path)
-        length = int(self.headers.get("Content-Length") or 0)
-        raw = self.rfile.read(length) if length else b""
         if m is None or m.group(2) != srv.serves:
             self._reply(404, {"error": f"no route {self.path} for this model "
                                        f"(it serves /{srv.serves})"})
@@ -389,37 +579,152 @@ class _Handler(BaseHTTPRequestHandler):
         if m.group(1) != srv.model_name:
             self._reply(404, {"error": f"unknown model {m.group(1)!r}"})
             return
+        with srv.answering():
+            self._answer(raw)
+
+    def _answer(self, raw: bytes) -> None:
+        srv = self.server
         t0 = time.perf_counter()
-        code = 200
+        code, payload, headers = 200, None, None
         try:
             body = json.loads(raw or b"{}")
             if not isinstance(body, dict):
                 raise ValueError("request body must be a JSON object")
-            payload = srv.generate(body) if srv.serves == "generate" else srv.infer(body)
+            if srv.serves == "infer":
+                payload = srv.infer(body)
+            else:
+                prompts, max_new, eos_id, sampling, stream = srv.prepare_generate(body)
+                if stream:
+                    code = self._stream(prompts[0], max_new, eos_id, sampling)
+                    return
+                payload = srv.generate(body, prompts, max_new, eos_id, sampling)
+        except EngineOverloaded as e:
+            code, headers = 429, {"Retry-After": str(e.retry_after_s)}
+            payload = {"error": str(e), "reason": e.reason,
+                       "retry_after_s": e.retry_after_s, "request_id": self._rid}
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
-            code, payload = 400, {"error": str(e)}
+            code, payload = 400, {"error": str(e), "request_id": self._rid}
         except EngineShutdown as e:
-            code, payload = 503, {"error": str(e)}
+            code, payload = 503, {"error": str(e), "request_id": self._rid}
         except Exception as e:
             _log.exception("%s failed", srv.serves)
-            code, payload = 500, {"error": str(e)}
+            code, payload = 500, {"error": str(e), "request_id": self._rid}
         finally:
             srv.metrics.observe_request(time.perf_counter() - t0, code=code)
-        self._reply(code, payload)
+        self._reply(code, payload, headers)
+
+    def _chunk(self, data: bytes) -> None:
+        self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+        self.wfile.flush()
+
+    def _event(self, payload: dict, event: str | None = None) -> None:
+        head = f"event: {event}\n" if event else ""
+        self._chunk(f"{head}data: {json.dumps(payload)}\n\n".encode())
+
+    def _stream(self, prompt, max_new, eos_id, sampling) -> int:
+        """Serve one prompt as Server-Sent Events over a chunked body;
+        returns the code the gate's metric records.  Shedding raises
+        before the status line is sent."""
+        srv = self.server
+        tokens: queue.Queue = queue.Queue()
+        fut = srv.engine.submit(prompt, max_new, eos_id, **sampling,
+                                on_token=tokens.put)
+        fut.add_done_callback(lambda f: tokens.put(None))
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("X-Request-Id", self._rid)
+        self.end_headers()
+        code, n = 200, 0
+        try:
+            while True:
+                tok = tokens.get()
+                if tok is None:
+                    break
+                if n == 0:
+                    srv.note_first_token()
+                self._event({"index": n, "token": int(tok)})
+                n += 1
+            if fut.cancelled():
+                code = 499
+                self._sse_error("cancelled", "generation cancelled")
+            elif fut.exception() is not None:
+                code = 500
+                self._sse_error("engine_failed", str(fut.exception()))
+            else:
+                self._event({"done": True, "output_ids": fut.result().tolist()})
+            self._chunk(b"")
+        except OSError:
+            # The client went away: cancel, so the slot frees at the
+            # next scheduler tick instead of decoding for nobody.
+            fut.cancel()
+            code = 499
+            self.close_connection = True
+        except Exception as e:
+            _log.exception("stream failed mid-generation")
+            fut.cancel()
+            code = 500
+            try:
+                self._sse_error("stream_failed", str(e))
+                self._chunk(b"")
+            except Exception:
+                self.close_connection = True
+        return code
+
+    def _sse_error(self, reason: str, message: str) -> None:
+        """The terminal ``error`` event: a stream that ends without its
+        result says so, with the request id and a typed reason."""
+        self._event({"done": True, "error": message, "request_id": self._rid,
+                     "reason": reason}, event="error")
+
+    def _admin_drain(self, raw: bytes) -> None:
+        srv = self.server
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("drain body must be a JSON object")
+            grace = float(body.get("grace_s", srv.drain_grace_s))
+            if not (0.0 <= grace <= 3600.0):
+                raise ValueError(f"grace_s must be in [0, 3600], got {grace}")
+            cancel = bool(body.get("cancel", False))
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": str(e), "request_id": self._rid})
+            return
+        if cancel:
+            restored = srv.cancel_drain()
+            self._reply(200 if restored else 409,
+                        {"lifecycle": srv.lifecycle, "cancelled": restored})
+            return
+        srv.begin_drain()
+        drained = srv.wait_drained(grace)
+        self._reply(200, {"lifecycle": srv.lifecycle, "drained": drained,
+                          "inFlight": srv.inflight()})
 
 
-def build_server(predictor, config: ServerConfig, warmup: bool = True) -> ModelServer:
+def build_server(predictor, config: ServerConfig, warmup: bool = True,
+                 load_stats: dict | None = None,
+                 boot_wall: float | None = None) -> ModelServer:
     """Engine + bound HTTP server for a loaded predictor; the engine is
     started (and warmed) and the server reads ready.  Call
-    ``serve_forever()`` (on any thread) and ``shutdown_all()`` to stop."""
+    ``serve_forever()`` (on any thread) and ``shutdown_all()`` to stop.
+
+    ``load_stats`` (``{"wall_s": s}``) and ``boot_wall`` (the process's
+    start, ``time.time()``) feed the model-load and cold-start gauges."""
+    anchor = time.time() if boot_wall is None else boot_wall
     metrics = ServerMetrics(
         deployment_name=config.deployment_name or config.model_name,
         predictor_name=config.predictor_name,
         namespace=config.namespace,
     )
+    metrics.set_ready(False)
+    if load_stats:
+        metrics.observe_model_load(load_stats)
+        metrics.observe_cold_start("load", load_stats.get("wall_s") or 0.0)
+    t_warm = time.time()
     batcher = None
     if predictor.causal_lm is not None:
-        engine = make_gen_engine(predictor, config)
+        engine = make_gen_engine(predictor, config, metrics)
         engine.start(warmup=warmup)
         stop = engine.shutdown
     else:
@@ -445,19 +750,25 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True) -> ModelS
                 raise
     try:
         srv = ModelServer((config.host, config.port), engine, config.model_name,
-                          metrics, predictor=predictor, batcher=batcher)
+                          metrics, predictor=predictor, batcher=batcher,
+                          drain_grace_s=config.drain_grace_s,
+                          cold_start_anchor=anchor)
     except Exception:
         stop()
         raise
+    metrics.observe_cold_start("compile", time.time() - t_warm)
+    metrics.observe_cold_start("total", time.time() - anchor)
     srv.lifecycle = "ready"
+    metrics.set_ready(True)
     return srv
 
 
 def main(argv: list[str] | None = None) -> None:
     from .loader import load_predictor
 
+    boot_wall = time.time()
     ap = argparse.ArgumentParser(
-        description="Serve a native artifact: a Llama over /generate or a "
+        description="Serve a native or HF artifact: a Llama over /generate or a "
                     "classifier over /v2/models/{name}/infer.")
     ap.add_argument("--model-uri", required=True)
     ap.add_argument("--model-name", default="model")
@@ -469,6 +780,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-batch-delay-ms", type=float, default=5.0)
+    ap.add_argument("--admission-queue-budget", type=int, default=0,
+                    help="estimated-token bound (prompt + max_new) on queued-but-"
+                         "unadmitted generation work; beyond it /generate sheds "
+                         "with 429 + Retry-After. 0 = unbounded")
+    ap.add_argument("--drain-grace-seconds", type=float, default=20.0,
+                    help="seconds SIGTERM and POST /admin/drain wait for in-flight "
+                         "requests (streams included) to finish after admissions "
+                         "stop, before teardown")
     ap.add_argument("--predictor-name", default="v1")
     ap.add_argument("--deployment-name", default="")
     ap.add_argument("--namespace", default="default")
@@ -482,17 +801,24 @@ def main(argv: list[str] | None = None) -> None:
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
         prefill_chunk=args.prefill_chunk, device=args.device,
         max_batch_size=args.max_batch_size, max_batch_delay_ms=args.max_batch_delay_ms,
+        admission_queue_budget=args.admission_queue_budget,
+        drain_grace_s=args.drain_grace_seconds,
         predictor_name=args.predictor_name, deployment_name=args.deployment_name,
         namespace=args.namespace,
     )
+    t_load = time.perf_counter()
     predictor = load_predictor(
         args.model_uri, quantize=args.quantize, device=args.device,
         dtype=_DTYPES[args.dtype],
     )
-    srv = build_server(predictor, config)
+    srv = build_server(predictor, config,
+                       load_stats={"wall_s": time.perf_counter() - t_load},
+                       boot_wall=boot_wall)
 
     def _term(_signum, _frame):
-        threading.Thread(target=srv.shutdown_all, daemon=True).start()
+        _log.info("termination signal; draining (grace %.1fs)", args.drain_grace_seconds)
+        threading.Thread(target=srv.terminate, args=(args.drain_grace_seconds,),
+                         daemon=True).start()
 
     signal.signal(signal.SIGTERM, _term)
     host, port = srv.server_address[:2]

@@ -15,16 +15,36 @@ updated in place where the reference donates it.  Decode reads only a
 window bucket of the cache (``decode_window_bucket``); on the int8 cache
 each layer's attention is the fused decode-attention kernel.
 
+Sampling follows the reference's key discipline: each slot carries a
+threefry key (``models/prng.py``), ``key(seed)`` for a seeded request and
+``fold_in(boot_key, n)`` for the n-th request of this boot otherwise;
+admission splits it once for the first token, and every sampling decode
+tick splits every row's key once, so a seeded row draws the reference's
+stream whatever its neighbours do.
+
+Admission control: ``admission_queue_budget`` bounds the estimated
+tokens (prompt + max_new) of queued-but-unadmitted requests; past it, and
+while draining, ``submit``/``reserve_admission`` raise
+:class:`EngineOverloaded` before anything is enqueued (the HTTP layer's
+429).  ``begin_drain`` stops admissions and lets every submitted request
+finish; ``drained`` says when none is left.
+
+Hooks (all optional, called on the scheduler thread): ``on_step`` per
+decode tick and idle pass, ``on_tokens``/``on_itl`` per emitted token,
+``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per finished
+request, ``on_tick``/``on_dispatch`` per device dispatch, ``on_shed`` per
+refused request (on the submitting thread); ``submit(on_token=...)``
+streams one request's tokens.
+
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
 asked for): the prefix cache, speculative decoding, packed prefill,
 multi-step decode, the unified super-step, SLO classes and preemption,
 the mesh, multi-host, the watchdog, the flight recorder, device
-telemetry, admission budgets and poison quarantine.
+telemetry and poison quarantine.
 """
 
 from __future__ import annotations
 
-import hashlib
 import logging
 import os
 import queue
@@ -38,7 +58,8 @@ import numpy as np
 import torch
 
 from ..models import llama
-from ..models.sampling import sample_logits
+from ..models import prng
+from ..models.sampling import sample_logits, split_keys
 from .batching import next_bucket
 
 _log = logging.getLogger("tpumlops_torch.generation")
@@ -46,6 +67,20 @@ _log = logging.getLogger("tpumlops_torch.generation")
 
 class EngineShutdown(RuntimeError):
     """The engine shut down before this request's admission completed."""
+
+
+class EngineOverloaded(RuntimeError):
+    """Admission shed: the request was refused at the door (nothing was
+    enqueued), because its estimated tokens would push the queued backlog
+    past the admission budget (``reason="budget"``) or because the engine
+    is draining (``reason="draining"``).  The HTTP layer answers 429 with
+    a ``Retry-After`` of ``retry_after_s``."""
+
+    def __init__(self, message: str, reason: str = "budget",
+                 retry_after_s: int = 1):
+        super().__init__(message)
+        self.reason = reason
+        self.retry_after_s = int(retry_after_s)
 
 
 def _safe_resolve(fut: Future, value) -> None:
@@ -115,8 +150,10 @@ class _Slot:
     remaining: int  # new tokens still to produce
     eos_id: int | None
     sampling: bool = False  # temperature > 0 (selects the sampling step)
+    on_token: Callable[[int], None] | None = None  # streaming callback
     prompt_len: int = 0  # for the decode attention window
     generated: list[int] = field(default_factory=list)
+    t_last_token: float = 0.0  # perf_counter of the last emitted token (ITL)
 
 
 @dataclass
@@ -128,8 +165,12 @@ class _Request:
     temperature: float = 0.0  # <= 0: greedy
     top_k: int = 0  # <= 0: disabled
     top_p: float = 1.0  # >= 1: disabled
-    seed: int | None = None  # None: engine-assigned
-    t_submit: float = 0.0  # perf_counter at submit (TTFT)
+    seed: int | None = None  # None: engine-assigned (boot-key fold_in)
+    on_token: Callable[[int], None] | None = None  # streaming callback
+    t_submit: float = 0.0  # perf_counter at submit (admission wait, TTFT)
+    # Estimated tokens (prompt + max_new) held against the admission
+    # budget while queued; released once, at dequeue.
+    est_tokens: int = 0
 
 
 @dataclass(eq=False)  # identity semantics: numpy fields
@@ -152,7 +193,6 @@ _NOT_PORTED = {
     "prefill_batch": 1,
     "prefill_token_budget": 0,
     "recorder": None,
-    "admission_queue_budget": 0,
     "telemetry": None,
     "decode_steps": 1,
     "unified_step": False,
@@ -193,7 +233,16 @@ class GenerationEngine:
         kv_quant: bool = False,
         prefill_chunk: int | None = None,
         device=None,
+        admission_queue_budget: int = 0,
+        on_step: Callable[[int, float, int, int], None] | None = None,
+        on_tokens: Callable[[int], None] | None = None,
+        on_admission_wait: Callable[[float], None] | None = None,
         on_ttft: Callable[[float], None] | None = None,
+        on_itl: Callable[[float], None] | None = None,
+        on_request_tokens: Callable[[int], None] | None = None,
+        on_tick: Callable[[str, float], None] | None = None,
+        on_shed: Callable[[str], None] | None = None,
+        on_dispatch: Callable[[str], None] | None = None,
         **unported,
     ):
         for name, value in unported.items():
@@ -214,8 +263,23 @@ class GenerationEngine:
         self.capacity = int(cfg.max_seq)
         self._dtype = dtype or torch.bfloat16
         self._kv_quant = bool(kv_quant)
-        # Called with each request's submit-to-first-token seconds.
-        self.on_ttft = on_ttft
+        if int(admission_queue_budget) < 0:
+            raise ValueError(
+                f"admission_queue_budget must be >= 0, got {admission_queue_budget}"
+            )
+        self._admission_budget = int(admission_queue_budget)
+        # (active_slots, step_seconds, queue_depth, admitting) per decode
+        # tick and idle pass: queue_depth counts queued-but-unadmitted
+        # requests, admitting the admissions mid-prefill.
+        self.on_step = on_step
+        self.on_tokens = on_tokens  # (1,) per token delivered
+        self.on_admission_wait = on_admission_wait  # submit -> admission s
+        self.on_ttft = on_ttft  # submit -> first token s
+        self.on_itl = on_itl  # s between a request's consecutive tokens
+        self.on_request_tokens = on_request_tokens  # tokens of a finished request
+        self.on_tick = on_tick  # (kind, wall s) per device dispatch
+        self.on_shed = on_shed  # reason of a refused request
+        self.on_dispatch = on_dispatch  # kind per device dispatch
         self._prefill_chunk_size = int(prefill_chunk) if prefill_chunk else None
         if self._prefill_chunk_size is not None:
             C = self._prefill_chunk_size
@@ -233,10 +297,18 @@ class GenerationEngine:
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._pending: list[_PrefillProgress] = []
         self._seq_state = None  # (last_logits, seq KVCache) of a chunked admission
-        # Engine-assigned seeds fold a per-boot nonce, so unseeded streams
-        # never replay across restarts.
-        self._boot_nonce = os.urandom(8)
+        # Engine-assigned keys fold a counter into a per-boot key, so
+        # unseeded streams never collide with a user's key(seed) stream
+        # and never replay across restarts.  Not reset by recovery.
+        self._boot_key = prng.key(int.from_bytes(os.urandom(7), "little"),
+                                  self._device)
         self._seed_counter = 0
+        # Admission control (see reserve_admission): all under _adm_lock.
+        self._adm_lock = threading.Lock()
+        self._queued_est_tokens = 0
+        self._inflight_reqs = 0  # submitted futures not yet done
+        self._draining = False
+        self.shed_total = 0
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -257,7 +329,7 @@ class GenerationEngine:
         self._temps = torch.zeros((self.max_slots,), dtype=torch.float32, device=dev)
         self._topk = torch.zeros((self.max_slots,), dtype=torch.int32, device=dev)
         self._topp = torch.ones((self.max_slots,), dtype=torch.float32, device=dev)
-        self._gens: list[torch.Generator | None] = [None] * self.max_slots
+        self._keys = prng.split(prng.key(0, dev), self.max_slots)  # [slots, 2]
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -296,14 +368,16 @@ class GenerationEngine:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if req is not None and not req.future.done():
-                _safe_fail(
-                    req.future,
-                    EngineShutdown(
-                        "engine shut down before admission; retry on "
-                        "another replica"
-                    ),
-                )
+            if req is not None:
+                self._release_queued(req)
+                if not req.future.done():
+                    _safe_fail(
+                        req.future,
+                        EngineShutdown(
+                            "engine shut down before admission; retry on "
+                            "another replica"
+                        ),
+                    )
 
     # -- client API ----------------------------------------------------------
 
@@ -357,13 +431,27 @@ class GenerationEngine:
         top_k: int = 0,
         top_p: float = 1.0,
         seed: int | None = None,
+        on_token: Callable[[int], None] | None = None,
+        est_reserved: bool = False,
     ) -> Future:
+        """Enqueue one request; returns its future.  Sheds with
+        :class:`EngineOverloaded` before enqueueing anything, unless the
+        caller already took the reservation (``est_reserved``, a
+        multi-prompt request's whole reservation through
+        :meth:`reserve_admission`).  ``on_token`` is called on the
+        scheduler thread with each emitted token."""
         prompt = self.validate(
             prompt_ids, max_new_tokens, temperature, top_k, top_p, seed
         )
+        est = int(prompt.size) + int(max_new_tokens)
+        if not est_reserved:
+            self.reserve_admission(est)
         fut: Future = Future()
         # None means "use the engine default"; 0 is a legitimate eos token.
         eos = self._eos_default if eos_id is None else eos_id
+        with self._adm_lock:
+            self._inflight_reqs += 1
+        fut.add_done_callback(self._note_request_done)
         self._queue.put(
             _Request(
                 prompt,
@@ -374,10 +462,88 @@ class GenerationEngine:
                 top_k=int(top_k),
                 top_p=float(top_p),
                 seed=None if seed is None else int(seed),
+                on_token=on_token,
                 t_submit=time.perf_counter(),
+                est_tokens=est,
             )
         )
         return fut
+
+    def _note_request_done(self, _fut: Future) -> None:
+        # Fires once per submitted future (result, exception or cancel).
+        with self._adm_lock:
+            self._inflight_reqs -= 1
+
+    # -- admission control / drain --------------------------------------------
+
+    def reserve_admission(self, est_tokens: int) -> None:
+        """Reserve queue room for ``est_tokens`` or shed.
+
+        Raises :class:`EngineOverloaded` while draining, or when the
+        queued-but-unadmitted estimate plus ``est_tokens`` would pass the
+        budget.  The budget bounds the backlog, not a request's size: with
+        nothing queued any request ``validate`` allows is admitted, or it
+        would shed the same way on every replica.  The reservation is
+        released when the scheduler dequeues the request."""
+        with self._adm_lock:
+            if self._draining:
+                self._note_shed("draining")
+                raise EngineOverloaded(
+                    "engine is draining; retry on another replica",
+                    reason="draining",
+                )
+            budget = self._admission_budget
+            if (
+                budget
+                and self._queued_est_tokens > 0
+                and self._queued_est_tokens + est_tokens > budget
+            ):
+                self._note_shed("budget")
+                raise EngineOverloaded(
+                    f"admission queue full: {self._queued_est_tokens} "
+                    f"estimated tokens queued + {est_tokens} requested "
+                    f"> budget {budget}; retry on another replica",
+                    reason="budget",
+                )
+            self._queued_est_tokens += est_tokens
+
+    def _note_shed(self, reason: str) -> None:
+        # _adm_lock held.
+        self.shed_total += 1
+        if self.on_shed is not None:
+            self.on_shed(reason)
+
+    def _release_queued(self, req: _Request) -> None:
+        """Return a dequeued request's reservation (once)."""
+        if req.est_tokens:
+            with self._adm_lock:
+                self._queued_est_tokens -= req.est_tokens
+            req.est_tokens = 0
+
+    def begin_drain(self) -> None:
+        """Stop admissions: every later submit sheds with reason
+        "draining"; queued and in-flight requests run to completion."""
+        with self._adm_lock:
+            self._draining = True
+
+    def cancel_drain(self) -> None:
+        """Reopen admissions."""
+        with self._adm_lock:
+            self._draining = False
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def inflight(self) -> int:
+        """Submitted requests whose futures are not done, counted at the
+        future (a request moving between queue, prefill and slot never
+        drops out of the count)."""
+        with self._adm_lock:
+            return self._inflight_reqs
+
+    def drained(self) -> bool:
+        return self._draining and self.inflight() == 0
 
     def generate(
         self,
@@ -398,41 +564,51 @@ class GenerationEngine:
                 return i
         return None
 
-    def _record_tick(self, kind: str) -> None:
+    def _record_tick(self, kind: str, wall_s: float) -> None:
+        """One device dispatch of ``kind`` that took ``wall_s`` seconds."""
         self.dispatches_total[kind] = self.dispatches_total.get(kind, 0) + 1
+        if self.on_dispatch is not None:
+            self.on_dispatch(kind)
+        if self.on_tick is not None:
+            self.on_tick(kind, wall_s)
 
     def _note_ttft(self, req: _Request) -> None:
         if self.on_ttft is not None and req.t_submit > 0.0:
             self.on_ttft(time.perf_counter() - req.t_submit)
 
-    def _slot_generator(self, req: _Request) -> torch.Generator | None:
-        """The request's sampling stream: seeded from the request seed, or
-        from the boot nonce and a counter; None for a greedy request."""
+    def _note_admission_wait(self, req: _Request) -> None:
+        if self.on_admission_wait is not None and req.t_submit > 0.0:
+            self.on_admission_wait(time.perf_counter() - req.t_submit)
+
+    def _slot_key_for(self, req: _Request) -> torch.Tensor | None:
+        """The request's key ``[2]``: ``key(seed)``, or the boot key with
+        this boot's request counter folded in.  Every request advances the
+        counter, as in the reference; a greedy request's key is never
+        read, so it is not computed (None)."""
+        if req.seed is None:
+            self._seed_counter += 1
         if req.temperature <= 0:
             return None
         if req.seed is None:
-            self._seed_counter += 1
-            digest = hashlib.sha256(
-                self._boot_nonce + self._seed_counter.to_bytes(8, "little")
-            ).digest()
-            seed = int.from_bytes(digest[:8], "little") % 2**63
-        else:
-            seed = req.seed
-        gen = torch.Generator(device=self._device)
-        gen.manual_seed(seed)
-        return gen
+            return prng.fold_in(self._boot_key, self._seed_counter)
+        return prng.key(req.seed, self._device)
 
-    def _install_slot(self, slot_idx, row_logits, gen, req: _Request) -> int:
+    def _install_slot(self, slot_idx, row_logits, slot_key, req: _Request) -> int:
         """Set the slot's sampling state and draw its first token from the
-        prefill's last real row (the same rule decode uses)."""
+        prefill's last real row: split the request's key once, keep the
+        carry for decode, draw with the other half."""
         self._temps[slot_idx] = req.temperature
         self._topk[slot_idx] = req.top_k
         self._topp[slot_idx] = req.top_p
-        self._gens[slot_idx] = gen
-        first = sample_logits(
-            row_logits[None], [gen], self._temps[slot_idx:slot_idx + 1],
-            self._topk[slot_idx:slot_idx + 1], self._topp[slot_idx:slot_idx + 1],
-        )[0]
+        if slot_key is None:  # greedy: sample_logits would return the argmax
+            first = torch.argmax(row_logits.to(torch.float32))
+        else:
+            carry, use = split_keys(slot_key[None])
+            self._keys[slot_idx] = carry[0]
+            first = sample_logits(
+                row_logits[None], use, self._temps[slot_idx:slot_idx + 1],
+                self._topk[slot_idx:slot_idx + 1], self._topp[slot_idx:slot_idx + 1],
+            )[0]
         self._tokens[slot_idx, 0] = first
         return int(first)
 
@@ -442,6 +618,7 @@ class GenerationEngine:
             remaining=req.max_new_tokens,
             eos_id=req.eos_id,
             sampling=req.temperature > 0,
+            on_token=req.on_token,
             prompt_len=int(req.prompt.size),
         )
 
@@ -454,18 +631,20 @@ class GenerationEngine:
         bucket = prefill_bucket(L, self.capacity)
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :L] = req.prompt
-        first = self._device_admit(ids, slot_idx, L, self._slot_generator(req), req)
+        slot_key = self._slot_key_for(req)
+        t0 = time.perf_counter()
+        first = self._device_admit(ids, slot_idx, L, slot_key, req)
         self.prefill_forwards += 1
-        self._record_tick("prefill")
+        self._record_tick("prefill", time.perf_counter() - t0)
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
         self._record_token(slot_idx, first)
 
-    def _device_admit(self, ids, slot_idx, L, gen, req) -> int:
+    def _device_admit(self, ids, slot_idx, L, slot_key, req) -> int:
         ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
         logits, seq = llama.prefill(self._params, ids_t, self._cfg, self._dtype)
         self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
-        return self._install_slot(slot_idx, logits[0, L - 1], gen, req)
+        return self._install_slot(slot_idx, logits[0, L - 1], slot_key, req)
 
     # -- chunked prefill (one chunk shape; decode interleaves) ---------------
 
@@ -486,11 +665,11 @@ class GenerationEngine:
         logits, seq = llama.forward(self._params, ids_t, seq, self._cfg, self._dtype)
         self._seq_state = (logits[0], seq)
 
-    def _device_insert(self, slot_idx, L, gen, req, last_idx) -> int:
+    def _device_insert(self, slot_idx, L, slot_key, req, last_idx) -> int:
         last_logits, seq = self._seq_state
         self._seq_state = None
         self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
-        return self._install_slot(slot_idx, last_logits[last_idx], gen, req)
+        return self._install_slot(slot_idx, last_logits[last_idx], slot_key, req)
 
     def _chunk_tick(self) -> None:
         """Advance the in-flight chunked admission by ONE prefill chunk; on
@@ -498,9 +677,10 @@ class GenerationEngine:
         assert self._pending
         prog = self._pending[0]
         ids = prog.chunks[prog.next_idx]
+        t0 = time.perf_counter()
         self._device_chunk(ids, fresh=prog.next_idx == 0)
         self.prefill_forwards += 1
-        self._record_tick("prefill")
+        self._record_tick("prefill", time.perf_counter() - t0)
         prog.next_idx += 1
         if prog.next_idx < len(prog.chunks):
             return
@@ -510,36 +690,68 @@ class GenerationEngine:
         assert slot_idx is not None  # reserved by the admission policy
         L = int(req.prompt.size)
         C = self._prefill_chunk_size
+        slot_key = self._slot_key_for(req)
+        t0 = time.perf_counter()
         first = self._device_insert(
-            slot_idx, L, self._slot_generator(req), req,
+            slot_idx, L, slot_key, req,
             last_idx=(L - 1) - C * (len(prog.chunks) - 1),
         )
-        self._record_tick("prefill")
+        self._record_tick("prefill", time.perf_counter() - t0)
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
         self._record_token(slot_idx, first)
 
     def _record_token(self, slot_idx: int, token: int) -> None:
-        """Credit one emitted token to a slot; finish it on EOS or budget."""
+        """Credit one emitted token to a slot; finish it on EOS or budget.
+        A cancelled request (a client that went away) frees its slot
+        instead."""
         slot = self._slots[slot_idx]
         assert slot is not None
         if slot.future.cancelled():
+            self._finish(slot)
             self._slots[slot_idx] = None
             return
         slot.generated.append(token)
         slot.remaining -= 1
+        now = time.perf_counter()
+        if slot.t_last_token > 0.0 and self.on_itl is not None:
+            self.on_itl(now - slot.t_last_token)
+        slot.t_last_token = now
         self.tokens_generated += 1
+        if self.on_tokens is not None:
+            self.on_tokens(1)
+        if slot.on_token is not None:
+            try:
+                slot.on_token(token)
+            except Exception:
+                # One line, then disarm: a broken streaming client must
+                # not log a stack per token.
+                _log.exception("on_token callback failed; disabling it for "
+                               "this request")
+                slot.on_token = None
         done = slot.remaining <= 0 or (
             slot.eos_id is not None and token == slot.eos_id
         )
         if done:
+            self._finish(slot)
             _safe_resolve(slot.future, np.asarray(slot.generated, np.int32))
             self._slots[slot_idx] = None
+
+    def _finish(self, slot: _Slot) -> None:
+        if self.on_request_tokens is not None:
+            self.on_request_tokens(len(slot.generated))
+
+    def _note_step(self, active: int, wall_s: float) -> None:
+        if self.on_step is not None:
+            self.on_step(active, wall_s, self._queue.qsize(), len(self._pending))
 
     def _step(self) -> None:
         """One batched decode tick over every occupied slot."""
         active_np = np.array([s is not None for s in self._slots])
         if not active_np.any():
+            # Idle heartbeat: the occupancy gauges must not freeze at
+            # their last busy values.
+            self._note_step(0, 0.0)
             return
         # Attention window: smallest bucket covering every active row's
         # next write position (prompt + tokens emitted so far).
@@ -548,10 +760,13 @@ class GenerationEngine:
         )
         window = decode_window_bucket(needed, self.capacity)
         sampling = any(s is not None and s.sampling for s in self._slots)
+        t0 = time.perf_counter()
         self._device_step(active_np, window, sampling)
         toks = self._tokens[:, 0].cpu().numpy()
+        wall = time.perf_counter() - t0
         self.decode_forwards += 1
-        self._record_tick("decode")
+        self._record_tick("decode", wall)
+        self._note_step(int(active_np.sum()), wall)
         for i, was_active in enumerate(active_np):
             if was_active and self._slots[i] is not None:
                 self._record_token(i, int(toks[i]))
@@ -564,8 +779,10 @@ class GenerationEngine:
         )
         last = logits[:, -1, :]
         if sampling:
-            gens = [g if a else None for g, a in zip(self._gens, active_np)]
-            nxt = sample_logits(last, gens, self._temps, self._topk, self._topp)
+            # Every row's key advances once, greedy rows included, so a
+            # row's stream does not depend on its neighbours.
+            self._keys, use = split_keys(self._keys)
+            nxt = sample_logits(last, use, self._temps, self._topk, self._topp)
         else:
             nxt = torch.argmax(last, dim=-1)
         # Finished slots keep their last token so their rows stay inert.
@@ -605,6 +822,8 @@ class GenerationEngine:
                 req = self._queue.get(block=idle, timeout=1.0)
             except queue.Empty:
                 break
+            if req is not None:
+                self._release_queued(req)  # left the admission queue
             if req is None or self._stop.is_set():
                 if req is not None and not req.future.done():
                     _safe_fail(
@@ -615,6 +834,7 @@ class GenerationEngine:
                         ),
                     )
                 return False
+            self._note_admission_wait(req)
             if self._prefill_chunk_size is not None:
                 self._pending.append(
                     _PrefillProgress(req=req, chunks=self._split_chunks(req.prompt))

@@ -1,6 +1,8 @@
 """Model loading: URI -> artifact directory -> Predictor (port of the JAX
 package's ``server/loader.py``; the native ``params.npz`` + ``config.json``
-artifact of flavors ``llama-generate`` and ``bert-classifier``).
+artifact of flavors ``llama-generate`` and ``bert-classifier``, and a
+HuggingFace Llama checkpoint, bare or inside an MLflow transformers
+artifact).
 
 The artifact layout is the reference's, so an artifact written by the
 JAX package's ``save_native_model`` loads here unchanged: ``params.npz``
@@ -152,6 +154,90 @@ def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
     return _unflatten(flat)
 
 
+def _to_device(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _find_hf_checkpoint(path: Path) -> Path | None:
+    """Locate a HuggingFace checkpoint in ``path``, its ``model/`` or
+    ``pipeline/`` (MLflow's transformers flavor) or any subdirectory: a
+    directory with a ``config.json`` naming a ``model_type`` and weights
+    (a single file or a sharded checkpoint's index)."""
+    candidates = [path, path / "model", path / "pipeline"]
+    candidates += [p for p in sorted(path.iterdir()) if p.is_dir()] if path.is_dir() else []
+    seen = set()
+    for cand in candidates:
+        if cand in seen or not cand.is_dir():
+            continue
+        seen.add(cand)
+        cfg_file = cand / "config.json"
+        if not cfg_file.exists():
+            continue
+        try:
+            hf_cfg = json.loads(cfg_file.read_text())
+        except (OSError, json.JSONDecodeError):
+            continue
+        if not isinstance(hf_cfg, dict) or "model_type" not in hf_cfg:
+            continue
+        weight_markers = (
+            "pytorch_model.bin",
+            "model.safetensors",
+            "model.safetensors.index.json",
+            "pytorch_model.bin.index.json",
+        )
+        if any((cand / w).exists() for w in weight_markers):
+            return cand
+    return None
+
+
+def _load_transformers(hf_dir: Path):
+    """HF checkpoint -> (flavor, float32 params on the CPU, config, builder
+    kwargs), through ``llama.from_torch``.  ``transformers`` is imported
+    here, only when an HF checkpoint is loaded."""
+    from ..models import llama
+
+    hf_cfg = json.loads((hf_dir / "config.json").read_text())
+    model_type = hf_cfg.get("model_type")
+    if model_type == "bert":
+        raise ModelLoadError(
+            "the HF loader for bert is not yet ported (use a native artifact)"
+        )
+    if model_type != "llama":
+        raise ModelLoadError(
+            f"unsupported transformers model_type {model_type!r} (supported: llama)"
+        )
+    scaling = hf_cfg.get("rope_scaling")
+    if scaling:
+        # The port's RoPE is plain theta-based: a scaled checkpoint would
+        # serve silently degraded tokens.
+        raise ModelLoadError(
+            f"rope_scaling {scaling!r} is not supported (plain RoPE only)"
+        )
+    from transformers import LlamaForCausalLM
+
+    tm = LlamaForCausalLM.from_pretrained(hf_dir)
+    cfg = llama.LlamaConfig(
+        vocab_size=int(hf_cfg["vocab_size"]),
+        hidden_size=int(hf_cfg["hidden_size"]),
+        num_layers=int(hf_cfg["num_hidden_layers"]),
+        num_heads=int(hf_cfg["num_attention_heads"]),
+        num_kv_heads=int(hf_cfg.get("num_key_value_heads")
+                         or hf_cfg["num_attention_heads"]),
+        intermediate_size=int(hf_cfg["intermediate_size"]),
+        max_seq=int(hf_cfg.get("max_position_embeddings", 4096)),
+        rope_theta=float(hf_cfg.get("rope_theta", 10000.0)),
+        rms_eps=float(hf_cfg.get("rms_norm_eps", 1e-5)),
+    )
+    params = llama.from_torch(tm, cfg)
+    eos = hf_cfg.get("eos_token_id")
+    if isinstance(eos, list):  # some checkpoints ship a list of eos ids
+        eos = eos[0] if eos else None
+    kwargs = {"eos_id": int(eos)} if eos is not None else {}
+    return "llama-generate", params, cfg, kwargs
+
+
 def load_predictor(
     model_uri: str,
     flavor: str | None = None,
@@ -159,9 +245,12 @@ def load_predictor(
     device=None,
     dtype=torch.bfloat16,
 ) -> Predictor:
-    """Load a native artifact onto ``device`` (``cuda`` unless named).
+    """Load a native artifact, or a HuggingFace Llama checkpoint, onto
+    ``device`` (``cuda`` unless named).
 
-    Float leaves are cast to ``dtype`` (None keeps them as stored).
+    Float leaves are cast to ``dtype`` (None keeps them as stored; an HF
+    checkpoint's float32 weights are stored as bfloat16 first, as the
+    reference serves them, and ``eos_id`` comes from its config).
 
     - ``llama-generate``: ``quantize`` ``int8``/``int8kv`` turns the layer
       matmuls and the LM head into int8 leaves on the device (``int8kv``
@@ -182,10 +271,22 @@ def load_predictor(
     meta = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
     flavor = flavor or meta.get("flavor")
     if not (path / "params.npz").exists():
-        raise ModelLoadError(
-            f"{path} has no params.npz: only the native artifact is ported "
-            "(the HF loader is not yet ported)"
-        )
+        hf_dir = _find_hf_checkpoint(path)
+        if hf_dir is None:
+            raise ModelLoadError(
+                f"{path} is not a recognized artifact (no params.npz or "
+                "HuggingFace checkpoint)"
+            )
+        flavor, params, cfg, kwargs = _load_transformers(hf_dir)
+        params = _cast_floats(params, torch.bfloat16)
+        if dtype is not None:
+            params = _cast_floats(params, dtype)
+        params = _to_device(params, dev)
+        if quantize != "none":
+            params = quantize_llama(params)
+        _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
+                  flavor, hf_dir, dev, quantize)
+        return BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs)
     if flavor not in BUILDERS:
         raise ModelLoadError(
             f"flavor {flavor!r} is not yet ported (the port serves "

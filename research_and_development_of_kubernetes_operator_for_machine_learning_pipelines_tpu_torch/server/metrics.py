@@ -1,6 +1,6 @@
 """Prometheus metrics with Seldon-executor-compatible identity (port of the
 JAX package's ``server/metrics.py``, the families the V2 and /generate
-routes record).
+routes and the generation engine record).
 
 The operator's promotion gate queries these series by name
 (``clients/prom_http.py`` in the JAX package):
@@ -10,9 +10,13 @@ The operator's promotion gate queries these series by name
 - ``seldon_api_executor_server_requests_seconds_count`` with a ``code``
   label: the error rate (``code!="200"``), and ``service`` for feedback;
 
-all keyed by ``{deployment_name, predictor_name, namespace}``.  Names,
-types, label names and bucket bounds are the reference's, so the gate's
-PromQL reads a port replica unchanged.  The card's machine has no
+all keyed by ``{deployment_name, predictor_name, namespace}``.  The
+operator, the autoscaler and the router read the generation families
+(``tpumlops_ttft_seconds``, ``_itl_seconds``, ``_engine_queue_depth``,
+``_admission_wait_ms``, ``_engine_shed``, ``_cold_start_seconds``,
+``_model_ready``, ...), some through ``histogram_quantile``.  Names,
+types, label names and bucket bounds are the reference's, so its PromQL
+reads a port replica unchanged.  The card's machine has no
 ``prometheus_client``: the text exposition (format 0.0.4) is written here
 with the standard library.
 """
@@ -28,6 +32,10 @@ _LATENCY_BUCKETS = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+_DECODE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+_ADMISSION_WAIT_MS_BUCKETS = (0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
+                              2500, 5000, 10000)
+_REQUEST_TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -83,6 +91,19 @@ class Counter(_Family):
                  f"# TYPE {self.name}_total counter"]
         for key, (v,) in sorted(self._children.items()):
             lines.append(f"{self.name}_total{_labels(zip(self.label_names, key))} {_num(v)}")
+        return lines
+
+
+class Gauge(_Family):
+    def set(self, labels: dict, value: float) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._children[key] = [float(value)]
+
+    def render(self) -> list[str]:
+        lines = [f"# HELP {self.name} {self.doc}", f"# TYPE {self.name} gauge"]
+        for key, (v,) in sorted(self._children.items()):
+            lines.append(f"{self.name}{_labels(zip(self.label_names, key))} {_num(v)}")
         return lines
 
 
@@ -152,10 +173,82 @@ class ServerMetrics:
             "New input signatures seen by the engine (compilations on the "
             "reference's XLA path)",
             ident, lock)
+        # -- the generation engine's families --------------------------------
+        self.generated_tokens = Counter(
+            "tpumlops_generated_tokens",
+            "Tokens produced by the continuous-batching generation engine",
+            ident, lock)
+        self.decode_batch = Histogram(
+            "tpumlops_decode_batch_size",
+            "Active slots per continuous-batching decode step",
+            ident, _DECODE_BATCH_BUCKETS, lock)
+        self.decode_step_seconds = Histogram(
+            "tpumlops_decode_step_seconds", "Wall time of one batched decode step",
+            ident, _LATENCY_BUCKETS, lock)
+        self.engine_active_slots = Gauge(
+            "tpumlops_engine_active_slots",
+            "Occupied decode slots at the most recent engine tick", ident, lock)
+        self.engine_queue_depth = Gauge(
+            "tpumlops_engine_queue_depth",
+            "Requests queued but NOT yet admitted (excludes in-flight "
+            "admissions — see tpumlops_engine_admitting)", ident, lock)
+        self.engine_admitting = Gauge(
+            "tpumlops_engine_admitting",
+            "Admissions mid-prefill (dequeued, no first token yet)", ident, lock)
+        self.admission_wait_ms = Histogram(
+            "tpumlops_admission_wait_ms",
+            "Milliseconds a request waited in the queue before its admission began",
+            ident, _ADMISSION_WAIT_MS_BUCKETS, lock)
+        self.ttft_seconds = Histogram(
+            "tpumlops_ttft_seconds",
+            "Submit-to-first-token latency per generation request",
+            ident, _LATENCY_BUCKETS, lock)
+        self.itl_seconds = Histogram(
+            "tpumlops_itl_seconds",
+            "Inter-token latency: wall between consecutive tokens of one "
+            "request (first token excluded — that is TTFT)",
+            ident, _LATENCY_BUCKETS, lock)
+        self.request_tokens = Histogram(
+            "tpumlops_request_tokens",
+            "Tokens generated per finished request (includes cancelled "
+            "requests' partial output)",
+            ident, _REQUEST_TOKEN_BUCKETS, lock)
+        self.tick_seconds = Histogram(
+            "tpumlops_tick_seconds",
+            "Engine tick wall time by kind (decode/prefill); the port's "
+            "eager ticks read their tokens back, so each wall covers its "
+            "device time",
+            ident + ["kind"], _LATENCY_BUCKETS, lock)
+        self.engine_dispatches = Counter(
+            "tpumlops_engine_dispatches",
+            "Engine device dispatches by tick kind (decode/prefill)",
+            ident + ["op"], lock)
+        self.shed = Counter(
+            "tpumlops_engine_shed",
+            "Generation requests shed at admission (HTTP 429)",
+            ident + ["reason"], lock)
+        self.model_load_seconds = Gauge(
+            "tpumlops_model_load_seconds",
+            "Most recent model load's stage breakdown (total = wall)",
+            ident + ["stage"], lock)
+        self.cold_start_seconds = Gauge(
+            "tpumlops_cold_start_seconds",
+            "Cold-start stage walls of the most recent boot "
+            "(load/compile/first_token/total)",
+            ident + ["stage"], lock)
+        self.ready = Gauge(
+            "tpumlops_model_ready", "1 once the model is loaded and warmed",
+            ident, lock)
         self._families = (
             self.client_requests, self.server_requests, self.batch_size,
             self.queue_seconds, self.batch_run_seconds, self.pipeline_wait_seconds,
-            self.compilations,
+            self.compilations, self.generated_tokens, self.decode_batch,
+            self.decode_step_seconds, self.engine_active_slots,
+            self.engine_queue_depth, self.engine_admitting,
+            self.admission_wait_ms, self.ttft_seconds, self.itl_seconds,
+            self.request_tokens, self.tick_seconds, self.engine_dispatches,
+            self.shed, self.model_load_seconds, self.cold_start_seconds,
+            self.ready,
         )
 
     def observe_request(self, seconds: float, code: int = 200,
@@ -176,6 +269,54 @@ class ServerMetrics:
 
     def inc_compilations(self) -> None:
         self.compilations.inc(self.identity)
+
+    def observe_decode_step(self, active_slots: int, seconds: float,
+                            queue_depth: int = 0, admitting: int = 0) -> None:
+        # active_slots == 0 is the engine's idle heartbeat: refresh the
+        # occupancy gauges, keep the per-tick histograms tick-only.
+        if active_slots > 0:
+            self.decode_batch.observe(self.identity, active_slots)
+            self.decode_step_seconds.observe(self.identity, seconds)
+        self.engine_active_slots.set(self.identity, active_slots)
+        self.engine_queue_depth.set(self.identity, queue_depth)
+        self.engine_admitting.set(self.identity, admitting)
+
+    def inc_generated_tokens(self, n: int = 1) -> None:
+        self.generated_tokens.inc(self.identity, n)
+
+    def inc_shed(self, reason: str) -> None:
+        self.shed.inc({**self.identity, "reason": reason})
+
+    def observe_admission_wait(self, seconds: float) -> None:
+        self.admission_wait_ms.observe(self.identity, seconds * 1000)
+
+    def observe_ttft(self, seconds: float) -> None:
+        self.ttft_seconds.observe(self.identity, seconds)
+
+    def observe_itl(self, seconds: float) -> None:
+        self.itl_seconds.observe(self.identity, seconds)
+
+    def observe_request_tokens(self, n: int) -> None:
+        self.request_tokens.observe(self.identity, n)
+
+    def observe_tick(self, kind: str, seconds: float) -> None:
+        self.tick_seconds.observe({**self.identity, "kind": kind}, seconds)
+
+    def inc_dispatch(self, op: str) -> None:
+        self.engine_dispatches.inc({**self.identity, "op": op})
+
+    def observe_model_load(self, stats: dict) -> None:
+        """A load's stage walls: ``wall_s`` is stage "total"."""
+        if stats.get("wall_s") is not None:
+            self.model_load_seconds.set({**self.identity, "stage": "total"},
+                                        float(stats["wall_s"]))
+
+    def observe_cold_start(self, stage: str, seconds: float) -> None:
+        self.cold_start_seconds.set({**self.identity, "stage": stage},
+                                    max(0.0, float(seconds)))
+
+    def set_ready(self, ready: bool) -> None:
+        self.ready.set(self.identity, 1.0 if ready else 0.0)
 
     def render(self) -> bytes:
         lines: list[str] = []

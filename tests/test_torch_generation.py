@@ -8,12 +8,15 @@ slots, so slots are reused).  References:
   stepped per token, with the decode attention through the Pallas kernel
   (interpret mode) and through the XLA chain;
 
-and one JAX ``GenerationEngine`` (no warmup) for the EOS behaviour.
-Greedy tokens must be equal.  Sampling has no bitwise reference (the
-port's streams are ``torch.Generator``s, not threefry), so a sampled
-token must lie inside the JAX top-k/top-p kept set and a seeded request
-must repeat itself.
+and JAX ``GenerationEngine``s (no warmup) for the EOS behaviour and for
+seeded sampling.  Greedy tokens must be equal, and so must seeded sampled
+tokens: the port draws from the reference's threefry streams with its key
+discipline (``key(seed)``, one split at admission and one a sampling
+tick), so a seeded request replays the reference token for token, alone,
+beside other requests and through chunked prefill.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +29,9 @@ from research_and_development_of_kubernetes_operator_for_machine_learning_pipeli
 )
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
     llama as T,
+)
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
+    prng as TP,
 )
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
     sampling as TS,
@@ -48,6 +54,11 @@ PROMPTS = [
     ([10, 20, 30, 40, 50, 60, 70], 5),
     ([2, 3], 7),  # 5 requests > 3 slots: forces slot reuse
 ]
+
+
+def _keys(seeds) -> torch.Tensor:
+    """A batch of keys ``[B, 2]``, one a seed."""
+    return torch.stack([TP.key(s) for s in seeds])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -242,7 +253,6 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 @pytest.mark.parametrize("option,value", [
     ("decode_steps", 4), ("unified_step", True), ("prefill_batch", 2),
     ("preemption", True), ("slo_class", "batch"), ("mesh_shape", {"tp": 2}),
-    ("admission_queue_budget", 64),
 ])
 def test_unported_engine_options_raise(tiny, option, value):
     _, tcfg, _, tp = tiny
@@ -277,8 +287,8 @@ def test_sampled_tokens_stay_in_the_reference_kept_set():
     args = (torch.from_numpy(temp), torch.from_numpy(top_k), torch.from_numpy(top_p))
     seen = [set() for _ in range(B)]
     for seed in range(60):
-        gens = [torch.Generator().manual_seed(seed * B + i) for i in range(B)]
-        toks = TS.sample_logits(torch.from_numpy(logits), gens, *args).tolist()
+        keys = _keys([seed * B + i for i in range(B)])
+        toks = TS.sample_logits(torch.from_numpy(logits), keys, *args).tolist()
         for i, t in enumerate(toks):
             assert t in kept[i], (i, t)
             seen[i].add(t)
@@ -288,11 +298,175 @@ def test_sampled_tokens_stay_in_the_reference_kept_set():
                                   jnp.asarray(top_p))[0])
     assert seen[0] == {greedy}
     assert len(seen[2]) > 1  # row 2 really samples
-    again = TS.sample_logits(torch.from_numpy(logits),
-                             [torch.Generator().manual_seed(i) for i in range(B)], *args)
-    first = TS.sample_logits(torch.from_numpy(logits),
-                             [torch.Generator().manual_seed(i) for i in range(B)], *args)
+    again = TS.sample_logits(torch.from_numpy(logits), _keys(range(B)), *args)
+    first = TS.sample_logits(torch.from_numpy(logits), _keys(range(B)), *args)
     assert again.tolist() == first.tolist()
+
+
+SAMPLED = [
+    ([5, 9, 2], 12, dict(temperature=0.9, top_k=20, top_p=0.95, seed=7)),
+    ([7, 1, 4, 8, 3], 10, dict(temperature=1.3, top_p=0.8, seed=2**32 + 5)),
+    ([42], 9, {}),  # a greedy neighbour
+    ([10, 20, 30, 40, 50, 60, 70, 1, 2, 3], 8, dict(temperature=0.7, seed=123)),
+    ([2, 3], 11, dict(temperature=1.0, top_k=5, seed=0)),
+]
+
+
+def _as_served(kw: dict) -> dict:
+    """A request's options as a JAX replica reads them.  It serves with
+    64-bit integers disabled, where ``jax.random.key`` keeps a seed's low
+    32 bits; this module runs JAX with them enabled for f64, so the JAX
+    engine gets the seed reduced as its serving configuration reduces it
+    (``test_torch_prng.py`` holds ``key(seed)`` against that rule for the
+    same seed)."""
+    return {**kw, "seed": kw["seed"] % 2**32} if "seed" in kw else kw
+
+
+@pytest.fixture(scope="module")
+def sampled_refs(tiny):
+    """The JAX engine's tokens for SAMPLED, per prefill mode: the first
+    request alone, then all five submitted together (three slots)."""
+    cfg, _, jp, _ = tiny
+    refs = {}
+    for chunk in (None, 8):
+        engine = JaxEngine(jp, cfg, max_slots=3, dtype=jnp.float64, prefill_chunk=chunk)
+        engine.start(warmup=False)
+        try:
+            p, n, kw = SAMPLED[0]
+            alone = engine.submit(p, n, **_as_served(kw)).result(timeout=120).tolist()
+            futs = [engine.submit(p, n, **_as_served(kw)) for p, n, kw in SAMPLED]
+            refs[chunk] = {"single": [alone],
+                           "several": [f.result(timeout=120).tolist() for f in futs]}
+        finally:
+            engine.shutdown()
+    return refs
+
+
+@pytest.mark.parametrize("mode", ["single", "several"])
+@pytest.mark.parametrize("chunk", [None, 8], ids=["whole", "chunked"])
+def test_seeded_sampling_matches_the_jax_engine(tiny, sampled_refs, chunk, mode):
+    _, tcfg, _, tp = tiny
+    reqs = SAMPLED[:1] if mode == "single" else SAMPLED
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=3, dtype=torch.float64,
+                                 device="cpu", prefill_chunk=chunk)
+    engine.start()
+    try:
+        futs = [engine.submit(p, n, **kw) for p, n, kw in reqs]
+        outs = [f.result(timeout=120).tolist() for f in futs]
+    finally:
+        engine.shutdown()
+    assert outs == sampled_refs[chunk][mode]
+
+
+def test_unseeded_streams_differ_across_boots_and_repeat_within_one(tiny):
+    """Unseeded requests draw from ``fold_in(boot_key, n)``: another boot
+    (another boot key) draws another stream; the same boot with its
+    counter rewound draws the same one."""
+    _, tcfg, _, tp = tiny
+    kw = dict(temperature=1.0)
+    outs = []
+    for _boot in range(2):
+        engine = TG.GenerationEngine(tp, tcfg, max_slots=2, dtype=torch.float64,
+                                     device="cpu")
+        engine.start()
+        try:
+            first = engine.generate([5, 9, 2], 16, **kw).tolist()
+            second = engine.generate([5, 9, 2], 16, **kw).tolist()
+            engine._seed_counter = 0
+            replay = engine.generate([5, 9, 2], 16, **kw).tolist()
+        finally:
+            engine.shutdown()
+        assert replay == first
+        assert second != first  # the counter moves on within a boot
+        outs.append(first)
+    assert outs[0] != outs[1]
+
+
+def test_admission_queue_budget_sheds_past_the_backlog(tiny):
+    """The budget bounds queued-but-unadmitted estimated tokens: the
+    request that would pass it sheds synchronously (nothing enqueued), an
+    oversized request on an empty queue is admitted, and a drain sheds
+    with its own reason while what was admitted finishes."""
+    _, tcfg, _, tp = tiny
+    sheds = []
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=1, dtype=torch.float64,
+                                 device="cpu", admission_queue_budget=48,
+                                 on_shed=sheds.append)
+    with pytest.raises(ValueError, match="admission_queue_budget"):
+        TG.GenerationEngine(tp, tcfg, device="cpu", admission_queue_budget=-1)
+    f1 = engine.submit([5, 9, 2, 7], 20)  # not started: stays queued (est 24)
+    f2 = engine.submit([5, 9, 2, 7], 20)  # 24 + 24 <= 48
+    assert engine.inflight() == 2
+    with pytest.raises(TG.EngineOverloaded) as err:
+        engine.submit([5, 9, 2, 7], 10)  # 48 + 14 > 48
+    assert err.value.reason == "budget" and err.value.retry_after_s >= 1
+    assert engine._queue.qsize() == 2 and engine.shed_total == 1
+    engine.start()
+    try:
+        assert f1.result(timeout=60).size == f2.result(timeout=60).size == 20
+        # Empty queue: a request whose estimate alone passes the budget
+        # (4 + 56 > 48) is admitted.
+        assert engine.submit([5, 9, 2, 7], 56).result(timeout=60).size == 56
+        slow = engine.submit([5, 9, 2, 7], 40)
+        engine.begin_drain()
+        with pytest.raises(TG.EngineOverloaded) as err:
+            engine.submit([1], 2)
+        assert err.value.reason == "draining"
+        assert sheds == ["budget", "draining"]
+        assert slow.result(timeout=60).size == 40  # admitted work finishes
+        deadline = time.monotonic() + 10
+        while not engine.drained() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert engine.drained() and engine._queued_est_tokens == 0
+        engine.cancel_drain()
+        assert not engine.draining and engine.generate([5, 9, 2], 2).size == 2
+    finally:
+        engine.shutdown()
+
+
+def test_admission_ledger_holds_under_concurrent_submits(tiny):
+    """Many threads submitting at once (switch interval shortened): the
+    queued estimate is exactly the admitted requests' and every submit is
+    either queued or shed, none lost to a racing update."""
+    import sys
+    import threading
+
+    _, tcfg, _, tp = tiny
+    engine = TG.GenerationEngine(tp, tcfg, max_slots=1, dtype=torch.float64,
+                                 device="cpu", admission_queue_budget=600)
+    admitted, shed = [], []
+    lock = threading.Lock()
+
+    def worker(i):
+        for j in range(20):
+            n = 1 + (i + j) % 7
+            try:
+                engine.submit([5, 9], n)
+            except TG.EngineOverloaded:
+                with lock:
+                    shed.append(n)
+            else:
+                with lock:
+                    admitted.append(n)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert len(admitted) + len(shed) == 16 * 20 and shed
+        assert engine._queued_est_tokens == sum(2 + n for n in admitted) <= 600
+        assert engine.shed_total == len(shed)
+        assert engine.inflight() == len(admitted)
+    finally:
+        sys.setswitchinterval(old)
+        engine.shutdown()
+    # Shutdown failed every queued future and returned its reservation.
+    assert engine.inflight() == 0 and engine._queued_est_tokens == 0
 
 
 def test_seeded_request_repeats_itself(tiny):

@@ -4,7 +4,7 @@ A tiny Llama is written by the JAX package's ``save_native_model`` with
 bfloat16 leaves (stored as raw ``|V2``), loaded by both packages' loaders,
 and must generate the same greedy tokens (the port in f64 on the CPU).
 The standard-library HTTP server is then driven on port 0 in both request
-forms, with its health routes and its 400s.
+forms and as a token stream, with its health routes and its 400s.
 """
 
 import json
@@ -196,6 +196,25 @@ def test_seeded_rows_are_reproducible_and_distinct(server):
     assert a["outputs"][0]["data"] != a["outputs"][1]["data"]  # seed + i per row
 
 
+def test_stream_sends_the_reference_tokens_as_events(server, refs):
+    """``"stream": true`` answers Server-Sent Events over a chunked body,
+    one event a token of the JAX package's greedy output, then the final
+    event with the whole sequence."""
+    expected, _ = refs
+    prompt, n = PROMPTS[1]
+    req = urllib.request.Request(
+        server + "/v2/models/tiny/generate",
+        data=json.dumps({"prompt_ids": prompt, "max_new_tokens": n, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": "s-1"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200 and r.headers["Transfer-Encoding"] == "chunked"
+        assert r.headers["X-Request-Id"] == "s-1"
+        events = [json.loads(line[len(b"data: "):]) for line in r
+                  if line.startswith(b"data: ")]
+    assert events[:-1] == [{"index": i, "token": t} for i, t in enumerate(expected[1])]
+    assert events[-1] == {"done": True, "output_ids": expected[1]}
+
+
 def test_health_routes(server):
     assert _call(server + "/v2/health/live") == (200, {"live": True, "lifecycle": "ready"})
     assert _call(server + "/v2/health/ready") == (200, {"ready": True, "lifecycle": "ready"})
@@ -206,7 +225,6 @@ def test_health_routes(server):
     ("/v2/models/tiny/generate", {"inputs": [{"name": "prompt_ids", "shape": [1, 2],
                                               "data": [1, 2]}],
                                   "parameters": {"temperatur": 1.0}}, 400, "unknown key"),
-    ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "stream": True}, 400, "not yet ported"),
     ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "debug": True}, 400, "not yet ported"),
     ("/v2/models/tiny/generate", {"prompt_ids": []}, 400, "empty"),
     ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "max_new_tokens": 100}, 400, "capacity"),

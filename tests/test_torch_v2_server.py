@@ -490,8 +490,17 @@ def test_metrics_count_responses_and_match_the_reference_families(server):
         else:
             fam_samples = fam.samples
         assert shape(fam_samples) == shape(want_samples), name
+    # The generation engine's families are registered on every server, as
+    # the reference registers them (no samples on a classifier).
     assert set(got) == {
         "seldon_api_executor_client_requests_seconds",
         "seldon_api_executor_server_requests_seconds", "tpumlops_batch_size",
         "tpumlops_queue_seconds", "tpumlops_batch_run_seconds",
-        "tpumlops_pipeline_wait_seconds", "tpumlops_compilations"}
+        "tpumlops_pipeline_wait_seconds", "tpumlops_compilations",
+        "tpumlops_generated_tokens", "tpumlops_decode_batch_size",
+        "tpumlops_decode_step_seconds", "tpumlops_engine_active_slots",
+        "tpumlops_engine_queue_depth", "tpumlops_engine_admitting",
+        "tpumlops_admission_wait_ms", "tpumlops_ttft_seconds", "tpumlops_itl_seconds",
+        "tpumlops_request_tokens", "tpumlops_tick_seconds", "tpumlops_engine_dispatches",
+        "tpumlops_engine_shed", "tpumlops_model_load_seconds",
+        "tpumlops_cold_start_seconds", "tpumlops_model_ready"}
