@@ -16,6 +16,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    every split boundary, W = 997 of a 1000-wide window, W = 97 of 100,
    16-byte and 4-byte row loads, G = 8 and a length-0 row with several
    splits, a split past W), within 1e-4 absolute + 1e-4 relative in f32;
+   the same decode kernel over a bf16 window (the dense cache's instance,
+   no scales) at the same bucket ladder and split edges (4-byte rows from
+   130-wide buffers), within the same tolerance, timed at Llama-2-7B's
+   decode shape beside its plain chain and SDPA over the window;
    RMSNorm at H = 4096 and rows 1, 4, 32, 256, 512 in bf16 within one
    bf16 ulp, f32 x within 1e-6, a misaligned view that must take the
    scalar instance and a 32768-wide row that must take the cluster
@@ -25,9 +29,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (one row masked everywhere), the same from strided views of one
    projection buffer, B8/S512, causal and kv_len forms at D=128 S=T=1024,
    S=T=50, D=16 and D=32 at S=T=200 with a bias, causal at S=T=200, f32
-   I/O and kv_len 0 (every row the mean of V), within FLASH_TOL, and a q
-   that is not 16-byte aligned (a ValueError).  Times each kernel, its
-   plain version and, where one exists, the one PyTorch call for the
+   I/O and kv_len 0 (every row the mean of V), Llama-2-7B's prefill
+   shapes (a whole 1024-token causal prompt; 256-token chunks at cache
+   offsets 256, 768 and 3840 read through strided views of a
+   position-major [1, 4096, NKV, 128] buffer; grouped heads at G = 4 and
+   8; S = 100 at offset 300; each in bf16 and f32), within FLASH_TOL, a q
+   that is not 16-byte aligned and a chunk with q_offset + S > T (each a
+   ValueError).  Times each kernel, its plain version and, where one
+   exists, the one PyTorch call for the
    function (``F.rms_norm``, SDPA for flash attention), each with the
    profiler's device time beside its CUDA-event time; decode attention
    also over a ladder of windows, with its split count.
@@ -47,10 +56,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    parity assert and its launch counts.
 4. Loader: writes a tiny native artifact, starts ``python -m
    <port>.server --quantize int8kv`` as a subprocess and calls /generate.
-5. Serving at full width: Llama-2-7B (all 32 layers, random bf16 weights
-   from a seed, int8 weights and int8 KV cache) behind the same
-   ``build_server`` over HTTP. First the port's threefry (``models/prng``)
-   on the card against the same code on the CPU at seeds 0, 7, 2^31-1,
+5. Serving at full width: Llama-2-7B (all 32 layers), one draw of random
+   bf16 weights from a seed serving all three quantize modes behind the
+   same ``build_server`` over HTTP.  5b: ``quantize: none`` (bf16
+   weights, bf16 KV cache, whole-prompt prefill), then ``quantize: int8``
+   (the same tree quantized; bf16 KV cache, prefill chunks of 256, so
+   chunks 2+ run flash at a query offset): each answers one request
+   alone, four concurrent ones (17/130/300/700-token prompts, one
+   sampled) and a seeded stream equal to the same request without stream;
+   flash launches = 32 x prefill forwards, decode attention = 32 x decode
+   dispatches, RMSNorm = 65 x forwards over every request; tok/s, TTFT,
+   peak memory, token agreement and the device busy share of one request.
+   Then int8 weights with the int8 KV cache (int8kv).  First the port's
+   threefry (``models/prng``) on the card against the same code on the
+   CPU at seeds 0, 7, 2^31-1,
    2^32+5 and 2^63-1 ([4, 32000] draws): keys, splits, folds and bits
    identical, uniforms bit-equal, gumbels within 2 f32 ulp of max(|g|, 1).
    Then one request alone, four concurrent ones (one sampled); a seeded
@@ -70,8 +89,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    long prompt fills, where a request over the budget is a 429 ``budget``
    while a stream runs and an oversized request on the idle engine is
    admitted.  The decode-attention launches must equal 32 x the engines'
-   decode dispatches and the RMSNorm launches 65 x their forwards, over
-   every request of the phase.  Prints tokens/s, TTFT, the token
+   decode dispatches, the flash launches 32 x their prefill forwards and
+   the RMSNorm launches 65 x their forwards, over every request of the
+   phase.  Prints tokens/s, TTFT, the token
    agreement of a greedy request with a teacher-forced forward of its own
    output, what the threefry draw and the whole sampling step add to a
    decode tick at V = 32000 (device ms, launches, host ms), beside the
@@ -233,18 +253,18 @@ def phase_device() -> str:
 
 def _kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled kernel template instance (``bf16``/``f32``
-    for the type, the integer arguments in order)."""
+    /``i8`` for the type, the integer arguments in order)."""
     m = re.search(r"(?<=\d)([a-z]+(?:_[a-z]+)*_kernel(?:_[a-z0-9]+)?)I"
-                  r"((?:13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f)+)E", mangled)
+                  r"((?:13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f|a)+)E", mangled)
     if not m:
         return mangled
     args = []
-    for a in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f", m.group(2)):
+    for a in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]-?\d+E|f|a", m.group(2)):
         if a.startswith("S"):  # a repeated type
             args.append(next(x for x in reversed(args) if x in ("bf16", "f32")))
         else:
             args.append("bf16" if a.startswith("13") else "f32" if a == "f"
-                        else re.sub(r"\D", "", a))
+                        else "i8" if a == "a" else re.sub(r"\D", "", a))
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -293,18 +313,25 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _da_inputs(B, NKV, G, D, T, layers, dtype, gen, row=None):
+def _da_inputs(B, NKV, G, D, T, layers, dtype, gen, row=None, dense=False):
     """Decode-attention inputs whose K/V windows are strided views of a
     head-major cache buffer [layers, B, NKV, T, D] (layer 0 is checked).
-    ``row``: the cache rows are ``[..., :D]`` slices of rows ``row`` wide."""
+    ``row``: the cache rows are ``[..., :D]`` slices of rows ``row`` wide.
+    ``dense``: the cache is of q's type (the bf16 ragged cache), with no
+    scales (ks and vs None)."""
     import torch
 
     dev = "cuda"
     shape = (layers, B, NKV, T, row or D)
-    k8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
-    v8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
-    ks = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
-    vs = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
+    if dense:
+        k8, v8 = (torch.randn(shape, generator=gen, device=dev).to(dtype)[..., :D]
+                  for _ in range(2))
+        ks = vs = None
+    else:
+        k8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
+        v8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)[..., :D]
+        ks = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
+        vs = torch.rand((layers, B, NKV, T, 1), generator=gen, device=dev) * 0.01 + 1e-3
     q = torch.randn((B, NKV, G, D), generator=gen, device=dev).to(dtype)
     k_self = torch.randn((B, NKV, 1, D), generator=gen, device=dev).to(dtype)
     v_self = torch.randn((B, NKV, 1, D), generator=gen, device=dev).to(dtype)
@@ -319,10 +346,10 @@ def _mask(lengths, W):
     return torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, :]
 
 
-def _da_bytes_flops(B, NKV, G, D, W, itemsize):
+def _da_bytes_flops(B, NKV, G, D, W, itemsize, dense=False):
     nbytes = (B * NKV * G * D * itemsize          # q
-              + 2 * B * NKV * W * D               # k8, v8
-              + 2 * B * NKV * W * 4               # ks, vs
+              + 2 * B * NKV * W * D * (itemsize if dense else 1)  # k, v
+              + (0 if dense else 2 * B * NKV * W * 4)             # ks, vs
               + 2 * B * NKV * D * itemsize        # k_self, v_self
               + B * W * 4                         # mask
               + B * NKV * G * D * 4)              # out
@@ -337,10 +364,15 @@ def _da_check(da, inputs, W, lengths, what, fn=None) -> float:
     import torch
 
     q, k8, ks, v8, vs, k_self, v_self = inputs
-    args = (q, k8[0, :, :, :W], ks[0, :, :, :W], v8[0, :, :, :W], vs[0, :, :, :W],
-            k_self, v_self, _mask(lengths, W))
-    out = (fn or da.decode_attention)(*args)
-    ref = da.decode_attention_reference(*args)
+    if ks is None:  # the dense window of q's type
+        args = (q, k8[0, :, :, :W], v8[0, :, :, :W], k_self, v_self, _mask(lengths, W))
+        out = (fn or da.decode_attention_dense)(*args)
+        ref = da.decode_attention_dense_reference(*args)
+    else:
+        args = (q, k8[0, :, :, :W], ks[0, :, :, :W], v8[0, :, :, :W], vs[0, :, :, :W],
+                k_self, v_self, _mask(lengths, W))
+        out = (fn or da.decode_attention)(*args)
+        ref = da.decode_attention_reference(*args)
     torch.cuda.synchronize()
     err = (out - ref).abs()
     if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
@@ -354,19 +386,21 @@ def _da_check(da, inputs, W, lengths, what, fn=None) -> float:
     return float(err.max())
 
 
-def _da_split_checks(da) -> dict:
+def _da_split_checks(da, dense=False) -> dict:
     """The split kernel where it can go wrong: lengths on and beside every
     split boundary, a window that is not a multiple of the split width,
     both load widths, G = 8 and a length-0 row with splits > 1, and a
-    split with no position (past W)."""
+    split with no position (past W).  ``dense``: the same cases over a
+    window of q's type (4-byte rows from 130-wide buffers)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     D, bf = 128, torch.bfloat16
+    narrow = 130 if dense else 132  # a row width whose rows are 4-byte, not 16-byte, aligned
     out = {}
 
     def run(what, B, NKV, G, W, T, lengths_all, vec, row=None, dtype=bf):
-        inputs = _da_inputs(B, NKV, G, D, T, 1, dtype, gen, row=row)
+        inputs = _da_inputs(B, NKV, G, D, T, 1, dtype, gen, row=row, dense=dense)
         k8w, v8w = inputs[1][0, :, :, :W], inputs[3][0, :, :, :W]
         if da.load_width(k8w, v8w) != vec:
             raise AssertionError(f"{what}: load width {da.load_width(k8w, v8w)}, expected {vec}")
@@ -393,11 +427,11 @@ def _da_split_checks(da) -> dict:
     # W not a multiple of the split width, sliced from a wider window.
     run("ragged_w997_of_1000", 4, 32, 1, 997, 1000, boundaries(4, 32, 997), 16)
     run("w97_of_100", 4, 32, 1, 97, 100, [0, 96, 97, 1, 50, 48, 49, 2], 16)
-    # 4-byte rows: [..., :128] of a 132-wide buffer.
-    run("vec4_w768", 4, 32, 1, 768, 800, boundaries(4, 32, 768), 4, row=132)
-    run("vec4_w97_of_100", 4, 32, 1, 97, 100, [0, 96, 97, 1], 4, row=132)
+    # 4-byte rows: [..., :128] of a 132-wide (dense: 130-wide) buffer.
+    run("vec4_w768", 4, 32, 1, 768, 800, boundaries(4, 32, 768), 4, row=narrow)
+    run("vec4_w97_of_100", 4, 32, 1, 97, 100, [0, 96, 97, 1], 4, row=narrow)
     # G = 8 with splits > 1, a length-0 row among them; both load widths.
-    for what, row, vec in (("g8_split", None, 16), ("g8_split_vec4", 132, 4)):
+    for what, row, vec in (("g8_split", None, 16), ("g8_split_vec4", narrow, 4)):
         if run(what, 2, 8, 8, 768, 768, boundaries(2, 8, 768)[:6] + [0, 65], vec,
                row=row, dtype=torch.float32) < 2:
             raise AssertionError(f"{what} took 1 split")
@@ -518,6 +552,84 @@ def phase_decode_attention(da, buckets) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "device_ms": device_ms,
             "splits": splits}
+
+
+def phase_decode_attention_dense(da, buckets) -> dict:
+    """The dense-window instance (bf16 cache, no scales) against its plain
+    version: the window-bucket ladder at G = 1, 2, 4, 8, the split edges
+    of the int8 checks, and its time at Llama-2-7B's decode shape beside
+    its bound, the plain chain and SDPA over the same window."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    T, D, bf = 4096, 128, torch.bfloat16
+    worst, checks = 0.0, 0
+    for (NKV, G) in ((32, 1), (16, 2), (8, 4), (8, 8)):
+        for B in (1, 4):
+            inputs = _da_inputs(B, NKV, G, D, T, 1, bf, gen, dense=True)
+            for wi, W in enumerate(buckets):
+                lengths = [(0, W // 2, W)[wi % 3]] if B == 1 else [0, W // 2, W, max(W - 1, 0)]
+                worst = max(worst, _da_check(da, inputs, W, lengths,
+                                             f"dense B={B} NKV={NKV} G={G}"))
+                checks += 1
+            del inputs
+    split_checks = _da_split_checks(da, dense=True)
+    for r in split_checks.values():
+        worst = max(worst, r["max_abs_err"])
+        checks += r["checks"]
+    log(f"decode attention, bf16 window: {checks} checks over windows {buckets[0]}.."
+        f"{buckets[-1]}, G in (1, 2, 4, 8), max_abs_err {worst:.3e} (tol {DA_TOL} abs + "
+        f"{DA_TOL} rel)")
+    log(f"  split checks (shape [B, NKV, G, D, W], splits, load width): "
+        + "; ".join(f"{k} {v['shape']} {v['splits']}x{v['split_len']} vec{v['vec']}"
+                    for k, v in split_checks.items()))
+
+    # Llama-2-7B's decode shape, the window rotating over 8 layers of one
+    # bf16 cache (400 MB > the 50 MB L2) as consecutive layers do.
+    B, NKV, G, W, layers = 4, 32, 1, 768, 8
+    q, k, _, v, _, k_self, v_self = _da_inputs(B, NKV, G, D, T, layers, bf, gen, dense=True)
+    lengths = [W // 4, W // 2, 3 * W // 4, W]
+    mask = _mask(lengths, W)
+    views = [(q, k[l, :, :, :W], v[l, :, :, :W], k_self, v_self, mask) for l in range(layers)]
+    # SDPA over the same window with the self row joined outside the timed
+    # region: q [B, H, 1, D], K/V [B, NKV, W + 1, D], a boolean mask.
+    valid = torch.cat([mask[:, 0] == 0, torch.ones((B, 1), dtype=torch.bool, device="cuda")],
+                      dim=1)[:, None, None, :]
+    lib_views = [(q.reshape(B, NKV * G, 1, D), torch.cat([k[l, :, :, :W], k_self], dim=2),
+                  torch.cat([v[l, :, :, :W], v_self], dim=2)) for l in range(layers)]
+    it = {"i": 0}
+
+    def rot(f, vs):
+        def call():
+            it["i"] += 1
+            return f(*vs[it["i"] % layers])
+        return call
+
+    kernel = rot(da.decode_attention_dense, views)
+    plain = rot(da.decode_attention_dense_reference, views)
+    lib = rot(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=valid, **({"enable_gqa": True} if G > 1 else {})), lib_views)
+    splits = da.num_splits(B, NKV, W)
+    ms = cuda_time_ms(kernel, iters=200)
+    device_ms = kernel_device_ms(kernel, "decode_attention_kernel")
+    plain_ms = cuda_time_ms(plain, iters=50)
+    library_ms = cuda_time_ms(lib, iters=200)
+    library_device_ms = device_ms_per_call(lib)
+    nbytes, flops = _da_bytes_flops(B, NKV, G, D, W, 2, dense=True)
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+    log(f"decode attention, bf16 window B=4 NKV=32 G=1 D=128 W=768 ({splits} splits): "
+        f"kernel {ms:.4f} ms a call (device {device_ms} ms), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms (device {library_device_ms} ms), bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    res = {"checks": checks, "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "splits": splits, "shape": [B, NKV, G, D, W],
+           "split_checks": split_checks}
+    DETAIL["decode_attention_dense"] = res
+    return {k: res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms", "bound_by", "shape")}
 
 
 def _bf16_ulps(out, ref):
@@ -658,14 +770,23 @@ def phase_rmsnorm(rn) -> dict:
 
 
 def _flash_case(gen, B, H, S, T, D, dtype, *, bias_lengths=None, causal=False,
-                kv_len=None, strided=False):
+                kv_len=None, strided=False, q_offset=0, nkv=None, cache=None):
     """Inputs of one flash case: q/k/v [B, H, S|T, D] (strided: sliced from
     one [B, S, 3*H*D] projection buffer as BERT's views are), an optional
-    f32 key bias from per-row lengths (0 = every key masked)."""
+    f32 key bias from per-row lengths (0 = every key masked).  ``cache``:
+    Llama's chunked prefill, q a [B, H, S, D] view of a [B, S, H, D]
+    buffer and k/v [B, NKV, T, D] views of the first T positions of a
+    position-major [B, cache, NKV, D] buffer; the chunk's queries sit at
+    key positions q_offset + i."""
     import torch
 
     dev = "cuda"
-    if strided:
+    if cache is not None:
+        nkv = nkv or H
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn((B, cache, nkv, D), generator=gen, device=dev).to(dtype)
+                [:, :T].transpose(1, 2) for _ in range(2))
+    elif strided:
         buf = torch.randn((B, S, 3 * H * D), generator=gen, device=dev).to(dtype)
         q, k, v = (buf[:, :, i * H * D:(i + 1) * H * D].view(B, S, H, D).transpose(1, 2)
                    for i in range(3))
@@ -678,27 +799,29 @@ def _flash_case(gen, B, H, S, T, D, dtype, *, bias_lengths=None, causal=False,
         lens = torch.as_tensor(bias_lengths, device=dev)
         bias = torch.where(torch.arange(T, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
         bias = bias.to(torch.float32)
-    return {"q": q, "k": k, "v": v, "bias": bias, "causal": causal, "kv_len": kv_len}
+    return {"q": q, "k": k, "v": v, "bias": bias, "causal": causal, "kv_len": kv_len,
+            "q_offset": q_offset}
 
 
 def _flash_work(c) -> tuple[float, float]:
-    """Bytes (each input read once, the output written once) and flops
-    (4 * D a (query, key) pair that the masks leave: kv_len and causal
-    pairs are skipped work, a bias is not)."""
+    """Bytes (each input read once, the output written once; K/V at their
+    own NKV heads) and flops (4 * D a (query, key) pair that the masks
+    leave: kv_len and causal pairs, the latter from each query's position
+    q_offset + i, are skipped work, a bias is not)."""
     q, k = c["q"], c["k"]
     B, H, S, D = q.shape
-    T = k.shape[2]
+    NKV, T = k.shape[1], k.shape[2]
     kv = T if c["kv_len"] is None else min(c["kv_len"], T)
     if kv <= 0:  # every key masked: the softmax still runs over all T keys
         kv, causal = T, False
     else:
         causal = c["causal"]
     if causal:
-        pairs = sum(min(i + 1, kv) for i in range(S))
+        pairs = sum(min(c["q_offset"] + i + 1, kv) for i in range(S))
     else:
         pairs = S * kv
     size = q.element_size()
-    nbytes = 2 * B * H * S * D * size + 2 * B * H * T * D * size
+    nbytes = 2 * B * H * S * D * size + 2 * B * NKV * T * D * size
     if c["bias"] is not None:
         nbytes += B * T * 4
     return nbytes, 4.0 * B * H * pairs * D
@@ -737,13 +860,33 @@ def phase_flash_attention(fa) -> dict:
         # of V over the T keys, as attention_reference gives
         "f32_kv_len0": dict(shape=(2, 3, 70, 130, 64, f32), kv_len=0),
     }
+    # Llama-2-7B prefill (H32, D128): a whole 1024-token prompt bucket, then
+    # 256-token chunks at cache offsets, each read through strided views of
+    # a position-major [1, 4096, NKV, 128] cache buffer (kv_len = offset +
+    # 256); grouped heads at G = 4 and 8; an S off the 64-row tiles at an
+    # offset; f32 I/O at the same shapes.
+    for dt, tag in ((bf, ""), (f32, "f32_")):
+        cases[f"{tag}llama_prompt_s1024"] = dict(shape=(1, 32, 1024, 1024, 128, dt),
+                                                 causal=True, kv_len=1024, cache=1024)
+        for off in (256, 768, 3840):
+            cases[f"{tag}llama_chunk_off{off}"] = dict(
+                shape=(1, 32, 256, off + 256, 128, dt), causal=True, kv_len=off + 256,
+                q_offset=off, cache=4096)
+        for nkv in (8, 4):
+            cases[f"{tag}gqa_g{32 // nkv}_chunk_off768"] = dict(
+                shape=(1, 32, 256, 1024, 128, dt), causal=True, kv_len=1024, q_offset=768,
+                nkv=nkv, cache=4096)
+        cases[f"{tag}llama_chunk_s100_off300"] = dict(
+            shape=(1, 32, 100, 400, 128, dt), causal=True, kv_len=400, q_offset=300,
+            cache=4096)
     results = {}
     worst = 0.0
     for name, spec in cases.items():
         B, H, S, T, D, dtype = spec.pop("shape")
         c = _flash_case(gen, B, H, S, T, D, dtype, **spec)
         args = (c["q"], c["k"], c["v"])
-        kw = dict(causal=c["causal"], kv_len=c["kv_len"], bias=c["bias"])
+        kw = dict(causal=c["causal"], kv_len=c["kv_len"], bias=c["bias"],
+                  q_offset=c["q_offset"])
         out = fa.flash_attention(*args, **kw)
         ref = fa.flash_attention_reference(*(x.float() for x in args), **kw)
         torch.cuda.synchronize()
@@ -766,14 +909,19 @@ def phase_flash_attention(fa) -> dict:
         ms = cuda_time_ms(fn, iters=100)
         device_ms = kernel_device_ms(fn, "flash_attention_kernel")
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(*args, **kw), iters=20)
+        sdpa_kw = {"is_causal": c["causal"]}
         if c["bias"] is not None:
-            mask = c["bias"][:, None, None, :].to(dtype)
-        elif c["kv_len"] is not None:
-            mask = (torch.arange(T, device="cuda") < c["kv_len"])[None, None, None, :]
-        else:
-            mask = None
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            *args, attn_mask=mask, is_causal=c["causal"])
+            sdpa_kw["attn_mask"] = c["bias"][:, None, None, :].to(dtype)
+        elif c["q_offset"]:  # an explicit boolean mask: key <= offset + query
+            pos = torch.arange(T, device="cuda")
+            qpos = c["q_offset"] + torch.arange(S, device="cuda")
+            sdpa_kw = {"attn_mask": (pos[None, :] <= qpos[:, None])[None, None]
+                       & (pos < c["kv_len"])[None, None, None, :]}
+        elif c["kv_len"] is not None and c["kv_len"] < T:
+            sdpa_kw["attn_mask"] = (torch.arange(T, device="cuda") < c["kv_len"])[None, None, None, :]
+        if c["k"].shape[1] != H:
+            sdpa_kw["enable_gqa"] = True
+        sdpa = lambda: F.scaled_dot_product_attention(*args, **sdpa_kw)  # noqa: E731
         library_ms = cuda_time_ms(sdpa, iters=100)
         library_device_ms = device_ms_per_call(sdpa)
         nbytes, flops = _flash_work(c)
@@ -808,6 +956,19 @@ def phase_flash_attention(fa) -> dict:
     if fa.launches != before:
         raise AssertionError("a refused flash call counted a launch")
     log("flash: a q that is not 16-byte aligned raises ValueError")
+    # A chunk whose positions run past the keys: q_offset + S > T.
+    c = _flash_case(gen, 1, 32, 256, 1024, 128, bf, q_offset=800, cache=4096)
+    before = fa.launches
+    try:
+        fa.flash_attention(c["q"], c["k"], c["v"], causal=True, q_offset=800)
+    except ValueError as e:
+        if "outside" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash attention took q_offset + S > T")
+    if fa.launches != before:
+        raise AssertionError("a refused flash call counted a launch")
+    log("flash: q_offset 800 + S 256 over T 1024 raises ValueError")
     DETAIL["flash_attention"] = results
     head = results["bert_b32_s128_bias"]
     return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -815,7 +976,11 @@ def phase_flash_attention(fa) -> dict:
             "library_ms": head["library_ms"], "device_ms": head["device_ms"],
             "library_device_ms": head["library_device_ms"],
             "f32_cuda_core_bound_ms": head["f32_cuda_core_bound_ms"],
-            "shape": head["shape"]}
+            "shape": head["shape"],
+            "llama": {k: {f: results[k][f] for f in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+                for k in ("llama_prompt_s1024", "llama_chunk_off768")}}
 
 
 def _dm_case(dm, gen, B, NKV, D, W, lengths, qdtype=None, pad_w=None, copies=1):
@@ -1389,13 +1554,14 @@ def _percentile_ms(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs) * 1e3, q))
 
 
-def phase_serve_7b(da, rn, smi: str) -> dict:
+def phase_serve_7b(da, rn, fa, smi: str, params) -> dict:
+    """Llama-2-7B int8kv (``params``: the int8 weight tree) behind
+    ``build_server``."""
     import numpy as np
     import torch
     from importlib import import_module
 
     llama = import_module(f"{PKG}.models.llama")
-    quant = import_module(f"{PKG}.models.quantization")
     registry = import_module(f"{PKG}.models.registry")
     prng = import_module(f"{PKG}.models.prng")
     sampling = import_module(f"{PKG}.models.sampling")
@@ -1403,17 +1569,12 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
 
     prng_res = _prng_checks(prng)
     cfg = llama.LlamaConfig.llama2_7b()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = quant.quantize_llama(llama.init(gen, cfg, dtype=torch.bfloat16, device="cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    log(f"7B: random bf16 weights quantized to int8 on the card in "
-        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
     config = app.ServerConfig(model_name="llama2-7b", host="127.0.0.1", port=0,
                               quantize="int8kv", max_slots=4, prefill_chunk=256,
                               device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     srv = app.build_server(predictor, config)
     engine = srv.engine
     ttfts: list[float] = []
@@ -1437,6 +1598,7 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
         dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
         da.launches = 0
         rn.launches = 0
+        fa.launches = 0
 
         t_single = time.perf_counter()
         single_prompt = rng.integers(1, cfg.vocab_size, 5).tolist()
@@ -1455,7 +1617,7 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
         conc_toks = [_check_outputs(r, [32], cfg.vocab_size)[0] for r in resps]
         torch.cuda.synchronize()
 
-        da_launches, rn_launches = da.launches, rn.launches
+        da_launches, rn_launches, fa_launches = da.launches, rn.launches, fa.launches
         decodes = engine.decode_forwards - dec0
         forwards = decodes + engine.prefill_forwards - pre0
         disp = {k: engine.dispatches_total.get(k, 0) - disp0.get(k, 0)
@@ -1470,9 +1632,14 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
             raise AssertionError(
                 f"rmsnorm launched {rn_launches} times for {forwards} forwards; "
                 f"expected {2 * cfg.num_layers + 1} x {forwards}")
+        if fa_launches != cfg.num_layers * (forwards - decodes):
+            raise AssertionError(
+                f"flash attention launched {fa_launches} times for {forwards - decodes} "
+                f"prefill forwards; expected {cfg.num_layers} x {forwards - decodes}")
         log(f"7B serve: {decodes} decode dispatches, {forwards - decodes} prefill "
             f"forwards; decode attention {da_launches} launches (= {cfg.num_layers} x "
-            f"{decodes}), rmsnorm {rn_launches} (= {2 * cfg.num_layers + 1} x {forwards})")
+            f"{decodes}), rmsnorm {rn_launches} (= {2 * cfg.num_layers + 1} x {forwards}), "
+            f"flash attention {fa_launches} (= {cfg.num_layers} x {forwards - decodes})")
 
         # A seeded sampled request streamed, then the same request not
         # streamed: the same tokens, by the event indices and the done event.
@@ -1646,10 +1813,15 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
                                  f"{all_decodes} decode dispatches")
         if rn.launches != (2 * cfg.num_layers + 1) * all_forwards:
             raise AssertionError(f"rmsnorm launched {rn.launches} times for {all_forwards} forwards")
-        da_launches, rn_launches = da.launches, rn.launches
+        all_prefills = all_forwards - all_decodes
+        if fa.launches != cfg.num_layers * all_prefills:
+            raise AssertionError(f"flash attention launched {fa.launches} times for "
+                                 f"{all_prefills} prefill forwards")
+        da_launches, rn_launches, fa_launches = da.launches, rn.launches, fa.launches
         log(f"7B serve, every request of the phase: decode attention {da_launches} launches "
             f"(= {cfg.num_layers} x {all_decodes}), rmsnorm {rn_launches} "
-            f"(= {2 * cfg.num_layers + 1} x {all_forwards})")
+            f"(= {2 * cfg.num_layers + 1} x {all_forwards}), flash attention {fa_launches} "
+            f"(= {cfg.num_layers} x {all_prefills})")
         srv2.shutdown_all()
         th2.join(timeout=30)
         srv2 = None
@@ -1698,6 +1870,7 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
             "dispatches": disp,
             "da_launches": da_launches,
             "rn_launches": rn_launches,
+            "fa_launches": fa_launches,
             "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "single_tokens": single_toks,
             "prng": prng_res,
@@ -1727,6 +1900,148 @@ def phase_serve_7b(da, rn, smi: str) -> dict:
         if srv2 is not None:
             srv2.shutdown_all()
             th2.join(timeout=30)
+        srv.shutdown_all()
+        th.join(timeout=30)
+
+
+def phase_serve_7b_dense(da, rn, fa, smi: str, params, quantize: str,
+                         prefill_chunk: int | None) -> dict:
+    """Llama-2-7B on the dense bf16 KV cache (``quantize`` none: bf16
+    weights; int8: int8 weights) behind ``build_server``: one request
+    alone, four concurrent ones (17/130/300/700-token prompts, one
+    sampled), a seeded stream against the same request without stream,
+    the launch counts over every request, a greedy request's agreement
+    with a teacher-forced forward and the device busy share of one
+    request."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    tag = f"7B {quantize} (bf16 cache, prefill_chunk {prefill_chunk})"
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    config = app.ServerConfig(model_name="llama2-7b", host="127.0.0.1", port=0,
+                              quantize=quantize, max_slots=4, prefill_chunk=prefill_chunk,
+                              device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = app.build_server(predictor, config)
+    engine = srv.engine
+    if engine._kv_quant or not isinstance(engine._cache, llama.RaggedKVCache):
+        raise AssertionError(f"{tag}: the engine did not take the dense cache")
+    if engine._cache.k.dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: cache dtype {engine._cache.k.dtype}")
+    ttfts: list[float] = []
+    metric_ttft = engine.on_ttft
+    engine.on_ttft = lambda s_: (ttfts.append(s_), metric_ttft(s_))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    path = "/v2/models/llama2-7b/generate"
+    url = f"http://127.0.0.1:{port}{path}"
+    rng = np.random.default_rng(17)
+    try:
+        _post(url, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up, not measured
+        ttfts.clear()
+        dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
+        disp0 = dict(engine.dispatches_total)
+        da.launches = rn.launches = fa.launches = 0
+
+        t_single = time.perf_counter()
+        single_prompt = rng.integers(1, cfg.vocab_size, 5).tolist()
+        single = _post(url, {"prompt_ids": single_prompt, "max_new_tokens": 40})
+        single_s = time.perf_counter() - t_single
+        _check_outputs(single, [40], cfg.vocab_size)
+
+        lens = (17, 130, 300, 700)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+        bodies = [{"prompt_ids": p, "max_new_tokens": 32} for p in prompts]
+        bodies[1].update(temperature=0.8, top_k=40, top_p=0.95, seed=7)
+        t_conc = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            resps = list(pool.map(lambda b: _post(url, b), bodies))
+        conc_s = time.perf_counter() - t_conc
+        conc_toks = [_check_outputs(r, [32], cfg.vocab_size)[0] for r in resps]
+
+        seeded = {"prompt_ids": rng.integers(1, cfg.vocab_size, 24).tolist(),
+                  "max_new_tokens": 32, "temperature": 0.8, "top_k": 50, "top_p": 0.95,
+                  "seed": 1234}
+        streamed = _sse(port, path, seeded)
+        plain = _check_outputs(_post(url, seeded), [32], cfg.vocab_size)[0]
+        if streamed["tokens"] != plain:
+            raise AssertionError(f"{tag}: streamed tokens {streamed['tokens'][:8]}... differ "
+                                 f"from the answer without stream {plain[:8]}...")
+        torch.cuda.synchronize()
+
+        da_launches, rn_launches, fa_launches = da.launches, rn.launches, fa.launches
+        decodes = engine.decode_forwards - dec0
+        prefills = engine.prefill_forwards - pre0
+        disp = {k: engine.dispatches_total.get(k, 0) - disp0.get(k, 0)
+                for k in engine.dispatches_total}
+        L = cfg.num_layers
+        if disp.get("decode", 0) != decodes or decodes == 0 or prefills == 0:
+            raise AssertionError(f"{tag}: dispatches {disp}, {decodes} decodes, "
+                                 f"{prefills} prefills")
+        if da_launches != L * decodes:
+            raise AssertionError(f"{tag}: decode attention launched {da_launches} times for "
+                                 f"{decodes} decode dispatches")
+        if fa_launches != L * prefills:
+            raise AssertionError(f"{tag}: flash attention launched {fa_launches} times for "
+                                 f"{prefills} prefill forwards")
+        if rn_launches != (2 * L + 1) * (decodes + prefills):
+            raise AssertionError(f"{tag}: rmsnorm launched {rn_launches} times for "
+                                 f"{decodes + prefills} forwards")
+        log(f"{tag}: {decodes} decode dispatches, {prefills} prefill forwards; decode "
+            f"attention {da_launches} launches (= {L} x {decodes}), flash attention "
+            f"{fa_launches} (= {L} x {prefills}), rmsnorm {rn_launches} (= {2 * L + 1} x "
+            f"{decodes + prefills}); the seeded stream equals the answer without stream")
+        max_memory_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        # Teacher-forced agreement of a greedy request with its own output.
+        p, o = prompts[2], conc_toks[2]
+        ids = torch.tensor([p + o[:-1]], dtype=torch.int64, device="cuda")
+        logits, _ = llama.prefill(params, ids, cfg, torch.bfloat16)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: teacher-forced logits are not finite")
+        pred = torch.argmax(logits[0, len(p) - 1:], dim=-1).tolist()
+        agreement = float(np.mean([a == b for a, b in zip(pred, o)]))
+        del logits
+
+        # Device busy share of one 5 + 16-token request (as phase 5).
+        body16 = {"prompt_ids": single_prompt, "max_new_tokens": 16}
+        t_plain = time.perf_counter()
+        _post(url, body16)
+        plain_wall_ms = (time.perf_counter() - t_plain) * 1e3
+        prof, wall_ms = profile_device(lambda: _post(url, body16), iters=1)
+        busy_ms = sum(prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1])[:8]
+        res = {
+            "quantize": quantize, "prefill_chunk": prefill_chunk,
+            "single_request_s": single_s, "single_tokens_per_s": 40 / single_s,
+            "concurrent_s": conc_s, "concurrent_tokens_per_s": 32 * len(lens) / conc_s,
+            "ttft_s": list(ttfts)[:5], "stream_ttft_ms": (streamed["times"][0]
+                                                         - streamed["t_send"]) * 1e3,
+            "token_agreement": agreement, "decode_dispatches": decodes,
+            "prefill_forwards": prefills, "da_launches": da_launches,
+            "fa_launches": fa_launches, "rn_launches": rn_launches,
+            "max_memory_gib": max_memory_gib, "profile_busy_ms": busy_ms,
+            "unprofiled_wall_ms": plain_wall_ms, "profile_wall_ms": wall_ms,
+            "idle_share": 1 - busy_ms / plain_wall_ms, "profile_top": top,
+        }
+        log(f"{tag}: single request 5+40 tokens {40 / single_s:.2f} tok/s; 4 concurrent "
+            f"(17/130/300/700 + 32) {32 * len(lens) / conc_s:.2f} tok/s; TTFT s "
+            f"{[round(t, 4) for t in res['ttft_s']]}; token_agreement {agreement:.3f}; peak "
+            f"{max_memory_gib:.2f} GiB; one 5+16 request: device busy {busy_ms:.1f} of "
+            f"{plain_wall_ms:.1f} ms (idle share {res['idle_share']:.3f}) on {smi}")
+        for name, ms_ in top[:6]:
+            log(f"  {ms_:9.3f} ms  {name[:110]}")
+        DETAIL[f"serve_7b_{quantize}"] = res
+        return res
+    finally:
         srv.shutdown_all()
         th.join(timeout=30)
 
@@ -1960,12 +2275,32 @@ def main() -> int:
     buckets = gen_mod.decode_window_buckets(4096)
     fa = import_module(f"{PKG}.ops.flash_attention")
     da_res = phase_decode_attention(da, buckets)
+    da_res["dense"] = phase_decode_attention_dense(da, buckets)
     rn_res = phase_rmsnorm(rn)
     fa_res = phase_flash_attention(fa)
     dm = import_module(f"{PKG}.ops.dmajor_attention")
     dm_res = phase_dmajor_attention(dm, da)
     phase_loader_subprocess()
-    serve = phase_serve_7b(da, rn, smi)
+    # One draw of Llama-2-7B's weights serves all three quantize modes.
+    llama = import_module(f"{PKG}.models.llama")
+    quant = import_module(f"{PKG}.models.quantization")
+    cfg7 = llama.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg7,
+                        dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"7B: random bf16 weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    dense = {"none": phase_serve_7b_dense(da, rn, fa, smi, params, "none", None)}
+    t0 = time.perf_counter()
+    params = quant.quantize_llama(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"7B: quantized to int8 on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    dense["int8"] = phase_serve_7b_dense(da, rn, fa, smi, params, "int8", 256)
+    serve = phase_serve_7b(da, rn, fa, smi, params)
+    del params
+    torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
@@ -1979,15 +2314,18 @@ def main() -> int:
          "source": f"{PKG}/csrc/decode_attention.cu",
          "replaces": f"{jax_pkg}/ops/decode_attention.py:52",
          "also_replaces": f"{jax_pkg}/ops/decode_attention.py:173",
-         "launches": serve["da_launches"], **da_res},
+         "launches": serve["da_launches"] + sum(r["da_launches"] for r in dense.values()),
+         **da_res},
         {"name": "rmsnorm", "route": "cuda",
          "source": f"{PKG}/csrc/rmsnorm.cu",
          "replaces": f"{jax_pkg}/ops/rmsnorm.py:24",
-         "launches": serve["rn_launches"], **rn_res},
+         "launches": serve["rn_launches"] + sum(r["rn_launches"] for r in dense.values()),
+         **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
          "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
-         "launches": sum(r["flash_launches"] for r in bert.values()), **fa_res},
+         "launches": (sum(r["flash_launches"] for r in bert.values()) + serve["fa_launches"]
+                      + sum(r["fa_launches"] for r in dense.values())), **fa_res},
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},

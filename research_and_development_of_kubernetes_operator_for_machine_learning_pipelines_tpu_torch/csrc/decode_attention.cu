@@ -1,4 +1,4 @@
-// Fused int8-KV decode attention for Hopper (sm_90a), plain C interface.
+// Fused decode attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas kernels `_decode_attn_kernel_mxu` (line 52, its
 // pallas_call at 114) and `_decode_attn_kernel_vpu` (line 173, pallas_call
@@ -6,21 +6,27 @@
 // single-token attention over an int8 KV window, with the per-(position,
 // head) f32 scales folded into the score and probability rows, a strict
 // additive mask, and the current token's exact K/V joined into the
-// softmax without a concat.
+// softmax without a concat.  The same kernel, instanced on the cache's
+// element type, runs the dense window of the bf16 (or f32) cache: the XLA
+// chain of the JAX package's models/llama.py:611-637, which reaches no
+// Pallas kernel there.
 //
 //   q       [B, NKV, G, D]  f32 or bf16, contiguous
-//   k8, v8  [B, NKV, W, D]  int8, any batch/head/position strides, D dense
-//   ks, vs  [B, NKV, W, 1]  f32, any batch/head/position strides
+//   k8, v8  [B, NKV, W, D]  int8, or q's type (the dense cache), any
+//                           batch/head/position strides, D dense
+//   ks, vs  [B, NKV, W, 1]  f32, any batch/head/position strides (int8
+//                           only; the dense cache has no scales)
 //   k_self  [B, NKV, 1, D]  same type as q, contiguous
 //   v_self  [B, NKV, 1, D]
 //   mask    [B, 1, W]       f32 additive bias, W dense
 //   out     [B, NKV, G, D]  f32, contiguous
 //
 // Bound on the H100: bytes.  Per (slot, head) the kernel reads the W x D
-// int8 K and V rows once (2 * W * D bytes) and does ~4 * G * W * D flops:
-// at G <= 8 that is < 16 flops a byte, far under the ~295 a byte where the
-// tensor cores would become the limit.  At Llama-2-7B's 4 slots x 32 heads
-// x W = 768 the bytes take 7.8 us.
+// int8 K and V rows once (2 * W * D bytes; 2 * W * D * 2 in bf16) and does
+// ~4 * G * W * D flops: at G <= 8 that is < 16 flops a byte, far under the
+// ~295 a byte where the tensor cores would become the limit.  At
+// Llama-2-7B's 4 slots x 32 heads x W = 768 the bytes take 7.8 us (15.3
+// in bf16).
 //
 // Design (flash-decoding).  To reach that bound the card needs many bytes
 // in flight, so the window is split:
@@ -33,16 +39,21 @@
 //   a block past W owns none and contributes nothing.
 // - Wide loads.  A lane reads VEC bytes of a cache row: 16 (an `int4`)
 //   when the base and every stride of k8 and v8 are 16-byte aligned, as
-//   the head-major cache [L, B, NKV, T, D] always is, else 4.  D / VEC
-//   lanes share a row; a block reads 8 warps x 32 / (D / VEC) rows a
-//   round, 2 rounds unrolled, with every load of both rounds issued before
-//   their arithmetic.  VEC is a template parameter the wrapper picks
-//   explicitly.
+//   the head-major cache [L, B, NKV, T, D] always is, else 4.  That is
+//   E = VEC / sizeof(element) elements (16 int8 or 8 bf16 in 16 bytes), so
+//   D / E lanes share a row (8 at int8 and 16 at bf16 for D = 128); where
+//   that is more than 32 (4-byte bf16 or f32 loads at D = 128) a warp
+//   takes the row and each lane D / (32 E) loads of it.  A block reads
+//   8 warps x 32 / (D / E) rows a round, 2 rounds unrolled, with every load
+//   of both rounds issued before their arithmetic: the same 32 bytes in
+//   flight a lane in every instance.  VEC is a template parameter the
+//   wrapper picks explicitly.
 // - Two phases per split, not a per-position online softmax.  Phase 1:
 //   every row's score, (q * scale) . k8 reduced over the row's lanes by
-//   shuffles, times ks, plus the mask, goes to shared memory.  Then one
-//   block max, exp and the sum (p * vs replaces the score in place).
-//   Phase 2: P . V over the split's V rows, each lane accumulating its VEC
+//   shuffles, times ks (int8), plus the mask, goes to shared memory.  Then
+//   one block max, exp and the sum (p * vs, or p, replaces the score in
+//   place).
+//   Phase 2: P . V over the split's V rows, each lane accumulating its E
 //   columns, then a reduction over the rows of a warp (shuffles) and over
 //   the warps (shared memory).  No dependent shuffle -> exp -> rescale
 //   chain per position remains.
@@ -78,23 +89,42 @@ constexpr int kSmemNoOptIn = 48 * 1024;  // bytes a block may use without opting
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// VEC int8 of a cache row, as VEC / 4 words.
-template <int VEC> struct Row { int w[VEC / 4]; };
+// VEC bytes of a cache row, as VEC / 4 words.
+template <int VEC> struct Row { unsigned w[VEC / 4]; };
 
-__device__ __forceinline__ void load_row(const int8_t* p, Row<16>& r) {
+template <typename C>
+__device__ __forceinline__ void load_row(const C* p, Row<16>& r) {
   const int4 x = __ldg(reinterpret_cast<const int4*>(p));
   r.w[0] = x.x; r.w[1] = x.y; r.w[2] = x.z; r.w[3] = x.w;
 }
-__device__ __forceinline__ void load_row(const int8_t* p, Row<4>& r) {
-  r.w[0] = __ldg(reinterpret_cast<const int*>(p));
+template <typename C>
+__device__ __forceinline__ void load_row(const C* p, Row<4>& r) {
+  r.w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
 }
 
-// Element e of a row (byte e of the little-endian words), sign-extended.
-template <int VEC>
-__device__ __forceinline__ float elem(const Row<VEC>& r, int e) {
-  const unsigned x = (unsigned)r.w[e / 4];
-  return (float)((int)(x << (24 - 8 * (e % 4))) >> 24);
-}
+// The cache's element types: element e of a row's words, as f32, and
+// whether per-(position, head) scales come with it.
+template <typename C> struct Cache;
+template <> struct Cache<int8_t> {
+  static constexpr bool kScaled = true;
+  template <int VEC>
+  __device__ static float get(const Row<VEC>& r, int e) {  // byte e, sign-extended
+    return (float)((int)(r.w[e / 4] << (24 - 8 * (e % 4))) >> 24);
+  }
+};
+template <> struct Cache<__nv_bfloat16> {
+  static constexpr bool kScaled = false;
+  template <int VEC>
+  __device__ static float get(const Row<VEC>& r, int e) {  // half e: its bits are f32's high half
+    const unsigned x = r.w[e / 2];
+    return __uint_as_float((e & 1) ? (x & 0xffff0000u) : (x << 16));
+  }
+};
+template <> struct Cache<float> {
+  static constexpr bool kScaled = false;
+  template <int VEC>
+  __device__ static float get(const Row<VEC>& r, int e) { return __uint_as_float(r.w[e]); }
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -123,20 +153,24 @@ __device__ __forceinline__ void self_scores(const T* qh, const T* kself, int G, 
 
 // G = 1 (Llama-2-7B) keeps to 64 registers, so 4 blocks fit an SM and a
 // grid of ~4 x 132 blocks runs as one wave; G = 2 keeps to 128 (2 blocks);
-// larger G needs its registers for q (G x VEC floats a lane).
-template <typename T, int G, int VEC>
+// larger G needs its registers for q (G x E floats a lane).  T: q's type;
+// C: the cache's element (int8 with scales, or T).
+template <typename T, typename C, int G, int VEC>
 __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_attention_kernel(
     const T* __restrict__ q,
-    const int8_t* __restrict__ k8, long long k_sb, long long k_sh, long long k_sw,
+    const C* __restrict__ k8, long long k_sb, long long k_sh, long long k_sw,
     const float* __restrict__ ks, long long ks_sb, long long ks_sh, long long ks_sw,
-    const int8_t* __restrict__ v8, long long v_sb, long long v_sh, long long v_sw,
+    const C* __restrict__ v8, long long v_sb, long long v_sh, long long v_sw,
     const float* __restrict__ vs, long long vs_sb, long long vs_sh, long long vs_sw,
     const T* __restrict__ k_self, const T* __restrict__ v_self,
     const float* __restrict__ mask, long long m_sb,
     float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
     int nkv, int W, int D, int chunk, int splits, float scale) {
+  constexpr int E = VEC / (int)sizeof(C);                  // elements a load
+  constexpr int NCH = kMaxD / (32 * E) > 1 ? kMaxD / (32 * E) : 1;  // most loads a lane a row
+  constexpr bool kScaled = Cache<C>::kScaled;
   extern __shared__ float smem[];
-  float* sm_s = smem;                    // [G][chunk]: scores, then p * vs
+  float* sm_s = smem;                    // [G][chunk]: scores, then p (* vs)
   float* sm_acc = smem + G * chunk;      // [kWarps][G][D]: per-warp P . V
   __shared__ float sm_red[kWarps][G];
   __shared__ float sm_self[G], sm_m[G], sm_l[G];
@@ -150,43 +184,56 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int lpr = D / VEC;               // lanes per row: 1..32
-  const int sub = lane % lpr;            // this lane's VEC columns of a row
+  const int row_lanes = D / E;           // loads a row: 1..64
+  const int lpr = min(row_lanes, 32);    // lanes per row: 1..32
+  const int nch = NCH == 1 ? 1 : row_lanes / lpr;  // loads a lane a row: 1..NCH
+  const int sub = lane % lpr;            // this lane's columns: (c * lpr + sub) * E + [0, E)
   const int round_rows = kWarps * (32 / lpr);
   const int my_row = warp * (32 / lpr) + lane / lpr;  // row within a round
 
   const T* qh = q + (long long)bn * G * D;
-  float qr[G][VEC];
+  float qr[G][NCH * E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] = to_f32(qh[g * D + sub * VEC + e]) * scale;
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qr[g][c * E + e] = c < nch ? to_f32(qh[g * D + (c * lpr + sub) * E + e]) * scale : 0.f;
+      }
+    }
   }
   if (splits == 1) self_scores(qh, k_self + (long long)bn * D, G, D, scale, sm_self);
 
-  const int8_t* kb = k8 + (long long)b * k_sb + (long long)n * k_sh + sub * VEC;
-  const int8_t* vb = v8 + (long long)b * v_sb + (long long)n * v_sh + sub * VEC;
-  const float* ksb = ks + (long long)b * ks_sb + (long long)n * ks_sh;
-  const float* vsb = vs + (long long)b * vs_sb + (long long)n * vs_sh;
+  const C* kb = k8 + (long long)b * k_sb + (long long)n * k_sh + sub * E;
+  const C* vb = v8 + (long long)b * v_sb + (long long)n * v_sh + sub * E;
+  const float* ksb = kScaled ? ks + (long long)b * ks_sb + (long long)n * ks_sh : nullptr;
+  const float* vsb = kScaled ? vs + (long long)b * vs_sb + (long long)n * vs_sh : nullptr;
   const float* mrow = mask + (long long)b * m_sb;
 
   // Phase 1: scores.  Loop bounds are block-uniform, so every shuffle has
   // the whole warp; a lane past the split's end works on zeros.
   for (int base = 0; base < len; base += kUnroll * round_rows) {
-    Row<VEC> kr[kUnroll];
+    Row<VEC> kr[kUnroll][NCH];
     float ksv[kUnroll], mk[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = base + u * round_rows + my_row;
       const int p = p0 + i;
 #pragma unroll
-      for (int j = 0; j < VEC / 4; ++j) kr[u].w[j] = 0;
+      for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+        for (int j = 0; j < VEC / 4; ++j) kr[u][c].w[j] = 0;
+      }
       ksv[u] = 0.f;
       mk[u] = 0.f;
       if (i < len) {
-        load_row(kb + (long long)p * k_sw, kr[u]);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          if (c < nch) load_row(kb + (long long)p * k_sw + c * lpr * E, kr[u][c]);
+        }
         if (sub == 0) {
-          ksv[u] = __ldg(ksb + (long long)p * ks_sw);
+          if (kScaled) ksv[u] = __ldg(ksb + (long long)p * ks_sw);
           mk[u] = __ldg(mrow + p);
         }
       }
@@ -194,22 +241,25 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = base + u * round_rows + my_row;
-      float kf[VEC];
+      float kf[NCH * E];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = elem(kr[u], e);
+      for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kf[c * E + e] = Cache<C>::get(kr[u][c], e);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s += qr[g][e] * kf[e];
+        for (int e = 0; e < NCH * E; ++e) s += qr[g][e] * kf[e];
         for (int off = lpr / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (sub == 0 && i < len) sm_s[g * chunk + i] = s * ksv[u] + mk[u];
+        if (sub == 0 && i < len) sm_s[g * chunk + i] = kScaled ? s * ksv[u] + mk[u] : s + mk[u];
       }
     }
   }
   __syncthreads();
 
-  // Softmax over the split: the block max, then p * vs in place and the sum.
+  // Softmax over the split: the block max, then p (* vs) in place and the sum.
   float m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -232,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
     for (int i = tid; i < len; i += kThreads) {
       const float p = expf(sm_s[g * chunk + i] - m[g]);
       x += p;
-      sm_s[g * chunk + i] = p * __ldg(vsb + (long long)(p0 + i) * vs_sw);
+      sm_s[g * chunk + i] = kScaled ? p * __ldg(vsb + (long long)(p0 + i) * vs_sw) : p;
     }
     x = warp_sum(x);
     if (lane == 0) sm_red[warp][g] = x;
@@ -249,21 +299,24 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
     }
   }
 
-  // Phase 2: P . V, each lane accumulating its VEC columns over its rows.
-  float acc[G][VEC];
+  // Phase 2: P . V, each lane accumulating its columns over its rows.
+  float acc[G][NCH * E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < NCH * E; ++e) acc[g][e] = 0.f;
   }
   for (int base = 0; base < len; base += kUnroll * round_rows) {
-    Row<VEC> vr[kUnroll];
+    Row<VEC> vr[kUnroll][NCH];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = base + u * round_rows + my_row;
 #pragma unroll
-      for (int j = 0; j < VEC / 4; ++j) vr[u].w[j] = 0;
-      if (i < len) load_row(vb + (long long)(p0 + i) * v_sw, vr[u]);
+      for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+        for (int j = 0; j < VEC / 4; ++j) vr[u][c].w[j] = 0;
+        if (i < len && c < nch) load_row(vb + (long long)(p0 + i) * v_sw + c * lpr * E, vr[u][c]);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -273,7 +326,10 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
         for (int g = 0; g < G; ++g) {
           const float pv = sm_s[g * chunk + i];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] += pv * elem(vr[u], e);
+          for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][c * E + e] += pv * Cache<C>::get(vr[u][c], e);
+          }
         }
       }
     }
@@ -283,14 +339,21 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+      for (int e = 0; e < NCH * E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
     }
   }
   if (lane < lpr) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[(warp * G + g) * D + sub * VEC + e] = acc[g][e];
+      for (int c = 0; c < NCH; ++c) {
+        if (c < nch) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            sm_acc[(warp * G + g) * D + (c * lpr + sub) * E + e] = acc[g][c * E + e];
+          }
+        }
+      }
     }
   }
   __syncthreads();
@@ -362,10 +425,10 @@ struct Args {
   float scale;
 };
 
-template <typename T, int G, int VEC>
+template <typename T, typename C, int G, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = ((size_t)G * a.chunk + (size_t)kWarps * G * a.D) * sizeof(float);
-  auto kernel = decode_attention_kernel<T, G, VEC>;
+  auto kernel = decode_attention_kernel<T, C, G, VEC>;
   if (smem > kSmemNoOptIn) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -376,9 +439,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   float* part_ml = part_acc ? part_acc + slots * a.splits * G * a.D : nullptr;
   kernel<<<(unsigned)(slots * a.splits), kThreads, smem, stream>>>(
       static_cast<const T*>(a.q),
-      static_cast<const int8_t*>(a.k8), a.k_s[0], a.k_s[1], a.k_s[2],
+      static_cast<const C*>(a.k8), a.k_s[0], a.k_s[1], a.k_s[2],
       static_cast<const float*>(a.ks), a.ks_s[0], a.ks_s[1], a.ks_s[2],
-      static_cast<const int8_t*>(a.v8), a.v_s[0], a.v_s[1], a.v_s[2],
+      static_cast<const C*>(a.v8), a.v_s[0], a.v_s[1], a.v_s[2],
       static_cast<const float*>(a.vs), a.vs_s[0], a.vs_s[1], a.vs_s[2],
       static_cast<const T*>(a.k_self), static_cast<const T*>(a.v_self),
       static_cast<const float*>(a.mask), a.m_sb,
@@ -393,35 +456,37 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, typename C, int VEC>
 cudaError_t by_group(int G, const Args& a, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<T, 1, VEC>(a, st);
-    case 2: return launch<T, 2, VEC>(a, st);
-    case 4: return launch<T, 4, VEC>(a, st);
-    case 8: return launch<T, 8, VEC>(a, st);
+    case 1: return launch<T, C, 1, VEC>(a, st);
+    case 2: return launch<T, C, 2, VEC>(a, st);
+    case 4: return launch<T, C, 4, VEC>(a, st);
+    case 8: return launch<T, C, 8, VEC>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t by_vec(int vec, int G, const Args& a, cudaStream_t st) {
-  if (vec == 16) return by_group<T, 16>(G, a, st);
-  if (vec == 4) return by_group<T, 4>(G, a, st);
+  if (vec == 16) return by_group<T, C, 16>(G, a, st);
+  if (vec == 4) return by_group<T, C, 4>(G, a, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_self and v_self).  vec: the
-// bytes a lane loads of a cache row, 16 or 4; the base and the (batch,
-// head, position) strides of k8 and v8 are multiples of it.  splits,
-// chunk: the window is cut into `splits` runs of `chunk` positions
+// dtype: 0 = float32, 1 = bfloat16 (q, k_self and v_self).  cache: 0 =
+// int8 k8/v8 with f32 scales ks/vs, 1 = k8/v8 of q's type with no scales
+// (ks and vs are ignored and may be null).  vec: the bytes a lane loads of
+// a cache row, 16 or 4; the base and the (batch, head, position) strides
+// of k8 and v8, in bytes, are multiples of it (strides are in elements).
+// splits, chunk: the window is cut into `splits` runs of `chunk` positions
 // (splits * chunk >= W); with splits > 1, `part` holds B * nkv * splits *
 // G * (D + 2) floats of scratch.  Returns the first launch error;
 // nothing is synchronised.
 extern "C" int decode_attention_launch(
-    int dtype, int G, int vec, const void* q,
+    int dtype, int cache, int G, int vec, const void* q,
     const void* k8, long long k_sb, long long k_sh, long long k_sw,
     const void* ks, long long ks_sb, long long ks_sh, long long ks_sw,
     const void* v8, long long v_sb, long long v_sh, long long v_sw,
@@ -429,16 +494,27 @@ extern "C" int decode_attention_launch(
     const void* k_self, const void* v_self, const void* mask, long long m_sb,
     void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, float scale,
     void* stream) {
-  if (D % vec != 0 || D > kMaxD || 32 % (D / vec) != 0 || B <= 0 || nkv <= 0 || W <= 0 ||
-      splits <= 0 || chunk <= 0 || chunk > kMaxChunk || (long long)splits * chunk < W ||
-      (splits > 1 && part == nullptr) || (long long)B * nkv * splits > 0x7fffffffLL) {
+  const int elem = cache == 0 ? 1 : dtype == 1 ? 2 : 4;  // bytes an element of k8/v8
+  const int per_load = vec / elem;
+  const int row_loads = per_load > 0 ? D / per_load : 0;
+  if ((cache != 0 && cache != 1) || (dtype != 0 && dtype != 1) || (vec != 16 && vec != 4) ||
+      per_load <= 0 || D % per_load != 0 || D > kMaxD ||
+      (row_loads <= 32 ? 32 % row_loads != 0 : row_loads % 32 != 0) || B <= 0 ||
+      nkv <= 0 || W <= 0 || splits <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+      (long long)splits * chunk < W || (splits > 1 && part == nullptr) ||
+      (cache == 0 && (ks == nullptr || vs == nullptr)) ||
+      (long long)B * nkv * splits > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_self, v_self, mask, m_sb, out, part,
                B, nkv, W, D, chunk, splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)by_vec<float>(vec, G, a, st);
-  if (dtype == 1) return (int)by_vec<__nv_bfloat16>(vec, G, a, st);
-  return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0) {
+    return cache == 0 ? (int)by_vec<float, int8_t>(vec, G, a, st)
+                      : (int)by_vec<float, float>(vec, G, a, st);
+  }
+  return cache == 0 ? (int)by_vec<bf16, int8_t>(vec, G, a, st)
+                    : (int)by_vec<bf16, bf16>(vec, G, a, st);
 }

@@ -7,12 +7,13 @@
 // reaches device memory.
 //
 //   q     [B, S, H, D] or [B, H, S, D]: any batch/head/position strides, D dense
-//   k, v  [B, T, H, D] likewise
+//   k, v  [B, T, NKV, D] likewise, H % NKV == 0 (grouped-query attention:
+//         query head h reads K/V head h / (H / NKV) through the strides)
 //   bias  [B, T]       optional f32 additive key bias (BERT's mask_bias), T dense
 //   o     [B, S, H, D] any batch/head/position strides, D dense; q's type
 //
 // scores = (q . k) * scale in f32, plus bias[b, key]; then the kv_len mask
-// (key >= kv_len) and the causal mask (key > query) each REPLACE the score
+// (key >= kv_len) and the causal mask (key > q_offset + query) each REPLACE the score
 // with -1e30, as the Pallas kernel does, and masked keys still take part
 // in the softmax: kv_len <= 0 masks every key, all T scores are -1e30, and
 // the row comes out as the mean of V over the T keys, as the kernel's
@@ -21,6 +22,15 @@
 // not -inf, so a tile whose keys are all -1e30 or padding never computes
 // exp(-inf - -inf).  Any S and T: ragged query and key tiles are masked
 // here, nothing is padded on the host.
+//
+// Query offset (Llama's chunked prefill).  Query row i sits at key
+// position q_offset + i: a chunk of S queries at cache offset q_offset
+// attends the cached prefix and itself (q_offset + S <= T, checked by the
+// wrapper).  The offset moves the diagonal: each query tile skips the key
+// tiles past its last query's position, so a chunk reads only the prefix
+// it needs.  Grouped heads cost nothing extra: the G query heads of one
+// K/V head are neighbouring blocks, so the second to G-th read its K/V
+// tiles from L2.
 //
 // Bound on the H100.  At BERT-base (S = T = 128, D = 64) each (batch,
 // head) reads 3 * S * D inputs and does 4 * S * T * D flops: 43 flops a
@@ -52,8 +62,10 @@
 // values, so the output stays a convex combination of V's rows.  It is
 // the one rounding the CUDA-core kernel did not make, well inside the
 // 2e-2 bf16 tolerance (the CPU tests emulate it at BERT-base width).
-// Key tiles wholly past kv_len, or (causal) past the tile's last query,
-// are skipped; with kv_len <= 0 none is.
+// Key tiles wholly past kv_len, or (causal) past the position of the
+// tile's last query (q_offset + q0 + 63), are skipped; with kv_len <= 0
+// none is.  Tiles wholly below the diagonal still go through the masks
+// (see below).
 //
 // What still holds it back: `mma.sync` reaches a fraction of the tensor
 // cores' peak (wgmma and TMA are the next step, and matter where the
@@ -149,7 +161,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2) flash_attention_
     const __nv_bfloat16* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
     const float* __restrict__ bias, long long bias_sb,
     __nv_bfloat16* __restrict__ o, long long o_sb, long long o_sh, long long o_ss,
-    int H, int S, int T_len, int kv_len, float scale) {
+    int H, int S, int T_len, int kv_len, int q_offset, int group, float scale) {
   using L = MmaLayout<D>;
   constexpr int LD = L::kLd;
   constexpr int CPR = D / 8;   // 16-byte chunks per row
@@ -167,20 +179,22 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2) flash_attention_
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
+  const int hk = h / group;  // the K/V head of this query head
   const int q0 = blockIdx.y * kBQ;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
   const __nv_bfloat16* qbase = q + (long long)b * q_sb + (long long)h * q_sh;
-  const __nv_bfloat16* kbase = k + (long long)b * k_sb + (long long)h * k_sh;
-  const __nv_bfloat16* vbase = v + (long long)b * v_sb + (long long)h * v_sh;
+  const __nv_bfloat16* kbase = k + (long long)b * k_sb + (long long)hk * k_sh;
+  const __nv_bfloat16* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
   const float* brow = bias ? bias + (long long)b * bias_sb : nullptr;
 
   const int kv_eff = kv_len < T_len ? kv_len : T_len;
   const bool no_key = kv_eff <= 0;  // every key masked: the row averages all T
   int kv_end = no_key ? T_len : kv_eff;
-  if (!no_key && CAUSAL && q0 + kBQ < kv_end) kv_end = q0 + kBQ;  // keys past the tile's last query
+  // keys past the position of the tile's last query
+  if (!no_key && CAUSAL && q_offset + q0 + kBQ < kv_end) kv_end = q_offset + q0 + kBQ;
   const int n_tiles = (kv_end + kMmaBK - 1) / kMmaBK;              // >= 1
 
   for (int idx = tid; idx < kBQ * CPR; idx += kMmaThreads) {
@@ -210,9 +224,10 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2) flash_attention_
   load_kv(0, 0);
   cp_async_commit();
 
-  // This lane's query rows: row0 and row0 + 8 of the block's tile.
+  // This lane's query rows: row0 and row0 + 8 of the block's tile; qi0 is
+  // row0's key position.
   const int row0 = warp * 16 + lane / 4;
-  const int qi0 = q0 + row0;
+  const int qi0 = q_offset + q0 + row0;
   const int col = 2 * (lane % 4);  // this lane's first column of an n8 tile
   // Scores are kept in log2 units (times log2 e), so each exponential is
   // one ex2; the masks and the -1e30 floor compare alike in either unit.
@@ -370,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
     const float* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
     const float* __restrict__ bias, long long bias_sb,
     float* __restrict__ o, long long o_sb, long long o_sh, long long o_ss,
-    int H, int S, int T_len, int kv_len, float scale) {
+    int H, int S, int T_len, int kv_len, int q_offset, int group, float scale) {
   constexpr int DS = D / kTPR;            // elements a thread owns
   constexpr int NG = DS / kW;             // 16-byte groups a thread owns
   constexpr int BK = D == 128 ? 32 : 64;  // key rows per tile
@@ -388,6 +403,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
   const int row = tid / kTPR;
   const int sub = tid % kTPR;
   const int qi = q0 + row;
+  const int qpos = q_offset + qi;  // this row's key position
   const bool row_valid = qi < S;
 
   // Element e of this thread's slice lives at d = (sub + kTPR * (e / kW)) * kW + e % kW.
@@ -409,9 +425,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
   const int kv_eff = kv_len < T_len ? kv_len : T_len;
   const bool no_key = kv_eff <= 0;  // every key masked: the row averages all T
   int kv_end = no_key ? T_len : kv_eff;
-  if (!no_key && CAUSAL && q0 + kBQ < kv_end) kv_end = q0 + kBQ;  // keys past the tile's last query
-  const float* kbase = k + (long long)b * k_sb + (long long)h * k_sh;
-  const float* vbase = v + (long long)b * v_sb + (long long)h * v_sh;
+  // keys past the position of the tile's last query
+  if (!no_key && CAUSAL && q_offset + q0 + kBQ < kv_end) kv_end = q_offset + q0 + kBQ;
+  const float* kbase = k + (long long)b * k_sb + (long long)(h / group) * k_sh;
+  const float* vbase = v + (long long)b * v_sb + (long long)(h / group) * v_sh;
   const float* brow = bias ? bias + (long long)b * bias_sb : nullptr;
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
@@ -452,7 +469,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         const int key = k0 + c0 + j;
         dot += sbias[c0 + j];
-        const bool masked = key >= kv_eff || (CAUSAL && key > qi);
+        const bool masked = key >= kv_eff || (CAUSAL && key > qpos);
         s[j] = key >= T_len ? -INFINITY : masked ? kNegInf : dot;
         mx = fmaxf(mx, s[j]);
       }
@@ -499,7 +516,7 @@ struct Args {
   const void* v; long long vs[3];
   const float* bias; long long bias_sb;
   void* o; long long os[3];
-  int B, H, S, T_len, kv_len;
+  int B, H, S, T_len, kv_len, q_offset, group;
   float scale;
 };
 
@@ -519,7 +536,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.k), a.ks[0], a.ks[1], a.ks[2],
       static_cast<const T*>(a.v), a.vs[0], a.vs[1], a.vs[2],
       a.bias, a.bias_sb, static_cast<T*>(a.o), a.os[0], a.os[1], a.os[2],
-      a.H, a.S, a.T_len, a.kv_len, a.scale);
+      a.H, a.S, a.T_len, a.kv_len, a.q_offset, a.group, a.scale);
   return cudaGetLastError();
 }
 
@@ -531,7 +548,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.k), a.ks[0], a.ks[1], a.ks[2],
       static_cast<const float*>(a.v), a.vs[0], a.vs[1], a.vs[2],
       a.bias, a.bias_sb, static_cast<float*>(a.o), a.os[0], a.os[1], a.os[2],
-      a.H, a.S, a.T_len, a.kv_len, a.scale);
+      a.H, a.S, a.T_len, a.kv_len, a.q_offset, a.group, a.scale);
   return cudaGetLastError();
 }
 
@@ -552,8 +569,9 @@ cudaError_t by_dim(int D, const Args& a, cudaStream_t st) {
 // kernel).  Strides are in elements, ordered (batch, head, position); the
 // last axis of q, k, v and o is dense, and for bf16 the bases and strides
 // of q, k, v and o are 16-byte aligned (the wrapper checks q, k and v, and
-// allocates o).  bias may be null.  Returns the launch's cudaError_t;
-// nothing is synchronised.
+// allocates o).  bias may be null.  q and o have H heads, k and v H /
+// group; query row i sits at key position q_offset + i.  Returns the
+// launch's cudaError_t; nothing is synchronised.
 extern "C" int flash_attention_launch(
     int dtype, int D, int causal,
     const void* q, long long q_sb, long long q_sh, long long q_ss,
@@ -561,11 +579,15 @@ extern "C" int flash_attention_launch(
     const void* v, long long v_sb, long long v_sh, long long v_st,
     const float* bias, long long bias_sb,
     void* o, long long o_sb, long long o_sh, long long o_ss,
-    int B, int H, int S, int T_len, int kv_len, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || T_len <= 0) return (int)cudaErrorInvalidValue;
+    int B, int H, int S, int T_len, int kv_len, int q_offset, int group, float scale,
+    void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || T_len <= 0 || group <= 0 || H % group != 0 ||
+      q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 0x7fffffffLL || (S + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, {q_sb, q_sh, q_ss}, k, {k_sb, k_sh, k_st}, v, {v_sb, v_sh, v_st},
-               bias, bias_sb, o, {o_sb, o_sh, o_ss}, B, H, S, T_len, kv_len, scale};
+               bias, bias_sb, o, {o_sb, o_sh, o_ss}, B, H, S, T_len, kv_len, q_offset, group,
+               scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return causal ? (int)by_dim<false, true>(D, a, st) : (int)by_dim<false, false>(D, a, st);

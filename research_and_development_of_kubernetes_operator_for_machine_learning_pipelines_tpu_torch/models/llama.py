@@ -17,19 +17,30 @@ cache tuple that SHARES the input's buffers (with new lengths); the
 caller must treat the input cache as consumed.
 
 Kernels on this path: ``models.common.rms_norm`` (2L+1 launches per
-forward) and, on the int8 cache, the fused decode attention (one launch
-per layer per decode step).
+forward); flash attention for prefill and chunked prefill on the dense
+position-major cache (one launch per layer per forward: the chunk's
+queries at their cache offset against the prefix, grouped K/V heads read
+in place); and the fused decode attention, over the int8 window or the
+dense one (one launch per layer per decode step).  The int8
+position-major cache of ``_block`` (no caller in the engine) keeps the
+reference's einsum chain.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.decode_attention import decode_attention_batched, decode_attention_vpu
+from ..ops.decode_attention import (
+    decode_attention_batched,
+    decode_attention_dense,
+    decode_attention_vpu,
+)
+from ..ops.flash_attention import flash_attention
 from .common import matmul_f32, rms_norm
 from .quantization import is_quantized, quantize_tensor
 
@@ -304,7 +315,7 @@ def _block(
     start: int,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    mask_bias: torch.Tensor,
+    mask_bias: torch.Tensor | None,
     cfg: LlamaConfig,
     window: int | None = None,
 ):
@@ -312,49 +323,58 @@ def _block(
     prefill).  x: [B,S,H]; cache_k/v: [B,T,NKV,D] views of the layer's
     buffer, or (int8 values, f32 scales [B,T,NKV,1]) pairs; ``start`` is
     the write offset shared by the batch.  This chunk's K/V is written
-    into the cache IN PLACE at [start, start+S).  ``window`` restricts
-    attention to cache positions [0, window); ``mask_bias``'s key axis is
-    window-sized.  Returns (y, cache_k, cache_v)."""
+    into the cache IN PLACE at [start, start+S).
+
+    The dense cache attends through the flash kernel (its plain version
+    on the CPU): the chunk's queries at positions [start, start+S) against
+    the keys [0, start+S), causal, read through strided views of q and the
+    cache.  That is the reference's function: its -1e9 additive mask and
+    the kernel's -1e30 replacement both weigh a masked key exactly 0, as
+    every query sees at least itself; ``window`` and ``mask_bias`` are not
+    read.  The int8 pairs run the reference's chain, where ``window``
+    restricts attention to cache positions [0, window) and
+    ``mask_bias``'s key axis is window-sized.  Returns (y, cache_k,
+    cache_v)."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(x, lp, cos, sin, cfg)
 
-    quant_cache = isinstance(cache_k, tuple)
-    if quant_cache:
-        k8, ks = cache_k
-        v8, vs = cache_v
-        kq, kqs = _quant_kv(k)
-        vq, vqs = _quant_kv(v)
-        k8[:, start:start + s] = kq
-        ks[:, start:start + s] = kqs
-        v8[:, start:start + s] = vq
-        vs[:, start:start + s] = vqs
-    else:
+    if not isinstance(cache_k, tuple):
         cache_k[:, start:start + s] = k.to(cache_k.dtype)
         cache_v[:, start:start + s] = v.to(cache_v.dtype)
+        # [B, H, S, D] views of q and of the written prefix; the output is
+        # a [B, H, S, D] view of a [B, S, H, D] buffer.
+        kk = cache_k[:, :start + s].to(x.dtype).transpose(1, 2)
+        vv = cache_v[:, :start + s].to(x.dtype).transpose(1, 2)
+        out = flash_attention(q.transpose(1, 2), kk, vv, causal=True, kv_len=start + s,
+                              scale=1.0 / math.sqrt(hd), q_offset=start)
+        ctx = out.transpose(1, 2).reshape(b, s, nh * hd)
+        x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
+        return _mlp(x, lp, cfg), cache_k, cache_v
+
+    k8, ks = cache_k
+    v8, vs = cache_v
+    kq, kqs = _quant_kv(k)
+    vq, vqs = _quant_kv(v)
+    k8[:, start:start + s] = kq
+    ks[:, start:start + s] = kqs
+    v8[:, start:start + s] = vq
+    vs[:, start:start + s] = vqs
 
     # GQA: q grouped [B,S,NKV,G,D] contracts directly against the cache.
     group = nh // nkv
     qg = q.reshape(b, s, nkv, group, hd)
     sqrt_d = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
-    if quant_cache:
-        if window is not None:
-            k8, ks = k8[:, :window], ks[:, :window]
-            v8, vs = v8[:, :window], vs[:, :window]
-        scores = _einsum_f32("bqngd,bknd->bngqk", qg, k8.to(x.dtype)) / sqrt_d
-        kscale = ks[..., 0].movedim(1, 2)[:, :, None, None, :]
-        scores = scores * kscale + mask_bias[:, None]
-        probs = torch.softmax(scores, dim=-1)
-        vscale = vs[..., 0].movedim(1, 2)[:, :, None, None, :]
-        probs = (probs * vscale).to(x.dtype)
-        ctx = torch.einsum("bngqk,bknd->bqngd", probs, v8.to(x.dtype))
-    else:
-        kk = cache_k if window is None else cache_k[:, :window]
-        vv = cache_v if window is None else cache_v[:, :window]
-        scores = _einsum_f32("bqngd,bknd->bngqk", qg, kk.to(x.dtype)) / sqrt_d
-        scores = scores + mask_bias[:, None]
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bngqk,bknd->bqngd", probs, vv.to(x.dtype))
+    if window is not None:
+        k8, ks = k8[:, :window], ks[:, :window]
+        v8, vs = v8[:, :window], vs[:, :window]
+    scores = _einsum_f32("bqngd,bknd->bngqk", qg, k8.to(x.dtype)) / sqrt_d
+    kscale = ks[..., 0].movedim(1, 2)[:, :, None, None, :]
+    scores = scores * kscale + mask_bias[:, None]
+    probs = torch.softmax(scores, dim=-1)
+    vscale = vs[..., 0].movedim(1, 2)[:, :, None, None, :]
+    probs = (probs * vscale).to(x.dtype)
+    ctx = torch.einsum("bngqk,bknd->bqngd", probs, v8.to(x.dtype))
     ctx = ctx.reshape(b, s, nh * hd)
     x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
     return _mlp(x, lp, cfg), cache_k, cache_v
@@ -376,14 +396,17 @@ def _block_decode_deferred(
     commits every layer's new row after the layer loop.
 
     The current token enters through an exact self-term, so ``mask_bias``
-    is STRICT (``key_pos < position``).  On the int8 cache the attention
-    is the fused decode-attention kernel (its plain version on the CPU);
-    the dense cache runs the reference's einsum chain."""
+    is STRICT (``key_pos < position``).  The attention is the fused
+    decode-attention kernel over the int8 window, or its dense instance
+    over the bf16 one (their plain versions on the CPU; the dense one is
+    the reference's chain)."""
     b, s, _ = x.shape  # s == 1
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(x, lp, cos, sin, cfg)
     group = nh // nkv
     qg = q.reshape(b, s, nkv, group, hd)
+    k_self = k[:, 0][:, :, None, :]                     # [B, NKV, 1, D]
+    v_self = v[:, 0][:, :, None, :]
 
     if isinstance(cache_k, tuple):
         attn = decode_attention_vpu if group == 1 else decode_attention_batched
@@ -395,23 +418,18 @@ def _block_decode_deferred(
             ks[:, :, :window],
             v8[:, :, :window],
             vs[:, :, :window],
-            k[:, 0][:, :, None, :],                     # [B, NKV, 1, D]
-            v[:, 0][:, :, None, :],
+            k_self, v_self,
             mask_bias[:, 0],                            # [B, 1, W]
         )
-        ctx = ctx4[:, None].to(x.dtype).reshape(b, s, nh * hd)
     else:
-        sqrt_d = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
-        kk = cache_k[:, :, :window].to(x.dtype)
-        scores = _einsum_f32("bqngd,bnkd->bngqk", qg, kk) / sqrt_d
-        scores = scores + mask_bias[:, None]
-        score_self = (_einsum_f32("bqngd,bqnd->bngq", qg, k) / sqrt_d)[..., None]
-        probs = torch.softmax(torch.cat([scores, score_self], dim=-1), dim=-1)
-        probs_cache, prob_self = probs[..., :-1], probs[..., -1:]
-        vv = cache_v[:, :, :window].to(x.dtype)
-        ctx = torch.einsum("bngqk,bnkd->bqngd", probs_cache.to(x.dtype), vv)
-        ctx = ctx + torch.einsum("bngqk,bknd->bqngd", prob_self.to(x.dtype), v)
-        ctx = ctx.reshape(b, s, nh * hd)
+        ctx4 = decode_attention_dense(
+            qg[:, 0],
+            cache_k[:, :, :window].to(x.dtype),         # strided views
+            cache_v[:, :, :window].to(x.dtype),
+            k_self, v_self,
+            mask_bias[:, 0],
+        )
+    ctx = ctx4[:, None].to(x.dtype).reshape(b, s, nh * hd)
     x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
     return _mlp(x, lp, cfg), k, v
 
@@ -429,7 +447,9 @@ def forward(
 
     Attention reads only positions [0, start+S): the reference attends
     the whole buffer under a mask whose later columns are -1e9, whose
-    softmax weights are exactly 0, so the result is the same."""
+    softmax weights are exactly 0, so the result is the same.  The dense
+    cache needs no mask (the flash kernel masks by position); the int8
+    pairs get the reference's ``[S, start+S]`` additive mask."""
     b, s = input_ids.shape
     if s > cfg.max_seq:
         raise ValueError(
@@ -447,9 +467,11 @@ def forward(
     positions = start + torch.arange(s, device=device)
     cos, sin = rope_cos_sin(positions, cfg)
     window = start + s
-    key_pos = torch.arange(window, device=device)
-    valid = key_pos[None, :] <= positions[:, None]
-    mask_bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[None, None]
+    mask_bias = None
+    if isinstance(cache.k, tuple):
+        key_pos = torch.arange(window, device=device)
+        valid = key_pos[None, :] <= positions[:, None]
+        mask_bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[None, None]
 
     for l in range(cfg.num_layers):
         ck = cache.k[l] if not isinstance(cache.k, tuple) else tuple(t[l] for t in cache.k)

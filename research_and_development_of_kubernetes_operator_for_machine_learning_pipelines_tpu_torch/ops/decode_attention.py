@@ -1,4 +1,4 @@
-"""Fused int8-KV decode attention: a CUDA kernel and its plain version.
+"""Fused decode attention: a CUDA kernel and its plain versions.
 
 Replaces the JAX package's Pallas kernels in ``ops/decode_attention.py``:
 ``_decode_attn_kernel_mxu`` (line 52, behind ``decode_attention`` and
@@ -21,8 +21,14 @@ Layouts (B slots, W window, NKV kv heads, G = heads / kv head, D head dim):
   mask    [B, 1, W]        f32 additive bias, STRICT: position w < length
   out     [B, NKV, G, D]   f32
 
-Bound on the H100: bytes — the 2 * W * D int8 bytes of each (slot, head)
-window dominate, at < 16 flops a byte.  The kernel is a flash-decoding
+The dense (bf16 or f32) cache runs the same kernel instanced on its
+element type, through :func:`decode_attention_dense`: k and v ``[B, NKV,
+W, D]`` of q's type, no scales.  Its plain version is the XLA chain of the
+JAX package's ``models/llama.py:611-637`` (which reaches no Pallas
+kernel), with the probabilities kept in f32 as the kernel keeps them.
+
+Bound on the H100: bytes — the 2 * W * D int8 bytes (2 * W * D * 2 in
+bf16) of each (slot, head) window dominate, at < 16 flops a byte.  The kernel is a flash-decoding
 kernel (see the source for the design note): the window is split over
 ``num_splits(B, NKV, W)`` blocks per (slot, head), each reads its rows
 once in place through the view's strides (no ``.contiguous()`` copy of
@@ -41,7 +47,7 @@ import torch
 
 from . import _build
 
-# Kernel launches since import, all three wrappers together: one per
+# Kernel launches since import, all four wrappers together: one per
 # call, the split kernel and its merge together.
 launches = 0
 
@@ -61,6 +67,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
 
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with an f32 result: f64 operands contract in f64 and
+    round, narrower ones contract in f32 (the reference's
+    ``preferred_element_type=float32``)."""
+    if a.dtype == torch.float64:
+        return torch.einsum(eq, a, b).to(torch.float32)
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
 def decode_attention_reference(q, k8, ks, v8, vs, k_self, v_self, mask):
     """Plain PyTorch version with the identical contract (f32 everywhere)."""
     d = q.shape[-1]
@@ -78,6 +93,23 @@ def decode_attention_reference(q, k8, ks, v8, vs, k_self, v_self, mask):
     )
     ctx = ctx + p_self * v_self.to(torch.float32)
     return ctx / denom
+
+
+def decode_attention_dense_reference(q, k, v, k_self, v_self, mask):
+    """Plain PyTorch version of the dense-window kernel: the reference's
+    chain (``models/llama.py:611-637``) on ``[B, NKV, G, D]`` queries.
+    Scores and the softmax over the window and the self term in f32; the
+    probabilities kept in f32 (f64 for f64 inputs) for the product with V,
+    as the kernel keeps them.  Returns f32 (f64 for f64 inputs)."""
+    d = q.shape[-1]
+    sqrt_d = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    scores = _einsum_f32("bngd,bnwd->bngw", q, k.to(q.dtype)) / sqrt_d
+    scores = scores + mask[:, :, None, :]
+    score_self = _einsum_f32("bngd,bnsd->bngs", q, k_self) / sqrt_d
+    probs = torch.softmax(torch.cat([scores, score_self], dim=-1), dim=-1)
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    ctx = torch.einsum("bngw,bnwd->bngd", probs[..., :-1].to(wide), v.to(wide))
+    return ctx + probs[..., -1:].to(wide) * v_self.to(wide)
 
 
 def num_splits(b: int, nkv: int, w: int) -> int:
@@ -104,7 +136,7 @@ def _kernel():
         fn = _build.load("decode_attention").decode_attention_launch
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [
-            i32, i32, i32, vp,
+            i32, i32, i32, i32, vp,
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, ll, ll, ll,
@@ -118,13 +150,18 @@ def _kernel():
 
 
 def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
+    """The kernel over an int8 window with its scales (``ks``, ``vs``) or,
+    with both None, a dense window of q's type."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"decode attention: unsupported device {q.device}")
+    dense = ks is None
     b, nkv, g, d = q.shape
     w = k8.shape[2]
-    for name, t in (("k8", k8), ("ks", ks), ("v8", v8), ("vs", vs),
-                    ("k_self", k_self), ("v_self", v_self), ("mask", mask)):
+    named = (("k8", k8), ("v8", v8), ("k_self", k_self), ("v_self", v_self), ("mask", mask))
+    if not dense:
+        named += (("ks", ks), ("vs", vs))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"decode attention: {name} on {t.device}, q on {q.device}")
     if q.dtype not in _DTYPES or k_self.dtype != q.dtype or v_self.dtype != q.dtype:
@@ -132,29 +169,32 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
             f"decode attention: q/k_self/v_self must share float32 or "
             f"bfloat16, got {q.dtype}/{k_self.dtype}/{v_self.dtype}"
         )
-    if k8.dtype != torch.int8 or v8.dtype != torch.int8:
-        raise ValueError(f"decode attention: k8/v8 must be int8, got {k8.dtype}/{v8.dtype}")
-    if ks.dtype != torch.float32 or vs.dtype != torch.float32 or mask.dtype != torch.float32:
+    cache_dtype = q.dtype if dense else torch.int8
+    if k8.dtype != cache_dtype or v8.dtype != cache_dtype:
+        raise ValueError(f"decode attention: the window must be {cache_dtype}, got "
+                         f"{k8.dtype}/{v8.dtype}")
+    if mask.dtype != torch.float32 or (
+            not dense and (ks.dtype != torch.float32 or vs.dtype != torch.float32)):
         raise ValueError("decode attention: ks, vs and mask must be float32")
     if g not in _GROUPS:
         raise ValueError(f"decode attention kernel takes G in {_GROUPS}, got {g}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"decode attention kernel takes D in {_HEAD_DIMS}, got {d}")
     if (k8.shape != (b, nkv, w, d) or v8.shape != (b, nkv, w, d)
-            or ks.shape != (b, nkv, w, 1) or vs.shape != (b, nkv, w, 1)
+            or (not dense and (ks.shape != (b, nkv, w, 1) or vs.shape != (b, nkv, w, 1)))
             or k_self.shape != (b, nkv, 1, d) or v_self.shape != (b, nkv, 1, d)
             or mask.shape != (b, 1, w)):
         raise ValueError(
             "decode attention: shapes disagree: q "
-            f"{tuple(q.shape)}, k8 {tuple(k8.shape)}, ks {tuple(ks.shape)}, "
-            f"v8 {tuple(v8.shape)}, vs {tuple(vs.shape)}, k_self "
-            f"{tuple(k_self.shape)}, v_self {tuple(v_self.shape)}, mask "
+            f"{tuple(q.shape)}, k {tuple(k8.shape)}, v {tuple(v8.shape)}, ks "
+            f"{None if dense else tuple(ks.shape)}, vs {None if dense else tuple(vs.shape)}, "
+            f"k_self {tuple(k_self.shape)}, v_self {tuple(v_self.shape)}, mask "
             f"{tuple(mask.shape)}"
         )
-    for name, t in (("k8", k8), ("v8", v8)):
-        # int8 loads of 4 bytes at least: dense D, every stride and the base 4-aligned.
+    for name, t in (("k", k8), ("v", v8)):
+        # Loads of 4 bytes at least: dense D, every stride and the base 4-byte aligned.
         st = t.stride()
-        if st[3] != 1 or (t.data_ptr() | st[0] | st[1] | st[2]) % 4:
+        if st[3] != 1 or _byte_bits(t) % 4:
             raise ValueError(
                 f"decode attention: {name} needs a dense last axis and "
                 f"4-byte aligned strides, got strides {st}"
@@ -170,12 +210,14 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     # The splits' partials (acc [G, D], then m and l per g); none for one split.
     part = (torch.empty(b * nkv * splits * g * (d + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
+    scales = ((None, 0, 0, 0), (None, 0, 0, 0)) if dense else (
+        (ks.data_ptr(), *ks.stride()[:3]), (vs.data_ptr(), *vs.stride()[:3]))
     rc = _kernel()(
-        _DTYPES[q.dtype], g, vec, q.data_ptr(),
+        _DTYPES[q.dtype], int(dense), g, vec, q.data_ptr(),
         k8.data_ptr(), k8.stride(0), k8.stride(1), k8.stride(2),
-        ks.data_ptr(), ks.stride(0), ks.stride(1), ks.stride(2),
+        *scales[0],
         v8.data_ptr(), v8.stride(0), v8.stride(1), v8.stride(2),
-        vs.data_ptr(), vs.stride(0), vs.stride(1), vs.stride(2),
+        *scales[1],
         k_self.data_ptr(), v_self.data_ptr(), mask.data_ptr(), mask.stride(0),
         out.data_ptr(), part.data_ptr() if part is not None else None,
         b, nkv, w, d, splits, split_len(w, splits), 1.0 / math.sqrt(d),
@@ -187,15 +229,19 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     return out
 
 
+def _byte_bits(t: torch.Tensor) -> int:
+    """The base address OR'd with the batch, head and position strides in
+    bytes: its low bits say how the rows are aligned."""
+    size = t.element_size()
+    st = t.stride()
+    return t.data_ptr() | (st[0] * size) | (st[1] * size) | (st[2] * size)
+
+
 def load_width(k8: torch.Tensor, v8: torch.Tensor) -> int:
     """Bytes a lane loads of a cache row: 16 when the bases and the batch,
-    head and position strides of both windows are 16-byte aligned (the
-    head-major cache always is), else 4."""
-    bits = 0
-    for t in (k8, v8):
-        st = t.stride()
-        bits |= t.data_ptr() | st[0] | st[1] | st[2]
-    return 4 if bits % 16 else 16
+    head and position strides (in bytes) of both windows are 16-byte
+    aligned (the head-major cache always is), else 4."""
+    return 4 if (_byte_bits(k8) | _byte_bits(v8)) % 16 else 16
 
 
 def decode_attention(q, k8, ks, v8, vs, k_self, v_self, mask):
@@ -210,6 +256,16 @@ def decode_attention_batched(q, k8, ks, v8, vs, k_self, v_self, mask):
     """Same launch as :func:`decode_attention`: the TPU kernel's slot
     blocking shrank a sequential grid, which the card does not have."""
     return decode_attention(q, k8, ks, v8, vs, k_self, v_self, mask)
+
+
+def decode_attention_dense(q, k, v, k_self, v_self, mask):
+    """Decode attention over a dense window ``k``/``v`` ``[B, NKV, W, D]``
+    of q's type (the bf16 ragged cache's head-major views), split over the
+    window, any G.  CPU tensors take the plain version; CUDA tensors the
+    kernel, or a ``ValueError``."""
+    if q.device.type == "cpu":
+        return decode_attention_dense_reference(q, k, v, k_self, v_self, mask)
+    return _launch(q, k, None, v, None, k_self, v_self, mask)
 
 
 def decode_attention_vpu(q, k8, ks, v8, vs, k_self, v_self, mask):

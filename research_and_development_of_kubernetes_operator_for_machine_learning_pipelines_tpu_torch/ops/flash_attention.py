@@ -3,16 +3,28 @@ plain version.
 
 Replaces ``_flash_kernel`` of the JAX package's ``ops/flash_attention.py``
 (line 62, its ``pallas_call`` at line 136): blockwise online-softmax attention over
-``[B, H, S, D]`` queries and ``[B, H, T, D]`` keys/values, f32 or bf16
+``[B, H, S, D]`` queries and ``[B, NKV, T, D]`` keys/values, f32 or bf16
 in, q's type out.  Scores are ``(q . k) * scale`` in f32; the ``kv_len``
-mask (keys at or past ``kv_len``) and the causal mask (key > query)
-replace a score with -1e30, and masked keys still take part in the
+mask (keys at or past ``kv_len``) and the causal mask (key > q_offset +
+query) replace a score with -1e30, and masked keys still take part in the
 softmax: with ``kv_len <= 0`` every score is -1e30 and a row comes out as
 the mean of V over the T keys, as the JAX package's ``attention_reference``
 gives.  Any S and T; the kernel masks its ragged tiles itself (their
 padding takes no part).
 
-Two additions let BERT's ``_self_attention`` run through it unchanged;
+Two additions let Llama's ``_block`` (prefill and chunked prefill) run
+through it; both compute what ``models/llama.py`` computes:
+
+- **a query offset** ``q_offset``: query row i sits at key position
+  ``q_offset + i``, so a prompt chunk written at cache offset
+  ``q_offset`` attends the cached prefix and itself under the causal
+  mask (a nonzero offset needs ``q_offset + S <= T``, else a
+  ``ValueError``);
+- **grouped K/V heads**: k and v have ``NKV`` heads with ``H % NKV ==
+  0``; query head h reads K/V head ``h // (H // NKV)`` through the
+  strides, nothing repeated on the host.
+
+Two more let BERT's ``_self_attention`` run through it unchanged;
 both compute what ``models/bert.py`` computes:
 
 - **strided q/k/v**: any batch, head and position strides with a dense
@@ -57,11 +69,12 @@ _fn = None
 
 
 def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """``q . k`` over the last axis with an f32 result: f64 operands
-    contract in f64 and round, narrower ones contract in f32."""
+    """``q . k`` over the last axis with an f32 result, q grouped ``[B,
+    NKV, G, S, D]`` against k ``[B, NKV, T, D]``: f64 operands contract in
+    f64 and round, narrower ones contract in f32."""
     if q.dtype == torch.float64:
-        return torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
-    return torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32))
+        return torch.einsum("bngqd,bnkd->bngqk", q, k).to(torch.float32)
+    return torch.einsum("bngqd,bnkd->bngqk", q.to(torch.float32), k.to(torch.float32))
 
 
 def flash_attention_reference(
@@ -72,28 +85,49 @@ def flash_attention_reference(
     kv_len: int | None = None,
     scale: float | None = None,
     bias: torch.Tensor | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version with the kernel's contract: the
-    ``attention_reference`` chain plus the key bias, with the softmax
-    in f32 and the probabilities kept in f32 (f64 for f64 inputs) for
-    the product with V, as the kernel keeps them."""
-    d = q.shape[-1]
-    s_q, t = q.shape[2], k.shape[2]
+    ``attention_reference`` chain plus the key bias, the query offset and
+    grouped K/V heads, with the softmax in f32 and the probabilities kept
+    in f32 (f64 for f64 inputs) for the product with V, as the kernel
+    keeps them.  Returned in the kernel's layout."""
+    b, h, s_q, d = q.shape
+    nkv, t = k.shape[1], k.shape[2]
+    _check_offset_and_groups(q, k, q_offset)
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    s = _scores_f32(q, k) * scale
+    qg = q.unflatten(1, (nkv, h // nkv))  # [B, NKV, G, S, D], a view
+    s = _scores_f32(qg, k) * scale
     if bias is not None:
-        s = s + bias.to(torch.float32)[:, None, None, :]
+        s = s + bias.to(torch.float32)[:, None, None, None, :]
     valid = torch.ones((s_q, t), dtype=torch.bool, device=q.device)
     if kv_len is not None:
         valid = valid & (torch.arange(t, device=q.device) < kv_len)[None, :]
     if causal:
-        qi = torch.arange(s_q, device=q.device)[:, None]
+        qi = q_offset + torch.arange(s_q, device=q.device)[:, None]
         valid = valid & (torch.arange(t, device=q.device)[None, :] <= qi)
     s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
     wide = torch.float64 if q.dtype == torch.float64 else torch.float32
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(wide), v.to(wide))
-    return out.to(q.dtype)
+    # The kernel's layout: a [B, H, S, D] view of a [B, S, H, D] buffer.
+    out = torch.einsum("bngqk,bnkd->bqngd", p.to(wide), v.to(wide))
+    out = out.reshape(b, s_q, h, d).contiguous()
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def _check_offset_and_groups(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> None:
+    """The contract both versions hold: k's heads divide q's, and an offset
+    chunk's positions ``q_offset .. q_offset + S - 1`` lie in the T keys
+    (at offset 0 any S and T, as ``attention_reference`` takes them)."""
+    h, s_q = q.shape[1], q.shape[2]
+    nkv, t = k.shape[1], k.shape[2]
+    if nkv <= 0 or h % nkv:
+        raise ValueError(f"flash attention: {h} query heads do not group over {nkv} K/V heads")
+    if q_offset < 0 or (q_offset > 0 and q_offset + s_q > t):
+        raise ValueError(
+            f"flash attention: queries at positions {q_offset}..{q_offset + s_q - 1} "
+            f"lie outside the {t} keys"
+        )
 
 
 def _kernel():
@@ -108,14 +142,14 @@ def _kernel():
             vp, ll, ll, ll,
             vp, ll,
             vp, ll, ll, ll,
-            i32, i32, i32, i32, i32, ctypes.c_float, vp,
+            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(q, k, v, causal, kv_len, scale, bias):
+def _launch(q, k, v, causal, kv_len, scale, bias, q_offset):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: unsupported device {q.device}")
@@ -130,16 +164,17 @@ def _launch(q, k, v, causal, kv_len, scale, bias):
     if q.dim() != 4:
         raise ValueError(f"flash attention: q must be [B, H, S, D], got {tuple(q.shape)}")
     b, h, s_q, d = q.shape
-    t = k.shape[2]
+    nkv, t = k.shape[1], k.shape[2]
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes D in {_HEAD_DIMS}, got {d}")
-    if k.shape != (b, h, t, d) or v.shape != (b, h, t, d):
+    if k.shape != (b, nkv, t, d) or v.shape != (b, nkv, t, d):
         raise ValueError(
             f"flash attention: shapes disagree: q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}"
         )
     if s_q == 0 or t == 0:
         raise ValueError(f"flash attention: empty sequence (S={s_q}, T={t})")
+    _check_offset_and_groups(q, k, q_offset)
     if b * h > 2**31 - 1 or (s_q + 63) // 64 > 65535:
         raise ValueError(f"flash attention: grid too large for B*H={b * h}, S={s_q}")
     if bias is not None and (
@@ -172,7 +207,7 @@ def _launch(q, k, v, causal, kv_len, scale, bias):
         bias.data_ptr() if bias is not None else None,
         bias.stride(0) if bias is not None else 0,
         out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
-        b, h, s_q, t, kv, float(scale),
+        b, h, s_q, t, kv, int(q_offset), h // nkv, float(scale),
         _build.current_stream(q.device),
     )
     if rc != 0:
@@ -189,12 +224,14 @@ def flash_attention(
     kv_len: int | None = None,
     scale: float | None = None,
     bias: torch.Tensor | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Attention over ``[B, H, S, D]`` x ``[B, H, T, D]`` -> ``[B, H, S, D]``.
+    """Attention over ``[B, H, S, D]`` x ``[B, NKV, T, D]`` -> ``[B, H, S,
+    D]``, query row i at key position ``q_offset + i``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises (unsupported type, D, device, alignment, build or
-    launch), never falling back."""
+    kernel or raises (unsupported type, D, device, alignment, offset,
+    grouping, build or launch), never falling back."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, kv_len, scale, bias)
-    return _launch(q, k, v, causal, kv_len, scale, bias)
+        return flash_attention_reference(q, k, v, causal, kv_len, scale, bias, int(q_offset))
+    return _launch(q, k, v, causal, kv_len, scale, bias, int(q_offset))

@@ -7,7 +7,9 @@ flash tests go through both packages with the same inputs, made from a
 seeded numpy generator; the Pallas kernel runs in interpret mode, as the
 JAX package's tests run it.  Then the port's additions: the additive key
 bias and strided q/k/v, against the einsum chain of BERT's
-``_self_attention``.
+``_self_attention``; and the query offset with grouped K/V heads of
+Llama's prefill and chunked prefill, against the attention lines of the
+JAX package's Llama ``_block`` (``models/llama.py:370``) in f64.
 
 Tolerances: f32 2e-5 absolute and relative, as the JAX package's own
 flash tests (summation order and where the scale is applied).  bf16 I/O:
@@ -162,23 +164,29 @@ def test_bias_and_strided_views_match_the_bert_chain(hd):
 FLASH_TOL_BF16 = 2e-2
 
 
-def _flash_bf16_p(q, k, v, scale, bias=None, causal=False, kv_len=None, tile=64):
-    """The tensor-core kernel's arithmetic in f32 torch: bf16 q/k/v,
-    scores (q . k) * scale + bias, then the replacement masks (-1e30); an
-    online softmax over 64-key tiles from a running max of -1e30, whose
-    probabilities are rounded to bf16 against the running max (the row sum
-    adds the rounded values) before the product with V; the output
-    rounded to bf16."""
+def _flash_bf16_p(q, k, v, scale, bias=None, causal=False, kv_len=None, tile=64,
+                  q_offset=0):
+    """The tensor-core kernel's arithmetic in f32 torch: bf16 q/k/v (k and
+    v with their own NKV heads, query head h reading K/V head h // G),
+    scores (q . k) * scale + bias, then the replacement masks (-1e30, the
+    causal one from each query's position q_offset + i); an online softmax
+    over 64-key tiles from a running max of -1e30, whose probabilities are
+    rounded to bf16 against the running max (the row sum adds the rounded
+    values) before the product with V; the output rounded to bf16.  The
+    tiles past a query tile's last position, which the kernel skips, hold
+    only -1e30 scores below a finite running max: they add exactly 0."""
     qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
     b, h, s_q, d = q.shape
     t = k.shape[2]
+    g = h // k.shape[1]
+    kf, vf = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     if bias is not None:
         s = s + bias[:, None, None, :]
     key = torch.arange(t)[None, :]
     masked = key >= (t if kv_len is None else kv_len)
     if causal:
-        masked = masked | (key > torch.arange(s_q)[:, None])
+        masked = masked | (key > q_offset + torch.arange(s_q)[:, None])
     s = torch.where(masked, torch.tensor(-1e30), s)
     m = torch.full((b, h, s_q, 1), -1e30)
     l = torch.zeros((b, h, s_q, 1))
@@ -226,6 +234,111 @@ def test_bf16_probabilities_fit_the_bf16_tolerance(case):
     tol = dict(atol=FLASH_TOL_BF16, rtol=FLASH_TOL_BF16)
     np.testing.assert_allclose(got, want, **tol)
     np.testing.assert_allclose(got, plain.numpy(), **tol)
+
+
+def _llama_chain(q, cache_k, cache_v, start, window):
+    """The dense-cache attention lines of the JAX package's Llama
+    ``_block`` (``models/llama.py:370``): q ``[B, S, NH, D]`` grouped
+    ``[B, S, NKV, G, D]`` against the cache ``[B, T, NKV, D]`` cut to
+    ``window``, f32 scores over sqrt(D), the -1e9 causal mask of
+    ``forward``, the softmax cast to q's type; ``[B, S, NH, D]`` out."""
+    b, s, nh, hd = q.shape
+    nkv = cache_k.shape[2]
+    qg = q.reshape(b, s, nkv, nh // nkv, hd)
+    kk, vv = cache_k[:, :window], cache_v[:, :window]
+    positions = start + jnp.arange(s)
+    valid = jnp.arange(window)[None, :] <= positions[:, None]
+    mask_bias = jnp.where(valid, 0.0, -1e9).astype(jnp.float32)[None, None]
+    scores = jnp.einsum("bqngd,bknd->bngqk", qg, kk,
+                        preferred_element_type=jnp.float32) / jnp.sqrt(jnp.float32(hd))
+    probs = jax.nn.softmax(scores + mask_bias[:, None], axis=-1).astype(q.dtype)
+    return jnp.einsum("bngqk,bknd->bqngd", probs, vv).reshape(b, s, nh, hd)
+
+
+_jllama_chain = jax.jit(_llama_chain, static_argnums=(3, 4))
+
+
+@pytest.mark.parametrize("nkv", [4, 2, 1], ids=["g1", "g2", "g4"])
+@pytest.mark.parametrize("start,s", [(0, 11), (11, 5), (16, 1), (40, 24)])
+def test_offset_and_grouped_heads_match_the_llama_block_in_f64(start, s, nkv):
+    """A prompt chunk at cache offset ``start`` (q_offset) with NH4 query
+    heads over NKV K/V heads (the tiny config's 4/2, and 4/4 and 4/1),
+    read as views of a position-major [B, 64, NKV, D] cache, against the
+    reference ``_block``'s chain in f64: f32 scores and softmax on both
+    sides, so they agree to f32 rounding."""
+    b, nh, hd, cap = 2, 4, 16, 64
+    rng = np.random.default_rng(start * 10 + s + nkv)
+    q = rng.standard_normal((b, s, nh, hd))
+    ck, cv = rng.standard_normal((2, b, cap, nkv, hd))
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(_jllama_chain(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                                        start, start + s))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, ck, cv))
+    kk, vv = tk[:, :start + s].transpose(1, 2), tv[:, :start + s].transpose(1, 2)
+    assert kk.data_ptr() == tk.data_ptr()  # views of the cache, not copies
+    out = tfa.flash_attention(tq.transpose(1, 2), kk, vv, causal=True, kv_len=start + s,
+                              scale=1.0 / hd**0.5, q_offset=start)
+    got = out.transpose(1, 2)
+    assert got.is_contiguous() and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-7)
+
+
+@pytest.mark.parametrize("g", [2, 4])
+def test_grouped_heads_match_pallas_with_repeated_kv(g):
+    """At q_offset 0 the grouped call is the Pallas kernel (interpret
+    mode) and ``attention_reference`` on K/V repeated to every query head:
+    query head h reads K/V head h // G."""
+    q, k, v = _qkv(b=2, h=4, s=48, d=16, seed=g)
+    k, v = k[:, ::g], v[:, ::g]  # [B, 4 / G, T, D]
+    rep = [jnp.asarray(np.repeat(x, g, axis=1)) for x in (k, v)]
+    pallas = _jflash(jnp.asarray(q), *rep, causal=True, interpret=True, block_q=16,
+                     block_k=16)
+    oracle = _joracle(jnp.asarray(q), *rep, causal=True)
+    out = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True).numpy()
+    np.testing.assert_allclose(out, np.asarray(pallas), **F32_TOL)
+    np.testing.assert_allclose(out, np.asarray(oracle), **F32_TOL)
+
+
+@pytest.mark.parametrize("start,nkv", [(0, 32), (384, 32), (448, 8), (400, 4)])
+def test_bf16_probabilities_at_an_offset_fit_the_bf16_tolerance(start, nkv):
+    """Llama-2-7B's head width (D128, H32) at a chunk offset and with
+    grouped heads: the kernel's bf16 rounding of P, emulated with the
+    offset diagonal, stays within the card's bf16 tolerance of the
+    reference ``_block`` chain in f32 and of the plain version."""
+    b, h, s, d = 1, 32, 64, 128
+    t = start + s
+    rng = np.random.default_rng(start + nkv)
+    q = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+    ck, cv = (torch.from_numpy(x) for x in rng.standard_normal((2, b, t, nkv, d))
+              .astype(np.float32))
+    q, ck, cv = (x.to(torch.bfloat16) for x in (q, ck, cv))
+    want = np.asarray(_jllama_chain(*(jnp.asarray(x.float().numpy()) for x in (q, ck, cv)),
+                                    start, t))
+    views = (q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2))
+    kw = dict(causal=True, kv_len=t, q_offset=start)
+    got = _flash_bf16_p(*views, 1.0 / d**0.5, **kw).transpose(1, 2).float().numpy()
+    plain = tfa.flash_attention_reference(*(x.float() for x in views), scale=1.0 / d**0.5,
+                                          **kw).transpose(1, 2).numpy()
+    tol = dict(atol=FLASH_TOL_BF16, rtol=FLASH_TOL_BF16)
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, plain, **tol)
+
+
+def test_offset_past_the_keys_and_ungrouped_heads_raise():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b=1, h=4, s=8, t=16))
+    for fn in (tfa.flash_attention, tfa.flash_attention_reference):
+        with pytest.raises(ValueError, match="outside"):
+            fn(q, k, v, causal=True, q_offset=9)  # 9 + 8 > 16
+        with pytest.raises(ValueError, match="outside"):
+            fn(q, k, v, causal=True, q_offset=-1)
+        with pytest.raises(ValueError, match="group"):
+            fn(q, k[:, :3], v[:, :3])
+    # the last chunk that fits, and S > T at offset 0 (cross attention)
+    assert tfa.flash_attention(q, k, v, causal=True, q_offset=8).shape == q.shape
+    assert tfa.flash_attention(q, k[:, :, :5], v[:, :, :5]).shape == q.shape
 
 
 def test_self_attention_block_matches_jax_in_f64():

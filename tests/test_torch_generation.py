@@ -3,7 +3,9 @@
 Scenarios are those of ``tests/test_generation.py`` (five prompts, three
 slots, so slots are reused).  References:
 
-- dense cache: JAX ``llama.generate_greedy`` per prompt;
+- dense cache: JAX ``llama.generate_greedy`` per prompt, and for int8
+  weights on the dense cache (``quantize: int8`` without int8kv) the JAX
+  ``GenerationEngine`` on the same tree, whole-prompt and chunked;
 - int8 KV cache: JAX ``prefill`` + ``insert_sequence`` + ``decode_ragged``
   stepped per token, with the decode attention through the Pallas kernel
   (interpret mode) and through the XLA chain;
@@ -166,6 +168,38 @@ def test_engine_int8kv_matches_stepped_reference(int8kv, chunk):
     outs, _ = _run_engine(tpq, tcfg, kv_quant=True, prefill_chunk=chunk)
     assert outs == refs["pallas"]
     assert outs == refs["xla"]
+
+
+@pytest.fixture(scope="module")
+def int8_dense_refs(tiny):
+    """The JAX engine's greedy tokens for PROMPTS with int8 weights on the
+    dense cache (no kv_quant), per prefill mode (three slots)."""
+    cfg, _, jp, _ = tiny
+    jpq = j_quantize_llama(jp)
+    refs = {}
+    for chunk in (None, 8):
+        engine = JaxEngine(jpq, cfg, max_slots=3, dtype=jnp.float64, prefill_chunk=chunk)
+        engine.start(warmup=False)
+        try:
+            futs = [engine.submit(p, n) for p, n in PROMPTS]
+            refs[chunk] = [f.result(timeout=120).tolist() for f in futs]
+        finally:
+            engine.shutdown()
+    return convert.from_jax_numpy(jax.device_get(jpq)), refs
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["whole", "chunked"])
+def test_engine_int8_weights_dense_cache_matches_the_jax_engine(tiny, int8_dense_refs, chunk):
+    """``quantize: int8`` without int8kv: int8 weights, the dense cache,
+    prefill through flash attention (chunks at their cache offsets) and
+    decode through the dense window, token for token against the JAX
+    engine in f64."""
+    _, tcfg, _, _ = tiny
+    tpq, refs = int8_dense_refs
+    outs, engine = _run_engine(tpq, tcfg, prefill_chunk=chunk)
+    assert isinstance(engine._cache, T.RaggedKVCache)
+    assert outs == refs[chunk]
+    assert engine.dispatches_total["decode"] == engine.decode_forwards > 0
 
 
 def test_port_int8_quantizer_serves_the_same_tokens(tiny, int8kv):

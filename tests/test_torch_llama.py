@@ -130,6 +130,40 @@ def test_prefill_and_chunked_forward_match(kind, quant):
     assert tc2.length == int(jc2.length) == 16
 
 
+@pytest.mark.parametrize("kind", sorted(CONFIGS))
+def test_dense_block_runs_the_flash_wrapper(kind, monkeypatch):
+    """Prefill and a chunk on the dense cache go through
+    ``ops.flash_attention`` once a layer (counted by a wrapper around it),
+    at the chunk's cache offset, over the written prefix only, grouped
+    K/V heads as views of the cache; the argmax tokens equal JAX
+    ``forward``'s.  The int8 pairs of ``_block`` keep their chain."""
+    jcfg, tcfg, jp, tp = _models(kind)
+    calls = []
+    real = T.flash_attention
+
+    def counting(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw["q_offset"], kw["kv_len"]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(T, "flash_attention", counting)
+    nh, nkv, hd, L = tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim, tcfg.num_layers
+    ids, ids2 = _ids(11, seed=5), _ids(5, seed=6)
+    jl, jc = _jprefill(jp, jnp.asarray(ids), jcfg, dtype=jnp.float64)
+    tl, tc = T.prefill(tp, torch.from_numpy(ids).long(), tcfg, dtype=torch.float64)
+    assert calls == [((1, nh, 11, hd), (1, nkv, 11, hd), 0, 11)] * L
+    jl2, _ = _jforward(jp, jnp.asarray(ids2), jc, jcfg, dtype=jnp.float64)
+    tl2, _ = T.forward(tp, torch.from_numpy(ids2).long(), tc, tcfg, dtype=torch.float64)
+    assert calls[L:] == [((1, nh, 5, hd), (1, nkv, 16, hd), 11, 16)] * L
+    for t_, j_ in ((tl, jl), (tl2, jl2)):
+        assert t_.argmax(-1).tolist() == np.asarray(jnp.argmax(j_, -1)).tolist()
+    # the int8 position-major pairs run the reference's chain, not the kernel
+    shape = (L, 1, tcfg.max_seq, nkv, hd)
+    q8 = T.KVCache((torch.zeros(shape, dtype=torch.int8), torch.zeros(shape[:-1] + (1,))),
+                   (torch.zeros(shape, dtype=torch.int8), torch.zeros(shape[:-1] + (1,))), 0)
+    T.forward(tp, torch.from_numpy(ids).long(), q8, tcfg, dtype=torch.float64)
+    assert len(calls) == 2 * L
+
+
 def _ragged_pair(jcfg, tcfg, jp, tp, quant):
     """Both caches with slots 0 and 2 prefilled (lengths 7 and 16), slot 1
     empty."""

@@ -9,6 +9,7 @@ XLA oracle, with the same inputs made from a seeded numpy generator.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -201,6 +202,98 @@ def test_split_merge_takes_empty_and_ragged_splits(W, splits):
     assert np.isfinite(got).all()
     ref = np.asarray(jda.decode_attention_reference(*(jnp.asarray(a) for a in args)))
     np.testing.assert_allclose(got, ref, rtol=DA_TOL, atol=DA_TOL)
+
+
+def _jax_dense_chain(q, k, v, k_self, v_self, mask):
+    """The dense-cache decode chain of the JAX package's Llama
+    ``_block_decode_deferred`` (``models/llama.py:611-637``) at S = 1, on
+    the wrapper's layouts: q ``[B, NKV, G, D]`` as qg ``[B, 1, NKV, G,
+    D]``, the window ``[B, NKV, W, D]``, the current K/V ``[B, NKV, 1, D]``
+    as ``[B, 1, NKV, D]``, the strict mask ``[B, 1, W]`` as mask_bias ``[B,
+    1, 1, W]``; ``[B, NKV, G, D]`` out."""
+    hd = q.shape[-1]
+    qg = q[:, None]
+    k_new, v_new = k_self[:, :, 0][:, None], v_self[:, :, 0][:, None]
+    mask_bias = mask[:, None]
+    scores = jnp.einsum("bqngd,bnkd->bngqk", qg, k,
+                        preferred_element_type=jnp.float32) / jnp.sqrt(jnp.float32(hd))
+    scores = scores + mask_bias[:, None]
+    score_self = (jnp.einsum("bqngd,bqnd->bngq", qg, k_new, preferred_element_type=jnp.float32)
+                  / jnp.sqrt(jnp.float32(hd)))[..., None]
+    probs = jax.nn.softmax(jnp.concatenate([scores, score_self], axis=-1), axis=-1)
+    probs_cache, prob_self = probs[..., :-1], probs[..., -1:]
+    ctx = jnp.einsum("bngqk,bnkd->bqngd", probs_cache.astype(q.dtype), v)
+    ctx = ctx + jnp.einsum("bngqk,bknd->bqngd", prob_self.astype(q.dtype), v_new)
+    return ctx[:, 0]
+
+
+_jdense_chain = jax.jit(_jax_dense_chain)
+
+
+def _dense_inputs(B, NKV, G, D, W, lengths, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(sh).astype(dtype) for sh in
+               ((B, NKV, G, D), (B, NKV, W, D), (B, NKV, W, D)))
+    k_self, v_self = rng.standard_normal((2, B, NKV, 1, D)).astype(dtype)
+    return q, k, v, k_self, v_self, _lengths_mask(lengths, W)
+
+
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("W", [16, 96, 97, 768, 4096])
+def test_dense_decode_plain_and_split_emulation_match_the_jax_chain(W, G):
+    """The bf16-window instance's plain version and its split-and-merge
+    algebra (the splits the wrapper picks; the int8 emulation with scales
+    of exactly 1, which the dense instance skips) against the JAX dense
+    decode chain: lengths on and beside the split edges, 0 (exactly
+    v_self) and W.  f32 on both sides: DA_TOL, summation order."""
+    B, NKV, D = 8, 2, 16
+    splits = tda.num_splits(B, NKV, W)
+    c = tda.split_len(W, splits)
+    lengths = [0, W, W - 1, 1, c, min(c + 1, W), W // 2, max(c - 1, 0)]
+    q, k, v, k_self, v_self, mask = _dense_inputs(B, NKV, G, D, W, lengths, seed=W + G)
+    want = np.asarray(_jdense_chain(*(jnp.asarray(a) for a in (q, k, v, k_self, v_self, mask))))
+    t = torch.from_numpy
+    launches = tda.launches
+    plain = tda.decode_attention_dense(t(q), t(k), t(v), t(k_self), t(v_self), t(mask))
+    assert tda.launches == launches and plain.dtype == torch.float32
+    np.testing.assert_allclose(plain.numpy(), want, rtol=DA_TOL, atol=DA_TOL)
+    ones = np.ones((B, NKV, W, 1), np.float32)
+    got = _split_emulation(q, k, ones, v, ones, k_self, v_self, mask, splits).numpy()
+    np.testing.assert_allclose(got, want, rtol=DA_TOL, atol=DA_TOL)
+    np.testing.assert_allclose(got[0], np.broadcast_to(v_self[0], got[0].shape),
+                               rtol=DA_TOL, atol=DA_TOL)
+
+
+@pytest.mark.parametrize("W", [16, 97, 768])
+def test_dense_decode_plain_is_the_jax_chain_in_f64(W):
+    """In f64 the plain version runs the reference chain step for step
+    (f32 scores and softmax, f64 products): equal to f32 rounding."""
+    args = _dense_inputs(3, 2, 2, 16, W, [0, W // 2, W], seed=W, dtype=np.float64)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(_jdense_chain(*(jnp.asarray(a) for a in args[:5]),
+                                        jnp.asarray(args[5])))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got = tda.decode_attention_dense(*(torch.from_numpy(a) for a in args))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-7)
+
+
+def test_dense_decode_load_width_and_refusals():
+    """The load width counts bytes: 16 for a bf16 head-major window, 4 for
+    [..., :128] of a 130-wide bf16 buffer; a window on a device without the
+    kernel raises, through the wrapper and its launch path alike."""
+    cache = torch.zeros((2, 4, 8, 64, 128), dtype=torch.bfloat16)
+    assert tda.load_width(cache[1, :, :, :48], cache[1, :, :, :48]) == 16
+    narrow = torch.zeros((4, 8, 64, 130), dtype=torch.bfloat16)[..., :128]
+    assert tda.load_width(narrow, narrow) == 4
+    q, k, v, k_self, v_self, mask = (torch.from_numpy(a).to("meta")
+                                     for a in _dense_inputs(2, 2, 1, 16, 16, [0, 16], seed=0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tda.decode_attention_dense(q, k, v, k_self, v_self, mask)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tda._launch(q, k.to(torch.bfloat16), None, v, None, k_self, v_self, mask)
 
 
 @pytest.mark.parametrize("b,nkv", [(1, 1), (1, 8), (2, 8), (4, 32), (8, 16), (32, 16),
