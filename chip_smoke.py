@@ -39,7 +39,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    exists, the one PyTorch call for the
    function (``F.rms_norm``, SDPA for flash attention), each with the
    profiler's device time beside its CUDA-event time; decode attention
-   also over a ladder of windows, with its split count.
+   also over a ladder of windows, with its split count.  The decode
+   kernel's verify chunk instance (self-speculative verify) against its
+   plain versions, int8 and bf16/f32 windows: NKV 32 G 1 and a synthetic
+   NKV 8 at G 4 and 8, B 4, W 768 and 4096, S 2, 3, 5, 17 and 65, lengths
+   0, 1, W - 1 and W / 2 in one batch, chunk rows near the int8 clip, bf16
+   and f32 q, within the decode checks' tolerance; its time over S at W 768
+   beside the S = 1 decode kernel on the same window, its plain version
+   and (dense) SDPA over the window plus the chunk with a boolean mask.
 3b. D-major decode attention against its plain version at the layout
    probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
    768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
@@ -99,6 +106,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    line with the card's name and power limit.  The HuggingFace loader is
    not driven here: the card's machine has no ``transformers`` (its tests
    run on the CPU).
+   5c: the radix prefix cache and self-speculative decoding on the same
+   int8 weights (int8kv, 4 slots, prefill chunks of 256; cache budget 512
+   MiB, four 128 MiB chunks, host L2 256 MiB; 4 draft tokens, n-grams
+   1..4, adaptive).  First ``verify_ragged`` against 5 sequential
+   ``decode_ragged`` steps on the card (argmax agreement and the largest
+   logit difference, reported).  Then over HTTP: a cold 768 + 100-token
+   prompt A, a warm one on the same 768-token prefix, A again (tokens
+   equal to the cold answer), a second prefix whose write-back evicts A's
+   chunks into the L2, A once more (two chunks promoted from the L2,
+   tokens equal again), four concurrent prompts repeating a 64-token
+   pattern four times (48 new tokens each, so the drafter proposes) and a
+   seeded sampled stream beside them (equal to its answer without
+   stream); then four short prompts with speculation off (the drafter
+   proposing nothing) and again with an oracle drafter that proposes
+   those answers, which must accept drafts and take fewer decode + verify
+   ticks than tokens (agreement with the answers with speculation off
+   reported, and again with f32 activations on an engine of its own).
+   The engine is stopped before its tick-cost probe.  The
+   prefix-cache counters must equal ``/metrics`` and the
+   values the radix rules give, the spec counters ``/metrics``, with
+   drafts proposed; flash = 32 x prefill forwards, decode attention = 32 x
+   (decode + verify ticks), RMSNorm = 65 x forwards.  Prints A's cold and
+   warm TTFT, the seed's ms a chunk and whether the chunks were pinned,
+   verify ticks, tokens a slot a verify tick, the acceptance rate, a verify
+   tick's wall and device ms beside a plain decode tick's, the four
+   requests' tok/s and their token agreement with a teacher-forced
+   forward.
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -630,6 +664,166 @@ def phase_decode_attention_dense(da, buckets) -> dict:
     DETAIL["decode_attention_dense"] = res
     return {k: res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
                                 "library_device_ms", "bound_ms", "bound_by", "shape")}
+
+
+def _va_inputs(B, NKV, S, G, D, T, layers, dtype, gen, dense, near_clip=False):
+    """Verify-attention inputs: the window as strided views of a head-major
+    cache buffer [layers, B, NKV, T, D] (int8 with scales, or q's type),
+    q [B, NKV, S*G, D], the chunk's exact K/V [B, NKV, S, D] and, for the
+    int8 window, the chunk through the cache's quantize round-trip.
+    ``near_clip``: every chunk row holds one +-8 outlier, so its other
+    elements land on few int8 steps and its outlier on +-127."""
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    q, k, ks, v, vs, _, _ = _da_inputs(B, NKV, S * G, D, T, layers, dtype, gen, dense=dense)
+    kc = torch.randn((B, NKV, S, D), generator=gen, device="cuda")
+    vc = torch.randn((B, NKV, S, D), generator=gen, device="cuda")
+    if near_clip:
+        kc[..., 3] = 8.0 * torch.sign(kc[..., 3])
+        vc[..., 5] = -8.0
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    rt = None if dense else (*llama._quant_kv(kc), *llama._quant_kv(vc))
+    return q, k, ks, v, vs, kc, vc, rt
+
+
+def _va_args(inputs, W, lengths, layer=0):
+    q, k, ks, v, vs, kc, vc, rt = inputs
+    mask = _mask(lengths, W)
+    if ks is None:
+        return (q, k[layer, :, :, :W], v[layer, :, :, :W], kc, vc, mask)
+    k8c, ksc, v8c, vsc = rt
+    return (q, k[layer, :, :, :W], ks[layer, :, :, :W], v[layer, :, :, :W], vs[layer, :, :, :W],
+            kc, vc, k8c, ksc, v8c, vsc, mask)
+
+
+def _va_check(da, inputs, W, lengths, what) -> float:
+    """The verify kernel on layer 0's window [:W] against its plain version
+    (DA_TOL absolute + relative, as the decode checks, bf16 q included);
+    returns the max abs error."""
+    import torch
+
+    args = _va_args(inputs, W, lengths)
+    dense = inputs[2] is None
+    out = (da.verify_attention_dense if dense else da.verify_attention)(*args)
+    ref = (da.verify_attention_dense_reference if dense else da.verify_attention_reference)(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > DA_TOL + DA_TOL * ref.abs()).any()):
+        q = inputs[0]
+        raise AssertionError(
+            f"verify attention disagrees: {what} W={W} lengths={lengths} rows={q.shape[2]} "
+            f"max_abs_err={float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _va_bytes_flops(B, NKV, S, G, D, W, itemsize, dense):
+    r = S * G
+    nbytes = (B * NKV * r * D * itemsize                       # q
+              + 2 * B * NKV * W * D * (itemsize if dense else 1)  # window K, V
+              + (0 if dense else 2 * B * NKV * W * 4)          # ks, vs
+              + 2 * B * NKV * S * D * itemsize                 # the chunk's K, V
+              + (0 if dense else 2 * B * NKV * S * (D + 4))    # its round-trip
+              + B * W * 4                                      # mask
+              + B * NKV * r * D * 4)                           # out
+    flops = B * NKV * r * (4 * (W + S) * D + 6 * (W + S))
+    return nbytes, flops
+
+
+def phase_verify_attention(da) -> dict:
+    """The decode kernel's verify chunk instance (both windows) against its
+    plain versions: Llama-2-7B's shape (NKV 32, D 128, G 1) and grouped
+    heads on a synthetic NKV 8 (G 4, 8), B 4, W 768 and 4096, S 2, 3, 5,
+    17, 65, lengths 0, 1, W - 1 and W / 2 in one batch, chunk rows near the
+    int8 clip, bf16 and f32 q; then its time over S at W 768 beside the
+    S = 1 decode kernel on the same window, the plain version and (dense)
+    SDPA over the window plus the chunk with a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    D, B = 128, 4
+    worst, checks = 0.0, 0
+    for dense in (False, True):
+        for NKV, G in ((32, 1), (8, 4), (8, 8)):
+            for dtype in (torch.bfloat16, torch.float32):
+                for S in (2, 3, 5, 17, 65):
+                    inputs = _va_inputs(B, NKV, S, G, D, 4096, 1, dtype, gen, dense,
+                                        near_clip=S in (3, 17))
+                    for W in (768, 4096):
+                        what = (f"{'dense' if dense else 'int8'} NKV={NKV} G={G} S={S} "
+                                f"{str(dtype).replace('torch.', '')}")
+                        worst = max(worst, _va_check(da, inputs, W, [0, 1, W - 1, W // 2], what))
+                        checks += 1
+                    del inputs
+    log(f"verify attention: {checks} checks (int8 and bf16/f32 windows, G 1/4/8, S 2..65, "
+        f"W 768 and 4096, lengths 0/1/W-1/W/2, rows near the int8 clip), max_abs_err "
+        f"{worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+
+    # Time at Llama-2-7B's shape, the window rotating over 8 layers of one
+    # cache (> the 50 MB L2) as consecutive layers do.
+    NKV, G, W, layers = 32, 1, 768, 8
+    lengths = [W // 4, W // 2, 3 * W // 4, W]
+    timing = {}
+    for dense in (False, True):
+        tag = "dense" if dense else "int8"
+        for S in (2, 3, 5, 17, 65):
+            inputs = _va_inputs(B, NKV, S, G, D, 4096, layers, torch.bfloat16, gen, dense)
+            views = [_va_args(inputs, W, lengths, layer=l) for l in range(layers)]
+            q, k, ks, v, vs, kc, vc, _ = inputs
+            self_views = [
+                (q[:, :, :1], k[l, :, :, :W], v[l, :, :, :W], kc[:, :, :1], vc[:, :, :1],
+                 views[l][-1]) if dense else
+                (q[:, :, :1], k[l, :, :, :W], ks[l, :, :, :W], v[l, :, :, :W], vs[l, :, :, :W],
+                 kc[:, :, :1], vc[:, :, :1], views[l][-1]) for l in range(layers)]
+            it = {"i": 0}
+
+            def rot(f, vws):
+                def call():
+                    it["i"] += 1
+                    return f(*vws[it["i"] % layers])
+                return call
+
+            kern = rot(da.verify_attention_dense if dense else da.verify_attention, views)
+            plain = rot(da.verify_attention_dense_reference if dense
+                        else da.verify_attention_reference, views)
+            one = rot(da.decode_attention_dense if dense else da.decode_attention_vpu, self_views)
+            nbytes, flops = _va_bytes_flops(B, NKV, S, G, D, W, 2, dense)
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+            row = {"ms": cuda_time_ms(kern, iters=100),
+                   "device_ms": kernel_device_ms(kern, "attention_kernel"),
+                   "s1_ms": cuda_time_ms(one, iters=100),
+                   "s1_device_ms": kernel_device_ms(one, "attention_kernel"),
+                   "plain_ms": cuda_time_ms(plain, iters=20),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "splits": da.num_splits(B, NKV * S * G, W)}
+            if dense:
+                # SDPA over the window with the chunk joined (outside the
+                # timed region): q [B, H, S, D], K/V [B, NKV, W + S, D] and
+                # a boolean mask, the window strict and the chunk causal.
+                win = views[0][-1][:, 0] == 0                              # [B, W]
+                causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
+                valid = torch.cat([win[:, None, :].expand(B, S, W),
+                                   causal[None].expand(B, S, S)], dim=-1)[:, None]
+                lib_views = [(q.reshape(B, NKV, S, G, D).transpose(2, 3).reshape(B, NKV * G, S, D),
+                              torch.cat([k[l, :, :, :W], kc], dim=2),
+                              torch.cat([v[l, :, :, :W], vc], dim=2)) for l in range(layers)]
+                lib = rot(lambda qq, kk, vv: F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=valid), lib_views)
+                row["library_ms"] = cuda_time_ms(lib, iters=100)
+                row["library_device_ms"] = device_ms_per_call(lib)
+            timing[f"{tag}_S{S}"] = row
+            del inputs, views, self_views
+    log("verify attention B=4 NKV=32 G=1 D=128 W=768 bf16 q (case: ms, device ms, S=1 "
+        "kernel device ms, plain ms, bound ms, SDPA device ms): " + json.dumps(
+            {k: [round(r["ms"], 4), r["device_ms"] and round(r["device_ms"], 4),
+                 r["s1_device_ms"] and round(r["s1_device_ms"], 4), round(r["plain_ms"], 4),
+                 round(r["bound_ms"], 4), r.get("library_device_ms") and
+                 round(r["library_device_ms"], 4)] for k, r in timing.items()}))
+    res = {"checks": checks, "max_abs_err": worst, "timing": timing}
+    DETAIL["verify_attention"] = res
+    return res
 
 
 def _bf16_ulps(out, ref):
@@ -1904,6 +2098,446 @@ def phase_serve_7b(da, rn, fa, smi: str, params) -> dict:
         th.join(timeout=30)
 
 
+def _verify_vs_sequential(llama, params, cfg, S: int = 5, device: str = "cuda",
+                          dtype=None) -> dict:
+    """``verify_ragged`` at Llama-2-7B (int8 weights, int8 KV cache) against
+    S sequential ``decode_ragged`` steps on the same card: four rows at
+    lengths 300, 517, 64 and 1, the chunk the tokens the sequential steps
+    fed, activations in ``dtype`` (bf16 by default).  Reports the argmax
+    agreement per position and the largest logit difference (near-ties
+    of the random weights' flat logits may flip)."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    dtype = dtype or torch.bfloat16
+    cfg_s = dataclasses.replace(cfg, max_seq=1024)
+    gen_mod = import_module(f"{PKG}.server.generation")
+    rng = np.random.default_rng(31)
+    lens = [300, 517, 64, 1]
+    B = len(lens)
+    seq_cache = llama.QuantRaggedKVCache.create(cfg_s, B, device)
+    ver_cache = llama.QuantRaggedKVCache.create(cfg_s, B, device)
+    first = []
+    for b, n in enumerate(lens):
+        ids = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n)), device=device)
+        logits, seq = llama.prefill(params, ids, cfg_s, dtype)
+        seq_cache = llama.insert_sequence(seq_cache, seq, b, n)
+        ver_cache = llama.insert_sequence(ver_cache, seq, b, n)
+        first.append(int(torch.argmax(logits[0, n - 1])))
+        del logits, seq
+    window = gen_mod.decode_window_bucket(max(lens) + S, cfg_s.max_seq)
+    active = torch.ones((B,), dtype=torch.bool, device=device)
+    feed = torch.tensor(first, device=device)[:, None]
+    fed, seq_logits = [], []
+    for _ in range(S):
+        fed.append(feed)
+        lg, seq_cache = llama.decode_ragged(params, feed, seq_cache, cfg_s, active,
+                                            dtype, window)
+        seq_logits.append(lg[:, 0].float())
+        feed = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    vlogits, _ = llama.verify_ragged(params, torch.cat(fed, dim=1), ver_cache, cfg_s,
+                                     dtype, window, active)
+    torch.cuda.synchronize()
+    seq_l = torch.stack(seq_logits, dim=1)
+    if not bool(torch.isfinite(vlogits).all()):
+        raise AssertionError("verify logits are not finite")
+    agree = (vlogits.argmax(-1) == seq_l.argmax(-1)).float().mean().item()
+    res = {"S": S, "dtype": str(dtype).replace("torch.", ""), "lengths": lens,
+           "window": window, "argmax_agreement": agree,
+           "max_abs_logit_diff": float((vlogits - seq_l).abs().max()),
+           "max_abs_logit": float(seq_l.abs().max())}
+    del seq_cache, ver_cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_7b_spec(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
+    """Phase 5c: Llama-2-7B int8kv (``params``: the int8 weight tree) with
+    the radix prefix cache (budget 512 MiB = four 256-token chunks, host L2
+    256 MiB) and self-speculative n-gram decoding (4 draft tokens, n-grams
+    1..4, adaptive) behind ``build_server``: a cold 768 + 100-token prompt,
+    a warm one on the same prefix, the cold one again (equal tokens), a
+    second prefix whose write-back evicts the first into the L2, the first
+    once more (promoted from the L2, equal tokens), four concurrent
+    repeated-pattern prompts that draft, and a seeded sampled stream beside
+    them (equal to its answer without stream), and an oracle drafter on
+    four short prompts that must accept drafts in fewer decode + verify
+    ticks than tokens (its agreement with speculation off reported, in
+    bf16 and on an f32 engine).  The counters on /metrics
+    equal the engine's and the values the radix rules give; flash = 32 x
+    prefill forwards, decode attention = 32 x (decode + verify ticks),
+    RMSNorm = 65 x forwards.  ``device`` is the card, or the CPU for a
+    rehearsal of the phase at a small configuration."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    gen_mod = import_module(f"{PKG}.server.generation")
+    spec_mod = import_module(f"{PKG}.server.speculative")
+    cfg = llama.LlamaConfig.llama2_7b()
+    vs_seq = [_verify_vs_sequential(llama, params, cfg, device=device, dtype=dt)
+              for dt in (torch.bfloat16, torch.float32)]
+    for r in vs_seq:
+        log(f"7B verify vs sequential decode (int8kv, {r['dtype']} activations, S={r['S']}, "
+            f"lengths {r['lengths']}, W={r['window']}): argmax agreement "
+            f"{r['argmax_agreement']:.3f}, max |logit diff| {r['max_abs_logit_diff']:.4f} "
+            f"(max |logit| {r['max_abs_logit']:.2f})")
+
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    config = app.ServerConfig(
+        model_name="llama2-7b", host="127.0.0.1", port=0, quantize="int8kv", max_slots=4,
+        prefill_chunk=256, device=device, prefix_cache=True, prefix_cache_budget_mb=512,
+        prefix_cache_l2_budget_mb=256, speculative=True, speculative_draft_tokens=4,
+        speculative_ngram_min=1, speculative_ngram_max=4, speculative_adaptive=True)
+    torch.cuda.empty_cache()
+    srv = app.build_server(predictor, config)
+    engine = srv.engine
+    ttfts: list[float] = []
+    metric_ttft = engine.on_ttft
+    engine.on_ttft = lambda s_: (ttfts.append(s_), metric_ttft(s_))
+    ticks: dict[str, list[float]] = {}
+    metric_tick = engine.on_tick
+    engine.on_tick = lambda k, s_: (ticks.setdefault(k, []).append(s_), metric_tick(k, s_))
+    seeds: list[dict] = []
+    real_seed = engine._device_seed
+
+    def timed_seed(cached_kv, length):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_seed(cached_kv, length)
+        torch.cuda.synchronize()
+        seeds.append({"ms": (time.perf_counter() - t) * 1e3, "chunks": len(cached_kv),
+                      "pinned": all(k.is_pinned() and v.is_pinned() for k, v in cached_kv)})
+
+    engine._device_seed = timed_seed
+    verifies: list[tuple[int, int]] = []  # (active slots, accepted draft tokens) a verify tick
+    real_verify = engine._device_verify
+
+    def counted_verify(toks, active_np, draft_len, window):
+        greedy, accepted = real_verify(toks, active_np, draft_len, window)
+        verifies.append((int(active_np.sum()), int(accepted[active_np].sum())))
+        return greedy, accepted
+
+    engine._device_verify = counted_verify
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    path = "/v2/models/llama2-7b/generate"
+    url = base + path
+    rng = np.random.default_rng(29)
+    V, L = cfg.vocab_size, cfg.num_layers
+    names = ("hits", "cached_tokens", "evictions", "l2_hits", "l2_spills", "l2_evictions")
+
+    def counters():
+        c = engine._prefix_cache
+        return {"hits": engine.prefix_hits, "cached_tokens": engine.prefix_cached_tokens,
+                "evictions": engine.prefix_evictions, "l2_hits": c.l2_hits,
+                "l2_spills": c.l2_spills, "l2_evictions": c.l2_evictions}
+
+    try:
+        _post(url, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up, not measured
+        ttfts.clear()
+        ticks.clear()
+        verifies.clear()
+        scrape0 = _scrape(base)
+        c0 = counters()
+        spec0 = (engine.spec_verify_ticks, engine.spec_proposed_tokens,
+                 engine.spec_accepted_tokens)
+        dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
+        da.launches = rn.launches = fa.launches = 0
+
+        p1, p2 = (rng.integers(1, V, 768).tolist() for _ in range(2))
+        s1, s2, s3 = (rng.integers(1, V, 100).tolist() for _ in range(3))
+
+        def greedy(prompt, n=16):
+            return _check_outputs(_post(url, {"prompt_ids": prompt, "max_new_tokens": n}),
+                                  [n], V)[0]
+
+        def delta():
+            c = counters()
+            return {k: c[k] - c0[k] for k in names}
+
+        cold = greedy(p1 + s1)
+        if delta() != dict.fromkeys(names, 0):
+            raise AssertionError(f"a cold admission moved the prefix cache: {delta()}")
+        warm = greedy(p1 + s2)
+        again = greedy(p1 + s1)
+        if again != cold:
+            raise AssertionError(f"the warm repeat {again} differs from the cold answer {cold}")
+        greedy(p2 + s3)
+        after_l2 = greedy(p1 + s1)
+        if after_l2 != cold:
+            raise AssertionError(f"the L2-promoted answer {after_l2} differs from the cold one "
+                                 f"{cold}")
+        # The radix rules on this sequence (128 MiB chunks, 4 in the tree,
+        # 2 in the L2): three hits of three chunks; P2's write-back evicts
+        # P1's last two chunks into the L2; the fourth A promotes both back,
+        # spilling P2's last two.
+        want5 = {"hits": 3, "cached_tokens": 3 * 768, "evictions": 4, "l2_hits": 2,
+                 "l2_spills": 4, "l2_evictions": 0}
+        if delta() != want5:
+            raise AssertionError(f"prefix cache after the five prompts {delta()}, expected {want5}")
+        ttft_a = {"cold_s": ttfts[0], "warm_s": ttfts[1], "repeat_s": ttfts[2],
+                  "l2_s": ttfts[4], "other_prefix_cold_s": ttfts[3]}
+
+        # Four repeated-pattern prompts that draft, and a seeded sampled
+        # stream beside them: it is admitted first, and while it runs every
+        # tick has a sampling slot and is plain; the fourth pattern prompt
+        # waits for its slot.
+        patterns = [rng.integers(1, V, 64).tolist() * 4 for _ in range(4)]
+        seeded = {"prompt_ids": rng.integers(1, V, 24).tolist(), "max_new_tokens": 16,
+                  "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 4321}
+        spec_results: dict = {}
+        first_event = threading.Event()
+
+        def spec_one(i):
+            spec_results[i] = _check_outputs(
+                _post(url, {"prompt_ids": patterns[i], "max_new_tokens": 48}), [48], V)[0]
+
+        def stream_one():
+            spec_results["stream"] = _sse(port, path, seeded,
+                                          on_event=lambda n: first_event.set())
+
+        streamer = threading.Thread(target=stream_one)
+        streamer.start()
+        if not first_event.wait(120):
+            raise AssertionError("the seeded stream sent no token")
+        t_spec = time.perf_counter()
+        workers = [threading.Thread(target=spec_one, args=(i,)) for i in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        spec_s = time.perf_counter() - t_spec
+        streamer.join(timeout=600)
+        streamed = spec_results["stream"]
+        spec_toks = [spec_results[i] for i in range(4)]
+        plain = _check_outputs(_post(url, seeded), [16], V)[0]
+        if streamed["tokens"] != plain:
+            raise AssertionError(f"streamed tokens {streamed['tokens'][:8]}... differ from the "
+                                 f"answer without stream {plain[:8]}...")
+        # Each pattern prompt is one full chunk: four inserts, each evicting
+        # the LRU leaf into the L2, which ages out its four oldest.
+        want = {"hits": 3, "cached_tokens": 3 * 768, "evictions": 8, "l2_hits": 2,
+                "l2_spills": 8, "l2_evictions": 4}
+        if delta() != want:
+            raise AssertionError(f"prefix cache after the phase {delta()}, expected {want}")
+        spec1 = (engine.spec_verify_ticks, engine.spec_proposed_tokens,
+                 engine.spec_accepted_tokens)
+        verify_ticks, proposed, accepted = (b - a for a, b in zip(spec0, spec1))
+        if proposed <= 0 or verify_ticks <= 0:
+            raise AssertionError(f"no draft was verified: {verify_ticks} verify ticks, "
+                                 f"{proposed} proposed")
+        traffic_verifies = list(verifies)
+
+        # An oracle drafter, so that drafts are accepted on the card (random
+        # weights repeat no n-gram): four short prompts answered with
+        # speculation off (the drafter proposing nothing, so every tick is
+        # the plain decode), then again with a drafter that proposes those
+        # answers.  Accepted drafts, several tokens a slot a verify tick and
+        # the commit of accepted + 1 positions decide the served tokens.
+        oracle_prompts = [rng.integers(1, V, 40).tolist() for _ in range(4)]
+        n_oracle = 24
+        real_propose = engine._propose
+        engine._propose = lambda slot, budget: []
+        refs = {tuple(p): greedy(p, n_oracle) for p in oracle_prompts}
+
+        def oracle_for(refs, fallback):
+            def propose(slot, budget):
+                ref = refs.get(tuple(slot.history[:slot.prompt_len].tolist()))
+                if ref is None:
+                    return fallback(slot, budget)
+                g = len(slot.generated)
+                return ref[g:g + budget]
+            return propose
+
+        engine._propose = oracle_for(refs, real_propose)
+        dec1 = engine.decode_forwards
+        try:
+            oracle_out = [greedy(p, n_oracle) for p in oracle_prompts]
+        finally:
+            engine._propose = real_propose
+        oracle_ticks = engine.decode_forwards - dec1
+        o_verify, o_proposed, o_accepted = (
+            b - a for a, b in zip(spec1, (engine.spec_verify_ticks, engine.spec_proposed_tokens,
+                                          engine.spec_accepted_tokens)))
+        o_tokens = len(oracle_prompts) * (n_oracle - 1)  # after each prefill's token
+        if o_accepted <= 0 or oracle_ticks >= o_tokens:
+            raise AssertionError(f"the oracle drafter: {o_accepted} of {o_proposed} accepted, "
+                                 f"{oracle_ticks} decode + verify ticks for {o_tokens} tokens")
+        o_agree = [float(np.mean([a == b for a, b in zip(o, refs[tuple(p)])]))
+                   for p, o in zip(oracle_prompts, oracle_out)]
+        o_slots = sum(a for a, _ in verifies[len(traffic_verifies):])
+        oracle_res = {
+            "requests": len(oracle_prompts), "new_tokens": n_oracle, "ticks": oracle_ticks,
+            "verify_ticks": o_verify, "proposed": o_proposed, "accepted": o_accepted,
+            "acceptance_rate": o_accepted / max(o_proposed, 1),
+            "tokens_per_verify_slot": (o_slots + o_accepted) / max(o_slots, 1),
+            "agreement_with_speculation_off": o_agree}
+        log(f"7B spec, oracle drafter: {o_accepted}/{o_proposed} accepted in {o_verify} verify "
+            f"ticks, {oracle_res['tokens_per_verify_slot']:.3f} tokens a slot a verify tick, "
+            f"{oracle_ticks} decode + verify ticks for {o_tokens} tokens; agreement with the "
+            f"answers with speculation off {[round(a, 3) for a in o_agree]}")
+        if delta() != want:
+            raise AssertionError(f"the oracle prompts moved the prefix cache: {delta()}")
+        torch.cuda.synchronize()
+        da_launches, rn_launches, fa_launches = da.launches, rn.launches, fa.launches
+        decodes = engine.decode_forwards - dec0  # decode and verify ticks
+        prefills = engine.prefill_forwards - pre0
+        if da_launches != L * decodes or fa_launches != L * prefills or \
+                rn_launches != (2 * L + 1) * (decodes + prefills):
+            raise AssertionError(
+                f"7B spec: launches decode {da_launches}, flash {fa_launches}, rmsnorm "
+                f"{rn_launches} for {decodes} decode + verify ticks and {prefills} prefill "
+                f"forwards")
+
+        scrape1 = _scrape(base)
+
+        def moved(name):
+            return _value(scrape1, name) - _value(scrape0, name)
+
+        on_metrics = {
+            "hits": moved("tpumlops_prefix_cache_hits_total"),
+            "cached_tokens": moved("tpumlops_prefix_cache_cached_tokens_total"),
+            "evictions": moved("tpumlops_prefix_cache_evictions_total"),
+            "l2_hits": moved("tpumlops_prefix_cache_l2_hits_total"),
+            "l2_spills": moved("tpumlops_prefix_cache_l2_spills_total"),
+            "l2_evictions": moved("tpumlops_prefix_cache_l2_evictions_total"),
+        }
+        if on_metrics != delta():
+            raise AssertionError(f"/metrics prefix counters {on_metrics} != engine {delta()}")
+        spec_metrics = (moved("tpumlops_spec_proposed_tokens_total"),
+                        moved("tpumlops_spec_accepted_tokens_total"))
+        spec_engine = (proposed + o_proposed, accepted + o_accepted)
+        if spec_metrics != spec_engine:
+            raise AssertionError(f"/metrics spec counters {spec_metrics} != engine "
+                                 f"{spec_engine}")
+        if moved("tpumlops_engine_dispatches_total") != sum(len(v) for v in ticks.values()):
+            raise AssertionError("tpumlops_engine_dispatches moved by other than the ticks")
+        log(f"7B spec: {decodes} decode + verify ticks ({verify_ticks + o_verify} verify), "
+            f"{prefills} prefill forwards, {len(seeds)} seeds; decode attention {da_launches} "
+            f"launches (= {L} x {decodes}), flash {fa_launches} (= {L} x {prefills}), rmsnorm "
+            f"{rn_launches} (= {2 * L + 1} x {decodes + prefills}); prefix counters "
+            f"{delta()} equal /metrics and the radix rules; spec {spec_engine[0]} proposed, "
+            f"{spec_engine[1]} accepted, equal /metrics")
+
+        # One verify tick against one plain decode tick of this server's
+        # engine, stopped first (the probe runs its device steps from this
+        # thread), all rows inactive (nothing is written), at the window of
+        # a 900-token row.
+        srv.shutdown_all()
+        th.join(timeout=30)
+        window = 1024
+        idle = np.zeros((engine.max_slots,), dtype=bool)
+        toks = np.zeros((engine.max_slots, 5), np.int32)
+        zero = np.zeros((engine.max_slots,), np.int32)
+
+        def one_verify():
+            real_verify(toks, idle, zero, window)
+
+        def one_decode():
+            engine._device_step(idle, window, False)
+            engine._tokens[:, 0].cpu()
+
+        tick_cost = {}
+        for name, fn in (("verify_s5", one_verify), ("decode", one_decode)):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / 5
+            prof, _ = profile_device(fn, iters=3)
+            tick_cost[name] = {"wall_ms": wall_ms, "device_ms": sum(prof.values()) / 3}
+
+        # The oracle again with f32 activations, on an engine of its own
+        # (the four prompts at once, speculation off, then on): there verify
+        # and decode agree on the argmax (see vs_seq), so the bf16 run's
+        # near-tie flips should be gone.  Reported.
+        eng32 = gen_mod.GenerationEngine(
+            params, cfg, max_slots=4, dtype=torch.float32, kv_quant=True, prefill_chunk=256,
+            device=device, speculative=spec_mod.SpeculativeConfig(
+                enabled=True, draft_tokens=4, ngram_min=1, ngram_max=4, adaptive=True))
+        eng32.start()
+        try:
+            eng32._propose = lambda slot, budget: []
+            futs = [eng32.submit(p, n_oracle) for p in oracle_prompts]
+            refs32 = {tuple(p): f.result(timeout=600).tolist()
+                      for p, f in zip(oracle_prompts, futs)}
+            eng32._propose = oracle_for(refs32, lambda slot, budget: [])
+            before = (eng32.spec_verify_ticks, eng32.spec_proposed_tokens,
+                      eng32.spec_accepted_tokens)
+            futs = [eng32.submit(p, n_oracle) for p in oracle_prompts]
+            out32 = [f.result(timeout=600).tolist() for f in futs]
+            v32, p32, a32 = (b - a for a, b in zip(before, (
+                eng32.spec_verify_ticks, eng32.spec_proposed_tokens,
+                eng32.spec_accepted_tokens)))
+        finally:
+            eng32.shutdown()
+        del eng32
+        torch.cuda.empty_cache()
+        oracle_res["f32"] = {
+            "verify_ticks": v32, "proposed": p32, "accepted": a32,
+            "agreement_with_speculation_off": [
+                float(np.mean([a == b for a, b in zip(o, refs32[tuple(p)])]))
+                for p, o in zip(oracle_prompts, out32)]}
+        log(f"7B spec, oracle drafter with f32 activations (one engine, the four prompts at "
+            f"once): {a32}/{p32} accepted in {v32} verify ticks; agreement with the answers "
+            f"with speculation off {oracle_res['f32']['agreement_with_speculation_off']}")
+
+        # Teacher-forced agreement of the speculative answers.
+        agree = []
+        for p, o in zip(patterns, spec_toks):
+            ids = torch.tensor([p + o[:-1]], dtype=torch.int64, device=device)
+            logits, _ = llama.prefill(params, ids, cfg, torch.bfloat16)
+            pred = torch.argmax(logits[0, len(p) - 1:], dim=-1).tolist()
+            agree.append(float(np.mean([a == b for a, b in zip(pred, o)])))
+            del logits
+        slot_verifies = sum(a for a, _ in traffic_verifies)
+        seed_chunk_ms = [s["ms"] / s["chunks"] for s in seeds]
+        res = {
+            "verify_vs_sequential": vs_seq,
+            "ttft": ttft_a,
+            "seeds": seeds, "seed_ms_per_chunk": seed_chunk_ms,
+            "seed_pinned": all(s["pinned"] for s in seeds),
+            "prefix_counters": delta(),
+            "verify_ticks": verify_ticks, "proposed": proposed, "accepted": accepted,
+            "acceptance_rate": accepted / proposed,
+            "tokens_per_verify_slot": (slot_verifies + sum(a for _, a in traffic_verifies))
+            / max(slot_verifies, 1),
+            "oracle": oracle_res,
+            "tick_wall_ms": {k: float(np.median(v)) * 1e3 for k, v in ticks.items()},
+            "tick_count": {k: len(v) for k, v in ticks.items()},
+            "tick_cost": tick_cost,
+            "spec_tokens_per_s": 4 * 48 / spec_s, "spec_s": spec_s,
+            "token_agreement": agree,
+            "decode_ticks": decodes, "prefill_forwards": prefills,
+            "da_launches": da_launches, "rn_launches": rn_launches, "fa_launches": fa_launches,
+            "warm_tokens": warm, "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        log(f"7B spec: TTFT of A cold {ttft_a['cold_s'] * 1e3:.1f} ms, warm (768 cached) "
+            f"{ttft_a['warm_s'] * 1e3:.1f} ms, repeat {ttft_a['repeat_s'] * 1e3:.1f} ms, after "
+            f"the L2 {ttft_a['l2_s'] * 1e3:.1f} ms; seed {[round(x, 2) for x in seed_chunk_ms]} "
+            f"ms a 128 MiB chunk (pinned {res['seed_pinned']})")
+        log(f"7B spec: {verify_ticks} verify ticks, {res['tokens_per_verify_slot']:.3f} tokens "
+            f"a slot a verify tick, acceptance {res['acceptance_rate']:.3f} ({accepted}/"
+            f"{proposed}); tick wall median ms {json.dumps(res['tick_wall_ms'])}; one tick at "
+            f"W=1024, 4 idle rows: {json.dumps(tick_cost)}; 4 x 48 tokens in {spec_s:.2f} s "
+            f"({res['spec_tokens_per_s']:.2f} tok/s); token_agreement "
+            f"{[round(a, 3) for a in agree]} on {smi}")
+        DETAIL["serve_7b_spec"] = res
+        return res
+    finally:
+        srv.shutdown_all()
+        th.join(timeout=30)
+
+
 def phase_serve_7b_dense(da, rn, fa, smi: str, params, quantize: str,
                          prefill_chunk: int | None) -> dict:
     """Llama-2-7B on the dense bf16 KV cache (``quantize`` none: bf16
@@ -2276,6 +2910,7 @@ def main() -> int:
     fa = import_module(f"{PKG}.ops.flash_attention")
     da_res = phase_decode_attention(da, buckets)
     da_res["dense"] = phase_decode_attention_dense(da, buckets)
+    da_res["verify"] = phase_verify_attention(da)
     rn_res = phase_rmsnorm(rn)
     fa_res = phase_flash_attention(fa)
     dm = import_module(f"{PKG}.ops.dmajor_attention")
@@ -2299,6 +2934,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     dense["int8"] = phase_serve_7b_dense(da, rn, fa, smi, params, "int8", 256)
     serve = phase_serve_7b(da, rn, fa, smi, params)
+    spec = phase_serve_7b_spec(da, rn, fa, smi, params)
     del params
     torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
@@ -2314,18 +2950,21 @@ def main() -> int:
          "source": f"{PKG}/csrc/decode_attention.cu",
          "replaces": f"{jax_pkg}/ops/decode_attention.py:52",
          "also_replaces": f"{jax_pkg}/ops/decode_attention.py:173",
-         "launches": serve["da_launches"] + sum(r["da_launches"] for r in dense.values()),
+         "launches": (serve["da_launches"] + spec["da_launches"]
+                      + sum(r["da_launches"] for r in dense.values())),
          **da_res},
         {"name": "rmsnorm", "route": "cuda",
          "source": f"{PKG}/csrc/rmsnorm.cu",
          "replaces": f"{jax_pkg}/ops/rmsnorm.py:24",
-         "launches": serve["rn_launches"] + sum(r["rn_launches"] for r in dense.values()),
+         "launches": (serve["rn_launches"] + spec["rn_launches"]
+                      + sum(r["rn_launches"] for r in dense.values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
          "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
          "launches": (sum(r["flash_launches"] for r in bert.values()) + serve["fa_launches"]
-                      + sum(r["fa_launches"] for r in dense.values())), **fa_res},
+                      + spec["fa_launches"] + sum(r["fa_launches"] for r in dense.values())),
+         **fa_res},
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},

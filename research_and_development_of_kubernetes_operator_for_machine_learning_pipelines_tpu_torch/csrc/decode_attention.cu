@@ -66,6 +66,36 @@
 //   position has m = -inf, l = 0, acc = 0, which weighs exactly 0.  A
 //   length-0 row is exactly v_self.
 //
+// The verify chunk (self-speculative decoding).  The attention of the JAX
+// package's models/llama.py `_block_verify_deferred` (lines 1083-1152, an
+// einsum chain there, no Pallas kernel) is this kernel with its one self
+// row widened to S causal chunk rows: for slot b, head n, chunk position s
+// and group g, query row r = s * G + g attends the window [0, W) under the
+// same strict mask for every s, plus the chunk keys j <= s in one softmax.
+// The diagonal j == s is exact; on the int8 window every earlier chunk key
+// and value reads through the cache's quantize round-trip (k8c * ksc,
+// v8c * vsc), as it would have through the cache on the sequential path.
+//
+//   q        [B, NKV, R = S * G, D]   contiguous, row r = s * G + g
+//   k_chunk  [B, NKV, S, D]           q's type, contiguous (exact rows)
+//   v_chunk
+//   k8c, v8c [B, NKV, S, D] int8 and ksc, vsc [B, NKV, S, 1] f32,
+//                                     contiguous (int8 window only)
+//   out      [B, NKV, R, D]           f32
+//
+// It is the same kernel instanced with VERIFY at G = 1: the grid gains a y
+// axis of the R query rows, one row a block, and every split writes its
+// partial.  On the H100 one row a block (64 registers, 4 blocks an SM)
+// beat tiles of 2, 4 and 8 rows a block (whose q registers leave one block
+// an SM) at every chunk length measured, so only that instance is built; a
+// (slot, head)'s row blocks find its window in L2.  The merge kernel
+// `verify_attention_kernel_merge`, one block a (slot, head, row), launched
+// by the same C call whatever the split count, computes the row's at most
+// S chunk scores (one warp a key) and joins them with the splits in one
+// max-rescale.  The S = 1 decode instances (VERIFY false) keep their code,
+// grid and launch bounds: every VERIFY branch is a compile-time constant
+// there.
+//
 // What still holds it back: the two phases of a split run back to back,
 // so a block waits on its K rows, then on its V rows (loading the first V
 // rows with the K rows was tried and gained nothing); the merge is a
@@ -155,7 +185,7 @@ __device__ __forceinline__ void self_scores(const T* qh, const T* kself, int G, 
 // grid of ~4 x 132 blocks runs as one wave; G = 2 keeps to 128 (2 blocks);
 // larger G needs its registers for q (G x E floats a lane).  T: q's type;
 // C: the cache's element (int8 with scales, or T).
-template <typename T, typename C, int G, int VEC>
+template <typename T, typename C, int G, int VEC, bool VERIFY>
 __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_attention_kernel(
     const T* __restrict__ q,
     const C* __restrict__ k8, long long k_sb, long long k_sh, long long k_sw,
@@ -165,10 +195,11 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
     const T* __restrict__ k_self, const T* __restrict__ v_self,
     const float* __restrict__ mask, long long m_sb,
     float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int nkv, int W, int D, int chunk, int splits, float scale) {
+    int nkv, int W, int D, int chunk, int splits, int R, float scale) {
   constexpr int E = VEC / (int)sizeof(C);                  // elements a load
   constexpr int NCH = kMaxD / (32 * E) > 1 ? kMaxD / (32 * E) : 1;  // most loads a lane a row
   constexpr bool kScaled = Cache<C>::kScaled;
+  static_assert(!VERIFY || G == 1, "the verify instance takes one query row a block");
   extern __shared__ float smem[];
   float* sm_s = smem;                    // [G][chunk]: scores, then p (* vs)
   float* sm_acc = smem + G * chunk;      // [kWarps][G][D]: per-warp P . V
@@ -191,7 +222,9 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
   const int round_rows = kWarps * (32 / lpr);
   const int my_row = warp * (32 / lpr) + lane / lpr;  // row within a round
 
-  const T* qh = q + (long long)bn * G * D;
+  // VERIFY: this block's one row is row blockIdx.y of the slot's R.
+  const int row0 = VERIFY ? (int)blockIdx.y : 0;
+  const T* qh = q + ((long long)bn * (VERIFY ? R : G) + row0) * D;
   float qr[G][NCH * E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -199,11 +232,13 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
     for (int c = 0; c < NCH; ++c) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        qr[g][c * E + e] = c < nch ? to_f32(qh[g * D + (c * lpr + sub) * E + e]) * scale : 0.f;
+        qr[g][c * E + e] =
+            c < nch ? to_f32(qh[g * D + (c * lpr + sub) * E + e]) * scale : 0.f;
       }
     }
   }
-  if (splits == 1) self_scores(qh, k_self + (long long)bn * D, G, D, scale, sm_self);
+  const bool whole = !VERIFY && splits == 1;  // finish here: no merge launch
+  if (whole) self_scores(qh, k_self + (long long)bn * D, G, D, scale, sm_self);
 
   const C* kb = k8 + (long long)b * k_sb + (long long)n * k_sh + sub * E;
   const C* vb = v8 + (long long)b * v_sb + (long long)n * v_sh + sub * E;
@@ -358,14 +393,15 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
   }
   __syncthreads();
 
-  const long long slot = (long long)bn * splits + split;
+  const long long slot =
+      (VERIFY ? (long long)bn * gridDim.y + blockIdx.y : (long long)bn) * splits + split;
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D;
     const int d = i % D;
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += sm_acc[(w * G + g) * D + d];
-    if (splits == 1) {  // join the self term and finish (len >= 1, so m is finite)
+    if (whole) {  // join the self term and finish (len >= 1, so m is finite)
       const float mx = fmaxf(sm_m[g], sm_self[g]);
       const float f = expf(sm_m[g] - mx);
       const float p_self = expf(sm_self[g] - mx);
@@ -412,6 +448,64 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel_combine(
   }
 }
 
+// Verify: merges the splits' partials of one (slot, head, row) and joins
+// the row's chunk term, the at most S chunk keys j <= s: their scores
+// first (one warp a key, into shared memory), then one max-rescale over
+// the splits and the keys per d.
+constexpr int kMaxS = 65;  // chunk positions: draftTokens (<= 64) + 1
+
+template <typename T, bool SCALED>
+__global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
+    const T* __restrict__ q, const T* __restrict__ k_chunk, const T* __restrict__ v_chunk,
+    const int8_t* __restrict__ k8c, const float* __restrict__ ksc,
+    const int8_t* __restrict__ v8c, const float* __restrict__ vsc,
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    float* __restrict__ out, int R, int G, int S, int D, int splits, float scale) {
+  __shared__ float sm_cs[kMaxS];  // the row's chunk scores
+  const int bn = blockIdx.x;
+  const int row = blockIdx.y;
+  const int s = row / G;           // the row's chunk position
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long cbase = (long long)bn * S;  // this (slot, head)'s chunk rows
+  const T* qr = q + ((long long)bn * R + row) * D;
+  for (int j = warp; j <= s; j += kWarps) {  // warp-uniform; later positions are masked
+    float acc = 0.f;
+    if (SCALED && j < s) {  // an earlier position: the quantize round-trip
+      const int8_t* kr = k8c + (cbase + j) * D;
+      for (int d = lane; d < D; d += 32) acc += to_f32(qr[d]) * scale * (float)kr[d];
+      acc = warp_sum(acc) * __ldg(ksc + cbase + j);
+    } else {  // the diagonal, or any position of a dense chunk: exact
+      const T* kr = k_chunk + (cbase + j) * D;
+      for (int d = lane; d < D; d += 32) acc += to_f32(qr[d]) * scale * to_f32(kr[d]);
+      acc = warp_sum(acc);
+    }
+    if (lane == 0) sm_cs[j] = acc;
+  }
+  __syncthreads();
+  const long long slot0 = ((long long)bn * gridDim.y + row) * splits;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float mx = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, part_ml[(slot0 + sp) * 2]);
+    for (int j = 0; j <= s; ++j) mx = fmaxf(mx, sm_cs[j]);  // finite: the diagonal
+    float den = 0.f, num = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const long long slot = slot0 + sp;
+      const float f = expf(part_ml[slot * 2] - mx);  // 0 for an empty split
+      den += part_ml[slot * 2 + 1] * f;
+      num += part_acc[slot * D + d] * f;
+    }
+    for (int j = 0; j <= s; ++j) {
+      const float p = expf(sm_cs[j] - mx);
+      const float v = SCALED && j < s ? (float)v8c[(cbase + j) * D + d] * __ldg(vsc + cbase + j)
+                                      : to_f32(v_chunk[(cbase + j) * D + d]);
+      den += p;
+      num += p * v;
+    }
+    out[((long long)bn * R + row) * D + d] = num / den;
+  }
+}
+
 struct Args {
   const void* q;
   const void* k8; long long k_s[3];
@@ -423,21 +517,26 @@ struct Args {
   void* out; void* part;
   int B, nkv, W, D, chunk, splits;
   float scale;
+  // Verify only: rows a (slot, head), chunk positions, the model's group
+  // width, and the chunk (k_self / v_self above hold k_chunk / v_chunk).
+  int R, S, group;
+  const void* k8c; const void* ksc; const void* v8c; const void* vsc;
 };
 
-template <typename T, typename C, int G, int VEC>
+template <typename T, typename C, int G, int VEC, bool VERIFY>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = ((size_t)G * a.chunk + (size_t)kWarps * G * a.D) * sizeof(float);
-  auto kernel = decode_attention_kernel<T, C, G, VEC>;
+  auto kernel = decode_attention_kernel<T, C, G, VEC, VERIFY>;
   if (smem > kSmemNoOptIn) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long slots = (long long)a.B * a.nkv;
+  const int tiles = VERIFY ? a.R : 1;  // verify: one query row a block
   float* part_acc = static_cast<float*>(a.part);
-  float* part_ml = part_acc ? part_acc + slots * a.splits * G * a.D : nullptr;
-  kernel<<<(unsigned)(slots * a.splits), kThreads, smem, stream>>>(
+  float* part_ml = part_acc ? part_acc + slots * tiles * a.splits * G * a.D : nullptr;
+  kernel<<<dim3((unsigned)(slots * a.splits), (unsigned)tiles), kThreads, smem, stream>>>(
       static_cast<const T*>(a.q),
       static_cast<const C*>(a.k8), a.k_s[0], a.k_s[1], a.k_s[2],
       static_cast<const float*>(a.ks), a.ks_s[0], a.ks_s[1], a.ks_s[2],
@@ -446,9 +545,20 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.k_self), static_cast<const T*>(a.v_self),
       static_cast<const float*>(a.mask), a.m_sb,
       static_cast<float*>(a.out), part_acc, part_ml, a.nkv, a.W, a.D, a.chunk, a.splits,
-      a.scale);
+      a.R, a.scale);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
+  if (err != cudaSuccess) return err;
+  if constexpr (VERIFY) {
+    verify_attention_kernel_merge<T, Cache<C>::kScaled>
+        <<<dim3((unsigned)slots, (unsigned)tiles), kThreads, 0, stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k_self),
+            static_cast<const T*>(a.v_self), static_cast<const int8_t*>(a.k8c),
+            static_cast<const float*>(a.ksc), static_cast<const int8_t*>(a.v8c),
+            static_cast<const float*>(a.vsc), part_acc, part_ml, static_cast<float*>(a.out),
+            a.R, a.group, a.S, a.D, a.splits, a.scale);
+    return cudaGetLastError();
+  }
+  if (a.splits == 1) return err;
   decode_attention_kernel_combine<T><<<(unsigned)slots, kThreads, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_self),
       static_cast<const T*>(a.v_self), part_acc, part_ml, static_cast<float*>(a.out), G, a.D,
@@ -456,22 +566,52 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename C, int VEC>
+template <typename T, typename C, int VEC, bool VERIFY>
 cudaError_t by_group(int G, const Args& a, cudaStream_t st) {
-  switch (G) {
-    case 1: return launch<T, C, 1, VEC>(a, st);
-    case 2: return launch<T, C, 2, VEC>(a, st);
-    case 4: return launch<T, C, 4, VEC>(a, st);
-    case 8: return launch<T, C, 8, VEC>(a, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (VERIFY) {  // one query row a block, whatever the model's group
+    return launch<T, C, 1, VEC, true>(a, st);
+  } else {
+    switch (G) {
+      case 1: return launch<T, C, 1, VEC, false>(a, st);
+      case 2: return launch<T, C, 2, VEC, false>(a, st);
+      case 4: return launch<T, C, 4, VEC, false>(a, st);
+      case 8: return launch<T, C, 8, VEC, false>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
-template <typename T, typename C>
+template <typename T, typename C, bool VERIFY>
 cudaError_t by_vec(int vec, int G, const Args& a, cudaStream_t st) {
-  if (vec == 16) return by_group<T, C, 16>(G, a, st);
-  if (vec == 4) return by_group<T, C, 4>(G, a, st);
+  if (vec == 16) return by_group<T, C, 16, VERIFY>(G, a, st);
+  if (vec == 4) return by_group<T, C, 4, VERIFY>(G, a, st);
   return cudaErrorInvalidValue;
+}
+
+// The window and split arguments both entry points share; 0 if they hold.
+bool bad_window(int dtype, int cache, int vec, int B, int nkv, int W, int D, int splits,
+                int chunk, const void* part, const void* ks, const void* vs) {
+  const int elem = cache == 0 ? 1 : dtype == 1 ? 2 : 4;  // bytes an element of k8/v8
+  const int per_load = vec / elem;
+  const int row_loads = per_load > 0 ? D / per_load : 0;
+  return (cache != 0 && cache != 1) || (dtype != 0 && dtype != 1) || (vec != 16 && vec != 4) ||
+         per_load <= 0 || D % per_load != 0 || D > kMaxD ||
+         (row_loads <= 32 ? 32 % row_loads != 0 : row_loads % 32 != 0) || B <= 0 ||
+         nkv <= 0 || W <= 0 || splits <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+         (long long)splits * chunk < W || (splits > 1 && part == nullptr) ||
+         (cache == 0 && (ks == nullptr || vs == nullptr)) ||
+         (long long)B * nkv * splits > 0x7fffffffLL;
+}
+
+template <bool VERIFY>
+int dispatch(int dtype, int cache, int vec, int G, const Args& a, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0) {
+    return cache == 0 ? (int)by_vec<float, int8_t, VERIFY>(vec, G, a, st)
+                      : (int)by_vec<float, float, VERIFY>(vec, G, a, st);
+  }
+  return cache == 0 ? (int)by_vec<bf16, int8_t, VERIFY>(vec, G, a, st)
+                    : (int)by_vec<bf16, bf16, VERIFY>(vec, G, a, st);
 }
 
 }  // namespace
@@ -494,27 +634,38 @@ extern "C" int decode_attention_launch(
     const void* k_self, const void* v_self, const void* mask, long long m_sb,
     void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, float scale,
     void* stream) {
-  const int elem = cache == 0 ? 1 : dtype == 1 ? 2 : 4;  // bytes an element of k8/v8
-  const int per_load = vec / elem;
-  const int row_loads = per_load > 0 ? D / per_load : 0;
-  if ((cache != 0 && cache != 1) || (dtype != 0 && dtype != 1) || (vec != 16 && vec != 4) ||
-      per_load <= 0 || D % per_load != 0 || D > kMaxD ||
-      (row_loads <= 32 ? 32 % row_loads != 0 : row_loads % 32 != 0) || B <= 0 ||
-      nkv <= 0 || W <= 0 || splits <= 0 || chunk <= 0 || chunk > kMaxChunk ||
-      (long long)splits * chunk < W || (splits > 1 && part == nullptr) ||
-      (cache == 0 && (ks == nullptr || vs == nullptr)) ||
-      (long long)B * nkv * splits > 0x7fffffffLL) {
+  if (bad_window(dtype, cache, vec, B, nkv, W, D, splits, chunk, part, ks, vs)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_self, v_self, mask, m_sb, out, part,
-               B, nkv, W, D, chunk, splits, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0) {
-    return cache == 0 ? (int)by_vec<float, int8_t>(vec, G, a, st)
-                      : (int)by_vec<float, float>(vec, G, a, st);
+               B, nkv, W, D, chunk, splits, scale, G, 1, G, nullptr, nullptr, nullptr, nullptr};
+  return dispatch<false>(dtype, cache, vec, G, a, static_cast<cudaStream_t>(stream));
+}
+
+// The verify chunk.  As above, with q [B, nkv, R, D] (R = S * group rows),
+// k_chunk / v_chunk of q's type and, for cache 0, k8c / v8c int8 with
+// ksc / vsc f32, all [B, nkv, S, D] (scales [B, nkv, S, 1]) and
+// contiguous.  The grid is (B * nkv * splits) x R split blocks, then
+// B * nkv x R merge blocks; `part` holds B * nkv * R * splits * (D + 2)
+// floats whatever the split count.  Returns the first launch error.
+extern "C" int verify_attention_launch(
+    int dtype, int cache, int vec, const void* q,
+    const void* k8, long long k_sb, long long k_sh, long long k_sw,
+    const void* ks, long long ks_sb, long long ks_sh, long long ks_sw,
+    const void* v8, long long v_sb, long long v_sh, long long v_sw,
+    const void* vs, long long vs_sb, long long vs_sh, long long vs_sw,
+    const void* k_chunk, const void* v_chunk, const void* k8c, const void* ksc,
+    const void* v8c, const void* vsc, const void* mask, long long m_sb,
+    void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, int R, int S,
+    int group, float scale, void* stream) {
+  if (bad_window(dtype, cache, vec, B, nkv, W, D, splits, chunk, part, ks, vs) ||
+      part == nullptr || S < 1 || S > kMaxS || group < 1 || R != S * group || R > 65535 ||
+      (cache == 0 && (k8c == nullptr || ksc == nullptr || v8c == nullptr || vsc == nullptr))) {
+    return (int)cudaErrorInvalidValue;
   }
-  return cache == 0 ? (int)by_vec<bf16, int8_t>(vec, G, a, st)
-                    : (int)by_vec<bf16, bf16>(vec, G, a, st);
+  const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
+               vs, {vs_sb, vs_sh, vs_sw}, k_chunk, v_chunk, mask, m_sb, out, part,
+               B, nkv, W, D, chunk, splits, scale, R, S, group, k8c, ksc, v8c, vsc};
+  return dispatch<true>(dtype, cache, vec, 1, a, static_cast<cudaStream_t>(stream));
 }

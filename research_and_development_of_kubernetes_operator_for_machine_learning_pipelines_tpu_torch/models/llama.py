@@ -21,9 +21,10 @@ forward); flash attention for prefill and chunked prefill on the dense
 position-major cache (one launch per layer per forward: the chunk's
 queries at their cache offset against the prefix, grouped K/V heads read
 in place); and the fused decode attention, over the int8 window or the
-dense one (one launch per layer per decode step).  The int8
-position-major cache of ``_block`` (no caller in the engine) keeps the
-reference's einsum chain.
+dense one (one launch per layer per decode step); and the verify chunk
+instance of the decode kernel for self-speculative verify (one launch per
+layer per verify forward).  The int8 position-major cache of ``_block``
+(no caller in the engine) keeps the reference's einsum chain.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from ..ops.decode_attention import (
     decode_attention_batched,
     decode_attention_dense,
     decode_attention_vpu,
+    verify_attention,
+    verify_attention_dense,
 )
 from ..ops.flash_attention import flash_attention
 from .common import matmul_f32, rms_norm
@@ -659,3 +662,167 @@ def insert_sequence(
     cache.k[:, slot:slot + 1, :, :tp] = seq_k.to(cache.k.dtype)
     cache.v[:, slot:slot + 1, :, :tp] = seq_v.to(cache.v.dtype)
     return cache._replace(lengths=lengths)
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative verify (S tokens a slot in one forward)
+# ---------------------------------------------------------------------------
+
+
+def _block_verify_deferred(
+    x: torch.Tensor,
+    lp: dict,
+    cache_k,
+    cache_v,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask_bias: torch.Tensor,
+    cfg: LlamaConfig,
+    window: int,
+):
+    """One decoder layer for multi-token ragged verify with the cache
+    READ-ONLY: ``x`` is ``[B, S, H]``, row ``i``'s S tokens at positions
+    ``lengths[i] .. lengths[i]+S-1``.  Returns ``(y, k_new, v_new, kv8)``
+    with the chunk's fresh K/V ``[B, S, NKV, D]`` and, on the int8 cache,
+    ``kv8 = (k8, k_scale, v8, v_scale)``: the chunk quantized once, for the
+    kernel and for the commit, ``[B, S, NKV, D]`` / ``[B, S, NKV, 1]``
+    (None on the dense cache); :func:`verify_ragged` commits every layer
+    after the layer loop.
+
+    The attention is the verify chunk instance of the decode kernel (its
+    plain version on the CPU): the window under the STRICT mask
+    (``mask_bias``, key_pos < lengths[i], no chunk position written yet)
+    and the chunk's causal keys in one softmax.  On the int8 cache every
+    earlier chunk key and value goes through the quantize round-trip (the
+    diagonal stays exact), as it would have through the cache on the
+    sequential path, so verify keeps token parity with plain int8kv
+    decode."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    group = nh // nkv
+    # Query rows r = j * G + g of each (slot, kv head): [B, NKV, S*G, D].
+    rows = q.reshape(b, s, nkv, group, hd).transpose(1, 2).reshape(b, nkv, s * group, hd)
+    k_chunk = k.transpose(1, 2)                         # [B, NKV, S, D]
+    v_chunk = v.transpose(1, 2)
+    if isinstance(cache_k, tuple):
+        k8, ks = cache_k
+        v8, vs = cache_v
+        k8c, ksc = _quant_kv(k_chunk)
+        v8c, vsc = _quant_kv(v_chunk)
+        ctx4 = verify_attention(
+            rows, k8[:, :, :window], ks[:, :, :window], v8[:, :, :window],
+            vs[:, :, :window], k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask_bias[:, 0],
+        )
+        kv8 = tuple(t.transpose(1, 2) for t in (k8c, ksc, v8c, vsc))
+    else:
+        kv8 = None
+        ctx4 = verify_attention_dense(
+            rows, cache_k[:, :, :window].to(x.dtype), cache_v[:, :, :window].to(x.dtype),
+            k_chunk, v_chunk, mask_bias[:, 0],
+        )
+    ctx = (ctx4.to(x.dtype).reshape(b, nkv, s, group, hd).transpose(1, 2)
+           .reshape(b, s, nh * hd))
+    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
+    return _mlp(x, lp, cfg), k, v, kv8
+
+
+def verify_ragged(
+    params: dict,
+    token_ids: torch.Tensor,
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    cfg: LlamaConfig,
+    dtype=torch.bfloat16,
+    window: int | None = None,
+    active: torch.Tensor | None = None,
+):
+    """Score S tokens a slot in ONE forward (self-speculative verify).
+
+    ``token_ids`` ``[B, S]``: column 0 is the slot's pending token, columns
+    ``1..S-1`` its draft; position ``j`` sits at ``lengths[i] + j``.
+    Returns ``(logits [B, S, vocab] f32, cache)`` with every chunk
+    position's K/V committed in place but ``lengths`` UNCHANGED: the caller
+    advances each row by its accepted count + 1, which is the rollback of
+    rejected writes (positions at or past a row's length are never
+    attended before they are overwritten).  ``active`` (bool ``[B]``)
+    parks inactive rows' writes (:func:`_commit_chunk`)."""
+    b, s = token_ids.shape
+    quant = isinstance(cache, QuantRaggedKVCache)
+    lengths = cache.lengths
+    x = params["embed"][token_ids].to(dtype)
+    positions = lengths[:, None] + torch.arange(s, device=lengths.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg)              # [B, S, D]
+
+    capacity = (cache.k8 if quant else cache.k).shape[3]
+    window = capacity if window is None else min(int(window), capacity)
+    key_pos = torch.arange(window, device=lengths.device)
+    # STRICT cache mask shared by every chunk query (no chunk position is
+    # written yet); the chunk's own earlier tokens enter through the
+    # kernel's in-chunk term.
+    valid = key_pos[None, :] < lengths[:, None]           # [B, W]
+    mask_bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None]
+
+    k_news, v_news, kv8s = [], [], []
+    for l in range(cfg.num_layers):
+        if quant:
+            ck = (cache.k8[l], cache.k_scale[l])
+            cv = (cache.v8[l], cache.v_scale[l])
+        else:
+            ck, cv = cache.k[l], cache.v[l]
+        x, k_new, v_new, kv8 = _block_verify_deferred(
+            x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg, window=window,
+        )
+        k_news.append(k_new)
+        v_news.append(v_new)
+        kv8s.append(kv8)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _qmatmul(x, params["lm_head"])
+    if quant:
+        k8, ks, v8, vs = (torch.stack(t) for t in zip(*kv8s))
+        _commit_chunk(cache, (k8, ks), (v8, vs), lengths, quant, active)
+    else:
+        _commit_chunk(cache, torch.stack(k_news), torch.stack(v_news), lengths, quant, active)
+    return logits, cache
+
+
+def _commit_chunk(cache, k_news, v_news, lengths, quant, active=None) -> None:
+    """Commit a verify chunk's K/V ``[L, B, S, NKV, D]`` in place: row
+    ``b``'s token ``j`` lands at ``lengths[b] + j``, one batched scatter a
+    buffer.  ``active`` parks inactive rows at capacity; positions past
+    capacity are DROPPED, never clamped.  PyTorch has no drop mode, so a
+    dropped write is aimed ``S`` positions lower, at a position of its own
+    row below every kept write (the rows' targets stay unique), and
+    stores back what is there.  On the int8 cache ``k_news`` and
+    ``v_news`` are the chunk as the cache stores it, ``(int8 [L, B, S,
+    NKV, D], f32 scales [L, B, S, NKV, 1])``, quantized once by
+    :func:`_block_verify_deferred` as the decode commit quantizes."""
+    s = (k_news[0] if quant else k_news).shape[2]
+    capacity = (cache.k8 if quant else cache.k).shape[3]
+    if s > capacity:
+        raise ValueError(f"verify chunk of {s} positions exceeds KV capacity {capacity}")
+    write_base = lengths
+    if active is not None:
+        write_base = torch.where(active, lengths, torch.full_like(lengths, capacity))
+    b = lengths.shape[0]
+    rows = torch.arange(b, device=lengths.device)[:, None]
+    pos = write_base.to(torch.int64)[:, None] + torch.arange(s, device=lengths.device)[None, :]
+    keep = pos < capacity
+    target = torch.where(keep, pos, pos - s)
+
+    def commit(buf, vals):
+        # buf [L, B, NKV, T, ...], vals [L, B, S, NKV, ...]; the advanced
+        # indices at axes 1 and 3 broadcast to [B, S] and move to the front.
+        new = vals.movedim((1, 2), (0, 1)).to(buf.dtype)
+        old = buf[:, rows, :, target]
+        k = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
+        buf[:, rows, :, target] = torch.where(k, new, old)
+
+    if quant:
+        (kq, kqs), (vq, vqs) = k_news, v_news
+        commit(cache.k8, kq)
+        commit(cache.k_scale, kqs)
+        commit(cache.v8, vq)
+        commit(cache.v_scale, vqs)
+        return
+    commit(cache.k, k_news)
+    commit(cache.v, v_news)

@@ -36,6 +36,28 @@ the cache per layer) with 16-byte loads where the view is 16-byte
 aligned (4-byte ones otherwise), computes its scores, then its softmax
 and P . V, and a merge kernel launched by the same call joins the
 splits and the self term.  One call counts one launch.
+
+Self-speculative verify (``models/llama.py`` ``_block_verify_deferred``,
+the attention of the JAX package's ``models/llama.py:1083-1152``, which
+reaches no Pallas kernel there) runs a chunk instance of the same kernel
+through :func:`verify_attention` (int8 window) and
+:func:`verify_attention_dense`: each slot scores S chunk positions, so
+the single query row of each (slot, kv head, group) widens to S causal
+rows ``r = s * G + g``:
+
+  q        [B, NKV, S*G, D]  the chunk's queries, row r = s * G + g
+  k_chunk  [B, NKV, S, D]    the chunk's fresh K/V, q's type
+  v_chunk
+  k8c, v8c [B, NKV, S, D]    int8 window only: the chunk through the
+  ksc, vsc [B, NKV, S, 1]    cache's quantize round-trip (``_quant_kv``)
+  mask     [B, 1, W]         the strict window mask, shared by the S rows
+  out      [B, NKV, S*G, D]  f32
+
+Row ``r`` attends the window ``[0, W)`` under the mask and the chunk keys
+``j <= s`` in one softmax.  The diagonal ``j == s`` is exact; on the int8
+window every earlier chunk key and value goes through the round-trip
+(``k8c * ksc``, ``v8c * vsc``), as it would have through the cache on the
+sequential path.  At S = 1 it is the decode kernel's function.
 """
 
 from __future__ import annotations
@@ -65,6 +87,9 @@ _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_verify_fn = None
+# Chunk positions the verify instance takes: draftTokens (at most 64) + 1.
+MAX_VERIFY_S = 65
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -149,25 +174,47 @@ def _kernel():
     return _fn
 
 
-def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
-    """The kernel over an int8 window with its scales (``ks``, ``vs``) or,
-    with both None, a dense window of q's type."""
-    global launches
+def _verify_kernel():
+    global _verify_fn
+    if _verify_fn is None:
+        fn = _build.load("decode_attention").verify_attention_launch
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [
+            i32, i32, i32, vp,
+            vp, ll, ll, ll,
+            vp, ll, ll, ll,
+            vp, ll, ll, ll,
+            vp, ll, ll, ll,
+            vp, vp, vp, vp, vp, vp, vp, ll,
+            vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
+        ]
+        fn.restype = ctypes.c_int
+        _verify_fn = fn
+    return _verify_fn
+
+
+def _check_window(q, k8, ks, v8, vs, mask, exact: dict, other: dict | None = None) -> int:
+    """The kernel's contract on the device, the types and the shapes of
+    the window and of the per-row tensors (name -> (tensor, expected
+    shape)): ``exact`` of q's type, ``other`` of their own types.
+    Returns the bytes a lane loads of a cache row."""
+    rows = {**exact, **(other or {})}
     if q.device.type != "cuda":
         raise ValueError(f"decode attention: unsupported device {q.device}")
     dense = ks is None
-    b, nkv, g, d = q.shape
+    b, nkv, _, d = q.shape
     w = k8.shape[2]
-    named = (("k8", k8), ("v8", v8), ("k_self", k_self), ("v_self", v_self), ("mask", mask))
+    named = [("k8", k8), ("v8", v8), ("mask", mask)] + [(n, t) for n, (t, _) in rows.items()]
     if not dense:
-        named += (("ks", ks), ("vs", vs))
+        named += [("ks", ks), ("vs", vs)]
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"decode attention: {name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES or k_self.dtype != q.dtype or v_self.dtype != q.dtype:
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t, _ in exact.values()):
         raise ValueError(
-            f"decode attention: q/k_self/v_self must share float32 or "
-            f"bfloat16, got {q.dtype}/{k_self.dtype}/{v_self.dtype}"
+            f"decode attention: q and its exact K/V rows must share float32 or "
+            f"bfloat16, got q {q.dtype}, "
+            + ", ".join(f"{n} {t.dtype}" for n, (t, _) in exact.items())
         )
     cache_dtype = q.dtype if dense else torch.int8
     if k8.dtype != cache_dtype or v8.dtype != cache_dtype:
@@ -176,20 +223,16 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     if mask.dtype != torch.float32 or (
             not dense and (ks.dtype != torch.float32 or vs.dtype != torch.float32)):
         raise ValueError("decode attention: ks, vs and mask must be float32")
-    if g not in _GROUPS:
-        raise ValueError(f"decode attention kernel takes G in {_GROUPS}, got {g}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"decode attention kernel takes D in {_HEAD_DIMS}, got {d}")
     if (k8.shape != (b, nkv, w, d) or v8.shape != (b, nkv, w, d)
             or (not dense and (ks.shape != (b, nkv, w, 1) or vs.shape != (b, nkv, w, 1)))
-            or k_self.shape != (b, nkv, 1, d) or v_self.shape != (b, nkv, 1, d)
+            or any(t.shape != shape for t, shape in rows.values())
             or mask.shape != (b, 1, w)):
         raise ValueError(
             "decode attention: shapes disagree: q "
             f"{tuple(q.shape)}, k {tuple(k8.shape)}, v {tuple(v8.shape)}, ks "
             f"{None if dense else tuple(ks.shape)}, vs {None if dense else tuple(vs.shape)}, "
-            f"k_self {tuple(k_self.shape)}, v_self {tuple(v_self.shape)}, mask "
-            f"{tuple(mask.shape)}"
+            + ", ".join(f"{n} {tuple(t.shape)}" for n, (t, _) in rows.items())
+            + f", mask {tuple(mask.shape)}"
         )
     for name, t in (("k", k8), ("v", v8)):
         # Loads of 4 bytes at least: dense D, every stride and the base 4-byte aligned.
@@ -199,9 +242,30 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
                 f"decode attention: {name} needs a dense last axis and "
                 f"4-byte aligned strides, got strides {st}"
             )
-    vec = load_width(k8, v8)
     if mask.stride(2) != 1:
         raise ValueError("decode attention: mask needs a dense last axis")
+    return load_width(k8, v8)
+
+
+def _scales(ks, vs):
+    if ks is None:
+        return (None, 0, 0, 0), (None, 0, 0, 0)
+    return (ks.data_ptr(), *ks.stride()[:3]), (vs.data_ptr(), *vs.stride()[:3])
+
+
+def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
+    """The kernel over an int8 window with its scales (``ks``, ``vs``) or,
+    with both None, a dense window of q's type."""
+    global launches
+    b, nkv, g, d = q.shape
+    w = k8.shape[2]
+    vec = _check_window(q, k8, ks, v8, vs, mask, {
+        "k_self": (k_self, (b, nkv, 1, d)), "v_self": (v_self, (b, nkv, 1, d))})
+    if g not in _GROUPS:
+        raise ValueError(f"decode attention kernel takes G in {_GROUPS}, got {g}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"decode attention kernel takes D in {_HEAD_DIMS}, got {d}")
+    dense = ks is None
     q = q.contiguous()          # [B, NKV, G, D]: a few KB, never the cache
     k_self = k_self.contiguous()
     v_self = v_self.contiguous()
@@ -210,8 +274,7 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     # The splits' partials (acc [G, D], then m and l per g); none for one split.
     part = (torch.empty(b * nkv * splits * g * (d + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
-    scales = ((None, 0, 0, 0), (None, 0, 0, 0)) if dense else (
-        (ks.data_ptr(), *ks.stride()[:3]), (vs.data_ptr(), *vs.stride()[:3]))
+    scales = _scales(ks, vs)
     rc = _kernel()(
         _DTYPES[q.dtype], int(dense), g, vec, q.data_ptr(),
         k8.data_ptr(), k8.stride(0), k8.stride(1), k8.stride(2),
@@ -225,6 +288,80 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     )
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {rc}")
+    launches += 1
+    return out
+
+
+def _verify_shapes(q, k_chunk) -> tuple[int, int]:
+    """(S, G) of a verify call, or the ``ValueError`` the kernel's wrapper
+    and the plain versions alike raise for a shape it does not take."""
+    if q.dim() != 4 or k_chunk.dim() != 4:
+        raise ValueError(f"verify attention: q {tuple(q.shape)} and the chunk "
+                         f"{tuple(k_chunk.shape)} must be [B, NKV, rows, D]")
+    r, d = q.shape[2], q.shape[3]
+    s = k_chunk.shape[2]
+    if not 1 <= s <= MAX_VERIFY_S:
+        raise ValueError(f"verify attention takes 1..{MAX_VERIFY_S} chunk positions, got {s}")
+    if r % s or r // s not in _GROUPS:
+        raise ValueError(f"verify attention: {r} query rows for {s} chunk positions; "
+                         f"the kernel takes S * G rows with G in {_GROUPS}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"verify attention kernel takes D in {_HEAD_DIMS}, got {d}")
+    if k_chunk.shape != (q.shape[0], q.shape[1], s, d):
+        raise ValueError(f"verify attention: chunk {tuple(k_chunk.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    return s, r // s
+
+
+def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask):
+    """The verify instance over an int8 window (``ks``, ``vs``, and the
+    round-tripped chunk ``k8c``.. ``vsc``) or, with those None, a dense
+    window of q's type."""
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"verify attention: unsupported device {q.device}")
+    s, g = _verify_shapes(q, k_chunk)
+    b, nkv, r, d = q.shape
+    w = k8.shape[2]
+    dense = ks is None
+    vec = _check_window(
+        q, k8, ks, v8, vs, mask,
+        {"k_chunk": (k_chunk, (b, nkv, s, d)), "v_chunk": (v_chunk, (b, nkv, s, d))},
+        None if dense else {"k8c": (k8c, (b, nkv, s, d)), "v8c": (v8c, (b, nkv, s, d)),
+                            "ksc": (ksc, (b, nkv, s, 1)), "vsc": (vsc, (b, nkv, s, 1))})
+    if not dense and (k8c.dtype != torch.int8 or v8c.dtype != torch.int8
+                      or ksc.dtype != torch.float32 or vsc.dtype != torch.float32):
+        raise ValueError("verify attention: the round-tripped chunk must be int8 with "
+                         "float32 scales")
+    q = q.contiguous()          # [B, NKV, S*G, D]: the chunk's rows, never the cache
+    k_chunk, v_chunk = k_chunk.contiguous(), v_chunk.contiguous()
+    if not dense:
+        k8c, ksc, v8c, vsc = (t.contiguous() for t in (k8c, ksc, v8c, vsc))
+    # One query row a block: on the H100 it beat tiles of 2 to 8 rows at
+    # every chunk length measured (the G = 1 instance holds 4 blocks an SM,
+    # and a (slot, head)'s row blocks re-read its window from L2).
+    splits = num_splits(b, nkv * r, w)
+    out = torch.empty((b, nkv, r, d), dtype=torch.float32, device=q.device)
+    # Every split's partials (acc [D], then m and l): the merge kernel
+    # joins the chunk term, one split or many.
+    part = torch.empty(b * nkv * r * splits * (d + 2), dtype=torch.float32, device=q.device)
+    scales = _scales(ks, vs)
+    rc = _verify_kernel()(
+        _DTYPES[q.dtype], int(dense), vec, q.data_ptr(),
+        k8.data_ptr(), k8.stride(0), k8.stride(1), k8.stride(2),
+        *scales[0],
+        v8.data_ptr(), v8.stride(0), v8.stride(1), v8.stride(2),
+        *scales[1],
+        k_chunk.data_ptr(), v_chunk.data_ptr(),
+        None if dense else k8c.data_ptr(), None if dense else ksc.data_ptr(),
+        None if dense else v8c.data_ptr(), None if dense else vsc.data_ptr(),
+        mask.data_ptr(), mask.stride(0),
+        out.data_ptr(), part.data_ptr(),
+        b, nkv, w, d, splits, split_len(w, splits), r, s, g, 1.0 / math.sqrt(d),
+        _build.current_stream(q.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"verify attention kernel launch failed: cudaError {rc}")
     launches += 1
     return out
 
@@ -275,3 +412,75 @@ def decode_attention_vpu(q, k8, ks, v8, vs, k_self, v_self, mask):
     if g != 1:
         raise ValueError(f"decode_attention_vpu requires G == 1, got {g}")
     return decode_attention(q, k8, ks, v8, vs, k_self, v_self, mask)
+
+
+def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None):
+    """The reference's verify attention (``models/llama.py:1083-1152`` of
+    the JAX package) on the kernel's layouts.  ``ks``/``vs``: the window's
+    scales (None for a dense window); ``rt``: the round-tripped chunk
+    ``(k8c, ksc, v8c, vsc)`` that the rows below the diagonal read (None:
+    every chunk key exact).  Scores and the softmax in f32, with the
+    reference's -1e9 biases; the probabilities cast to the product's type
+    (f64 for f64 inputs, else f32, as the kernel keeps them)."""
+    s, g = _verify_shapes(q, k_chunk)
+    d = q.shape[-1]
+    sqrt_d = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    scores = _einsum_f32("bnrd,bnwd->bnrw", q, k.to(q.dtype)) / sqrt_d
+    if ks is not None:
+        scores = scores * ks[..., 0].to(torch.float32)[:, :, None, :]
+    scores = scores + mask[:, :, None, :]
+    row_s = torch.arange(q.shape[2], device=q.device) // g
+    j = torch.arange(s, device=q.device)
+    eye = row_s[:, None] == j[None, :]                       # [S*G, S]
+    chunk = _einsum_f32("bnrd,bnjd->bnrj", q, k_chunk) / sqrt_d
+    if rt is not None:
+        k8c, ksc, _, _ = rt
+        below = _einsum_f32("bnrd,bnjd->bnrj", q, k8c.to(q.dtype)) / sqrt_d
+        chunk = torch.where(eye, chunk, below * ksc[..., 0].to(torch.float32)[:, :, None, :])
+    chunk = chunk + torch.where(j[None, :] <= row_s[:, None], 0.0, -1e9).to(torch.float32)
+    probs = torch.softmax(torch.cat([scores, chunk], dim=-1), dim=-1)
+    p_win, p_chunk = probs[..., :-s], probs[..., -s:]
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    if vs is not None:
+        p_win = p_win * vs[..., 0].to(torch.float32)[:, :, None, :]
+    ctx = torch.einsum("bnrw,bnwd->bnrd", p_win.to(wide), v.to(wide))
+    if rt is None:
+        return ctx + torch.einsum("bnrj,bnjd->bnrd", p_chunk.to(wide), v_chunk.to(wide))
+    _, _, v8c, vsc = rt
+    eyef = eye.to(probs.dtype)
+    ctx = ctx + torch.einsum("bnrj,bnjd->bnrd", (p_chunk * eyef).to(wide), v_chunk.to(wide))
+    below = p_chunk * (1.0 - eyef) * vsc[..., 0].to(torch.float32)[:, :, None, :]
+    return ctx + torch.einsum("bnrj,bnjd->bnrd", below.to(wide), v8c.to(wide))
+
+
+def verify_attention_reference(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc,
+                               mask):
+    """Plain PyTorch version of :func:`verify_attention`: the int8 window
+    with its scales, the chunk's exact diagonal and its round-tripped rows
+    below it.  Returns f32 (f64 for f64 inputs)."""
+    return _verify_chain(q, k8, v8, k_chunk, v_chunk, mask, ks, vs, (k8c, ksc, v8c, vsc))
+
+
+def verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask):
+    """Plain PyTorch version of :func:`verify_attention_dense`: every chunk
+    key exact, as on the dense cache.  Returns f32 (f64 for f64 inputs)."""
+    return _verify_chain(q, k, v, k_chunk, v_chunk, mask)
+
+
+def verify_attention(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask):
+    """Verify attention over an int8 window: S chunk rows a (slot, kv
+    head, group), the window under the strict mask plus the chunk's causal
+    keys, one launch.  CPU tensors take the plain version; CUDA tensors
+    the kernel, or a ``ValueError``."""
+    if q.device.type == "cpu":
+        return verify_attention_reference(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc,
+                                          v8c, vsc, mask)
+    return _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask)
+
+
+def verify_attention_dense(q, k, v, k_chunk, v_chunk, mask):
+    """Verify attention over a dense window of q's type.  CPU tensors take
+    the plain version; CUDA tensors the kernel, or a ``ValueError``."""
+    if q.device.type == "cpu":
+        return verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask)
+    return _launch_verify(q, k, None, v, None, k_chunk, v_chunk, None, None, None, None, mask)

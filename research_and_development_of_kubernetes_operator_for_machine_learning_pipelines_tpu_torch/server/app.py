@@ -46,7 +46,14 @@ Routes:
 
 Every response echoes ``X-Request-Id`` (the request's, a W3C
 ``traceparent`` trace id, or a new one), and every 400, 429 and 500 body
-of ``/generate`` carries it as ``request_id``.
+of ``/generate`` carries it as ``request_id``.  Each answered
+``/generate`` logs one completion line (logger
+``tpumlops_torch.server.requests``): rows, tokens, prefill chunks, prompt
+tokens served from the prefix cache and accepted/proposed draft tokens.
+
+The radix prefix cache (``--prefix-cache*``) and self-speculative n-gram
+decoding (``--speculative*``) are the reference's serving knobs, refused
+at startup with the reference's messages when out of range.
 """
 
 from __future__ import annotations
@@ -71,10 +78,13 @@ import torch
 
 from .batching import DynamicBatcher, apply_seq_pad, next_bucket
 from .engine import InferenceEngine
-from .generation import EngineOverloaded, EngineShutdown, GenerationEngine
+from .generation import EngineOverloaded, EngineShutdown, GenerationEngine, RequestStats
 from .metrics import CONTENT_TYPE, ServerMetrics
+from .prefix_cache import PrefixCacheConfig
+from .speculative import SpeculativeConfig
 
 _log = logging.getLogger("tpumlops_torch.server")
+_req_log = logging.getLogger("tpumlops_torch.server.requests")
 
 _GEN_PARAM_KEYS = frozenset(
     {"max_new_tokens", "eos_id", "temperature", "top_k", "top_p", "seed", "stream"}
@@ -159,6 +169,69 @@ class ServerConfig:
     predictor_name: str = "v1"
     deployment_name: str = ""
     namespace: str = "default"
+    # Radix prefix cache (spec.tpu.prefixCache).  The reuse unit follows
+    # prefill_chunk when unset (64 when that is unset too).
+    prefix_cache: bool = False
+    prefix_cache_budget_mb: int = 256
+    prefix_cache_chunk: int | None = None
+    prefix_cache_l2_budget_mb: int = 0
+    # Self-speculative n-gram decoding (spec.tpu.speculative).
+    speculative: bool = False
+    speculative_draft_tokens: int = 4
+    speculative_ngram_min: int = 1
+    speculative_ngram_max: int = 4
+    speculative_adaptive: bool = True
+
+    def __post_init__(self):
+        """The reference's startup checks of both features (its
+        ``PrefixCacheSpec`` and ``SpeculativeSpec``), only when enabled."""
+        if self.prefix_cache:
+            chunk = self.prefix_cache_chunk_tokens
+            if self.prefill_chunk is not None and chunk != self.prefill_chunk:
+                raise ValueError(
+                    f"prefixCache.chunkTokens {chunk} must equal prefillChunk "
+                    f"{self.prefill_chunk} (the prefill chunk is the prefix reuse "
+                    "unit); omit chunkTokens to follow prefillChunk"
+                )
+            if self.prefix_cache_budget_mb < 1:
+                raise ValueError(
+                    f"prefixCache.budgetMB must be >= 1, got {self.prefix_cache_budget_mb}")
+            if chunk < 1:
+                raise ValueError(f"prefixCache.chunkTokens must be >= 1, got {chunk}")
+            if self.prefix_cache_l2_budget_mb < 0:
+                raise ValueError(
+                    f"prefixCache.l2BudgetMB must be >= 0, got {self.prefix_cache_l2_budget_mb}")
+        if self.speculative:
+            if not (1 <= self.speculative_draft_tokens <= 64):
+                raise ValueError(
+                    f"speculative.draftTokens must be in [1, 64], got "
+                    f"{self.speculative_draft_tokens}")
+            if not (1 <= self.speculative_ngram_min <= self.speculative_ngram_max):
+                raise ValueError(
+                    "speculative ngram bounds must satisfy 1 <= ngramMin <= ngramMax, got "
+                    f"[{self.speculative_ngram_min}, {self.speculative_ngram_max}]")
+
+    @property
+    def prefix_cache_chunk_tokens(self) -> int:
+        if self.prefix_cache_chunk is not None:
+            return int(self.prefix_cache_chunk)
+        return int(self.prefill_chunk or 64)
+
+    def prefix_cache_config(self) -> PrefixCacheConfig | None:
+        if not self.prefix_cache:
+            return None
+        return PrefixCacheConfig(
+            enabled=True, budget_bytes=self.prefix_cache_budget_mb * 2**20,
+            chunk_tokens=self.prefix_cache_chunk_tokens,
+            l2_budget_bytes=self.prefix_cache_l2_budget_mb * 2**20)
+
+    def speculative_config(self) -> SpeculativeConfig | None:
+        if not self.speculative:
+            return None
+        return SpeculativeConfig(
+            enabled=True, draft_tokens=self.speculative_draft_tokens,
+            ngram_min=self.speculative_ngram_min, ngram_max=self.speculative_ngram_max,
+            adaptive=self.speculative_adaptive)
 
 
 def make_gen_engine(predictor, config: ServerConfig,
@@ -185,6 +258,36 @@ def make_gen_engine(predictor, config: ServerConfig,
         on_tick=m.observe_tick,
         on_shed=m.inc_shed,
         on_dispatch=m.inc_dispatch,
+        prefix_cache=config.prefix_cache_config(),
+        on_prefix_hit=m.observe_prefix_hit,
+        on_prefix_evict=m.inc_prefix_evictions,
+        on_prefix_l2=m.inc_prefix_l2,
+        speculative=config.speculative_config(),
+        on_spec=m.observe_speculative,
+    )
+
+
+def request_summary(request_id: str, outs, stats) -> dict:
+    """One /generate request's totals over its rows (the completion log
+    line's fields)."""
+    return {
+        "request_id": request_id,
+        "rows": len(stats),
+        "tokens": sum(len(o) for o in outs),
+        "prefill_chunks": sum(s.prefill_chunks for s in stats),
+        "cached_tokens": sum(s.cached_tokens for s in stats),
+        "spec_proposed": sum(s.spec_proposed for s in stats),
+        "spec_accepted": sum(s.spec_accepted for s in stats),
+    }
+
+
+def _log_completion(summary: dict, code: int) -> None:
+    _req_log.info(
+        "generate done request_id=%s code=%d rows=%d tokens=%d prefill_chunks=%d "
+        "cached_tokens=%d spec_accepted=%d/%d",
+        summary["request_id"], code, summary["rows"], summary["tokens"],
+        summary["prefill_chunks"], summary["cached_tokens"], summary["spec_accepted"],
+        summary["spec_proposed"],
     )
 
 
@@ -427,7 +530,8 @@ class ModelServer(ThreadingHTTPServer):
             raise ValueError("stream=true supports exactly one prompt")
         return prompts, max_new, eos_id, sampling, stream
 
-    def generate(self, body: dict, prompts, max_new, eos_id, sampling) -> dict:
+    def generate(self, body: dict, prompts, max_new, eos_id, sampling,
+                 request_id: str = "") -> dict:
         def row_seed(i: int) -> int | None:
             # Distinct stream per row, reproducible from the request seed.
             base = sampling["seed"]
@@ -436,14 +540,16 @@ class ModelServer(ThreadingHTTPServer):
         # Reserve the whole request's estimate first: admitted whole or
         # shed whole, never siblings generating into abandoned futures.
         self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts))
+        stats = [RequestStats() for _ in prompts]
         futures = [
             self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
-                               est_reserved=True)
+                               est_reserved=True, stats=stats[i])
             for i, p in enumerate(prompts)
         ]
         wait(futures)
         outs = [f.result() for f in futures]
         self.note_first_token()
+        _log_completion(request_summary(request_id, outs, stats), 200)
         return {
             "model_name": self.model_name,
             "id": body.get("id", ""),
@@ -597,7 +703,8 @@ class _Handler(BaseHTTPRequestHandler):
                 if stream:
                     code = self._stream(prompts[0], max_new, eos_id, sampling)
                     return
-                payload = srv.generate(body, prompts, max_new, eos_id, sampling)
+                payload = srv.generate(body, prompts, max_new, eos_id, sampling,
+                                       request_id=self._rid)
         except EngineOverloaded as e:
             code, headers = 429, {"Retry-After": str(e.retry_after_s)}
             payload = {"error": str(e), "reason": e.reason,
@@ -627,8 +734,9 @@ class _Handler(BaseHTTPRequestHandler):
         before the status line is sent."""
         srv = self.server
         tokens: queue.Queue = queue.Queue()
+        stats = RequestStats()
         fut = srv.engine.submit(prompt, max_new, eos_id, **sampling,
-                                on_token=tokens.put)
+                                on_token=tokens.put, stats=stats)
         fut.add_done_callback(lambda f: tokens.put(None))
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -653,7 +761,9 @@ class _Handler(BaseHTTPRequestHandler):
                 code = 500
                 self._sse_error("engine_failed", str(fut.exception()))
             else:
-                self._event({"done": True, "output_ids": fut.result().tolist()})
+                out = fut.result()
+                self._event({"done": True, "output_ids": out.tolist()})
+                _log_completion(request_summary(self._rid, [out], [stats]), code)
             self._chunk(b"")
         except OSError:
             # The client went away: cancel, so the slot frees at the
@@ -763,10 +873,7 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     return srv
 
 
-def main(argv: list[str] | None = None) -> None:
-    from .loader import load_predictor
-
-    boot_wall = time.time()
+def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Serve a native or HF artifact: a Llama over /generate or a "
                     "classifier over /v2/models/{name}/infer.")
@@ -788,15 +895,44 @@ def main(argv: list[str] | None = None) -> None:
                     help="seconds SIGTERM and POST /admin/drain wait for in-flight "
                          "requests (streams included) to finish after admissions "
                          "stop, before teardown")
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="1 enables the radix prefix KV cache (shared prompt prefixes "
+                         "prefill once and are copied thereafter)")
+    ap.add_argument("--prefix-cache-budget-mb", type=int, default=256,
+                    help="host-memory byte budget for cached prefix K/V (LRU eviction)")
+    ap.add_argument("--prefix-cache-chunk", type=int, default=0,
+                    help="prefix reuse unit in tokens (0 = follow --prefill-chunk, or "
+                         "64 when that is unset too); an explicit mismatch with "
+                         "--prefill-chunk is rejected at startup")
+    ap.add_argument("--prefix-cache-l2-budget-mb", type=int, default=0,
+                    help="second-tier host-RAM pool for evicted prefix chunks (LRU "
+                         "under this budget, promoted back on a radix-walk miss); 0 "
+                         "= single tier")
+    ap.add_argument("--speculative", type=int, default=0,
+                    help="1 enables self-speculative n-gram decoding (draft from the "
+                         "sequence's own history, verify k+1 positions per forward; "
+                         "greedy-exact output)")
+    ap.add_argument("--speculative-draft-tokens", type=int, default=4,
+                    help="max draft tokens per slot per verify tick")
+    ap.add_argument("--speculative-ngram-min", type=int, default=1,
+                    help="shortest history suffix the n-gram drafter may match")
+    ap.add_argument("--speculative-ngram-max", type=int, default=4,
+                    help="longest history suffix tried first")
+    ap.add_argument("--speculative-adaptive", type=int, default=1,
+                    help="1: per-slot draft length halves on consecutive zero-accept "
+                         "verifies and regrows on success; 0: fixed draft length")
     ap.add_argument("--predictor-name", default="v1")
     ap.add_argument("--deployment-name", default="")
     ap.add_argument("--namespace", default="default")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; the CPU only when named)")
-    args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    config = ServerConfig(
+    return ap
+
+
+def config_from_args(args: argparse.Namespace) -> ServerConfig:
+    """The parsed command line as a :class:`ServerConfig`; bad feature
+    values raise ``ValueError`` here, before any model loads."""
+    return ServerConfig(
         model_name=args.model_name, host=args.host, port=args.port,
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
         prefill_chunk=args.prefill_chunk, device=args.device,
@@ -805,7 +941,26 @@ def main(argv: list[str] | None = None) -> None:
         drain_grace_s=args.drain_grace_seconds,
         predictor_name=args.predictor_name, deployment_name=args.deployment_name,
         namespace=args.namespace,
+        prefix_cache=bool(args.prefix_cache),
+        prefix_cache_budget_mb=args.prefix_cache_budget_mb,
+        prefix_cache_chunk=args.prefix_cache_chunk or None,
+        prefix_cache_l2_budget_mb=args.prefix_cache_l2_budget_mb,
+        speculative=bool(args.speculative),
+        speculative_draft_tokens=args.speculative_draft_tokens,
+        speculative_ngram_min=args.speculative_ngram_min,
+        speculative_ngram_max=args.speculative_ngram_max,
+        speculative_adaptive=bool(args.speculative_adaptive),
     )
+
+
+def main(argv: list[str] | None = None) -> None:
+    from .loader import load_predictor
+
+    boot_wall = time.time()
+    args = build_arg_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    config = config_from_args(args)
     t_load = time.perf_counter()
     predictor = load_predictor(
         args.model_uri, quantize=args.quantize, device=args.device,

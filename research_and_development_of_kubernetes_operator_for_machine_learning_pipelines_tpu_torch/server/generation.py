@@ -29,18 +29,37 @@ while draining, ``submit``/``reserve_admission`` raise
 429).  ``begin_drain`` stops admissions and lets every submitted request
 finish; ``drained`` says when none is left.
 
+Radix prefix cache (``prefix_cache``, ``server/prefix_cache.py``): a
+chunked admission looks its prompt up in whole chunks; a hit spends one
+tick ("seed") copying the cached K/V into the batch-1 scratch cache at
+each chunk's offset, and only the suffix is prefilled (its chunks run the
+flash kernel at their offset).  Every full chunk of real prompt tokens
+prefilled fresh is read back to the host and inserted, unless the tree
+holds it already.  The reuse unit is the prefill chunk.
+
+Self-speculative decoding (``speculative``, ``server/speculative.py``): a
+greedy tick in which any slot has an n-gram draft runs ONE verify forward
+(``llama.verify_ragged``, the decode kernel's chunk instance) over the
+pending token and the drafts, and emits each slot's accepted draft prefix
+plus the bonus token; the tokens are the plain greedy path's.  A tick
+with a sampling slot, or with no draft, is the plain decode tick.
+
 Hooks (all optional, called on the scheduler thread): ``on_step`` per
-decode tick and idle pass, ``on_tokens``/``on_itl`` per emitted token,
-``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per finished
-request, ``on_tick``/``on_dispatch`` per device dispatch, ``on_shed`` per
-refused request (on the submitting thread); ``submit(on_token=...)``
-streams one request's tokens.
+decode or verify tick and idle pass, ``on_tokens``/``on_itl`` per emitted
+token, ``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per
+finished request, ``on_tick``/``on_dispatch`` per device dispatch,
+``on_prefix_hit`` (cached tokens) per warm admission, ``on_prefix_evict``
+per chunk the first tier evicts, ``on_prefix_l2`` (``hit``/``spill``/
+``evict``) per second-tier event, ``on_spec`` (proposed, accepted) per
+slot with a draft in a verify tick, ``on_shed`` per refused request (on
+the submitting thread); ``submit(on_token=...)`` streams one request's
+tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
+and draft tokens.
 
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): the prefix cache, speculative decoding, packed prefill,
-multi-step decode, the unified super-step, SLO classes and preemption,
-the mesh, multi-host, the watchdog, the flight recorder, device
-telemetry and poison quarantine.
+asked for): packed prefill, multi-step decode, the unified super-step,
+SLO classes and preemption, the mesh, multi-host, the watchdog, the
+flight recorder, device telemetry and poison quarantine.
 """
 
 from __future__ import annotations
@@ -59,8 +78,10 @@ import torch
 
 from ..models import llama
 from ..models import prng
-from ..models.sampling import sample_logits, split_keys
+from ..models.sampling import sample_logits, speculative_accept, split_keys
 from .batching import next_bucket
+from .prefix_cache import RadixPrefixCache
+from .speculative import DraftState, draft_chain, pad_to_chain, propose_ngram
 
 _log = logging.getLogger("tpumlops_torch.generation")
 
@@ -145,6 +166,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 @dataclass
+class RequestStats:
+    """One request's engine-side counts, filled on the scheduler thread
+    (``submit(stats=...)``); the HTTP layer's completion summary sums
+    them over a request's rows."""
+
+    prefill_chunks: int = 0  # prefill forwards (a whole prompt counts 1)
+    cached_tokens: int = 0  # prompt tokens seeded from the prefix cache
+    spec_proposed: int = 0  # draft tokens verified
+    spec_accepted: int = 0  # draft tokens accepted
+
+
+@dataclass
 class _Slot:
     future: Future
     remaining: int  # new tokens still to produce
@@ -154,6 +187,14 @@ class _Slot:
     prompt_len: int = 0  # for the decode attention window
     generated: list[int] = field(default_factory=list)
     t_last_token: float = 0.0  # perf_counter of the last emitted token (ITL)
+    stats: RequestStats | None = None
+    # Speculation only (None / 0 otherwise): prompt + generated tokens,
+    # appended in place (the drafter's context, no per-tick concatenation;
+    # validate() caps prompt + max_new at capacity), and the slot's
+    # adaptive draft budget.
+    history: np.ndarray | None = None  # int64 [capacity]; valid: [:hist_len]
+    hist_len: int = 0
+    draft: DraftState | None = None
 
 
 @dataclass
@@ -171,16 +212,23 @@ class _Request:
     # Estimated tokens (prompt + max_new) held against the admission
     # budget while queued; released once, at dequeue.
     est_tokens: int = 0
+    stats: RequestStats | None = None
 
 
 @dataclass(eq=False)  # identity semantics: numpy fields
 class _PrefillProgress:
     """A chunked admission in flight (at most one: the batch-1 scratch
-    cache serializes admissions)."""
+    cache serializes admissions).  With a radix-cached prefix
+    (``cached_tokens`` > 0), ``chunks`` covers only the uncached suffix:
+    the prefix's K/V (``cached_kv``, one host pair a chunk) is seeded into
+    the scratch cache by one tick and never re-prefilled."""
 
     req: _Request
-    chunks: list  # padded [1, C] int32 arrays
+    chunks: list  # padded [1, C] int32 arrays (the uncached suffix)
     next_idx: int = 0
+    cached_tokens: int = 0
+    cached_kv: list = field(default_factory=list)
+    seeded: bool = False
 
 
 # Engine options of the reference that this port does not have yet, with
@@ -188,8 +236,6 @@ class _PrefillProgress:
 # silently ignored.
 _NOT_PORTED = {
     "channel": None,
-    "prefix_cache": None,
-    "speculative": None,
     "prefill_batch": 1,
     "prefill_token_budget": 0,
     "recorder": None,
@@ -206,10 +252,6 @@ _NOT_PORTED = {
 def _is_off(name: str, value) -> bool:
     if value is None or value == _NOT_PORTED[name]:
         return True
-    if name == "prefix_cache":
-        return not getattr(value, "enabled", True)
-    if name == "speculative":
-        return not getattr(value, "enabled", True)
     if name == "mesh_shape":
         return int(np.prod([int(n) for n in dict(value).values()] or [1])) == 1
     return False
@@ -243,6 +285,12 @@ class GenerationEngine:
         on_tick: Callable[[str, float], None] | None = None,
         on_shed: Callable[[str], None] | None = None,
         on_dispatch: Callable[[str], None] | None = None,
+        prefix_cache=None,  # PrefixCacheConfig | None
+        on_prefix_hit: Callable[[int], None] | None = None,
+        on_prefix_evict: Callable[[], None] | None = None,
+        on_prefix_l2: Callable[[str], None] | None = None,
+        speculative=None,  # SpeculativeConfig | None
+        on_spec: Callable[[int, int], None] | None = None,
         **unported,
     ):
         for name, value in unported.items():
@@ -281,6 +329,22 @@ class GenerationEngine:
         self.on_shed = on_shed  # reason of a refused request
         self.on_dispatch = on_dispatch  # kind per device dispatch
         self._prefill_chunk_size = int(prefill_chunk) if prefill_chunk else None
+        # Radix prefix cache: the reuse unit IS the prefill chunk, so the
+        # cache turns chunked prefill on at chunk_tokens when no chunk is
+        # set, and a chunk that differs is refused.
+        prefix_enabled = prefix_cache is not None and prefix_cache.enabled
+        if prefix_enabled:
+            ct = int(prefix_cache.chunk_tokens)
+            if ct <= 0:
+                raise ValueError(f"prefixCache.chunkTokens must be positive, got {ct}")
+            if self._prefill_chunk_size is None:
+                self._prefill_chunk_size = ct
+            elif self._prefill_chunk_size != ct:
+                raise ValueError(
+                    f"prefixCache.chunkTokens {ct} must equal prefillChunk "
+                    f"{self._prefill_chunk_size}: the prefill chunk is the "
+                    "prefix reuse unit"
+                )
         if self._prefill_chunk_size is not None:
             C = self._prefill_chunk_size
             if C <= 0:
@@ -289,11 +353,46 @@ class GenerationEngine:
                 raise ValueError(
                     f"prefill_chunk {C} must divide KV capacity {self.capacity}"
                 )
+        self._on_prefix_hit = on_prefix_hit
+        self._on_prefix_evict = on_prefix_evict
+        self._on_prefix_l2 = on_prefix_l2
+        self._prefix_cache = None
+        if prefix_enabled:
+            self._prefix_cache = RadixPrefixCache(
+                budget_bytes=int(prefix_cache.budget_bytes),
+                chunk_tokens=self._prefill_chunk_size,
+                on_evict=self._note_prefix_evict,
+                l2_budget_bytes=int(prefix_cache.l2_budget_bytes),
+                on_l2_event=self._note_prefix_l2,
+            )
+        # Self-speculative n-gram decoding; None is the plain tick.  The
+        # reference compiles a verify program per (draft length, window)
+        # at warmup; the port runs eagerly, so there is nothing to warm.
+        self._spec = None
+        self._spec_chain: tuple[int, ...] = ()
+        self._on_spec = on_spec
+        if speculative is not None and speculative.enabled:
+            dt = int(speculative.draft_tokens)
+            if dt < 1:
+                raise ValueError(f"speculative.draftTokens must be >= 1, got {dt}")
+            if not (1 <= int(speculative.ngram_min) <= int(speculative.ngram_max)):
+                raise ValueError(
+                    "speculative ngram bounds must satisfy 1 <= ngramMin <= ngramMax, "
+                    f"got [{speculative.ngram_min}, {speculative.ngram_max}]"
+                )
+            self._spec = speculative
+            self._spec_chain = draft_chain(dt)
         # Device dispatches by tick kind, as the reference keeps them.
         self.dispatches_total: dict[str, int] = {}
         self.tokens_generated = 0
         self.prefill_forwards = 0  # whole-prompt prefills + chunk forwards
-        self.decode_forwards = 0
+        self.decode_forwards = 0  # decode and verify ticks
+        self.prefix_hits = 0
+        self.prefix_cached_tokens = 0
+        self.prefix_evictions = 0
+        self.spec_verify_ticks = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._pending: list[_PrefillProgress] = []
         self._seq_state = None  # (last_logits, seq KVCache) of a chunked admission
@@ -335,7 +434,9 @@ class GenerationEngine:
 
     def start(self, warmup: bool = True) -> None:
         """Start the scheduler thread.  ``warmup`` builds the CUDA kernels
-        first (nothing to compile on the CPU), so no request pays nvcc."""
+        first (nothing to compile on the CPU), so no request pays nvcc.
+        It admits no prompt, so nothing reads or fills the prefix cache
+        before the first request."""
         if warmup and self._device.type == "cuda":
             from ..ops import _build
 
@@ -433,13 +534,15 @@ class GenerationEngine:
         seed: int | None = None,
         on_token: Callable[[int], None] | None = None,
         est_reserved: bool = False,
+        stats: RequestStats | None = None,
     ) -> Future:
         """Enqueue one request; returns its future.  Sheds with
         :class:`EngineOverloaded` before enqueueing anything, unless the
         caller already took the reservation (``est_reserved``, a
         multi-prompt request's whole reservation through
         :meth:`reserve_admission`).  ``on_token`` is called on the
-        scheduler thread with each emitted token."""
+        scheduler thread with each emitted token; ``stats``, when given,
+        receives the request's counts."""
         prompt = self.validate(
             prompt_ids, max_new_tokens, temperature, top_k, top_p, seed
         )
@@ -465,6 +568,7 @@ class GenerationEngine:
                 on_token=on_token,
                 t_submit=time.perf_counter(),
                 est_tokens=est,
+                stats=stats,
             )
         )
         return fut
@@ -620,7 +724,22 @@ class GenerationEngine:
             sampling=req.temperature > 0,
             on_token=req.on_token,
             prompt_len=int(req.prompt.size),
+            stats=req.stats,
+            **self._spec_slot_state(req),
         )
+
+    def _spec_slot_state(self, req: _Request) -> dict:
+        """Per-slot speculative state (empty when speculation is off)."""
+        if self._spec is None:
+            return {}
+        history = np.empty((self.capacity,), np.int64)
+        L = int(req.prompt.size)
+        history[:L] = req.prompt
+        return {
+            "history": history,
+            "hist_len": L,
+            "draft": DraftState(self._spec.draft_tokens, adaptive=self._spec.adaptive),
+        }
 
     def _admit(self, req: _Request) -> None:
         """Whole-prompt admission: prefill the bucket-padded prompt and
@@ -635,6 +754,8 @@ class GenerationEngine:
         t0 = time.perf_counter()
         first = self._device_admit(ids, slot_idx, L, slot_key, req)
         self.prefill_forwards += 1
+        if req.stats is not None:
+            req.stats.prefill_chunks += 1
         self._record_tick("prefill", time.perf_counter() - t0)
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
@@ -671,16 +792,107 @@ class GenerationEngine:
         self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
         return self._install_slot(slot_idx, last_logits[last_idx], slot_key, req)
 
+    # -- radix prefix cache --------------------------------------------------
+
+    def _make_progress(self, req: _Request) -> _PrefillProgress:
+        """Chunked-admission plan: the longest radix-cached prefix (to
+        seed) and the uncached suffix (to prefill)."""
+        cached_tokens, cached_kv = 0, []
+        if self._prefix_cache is not None:
+            cached_tokens, cached_kv = self._prefix_cache.lookup(req.prompt)
+        return _PrefillProgress(
+            req=req,
+            chunks=self._split_chunks(req.prompt[cached_tokens:]),
+            cached_tokens=cached_tokens,
+            cached_kv=cached_kv,
+        )
+
+    def _note_prefix_evict(self, nbytes: int) -> None:
+        self.prefix_evictions += 1
+        if self._on_prefix_evict is not None:
+            self._on_prefix_evict()
+
+    def _note_prefix_l2(self, kind: str) -> None:
+        if self._on_prefix_l2 is not None:
+            self._on_prefix_l2(kind)
+
+    def _device_seed(self, cached_kv: list, length: int) -> None:
+        """A fresh scratch cache with the cached chunks copied in at their
+        offsets (host to card; one DMA a tensor from pinned host memory),
+        its length set to ``length``.  No logits yet: a suffix chunk always
+        follows (the match stops below the prompt length)."""
+        seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device)
+        C = self._prefill_chunk_size
+        for i, (ck, cv) in enumerate(cached_kv):
+            seq.k[:, :, i * C:(i + 1) * C].copy_(ck, non_blocking=True)
+            seq.v[:, :, i * C:(i + 1) * C].copy_(cv, non_blocking=True)
+        self._seq_state = (None, seq._replace(length=int(length)))
+
+    def _read_chunk(self, start: int):
+        """The scratch cache's K/V ``[L, 1, C, NKV, D]`` at ``start``,
+        copied to host memory (pinned on a CUDA engine, so a later seed is
+        one DMA).  The copy waits for the chunk's forward."""
+        _, seq = self._seq_state
+        C = self._prefill_chunk_size
+        pin = self._device.type == "cuda"
+        out = []
+        for buf in (seq.k, seq.v):
+            src = buf[:, :, start:start + C]
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
+            host.copy_(src)
+            out.append(host)
+        return out
+
+    def _maybe_cache_chunk(self, prog: _PrefillProgress) -> None:
+        """Write the chunk just prefilled (``prog.next_idx``) back into the
+        radix cache: full chunks of real prompt tokens only (a padded tail
+        holds pad-token K/V), and only chunks the tree does not hold (the
+        read off the card waits for the forward, so each unique chunk pays
+        it once)."""
+        if self._prefix_cache is None:
+            return
+        C = self._prefill_chunk_size
+        L = int(prog.req.prompt.size)
+        start = prog.cached_tokens + prog.next_idx * C
+        if start + C > L:
+            return
+        chunk_idx = start // C
+        if self._prefix_cache.has_chunk(prog.req.prompt, chunk_idx):
+            return
+        ck, cv = self._read_chunk(start)
+        self._prefix_cache.insert_chunk(prog.req.prompt, chunk_idx, ck, cv)
+
     def _chunk_tick(self) -> None:
-        """Advance the in-flight chunked admission by ONE prefill chunk; on
-        the final chunk, install the sequence into its slot."""
+        """Advance the in-flight chunked admission by ONE device op: a
+        prefix-cache seed or one prefill chunk; on the final chunk, install
+        the sequence into its slot."""
         assert self._pending
         prog = self._pending[0]
+        stats = prog.req.stats
+        if prog.cached_tokens and not prog.seeded:
+            # Cached-prefix hit: one seed copies the cached K/V into a
+            # fresh scratch cache; those tokens never re-prefill.  The
+            # suffix chunks start next tick (the decode cadence is kept).
+            t0 = time.perf_counter()
+            self._device_seed(prog.cached_kv, prog.cached_tokens)
+            prog.seeded = True
+            prog.cached_kv = []  # the cache keeps the host copies
+            self.prefix_hits += 1
+            self.prefix_cached_tokens += prog.cached_tokens
+            if stats is not None:
+                stats.cached_tokens += prog.cached_tokens
+            if self._on_prefix_hit is not None:
+                self._on_prefix_hit(prog.cached_tokens)
+            self._record_tick("seed", time.perf_counter() - t0)
+            return
         ids = prog.chunks[prog.next_idx]
         t0 = time.perf_counter()
-        self._device_chunk(ids, fresh=prog.next_idx == 0)
+        self._device_chunk(ids, fresh=prog.next_idx == 0 and not prog.seeded)
         self.prefill_forwards += 1
+        if stats is not None:
+            stats.prefill_chunks += 1
         self._record_tick("prefill", time.perf_counter() - t0)
+        self._maybe_cache_chunk(prog)
         prog.next_idx += 1
         if prog.next_idx < len(prog.chunks):
             return
@@ -694,7 +906,7 @@ class GenerationEngine:
         t0 = time.perf_counter()
         first = self._device_insert(
             slot_idx, L, slot_key, req,
-            last_idx=(L - 1) - C * (len(prog.chunks) - 1),
+            last_idx=(L - 1) - prog.cached_tokens - C * (len(prog.chunks) - 1),
         )
         self._record_tick("prefill", time.perf_counter() - t0)
         self._slots[slot_idx] = self._new_slot(req)
@@ -712,6 +924,9 @@ class GenerationEngine:
             self._slots[slot_idx] = None
             return
         slot.generated.append(token)
+        if slot.history is not None and slot.hist_len < slot.history.size:
+            slot.history[slot.hist_len] = token
+            slot.hist_len += 1
         slot.remaining -= 1
         now = time.perf_counter()
         if slot.t_last_token > 0.0 and self.on_itl is not None:
@@ -746,7 +961,9 @@ class GenerationEngine:
             self.on_step(active, wall_s, self._queue.qsize(), len(self._pending))
 
     def _step(self) -> None:
-        """One batched decode tick over every occupied slot."""
+        """One batched decode tick over every occupied slot.  With
+        speculation on and every occupied slot greedy, a tick in which any
+        slot drafts is a verify tick instead."""
         active_np = np.array([s is not None for s in self._slots])
         if not active_np.any():
             # Idle heartbeat: the occupancy gauges must not freeze at
@@ -760,6 +977,11 @@ class GenerationEngine:
         )
         window = decode_window_bucket(needed, self.capacity)
         sampling = any(s is not None and s.sampling for s in self._slots)
+        if self._spec is not None and not sampling:
+            drafts = self._collect_drafts()
+            if any(drafts):
+                self._verify_tick(active_np, window, drafts)
+                return
         t0 = time.perf_counter()
         self._device_step(active_np, window, sampling)
         toks = self._tokens[:, 0].cpu().numpy()
@@ -787,6 +1009,87 @@ class GenerationEngine:
             nxt = torch.argmax(last, dim=-1)
         # Finished slots keep their last token so their rows stay inert.
         self._tokens = torch.where(active, nxt.to(torch.int64), self._tokens[:, 0])[:, None]
+
+    # -- self-speculative decoding (n-gram draft + batched verify) ----------
+
+    def _collect_drafts(self) -> list[list[int]]:
+        """Each slot's draft for this tick (``[]``: none).  The budget is
+        the slot's adaptive length capped at ``remaining - 1``: a verify
+        emits up to budget + 1 tokens, never past the request."""
+        drafts: list[list[int]] = []
+        for slot in self._slots:
+            if slot is None or slot.draft is None:
+                drafts.append([])
+                continue
+            budget = min(slot.draft.budget(), slot.remaining - 1)
+            drafts.append(self._propose(slot, budget) if budget >= 1 else [])
+        return drafts
+
+    def _propose(self, slot: _Slot, budget: int) -> list[int]:
+        """The n-gram ("prompt lookup") draft from the slot's own history;
+        a method of its own so a test can put an oracle in its place."""
+        return propose_ngram(slot.history[: slot.hist_len], budget,
+                             self._spec.ngram_min, self._spec.ngram_max)
+
+    def _verify_tick(self, active_np, window: int, drafts) -> None:
+        """One draft + verify pass: each slot's pending token and draft,
+        padded to the halving chain, in ONE forward; each slot emits its
+        accepted draft prefix and the greedy token after it."""
+        s_draft = pad_to_chain(max(len(d) for d in drafts), self._spec_chain)
+        toks = np.zeros((self.max_slots, s_draft + 1), np.int32)
+        draft_len = np.zeros((self.max_slots,), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            toks[i, 0] = slot.generated[-1]  # the pending (emitted, unfed) token
+            toks[i, 1:1 + len(drafts[i])] = drafts[i]
+            draft_len[i] = len(drafts[i])
+        t0 = time.perf_counter()
+        greedy, accepted = self._device_verify(toks, active_np, draft_len, window)
+        wall = time.perf_counter() - t0
+        self.decode_forwards += 1
+        self.spec_verify_ticks += 1
+        self._record_tick("verify", wall)
+        self._note_step(int(active_np.sum()), wall)
+        for i, was_active in enumerate(active_np):
+            slot = self._slots[i]
+            if not was_active or slot is None:
+                continue
+            n_prop, n_acc = int(draft_len[i]), int(accepted[i])
+            slot.draft.observe(n_prop, n_acc)
+            if n_prop:
+                self.spec_proposed_tokens += n_prop
+                self.spec_accepted_tokens += n_acc
+                if slot.stats is not None:
+                    slot.stats.spec_proposed += n_prop
+                    slot.stats.spec_accepted += n_acc
+                if self._on_spec is not None:
+                    self._on_spec(n_prop, n_acc)
+            # The accepted draft prefix, then the bonus token; stop early
+            # when the slot finishes (EOS, budget) or was cancelled.
+            for j in range(n_acc + 1):
+                self._record_token(i, int(greedy[i, j]))
+                if self._slots[i] is None:
+                    break
+
+    def _device_verify(self, toks, active_np, draft_len, window):
+        """``verify_ragged``, the greedy argmax, ``speculative_accept``,
+        then each active row's length advanced by accepted + 1 (the
+        rejected positions' writes are never attended).  Returns host
+        ``(greedy [B, S], accepted [B])``."""
+        dev = self._device
+        toks_t = torch.as_tensor(toks, dtype=torch.int64, device=dev)
+        active = torch.as_tensor(active_np, device=dev)
+        logits, self._cache = llama.verify_ragged(
+            self._params, toks_t, self._cache, self._cfg, self._dtype, window, active,
+        )
+        greedy = torch.argmax(logits, dim=-1)
+        accepted, nxt = speculative_accept(
+            toks_t, greedy, torch.as_tensor(draft_len, device=dev))
+        self._tokens = torch.where(active, nxt.to(torch.int64), toks_t[:, 0])[:, None]
+        advance = torch.where(active, accepted + 1, 0).to(torch.int32)
+        self._cache = self._cache._replace(lengths=self._cache.lengths + advance)
+        return greedy.cpu().numpy(), accepted.cpu().numpy()
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -836,10 +1139,8 @@ class GenerationEngine:
                 return False
             self._note_admission_wait(req)
             if self._prefill_chunk_size is not None:
-                self._pending.append(
-                    _PrefillProgress(req=req, chunks=self._split_chunks(req.prompt))
-                )
-                return True  # first chunk runs next iteration's admit phase
+                self._pending.append(self._make_progress(req))
+                return True  # first chunk (or seed) runs next iteration's admit phase
             try:
                 self._admit(req)
             except Exception as exc:  # keep the scheduler alive

@@ -36,6 +36,10 @@ _DECODE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 _ADMISSION_WAIT_MS_BUCKETS = (0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
                               2500, 5000, 10000)
 _REQUEST_TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+# Accepted draft length per (slot, verify); the top finite bucket is the
+# draftTokens ceiling (64).
+_SPEC_ACCEPTED_LEN_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+_SPEC_ACCEPTANCE_RATE_BUCKETS = (0.0, 0.25, 0.5, 0.75, 0.999, 1.0)
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -215,14 +219,48 @@ class ServerMetrics:
             ident, _REQUEST_TOKEN_BUCKETS, lock)
         self.tick_seconds = Histogram(
             "tpumlops_tick_seconds",
-            "Engine tick wall time by kind (decode/prefill); the port's "
-            "eager ticks read their tokens back, so each wall covers its "
-            "device time",
+            "Engine tick wall time by kind (decode/verify/prefill/seed); the "
+            "port's decode and verify ticks read their tokens back, so their "
+            "walls cover their device time",
             ident + ["kind"], _LATENCY_BUCKETS, lock)
         self.engine_dispatches = Counter(
             "tpumlops_engine_dispatches",
-            "Engine device dispatches by tick kind (decode/prefill)",
+            "Engine device dispatches by tick kind (decode/verify/prefill/seed)",
             ident + ["op"], lock)
+        # Radix prefix cache (server/prefix_cache.py) and its host L2.
+        self.prefix_cache_hits = Counter(
+            "tpumlops_prefix_cache_hits",
+            "Admissions that reused a radix-cached prompt prefix", ident, lock)
+        self.prefix_cache_cached_tokens = Counter(
+            "tpumlops_prefix_cache_cached_tokens",
+            "Prompt tokens served from the prefix KV cache (prefill skipped)", ident, lock)
+        self.prefix_cache_evictions = Counter(
+            "tpumlops_prefix_cache_evictions",
+            "Prefix-cache chunks evicted under the byte budget (LRU)", ident, lock)
+        self.prefix_cache_l2_hits = Counter(
+            "tpumlops_prefix_cache_l2_hits",
+            "Radix-walk misses served by the second-tier host-RAM pool "
+            "(chunk promoted back into the tree)", ident, lock)
+        self.prefix_cache_l2_spills = Counter(
+            "tpumlops_prefix_cache_l2_spills",
+            "First-tier evictions caught by the second-tier pool", ident, lock)
+        self.prefix_cache_l2_evictions = Counter(
+            "tpumlops_prefix_cache_l2_evictions",
+            "Chunks aged out of the second-tier pool (LRU byte budget)", ident, lock)
+        # Self-speculative decoding (server/speculative.py): the counters
+        # give the acceptance rate over any window, the histograms its shape.
+        self.spec_proposed_tokens = Counter(
+            "tpumlops_spec_proposed_tokens",
+            "Draft tokens proposed by the n-gram speculative drafter", ident, lock)
+        self.spec_accepted_tokens = Counter(
+            "tpumlops_spec_accepted_tokens",
+            "Draft tokens accepted by greedy verification", ident, lock)
+        self.spec_accepted_len = Histogram(
+            "tpumlops_spec_accepted_len", "Accepted draft length per (slot, verify)",
+            ident, _SPEC_ACCEPTED_LEN_BUCKETS, lock)
+        self.spec_acceptance_rate = Histogram(
+            "tpumlops_spec_acceptance_rate", "accepted/proposed per (slot, verify)",
+            ident, _SPEC_ACCEPTANCE_RATE_BUCKETS, lock)
         self.shed = Counter(
             "tpumlops_engine_shed",
             "Generation requests shed at admission (HTTP 429)",
@@ -247,6 +285,11 @@ class ServerMetrics:
             self.engine_queue_depth, self.engine_admitting,
             self.admission_wait_ms, self.ttft_seconds, self.itl_seconds,
             self.request_tokens, self.tick_seconds, self.engine_dispatches,
+            self.prefix_cache_hits, self.prefix_cache_cached_tokens,
+            self.prefix_cache_evictions, self.prefix_cache_l2_hits,
+            self.prefix_cache_l2_spills, self.prefix_cache_l2_evictions,
+            self.spec_proposed_tokens, self.spec_accepted_tokens,
+            self.spec_accepted_len, self.spec_acceptance_rate,
             self.shed, self.model_load_seconds, self.cold_start_seconds,
             self.ready,
         )
@@ -304,6 +347,29 @@ class ServerMetrics:
 
     def inc_dispatch(self, op: str) -> None:
         self.engine_dispatches.inc({**self.identity, "op": op})
+
+    def observe_speculative(self, proposed: int, accepted: int) -> None:
+        self.spec_proposed_tokens.inc(self.identity, proposed)
+        self.spec_accepted_tokens.inc(self.identity, accepted)
+        self.spec_accepted_len.observe(self.identity, accepted)
+        if proposed > 0:
+            self.spec_acceptance_rate.observe(self.identity, accepted / proposed)
+
+    def observe_prefix_hit(self, cached_tokens: int) -> None:
+        self.prefix_cache_hits.inc(self.identity)
+        self.prefix_cache_cached_tokens.inc(self.identity, cached_tokens)
+
+    def inc_prefix_evictions(self, n: int = 1) -> None:
+        self.prefix_cache_evictions.inc(self.identity, n)
+
+    def inc_prefix_l2(self, kind: str) -> None:
+        counter = {
+            "hit": self.prefix_cache_l2_hits,
+            "spill": self.prefix_cache_l2_spills,
+            "evict": self.prefix_cache_l2_evictions,
+        }.get(kind)
+        if counter is not None:
+            counter.inc(self.identity)
 
     def observe_model_load(self, stats: dict) -> None:
         """A load's stage walls: ``wall_s`` is stage "total"."""

@@ -587,3 +587,123 @@ def test_generation_counts_equal_the_answers(tiny_llama):
         assert stages == {"compile", "total", "first_token"}
     finally:
         h.stop()
+
+
+# -- the prefix cache and speculation on the serving surface -----------------
+
+FEATURE_FAMILIES = [
+    "tpumlops_prefix_cache_hits", "tpumlops_prefix_cache_cached_tokens",
+    "tpumlops_prefix_cache_evictions", "tpumlops_prefix_cache_l2_hits",
+    "tpumlops_prefix_cache_l2_spills", "tpumlops_prefix_cache_l2_evictions",
+    "tpumlops_spec_proposed_tokens", "tpumlops_spec_accepted_tokens",
+    "tpumlops_spec_accepted_len", "tpumlops_spec_acceptance_rate",
+]
+
+
+def test_prefix_cache_and_spec_families_match_the_reference():
+    ref = JaxServerMetrics("d", "v1", "ns")
+    port = tapp.ServerMetrics("d", "v1", "ns")
+    for m in (ref, port):
+        m.observe_prefix_hit(64)
+        m.inc_prefix_evictions()
+        for kind in ("hit", "spill", "evict"):
+            m.inc_prefix_l2(kind)
+        m.observe_speculative(4, 3)
+        m.observe_speculative(0, 0)
+    want = _families(ref.exposition().decode())
+    got = _families(port.render().decode())
+    for name in FEATURE_FAMILIES:
+        assert name in got, name
+        assert got[name] == want[name], name
+
+
+def _args(*extra):
+    return tapp.build_arg_parser().parse_args(["--model-uri", "x", *extra])
+
+
+def test_feature_flags_parse_into_the_engine_configs():
+    conf = tapp.config_from_args(_args(
+        "--prefill-chunk", "256", "--prefix-cache", "1", "--prefix-cache-budget-mb", "512",
+        "--prefix-cache-l2-budget-mb", "256", "--speculative", "1",
+        "--speculative-draft-tokens", "8", "--speculative-ngram-min", "2",
+        "--speculative-ngram-max", "3", "--speculative-adaptive", "0"))
+    pc, sp = conf.prefix_cache_config(), conf.speculative_config()
+    assert (pc.enabled, pc.budget_bytes, pc.chunk_tokens, pc.l2_budget_bytes) == (
+        True, 512 * 2**20, 256, 256 * 2**20)
+    assert (sp.enabled, sp.draft_tokens, sp.ngram_min, sp.ngram_max, sp.adaptive) == (
+        True, 8, 2, 3, False)
+    # The reuse unit follows --prefill-chunk, or 64; both off by default.
+    assert tapp.config_from_args(_args("--prefix-cache", "1")).prefix_cache_chunk_tokens == 64
+    off = tapp.config_from_args(_args())
+    assert off.prefix_cache_config() is None and off.speculative_config() is None
+
+
+@pytest.mark.parametrize("flags,spec", [
+    (["--prefill-chunk", "256", "--prefix-cache-chunk", "64"],
+     {"prefillChunk": 256, "prefixCache": {"chunkTokens": 64}}),
+    (["--prefix-cache-budget-mb", "0"], {"prefixCache": {"budgetMB": 0}}),
+    (["--prefix-cache-chunk", "-8"], {"prefixCache": {"chunkTokens": -8}}),
+    (["--prefix-cache-l2-budget-mb", "-1"], {"prefixCache": {"l2BudgetMB": -1}}),
+    (["--speculative-draft-tokens", "0"], {"speculative": {"draftTokens": 0}}),
+    (["--speculative-draft-tokens", "65"], {"speculative": {"draftTokens": 65}}),
+    (["--speculative-ngram-min", "3", "--speculative-ngram-max", "2"],
+     {"speculative": {"ngramMin": 3, "ngramMax": 2}}),
+    (["--speculative-ngram-min", "0"], {"speculative": {"ngramMin": 0}}),
+])
+def test_bad_feature_flags_are_refused_as_the_reference_refuses_them(flags, spec):
+    """Each bad value is a ValueError at startup with the message of the
+    reference's ``TpuSpec`` for the same values, and nothing with the
+    feature off."""
+    from tpumlops.utils.config import TpuSpec
+
+    feature = "--prefix-cache" if "prefixCache" in spec else "--speculative"
+    key = "prefixCache" if "prefixCache" in spec else "speculative"
+    with pytest.raises(ValueError) as ref:
+        TpuSpec.from_spec({**spec, key: {**spec[key], "enabled": True}})
+    with pytest.raises(ValueError) as port:
+        tapp.config_from_args(_args(feature, "1", *flags))
+    assert str(port.value) == str(ref.value)
+    tapp.config_from_args(_args(*flags))  # off: never refused
+
+
+def test_metrics_deltas_equal_the_engine_counters(tiny_llama, caplog):
+    """A warm request, then a speculative one: the prefix-cache and spec
+    counters on /metrics move by the engine's counters, and the completion
+    lines carry the same cached and accepted tokens."""
+    import logging
+
+    h = _serve(tiny_llama, prefill_chunk=8, prefix_cache=True, prefix_cache_budget_mb=1,
+               speculative=True)
+    try:
+        eng = h.engine
+        with caplog.at_level(logging.INFO, logger="tpumlops_torch.server.requests"):
+            prompt = list(range(2, 22))
+            for _ in range(2):
+                assert _request(h, "POST", GEN, {"prompt_ids": prompt,
+                                                 "max_new_tokens": 3})[0] == 200
+            assert (eng.prefix_hits, eng.prefix_cached_tokens) == (1, 16)
+            code, _, _ = _request(h, "POST", GEN, {"prompt_ids": [1, 2, 3] * 5,
+                                                   "max_new_tokens": 12})
+            assert code == 200
+        assert eng.spec_proposed_tokens > 0
+        _, text, _ = _request(h, "GET", "/metrics")
+        fams = {f.name: f for f in text_string_to_metric_families(text)}
+
+        def value(name, suffix="_total"):
+            return sum(s.value for s in fams[name].samples if s.name == name + suffix)
+
+        assert value("tpumlops_prefix_cache_hits") == eng.prefix_hits
+        assert value("tpumlops_prefix_cache_cached_tokens") == eng.prefix_cached_tokens
+        assert value("tpumlops_prefix_cache_evictions") == eng.prefix_evictions
+        assert value("tpumlops_spec_proposed_tokens") == eng.spec_proposed_tokens
+        assert value("tpumlops_spec_accepted_tokens") == eng.spec_accepted_tokens
+        assert value("tpumlops_engine_dispatches", "_total") == sum(
+            eng.dispatches_total.values())
+        lines = [r.getMessage() for r in caplog.records if "generate done" in r.getMessage()]
+        assert len(lines) == 3
+        assert "cached_tokens=0 " in lines[0] and "cached_tokens=16 " in lines[1]
+        assert lines[1].count("prefill_chunks=1 ") == 1
+        accepted = sum(int(ln.split("spec_accepted=")[1].split("/")[0]) for ln in lines)
+        assert accepted == eng.spec_accepted_tokens
+    finally:
+        h.stop()
