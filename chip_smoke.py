@@ -47,6 +47,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and f32 q, within the decode checks' tolerance; its time over S at W 768
    beside the S = 1 decode kernel on the same window, its plain version
    and (dense) SDPA over the window plus the chunk with a boolean mask.
+   The ragged instance of the flash kernel (packed prefill) against its
+   plain version computed in f32 from the same inputs, within FLASH_TOL:
+   int8 (with scales) and bf16 caches of 10 rows, B_p 1, 3 real rows padded
+   with a parked row (offset = capacity) and 8, permuted slots, offsets 0,
+   256, 768, 3840 and off the 64-key tiles (37, 1337, 3990), G 1, 4 and 8,
+   chunks of 256 and 100, chunk rows near the int8 clip, D 128 and one
+   check a cache at D 64; timed at Llama-2-7B's packed shape (B_p 4, C 256,
+   offsets 0/256/768/3840, H = NKV = 32, D 128) on both caches beside its
+   plain version, its bound and, on the bf16 cache, SDPA over the gathered window plus the chunk with a
+   boolean mask (the decode kernel's verify instance takes at most 65
+   chunk positions, so it is not timed at 256); a misaligned q must raise
+   ValueError.
 3b. D-major decode attention against its plain version at the layout
    probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
    768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
@@ -133,6 +145,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tick's wall and device ms beside a plain decode tick's, the four
    requests' tok/s and their token agreement with a teacher-forced
    forward.
+   5d: packed multi-admission prefill on the same int8 weights (int8kv, 4
+   slots, chunks of 256, ``prefill_batch`` 4, no token budget, the prefix
+   cache on with 2 GiB, speculation off): a prompt P (the 1000-token burst
+   prompt's first 768 tokens and 100 of its own) answered cold, then warm
+   (its three chunks read back off its reserved row and seeded into the
+   next one), equal tokens; then four concurrent prompts of 300 / 700 /
+   1000 / 1500 tokens, 16 greedy tokens each, profiled; the same on a
+   serial server (``prefill_batch`` 1).  Asserted: fewer packed forwards
+   than the burst's 12 chunks, the ``tpumlops_prefill_batch_fill`` count and
+   sum on ``/metrics`` equal to the packed forwards and chunks, ragged flash
+   launches = 32 x prefill forwards on the packed server (flash on the
+   serial one), decode attention = 32 x decode ticks, RMSNorm = 65 x
+   forwards, the prefix counters (2 hits, 1536 cached tokens, no eviction).
+   Prints both servers' burst TTFT p50 / max, chunks a forward, the device
+   idle share of each burst, their token agreement, and one packed forward
+   at B_p = 4 beside one serial chunk forward (device and wall ms).  Before
+   the weights are quantized, the bf16 tree serves four concurrent 300-700
+   token prompts (8 new tokens) with ``quantize: none`` packed and serial:
+   the bf16-window instance of the ragged kernel on a served path, its
+   launches = 32 x packed forwards, and the packed answers' agreement with
+   the serial ones.
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -1175,6 +1208,210 @@ def phase_flash_attention(fa) -> dict:
                 "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                 "bound_ms", "bound_by", "max_abs_err")}
                 for k in ("llama_prompt_s1024", "llama_chunk_off768")}}
+
+
+def _ragged_case(gen, Bp, C, H, NKV, offsets, slots, n_slots, int8, near_clip=False,
+                 T=4096, D=128, layers=1):
+    """Inputs of one ragged flash case at the engine's layouts: q [Bp, C, H,
+    D] bf16; ``layers`` layers of a head-major cache [NS, NKV, T, D] (int8
+    codes with f32 scales, or bf16); slots/offsets int32 on the card; the
+    chunk's exact K/V [Bp, C, NKV, D] bf16 and, int8, its round-trip
+    codes.  ``near_clip``: every chunk row holds one +-8 outlier, so the
+    round-trip lands it on +-127 and the rest on few steps."""
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    dev = "cuda"
+    bf = torch.bfloat16
+    q = torch.randn((Bp, C, H, D), generator=gen, device=dev).to(bf)
+    kc = torch.randn((Bp, C, NKV, D), generator=gen, device=dev)
+    vc = torch.randn((Bp, C, NKV, D), generator=gen, device=dev)
+    if near_clip:
+        kc[..., 3] = 8.0 * torch.sign(kc[..., 3])
+        vc[..., 5] = -8.0
+    kc, vc = kc.to(bf), vc.to(bf)
+    shape = (layers, n_slots, NKV, T, D)
+    if int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        ks = torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 0.02 + 1e-3
+        rt = (*llama._quant_kv(kc), *llama._quant_kv(vc))
+    else:
+        k = torch.randn(shape, generator=gen, device=dev).to(bf)
+        v = torch.randn(shape, generator=gen, device=dev).to(bf)
+        ks = vs = rt = None
+    return {"q": q, "k": k, "v": v, "ks": ks, "vs": vs, "kc": kc, "vc": vc, "rt": rt,
+            "slots": torch.tensor(slots, dtype=torch.int32, device=dev),
+            "offsets": torch.tensor(offsets, dtype=torch.int32, device=dev)}
+
+
+def _ragged_args(c, layer=0):
+    """The wrapper's arguments for one layer of a ragged case."""
+    if c["ks"] is None:
+        return (c["q"], c["k"][layer], c["v"][layer], c["slots"], c["offsets"], c["kc"],
+                c["vc"])
+    return (c["q"], c["k"][layer], c["v"][layer], c["slots"], c["offsets"], c["kc"], c["vc"],
+            c["ks"][layer], c["vs"][layer], c["rt"])
+
+
+def _ragged_work(c) -> tuple[float, float]:
+    """Bytes (q and the output, each row's window up to its offset with its
+    scales, the chunk's K/V and round-trip codes, slots and offsets) and
+    flops (4 * D a (query, key) pair: each query's window keys plus its
+    causal chunk keys) that this case's data needs."""
+    q, k = c["q"], c["k"]
+    Bp, C, H, D = q.shape
+    NKV, T = k.shape[2], k.shape[3]
+    win = [o if 0 < o < T else 0 for o in c["offsets"].tolist()]
+    int8 = c["ks"] is not None
+    per_key = 2 * NKV * D * (1 if int8 else 2) + (2 * NKV * 4 if int8 else 0)
+    nbytes = (2 * Bp * C * H * D * 2 + sum(win) * per_key
+              + 2 * Bp * C * NKV * D * 2 + (Bp * C * per_key if int8 else 0) + 2 * Bp * 4)
+    pairs = sum(C * w + C * (C + 1) // 2 for w in win)
+    return nbytes, 4.0 * D * H * pairs
+
+
+def _ragged_check(fa, c, what) -> float:
+    """The ragged kernel against its plain version computed in f32 from
+    the same inputs, every row (parked rows included), FLASH_TOL for bf16
+    I/O; returns the max abs error."""
+    import torch
+
+    args = _ragged_args(c)
+    out = fa.flash_attention_ragged(*args)
+    wide = [x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+            for x in args]
+    ref = fa.flash_attention_ragged_reference(*wide)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL["bfloat16"]
+    err = (out.float() - ref).abs()
+    if not bool(torch.isfinite(out.float()).all()) or bool((err > tol + tol * ref.abs()).any()):
+        raise AssertionError(f"ragged flash attention disagrees: {what} max_abs_err "
+                             f"{float(err.max()):.3e} (tol {tol} abs + {tol} rel)")
+    return float(err.max())
+
+
+def phase_flash_ragged(fa) -> dict:
+    """The ragged instance of the flash kernel (packed prefill) against its
+    plain version: int8 (with scales) and bf16 caches; B_p 1, 3 (bucket 4
+    with a parked row) and 8; permuted, non-contiguous slots of a 10-row
+    cache; offsets 0, 256, 768, 3840 and off the 64-key tiles; G 1, 4, 8;
+    chunks of 256 and 100; chunk rows near the int8 clip; D 128, and D 64
+    once a cache.  Then its time at
+    Llama-2-7B's packed shape (B_p 4, C 256, offsets 0/256/768/3840, H =
+    NKV = 32, D 128) on both caches, with the profiler's device time, the
+    plain version's, the bound and, on the bf16 cache, SDPA over the
+    gathered window plus the chunk with a boolean mask; a misaligned q must
+    raise ValueError."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9753)
+    perm = np.random.default_rng(5).permutation(10).tolist()
+    T, NS = 4096, 10
+    # (B_p real rows, C, offsets): a parked row (offset T) pads B_p 3 to 4
+    layouts = [
+        (1, 256, [3840]),
+        (3, 256, [0, 768, 3840, T]),
+        (8, 100, [0, 256, 768, 3840, 1337, 37, 3990, 64]),
+    ]
+    worst, checks = 0.0, 0
+    for int8 in (True, False):
+        for NKV in (32, 8, 4):
+            for real, C, offsets in layouts:
+                c = _ragged_case(gen, len(offsets), C, 32, NKV, offsets, perm[:len(offsets)],
+                                 NS, int8, near_clip=real == 3)
+                what = (f"{'int8' if int8 else 'bf16'} cache G={32 // NKV} B_p={len(offsets)} "
+                        f"({real} real) C={C} offsets={offsets}")
+                worst = max(worst, _ragged_check(fa, c, what))
+                checks += 1
+                del c
+        # The D = 64 instance: 16 query heads over 4 K/V heads, a parked row.
+        c = _ragged_case(gen, 4, 100, 16, 4, [0, 300, 1337, T], perm[:4], NS, int8,
+                         near_clip=True, D=64)
+        worst = max(worst, _ragged_check(fa, c, f"{'int8' if int8 else 'bf16'} cache D=64"))
+        checks += 1
+        del c
+    log(f"ragged flash: {checks} checks (int8 and bf16 caches, G 1/4/8, B_p 1/4 with a parked "
+        f"row/8, C 256 and 100, permuted slots, offsets 0..3990 on and off the tiles, rows "
+        f"near the int8 clip, D 128 and 64), max_abs_err {worst:.3e} (tol "
+        f"{FLASH_TOL['bfloat16']} abs + rel)")
+
+    # Time at the packed shape, the cache rotating over 4 layers (> the
+    # 50 MB L2 on the int8 cache's window) as consecutive layers do.
+    offsets, layers = [0, 256, 768, 3840], 4
+    timing = {}
+    for int8 in (True, False):
+        tag = "int8" if int8 else "bf16"
+        c = _ragged_case(gen, 4, 256, 32, 32, offsets, perm[:4], NS, int8, layers=layers)
+        views = [_ragged_args(c, l) for l in range(layers)]
+        it = {"i": 0}
+
+        def rot(f, vws):
+            def call():
+                it["i"] += 1
+                return f(*vws[it["i"] % layers])
+            return call
+
+        kern = rot(fa.flash_attention_ragged, views)
+        plain = rot(fa.flash_attention_ragged_reference, views)
+        nbytes, flops = _ragged_work(c)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        row = {"ms": cuda_time_ms(kern, iters=50),
+               "device_ms": kernel_device_ms(kern, "flash_ragged_kernel"),
+               "plain_ms": cuda_time_ms(plain, iters=5),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "library_ms": None, "library_device_ms": None}
+        if not int8:
+            # SDPA over each row's gathered window plus its chunk (built
+            # outside the timed region): keys [B_p, NKV, T + C, D], the
+            # window strict and the chunk causal in a boolean mask.
+            key = torch.arange(T, device="cuda")
+            win = key[None, :] < c["offsets"][:, None].long()               # [B_p, T]
+            causal = torch.tril(torch.ones((256, 256), dtype=torch.bool, device="cuda"))
+            valid = torch.cat([win[:, None, :].expand(4, 256, T),
+                               causal[None].expand(4, 256, 256)], dim=-1)[:, None]
+            rows = c["slots"].long()
+            lib_views = [(c["q"].transpose(1, 2),
+                          torch.cat([c["k"][l][rows], c["kc"].transpose(1, 2)], dim=2),
+                          torch.cat([c["v"][l][rows], c["vc"].transpose(1, 2)], dim=2))
+                         for l in range(layers)]
+            lib = rot(lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=valid), lib_views)
+            row["library_ms"] = cuda_time_ms(lib, iters=50)
+            row["library_device_ms"] = device_ms_per_call(lib)
+            del lib_views
+        timing[tag] = row
+        log(f"ragged flash {tag} cache B_p=4 C=256 offsets {offsets} H=NKV=32 D=128: kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']} ms), plain {row['plain_ms']:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP), SDPA {row['library_ms']} ms (device "
+            f"{row['library_device_ms']} ms)")
+        del c, views
+    # The decode kernel's verify instance takes at most da.MAX_VERIFY_S chunk
+    # positions, so it cannot run a 256-token chunk: not timed.
+
+    # A q whose base is not 16-byte aligned raises; nothing launches.
+    c = _ragged_case(gen, 2, 64, 32, 32, [0, 64], perm[:2], NS, True)
+    buf = torch.empty(c["q"].numel() + 1, dtype=torch.bfloat16, device="cuda")
+    c["q"] = buf[1:].view(c["q"].shape).copy_(c["q"])
+    before = fa.ragged_launches
+    try:
+        fa.flash_attention_ragged(*_ragged_args(c))
+    except ValueError as e:
+        if "misaligned" not in str(e):
+            raise
+    else:
+        raise AssertionError("ragged flash attention took a misaligned q")
+    if fa.ragged_launches != before:
+        raise AssertionError("a refused ragged flash call counted a launch")
+    log("ragged flash: a q that is not 16-byte aligned raises ValueError")
+    res = {"checks": checks, "max_abs_err": worst, "timing": timing}
+    DETAIL["flash_ragged"] = res
+    return res
 
 
 def _dm_case(dm, gen, B, NKV, D, W, lengths, qdtype=None, pad_w=None, copies=1):
@@ -2538,6 +2775,311 @@ def phase_serve_7b_spec(da, rn, fa, smi: str, params, device: str = "cuda") -> d
         th.join(timeout=30)
 
 
+def _packed_server(app, predictor, quantize: str, prefill_batch: int, prefix_cache: bool,
+                   device: str):
+    """A Llama-2-7B server with 4 slots and prefill chunks of 256, packed
+    (``prefill_batch`` 4) or serial (1), serving on a thread; returns (srv,
+    thread, base url, TTFT list fed by the engine's hook)."""
+    config = app.ServerConfig(
+        model_name="llama2-7b", host="127.0.0.1", port=0, quantize=quantize, max_slots=4,
+        prefill_chunk=256, prefill_batch=prefill_batch, prefill_token_budget=0, device=device,
+        prefix_cache=prefix_cache, prefix_cache_budget_mb=2048)
+    srv = app.build_server(predictor, config)
+    ttfts: list[float] = []
+    metric_ttft = srv.engine.on_ttft
+    srv.engine.on_ttft = lambda s_: (ttfts.append(s_), metric_ttft(s_))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, f"http://127.0.0.1:{srv.server_address[1]}", ttfts
+
+
+def _burst(url: str, prompts, n: int, vocab: int) -> list[list[int]]:
+    """The prompts as concurrent /generate requests, n greedy tokens each."""
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        resps = list(pool.map(lambda p: _post(url, {"prompt_ids": p, "max_new_tokens": n}),
+                              prompts))
+    return [_check_outputs(r, [n], vocab)[0] for r in resps]
+
+
+def _agreement(a, b) -> float:
+    import numpy as np
+
+    return float(np.mean([x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)]))
+
+
+def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
+    """Phase 5d: packed multi-admission prefill at Llama-2-7B int8kv
+    (``params``: the int8 weight tree), 4 slots, chunks of 256,
+    ``prefill_batch`` 4, no token budget, the prefix cache on (2 GiB, so
+    nothing is evicted), speculation off.  A prompt P of the 1000-token
+    burst prompt's first 768 tokens plus 100 of its own, answered cold and
+    then warm (its three chunks seeded into the reserved row): the warm
+    answer must equal the cold one.  Then a burst of four concurrent prompts
+    of 300 / 700 / 1000 / 1500 tokens, 16 greedy tokens each (the
+    1000-token prompt's first 768 tokens are P's cached chunks), under the
+    profiler for the device's busy share; the same sequence on a serial
+    server (``prefill_batch`` 1): token agreement (reported, not asserted:
+    the packed path reads earlier chunks through the int8 codes) and TTFT
+    p50 / max of both.  Asserted: fewer packed forwards than chunks, the
+    fill histogram's count and sum equal to the packed forwards and chunks,
+    the ragged flash launches = 32 x prefill forwards (flash on the serial
+    server), decode = 32 x decode ticks, RMSNorm = 65 x forwards, the
+    prefix counters exactly the radix rules'.  Then one packed forward at
+    B_p = 4 against one serial chunk forward (device and wall ms)."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    from torch.profiler import ProfilerActivity, profile
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    cfg = llama.LlamaConfig.llama2_7b()
+    V, L = cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(41)
+    lens = (300, 700, 1000, 1500)
+    burst = [rng.integers(1, V, n).tolist() for n in lens]
+    shared = burst[2][:768] + rng.integers(1, V, 100).tolist()
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    runs = {}
+    for mode, pb in (("packed", 4), ("serial", 1)):
+        torch.cuda.empty_cache()
+        srv, th, base, ttfts = _packed_server(app, predictor, "int8kv", pb, True, device)
+        engine = srv.engine
+        url = base + "/v2/models/llama2-7b/generate"
+        calls: list[tuple[int, int]] = []  # (rows, parked pad rows) a packed forward
+        real_chunks = engine._device_chunks
+
+        def counted_chunks(ids, slots, offsets, finals, real_chunks=real_chunks, calls=calls):
+            calls.append((len(ids), int((offsets == engine.capacity).sum())))
+            return real_chunks(ids, slots, offsets, finals)
+
+        engine._device_chunks = counted_chunks
+        try:
+            _post(url, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up, not measured
+            ttfts.clear()
+            scrape0 = _scrape(base)
+            dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
+            chunks0 = engine.prefill_chunks_dispatched
+            da.launches = rn.launches = fa.launches = fa.ragged_launches = 0
+            cold = _check_outputs(_post(url, {"prompt_ids": shared, "max_new_tokens": 16}),
+                                  [16], V)[0]
+            warm = _check_outputs(_post(url, {"prompt_ids": shared, "max_new_tokens": 16}),
+                                  [16], V)[0]
+            if warm != cold:
+                raise AssertionError(f"7B {mode}: the warm answer {warm} differs from the cold "
+                                     f"one {cold}")
+            pre1, chunks1 = engine.prefill_forwards, engine.prefill_chunks_dispatched
+            calls.clear()
+            ttfts.clear()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                outs = _burst(url, burst, 16, V)
+                torch.cuda.synchronize()
+                burst_s = time.perf_counter() - t0
+            busy_ms = 0.0
+            for evt in prof.key_averages():
+                dev_us = getattr(evt, "self_device_time_total", None)
+                busy_ms += (dev_us if dev_us is not None
+                            else getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+            burst_ttfts = list(ttfts)
+            torch.cuda.synchronize()
+            decodes = engine.decode_forwards - dec0
+            prefills = engine.prefill_forwards - pre0
+            counts = {"decode": da.launches, "rmsnorm": rn.launches, "flash": fa.launches,
+                      "ragged": fa.ragged_launches}
+            want = {"decode": L * decodes, "rmsnorm": (2 * L + 1) * (decodes + prefills),
+                    "flash": 0 if pb > 1 else L * prefills,
+                    "ragged": L * prefills if pb > 1 else 0}
+            if counts != want:
+                raise AssertionError(f"7B {mode}: launches {counts}, expected {want} for "
+                                     f"{decodes} decode ticks and {prefills} prefill forwards")
+            prefix = {"hits": engine.prefix_hits, "cached_tokens": engine.prefix_cached_tokens,
+                      "evictions": engine.prefix_evictions}
+            # The radix rules: P's cold pass writes its three full chunks and
+            # its warm pass hits them; in the burst the 1000-token prompt hits
+            # the same 768 tokens, and the others write their full chunks
+            # (1 + 2 + 5, within the 2 GiB budget).
+            if prefix != {"hits": 2, "cached_tokens": 1536, "evictions": 0}:
+                raise AssertionError(f"7B {mode}: prefix counters {prefix}")
+            scrape1 = _scrape(base)
+            res = {"prefill_batch": pb, "cold_tokens": cold, "burst_tokens": outs,
+                   "burst_s": burst_s, "burst_ttft_s": burst_ttfts,
+                   "ttft_p50_ms": _percentile_ms(burst_ttfts, 50),
+                   "ttft_max_ms": max(burst_ttfts) * 1e3,
+                   "burst_prefill_forwards": engine.prefill_forwards - pre1,
+                   "decode_ticks": decodes, "prefill_forwards": prefills,
+                   "launches": counts, "prefix": prefix,
+                   "burst_busy_ms": busy_ms, "burst_idle_share": 1 - busy_ms / (burst_s * 1e3),
+                   "dispatches": dict(engine.dispatches_total)}
+            if pb > 1:
+                chunks = engine.prefill_chunks_dispatched - chunks0
+                burst_chunks = engine.prefill_chunks_dispatched - chunks1
+                fill_count = (_value(scrape1, "tpumlops_prefill_batch_fill_count")
+                              - _value(scrape0, "tpumlops_prefill_batch_fill_count"))
+                fill_sum = (_value(scrape1, "tpumlops_prefill_batch_fill_sum")
+                            - _value(scrape0, "tpumlops_prefill_batch_fill_sum"))
+                if (fill_count, fill_sum) != (prefills, chunks):
+                    raise AssertionError(f"7B packed: the fill histogram counts {fill_count} "
+                                         f"forwards of {fill_sum} chunks, the engine {prefills} "
+                                         f"of {chunks}")
+                if burst_chunks != 2 + 3 + 1 + 6 or not res["burst_prefill_forwards"] < burst_chunks:
+                    raise AssertionError(f"7B packed: the burst ran {burst_chunks} chunks in "
+                                         f"{res['burst_prefill_forwards']} forwards")
+                res.update(chunks=chunks, burst_chunks=burst_chunks,
+                           chunks_per_forward=burst_chunks / res["burst_prefill_forwards"],
+                           burst_calls=list(calls),
+                           burst_pad_rows=sum(pad for _, pad in calls))
+            runs[mode] = res
+            log(f"7B int8kv {mode} (prefill_batch {pb}): P cold = warm {cold[:4]}...; burst "
+                f"300/700/1000/1500 + 16 in {burst_s:.3f} s, {res['burst_prefill_forwards']} "
+                f"prefill forwards, TTFT p50 {res['ttft_p50_ms']:.1f} ms max "
+                f"{res['ttft_max_ms']:.1f} ms ({[round(t * 1e3, 1) for t in burst_ttfts]}), "
+                f"device busy {busy_ms:.1f} ms (idle share {res['burst_idle_share']:.3f}); "
+                f"launches {counts} for {decodes} decode ticks and {prefills} prefill forwards; "
+                f"prefix {prefix}")
+        finally:
+            srv.shutdown_all()
+            th.join(timeout=30)
+        if mode == "packed":
+            packed_engine = engine
+        del srv, engine
+    agree = _agreement(runs["packed"]["burst_tokens"], runs["serial"]["burst_tokens"])
+    cold_agree = _agreement([runs["packed"]["cold_tokens"]], [runs["serial"]["cold_tokens"]])
+
+    # One packed forward at B_p = 4 (offsets 0/256/768/1024 on the packed
+    # engine's int8 cache, the server stopped) against one serial chunk
+    # forward (a 256-token chunk at offset 768 of a batch-1 scratch cache).
+    ids = torch.randint(1, V, (4, 256), device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+    slots = torch.arange(4, dtype=torch.int32, device=device)
+    offsets = torch.tensor([0, 256, 768, 1024], dtype=torch.int32, device=device)
+    seq = llama.KVCache.create(cfg, 1, torch.bfloat16, device)
+
+    def packed_fwd():
+        llama.prefill_chunks_ragged(params, ids, packed_engine._cache, slots, offsets, cfg)
+
+    def packed_fwd3():  # three rows: what a pad row costs is b4 - b3
+        llama.prefill_chunks_ragged(params, ids[:3], packed_engine._cache, slots[:3],
+                                    offsets[:3], cfg)
+
+    def serial_fwd():
+        llama.forward(params, ids[:1], seq._replace(length=768), cfg)
+
+    fwd = {}
+    for name, fn in (("packed_b4", packed_fwd), ("packed_b3", packed_fwd3),
+                     ("serial_chunk", serial_fwd)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / 3
+        prof_k, _ = profile_device(fn, iters=3)
+        fwd[name] = {"wall_ms": wall_ms, "device_ms": sum(prof_k.values()) / 3}
+    del seq, packed_engine
+    torch.cuda.empty_cache()
+
+    # Each burst answer against a teacher-forced whole-prompt forward of
+    # its own output (flash at offset 0 on a bf16 scratch cache): the share
+    # of its tokens that are that forward's argmax.
+    for r in runs.values():
+        agree_tf = []
+        for prompt, o in zip(burst, r["burst_tokens"]):
+            ids = torch.tensor([prompt + o[:-1]], dtype=torch.int64, device=device)
+            logits, _ = llama.prefill(params, ids, cfg, torch.bfloat16)
+            pred = torch.argmax(logits[0, len(prompt) - 1:], dim=-1).tolist()
+            agree_tf.append(_agreement([pred], [o]))
+            del logits
+        r["teacher_forced_agreement"] = agree_tf
+    p, sr = runs["packed"], runs["serial"]
+    res = {"runs": runs, "burst_agreement": agree, "cold_agreement": cold_agree,
+           "forward": fwd, "da_launches": p["launches"]["decode"] + sr["launches"]["decode"],
+           "rn_launches": p["launches"]["rmsnorm"] + sr["launches"]["rmsnorm"],
+           "fa_launches": sr["launches"]["flash"], "ragged_launches": p["launches"]["ragged"]}
+    log(f"7B packed prefill (int8kv): the burst's 12 chunks in {p['burst_prefill_forwards']} "
+        f"packed forwards ({p['chunks_per_forward']:.2f} chunks a forward) against "
+        f"{sr['burst_prefill_forwards']} serial (rows, pad rows a packed forward: "
+        f"{p['burst_calls']}); TTFT p50/max packed {p['ttft_p50_ms']:.1f}/"
+        f"{p['ttft_max_ms']:.1f} ms, serial {sr['ttft_p50_ms']:.1f}/{sr['ttft_max_ms']:.1f} ms; "
+        f"idle share packed {p['burst_idle_share']:.3f}, serial {sr['burst_idle_share']:.3f}; "
+        f"token agreement packed vs serial {agree:.3f} (P cold {cold_agree:.3f}), each burst "
+        f"answer with a teacher-forced forward of its own output: packed "
+        f"{[round(a, 3) for a in p['teacher_forced_agreement']]}, serial "
+        f"{[round(a, 3) for a in sr['teacher_forced_agreement']]}; one forward: "
+        f"packed B_p=4 {fwd['packed_b4']['device_ms']:.2f} device ms "
+        f"({fwd['packed_b4']['wall_ms']:.2f} wall), B_p=3 {fwd['packed_b3']['device_ms']:.2f} "
+        f"({fwd['packed_b3']['wall_ms']:.2f}), against a serial chunk "
+        f"{fwd['serial_chunk']['device_ms']:.2f} ({fwd['serial_chunk']['wall_ms']:.2f} wall) "
+        f"on {smi}")
+    DETAIL["serve_7b_packed"] = res
+    return res
+
+
+def phase_serve_7b_packed_none(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
+    """Phase 5d, bf16: Llama-2-7B ``quantize: none`` (``params``: the bf16
+    weight tree) with ``prefill_batch`` 4 against 1 (4 slots, chunks of
+    256, no prefix cache): four concurrent prompts of 300-700 tokens, 8
+    greedy tokens each.  The packed server runs the bf16-window instance of
+    the ragged kernel: ragged launches = 32 x prefill forwards, fewer
+    forwards than chunks; the packed answers' agreement with the serial
+    ones is reported."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    cfg = llama.LlamaConfig.llama2_7b()
+    V, L = cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(1, V, n).tolist() for n in (300, 420, 550, 700)]
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    out = {}
+    for mode, pb in (("packed", 4), ("serial", 1)):
+        torch.cuda.empty_cache()
+        srv, th, base, ttfts = _packed_server(app, predictor, "none", pb, False, device)
+        engine = srv.engine
+        try:
+            url = base + "/v2/models/llama2-7b/generate"
+            _post(url, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up
+            ttfts.clear()
+            dec0, pre0 = engine.decode_forwards, engine.prefill_forwards
+            da.launches = rn.launches = fa.launches = fa.ragged_launches = 0
+            toks = _burst(url, prompts, 8, V)
+            torch.cuda.synchronize()
+            decodes = engine.decode_forwards - dec0
+            prefills = engine.prefill_forwards - pre0
+            counts = {"decode": da.launches, "rmsnorm": rn.launches, "flash": fa.launches,
+                      "ragged": fa.ragged_launches}
+            want = {"decode": L * decodes, "rmsnorm": (2 * L + 1) * (decodes + prefills),
+                    "flash": 0 if pb > 1 else L * prefills,
+                    "ragged": L * prefills if pb > 1 else 0}
+            if counts != want:
+                raise AssertionError(f"7B none {mode}: launches {counts}, expected {want}")
+            if pb > 1 and not prefills < 2 + 2 + 3 + 3:
+                raise AssertionError(f"7B none packed: {prefills} forwards for 10 chunks")
+            out[mode] = {"tokens": toks, "prefill_forwards": prefills, "decode_ticks": decodes,
+                         "launches": counts, "ttft_s": list(ttfts)}
+        finally:
+            srv.shutdown_all()
+            th.join(timeout=30)
+        del srv, engine
+    agree = _agreement(out["packed"]["tokens"], out["serial"]["tokens"])
+    res = {**out, "agreement": agree, "ragged_launches": out["packed"]["launches"]["ragged"],
+           "da_launches": sum(r["launches"]["decode"] for r in out.values()),
+           "rn_launches": sum(r["launches"]["rmsnorm"] for r in out.values()),
+           "fa_launches": out["serial"]["launches"]["flash"]}
+    log(f"7B none packed prefill (bf16 cache): 10 chunks in {out['packed']['prefill_forwards']} "
+        f"packed forwards (serial {out['serial']['prefill_forwards']}); ragged launches "
+        f"{res['ragged_launches']}; token agreement with the serial answers {agree:.3f} on {smi}")
+    DETAIL["serve_7b_packed_none"] = res
+    return res
+
+
 def phase_serve_7b_dense(da, rn, fa, smi: str, params, quantize: str,
                          prefill_chunk: int | None) -> dict:
     """Llama-2-7B on the dense bf16 KV cache (``quantize`` none: bf16
@@ -2913,6 +3455,7 @@ def main() -> int:
     da_res["verify"] = phase_verify_attention(da)
     rn_res = phase_rmsnorm(rn)
     fa_res = phase_flash_attention(fa)
+    ragged_res = phase_flash_ragged(fa)
     dm = import_module(f"{PKG}.ops.dmajor_attention")
     dm_res = phase_dmajor_attention(dm, da)
     phase_loader_subprocess()
@@ -2926,6 +3469,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"7B: random bf16 weights drawn on the card in {time.perf_counter() - t0:.1f} s")
     dense = {"none": phase_serve_7b_dense(da, rn, fa, smi, params, "none", None)}
+    packed_none = phase_serve_7b_packed_none(da, rn, fa, smi, params)
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
@@ -2935,6 +3479,7 @@ def main() -> int:
     dense["int8"] = phase_serve_7b_dense(da, rn, fa, smi, params, "int8", 256)
     serve = phase_serve_7b(da, rn, fa, smi, params)
     spec = phase_serve_7b_spec(da, rn, fa, smi, params)
+    packed = phase_serve_7b_packed(da, rn, fa, smi, params)
     del params
     torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
@@ -2950,21 +3495,32 @@ def main() -> int:
          "source": f"{PKG}/csrc/decode_attention.cu",
          "replaces": f"{jax_pkg}/ops/decode_attention.py:52",
          "also_replaces": f"{jax_pkg}/ops/decode_attention.py:173",
-         "launches": (serve["da_launches"] + spec["da_launches"]
+         "launches": (serve["da_launches"] + spec["da_launches"] + packed["da_launches"]
+                      + packed_none["da_launches"]
                       + sum(r["da_launches"] for r in dense.values())),
          **da_res},
         {"name": "rmsnorm", "route": "cuda",
          "source": f"{PKG}/csrc/rmsnorm.cu",
          "replaces": f"{jax_pkg}/ops/rmsnorm.py:24",
-         "launches": (serve["rn_launches"] + spec["rn_launches"]
+         "launches": (serve["rn_launches"] + spec["rn_launches"] + packed["rn_launches"]
+                      + packed_none["rn_launches"]
                       + sum(r["rn_launches"] for r in dense.values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
          "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
          "launches": (sum(r["flash_launches"] for r in bert.values()) + serve["fa_launches"]
-                      + spec["fa_launches"] + sum(r["fa_launches"] for r in dense.values())),
+                      + spec["fa_launches"] + packed["fa_launches"] + packed_none["fa_launches"]
+                      + sum(r["fa_launches"] for r in dense.values())),
          **fa_res},
+        *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
+           "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
+           "launches": launches, "max_abs_err": ragged_res["max_abs_err"],
+           "shape": "B_p=4 C=256 offsets 0/256/768/3840 H=NKV=32 D=128 bf16 q, "
+                    f"{cache} cache", **ragged_res["timing"][cache]}
+          for name, cache, launches in (
+              ("flash_attention_ragged", "int8", packed["ragged_launches"]),
+              ("flash_attention_ragged_bf16", "bf16", packed_none["ragged_launches"]))),
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},

@@ -23,8 +23,12 @@ queries at their cache offset against the prefix, grouped K/V heads read
 in place); and the fused decode attention, over the int8 window or the
 dense one (one launch per layer per decode step); and the verify chunk
 instance of the decode kernel for self-speculative verify (one launch per
-layer per verify forward).  The int8 position-major cache of ``_block``
-(no caller in the engine) keeps the reference's einsum chain.
+layer per verify forward); and the ragged instance of the flash kernel
+for packed multi-admission prefill (one launch per layer per packed
+forward: each packed row's chunk against the window of its cache row, int8
+or bf16, and its own causal keys).  The int8 position-major cache of
+``_block`` (no engine caller, here or in the JAX package) keeps the
+reference's einsum chain.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ..ops.decode_attention import (
     verify_attention,
     verify_attention_dense,
 )
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_ragged
 from .common import matmul_f32, rms_norm
 from .quantization import is_quantized, quantize_tensor
 
@@ -787,30 +791,48 @@ def verify_ragged(
 
 def _commit_chunk(cache, k_news, v_news, lengths, quant, active=None) -> None:
     """Commit a verify chunk's K/V ``[L, B, S, NKV, D]`` in place: row
-    ``b``'s token ``j`` lands at ``lengths[b] + j``, one batched scatter a
-    buffer.  ``active`` parks inactive rows at capacity; positions past
-    capacity are DROPPED, never clamped.  PyTorch has no drop mode, so a
-    dropped write is aimed ``S`` positions lower, at a position of its own
-    row below every kept write (the rows' targets stay unique), and
-    stores back what is there.  On the int8 cache ``k_news`` and
-    ``v_news`` are the chunk as the cache stores it, ``(int8 [L, B, S,
-    NKV, D], f32 scales [L, B, S, NKV, 1])``, quantized once by
-    :func:`_block_verify_deferred` as the decode commit quantizes."""
-    s = (k_news[0] if quant else k_news).shape[2]
+    ``b``'s token ``j`` lands at ``lengths[b] + j`` (:func:`_commit_chunk_at`
+    on rows ``0 .. B-1``).  ``active`` parks inactive rows at capacity.
+    On the int8 cache ``k_news`` and ``v_news`` are the chunk as the cache
+    stores it, ``(int8 [L, B, S, NKV, D], f32 scales [L, B, S, NKV, 1])``,
+    quantized once by :func:`_block_verify_deferred` as the decode commit
+    quantizes."""
     capacity = (cache.k8 if quant else cache.k).shape[3]
-    if s > capacity:
-        raise ValueError(f"verify chunk of {s} positions exceeds KV capacity {capacity}")
     write_base = lengths
     if active is not None:
         write_base = torch.where(active, lengths, torch.full_like(lengths, capacity))
-    b = lengths.shape[0]
-    rows = torch.arange(b, device=lengths.device)[:, None]
-    pos = write_base.to(torch.int64)[:, None] + torch.arange(s, device=lengths.device)[None, :]
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    _commit_chunk_at(cache, k_news, v_news, rows, write_base, quant)
+
+
+def _commit_chunk_at(cache, k_news, v_news, slots, offsets, quant) -> None:
+    """Commit a chunk's K/V ``[L, B, S, NKV, D]`` in place: row ``b``'s
+    token ``j`` lands at ``(slots[b], offsets[b] + j)``, one batched
+    scatter a buffer.  Positions past capacity are DROPPED, never clamped;
+    a parked row (``offsets[b] == capacity``) drops every write.  PyTorch
+    has no drop mode, so a dropped write is aimed ``S`` positions lower, at
+    a position of its own cache row below every write it keeps, and
+    stores back what is there.
+
+    Unique-target contract: the (slot, position) targets must be pairwise
+    distinct, which holds when every row's slot differs from every other
+    row's, parked rows included (the engine reserves one cache row per
+    admission and gives its pad rows slots of their own).  A parked row
+    that shared a real row's slot could aim its stored-back values at the
+    real row's last ``S`` positions.  ``k_news``/``v_news`` as in
+    :func:`_commit_chunk` (int8 pairs on the int8 cache)."""
+    s = (k_news[0] if quant else k_news).shape[2]
+    capacity = (cache.k8 if quant else cache.k).shape[3]
+    if s > capacity:
+        raise ValueError(f"chunk of {s} positions exceeds KV capacity {capacity}")
+    dev = offsets.device
+    rows = slots.to(torch.int64)[:, None]
+    pos = offsets.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
     keep = pos < capacity
     target = torch.where(keep, pos, pos - s)
 
     def commit(buf, vals):
-        # buf [L, B, NKV, T, ...], vals [L, B, S, NKV, ...]; the advanced
+        # buf [L, NS, NKV, T, ...], vals [L, B, S, NKV, ...]; the advanced
         # indices at axes 1 and 3 broadcast to [B, S] and move to the front.
         new = vals.movedim((1, 2), (0, 1)).to(buf.dtype)
         old = buf[:, rows, :, target]
@@ -826,3 +848,98 @@ def _commit_chunk(cache, k_news, v_news, lengths, quant, active=None) -> None:
         return
     commit(cache.k, k_news)
     commit(cache.v, v_news)
+
+
+# ---------------------------------------------------------------------------
+# Packed multi-admission prefill (B_p admissions' chunks in one forward)
+# ---------------------------------------------------------------------------
+
+
+def _block_prefill_ragged(
+    x: torch.Tensor,
+    lp: dict,
+    cache_k,
+    cache_v,
+    slots: torch.Tensor,
+    offsets: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cfg: LlamaConfig,
+):
+    """One decoder layer of a packed prefill with the cache READ-ONLY:
+    ``x`` ``[B_p, C, H]``, row ``b``'s chunk at positions ``offsets[b] ..
+    offsets[b] + C - 1`` of cache row ``slots[b]``.  Returns ``(y, k_new,
+    v_new, kv8)`` as :func:`_block_verify_deferred` does (``kv8``: the
+    chunk quantized once, for the kernel and for the commit; None on the
+    dense cache).
+
+    The attention is the ragged instance of the flash kernel (its plain
+    version on the CPU): the window of cache row ``slots[b]`` under the
+    STRICT mask ``key < offsets[b]`` and the chunk's causal keys in one
+    softmax, the attention lines of the reference's
+    ``_block_verify_deferred`` with a per-row cache-row indirection."""
+    b, s, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    if isinstance(cache_k, tuple):
+        k8, ks = cache_k
+        v8, vs = cache_v
+        kv8 = (*_quant_kv(k), *_quant_kv(v))
+        ctx = flash_attention_ragged(q, k8, v8, slots, offsets, k, v, ks, vs, kv8)
+    else:
+        kv8 = None
+        ctx = flash_attention_ragged(q, cache_k, cache_v, slots, offsets, k, v)
+    x = x + _qmatmul(ctx.to(x.dtype).reshape(b, s, nh * hd), lp["o"]).to(x.dtype)
+    return _mlp(x, lp, cfg), k, v, kv8
+
+
+def prefill_chunks_ragged(
+    params: dict,
+    token_ids: torch.Tensor,
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    slots: torch.Tensor,
+    offsets: torch.Tensor,
+    cfg: LlamaConfig,
+    dtype=torch.bfloat16,
+):
+    """Packed multi-admission prefill: one forward for ``B_p`` sequences'
+    next prompt chunks under ONE weight stream.
+
+    ``token_ids`` ``[B_p, C]``: row ``b`` is the next uncached chunk of an
+    admission whose K/V lives in cache row ``slots[b]`` (int32 ``[B_p]``
+    on the cache's device) with ``offsets[b]`` tokens already written
+    there; chunk position ``j`` sits at ``offsets[b] + j``.  A row may be
+    PARKED with ``offsets[b] == capacity``: it reads no window, its writes
+    drop and its logits are ignored (a packed call padded to a power-of-two
+    bucket).  ``slots`` must be pairwise distinct (:func:`_commit_chunk_at`).
+
+    Returns ``(logits [B_p, C, vocab] f32, cache)`` with each real row's
+    chunk K/V committed in place at ``(slots[b], offsets[b] + j)`` after the
+    layer loop and ``lengths`` UNCHANGED: the engine sets a slot's length
+    when its last chunk lands."""
+    b, s = token_ids.shape
+    quant = isinstance(cache, QuantRaggedKVCache)
+    x = params["embed"][token_ids].to(dtype)
+    positions = offsets.to(torch.int64)[:, None] + torch.arange(s, device=offsets.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg)              # [B_p, C, D]
+
+    news = []  # each layer's chunk as the cache stores it
+    for l in range(cfg.num_layers):
+        if quant:
+            ck = (cache.k8[l], cache.k_scale[l])
+            cv = (cache.v8[l], cache.v_scale[l])
+        else:
+            ck, cv = cache.k[l], cache.v[l]
+        x, k_new, v_new, kv8 = _block_prefill_ragged(
+            x, _layer(params["layers"], l), ck, cv, slots, offsets, cos, sin, cfg,
+        )
+        news.append(kv8 if quant else (k_new, v_new))
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _qmatmul(x, params["lm_head"])
+    stacked = [torch.stack(t) for t in zip(*news)]
+    if quant:
+        k8, ks, v8, vs = stacked
+        _commit_chunk_at(cache, (k8, ks), (v8, vs), slots, offsets, quant)
+    else:
+        _commit_chunk_at(cache, *stacked, slots, offsets, quant)
+    return logits, cache

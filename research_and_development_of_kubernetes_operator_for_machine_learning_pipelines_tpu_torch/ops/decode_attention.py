@@ -421,8 +421,11 @@ def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None):
     ``(k8c, ksc, v8c, vsc)`` that the rows below the diagonal read (None:
     every chunk key exact).  Scores and the softmax in f32, with the
     reference's -1e9 biases; the probabilities cast to the product's type
-    (f64 for f64 inputs, else f32, as the kernel keeps them)."""
-    s, g = _verify_shapes(q, k_chunk)
+    (f64 for f64 inputs, else f32, as the kernel keeps them).  Any chunk
+    length: the packed prefill's plain version (``ops.flash_attention``)
+    runs it at the prefill chunk."""
+    s = k_chunk.shape[2]
+    g = q.shape[2] // s
     d = q.shape[-1]
     sqrt_d = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
     scores = _einsum_f32("bnrd,bnwd->bnrw", q, k.to(q.dtype)) / sqrt_d
@@ -458,12 +461,14 @@ def verify_attention_reference(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8
     """Plain PyTorch version of :func:`verify_attention`: the int8 window
     with its scales, the chunk's exact diagonal and its round-tripped rows
     below it.  Returns f32 (f64 for f64 inputs)."""
+    _verify_shapes(q, k_chunk)
     return _verify_chain(q, k8, v8, k_chunk, v_chunk, mask, ks, vs, (k8c, ksc, v8c, vsc))
 
 
 def verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask):
     """Plain PyTorch version of :func:`verify_attention_dense`: every chunk
     key exact, as on the dense cache.  Returns f32 (f64 for f64 inputs)."""
+    _verify_shapes(q, k_chunk)
     return _verify_chain(q, k, v, k_chunk, v_chunk, mask)
 
 

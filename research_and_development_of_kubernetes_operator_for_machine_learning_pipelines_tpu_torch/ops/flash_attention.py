@@ -48,24 +48,59 @@ CUDA-core kernel.  The bf16 kernel copies Q, K and V tiles with 16-byte
 ``cp.async`` (the f32 one K and V with 16-byte loads), so the wrapper
 asks q, k and v for 16-byte aligned bases and strides; it raises
 otherwise and never reroutes.
+
+**The ragged instance** (:func:`flash_attention_ragged`, packed
+multi-admission prefill, ``models/llama.py`` ``prefill_chunks_ragged``):
+the attention lines of the JAX package's ``_block_verify_deferred``
+(``models/llama.py:1039-1169``, which reaches no Pallas kernel there) at
+the prefill chunk, on cache rows picked by ``slots``:
+
+  q          [B_p, C, H, D]    the packed chunks' queries, bf16
+  k/v_cache  [NS, NKV, T, D]   one layer of the head-major ragged cache:
+                               int8 with f32 scales [NS, NKV, T, 1], or
+                               q's type with none
+  slots      [B_p] int32       the cache row of each packed row
+  offsets    [B_p] int32       its tokens already in that row
+  k/v_chunk  [B_p, C, NKV, D]  the chunk's exact K/V, q's type
+  chunk8     int8 cache only: the chunk through the cache's quantize
+             round-trip, (k8c, ksc, v8c, vsc) [B_p, C, NKV, D] int8 and
+             [B_p, C, NKV, 1] f32
+  out        [B_p, C, H, D]    q's type (the plain version: f32, f64 for
+                               f64 inputs)
+
+Query ``j`` of row ``b`` attends the window keys ``0 .. offsets[b] - 1``
+of cache row ``slots[b]`` (scales folded into the score and the
+probability on the int8 cache) and the chunk keys ``i <= j`` in one
+softmax; on the int8 cache the chunk keys below the diagonal are read
+through the round-trip codes and the diagonal is exact, as on the
+sequential path, where the earlier chunk positions were in the cache
+before they were attended.  A row whose offset is at capacity (a parked
+pad row of a packed call) reads no window; its output is finite and
+ignored.  ``offsets`` and ``slots`` stay on the card (no host sync).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
+from .decode_attention import _verify_chain
 
 NEG_INF = -1e30
 
-# Kernel launches since import (the plain version never counts).
+# Kernel launches since import (the plain version never counts): the
+# dense kernel's, and the ragged instance's.
 launches = 0
+ragged_launches = 0
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_RAGGED_HEAD_DIMS = (64, 128)
+_rfn = None
 
 
 def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -235,3 +270,135 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, kv_len, scale, bias, int(q_offset))
     return _launch(q, k, v, causal, kv_len, scale, bias, int(q_offset))
+
+
+# ---------------------------------------------------------------------------
+# The ragged instance: packed multi-admission prefill
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ragged_reference(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk,
+                                     k_scale=None, v_scale=None, chunk8=None):
+    """Plain PyTorch version of :func:`flash_attention_ragged`: the
+    window rows gathered by ``slots`` under the strict mask ``key <
+    offsets[b]`` (no key for a parked row), then the verify chain of
+    ``ops.decode_attention`` over the chunk (the JAX ``_block_verify_deferred``
+    lines), scores and softmax in f32.  Returns ``[B_p, C, H, D]`` in f32
+    (f64 for f64 inputs)."""
+    b, c, h, d = q.shape
+    nkv, t = k_cache.shape[1], k_cache.shape[2]
+    g = h // nkv
+    rows = slots.to(torch.int64)
+    win = torch.where((offsets > 0) & (offsets < t), offsets, 0)
+    key = torch.arange(t, device=q.device)
+    mask = torch.where(key[None, :] < win[:, None], 0.0, -1e9).to(torch.float32)[:, None, :]
+    # Query row r = j * G + g of each (row, kv head), as the verify chain takes it.
+    qr = q.reshape(b, c, nkv, g, d).transpose(1, 2).reshape(b, nkv, c * g, d)
+    rt = None if chunk8 is None else tuple(x.transpose(1, 2) for x in chunk8)
+    out = _verify_chain(
+        qr, k_cache[rows], v_cache[rows], k_chunk.transpose(1, 2), v_chunk.transpose(1, 2),
+        mask, None if k_scale is None else k_scale[rows],
+        None if v_scale is None else v_scale[rows], rt,
+    )
+    return out.reshape(b, nkv, c, g, d).transpose(1, 2).reshape(b, c, h, d)
+
+
+def _ragged_kernel():
+    global _rfn
+    if _rfn is None:
+        fn = _build.load("flash_attention").flash_ragged_launch
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i32, i32] + [vp] * 14 + [i32] * 6 + [ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+        _rfn = fn
+    return _rfn
+
+
+def _launch_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale, v_scale,
+                   chunk8):
+    global ragged_launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"ragged flash attention: unsupported device {dev}")
+    if q.dim() != 4 or k_cache.dim() != 4:
+        raise ValueError(f"ragged flash attention: q {tuple(q.shape)} must be [B, C, H, D] "
+                         f"and the cache {tuple(k_cache.shape)} [NS, NKV, T, D]")
+    b, c, h, d = q.shape
+    n_slots, nkv, t = k_cache.shape[:3]
+    if d not in _RAGGED_HEAD_DIMS:
+        raise ValueError(f"ragged flash attention kernel takes D in {_RAGGED_HEAD_DIMS}, "
+                         f"got {d}")
+    if nkv <= 0 or h % nkv:
+        raise ValueError(f"ragged flash attention: {h} query heads do not group over {nkv} "
+                         "K/V heads")
+    quant = k_cache.dtype == torch.int8
+    bf = torch.bfloat16
+    cache_type = torch.int8 if quant else bf
+    want = {
+        "q": (q, bf, (b, c, h, d)),
+        "k_cache": (k_cache, cache_type, (n_slots, nkv, t, d)),
+        "v_cache": (v_cache, cache_type, (n_slots, nkv, t, d)),
+        "k_chunk": (k_chunk, bf, (b, c, nkv, d)),
+        "v_chunk": (v_chunk, bf, (b, c, nkv, d)),
+        "slots": (slots, torch.int32, (b,)),
+        "offsets": (offsets, torch.int32, (b,)),
+    }
+    if quant:
+        if k_scale is None or v_scale is None or chunk8 is None:
+            raise ValueError("ragged flash attention: an int8 cache needs its scales and the "
+                             "chunk's round-trip codes")
+        k8c, ksc, v8c, vsc = chunk8
+        want.update({
+            "k_scale": (k_scale, torch.float32, (n_slots, nkv, t, 1)),
+            "v_scale": (v_scale, torch.float32, (n_slots, nkv, t, 1)),
+            "k8c": (k8c, torch.int8, (b, c, nkv, d)),
+            "ksc": (ksc, torch.float32, (b, c, nkv, 1)),
+            "v8c": (v8c, torch.int8, (b, c, nkv, d)),
+            "vsc": (vsc, torch.float32, (b, c, nkv, 1)),
+        })
+    elif k_scale is not None or v_scale is not None or chunk8 is not None:
+        raise ValueError("ragged flash attention: scales and round-trip codes go with an "
+                         "int8 cache only")
+    for name, (x, dtype, shape) in want.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"ragged flash attention: {name} must be {dtype} {shape} on "
+                             f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"ragged flash attention: {name} must be contiguous, got "
+                             f"strides {x.stride()}")
+        # Rows are read with 16-byte loads; scales and indices one element at a time.
+        if x.data_ptr() % (16 if x.dim() == 4 and x.shape[-1] == d else 4):
+            raise ValueError(f"ragged flash attention: {name} is misaligned at "
+                             f"{x.data_ptr():#x}")
+    if c == 0 or t == 0 or n_slots == 0:
+        raise ValueError(f"ragged flash attention: empty input (C={c}, T={t}, NS={n_slots})")
+    if b * h > 2**31 - 1 or (c + 63) // 64 > 65535:
+        raise ValueError(f"ragged flash attention: grid too large for B*H={b * h}, C={c}")
+    out = torch.empty((b, c, h, d), dtype=bf, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    rc = _ragged_kernel()(
+        int(quant), d, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        ptr(k_scale), ptr(v_scale), slots.data_ptr(), offsets.data_ptr(),
+        k_chunk.data_ptr(), v_chunk.data_ptr(),
+        *((ptr(x) for x in chunk8) if quant else (None,) * 4),
+        out.data_ptr(), b, h, nkv, c, t, n_slots, 1.0 / math.sqrt(d),
+        _build.current_stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"ragged flash attention kernel launch failed: cudaError {rc}")
+    ragged_launches += 1
+    return out
+
+
+def flash_attention_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk,
+                           k_scale=None, v_scale=None, chunk8=None):
+    """Packed-prefill attention: each packed row's chunk against the window
+    of its cache row and its own causal keys, one softmax (layouts in the
+    module docstring).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the ragged kernel or raises (type, shape, D, grouping,
+    contiguity, alignment, build or launch), never falling back."""
+    if q.device.type == "cpu":
+        return flash_attention_ragged_reference(q, k_cache, v_cache, slots, offsets, k_chunk,
+                                                v_chunk, k_scale, v_scale, chunk8)
+    return _launch_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale,
+                          v_scale, chunk8)

@@ -51,9 +51,11 @@ of ``/generate`` carries it as ``request_id``.  Each answered
 ``tpumlops_torch.server.requests``): rows, tokens, prefill chunks, prompt
 tokens served from the prefix cache and accepted/proposed draft tokens.
 
-The radix prefix cache (``--prefix-cache*``) and self-speculative n-gram
-decoding (``--speculative*``) are the reference's serving knobs, refused
-at startup with the reference's messages when out of range.
+The radix prefix cache (``--prefix-cache*``), self-speculative n-gram
+decoding (``--speculative*``) and packed multi-admission prefill
+(``--prefill-batch``, ``--prefill-token-budget``) are the reference's
+serving knobs, refused at startup with the reference's messages when out
+of range.
 """
 
 from __future__ import annotations
@@ -158,6 +160,10 @@ class ServerConfig:
     quantize: str = "none"
     max_slots: int = 4
     prefill_chunk: int | None = None
+    # Packed multi-admission prefill (spec.tpu.prefillBatch and
+    # prefillTokenBudget): 1 is the single-admission pipeline, 0 no budget.
+    prefill_batch: int = 1
+    prefill_token_budget: int = 0
     device: str | None = None
     # The V2 predict path's dynamic batcher.
     max_batch_size: int = 32
@@ -183,8 +189,11 @@ class ServerConfig:
     speculative_adaptive: bool = True
 
     def __post_init__(self):
-        """The reference's startup checks of both features (its
-        ``PrefixCacheSpec`` and ``SpeculativeSpec``), only when enabled."""
+        """The reference's startup checks of the serving features (its
+        ``TpuSpec``, ``PrefixCacheSpec`` and ``SpeculativeSpec``), the
+        caches' and speculation's only when enabled."""
+        if self.prefill_batch < 1:
+            raise ValueError(f"spec.tpu.prefillBatch must be >= 1, got {self.prefill_batch!r}")
         if self.prefix_cache:
             chunk = self.prefix_cache_chunk_tokens
             if self.prefill_chunk is not None and chunk != self.prefill_chunk:
@@ -201,6 +210,10 @@ class ServerConfig:
             if self.prefix_cache_l2_budget_mb < 0:
                 raise ValueError(
                     f"prefixCache.l2BudgetMB must be >= 0, got {self.prefix_cache_l2_budget_mb}")
+        if self.prefill_batch > 1 and not self.prefill_chunk and not self.prefix_cache:
+            raise ValueError(
+                f"spec.tpu.prefillBatch {self.prefill_batch} requires chunked prefill: set "
+                "prefillChunk (or enable prefixCache, which implies it)")
         if self.speculative:
             if not (1 <= self.speculative_draft_tokens <= 64):
                 raise ValueError(
@@ -210,6 +223,9 @@ class ServerConfig:
                 raise ValueError(
                     "speculative ngram bounds must satisfy 1 <= ngramMin <= ngramMax, got "
                     f"[{self.speculative_ngram_min}, {self.speculative_ngram_max}]")
+        if self.prefill_token_budget < 0:
+            raise ValueError(
+                f"spec.tpu.prefillTokenBudget must be >= 0, got {self.prefill_token_budget!r}")
 
     @property
     def prefix_cache_chunk_tokens(self) -> int:
@@ -247,6 +263,9 @@ def make_gen_engine(predictor, config: ServerConfig,
         eos_id=predictor.causal_lm.get("eos_id"),
         kv_quant=config.quantize == "int8kv",
         prefill_chunk=config.prefill_chunk,
+        prefill_batch=config.prefill_batch,
+        prefill_token_budget=config.prefill_token_budget,
+        on_prefill_batch=m.observe_prefill_batch,
         device=config.device,
         admission_queue_budget=config.admission_queue_budget,
         on_step=m.observe_decode_step,
@@ -885,6 +904,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quantize", default="none", choices=["none", "int8", "int8kv"])
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--prefill-batch", type=int, default=1,
+                    help="concurrent admissions whose next prompt chunks batch into ONE "
+                         "prefill forward a tick (1 = single-admission pipeline; > 1 needs "
+                         "--prefill-chunk or --prefix-cache)")
+    ap.add_argument("--prefill-token-budget", type=int, default=0,
+                    help="prompt tokens prefilled a tick, Sarathi-style (0 = uncapped); "
+                         "bounds decode-cadence jitter under long-prompt bursts")
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-batch-delay-ms", type=float, default=5.0)
     ap.add_argument("--admission-queue-budget", type=int, default=0,
@@ -936,6 +962,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         model_name=args.model_name, host=args.host, port=args.port,
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
         prefill_chunk=args.prefill_chunk, device=args.device,
+        prefill_batch=args.prefill_batch, prefill_token_budget=args.prefill_token_budget,
         max_batch_size=args.max_batch_size, max_batch_delay_ms=args.max_batch_delay_ms,
         admission_queue_budget=args.admission_queue_budget,
         drain_grace_s=args.drain_grace_seconds,

@@ -44,22 +44,34 @@ pending token and the drafts, and emits each slot's accepted draft prefix
 plus the bonus token; the tokens are the plain greedy path's.  A tick
 with a sampling slot, or with no draft, is the plain decode tick.
 
+Packed multi-admission prefill (``prefill_batch`` > 1, chunked prefill
+only): each admission reserves a cache row and its chunks are written into
+that row directly; every scheduler iteration packs up to ``prefill_batch``
+in-flight admissions' next chunks (capped by ``prefill_token_budget`` /
+chunk when set) into ONE forward (``llama.prefill_chunks_ragged``, the
+ragged instance of the flash kernel), padded with parked rows to a
+power-of-two bucket.  A row whose chunk completes its prompt is finalized
+in the same tick: its length, its sampling state and its first token.  A
+radix-cached prefix is seeded straight into the reserved row, and fresh
+full chunks are read back off it.
+
 Hooks (all optional, called on the scheduler thread): ``on_step`` per
 decode or verify tick and idle pass, ``on_tokens``/``on_itl`` per emitted
 token, ``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per
 finished request, ``on_tick``/``on_dispatch`` per device dispatch,
 ``on_prefix_hit`` (cached tokens) per warm admission, ``on_prefix_evict``
 per chunk the first tier evicts, ``on_prefix_l2`` (``hit``/``spill``/
-``evict``) per second-tier event, ``on_spec`` (proposed, accepted) per
+``evict``) per second-tier event, ``on_prefill_batch`` (real chunks) per
+packed forward, ``on_spec`` (proposed, accepted) per
 slot with a draft in a verify tick, ``on_shed`` per refused request (on
 the submitting thread); ``submit(on_token=...)`` streams one request's
 tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
 and draft tokens.
 
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): packed prefill, multi-step decode, the unified super-step,
-SLO classes and preemption, the mesh, multi-host, the watchdog, the
-flight recorder, device telemetry and poison quarantine.
+asked for): multi-step decode, the unified super-step, SLO classes and
+preemption, the mesh, multi-host, the watchdog, the flight recorder,
+device telemetry and poison quarantine.
 """
 
 from __future__ import annotations
@@ -217,11 +229,12 @@ class _Request:
 
 @dataclass(eq=False)  # identity semantics: numpy fields
 class _PrefillProgress:
-    """A chunked admission in flight (at most one: the batch-1 scratch
-    cache serializes admissions).  With a radix-cached prefix
-    (``cached_tokens`` > 0), ``chunks`` covers only the uncached suffix:
-    the prefix's K/V (``cached_kv``, one host pair a chunk) is seeded into
-    the scratch cache by one tick and never re-prefilled."""
+    """A chunked admission in flight.  Single-admission mode holds at most
+    one and threads the batch-1 scratch cache; packed mode holds a queue of
+    them, each with a reserved cache row (``slot``) its chunks are written
+    into.  With a radix-cached prefix (``cached_tokens`` > 0), ``chunks``
+    covers only the uncached suffix: the prefix's K/V (``cached_kv``, one
+    host pair a chunk) is seeded by one tick and never re-prefilled."""
 
     req: _Request
     chunks: list  # padded [1, C] int32 arrays (the uncached suffix)
@@ -229,6 +242,7 @@ class _PrefillProgress:
     cached_tokens: int = 0
     cached_kv: list = field(default_factory=list)
     seeded: bool = False
+    slot: int = -1  # packed mode: the reserved cache row (-1: the scratch)
 
 
 # Engine options of the reference that this port does not have yet, with
@@ -236,8 +250,6 @@ class _PrefillProgress:
 # silently ignored.
 _NOT_PORTED = {
     "channel": None,
-    "prefill_batch": 1,
-    "prefill_token_budget": 0,
     "recorder": None,
     "telemetry": None,
     "decode_steps": 1,
@@ -285,6 +297,9 @@ class GenerationEngine:
         on_tick: Callable[[str, float], None] | None = None,
         on_shed: Callable[[str], None] | None = None,
         on_dispatch: Callable[[str], None] | None = None,
+        prefill_batch: int | None = None,
+        prefill_token_budget: int | None = None,
+        on_prefill_batch: Callable[[int], None] | None = None,
         prefix_cache=None,  # PrefixCacheConfig | None
         on_prefix_hit: Callable[[int], None] | None = None,
         on_prefix_evict: Callable[[], None] | None = None,
@@ -353,6 +368,27 @@ class GenerationEngine:
                 raise ValueError(
                     f"prefill_chunk {C} must divide KV capacity {self.capacity}"
                 )
+        # Packed multi-admission prefill: up to prefill_batch in-flight
+        # admissions' next chunks in ONE forward, so the weight stream a
+        # chunk forward pays is shared.  1 (the default) is the
+        # single-admission pipeline.
+        self._prefill_batch = 1 if prefill_batch is None else int(prefill_batch)
+        if self._prefill_batch < 1:
+            raise ValueError(f"prefill_batch must be >= 1, got {prefill_batch}")
+        if self._prefill_batch > 1 and self._prefill_chunk_size is None:
+            raise ValueError(
+                "prefill_batch > 1 requires chunked prefill: set "
+                "prefillChunk (or enable prefixCache, which implies it)"
+            )
+        # More concurrent admissions than cache rows cannot exist.
+        self._prefill_batch = min(self._prefill_batch, self.max_slots)
+        self._prefill_token_budget = int(prefill_token_budget or 0)
+        if self._prefill_token_budget < 0:
+            raise ValueError(
+                f"prefill_token_budget must be >= 0, got {prefill_token_budget}"
+            )
+        self._packed = self._prefill_batch > 1
+        self._on_prefill_batch = on_prefill_batch
         self._on_prefix_hit = on_prefix_hit
         self._on_prefix_evict = on_prefix_evict
         self._on_prefix_l2 = on_prefix_l2
@@ -386,6 +422,7 @@ class GenerationEngine:
         self.dispatches_total: dict[str, int] = {}
         self.tokens_generated = 0
         self.prefill_forwards = 0  # whole-prompt prefills + chunk forwards
+        self.prefill_chunks_dispatched = 0  # chunks run by packed forwards
         self.decode_forwards = 0  # decode and verify ticks
         self.prefix_hits = 0
         self.prefix_cached_tokens = 0
@@ -395,6 +432,7 @@ class GenerationEngine:
         self.spec_accepted_tokens = 0
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._pending: list[_PrefillProgress] = []
+        self._reserved: set[int] = set()  # packed mode: rows of admissions in flight
         self._seq_state = None  # (last_logits, seq KVCache) of a chunked admission
         # Engine-assigned keys fold a counter into a per-boot key, so
         # unseeded streams never collide with a user's key(seed) stream
@@ -460,6 +498,7 @@ class GenerationEngine:
                     ),
                 )
         self._pending = []
+        self._reserved.clear()
         self._seq_state = None
         for slot in self._slots:
             if slot is not None and not slot.future.done():
@@ -471,14 +510,7 @@ class GenerationEngine:
                 break
             if req is not None:
                 self._release_queued(req)
-                if not req.future.done():
-                    _safe_fail(
-                        req.future,
-                        EngineShutdown(
-                            "engine shut down before admission; retry on "
-                            "another replica"
-                        ),
-                    )
+                self._refuse_at_shutdown(req)
 
     # -- client API ----------------------------------------------------------
 
@@ -664,7 +696,7 @@ class GenerationEngine:
 
     def _free_slot(self) -> int | None:
         for i, s in enumerate(self._slots):
-            if s is None:
+            if s is None and i not in self._reserved:
                 return i
         return None
 
@@ -843,12 +875,63 @@ class GenerationEngine:
             out.append(host)
         return out
 
+    def _read_chunk_slot(self, slot: int, start: int):
+        """Packed mode's :meth:`_read_chunk`: cache row ``slot``'s K/V at
+        ``start``, position-major ``[L, 1, C, NKV, D]`` in the engine's type
+        (the radix cache's layout, so entries serve either mode), copied to
+        host memory (pinned on a CUDA engine).  The int8 cache dequantizes
+        on the way out; requantizing ``code * scale`` in bf16 gives the code
+        and the scale back (the per-head max is kept)."""
+        C = self._prefill_chunk_size
+        at = (slice(None), slice(slot, slot + 1), slice(None), slice(start, start + C))
+        cache = self._cache
+        if self._kv_quant:
+            bufs = [(q8[at].to(self._dtype) * sc[at]).to(self._dtype)
+                    for q8, sc in ((cache.k8, cache.k_scale), (cache.v8, cache.v_scale))]
+        else:
+            bufs = [cache.k[at], cache.v[at]]
+        pin = self._device.type == "cuda"
+        out = []
+        for src in bufs:
+            src = src.transpose(2, 3)  # head-major -> position-major
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
+            host.copy_(src)
+            out.append(host)
+        return out
+
+    def _device_seed_slot(self, cached_kv: list, slot: int) -> None:
+        """Packed mode's :meth:`_device_seed`: the cached chunks (host
+        pairs ``[L, 1, C, NKV, D]``, position-major) copied into the reserved
+        cache row ``slot`` at their offsets, head-major, quantized on the
+        int8 cache (one DMA a tensor from pinned host memory)."""
+        C = self._prefill_chunk_size
+        cache = self._cache
+        for i, (ck, cv) in enumerate(cached_kv):
+            at = (slice(None), slice(slot, slot + 1), slice(None), slice(i * C, (i + 1) * C))
+            kh, vh = (x.to(self._device, non_blocking=True).transpose(2, 3).to(self._dtype)
+                      for x in (ck, cv))
+            if self._kv_quant:
+                cache.k8[at], cache.k_scale[at] = llama._quant_kv(kh)
+                cache.v8[at], cache.v_scale[at] = llama._quant_kv(vh)
+            else:
+                cache.k[at] = kh
+                cache.v[at] = vh
+
+    def _note_prefix_hit(self, prog: _PrefillProgress) -> None:
+        self.prefix_hits += 1
+        self.prefix_cached_tokens += prog.cached_tokens
+        if prog.req.stats is not None:
+            prog.req.stats.cached_tokens += prog.cached_tokens
+        if self._on_prefix_hit is not None:
+            self._on_prefix_hit(prog.cached_tokens)
+
     def _maybe_cache_chunk(self, prog: _PrefillProgress) -> None:
         """Write the chunk just prefilled (``prog.next_idx``) back into the
         radix cache: full chunks of real prompt tokens only (a padded tail
         holds pad-token K/V), and only chunks the tree does not hold (the
         read off the card waits for the forward, so each unique chunk pays
-        it once)."""
+        it once).  Packed mode reads the reserved row, the single-admission
+        pipeline its scratch cache."""
         if self._prefix_cache is None:
             return
         C = self._prefill_chunk_size
@@ -859,7 +942,10 @@ class GenerationEngine:
         chunk_idx = start // C
         if self._prefix_cache.has_chunk(prog.req.prompt, chunk_idx):
             return
-        ck, cv = self._read_chunk(start)
+        if prog.slot >= 0:
+            ck, cv = self._read_chunk_slot(prog.slot, start)
+        else:
+            ck, cv = self._read_chunk(start)
         self._prefix_cache.insert_chunk(prog.req.prompt, chunk_idx, ck, cv)
 
     def _chunk_tick(self) -> None:
@@ -877,12 +963,7 @@ class GenerationEngine:
             self._device_seed(prog.cached_kv, prog.cached_tokens)
             prog.seeded = True
             prog.cached_kv = []  # the cache keeps the host copies
-            self.prefix_hits += 1
-            self.prefix_cached_tokens += prog.cached_tokens
-            if stats is not None:
-                stats.cached_tokens += prog.cached_tokens
-            if self._on_prefix_hit is not None:
-                self._on_prefix_hit(prog.cached_tokens)
+            self._note_prefix_hit(prog)
             self._record_tick("seed", time.perf_counter() - t0)
             return
         ids = prog.chunks[prog.next_idx]
@@ -912,6 +993,115 @@ class GenerationEngine:
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
         self._record_token(slot_idx, first)
+
+    # -- packed multi-admission prefill (prefill_batch > 1) ------------------
+
+    def _pack_buckets(self) -> list[int]:
+        """Power-of-two B_p buckets up to ``prefill_batch`` (which caps the
+        set even when it is not a power of two), ascending: every packed
+        forward has one of these row counts, so its shapes are few (what a
+        later CUDA-graph capture needs)."""
+        out, b = [], 1
+        while b < self._prefill_batch:
+            out.append(b)
+            b *= 2
+        out.append(self._prefill_batch)
+        return out
+
+    def _pack_bucket(self, n: int) -> int:
+        for b in self._pack_buckets():
+            if b >= n:
+                return b
+        return self._prefill_batch
+
+    def _parked_batch(self, bucket: int, real_slots: list[int]) -> tuple:
+        """A packed call's (ids, slots, offsets) with every row PARKED
+        (offset == capacity: it reads no window and writes nothing); rows
+        ``[0, n)`` carry ``real_slots`` for :meth:`_packed_tick` to fill,
+        and each pad row a slot no other row has (the unique-target
+        contract of ``llama._commit_chunk_at``: a parked row stores back
+        what its own row holds)."""
+        spare = [i for i in range(self.max_slots) if i not in real_slots]
+        slots = np.asarray(list(real_slots) + spare[:bucket - len(real_slots)], np.int32)
+        return (
+            np.zeros((bucket, self._prefill_chunk_size), np.int64),
+            slots,
+            np.full((bucket,), self.capacity, np.int32),
+        )
+
+    def _packed_tick(self) -> None:
+        """Advance up to ``prefill_batch`` in-flight admissions by one chunk
+        each: ONE packed forward, after one seed op for each admission
+        entering with a radix-cached prefix.  The token budget caps the
+        chunks a tick packs (Sarathi-style): decode ticks interleave every
+        tick, so bounding prefill work a tick bounds the decode-cadence
+        jitter long prompts inject."""
+        C = self._prefill_chunk_size
+        max_chunks = self._prefill_batch
+        if self._prefill_token_budget:
+            max_chunks = min(max_chunks, max(1, self._prefill_token_budget // C))
+        chunk_progs = []
+        for prog in self._pending[:max_chunks]:
+            if prog.cached_tokens and not prog.seeded:
+                # The cached prefix goes straight into the reserved row;
+                # those tokens never re-prefill.
+                t0 = time.perf_counter()
+                self._device_seed_slot(prog.cached_kv, prog.slot)
+                prog.seeded = True
+                prog.cached_kv = []
+                self._note_prefix_hit(prog)
+                self._record_tick("seed", time.perf_counter() - t0)
+            else:
+                chunk_progs.append(prog)
+        if not chunk_progs:
+            return
+        n = len(chunk_progs)
+        ids, slots, offsets = self._parked_batch(self._pack_bucket(n),
+                                                 [p.slot for p in chunk_progs])
+        finals = []  # (row, progress, last real position in the chunk, key)
+        for i, prog in enumerate(chunk_progs):
+            ids[i] = prog.chunks[prog.next_idx][0]
+            offsets[i] = prog.cached_tokens + prog.next_idx * C
+            if prog.next_idx == len(prog.chunks) - 1:
+                last = int(prog.req.prompt.size) - 1 - int(offsets[i])
+                finals.append((i, prog, last, self._slot_key_for(prog.req)))
+        t0 = time.perf_counter()
+        firsts = self._device_chunks(ids, slots, offsets, finals)
+        self.prefill_chunks_dispatched += n
+        self.prefill_forwards += 1
+        if self._on_prefill_batch is not None:
+            self._on_prefill_batch(n)
+        self._record_tick("packed-prefill", time.perf_counter() - t0)
+        for i, prog in enumerate(chunk_progs):
+            if prog.req.stats is not None:
+                prog.req.stats.prefill_chunks += 1
+            self._maybe_cache_chunk(prog)
+            prog.next_idx += 1
+            if prog.next_idx < len(prog.chunks):
+                continue
+            # The packed forward installed the slot and drew its first token.
+            self._pending.remove(prog)
+            self._reserved.discard(prog.slot)
+            self._slots[prog.slot] = self._new_slot(prog.req)
+            self._note_ttft(prog.req)
+            self._record_token(prog.slot, firsts[i])
+
+    def _device_chunks(self, ids, slots, offsets, finals) -> dict[int, int]:
+        """The packed forward, then the finalize of each row whose chunk
+        completes its prompt: the slot's length, its sampling state and its
+        first token, drawn from the row's last real position as a
+        single-admission insert draws it.  Returns ``{row: first token}``."""
+        dev = self._device
+        logits, self._cache = llama.prefill_chunks_ragged(
+            self._params, torch.as_tensor(ids, device=dev), self._cache,
+            torch.as_tensor(slots, device=dev), torch.as_tensor(offsets, device=dev),
+            self._cfg, self._dtype,
+        )
+        firsts = {}
+        for row, prog, last, slot_key in finals:
+            self._cache.lengths[prog.slot] = int(prog.req.prompt.size)
+            firsts[row] = self._install_slot(prog.slot, logits[row, last], slot_key, prog.req)
+        return firsts
 
     def _record_token(self, slot_idx: int, token: int) -> None:
         """Credit one emitted token to a slot; finish it on EOS or budget.
@@ -1107,6 +1297,8 @@ class GenerationEngine:
         admission by ONE chunk (or starts a new one), so a decode tick is
         never more than one prefill chunk away.  Returns False on the
         shutdown sentinel."""
+        if self._packed:
+            return self._admit_phase_packed()
         if self._pending:
             prog = self._pending[0]  # _chunk_tick pops it on finish
             try:
@@ -1128,14 +1320,7 @@ class GenerationEngine:
             if req is not None:
                 self._release_queued(req)  # left the admission queue
             if req is None or self._stop.is_set():
-                if req is not None and not req.future.done():
-                    _safe_fail(
-                        req.future,
-                        EngineShutdown(
-                            "engine shut down before admission; retry on "
-                            "another replica"
-                        ),
-                    )
+                self._refuse_at_shutdown(req)
                 return False
             self._note_admission_wait(req)
             if self._prefill_chunk_size is not None:
@@ -1150,9 +1335,58 @@ class GenerationEngine:
                 self._fail_all_and_recover()
         return True
 
+    @staticmethod
+    def _refuse_at_shutdown(req: _Request | None) -> None:
+        """Fail a request dequeued after shutdown began (None: the sentinel)."""
+        if req is not None and not req.future.done():
+            _safe_fail(
+                req.future,
+                EngineShutdown("engine shut down before admission; retry on another replica"),
+            )
+
+    def _admit_phase_packed(self) -> bool:
+        """Packed-mode admission: top up the in-flight admissions (each new
+        one reserves a free cache row), then advance up to
+        ``prefill_batch`` of them by one packed forward.  Returns False on
+        the shutdown sentinel."""
+        popped = False
+        while self._free_slot() is not None:
+            idle = not self._pending and all(s is None for s in self._slots)
+            try:
+                req = self._queue.get(block=idle and not popped, timeout=1.0)
+            except queue.Empty:
+                break
+            if req is not None:
+                self._release_queued(req)  # left the admission queue
+            if req is None or self._stop.is_set():
+                self._refuse_at_shutdown(req)
+                return False
+            self._note_admission_wait(req)
+            prog = self._make_progress(req)
+            prog.slot = self._free_slot()
+            self._reserved.add(prog.slot)
+            self._pending.append(prog)
+            popped = True
+        if not self._pending:
+            return True
+        try:
+            self._packed_tick()
+        except Exception as exc:
+            _log.exception("packed prefill failed")
+            for prog in self._pending:
+                if not prog.req.future.done():
+                    _safe_fail(prog.req.future, exc)
+            self._pending = []
+            self._reserved.clear()
+            self._fail_all_and_recover()
+        return True
+
     def _fail_all_and_recover(self) -> None:
         """Fail every in-flight sequence and reallocate device state: a
-        failed step may have written part of the cache in place."""
+        failed step may have written part of the cache in place.  Packed
+        admissions prefill straight into their reserved rows, which the
+        reset zeroes, so they fail too (single-mode admissions live in the
+        batch-1 scratch and survive)."""
         for i, slot in enumerate(self._slots):
             if slot is not None and not slot.future.done():
                 _safe_fail(
@@ -1160,6 +1394,15 @@ class GenerationEngine:
                     RuntimeError("generation step failed; see server log"),
                 )
             self._slots[i] = None
+        if self._packed:
+            for prog in self._pending:
+                if not prog.req.future.done():
+                    _safe_fail(
+                        prog.req.future,
+                        RuntimeError("generation step failed; see server log"),
+                    )
+            self._pending = []
+            self._reserved.clear()
         try:
             self._reset_device_state()
         except Exception:

@@ -36,6 +36,7 @@ _DECODE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 _ADMISSION_WAIT_MS_BUCKETS = (0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
                               2500, 5000, 10000)
 _REQUEST_TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+_PREFILL_FILL_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # Accepted draft length per (slot, verify); the top finite bucket is the
 # draftTokens ceiling (64).
 _SPEC_ACCEPTED_LEN_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
@@ -217,6 +218,13 @@ class ServerMetrics:
             "Tokens generated per finished request (includes cancelled "
             "requests' partial output)",
             ident, _REQUEST_TOKEN_BUCKETS, lock)
+        # Packed multi-admission prefill: real chunks a packed forward.  Under
+        # a burst its mean should track min(concurrent admissions,
+        # prefillBatch); a flat 1 under load means packing is not engaging.
+        self.prefill_batch_fill = Histogram(
+            "tpumlops_prefill_batch_fill",
+            "Admission chunks packed into one batched prefill call",
+            ident, _PREFILL_FILL_BUCKETS, lock)
         self.tick_seconds = Histogram(
             "tpumlops_tick_seconds",
             "Engine tick wall time by kind (decode/verify/prefill/seed); the "
@@ -284,7 +292,8 @@ class ServerMetrics:
             self.decode_step_seconds, self.engine_active_slots,
             self.engine_queue_depth, self.engine_admitting,
             self.admission_wait_ms, self.ttft_seconds, self.itl_seconds,
-            self.request_tokens, self.tick_seconds, self.engine_dispatches,
+            self.request_tokens, self.prefill_batch_fill, self.tick_seconds,
+            self.engine_dispatches,
             self.prefix_cache_hits, self.prefix_cache_cached_tokens,
             self.prefix_cache_evictions, self.prefix_cache_l2_hits,
             self.prefix_cache_l2_spills, self.prefix_cache_l2_evictions,
@@ -341,6 +350,9 @@ class ServerMetrics:
 
     def observe_request_tokens(self, n: int) -> None:
         self.request_tokens.observe(self.identity, n)
+
+    def observe_prefill_batch(self, fill: int) -> None:
+        self.prefill_batch_fill.observe(self.identity, fill)
 
     def observe_tick(self, kind: str, seconds: float) -> None:
         self.tick_seconds.observe({**self.identity, "kind": kind}, seconds)

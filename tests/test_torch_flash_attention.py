@@ -9,7 +9,15 @@ JAX package's tests run it.  Then the port's additions: the additive key
 bias and strided q/k/v, against the einsum chain of BERT's
 ``_self_attention``; and the query offset with grouped K/V heads of
 Llama's prefill and chunked prefill, against the attention lines of the
-JAX package's Llama ``_block`` (``models/llama.py:370``) in f64.
+JAX package's Llama ``_block`` (``models/llama.py:370``) in f64.  Last,
+the ragged instance of packed prefill: its plain version against a JAX
+transcript of ``_block_verify_deferred``'s attention lines on cache rows
+gathered by ``slots`` (G = 1 and 4, int8 and dense caches, 1e-5: f32
+scores and softmax on both sides), and a torch emulation of the CUDA
+kernel's tiles (64-key window and chunk tiles under one online softmax,
+the exact diagonal put in place of its round-trip score and p_jj * v_j
+added from the exact V) against the plain version: 1e-6 in f64, and 2e-2
+with P rounded to bf16 as the kernel's MMA takes it.
 
 Tolerances: f32 2e-5 absolute and relative, as the JAX package's own
 flash tests (summation order and where the scale is applied).  bf16 I/O:
@@ -33,10 +41,14 @@ from research_and_development_of_kubernetes_operator_for_machine_learning_pipeli
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
     bert as TB,
 )
+from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
+    llama as T,
+)
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.ops import (
     flash_attention as tfa,
 )
 from tpumlops.models import bert as JB
+from tpumlops.models import llama as J
 
 jfa = importlib.import_module("tpumlops.ops.flash_attention")
 
@@ -370,3 +382,201 @@ def test_unsupported_device_raises_instead_of_falling_back():
     q, k, v = (torch.from_numpy(x).to("meta") for x in _qkv(s=8))
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_attention(q, k, v)
+
+
+# -- the ragged instance (packed prefill): plain version and kernel algebra --------
+
+
+def _ragged_inputs(B, C, H, NKV, NS, W, offsets, slots, quant, seed, D=16):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, C, H, D))
+    kc, vc = rng.standard_normal((2, B, C, NKV, D))
+    kc[..., 0] = 6.0 * np.sign(kc[..., 0] + 1e-9)  # the round-trip clips these at +-127
+    shape = (NS, NKV, W, D)
+    if quant:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks, vs = (rng.random((2,) + shape[:-1] + (1,)) * 0.02 + 1e-3).astype(np.float32)
+    else:
+        k, v = rng.standard_normal((2,) + shape)
+        ks = vs = None
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, kc=kc, vc=vc,
+                slots=np.asarray(slots, np.int32), offsets=np.asarray(offsets, np.int32))
+
+
+def _port_ragged(a, fn=tfa.flash_attention_ragged):
+    t = {n: None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+         for n, x in a.items()}
+    rt = None
+    if t["ks"] is not None:
+        rt = (*T._quant_kv(t["kc"]), *T._quant_kv(t["vc"]))
+    return fn(t["q"], t["k"], t["v"], t["slots"], t["offsets"], t["kc"], t["vc"], t["ks"],
+              t["vs"], rt)
+
+
+def _jax_ragged_lines(q, k, v, slots, offsets, kc, vc, ks=None, vs=None):
+    """JAX ``_block_verify_deferred``'s attention lines (``models/llama.py``
+    1072-1160) on cache rows gathered by ``slots`` under the strict mask
+    ``key < offsets[b]``: q ``[B, C, H, D]``, the window ``[NS, NKV, T,
+    D]`` (int8 with scales ``[NS, NKV, T, 1]``), the chunk ``[B, C, NKV,
+    D]``; ``[B, C, H, D]`` out.  Run eagerly, as the reference's quantizer
+    divides by 127 there."""
+    b, s, h, hd = q.shape
+    nkv, t = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, nkv, h // nkv, hd)
+    k, v = k[slots], v[slots]
+    quant = ks is not None
+    sq = jnp.sqrt(jnp.float32(hd))
+    scores = jnp.einsum("bqngd,bnkd->bngqk", qg, k.astype(q.dtype),
+                        preferred_element_type=jnp.float32) / sq
+    if quant:
+        scores = scores * ks[slots][..., 0][:, :, None, None, :]
+    valid = jnp.arange(t)[None, :] < offsets[:, None]
+    scores = scores + jnp.where(valid, 0.0, -1e9).astype(jnp.float32)[:, None, None, None]
+    score_self = jnp.einsum("bqngd,bjnd->bngqj", qg, kc, preferred_element_type=jnp.float32) / sq
+    eye = jnp.eye(s, dtype=bool)[None, None, None]
+    if quant:
+        k8c, kscc = J._quant_kv(kc)
+        score_rt = jnp.einsum("bqngd,bjnd->bngqj", qg, k8c.astype(q.dtype),
+                              preferred_element_type=jnp.float32) / sq
+        score_rt = score_rt * jnp.moveaxis(kscc[..., 0], 1, 2)[:, :, None, None, :]
+        score_chunk = jnp.where(eye, score_self, score_rt)
+    else:
+        score_chunk = score_self
+    qpos = jnp.arange(s)
+    chunk_bias = jnp.where(qpos[:, None] >= qpos[None, :], 0.0, -1e9).astype(jnp.float32)
+    probs = jax.nn.softmax(jnp.concatenate([scores, score_chunk + chunk_bias], -1), axis=-1)
+    pc, pk = probs[..., :-s], probs[..., -s:]
+    if quant:
+        pc = (pc * vs[slots][..., 0][:, :, None, None, :]).astype(q.dtype)
+        ctx = jnp.einsum("bngqk,bnkd->bqngd", pc, v.astype(q.dtype))
+        v8c, vscc = J._quant_kv(vc)
+        eyef = eye.astype(probs.dtype)
+        ctx = ctx + jnp.einsum("bngqj,bjnd->bqngd", (pk * eyef).astype(q.dtype), vc)
+        below = pk * (1.0 - eyef) * jnp.moveaxis(vscc[..., 0], 1, 2)[:, :, None, None, :]
+        ctx = ctx + jnp.einsum("bngqj,bjnd->bqngd", below.astype(q.dtype), v8c.astype(q.dtype))
+    else:
+        ctx = jnp.einsum("bngqk,bnkd->bqngd", pc.astype(q.dtype), v)
+        ctx = ctx + jnp.einsum("bngqj,bjnd->bqngd", pk.astype(q.dtype), vc)
+    return ctx.reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("H,NKV", [(4, 4), (8, 2)], ids=["G1", "G4"])
+def test_ragged_plain_matches_the_reference_lines(quant, H, NKV):
+    """Three rows on permuted slots of a 5-row cache, offsets 0, 37 and 64
+    (a full window), a 12-position chunk with rows near the int8 clip:
+    f32 scores and softmax on both sides, so 1e-5."""
+    a = _ragged_inputs(3, 12, H, NKV, 5, 64, [0, 37, 64 - 1], [4, 1, 2], quant, seed=H)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = _jax_ragged_lines(*(None if a[n] is None else jnp.asarray(a[n]) for n in
+                                   ("q", "k", "v", "slots", "offsets", "kc", "vc", "ks", "vs")))
+        want = np.asarray(want)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got = _port_ragged(a).numpy()
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _ragged_emulation(a, round_p=False, bk=64, bq=64):
+    """The CUDA kernel's arithmetic in f64 torch: for each (row, head,
+    64-query tile), the window's 64-key tiles of cache row ``slots[b]`` up
+    to ``offsets[b]`` (none for a parked row), then the chunk's tiles up to
+    the query tile's diagonal, one online softmax (running max, rescale a
+    tile); on the int8 cache the key scale times the score and the value
+    scale times p (rounded to bf16 with ``round_p``, as the MMA takes it),
+    the row sum of the unrounded p, and in the diagonal tile the exact q_j .
+    k_j in place of the round-trip score, p_jj kept out of P . V and
+    p_jj * v_j added from the exact V row."""
+    t = {n: None if x is None else torch.from_numpy(np.asarray(x)) for n, x in a.items()}
+    q, kc, vc = (t[n].to(torch.float64) for n in ("q", "kc", "vc"))
+    b, c, h, d = q.shape
+    ns, nkv, w = t["k"].shape[:3]
+    quant = t["ks"] is not None
+    if quant:
+        k8c, ksc = T._quant_kv(t["kc"])
+        v8c, vsc = T._quant_kv(t["vc"])
+    scale = 1.0 / d ** 0.5
+    out = torch.zeros((b, c, h, d), dtype=torch.float64)
+    rnd = (lambda x: x.to(torch.bfloat16).to(torch.float64)) if round_p else (lambda x: x)
+    for bi in range(b):
+        slot, off = int(t["slots"][bi]), int(t["offsets"][bi])
+        win = off if 0 < off < w and 0 <= slot < ns else 0
+        for hi in range(h):
+            hk = hi // (h // nkv)
+            for q0 in range(0, c, bq):
+                rows = torch.arange(q0, min(c, q0 + bq))
+                qq = q[bi, rows, hi]                                   # [R, D]
+                m = torch.full((len(rows),), -1e30, dtype=torch.float64)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((len(rows), d), dtype=torch.float64)
+                chunk_end = min(c, q0 + bq)
+                tiles = [("w", k0) for k0 in range(0, win, bk)]
+                tiles += [("c", k0) for k0 in range(0, chunk_end, bk)]
+                for n, (kind, k0) in enumerate(tiles):
+                    keys = torch.arange(k0, k0 + bk)
+                    lim = win if kind == "w" else chunk_end
+                    live = keys < lim
+                    kk = keys.clamp(max=lim - 1)
+                    if kind == "w":
+                        src_k = t["k"][slot, hk, kk].to(torch.float64)
+                        src_v = t["v"][slot, hk, kk].to(torch.float64)
+                        kscl = t["ks"][slot, hk, kk, 0].double() if quant else torch.ones(bk)
+                        vscl = t["vs"][slot, hk, kk, 0].double() if quant else torch.ones(bk)
+                    elif quant:
+                        src_k, src_v = k8c[bi, kk, hk].double(), v8c[bi, kk, hk].double()
+                        kscl, vscl = ksc[bi, kk, hk, 0].double(), vsc[bi, kk, hk, 0].double()
+                    else:
+                        src_k, src_v = kc[bi, kk, hk], vc[bi, kk, hk]
+                        kscl = vscl = torch.ones(bk, dtype=torch.float64)
+                    s = (qq @ src_k.T) * scale * kscl[None, :]
+                    diag = (keys[None, :] == rows[:, None]) & (kind == "c") & quant
+                    if quant and kind == "c" and n == len(tiles) - 1:
+                        exact = (qq * kc[bi, rows, hk]).sum(-1) * scale
+                        s = torch.where(diag, exact[:, None], s)
+                    ok = live[None, :] & ((kind == "w") | (keys[None, :] <= rows[:, None]))
+                    s = torch.where(ok, s, -torch.inf)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    pv = torch.where(diag, 0.0, rnd(p * vscl[None, :]))
+                    acc = acc * corr[:, None] + pv @ src_v
+                    if diag.any():
+                        pjj = torch.where(diag, p, 0.0).sum(-1)
+                        acc = acc + pjj[:, None] * vc[bi, rows, hk]
+                    m = m_new
+                out[bi, rows, hi] = acc / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("C,W,offsets", [(100, 200, [0, 64, 199, 200]),
+                                         (130, 256, [255, 1, 128, 70])],
+                         ids=["parked", "ragged"])
+def test_kernel_tiles_and_diagonal_match_the_plain_version(quant, C, W, offsets):
+    """The kernel's tile algebra (query tiles of 64, window tiles ending off
+    the tile grid, a parked row at offset == capacity, chunks of 100 and
+    130 spanning several query tiles) equals the plain version: 1e-6 in
+    f64; with P rounded to bf16 as the MMA takes it, within 2e-2 (the bf16
+    tolerance of the smoke's checks)."""
+    a = _ragged_inputs(4, C, 4, 2, 6, W, offsets, [5, 0, 3, 1], quant, seed=C + W)
+    want = _port_ragged(a).numpy()
+    np.testing.assert_allclose(_ragged_emulation(a).numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(_ragged_emulation(a, round_p=True).numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_ragged_wrapper_refuses_what_the_kernel_does_not_take():
+    """Off the CPU the wrapper checks before it launches: a meta tensor is
+    an unsupported device, and it never falls back to the plain version."""
+    a = _ragged_inputs(1, 4, 4, 4, 2, 16, [3], [1], True, seed=0)
+    t = {n: torch.from_numpy(np.ascontiguousarray(x)).to("meta") for n, x in a.items()}
+    rt = tuple(torch.empty(s, dtype=dt, device="meta")
+               for s, dt in (((1, 4, 4, 16), torch.int8), ((1, 4, 4, 1), torch.float32)) * 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention_ragged(t["q"], t["k"], t["v"], t["slots"], t["offsets"], t["kc"],
+                                   t["vc"], t["ks"], t["vs"], rt)
+    assert tfa.ragged_launches == 0
