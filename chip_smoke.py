@@ -281,6 +281,21 @@ def kernel_device_ms(fn, needle: str, iters: int = 50) -> float | None:
     return None
 
 
+def device_ms_by_kernel(fn, needle: str, iters: int = 20) -> dict[str, float]:
+    """Mean device ms a launch of each kernel whose name holds ``needle``
+    (the short name before its argument list), as ``kernel_device_ms``
+    sums them."""
+    out: dict[str, float] = {}
+    for _ in range(2):  # a profiler window now and then comes back empty
+        launches: dict[str, int] = {}
+        by_kernel, _ = profile_device(fn, iters, launches)
+        out = {re.sub(r"^.*::|\(.*$", "", k): v / launches[k]
+               for k, v in by_kernel.items() if needle in k and launches.get(k)}
+        if out:
+            break
+    return out
+
+
 def device_ms_per_call(fn, iters: int = 50) -> float | None:
     """Mean device ms per call of ``fn``, all the kernels it launches
     together (a library call may launch several); None when the profiler
@@ -302,6 +317,18 @@ def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # Phase 1-2
 # ---------------------------------------------------------------------------
+
+
+def chunk_occupancy() -> dict[str, int]:
+    """Blocks an SM holds of the two chunk-against-window kernels at D =
+    128 (the CUDA occupancy API on the built libraries), by cache."""
+    from importlib import import_module
+
+    build = import_module(f"{PKG}.ops._build")
+    verify = build.load("decode_attention").verify_attention_occupancy
+    ragged = build.load("flash_attention").flash_ragged_occupancy
+    return {"verify_int8": verify(0), "verify_bf16": verify(1),
+            "ragged_int8": ragged(1), "ragged_bf16": ragged(0)}
 
 
 def phase_device() -> str:
@@ -699,18 +726,20 @@ def phase_decode_attention_dense(da, buckets) -> dict:
                                 "library_device_ms", "bound_ms", "bound_by", "shape")}
 
 
-def _va_inputs(B, NKV, S, G, D, T, layers, dtype, gen, dense, near_clip=False):
+def _va_inputs(B, NKV, S, G, D, T, layers, dtype, gen, dense, near_clip=False, row=None):
     """Verify-attention inputs: the window as strided views of a head-major
     cache buffer [layers, B, NKV, T, D] (int8 with scales, or q's type),
     q [B, NKV, S*G, D], the chunk's exact K/V [B, NKV, S, D] and, for the
     int8 window, the chunk through the cache's quantize round-trip.
     ``near_clip``: every chunk row holds one +-8 outlier, so its other
-    elements land on few int8 steps and its outlier on +-127."""
+    elements land on few int8 steps and its outlier on +-127.  ``row``:
+    the cache rows are ``[..., :D]`` slices of rows ``row`` wide."""
     import torch
     from importlib import import_module
 
     llama = import_module(f"{PKG}.models.llama")
-    q, k, ks, v, vs, _, _ = _da_inputs(B, NKV, S * G, D, T, layers, dtype, gen, dense=dense)
+    q, k, ks, v, vs, _, _ = _da_inputs(B, NKV, S * G, D, T, layers, dtype, gen, row=row,
+                                       dense=dense)
     kc = torch.randn((B, NKV, S, D), generator=gen, device="cuda")
     vc = torch.randn((B, NKV, S, D), generator=gen, device="cuda")
     if near_clip:
@@ -752,6 +781,13 @@ def _va_check(da, inputs, W, lengths, what) -> float:
 
 
 def _va_bytes_flops(B, NKV, S, G, D, W, itemsize, dense):
+    """Bytes (each input read once, the output written once; the pieces'
+    partials are the kernel's overhead, not the function's) and the
+    tensor-core operations of the bf16 verify: each query row's W window
+    keys and its causal chunk keys (j <= s), Q . K once and P . V twice
+    (its f32 probabilities as a hi/lo pair of bf16 products, the least the
+    card's tensor cores take for them), 2 * D flops a product, all at the
+    bf16 tensor-core peak."""
     r = S * G
     nbytes = (B * NKV * r * D * itemsize                       # q
               + 2 * B * NKV * W * D * (itemsize if dense else 1)  # window K, V
@@ -760,8 +796,8 @@ def _va_bytes_flops(B, NKV, S, G, D, W, itemsize, dense):
               + (0 if dense else 2 * B * NKV * S * (D + 4))    # its round-trip
               + B * W * 4                                      # mask
               + B * NKV * r * D * 4)                           # out
-    flops = B * NKV * r * (4 * (W + S) * D + 6 * (W + S))
-    return nbytes, flops
+    pairs = B * NKV * (r * W + G * S * (S + 1) // 2)
+    return nbytes, 3 * 2 * D * pairs
 
 
 def phase_verify_attention(da) -> dict:
@@ -778,30 +814,57 @@ def phase_verify_attention(da) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(8642)
     D, B = 128, 4
     worst, checks = 0.0, 0
+    cases = [(NKV, G, S) for NKV, G in ((32, 1), (8, 4), (8, 8)) for S in (2, 3, 5, 17, 65)]
+    cases += [(32, 1, 128), (32, 1, 256)]  # up to the prefill chunk
     for dense in (False, True):
-        for NKV, G in ((32, 1), (8, 4), (8, 8)):
+        for NKV, G, S in cases:
             for dtype in (torch.bfloat16, torch.float32):
-                for S in (2, 3, 5, 17, 65):
-                    inputs = _va_inputs(B, NKV, S, G, D, 4096, 1, dtype, gen, dense,
-                                        near_clip=S in (3, 17))
-                    for W in (768, 4096):
-                        what = (f"{'dense' if dense else 'int8'} NKV={NKV} G={G} S={S} "
-                                f"{str(dtype).replace('torch.', '')}")
-                        worst = max(worst, _va_check(da, inputs, W, [0, 1, W - 1, W // 2], what))
-                        checks += 1
-                    del inputs
+                inputs = _va_inputs(B, NKV, S, G, D, 4096, 1, dtype, gen, dense,
+                                    near_clip=S in (3, 17, 128))
+                for W in (768, 4096):
+                    what = (f"{'dense' if dense else 'int8'} NKV={NKV} G={G} S={S} "
+                            f"{str(dtype).replace('torch.', '')}")
+                    worst = max(worst, _va_check(da, inputs, W, [0, 1, W - 1, W // 2], what))
+                    checks += 1
+                del inputs
+    # The kernel's other instances: D = 64 (16 heads over 8 K/V heads) and
+    # windows whose rows are 4-byte, not 16-byte, aligned (int8 rows 132
+    # bytes and bf16 rows 260 bytes apart: 4-byte copies).
+    for dense in (False, True):
+        for what, nkv, g, d, row in (("D=64", 8, 2, 64, None),
+                                     ("4-byte rows", 32, 1, 128, 130 if dense else 132)):
+            inputs = _va_inputs(B, nkv, 5, g, d, 1024, 1, torch.bfloat16, gen, dense, row=row)
+            if da.load_width(inputs[1][0], inputs[3][0]) != (4 if row else 16):
+                raise AssertionError(f"verify attention {what}: not the load width it checks")
+            worst = max(worst, _va_check(da, inputs, 768, [0, 1, 767, 384],
+                                         f"{'dense' if dense else 'int8'} {what}"))
+            checks += 1
+            del inputs
+    # Past the cap: 257 positions raise before anything launches.
+    q, k, ks, v, vs, kc, vc, rt = _va_inputs(1, 2, 257, 1, D, 64, 1, torch.bfloat16, gen, False)
+    before = da.launches
+    try:
+        da.verify_attention(*_va_args((q, k, ks, v, vs, kc, vc, rt), 64, [64]))
+    except ValueError as e:
+        if "chunk positions" not in str(e):
+            raise
+    else:
+        raise AssertionError("verify attention took 257 chunk positions")
+    if da.launches != before:
+        raise AssertionError("a refused verify call counted a launch")
     log(f"verify attention: {checks} checks (int8 and bf16/f32 windows, G 1/4/8, S 2..65, "
-        f"W 768 and 4096, lengths 0/1/W-1/W/2, rows near the int8 clip), max_abs_err "
-        f"{worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel)")
+        f"and S 128/256 at G 1, W 768 and 4096, lengths 0/1/W-1/W/2, rows near the int8 "
+        f"clip; D 64 and 4-byte-aligned rows at S 5), max_abs_err {worst:.3e} (tol {DA_TOL} "
+        f"abs + {DA_TOL} rel); S = 257 raises")
 
     # Time at Llama-2-7B's shape, the window rotating over 8 layers of one
     # cache (> the 50 MB L2) as consecutive layers do.
     NKV, G, W, layers = 32, 1, 768, 8
     lengths = [W // 4, W // 2, 3 * W // 4, W]
-    timing = {}
+    timing, sweep = {}, {}
     for dense in (False, True):
         tag = "dense" if dense else "int8"
-        for S in (2, 3, 5, 17, 65):
+        for S in (2, 3, 5, 17, 65, 128, 256):
             inputs = _va_inputs(B, NKV, S, G, D, 4096, layers, torch.bfloat16, gen, dense)
             views = [_va_args(inputs, W, lengths, layer=l) for l in range(layers)]
             q, k, ks, v, vs, kc, vc, _ = inputs
@@ -823,14 +886,27 @@ def phase_verify_attention(da) -> dict:
                         else da.verify_attention_reference, views)
             one = rot(da.decode_attention_dense if dense else da.decode_attention_vpu, self_views)
             nbytes, flops = _va_bytes_flops(B, NKV, S, G, D, W, 2, dense)
-            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+            bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
             row = {"ms": cuda_time_ms(kern, iters=100),
                    "device_ms": kernel_device_ms(kern, "attention_kernel"),
                    "s1_ms": cuda_time_ms(one, iters=100),
                    "s1_device_ms": kernel_device_ms(one, "attention_kernel"),
-                   "plain_ms": cuda_time_ms(plain, iters=20),
+                   "plain_ms": cuda_time_ms(plain, iters=20 if S <= 65 else 5),
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "splits": da.num_splits(B, NKV * S * G, W)}
+                   "plan": da.verify_plan(B, NKV, S * G, W)._asdict(),
+                   "device_ms_by_kernel": device_ms_by_kernel(kern, "attention_kernel")}
+            if S in (5, 17, 65) or (S == 256 and not dense):
+                # The plan's sweep: the blocks the window pieces aim to fill.
+                default = da.VERIFY_BLOCKS
+                try:
+                    for mult in (1, 2, 3, 4, 8):
+                        da.VERIFY_BLOCKS = mult * da.NUM_SMS
+                        plan = da.verify_plan(B, NKV, S * G, W)
+                        sweep[f"{tag}_S{S}_blocks{da.VERIFY_BLOCKS}"] = {
+                            "splits": plan.splits, "piece_len": plan.piece_len,
+                            "device_ms": kernel_device_ms(kern, "attention_kernel")}
+                finally:
+                    da.VERIFY_BLOCKS = default
             if dense:
                 # SDPA over the window with the chunk joined (outside the
                 # timed region): q [B, H, S, D], K/V [B, NKV, W + S, D] and
@@ -854,7 +930,42 @@ def phase_verify_attention(da) -> dict:
                  r["s1_device_ms"] and round(r["s1_device_ms"], 4), round(r["plain_ms"], 4),
                  round(r["bound_ms"], 4), r.get("library_device_ms") and
                  round(r["library_device_ms"], 4)] for k, r in timing.items()}))
-    res = {"checks": checks, "max_abs_err": worst, "timing": timing}
+    # A window ladder at S = 5 on the int8 window with one piece a (slot,
+    # head) (one block an SM): its slope is a 64-key tile's cost, its
+    # intercept a block's fixed cost.
+    ladder = {}
+    default = da.VERIFY_BLOCKS
+    try:
+        da.VERIFY_BLOCKS = B * NKV
+        for Wl in (64, 192, 384, 768, 1536, 4096):
+            inputs = _va_inputs(B, NKV, 5, G, D, 4096, layers, torch.bfloat16, gen, False)
+            views = [_va_args(inputs, Wl, [Wl] * B, layer=l) for l in range(layers)]
+            it = {"i": 0}
+
+            def kern_w():
+                it["i"] += 1
+                return da.verify_attention(*views[it["i"] % layers])
+
+            ladder[Wl] = kernel_device_ms(kern_w, "attention_kernel")
+            del inputs, views
+    finally:
+        da.VERIFY_BLOCKS = default
+    tiles = {Wl: -(-Wl // da.VERIFY_TILE) + 1 for Wl in ladder}  # window tiles + the chunk's
+    if all(ladder.values()):
+        slope = (ladder[4096] - ladder[64]) / (tiles[4096] - tiles[64])
+        log(f"verify attention int8 S=5, one piece a (slot, head), device ms over W: "
+            f"{json.dumps({w: round(v, 4) for w, v in ladder.items()})}; {slope * 1e3:.2f} us a "
+            f"64-key tile, {(ladder[64] - slope * tiles[64]) * 1e3:.2f} us a block besides")
+    log("verify attention device ms a launch by kernel: " + json.dumps(
+        {k: {n: round(v, 4) for n, v in r["device_ms_by_kernel"].items()}
+         for k, r in timing.items()}))
+    log("verify attention plan sweep (case_blocks: window pieces, keys a piece, device ms): "
+        + json.dumps({k: [r["splits"], r["piece_len"], r["device_ms"] and
+                          round(r["device_ms"], 4)] for k, r in sweep.items()}))
+    occupancy = chunk_occupancy()
+    log(f"chunk kernels' blocks an SM (D 128): {json.dumps(occupancy)}")
+    res = {"checks": checks, "max_abs_err": worst, "timing": timing, "plan_sweep": sweep,
+           "one_piece_ladder": ladder, "blocks_per_sm": occupancy}
     DETAIL["verify_attention"] = res
     return res
 
@@ -1343,7 +1454,7 @@ def phase_flash_ragged(fa) -> dict:
     # Time at the packed shape, the cache rotating over 4 layers (> the
     # 50 MB L2 on the int8 cache's window) as consecutive layers do.
     offsets, layers = [0, 256, 768, 3840], 4
-    timing = {}
+    timing, sweep = {}, {}
     for int8 in (True, False):
         tag = "int8" if int8 else "bf16"
         c = _ragged_case(gen, 4, 256, 32, 32, offsets, perm[:4], NS, int8, layers=layers)
@@ -1364,7 +1475,17 @@ def phase_flash_ragged(fa) -> dict:
                "device_ms": kernel_device_ms(kern, "flash_ragged_kernel"),
                "plain_ms": cuda_time_ms(plain, iters=5),
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-               "library_ms": None, "library_device_ms": None}
+               "library_ms": None, "library_device_ms": None,
+               "plan": fa.ragged_plan(256, T)._asdict(),
+               "device_ms_by_kernel": device_ms_by_kernel(kern, "flash_ragged_kernel")}
+        # The plan's sweep: keys a window piece (4096: no split).
+        default = fa.RAGGED_PIECE
+        try:
+            for piece in (512, 1024, 2048, 4096):
+                fa.RAGGED_PIECE = piece
+                sweep[f"{tag}_piece{piece}"] = kernel_device_ms(kern, "flash_ragged_kernel")
+        finally:
+            fa.RAGGED_PIECE = default
         if not int8:
             # SDPA over each row's gathered window plus its chunk (built
             # outside the timed region): keys [B_p, NKV, T + C, D], the
@@ -1389,10 +1510,10 @@ def phase_flash_ragged(fa) -> dict:
             f"{row['ms']:.4f} ms (device {row['device_ms']} ms), plain {row['plain_ms']:.4f} "
             f"ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP), SDPA {row['library_ms']} ms (device "
-            f"{row['library_device_ms']} ms)")
+            f"{row['library_device_ms']} ms); by kernel {row['device_ms_by_kernel']}")
         del c, views
-    # The decode kernel's verify instance takes at most da.MAX_VERIFY_S chunk
-    # positions, so it cannot run a 256-token chunk: not timed.
+    log("ragged flash plan sweep at B_p=4 C=256 offsets 0/256/768/3840 (case: device ms): "
+        + json.dumps({k: v and round(v, 4) for k, v in sweep.items()}))
 
     # A q whose base is not 16-byte aligned raises; nothing launches.
     c = _ragged_case(gen, 2, 64, 32, 32, [0, 64], perm[:2], NS, True)
@@ -1409,7 +1530,7 @@ def phase_flash_ragged(fa) -> dict:
     if fa.ragged_launches != before:
         raise AssertionError("a refused ragged flash call counted a launch")
     log("ragged flash: a q that is not 16-byte aligned raises ValueError")
-    res = {"checks": checks, "max_abs_err": worst, "timing": timing}
+    res = {"checks": checks, "max_abs_err": worst, "timing": timing, "plan_sweep": sweep}
     DETAIL["flash_ragged"] = res
     return res
 
@@ -2807,6 +2928,49 @@ def _agreement(a, b) -> float:
     return float(np.mean([x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)]))
 
 
+def _ragged_at_burst(fa, rows_seen, capacity: int, n_rows: int) -> list[dict]:
+    """The ragged kernel at the slots and offsets of phase 5d's own packed
+    burst forwards (each distinct B_p >= 2 set once; int8 cache of the
+    engine's rows and capacity, random codes, C 256, H = NKV = 32, D 128):
+    checked against its plain version (FLASH_TOL) and timed beside the
+    plain version and the bound, the cache rotating over 4 layers."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    out, seen, layers = [], set(), 4
+    for slots, offsets in rows_seen:
+        if len(slots) < 2 or (tuple(slots), tuple(offsets)) in seen:
+            continue
+        seen.add((tuple(slots), tuple(offsets)))
+        c = _ragged_case(gen, len(slots), 256, 32, 32, offsets, slots, n_rows, True,
+                         T=capacity, layers=layers)
+        err = _ragged_check(fa, c, f"burst slots={slots} offsets={offsets}")
+        views = [_ragged_args(c, l) for l in range(layers)]
+        it = {"i": 0}
+
+        def rot(f):
+            def call():
+                it["i"] += 1
+                return f(*views[it["i"] % layers])
+            return call
+
+        nbytes, flops = _ragged_work(c)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        out.append({"slots": slots, "offsets": offsets, "max_abs_err": err,
+                    "ms": cuda_time_ms(rot(fa.flash_attention_ragged), iters=50),
+                    "device_ms": kernel_device_ms(rot(fa.flash_attention_ragged),
+                                                  "flash_ragged_kernel"),
+                    "plain_ms": cuda_time_ms(rot(fa.flash_attention_ragged_reference), iters=5),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        del c, views
+    log("ragged flash at the burst's packed forwards (int8 cache, C=256, H=NKV=32, D=128; "
+        "offsets: device ms, bound ms, max_abs_err): " + json.dumps(
+            {str(r["offsets"]): [r["device_ms"] and round(r["device_ms"], 4),
+                                 round(r["bound_ms"], 4), float(f"{r['max_abs_err']:.3e}")]
+             for r in out}))
+    return out
+
+
 def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
     """Phase 5d: packed multi-admission prefill at Llama-2-7B int8kv
     (``params``: the int8 weight tree), 4 slots, chunks of 256,
@@ -2848,10 +3012,13 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
         engine = srv.engine
         url = base + "/v2/models/llama2-7b/generate"
         calls: list[tuple[int, int]] = []  # (rows, parked pad rows) a packed forward
+        rows_seen: list[tuple[list, list]] = []  # (slots, offsets) a packed forward
         real_chunks = engine._device_chunks
 
-        def counted_chunks(ids, slots, offsets, finals, real_chunks=real_chunks, calls=calls):
+        def counted_chunks(ids, slots, offsets, finals, real_chunks=real_chunks, calls=calls,
+                           rows_seen=rows_seen):
             calls.append((len(ids), int((offsets == engine.capacity).sum())))
+            rows_seen.append(([int(x) for x in slots], [int(x) for x in offsets]))
             return real_chunks(ids, slots, offsets, finals)
 
         engine._device_chunks = counted_chunks
@@ -2871,6 +3038,7 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
                                      f"one {cold}")
             pre1, chunks1 = engine.prefill_forwards, engine.prefill_chunks_dispatched
             calls.clear()
+            rows_seen.clear()
             ttfts.clear()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2929,8 +3097,9 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
                                          f"{res['burst_prefill_forwards']} forwards")
                 res.update(chunks=chunks, burst_chunks=burst_chunks,
                            chunks_per_forward=burst_chunks / res["burst_prefill_forwards"],
-                           burst_calls=list(calls),
+                           burst_calls=list(calls), burst_rows=list(rows_seen),
                            burst_pad_rows=sum(pad for _, pad in calls))
+                capacity, n_rows = engine.capacity, engine._cache.k8.shape[1]
             runs[mode] = res
             log(f"7B int8kv {mode} (prefill_batch {pb}): P cold = warm {cold[:4]}...; burst "
                 f"300/700/1000/1500 + 16 in {burst_s:.3f} s, {res['burst_prefill_forwards']} "
@@ -2981,6 +3150,7 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
         fwd[name] = {"wall_ms": wall_ms, "device_ms": sum(prof_k.values()) / 3}
     del seq, packed_engine
     torch.cuda.empty_cache()
+    ragged_burst = _ragged_at_burst(fa, runs["packed"]["burst_rows"], capacity, n_rows)
 
     # Each burst answer against a teacher-forced whole-prompt forward of
     # its own output (flash at offset 0 on a bf16 scratch cache): the share
@@ -2996,7 +3166,8 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
         r["teacher_forced_agreement"] = agree_tf
     p, sr = runs["packed"], runs["serial"]
     res = {"runs": runs, "burst_agreement": agree, "cold_agreement": cold_agree,
-           "forward": fwd, "da_launches": p["launches"]["decode"] + sr["launches"]["decode"],
+           "forward": fwd, "ragged_at_burst": ragged_burst,
+           "da_launches": p["launches"]["decode"] + sr["launches"]["decode"],
            "rn_launches": p["launches"]["rmsnorm"] + sr["launches"]["rmsnorm"],
            "fa_launches": sr["launches"]["flash"], "ragged_launches": p["launches"]["ragged"]}
     log(f"7B packed prefill (int8kv): the burst's 12 chunks in {p['burst_prefill_forwards']} "

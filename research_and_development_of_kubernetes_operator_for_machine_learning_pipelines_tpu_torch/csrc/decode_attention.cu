@@ -83,29 +83,51 @@
 //                                     contiguous (int8 window only)
 //   out      [B, NKV, R, D]           f32
 //
-// It is the same kernel instanced with VERIFY at G = 1: the grid gains a y
-// axis of the R query rows, one row a block, and every split writes its
-// partial.  On the H100 one row a block (64 registers, 4 blocks an SM)
-// beat tiles of 2, 4 and 8 rows a block (whose q registers leave one block
-// an SM) at every chunk length measured, so only that instance is built; a
-// (slot, head)'s row blocks find its window in L2.  The merge kernel
-// `verify_attention_kernel_merge`, one block a (slot, head, row), launched
-// by the same C call whatever the split count, computes the row's at most
-// S chunk scores (one warp a key) and joins them with the splits in one
-// max-rescale.  The S = 1 decode instances (VERIFY false) keep their code,
-// grid and launch bounds: every VERIFY branch is a compile-time constant
-// there.
+// bf16 q (the serving type): `verify_attention_kernel<C, D>`, the core of
+// chunk_attention.cuh on the tensor cores.  Bound on the H100 at
+// Llama-2-7B's B 4, NKV 32, W 768: the bytes (the window once a (slot,
+// head): 25 MB int8, 7.8 us at 3.35 TB/s) up to S = 128; at S = 256 the
+// operations as much (Q . K once and P . V twice, its f32 probabilities
+// as a hi/lo pair, at the bf16 tensor-core rate: chip_smoke.py
+// `_va_bytes_flops`).  Design:
+// - Grid (B * NKV * row groups) x window pieces.  A block holds one
+//   group of the (slot, kv head)'s R = S * G query rows (16, 32 or 64:
+//   its 4 warps split each 64-key tile's four 16-key slices 4, 2 or 1
+//   ways), so the window crosses device memory once a (slot, head) up
+//   to 64 rows, and once a row group beyond.  The host's plan
+//   (ops/decode_attention.py `verify_plan`) cuts W into tile-aligned
+//   pieces to fill one wave (3 blocks an SM); the last piece also
+//   attends the S chunk keys (causal; the exact diagonal and, on the
+//   int8 window, the round-trip codes and scales below it).
+// - Window tiles of int8 codes (+ scales + mask) or bf16 rows stream
+//   through a 2-stage `cp.async` ring and are read by every row tile of
+//   the block; Q . K runs on bf16 `mma.sync` (codes are exact in bf16,
+//   products exact in f32; only the summation order changes).
+// - The probabilities stay f32: p (times the value scale) enters P . V
+//   as a hi/lo pair of bf16 MMAs (within 2^-17 of p), the diagonal's
+//   p * v in f32 from the exact V row, so DA_TOL (1e-4) holds.
+// - One piece: the block writes the rows.  Several: each writes its f32
+//   partial and `verify_attention_kernel_join`, launched by the same C
+//   call, joins them.  S is capped at kMaxS = 256 (the prefill chunk).
+// f32 q (exactness checks) keeps the first design on the CUDA cores: the
+// split kernel instanced with VERIFY at G = 1, one query row a block, and
+// `verify_attention_kernel_merge` joining the S chunk keys.  The S = 1
+// decode instances (VERIFY false) keep their code, grid and launch
+// bounds: every VERIFY branch is a compile-time constant there.
 //
-// What still holds it back: the two phases of a split run back to back,
-// so a block waits on its K rows, then on its V rows (loading the first V
-// rows with the K rows was tried and gained nothing); the merge is a
-// second launch; a whole window of 192 runs in 128 blocks; and at G = 8
-// with 16-byte loads the q registers (G x 16 floats a lane) leave one
-// block an SM.
+// What still holds the bf16 verify back (H100 80GB HBM3, 700 W,
+// chip_smoke.py): latency.  A block costs ~6 us before and after its
+// tiles (the first tile's round trip, the chunk tile, the partials) and a
+// 64-key tile ~2 us at one block an SM, ~3.8 us at three; 168 registers
+// and 73 KB of shared memory leave 12 warps an SM, and a 16-key
+// `mma.sync` softmax step leaves them waiting.  So S = 5 takes ~3.5x its
+// byte bound, and S = 2 is slower than the one-row design it replaced.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "chunk_attention.cuh"
 
 namespace {
 
@@ -448,11 +470,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel_combine(
   }
 }
 
-// Verify: merges the splits' partials of one (slot, head, row) and joins
-// the row's chunk term, the at most S chunk keys j <= s: their scores
-// first (one warp a key, into shared memory), then one max-rescale over
-// the splits and the keys per d.
-constexpr int kMaxS = 65;  // chunk positions: draftTokens (<= 64) + 1
+// Verify (f32 q): merges the splits' partials of one (slot, head, row)
+// and joins the row's chunk term, the at most S chunk keys j <= s: their
+// scores first (one warp a key, into shared memory), then one max-rescale
+// over the splits and the keys per d.
+constexpr int kMaxS = 256;  // chunk positions: up to the prefill chunk
 
 template <typename T, bool SCALED>
 __global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
@@ -504,6 +526,99 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
     }
     out[((long long)bn * R + row) * D + d] = num / den;
   }
+}
+
+// Verify (bf16 q) on the tensor cores: one block a (slot, kv head, group
+// of `rows` query rows) x window piece; the last piece also attends the
+// chunk.  C: the window's element (int8 with scales, or bf16).
+constexpr int kVerifyWarps = 4;
+constexpr int kVerifyStages = 2;  // a 3-stage ring (2 blocks an SM) lost on the H100
+
+template <typename C, int D>
+__global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const C* __restrict__ k8, long long k_sb, long long k_sh, long long k_sw,
+    const float* __restrict__ ks, long long ks_sb, long long ks_sh, long long ks_sw,
+    const C* __restrict__ v8, long long v_sb, long long v_sh, long long v_sw,
+    const float* __restrict__ vs, long long vs_sb, long long vs_sh, long long vs_sw,
+    const __nv_bfloat16* __restrict__ k_chunk, const __nv_bfloat16* __restrict__ v_chunk,
+    const int8_t* __restrict__ k8c, const float* __restrict__ ksc,
+    const int8_t* __restrict__ v8c, const float* __restrict__ vsc,
+    const float* __restrict__ mask, long long m_sb,
+    float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int nkv, int W, int R, int S, int group, int rows, int splits, int piece_len, int vec16,
+    float scale) {
+  using namespace chunk_attn;
+  constexpr bool I8 = Cache<C>::kScaled;
+  extern __shared__ __align__(16) unsigned char smem_v[];
+  __shared__ Segment seg[2];
+  const int n_rg = (R + rows - 1) / rows;
+  const int bn = blockIdx.x / n_rg;      // slot * nkv + kv head
+  const int row0 = (blockIdx.x % n_rg) * rows;
+  const int b = bn / nkv;
+  const int n = bn % nkv;
+  const int piece = blockIdx.y;
+  const long long cb = (long long)bn * S;  // the (slot, head)'s chunk rows
+  if (threadIdx.x == 0) {
+    const long long k0 = (long long)piece * piece_len;
+    Segment w;
+    w.k = reinterpret_cast<const unsigned char*>(k8 + b * k_sb + n * k_sh + k0 * k_sw);
+    w.v = reinterpret_cast<const unsigned char*>(v8 + b * v_sb + n * v_sh + k0 * v_sw);
+    w.k_sw = k_sw * (long long)sizeof(C);
+    w.v_sw = v_sw * (long long)sizeof(C);
+    w.ks = I8 ? ks + b * ks_sb + n * ks_sh + k0 * ks_sw : nullptr;
+    w.vs = I8 ? vs + b * vs_sb + n * vs_sh + k0 * vs_sw : nullptr;
+    w.ks_sw = ks_sw;
+    w.vs_sw = vs_sw;
+    w.mask = mask + b * m_sb + k0;
+    w.n_keys = (int)max(0LL, min((long long)piece_len, (long long)W - k0));
+    w.vec16 = vec16;
+    w.chunk = 0;
+    seg[0] = w;
+    Segment ch;  // the chunk: codes and scales (int8) or the exact rows, contiguous
+    ch.k = I8 ? reinterpret_cast<const unsigned char*>(k8c + cb * D)
+              : reinterpret_cast<const unsigned char*>(k_chunk + cb * D);
+    ch.v = I8 ? reinterpret_cast<const unsigned char*>(v8c + cb * D)
+              : reinterpret_cast<const unsigned char*>(v_chunk + cb * D);
+    ch.k_sw = ch.v_sw = (long long)D * sizeof(C);
+    ch.ks = I8 ? ksc + cb : nullptr;
+    ch.vs = I8 ? vsc + cb : nullptr;
+    ch.ks_sw = ch.vs_sw = 1;
+    ch.mask = nullptr;
+    ch.n_keys = S;
+    ch.vec16 = 1;
+    ch.chunk = 1;
+    seg[1] = ch;
+  }
+  __syncthreads();
+  const Rows rw{q + ((long long)bn * R + row0) * D, D, min(rows, R - row0), row0, group,
+                k_chunk + cb * D, v_chunk + cb * D, D};
+  float acc[D / 8][4], m[2], l[2];
+  const int ksplit = 64 / rows;
+  attend<D, I8, true, kVerifyWarps, kVerifyStages>(seg, piece == splits - 1 ? 2 : 1, rw, ksplit,
+                                                   scale * kLog2e, smem_v, acc, m, l);
+  const long long prow = ((long long)bn * splits + piece) * R + row0;
+  if (splits == 1) {
+    finish<D, kVerifyWarps>(acc, m, l, ksplit, rw.n_rows, smem_v, nullptr,
+                            out + ((long long)bn * R + row0) * D, D, nullptr, nullptr);
+  } else {
+    finish<D, kVerifyWarps>(acc, m, l, ksplit, rw.n_rows, smem_v, nullptr, nullptr, 0,
+                            part_acc + prow * D, part_ml + prow * 2);
+  }
+}
+
+// Joins the pieces' partials of 512 / D query rows of one (slot, head) a
+// block, D / 2 threads a row.
+template <int D>
+__global__ void __launch_bounds__(256) verify_attention_kernel_join(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    float* __restrict__ out, int R, int splits) {
+  constexpr int kRows = 512 / D;
+  const int bn = blockIdx.x;
+  const int r = blockIdx.y * kRows + threadIdx.x / (D / 2);
+  if (r >= R) return;
+  chunk_attn::join_row<D, D / 2>(part_acc, part_ml, (long long)bn * splits * R + r, R, splits,
+                                 threadIdx.x % (D / 2), out + ((long long)bn * R + r) * D);
 }
 
 struct Args {
@@ -603,15 +718,72 @@ bool bad_window(int dtype, int cache, int vec, int B, int nkv, int W, int D, int
          (long long)B * nkv * splits > 0x7fffffffLL;
 }
 
-template <bool VERIFY>
 int dispatch(int dtype, int cache, int vec, int G, const Args& a, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   if (dtype == 0) {
-    return cache == 0 ? (int)by_vec<float, int8_t, VERIFY>(vec, G, a, st)
-                      : (int)by_vec<float, float, VERIFY>(vec, G, a, st);
+    return cache == 0 ? (int)by_vec<float, int8_t, false>(vec, G, a, st)
+                      : (int)by_vec<float, float, false>(vec, G, a, st);
   }
-  return cache == 0 ? (int)by_vec<bf16, int8_t, VERIFY>(vec, G, a, st)
-                    : (int)by_vec<bf16, bf16, VERIFY>(vec, G, a, st);
+  return cache == 0 ? (int)by_vec<bf16, int8_t, false>(vec, G, a, st)
+                    : (int)by_vec<bf16, bf16, false>(vec, G, a, st);
+}
+
+// The bf16 verify: the pieces, then (several) their join.
+template <typename C, int D>
+cudaError_t launch_verify(const Args& a, int rows, int vec, cudaStream_t stream) {
+  constexpr int bytes =
+      chunk_attn::Layout<D, Cache<C>::kScaled, kVerifyStages>::template bytes<kVerifyWarps>();
+  auto kernel = verify_attention_kernel<C, D>;
+  cudaError_t err = chunk_attn::prefer_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)a.B * a.nkv * ((a.R + rows - 1) / rows);
+  float* part_acc = a.splits > 1 ? static_cast<float*>(a.part) : nullptr;
+  float* part_ml =
+      part_acc ? part_acc + (long long)a.B * a.nkv * a.splits * a.R * D : nullptr;
+  kernel<<<dim3((unsigned)units, (unsigned)a.splits), kVerifyWarps * 32, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const C*>(a.k8), a.k_s[0], a.k_s[1], a.k_s[2],
+      static_cast<const float*>(a.ks), a.ks_s[0], a.ks_s[1], a.ks_s[2],
+      static_cast<const C*>(a.v8), a.v_s[0], a.v_s[1], a.v_s[2],
+      static_cast<const float*>(a.vs), a.vs_s[0], a.vs_s[1], a.vs_s[2],
+      static_cast<const __nv_bfloat16*>(a.k_self), static_cast<const __nv_bfloat16*>(a.v_self),
+      static_cast<const int8_t*>(a.k8c), static_cast<const float*>(a.ksc),
+      static_cast<const int8_t*>(a.v8c), static_cast<const float*>(a.vsc),
+      static_cast<const float*>(a.mask), a.m_sb, static_cast<float*>(a.out), part_acc, part_ml,
+      a.nkv, a.W, a.R, a.S, a.group, rows, a.splits, a.chunk, vec == 16 ? 1 : 0, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  verify_attention_kernel_join<D><<<dim3((unsigned)(a.B * a.nkv), (a.R + 512 / D - 1) / (512 / D)),
+                                    256, 0, stream>>>(part_acc, part_ml,
+                                                      static_cast<float*>(a.out), a.R, a.splits);
+  return cudaGetLastError();
+}
+
+// Blocks of the bf16 verify kernel an SM holds (the occupancy API, after
+// the kernel's shared-memory attributes are set), or -1.
+template <typename C>
+int verify_occupancy() {
+  constexpr int bytes =
+      chunk_attn::Layout<128, Cache<C>::kScaled, kVerifyStages>::template bytes<kVerifyWarps>();
+  auto kernel = verify_attention_kernel<C, 128>;
+  int n = -1;
+  if (chunk_attn::prefer_shared(kernel, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kVerifyWarps * 32, bytes) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+template <typename C>
+cudaError_t verify_by_dim(const Args& a, int rows, int vec, cudaStream_t st) {
+  switch (a.D) {
+    case 16: return launch_verify<C, 16>(a, rows, vec, st);
+    case 32: return launch_verify<C, 32>(a, rows, vec, st);
+    case 64: return launch_verify<C, 64>(a, rows, vec, st);
+    case 128: return launch_verify<C, 128>(a, rows, vec, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -640,15 +812,21 @@ extern "C" int decode_attention_launch(
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_self, v_self, mask, m_sb, out, part,
                B, nkv, W, D, chunk, splits, scale, G, 1, G, nullptr, nullptr, nullptr, nullptr};
-  return dispatch<false>(dtype, cache, vec, G, a, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, cache, vec, G, a, static_cast<cudaStream_t>(stream));
 }
 
 // The verify chunk.  As above, with q [B, nkv, R, D] (R = S * group rows),
 // k_chunk / v_chunk of q's type and, for cache 0, k8c / v8c int8 with
-// ksc / vsc f32, all [B, nkv, S, D] (scales [B, nkv, S, 1]) and
-// contiguous.  The grid is (B * nkv * splits) x R split blocks, then
-// B * nkv x R merge blocks; `part` holds B * nkv * R * splits * (D + 2)
-// floats whatever the split count.  Returns the first launch error.
+// ksc / vsc f32, all [B, nkv, S, D] (scales [B, nkv, S, 1]), contiguous
+// and 16-byte aligned.
+// bf16 q (dtype 1): `rows` query rows a block (16, 32 or 64); the window
+// is cut into `splits` pieces of `chunk` positions, a multiple of 64
+// (the last piece non-empty, and it also takes the S chunk keys); with
+// splits > 1, `part` holds B * nkv * splits * R * (D + 2) floats.
+// f32 q (dtype 0, `rows` ignored): the grid is (B * nkv * splits) x R
+// split blocks of `chunk` positions, then B * nkv x R merge blocks; `part`
+// holds B * nkv * R * splits * (D + 2) floats whatever the split count.
+// Returns the first launch error.
 extern "C" int verify_attention_launch(
     int dtype, int cache, int vec, const void* q,
     const void* k8, long long k_sb, long long k_sh, long long k_sw,
@@ -658,14 +836,37 @@ extern "C" int verify_attention_launch(
     const void* k_chunk, const void* v_chunk, const void* k8c, const void* ksc,
     const void* v8c, const void* vsc, const void* mask, long long m_sb,
     void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, int R, int S,
-    int group, float scale, void* stream) {
-  if (bad_window(dtype, cache, vec, B, nkv, W, D, splits, chunk, part, ks, vs) ||
-      part == nullptr || S < 1 || S > kMaxS || group < 1 || R != S * group || R > 65535 ||
+    int group, int rows, float scale, void* stream) {
+  if (S < 1 || S > kMaxS || group < 1 || R != S * group ||
       (cache == 0 && (k8c == nullptr || ksc == nullptr || v8c == nullptr || vsc == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_chunk, v_chunk, mask, m_sb, out, part,
                B, nkv, W, D, chunk, splits, scale, R, S, group, k8c, ksc, v8c, vsc};
-  return dispatch<true>(dtype, cache, vec, 1, a, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if ((cache != 0 && cache != 1) || (vec != 16 && vec != 4) || B <= 0 || nkv <= 0 ||
+        W <= 0 || (rows != 16 && rows != 32 && rows != 64) || splits < 1 || splits > 65535 ||
+        chunk <= 0 || chunk % chunk_attn::kBK != 0 || (long long)splits * chunk < W ||
+        (long long)(splits - 1) * chunk >= W || (splits > 1 && part == nullptr) ||
+        (cache == 0 && (ks == nullptr || vs == nullptr)) ||
+        (long long)B * nkv * ((R + rows - 1) / rows) > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return cache == 0 ? (int)verify_by_dim<int8_t>(a, rows, vec, st)
+                      : (int)verify_by_dim<__nv_bfloat16>(a, rows, vec, st);
+  }
+  if (dtype != 0 || bad_window(dtype, cache, vec, B, nkv, W, D, splits, chunk, part, ks, vs) ||
+      part == nullptr || R > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return cache == 0 ? (int)by_vec<float, int8_t, true>(vec, 1, a, st)
+                    : (int)by_vec<float, float, true>(vec, 1, a, st);
+}
+
+// Blocks an SM holds of the bf16 verify kernel at D = 128 on an int8
+// (cache 0) or bf16 (cache 1) window.
+extern "C" int verify_attention_occupancy(int cache) {
+  return cache == 0 ? verify_occupancy<int8_t>() : verify_occupancy<__nv_bfloat16>();
 }

@@ -86,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "chunk_attention.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
@@ -512,74 +514,54 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
 //
 // The attention of packed multi-admission prefill (the JAX package's
 // `_block_verify_deferred` lines, models/llama.py:1039-1169, run by
-// `prefill_chunks_ragged` at the prefill chunk).  One block of 4 warps per
-// (packed row b * head, 64-row query tile), the MMA core of the bf16 kernel
-// above; keys stream in two phases through one softmax:
-//
-//   1. the window: keys 0 .. offsets[b] - 1 of cache row slots[b]
-//      ([NS, NKV, T, D], head-major), both read from device memory by the
-//      block, so the host never syncs; a row whose offset is at capacity
-//      (a parked pad row) or whose slot is out of range reads none;
-//   2. the chunk ([B, C, NKV, D]): keys up to the query tile's diagonal,
-//      causal.
-//
-// I8 (the int8 cache): the window and the chunk below the diagonal are
-// int8 codes with one f32 scale a (position, head).  Codes are exact in
-// bf16, so a tile is staged by 16-byte loads, converted in registers (the
-// PRMT-into-2^23 trick of dmajor_attention.cu, no quarter-rate I2F) and
-// stored as bf16: Q . K and P . V stay bf16 tensor-core products.  The key
-// scale multiplies the score, the value scale the probability before it is
-// rounded to bf16 (the reference's order).  The diagonal is exact: each
-// row's q_j . k_j is a CUDA-core dot (f32) taken once before the tile
-// loop and put in place of the code score in the last (diagonal) tile,
-// where the diagonal's probability is kept out of the MMA and
-// p_jj * v_j is added in f32 from the exact V row.  Under the causal
-// mask that tile is a query tile's last, so no rescale follows.  !I8 (the
-// bf16 cache): bf16 tiles copied as they are, every chunk key exact.
+// `prefill_chunks_ragged` at the prefill chunk): query j of packed row b
+// and head h attends keys 0 .. offsets[b] - 1 of cache row slots[b]
+// ([NS, NKV, T, D], head-major) and the chunk keys i <= j ([B, C, NKV, D])
+// in one softmax.  A row whose offset is at capacity (a parked pad row) or
+// whose slot is out of range reads no window.  I8 (the int8 cache): the
+// window and the chunk below the diagonal are codes with one f32 scale a
+// (position, head), the key scale on the score and the value scale on p
+// before its bf16 rounding (the reference's order); the diagonal is exact.
+// !I8 (the bf16 cache): every key exact.
 //
 // Bound on the H100 (Llama-2-7B, B_p = 4, C = 256, offsets 0/256/768/3840,
 // H = NKV = 32, D = 128, int8): ~83 MB of inputs and output, ~0.025 ms at
 // 3.35 TB/s, against ~22.6 GFLOP of products, ~0.023 ms at 989 TFLOP/s:
-// the bytes.  What holds this first version back: tiles are staged
-// synchronously (no copy overlaps the block's own MMA; the other blocks of
-// the SM hide part of it), each query tile of a (row, head) reads its
-// window again (the second from L2), and a long row's blocks run 60 window
-// tiles while a short one's run 1-4 (no split over the window).
-constexpr int kRagThreads = 128;  // 4 warps x 16 query rows
-constexpr int kRagBK = 64;        // keys per tile
-
-template <int D>
-struct RagLayout {
-  static constexpr int kLd = D + 8;           // bf16 per padded shared row
-  static constexpr int kTile = kRagBK * kLd;  // one Q, K or V tile
-  // Q, K and V in bf16, then the tile's key and value scales and the
-  // query rows' exact diagonal scores in f32.
-  static constexpr int kBytes = 3 * kTile * 2 + 3 * kRagBK * 4;
-};
-
-// 16 int8 codes -> 16 bf16 at dst (exact: |code| <= 127).
-__device__ __forceinline__ void codes16_to_bf16(const uint4 w, __nv_bfloat16* dst) {
-  const unsigned words[4] = {w.x, w.y, w.z, w.w};
-  uint32_t out[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned u = words[i] ^ 0x80808080u;
-    float f[4];
-    f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
-    f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
-    f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
-    f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-    out[2 * i] = *reinterpret_cast<const uint32_t*>(&lo);
-    out[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-  }
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
-}
+// the bytes, with the operations close behind (bf16 cache: 113 MB).
+//
+// Design: `flash_ragged_kernel<D, I8, NW>`, the core of chunk_attention.cuh
+// (the same one the verify chunk runs) with p rounded to bf16.
+// - Grid (B * H * query tiles of NW * 16 rows) x pieces.  The host's plan
+//   (ops/flash_attention.py `ragged_plan`) fixes the piece length (a
+//   multiple of 64 keys) and the piece count from T alone, so the grid
+//   needs no sync: a block reads slots[b] and offsets[b] itself, and one
+//   whose piece lies past its row's window exits at once.  A row's window
+//   is cut into ceil(offset / piece) pieces; the last also attends the
+//   chunk keys up to its query tile's diagonal.  The pieces of a long
+//   window run side by side, so a 3840-key window no longer runs 60 tiles
+//   in series.
+// - A row of one piece (a window no longer than a piece, or none) is
+//   written by its block.  Otherwise every piece writes an f32 partial
+//   and `flash_ragged_kernel_merge`, launched by the same C call, joins
+//   them (max-rescale) into the bf16 output.
+// - Tiles stream through a 2-stage `cp.async` ring as raw int8 codes
+//   (+ scales) or bf16 rows; int8 is converted once a tile in shared
+//   memory.  4 warps of 16 query rows a block (a 64-row query tile), 3
+//   blocks an SM; 8-warp blocks (one an SM) and a 3-stage ring (two
+//   blocks an SM) were slower on the H100 (chip_smoke.py's sweeps).
+//
+// What still holds it back (H100 80GB HBM3, 700 W, chip_smoke.py: 0.20
+// device ms int8, 0.15 bf16 at the shape above, 8x and 4.5x the bound):
+// latency at 12 warps an SM (168 registers, 73 KB of shared memory) with
+// a 16-key `mma.sync` softmax step, not wgmma/TMA; each query tile of a
+// (row, head) reads the window again (from L2 after the first); the int8
+// conversion (~0.05 ms here) runs between two barriers; the partials of a
+// split window cost (D + 2) * 4 bytes a query row a piece.
+constexpr int kRagWarps = 4;   // 8-warp blocks (one an SM) lost on the H100
+constexpr int kRagStages = 2;  // so did a 3-stage ring (2 blocks an SM)
 
 template <int D, bool I8>
-__global__ void __launch_bounds__(kRagThreads, D <= 64 ? 4 : 2) flash_ragged_kernel(
+__global__ void __launch_bounds__(kRagWarps * 32, 3) flash_ragged_kernel(
     const __nv_bfloat16* __restrict__ q,                          // [B, C, H, D]
     const void* __restrict__ kwin, const void* __restrict__ vwin,  // [NS, NKV, T, D]
     const float* __restrict__ kwin_s, const float* __restrict__ vwin_s,  // [NS, NKV, T]
@@ -588,279 +570,101 @@ __global__ void __launch_bounds__(kRagThreads, D <= 64 ? 4 : 2) flash_ragged_ker
     const int8_t* __restrict__ k8n, const float* __restrict__ kn_s,      // [B, C, NKV, (D)]
     const int8_t* __restrict__ v8n, const float* __restrict__ vn_s,
     __nv_bfloat16* __restrict__ o,                                // [B, C, H, D]
-    int H, int NKV, int C, int T_len, int n_slots, float scale) {
-  using L = RagLayout<D>;
-  constexpr int LD = L::kLd;
-  constexpr int CPR = D / 8;      // 16-byte chunks of a bf16 row
-  constexpr int CPR8 = D / 16;    // 16-byte chunks of an int8 row
-  constexpr int KS = D / 16;      // k-steps of Q . K^T
-  constexpr int DN = D / 8;       // n8 tiles of the output
-  constexpr int NT = kRagBK / 8;  // n8 tiles of a key tile
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int H, int NKV, int C, int T_len, int n_slots, int n_pieces, int piece_len, float scale) {
+  using namespace chunk_attn;
+  constexpr int NW = kRagWarps;
+  constexpr int kRows = NW * 16;
+  constexpr long long kElem = I8 ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + L::kTile;
-  __nv_bfloat16* sv = sk + L::kTile;
-  float* sks = reinterpret_cast<float*>(sv + L::kTile);  // the tile's key scales
-  float* svs = sks + kRagBK;                             // and value scales
-  float* sdiag = svs + kRagBK;                           // q_j . k_j of each query row
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  __shared__ Segment seg[2];
+  const int n_qt = (C + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
+  const int b = bh / H;
+  const int h = bh % H;
   const int hk = h / (H / NKV);  // the K/V head of this query head
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
+  const int piece = blockIdx.y;
   const int slot = slots[b];
   const int off = offsets[b];
   const int win = (slot < 0 || slot >= n_slots || off <= 0 || off >= T_len) ? 0 : off;
-  const int n_win = (win + kRagBK - 1) / kRagBK;
-  const int chunk_end = C < q0 + kBQ ? C : q0 + kBQ;  // keys past the tile's last query
-  const int n_tiles = n_win + (chunk_end + kRagBK - 1) / kRagBK;  // the last holds the diagonal
-  const long long q_ss = (long long)H * D;  // q and o: one chunk position
+  const int nw = win > 0 ? (win + piece_len - 1) / piece_len : 1;  // this row's pieces
+  if (piece >= nw) return;  // past the row's window: the whole block leaves
+  const bool with_win = win > 0;
+  const bool with_chunk = piece == nw - 1;
   const long long n_ss = (long long)NKV * D;  // the chunk's K/V: one position
-
-  const __nv_bfloat16* qbase = q + (long long)b * C * q_ss + (long long)h * D;
-  for (int idx = tid; idx < kBQ * CPR; idx += kRagThreads) {
-    const int r = idx / CPR;
-    const int c = (idx % CPR) * 8;
-    const bool ok = q0 + r < C;
-    cp_async16(sq + r * LD + c, ok ? qbase + (long long)(q0 + r) * q_ss + c : qbase, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int row0 = warp * 16 + lane / 4;  // this lane's rows: row0 and row0 + 8
-  const int qi0 = q0 + row0;              // row0's chunk position
-  const int col = 2 * (lane % 4);
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    ldmatrix_x4(qf[ks], sq + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                            ks * 16 + (lane / 16) * 8);
-  }
   const long long chunk_head = (long long)b * C * n_ss + (long long)hk * D;
-  if (I8) {
-    // Each row's exact diagonal score, two threads a row.
-    const int r = tid / 2;
-    const int half = (tid % 2) * (D / 2);
-    float dot = 0.f;
-    if (q0 + r < C) {
-      const __nv_bfloat16* kr = kn + chunk_head + (long long)(q0 + r) * n_ss + half;
-      const __nv_bfloat16* qr = sq + r * LD + half;
-#pragma unroll 8
-      for (int e = 0; e < D / 2; e += 2) {
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + e));
-        const float2 kk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + e));
-        dot = fmaf(a.x, kk.x, dot);
-        dot = fmaf(a.y, kk.y, dot);
-      }
+  if (threadIdx.x == 0) {
+    int ns = 0;
+    if (with_win) {
+      const int k0 = piece * piece_len;
+      const long long at = ((long long)slot * NKV + hk) * T_len + k0;  // in positions
+      Segment w;
+      w.k = static_cast<const unsigned char*>(kwin) + at * D * kElem;
+      w.v = static_cast<const unsigned char*>(vwin) + at * D * kElem;
+      w.k_sw = w.v_sw = D * kElem;
+      w.ks = I8 ? kwin_s + at : nullptr;
+      w.vs = I8 ? vwin_s + at : nullptr;
+      w.ks_sw = w.vs_sw = 1;
+      w.mask = nullptr;
+      w.n_keys = min(piece_len, win - k0);
+      w.vec16 = 1;
+      w.chunk = 0;
+      seg[ns++] = w;
     }
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-    if (tid % 2 == 0) sdiag[r] = dot;
-  }
-
-  constexpr float kLog2e = 1.4426950408889634f;
-  const float sl = scale * kLog2e;
-  float oacc[DN][4];
-#pragma unroll
-  for (int i = 0; i < DN; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this lane's share of the row sums
-  const long long win_head = ((long long)slot * NKV + hk) * T_len;  // in positions
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const bool in_win = t < n_win;
-    const int k0 = (in_win ? t : t - n_win) * kRagBK;
-    const int k_lim = in_win ? win : chunk_end;  // keys at or past it take no part
-    __syncthreads();  // the previous tile (and the diagonal scores) are done
-    if (I8) {
-      const int8_t* kb = in_win ? static_cast<const int8_t*>(kwin) : k8n;
-      const int8_t* vb = in_win ? static_cast<const int8_t*>(vwin) : v8n;
-      for (int idx = tid; idx < kRagBK * CPR8; idx += kRagThreads) {
-        const int r = idx / CPR8;
-        const int c = (idx % CPR8) * 16;
-        const int key = k0 + r;
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-        if (key < k_lim) {
-          const long long at = in_win ? (win_head + key) * D + c
-                                      : chunk_head + (long long)key * n_ss + c;
-          kw = __ldg(reinterpret_cast<const uint4*>(kb + at));
-          vw = __ldg(reinterpret_cast<const uint4*>(vb + at));
-        }
-        codes16_to_bf16(kw, sk + r * LD + c);
-        codes16_to_bf16(vw, sv + r * LD + c);
-      }
-      if (tid < kRagBK) {
-        const int key = k0 + tid;
-        float ksv = 0.f, vsv = 0.f;
-        if (key < k_lim) {
-          const long long at = in_win ? win_head + key
-                                      : ((long long)b * C + key) * NKV + hk;
-          ksv = in_win ? kwin_s[at] : kn_s[at];
-          vsv = in_win ? vwin_s[at] : vn_s[at];
-        }
-        sks[tid] = ksv;
-        svs[tid] = vsv;
-      }
-    } else {
-      const __nv_bfloat16* kb = in_win ? static_cast<const __nv_bfloat16*>(kwin) : kn;
-      const __nv_bfloat16* vb = in_win ? static_cast<const __nv_bfloat16*>(vwin) : vn;
-      for (int idx = tid; idx < kRagBK * CPR; idx += kRagThreads) {
-        const int r = idx / CPR;
-        const int c = (idx % CPR) * 8;
-        const int key = k0 + r;
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-        if (key < k_lim) {
-          const long long at = in_win ? (win_head + key) * D + c
-                                      : chunk_head + (long long)key * n_ss + c;
-          kw = __ldg(reinterpret_cast<const uint4*>(kb + at));
-          vw = __ldg(reinterpret_cast<const uint4*>(vb + at));
-        }
-        *reinterpret_cast<uint4*>(sk + r * LD + c) = kw;
-        *reinterpret_cast<uint4*>(sv + r * LD + c) = vw;
-      }
-    }
-    __syncthreads();
-
-    // S = Q . K^T over the 64 keys: 8 n8 tiles of f32 accumulators.
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, sk + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + ks * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
-      }
-    }
-
-    // Scale (times the key scale), the exact diagonal, the masks.
-    const bool diag_tile = I8 && t == n_tiles - 1;
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = j * 8 + col + (e & 1);
-        const int key = k0 + kl;
-        const int qi = qi0 + (e >> 1) * 8;
-        float x = s[j][e] * sl;
-        if (I8) x *= sks[kl];
-        if (diag_tile && key == qi) x = sdiag[qi - q0] * sl;
-        const bool ok = key < k_lim && (in_win || key <= qi);
-        x = ok ? x : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= corr[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DN; ++i) {
-      oacc[i][0] *= corr[0]; oacc[i][1] *= corr[0];
-      oacc[i][2] *= corr[1]; oacc[i][3] *= corr[1];
-    }
-
-    // P (times the value scale) in bf16 as the A fragments of P . V; the
-    // row sums take the f32 probabilities, the diagonal's kept apart.
-    uint32_t pf[NT / 2][4];
-    float pd[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = j * 8 + col + (e & 1);
-        const float p = exp2f(s[j][e] - m_run[e >> 1]);
-        l_run[e >> 1] += p;
-        pv[e] = I8 ? p * svs[kl] : p;
-        if (diag_tile && k0 + kl == qi0 + (e >> 1) * 8) {
-          pd[e >> 1] = p;
-          pv[e] = 0.f;
-        }
-      }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(pv[0], pv[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[2], pv[3]);
-      pf[j / 2][(j % 2) * 2] = *reinterpret_cast<const uint32_t*>(&lo);
-      pf[j / 2][(j % 2) * 2 + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-    }
-
-    // O += P . V: V's rows are keys, so ldmatrix.trans gives the col-major B.
-#pragma unroll
-    for (int kt = 0; kt < NT / 2; ++kt) {
-#pragma unroll
-      for (int dp = 0; dp < DN / 2; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, sv + (kt * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_bf16(oacc[2 * dp], pf[kt], vb[0], vb[1]);
-        mma_bf16(oacc[2 * dp + 1], pf[kt], vb[2], vb[3]);
-      }
-    }
-
-    if (diag_tile) {
-      // p_jj * v_j from the exact V row: one lane of the quad holds p_jj.
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 1);
-        pd[r] += __shfl_xor_sync(0xffffffffu, pd[r], 2);
-        const int qi = qi0 + r * 8;
-        if (qi < C) {
-          const __nv_bfloat16* vr = vn + chunk_head + (long long)qi * n_ss + col;
-#pragma unroll
-          for (int i = 0; i < DN; ++i) {
-            const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr + i * 8));
-            oacc[i][2 * r] = fmaf(pd[r], vv.x, oacc[i][2 * r]);
-            oacc[i][2 * r + 1] = fmaf(pd[r], vv.y, oacc[i][2 * r + 1]);
-          }
-        }
-      }
+    if (with_chunk) {
+      Segment ch;
+      ch.k = I8 ? reinterpret_cast<const unsigned char*>(k8n + chunk_head)
+                : reinterpret_cast<const unsigned char*>(kn + chunk_head);
+      ch.v = I8 ? reinterpret_cast<const unsigned char*>(v8n + chunk_head)
+                : reinterpret_cast<const unsigned char*>(vn + chunk_head);
+      ch.k_sw = ch.v_sw = n_ss * kElem;
+      ch.ks = I8 ? kn_s + (long long)b * C * NKV + hk : nullptr;
+      ch.vs = I8 ? vn_s + (long long)b * C * NKV + hk : nullptr;
+      ch.ks_sw = ch.vs_sw = NKV;
+      ch.mask = nullptr;
+      ch.n_keys = C;
+      ch.vec16 = 1;
+      ch.chunk = 1;
+      seg[ns++] = ch;
     }
   }
+  __syncthreads();
+  const long long q_ss = (long long)H * D;  // q and o: one chunk position
+  const long long row_at = ((long long)b * C + q0) * q_ss + (long long)h * D;
+  const Rows rw{q + row_at, q_ss, min(kRows, C - q0), q0, 1, kn + chunk_head, vn + chunk_head,
+                n_ss};
+  float acc[D / 8][4], m[2], l[2];
+  attend<D, I8, false, NW, kRagStages>(seg, (with_win ? 1 : 0) + (with_chunk ? 1 : 0), rw, 1,
+                                       scale * kLog2e, smem_raw, acc, m, l);
+  if (nw == 1) {
+    finish<D, NW>(acc, m, l, 1, rw.n_rows, smem_raw, o + row_at, nullptr, q_ss, nullptr, nullptr);
+  } else {
+    const long long prow = ((long long)bh * n_pieces + piece) * C + q0;
+    finish<D, NW>(acc, m, l, 1, rw.n_rows, smem_raw, nullptr, nullptr, 0, part_acc + prow * D,
+                  part_ml + prow * 2);
+  }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  // l >= 1: the key that set the final max has p = 1 (every row has a key).
-  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  // This warp's 16 rows go out through its own rows of the Q tile (the
-  // diagonal scores read a thread's own warp's rows, before the tile loop).
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int i = 0; i < DN; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(sq + (row0 + r * 8) * LD + i * 8 + col) =
-          __floats2bfloat162_rn(oacc[i][2 * r] * inv[r], oacc[i][2 * r + 1] * inv[r]);
-    }
-  }
-  __syncwarp();
-  __nv_bfloat16* obase = o + (long long)b * C * q_ss + (long long)h * D;
-  for (int idx = lane; idx < 16 * CPR; idx += 32) {
-    const int r = warp * 16 + idx / CPR;
-    const int c = (idx % CPR) * 8;
-    if (q0 + r < C) {
-      *reinterpret_cast<uint4*>(obase + (long long)(q0 + r) * q_ss + c) =
-          *reinterpret_cast<const uint4*>(sq + r * LD + c);
-    }
-  }
+// Joins the pieces of every row split over more than one: 32 query rows
+// of one (packed row, head) a block, 8 threads a row; rows of one piece
+// were written by their block, and a block of such rows leaves at once.
+template <int D>
+__global__ void __launch_bounds__(256) flash_ragged_kernel_merge(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    const int* __restrict__ slots, const int* __restrict__ offsets,
+    __nv_bfloat16* __restrict__ o, int H, int C, int T_len, int n_slots, int n_pieces,
+    int piece_len) {
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int slot = slots[b];
+  const int off = offsets[b];
+  const int win = (slot < 0 || slot >= n_slots || off <= 0 || off >= T_len) ? 0 : off;
+  const int nw = (win + piece_len - 1) / piece_len;
+  const int j = blockIdx.y * 32 + threadIdx.x / 8;
+  if (nw <= 1 || j >= C) return;
+  chunk_attn::join_row<D, 8>(part_acc, part_ml, (long long)bh * n_pieces * C + j, C, nw,
+                             threadIdx.x % 8, o + (((long long)b * C + j) * H + (bh - b * H)) * D);
 }
 
 // ---------------------------------------------------------------------------
@@ -920,7 +724,6 @@ cudaError_t by_dim(int D, const Args& a, cudaStream_t st) {
   }
 }
 
-
 struct RagArgs {
   const void *q, *kwin, *vwin;
   const float *kwin_s, *vwin_s;
@@ -930,28 +733,53 @@ struct RagArgs {
   const void* v8n;
   const float* vn_s;
   void* o;
-  int B, H, NKV, C, T_len, n_slots;
+  float* part;
+  int B, H, NKV, C, T_len, n_slots, n_pieces, piece_len;
   float scale;
 };
 
 template <int D, bool I8>
 cudaError_t launch_ragged(const RagArgs& a, cudaStream_t stream) {
   using T = __nv_bfloat16;
-  constexpr int bytes = RagLayout<D>::kBytes;
+  constexpr int NW = kRagWarps;
+  constexpr int bytes = chunk_attn::Layout<D, I8, kRagStages>::template bytes<NW>();
   auto kernel = flash_ragged_kernel<D, I8>;
-  if (bytes > kSmemNoOptIn) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)(a.B * a.H), (unsigned)((a.C + kBQ - 1) / kBQ));
-  kernel<<<grid, kRagThreads, bytes, stream>>>(
+  cudaError_t err = chunk_attn::prefer_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.C + NW * 16 - 1) / (NW * 16);
+  float* part_acc = a.n_pieces > 1 ? a.part : nullptr;
+  float* part_ml =
+      part_acc ? part_acc + (long long)a.B * a.H * a.n_pieces * a.C * D : nullptr;
+  const dim3 grid((unsigned)((long long)a.B * a.H * n_qt), (unsigned)a.n_pieces);
+  kernel<<<grid, NW * 32, bytes, stream>>>(
       static_cast<const T*>(a.q), a.kwin, a.vwin, a.kwin_s, a.vwin_s, a.slots, a.offsets,
       static_cast<const T*>(a.kn), static_cast<const T*>(a.vn),
       static_cast<const int8_t*>(a.k8n), a.kn_s, static_cast<const int8_t*>(a.v8n), a.vn_s,
-      static_cast<T*>(a.o), a.H, a.NKV, a.C, a.T_len, a.n_slots, a.scale);
+      static_cast<T*>(a.o), part_acc, part_ml, a.H, a.NKV, a.C, a.T_len, a.n_slots, a.n_pieces,
+      a.piece_len, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_pieces == 1) return err;
+  flash_ragged_kernel_merge<D><<<dim3((unsigned)(a.B * a.H), (a.C + 31) / 32), 256, 0, stream>>>(
+      part_acc, part_ml, a.slots, a.offsets, static_cast<T*>(a.o), a.H, a.C, a.T_len,
+      a.n_slots, a.n_pieces, a.piece_len);
   return cudaGetLastError();
 }
+
+// Blocks of the ragged kernel an SM holds (the occupancy API, after the
+// kernel's shared-memory attributes are set), or -1.
+template <bool I8>
+int ragged_occupancy() {
+  constexpr int bytes = chunk_attn::Layout<128, I8, kRagStages>::template bytes<kRagWarps>();
+  auto kernel = flash_ragged_kernel<128, I8>;
+  int n = -1;
+  if (chunk_attn::prefer_shared(kernel, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kRagWarps * 32, bytes) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
 
 }  // namespace
 
@@ -994,8 +822,11 @@ extern "C" int flash_attention_launch(
 // (cache_int8 = 1) or bf16 with null scales; slots and offsets [B] int32
 // on the device; the chunk's exact k/v [B, C, NKV, D] bf16 and, int8 only,
 // its round-trip codes [B, C, NKV, D] int8 with scales [B, C, NKV].
-// H % NKV == 0, D in {64, 128}.  Returns the launch's cudaError_t; nothing
-// is synchronised.
+// H % NKV == 0, D in {64, 128}.  The plan: 64 query rows a block, windows
+// cut into pieces of `piece_len` keys (a
+// multiple of 64), `n_pieces` >= ceil((T - 1) / piece_len) of them a row
+// (>= 1); with n_pieces > 1, `part` holds B * H * n_pieces * C * (D + 2)
+// floats.  Returns the first launch error; nothing is synchronised.
 extern "C" int flash_ragged_launch(
     int cache_int8, int D,
     const void* q, const void* kwin, const void* vwin,
@@ -1003,16 +834,20 @@ extern "C" int flash_ragged_launch(
     const int* slots, const int* offsets,
     const void* kn, const void* vn,
     const void* k8n, const float* kn_s, const void* v8n, const float* vn_s,
-    void* o, int B, int H, int NKV, int C, int T_len, int n_slots, float scale,
-    void* stream) {
-  if (B <= 0 || H <= 0 || NKV <= 0 || C <= 0 || T_len <= 0 || n_slots <= 0 || H % NKV != 0)
+    void* o, void* part, int B, int H, int NKV, int C, int T_len, int n_slots, int n_pieces,
+    int piece_len, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || NKV <= 0 || C <= 0 || T_len <= 0 || n_slots <= 0 || H % NKV != 0 ||
+      piece_len <= 0 || piece_len % chunk_attn::kBK != 0 ||
+      n_pieces < 1 || n_pieces > 65535 || (long long)n_pieces * piece_len < T_len - 1 ||
+      (n_pieces > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((long long)B * H > 0x7fffffffLL || (C + kBQ - 1) / kBQ > 65535)
+  if ((long long)B * H * ((C + kRagWarps * 16 - 1) / (kRagWarps * 16)) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (cache_int8 && (!kwin_s || !vwin_s || !k8n || !kn_s || !v8n || !vn_s))
     return (int)cudaErrorInvalidValue;
   const RagArgs a{q, kwin, vwin, kwin_s, vwin_s, slots, offsets, kn, vn, k8n, kn_s, v8n, vn_s,
-                  o, B, H, NKV, C, T_len, n_slots, scale};
+                  o, static_cast<float*>(part), B, H, NKV, C, T_len, n_slots, n_pieces,
+                  piece_len, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D * 2 + (cache_int8 ? 1 : 0)) {
     case 128: return (int)launch_ragged<64, false>(a, st);
@@ -1021,4 +856,10 @@ extern "C" int flash_ragged_launch(
     case 257: return (int)launch_ragged<128, true>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks an SM holds of the ragged kernel at D = 128 on an int8
+// (cache_int8 = 1) or bf16 cache.
+extern "C" int flash_ragged_occupancy(int cache_int8) {
+  return cache_int8 ? ragged_occupancy<true>() : ragged_occupancy<false>();
 }

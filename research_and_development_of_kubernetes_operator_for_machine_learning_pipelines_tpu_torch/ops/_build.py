@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on its
 own with ``nvcc`` into ``build/torch_kernels/<name>-<hash>.so`` at first
-use; the hash covers the source and the flags, so an edited kernel never
-loads a stale library.  Several sources build in parallel (one ``nvcc``
-each, all started together).  Nothing here imports torch's C++ headers:
-a plain-C build takes seconds where a PyTorch extension takes minutes.
+use; the hash covers the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel never loads a stale library.  Several
+sources build in parallel (one ``nvcc`` each, all started together).
+Nothing here imports torch's C++ headers: a plain-C build takes seconds
+where a PyTorch extension takes minutes.
 
 A missing ``nvcc`` or a failed build raises; there is no fallback.
 """
@@ -56,6 +57,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

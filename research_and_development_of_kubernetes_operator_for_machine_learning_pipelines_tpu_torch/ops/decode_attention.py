@@ -57,13 +57,25 @@ Row ``r`` attends the window ``[0, W)`` under the mask and the chunk keys
 ``j <= s`` in one softmax.  The diagonal ``j == s`` is exact; on the int8
 window every earlier chunk key and value goes through the round-trip
 (``k8c * ksc``, ``v8c * vsc``), as it would have through the cache on the
-sequential path.  At S = 1 it is the decode kernel's function.
+sequential path.  At S = 1 it is the decode kernel's function.  S runs up
+to ``MAX_VERIFY_S`` (256, the prefill chunk).
+
+With bf16 q (the serving type) the verify runs the tensor-core kernel of
+``csrc/chunk_attention.cuh`` (``verify_attention_kernel``): one block a
+(slot, kv head, group of 16 / 32 / 64 query rows) x window piece, the
+window tiles staged once a block through a ``cp.async`` ring and read by
+every row tile, the probabilities kept f32 (a hi/lo bf16 pair into
+P . V); :func:`verify_plan` cuts the window into pieces from the shapes
+alone, and the last piece also attends the chunk.  f32 q keeps the first
+design (one query row a block on the CUDA cores, a merge kernel that
+joins the chunk keys).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -88,8 +100,50 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _verify_fn = None
-# Chunk positions the verify instance takes: draftTokens (at most 64) + 1.
-MAX_VERIFY_S = 65
+# Chunk positions the verify instance takes: up to the prefill chunk (the
+# kernel's kMaxS).
+MAX_VERIFY_S = 256
+# The bf16 verify's plan (``verify_plan``): keys a staged tile, query rows
+# a block by the row count (its 4 warps split a tile's 16-key slices 4, 2
+# or 1 ways), and the blocks the window pieces aim to fill: one wave of
+# the kernel's 3 blocks an SM (fewer, longer pieces won the sweep of
+# ``chip_smoke.py`` on the H100 at S = 5, 17 and 65).
+VERIFY_TILE = 64
+VERIFY_ROWS = (16, 32, 64)
+VERIFY_BLOCKS = 3 * NUM_SMS
+
+
+class VerifyPlan(NamedTuple):
+    """How the bf16 verify kernel covers a call: ``rows`` query rows a
+    block in ``row_groups`` groups a (slot, kv head), the window cut into
+    ``splits`` pieces of ``piece_len`` positions (the last may hold fewer;
+    it also attends the chunk)."""
+
+    rows: int
+    row_groups: int
+    splits: int
+    piece_len: int
+
+
+def verify_plan(b: int, nkv: int, r: int, w: int, blocks: int | None = None) -> VerifyPlan:
+    """The bf16 verify's grid from the shapes alone: the narrowest row
+    group that holds ``r`` rows (at most 64; more rows take more groups),
+    then as many tile-aligned window pieces as fill ``blocks`` blocks
+    (``VERIFY_BLOCKS``), at least one tile each."""
+    blocks = VERIFY_BLOCKS if blocks is None else blocks
+    rows = next((x for x in VERIFY_ROWS if r <= x), VERIFY_ROWS[-1])
+    groups = -(-r // rows)
+    tiles = -(-w // VERIFY_TILE)
+    splits = max(1, min(tiles, blocks // (b * nkv * groups)))
+    piece_tiles = -(-tiles // splits)
+    return VerifyPlan(rows, groups, -(-tiles // piece_tiles), piece_tiles * VERIFY_TILE)
+
+
+def verify_pieces(w: int, plan: VerifyPlan) -> list[tuple[int, int, bool]]:
+    """The window positions ``[lo, hi)`` of each piece of ``plan`` and
+    whether it attends the chunk (the last does)."""
+    return [(i * plan.piece_len, min(w, (i + 1) * plan.piece_len), i == plan.splits - 1)
+            for i in range(plan.splits)]
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -186,7 +240,7 @@ def _verify_kernel():
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, vp, vp, vp, vp, vp, vp, ll,
-            vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
+            vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         fn.restype = ctypes.c_int
         _verify_fn = fn
@@ -333,18 +387,23 @@ def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask
                       or ksc.dtype != torch.float32 or vsc.dtype != torch.float32):
         raise ValueError("verify attention: the round-tripped chunk must be int8 with "
                          "float32 scales")
-    q = q.contiguous()          # [B, NKV, S*G, D]: the chunk's rows, never the cache
-    k_chunk, v_chunk = k_chunk.contiguous(), v_chunk.contiguous()
+    # The chunk's rows (never the cache): contiguous, 16-byte aligned.
+    q, k_chunk, v_chunk = (_aligned(t) for t in (q, k_chunk, v_chunk))
     if not dense:
-        k8c, ksc, v8c, vsc = (t.contiguous() for t in (k8c, ksc, v8c, vsc))
-    # One query row a block: on the H100 it beat tiles of 2 to 8 rows at
-    # every chunk length measured (the G = 1 instance holds 4 blocks an SM,
-    # and a (slot, head)'s row blocks re-read its window from L2).
-    splits = num_splits(b, nkv * r, w)
+        k8c, ksc, v8c, vsc = (_aligned(t) for t in (k8c, ksc, v8c, vsc))
     out = torch.empty((b, nkv, r, d), dtype=torch.float32, device=q.device)
-    # Every split's partials (acc [D], then m and l): the merge kernel
-    # joins the chunk term, one split or many.
-    part = torch.empty(b * nkv * r * splits * (d + 2), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        plan = verify_plan(b, nkv, r, w)
+        splits, chunk, rows = plan.splits, plan.piece_len, plan.rows
+        # The pieces' partials (acc [D], then m and l a row); none for one piece.
+        part = (torch.empty(b * nkv * splits * r * (d + 2), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
+    else:
+        # f32 q: one query row a block, every split's partial to the merge
+        # kernel that joins the chunk term.
+        splits = num_splits(b, nkv * r, w)
+        chunk, rows = split_len(w, splits), 0
+        part = torch.empty(b * nkv * r * splits * (d + 2), dtype=torch.float32, device=q.device)
     scales = _scales(ks, vs)
     rc = _verify_kernel()(
         _DTYPES[q.dtype], int(dense), vec, q.data_ptr(),
@@ -356,14 +415,21 @@ def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask
         None if dense else k8c.data_ptr(), None if dense else ksc.data_ptr(),
         None if dense else v8c.data_ptr(), None if dense else vsc.data_ptr(),
         mask.data_ptr(), mask.stride(0),
-        out.data_ptr(), part.data_ptr(),
-        b, nkv, w, d, splits, split_len(w, splits), r, s, g, 1.0 / math.sqrt(d),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        b, nkv, w, d, splits, chunk, r, s, g, rows, 1.0 / math.sqrt(d),
         _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"verify attention kernel launch failed: cudaError {rc}")
     launches += 1
     return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base (a fresh copy if not):
+    the kernel copies the chunk's rows 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _byte_bits(t: torch.Tensor) -> int:

@@ -77,12 +77,21 @@ sequential path, where the earlier chunk positions were in the cache
 before they were attended.  A row whose offset is at capacity (a parked
 pad row of a packed call) reads no window; its output is finite and
 ignored.  ``offsets`` and ``slots`` stay on the card (no host sync).
+
+On the H100 the ragged instance runs the tensor-core core of
+``csrc/chunk_attention.cuh`` (the verify chunk's too) with p rounded to
+bf16: :func:`ragged_plan` fixes, from C and T alone, query tiles of
+``RAGGED_ROWS`` rows and window pieces of ``RAGGED_PIECE`` keys; a
+block whose piece lies past its row's window exits, a row of one piece is
+written by its block, and a merge kernel launched by the same call joins
+the f32 partials of a row whose window spans several pieces.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -101,6 +110,53 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _RAGGED_HEAD_DIMS = (64, 128)
 _rfn = None
+# The ragged kernel's plan (``ragged_plan``): query rows a block (the
+# kernel's 4 warps of 16), keys a staged tile, and keys a window piece (a
+# multiple of the tile), as the sweep of ``chip_smoke.py`` picked it on
+# the H100.
+RAGGED_ROWS = 64
+RAGGED_TILE = 64
+RAGGED_PIECE = 1024
+
+
+class RaggedPlan(NamedTuple):
+    """How the ragged kernel covers a call: ``rows`` query rows a block
+    in ``query_tiles`` tiles a (row, head), and ``pieces`` window pieces
+    of ``piece_len`` keys a row (the grid's second axis)."""
+
+    rows: int
+    query_tiles: int
+    pieces: int
+    piece_len: int
+
+
+def ragged_plan(c: int, t: int, piece_len: int | None = None) -> RaggedPlan:
+    """The ragged kernel's grid from the chunk length ``c`` and the cache
+    capacity ``t`` alone (no offset is read on the host): pieces of
+    ``piece_len`` keys (``RAGGED_PIECE``; rounded up to whole tiles, and
+    never longer than the longest window, ``t - 1`` keys) enough to cover
+    that window."""
+    piece = RAGGED_PIECE if piece_len is None else piece_len
+    longest = max(t - 1, 1)
+    piece = RAGGED_TILE * -(-min(piece, longest) // RAGGED_TILE)
+    return RaggedPlan(RAGGED_ROWS, -(-c // RAGGED_ROWS), -(-longest // piece), piece)
+
+
+def ragged_window(slot: int, offset: int, n_slots: int, t: int) -> int:
+    """The window keys a packed row reads: its offset, or none for a
+    parked row (offset at or past capacity), an empty one or a slot out of
+    range (what the kernel reads on the device)."""
+    return offset if 0 <= slot < n_slots and 0 < offset < t else 0
+
+
+def ragged_pieces(win: int, plan: RaggedPlan) -> list[tuple[int, int, bool]]:
+    """The window keys ``[lo, hi)`` of each piece a row with a ``win``-key
+    window runs, and whether it attends the chunk (the last does; a row
+    with no window runs one piece, the chunk alone).  The grid's other
+    pieces exit at once."""
+    n = max(1, -(-win // plan.piece_len))
+    return [(i * plan.piece_len, min(win, (i + 1) * plan.piece_len), i == n - 1)
+            for i in range(n)]
 
 
 def _scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -308,7 +364,7 @@ def _ragged_kernel():
     if _rfn is None:
         fn = _build.load("flash_attention").flash_ragged_launch
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, i32] + [vp] * 14 + [i32] * 6 + [ctypes.c_float, vp]
+        fn.argtypes = [i32, i32] + [vp] * 15 + [i32] * 8 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         _rfn = fn
     return _rfn
@@ -372,17 +428,23 @@ def _launch_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scal
                              f"{x.data_ptr():#x}")
     if c == 0 or t == 0 or n_slots == 0:
         raise ValueError(f"ragged flash attention: empty input (C={c}, T={t}, NS={n_slots})")
-    if b * h > 2**31 - 1 or (c + 63) // 64 > 65535:
-        raise ValueError(f"ragged flash attention: grid too large for B*H={b * h}, C={c}")
+    plan = ragged_plan(c, t)
+    if b * h * plan.query_tiles > 2**31 - 1 or plan.pieces > 65535:
+        raise ValueError(f"ragged flash attention: grid too large for B*H={b * h}, C={c}, "
+                         f"T={t}")
     out = torch.empty((b, c, h, d), dtype=bf, device=dev)
+    # The pieces' partials (acc [D], then m and l a row) of rows whose
+    # window spans several pieces; none when no window can.
+    part = (torch.empty(b * h * plan.pieces * c * (d + 2), dtype=torch.float32, device=dev)
+            if plan.pieces > 1 else None)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _ragged_kernel()(
         int(quant), d, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ptr(k_scale), ptr(v_scale), slots.data_ptr(), offsets.data_ptr(),
         k_chunk.data_ptr(), v_chunk.data_ptr(),
         *((ptr(x) for x in chunk8) if quant else (None,) * 4),
-        out.data_ptr(), b, h, nkv, c, t, n_slots, 1.0 / math.sqrt(d),
-        _build.current_stream(dev),
+        out.data_ptr(), ptr(part), b, h, nkv, c, t, n_slots, plan.pieces, plan.piece_len,
+        1.0 / math.sqrt(d), _build.current_stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"ragged flash attention kernel launch failed: cudaError {rc}")

@@ -11,17 +11,23 @@ inputs, this, other, other, this in each round:
 - ``ms``: CUDA-event milliseconds a call over back-to-back calls, the
   host's launch included (``chip_smoke.py``'s "ms");
 - ``device_ms``: the profiler's device milliseconds a call (each one's
-  mean a launch) of the kernels whose names hold ``decode_attention_kernel``,
-  ``flash_attention_kernel``, ``dmajor_attention_kernel`` or
-  ``rmsnorm_kernel``.
+  mean a launch, summed over the kernels a call launches) of the kernels
+  whose names hold ``decode_attention_kernel``, ``attention_kernel`` (a
+  verify call: its pieces and their join, or an older checkout's split
+  and merge kernels), ``flash_attention_kernel``, ``flash_ragged``,
+  ``dmajor_attention_kernel`` or ``rmsnorm_kernel``.
 
 Each is the minimum over rounds; every reading is kept beside it
 (``ms_runs``, ``device_ms_runs``).  Shapes: ``chip_smoke.py``'s decode
 window ladder (4 slots, 32 kv heads, G = 1, D = 128, bf16 q, windows
-rotated over 8 layers of a cache), its bf16 flash cases, the D-major
-kernel at the layout probe's shapes (8 and 32 slots, 16 kv heads, D =
-128, W = 512, f32 q, windows rotated over copies that exceed the 50 MB
-L2) and RMSNorm at Llama-2-7B's width (4 and 512 rows of 4096, bf16).
+rotated over 8 layers of a cache), the verify chunk at S = 2, 5, 17 and
+65 on the same windows (W = 768, int8 and bf16), its bf16 flash cases,
+the ragged packed prefill at its timed shape (B_p 4, C 256, offsets
+0/256/768/3840 of a T = 4096 cache of 10 rows, H = NKV = 32, D = 128,
+int8 and bf16 caches, 4 layers), the D-major kernel at the layout
+probe's shapes (8 and 32 slots, 16 kv heads, D = 128, W = 512, f32 q,
+windows rotated over copies that exceed the 50 MB L2) and RMSNorm at
+Llama-2-7B's width (4 and 512 rows of 4096, bf16).
 Run on the card, with the other checkout unpacked where ``.gitignore``
 lists it::
 
@@ -131,6 +137,87 @@ def decode_shapes(gen):
     return out
 
 
+def verify_shapes(gen):
+    """name -> a call taking the module: the verify chunk at S = 2, 5, 17
+    and 65 (G = 1), bf16 q, over W = 768 windows rotated over LAYERS
+    layers of one head-major int8 or bf16 cache (lengths W/4 .. W)."""
+    from ..models.llama import _quant_kv
+
+    b, nkv, d, t, w = 4, 32, 128, 1024, 768
+    shape = (LAYERS, b, nkv, t, d)
+    bf = torch.bfloat16
+    caches = {
+        "int8": (torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+                 torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.01 + 1e-3,
+                 torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+                 torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.01 + 1e-3),
+        "bf16": (torch.randn(shape, generator=gen, device="cuda").to(bf), None,
+                 torch.randn(shape, generator=gen, device="cuda").to(bf), None),
+    }
+    lens = torch.tensor([w // 4, w // 2, 3 * w // 4, w], device="cuda")
+    mask = torch.where(torch.arange(w, device="cuda")[None, :] < lens[:, None], 0.0,
+                       -1e9).to(torch.float32)[:, None, :]
+    out = {}
+    for tag, (k, ks, v, vs) in caches.items():
+        for s in (2, 5, 17, 65):
+            q = torch.randn((b, nkv, s, d), generator=gen, device="cuda").to(bf)
+            kc = torch.randn((b, nkv, s, d), generator=gen, device="cuda").to(bf)
+            vc = torch.randn((b, nkv, s, d), generator=gen, device="cuda").to(bf)
+            if ks is None:
+                views = [(q, k[i, :, :, :w], v[i, :, :, :w], kc, vc, mask)
+                         for i in range(LAYERS)]
+            else:
+                rt = (*_quant_kv(kc), *_quant_kv(vc))
+                views = [(q, k[i, :, :, :w], ks[i, :, :, :w], v[i, :, :, :w], vs[i, :, :, :w],
+                          kc, vc, *rt, mask) for i in range(LAYERS)]
+            it = {"i": 0}
+
+            def call(mod, views=views, it=it, dense=ks is None):
+                it["i"] += 1
+                fn = mod.verify_attention_dense if dense else mod.verify_attention
+                return fn(*views[it["i"] % LAYERS])
+
+            out[f"verify_{tag}_s{s}"] = call
+    return out
+
+
+def ragged_shapes(gen):
+    """name -> a call taking the module: the ragged packed prefill at
+    chip_smoke.py's timed shape, int8 (with scales and the chunk's
+    round-trip codes) and bf16 caches, rotated over 4 layers."""
+    from ..models.llama import _quant_kv
+
+    bp, c, h, d, t, ns, layers = 4, 256, 32, 128, 4096, 10, 4
+    bf = torch.bfloat16
+    q = torch.randn((bp, c, h, d), generator=gen, device="cuda").to(bf)
+    kc = torch.randn((bp, c, h, d), generator=gen, device="cuda").to(bf)
+    vc = torch.randn((bp, c, h, d), generator=gen, device="cuda").to(bf)
+    rt = (*_quant_kv(kc), *_quant_kv(vc))
+    slots = torch.tensor([3, 7, 0, 5], dtype=torch.int32, device="cuda")
+    offsets = torch.tensor([0, 256, 768, 3840], dtype=torch.int32, device="cuda")
+    shape = (layers, ns, h, t, d)
+    out = {}
+    for tag in ("int8", "bf16"):
+        if tag == "int8":
+            k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                  dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.02 + 1e-3
+                      for _ in range(2))
+            views = [(q, k[i], v[i], slots, offsets, kc, vc, ks[i], vs[i], rt)
+                     for i in range(layers)]
+        else:
+            k, v = (torch.randn(shape, generator=gen, device="cuda").to(bf) for _ in range(2))
+            views = [(q, k[i], v[i], slots, offsets, kc, vc) for i in range(layers)]
+        it = {"i": 0}
+
+        def call(mod, views=views, it=it):
+            it["i"] += 1
+            return mod.flash_attention_ragged(*views[it["i"] % layers])
+
+        out[f"ragged_{tag}"] = call
+    return out
+
+
 def flash_shapes(gen):
     """name -> a call taking the module: chip_smoke.py's bf16 flash cases
     (same shapes and masks; other random values)."""
@@ -205,8 +292,12 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     shapes = [(name, call, (da, other_da), "decode_attention_kernel")
               for name, call in decode_shapes(gen).items()]
+    shapes += [(name, call, (da, other_da), "attention_kernel")
+               for name, call in verify_shapes(gen).items()]
     shapes += [(name, call, (fa, other_fa), "flash_attention_kernel")
                for name, call in flash_shapes(gen).items()]
+    shapes += [(name, call, (fa, other_fa), "flash_ragged")
+               for name, call in ragged_shapes(gen).items()]
     shapes += [(name, call, (dm, other_module("dmajor_attention")), "dmajor_attention_kernel")
                for name, call in dmajor_shapes(gen).items()]
     shapes += [(name, call, (rn, other_module("rmsnorm")), "rmsnorm_kernel")

@@ -14,10 +14,13 @@ the ragged instance of packed prefill: its plain version against a JAX
 transcript of ``_block_verify_deferred``'s attention lines on cache rows
 gathered by ``slots`` (G = 1 and 4, int8 and dense caches, 1e-5: f32
 scores and softmax on both sides), and a torch emulation of the CUDA
-kernel's tiles (64-key window and chunk tiles under one online softmax,
-the exact diagonal put in place of its round-trip score and p_jj * v_j
-added from the exact V) against the plain version: 1e-6 in f64, and 2e-2
-with P rounded to bf16 as the kernel's MMA takes it.
+kernel's plan (query tiles of 64 or 128 rows, window pieces from
+``ragged_plan`` each under one online softmax of 16-key slices, the chunk
+in a row's last piece with the exact diagonal put in place of its
+round-trip score and p_jj * v_j added from the exact V, the pieces' f32
+partials joined by the max-rescale) against the plain version (1e-6 in
+f64, and 2e-2 with P rounded to bf16 as the kernel's MMA takes it) and
+the JAX lines, with the plan's coverage properties.
 
 Tolerances: f32 2e-5 absolute and relative, as the JAX package's own
 flash tests (summation order and where the scale is applied).  bf16 I/O:
@@ -480,75 +483,94 @@ def test_ragged_plain_matches_the_reference_lines(quant, H, NKV):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def _ragged_emulation(a, round_p=False, bk=64, bq=64):
-    """The CUDA kernel's arithmetic in f64 torch: for each (row, head,
-    64-query tile), the window's 64-key tiles of cache row ``slots[b]`` up
-    to ``offsets[b]`` (none for a parked row), then the chunk's tiles up to
-    the query tile's diagonal, one online softmax (running max, rescale a
-    tile); on the int8 cache the key scale times the score and the value
-    scale times p (rounded to bf16 with ``round_p``, as the MMA takes it),
-    the row sum of the unrounded p, and in the diagonal tile the exact q_j .
-    k_j in place of the round-trip score, p_jj kept out of P . V and
-    p_jj * v_j added from the exact V row."""
+def _ragged_piece(qq, segs, pos, rnd):
+    """One warp's online softmax over a piece in f64 torch, as
+    ``csrc/chunk_attention.cuh`` runs it for the ragged kernel: queries
+    ``qq [R, D]`` (pre-scaled) at chunk positions ``pos [R]`` against
+    segments ``(K, V, kscale, vscale, chunk, diag)`` in 16-key slices
+    (running max, rescale); ``diag``: the exact diagonal's scores ``[R]``
+    and V rows ``[R, D]`` (int8 chunk), whose p stays out of P . V; ``rnd``
+    rounds p (times the value scale) as the MMA takes it.  Returns ``(m,
+    l, acc)``."""
+    m = torch.full((len(pos),), -1e30, dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((len(pos), qq.shape[1]), dtype=torch.float64)
+    for k, v, ksc, vsc, chunk, diag in segs:
+        for k0 in range(0, k.shape[0], 16):
+            k1 = min(k.shape[0], k0 + 16)
+            key = torch.arange(k0, k1)
+            x = (qq @ k[k0:k1].T) * ksc[None, k0:k1]
+            on_diag = (key[None, :] == pos[:, None]) & chunk & (diag is not None)
+            if diag is not None and chunk:
+                x = torch.where(on_diag, diag[0][:, None], x)
+            if chunk:
+                x = torch.where(key[None, :] <= pos[:, None], x, -torch.inf)
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[:, None])
+            l = l * corr + p.sum(-1)
+            pv = rnd(torch.where(on_diag, 0.0, p * vsc[None, k0:k1]))
+            acc = acc * corr[:, None] + pv @ v[k0:k1]
+            if diag is not None and chunk:
+                acc = acc + torch.where(on_diag, p, 0.0).sum(-1)[:, None] * diag[1]
+            m = m_new
+    return m, l, acc
+
+
+def _ragged_emulation(a, round_p=False, plan=None):
+    """The CUDA kernel's algebra in f64 torch: the plan of
+    ``tfa.ragged_plan`` (or ``plan``); for each (row, head), query tiles
+    of ``plan.rows`` rows in row tiles of 16; the pieces of
+    ``tfa.ragged_pieces`` (window keys of cache row ``slots[b]``, none for
+    a parked row; the last piece also the chunk keys up to each row's
+    diagonal), each one online softmax over 16-key slices; on the int8
+    cache the key scale times the score and the value scale times p
+    (rounded to bf16 with ``round_p``, as the MMA takes it), the row sum
+    of the unrounded p, the exact q_j . k_j in place of the diagonal's
+    round-trip score, p_jj kept out of P . V and p_jj * v_j added from the
+    exact V row; a row of several pieces joins their (m, l, acc) by the
+    max-rescale, as the merge kernel does."""
     t = {n: None if x is None else torch.from_numpy(np.asarray(x)) for n, x in a.items()}
     q, kc, vc = (t[n].to(torch.float64) for n in ("q", "kc", "vc"))
     b, c, h, d = q.shape
     ns, nkv, w = t["k"].shape[:3]
+    plan = plan or tfa.ragged_plan(c, w)
     quant = t["ks"] is not None
+    ones_c = torch.ones(c, dtype=torch.float64)
     if quant:
-        k8c, ksc = T._quant_kv(t["kc"])
-        v8c, vsc = T._quant_kv(t["vc"])
-    scale = 1.0 / d ** 0.5
-    out = torch.zeros((b, c, h, d), dtype=torch.float64)
+        k8c, ksc = (x.to(torch.float64) for x in T._quant_kv(t["kc"]))
+        v8c, vsc = (x.to(torch.float64) for x in T._quant_kv(t["vc"]))
     rnd = (lambda x: x.to(torch.bfloat16).to(torch.float64)) if round_p else (lambda x: x)
+    out = torch.zeros((b, c, h, d), dtype=torch.float64)
     for bi in range(b):
         slot, off = int(t["slots"][bi]), int(t["offsets"][bi])
-        win = off if 0 < off < w and 0 <= slot < ns else 0
-        for hi in range(h):
-            hk = hi // (h // nkv)
-            for q0 in range(0, c, bq):
-                rows = torch.arange(q0, min(c, q0 + bq))
-                qq = q[bi, rows, hi]                                   # [R, D]
-                m = torch.full((len(rows),), -1e30, dtype=torch.float64)
-                l = torch.zeros_like(m)
-                acc = torch.zeros((len(rows), d), dtype=torch.float64)
-                chunk_end = min(c, q0 + bq)
-                tiles = [("w", k0) for k0 in range(0, win, bk)]
-                tiles += [("c", k0) for k0 in range(0, chunk_end, bk)]
-                for n, (kind, k0) in enumerate(tiles):
-                    keys = torch.arange(k0, k0 + bk)
-                    lim = win if kind == "w" else chunk_end
-                    live = keys < lim
-                    kk = keys.clamp(max=lim - 1)
-                    if kind == "w":
-                        src_k = t["k"][slot, hk, kk].to(torch.float64)
-                        src_v = t["v"][slot, hk, kk].to(torch.float64)
-                        kscl = t["ks"][slot, hk, kk, 0].double() if quant else torch.ones(bk)
-                        vscl = t["vs"][slot, hk, kk, 0].double() if quant else torch.ones(bk)
-                    elif quant:
-                        src_k, src_v = k8c[bi, kk, hk].double(), v8c[bi, kk, hk].double()
-                        kscl, vscl = ksc[bi, kk, hk, 0].double(), vsc[bi, kk, hk, 0].double()
-                    else:
-                        src_k, src_v = kc[bi, kk, hk], vc[bi, kk, hk]
-                        kscl = vscl = torch.ones(bk, dtype=torch.float64)
-                    s = (qq @ src_k.T) * scale * kscl[None, :]
-                    diag = (keys[None, :] == rows[:, None]) & (kind == "c") & quant
-                    if quant and kind == "c" and n == len(tiles) - 1:
-                        exact = (qq * kc[bi, rows, hk]).sum(-1) * scale
-                        s = torch.where(diag, exact[:, None], s)
-                    ok = live[None, :] & ((kind == "w") | (keys[None, :] <= rows[:, None]))
-                    s = torch.where(ok, s, -torch.inf)
-                    m_new = torch.maximum(m, s.amax(-1))
-                    corr = torch.exp(m - m_new)
-                    p = torch.exp(s - m_new[:, None])
-                    l = l * corr + p.sum(-1)
-                    pv = torch.where(diag, 0.0, rnd(p * vscl[None, :]))
-                    acc = acc * corr[:, None] + pv @ src_v
-                    if diag.any():
-                        pjj = torch.where(diag, p, 0.0).sum(-1)
-                        acc = acc + pjj[:, None] * vc[bi, rows, hk]
-                    m = m_new
-                out[bi, rows, hi] = acc / l[:, None]
+        pieces = tfa.ragged_pieces(tfa.ragged_window(slot, off, ns, w), plan)
+        for hi_ in range(h):
+            hk = hi_ // (h // nkv)
+            if quant:
+                chunk = (k8c[bi, :, hk], v8c[bi, :, hk], ksc[bi, :, hk, 0], vsc[bi, :, hk, 0])
+            else:
+                chunk = (kc[bi, :, hk], vc[bi, :, hk], ones_c, ones_c)
+            for r0 in range(0, c, 16):  # a row tile: one warp of its query tile's block
+                rows = torch.arange(r0, min(c, r0 + 16))
+                qq = q[bi, rows, hi_] / d ** 0.5
+                diag = ((qq * kc[bi, rows, hk]).sum(-1), vc[bi, rows, hk]) if quant else None
+                parts = []
+                for lo, hi, with_chunk in pieces:
+                    segs = []
+                    if hi > lo:
+                        kw, vw = (t[n][slot, hk, lo:hi].to(torch.float64) for n in ("k", "v"))
+                        kscl, vscl = ((t[n][slot, hk, lo:hi, 0].double() for n in ("ks", "vs"))
+                                      if quant else (torch.ones(hi - lo, dtype=torch.float64),) * 2)
+                        segs.append((kw, vw, kscl, vscl, False, None))
+                    if with_chunk:
+                        segs.append((*chunk, True, diag))
+                    parts.append(_ragged_piece(qq, segs, rows, rnd))
+                mx = torch.stack([p[0] for p in parts]).amax(0)
+                f = [torch.exp(p[0] - mx) for p in parts]
+                l = sum(p[1] * fi for p, fi in zip(parts, f))
+                acc = sum(p[2] * fi[:, None] for p, fi in zip(parts, f))
+                out[bi, rows, hi_] = acc / l[:, None]
     return out
 
 
@@ -557,16 +579,64 @@ def _ragged_emulation(a, round_p=False, bk=64, bq=64):
                                          (130, 256, [255, 1, 128, 70])],
                          ids=["parked", "ragged"])
 def test_kernel_tiles_and_diagonal_match_the_plain_version(quant, C, W, offsets):
-    """The kernel's tile algebra (query tiles of 64, window tiles ending off
+    """The kernel's algebra (query tiles of 64 rows, window pieces of the
+    default plan, of one tile, and of 128 keys, windows ending off
     the tile grid, a parked row at offset == capacity, chunks of 100 and
     130 spanning several query tiles) equals the plain version: 1e-6 in
     f64; with P rounded to bf16 as the MMA takes it, within 2e-2 (the bf16
     tolerance of the smoke's checks)."""
     a = _ragged_inputs(4, C, 4, 2, 6, W, offsets, [5, 0, 3, 1], quant, seed=C + W)
     want = _port_ragged(a).numpy()
-    np.testing.assert_allclose(_ragged_emulation(a).numpy(), want, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(_ragged_emulation(a, round_p=True).numpy(), want, rtol=2e-2,
-                               atol=2e-2)
+    for plan in (None, tfa.ragged_plan(C, W, piece_len=64), tfa.ragged_plan(C, W, piece_len=128)):
+        np.testing.assert_allclose(_ragged_emulation(a, plan=plan).numpy(), want, rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(_ragged_emulation(a, round_p=True, plan=plan).numpy(), want,
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("piece_len", [64, 1024])
+def test_ragged_emulation_matches_the_reference_lines(quant, piece_len):
+    """The kernel's f64 emulation (a window split over 64-key pieces, or
+    held whole) against the JAX ``_block_verify_deferred`` lines on the
+    gathered rows: f32 scores and softmax there, so 1e-5."""
+    a = _ragged_inputs(3, 12, 8, 2, 5, 200, [0, 137, 199], [4, 1, 2], quant, seed=piece_len)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(_jax_ragged_lines(*(None if a[n] is None else jnp.asarray(a[n]) for n in
+                                              ("q", "k", "v", "slots", "offsets", "kc", "vc",
+                                               "ks", "vs"))))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got = _ragged_emulation(a, plan=tfa.ragged_plan(12, 200, piece_len=piece_len)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,t", [(256, 4096), (100, 4096), (12, 64), (1, 1), (130, 257),
+                                 (256, 2048)])
+@pytest.mark.parametrize("piece_len", [None, 64, 512, 8192])
+def test_ragged_plan_covers_every_window_key_once(c, t, piece_len):
+    """From C and T alone (no offset read on the host): query tiles cover
+    the chunk; for every offset a row can hold (0 .. T - 1, and T, a
+    parked row), its pieces cover the window keys exactly once, all within
+    the grid's pieces, and only the last attends the chunk; a parked row,
+    an empty window and an out-of-range slot run the chunk alone."""
+    plan = tfa.ragged_plan(c, t, piece_len)
+    assert plan == tfa.ragged_plan(c, t, piece_len)
+    assert plan.rows == tfa.RAGGED_ROWS
+    assert (plan.query_tiles - 1) * plan.rows < c <= plan.query_tiles * plan.rows
+    assert plan.piece_len % tfa.RAGGED_TILE == 0
+    assert plan.pieces * plan.piece_len >= t - 1
+    for off in sorted({0, 1, 63, 64, 65, t // 2, t - 2, t - 1, t} & set(range(t + 1))):
+        win = tfa.ragged_window(0, off, 1, t)
+        assert win == (off if 0 < off < t else 0)
+        pieces = tfa.ragged_pieces(win, plan)
+        assert 1 <= len(pieces) <= plan.pieces
+        assert [k for lo, hi, _ in pieces for k in range(lo, hi)] == list(range(win))
+        assert [ch for _, _, ch in pieces] == [False] * (len(pieces) - 1) + [True]
+    for slot in (-1, 1, 7):
+        assert tfa.ragged_window(slot, t // 2, 1, t) == 0
+        assert tfa.ragged_pieces(0, plan) == [(0, 0, True)]
 
 
 def test_ragged_wrapper_refuses_what_the_kernel_does_not_take():

@@ -8,8 +8,11 @@ on the CPU.
   transcript of ``_block_verify_deferred``'s attention lines
   (``models/llama.py:1083-1152``) and the port's ``_block_verify_deferred``
   against the JAX one, int8 round-trip rows included; a torch emulation of
-  the CUDA kernel's one-row blocks, splits and merge against the plain
-  version.
+  the bf16 CUDA kernel's plan (row groups whose warps split the 16-key
+  slices, window pieces with f32 partials, the chunk and its exact
+  diagonal in the last piece, the max-rescale joins, p as a hi/lo bf16
+  pair) against the plain version and the JAX lines, and the plan's
+  coverage properties.
 - ``verify_ragged`` (dense and int8) against JAX ``verify_ragged``: logits
   and the committed cache, with an inactive row and a row past capacity.
 - The port's engine with speculation against JAX ``generate_greedy``
@@ -250,60 +253,109 @@ def test_verify_at_one_position_is_the_decode_attention():
         np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None):
-    """The CUDA kernel's verify arithmetic in f64 torch: one query row a
-    block, each split's partial (m, l, acc) over its window run, then the
-    merge of one block a (slot, head, row): the chunk scores j <= s
-    (round-trip below the diagonal on the int8 window) joined with the
-    splits in one max-rescale.  A split past W has m = -inf, l = 0,
-    acc = 0."""
+def _slices(qs, segs, pos, ksplit, rnd):
+    """One block's piece in f64 torch, as ``csrc/chunk_attention.cuh``
+    runs it: pre-scaled queries ``qs [B, NKV, R, D]`` at chunk positions
+    ``pos [R]`` against segments ``(K, V, kscale, vscale, bias, chunk,
+    diag)`` (keys ``[B, NKV, N, ...]``; ``diag``: the exact diagonal's
+    scores ``[B, NKV, R]`` and V rows ``[B, NKV, R, D]``, or None), in
+    16-key slices; slice j of a segment goes to warp ``(j % 4) % ksplit``,
+    whose online softmax (running max, rescale) takes it.  ``rnd`` rounds
+    p (times the value scale) as P . V takes it.  Returns the warps'
+    ``(m, l, acc)``."""
+    b, nkv, r, d = qs.shape
+    states = [(torch.full((b, nkv, r), -1e30, dtype=torch.float64),
+               torch.zeros((b, nkv, r), dtype=torch.float64),
+               torch.zeros((b, nkv, r, d), dtype=torch.float64)) for _ in range(ksplit)]
+    for k, v, ksc, vsc, bias, chunk, diag in segs:
+        for k0 in range(0, k.shape[2], 16):
+            k1 = min(k.shape[2], k0 + 16)
+            x = torch.einsum("bnrd,bnkd->bnrk", qs, k[:, :, k0:k1]) * ksc[:, :, None, k0:k1]
+            if bias is not None:
+                x = x + bias[:, :, None, k0:k1]
+            key = torch.arange(k0, k1)
+            on_diag = (key[None, :] == pos[:, None]) & chunk & (diag is not None)
+            if diag is not None and chunk:
+                x = torch.where(on_diag, diag[0][..., None], x)
+            if chunk:
+                x = torch.where(key[None, :] <= pos[:, None], x, -torch.inf)
+            w = (k0 // 16 % 4) % ksplit
+            m, l, acc = states[w]
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            pv = rnd(torch.where(on_diag, 0.0, p * vsc[:, :, None, k0:k1]))
+            acc = acc * corr[..., None] + torch.einsum("bnrk,bnkd->bnrd", pv, v[:, :, k0:k1])
+            if diag is not None and chunk:
+                acc = acc + torch.where(on_diag, p, 0.0).sum(-1)[..., None] * diag[1]
+            states[w] = (m_new, l * corr + p.sum(-1), acc)
+    return states
+
+
+def _join(states):
+    """The max-rescale join of ``(m, l, acc)`` states (a row tile's warps,
+    or a row's pieces)."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    f = [torch.exp(s[0] - m) for s in states]
+    return (m, sum(s[1] * fi for s, fi in zip(states, f)),
+            sum(s[2] * fi[..., None] for s, fi in zip(states, f)))
+
+
+def _hi_lo(x):
+    """x as the kernel's P . V takes it: bf16(x) + bf16(x - bf16(x))."""
+    hi = x.to(torch.bfloat16).to(torch.float64)
+    return hi + (x - hi).to(torch.bfloat16).to(torch.float64)
+
+
+def _plan(b, nkv, r, w, splits=None):
+    """``tda.verify_plan``, with ``splits`` window pieces asked for."""
+    rows = tda.verify_plan(b, nkv, r, w).rows
+    return tda.verify_plan(b, nkv, r, w, None if splits is None
+                           else b * nkv * -(-r // rows) * splits)
+
+
+def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None, round_p=False):
+    """The bf16 verify kernel's algebra in f64 torch: the plan of
+    ``tda.verify_plan`` (``splits``: that many window pieces asked for),
+    each row group of ``plan.rows`` rows attending each window piece, the
+    last piece also the chunk (round-trip codes and scales below the
+    diagonal on the int8 window, the exact diagonal), through ``_slices``
+    with the 64 / rows warps of a row tile; the warps joined, then the
+    pieces.  ``round_p``: p enters P . V as the kernel's hi/lo bf16 pair."""
     q, k, v, kc, vc, mask = (torch.from_numpy(np.asarray(a, np.float64))
                              for a in (q, k, v, k_chunk, v_chunk, mask))
     b, nkv, r, d = q.shape
     s, w = kc.shape[2], k.shape[2]
     g = r // s
     quant = ks is not None
-    ksw = torch.from_numpy(np.asarray(ks, np.float64))[..., 0] if quant else torch.ones((b, nkv, w))
-    vsw = torch.from_numpy(np.asarray(vs, np.float64))[..., 0] if quant else torch.ones((b, nkv, w))
-    splits = splits or tda.num_splits(b, nkv * r, w)
-    chunk = tda.split_len(w, splits)
+    ones = torch.ones((b, nkv, w), dtype=torch.float64)
+    ksw = torch.from_numpy(np.asarray(ks, np.float64))[..., 0] if quant else ones
+    vsw = torch.from_numpy(np.asarray(vs, np.float64))[..., 0] if quant else ones
+    plan = _plan(b, nkv, r, w, splits)
     qs = q / d ** 0.5
-    out = torch.zeros((b, nkv, r, d), dtype=torch.float64)
     if quant:
         k8c, ksc = (x.to(torch.float64) for x in T._quant_kv(kc.to(torch.float32)))
         v8c, vsc = (x.to(torch.float64) for x in T._quant_kv(vc.to(torch.float32)))
-    for row in range(r):
-        qr = qs[:, :, row]
+        chunk_kv = (k8c, v8c, ksc[..., 0], vsc[..., 0])
+    else:
+        chunk_kv = (kc, vc, torch.ones((b, nkv, s), dtype=torch.float64),
+                    torch.ones((b, nkv, s), dtype=torch.float64))
+    out = torch.zeros((b, nkv, r, d), dtype=torch.float64)
+    rnd = _hi_lo if round_p else (lambda x: x)
+    for r0 in range(0, r, plan.rows):
+        rr = torch.arange(r0, min(r, r0 + plan.rows))
+        pos = rr // g
+        qr = qs[:, :, rr]
+        diag = ((qr * kc[:, :, pos]).sum(-1), vc[:, :, pos]) if quant else None
         parts = []
-        for i in range(splits):
-            lo, hi = i * chunk, min(w, (i + 1) * chunk)
-            if hi <= lo:
-                parts.append((torch.full((b, nkv), -torch.inf, dtype=torch.float64),
-                              torch.zeros((b, nkv)), torch.zeros((b, nkv, d))))
-                continue
-            sc = torch.einsum("bnd,bnwd->bnw", qr, k[:, :, lo:hi])
-            sc = sc * ksw[:, :, lo:hi] + mask[:, :, lo:hi]
-            m = sc.amax(-1)
-            p = torch.exp(sc - m[..., None])
-            acc = torch.einsum("bnw,bnwd->bnd", p * vsw[:, :, lo:hi], v[:, :, lo:hi])
-            parts.append((m, p.sum(-1), acc))
-        srow = row // g
-        keys = torch.stack([kc[:, :, j] if (not quant or j == srow)
-                            else k8c[:, :, j] * ksc[:, :, j] for j in range(srow + 1)], 2)
-        vals = torch.stack([vc[:, :, j] if (not quant or j == srow)
-                            else v8c[:, :, j] * vsc[:, :, j] for j in range(srow + 1)], 2)
-        cs = torch.einsum("bnd,bnjd->bnj", qr, keys)
-        mx = cs.amax(-1)
-        for m, _, _ in parts:
-            mx = torch.maximum(mx, m)
-        pj = torch.exp(cs - mx[..., None])
-        den = pj.sum(-1)
-        num = torch.einsum("bnj,bnjd->bnd", pj, vals)
-        for m, l, acc in parts:
-            f = torch.exp(m - mx)
-            den = den + l * f
-            num = num + acc * f[..., None]
-        out[:, :, row] = num / den[..., None]
+        for lo, hi, with_chunk in tda.verify_pieces(w, plan):
+            segs = [(k[:, :, lo:hi], v[:, :, lo:hi], ksw[:, :, lo:hi], vsw[:, :, lo:hi],
+                     mask[:, :, lo:hi], False, None)]
+            if with_chunk:
+                segs.append((*chunk_kv, None, True, diag))
+            parts.append(_join(_slices(qr, segs, pos, 64 // plan.rows, rnd)))
+        _, l, acc = _join(parts)
+        out[:, :, rr] = acc / l[..., None]
     return out
 
 
@@ -313,16 +365,21 @@ def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None):
                                           (65, 1, 4096, None), (2, 1, 4096, None),
                                           (5, 8, 1000, 7)])
 def test_kernel_tiles_splits_and_merge_match_the_plain_version(quant, S, G, W, splits):
-    """The kernel's split and merge algebra, one query row a block (a
-    row tile of 1; splits from ``num_splits`` over B x NKV x rows, or forced: a split
-    past W, a ragged last split), equals the plain version, lengths 0, 1,
-    W - 1 and on a split edge; 1e-5, the f32 summation-order tolerance of
-    the decode checks."""
+    """The bf16 kernel's algebra (row groups of 16 / 32 / 64 rows whose
+    warps split the 16-key slices, tile-aligned window pieces from
+    ``verify_plan`` or asked for: more pieces than tiles, a ragged last
+    piece, the chunk joined in the last) equals the plain version on f64
+    inputs to the f32 rounding of its scores and softmax (the reference's;
+    1e-5 relative, 1e-6 absolute), and with p as the hi/lo bf16 pair within 1e-5 of the f32 plain
+    version (the f32 summation-order tolerance of the decode checks), at
+    lengths 0, 1, W - 1 and on a piece edge."""
     B, NKV, D = 4, 2, 16
-    c = tda.split_len(W, splits or tda.num_splits(B, NKV * S * G, W))
+    c = _plan(B, NKV, S * G, W, splits).piece_len
     args = _verify_inputs(B, NKV, S, G, D, W, [0, 1, W - 1, min(c, W)], seed=W + S, quant=quant)
     q, k, v, kc, vc, mask, ks, vs = args
-    got = _verify_emulation(q, k, v, kc, vc, mask, ks, vs, splits).numpy()
+    exact = _verify_emulation(q, k, v, kc, vc, mask, ks, vs, splits).numpy()
+    np.testing.assert_allclose(exact, _port_verify(*args).numpy(), rtol=1e-5, atol=1e-6)
+    got = _verify_emulation(q, k, v, kc, vc, mask, ks, vs, splits, round_p=True).numpy()
     assert np.isfinite(got).all()
     f32 = [None if a is None else (a.astype(np.float32) if a.dtype == np.float64 else a)
            for a in args]
@@ -330,22 +387,65 @@ def test_kernel_tiles_splits_and_merge_match_the_plain_version(quant, S, G, W, s
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("S,G,W,splits", [(66, 1, 64, None), (40, 2, 130, 2),
+                                          (256, 1, 48, None), (128, 1, 200, 3)])
+def test_kernel_past_64_rows_matches_the_reference_lines(quant, S, G, W, splits):
+    """Past the old cap of 65 positions: several row groups of 64 rows a
+    (slot, head), each attending every piece, up to the prefill chunk
+    (256).  The f64 emulation against the JAX attention lines and the
+    plain version, both with f32 scores and softmax: 1e-5 relative and
+    absolute (chunk rows near the int8 clip hold values of 40)."""
+    B, NKV, D = 2, 2, 16
+    args = _verify_inputs(B, NKV, S, G, D, W, [0, W - 1], seed=S + W, quant=quant,
+                          near_clip=quant)
+    q, k, v, kc, vc, mask, ks, vs = args
+    got = _verify_emulation(q, k, v, kc, vc, mask, ks, vs, splits).numpy()
+    np.testing.assert_allclose(got, _port_verify(*args).numpy(), rtol=1e-5, atol=1e-5)
+    want = np.asarray(_jverify_chain(*(None if a is None else jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,nkv,r,w", [(4, 32, 5, 768), (4, 32, 65, 768), (4, 32, 256, 4096),
+                                       (1, 1, 1, 1), (3, 2, 17, 97), (8, 8, 520, 4096),
+                                       (2, 4, 33, 63), (4, 32, 2, 16)])
+@pytest.mark.parametrize("blocks", [None, 1, 7, 10_000])
+def test_verify_plan_covers_every_key_and_row_once(b, nkv, r, w, blocks):
+    """The plan's pieces cover the window's positions exactly once, in
+    whole 64-key tiles but the last, which is non-empty and alone attends
+    the chunk; its row groups cover the rows; it is a function of the
+    shapes (what the C call refuses otherwise: rows of 16 / 32 / 64, the
+    piece a multiple of 64, splits * piece >= W > (splits - 1) * piece)."""
+    plan = tda.verify_plan(b, nkv, r, w, blocks)
+    assert plan == tda.verify_plan(b, nkv, r, w, blocks)
+    assert plan.rows in tda.VERIFY_ROWS and plan.row_groups == -(-r // plan.rows)
+    assert (plan.row_groups - 1) * plan.rows < r <= plan.row_groups * plan.rows
+    assert plan.piece_len % tda.VERIFY_TILE == 0
+    assert plan.splits * plan.piece_len >= w > (plan.splits - 1) * plan.piece_len
+    pieces = tda.verify_pieces(w, plan)
+    covered = [p for lo, hi, _ in pieces for p in range(lo, hi)]
+    assert covered == list(range(w))
+    assert all(hi > lo for lo, hi, _ in pieces)
+    assert [c for _, _, c in pieces] == [False] * (len(pieces) - 1) + [True]
+
+
 def test_row_tile_and_refusals():
-    """The widest chunk the kernel takes, 65 positions x G 8 = 520 query
-    rows (one a block on the card), has its plain answer; more positions,
-    rows that are not S x G with G in 1, 2, 4, 8, and other head dims are
-    refused."""
+    """The widest chunk the kernel takes, 256 positions (the prefill
+    chunk) x G 8 = 2048 query rows, has its plain answer; 66 positions,
+    one past the old cap, is taken; more than 256 positions, rows that are
+    not S x G with G in 1, 2, 4, 8, and other head dims are refused."""
     t = lambda *sh: torch.zeros(sh)
     mask = torch.zeros((1, 1, 16))
-    q = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, 65 * 8, 16)))
     kv = torch.ones((1, 2, 16, 16), dtype=torch.float64)
-    chunk = torch.ones((1, 2, 65, 16), dtype=torch.float64)
-    out = tda.verify_attention_dense(q, kv, kv, chunk, chunk, mask)
-    assert out.shape == q.shape
-    torch.testing.assert_close(out, torch.ones_like(out))  # every value row is ones
+    for s, g in ((256, 8), (66, 1)):
+        q = torch.from_numpy(np.random.default_rng(s).standard_normal((1, 2, s * g, 16)))
+        chunk = torch.ones((1, 2, s, 16), dtype=torch.float64)
+        out = tda.verify_attention_dense(q, kv, kv, chunk, chunk, mask)
+        assert out.shape == q.shape
+        torch.testing.assert_close(out, torch.ones_like(out))  # every value row is ones
     for q, kc, needle in ((t(1, 2, 6, 16), t(1, 2, 4, 16), "query rows"),
                           (t(1, 2, 3 * 16, 16), t(1, 2, 3, 16), "query rows"),
-                          (t(1, 2, 66, 16), t(1, 2, 66, 16), "chunk positions"),
+                          (t(1, 2, 257, 16), t(1, 2, 257, 16), "chunk positions"),
                           (t(1, 2, 4, 24), t(1, 2, 4, 24), "takes D")):
         with pytest.raises(ValueError, match=needle):
             tda.verify_attention_dense(q, t(1, 2, 16, q.shape[-1]), t(1, 2, 16, q.shape[-1]),
