@@ -166,6 +166,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the bf16-window instance of the ragged kernel on a served path, its
    launches = 32 x packed forwards, and the packed answers' agreement with
    the serial ones.
+   5e: fused multi-step decode (``decode_steps``) and the fused sampling
+   kernel.  First the kernel (``ops/gumbel_argmax``: threefry split,
+   Gumbel noise and argmax in one pass) against its plain version at B 1,
+   4 and 32, V 32000 and 32001, the threefry seeds, on masked logits with
+   a row masked everywhere, a top-k row and a row of exact ties: the carry
+   keys bit-equal, every choice equal or scoring within GUMBEL_ULPS f32 ulp
+   of the plain one (the count of rows that differ is printed); its time,
+   device time and launches at B 4 and 32, V 32000, beside the plain
+   chain's and its bound, and the whole sampling step fused against the
+   plain chain.  Then on the bf16 tree (``quantize: none``, whole prompts)
+   and, after the quantization, on int8kv (chunks of 256): three servers
+   on one weight tree at ``decode_steps`` 1, 4 and 8 (the fused ones
+   capture one CUDA graph per window bucket and token rule at start: the
+   count, the seconds and the pool's bytes are printed); one replay of a
+   captured graph against one eager ``decode_multistep`` from the same
+   state (4 rows at lengths 5 / 130 / 700 / 1500, one row's budget ending
+   mid-block, greedy and sampled): the token block, ``valid``, lengths,
+   tokens, keys and the committed K/V rows bit-equal, and one more replay
+   of each graph under the profiler launching exactly the kernels its
+   capture recorded (the counts each replay adds to the launch counters:
+   32K decode attention, 65K RMSNorm, K sampling kernels sampled); then in
+   turns (1, 4,
+   8, then 8, 4, 1, ...) MS_REPEATS times one request alone (5 + 24
+   tokens) and four concurrent ones (17/130/300/700 + 24, one sampled);
+   at each K a seeded stream equal to the same request without stream and
+   four seeded streams at once (ITL p50 / p99 from the events' arrival,
+   TTFT); the launch identities over every request, replays counted
+   (decode attention = 32 x (decode ticks + K x multistep dispatches),
+   RMSNorm = 65 x those forwards and the prefills, flash = 32 x prefill
+   forwards, the sampling kernel = the engines' sampling steps);
+   ``/metrics``' multistep dispatches equal to the engines' and ITL
+   observations that are not all 0; the idle share of one 5 + 16-token
+   request at each K; peak memory; and the greedy tokens' and the seeded
+   stream's agreement with K = 1 (reported: the wider pre-picked window
+   changes the decode kernel's split and can flip bf16 near-ties).
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -3394,6 +3429,541 @@ def phase_serve_7b_dense(da, rn, fa, smi: str, params, quantize: str,
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: fused multi-step decode (CUDA graphs) and the sampling kernel
+# ---------------------------------------------------------------------------
+
+# A choice of the sampling kernel that differs from its plain version's must
+# score within this many f32 ulp of it: the kernel's Gumbel is the device's
+# logf of a bit-equal uniform, two logs each within an ulp or two.
+GUMBEL_ULPS = 4
+# The H100's int32 issue rate: 64 of the 128 f32 lanes an SM, one operation
+# a clock against the f32 rate's two (F32_FLOPS counts a fused multiply-add).
+INT32_OPS = F32_FLOPS / 4
+# Integer operations an element of the sampling kernel issues
+# (csrc/sampling.cu): the counter's add into the key, 20 threefry rounds of
+# an add, a rotate and a xor, five key injections of two adds, and the xor,
+# shift and or of the uniform's bits.  Its two logs are f32 work (a
+# polynomial each) on the f32 lanes, of which an SM has twice as many, and
+# are left out of the bound.
+GUMBEL_OPS = 1 + 20 * 3 + 5 * 2 + 3
+MS_STEPS = (1, 4, 8)  # decode_steps served in turns
+MS_REPEATS = 3
+MS_NEW = 24  # new tokens a request
+
+
+def _call_cost(fn, iters: int = 50) -> dict:
+    """Device ms and launches a call (profiler), the host's enqueue ms and
+    the synchronized wall ms a call."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    for _ in range(2):  # a profiler window now and then comes back empty
+        launches: dict[str, int] = {}
+        by_kernel, _ = profile_device(fn, iters=20, launches=launches)
+        if by_kernel:
+            break
+    return {"device_ms": sum(by_kernel.values()) / 20,
+            "launches": sum(launches.values()) / 20, "host_ms": host_ms, "wall_ms": wall_ms}
+
+
+def _gumbel_logits(B: int, V: int, seed: int):
+    """Masked logits as a sampling step hands them over: random rows, a
+    row masked everywhere (-1e30), a top-k row (all but 50 masked) and a
+    row of exact ties."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, V, device="cuda", generator=gen) * 3
+    x[0] = -1e30
+    if B > 1:
+        x[1, 50:] = -1e30
+    if B > 2:
+        x[2] = 0.25
+    return x
+
+
+def phase_gumbel_argmax(ga, prng, sampling) -> dict:
+    """The fused sampling kernel against its plain version at B 1 / 4 / 32
+    and V 32000 / 32001, the seeds of ``_prng_checks``: carry keys
+    bit-equal, choices equal or within GUMBEL_ULPS of the plain scores.
+    Then its time, the plain chain's and the bound at B 4 and 32, V 32000,
+    and the whole sampling step fused against the plain chain."""
+    import numpy as np
+    import torch
+
+    checks = differ = 0
+    worst_ulp = max_abs = 0.0
+    for B in (1, 4, 32):
+        for V in (32000, 32001):
+            for seed in PRNG_SEEDS:
+                x = _gumbel_logits(B, V, seed % 2**31 + B)
+                keys = prng.split(prng.key(seed, "cuda"), B)
+                carry, choice = ga.gumbel_argmax(x, keys)
+                ref_carry, ref_choice = ga.gumbel_argmax_reference(x, keys)
+                if not torch.equal(carry, ref_carry):
+                    raise AssertionError(f"gumbel_argmax carry keys differ at B{B} V{V} seed {seed}")
+                scores = x + prng.gumbel(prng.split(keys, 2)[:, 1], (V,))
+                got = scores.gather(1, choice[:, None])[:, 0].cpu().numpy()
+                want = scores.gather(1, ref_choice[:, None])[:, 0].cpu().numpy()
+                ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32))
+                err = np.abs(got - want) / ulp
+                rows = int((choice != ref_choice).sum())
+                if float(err.max()) > GUMBEL_ULPS:
+                    raise AssertionError(f"gumbel_argmax chose a score {float(err.max())} ulp "
+                                         f"from the plain choice at B{B} V{V} seed {seed}")
+                if B > 2 and not (int(choice[0]) == 0 and int(choice[1]) < 50):
+                    raise AssertionError(f"gumbel_argmax masked rows chose {choice[:2].tolist()}")
+                differ += rows
+                worst_ulp = max(worst_ulp, float(err.max()))
+                max_abs = max(max_abs, float(np.abs(got - want).max()))
+                checks += 1
+    log(f"gumbel_argmax: {checks} checks (B 1/4/32, V 32000/32001, seeds {PRNG_SEEDS}): carry "
+        f"keys bit-equal; {differ} rows chose another index than the plain version, within "
+        f"{worst_ulp:.2f} ulp (max abs {max_abs:.3g})")
+    timing = {}
+    for B in (4, 32):
+        V = 32000
+        x = _gumbel_logits(B, V, B)
+        keys = prng.split(prng.key(1234, "cuda"), B)
+        temps = torch.full((B,), 0.8, device="cuda")
+        topk = torch.full((B,), 50, dtype=torch.int32, device="cuda")
+        topp = torch.full((B,), 0.95, device="cuda")
+        logits = torch.randn(B, V, device="cuda") * 3
+        kernel = _call_cost(lambda: ga.gumbel_argmax(x, keys))
+        plain = _call_cost(lambda: ga.gumbel_argmax_reference(x, keys))
+        ms = cuda_time_ms(lambda: ga.gumbel_argmax(x, keys))
+        plain_ms = cuda_time_ms(lambda: ga.gumbel_argmax_reference(x, keys))
+        dev = kernel_device_ms(lambda: ga.gumbel_argmax(x, keys), "gumbel_argmax")
+
+        def plain_step():
+            carry, use = sampling.split_keys(keys)
+            return carry, sampling.sample_logits(logits, use, temps, topk, topp)
+
+        fused_step = _call_cost(lambda: sampling.sample_chain_step(logits, keys, temps, topk, topp))
+        plain_chain_step = _call_cost(plain_step)
+        b_ms, b_by = bound(B * V * 4 + B * 16 * 2 + B * 8, B * V * GUMBEL_OPS, INT32_OPS)
+        timing[f"b{B}"] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "kernel": kernel, "plain": plain,
+                           "fused_step": fused_step, "plain_step": plain_chain_step}
+        log(f"gumbel_argmax B{B} V{V}: {ms:.4f} ms ({dev} device, {kernel['launches']:.0f} "
+            f"launches, host {kernel['host_ms']:.3f} ms); plain chain {plain_ms:.4f} ms "
+            f"({plain['device_ms']:.4f} device, {plain['launches']:.0f} launches, host "
+            f"{plain['host_ms']:.3f} ms); bound {b_ms:.5f} ms ({b_by}); the sampling step fused "
+            f"{fused_step['device_ms']:.4f} device ms, {fused_step['launches']:.0f} launches, "
+            f"host {fused_step['host_ms']:.3f} ms, against the plain chain "
+            f"{plain_chain_step['device_ms']:.4f} / {plain_chain_step['launches']:.0f} / "
+            f"{plain_chain_step['host_ms']:.3f}")
+    res = {"checks": checks, "rows_differ": differ, "worst_ulp": worst_ulp,
+           "max_abs_err": max_abs, "timing": timing}
+    DETAIL["gumbel_argmax"] = res
+    return res
+
+
+# The kernel each launch counter of a graph stands for: one launch of the
+# named kernel a counted wrapper call (the sampling wrapper launches its
+# partial and its merge kernel once each).
+REPLAY_KERNELS = (("decode_attention", "decode_attention_kernel"),
+                  ("rmsnorm", "rmsnorm_kernel"),
+                  ("flash_attention", "flash_attention_kernel_bf16"),
+                  ("flash_attention", "flash_attention_kernel_f32"),
+                  ("gumbel_argmax", "gumbel_argmax_partial_kernel"),
+                  ("gumbel_argmax", "gumbel_argmax_merge_kernel"))
+
+
+def _replay_launches(prog, window: int, sampling: bool, load, tries: int = 3) -> dict:
+    """The launches of each kernel the profiler sees in one replay of the
+    ``(window, sampling)`` graph, against the counts the program recorded
+    at its capture (and adds at every replay): they must be equal.  A
+    profiler window now and then misses launches, so a replay that shows
+    fewer is profiled again, up to ``tries`` times; one that shows more
+    fails at once.  ``load`` puts the burst state back before each try."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, deltas = prog.graphs[(window, sampling)]
+    recorded = {m.__name__.rsplit(".", 1)[-1]: n for m, n in deltas.items()}
+    seen: dict[str, int] = {}
+    for _ in range(tries):
+        load()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prog.harvest(prog.dispatch(window, sampling))
+            torch.cuda.synchronize()
+        seen = {name: 0 for _, name in REPLAY_KERNELS}
+        for evt in prof.key_averages():
+            for _, name in REPLAY_KERNELS:
+                if re.search(rf"\b{name}\s*[<(]", evt.key):
+                    seen[name] += evt.count
+        diff = {name: (seen[name], recorded[mod]) for mod, name in REPLAY_KERNELS
+                if seen[name] != recorded[mod]}
+        if not diff:
+            return {"recorded": recorded, "profiled": seen}
+        if any(got > want for got, want in diff.values()):
+            break
+    raise AssertionError(f"one replay of graph (window {window}, sampling {sampling}) launched "
+                         f"(profiled, recorded at capture) {diff}")
+
+
+def _graph_vs_eager(engine, prng, lengths=(5, 130, 700, 1500)) -> dict:
+    """One replay of the engine's captured (K, window) graph against one
+    eager ``decode_multistep`` from the same state, greedy and sampled:
+    ``tok_block``, ``valid``, lengths, tokens, keys and the committed K/V
+    rows must be bit-equal.  Then one more replay of each of the two
+    graphs under the profiler: the kernels it launches must be the counts
+    recorded at capture, which every replay adds to the launch counters,
+    and those counts must be K decode steps' (L decode attention, 2L + 1
+    RMSNorm and, sampled, one sampling kernel a step).  Run on an engine
+    that has served nothing (its scheduler never touches the program),
+    over cache rows filled with random values; the written rows are put
+    back after each run."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    prog = engine._program
+    K = prog.steps
+    cache = engine._cache
+    bufs = [t for t in cache[:-1]]
+    gen_rand = torch.Generator(device="cuda").manual_seed(5)
+    span = max(lengths) + K
+    for t in bufs:
+        if t.dtype == torch.int8:
+            t[:, :, :, :span] = torch.randint(-127, 128, t[:, :, :, :span].shape, device="cuda",
+                                              dtype=torch.int8, generator=gen_rand)
+        else:
+            scale = 0.01 if t.shape[-1] == 1 else 0.5  # int8 scales, or bf16 K/V
+            t[:, :, :, :span] = (torch.randn(t[:, :, :, :span].shape, device="cuda",
+                                             generator=gen_rand) * scale).to(t.dtype)
+    B = len(lengths)
+    gen = import_module(f"{PKG}.server.generation")
+    window = gen.decode_window_bucket(min(max(lengths) + K - 1, engine.capacity), engine.capacity)
+    state = dict(
+        tokens=torch.tensor([[11], [222], [3333], [4444]], device="cuda"),
+        lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+        keys=prng.split(prng.key(99, "cuda"), B).contiguous(),
+        temps=torch.tensor([0.8, 0.0, 1.0, 0.7], device="cuda"),
+        topk=torch.tensor([50, 0, 0, 5], dtype=torch.int32, device="cuda"),
+        topp=torch.tensor([0.95, 1.0, 0.9, 1.0], device="cuda"))
+    host = dict(active_np=np.ones(B, bool), remaining_np=np.array([100, 2, 100, 100], np.int32),
+                eos_np=np.full(B, -1, np.int32))
+
+    def rows():
+        return [t[:, b, :, n:n + K].clone() for t in bufs for b, n in enumerate(lengths)]
+
+    def put(saved):
+        i = 0
+        for t in bufs:
+            for b, n in enumerate(lengths):
+                t[:, b, :, n:n + K] = saved[i]
+                i += 1
+
+    out = {}
+    for sampling in (False, True):
+        before = rows()
+        prog.load(**state, **host)
+        tok_g, valid_g = prog.harvest(prog.dispatch(window, sampling))
+        graph = (rows(), prog.lengths.clone(), prog.tokens.clone(), prog.keys.clone())
+        put(before)
+        prog.load(**state, **host)
+        prog._run(window, sampling)
+        torch.cuda.synchronize()
+        tok_e, valid_e = prog.tok_block.cpu().numpy(), prog.valid.cpu().numpy()
+        eager = (rows(), prog.lengths.clone(), prog.tokens.clone(), prog.keys.clone())
+        put(before)
+        same = (np.array_equal(tok_g, tok_e) and np.array_equal(valid_g, valid_e)
+                and all(torch.equal(a, b) for a, b in zip(graph[0], eager[0]))
+                and all(torch.equal(a, b) for a, b in zip(graph[1:], eager[1:])))
+        if not same:
+            raise AssertionError(f"replay and eager decode_multistep differ (sampling "
+                                 f"{sampling}): tokens {tok_g.tolist()} / {tok_e.tolist()}, "
+                                 f"valid {valid_g.tolist()} / {valid_e.tolist()}")
+        if valid_g.tolist() != [K, min(K, 2), K, K]:
+            raise AssertionError(f"valid {valid_g.tolist()} at K {K}")
+        counted = _replay_launches(prog, window, sampling, lambda: prog.load(**state, **host))
+        put(before)
+        L = prog._cfg.num_layers
+        steps = {"decode_attention": L * K, "rmsnorm": (2 * L + 1) * K, "flash_attention": 0,
+                 "gumbel_argmax": K if sampling else 0}
+        if counted["recorded"] != steps:
+            raise AssertionError(f"graph (window {window}, sampling {sampling}) recorded "
+                                 f"{counted['recorded']} launches a replay, not {steps}")
+        out["sampled" if sampling else "greedy"] = {"tok_block": tok_g.tolist(),
+                                                    "valid": valid_g.tolist(),
+                                                    "replay_launches": counted}
+    out["window"] = window
+    return out
+
+
+def _settle(engines, replays0, timeout: float = 60.0) -> None:
+    """Wait until every fused dispatch has been harvested (a burst's last
+    harvest may follow the answer of its last request)."""
+    deadline = time.time() + timeout
+    for e in engines:
+        prog = e._program
+        if prog is None:
+            continue
+        while (e.dispatches_total.get("multistep", 0) - replays0[e][1]
+               != prog.replays - replays0[e][0]):
+            if time.time() > deadline:
+                raise AssertionError("a fused dispatch was never harvested")
+            time.sleep(0.005)
+
+
+def phase_serve_7b_multistep(da, rn, fa, ga, smi: str, params, quantize: str,
+                             prefill_chunk: int | None) -> dict:
+    """Llama-2-7B served at ``decode_steps`` 1, 4 and 8 (three servers on
+    one weight tree, driven in turns): graph replay against the eager call,
+    tok/s alone and four concurrent, TTFT, SSE ITL over four seeded
+    streams, the idle share of one request, the graphs' count, capture
+    seconds and pool bytes, peak memory, ``/metrics``, the launch
+    identities with replays counted, and token agreement against K = 1."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    prng = import_module(f"{PKG}.models.prng")
+    app = import_module(f"{PKG}.server.app")
+    gen = import_module(f"{PKG}.server.generation")
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    L = cfg.num_layers
+    tag = f"7B multistep {quantize}"
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    path = "/v2/models/llama2-7b/generate"
+    servers: dict[int, dict] = {}
+    graph_eager: dict[int, dict] = {}
+    try:
+        for K in MS_STEPS:
+            config = app.ServerConfig(model_name="llama2-7b", host="127.0.0.1", port=0,
+                                      quantize=quantize, max_slots=4,
+                                      prefill_chunk=prefill_chunk, device="cuda",
+                                      decode_steps=K)
+            alloc0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            srv = app.build_server(predictor, config)
+            build_s = time.perf_counter() - t0
+            prog = srv.engine._program
+            if K > 1:
+                graph_eager[K] = _graph_vs_eager(srv.engine, prng)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            port = srv.server_address[1]
+            servers[K] = {
+                "srv": srv, "th": th, "port": port, "engine": srv.engine,
+                "base": f"http://127.0.0.1:{port}", "url": f"http://127.0.0.1:{port}{path}",
+                "build_s": build_s, "graphs": len(prog.graphs) if prog else 0,
+                "capture_s": prog.capture_s if prog else 0.0,
+                "pool_bytes": prog.pool_bytes() if prog else 0,
+                "alloc_gib": (torch.cuda.memory_allocated() - alloc0) / 2**30,
+            }
+            buckets = gen.decode_window_buckets(srv.engine.capacity)
+            if K > 1 and len(prog.graphs) != 2 * len(buckets):
+                raise AssertionError(f"{tag}: {len(prog.graphs)} graphs at K {K}")
+            log(f"{tag}: server K={K} built in {build_s:.1f} s; {servers[K]['graphs']} graphs "
+                f"captured in {servers[K]['capture_s']:.2f} s, pool "
+                f"{servers[K]['pool_bytes'] / 2**20:.1f} MiB; the server's allocations "
+                f"{servers[K]['alloc_gib']:.2f} GiB")
+        peak_built = torch.cuda.max_memory_allocated() / 2**30
+        for K in MS_STEPS:
+            _post(servers[K]["url"], {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up
+        log(f"{tag}: one replay equals one eager decode_multistep (tokens, valid, lengths, "
+            f"tokens out, keys, committed K/V rows; lengths 5/130/700/1500, greedy and "
+            f"sampled) at K {sorted(graph_eager)}; the profiler saw a replay launch the "
+            f"kernels recorded at its capture: " + "; ".join(
+                f"K {K} {mode} {graph_eager[K][mode]['replay_launches']['profiled']}"
+                for K in sorted(graph_eager) for mode in ("greedy", "sampled")))
+
+        rng = np.random.default_rng(29)
+        V = cfg.vocab_size
+        single_prompt = rng.integers(1, V, 5).tolist()
+        lens = (17, 130, 300, 700)
+        prompts = [rng.integers(1, V, n).tolist() for n in lens]
+        bodies = [{"prompt_ids": p, "max_new_tokens": MS_NEW} for p in prompts]
+        bodies[1].update(temperature=0.8, top_k=40, top_p=0.95, seed=7)
+        seeded = {"prompt_ids": rng.integers(1, V, 24).tolist(), "max_new_tokens": MS_NEW,
+                  "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 1234}
+        engines = [servers[K]["engine"] for K in MS_STEPS]
+        base0 = {e: (e._program.replays if e._program else 0,
+                     e.dispatches_total.get("multistep", 0)) for e in engines}
+        disp0 = {e: dict(e.dispatches_total) for e in engines}
+        pre0 = {e: e.prefill_forwards for e in engines}
+        samp0 = {e: e.sample_steps for e in engines}
+        tok0 = {e: e.tokens_generated for e in engines}
+        scrape0 = {K: _scrape(servers[K]["base"]) for K in MS_STEPS}
+        da.launches = rn.launches = fa.launches = ga.launches = 0
+
+        runs = {K: {"single_tok_s": [], "conc_tok_s": [], "ttft_ms": [], "single": [],
+                    "conc": []} for K in MS_STEPS}
+        for r in range(MS_REPEATS):
+            for K in (MS_STEPS if r % 2 == 0 else MS_STEPS[::-1]):
+                s, run = servers[K], runs[K]
+                ttfts: list[float] = []
+                metric_ttft = s["engine"].on_ttft
+                s["engine"].on_ttft = lambda x, m=metric_ttft, t=ttfts: (t.append(x), m(x))
+                t0 = time.perf_counter()
+                single = _check_outputs(_post(s["url"], {"prompt_ids": single_prompt,
+                                                         "max_new_tokens": MS_NEW}),
+                                        [MS_NEW], V)[0]
+                run["single_tok_s"].append(MS_NEW / (time.perf_counter() - t0))
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(4) as pool:
+                    resps = list(pool.map(lambda b, u=s["url"]: _post(u, b), bodies))
+                run["conc_tok_s"].append(MS_NEW * len(lens) / (time.perf_counter() - t0))
+                s["engine"].on_ttft = metric_ttft
+                run["ttft_ms"].append([t * 1e3 for t in ttfts])
+                run["single"].append(single)
+                run["conc"].append([_check_outputs(x, [MS_NEW], V)[0] for x in resps])
+
+        streams = {}
+        for K in MS_STEPS:
+            s = servers[K]
+            streamed = _sse(s["port"], path, seeded)
+            plain = _check_outputs(_post(s["url"], seeded), [MS_NEW], V)[0]
+            if streamed["tokens"] != plain:
+                raise AssertionError(f"{tag} K={K}: the seeded stream {streamed['tokens'][:8]} "
+                                     f"differs from the answer without stream {plain[:8]}")
+            with ThreadPoolExecutor(4) as pool:
+                four = list(pool.map(lambda i, p=s["port"]: _sse(p, path,
+                                                                 {**seeded, "seed": 1234 + i}),
+                                     range(4)))
+            itl = np.concatenate([np.diff(st["times"]) for st in four])
+            streams[K] = {"tokens": plain, "ttft_ms": (streamed["times"][0]
+                                                       - streamed["t_send"]) * 1e3,
+                          "itl_p50_ms": _percentile_ms(itl, 50),
+                          "itl_p99_ms": _percentile_ms(itl, 99), "itl_n": len(itl),
+                          "ttft4_ms": [(st["times"][0] - st["t_send"]) * 1e3 for st in four]}
+        torch.cuda.synchronize()
+        _settle(engines, base0)
+
+        # Launch identities over every request since the reset, replays counted.
+        decodes = ms_steps = prefills = samples = 0
+        per_k = {}
+        for K, e in zip(MS_STEPS, engines):
+            d = e.dispatches_total.get("decode", 0) - disp0[e].get("decode", 0)
+            m = e.dispatches_total.get("multistep", 0) - disp0[e].get("multistep", 0)
+            p = e.prefill_forwards - pre0[e]
+            decodes, ms_steps, prefills = decodes + d, ms_steps + K * m, prefills + p
+            samples += e.sample_steps - samp0[e]
+            # the first token of each request comes from its prefill
+            decoded = e.tokens_generated - tok0[e] - (5 * MS_REPEATS + 6)
+            per_k[K] = {"decode": d, "multistep": m, "prefill": p,
+                        "tokens_per_dispatch": decoded / max(1, d + m)}
+            if (K > 1) != (m > 0):
+                raise AssertionError(f"{tag} K={K}: {m} multistep dispatches")
+        if da.launches != L * (decodes + ms_steps):
+            raise AssertionError(f"{tag}: decode attention launched {da.launches} times for "
+                                 f"{decodes} decode ticks + {ms_steps} fused steps")
+        if rn.launches != (2 * L + 1) * (decodes + ms_steps + prefills):
+            raise AssertionError(f"{tag}: rmsnorm launched {rn.launches} times for "
+                                 f"{decodes + ms_steps + prefills} forwards")
+        if fa.launches != L * prefills:
+            raise AssertionError(f"{tag}: flash attention launched {fa.launches} times for "
+                                 f"{prefills} prefill forwards")
+        if ga.launches != samples or samples == 0:
+            raise AssertionError(f"{tag}: gumbel_argmax launched {ga.launches} times for "
+                                 f"{samples} sampling steps")
+        launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches, "ga": ga.launches}
+        log(f"{tag}: launches with replays counted: decode attention {da.launches} (= {L} x "
+            f"({decodes} + {ms_steps})), rmsnorm {rn.launches} (= {2 * L + 1} x "
+            f"{decodes + ms_steps + prefills}), flash {fa.launches} (= {L} x {prefills}), "
+            f"gumbel_argmax {ga.launches} (= {samples} sampling steps); by K {per_k}")
+
+        # /metrics: the multistep dispatches and the ITL observations.
+        metrics = {}
+        for K in MS_STEPS:
+            s, e = servers[K], servers[K]["engine"]
+            sc = _scrape(s["base"])
+            m_disp = (_value(sc, "tpumlops_engine_dispatches_total", op="multistep")
+                      - _value(scrape0[K], "tpumlops_engine_dispatches_total", op="multistep"))
+            itl_n = (_value(sc, "tpumlops_itl_seconds_count")
+                     - _value(scrape0[K], "tpumlops_itl_seconds_count"))
+            itl_sum = (_value(sc, "tpumlops_itl_seconds_sum")
+                       - _value(scrape0[K], "tpumlops_itl_seconds_sum"))
+            if m_disp != per_k[K]["multistep"]:
+                raise AssertionError(f"{tag} K={K}: /metrics multistep {m_disp}, engine "
+                                     f"{per_k[K]['multistep']}")
+            if itl_n == 0 or itl_sum <= 0:
+                raise AssertionError(f"{tag} K={K}: ITL observations {itl_n}, sum {itl_sum}")
+            metrics[K] = {"multistep": m_disp, "itl_n": itl_n, "itl_mean_ms": itl_sum / itl_n * 1e3}
+
+        # Device idle share of one 5 + 16-token request at each K.
+        idle = {}
+        body16 = {"prompt_ids": single_prompt, "max_new_tokens": 16}
+        for K in MS_STEPS:
+            url = servers[K]["url"]
+            t0 = time.perf_counter()
+            _post(url, body16)
+            wall = (time.perf_counter() - t0) * 1e3
+            prof, prof_wall = profile_device(lambda u=url: _post(u, body16), iters=1)
+            busy = sum(prof.values())
+            idle[K] = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+                       "profile_wall_ms": prof_wall,
+                       "top": sorted(prof.items(), key=lambda kv: -kv[1])[:6]}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def agree(a, b):
+            return float(np.mean([x == y for x, y in zip(a, b)]))
+
+        res = {"quantize": quantize, "graph_vs_eager": graph_eager, "launches": launches,
+               "per_k": per_k, "metrics": metrics, "peak_gib": peak, "peak_built_gib": peak_built,
+               "by_k": {}}
+        for K in MS_STEPS:
+            run, s = runs[K], servers[K]
+            greedy = [run["single"][0]] + [c for i, c in enumerate(run["conc"][0]) if i != 1]
+            base = [runs[1]["single"][0]] + [c for i, c in enumerate(runs[1]["conc"][0])
+                                              if i != 1]
+            st = streams[K]
+            by = {
+                "single_tok_s": run["single_tok_s"], "conc_tok_s": run["conc_tok_s"],
+                "ttft_ms": run["ttft_ms"], "stream": {k: v for k, v in st.items()
+                                                      if k != "tokens"},
+                "idle": idle[K], "graphs": s["graphs"], "capture_s": s["capture_s"],
+                "pool_bytes": s["pool_bytes"], "alloc_gib": s["alloc_gib"],
+                "multistep": per_k[K]["multistep"], "decode": per_k[K]["decode"],
+                "tokens_per_dispatch": per_k[K]["tokens_per_dispatch"],
+                "agreement_vs_k1": agree(sum(greedy, []), sum(base, [])),
+                "seeded_agreement_vs_k1": agree(st["tokens"], streams[1]["tokens"]),
+                "repeats_equal": all(x == run["single"][0] for x in run["single"]),
+            }
+            res["by_k"][K] = by
+            log(f"{tag} K={K}: single 5+{MS_NEW} tok/s {[round(x, 2) for x in by['single_tok_s']]}; "
+                f"4 concurrent (17/130/300/700 + {MS_NEW}) tok/s "
+                f"{[round(x, 2) for x in by['conc_tok_s']]}; TTFT ms (first repeat) "
+                f"{[round(t, 1) for t in run['ttft_ms'][0]]}; SSE 4 streams ITL p50 "
+                f"{st['itl_p50_ms']:.2f} p99 {st['itl_p99_ms']:.2f} ms over {st['itl_n']} gaps, "
+                f"TTFT {st['ttft_ms']:.1f} ms; idle share {idle[K]['idle_share']:.3f} "
+                f"(busy {idle[K]['busy_ms']:.1f} of {idle[K]['wall_ms']:.1f} ms); dispatches "
+                f"decode {per_k[K]['decode']} multistep {per_k[K]['multistep']} "
+                f"({by['tokens_per_dispatch']:.2f} tokens a dispatch); "
+                f"/metrics ITL mean {metrics[K]['itl_mean_ms']:.2f} ms over "
+                f"{metrics[K]['itl_n']:.0f}; agreement with K=1 {by['agreement_vs_k1']:.3f} "
+                f"(greedy), {by['seeded_agreement_vs_k1']:.3f} (seeded stream)")
+            for name, ms_ in idle[K]["top"][:4]:
+                log(f"  {ms_:9.3f} ms  {name[:110]}")
+        log(f"{tag}: peak {peak:.2f} GiB ({peak_built:.2f} after building the three "
+            f"servers) on {smi}")
+        DETAIL[f"serve_7b_multistep_{quantize}"] = res
+        return res
+    finally:
+        for s in servers.values():
+            s["srv"].shutdown_all()
+            s["th"].join(timeout=30)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: BERT-base at full width over /v2/models/{name}/infer
 # ---------------------------------------------------------------------------
 
@@ -3641,6 +4211,10 @@ def main() -> int:
     log(f"7B: random bf16 weights drawn on the card in {time.perf_counter() - t0:.1f} s")
     dense = {"none": phase_serve_7b_dense(da, rn, fa, smi, params, "none", None)}
     packed_none = phase_serve_7b_packed_none(da, rn, fa, smi, params)
+    ga = import_module(f"{PKG}.ops.gumbel_argmax")
+    ga_res = phase_gumbel_argmax(ga, import_module(f"{PKG}.models.prng"),
+                                 import_module(f"{PKG}.models.sampling"))
+    multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ga, smi, params, "none", None)}
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
@@ -3651,6 +4225,7 @@ def main() -> int:
     serve = phase_serve_7b(da, rn, fa, smi, params)
     spec = phase_serve_7b_spec(da, rn, fa, smi, params)
     packed = phase_serve_7b_packed(da, rn, fa, smi, params)
+    multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ga, smi, params, "int8kv", 256)
     del params
     torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
@@ -3668,21 +4243,24 @@ def main() -> int:
          "also_replaces": f"{jax_pkg}/ops/decode_attention.py:173",
          "launches": (serve["da_launches"] + spec["da_launches"] + packed["da_launches"]
                       + packed_none["da_launches"]
-                      + sum(r["da_launches"] for r in dense.values())),
+                      + sum(r["da_launches"] for r in dense.values())
+                      + sum(r["launches"]["da"] for r in multistep.values())),
          **da_res},
         {"name": "rmsnorm", "route": "cuda",
          "source": f"{PKG}/csrc/rmsnorm.cu",
          "replaces": f"{jax_pkg}/ops/rmsnorm.py:24",
          "launches": (serve["rn_launches"] + spec["rn_launches"] + packed["rn_launches"]
                       + packed_none["rn_launches"]
-                      + sum(r["rn_launches"] for r in dense.values())),
+                      + sum(r["rn_launches"] for r in dense.values())
+                      + sum(r["launches"]["rn"] for r in multistep.values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
          "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
          "launches": (sum(r["flash_launches"] for r in bert.values()) + serve["fa_launches"]
                       + spec["fa_launches"] + packed["fa_launches"] + packed_none["fa_launches"]
-                      + sum(r["fa_launches"] for r in dense.values())),
+                      + sum(r["fa_launches"] for r in dense.values())
+                      + sum(r["launches"]["fa"] for r in multistep.values())),
          **fa_res},
         *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
            "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
@@ -3695,6 +4273,15 @@ def main() -> int:
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},
+        {"name": "gumbel_argmax", "route": "cuda", "source": f"{PKG}/csrc/sampling.cu",
+         # not a Pallas port: the XLA sampling step it stands in for
+         "replaces": f"{jax_pkg}/models/sampling.py:125",
+         "launches": sum(r["launches"]["ga"] for r in multistep.values()),
+         "max_abs_err": ga_res["max_abs_err"], "shape": "B=32 V=32000 f32 masked logits",
+         "ms": ga_res["timing"]["b32"]["ms"], "device_ms": ga_res["timing"]["b32"]["device_ms"],
+         "plain_ms": ga_res["timing"]["b32"]["plain_ms"],
+         "bound_ms": ga_res["timing"]["b32"]["bound_ms"],
+         "bound_by": ga_res["timing"]["b32"]["bound_by"], "library_ms": None},
     ]
     DETAIL["kernels"] = kernels
     DETAIL["wall_s"] = time.perf_counter() - t_start

@@ -26,7 +26,9 @@ instance of the decode kernel for self-speculative verify (one launch per
 layer per verify forward); and the ragged instance of the flash kernel
 for packed multi-admission prefill (one launch per layer per packed
 forward: each packed row's chunk against the window of its cache row, int8
-or bf16, and its own causal keys).  The int8 position-major cache of
+or bf16, and its own causal keys).  ``decode_multistep`` chains K
+``decode_ragged`` steps with no host sync, so the engine captures it as
+one CUDA graph (``server/cuda_graphs.py``).  The int8 position-major cache of
 ``_block`` (no engine caller, here or in the JAX package) keeps the
 reference's einsum chain.
 """
@@ -581,6 +583,61 @@ def decode_ragged(
         params, x, torch.stack(k_news), torch.stack(v_news), cache, lengths,
         active, quant, cfg,
     )
+
+
+def decode_multistep(
+    params: dict,
+    token_ids: torch.Tensor,
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    cfg: LlamaConfig,
+    active: torch.Tensor,
+    remaining: torch.Tensor,
+    eos_ids: torch.Tensor,
+    steps: int,
+    sample_fn,
+    sample_carry=None,
+    dtype=torch.bfloat16,
+    window: int | None = None,
+):
+    """``steps`` (K) decode iterations chained on the device: the
+    reference's ``lax.scan`` is a Python loop over :func:`decode_ragged`,
+    each step's drawn token feeding the next step's embedding.  The body
+    reads no tensor value on the host (no ``.item()``, no branch on a
+    value), so the whole call can be captured as one CUDA graph.
+
+    ``token_ids`` ``[B, 1]`` is each row's pending token (emitted, not
+    yet fed); ``active`` bool ``[B]``; ``remaining`` int32 ``[B]`` each
+    row's budget of new tokens; ``eos_ids`` int32 ``[B]`` each row's stop
+    token, -1 for none.  ``sample_fn(logits [B, V], carry) -> (carry,
+    next [B])`` is the per-step token rule (greedy: the argmax with the
+    carry untouched; sampled: :func:`~.sampling.sample_chain_step` over
+    the row keys).
+
+    The EOS latch lives inside the loop: a row that draws its EOS or
+    spends its budget leaves ``active`` for the remaining steps, so its
+    length stops and its K/V writes park (``decode_ragged``'s gate).
+    ``window`` must cover the last step's positions: a bucket of at least
+    the longest active length + K - 1.
+
+    Returns ``(tok_block [B, K], valid [B], toks [B, 1], cache,
+    active_out, remaining_out, carry_out)``: ``tok_block[i, j]`` is real
+    for ``j < valid[i]`` (frozen copies of the last token after), and the
+    trailing outputs are the state the next call chains from."""
+    toks, act, rem, carry = token_ids, active, remaining, sample_carry
+    tok_seq, emit_seq = [], []
+    for _ in range(int(steps)):
+        logits, cache = decode_ragged(params, toks, cache, cfg, active=act, dtype=dtype,
+                                      window=window)
+        carry, nxt = sample_fn(logits[:, -1, :], carry)
+        nxt = torch.where(act, nxt.to(toks.dtype), toks[:, 0])
+        emit_seq.append(act)
+        rem = rem - act.to(rem.dtype)
+        act = act & (nxt != eos_ids) & (rem > 0)
+        toks = nxt[:, None]
+        tok_seq.append(nxt)
+    tok_block = torch.stack(tok_seq, dim=1)
+    valid = torch.stack(emit_seq, dim=0).to(torch.int32).sum(dim=0, dtype=torch.int32)
+    return tok_block, valid, toks, cache, act, rem, carry
 
 
 def _finish_decode(params, x, k_news, v_news, cache, lengths, active, quant, cfg):

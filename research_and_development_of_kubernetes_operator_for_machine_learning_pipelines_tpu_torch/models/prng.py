@@ -12,7 +12,7 @@ and work on every row at once, with no loop over rows.
   derives when 64-bit integers are disabled, as the JAX package serves.
   A seed of 2**32 or more keeps only its low word there, so it does here.
 - ``split(keys, num)``: the fold-like split, ``threefry(key, (0, i))``
-  for i < num.
+  for i < num; ``split_keys(keys)``: its two halves, ``(carry, use)``.
 - ``fold_in(keys, data)``: ``threefry(key, (0, data))``.
 - ``random_bits(keys, shape)``: 32-bit words, ``hi ^ lo`` of
   ``threefry(key, (n >> 32, n & 0xFFFFFFFF))`` for the flat index n.
@@ -20,6 +20,8 @@ and work on every row at once, with no loop over rows.
 - ``gumbel(keys, shape)``: ``-log(-log(u))`` over ``u`` uniform in
   [tiny, 1), JAX's "low" mode.  ``log`` is the device's, so gumbels agree
   with JAX to an ulp or two, not bit for bit.
+- ``categorical(keys, logits)``: ``argmax(logits + gumbel)`` over the last
+  axis, ``jax.random.categorical``'s Gumbel-max draw.
 """
 
 from __future__ import annotations
@@ -66,6 +68,12 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
+def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance a batch of per-row keys: returns (carry, use)."""
+    pairs = split(keys, 2)
+    return pairs[..., 0, :], pairs[..., 1, :]
+
+
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """Fold a 32-bit integer (or an int tensor broadcast against the keys'
     batch) into each key."""
@@ -107,3 +115,10 @@ def gumbel(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """float32 standard Gumbel draws, JAX's "low" mode."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(uniform(keys, shape, minval=tiny, maxval=1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """One draw a row of ``logits [B, V]`` under ``keys [B, 2]``: the
+    index of the largest ``logits + gumbel``, the lowest among equal
+    maxima."""
+    return torch.argmax(gumbel(keys, (logits.shape[-1],)) + logits, dim=-1)

@@ -22,24 +22,16 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.gumbel_argmax import gumbel_argmax
 from . import prng
+from .prng import split_keys  # noqa: F401  (the reference's sampling.split_keys)
 
 _NEG_INF = -1e30
 
 
-def sample_logits(
-    logits: torch.Tensor,
-    keys: torch.Tensor,
-    temperature: torch.Tensor,
-    top_k: torch.Tensor,
-    top_p: torch.Tensor,
-) -> torch.Tensor:
-    """Draw one token per row.
-
-    logits ``[B, V]`` (any float type); keys ``[B, 2]`` int64 threefry
-    words; temperature/top_p float ``[B]``; top_k int ``[B]``.  Every row
-    draws from its key; rows with temperature <= 0 take the greedy token.
-    Returns int32 ``[B]``."""
+def _filter(logits, temperature, top_k, top_p):
+    """The reference's filtering in sorted-logit space: ``(greedy token
+    [B] int32, sort order [B, V], masked sorted logits [B, V] f32)``."""
     b, v = logits.shape
     logits = logits.to(torch.float32)
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -59,17 +51,30 @@ def sample_logits(
     keep_p = cum_before < p
     masked = torch.where(keep_k & keep_p, sorted_logits,
                          torch.full_like(sorted_logits, _NEG_INF))
+    return greedy_tok, order, masked
 
-    # jax.random.categorical per row: gumbel noise over the row's V slots.
-    choice = torch.argmax(prng.gumbel(keys, (v,)) + masked, dim=-1)
+
+def _pick(order, choice, temperature, greedy_tok) -> torch.Tensor:
     sampled_tok = torch.gather(order, 1, choice[:, None])[:, 0].to(torch.int32)
     return torch.where(temperature > 0, sampled_tok, greedy_tok)
 
 
-def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Advance a batch of per-row keys: returns (carry, use)."""
-    pairs = prng.split(keys, 2)
-    return pairs[..., 0, :], pairs[..., 1, :]
+def sample_logits(
+    logits: torch.Tensor,
+    keys: torch.Tensor,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+) -> torch.Tensor:
+    """Draw one token per row.
+
+    logits ``[B, V]`` (any float type); keys ``[B, 2]`` int64 threefry
+    words; temperature/top_p float ``[B]``; top_k int ``[B]``.  Every row
+    draws from its key; rows with temperature <= 0 take the greedy token.
+    Returns int32 ``[B]``."""
+    greedy_tok, order, masked = _filter(logits, temperature, top_k, top_p)
+    choice = prng.categorical(keys, masked)
+    return _pick(order, choice, temperature, greedy_tok)
 
 
 def sample_chain_step(
@@ -81,10 +86,13 @@ def sample_chain_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One sampling step of a decode chain: advance EVERY row's key and
     draw one token per row, the engine's single-step discipline
-    (``split_keys`` then :func:`sample_logits`).  Returns
-    ``(carry_keys, tokens)``."""
-    carry, use = split_keys(keys)
-    return carry, sample_logits(logits, use, temperature, top_k, top_p)
+    (``split_keys`` then :func:`sample_logits`), and the per-step rule of
+    the fused multi-step chain.  The split, the Gumbel noise and the
+    argmax are ``ops.gumbel_argmax``: the fused kernel on the card, the
+    plain chain on the CPU.  Returns ``(carry_keys, tokens)``."""
+    greedy_tok, order, masked = _filter(logits, temperature, top_k, top_p)
+    carry, choice = gumbel_argmax(masked, keys)
+    return carry, _pick(order, choice, temperature, greedy_tok)
 
 
 def speculative_accept(

@@ -22,7 +22,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("decode_attention", "rmsnorm", "flash_attention", "dmajor_attention")
+SOURCES = ("decode_attention", "rmsnorm", "flash_attention", "dmajor_attention", "sampling")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -52,10 +52,10 @@ of ``/generate`` carries it as ``request_id``.  Each answered
 tokens served from the prefix cache and accepted/proposed draft tokens.
 
 The radix prefix cache (``--prefix-cache*``), self-speculative n-gram
-decoding (``--speculative*``) and packed multi-admission prefill
-(``--prefill-batch``, ``--prefill-token-budget``) are the reference's
-serving knobs, refused at startup with the reference's messages when out
-of range.
+decoding (``--speculative*``), packed multi-admission prefill
+(``--prefill-batch``, ``--prefill-token-budget``) and fused multi-step
+decode (``--decode-steps``) are the reference's serving knobs, refused at
+startup with the reference's messages when out of range.
 """
 
 from __future__ import annotations
@@ -164,6 +164,9 @@ class ServerConfig:
     # prefillTokenBudget): 1 is the single-admission pipeline, 0 no budget.
     prefill_batch: int = 1
     prefill_token_budget: int = 0
+    # Fused multi-step decode (spec.tpu.decodeSteps): decode iterations a
+    # dispatch, 1 the single-step tick.
+    decode_steps: int = 1
     device: str | None = None
     # The V2 predict path's dynamic batcher.
     max_batch_size: int = 32
@@ -194,6 +197,8 @@ class ServerConfig:
         caches' and speculation's only when enabled."""
         if self.prefill_batch < 1:
             raise ValueError(f"spec.tpu.prefillBatch must be >= 1, got {self.prefill_batch!r}")
+        if not (1 <= self.decode_steps <= 16):
+            raise ValueError(f"spec.tpu.decodeSteps must be in [1, 16], got {self.decode_steps!r}")
         if self.prefix_cache:
             chunk = self.prefix_cache_chunk_tokens
             if self.prefill_chunk is not None and chunk != self.prefill_chunk:
@@ -266,6 +271,7 @@ def make_gen_engine(predictor, config: ServerConfig,
         prefill_batch=config.prefill_batch,
         prefill_token_budget=config.prefill_token_budget,
         on_prefill_batch=m.observe_prefill_batch,
+        decode_steps=config.decode_steps,
         device=config.device,
         admission_queue_budget=config.admission_queue_budget,
         on_step=m.observe_decode_step,
@@ -911,6 +917,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-token-budget", type=int, default=0,
                     help="prompt tokens prefilled a tick, Sarathi-style (0 = uncapped); "
                          "bounds decode-cadence jitter under long-prompt bursts")
+    ap.add_argument("--decode-steps", type=int, default=1,
+                    help="decode iterations fused into ONE dispatch a tick (a CUDA graph "
+                         "captured at startup, on-device sampling and EOS latch, lag-1 token "
+                         "readback; engages only when no admissions or drafts are pending). "
+                         "1 = the single-step tick; max 16")
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-batch-delay-ms", type=float, default=5.0)
     ap.add_argument("--admission-queue-budget", type=int, default=0,
@@ -963,6 +974,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
         prefill_chunk=args.prefill_chunk, device=args.device,
         prefill_batch=args.prefill_batch, prefill_token_budget=args.prefill_token_budget,
+        decode_steps=args.decode_steps,
         max_batch_size=args.max_batch_size, max_batch_delay_ms=args.max_batch_delay_ms,
         admission_queue_budget=args.admission_queue_budget,
         drain_grace_s=args.drain_grace_seconds,

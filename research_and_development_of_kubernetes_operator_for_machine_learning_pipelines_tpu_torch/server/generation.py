@@ -55,6 +55,16 @@ in the same tick: its length, its sampling state and its first token.  A
 radix-cached prefix is seeded straight into the reserved row, and fresh
 full chunks are read back off it.
 
+Fused multi-step decode (``decode_steps`` K in [2, 16]): when the
+scheduler owes nothing else (no admission in flight or queued, no draft
+in hand), a BURST runs K decode steps a dispatch (``llama.decode_multistep``
+with the sampling chain and the EOS latch on the device), and harvests
+each dispatch's token block one tick late, after the next dispatch is
+in flight.  On the card every dispatch replays a CUDA graph captured at
+start for its (window, token rule) (``server/cuda_graphs.py``); the
+window is pre-picked to cover every row's length + K - 1.  K = 1 is the
+single-step tick.
+
 Hooks (all optional, called on the scheduler thread): ``on_step`` per
 decode or verify tick and idle pass, ``on_tokens``/``on_itl`` per emitted
 token, ``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per
@@ -69,7 +79,7 @@ tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
 and draft tokens.
 
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): multi-step decode, the unified super-step, SLO classes and
+asked for): the unified super-step, SLO classes and
 preemption, the mesh, multi-host, the watchdog, the flight recorder,
 device telemetry and poison quarantine.
 """
@@ -90,8 +100,9 @@ import torch
 
 from ..models import llama
 from ..models import prng
-from ..models.sampling import sample_logits, speculative_accept, split_keys
+from ..models.sampling import sample_chain_step, speculative_accept
 from .batching import next_bucket
+from .cuda_graphs import MultistepProgram
 from .prefix_cache import RadixPrefixCache
 from .speculative import DraftState, draft_chain, pad_to_chain, propose_ngram
 
@@ -252,7 +263,6 @@ _NOT_PORTED = {
     "channel": None,
     "recorder": None,
     "telemetry": None,
-    "decode_steps": 1,
     "unified_step": False,
     "watchdog": None,
     "mesh_shape": None,
@@ -306,6 +316,7 @@ class GenerationEngine:
         on_prefix_l2: Callable[[str], None] | None = None,
         speculative=None,  # SpeculativeConfig | None
         on_spec: Callable[[int, int], None] | None = None,
+        decode_steps: int = 1,
         **unported,
     ):
         for name, value in unported.items():
@@ -418,6 +429,14 @@ class GenerationEngine:
                 )
             self._spec = speculative
             self._spec_chain = draft_chain(dt)
+        # Fused multi-step decode: K decode steps a dispatch, chained on
+        # the device, harvested one tick late.  1 is the single-step tick.
+        self._decode_steps = 1 if decode_steps is None else int(decode_steps)
+        if not (1 <= self._decode_steps <= 16):
+            raise ValueError(f"decode_steps must be in [1, 16], got {decode_steps}")
+        self._fused = self._decode_steps > 1
+        self._program: MultistepProgram | None = None
+        self._capture = False  # graphs wanted (a started CUDA engine)
         # Device dispatches by tick kind, as the reference keeps them.
         self.dispatches_total: dict[str, int] = {}
         self.tokens_generated = 0
@@ -430,6 +449,7 @@ class GenerationEngine:
         self.spec_verify_ticks = 0
         self.spec_proposed_tokens = 0
         self.spec_accepted_tokens = 0
+        self.sample_steps = 0  # sampling-chain steps run on the device
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._pending: list[_PrefillProgress] = []
         self._reserved: set[int] = set()  # packed mode: rows of admissions in flight
@@ -452,9 +472,11 @@ class GenerationEngine:
         self._reset_device_state()
 
     def _reset_device_state(self) -> None:
-        """(Re)allocate the KV cache and the per-slot token and sampling
-        state — also the recovery path after a failed step, whose in-place
-        writes may have left the cache half-updated."""
+        """(Re)allocate the KV cache, the per-slot token and sampling state
+        and, on a fused engine, the multi-step program over the new cache
+        (its graphs captured again once the engine has started) — also the
+        recovery path after a failed step, whose in-place writes may have
+        left the cache half-updated."""
         dev = self._device
         if self._kv_quant:
             self._cache = llama.QuantRaggedKVCache.create(self._cfg, self.max_slots, dev)
@@ -467,18 +489,41 @@ class GenerationEngine:
         self._topk = torch.zeros((self.max_slots,), dtype=torch.int32, device=dev)
         self._topp = torch.ones((self.max_slots,), dtype=torch.float32, device=dev)
         self._keys = prng.split(prng.key(0, dev), self.max_slots)  # [slots, 2]
+        if self._fused:
+            # A new cache: graphs of the old one would write freed memory.
+            if self._program is not None:
+                self._program.drop()
+            self._program = MultistepProgram(self._params, self._cfg, self._cache,
+                                             self._decode_steps, self._dtype, dev)
+            if self._capture:
+                self._capture_graphs()
+
+    def _capture_graphs(self) -> None:
+        """One graph per window bucket and token rule, on all-inactive rows
+        (what the reference's warmup sweep compiles)."""
+        prog = self._program
+        windows = decode_window_buckets(self.capacity)
+        prog.capture(windows)
+        _log.info("captured %d multistep graphs (K=%d) in %.2f s; pool %.1f MiB",
+                  len(prog.graphs), self._decode_steps, prog.capture_s,
+                  prog.pool_bytes() / 2**20)
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self, warmup: bool = True) -> None:
         """Start the scheduler thread.  ``warmup`` builds the CUDA kernels
         first (nothing to compile on the CPU), so no request pays nvcc.
+        A fused engine on the card captures its multi-step graphs here,
+        warm-up or not: a capture on first use would stall every stream.
         It admits no prompt, so nothing reads or fills the prefix cache
         before the first request."""
         if warmup and self._device.type == "cuda":
             from ..ops import _build
 
             _build.build()
+        if self._fused and self._device.type == "cuda":
+            self._capture = True
+            self._capture_graphs()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="generation-scheduler"
         )
@@ -500,6 +545,8 @@ class GenerationEngine:
         self._pending = []
         self._reserved.clear()
         self._seq_state = None
+        if self._program is not None:
+            self._program.drop()  # the graphs' pool goes back to the allocator
         for slot in self._slots:
             if slot is not None and not slot.future.done():
                 slot.future.cancel()
@@ -700,6 +747,10 @@ class GenerationEngine:
                 return i
         return None
 
+    def _queued_work(self) -> bool:
+        """A submission waits in the queue (a fused burst must end)."""
+        return not self._queue.empty()
+
     def _record_tick(self, kind: str, wall_s: float) -> None:
         """One device dispatch of ``kind`` that took ``wall_s`` seconds."""
         self.dispatches_total[kind] = self.dispatches_total.get(kind, 0) + 1
@@ -736,15 +787,16 @@ class GenerationEngine:
         self._temps[slot_idx] = req.temperature
         self._topk[slot_idx] = req.top_k
         self._topp[slot_idx] = req.top_p
-        if slot_key is None:  # greedy: sample_logits would return the argmax
+        if slot_key is None:  # greedy: the sampling step would return the argmax
             first = torch.argmax(row_logits.to(torch.float32))
         else:
-            carry, use = split_keys(slot_key[None])
-            self._keys[slot_idx] = carry[0]
-            first = sample_logits(
-                row_logits[None], use, self._temps[slot_idx:slot_idx + 1],
+            carry, first = sample_chain_step(
+                row_logits[None], slot_key[None], self._temps[slot_idx:slot_idx + 1],
                 self._topk[slot_idx:slot_idx + 1], self._topp[slot_idx:slot_idx + 1],
-            )[0]
+            )
+            self.sample_steps += 1
+            self._keys[slot_idx] = carry[0]
+            first = first[0]
         self._tokens[slot_idx, 0] = first
         return int(first)
 
@@ -1103,10 +1155,10 @@ class GenerationEngine:
             firsts[row] = self._install_slot(prog.slot, logits[row, last], slot_key, prog.req)
         return firsts
 
-    def _record_token(self, slot_idx: int, token: int) -> None:
-        """Credit one emitted token to a slot; finish it on EOS or budget.
-        A cancelled request (a client that went away) frees its slot
-        instead."""
+    def _record_token(self, slot_idx: int, token: int, t: float | None = None) -> None:
+        """Credit one emitted token to a slot at time ``t`` (now when
+        None); finish it on EOS or budget.  A cancelled request (a client
+        that went away) frees its slot instead."""
         slot = self._slots[slot_idx]
         assert slot is not None
         if slot.future.cancelled():
@@ -1118,7 +1170,7 @@ class GenerationEngine:
             slot.history[slot.hist_len] = token
             slot.hist_len += 1
         slot.remaining -= 1
-        now = time.perf_counter()
+        now = time.perf_counter() if t is None else t
         if slot.t_last_token > 0.0 and self.on_itl is not None:
             self.on_itl(now - slot.t_last_token)
         slot.t_last_token = now
@@ -1172,6 +1224,12 @@ class GenerationEngine:
             if any(drafts):
                 self._verify_tick(active_np, window, drafts)
                 return
+        if self._fused and not self._pending and not self._queued_work():
+            # A burst engages only when the scheduler owes nothing else: no
+            # queued request waiting on a slot a burst would hold for K
+            # tokens, no admission whose chunk cadence it would stall.
+            self._step_fused(active_np, sampling)
+            return
         t0 = time.perf_counter()
         self._device_step(active_np, window, sampling)
         toks = self._tokens[:, 0].cpu().numpy()
@@ -1193,12 +1251,114 @@ class GenerationEngine:
         if sampling:
             # Every row's key advances once, greedy rows included, so a
             # row's stream does not depend on its neighbours.
-            self._keys, use = split_keys(self._keys)
-            nxt = sample_logits(last, use, self._temps, self._topk, self._topp)
+            self._keys, nxt = sample_chain_step(last, self._keys, self._temps, self._topk,
+                                                self._topp)
+            self.sample_steps += 1
         else:
             nxt = torch.argmax(last, dim=-1)
         # Finished slots keep their last token so their rows stay inert.
         self._tokens = torch.where(active, nxt.to(torch.int64), self._tokens[:, 0])[:, None]
+
+    # -- fused multi-step decode (decode_steps > 1) ---------------------------
+
+    def _step_fused(self, active_np, sampling: bool) -> None:
+        """A fused-decode burst with lag-1 readback.
+
+        Each iteration dispatches ONE K-step program (a graph replay on the
+        card), then harvests the PREVIOUS dispatch's token block, so the
+        host's work for tick N (the sync, the SSE events) overlaps tick
+        N+1 on the device.  Chained dispatches take no host input: the
+        program's static buffers carry the tokens, lengths, active mask,
+        budgets and keys from one to the next.
+
+        The host's view therefore lags the device by one tick.  Two
+        decisions need it, whether to go on and the window, and both use
+        bounds (a row advances at most K a tick), so an EOS mid-block costs
+        at most one trailing dispatch, never a wrong token.  The burst
+        exits with every harvest drained, and the chained state copied
+        back into the engine's."""
+        K = self._decode_steps
+        B = self.max_slots
+        # Burst-entry inputs from exact host slot truth.
+        remaining = np.zeros((B,), np.int32)
+        eos_ids = np.full((B,), -1, np.int32)  # -1: no EOS (ids are >= 0)
+        hi = np.zeros((B,), np.int64)  # per-row next-write position bound
+        rem_hi = np.zeros((B,), np.int64)  # per-row emit-budget bound
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            remaining[i] = slot.remaining
+            if slot.eos_id is not None:
+                eos_ids[i] = slot.eos_id
+            hi[i] = slot.prompt_len + len(slot.generated)
+            rem_hi[i] = slot.remaining
+        prog = self._program
+        prog.load(self._tokens, self._cache.lengths, self._keys, self._temps, self._topk,
+                  self._topp, active_np, remaining, eos_ids)
+        pending = None  # (host buffer, t0) of the dispatch not yet harvested
+        while True:
+            # The window covers the LAST step's positions: a row crossing a
+            # bucket edge inside the K steps must already be covered.
+            needed_hi = int(max(hi[i] for i in range(B)
+                                if self._slots[i] is not None and rem_hi[i] > 0))
+            window = decode_window_bucket(min(needed_hi + K - 1, self.capacity),
+                                          self.capacity)
+            t0 = time.perf_counter()
+            handle = self._device_multistep(window, sampling)
+            for i in range(B):
+                emit = min(int(rem_hi[i]), K)
+                hi[i] += emit
+                rem_hi[i] -= emit
+            if pending is not None:
+                self._harvest_fused(*pending)  # lag-1: tick N+1 is in flight
+            pending = (handle, t0)
+            may_be_active = any(self._slots[i] is not None and rem_hi[i] > 0
+                                for i in range(B))
+            if (not may_be_active or self._stop.is_set() or self._pending
+                    or self._queued_work()):
+                break
+            if self._spec is not None and not sampling and any(self._collect_drafts()):
+                # The harvest refreshed the histories and a draft is in
+                # hand: the next tick verifies.
+                break
+        self._harvest_fused(*pending)
+        self._tokens = prog.tokens.clone()
+        self._cache = self._cache._replace(lengths=prog.lengths.clone())
+        if sampling:
+            self._keys = prog.keys.clone()
+
+    def _harvest_fused(self, handle: int, t0: float) -> None:
+        """Wait for one fused tick's token block and credit its tokens.
+
+        ``valid[i]`` counts the steps row ``i`` was active for: columns at
+        and after it are frozen copies (their K/V was parked, never
+        committed).  Each row's tokens are spread over the tick's wall,
+        clamped after the row's last token, so that K tokens do not land
+        on one instant (every ITL would read 0)."""
+        toks, valid = self._program.harvest(handle)
+        end = time.perf_counter()
+        wall = end - t0
+        active_slots = int((valid > 0).sum())
+        self.decode_forwards += 1
+        self._record_tick("multistep", wall)
+        self._note_step(active_slots, wall)
+        for i in range(self.max_slots):
+            n = int(valid[i])
+            if n <= 0 or self._slots[i] is None:
+                continue
+            base = max(t0, self._slots[i].t_last_token)
+            span = max(end - base, 0.0)
+            for j in range(n):
+                self._record_token(i, int(toks[i, j]), t=base + span * (j + 1) / n)
+                if self._slots[i] is None:
+                    break  # finished (EOS, budget) or cancelled mid-block
+
+    def _device_multistep(self, window: int, sampling: bool) -> int:
+        """One K-step dispatch on the program's chained state; returns the
+        host buffer its harvest reads."""
+        if sampling:
+            self.sample_steps += self._decode_steps
+        return self._program.dispatch(window, sampling)
 
     # -- self-speculative decoding (n-gram draft + batched verify) ----------
 

@@ -285,7 +285,7 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("decode_steps", 4), ("unified_step", True), ("telemetry", object()),
+    ("channel", object()), ("unified_step", True), ("telemetry", object()),
     ("preemption", True), ("slo_class", "batch"), ("mesh_shape", {"tp": 2}),
 ])
 def test_unported_engine_options_raise(tiny, option, value):

@@ -89,6 +89,19 @@ def test_split_and_fold_in_match_jax(seed):
     np.testing.assert_array_equal(use.numpy(), _kd(ju))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical_draws_what_jax_random_categorical_draws(seed):
+    """``categorical`` (the plain draw of the sampled chain and of the
+    fused sampling kernel's plain version) picks each row's
+    ``jax.random.categorical`` token, masked slots included."""
+    keys = jax.random.split(_serving_key(seed), 4)
+    logits = np.random.default_rng(seed % 2**32).normal(size=(4, 1000)).astype(np.float32) * 3
+    logits[1, 20:] = -1e30
+    want = jax.vmap(jax.random.categorical)(keys, jnp.asarray(logits))
+    got = TP.categorical(torch.from_numpy(_kd(keys)), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_random_bits_match_jax(seed, shape):
