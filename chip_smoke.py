@@ -166,17 +166,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the bf16-window instance of the ragged kernel on a served path, its
    launches = 32 x packed forwards, and the packed answers' agreement with
    the serial ones.
-   5e: fused multi-step decode (``decode_steps``) and the fused sampling
-   kernel.  First the kernel (``ops/gumbel_argmax``: threefry split,
-   Gumbel noise and argmax in one pass) against its plain version at B 1,
-   4 and 32, V 32000 and 32001, the threefry seeds, on masked logits with
-   a row masked everywhere, a top-k row and a row of exact ties: the carry
-   keys bit-equal, every choice equal or scoring within GUMBEL_ULPS f32 ulp
-   of the plain one (the count of rows that differ is printed); its time,
-   device time and launches at B 4 and 32, V 32000, beside the plain
-   chain's and its bound, and the whole sampling step fused against the
-   plain chain.  Then on the bf16 tree (``quantize: none``, whole prompts)
-   and, after the quantization, on int8kv (chunks of 256): three servers
+   5e: fused multi-step decode (``decode_steps``) and the sampled step's
+   kernels.  First the step (``ops/sample_step``: the prep kernel, the
+   sort, the draw kernel) against the plain chain at B 1, 4 and 32, V
+   32000, 32001 and 128256, four filter mixes (the served T 0.8 / top_k
+   50 / top_p 0.95, none, top-p only, top-k 1), two seeds, and on bf16
+   logits at B 4, with NaN, +-inf and all -inf rows, greedy rows and a
+   top_p 0 row: carry keys and the prep kernel's scaled values bit-equal,
+   greedy tokens equal, every other token equal or inside the rule
+   (GUMBEL_ULPS between the two choices' scores, or the plain mass at one
+   of them within P_TOL of p; the rows that differ are counted); at B 4 and
+   32, V 32000, under each mix, the step's device ms, launches and host
+   ms, the prep and draw kernels alone, the sort's own device ms, the
+   plain chain's, and the bound of the kernels' work.  Then on the bf16
+   tree (``quantize: none``, whole prompts) and, after the quantization,
+   on int8kv (chunks of 256): three servers
    on one weight tree at ``decode_steps`` 1, 4 and 8 (the fused ones
    capture one CUDA graph per window bucket and token rule at start: the
    count, the seconds and the pool's bytes are printed); one replay of a
@@ -186,19 +190,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tokens, keys and the committed K/V rows bit-equal, and one more replay
    of each graph under the profiler launching exactly the kernels its
    capture recorded (the counts each replay adds to the launch counters:
-   32K decode attention, 65K RMSNorm, K sampling kernels sampled); then in
-   turns (1, 4,
-   8, then 8, 4, 1, ...) MS_REPEATS times one request alone (5 + 24
+   32K decode attention, 65K RMSNorm, K prep and K draw kernels
+   sampled); then in turns (1, 4, 8, then 8, 4, 1, ...) MS_REPEATS times one request alone (5 + 24
    tokens) and four concurrent ones (17/130/300/700 + 24, one sampled);
    at each K a seeded stream equal to the same request without stream and
    four seeded streams at once (ITL p50 / p99 from the events' arrival,
    TTFT); the launch identities over every request, replays counted
    (decode attention = 32 x (decode ticks + K x multistep dispatches),
    RMSNorm = 65 x those forwards and the prefills, flash = 32 x prefill
-   forwards, the sampling kernel = the engines' sampling steps);
+   forwards, the sampled step's wrapper = the engines' sampling steps);
    ``/metrics``' multistep dispatches equal to the engines' and ITL
    observations that are not all 0; the idle share of one 5 + 16-token
-   request at each K; peak memory; and the greedy tokens' and the seeded
+   request at each K, and of one seeded sampled one (T 0.8, top_k 50,
+   top_p 0.95) at K 1 and 4 with its tok/s; peak memory; and the greedy tokens' and the seeded
    stream's agreement with K = 1 (reported: the wider pre-picked window
    changes the decode kernel's split and can flip bf16 near-ties).
 6. Serving BERT-base at full width (12 layers, random weights from a
@@ -3432,23 +3436,46 @@ def phase_serve_7b_dense(da, rn, fa, smi: str, params, quantize: str,
 # Phase 5e: fused multi-step decode (CUDA graphs) and the sampling kernel
 # ---------------------------------------------------------------------------
 
-# A choice of the sampling kernel that differs from its plain version's must
-# score within this many f32 ulp of it: the kernel's Gumbel is the device's
-# logf of a bit-equal uniform, two logs each within an ulp or two.
+# A token of the sampling kernels that differs from the plain chain's must
+# do so inside one of two rules (``_sample_rule``):
+# - the plain scores at the two chosen ranks lie within GUMBEL_ULPS f32 ulp:
+#   the kernel's Gumbel is the device's logf of a bit-equal uniform, two
+#   logs each within an ulp or two;
+# - the plain exclusive mass at one of the two chosen ranks lies within
+#   P_TOL of p: both sides add the softmax sum and the exclusive mass in f32
+#   over up to V terms in different orders (the kernels: four ranks a
+#   thread, a warp scan, the warps, the chunks; the plain chain: softmax's
+#   and cumsum's own), each side's deepest chain some 40 roundings of at
+#   most 2^-24 relative, ~5e-6 apart at worst; 1e-5 keeps a factor of two.
 GUMBEL_ULPS = 4
+P_TOL = 1e-5
 # The H100's int32 issue rate: 64 of the 128 f32 lanes an SM, one operation
 # a clock against the f32 rate's two (F32_FLOPS counts a fused multiply-add).
 INT32_OPS = F32_FLOPS / 4
-# Integer operations an element of the sampling kernel issues
+# The H100's exponentials a second: 16 results a clock an SM from the
+# special-function units, against 128 f32 lanes of two flops.
+EXP_OPS = F32_FLOPS / 16
+# Integer operations the draw kernel executes for a kept rank
 # (csrc/sampling.cu): the counter's add into the key, 20 threefry rounds of
 # an add, a rotate and a xor, five key injections of two adds, and the xor,
 # shift and or of the uniform's bits.  Its two logs are f32 work (a
-# polynomial each) on the f32 lanes, of which an SM has twice as many, and
-# are left out of the bound.
+# polynomial each) and are left out of the bound.  A row's key split is two
+# hashes without the uniform's bits.
 GUMBEL_OPS = 1 + 20 * 3 + 5 * 2 + 3
+SPLIT_OPS = 2 * (GUMBEL_OPS - 3)
+# (T, top_k, top_p): the smoke's served filter, none, top-p only, top-k 1.
+SAMPLE_MIXES = {"smoke": (0.8, 50, 0.95), "none": (1.0, 0, 1.0), "top_p": (0.7, 0, 0.9),
+                "top_k1": (0.8, 1, 1.0)}
 MS_STEPS = (1, 4, 8)  # decode_steps served in turns
 MS_REPEATS = 3
 MS_NEW = 24  # new tokens a request
+
+
+def _short(kernel: str) -> str:
+    """A kernel's name without its namespaces, template arguments and
+    parameters, as the profiler reports it."""
+    k = re.split(r"[(<]", kernel.replace("(anonymous namespace)::", ""))[0]
+    return k.rsplit("::", 1)[-1].strip().split(" ")[-1] or kernel
 
 
 def _call_cost(fn, iters: int = 50) -> dict:
@@ -3470,112 +3497,214 @@ def _call_cost(fn, iters: int = 50) -> dict:
         by_kernel, _ = profile_device(fn, iters=20, launches=launches)
         if by_kernel:
             break
+    by_name: dict[str, float] = {}
+    for k, v in by_kernel.items():
+        by_name[_short(k)] = by_name.get(_short(k), 0.0) + v / 20
     return {"device_ms": sum(by_kernel.values()) / 20,
-            "launches": sum(launches.values()) / 20, "host_ms": host_ms, "wall_ms": wall_ms}
+            "launches": sum(launches.values()) / 20, "host_ms": host_ms, "wall_ms": wall_ms,
+            "by_kernel": by_name}
 
 
-def _gumbel_logits(B: int, V: int, seed: int):
-    """Masked logits as a sampling step hands them over: random rows, a
-    row masked everywhere (-1e30), a top-k row (all but 50 masked) and a
-    row of exact ties."""
+def _sample_inputs(B: int, V: int, seed: int, mix, dtype=None):
+    """Logits as the decode hands them (a seeded normal times 3) with the
+    rows the rules must hold on (B > 2: NaN logits; B > 3: every other one
+    -inf; B > 4: a +inf one; B > 5: all -inf), greedy rows among the
+    sampled ones (every third from row 1), top_p 0 on row 6, and keys."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B, V, device="cuda", generator=gen) * 3
-    x[0] = -1e30
-    if B > 1:
-        x[1, 50:] = -1e30
     if B > 2:
-        x[2] = 0.25
-    return x
+        x[2, [7, 100]] = float("nan")
+    if B > 3:
+        x[3, ::2] = float("-inf")
+    if B > 4:
+        x[4, 5] = float("inf")
+    if B > 5:
+        x[5] = float("-inf")
+    T, k, p = mix
+    temps = torch.full((B,), T, device="cuda")
+    temps[1::3] = 0.0
+    topk = torch.full((B,), k, dtype=torch.int32, device="cuda")
+    topp = torch.full((B,), p, device="cuda")
+    if B > 6:
+        topp[6] = 0.0
+    return x if dtype is None else x.to(dtype), temps, topk, topp
 
 
-def phase_gumbel_argmax(ga, prng, sampling) -> dict:
-    """The fused sampling kernel against its plain version at B 1 / 4 / 32
-    and V 32000 / 32001, the seeds of ``_prng_checks``: carry keys
-    bit-equal, choices equal or within GUMBEL_ULPS of the plain scores.
-    Then its time, the plain chain's and the bound at B 4 and 32, V 32000,
-    and the whole sampling step fused against the plain chain."""
+def _sample_rule(ss, prng, logits, keys, temps, topk, topp, got, want) -> dict:
+    """Rows where the kernels' tokens ``got`` differ from the plain chain's
+    ``want``, each of which must be sampled and inside GUMBEL_ULPS or P_TOL
+    (see above), and the largest score difference between the two choices
+    under the plain chain's scores."""
     import numpy as np
     import torch
 
-    checks = differ = 0
-    worst_ulp = max_abs = 0.0
-    for B in (1, 4, 32):
-        for V in (32000, 32001):
-            for seed in PRNG_SEEDS:
-                x = _gumbel_logits(B, V, seed % 2**31 + B)
-                keys = prng.split(prng.key(seed, "cuda"), B)
-                carry, choice = ga.gumbel_argmax(x, keys)
-                ref_carry, ref_choice = ga.gumbel_argmax_reference(x, keys)
-                if not torch.equal(carry, ref_carry):
-                    raise AssertionError(f"gumbel_argmax carry keys differ at B{B} V{V} seed {seed}")
-                scores = x + prng.gumbel(prng.split(keys, 2)[:, 1], (V,))
-                got = scores.gather(1, choice[:, None])[:, 0].cpu().numpy()
-                want = scores.gather(1, ref_choice[:, None])[:, 0].cpu().numpy()
-                ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32))
-                err = np.abs(got - want) / ulp
-                rows = int((choice != ref_choice).sum())
-                if float(err.max()) > GUMBEL_ULPS:
-                    raise AssertionError(f"gumbel_argmax chose a score {float(err.max())} ulp "
-                                         f"from the plain choice at B{B} V{V} seed {seed}")
-                if B > 2 and not (int(choice[0]) == 0 and int(choice[1]) < 50):
-                    raise AssertionError(f"gumbel_argmax masked rows chose {choice[:2].tolist()}")
-                differ += rows
-                worst_ulp = max(worst_ulp, float(err.max()))
-                max_abs = max(max_abs, float(np.abs(got - want).max()))
-                checks += 1
-    log(f"gumbel_argmax: {checks} checks (B 1/4/32, V 32000/32001, seeds {PRNG_SEEDS}): carry "
-        f"keys bit-equal; {differ} rows chose another index than the plain version, within "
-        f"{worst_ulp:.2f} ulp (max abs {max_abs:.3g})")
+    _, use = prng.split_keys(keys)
+    _, order, masked = ss.filter_logits(logits, temps, topk, topp)
+    t = torch.clamp(temps, min=1e-6)[:, None]
+    sorted_logits = -torch.sort(-(logits.float() / t), dim=-1, stable=True)[0]
+    probs = torch.softmax(sorted_logits, dim=-1)
+    mass = (torch.cumsum(probs, dim=-1) - probs).cpu().numpy()
+    scores = masked + prng.gumbel(use, (logits.shape[1],))
+    ca = (order == got[:, None].long()).int().argmax(-1)
+    cb = (order == want[:, None].long()).int().argmax(-1)
+    sa = scores.gather(1, ca[:, None])[:, 0].cpu().numpy()
+    sb = scores.gather(1, cb[:, None])[:, 0].cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(sa), np.abs(sb)).astype(np.float32))
+    err = np.abs(sa.astype(np.float64) - sb) / ulp
+    p = np.clip(topp.cpu().numpy(), 0.0, 1.0)
+    ca, cb, sampled = ca.cpu().numpy(), cb.cpu().numpy(), (temps > 0).cpu().numpy()
+    by_ulp = by_mass = 0
+    for b in np.nonzero(got.cpu().numpy() != want.cpu().numpy())[0]:
+        near = min(abs(mass[b, ca[b]] - p[b]), abs(mass[b, cb[b]] - p[b]))
+        if sampled[b] and err[b] <= GUMBEL_ULPS:
+            by_ulp += 1
+        elif sampled[b] and near <= P_TOL:
+            by_mass += 1
+        else:
+            raise AssertionError(
+                f"sample_step row {b}: token {int(got[b])} (rank {ca[b]}) against the plain "
+                f"{int(want[b])} (rank {cb[b]}), scores {sa[b]} / {sb[b]} ({err[b]:.1f} ulp), "
+                f"mass {mass[b, ca[b]]} / {mass[b, cb[b]]} at p {p[b]}, T {float(temps[b])}")
+    return {"differ": by_ulp + by_mass, "by_ulp": by_ulp, "by_mass": by_mass,
+            "max_abs": float(np.abs(sa.astype(np.float64) - sb).max())}
+
+
+def _sample_bound(ss, logits, temps, topk, topp) -> dict:
+    """The least time the two kernels could take for this step's work, for
+    the prep kernel, the draw kernel and both, each the largest of three:
+    bytes at the HBM rate (prep: the logits read and the negated scaled
+    values written; draw: the sorted ranks a sampled row needs, its kept
+    ones and the first masked one, and one order element a row), integer
+    operations at INT32_OPS (SPLIT_OPS a row; GUMBEL_OPS a kept rank of a
+    sampled row) and exponentials at EXP_OPS (V a row for the softmax sum;
+    one a needed rank for its mass)."""
+    B, V = logits.shape
+    _, _, masked = ss.filter_logits(logits, temps, topk, topp)
+    kept_rows = ((masked > -1e30) & (temps > 0)[:, None]).sum(-1)
+    kept = int(kept_rows.sum())
+    needed = int(((kept_rows + 1).clamp(max=V) * (temps > 0)).sum())
+
+    def best(nbytes, ints, exps):
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "integer": ints / INT32_OPS * 1e3,
+             "exp": exps / EXP_OPS * 1e3}
+        by = max(t, key=t.get)
+        return {"ms": t[by], "by": "bytes" if by == "bytes" else "operations", "times": t}
+
+    item = logits.element_size()
+    prep = (B * V * (item + 4), B * SPLIT_OPS, B * V)
+    draw = (needed * 4 + B * 8, kept * GUMBEL_OPS, needed)
+    return {"kept": kept, "needed": needed, "prep": best(*prep), "draw": best(*draw),
+            "both": best(*(x + y for x, y in zip(prep, draw)))}
+
+
+def phase_sample_step(ss, prng) -> dict:
+    """The sampled step's two kernels (``ops/sample_step``: the prep kernel,
+    the sort, the draw kernel) against the plain chain on the card at B 1 /
+    4 / 32, V 32000 / 32001 / 128256, under the four filter mixes, two seeds
+    each, and once on bf16 logits at B 4 V 32000: carry keys bit-equal, the
+    prep kernel's negated scaled values bit-equal to the plain chain's,
+    greedy rows equal, every other token equal or inside the rule.  Then, at
+    B 4 and 32, V 32000, under each mix: the whole step's device ms,
+    launches and host ms, each kernel alone (CUDA events and profiler), the
+    sort's own, the plain chain's, and the bound."""
+    import torch
+
+    checks = differ = by_mass = 0
+    max_abs = 0.0
+    cases = [(B, V, mix, seed, None) for B in (1, 4, 32) for V in (32000, 32001, 128256)
+             for mix in SAMPLE_MIXES for seed in (1, 2)]
+    cases += [(4, 32000, mix, 3, torch.bfloat16) for mix in SAMPLE_MIXES]
+    for B, V, mix, seed, dtype in cases:
+        x, temps, topk, topp = _sample_inputs(B, V, seed * 1000 + B, SAMPLE_MIXES[mix], dtype)
+        keys = prng.split(prng.key(seed, "cuda"), B)
+        carry, tok = ss.sample_step(x, keys, temps, topk, topp)
+        ref_carry, ref_tok = ss.sample_step_reference(x, keys, temps, topk, topp)
+        if not torch.equal(carry, ref_carry):
+            raise AssertionError(f"sample_step carry keys differ at B{B} V{V} {mix}")
+        _, neg, _ = ss.prep_launch(x, keys, temps)
+        want = -(x.float() / torch.clamp(temps, min=1e-6)[:, None])
+        same = (neg.view(torch.int32) == want.view(torch.int32)) | (neg.isnan() & want.isnan())
+        if not bool(same.all()):
+            raise AssertionError(f"sample_prep's scaled values differ at B{B} V{V} {mix}")
+        rule = _sample_rule(ss, prng, x, keys, temps, topk, topp, tok, ref_tok)
+        differ += rule["differ"]
+        by_mass += rule["by_mass"]
+        max_abs = max(max_abs, rule["max_abs"])
+        checks += 1
+    torch.cuda.synchronize()
+    log(f"sample_step: {checks} checks (B 1/4/32, V 32000/32001/128256, mixes "
+        f"{list(SAMPLE_MIXES)}, seeds 1/2; bf16 logits at B4 V32000; NaN, +-inf, all -inf, "
+        f"top_p 0 and greedy rows): carry keys and scaled values bit-equal; {differ} rows "
+        f"chose another token than the plain chain ({by_mass} by the mass rule), max abs "
+        f"score difference {max_abs:.3g}")
     timing = {}
+    V = 32000
     for B in (4, 32):
-        V = 32000
-        x = _gumbel_logits(B, V, B)
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        x = torch.randn(B, V, device="cuda", generator=gen) * 3
         keys = prng.split(prng.key(1234, "cuda"), B)
-        temps = torch.full((B,), 0.8, device="cuda")
-        topk = torch.full((B,), 50, dtype=torch.int32, device="cuda")
-        topp = torch.full((B,), 0.95, device="cuda")
-        logits = torch.randn(B, V, device="cuda") * 3
-        kernel = _call_cost(lambda: ga.gumbel_argmax(x, keys))
-        plain = _call_cost(lambda: ga.gumbel_argmax_reference(x, keys))
-        ms = cuda_time_ms(lambda: ga.gumbel_argmax(x, keys))
-        plain_ms = cuda_time_ms(lambda: ga.gumbel_argmax_reference(x, keys))
-        dev = kernel_device_ms(lambda: ga.gumbel_argmax(x, keys), "gumbel_argmax")
+        for mix, (T, k, p) in SAMPLE_MIXES.items():
+            temps = torch.full((B,), T, device="cuda")
+            topk = torch.full((B,), k, dtype=torch.int32, device="cuda")
+            topp = torch.full((B,), p, device="cuda")
+            _, neg, state = ss.prep_launch(x, keys, temps)
+            neg_sorted, order = torch.sort(neg, dim=-1, stable=True)
 
-        def plain_step():
-            carry, use = sampling.split_keys(keys)
-            return carry, sampling.sample_logits(logits, use, temps, topk, topp)
+            def step():
+                return ss.sample_step(x, keys, temps, topk, topp)
 
-        fused_step = _call_cost(lambda: sampling.sample_chain_step(logits, keys, temps, topk, topp))
-        plain_chain_step = _call_cost(plain_step)
-        b_ms, b_by = bound(B * V * 4 + B * 16 * 2 + B * 8, B * V * GUMBEL_OPS, INT32_OPS)
-        timing[f"b{B}"] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "kernel": kernel, "plain": plain,
-                           "fused_step": fused_step, "plain_step": plain_chain_step}
-        log(f"gumbel_argmax B{B} V{V}: {ms:.4f} ms ({dev} device, {kernel['launches']:.0f} "
-            f"launches, host {kernel['host_ms']:.3f} ms); plain chain {plain_ms:.4f} ms "
-            f"({plain['device_ms']:.4f} device, {plain['launches']:.0f} launches, host "
-            f"{plain['host_ms']:.3f} ms); bound {b_ms:.5f} ms ({b_by}); the sampling step fused "
-            f"{fused_step['device_ms']:.4f} device ms, {fused_step['launches']:.0f} launches, "
-            f"host {fused_step['host_ms']:.3f} ms, against the plain chain "
-            f"{plain_chain_step['device_ms']:.4f} / {plain_chain_step['launches']:.0f} / "
-            f"{plain_chain_step['host_ms']:.3f}")
-    res = {"checks": checks, "rows_differ": differ, "worst_ulp": worst_ulp,
+            def plain():
+                return ss.sample_step_reference(x, keys, temps, topk, topp)
+
+            def prep():
+                return ss.prep_launch(x, keys, temps)
+
+            def draw():
+                return ss.draw_launch(neg_sorted, order, state, temps, topk, topp)
+
+            def sort():
+                return torch.sort(neg, dim=-1, stable=True)
+
+            cost = _call_cost(step)
+            own = {n: v for n, v in cost["by_kernel"].items()
+                   if n in ("sample_prep_kernel", "sample_draw_kernel")}
+            r = {"step": cost, "step_ms": cuda_time_ms(step),
+                 "prep_ms": cuda_time_ms(prep), "draw_ms": cuda_time_ms(draw),
+                 "prep_device_ms": own.get("sample_prep_kernel"),
+                 "draw_device_ms": own.get("sample_draw_kernel"),
+                 "sort_device_ms": cost["device_ms"] - sum(own.values()),
+                 "sort_launches": cost["launches"] - len(own),
+                 "sort_alone": _call_cost(sort), "plain": _call_cost(plain),
+                 "plain_ms": cuda_time_ms(plain), "bound": _sample_bound(ss, x, temps, topk, topp)}
+            timing[f"b{B}_{mix}"] = r
+            b = r["bound"]
+            log(f"sample_step B{B} V{V} {mix} (T {T}, k {k}, p {p}; {b['kept']} kept ranks): step "
+                f"{cost['device_ms']:.4f} device ms, {cost['launches']:.0f} launches, host "
+                f"{cost['host_ms']:.3f} ms, {r['step_ms']:.4f} CUDA-event ms; prep "
+                f"{r['prep_device_ms']} device / {r['prep_ms']:.4f} ms, draw "
+                f"{r['draw_device_ms']} device / {r['draw_ms']:.4f} ms, the sort "
+                f"{r['sort_device_ms']:.4f} device ms in {r['sort_launches']:.0f} launches; bound "
+                f"prep {b['prep']['ms']:.5f} ({b['prep']['by']}), draw {b['draw']['ms']:.5f} "
+                f"({b['draw']['by']}), both {b['both']['ms']:.5f} ms ({b['both']['by']}); the "
+                f"plain chain {r['plain']['device_ms']:.4f} device ms, "
+                f"{r['plain']['launches']:.0f} launches, host {r['plain']['host_ms']:.3f} ms")
+    res = {"checks": checks, "rows_differ": differ, "rows_by_mass": by_mass,
            "max_abs_err": max_abs, "timing": timing}
-    DETAIL["gumbel_argmax"] = res
+    DETAIL["sample_step"] = res
     return res
 
 
 # The kernel each launch counter of a graph stands for: one launch of the
 # named kernel a counted wrapper call (the sampling wrapper launches its
-# partial and its merge kernel once each).
+# prep and its draw kernel once each, around the sort).
 REPLAY_KERNELS = (("decode_attention", "decode_attention_kernel"),
                   ("rmsnorm", "rmsnorm_kernel"),
                   ("flash_attention", "flash_attention_kernel_bf16"),
                   ("flash_attention", "flash_attention_kernel_f32"),
-                  ("gumbel_argmax", "gumbel_argmax_partial_kernel"),
-                  ("gumbel_argmax", "gumbel_argmax_merge_kernel"))
+                  ("sample_step", "sample_prep_kernel"),
+                  ("sample_step", "sample_draw_kernel"))
 
 
 def _replay_launches(prog, window: int, sampling: bool, load, tries: int = 3) -> dict:
@@ -3691,7 +3820,7 @@ def _graph_vs_eager(engine, prng, lengths=(5, 130, 700, 1500)) -> dict:
         put(before)
         L = prog._cfg.num_layers
         steps = {"decode_attention": L * K, "rmsnorm": (2 * L + 1) * K, "flash_attention": 0,
-                 "gumbel_argmax": K if sampling else 0}
+                 "sample_step": K if sampling else 0}
         if counted["recorded"] != steps:
             raise AssertionError(f"graph (window {window}, sampling {sampling}) recorded "
                                  f"{counted['recorded']} launches a replay, not {steps}")
@@ -3717,7 +3846,7 @@ def _settle(engines, replays0, timeout: float = 60.0) -> None:
             time.sleep(0.005)
 
 
-def phase_serve_7b_multistep(da, rn, fa, ga, smi: str, params, quantize: str,
+def phase_serve_7b_multistep(da, rn, fa, ss, smi: str, params, quantize: str,
                              prefill_chunk: int | None) -> dict:
     """Llama-2-7B served at ``decode_steps`` 1, 4 and 8 (three servers on
     one weight tree, driven in turns): graph replay against the eager call,
@@ -3802,7 +3931,7 @@ def phase_serve_7b_multistep(da, rn, fa, ga, smi: str, params, quantize: str,
         samp0 = {e: e.sample_steps for e in engines}
         tok0 = {e: e.tokens_generated for e in engines}
         scrape0 = {K: _scrape(servers[K]["base"]) for K in MS_STEPS}
-        da.launches = rn.launches = fa.launches = ga.launches = 0
+        da.launches = rn.launches = fa.launches = ss.launches = 0
 
         runs = {K: {"single_tok_s": [], "conc_tok_s": [], "ttft_ms": [], "single": [],
                     "conc": []} for K in MS_STEPS}
@@ -3871,14 +4000,14 @@ def phase_serve_7b_multistep(da, rn, fa, ga, smi: str, params, quantize: str,
         if fa.launches != L * prefills:
             raise AssertionError(f"{tag}: flash attention launched {fa.launches} times for "
                                  f"{prefills} prefill forwards")
-        if ga.launches != samples or samples == 0:
-            raise AssertionError(f"{tag}: gumbel_argmax launched {ga.launches} times for "
+        if ss.launches != samples or samples == 0:
+            raise AssertionError(f"{tag}: sample_step launched {ss.launches} times for "
                                  f"{samples} sampling steps")
-        launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches, "ga": ga.launches}
+        launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches, "ss": ss.launches}
         log(f"{tag}: launches with replays counted: decode attention {da.launches} (= {L} x "
             f"({decodes} + {ms_steps})), rmsnorm {rn.launches} (= {2 * L + 1} x "
             f"{decodes + ms_steps + prefills}), flash {fa.launches} (= {L} x {prefills}), "
-            f"gumbel_argmax {ga.launches} (= {samples} sampling steps); by K {per_k}")
+            f"sample_step {ss.launches} (= {samples} sampling steps); by K {per_k}")
 
         # /metrics: the multistep dispatches and the ITL observations.
         metrics = {}
@@ -3911,12 +4040,33 @@ def phase_serve_7b_multistep(da, rn, fa, ga, smi: str, params, quantize: str,
             idle[K] = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
                        "profile_wall_ms": prof_wall,
                        "top": sorted(prof.items(), key=lambda kv: -kv[1])[:6]}
+        # One seeded sampled request alone (5 + 16 tokens, the served filter)
+        # at K 1 and 4: tok/s, the idle share and the sampling kernels' time.
+        sampled = {}
+        body_s = {**body16, "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 4321}
+        for K in (1, 4):
+            url = servers[K]["url"]
+            t0 = time.perf_counter()
+            toks = _check_outputs(_post(url, body_s), [16], V)[0]
+            wall = (time.perf_counter() - t0) * 1e3
+            prof, prof_wall = profile_device(lambda u=url: _post(u, body_s), iters=1)
+            busy = sum(prof.values())
+            sampled[K] = {"tok_s": 16e3 / wall, "wall_ms": wall, "busy_ms": busy,
+                          "idle_share": 1 - busy / wall, "profile_wall_ms": prof_wall,
+                          "sample_kernels_ms": sum(v for n, v in prof.items() if "sample_" in n),
+                          "tokens": toks}
+        log(f"{tag}: one seeded sampled request alone (5 + 16, T 0.8 k 50 p 0.95): " + "; ".join(
+            f"K {K} {sampled[K]['tok_s']:.2f} tok/s, idle share {sampled[K]['idle_share']:.3f} "
+            f"(busy {sampled[K]['busy_ms']:.1f} of {sampled[K]['wall_ms']:.1f} ms, sampling "
+            f"kernels {sampled[K]['sample_kernels_ms']:.3f} ms)" for K in sampled)
+            + f"; tokens equal at K 1 and 4: {sampled[1]['tokens'] == sampled[4]['tokens']}")
         peak = torch.cuda.max_memory_allocated() / 2**30
 
         def agree(a, b):
             return float(np.mean([x == y for x, y in zip(a, b)]))
 
         res = {"quantize": quantize, "graph_vs_eager": graph_eager, "launches": launches,
+               "sampled_alone": sampled,
                "per_k": per_k, "metrics": metrics, "peak_gib": peak, "peak_built_gib": peak_built,
                "by_k": {}}
         for K in MS_STEPS:
@@ -4211,10 +4361,9 @@ def main() -> int:
     log(f"7B: random bf16 weights drawn on the card in {time.perf_counter() - t0:.1f} s")
     dense = {"none": phase_serve_7b_dense(da, rn, fa, smi, params, "none", None)}
     packed_none = phase_serve_7b_packed_none(da, rn, fa, smi, params)
-    ga = import_module(f"{PKG}.ops.gumbel_argmax")
-    ga_res = phase_gumbel_argmax(ga, import_module(f"{PKG}.models.prng"),
-                                 import_module(f"{PKG}.models.sampling"))
-    multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ga, smi, params, "none", None)}
+    ss = import_module(f"{PKG}.ops.sample_step")
+    ss_res = phase_sample_step(ss, import_module(f"{PKG}.models.prng"))
+    multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "none", None)}
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
@@ -4225,7 +4374,7 @@ def main() -> int:
     serve = phase_serve_7b(da, rn, fa, smi, params)
     spec = phase_serve_7b_spec(da, rn, fa, smi, params)
     packed = phase_serve_7b_packed(da, rn, fa, smi, params)
-    multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ga, smi, params, "int8kv", 256)
+    multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256)
     del params
     torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
@@ -4273,15 +4422,18 @@ def main() -> int:
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},
-        {"name": "gumbel_argmax", "route": "cuda", "source": f"{PKG}/csrc/sampling.cu",
-         # not a Pallas port: the XLA sampling step it stands in for
-         "replaces": f"{jax_pkg}/models/sampling.py:125",
-         "launches": sum(r["launches"]["ga"] for r in multistep.values()),
-         "max_abs_err": ga_res["max_abs_err"], "shape": "B=32 V=32000 f32 masked logits",
-         "ms": ga_res["timing"]["b32"]["ms"], "device_ms": ga_res["timing"]["b32"]["device_ms"],
-         "plain_ms": ga_res["timing"]["b32"]["plain_ms"],
-         "bound_ms": ga_res["timing"]["b32"]["bound_ms"],
-         "bound_by": ga_res["timing"]["b32"]["bound_by"], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/sampling.cu",
+           # not a Pallas port: the XLA sampling step it stands in for
+           "replaces": f"{jax_pkg}/models/sampling.py:125",
+           "launches": sum(r["launches"]["ss"] for r in multistep.values()),
+           "max_abs_err": ss_res["max_abs_err"] if name == "sample_draw" else 0.0,
+           "shape": "B=32 V=32000 f32 logits, T 0.8 top_k 50 top_p 0.95",
+           "ms": t[f"{part}_ms"], "device_ms": t[f"{part}_device_ms"],
+           # the plain chain's whole step, its sort included
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound"][part]["ms"],
+           "bound_by": t["bound"][part]["by"], "library_ms": None}
+          for t in [ss_res["timing"]["b32_smoke"]]
+          for name, part in (("sample_prep", "prep"), ("sample_draw", "draw"))),
     ]
     DETAIL["kernels"] = kernels
     DETAIL["wall_s"] = time.perf_counter() - t_start

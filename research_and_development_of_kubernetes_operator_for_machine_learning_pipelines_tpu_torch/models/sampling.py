@@ -8,9 +8,10 @@ tensors ``[B]`` so one call serves any mix of greedy and sampled rows:
 - ``top_p >= 1``       -> nucleus filtering disabled.
 
 Filtering happens in sorted-logit space exactly as the reference does:
-one stable descending sort per row, a rank mask (top-k) AND an exclusive
-cumulative-probability mask (top-p, the first token always kept), then a
-categorical draw over the surviving logits by the Gumbel-max rule.
+one stable sort per row in the reference's order (``argsort(-scaled)``),
+a rank mask (top-k) AND an exclusive cumulative-probability mask (top-p,
+the first token always kept), then a categorical draw over the surviving
+logits by the Gumbel-max rule.
 
 Randomness: every row carries a threefry key (``models/prng.py``, int64
 words ``[B, 2]``, the reference's ``jax.random.key_data``) and draws
@@ -22,41 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.gumbel_argmax import gumbel_argmax
+from ..ops.sample_step import filter_logits, pick, sample_step
 from . import prng
 from .prng import split_keys  # noqa: F401  (the reference's sampling.split_keys)
-
-_NEG_INF = -1e30
-
-
-def _filter(logits, temperature, top_k, top_p):
-    """The reference's filtering in sorted-logit space: ``(greedy token
-    [B] int32, sort order [B, V], masked sorted logits [B, V] f32)``."""
-    b, v = logits.shape
-    logits = logits.to(torch.float32)
-    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-
-    temp = torch.clamp(temperature.to(torch.float32), min=1e-6)[:, None]
-    scaled = logits / temp
-    sorted_logits, order = torch.sort(scaled, dim=-1, descending=True, stable=True)
-
-    ranks = torch.arange(v, device=logits.device)[None, :]
-    k = torch.where(top_k <= 0, torch.full_like(top_k, v), top_k)[:, None]
-    keep_k = ranks < k
-
-    probs = torch.softmax(sorted_logits, dim=-1)
-    # Exclusive cumsum: keep tokens while the mass BEFORE them is < p.
-    cum_before = torch.cumsum(probs, dim=-1) - probs
-    p = torch.clamp(top_p.to(torch.float32), 0.0, 1.0)[:, None]
-    keep_p = cum_before < p
-    masked = torch.where(keep_k & keep_p, sorted_logits,
-                         torch.full_like(sorted_logits, _NEG_INF))
-    return greedy_tok, order, masked
-
-
-def _pick(order, choice, temperature, greedy_tok) -> torch.Tensor:
-    sampled_tok = torch.gather(order, 1, choice[:, None])[:, 0].to(torch.int32)
-    return torch.where(temperature > 0, sampled_tok, greedy_tok)
 
 
 def sample_logits(
@@ -72,9 +41,9 @@ def sample_logits(
     words; temperature/top_p float ``[B]``; top_k int ``[B]``.  Every row
     draws from its key; rows with temperature <= 0 take the greedy token.
     Returns int32 ``[B]``."""
-    greedy_tok, order, masked = _filter(logits, temperature, top_k, top_p)
+    greedy_tok, order, masked = filter_logits(logits, temperature, top_k, top_p)
     choice = prng.categorical(keys, masked)
-    return _pick(order, choice, temperature, greedy_tok)
+    return pick(order, choice, temperature, greedy_tok)
 
 
 def sample_chain_step(
@@ -87,12 +56,10 @@ def sample_chain_step(
     """One sampling step of a decode chain: advance EVERY row's key and
     draw one token per row, the engine's single-step discipline
     (``split_keys`` then :func:`sample_logits`), and the per-step rule of
-    the fused multi-step chain.  The split, the Gumbel noise and the
-    argmax are ``ops.gumbel_argmax``: the fused kernel on the card, the
-    plain chain on the CPU.  Returns ``(carry_keys, tokens)``."""
-    greedy_tok, order, masked = _filter(logits, temperature, top_k, top_p)
-    carry, choice = gumbel_argmax(masked, keys)
-    return carry, _pick(order, choice, temperature, greedy_tok)
+    the fused multi-step chain.  It is ``ops.sample_step``: on the card
+    two kernels around the sort, on the CPU the plain chain.  Returns
+    ``(carry_keys, tokens)``."""
+    return sample_step(logits, keys, temperature, top_k, top_p)
 
 
 def speculative_accept(

@@ -41,10 +41,10 @@ import torch
 
 from ..models import llama
 from ..models.sampling import sample_chain_step
-from ..ops import decode_attention, flash_attention, gumbel_argmax, rmsnorm
+from ..ops import decode_attention, flash_attention, rmsnorm, sample_step
 
 # The modules whose ``launches`` counters a replay advances.
-_COUNTERS = (decode_attention, rmsnorm, flash_attention, gumbel_argmax)
+_COUNTERS = (decode_attention, rmsnorm, flash_attention, sample_step)
 
 
 class MultistepProgram:

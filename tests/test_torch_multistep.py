@@ -14,8 +14,6 @@ on the CPU.
   engine), the dispatch counts, the window pre-pick, and the lag-1 double
   buffer of the program on the CPU.
 - The window buckets, exhaustively against the reference's.
-- ``gumbel_argmax_reference`` (the fused sampling kernel's plain version)
-  against ``jax.random.split`` + ``jax.random.gumbel`` + ``jnp.argmax``.
 - ``--decode-steps`` / ``decodeSteps`` reach the engine, out-of-range
   values are refused with the reference's message, and a served burst
   shows on ``/metrics``.
@@ -50,9 +48,6 @@ from research_and_development_of_kubernetes_operator_for_machine_learning_pipeli
 )
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (
     sampling as TS,
-)
-from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.ops import (
-    gumbel_argmax as TGA,
 )
 from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (
     app as tapp,
@@ -526,51 +521,6 @@ def test_window_buckets_match_the_reference_exhaustively(capacity):
         assert w == JG.decode_window_bucket(n, capacity), n
         for k in (2, 4, 8, 16):
             assert TG.decode_window_bucket(min(n + k - 1, capacity), capacity) in buckets
-
-
-# -- the fused sampling kernel's plain version -----------------------------------------
-
-
-def _masked_case(rng, B, V):
-    x = (rng.standard_normal((B, V)) * 3).astype(np.float32)
-    x[0] = -1e30  # a row masked everywhere
-    x[1, 5:] = -1e30  # a top-k mask
-    if B > 2:
-        x[2] = 0.25  # a row of exact ties
-    return x
-
-
-@pytest.mark.parametrize("V", [16, 32000])
-@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, 2**63 - 1])
-def test_gumbel_argmax_reference_matches_jax_random(V, seed):
-    rng = np.random.default_rng(V + seed % 1000)
-    masked = _masked_case(rng, 4, V)
-    jkeys = jax.random.split(jax.random.key(seed), 4)
-    carry, choice = TGA.gumbel_argmax(torch.from_numpy(masked), torch.from_numpy(_kd(jkeys)))
-    pairs = jax.vmap(lambda k: jax.random.split(k, 2))(jkeys)
-    jcarry, juse = pairs[:, 0], pairs[:, 1]
-    g = jax.vmap(lambda k: jax.random.gumbel(k, (V,), jnp.float32))(juse)
-    jchoice = jnp.argmax(jnp.asarray(masked) + g, axis=-1)
-    np.testing.assert_array_equal(carry.numpy(), _kd(jcarry))
-    np.testing.assert_array_equal(choice.numpy(), np.asarray(jchoice))
-    assert choice.dtype == torch.int64 and int(choice[0]) == 0 and int(choice[1]) < 5
-
-
-def test_gumbel_plan_covers_every_counter():
-    for b in (1, 4, 32, 64):
-        for v in (1, 16, 255, 256, 257, 32000, 32001, 128256):
-            chunk, splits = TGA.gumbel_plan(b, v)
-            assert splits >= 1 and chunk * splits >= v and chunk * (splits - 1) < v, (b, v)
-            assert chunk >= min(v, TGA.THREADS)
-
-
-def test_gumbel_argmax_refuses_what_the_kernel_does_not_take():
-    x = torch.zeros((2, 8), dtype=torch.float32)
-    keys = torch.zeros((2, 2), dtype=torch.int64)
-    carry, choice = TGA.gumbel_argmax(x, keys)  # the CPU takes the plain version
-    assert carry.shape == (2, 2) and choice.shape == (2,)
-    with pytest.raises(ValueError, match="unsupported device"):
-        TGA.gumbel_argmax(x.to("meta"), keys.to("meta"))
 
 
 # -- the serving surface ------------------------------------------------------------------
