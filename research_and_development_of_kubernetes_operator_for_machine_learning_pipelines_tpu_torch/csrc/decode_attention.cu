@@ -109,6 +109,15 @@
 // - One piece: the block writes the rows.  Several: each writes its f32
 //   partial and `verify_attention_kernel_join`, launched by the same C
 //   call, joins them.  S is capped at kMaxS = 256 (the prefill chunk).
+// - A live count a slot (`counts`, optional).  The unified super-step
+//   (models/llama.py `super_step_ragged`) gives every row one static
+//   width S but a row commits 1 (decode), draft + 1 (verify) or the
+//   chunk's positions, so rows r with r / G >= counts[b] are parked: a
+//   row group wholly parked exits at once (zeros written by the block with
+//   one piece, else by the join), a partly parked one attends for its live
+//   rows only (fewer chunk keys too) and zeros the rest.  Live rows are
+//   unchanged: the chunk term is causal, so none reads a parked key.
+//   At S = 256 a decode row then costs one row group of 64, not four.
 // f32 q (exactness checks) keeps the first design on the CUDA cores: the
 // split kernel instanced with VERIFY at G = 1, one query row a block, and
 // `verify_attention_kernel_merge` joining the S chunk keys.  The S = 1
@@ -217,7 +226,8 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
     const T* __restrict__ k_self, const T* __restrict__ v_self,
     const float* __restrict__ mask, long long m_sb,
     float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int nkv, int W, int D, int chunk, int splits, int R, float scale) {
+    int nkv, int W, int D, int chunk, int splits, int R, float scale,
+    const int* __restrict__ counts, int group) {
   constexpr int E = VEC / (int)sizeof(C);                  // elements a load
   constexpr int NCH = kMaxD / (32 * E) > 1 ? kMaxD / (32 * E) : 1;  // most loads a lane a row
   constexpr bool kScaled = Cache<C>::kScaled;
@@ -244,8 +254,10 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : G == 2 ? 2 : 1) decode_
   const int round_rows = kWarps * (32 / lpr);
   const int my_row = warp * (32 / lpr) + lane / lpr;  // row within a round
 
-  // VERIFY: this block's one row is row blockIdx.y of the slot's R.
+  // VERIFY: this block's one row is row blockIdx.y of the slot's R; a row
+  // at or past the slot's live count is parked (the merge writes its zeros).
   const int row0 = VERIFY ? (int)blockIdx.y : 0;
+  if (VERIFY && counts != nullptr && row0 / group >= __ldg(counts + b)) return;
   const T* qh = q + ((long long)bn * (VERIFY ? R : G) + row0) * D;
   float qr[G][NCH * E];
 #pragma unroll
@@ -482,11 +494,16 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
     const int8_t* __restrict__ k8c, const float* __restrict__ ksc,
     const int8_t* __restrict__ v8c, const float* __restrict__ vsc,
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    float* __restrict__ out, int R, int G, int S, int D, int splits, float scale) {
+    float* __restrict__ out, int R, int G, int S, int D, int splits, float scale,
+    const int* __restrict__ counts, int nkv) {
   __shared__ float sm_cs[kMaxS];  // the row's chunk scores
   const int bn = blockIdx.x;
   const int row = blockIdx.y;
   const int s = row / G;           // the row's chunk position
+  if (counts != nullptr && s >= __ldg(counts + bn / nkv)) {  // parked: zeros
+    for (int d = threadIdx.x; d < D; d += kThreads) out[((long long)bn * R + row) * D + d] = 0.f;
+    return;
+  }
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long cbase = (long long)bn * S;  // this (slot, head)'s chunk rows
@@ -547,7 +564,7 @@ __global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
     const float* __restrict__ mask, long long m_sb,
     float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
     int nkv, int W, int R, int S, int group, int rows, int splits, int piece_len, int vec16,
-    float scale) {
+    float scale, const int* __restrict__ counts) {
   using namespace chunk_attn;
   constexpr bool I8 = Cache<C>::kScaled;
   extern __shared__ __align__(16) unsigned char smem_v[];
@@ -559,6 +576,19 @@ __global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
   const int n = bn % nkv;
   const int piece = blockIdx.y;
   const long long cb = (long long)bn * S;  // the (slot, head)'s chunk rows
+  // Rows of this group at or past the slot's live count (counts[b] chunk
+  // positions, G rows each) are parked: they attend nothing and come out
+  // zero, written here with one piece and by the join with several.
+  const int n_rows = min(rows, R - row0);
+  const int n_live =
+      counts == nullptr ? n_rows : max(0, min(n_rows, __ldg(counts + b) * group - row0));
+  float* out_rows = out + ((long long)bn * R + row0) * D;
+  if (n_live == 0) {  // the whole group: no window work
+    if (splits == 1) {
+      for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x) out_rows[i] = 0.f;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     const long long k0 = (long long)piece * piece_len;
     Segment w;
@@ -591,7 +621,7 @@ __global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
     seg[1] = ch;
   }
   __syncthreads();
-  const Rows rw{q + ((long long)bn * R + row0) * D, D, min(rows, R - row0), row0, group,
+  const Rows rw{q + ((long long)bn * R + row0) * D, D, n_live, row0, group,
                 k_chunk + cb * D, v_chunk + cb * D, D};
   float acc[D / 8][4], m[2], l[2];
   const int ksplit = 64 / rows;
@@ -599,8 +629,9 @@ __global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
                                                    scale * kLog2e, smem_v, acc, m, l);
   const long long prow = ((long long)bn * splits + piece) * R + row0;
   if (splits == 1) {
-    finish<D, kVerifyWarps>(acc, m, l, ksplit, rw.n_rows, smem_v, nullptr,
-                            out + ((long long)bn * R + row0) * D, D, nullptr, nullptr);
+    finish<D, kVerifyWarps>(acc, m, l, ksplit, rw.n_rows, smem_v, nullptr, out_rows, D, nullptr,
+                            nullptr);
+    for (int i = n_live * D + threadIdx.x; i < n_rows * D; i += blockDim.x) out_rows[i] = 0.f;
   } else {
     finish<D, kVerifyWarps>(acc, m, l, ksplit, rw.n_rows, smem_v, nullptr, nullptr, 0,
                             part_acc + prow * D, part_ml + prow * 2);
@@ -612,11 +643,17 @@ __global__ void __launch_bounds__(kVerifyWarps * 32, 3) verify_attention_kernel(
 template <int D>
 __global__ void __launch_bounds__(256) verify_attention_kernel_join(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    float* __restrict__ out, int R, int splits) {
+    float* __restrict__ out, int R, int splits, const int* __restrict__ counts, int nkv,
+    int group) {
   constexpr int kRows = 512 / D;
   const int bn = blockIdx.x;
   const int r = blockIdx.y * kRows + threadIdx.x / (D / 2);
   if (r >= R) return;
+  if (counts != nullptr && r / group >= __ldg(counts + bn / nkv)) {  // a parked row: zeros
+    *reinterpret_cast<float2*>(out + ((long long)bn * R + r) * D + 2 * (threadIdx.x % (D / 2))) =
+        make_float2(0.f, 0.f);
+    return;
+  }
   chunk_attn::join_row<D, D / 2>(part_acc, part_ml, (long long)bn * splits * R + r, R, splits,
                                  threadIdx.x % (D / 2), out + ((long long)bn * R + r) * D);
 }
@@ -636,6 +673,8 @@ struct Args {
   // width, and the chunk (k_self / v_self above hold k_chunk / v_chunk).
   int R, S, group;
   const void* k8c; const void* ksc; const void* v8c; const void* vsc;
+  // Verify only, may be null: int32 [B], the live chunk positions a slot.
+  const int* counts;
 };
 
 template <typename T, typename C, int G, int VEC, bool VERIFY>
@@ -660,7 +699,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.k_self), static_cast<const T*>(a.v_self),
       static_cast<const float*>(a.mask), a.m_sb,
       static_cast<float*>(a.out), part_acc, part_ml, a.nkv, a.W, a.D, a.chunk, a.splits,
-      a.R, a.scale);
+      a.R, a.scale, a.counts, a.group);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (VERIFY) {
@@ -670,7 +709,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
             static_cast<const T*>(a.v_self), static_cast<const int8_t*>(a.k8c),
             static_cast<const float*>(a.ksc), static_cast<const int8_t*>(a.v8c),
             static_cast<const float*>(a.vsc), part_acc, part_ml, static_cast<float*>(a.out),
-            a.R, a.group, a.S, a.D, a.splits, a.scale);
+            a.R, a.group, a.S, a.D, a.splits, a.scale, a.counts, a.nkv);
     return cudaGetLastError();
   }
   if (a.splits == 1) return err;
@@ -750,12 +789,14 @@ cudaError_t launch_verify(const Args& a, int rows, int vec, cudaStream_t stream)
       static_cast<const int8_t*>(a.k8c), static_cast<const float*>(a.ksc),
       static_cast<const int8_t*>(a.v8c), static_cast<const float*>(a.vsc),
       static_cast<const float*>(a.mask), a.m_sb, static_cast<float*>(a.out), part_acc, part_ml,
-      a.nkv, a.W, a.R, a.S, a.group, rows, a.splits, a.chunk, vec == 16 ? 1 : 0, a.scale);
+      a.nkv, a.W, a.R, a.S, a.group, rows, a.splits, a.chunk, vec == 16 ? 1 : 0, a.scale,
+      a.counts);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   verify_attention_kernel_join<D><<<dim3((unsigned)(a.B * a.nkv), (a.R + 512 / D - 1) / (512 / D)),
                                     256, 0, stream>>>(part_acc, part_ml,
-                                                      static_cast<float*>(a.out), a.R, a.splits);
+                                                      static_cast<float*>(a.out), a.R, a.splits,
+                                                      a.counts, a.nkv, a.group);
   return cudaGetLastError();
 }
 
@@ -811,7 +852,8 @@ extern "C" int decode_attention_launch(
   }
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_self, v_self, mask, m_sb, out, part,
-               B, nkv, W, D, chunk, splits, scale, G, 1, G, nullptr, nullptr, nullptr, nullptr};
+               B, nkv, W, D, chunk, splits, scale, G, 1, G, nullptr, nullptr, nullptr, nullptr,
+               nullptr};
   return dispatch(dtype, cache, vec, G, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -826,6 +868,9 @@ extern "C" int decode_attention_launch(
 // f32 q (dtype 0, `rows` ignored): the grid is (B * nkv * splits) x R
 // split blocks of `chunk` positions, then B * nkv x R merge blocks; `part`
 // holds B * nkv * R * splits * (D + 2) floats whatever the split count.
+// counts: null, or int32 [B] on the device, each slot's live chunk
+// positions; a row r with r / group >= counts[b] attends nothing and is
+// written as zeros (a block whose rows are all parked does no window work).
 // Returns the first launch error.
 extern "C" int verify_attention_launch(
     int dtype, int cache, int vec, const void* q,
@@ -836,14 +881,15 @@ extern "C" int verify_attention_launch(
     const void* k_chunk, const void* v_chunk, const void* k8c, const void* ksc,
     const void* v8c, const void* vsc, const void* mask, long long m_sb,
     void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, int R, int S,
-    int group, int rows, float scale, void* stream) {
+    int group, int rows, float scale, const void* counts, void* stream) {
   if (S < 1 || S > kMaxS || group < 1 || R != S * group ||
       (cache == 0 && (k8c == nullptr || ksc == nullptr || v8c == nullptr || vsc == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k8, {k_sb, k_sh, k_sw}, ks, {ks_sb, ks_sh, ks_sw}, v8, {v_sb, v_sh, v_sw},
                vs, {vs_sb, vs_sh, vs_sw}, k_chunk, v_chunk, mask, m_sb, out, part,
-               B, nkv, W, D, chunk, splits, scale, R, S, group, k8c, ksc, v8c, vsc};
+               B, nkv, W, D, chunk, splits, scale, R, S, group, k8c, ksc, v8c, vsc,
+               static_cast<const int*>(counts)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if ((cache != 0 && cache != 1) || (vec != 16 && vec != 4) || B <= 0 || nkv <= 0 ||

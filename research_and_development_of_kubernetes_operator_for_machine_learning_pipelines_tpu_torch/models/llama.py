@@ -28,7 +28,10 @@ for packed multi-admission prefill (one launch per layer per packed
 forward: each packed row's chunk against the window of its cache row, int8
 or bf16, and its own causal keys).  ``decode_multistep`` chains K
 ``decode_ragged`` steps with no host sync, so the engine captures it as
-one CUDA graph (``server/cuda_graphs.py``).  The int8 position-major cache of
+one CUDA graph (``server/cuda_graphs.py``); so does ``super_step_ragged``,
+the unified engine's whole tick (decode, verify and packed-prefill rows in
+one forward through the verify chunk kernel with a live count a row, then
+the decode rows' K - 1 further steps).  The int8 position-major cache of
 ``_block`` (no engine caller, here or in the JAX package) keeps the
 reference's einsum chain.
 """
@@ -740,6 +743,7 @@ def _block_verify_deferred(
     mask_bias: torch.Tensor,
     cfg: LlamaConfig,
     window: int,
+    counts: torch.Tensor | None = None,
 ):
     """One decoder layer for multi-token ragged verify with the cache
     READ-ONLY: ``x`` is ``[B, S, H]``, row ``i``'s S tokens at positions
@@ -757,7 +761,9 @@ def _block_verify_deferred(
     earlier chunk key and value goes through the quantize round-trip (the
     diagonal stays exact), as it would have through the cache on the
     sequential path, so verify keeps token parity with plain int8kv
-    decode."""
+    decode.  ``counts`` (int32 ``[B]``, the super-step's live columns a
+    row) parks the attention of each row's columns at and past its count:
+    their outputs are zeros, which nothing downstream reads."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(x, lp, cos, sin, cfg)
@@ -774,13 +780,14 @@ def _block_verify_deferred(
         ctx4 = verify_attention(
             rows, k8[:, :, :window], ks[:, :, :window], v8[:, :, :window],
             vs[:, :, :window], k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask_bias[:, 0],
+            counts,
         )
         kv8 = tuple(t.transpose(1, 2) for t in (k8c, ksc, v8c, vsc))
     else:
         kv8 = None
         ctx4 = verify_attention_dense(
             rows, cache_k[:, :, :window].to(x.dtype), cache_v[:, :, :window].to(x.dtype),
-            k_chunk, v_chunk, mask_bias[:, 0],
+            k_chunk, v_chunk, mask_bias[:, 0], counts,
         )
     ctx = (ctx4.to(x.dtype).reshape(b, nkv, s, group, hd).transpose(1, 2)
            .reshape(b, s, nh * hd))
@@ -862,14 +869,16 @@ def _commit_chunk(cache, k_news, v_news, lengths, quant, active=None) -> None:
     _commit_chunk_at(cache, k_news, v_news, rows, write_base, quant)
 
 
-def _commit_chunk_at(cache, k_news, v_news, slots, offsets, quant) -> None:
+def _commit_chunk_at(cache, k_news, v_news, slots, offsets, quant, counts=None) -> None:
     """Commit a chunk's K/V ``[L, B, S, NKV, D]`` in place: row ``b``'s
     token ``j`` lands at ``(slots[b], offsets[b] + j)``, one batched
     scatter a buffer.  Positions past capacity are DROPPED, never clamped;
-    a parked row (``offsets[b] == capacity``) drops every write.  PyTorch
-    has no drop mode, so a dropped write is aimed ``S`` positions lower, at
-    a position of its own cache row below every write it keeps, and
-    stores back what is there.
+    a parked row (``offsets[b] == capacity``) drops every write, and with
+    ``counts`` (int ``[B]``) so does every column ``j >= counts[b]``.
+    PyTorch has no drop mode, so a dropped write stores back what its
+    target holds: a column parked by ``counts`` inside the cache is aimed
+    at its own position, one past capacity ``S`` positions lower, at a
+    position of its own cache row below every write it keeps.
 
     Unique-target contract: the (slot, position) targets must be pairwise
     distinct, which holds when every row's slot differs from every other
@@ -884,9 +893,11 @@ def _commit_chunk_at(cache, k_news, v_news, slots, offsets, quant) -> None:
         raise ValueError(f"chunk of {s} positions exceeds KV capacity {capacity}")
     dev = offsets.device
     rows = slots.to(torch.int64)[:, None]
-    pos = offsets.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
-    keep = pos < capacity
-    target = torch.where(keep, pos, pos - s)
+    j = torch.arange(s, device=dev)[None, :]
+    pos = offsets.to(torch.int64)[:, None] + j
+    inside = pos < capacity
+    keep = inside if counts is None else inside & (j < counts.to(torch.int64)[:, None])
+    target = torch.where(inside, pos, pos - s)
 
     def commit(buf, vals):
         # buf [L, NS, NKV, T, ...], vals [L, B, S, NKV, ...]; the advanced
@@ -1000,3 +1011,158 @@ def prefill_chunks_ragged(
     else:
         _commit_chunk_at(cache, *stacked, slots, offsets, quant)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# The unified ragged super-step (decode, verify and prefill rows, one forward)
+# ---------------------------------------------------------------------------
+
+# Per-row roles of :func:`super_step_ragged`: what each batch row does inside
+# ONE dispatch.  IDLE rows park every write.
+ROLE_IDLE = 0
+ROLE_DECODE = 1
+ROLE_VERIFY = 2
+ROLE_PREFILL = 3
+
+
+def _commit_block_at(cache, k_news, v_news, base, counts, quant) -> None:
+    """Commit a super-step block's K/V ``[L, B, S, NKV, D]`` in place with
+    PER-POSITION parking (the reference's ``_commit_block_at``): row ``b``'s
+    column ``j`` lands at ``base[b] + j`` of cache row ``b`` when ``j <
+    counts[b]`` and that position is inside the cache, and writes nothing
+    otherwise (one super-step row commits 1, draft + 1 or the chunk's
+    columns out of the same static-width block).  ``base[b] <= capacity``.
+    :func:`_commit_chunk_at` on rows ``0 .. B-1``, whose stored-back
+    targets stay distinct from the kept ones."""
+    rows = torch.arange(base.shape[0], device=base.device)
+    _commit_chunk_at(cache, k_news, v_news, rows, base, quant, counts)
+
+
+def super_step_ragged(
+    params: dict,
+    token_block: torch.Tensor,
+    cache: "RaggedKVCache | QuantRaggedKVCache",
+    cfg: LlamaConfig,
+    *,
+    roles: torch.Tensor,
+    offsets: torch.Tensor,
+    counts: torch.Tensor,
+    draft_len: torch.Tensor,
+    active: torch.Tensor,
+    remaining: torch.Tensor,
+    eos_ids: torch.Tensor,
+    steps: int,
+    sample_fn,
+    sample_carry=None,
+    dtype=torch.bfloat16,
+    window: int | None = None,
+):
+    """ONE dispatch advancing a ragged batch of MIXED roles (the
+    reference's ``super_step_ragged``): per row a packed-prefill chunk
+    commit (``ROLE_PREFILL``), a fused-K decode step with the sampling
+    chain (``ROLE_DECODE``), a speculative verify (``ROLE_VERIFY``), or
+    nothing (``ROLE_IDLE``).
+
+    ``token_block`` int ``[B, S]``: column 0 is a decode / verify row's
+    pending token or a prefill row's first chunk token; verify rows carry
+    their draft in columns ``1..draft_len``, prefill rows their chunk in
+    ``0..C-1``.  ``offsets`` int32 ``[B]`` is a prefill row's chunk base
+    (other roles read their cache length), ``counts`` int32 ``[B]`` the
+    leading columns that commit (0 parks the row, :func:`_commit_block_at`)
+    and that the verify chunk kernel attends for; ``active`` gates emission
+    and the length advance as in the split programs; ``remaining`` /
+    ``eos_ids`` are decode rows' budgets and stop tokens.
+
+    The wide forward is :func:`verify_ragged`'s: the strict cache mask
+    (``key_pos < base[b]``) and the in-chunk causal term in one softmax
+    through :func:`_block_verify_deferred` at ``window``.  Then the commit,
+    the greedy argmax and :func:`~.sampling.speculative_accept` for verify
+    rows; decode rows draw column 0 under ``decode_multistep``'s latch
+    order and run ``steps - 1`` more iterations of :func:`decode_multistep`,
+    so a seeded row draws the split programs' stream.  No tensor value is
+    read on the host, so the whole call can be captured as one CUDA graph.
+
+    ``window`` must cover a decode row's ``length + steps - 1``, a verify
+    row's length and a prefill row's offset (``superstep_window``).
+
+    Returns ``(logits [B, S, vocab] f32, tok_block [B, steps], valid [B],
+    greedy [B, S], accepted [B], toks [B, 1], cache, active_out,
+    remaining_out, carry_out)``: lengths advance by each decode row's
+    emitted count and each active verify row's accepted + 1 (prefill rows
+    advance at the engine's finalize)."""
+    from .sampling import speculative_accept
+
+    b, s = token_block.shape
+    quant = isinstance(cache, QuantRaggedKVCache)
+    lengths = cache.lengths
+    capacity = (cache.k8 if quant else cache.k).shape[3]
+    window = capacity if window is None else min(int(window), capacity)
+    dev = lengths.device
+
+    is_dec = roles == ROLE_DECODE
+    is_ver = roles == ROLE_VERIFY
+    # Write and read base a row: a prefill row at its chunk offset (its
+    # length stays 0 until finalize), every other role at its length.
+    base = torch.where(roles == ROLE_PREFILL, offsets, lengths).to(torch.int32)
+    counts = counts.to(torch.int32).contiguous()
+
+    x = params["embed"][token_block].to(dtype)
+    positions = base.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg)              # [B, S, D]
+    key_pos = torch.arange(window, device=dev)
+    valid_mask = key_pos[None, :] < base[:, None]        # [B, W], strict
+    mask_bias = torch.where(valid_mask, 0.0, -1e9).to(torch.float32)[:, None, None]
+
+    news = []  # each layer's block as the cache stores it
+    for l in range(cfg.num_layers):
+        if quant:
+            ck = (cache.k8[l], cache.k_scale[l])
+            cv = (cache.v8[l], cache.v_scale[l])
+        else:
+            ck, cv = cache.k[l], cache.v[l]
+        x, k_new, v_new, kv8 = _block_verify_deferred(
+            x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg, window=window,
+            counts=counts,
+        )
+        news.append(kv8 if quant else (k_new, v_new))
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _qmatmul(x, params["lm_head"])              # [B, S, vocab] f32
+    stacked = [torch.stack(t) for t in zip(*news)]
+    if quant:
+        k8, ks, v8, vs = stacked
+        _commit_block_at(cache, (k8, ks), (v8, vs), base, counts, quant)
+    else:
+        _commit_block_at(cache, *stacked, base, counts, quant)
+
+    # Verify rows: exact greedy acceptance over the wide logits (columns
+    # past draft_len are capped out by the per-row budget).
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, S]
+    accepted, nxt_v = speculative_accept(token_block, greedy, draft_len)
+    ver_act = is_ver & active
+    accepted = torch.where(ver_act, accepted, torch.zeros_like(accepted))
+
+    # Decode rows' step 1 of K: column 0 under decode_multistep's rule and
+    # latch order (every row's key advances on a sampling tick).
+    act_dec = active & is_dec
+    carry, sampled = sample_fn(logits[:, 0, :], sample_carry)
+    nxt_d = torch.where(act_dec, sampled.to(token_block.dtype), token_block[:, 0])
+    valid0 = act_dec.to(torch.int32)
+    remaining1 = remaining - valid0
+    act1 = act_dec & (nxt_d != eos_ids) & (remaining1 > 0)
+
+    lengths1 = lengths + valid0 + torch.where(ver_act, accepted + 1, torch.zeros_like(accepted))
+    cache = cache._replace(lengths=lengths1.to(lengths.dtype))
+
+    toks1 = torch.where(ver_act, nxt_v.to(token_block.dtype), nxt_d)[:, None]
+    if steps > 1:
+        tok_rest, valid_rest, toks2, cache, act2, rem2, carry = decode_multistep(
+            params, toks1, cache, cfg, act1, remaining1, eos_ids, steps - 1, sample_fn,
+            sample_carry=carry, dtype=dtype, window=window,
+        )
+        tok_block_out = torch.cat([nxt_d[:, None], tok_rest], dim=1)
+        valid = valid0 + valid_rest
+    else:
+        tok_block_out = nxt_d[:, None]
+        valid = valid0
+        toks2, act2, rem2 = toks1, act1, remaining1
+    return (logits, tok_block_out, valid, greedy, accepted, toks2, cache, act2, rem2, carry)

@@ -60,6 +60,15 @@ window every earlier chunk key and value goes through the round-trip
 sequential path.  At S = 1 it is the decode kernel's function.  S runs up
 to ``MAX_VERIFY_S`` (256, the prefill chunk).
 
+An optional ``counts`` (int32 ``[B]``) gives each slot's live chunk
+positions, for the unified super-step (``models/llama.py``
+``super_step_ragged``), whose rows share one static chunk width but commit
+1 (decode), draft + 1 (verify) or the prefill chunk's positions: rows ``r``
+with ``r // G >= counts[b]`` attend nothing and come out zero, and a
+kernel block whose rows are all parked does no window work.  The live rows
+are unchanged (the chunk term is causal, so no live row reads a parked
+key).  ``counts=None`` is the launch without it.
+
 With bf16 q (the serving type) the verify runs the tensor-core kernel of
 ``csrc/chunk_attention.cuh`` (``verify_attention_kernel``): one block a
 (slot, kv head, group of 16 / 32 / 64 query rows) x window piece, the
@@ -82,8 +91,10 @@ import torch
 from . import _build
 
 # Kernel launches since import, all four wrappers together: one per
-# call, the split kernel and its merge together.
+# call, the split kernel and its merge together.  ``verify_launches``
+# counts the two verify wrappers' calls again on their own.
 launches = 0
+verify_launches = 0
 
 # How the window is split (``num_splits``): the H100's SMs, the blocks of
 # the G = 1 kernel an SM holds at once (its launch bounds), the fewest
@@ -240,7 +251,7 @@ def _verify_kernel():
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, vp, vp, vp, vp, vp, vp, ll,
-            vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
+            vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp, vp,
         ]
         fn.restype = ctypes.c_int
         _verify_fn = fn
@@ -346,9 +357,10 @@ def _launch(q, k8, ks, v8, vs, k_self, v_self, mask):
     return out
 
 
-def _verify_shapes(q, k_chunk) -> tuple[int, int]:
+def _verify_shapes(q, k_chunk, counts=None) -> tuple[int, int]:
     """(S, G) of a verify call, or the ``ValueError`` the kernel's wrapper
-    and the plain versions alike raise for a shape it does not take."""
+    and the plain versions alike raise for a shape it does not take
+    (``counts``: None, or int32 ``[B]`` on q's device, contiguous)."""
     if q.dim() != 4 or k_chunk.dim() != 4:
         raise ValueError(f"verify attention: q {tuple(q.shape)} and the chunk "
                          f"{tuple(k_chunk.shape)} must be [B, NKV, rows, D]")
@@ -364,17 +376,23 @@ def _verify_shapes(q, k_chunk) -> tuple[int, int]:
     if k_chunk.shape != (q.shape[0], q.shape[1], s, d):
         raise ValueError(f"verify attention: chunk {tuple(k_chunk.shape)} does not match "
                          f"q {tuple(q.shape)}")
+    if counts is not None and (counts.dtype != torch.int32 or counts.shape != (q.shape[0],)
+                               or counts.device != q.device or not counts.is_contiguous()):
+        raise ValueError(f"verify attention: counts must be a contiguous int32 [{q.shape[0]}] "
+                         f"on {q.device}, got {counts.dtype} {tuple(counts.shape)} on "
+                         f"{counts.device}")
     return s, r // s
 
 
-def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask):
+def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask,
+                   counts=None):
     """The verify instance over an int8 window (``ks``, ``vs``, and the
     round-tripped chunk ``k8c``.. ``vsc``) or, with those None, a dense
-    window of q's type."""
-    global launches
+    window of q's type; ``counts`` as :func:`verify_attention`."""
+    global launches, verify_launches
     if q.device.type != "cuda":
         raise ValueError(f"verify attention: unsupported device {q.device}")
-    s, g = _verify_shapes(q, k_chunk)
+    s, g = _verify_shapes(q, k_chunk, counts)
     b, nkv, r, d = q.shape
     w = k8.shape[2]
     dense = ks is None
@@ -417,11 +435,12 @@ def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask
         mask.data_ptr(), mask.stride(0),
         out.data_ptr(), None if part is None else part.data_ptr(),
         b, nkv, w, d, splits, chunk, r, s, g, rows, 1.0 / math.sqrt(d),
-        _build.current_stream(q.device),
+        None if counts is None else counts.data_ptr(), _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"verify attention kernel launch failed: cudaError {rc}")
     launches += 1
+    verify_launches += 1
     return out
 
 
@@ -480,7 +499,7 @@ def decode_attention_vpu(q, k8, ks, v8, vs, k_self, v_self, mask):
     return decode_attention(q, k8, ks, v8, vs, k_self, v_self, mask)
 
 
-def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None):
+def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None, counts=None):
     """The reference's verify attention (``models/llama.py:1083-1152`` of
     the JAX package) on the kernel's layouts.  ``ks``/``vs``: the window's
     scales (None for a dense window); ``rt``: the round-tripped chunk
@@ -489,7 +508,8 @@ def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None):
     reference's -1e9 biases; the probabilities cast to the product's type
     (f64 for f64 inputs, else f32, as the kernel keeps them).  Any chunk
     length: the packed prefill's plain version (``ops.flash_attention``)
-    runs it at the prefill chunk."""
+    runs it at the prefill chunk.  ``counts``: rows at or past a slot's live
+    count come out zero."""
     s = k_chunk.shape[2]
     g = q.shape[2] // s
     d = q.shape[-1]
@@ -514,44 +534,56 @@ def _verify_chain(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, rt=None):
         p_win = p_win * vs[..., 0].to(torch.float32)[:, :, None, :]
     ctx = torch.einsum("bnrw,bnwd->bnrd", p_win.to(wide), v.to(wide))
     if rt is None:
-        return ctx + torch.einsum("bnrj,bnjd->bnrd", p_chunk.to(wide), v_chunk.to(wide))
-    _, _, v8c, vsc = rt
-    eyef = eye.to(probs.dtype)
-    ctx = ctx + torch.einsum("bnrj,bnjd->bnrd", (p_chunk * eyef).to(wide), v_chunk.to(wide))
-    below = p_chunk * (1.0 - eyef) * vsc[..., 0].to(torch.float32)[:, :, None, :]
-    return ctx + torch.einsum("bnrj,bnjd->bnrd", below.to(wide), v8c.to(wide))
+        ctx = ctx + torch.einsum("bnrj,bnjd->bnrd", p_chunk.to(wide), v_chunk.to(wide))
+    else:
+        _, _, v8c, vsc = rt
+        eyef = eye.to(probs.dtype)
+        ctx = ctx + torch.einsum("bnrj,bnjd->bnrd", (p_chunk * eyef).to(wide),
+                                 v_chunk.to(wide))
+        below = p_chunk * (1.0 - eyef) * vsc[..., 0].to(torch.float32)[:, :, None, :]
+        ctx = ctx + torch.einsum("bnrj,bnjd->bnrd", below.to(wide), v8c.to(wide))
+    if counts is None:
+        return ctx
+    live = row_s[None, :] < counts.to(row_s.device)[:, None]    # [B, S*G]
+    return torch.where(live[:, None, :, None], ctx, ctx.new_zeros(()))
 
 
 def verify_attention_reference(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc,
-                               mask):
+                               mask, counts=None):
     """Plain PyTorch version of :func:`verify_attention`: the int8 window
     with its scales, the chunk's exact diagonal and its round-tripped rows
     below it.  Returns f32 (f64 for f64 inputs)."""
-    _verify_shapes(q, k_chunk)
-    return _verify_chain(q, k8, v8, k_chunk, v_chunk, mask, ks, vs, (k8c, ksc, v8c, vsc))
+    _verify_shapes(q, k_chunk, counts)
+    return _verify_chain(q, k8, v8, k_chunk, v_chunk, mask, ks, vs, (k8c, ksc, v8c, vsc),
+                         counts)
 
 
-def verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask):
+def verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask, counts=None):
     """Plain PyTorch version of :func:`verify_attention_dense`: every chunk
     key exact, as on the dense cache.  Returns f32 (f64 for f64 inputs)."""
-    _verify_shapes(q, k_chunk)
-    return _verify_chain(q, k, v, k_chunk, v_chunk, mask)
+    _verify_shapes(q, k_chunk, counts)
+    return _verify_chain(q, k, v, k_chunk, v_chunk, mask, counts=counts)
 
 
-def verify_attention(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask):
+def verify_attention(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask,
+                     counts=None):
     """Verify attention over an int8 window: S chunk rows a (slot, kv
     head, group), the window under the strict mask plus the chunk's causal
-    keys, one launch.  CPU tensors take the plain version; CUDA tensors
-    the kernel, or a ``ValueError``."""
+    keys, one launch; ``counts`` (int32 ``[B]``, optional) parks each
+    slot's rows at and past its live count.  CPU tensors take the plain
+    version; CUDA tensors the kernel, or a ``ValueError``."""
     if q.device.type == "cpu":
         return verify_attention_reference(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc,
-                                          v8c, vsc, mask)
-    return _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask)
+                                          v8c, vsc, mask, counts)
+    return _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask,
+                          counts)
 
 
-def verify_attention_dense(q, k, v, k_chunk, v_chunk, mask):
-    """Verify attention over a dense window of q's type.  CPU tensors take
-    the plain version; CUDA tensors the kernel, or a ``ValueError``."""
+def verify_attention_dense(q, k, v, k_chunk, v_chunk, mask, counts=None):
+    """Verify attention over a dense window of q's type (``counts`` as
+    :func:`verify_attention`).  CPU tensors take the plain version; CUDA
+    tensors the kernel, or a ``ValueError``."""
     if q.device.type == "cpu":
-        return verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask)
-    return _launch_verify(q, k, None, v, None, k_chunk, v_chunk, None, None, None, None, mask)
+        return verify_attention_dense_reference(q, k, v, k_chunk, v_chunk, mask, counts)
+    return _launch_verify(q, k, None, v, None, k_chunk, v_chunk, None, None, None, None, mask,
+                          counts)

@@ -55,7 +55,10 @@ The radix prefix cache (``--prefix-cache*``), self-speculative n-gram
 decoding (``--speculative*``), packed multi-admission prefill
 (``--prefill-batch``, ``--prefill-token-budget``) and fused multi-step
 decode (``--decode-steps``) are the reference's serving knobs, refused at
-startup with the reference's messages when out of range.
+startup with the reference's messages when out of range; the unified
+ragged super-step (``--unified-step 1``, the flag the reference operator's
+builder derives from a manifest's ``spec.tpu.unifiedStep``) runs every
+tick as one dispatch (tick kind ``superstep``).
 """
 
 from __future__ import annotations
@@ -167,6 +170,9 @@ class ServerConfig:
     # Fused multi-step decode (spec.tpu.decodeSteps): decode iterations a
     # dispatch, 1 the single-step tick.
     decode_steps: int = 1
+    # The unified ragged super-step (spec.tpu.unifiedStep): every tick ONE
+    # dispatch of decode, verify and packed-prefill rows.
+    unified_step: bool = False
     device: str | None = None
     # The V2 predict path's dynamic batcher.
     max_batch_size: int = 32
@@ -272,6 +278,7 @@ def make_gen_engine(predictor, config: ServerConfig,
         prefill_token_budget=config.prefill_token_budget,
         on_prefill_batch=m.observe_prefill_batch,
         decode_steps=config.decode_steps,
+        unified_step=config.unified_step,
         device=config.device,
         admission_queue_budget=config.admission_queue_budget,
         on_step=m.observe_decode_step,
@@ -922,6 +929,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "captured at startup, on-device sampling and EOS latch, lag-1 token "
                          "readback; engages only when no admissions or drafts are pending). "
                          "1 = the single-step tick; max 16")
+    ap.add_argument("--unified-step", type=int, default=0,
+                    help="1: the unified ragged super-step engine: ONE dispatch a tick "
+                         "covers packed-prefill chunks, fused-K decode and speculative "
+                         "verify through per-row roles (a CUDA graph per window bucket and "
+                         "token rule); 0 (default) keeps the split engine")
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-batch-delay-ms", type=float, default=5.0)
     ap.add_argument("--admission-queue-budget", type=int, default=0,
@@ -974,7 +986,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
         prefill_chunk=args.prefill_chunk, device=args.device,
         prefill_batch=args.prefill_batch, prefill_token_budget=args.prefill_token_budget,
-        decode_steps=args.decode_steps,
+        decode_steps=args.decode_steps, unified_step=bool(args.unified_step),
         max_batch_size=args.max_batch_size, max_batch_delay_ms=args.max_batch_delay_ms,
         admission_queue_budget=args.admission_queue_budget,
         drain_grace_s=args.drain_grace_seconds,

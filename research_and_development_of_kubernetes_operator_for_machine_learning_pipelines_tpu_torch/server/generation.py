@@ -65,6 +65,20 @@ start for its (window, token rule) (``server/cuda_graphs.py``); the
 window is pre-picked to cover every row's length + K - 1.  K = 1 is the
 single-step tick.
 
+Unified ragged super-step (``unified_step``): EVERY tick is one dispatch,
+``llama.super_step_ragged`` over per-row roles: each occupied slot decodes
+(K steps, the sampling chain and the EOS latch on the device) or, on an
+all-greedy tick with a draft in hand, verifies; up to the packed budget of
+in-flight packed admissions ride the same dispatch as prefill rows, and
+the rows whose chunk completes their prompt are finalized inside it (their
+sampling state, length and first token).  The block is one static width,
+``max(draft_tokens + 1, prefill_chunk)`` (at most the verify chunk kernel's
+256 positions), and each row tells the kernel how many of its columns are
+live.  On the card every tick replays a CUDA graph captured at start for
+its (window, token rule); the tick's inputs are host arrays, read back
+synchronously.  The split engine's decode, verify, multistep and
+packed-prefill programs are never built or run; seeds stay their own op.
+
 Hooks (all optional, called on the scheduler thread): ``on_step`` per
 decode or verify tick and idle pass, ``on_tokens``/``on_itl`` per emitted
 token, ``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per
@@ -79,9 +93,8 @@ tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
 and draft tokens.
 
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): the unified super-step, SLO classes and
-preemption, the mesh, multi-host, the watchdog, the flight recorder,
-device telemetry and poison quarantine.
+asked for): SLO classes and preemption, the mesh, multi-host, the
+watchdog, the flight recorder, device telemetry and poison quarantine.
 """
 
 from __future__ import annotations
@@ -101,8 +114,9 @@ import torch
 from ..models import llama
 from ..models import prng
 from ..models.sampling import sample_chain_step, speculative_accept
+from ..ops.decode_attention import MAX_VERIFY_S
 from .batching import next_bucket
-from .cuda_graphs import MultistepProgram
+from .cuda_graphs import MultistepProgram, SuperstepProgram
 from .prefix_cache import RadixPrefixCache
 from .speculative import DraftState, draft_chain, pad_to_chain, propose_ngram
 
@@ -174,6 +188,16 @@ def decode_window_buckets(capacity: int) -> list[int]:
         b *= 2
     out.add(capacity)
     return sorted(out)
+
+
+def superstep_window(decode_hi: int, other_hi: int, steps: int, capacity: int) -> int:
+    """The window of a unified super-step dispatch: one static window serves
+    every row of the tick, so it covers each role's worst case, a decode row
+    at next-write position ``decode_hi`` attending up to ``decode_hi +
+    steps - 1`` by its last fused step, a verify or prefill row strictly
+    below its length or offset (``other_hi``, their max)."""
+    need = max(1, decode_hi + (steps - 1) if decode_hi > 0 else 1, other_hi)
+    return decode_window_bucket(min(need, capacity), capacity)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -263,7 +287,6 @@ _NOT_PORTED = {
     "channel": None,
     "recorder": None,
     "telemetry": None,
-    "unified_step": False,
     "watchdog": None,
     "mesh_shape": None,
     "slo_class": None,
@@ -317,6 +340,7 @@ class GenerationEngine:
         speculative=None,  # SpeculativeConfig | None
         on_spec: Callable[[int, int], None] | None = None,
         decode_steps: int = 1,
+        unified_step: bool = False,
         **unported,
     ):
         for name, value in unported.items():
@@ -435,7 +459,26 @@ class GenerationEngine:
         if not (1 <= self._decode_steps <= 16):
             raise ValueError(f"decode_steps must be in [1, 16], got {decode_steps}")
         self._fused = self._decode_steps > 1
-        self._program: MultistepProgram | None = None
+        # Unified ragged super-step: every tick one dispatch of decode,
+        # verify and packed-prefill rows.  Its static block width is the
+        # largest verify chain and the prefill chunk (1 with neither); the
+        # verify chunk kernel it runs takes at most MAX_VERIFY_S.
+        self._unified = bool(unified_step)
+        sw = 1
+        if self._spec is not None:
+            sw = max(sw, int(self._spec.draft_tokens) + 1)
+        if self._packed:
+            sw = max(sw, int(self._prefill_chunk_size))
+        self._super_width = sw
+        if self._unified and sw > MAX_VERIFY_S:
+            raise ValueError(
+                f"unified_step: the super-step width max(draftTokens + 1, prefillChunk) = "
+                f"{sw} exceeds the {MAX_VERIFY_S} chunk positions the verify chunk kernel "
+                "takes; use a prefillChunk of at most 256 or the split engine"
+            )
+        # The graph program: the super-step on a unified engine, the fused
+        # multi-step burst on a split one with K > 1, else none.
+        self._program: MultistepProgram | SuperstepProgram | None = None
         self._capture = False  # graphs wanted (a started CUDA engine)
         # Device dispatches by tick kind, as the reference keeps them.
         self.dispatches_total: dict[str, int] = {}
@@ -489,23 +532,46 @@ class GenerationEngine:
         self._topk = torch.zeros((self.max_slots,), dtype=torch.int32, device=dev)
         self._topp = torch.ones((self.max_slots,), dtype=torch.float32, device=dev)
         self._keys = prng.split(prng.key(0, dev), self.max_slots)  # [slots, 2]
-        if self._fused:
-            # A new cache: graphs of the old one would write freed memory.
-            if self._program is not None:
-                self._program.drop()
+        # A new cache: graphs of the old one would write freed memory.
+        if self._program is not None:
+            self._program.drop()
+            self._program = None
+        if self._unified:
+            self._program = SuperstepProgram(self._params, self._cfg, self._cache,
+                                             self._decode_steps, self._super_width,
+                                             self._dtype, dev)
+            self._bind_program_state()
+        elif self._fused:
             self._program = MultistepProgram(self._params, self._cfg, self._cache,
                                              self._decode_steps, self._dtype, dev)
-            if self._capture:
-                self._capture_graphs()
+        if self._program is not None and self._capture:
+            self._capture_graphs()
+
+    def _bind_program_state(self) -> None:
+        """The unified engine's device state IS the super-step program's
+        buffers: the engine's tensors are copied in first where one is not
+        the buffer (a tensor an admission replaced, such as
+        ``insert_sequence``'s lengths), then the engine points at them."""
+        prog = self._program
+        prog.load_state(self._tokens, self._cache.lengths, self._keys, self._temps,
+                        self._topk, self._topp)
+        self._tokens, self._keys = prog.tokens, prog.keys
+        self._temps, self._topk, self._topp = prog.temps, prog.topk, prog.topp
+        self._cache = prog.cache
 
     def _capture_graphs(self) -> None:
         """One graph per window bucket and token rule, on all-inactive rows
-        (what the reference's warmup sweep compiles)."""
+        or a parked super-step (what the reference's warmup sweep
+        compiles)."""
         prog = self._program
         windows = decode_window_buckets(self.capacity)
+        kind = "multistep"
+        if self._unified:
+            prog.stage(*self._parked_superstep())
+            kind = "superstep"
         prog.capture(windows)
-        _log.info("captured %d multistep graphs (K=%d) in %.2f s; pool %.1f MiB",
-                  len(prog.graphs), self._decode_steps, prog.capture_s,
+        _log.info("captured %d %s graphs (K=%d) in %.2f s; pool %.1f MiB",
+                  len(prog.graphs), kind, self._decode_steps, prog.capture_s,
                   prog.pool_bytes() / 2**20)
 
     # -- lifecycle -----------------------------------------------------------
@@ -513,7 +579,7 @@ class GenerationEngine:
     def start(self, warmup: bool = True) -> None:
         """Start the scheduler thread.  ``warmup`` builds the CUDA kernels
         first (nothing to compile on the CPU), so no request pays nvcc.
-        A fused engine on the card captures its multi-step graphs here,
+        A fused or unified engine on the card captures its graphs here,
         warm-up or not: a capture on first use would stall every stream.
         It admits no prompt, so nothing reads or fills the prefix cache
         before the first request."""
@@ -521,7 +587,7 @@ class GenerationEngine:
             from ..ops import _build
 
             _build.build()
-        if self._fused and self._device.type == "cuda":
+        if self._program is not None and self._device.type == "cuda":
             self._capture = True
             self._capture_graphs()
         self._thread = threading.Thread(
@@ -1205,7 +1271,11 @@ class GenerationEngine:
     def _step(self) -> None:
         """One batched decode tick over every occupied slot.  With
         speculation on and every occupied slot greedy, a tick in which any
-        slot drafts is a verify tick instead."""
+        slot drafts is a verify tick instead.  The unified engine sends
+        every tick to the super-step instead."""
+        if self._unified:
+            self._super_tick()
+            return
         active_np = np.array([s is not None for s in self._slots])
         if not active_np.any():
             # Idle heartbeat: the occupancy gauges must not freeze at
@@ -1441,6 +1511,181 @@ class GenerationEngine:
         self._cache = self._cache._replace(lengths=self._cache.lengths + advance)
         return greedy.cpu().numpy(), accepted.cpu().numpy()
 
+    # -- the unified ragged super-step (unified_step) ---------------------------
+
+    def _parked_superstep(self) -> tuple:
+        """A fully parked super-step's host inputs: every row idle (zero
+        counts park every K/V write, inactive rows emit nothing, ``last_pos``
+        -1 finalizes nothing) with neutral sampling parameters.  The capture
+        stages it as it is; :meth:`_super_tick` overwrites the tick's rows."""
+        B, S = self.max_slots, self._super_width
+        return (
+            np.zeros((B, S), np.int64),   # ids
+            np.zeros((B,), np.int32),     # roles (all ROLE_IDLE)
+            np.zeros((B,), np.int32),     # offsets
+            np.zeros((B,), np.int32),     # counts
+            np.zeros((B,), np.int32),     # draft_len
+            np.zeros((B,), bool),         # active
+            np.zeros((B,), np.int32),     # remaining
+            np.full((B,), -1, np.int32),  # eos_ids
+            np.full((B,), -1, np.int32),  # last_pos
+            np.zeros((B,), np.int32),     # final_lens
+            np.zeros((B, 2), np.int64),   # slot keys
+            np.zeros((B,), np.float32),   # r_temps
+            np.zeros((B,), np.int32),     # r_tks
+            np.ones((B,), np.float32),    # r_tps
+        )
+
+    def _super_tick(self) -> None:
+        """ONE dispatch a tick: every occupied slot as a decode row or, on an
+        all-greedy tick with a draft in hand, a verify row, and up to the
+        packed budget of in-flight admissions' next chunks as prefill rows;
+        then the harvest of all three roles from the one readback."""
+        B = self.max_slots
+        occupied = np.array([s is not None for s in self._slots])
+        chunk_progs: list[_PrefillProgress] = []
+        if self._packed and self._pending:
+            C = self._prefill_chunk_size
+            max_chunks = self._prefill_batch
+            if self._prefill_token_budget:
+                max_chunks = min(max_chunks, max(1, self._prefill_token_budget // C))
+            for prog in self._pending[:max_chunks]:
+                if prog.cached_tokens and not prog.seeded:
+                    # Seeds stay their own op: a radix copy is not a forward.
+                    t0 = time.perf_counter()
+                    self._device_seed_slot(prog.cached_kv, prog.slot)
+                    prog.seeded = True
+                    prog.cached_kv = []
+                    self._note_prefix_hit(prog)
+                    self._record_tick("seed", time.perf_counter() - t0)
+                else:
+                    chunk_progs.append(prog)
+        if not occupied.any() and not chunk_progs:
+            self._note_step(0, 0.0)
+            return
+        K = self._decode_steps
+        sampling = any(s is not None and s.sampling for s in self._slots)
+        drafts: list[list[int]] = [[] for _ in range(B)]
+        if self._spec is not None and not sampling and occupied.any():
+            drafts = self._collect_drafts()
+        (ids, roles, offsets, counts, draft_len, active, remaining, eos_ids, last_pos,
+         final_lens, slot_keys, r_temps, r_tks, r_tps) = self._parked_superstep()
+        decode_hi = other_hi = 0
+        n_ver = 0
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            pos = slot.prompt_len + len(slot.generated)
+            ids[i, 0] = slot.generated[-1]  # the pending (emitted, unfed) token
+            active[i] = True
+            d = drafts[i]
+            if d:
+                roles[i] = llama.ROLE_VERIFY
+                ids[i, 1:1 + len(d)] = d
+                draft_len[i] = len(d)
+                counts[i] = len(d) + 1
+                other_hi = max(other_hi, pos)
+                n_ver += 1
+            else:
+                roles[i] = llama.ROLE_DECODE
+                counts[i] = 1
+                remaining[i] = slot.remaining
+                if slot.eos_id is not None:
+                    eos_ids[i] = slot.eos_id
+                decode_hi = max(decode_hi, pos)
+        C = self._prefill_chunk_size
+        for prog in chunk_progs:
+            i, req = prog.slot, prog.req
+            roles[i] = llama.ROLE_PREFILL
+            off = prog.cached_tokens + prog.next_idx * C
+            offsets[i] = off
+            counts[i] = C
+            ids[i, :C] = prog.chunks[prog.next_idx][0]
+            other_hi = max(other_hi, off)
+            if prog.next_idx == len(prog.chunks) - 1:
+                L = int(req.prompt.size)
+                last_pos[i] = (L - 1) - off
+                final_lens[i] = L
+                r_temps[i], r_tks[i], r_tps[i] = req.temperature, req.top_k, req.top_p
+                key = self._slot_key_for(req)
+                if key is not None:  # greedy: the draw takes the argmax
+                    slot_keys[i] = key.cpu().numpy()
+        window = superstep_window(decode_hi, other_hi, K, self.capacity)
+        n_pre = len(chunk_progs)
+        t0 = time.perf_counter()
+        out = self._device_superstep(ids, roles, offsets, counts, draft_len, active,
+                                     remaining, eos_ids, last_pos, final_lens, slot_keys,
+                                     r_temps, r_tks, r_tps, window, sampling)
+        end = time.perf_counter()
+        wall = end - t0
+        # The finalize draws every row's first token; a sampling tick adds K steps.
+        self.sample_steps += 1 + (K if sampling else 0)
+        self.decode_forwards += 1
+        if n_pre:
+            self.prefill_chunks_dispatched += n_pre
+            self.prefill_forwards += 1
+            if self._on_prefill_batch is not None:
+                self._on_prefill_batch(n_pre)
+        if n_ver:
+            self.spec_verify_ticks += 1
+        self._record_tick("superstep", wall)
+        self._note_step(int(occupied.sum()), wall)
+        # Prefill harvest: the packed tick's bookkeeping.
+        for prog in chunk_progs:
+            if prog.req.stats is not None:
+                prog.req.stats.prefill_chunks += 1
+            self._maybe_cache_chunk(prog)
+            prog.next_idx += 1
+            if prog.next_idx < len(prog.chunks):
+                continue
+            self._pending.remove(prog)
+            self._reserved.discard(prog.slot)
+            self._slots[prog.slot] = self._new_slot(prog.req)
+            self._note_ttft(prog.req)
+            self._record_token(prog.slot, int(out.firsts[prog.slot]))
+        # Decode and verify harvest from the same readback.
+        for i in range(B):
+            slot = self._slots[i]
+            if not occupied[i] or slot is None:
+                continue
+            if roles[i] == llama.ROLE_VERIFY:
+                n_prop, n_acc = int(draft_len[i]), int(out.accepted[i])
+                slot.draft.observe(n_prop, n_acc)
+                self.spec_proposed_tokens += n_prop
+                self.spec_accepted_tokens += n_acc
+                if slot.stats is not None:
+                    slot.stats.spec_proposed += n_prop
+                    slot.stats.spec_accepted += n_acc
+                if self._on_spec is not None:
+                    self._on_spec(n_prop, n_acc)
+                for j in range(n_acc + 1):
+                    self._record_token(i, int(out.greedy[i, j]))
+                    if self._slots[i] is None:
+                        break
+                continue
+            n = int(out.valid[i])
+            # Tokens spaced across the tick's wall (the fused harvest's rule):
+            # K tokens on one instant would read every ITL as 0.
+            base = max(t0, slot.t_last_token)
+            span = max(end - base, 0.0)
+            for j in range(n):
+                self._record_token(i, int(out.tok_block[i, j]), t=base + span * (j + 1) / n)
+                if self._slots[i] is None:
+                    break  # finished (EOS, budget) or cancelled mid-block
+
+    def _device_superstep(self, ids, roles, offsets, counts, draft_len, active, remaining,
+                          eos_ids, last_pos, final_lens, slot_keys, r_temps, r_tks, r_tps,
+                          window: int, sampling: bool):
+        """One unified tick on the program: the engine's state into its
+        buffers (nothing to copy unless an admission replaced a tensor), the
+        host inputs staged, one replay (the eager call on the CPU) and the
+        synchronous readback (``cuda_graphs.SuperstepOut``)."""
+        self._bind_program_state()
+        prog = self._program
+        prog.stage(ids, roles, offsets, counts, draft_len, active, remaining, eos_ids,
+                   last_pos, final_lens, slot_keys, r_temps, r_tks, r_tps)
+        return prog.dispatch(window, sampling)
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             if not self._admit_phase():
@@ -1528,6 +1773,10 @@ class GenerationEngine:
             self._pending.append(prog)
             popped = True
         if not self._pending:
+            return True
+        if self._unified:
+            # The chunks ride the next super-step dispatch; a failure there
+            # runs _loop's recovery, which fails packed admissions too.
             return True
         try:
             self._packed_tick()

@@ -285,8 +285,9 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("channel", object()), ("unified_step", True), ("telemetry", object()),
+    ("channel", object()), ("watchdog", object()), ("telemetry", object()),
     ("preemption", True), ("slo_class", "batch"), ("mesh_shape", {"tp": 2}),
+    ("recorder", object()),
 ])
 def test_unported_engine_options_raise(tiny, option, value):
     _, tcfg, _, tp = tiny

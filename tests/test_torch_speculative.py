@@ -210,16 +210,17 @@ def _verify_inputs(B, NKV, S, G, D, W, lengths, seed, quant, near_clip=False):
     return q, k, v, k_chunk, v_chunk, mask, None, None
 
 
-def _port_verify(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, fn=None):
+def _port_verify(q, k, v, k_chunk, v_chunk, mask, ks=None, vs=None, fn=None, counts=None):
     t = [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
          for a in (q, k, v, k_chunk, v_chunk, mask, ks, vs)]
     q, k, v, k_chunk, v_chunk, mask, ks, vs = t
     if ks is None:
-        return (fn or tda.verify_attention_dense)(q, k, v, k_chunk, v_chunk, mask)
+        return (fn or tda.verify_attention_dense)(q, k, v, k_chunk, v_chunk, mask,
+                                                  counts=counts)
     k8c, ksc = T._quant_kv(k_chunk)
     v8c, vsc = T._quant_kv(v_chunk)
     return (fn or tda.verify_attention)(q, k, ks, v, vs, k_chunk, v_chunk, k8c, ksc, v8c,
-                                        vsc, mask)
+                                        vsc, mask, counts=counts)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
@@ -314,14 +315,18 @@ def _plan(b, nkv, r, w, splits=None):
                            else b * nkv * -(-r // rows) * splits)
 
 
-def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None, round_p=False):
+def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None, round_p=False,
+                      counts=None):
     """The bf16 verify kernel's algebra in f64 torch: the plan of
     ``tda.verify_plan`` (``splits``: that many window pieces asked for),
     each row group of ``plan.rows`` rows attending each window piece, the
     last piece also the chunk (round-trip codes and scales below the
     diagonal on the int8 window, the exact diagonal), through ``_slices``
     with the 64 / rows warps of a row tile; the warps joined, then the
-    pieces.  ``round_p``: p enters P . V as the kernel's hi/lo bf16 pair."""
+    pieces.  ``round_p``: p enters P . V as the kernel's hi/lo bf16 pair.
+    ``counts`` (a slot's live chunk positions): a row group's rows at or
+    past ``counts[b] * G`` attend nothing and stay zero, and a group with
+    no live row of any slot is skipped, as the kernel's blocks exit."""
     q, k, v, kc, vc, mask = (torch.from_numpy(np.asarray(a, np.float64))
                              for a in (q, k, v, k_chunk, v_chunk, mask))
     b, nkv, r, d = q.shape
@@ -342,7 +347,8 @@ def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None, roun
                     torch.ones((b, nkv, s), dtype=torch.float64))
     out = torch.zeros((b, nkv, r, d), dtype=torch.float64)
     rnd = _hi_lo if round_p else (lambda x: x)
-    for r0 in range(0, r, plan.rows):
+    live_rows = r if counts is None else int(max(counts)) * g
+    for r0 in range(0, min(r, live_rows), plan.rows):
         rr = torch.arange(r0, min(r, r0 + plan.rows))
         pos = rr // g
         qr = qs[:, :, rr]
@@ -356,7 +362,33 @@ def _verify_emulation(q, k, v, k_chunk, v_chunk, mask, ks, vs, splits=None, roun
             parts.append(_join(_slices(qr, segs, pos, 64 // plan.rows, rnd)))
         _, l, acc = _join(parts)
         out[:, :, rr] = acc / l[..., None]
+    if counts is not None:
+        live = (torch.arange(r) // g)[None, :] < torch.as_tensor(counts)[:, None]
+        out = torch.where(live[:, None, :, None], out, torch.zeros((), dtype=out.dtype))
     return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("S,G,W,counts", [(5, 1, 768, (1, 5, 0, 3)), (17, 4, 97, (1, 17, 2, 9)),
+                                          (256, 1, 64, (1, 1, 5, 256)),
+                                          (256, 1, 200, (1, 1, 1, 1))])
+def test_kernel_with_live_counts_matches_the_plain_version(quant, S, G, W, counts):
+    """The super-step's row mixes (decode 1, verify draft + 1, a prefill
+    chunk, an idle 0): the emulation with the kernel's parked groups equals
+    the plain version with ``counts``, whose live rows equal the call
+    without it and whose parked rows are zero."""
+    B, NKV, D = 4, 2, 16
+    args = _verify_inputs(B, NKV, S, G, D, W, [0, 1, W - 1, W // 2], seed=S + W, quant=quant)
+    q, k, v, kc, vc, mask, ks, vs = args
+    counts_t = torch.tensor(counts, dtype=torch.int32)
+    got = _verify_emulation(q, k, v, kc, vc, mask, ks, vs, counts=counts).numpy()
+    want = _port_verify(*args, counts=counts_t).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    full = _port_verify(*args).numpy()
+    live = (np.arange(S * G) // G)[None, :] < np.asarray(counts)[:, None]
+    np.testing.assert_array_equal(want.transpose(0, 2, 1, 3)[live],
+                                  full.transpose(0, 2, 1, 3)[live])
+    assert not want.transpose(0, 2, 1, 3)[~live].any()
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
