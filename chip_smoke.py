@@ -239,6 +239,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    share of one 5 + 16 request on each engine (the union of the device
    intervals over the wall of the same profiled request); peak memory;
    greedy agreement of the two engines (reported).
+   5g: SLO classes and mid-decode preemption on the bf16 tree (``none``,
+   the split engine at K 4) and, after the quantization, on int8kv (the
+   unified engine, K 4, chunks of 256 packed 4, 4 drafts), 4 slots, the
+   prefix cache at 512 MiB with L2 256 MiB, ``--slo-class batch
+   --preemption 1``.  (a) An engine driven by hand, never started: four
+   best-effort streams (300 + 40, one seeded and sampled), and once each
+   holds 16 tokens an interactive request (200 + 8) submitted from a
+   stream's ``on_token``; every slot's cache row over ``[0, hist)`` and its
+   state rows (length, pending token, key row, temperature, top-k, top-p)
+   snapshot at each tick boundary until the eviction; the restore held to
+   the victim's snapshot bit-equal (a bf16 engine's int8 scales come back
+   exactly from ``bf16(code x scale)``; the int8 row also equal to the
+   snapshot requantized on the card, and the CPU quantizer's difference
+   on it reported), its state rows bit-equal, on the unified engine the engine's
+   state still the program's buffers; then one graph replay on the
+   restored state against the eager tick, bit-equal.  (b) A server: four
+   best-effort SSE streams (300 + 256, one seeded at T 0.8 / top_k 50 /
+   top_p 0.95), and once each has 16 tokens two interactive SSE requests
+   (200 + 32): every stream whole, evictions >= 1 and restores equal to
+   them, nothing recomputed, ``tpumlops_engine_preempt_total{event}`` on
+   ``/metrics`` equal to the engine's counters, every unified tick a graph
+   replay, the launch identities over the traffic (counters set to 0 just
+   before it).  On ``none`` the same traffic on a server with classes but
+   no preemption.  Prints the interactive TTFT p50 / max with and without
+   preemption, evict and restore ms (synchronized host walls), KV bytes an
+   eviction, L2 hits, and the preempted greedy streams' agreement with the
+   clean run (reported: the window buckets differ).
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -3614,7 +3641,7 @@ SPLIT_OPS = 2 * (GUMBEL_OPS - 3)
 SAMPLE_MIXES = {"smoke": (0.8, 50, 0.95), "none": (1.0, 0, 1.0), "top_p": (0.7, 0, 0.9),
                 "top_k1": (0.8, 1, 1.0)}
 MS_STEPS = (1, 4, 8)  # decode_steps served in turns
-MS_REPEATS = 3
+MS_REPEATS = 2  # turns a K (3 until the preemption phase 5g took their time)
 MS_NEW = 24  # new tokens a request
 
 
@@ -4721,6 +4748,506 @@ def phase_serve_7b_unified(da, rn, fa, ss, smi: str, params, quantize: str) -> d
 
 
 # ---------------------------------------------------------------------------
+# Phase 5g: SLO classes and mid-decode preemption
+# ---------------------------------------------------------------------------
+
+PRE_SLOTS = 4
+PRE_BE = (300, 256)   # best-effort streams: prompt, new tokens (served)
+PRE_IA = (200, 32)    # interactive requests: prompt, new tokens (served)
+PRE_TRIGGER = 16      # tokens each best-effort stream holds before the interactive ones
+PRE_HAND_NEW = (40, 8)  # new tokens in the hand-driven run: best-effort, interactive
+PRE_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+
+
+def _preempt_argv(quantize: str, preemption: bool = True) -> list[str]:
+    """The served configuration: 4 slots, capacity 4096, chunks of 256, the
+    prefix cache at 512 MiB with L2 256 MiB (5c's), K 4; ``none`` on the
+    split engine, int8kv on the unified one (packed 4, 4 drafts)."""
+    argv = ["--model-uri", "unused", "--model-name", "llama2-7b", "--host", "127.0.0.1",
+            "--port", "0", "--quantize", quantize, "--max-slots", str(PRE_SLOTS),
+            "--prefill-chunk", "256", "--decode-steps", "4", "--prefix-cache", "1",
+            "--prefix-cache-budget-mb", "512", "--prefix-cache-l2-budget-mb", "256",
+            "--slo-class", "batch", "--device", "cuda"]
+    if preemption:
+        argv += ["--preemption", "1"]
+    if quantize == "int8kv":
+        argv += ["--unified-step", "1", "--prefill-batch", "4", "--speculative", "1",
+                 "--speculative-draft-tokens", "4"]
+    return argv
+
+
+def _synced_ms(fn, *args) -> float:
+    """The host wall of ``fn(*args)`` with the card synchronized on both
+    sides, in ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _kv_bufs(engine) -> list:
+    return list(engine._cache[:-1])  # k, v (or k8, k_scale, v8, v_scale)
+
+
+def _slot_state(engine, i: int) -> list:
+    """Slot ``i``'s state rows: length, pending token, key row, temperature,
+    top-k, top-p (clones on the card)."""
+    return [engine._cache.lengths[i].clone(), engine._tokens[i].clone(),
+            engine._keys[i].clone(), engine._temps[i].clone(), engine._topk[i].clone(),
+            engine._topp[i].clone()]
+
+
+def _requantized(snap: list, device) -> list:
+    """An int8 row's codes and scales after the restore's round trip,
+    ``bf16(code * scale)`` requantized, computed on ``device`` from the
+    snapshot (the composition the CPU tests hold to the JAX package's bit
+    for bit)."""
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    out = []
+    for q8, sc in ((snap[0], snap[1]), (snap[2], snap[3])):
+        deq = (q8.to(device).to(torch.bfloat16) * sc.to(device)).to(torch.bfloat16)
+        out.extend(llama._quant_kv(deq))
+    return out
+
+
+def _replay_after_restore(engine) -> dict:
+    """One graph replay on the engine's live state right after a restore,
+    against one eager run of the same tick: a K-step burst of every occupied
+    slot on the split engine (``MultistepProgram``), a decode-only
+    super-step of them on the unified one.  Outputs, state buffers and the
+    K/V rows the tick writes bit-equal; the rows and the state are put back
+    after each run, so the scheduler resumes where it was."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    gen = import_module(f"{PKG}.server.generation")
+    prog = engine._program
+    K, cap = prog.steps, engine.capacity
+    occupied = [s is not None for s in engine._slots]
+    sampling = any(s is not None and s.sampling for s in engine._slots)
+    pos = [s.prompt_len + len(s.generated) if s is not None else 0 for s in engine._slots]
+    width = K + (prog.width if engine._unified else 0)
+    lengths = engine._cache.lengths.tolist()
+    bufs = _kv_bufs(engine)
+
+    def rows():
+        return [t[:, b, :, n:min(n + width, cap)].clone() for t in bufs
+                for b, n in enumerate(lengths)]
+
+    def put(saved):
+        i = 0
+        for t in bufs:
+            for b, n in enumerate(lengths):
+                t[:, b, :, n:min(n + width, cap)] = saved[i]
+                i += 1
+
+    remaining = np.asarray([s.remaining if s is not None else 0 for s in engine._slots],
+                           np.int32)
+    eos = np.asarray([s.eos_id if s is not None and s.eos_id is not None else -1
+                      for s in engine._slots], np.int32)
+    if engine._unified:
+        state0 = [t.clone() for t in (prog.tokens, prog.lengths, prog.keys, prog.temps,
+                                      prog.topk, prog.topp)]
+        inputs = list(engine._parked_superstep())
+        for i, s in enumerate(engine._slots):
+            if s is not None:
+                inputs[0][i, 0] = s.generated[-1]
+                inputs[1][i], inputs[3][i] = llama.ROLE_DECODE, 1
+                inputs[5][i], inputs[6][i], inputs[7][i] = True, remaining[i], eos[i]
+        window = gen.superstep_window(max(pos), 0, K, cap)
+
+        def load():
+            prog.load_state(*state0)
+            prog.stage(*inputs)
+
+        def replay():
+            prog.dispatch(window, sampling)
+
+        def outs():
+            return [prog._out.clone(), prog.tokens.clone(), prog.lengths.clone(),
+                    prog.keys.clone(), prog.temps.clone(), prog.topk.clone(), prog.topp.clone()]
+    else:
+        window = gen.decode_window_bucket(min(max(pos) + K - 1, cap), cap)
+
+        def load():
+            prog.load(engine._tokens, engine._cache.lengths, engine._keys, engine._temps,
+                      engine._topk, engine._topp, np.asarray(occupied), remaining, eos)
+
+        def replay():
+            prog.harvest(prog.dispatch(window, sampling))
+
+        def outs():
+            return [prog.tok_block.clone(), prog.valid.clone(), prog.lengths.clone(),
+                    prog.tokens.clone(), prog.keys.clone()]
+    try:
+        before = rows()
+        load()
+        replay()
+        torch.cuda.synchronize()
+        graph = (rows(), outs())
+        put(before)
+        load()
+        prog._run(window, sampling)
+        torch.cuda.synchronize()
+        eager = (rows(), outs())
+        put(before)
+    finally:
+        if engine._unified:
+            prog.load_state(*state0)
+        torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(graph[0], eager[0]))
+            and all(torch.equal(a, b) for a, b in zip(graph[1], eager[1])))
+    if not same:
+        raise AssertionError(f"the replay after a restore differs from the eager tick "
+                             f"(window {window}, sampling {sampling})")
+    return {"window": window, "sampling": sampling, "rows": int(sum(occupied))}
+
+
+def _preempt_by_hand(engine, V: int, tag: str) -> dict:
+    """Drive a built, not started engine's scheduler by hand: four
+    best-effort streams (one sampled), and once each holds PRE_TRIGGER
+    tokens an interactive request, submitted from a stream's ``on_token``.
+    Every occupied slot's cache row over ``[0, hist)`` and its state rows
+    are snapshot just before the admission phase that evicts; the restore
+    is held to the victim's snapshot bit-equal (the int8 cache also to the
+    snapshot requantized on the card, ``_requantized``; the CPU quantizer's
+    difference on it is reported) with the state rows bit-equal and, on the
+    unified engine, the engine's state still the program's buffers; then
+    one graph replay on the restored state against the eager tick.  Evict
+    and restore ms are synchronized host walls."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(41)
+    n_be, n_ia = PRE_HAND_NEW
+    quant = engine._kv_quant
+    counts = [0] * PRE_SLOTS
+    ia: list = []
+
+    def on_tok(i):
+        def f(_t):
+            counts[i] += 1
+            if not ia and min(counts) >= PRE_TRIGGER:
+                ia.append(engine.submit(rng.integers(1, V, PRE_IA[0]).tolist(), n_ia,
+                                        slo_class="interactive"))
+        return f
+
+    be = [engine.submit(rng.integers(1, V, PRE_BE[0]).tolist(), n_be, on_token=on_tok(i),
+                        slo_class="best-effort", **(dict(PRE_SAMPLED, seed=99) if i == 1 else {}))
+          for i in range(PRE_SLOTS)]
+    snaps: dict = {}
+    res: dict = {"evict_ms": [], "restore_ms": [], "kv_bytes": [], "checks": [],
+                 "cpu_quantizer_diff": []}
+    real_evict, real_restore = engine._evict_slot, engine._admit_restore
+
+    def evict(idx):
+        res["evict_ms"].append(_synced_ms(real_evict, idx))
+        rec = engine._class_queues["best-effort"][0]
+        res["kv_bytes"].append(sum(t.nbytes for pair in rec.chunks for t in pair))
+        snaps[id(rec.generated)] = snaps.pop(idx)
+
+    def restore(rec):
+        res["restore_ms"].append(_synced_ms(real_restore, rec))
+        j = next(i for i, s in enumerate(engine._slots)
+                 if s is not None and s.generated is rec.generated)
+        rows, state, hist = snaps.pop(id(rec.generated))
+        got = [t[:, j, :, :hist] for t in _kv_bufs(engine)]
+        if quant:
+            # The round trip on the card's own quantizer; a bf16 engine's
+            # scales (a bf16 amax over 127) come back exactly, so it is the
+            # snapshot itself (the rule the CPU tests hold).
+            want = _requantized(rows, rows[0].device)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{tag}: the restored int8 row differs from its "
+                                     "snapshot requantized on the card")
+            # Reported: the CPU's quantizer on the same snapshot.
+            cpu = _requantized(rows, "cpu")
+            res["cpu_quantizer_diff"].append(
+                sum(int((a.cpu() != b).sum()) for a, b in zip(want, cpu)))
+        changed = sum(int((a != b).sum()) for a, b in zip(got, rows))
+        if changed:
+            raise AssertionError(f"{tag}: the restored row differs from its snapshot in "
+                                 f"{changed} elements")
+        if not all(torch.equal(a, b) for a, b in zip(_slot_state(engine, j), state)):
+            raise AssertionError(f"{tag}: the restored state rows differ from the snapshot")
+        if engine._unified:
+            prog = engine._program
+            pairs = ((engine._tokens, prog.tokens), (engine._keys, prog.keys),
+                     (engine._temps, prog.temps), (engine._topk, prog.topk),
+                     (engine._topp, prog.topp), (engine._cache.lengths, prog.lengths))
+            if not all(a.data_ptr() == b.data_ptr() for a, b in pairs):
+                raise AssertionError(f"{tag}: a restore rebound the super-step's buffers")
+        replay = _replay_after_restore(engine)
+        res["checks"].append({"slot": j, "hist": hist, "replay": replay})
+
+    engine._evict_slot, engine._admit_restore = evict, restore
+    try:
+        deadline = time.time() + 300
+        while not all(f.done() for f in be + ia):
+            if time.time() > deadline:
+                raise AssertionError(f"{tag}: the hand-driven run did not finish")
+            if ia and not engine.preemptions:
+                # Every tick boundary until the eviction: the snapshot is
+                # the one the evicting admission phase sees.
+                snaps.clear()
+                for i, s in enumerate(engine._slots):
+                    if s is not None:
+                        hist = s.prompt_len + len(s.generated) - 1
+                        snaps[i] = ([t[:, i, :, :hist].clone() for t in _kv_bufs(engine)],
+                                    _slot_state(engine, i), hist)
+                        if int(snaps[i][1][0]) != hist or int(snaps[i][1][1]) != s.generated[-1]:
+                            raise AssertionError(f"{tag}: slot {i}'s state rows lag its host "
+                                                 "view at the tick boundary")
+            if not engine._admit_phase():
+                raise AssertionError(f"{tag}: the scheduler saw its shutdown sentinel")
+            engine._step()
+    finally:
+        engine._evict_slot, engine._admit_restore = real_evict, real_restore
+    outs = [f.result(timeout=0).tolist() for f in be]
+    if any(len(o) != n_be for o in outs) or len(ia[0].result(timeout=0)) != n_ia:
+        raise AssertionError(f"{tag}: a stream came back short")
+    if engine.preemptions < 1 or engine.preempt_restores != engine.preemptions:
+        raise AssertionError(f"{tag}: {engine.preemptions} evictions, "
+                             f"{engine.preempt_restores} restores")
+    if len(res["checks"]) != engine.preempt_restores or engine.preempt_recomputed_tokens:
+        raise AssertionError(f"{tag}: {len(res['checks'])} restores checked")
+    res.update(preemptions=engine.preemptions, restores=engine.preempt_restores,
+               l2_hits=engine._prefix_cache.l2_hits, prefix_hits=engine.prefix_hits)
+    return res
+
+
+def _preempt_traffic(s: dict, V: int, rng) -> dict:
+    """5g's traffic on one server: four best-effort SSE streams (one seeded
+    and sampled), and once each has PRE_TRIGGER tokens two interactive SSE
+    requests; client TTFT of each from its events' arrival."""
+    import threading
+
+    path = "/v2/models/llama2-7b/generate"
+    be = [{"prompt_ids": rng.integers(1, V, PRE_BE[0]).tolist(), "max_new_tokens": PRE_BE[1],
+           "slo_class": "best-effort"} for _ in range(PRE_SLOTS)]
+    be[1].update(PRE_SAMPLED, seed=4321)
+    ia = [{"prompt_ids": rng.integers(1, V, PRE_IA[0]).tolist(), "max_new_tokens": PRE_IA[1],
+           "slo_class": "interactive"} for _ in range(2)]
+    reached = [threading.Event() for _ in be]
+
+    def mark(i):
+        return lambda n: n >= PRE_TRIGGER and reached[i].set()
+
+    with ThreadPoolExecutor(len(be) + len(ia)) as pool:
+        be_f = [pool.submit(_sse, s["port"], path, b, mark(i)) for i, b in enumerate(be)]
+        for e, f in zip(reached, be_f):
+            while not e.wait(1.0):
+                if f.done():
+                    f.result()  # raises what failed
+                    raise AssertionError("a best-effort stream ended before its trigger")
+        ia_f = [pool.submit(_sse, s["port"], path, b) for b in ia]
+        ia_out = [f.result() for f in ia_f]
+        be_out = [f.result() for f in be_f]
+    for st, n in [(x, PRE_BE[1]) for x in be_out] + [(x, PRE_IA[1]) for x in ia_out]:
+        if len(st["tokens"]) != n or not all(0 <= t < V for t in st["tokens"]):
+            raise AssertionError(f"a stream returned {len(st['tokens'])} tokens, not {n}")
+    return {"be": [x["tokens"] for x in be_out], "ia": [x["tokens"] for x in ia_out],
+            "ttft_ms": [(x["times"][0] - x["t_send"]) * 1e3 for x in ia_out],
+            "be_bodies": be}
+
+
+def phase_serve_7b_preempt(da, rn, fa, ss, smi: str, params, quantize: str) -> dict:
+    """Phase 5g on Llama-2-7B, uncut: (a) an engine driven by hand
+    (``_preempt_by_hand``), the split engine at K 4 on ``none``, the unified
+    one on int8kv; (b) a server with ``--slo-class batch --preemption 1``
+    serving ``_preempt_traffic``, every best-effort stream whole, restores
+    equal to evictions, nothing recomputed, ``/metrics``' preemption
+    counters equal to the engine's, every unified tick a graph replay, and
+    the launch identities over the served traffic (counters set to 0 just
+    before it); on ``none`` also the same traffic on a server with classes
+    but no preemption, whose interactive TTFT the preempting one's is set
+    beside and whose best-effort streams are the clean run."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    cfg = llama.LlamaConfig.llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    K = 4
+    tag = f"7B preempt {quantize}"
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def config(preemption=True):
+        return app.config_from_args(app.build_arg_parser().parse_args(
+            _preempt_argv(quantize, preemption)))
+
+    # (a) in process.
+    engine = app.make_gen_engine(predictor, config(), app.ServerMetrics("d", "v1", "ns"))
+    engine._capture = True
+    engine._capture_graphs()
+    try:
+        hand = _preempt_by_hand(engine, V, tag)
+    finally:
+        engine.shutdown()  # never started: drops the graphs and fails nothing
+        del engine
+        torch.cuda.empty_cache()
+    log(f"{tag} (a): {hand['preemptions']} evictions, {hand['restores']} restores by hand; "
+        f"each restored row and state held to its snapshot ("
+        + ("bit-equal" if quantize == "none" else "bit-equal, and equal to the snapshot "
+           "requantized from bf16(code x scale) on the card; the CPU's quantizer on the "
+           f"same snapshot differs in {hand['cpu_quantizer_diff']} elements")
+        + "), the replay after it bit-equal "
+        f"to eager ({[c['replay'] for c in hand['checks']]}); evict ms "
+        f"{[round(x, 3) for x in hand['evict_ms']]}, restore ms "
+        f"{[round(x, 3) for x in hand['restore_ms']]} (synchronized), KV bytes an eviction "
+        f"{hand['kv_bytes']}; L2 hits {hand['l2_hits']}")
+
+    # (b) served.
+    names = ["preempt"] + (["classes"] if quantize == "none" else [])
+    servers: dict[str, dict] = {}
+    try:
+        for name in names:
+            srv = app.build_server(predictor, config(preemption=name == "preempt"))
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            port = srv.server_address[1]
+            servers[name] = {"srv": srv, "th": th, "port": port, "engine": srv.engine,
+                             "prog": srv.engine._program, "base": f"http://127.0.0.1:{port}"}
+            _post(servers[name]["base"] + "/v2/models/llama2-7b/generate",
+                  {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up
+        pre = servers["preempt"]["engine"]
+        walls: dict[str, list] = {"evict": [], "restore": []}
+        real_evict, real_restore = pre._evict_slot, pre._admit_restore
+        kv_bytes: list[int] = []
+
+        def evict(idx):
+            walls["evict"].append(_synced_ms(real_evict, idx))
+            rec = pre._class_queues["best-effort"][0]
+            kv_bytes.append(sum(t.nbytes for pair in rec.chunks for t in pair))
+
+        pre._evict_slot = evict
+        pre._admit_restore = lambda rec: walls["restore"].append(_synced_ms(real_restore, rec))
+
+        def now(name):
+            e, d = servers[name]["engine"], servers[name]["engine"].dispatches_total
+            prog = servers[name]["prog"]
+            return {"da": da.launches, "va": da.verify_launches, "rn": rn.launches,
+                    "fa": fa.launches, "fr": fa.ragged_launches, "ss": ss.launches,
+                    "superstep": d.get("superstep", 0), "decode": d.get("decode", 0),
+                    "verify": d.get("verify", 0), "multistep": d.get("multistep", 0),
+                    "prefills": e.prefill_forwards, "samples": e.sample_steps,
+                    "replays": prog.replays if prog is not None else 0}
+
+        def settle(name):
+            e = servers[name]["engine"]
+            if not e._unified:
+                _settle([e], {e: (0, 0)})
+
+        for name in names:
+            settle(name)
+        scrape0 = _scrape(servers["preempt"]["base"])
+        # The served traffic is this phase's main path: the counters start at 0.
+        da.launches = da.verify_launches = rn.launches = fa.launches = 0
+        fa.ragged_launches = ss.launches = 0
+        counted, runs = {}, {}
+        for name in names:
+            snap = now(name)
+            runs[name] = _preempt_traffic(servers[name], V, np.random.default_rng(43))
+            settle(name)
+            counted[name] = {k: v - snap[k] for k, v in now(name).items()}
+        pre._evict_slot, pre._admit_restore = real_evict, real_restore
+        launches = {"da": da.launches, "va": da.verify_launches, "rn": rn.launches,
+                    "fa": fa.launches, "fr": fa.ragged_launches, "ss": ss.launches}
+        for key, n in launches.items():
+            if n != sum(c[key] for c in counted.values()):
+                raise AssertionError(f"{tag}: {key} launched {n} times, the servers' runs "
+                                     f"{[c[key] for c in counted.values()]}")
+        for name, c in counted.items():
+            e = servers[name]["engine"]
+            if e._unified:
+                ticks = c["superstep"]
+                want = {"da": L * K * ticks, "va": L * ticks, "rn": (2 * L + 1) * K * ticks,
+                        "fa": 0, "fr": 0, "ss": c["samples"]}
+                kinds = set(e.dispatches_total) - {"superstep", "seed", "preempt-evict",
+                                                   "preempt-restore"}
+                if kinds or c["replays"] != ticks or ticks == 0:
+                    raise AssertionError(f"{tag} {name}: {ticks} super-step ticks, "
+                                         f"{c['replays']} replays, other kinds {kinds}")
+            else:
+                fwd = c["decode"] + c["verify"] + K * c["multistep"]
+                want = {"da": L * fwd, "va": L * c["verify"],
+                        "rn": (2 * L + 1) * (fwd + c["prefills"]),
+                        "fa": L * c["prefills"], "fr": 0, "ss": c["samples"]}
+                if c["multistep"] == 0 or c["replays"] != c["multistep"]:
+                    raise AssertionError(f"{tag} {name}: {c['multistep']} multistep "
+                                         f"dispatches, {c['replays']} replays")
+            bad = {k: (c[k], w) for k, w in want.items() if c[k] != w}
+            if bad:
+                raise AssertionError(f"{tag} {name}: launches (counted, expected) {bad}")
+        n_pre, n_res = pre.preemptions, pre.preempt_restores
+        if n_pre < 1 or n_res != n_pre or pre.preempt_recomputed_tokens:
+            raise AssertionError(f"{tag}: {n_pre} evictions, {n_res} restores, "
+                                 f"{pre.preempt_recomputed_tokens} recomputed")
+        sc = _scrape(servers["preempt"]["base"])
+        metric = {ev: _value(sc, "tpumlops_engine_preempt_total", event=ev)
+                  - _value(scrape0, "tpumlops_engine_preempt_total", event=ev)
+                  for ev in ("evict", "restore")}
+        if metric != {"evict": n_pre, "restore": n_res}:
+            raise AssertionError(f"{tag}: /metrics preemptions {metric}, engine "
+                                 f"{n_pre} / {n_res}")
+        if "classes" in servers and servers["classes"]["engine"].preemptions:
+            raise AssertionError(f"{tag}: the server without preemption evicted")
+        # The clean run: the same best-effort streams uninterrupted (the
+        # classes-only server's on none; again alone on the same server
+        # on int8kv).
+        if "classes" in runs:
+            clean = runs["classes"]["be"]
+        else:
+            with ThreadPoolExecutor(PRE_SLOTS) as pool:
+                clean = list(pool.map(
+                    lambda b: _sse(servers["preempt"]["port"],
+                                   "/v2/models/llama2-7b/generate", b)["tokens"],
+                    runs["preempt"]["be_bodies"]))
+        greedy = [i for i in range(PRE_SLOTS) if i != 1]
+        agreement = _agreement([runs["preempt"]["be"][i] for i in greedy],
+                               [clean[i] for i in greedy])
+        seeded_equal = runs["preempt"]["be"][1] == clean[1]
+        ttft = {n: {"p50_ms": float(np.median(r["ttft_ms"])), "max_ms": max(r["ttft_ms"]),
+                    "all_ms": r["ttft_ms"]} for n, r in runs.items()}
+        res = {"quantize": quantize, "hand": hand, "ttft": ttft, "evict_ms": walls["evict"],
+               "restore_ms": walls["restore"], "kv_bytes": kv_bytes,
+               "preemptions": n_pre, "restores": n_res, "metrics": metric,
+               "l2_hits": pre._prefix_cache.l2_hits, "prefix_hits": pre.prefix_hits,
+               "counted": counted, "launches": launches,
+               "greedy_agreement_vs_clean": agreement, "seeded_equal_clean": seeded_equal,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"{tag} (b): interactive TTFT p50 / max "
+            + "; ".join(f"{n} {t['p50_ms']:.1f} / {t['max_ms']:.1f} ms" for n, t in ttft.items())
+            + f"; {n_pre} evictions = {n_res} restores = /metrics {metric}; evict ms "
+            f"{[round(x, 3) for x in walls['evict']]}, restore ms "
+            f"{[round(x, 3) for x in walls['restore']]} (synchronized); KV bytes an eviction "
+            f"{kv_bytes}; L2 hits {res['l2_hits']}, prefix hits {res['prefix_hits']}; the "
+            f"preempted greedy streams' agreement with the clean run {agreement:.3f} "
+            f"(reported), the seeded one equal: {seeded_equal}; launches {launches} "
+            f"(identities held per server: {counted}); peak {res['peak_gib']:.2f} GiB on {smi}")
+        DETAIL[f"serve_7b_preempt_{quantize}"] = res
+        return res
+    finally:
+        for s in servers.values():
+            s["srv"].shutdown_all()
+            s["th"].join(timeout=30)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: BERT-base at full width over /v2/models/{name}/infer
 # ---------------------------------------------------------------------------
 
@@ -4974,6 +5501,7 @@ def main() -> int:
     ss_res = phase_sample_step(ss, import_module(f"{PKG}.models.prng"))
     multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "none", None)}
     unified = {"none": phase_serve_7b_unified(da, rn, fa, ss, smi, params, "none")}
+    preempt = {"none": phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "none")}
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
@@ -4986,6 +5514,7 @@ def main() -> int:
     packed = phase_serve_7b_packed(da, rn, fa, smi, params)
     multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256)
     unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv")
+    preempt["int8kv"] = phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "int8kv")
     del params
     torch.cuda.empty_cache()
     bert = phase_serve_bert(fa)
@@ -5005,10 +5534,12 @@ def main() -> int:
                       + packed_none["da_launches"]
                       + sum(r["da_launches"] for r in dense.values())
                       + sum(r["launches"]["da"] for r in multistep.values())
-                      + sum(r["launches"]["da"] for r in unified.values())),
-         # the verify chunk instance's share of them (phases 5c and 5f)
+                      + sum(r["launches"]["da"] for r in unified.values())
+                      + sum(r["launches"]["da"] for r in preempt.values())),
+         # the verify chunk instance's share of them (phases 5c, 5f and 5g)
          "verify_launches": (spec["va_launches"]
-                             + sum(r["launches"]["va"] for r in unified.values())),
+                             + sum(r["launches"]["va"] for r in unified.values())
+                             + sum(r["launches"]["va"] for r in preempt.values())),
          **da_res},
         {"name": "rmsnorm", "route": "cuda",
          "source": f"{PKG}/csrc/rmsnorm.cu",
@@ -5017,7 +5548,8 @@ def main() -> int:
                       + packed_none["rn_launches"]
                       + sum(r["rn_launches"] for r in dense.values())
                       + sum(r["launches"]["rn"] for r in multistep.values())
-                      + sum(r["launches"]["rn"] for r in unified.values())),
+                      + sum(r["launches"]["rn"] for r in unified.values())
+                      + sum(r["launches"]["rn"] for r in preempt.values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
@@ -5026,7 +5558,8 @@ def main() -> int:
                       + spec["fa_launches"] + packed["fa_launches"] + packed_none["fa_launches"]
                       + sum(r["fa_launches"] for r in dense.values())
                       + sum(r["launches"]["fa"] for r in multistep.values())
-                      + sum(r["launches"]["fa"] for r in unified.values())),
+                      + sum(r["launches"]["fa"] for r in unified.values())
+                      + sum(r["launches"]["fa"] for r in preempt.values())),
          **fa_res},
         *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
            "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
@@ -5035,9 +5568,11 @@ def main() -> int:
                     f"{cache} cache", **ragged_res["timing"][cache]}
           for name, cache, launches in (
               ("flash_attention_ragged", "int8",
-               packed["ragged_launches"] + unified["int8kv"]["launches"]["fr"]),
+               packed["ragged_launches"] + unified["int8kv"]["launches"]["fr"]
+               + preempt["int8kv"]["launches"]["fr"]),
               ("flash_attention_ragged_bf16", "bf16",
-               packed_none["ragged_launches"] + unified["none"]["launches"]["fr"]))),
+               packed_none["ragged_launches"] + unified["none"]["launches"]["fr"]
+               + preempt["none"]["launches"]["fr"]))),
         {"name": "dmajor_attention", "route": "cuda",
          "source": f"{PKG}/csrc/dmajor_attention.cu",
          "replaces": "scripts/proto_dmajor_attention.py:41", **dm_res},
@@ -5045,7 +5580,8 @@ def main() -> int:
            # not a Pallas port: the XLA sampling step it stands in for
            "replaces": f"{jax_pkg}/models/sampling.py:125",
            "launches": sum(r["launches"]["ss"] for r in (*multistep.values(),
-                                                          *unified.values())),
+                                                          *unified.values(),
+                                                          *preempt.values())),
            "max_abs_err": ss_res["max_abs_err"] if name == "sample_draw" else 0.0,
            "shape": "B=32 V=32000 f32 logits, T 0.8 top_k 50 top_p 0.95",
            "ms": t[f"{part}_ms"], "device_ms": t[f"{part}_device_ms"],

@@ -14,7 +14,9 @@ Routes:
   tensor form ``{"inputs": [{"name": "prompt_ids", ...}, {"name":
   "lengths", ...}?], "parameters": {...}}``; parameters ``max_new_tokens``,
   ``eos_id``, ``temperature``, ``top_k``, ``top_p``, ``seed`` (row i
-  samples with ``seed + i``) and ``stream``.  Unknown keys are a 400.
+  samples with ``seed + i``), ``stream`` and ``slo_class`` (``interactive``,
+  ``batch`` or ``best-effort``; the server's ``--slo-class`` when absent,
+  a 400 when not a class).  Unknown keys are a 400.
   ``"stream": true`` (one prompt) answers Server-Sent Events over a
   chunked body: ``data: {"index": i, "token": t}`` per token, then
   ``data: {"done": true, "output_ids": [...]}``, or a terminal ``event:
@@ -23,8 +25,10 @@ Routes:
   client that went away (its future is cancelled and its slot freed at
   the next tick) and 500 for an engine failure.  A request over the
   admission budget, or any while draining, is a 429 with ``Retry-After``
-  and a body naming ``reason`` (``budget`` or ``draining``); a
-  multi-prompt request is admitted whole or shed whole.
+  and a body naming ``reason`` (``budget``, ``class_<name>`` at a class's
+  fraction of the budget, or ``draining``) and, with classes armed, the
+  request's ``slo_class``; a multi-prompt request is admitted whole or
+  shed whole.
 - ``POST /v2/models/{name}/infer`` (classifiers) -- V2 tensors in and out.
   Inputs are padded onto the predictor's sequence buckets; a batch of one
   goes through the dynamic batcher, a larger client batch is padded to a
@@ -58,7 +62,10 @@ decode (``--decode-steps``) are the reference's serving knobs, refused at
 startup with the reference's messages when out of range; the unified
 ragged super-step (``--unified-step 1``, the flag the reference operator's
 builder derives from a manifest's ``spec.tpu.unifiedStep``) runs every
-tick as one dispatch (tick kind ``superstep``).
+tick as one dispatch (tick kind ``superstep``).  ``--slo-class`` arms the
+engine's class queues with a default class, and ``--preemption 1`` (which
+needs ``--prefix-cache 1``) lets a waiting higher class evict a lower one
+mid-decode, counted in ``tpumlops_engine_preempt{event}``.
 """
 
 from __future__ import annotations
@@ -83,7 +90,13 @@ import torch
 
 from .batching import DynamicBatcher, apply_seq_pad, next_bucket
 from .engine import InferenceEngine
-from .generation import EngineOverloaded, EngineShutdown, GenerationEngine, RequestStats
+from .generation import (
+    SLO_CLASSES,
+    EngineOverloaded,
+    EngineShutdown,
+    GenerationEngine,
+    RequestStats,
+)
 from .metrics import CONTENT_TYPE, ServerMetrics
 from .prefix_cache import PrefixCacheConfig
 from .speculative import SpeculativeConfig
@@ -92,10 +105,11 @@ _log = logging.getLogger("tpumlops_torch.server")
 _req_log = logging.getLogger("tpumlops_torch.server.requests")
 
 _GEN_PARAM_KEYS = frozenset(
-    {"max_new_tokens", "eos_id", "temperature", "top_k", "top_p", "seed", "stream"}
+    {"max_new_tokens", "eos_id", "temperature", "top_k", "top_p", "seed", "stream",
+     "slo_class"}
 )
 # Parameters of the reference's /generate that this port does not serve yet.
-_GEN_NOT_PORTED = frozenset({"debug", "slo_class"})
+_GEN_NOT_PORTED = frozenset({"debug"})
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
@@ -173,6 +187,11 @@ class ServerConfig:
     # The unified ragged super-step (spec.tpu.unifiedStep): every tick ONE
     # dispatch of decode, verify and packed-prefill rows.
     unified_step: bool = False
+    # SLO classes (spec.tpu.sloClass): the default class of a request that
+    # names none; set, it arms the class queues.  Mid-decode preemption
+    # (spec.tpu.preemption) needs the prefix cache.
+    slo_class: str | None = None
+    preemption: bool = False
     device: str | None = None
     # The V2 predict path's dynamic batcher.
     max_batch_size: int = 32
@@ -237,6 +256,14 @@ class ServerConfig:
         if self.prefill_token_budget < 0:
             raise ValueError(
                 f"spec.tpu.prefillTokenBudget must be >= 0, got {self.prefill_token_budget!r}")
+        if self.slo_class is not None and self.slo_class not in SLO_CLASSES:
+            raise ValueError(
+                f"spec.tpu.sloClass must be one of {list(SLO_CLASSES)}, got {self.slo_class!r}")
+        if self.preemption and not self.prefix_cache:
+            raise ValueError(
+                "spec.tpu.preemption requires spec.tpu.prefixCache.enabled "
+                "(an evicted slot's K/V is written back through the radix "
+                "prefix cache and restored from it on re-admission)")
 
     @property
     def prefix_cache_chunk_tokens(self) -> int:
@@ -296,6 +323,9 @@ def make_gen_engine(predictor, config: ServerConfig,
         on_prefix_l2=m.inc_prefix_l2,
         speculative=config.speculative_config(),
         on_spec=m.observe_speculative,
+        slo_class=config.slo_class,
+        preemption=config.preemption,
+        on_preempt=m.inc_preempt,
     )
 
 
@@ -542,7 +572,8 @@ class ModelServer(ThreadingHTTPServer):
 
     def prepare_generate(self, body: dict):
         """Parse and validate a /generate body: (prompts, max_new, eos_id,
-        sampling, stream)."""
+        sampling, stream); ``sampling`` also carries the request's
+        ``slo_class`` (None: the engine's default)."""
         prompts, params = parse_generate(body)
         max_new = int(params.get("max_new_tokens", 16))
         eos_id = params.get("eos_id")
@@ -554,9 +585,15 @@ class ModelServer(ThreadingHTTPServer):
             "top_p": float(params.get("top_p", 1.0)),
             "seed": int(seed) if seed is not None else None,
         }
-        # Validate every prompt before admitting any: a bad sibling must
-        # not leave earlier ones generating into abandoned futures.
+        # Validate every prompt, and the class, before admitting any: a bad
+        # sibling must not leave earlier ones generating into abandoned futures.
+        slo_class = params.get("slo_class")
+        if slo_class is not None:
+            slo_class = str(slo_class)
+            if slo_class not in SLO_CLASSES:
+                raise ValueError(f"slo_class {slo_class!r} not in {SLO_CLASSES}")
         prompts = [self.engine.validate(p, max_new, **sampling) for p in prompts]
+        sampling["slo_class"] = slo_class
         stream = bool(params.get("stream", False))
         if stream and len(prompts) != 1:
             raise ValueError("stream=true supports exactly one prompt")
@@ -571,7 +608,8 @@ class ModelServer(ThreadingHTTPServer):
 
         # Reserve the whole request's estimate first: admitted whole or
         # shed whole, never siblings generating into abandoned futures.
-        self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts))
+        self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts),
+                                      slo_class=sampling.get("slo_class"))
         stats = [RequestStats() for _ in prompts]
         futures = [
             self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
@@ -741,6 +779,9 @@ class _Handler(BaseHTTPRequestHandler):
             code, headers = 429, {"Retry-After": str(e.retry_after_s)}
             payload = {"error": str(e), "reason": e.reason,
                        "retry_after_s": e.retry_after_s, "request_id": self._rid}
+            # A class shed names its class: best-effort shedding is not overload.
+            if e.slo_class is not None:
+                payload["slo_class"] = e.slo_class
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
             code, payload = 400, {"error": str(e), "request_id": self._rid}
         except EngineShutdown as e:
@@ -934,6 +975,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "covers packed-prefill chunks, fused-K decode and speculative "
                          "verify through per-row roles (a CUDA graph per window bucket and "
                          "token rule); 0 (default) keeps the split engine")
+    ap.add_argument("--slo-class", default="",
+                    help="default SLO class for requests that don't carry one "
+                         "(interactive | batch | best-effort); arms the priority "
+                         "admission queues: higher classes drain first and lower "
+                         "classes shed at a fraction of the admission budget")
+    ap.add_argument("--preemption", type=int, default=0,
+                    help="1: a waiting higher-class request may evict a lower-class "
+                         "slot at a tick boundary (KV parked in the prefix cache, "
+                         "restored on re-admission with no lost work); requires "
+                         "--prefix-cache 1")
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-batch-delay-ms", type=float, default=5.0)
     ap.add_argument("--admission-queue-budget", type=int, default=0,
@@ -987,6 +1038,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         prefill_chunk=args.prefill_chunk, device=args.device,
         prefill_batch=args.prefill_batch, prefill_token_budget=args.prefill_token_budget,
         decode_steps=args.decode_steps, unified_step=bool(args.unified_step),
+        slo_class=args.slo_class or None, preemption=bool(args.preemption),
         max_batch_size=args.max_batch_size, max_batch_delay_ms=args.max_batch_delay_ms,
         admission_queue_budget=args.admission_queue_budget,
         drain_grace_s=args.drain_grace_seconds,

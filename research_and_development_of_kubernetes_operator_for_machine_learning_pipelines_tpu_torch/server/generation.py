@@ -92,9 +92,28 @@ the submitting thread); ``submit(on_token=...)`` streams one request's
 tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
 and draft tokens.
 
+SLO classes (``slo_class``, or ``preemption``, which needs them): each
+request carries ``interactive``, ``batch`` or ``best-effort``; the
+scheduler drains the transport queue into one deque a class and admits
+the highest class first (FIFO within a class), and a lower class sheds
+at a fraction of the admission budget (reason ``class_<name>``).
+``reserve_admission(model=)`` bounds each model holding outstanding work
+by an equal share of the budget (reason ``model_budget``).  Mid-decode
+preemption (``preemption``, radix prefix cache required): when a higher
+class waits with every slot taken, one lower-class slot a scheduler
+iteration is evicted at a tick boundary (the lowest class, then the
+least progress, then the lowest index).  Its committed K/V is read off
+the card, its whole chunks written back through the prefix cache, and
+the host copies, the key row and the pending token ride a record at the
+front of its class; the restore seeds the row from the cache where the
+chunks survived, else from the copies, and writes the length, pending
+token, key row (no split) and sampling rows in place.  No token is
+generated twice (``preempt_recomputed_tokens`` stays 0); ``on_preempt``
+(``evict``/``restore``) per event.
+
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): SLO classes and preemption, the mesh, multi-host, the
-watchdog, the flight recorder, device telemetry and poison quarantine.
+asked for): the mesh, multi-host, the watchdog, the flight recorder,
+device telemetry and poison quarantine.
 """
 
 from __future__ import annotations
@@ -104,6 +123,7 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -130,15 +150,18 @@ class EngineShutdown(RuntimeError):
 class EngineOverloaded(RuntimeError):
     """Admission shed: the request was refused at the door (nothing was
     enqueued), because its estimated tokens would push the queued backlog
-    past the admission budget (``reason="budget"``) or because the engine
-    is draining (``reason="draining"``).  The HTTP layer answers 429 with
-    a ``Retry-After`` of ``retry_after_s``."""
+    past the admission budget (``reason="budget"``, or ``class_<name>`` at
+    its class's fraction of it, or ``model_budget`` past its model's
+    share) or because the engine is draining (``reason="draining"``).  The
+    HTTP layer answers 429 with a ``Retry-After`` of ``retry_after_s`` and
+    names ``slo_class`` (None while classes are off)."""
 
     def __init__(self, message: str, reason: str = "budget",
-                 retry_after_s: int = 1):
+                 retry_after_s: int = 1, slo_class: str | None = None):
         super().__init__(message)
         self.reason = reason
         self.retry_after_s = int(retry_after_s)
+        self.slo_class = slo_class
 
 
 def _safe_resolve(fut: Future, value) -> None:
@@ -154,6 +177,15 @@ def _safe_fail(fut: Future, exc: Exception) -> None:
     except Exception:
         pass
 
+
+# SLO priority classes, highest first: a higher class drains first from
+# the admission queue and, under preemption, may evict a lower one.
+SLO_CLASSES = ("interactive", "batch", "best-effort")
+_CLASS_PRIORITY = {name: i for i, name in enumerate(reversed(SLO_CLASSES))}
+# The fraction of the admission budget a class may fill before its
+# submissions shed (reason "class_<name>"): lower classes leave the
+# headroom to interactive traffic.
+_CLASS_BUDGET_FACTOR = {"interactive": 1.0, "batch": 0.75, "best-effort": 0.5}
 
 _MIN_BUCKET = 16
 
@@ -242,6 +274,14 @@ class _Slot:
     history: np.ndarray | None = None  # int64 [capacity]; valid: [:hist_len]
     hist_len: int = 0
     draft: DraftState | None = None
+    # SLO classes (defaults while they are off); under preemption also the
+    # prompt and the sampling parameters, so an evicted slot is rebuilt
+    # exactly on restore.
+    slo_class: str = "interactive"
+    prompt: np.ndarray | None = None
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
 
 
 @dataclass
@@ -260,6 +300,42 @@ class _Request:
     # budget while queued; released once, at dequeue.
     est_tokens: int = 0
     stats: RequestStats | None = None
+    slo_class: str = "interactive"
+
+
+@dataclass(eq=False)  # identity semantics: numpy fields
+class _Preempted:
+    """An evicted mid-decode sequence waiting to be restored: what resumes
+    it exactly where the eviction cut it.  The committed K/V as host chunk
+    pairs (the prefix cache holds the whole ones too, but a later
+    admission may evict them first), the key row (the threefry carry, not
+    split again), the pending token (``generated[-1]``, emitted but not
+    fed) and the slot's bookkeeping.  It waits at the front of its class
+    deque, beside queued :class:`_Request` items."""
+
+    future: Future
+    remaining: int
+    eos_id: int | None
+    sampling: bool
+    on_token: Callable[[int], None] | None
+    prompt: np.ndarray
+    generated: list[int]
+    slo_class: str
+    temperature: float
+    top_k: int
+    top_p: float
+    key: torch.Tensor  # int64 [2] on the host: the slot's key row at eviction
+    chunks: list  # host (k, v) pairs [L, 1, C, NKV, D] covering [0, hist)
+    hist: int  # committed positions: prompt + generated - 1
+    history: np.ndarray | None
+    hist_len: int
+    draft: DraftState | None
+    stats: RequestStats | None
+    t_last_token: float
+    # What the admission loop reads of a queued item: nothing reserved, no
+    # admission-wait metric.
+    est_tokens: int = 0
+    t_submit: float = 0.0
 
 
 @dataclass(eq=False)  # identity semantics: numpy fields
@@ -289,8 +365,6 @@ _NOT_PORTED = {
     "telemetry": None,
     "watchdog": None,
     "mesh_shape": None,
-    "slo_class": None,
-    "preemption": False,
 }
 
 
@@ -341,6 +415,9 @@ class GenerationEngine:
         on_spec: Callable[[int, int], None] | None = None,
         decode_steps: int = 1,
         unified_step: bool = False,
+        slo_class: str | None = None,  # the default class of a submission
+        preemption: bool = False,  # mid-decode eviction of lower classes
+        on_preempt: Callable[[str], None] | None = None,  # "evict" | "restore"
         **unported,
     ):
         for name, value in unported.items():
@@ -436,6 +513,30 @@ class GenerationEngine:
                 l2_budget_bytes=int(prefix_cache.l2_budget_bytes),
                 on_l2_event=self._note_prefix_l2,
             )
+        # SLO classes and mid-decode preemption, both off by default; off,
+        # no class deque exists, _dequeue is the queue's get and a slot
+        # records nothing more.  Classes arm with a default class or with
+        # preemption (which picks its victims by class).
+        if slo_class is not None and slo_class not in SLO_CLASSES:
+            raise ValueError(f"slo_class must be one of {SLO_CLASSES}, got {slo_class!r}")
+        self._slo_default = slo_class
+        self._classes = slo_class is not None or bool(preemption)
+        self._class_queues: dict[str, deque] | None = None
+        if self._classes:
+            self._class_queues = {name: deque() for name in SLO_CLASSES}
+        self._preemption = bool(preemption)
+        if self._preemption and self._prefix_cache is None:
+            raise ValueError(
+                "preemption requires the radix prefix cache "
+                "(prefixCache.enabled): evicted slots write their K/V "
+                "back through it and restore from the same chunks"
+            )
+        self._on_preempt = on_preempt
+        self.preemptions = 0
+        self.preempt_restores = 0
+        # Tokens a restored sequence generated again: 0 by construction (the
+        # pending token and the key row travel with the record).
+        self.preempt_recomputed_tokens = 0
         # Self-speculative n-gram decoding; None is the plain tick.  The
         # reference compiles a verify program per (draft length, window)
         # at warmup; the port runs eagerly, so there is nothing to warm.
@@ -506,6 +607,7 @@ class GenerationEngine:
         # Admission control (see reserve_admission): all under _adm_lock.
         self._adm_lock = threading.Lock()
         self._queued_est_tokens = 0
+        self._model_est: dict[str, int] = {}  # model -> outstanding estimate
         self._inflight_reqs = 0  # submitted futures not yet done
         self._draining = False
         self.shed_total = 0
@@ -624,6 +726,13 @@ class GenerationEngine:
             if req is not None:
                 self._release_queued(req)
                 self._refuse_at_shutdown(req)
+        if self._class_queues is not None:
+            # Requests drained from the queue and evicted sequences alike.
+            for dq in self._class_queues.values():
+                while dq:
+                    item = dq.popleft()
+                    self._release_queued(item)
+                    self._refuse_at_shutdown(item)
 
     # -- client API ----------------------------------------------------------
 
@@ -680,6 +789,7 @@ class GenerationEngine:
         on_token: Callable[[int], None] | None = None,
         est_reserved: bool = False,
         stats: RequestStats | None = None,
+        slo_class: str | None = None,
     ) -> Future:
         """Enqueue one request; returns its future.  Sheds with
         :class:`EngineOverloaded` before enqueueing anything, unless the
@@ -687,13 +797,17 @@ class GenerationEngine:
         multi-prompt request's whole reservation through
         :meth:`reserve_admission`).  ``on_token`` is called on the
         scheduler thread with each emitted token; ``stats``, when given,
-        receives the request's counts."""
+        receives the request's counts.  ``slo_class`` overrides the
+        engine's default class (read only while classes are armed)."""
         prompt = self.validate(
             prompt_ids, max_new_tokens, temperature, top_k, top_p, seed
         )
+        if slo_class is not None and slo_class not in SLO_CLASSES:
+            raise ValueError(f"slo_class must be one of {SLO_CLASSES}, got {slo_class!r}")
+        cls = slo_class or self._slo_default or "interactive"
         est = int(prompt.size) + int(max_new_tokens)
         if not est_reserved:
-            self.reserve_admission(est)
+            self.reserve_admission(est, slo_class=cls)
         fut: Future = Future()
         # None means "use the engine default"; 0 is a legitimate eos token.
         eos = self._eos_default if eos_id is None else eos_id
@@ -714,6 +828,7 @@ class GenerationEngine:
                 t_submit=time.perf_counter(),
                 est_tokens=est,
                 stats=stats,
+                slo_class=cls,
             )
         )
         return fut
@@ -725,7 +840,8 @@ class GenerationEngine:
 
     # -- admission control / drain --------------------------------------------
 
-    def reserve_admission(self, est_tokens: int) -> None:
+    def reserve_admission(self, est_tokens: int, slo_class: str | None = None,
+                          model: str | None = None) -> None:
         """Reserve queue room for ``est_tokens`` or shed.
 
         Raises :class:`EngineOverloaded` while draining, or when the
@@ -733,28 +849,77 @@ class GenerationEngine:
         budget.  The budget bounds the backlog, not a request's size: with
         nothing queued any request ``validate`` allows is admitted, or it
         would shed the same way on every replica.  The reservation is
-        released when the scheduler dequeues the request."""
+        released when the scheduler dequeues the request.
+
+        With classes armed, a class sheds at its fraction of the budget
+        (``_CLASS_BUDGET_FACTOR``, reason ``class_<name>``).  ``model``
+        (the model a multiplexed route addressed) arms per-model fairness:
+        while two or more models hold outstanding work, each is bounded by
+        an equal share of the budget instead of the global backlog check
+        (reason ``model_budget``), so a flooded model cannot shed another
+        model's first request.  The caller returns that reservation with
+        :meth:`release_model_admission` when its request finishes."""
+        cls = None
+        if self._classes:
+            cls = slo_class or self._slo_default or "interactive"
         with self._adm_lock:
             if self._draining:
                 self._note_shed("draining")
                 raise EngineOverloaded(
                     "engine is draining; retry on another replica",
-                    reason="draining",
+                    reason="draining", slo_class=cls,
                 )
             budget = self._admission_budget
+            eff_budget, reason = budget, "budget"
+            if cls is not None and budget:
+                factor = _CLASS_BUDGET_FACTOR.get(cls, 1.0)
+                if factor < 1.0:
+                    eff_budget = int(budget * factor)
+                    reason = f"class_{cls}"
+            fair_share = None
+            if eff_budget and model is not None:
+                active = {m for m, v in self._model_est.items() if v > 0}
+                active.add(model)
+                if len(active) >= 2:
+                    fair_share = max(1, eff_budget // len(active))
+                    mine = self._model_est.get(model, 0)
+                    if mine > 0 and mine + est_tokens > fair_share:
+                        self._note_shed("model_budget")
+                        raise EngineOverloaded(
+                            f"model {model!r} admission share full: {mine} estimated "
+                            f"tokens outstanding + {est_tokens} requested > share "
+                            f"{fair_share} ({eff_budget} budget / {len(active)} active "
+                            "models); retry after the share drains",
+                            reason="model_budget", slo_class=cls,
+                        )
             if (
-                budget
+                fair_share is None
+                and eff_budget
                 and self._queued_est_tokens > 0
-                and self._queued_est_tokens + est_tokens > budget
+                and self._queued_est_tokens + est_tokens > eff_budget
             ):
-                self._note_shed("budget")
+                self._note_shed(reason)
                 raise EngineOverloaded(
                     f"admission queue full: {self._queued_est_tokens} "
                     f"estimated tokens queued + {est_tokens} requested "
-                    f"> budget {budget}; retry on another replica",
-                    reason="budget",
+                    f"> budget {eff_budget}; retry on another replica",
+                    reason=reason, slo_class=cls,
                 )
             self._queued_est_tokens += est_tokens
+            if model is not None:
+                self._model_est[model] = self._model_est.get(model, 0) + est_tokens
+
+    def release_model_admission(self, model: str | None, est_tokens: int) -> None:
+        """Return a per-model reservation (the ``model=`` arm of
+        :meth:`reserve_admission`, scoped to the HTTP request)."""
+        if not model or not est_tokens:
+            return
+        with self._adm_lock:
+            left = self._model_est.get(model, 0) - est_tokens
+            if left > 0:
+                self._model_est[model] = left
+            else:
+                self._model_est.pop(model, None)
 
     def _note_shed(self, reason: str) -> None:
         # _adm_lock held.
@@ -762,7 +927,7 @@ class GenerationEngine:
         if self.on_shed is not None:
             self.on_shed(reason)
 
-    def _release_queued(self, req: _Request) -> None:
+    def _release_queued(self, req: "_Request | _Preempted") -> None:
         """Return a dequeued request's reservation (once)."""
         if req.est_tokens:
             with self._adm_lock:
@@ -814,8 +979,185 @@ class GenerationEngine:
         return None
 
     def _queued_work(self) -> bool:
-        """A submission waits in the queue (a fused burst must end)."""
-        return not self._queue.empty()
+        """A submission waits, in the transport queue or a class deque: a
+        fused burst must end, and none may start."""
+        if not self._queue.empty():
+            return True
+        return self._class_queues is not None and any(self._class_queues.values())
+
+    # -- SLO classes and preemption ----------------------------------------------
+
+    def _drain_to_classes(self) -> None:
+        """Move every submission waiting in the transport queue into its
+        class deque (classes armed).  The shutdown sentinel goes back into
+        the queue, for the admission loop to see."""
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is None:
+                self._queue.put(item)
+                return
+            self._class_queues[item.slo_class].append(item)
+
+    def _dequeue(self, block: bool, timeout: float):
+        """The queue's ``get`` with class priority.  Classes off, it is the
+        plain ``get``.  Armed: the transport queue drains into the class
+        deques and the highest class pops first (FIFO within a class,
+        evicted sequences at the front of theirs); a blocking get waits only
+        when every deque is empty."""
+        if self._class_queues is None:
+            return self._queue.get(block=block, timeout=timeout)
+        self._drain_to_classes()
+        for name in SLO_CLASSES:
+            if self._class_queues[name]:
+                return self._class_queues[name].popleft()
+        item = self._queue.get(block=block, timeout=timeout)
+        if item is None:
+            return item
+        # More may have landed meanwhile: admit in class order, not arrival.
+        self._class_queues[item.slo_class].append(item)
+        self._drain_to_classes()
+        for name in SLO_CLASSES:
+            if self._class_queues[name]:
+                return self._class_queues[name].popleft()
+        raise AssertionError("unreachable: an item was just queued")
+
+    def _maybe_preempt(self) -> None:
+        """At a tick boundary, with no free slot and a strictly higher class
+        waiting, evict the lowest-class slot (least progress, then lowest
+        index), so the waiting work admits next.  At most one eviction a
+        scheduler iteration: preemption follows demand, never flushes."""
+        if self._free_slot() is not None:
+            return
+        self._drain_to_classes()
+        waiting = next((n for n in SLO_CLASSES if self._class_queues[n]), None)
+        if waiting is None:
+            return
+        wprio = _CLASS_PRIORITY[waiting]
+        victim = None
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            prio = _CLASS_PRIORITY.get(slot.slo_class, wprio)
+            if prio >= wprio:
+                continue
+            key = (prio, slot.prompt_len + len(slot.generated), i)
+            if victim is None or key < victim[0]:
+                victim = (key, i)
+        if victim is not None:
+            self._evict_slot(victim[1])
+
+    def _committed_tokens(self, prompt: np.ndarray, generated: list[int],
+                          hist: int) -> np.ndarray:
+        """The ``hist`` tokens whose K/V a slot holds: the prompt, then every
+        generated token but the pending one."""
+        full = np.empty((hist,), np.int32)
+        pl = int(prompt.size)
+        full[:pl] = prompt
+        if hist > pl:
+            full[pl:] = np.asarray(generated[: hist - pl], np.int32)
+        return full
+
+    def _evict_slot(self, idx: int) -> None:
+        """Evict slot ``idx`` at a tick boundary, losing no work.  Its
+        committed K/V (positions ``[0, hist)``, ``hist = prompt + generated
+        - 1``) is read off the card a chunk at a time by the prefix cache's
+        own read (dequantized on the int8 cache); the whole chunks enter the
+        radix cache, and every chunk's host copy rides the record with the
+        key row and the pending token.  The freed row's stale contents are
+        the normal slot-reuse case."""
+        slot = self._slots[idx]
+        assert slot is not None and slot.prompt is not None
+        t0 = time.perf_counter()
+        C = self._prefill_chunk_size
+        hist = slot.prompt_len + len(slot.generated) - 1
+        full = self._committed_tokens(slot.prompt, slot.generated, hist)
+        chunks = [self._read_chunk_slot(idx, ci * C) for ci in range(-(-hist // C))]
+        # Whole-token chunks only: the tail holds positions past hist.
+        for ci in range(hist // C):
+            if not self._prefix_cache.has_chunk(full, ci):
+                if not self._prefix_cache.insert_chunk(full, ci, *chunks[ci]):
+                    break  # the parent path was evicted meanwhile
+        rec = _Preempted(
+            future=slot.future, remaining=slot.remaining, eos_id=slot.eos_id,
+            sampling=slot.sampling, on_token=slot.on_token, prompt=slot.prompt,
+            generated=slot.generated, slo_class=slot.slo_class,
+            temperature=slot.temperature, top_k=slot.top_k, top_p=slot.top_p,
+            key=self._keys[idx].cpu().clone(), chunks=chunks, hist=hist,
+            history=slot.history, hist_len=slot.hist_len, draft=slot.draft,
+            stats=slot.stats, t_last_token=slot.t_last_token,
+        )
+        self._slots[idx] = None
+        # The front of its own class: it re-admits before newer work of it.
+        self._class_queues[slot.slo_class].appendleft(rec)
+        self.preemptions += 1
+        self._record_tick("preempt-evict", time.perf_counter() - t0)
+        if self._on_preempt is not None:
+            self._on_preempt("evict")
+
+    def _admit_restore(self, rec: _Preempted) -> None:
+        """Restore an evicted sequence into a free slot, where the eviction
+        cut it: the row seeded from the radix cache where its whole chunks
+        survived (a prefix hit; an L2 chunk is promoted on the way), from
+        the record's host copies past them; then the state rows written in
+        place (:meth:`_device_restore`).  No token is sampled."""
+        slot_idx = self._free_slot()
+        assert slot_idx is not None
+        t0 = time.perf_counter()
+        C = self._prefill_chunk_size
+        hist = rec.hist
+        full = self._committed_tokens(rec.prompt, rec.generated, hist)
+        matched, cached = self._prefix_cache.lookup(full)
+        matched = min(matched, (hist // C) * C)
+        seed = list(cached[: matched // C]) + list(rec.chunks[matched // C:])
+        self._device_seed_slot(seed, slot_idx)
+        if matched:
+            self.prefix_hits += 1
+            self.prefix_cached_tokens += matched
+            if self._on_prefix_hit is not None:
+                self._on_prefix_hit(matched)
+        self._device_restore(slot_idx, hist, int(rec.generated[-1]), rec.key,
+                             rec.temperature, rec.top_k, rec.top_p)
+        self._slots[slot_idx] = _Slot(
+            future=rec.future, remaining=rec.remaining, eos_id=rec.eos_id,
+            sampling=rec.sampling, on_token=rec.on_token, prompt_len=int(rec.prompt.size),
+            generated=rec.generated, t_last_token=rec.t_last_token, stats=rec.stats,
+            history=rec.history, hist_len=rec.hist_len, draft=rec.draft,
+            slo_class=rec.slo_class, prompt=rec.prompt, temperature=rec.temperature,
+            top_k=rec.top_k, top_p=rec.top_p,
+        )
+        self.preempt_restores += 1
+        self._record_tick("preempt-restore", time.perf_counter() - t0)
+        if self._on_preempt is not None:
+            self._on_preempt("restore")
+
+    def _device_restore(self, slot: int, length: int, pending: int, key: torch.Tensor,
+                        temp: float, tk: int, tp: float) -> None:
+        """The slot's state rows as the eviction left them: its length, the
+        pending token, the key row as captured (no split: it happened in the
+        sequence's own history) and the sampling rows.  Each is written in
+        place: on the unified engine these tensors are the super-step
+        program's buffers, which its captured graphs read."""
+        self._cache.lengths[slot] = int(length)
+        self._tokens[slot, 0] = int(pending)
+        self._keys[slot].copy_(key)
+        self._temps[slot] = float(temp)
+        self._topk[slot] = int(tk)
+        self._topp[slot] = float(tp)
+
+    def _class_slot_state(self, req: _Request) -> dict:
+        """A slot's class and preemption fields (none while classes are
+        off): under preemption the prompt keys the write-back and the
+        sampling parameters refill the rows on restore."""
+        if not self._classes:
+            return {}
+        out: dict = {"slo_class": req.slo_class}
+        if self._preemption:
+            out.update(prompt=req.prompt, temperature=req.temperature, top_k=req.top_k,
+                       top_p=req.top_p)
+        return out
 
     def _record_tick(self, kind: str, wall_s: float) -> None:
         """One device dispatch of ``kind`` that took ``wall_s`` seconds."""
@@ -876,6 +1218,7 @@ class GenerationEngine:
             prompt_len=int(req.prompt.size),
             stats=req.stats,
             **self._spec_slot_state(req),
+            **self._class_slot_state(req),
         )
 
     def _spec_slot_state(self, req: _Request) -> dict:
@@ -1700,8 +2043,12 @@ class GenerationEngine:
         """Admission work for one scheduler iteration: whole-prompt mode
         drains every free slot; chunked mode advances the in-flight
         admission by ONE chunk (or starts a new one), so a decode tick is
-        never more than one prefill chunk away.  Returns False on the
+        never more than one prefill chunk away.  Under preemption it first
+        evicts at most one lower-class slot for waiting higher-class work;
+        every burst has drained its harvest by then.  Returns False on the
         shutdown sentinel."""
+        if self._preemption:
+            self._maybe_preempt()
         if self._packed:
             return self._admit_phase_packed()
         if self._pending:
@@ -1719,7 +2066,7 @@ class GenerationEngine:
         while self._free_slot() is not None:
             try:
                 idle = all(s is None for s in self._slots)
-                req = self._queue.get(block=idle, timeout=1.0)
+                req = self._dequeue(idle, 1.0)
             except queue.Empty:
                 break
             if req is not None:
@@ -1727,6 +2074,10 @@ class GenerationEngine:
             if req is None or self._stop.is_set():
                 self._refuse_at_shutdown(req)
                 return False
+            if isinstance(req, _Preempted):
+                # Straight into the free slot the loop found: no prefill.
+                self._restore_or_fail(req)
+                continue
             self._note_admission_wait(req)
             if self._prefill_chunk_size is not None:
                 self._pending.append(self._make_progress(req))
@@ -1740,8 +2091,19 @@ class GenerationEngine:
                 self._fail_all_and_recover()
         return True
 
+    def _restore_or_fail(self, rec: _Preempted) -> None:
+        """Restore an evicted sequence; a failed restore fails its own
+        future and recovers the device state."""
+        try:
+            self._admit_restore(rec)
+        except Exception as exc:
+            _log.exception("preemption restore failed")
+            if not rec.future.done():
+                _safe_fail(rec.future, exc)
+            self._fail_all_and_recover()
+
     @staticmethod
-    def _refuse_at_shutdown(req: _Request | None) -> None:
+    def _refuse_at_shutdown(req: "_Request | _Preempted | None") -> None:
         """Fail a request dequeued after shutdown began (None: the sentinel)."""
         if req is not None and not req.future.done():
             _safe_fail(
@@ -1758,7 +2120,7 @@ class GenerationEngine:
         while self._free_slot() is not None:
             idle = not self._pending and all(s is None for s in self._slots)
             try:
-                req = self._queue.get(block=idle and not popped, timeout=1.0)
+                req = self._dequeue(idle and not popped, 1.0)
             except queue.Empty:
                 break
             if req is not None:
@@ -1766,6 +2128,12 @@ class GenerationEngine:
             if req is None or self._stop.is_set():
                 self._refuse_at_shutdown(req)
                 return False
+            if isinstance(req, _Preempted):
+                # The unified engine's route too: a restore is no prefill
+                # row, so it takes its slot here, before the next dispatch.
+                self._restore_or_fail(req)
+                popped = True
+                continue
             self._note_admission_wait(req)
             prog = self._make_progress(req)
             prog.slot = self._free_slot()

@@ -13,8 +13,9 @@ The operator's promotion gate queries these series by name
 all keyed by ``{deployment_name, predictor_name, namespace}``.  The
 operator, the autoscaler and the router read the generation families
 (``tpumlops_ttft_seconds``, ``_itl_seconds``, ``_engine_queue_depth``,
-``_admission_wait_ms``, ``_engine_shed``, ``_cold_start_seconds``,
-``_model_ready``, ...), some through ``histogram_quantile``.  Names,
+``_admission_wait_ms``, ``_engine_shed``, ``_engine_preempt``,
+``_cold_start_seconds``, ``_model_ready``, ...), some through
+``histogram_quantile``.  Names,
 types, label names and bucket bounds are the reference's, so its PromQL
 reads a port replica unchanged.  The card's machine has no
 ``prometheus_client``: the text exposition (format 0.0.4) is written here
@@ -273,6 +274,12 @@ class ServerMetrics:
             "tpumlops_engine_shed",
             "Generation requests shed at admission (HTTP 429)",
             ident + ["reason"], lock)
+        self.preempt = Counter(
+            "tpumlops_engine_preempt",
+            "Slot preemption events (evict = KV written back through "
+            "the prefix cache and slot reclaimed; restore = sequence "
+            "re-admitted with no lost work)",
+            ident + ["event"], lock)
         self.model_load_seconds = Gauge(
             "tpumlops_model_load_seconds",
             "Most recent model load's stage breakdown (total = wall)",
@@ -299,7 +306,7 @@ class ServerMetrics:
             self.prefix_cache_l2_spills, self.prefix_cache_l2_evictions,
             self.spec_proposed_tokens, self.spec_accepted_tokens,
             self.spec_accepted_len, self.spec_acceptance_rate,
-            self.shed, self.model_load_seconds, self.cold_start_seconds,
+            self.shed, self.preempt, self.model_load_seconds, self.cold_start_seconds,
             self.ready,
         )
 
@@ -338,6 +345,11 @@ class ServerMetrics:
 
     def inc_shed(self, reason: str) -> None:
         self.shed.inc({**self.identity, "reason": reason})
+
+    def inc_preempt(self, event: str) -> None:
+        """``event``: "evict" (a slot reclaimed, its K/V parked through the
+        prefix cache) or "restore" (the sequence re-admitted)."""
+        self.preempt.inc({**self.identity, "event": event})
 
     def observe_admission_wait(self, seconds: float) -> None:
         self.admission_wait_ms.observe(self.identity, seconds * 1000)

@@ -286,7 +286,7 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 @pytest.mark.parametrize("option,value", [
     ("channel", object()), ("watchdog", object()), ("telemetry", object()),
-    ("preemption", True), ("slo_class", "batch"), ("mesh_shape", {"tp": 2}),
+    ("mesh_shape", {"tp": 2}),
     ("recorder", object()),
 ])
 def test_unported_engine_options_raise(tiny, option, value):

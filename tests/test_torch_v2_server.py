@@ -502,7 +502,8 @@ def test_metrics_count_responses_and_match_the_reference_families(server):
         "tpumlops_engine_queue_depth", "tpumlops_engine_admitting",
         "tpumlops_admission_wait_ms", "tpumlops_ttft_seconds", "tpumlops_itl_seconds",
         "tpumlops_request_tokens", "tpumlops_prefill_batch_fill", "tpumlops_tick_seconds",
-        "tpumlops_engine_dispatches", "tpumlops_engine_shed", "tpumlops_model_load_seconds",
+        "tpumlops_engine_dispatches", "tpumlops_engine_shed", "tpumlops_engine_preempt",
+        "tpumlops_model_load_seconds",
         "tpumlops_cold_start_seconds", "tpumlops_model_ready",
         "tpumlops_prefix_cache_hits", "tpumlops_prefix_cache_cached_tokens",
         "tpumlops_prefix_cache_evictions", "tpumlops_prefix_cache_l2_hits",
