@@ -117,6 +117,17 @@ class LlamaConfig:
         return cls(**defaults)
 
 
+def matmul_param_count(cfg: LlamaConfig) -> int:
+    """Weight-matrix elements one token position multiplies through in a
+    forward: the q/k/v/o projections, the SwiGLU triple and the untied LM
+    head (the embedding lookup moves bytes, not FLOPs).  The device
+    telemetry cost model's dominant term, 2 FLOPs an element a position."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = h * nh * hd + 2 * h * nkv * hd + nh * hd * h + 3 * h * i
+    return cfg.num_layers * per_layer + h * v
+
+
 class KVCache(NamedTuple):
     """Single-length cache, position-major: k/v ``[L, B, T, NKV, D]``;
     ``length`` (int) is the number of valid positions."""

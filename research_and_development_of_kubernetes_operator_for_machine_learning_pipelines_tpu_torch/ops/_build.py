@@ -9,6 +9,11 @@ Nothing here imports torch's C++ headers: a plain-C build takes seconds
 where a PyTorch extension takes minutes.
 
 A missing ``nvcc`` or a failed build raises; there is no fallback.
+
+``BUILD_DIR`` is the node-local cache of built libraries
+(``utils/compile_cache.enable_persistent_compile_cache`` points it
+elsewhere, ``--compile-cache-dir``); each build reports its outcome there,
+a hit for a library already built and a miss with nvcc's seconds.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..utils import compile_cache
 
 SOURCES = ("decode_attention", "rmsnorm", "flash_attention", "dmajor_attention", "sampling")
 
@@ -68,6 +75,9 @@ def build(names=SOURCES) -> dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
     seconds = {n: 0.0 for n in names}
+    for n in names:
+        if n not in todo:
+            compile_cache.note_build(n, hit=True)
     if not todo:
         return seconds
     nvcc = nvcc_path()
@@ -87,6 +97,7 @@ def build(names=SOURCES) -> dict[str, float]:
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, library_path(n))  # atomic: a concurrent loader never sees half a file
+        compile_cache.note_build(n, hit=False, seconds=seconds[n])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
@@ -107,7 +118,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
+            if not library_path(name).exists():
+                build((name,))
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

@@ -14,9 +14,13 @@ Routes:
   tensor form ``{"inputs": [{"name": "prompt_ids", ...}, {"name":
   "lengths", ...}?], "parameters": {...}}``; parameters ``max_new_tokens``,
   ``eos_id``, ``temperature``, ``top_k``, ``top_p``, ``seed`` (row i
-  samples with ``seed + i``), ``stream`` and ``slo_class`` (``interactive``,
+  samples with ``seed + i``), ``stream``, ``slo_class`` (``interactive``,
   ``batch`` or ``best-effort``; the server's ``--slo-class`` when absent,
-  a 400 when not a class).  Unknown keys are a 400.
+  a 400 when not a class) and ``debug`` (the response carries a
+  ``timing`` block: queue and first-token ms, prefill chunks, cached
+  tokens, accepted drafts, each row's trace).  Unknown keys are a 400.
+  A prompt the engine quarantined (its admission crashed the engine
+  twice) is a 422 with ``reason: poison_quarantined``.
   ``"stream": true`` (one prompt) answers Server-Sent Events over a
   chunked body: ``data: {"index": i, "token": t}`` per token, then
   ``data: {"done": true, "output_ids": [...]}``, or a terminal ``event:
@@ -47,6 +51,16 @@ Routes:
   request, streams included, to finish; answers ``lifecycle``, ``drained``
   and ``inFlight``.  ``{"cancel": true}`` reopens admissions.  SIGTERM
   runs the same drain before the server exits.
+- ``GET /debug/engine`` (the flight recorder's rings), ``/debug/trace``
+  (``?format=chrome``, the default, or ``json``), ``/debug/device`` (the
+  HBM ledger, utilization by tick kind, the compile observatory),
+  ``/debug/timeseries`` (the per-second ring) -- each a 404 naming its
+  flag while that is off -- and ``/debug/spans`` (the span tracer).
+  ``POST /debug/profile {"duration_s": s}`` captures a ``torch.profiler``
+  trace of the card's activity for ``s`` seconds (0.1-60) under
+  ``<tmp>/tpumlops-profile`` (one capture at a time, else 409; the newest
+  ``PROFILE_KEEP_DIRS`` kept).  Its stop holds the scheduler for seconds
+  on a busy replica, which a watchdog with a short deadline counts.
 
 Every response echoes ``X-Request-Id`` (the request's, a W3C
 ``traceparent`` trace id, or a new one), and every 400, 429 and 500 body
@@ -66,17 +80,32 @@ tick as one dispatch (tick kind ``superstep``).  ``--slo-class`` arms the
 engine's class queues with a default class, and ``--preemption 1`` (which
 needs ``--prefix-cache 1``) lets a waiting higher class evict a lower one
 mid-decode, counted in ``tpumlops_engine_preempt{event}``.
+
+Observability and containment, each off by default (off, nothing of it is
+built): ``--trace-ring N`` (the flight recorder), ``--timeseries-ring N``
+(seconds of per-second samples), ``--device-telemetry 1`` (HBM ledger,
+MFU and bandwidth shares by tick kind, compile observatory; with its
+``/metrics`` families), ``--watchdog-deadline-s s`` with
+``--watchdog-grace-s g`` (a tick blocked past ``s`` flips ``/readyz`` to
+503 ``stalled`` until it completes; past ``s + g`` the process exits so
+the pod restarts); ``--compile-cache-dir`` is the node-local directory of
+built kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import math
+import os
 import queue
 import re
+import shutil
 import signal
 import sys
+import tempfile
 import threading
 import time
 import uuid
@@ -84,18 +113,20 @@ from concurrent.futures import wait
 from contextlib import contextmanager
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
 
 from .batching import DynamicBatcher, apply_seq_pad, next_bucket
 from .engine import InferenceEngine
+from .flight_recorder import RequestTrace
 from .generation import (
     SLO_CLASSES,
     EngineOverloaded,
     EngineShutdown,
     GenerationEngine,
-    RequestStats,
+    PoisonRequest,
 )
 from .metrics import CONTENT_TYPE, ServerMetrics
 from .prefix_cache import PrefixCacheConfig
@@ -106,10 +137,8 @@ _req_log = logging.getLogger("tpumlops_torch.server.requests")
 
 _GEN_PARAM_KEYS = frozenset(
     {"max_new_tokens", "eos_id", "temperature", "top_k", "top_p", "seed", "stream",
-     "slo_class"}
+     "slo_class", "debug"}
 )
-# Parameters of the reference's /generate that this port does not serve yet.
-_GEN_NOT_PORTED = frozenset({"debug"})
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
@@ -119,7 +148,51 @@ _READY_ROUTES = frozenset({"/readyz", "/healthz", "/v2/health/ready"})
 _LIVE_ROUTES = frozenset({"/livez", "/v2/health/live"})
 
 # W3C traceparent: version-traceid-spanid-flags.
-_TRACEPARENT = re.compile(r"^[0-9a-f]{2}-([0-9a-f]{32})-[0-9a-f]{16}-[0-9a-f]{2}$")
+_TRACEPARENT = re.compile(r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
+
+# Capture directories of POST /debug/profile, under the temp directory: a
+# trace is tens of MB and the endpoint is unauthenticated, so the newest
+# PROFILE_KEEP_DIRS stay and older ones go after each capture.
+PROFILE_KEEP_DIRS = 8
+
+
+def profile_root() -> str:
+    return os.path.join(tempfile.gettempdir(), "tpumlops-profile")
+
+
+def _gc_profile_dirs(root: str, keep: int = PROFILE_KEEP_DIRS) -> list:
+    """Delete all but the ``keep`` newest capture directories under
+    ``root``; returns the deleted names.  A directory that vanishes
+    meanwhile is skipped: GC never fails a capture."""
+    try:
+        entries = [e for e in os.scandir(root) if e.is_dir(follow_symlinks=False)]
+    except OSError:
+        return []
+
+    def _mtime(entry) -> float:
+        try:
+            return entry.stat().st_mtime
+        except OSError:
+            return 0.0
+
+    entries.sort(key=_mtime, reverse=True)
+    evicted = []
+    for entry in entries[keep:]:
+        try:
+            shutil.rmtree(entry.path)
+            evicted.append(entry.name)
+        except OSError:
+            continue
+    return evicted
+
+
+def trace_context_from_headers(headers) -> tuple[str, str]:
+    """``(trace_id, parent_span)`` of a well-formed ``traceparent``, else
+    ``("", "")``; a request's trace carries them."""
+    m = _TRACEPARENT.match((headers.get("traceparent") or "").strip().lower())
+    if m:
+        return m.group(1), m.group(2)
+    return "", ""
 
 
 def request_id_from_headers(headers) -> str:
@@ -157,10 +230,7 @@ _NP_TO_V2 = {
 
 
 def _check_gen_params(params: dict, allowed: frozenset) -> None:
-    for key in sorted(_GEN_NOT_PORTED & set(params)):
-        if params[key]:
-            raise ValueError(f"generate parameter {key!r} is not yet ported")
-    unknown = sorted(set(params) - allowed - _GEN_NOT_PORTED)
+    unknown = sorted(set(params) - allowed)
     if unknown:
         raise ValueError(
             f"unknown key(s) {unknown} in generate parameters; "
@@ -215,6 +285,13 @@ class ServerConfig:
     speculative_ngram_min: int = 1
     speculative_ngram_max: int = 4
     speculative_adaptive: bool = True
+    # Observability (spec.tpu.observability: traceRing, timeseriesRing,
+    # deviceTelemetry) and the scheduler watchdog; 0 or off builds nothing.
+    trace_ring: int = 0
+    timeseries_ring: int = 0
+    device_telemetry: bool = False
+    watchdog_deadline_s: float = 0.0
+    watchdog_grace_s: float = 30.0
 
     def __post_init__(self):
         """The reference's startup checks of the serving features (its
@@ -264,6 +341,11 @@ class ServerConfig:
                 "spec.tpu.preemption requires spec.tpu.prefixCache.enabled "
                 "(an evicted slot's K/V is written back through the radix "
                 "prefix cache and restored from it on re-admission)")
+        if self.trace_ring < 0:
+            raise ValueError(f"observability.traceRing must be >= 0, got {self.trace_ring}")
+        if not (0 <= self.timeseries_ring <= 86400):
+            raise ValueError(
+                f"observability.timeseriesRing must be in [0, 86400], got {self.timeseries_ring}")
 
     @property
     def prefix_cache_chunk_tokens(self) -> int:
@@ -288,11 +370,30 @@ class ServerConfig:
             adaptive=self.speculative_adaptive)
 
 
-def make_gen_engine(predictor, config: ServerConfig,
-                    metrics: ServerMetrics) -> GenerationEngine:
+def _fan(*fns):
+    """Chain observer callbacks onto one engine hook (the timeseries ring
+    rides the metrics callbacks); None entries drop out, and a single one
+    is returned as it is."""
+    live = [f for f in fns if f is not None]
+    if not live:
+        return None
+    if len(live) == 1:
+        return live[0]
+
+    def fanned(*args, **kwargs):
+        for f in live:
+            f(*args, **kwargs)
+
+    return fanned
+
+
+def make_gen_engine(predictor, config: ServerConfig, metrics: ServerMetrics,
+                    recorder=None, telemetry=None, watchdog=None,
+                    timeseries=None) -> GenerationEngine:
     """Construct the GenerationEngine for a causal-LM predictor, its hooks
-    feeding ``metrics``' generation families."""
-    m = metrics
+    feeding ``metrics``' generation families and, when given, the
+    timeseries ring."""
+    m, ts = metrics, timeseries
     return GenerationEngine(
         predictor.causal_lm["params"],
         predictor.causal_lm["cfg"],
@@ -308,14 +409,14 @@ def make_gen_engine(predictor, config: ServerConfig,
         unified_step=config.unified_step,
         device=config.device,
         admission_queue_budget=config.admission_queue_budget,
-        on_step=m.observe_decode_step,
+        on_step=_fan(m.observe_decode_step, ts and ts.observe_decode_step),
         on_tokens=m.inc_generated_tokens,
         on_admission_wait=m.observe_admission_wait,
         on_ttft=m.observe_ttft,
-        on_itl=m.observe_itl,
+        on_itl=_fan(m.observe_itl, ts and ts.observe_itl),
         on_request_tokens=m.observe_request_tokens,
-        on_tick=m.observe_tick,
-        on_shed=m.inc_shed,
+        on_tick=_fan(m.observe_tick, ts and ts.observe_tick),
+        on_shed=_fan(m.inc_shed, ts and ts.inc_shed),
         on_dispatch=m.inc_dispatch,
         prefix_cache=config.prefix_cache_config(),
         on_prefix_hit=m.observe_prefix_hit,
@@ -326,30 +427,43 @@ def make_gen_engine(predictor, config: ServerConfig,
         slo_class=config.slo_class,
         preemption=config.preemption,
         on_preempt=m.inc_preempt,
+        recorder=recorder,
+        telemetry=telemetry,
+        watchdog=watchdog,
+        on_poison=_fan(m.inc_poison, ts and ts.inc_poison),
     )
 
 
-def request_summary(request_id: str, outs, stats) -> dict:
-    """One /generate request's totals over its rows (the completion log
-    line's fields)."""
+def _timing_summary(request_id: str, traces) -> dict:
+    """One /generate request's timing over its rows' traces: the ``"debug":
+    true`` response block and the completion log line's fields.  Totals
+    agree with the counters the request moved."""
+    rows = [t.timing_block() for t in traces]
+    queue_ms = [r["queue_ms"] for r in rows if r["queue_ms"] is not None]
+    ttft = [r["ttft_ms"] for r in rows if r["ttft_ms"] is not None]
     return {
         "request_id": request_id,
-        "rows": len(stats),
-        "tokens": sum(len(o) for o in outs),
-        "prefill_chunks": sum(s.prefill_chunks for s in stats),
-        "cached_tokens": sum(s.cached_tokens for s in stats),
-        "spec_proposed": sum(s.spec_proposed for s in stats),
-        "spec_accepted": sum(s.spec_accepted for s in stats),
+        "tokens": sum(r["tokens"] for r in rows),
+        "prefill_chunks": sum(r["prefill_chunks"] for r in rows),
+        "cached_tokens": sum(r["cached_tokens"] for r in rows),
+        "spec_proposed": sum(r["spec_proposed"] for r in rows),
+        "spec_accepted": sum(r["spec_accepted"] for r in rows),
+        # The worst row's queue wait, the best row's TTFT.
+        "queue_ms": max(queue_ms) if queue_ms else None,
+        "ttft_ms": min(ttft) if ttft else None,
+        "finish_reasons": sorted({r["finish_reason"] for r in rows}),
+        "rows": rows,
     }
 
 
 def _log_completion(summary: dict, code: int) -> None:
     _req_log.info(
-        "generate done request_id=%s code=%d rows=%d tokens=%d prefill_chunks=%d "
-        "cached_tokens=%d spec_accepted=%d/%d",
-        summary["request_id"], code, summary["rows"], summary["tokens"],
-        summary["prefill_chunks"], summary["cached_tokens"], summary["spec_accepted"],
-        summary["spec_proposed"],
+        "generate done request_id=%s code=%d rows=%d tokens=%d queue_ms=%s ttft_ms=%s "
+        "prefill_chunks=%d cached_tokens=%d spec_accepted=%d/%d finish=%s",
+        summary["request_id"], code, len(summary["rows"]), summary["tokens"],
+        summary["queue_ms"], summary["ttft_ms"], summary["prefill_chunks"],
+        summary["cached_tokens"], summary["spec_accepted"], summary["spec_proposed"],
+        ",".join(summary["finish_reasons"]),
     )
 
 
@@ -460,7 +574,8 @@ class ModelServer(ThreadingHTTPServer):
 
     def __init__(self, address, engine, model_name: str, metrics: ServerMetrics,
                  predictor, batcher: DynamicBatcher | None = None,
-                 drain_grace_s: float = 20.0, cold_start_anchor: float | None = None):
+                 drain_grace_s: float = 20.0, cold_start_anchor: float | None = None,
+                 recorder=None, telemetry=None, timeseries=None):
         self.engine = engine
         self.model_name = model_name
         self.metrics = metrics
@@ -477,6 +592,11 @@ class ModelServer(ThreadingHTTPServer):
         # event of a stream is out before the server goes.
         self._answering = 0
         self._answering_lock = threading.Lock()
+        # Observability (each None while off) and the one-at-a-time profile.
+        self.recorder = recorder
+        self.telemetry = telemetry
+        self.timeseries = timeseries
+        self._profile_lock = threading.Lock()
         super().__init__(address, _Handler)
 
     @property
@@ -526,6 +646,26 @@ class ModelServer(ThreadingHTTPServer):
         self.metrics.set_ready(True)
         return True
 
+    def note_watchdog_stall(self, kind: str, age_s: float, inventory) -> None:
+        """The watchdog's stall callback (monitor thread): a tick passed
+        the deadline.  Readiness goes (503 ``stalled``) so balancers route
+        elsewhere, the stall is counted and journalled with the tick kind
+        and what was in flight."""
+        if self.lifecycle == "ready":
+            self.lifecycle = "stalled"
+            self.metrics.set_ready(False)
+        self.metrics.inc_watchdog_stall()
+        if self.recorder is not None:
+            self.recorder.event("", "watchdog", kind=kind, age_s=round(float(age_s), 3),
+                                slots=list(inventory))
+
+    def note_watchdog_recover(self) -> None:
+        """The stalled tick completed after all: ready again, unless a
+        drain or shutdown landed meanwhile."""
+        if self.lifecycle == "stalled":
+            self.lifecycle = "ready"
+            self.metrics.set_ready(True)
+
     def inflight(self) -> int:
         return self.gen_engine.inflight() if self.gen_engine is not None else 0
 
@@ -572,8 +712,9 @@ class ModelServer(ThreadingHTTPServer):
 
     def prepare_generate(self, body: dict):
         """Parse and validate a /generate body: (prompts, max_new, eos_id,
-        sampling, stream); ``sampling`` also carries the request's
-        ``slo_class`` (None: the engine's default)."""
+        sampling, stream, debug); ``sampling`` also carries the request's
+        ``slo_class`` (None: the engine's default).  A quarantined prompt
+        raises :class:`PoisonRequest`."""
         prompts, params = parse_generate(body)
         max_new = int(params.get("max_new_tokens", 16))
         eos_id = params.get("eos_id")
@@ -597,10 +738,11 @@ class ModelServer(ThreadingHTTPServer):
         stream = bool(params.get("stream", False))
         if stream and len(prompts) != 1:
             raise ValueError("stream=true supports exactly one prompt")
-        return prompts, max_new, eos_id, sampling, stream
+        return prompts, max_new, eos_id, sampling, stream, bool(params.get("debug", False))
 
     def generate(self, body: dict, prompts, max_new, eos_id, sampling,
-                 request_id: str = "") -> dict:
+                 request_id: str = "", debug: bool = False,
+                 trace_context: tuple[str, str] = ("", "")) -> dict:
         def row_seed(i: int) -> int | None:
             # Distinct stream per row, reproducible from the request seed.
             base = sampling["seed"]
@@ -610,17 +752,21 @@ class ModelServer(ThreadingHTTPServer):
         # shed whole, never siblings generating into abandoned futures.
         self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts),
                                       slo_class=sampling.get("slo_class"))
-        stats = [RequestStats() for _ in prompts]
+        traces = [RequestTrace(request_id=request_id if len(prompts) == 1 else f"{request_id}/{i}",
+                               trace_id=trace_context[0], parent_span=trace_context[1])
+                  for i in range(len(prompts))]
         futures = [
             self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
-                               est_reserved=True, stats=stats[i])
+                               request_id=traces[i].request_id, trace=traces[i],
+                               est_reserved=True)
             for i, p in enumerate(prompts)
         ]
         wait(futures)
         outs = [f.result() for f in futures]
         self.note_first_token()
-        _log_completion(request_summary(request_id, outs, stats), 200)
-        return {
+        summary = _timing_summary(request_id, traces)
+        _log_completion(summary, 200)
+        payload = {
             "model_name": self.model_name,
             "id": body.get("id", ""),
             "outputs": [
@@ -633,6 +779,9 @@ class ModelServer(ThreadingHTTPServer):
                 for i, o in enumerate(outs)
             ],
         }
+        if debug:
+            payload["timing"] = summary
+        return payload
 
     # -- /infer --------------------------------------------------------------
 
@@ -680,6 +829,12 @@ class ModelServer(ThreadingHTTPServer):
         """Stop serving, then stop the engine (failing what is queued)."""
         self.lifecycle = "shutdown"
         self.metrics.set_ready(False)
+        if self.telemetry is not None:
+            # The kernel builds of this process stop reporting into a
+            # retired server's observatory.
+            from ..utils.compile_cache import detach_observatory
+
+            detach_observatory(self.telemetry.observatory)
         self.shutdown()
         self.server_close()
         if self.batcher is not None:
@@ -718,23 +873,64 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         self._rid = request_id_from_headers(self.headers)
         srv = self.server
-        m = _MODEL_ROUTE.match(self.path)
-        if self.path in _LIVE_ROUTES:
+        url = urlsplit(self.path)
+        path = url.path
+        m = _MODEL_ROUTE.match(path)
+        if path.startswith("/debug/"):
+            self._debug(path, parse_qs(url.query))
+        elif path in _LIVE_ROUTES:
             # Live through loading and draining: a replica finishing its
             # in-flight tail must not be killed.
             live = srv.lifecycle != "shutdown"
             self._reply(200 if live else 503, {"live": live, "lifecycle": srv.lifecycle})
-        elif self.path in _READY_ROUTES or (
+        elif path in _READY_ROUTES or (
                 m is not None and m.group(2) == "ready" and m.group(1) == srv.model_name):
             ready = srv.lifecycle == "ready"
             body = {"ready": ready, "lifecycle": srv.lifecycle}
             if srv.lifecycle == "draining":
                 body["inFlight"] = srv.inflight()
             self._reply(200 if ready else 503, body)
-        elif self.path == "/metrics":
+        elif path == "/metrics":
             self._send(200, srv.metrics.render(), CONTENT_TYPE)
         elif m is not None and m.group(2) is None and m.group(1) == srv.model_name:
             self._reply(200, srv.metadata())
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def _debug(self, path: str, query: dict) -> None:
+        """The ``/debug/*`` reads; a ring that is off is a 404 naming its
+        flag."""
+        srv = self.server
+        if path in ("/debug/engine", "/debug/trace"):
+            if srv.recorder is None:
+                self._reply(404, {"error": "flight recorder disabled; set "
+                                           "spec.tpu.observability.traceRing (--trace-ring) > 0"})
+                return
+            fmt = (query.get("format") or ["chrome"])[0] if path == "/debug/trace" else "json"
+            if fmt == "chrome":
+                self._reply(200, srv.recorder.chrome_trace())
+            elif fmt == "json":
+                self._reply(200, srv.recorder.snapshot())
+            else:
+                self._reply(400, {"error": f"unknown format {fmt!r}; use chrome or json"})
+        elif path == "/debug/device":
+            if srv.telemetry is None:
+                self._reply(404, {"error": "device telemetry disabled; set "
+                                           "spec.tpu.observability.deviceTelemetry "
+                                           "(--device-telemetry 1)"})
+                return
+            self._reply(200, srv.telemetry.snapshot())
+        elif path == "/debug/timeseries":
+            if srv.timeseries is None:
+                self._reply(404, {"error": "timeseries ring disabled; set "
+                                           "spec.tpu.observability.timeseriesRing "
+                                           "(--timeseries-ring) > 0"})
+                return
+            self._reply(200, srv.timeseries.snapshot())
+        elif path == "/debug/spans":
+            from ..utils.tracing import GLOBAL_TRACER
+
+            self._reply(200, {"spans": GLOBAL_TRACER.as_dict()})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -746,6 +942,9 @@ class _Handler(BaseHTTPRequestHandler):
         raw = self._read_body()
         if self.path == "/admin/drain":
             self._admin_drain(raw)
+            return
+        if self.path == "/debug/profile":
+            self._profile(raw)
             return
         m = _MODEL_ROUTE.match(self.path)
         if m is None or m.group(2) != srv.serves:
@@ -769,12 +968,14 @@ class _Handler(BaseHTTPRequestHandler):
             if srv.serves == "infer":
                 payload = srv.infer(body)
             else:
-                prompts, max_new, eos_id, sampling, stream = srv.prepare_generate(body)
+                prompts, max_new, eos_id, sampling, stream, debug = srv.prepare_generate(body)
+                context = trace_context_from_headers(self.headers)
                 if stream:
-                    code = self._stream(prompts[0], max_new, eos_id, sampling)
+                    code = self._stream(prompts[0], max_new, eos_id, sampling, context)
                     return
                 payload = srv.generate(body, prompts, max_new, eos_id, sampling,
-                                       request_id=self._rid)
+                                       request_id=self._rid, debug=debug,
+                                       trace_context=context)
         except EngineOverloaded as e:
             code, headers = 429, {"Retry-After": str(e.retry_after_s)}
             payload = {"error": str(e), "reason": e.reason,
@@ -782,6 +983,12 @@ class _Handler(BaseHTTPRequestHandler):
             # A class shed names its class: best-effort shedding is not overload.
             if e.slo_class is not None:
                 payload["slo_class"] = e.slo_class
+        except PoisonRequest as e:
+            # The prompt itself crashes admission, here and on any replica:
+            # unprocessable, and no Retry-After.
+            code, payload = 422, {"error": str(e), "reason": "poison_quarantined",
+                                  "fingerprint": e.fingerprint, "crashes": e.crashes,
+                                  "request_id": self._rid}
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
             code, payload = 400, {"error": str(e), "request_id": self._rid}
         except EngineShutdown as e:
@@ -801,15 +1008,15 @@ class _Handler(BaseHTTPRequestHandler):
         head = f"event: {event}\n" if event else ""
         self._chunk(f"{head}data: {json.dumps(payload)}\n\n".encode())
 
-    def _stream(self, prompt, max_new, eos_id, sampling) -> int:
+    def _stream(self, prompt, max_new, eos_id, sampling, context=("", "")) -> int:
         """Serve one prompt as Server-Sent Events over a chunked body;
         returns the code the gate's metric records.  Shedding raises
         before the status line is sent."""
         srv = self.server
         tokens: queue.Queue = queue.Queue()
-        stats = RequestStats()
+        trace = RequestTrace(request_id=self._rid, trace_id=context[0], parent_span=context[1])
         fut = srv.engine.submit(prompt, max_new, eos_id, **sampling,
-                                on_token=tokens.put, stats=stats)
+                                on_token=tokens.put, request_id=self._rid, trace=trace)
         fut.add_done_callback(lambda f: tokens.put(None))
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -836,7 +1043,6 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 out = fut.result()
                 self._event({"done": True, "output_ids": out.tolist()})
-                _log_completion(request_summary(self._rid, [out], [stats]), code)
             self._chunk(b"")
         except OSError:
             # The client went away: cancel, so the slot frees at the
@@ -853,6 +1059,12 @@ class _Handler(BaseHTTPRequestHandler):
                 self._chunk(b"")
             except Exception:
                 self.close_connection = True
+        # A cancel frees the slot only at the next tick: the trace is
+        # finished here (the engine's later finish is a no-op), so a 499
+        # or 500 line never reads "in-flight".
+        if code != 200:
+            trace.finish("cancelled" if code == 499 else "error")
+        _log_completion(_timing_summary(self._rid, [trace]), code)
         return code
 
     def _sse_error(self, reason: str, message: str) -> None:
@@ -860,6 +1072,47 @@ class _Handler(BaseHTTPRequestHandler):
         result says so, with the request id and a typed reason."""
         self._event({"done": True, "error": message, "request_id": self._rid,
                      "reason": reason}, event="error")
+
+    def _profile(self, raw: bytes) -> None:
+        """``POST /debug/profile {"duration_s": s}``: a ``torch.profiler``
+        capture of the card's activity (``utils/tracing.torch_profile``) for
+        ``s`` seconds, clamped to [0.1, 60], into a new directory under
+        :func:`profile_root` (no caller-chosen path: the endpoint is
+        unauthenticated).  One capture at a time (409 otherwise); the
+        newest ``PROFILE_KEEP_DIRS`` captures are kept.  The profiler starts
+        and stops between two of the engine's ticks."""
+        from ..utils.tracing import torch_profile
+
+        srv = self.server
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("request body must be a JSON object")
+            duration = float(body.get("duration_s", 3.0))
+            if not math.isfinite(duration):
+                raise ValueError(f"duration_s must be finite, got {duration}")
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        duration = min(max(duration, 0.1), 60.0)
+        root = profile_root()
+        out_dir = os.path.join(root, f"{srv.model_name}-{int(time.time())}")
+        if not srv._profile_lock.acquire(blocking=False):
+            self._reply(409, {"error": "a profile capture is already running"})
+            return
+        engine = srv.gen_engine
+        hold = engine.between_ticks if engine is not None else contextlib.nullcontext
+        try:
+            with torch_profile(out_dir, hold):
+                time.sleep(duration)
+            evicted = _gc_profile_dirs(root)
+        except Exception as e:
+            _log.exception("profile capture failed")
+            self._reply(500, {"error": str(e)})
+            return
+        finally:
+            srv._profile_lock.release()
+        self._reply(200, {"trace_dir": out_dir, "duration_s": duration, "evicted": evicted})
 
     def _admin_drain(self, raw: bytes) -> None:
         srv = self.server
@@ -895,11 +1148,38 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     ``load_stats`` (``{"wall_s": s}``) and ``boot_wall`` (the process's
     start, ``time.time()``) feed the model-load and cold-start gauges."""
     anchor = time.time() if boot_wall is None else boot_wall
+    telemetry = None
+    if config.device_telemetry:
+        from .device_telemetry import DeviceTelemetry
+
+        telemetry = DeviceTelemetry()
     metrics = ServerMetrics(
         deployment_name=config.deployment_name or config.model_name,
         predictor_name=config.predictor_name,
         namespace=config.namespace,
+        device_telemetry=telemetry is not None,
     )
+    if telemetry is not None:
+        telemetry.bind_metrics(metrics)
+    recorder = None
+    if config.trace_ring > 0:
+        from .flight_recorder import FlightRecorder
+
+        recorder = FlightRecorder(config.trace_ring)
+    timeseries = None
+    if config.timeseries_ring > 0:
+        from .timeseries import TimeseriesRing
+
+        timeseries = TimeseriesRing(config.timeseries_ring)
+        if telemetry is not None:
+            timeseries.bind_telemetry(telemetry)  # MFU / bandwidth a bucket
+    watchdog = None
+    if config.watchdog_deadline_s > 0:
+        from .watchdog import EngineWatchdog
+
+        watchdog = EngineWatchdog(deadline_s=config.watchdog_deadline_s,
+                                  grace_s=config.watchdog_grace_s,
+                                  on_age=metrics.set_watchdog_tick_age)
     metrics.set_ready(False)
     if load_stats:
         metrics.observe_model_load(load_stats)
@@ -907,8 +1187,9 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     t_warm = time.time()
     batcher = None
     if predictor.causal_lm is not None:
-        engine = make_gen_engine(predictor, config, metrics)
-        engine.start(warmup=warmup)
+        engine = make_gen_engine(predictor, config, metrics, recorder=recorder,
+                                 telemetry=telemetry, watchdog=watchdog,
+                                 timeseries=timeseries)
         stop = engine.shutdown
     else:
         engine = InferenceEngine(predictor, max_batch_size=config.max_batch_size,
@@ -935,14 +1216,29 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
         srv = ModelServer((config.host, config.port), engine, config.model_name,
                           metrics, predictor=predictor, batcher=batcher,
                           drain_grace_s=config.drain_grace_s,
-                          cold_start_anchor=anchor)
+                          cold_start_anchor=anchor, recorder=recorder,
+                          telemetry=telemetry, timeseries=timeseries)
     except Exception:
         stop()
         raise
+    if watchdog is not None:
+        # Wired before the engine starts (and arms it): a stall must never
+        # fire into unassigned hooks.
+        watchdog.on_stall = srv.note_watchdog_stall
+        watchdog.on_recover = srv.note_watchdog_recover
+    if batcher is None:
+        try:
+            engine.start(warmup=warmup)
+        except Exception:
+            srv.server_close()
+            stop()
+            raise
     metrics.observe_cold_start("compile", time.time() - t_warm)
     metrics.observe_cold_start("total", time.time() - anchor)
     srv.lifecycle = "ready"
     metrics.set_ready(True)
+    if timeseries is not None:
+        timeseries.mark("warmup")  # samples before it are start-up, not serving
     return srv
 
 
@@ -1021,6 +1317,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--speculative-adaptive", type=int, default=1,
                     help="1: per-slot draft length halves on consecutive zero-accept "
                          "verifies and regrows on success; 0: fixed draft length")
+    ap.add_argument("--trace-ring", type=int, default=0,
+                    help="engine flight-recorder ring size (ticks/events/requests kept in "
+                         "memory, served at /debug/engine and /debug/trace); 0 disables "
+                         "recording entirely (the default)")
+    ap.add_argument("--timeseries-ring", type=int, default=0,
+                    help="per-second serving time-series ring size (seconds of history: "
+                         "tick-wall quantiles, ITL, queue depth, MFU/HBM bandwidth, "
+                         "shed/poison counts; served at /debug/timeseries); 0 disables it")
+    ap.add_argument("--device-telemetry", type=int, default=0,
+                    help="1 enables the device telemetry layer: the HBM ledger (GET "
+                         "/debug/device, tpumlops_device_hbm_bytes), the compile observatory "
+                         "(kernel builds and CUDA graph captures, tpumlops_compile_*) and "
+                         "per-tick MFU/HBM-bandwidth gauges and recorder fields")
+    ap.add_argument("--watchdog-deadline-s", type=float, default=0.0,
+                    help="scheduler-tick watchdog deadline: a dispatch blocking past this "
+                         "flips /readyz unready and journals a watchdog event "
+                         "(tpumlops_engine_watchdog_stalls_total); armed after the graph "
+                         "capture at start.  0 (default) disables the monitor")
+    ap.add_argument("--watchdog-grace-s", type=float, default=30.0,
+                    help="grace past the watchdog deadline before the process exits "
+                         "non-zero so Kubernetes restarts the pod")
+    ap.add_argument("--compile-cache-dir", default="",
+                    help="node-local directory of the built CUDA kernels (a library "
+                         "already there loads without nvcc); empty = build/torch_kernels/ "
+                         "beside the package")
     ap.add_argument("--predictor-name", default="v1")
     ap.add_argument("--deployment-name", default="")
     ap.add_argument("--namespace", default="default")
@@ -1053,6 +1374,10 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         speculative_ngram_min=args.speculative_ngram_min,
         speculative_ngram_max=args.speculative_ngram_max,
         speculative_adaptive=bool(args.speculative_adaptive),
+        trace_ring=args.trace_ring, timeseries_ring=args.timeseries_ring,
+        device_telemetry=bool(args.device_telemetry),
+        watchdog_deadline_s=args.watchdog_deadline_s,
+        watchdog_grace_s=args.watchdog_grace_s,
     )
 
 
@@ -1064,6 +1389,9 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     config = config_from_args(args)
+    from ..utils.compile_cache import enable_persistent_compile_cache
+
+    enable_persistent_compile_cache(args.compile_cache_dir)  # before any kernel loads
     t_load = time.perf_counter()
     predictor = load_predictor(
         args.model_uri, quantize=args.quantize, device=args.device,

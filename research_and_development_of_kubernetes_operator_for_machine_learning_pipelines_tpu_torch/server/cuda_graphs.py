@@ -130,10 +130,11 @@ class _GraphProgram:
 
     # -- capture -------------------------------------------------------------
 
-    def capture(self, windows) -> None:
+    def capture(self, windows, on_graph=None) -> None:
         """Capture one graph per (window, sampling mode) on the staged,
         parked inputs; the keys and tokens are restored after the warm-up
-        runs, which may split or rewrite them."""
+        runs, which may split or rewrite them.  ``on_graph(seconds)`` is
+        called after each graph with the wall of its capture."""
         if not self.cuda:
             return
         self._check_parked()
@@ -148,6 +149,7 @@ class _GraphProgram:
                 self._run(min(windows), sampling)
             torch.cuda.current_stream(self.device).wait_stream(side)
             for window in windows:
+                t_graph = time.perf_counter()
                 before = {name: getattr(m, a) for name, (m, a) in _COUNTERS.items()}
                 graph = (torch.cuda.CUDAGraph(keep_graph=True) if KEEP_GRAPHS
                          else torch.cuda.CUDAGraph())
@@ -162,6 +164,8 @@ class _GraphProgram:
                     deltas[name] = getattr(m, a) - before[name]
                     setattr(m, a, before[name])  # a capture launches nothing
                 self.graphs[(int(window), bool(sampling))] = (graph, deltas)
+                if on_graph is not None:
+                    on_graph(time.perf_counter() - t_graph)
         self.keys.copy_(saved[0])
         self.tokens.copy_(saved[1])
         torch.cuda.synchronize(self.device)
@@ -195,12 +199,14 @@ class _GraphProgram:
         """Forget every graph (the cache they point at is being freed)."""
         self.graphs.clear()
 
-    def pool_bytes(self) -> int:
-        """Bytes the graphs' private pool holds on the card."""
+    def pool_bytes(self, key: str = "total_size") -> int:
+        """Bytes the graphs' private pool holds on the card (``key``
+        ``allocated_size``: those of live blocks, which the allocator counts
+        as allocated)."""
         if self.pool is None:
             return 0
         stats = torch.cuda.memory.memory_snapshot()
-        return sum(seg["total_size"] for seg in stats
+        return sum(seg[key] for seg in stats
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
 
 

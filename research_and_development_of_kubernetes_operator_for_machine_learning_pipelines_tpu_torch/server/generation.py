@@ -79,18 +79,39 @@ its (window, token rule); the tick's inputs are host arrays, read back
 synchronously.  The split engine's decode, verify, multistep and
 packed-prefill programs are never built or run; seeds stay their own op.
 
+Observability and containment (each off unless given; off, the loop is
+the one without them): ``recorder`` (``server/flight_recorder.py``)
+journals every tick (kind, wall, active slots, batch fill, tokens,
+accepted drafts, a fused tick's ``steps``, a super-step's ``roles``) and
+each request's lifecycle events, and completes each request's
+:class:`RequestTrace` (``submit(trace=)``, per-token timestamps; a fused
+tick spreads its tokens across its wall); ``telemetry``
+(``server/device_telemetry.py``) joins each tick's analytic cost with its
+wall into MFU and HBM-bandwidth shares, and observes the start-up kernel
+builds and graph captures.  With either on, and only then, prefill and
+seed ticks wait for the card before their wall is read; the K-step burst
+keeps its lag-1 harvest.  ``watchdog`` (``server/watchdog.py``) is beaten
+at every loop iteration with the tick kind about to run, armed after the
+capture at start (disarmed around a recapture) and disarmed at shutdown.
+Poison quarantine is always on: a prompt whose admission crashed the
+engine twice (``POISON_CRASH_THRESHOLD``; the chunked, whole-prompt,
+restore and packed admission handlers count, a decode crash never) is
+refused by ``submit`` with :class:`PoisonRequest` (``on_poison``:
+``quarantined`` / ``rejected``).
+
 Hooks (all optional, called on the scheduler thread): ``on_step`` per
 decode or verify tick and idle pass, ``on_tokens``/``on_itl`` per emitted
 token, ``on_ttft``, ``on_admission_wait``, ``on_request_tokens`` per
-finished request, ``on_tick``/``on_dispatch`` per device dispatch,
+finished request, ``on_tick``/``on_dispatch`` per device dispatch
+(preemption's evict and restore included),
 ``on_prefix_hit`` (cached tokens) per warm admission, ``on_prefix_evict``
 per chunk the first tier evicts, ``on_prefix_l2`` (``hit``/``spill``/
 ``evict``) per second-tier event, ``on_prefill_batch`` (real chunks) per
 packed forward, ``on_spec`` (proposed, accepted) per
 slot with a draft in a verify tick, ``on_shed`` per refused request (on
 the submitting thread); ``submit(on_token=...)`` streams one request's
-tokens and ``submit(stats=...)`` counts its prefill chunks, cached tokens
-and draft tokens.
+tokens and ``submit(trace=...)`` (a :class:`RequestTrace`) counts its
+prefill chunks, cached tokens and draft tokens and times it.
 
 SLO classes (``slo_class``, or ``preemption``, which needs them): each
 request carries ``interactive``, ``batch`` or ``best-effort``; the
@@ -112,12 +133,12 @@ generated twice (``preempt_recomputed_tokens`` stays 0); ``on_preempt``
 (``evict``/``restore``) per event.
 
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): the mesh, multi-host, the watchdog, the flight recorder,
-device telemetry and poison quarantine.
+asked for): the mesh and multi-host (``mesh_shape``, ``channel``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -137,6 +158,7 @@ from ..models.sampling import sample_chain_step, speculative_accept
 from ..ops.decode_attention import MAX_VERIFY_S
 from .batching import next_bucket
 from .cuda_graphs import MultistepProgram, SuperstepProgram
+from .flight_recorder import RequestTrace
 from .prefix_cache import RadixPrefixCache
 from .speculative import DraftState, draft_chain, pad_to_chain, propose_ngram
 
@@ -162,6 +184,22 @@ class EngineOverloaded(RuntimeError):
         self.reason = reason
         self.retry_after_s = int(retry_after_s)
         self.slo_class = slo_class
+
+
+class PoisonRequest(ValueError):
+    """The request's prompt fingerprint is quarantined: its admission
+    crashed the engine twice, and each crash failed every in-flight
+    sequence and reset the device state.  Refused synchronously by
+    :meth:`GenerationEngine.submit`; the HTTP layer answers 422 (the prompt
+    would crash any replica, so no ``Retry-After``)."""
+
+    def __init__(self, fingerprint: str, crashes: int):
+        super().__init__(
+            f"prompt quarantined: admission crashed the engine {crashes} "
+            f"times (fingerprint {fingerprint})"
+        )
+        self.fingerprint = fingerprint
+        self.crashes = int(crashes)
 
 
 def _safe_resolve(fut: Future, value) -> None:
@@ -245,18 +283,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 @dataclass
-class RequestStats:
-    """One request's engine-side counts, filled on the scheduler thread
-    (``submit(stats=...)``); the HTTP layer's completion summary sums
-    them over a request's rows."""
-
-    prefill_chunks: int = 0  # prefill forwards (a whole prompt counts 1)
-    cached_tokens: int = 0  # prompt tokens seeded from the prefix cache
-    spec_proposed: int = 0  # draft tokens verified
-    spec_accepted: int = 0  # draft tokens accepted
-
-
-@dataclass
 class _Slot:
     future: Future
     remaining: int  # new tokens still to produce
@@ -266,7 +292,8 @@ class _Slot:
     prompt_len: int = 0  # for the decode attention window
     generated: list[int] = field(default_factory=list)
     t_last_token: float = 0.0  # perf_counter of the last emitted token (ITL)
-    stats: RequestStats | None = None
+    request_id: str = ""
+    trace: RequestTrace | None = None  # the request's timing and counts
     # Speculation only (None / 0 otherwise): prompt + generated tokens,
     # appended in place (the drafter's context, no per-tick concatenation;
     # validate() caps prompt + max_new at capacity), and the slot's
@@ -299,7 +326,8 @@ class _Request:
     # Estimated tokens (prompt + max_new) held against the admission
     # budget while queued; released once, at dequeue.
     est_tokens: int = 0
-    stats: RequestStats | None = None
+    request_id: str = ""
+    trace: RequestTrace | None = None
     slo_class: str = "interactive"
 
 
@@ -330,7 +358,8 @@ class _Preempted:
     history: np.ndarray | None
     hist_len: int
     draft: DraftState | None
-    stats: RequestStats | None
+    request_id: str
+    trace: RequestTrace | None
     t_last_token: float
     # What the admission loop reads of a queued item: nothing reserved, no
     # admission-wait metric.
@@ -361,9 +390,6 @@ class _PrefillProgress:
 # silently ignored.
 _NOT_PORTED = {
     "channel": None,
-    "recorder": None,
-    "telemetry": None,
-    "watchdog": None,
     "mesh_shape": None,
 }
 
@@ -418,6 +444,10 @@ class GenerationEngine:
         slo_class: str | None = None,  # the default class of a submission
         preemption: bool = False,  # mid-decode eviction of lower classes
         on_preempt: Callable[[str], None] | None = None,  # "evict" | "restore"
+        recorder=None,  # flight_recorder.FlightRecorder | None
+        telemetry=None,  # device_telemetry.DeviceTelemetry | None
+        watchdog=None,  # watchdog.EngineWatchdog | None
+        on_poison: Callable[[str], None] | None = None,  # "quarantined" | "rejected"
         **unported,
     ):
         for name, value in unported.items():
@@ -455,6 +485,35 @@ class GenerationEngine:
         self.on_tick = on_tick  # (kind, wall s) per device dispatch
         self.on_shed = on_shed  # reason of a refused request
         self.on_dispatch = on_dispatch  # kind per device dispatch
+        # Flight recorder and device telemetry, None by default: every
+        # hook below is guarded.  With either on, prefill and seed ticks
+        # wait for the card before their wall is read (a wall of the
+        # launches alone would charge the device time to the next tick,
+        # and read as an absurd MFU); nothing else syncs for them.
+        self._recorder = recorder
+        self._telemetry = telemetry
+        self._sync_ticks = recorder is not None or telemetry is not None
+        # Scheduler watchdog, None by default.  An idle scheduler blocks
+        # in the queue's get and beats once a poll, so the poll halves
+        # under the deadline: quiet time must never read as a stall.
+        self._watchdog = watchdog
+        self._idle_poll_s = min(1.0, watchdog.deadline_s / 2.0) if watchdog is not None else 1.0
+        if watchdog is not None:
+            watchdog.slot_inventory = self._slot_inventory
+        # Held by the scheduler for each iteration's admission and tick, so
+        # another thread can run between two ticks (``between_ticks``); the
+        # turnstile, passed before each iteration, lets a waiting holder in
+        # ahead of the next one.
+        self._tick_gate = threading.Lock()
+        self._turnstile = threading.Lock()
+        # Poison quarantine: crash counts by prompt fingerprint, and the
+        # fingerprints past the threshold that submit refuses.
+        self._poison_counts: dict[str, int] = {}
+        self._quarantined: dict[str, int] = {}
+        self._poison_lock = threading.Lock()
+        self._on_poison = on_poison
+        self.poison_quarantined_total = 0
+        self.poison_rejected_total = 0
         self._prefill_chunk_size = int(prefill_chunk) if prefill_chunk else None
         # Radix prefix cache: the reuse unit IS the prefill chunk, so the
         # cache turns chunked prefill on at chunk_tokens when no chunk is
@@ -614,6 +673,12 @@ class GenerationEngine:
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        if telemetry is not None:
+            telemetry.attach_model(
+                params, cfg, self.max_slots, kv_quant=self._kv_quant,
+                dtype_bytes=self._dtype.itemsize,
+                prefix_cache_budget_bytes=int(prefix_cache.budget_bytes) if prefix_enabled else 0,
+            )
         self._reset_device_state()
 
     def _reset_device_state(self) -> None:
@@ -671,7 +736,25 @@ class GenerationEngine:
         if self._unified:
             prog.stage(*self._parked_superstep())
             kind = "superstep"
-        prog.capture(windows)
+        on_graph = None
+        if self._telemetry is not None:
+            obs = self._telemetry.observatory
+
+            def on_graph(seconds: float) -> None:
+                obs.on_event("compile", seconds, op=kind)
+        # A recapture (recovery) blocks the running scheduler for seconds:
+        # not a stall, so the watchdog is disarmed around it.
+        wd = self._watchdog if self._thread is not None else None
+        if wd is not None:
+            wd.disarm()
+        try:
+            prog.capture(windows, on_graph=on_graph)
+        finally:
+            if wd is not None:
+                wd.arm()
+        if self._telemetry is not None:
+            self._telemetry.set_component("cuda_graph_pool",
+                                          prog.pool_bytes("allocated_size"))
         _log.info("captured %d %s graphs (K=%d) in %.2f s; pool %.1f MiB",
                   len(prog.graphs), kind, self._decode_steps, prog.capture_s,
                   prog.pool_bytes() / 2**20)
@@ -685,6 +768,9 @@ class GenerationEngine:
         warm-up or not: a capture on first use would stall every stream.
         It admits no prompt, so nothing reads or fills the prefix cache
         before the first request."""
+        obs = self._telemetry.observatory if self._telemetry is not None else None
+        if obs is not None:
+            obs.begin_warmup()  # the builds and the capture: the start-up's cost
         if warmup and self._device.type == "cuda":
             from ..ops import _build
 
@@ -692,17 +778,61 @@ class GenerationEngine:
         if self._program is not None and self._device.type == "cuda":
             self._capture = True
             self._capture_graphs()
+        if obs is not None:
+            obs.end_warmup()
+        if self._watchdog is not None:
+            # Armed after the capture: it blocks far past a tick deadline.
+            self._watchdog.arm()
+            self._watchdog.start()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="generation-scheduler"
         )
         self._thread.start()
 
+    def _beat(self, kind: str | None = None) -> None:
+        """One scheduler heartbeat, stamped with the tick kind about to run
+        (a no-op without a watchdog)."""
+        if self._watchdog is not None:
+            self._watchdog.beat(kind)
+
+    def _slot_inventory(self) -> list:
+        """What is in flight, for the watchdog's stall event (called on
+        the monitor thread while the scheduler is wedged: its reads race
+        the scheduler's last writes, which the watchdog tolerates)."""
+        inv = []
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            inv.append({
+                "slot": i,
+                "request_id": slot.request_id,
+                "prompt_len": int(slot.prompt_len),
+                "generated": len(slot.generated),
+                "remaining": int(slot.remaining),
+            })
+        for prog in list(self._pending):
+            inv.append({
+                "slot": int(prog.slot),
+                "request_id": prog.req.request_id,
+                "prompt_len": int(prog.req.prompt.size),
+                "generated": 0,
+                "remaining": int(prog.req.max_new_tokens),
+                "admitting": True,
+            })
+        return inv
+
     def shutdown(self) -> None:
+        if self._watchdog is not None:
+            # Disarmed before the join: teardown stops beating, and an
+            # escalation mid-shutdown would turn a drain into an exit.
+            self._watchdog.disarm()
+            self._watchdog.stop()
         self._stop.set()
         self._queue.put(None)  # unblock the scheduler
         if self._thread is not None:
             self._thread.join(timeout=30)
         for prog in self._pending:
+            self._abort_trace(prog.req.trace, "shutdown")
             if not prog.req.future.done():
                 _safe_fail(
                     prog.req.future,
@@ -717,6 +847,7 @@ class GenerationEngine:
             self._program.drop()  # the graphs' pool goes back to the allocator
         for slot in self._slots:
             if slot is not None and not slot.future.done():
+                self._abort_trace(slot.trace, "shutdown")
                 slot.future.cancel()
         while True:
             try:
@@ -775,7 +906,59 @@ class GenerationEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if seed is not None and not (0 <= int(seed) < 2**63):
             raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+        # Poison quarantine: no hash until a crash has quarantined a prompt.
+        if self._quarantined:
+            fp = self._fingerprint(prompt)
+            with self._poison_lock:  # validate runs on the HTTP threads
+                crashes = self._quarantined.get(fp)
+                if crashes is not None:
+                    self.poison_rejected_total += 1
+            if crashes is not None:
+                if self._on_poison is not None:
+                    self._on_poison("rejected")
+                raise PoisonRequest(fp, crashes)
         return prompt
+
+    # -- poison-request quarantine -------------------------------------------
+
+    # Crashes of one prompt fingerprint before submits refuse it: the first
+    # could be anything (a wedged card, an allocation race), a second with
+    # every other request fine meanwhile is the prompt.
+    POISON_CRASH_THRESHOLD = 2
+
+    @staticmethod
+    def _fingerprint(prompt: np.ndarray) -> str:
+        import hashlib
+
+        return hashlib.sha256(np.ascontiguousarray(prompt, np.int64).tobytes()).hexdigest()[:16]
+
+    def _note_admission_crash(self, reqs) -> None:
+        """Charge an admission crash to the prompt of each request it
+        implicates; quarantine at the threshold.  Called from the admission
+        crash handlers only (a decode crash implicates every slot, and
+        blaming them would quarantine innocents).  A packed crash charges
+        every admission in the batch: the poison one reaches the threshold
+        on its retry, an innocent only if it keeps sharing batches with it."""
+        for req in reqs:
+            if req is None:
+                continue
+            fp = self._fingerprint(req.prompt)
+            newly = False
+            with self._poison_lock:
+                n = self._poison_counts.get(fp, 0) + 1
+                self._poison_counts[fp] = n
+                if n >= self.POISON_CRASH_THRESHOLD and fp not in self._quarantined:
+                    self._quarantined[fp] = n
+                    newly = True
+            if newly:
+                self.poison_quarantined_total += 1
+                _log.error("poison quarantine: prompt fingerprint %s crashed admission "
+                           "%d times; further submits are refused with a typed 422", fp, n)
+                if self._on_poison is not None:
+                    self._on_poison("quarantined")
+                if self._recorder is not None:
+                    self._recorder.event(req.request_id or "", "poison-quarantine",
+                                         fingerprint=fp, crashes=n)
 
     def submit(
         self,
@@ -787,18 +970,20 @@ class GenerationEngine:
         top_p: float = 1.0,
         seed: int | None = None,
         on_token: Callable[[int], None] | None = None,
+        request_id: str = "",
+        trace: RequestTrace | None = None,
         est_reserved: bool = False,
-        stats: RequestStats | None = None,
         slo_class: str | None = None,
     ) -> Future:
         """Enqueue one request; returns its future.  Sheds with
         :class:`EngineOverloaded` before enqueueing anything, unless the
         caller already took the reservation (``est_reserved``, a
         multi-prompt request's whole reservation through
-        :meth:`reserve_admission`).  ``on_token`` is called on the
-        scheduler thread with each emitted token; ``stats``, when given,
-        receives the request's counts.  ``slo_class`` overrides the
-        engine's default class (read only while classes are armed)."""
+        :meth:`reserve_admission`); refuses a quarantined prompt with
+        :class:`PoisonRequest`.  ``on_token`` is called on the scheduler
+        thread with each emitted token; ``trace``, when given, receives the
+        request's timing and counts.  ``slo_class`` overrides the engine's
+        default class (read only while classes are armed)."""
         prompt = self.validate(
             prompt_ids, max_new_tokens, temperature, top_k, top_p, seed
         )
@@ -811,6 +996,14 @@ class GenerationEngine:
         fut: Future = Future()
         # None means "use the engine default"; 0 is a legitimate eos token.
         eos = self._eos_default if eos_id is None else eos_id
+        t_submit = time.perf_counter()
+        if trace is not None:
+            trace.t_submit = t_submit
+            trace.prompt_tokens = int(prompt.size)
+            if not trace.request_id:
+                trace.request_id = request_id
+            if self._recorder is not None:
+                self._recorder.event(trace.request_id, "enqueued")
         with self._adm_lock:
             self._inflight_reqs += 1
         fut.add_done_callback(self._note_request_done)
@@ -825,9 +1018,10 @@ class GenerationEngine:
                 top_p=float(top_p),
                 seed=None if seed is None else int(seed),
                 on_token=on_token,
-                t_submit=time.perf_counter(),
+                t_submit=t_submit,
                 est_tokens=est,
-                stats=stats,
+                request_id=request_id,
+                trace=trace,
                 slo_class=cls,
             )
         )
@@ -1071,6 +1265,7 @@ class GenerationEngine:
         slot = self._slots[idx]
         assert slot is not None and slot.prompt is not None
         t0 = time.perf_counter()
+        self._beat("preempt")
         C = self._prefill_chunk_size
         hist = slot.prompt_len + len(slot.generated) - 1
         full = self._committed_tokens(slot.prompt, slot.generated, hist)
@@ -1087,13 +1282,15 @@ class GenerationEngine:
             temperature=slot.temperature, top_k=slot.top_k, top_p=slot.top_p,
             key=self._keys[idx].cpu().clone(), chunks=chunks, hist=hist,
             history=slot.history, hist_len=slot.hist_len, draft=slot.draft,
-            stats=slot.stats, t_last_token=slot.t_last_token,
+            request_id=slot.request_id, trace=slot.trace, t_last_token=slot.t_last_token,
         )
         self._slots[idx] = None
         # The front of its own class: it re-admits before newer work of it.
         self._class_queues[slot.slo_class].appendleft(rec)
         self.preemptions += 1
-        self._record_tick("preempt-evict", time.perf_counter() - t0)
+        self._record_tick("preempt-evict", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), tokens=hist)
+        self._trace_event(slot.trace, "preempt-evict", slot=idx)
         if self._on_preempt is not None:
             self._on_preempt("evict")
 
@@ -1106,6 +1303,7 @@ class GenerationEngine:
         slot_idx = self._free_slot()
         assert slot_idx is not None
         t0 = time.perf_counter()
+        self._beat("restore")
         C = self._prefill_chunk_size
         hist = rec.hist
         full = self._committed_tokens(rec.prompt, rec.generated, hist)
@@ -1123,13 +1321,16 @@ class GenerationEngine:
         self._slots[slot_idx] = _Slot(
             future=rec.future, remaining=rec.remaining, eos_id=rec.eos_id,
             sampling=rec.sampling, on_token=rec.on_token, prompt_len=int(rec.prompt.size),
-            generated=rec.generated, t_last_token=rec.t_last_token, stats=rec.stats,
-            history=rec.history, hist_len=rec.hist_len, draft=rec.draft,
+            generated=rec.generated, t_last_token=rec.t_last_token,
+            request_id=rec.request_id, trace=rec.trace, history=rec.history, hist_len=rec.hist_len, draft=rec.draft,
             slo_class=rec.slo_class, prompt=rec.prompt, temperature=rec.temperature,
             top_k=rec.top_k, top_p=rec.top_p,
         )
         self.preempt_restores += 1
-        self._record_tick("preempt-restore", time.perf_counter() - t0)
+        self._record_tick("preempt-restore", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), tokens=hist,
+                          cost=self._cost_seed(hist))
+        self._trace_event(rec.trace, "preempt-restore", slot=slot_idx)
         if self._on_preempt is not None:
             self._on_preempt("restore")
 
@@ -1159,20 +1360,97 @@ class GenerationEngine:
                        top_p=req.top_p)
         return out
 
-    def _record_tick(self, kind: str, wall_s: float) -> None:
-        """One device dispatch of ``kind`` that took ``wall_s`` seconds."""
+    def _occupied(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    def _record_tick(self, kind: str, t0: float, wall_s: float, *, active_slots: int = 0,
+                     batch_fill: int = 0, tokens: int = 0, spec_accepted: int = 0,
+                     cost=None, steps: int = 0, roles: dict | None = None) -> None:
+        """Journal one device dispatch of ``kind``, started at ``t0``, that
+        took ``wall_s`` seconds: the dispatch counter, the tick metric and,
+        when on, the flight recorder.  ``cost`` is the tick's analytic
+        ``(flops, hbm_bytes)`` (device telemetry only, else None), joined
+        with the wall into MFU and bandwidth shares; ``steps`` > 0 marks a
+        fused tick (K steps in the one dispatch), ``roles`` a super-step
+        tick's {prefill, decode, verify} rows."""
         self.dispatches_total[kind] = self.dispatches_total.get(kind, 0) + 1
         if self.on_dispatch is not None:
             self.on_dispatch(kind)
+        util = None
+        if self._telemetry is not None and cost is not None:
+            util = self._telemetry.tick_util(kind, wall_s, *cost)
         if self.on_tick is not None:
             self.on_tick(kind, wall_s)
+        if self._recorder is not None:
+            self._recorder.tick(kind, t0, wall_s, active_slots=active_slots,
+                                queue_depth=self._queue.qsize(), batch_fill=batch_fill,
+                                tokens=tokens, spec_accepted=spec_accepted, util=util,
+                                steps=steps, roles=roles)
+
+    def _cost_decode(self, window: int, s: int = 1, steps: int = 1):
+        """Analytic (flops, bytes) of one decode or verify tick: the program
+        computes every cache row, so the cost counts ``max_slots``; a fused
+        tick pays K steps, each at the pre-picked window."""
+        if self._telemetry is None or self._telemetry.cost is None:
+            return None
+        flops, nbytes = self._telemetry.cost.decode(self.max_slots, window, s)
+        if steps > 1:
+            flops, nbytes = flops * steps, nbytes * steps
+        return flops, nbytes
+
+    def _cost_superstep(self, window: int, s: int, steps: int):
+        """Analytic (flops, bytes) of one super-step: the S-wide forward and
+        ``steps - 1`` fused single-token steps, at the pre-picked window."""
+        if self._telemetry is None or self._telemetry.cost is None:
+            return None
+        return self._telemetry.cost.superstep(self.max_slots, window, s, steps)
+
+    def _cost_prefill(self, rows: int, chunk: int, attended=None):
+        if self._telemetry is None or self._telemetry.cost is None:
+            return None
+        return self._telemetry.cost.prefill(rows, chunk, attended)
+
+    def _cost_seed(self, tokens: int):
+        if self._telemetry is None or self._telemetry.cost is None:
+            return None
+        return self._telemetry.cost.seed(tokens)
+
+    def _sync_tick(self) -> None:
+        """With the recorder or telemetry on, wait for the card before a
+        prefill or seed tick's wall is read."""
+        if self._sync_ticks and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+    def _trace_event(self, trace, name: str, slot: int = -1) -> None:
+        if self._recorder is not None and trace is not None:
+            self._recorder.event(trace.request_id, name, slot=slot)
+
+    def _abort_trace(self, trace, reason: str) -> None:
+        """Finish a request's trace off the token path (shutdown, engine
+        failure), so its span still closes in the recorder."""
+        if trace is None:
+            return
+        trace.finish(reason)
+        if self._recorder is not None:
+            self._recorder.event(trace.request_id, "finish", slot=trace.slot)
+            self._recorder.complete(trace)
 
     def _note_ttft(self, req: _Request) -> None:
-        if self.on_ttft is not None and req.t_submit > 0.0:
+        if req.t_submit <= 0.0:
+            return
+        if req.trace is not None:
+            req.trace.t_first = time.perf_counter()
+            self._trace_event(req.trace, "first_token", slot=req.trace.slot)
+        if self.on_ttft is not None:
             self.on_ttft(time.perf_counter() - req.t_submit)
 
     def _note_admission_wait(self, req: _Request) -> None:
-        if self.on_admission_wait is not None and req.t_submit > 0.0:
+        if req.t_submit <= 0.0:
+            return
+        if req.trace is not None:
+            req.trace.t_admit = time.perf_counter()
+            self._trace_event(req.trace, "admission")
+        if self.on_admission_wait is not None:
             self.on_admission_wait(time.perf_counter() - req.t_submit)
 
     def _slot_key_for(self, req: _Request) -> torch.Tensor | None:
@@ -1216,7 +1494,8 @@ class GenerationEngine:
             sampling=req.temperature > 0,
             on_token=req.on_token,
             prompt_len=int(req.prompt.size),
-            stats=req.stats,
+            request_id=req.request_id,
+            trace=req.trace,
             **self._spec_slot_state(req),
             **self._class_slot_state(req),
         )
@@ -1245,11 +1524,14 @@ class GenerationEngine:
         ids[0, :L] = req.prompt
         slot_key = self._slot_key_for(req)
         t0 = time.perf_counter()
-        first = self._device_admit(ids, slot_idx, L, slot_key, req)
+        self._beat("admit")
+        first = self._device_admit(ids, slot_idx, L, slot_key, req)  # read back: synced
         self.prefill_forwards += 1
-        if req.stats is not None:
-            req.stats.prefill_chunks += 1
-        self._record_tick("prefill", time.perf_counter() - t0)
+        self._record_tick("prefill", t0, time.perf_counter() - t0, active_slots=self._occupied(),
+                          batch_fill=1, tokens=1, cost=self._cost_prefill(1, bucket))
+        if req.trace is not None:
+            req.trace.slot = slot_idx
+            req.trace.prefill_chunks += 1  # the whole prompt at once
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
         self._record_token(slot_idx, first)
@@ -1293,6 +1575,8 @@ class GenerationEngine:
         cached_tokens, cached_kv = 0, []
         if self._prefix_cache is not None:
             cached_tokens, cached_kv = self._prefix_cache.lookup(req.prompt)
+        if req.trace is not None:
+            req.trace.cached_tokens = cached_tokens
         return _PrefillProgress(
             req=req,
             chunks=self._split_chunks(req.prompt[cached_tokens:]),
@@ -1381,8 +1665,6 @@ class GenerationEngine:
     def _note_prefix_hit(self, prog: _PrefillProgress) -> None:
         self.prefix_hits += 1
         self.prefix_cached_tokens += prog.cached_tokens
-        if prog.req.stats is not None:
-            prog.req.stats.cached_tokens += prog.cached_tokens
         if self._on_prefix_hit is not None:
             self._on_prefix_hit(prog.cached_tokens)
 
@@ -1414,8 +1696,10 @@ class GenerationEngine:
         prefix-cache seed or one prefill chunk; on the final chunk, install
         the sequence into its slot."""
         assert self._pending
+        self._beat("prefill")
         prog = self._pending[0]
-        stats = prog.req.stats
+        trace = prog.req.trace
+        C = self._prefill_chunk_size
         if prog.cached_tokens and not prog.seeded:
             # Cached-prefix hit: one seed copies the cached K/V into a
             # fresh scratch cache; those tokens never re-prefill.  The
@@ -1425,15 +1709,24 @@ class GenerationEngine:
             prog.seeded = True
             prog.cached_kv = []  # the cache keeps the host copies
             self._note_prefix_hit(prog)
-            self._record_tick("seed", time.perf_counter() - t0)
+            self._sync_tick()
+            self._record_tick("seed", t0, time.perf_counter() - t0,
+                              active_slots=self._occupied(), batch_fill=1,
+                              cost=self._cost_seed(prog.cached_tokens))
+            self._trace_event(trace, "seed")
             return
         ids = prog.chunks[prog.next_idx]
+        offset = prog.cached_tokens + prog.next_idx * C
         t0 = time.perf_counter()
         self._device_chunk(ids, fresh=prog.next_idx == 0 and not prog.seeded)
         self.prefill_forwards += 1
-        if stats is not None:
-            stats.prefill_chunks += 1
-        self._record_tick("prefill", time.perf_counter() - t0)
+        self._sync_tick()
+        self._record_tick("prefill", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), batch_fill=1,
+                          cost=self._cost_prefill(1, C, attended=offset + C / 2))
+        if trace is not None:
+            trace.prefill_chunks += 1
+            self._trace_event(trace, "prefill_chunk")
         self._maybe_cache_chunk(prog)
         prog.next_idx += 1
         if prog.next_idx < len(prog.chunks):
@@ -1443,14 +1736,16 @@ class GenerationEngine:
         slot_idx = self._free_slot()
         assert slot_idx is not None  # reserved by the admission policy
         L = int(req.prompt.size)
-        C = self._prefill_chunk_size
         slot_key = self._slot_key_for(req)
         t0 = time.perf_counter()
-        first = self._device_insert(
+        first = self._device_insert(  # read back: synced
             slot_idx, L, slot_key, req,
             last_idx=(L - 1) - prog.cached_tokens - C * (len(prog.chunks) - 1),
         )
-        self._record_tick("prefill", time.perf_counter() - t0)
+        self._record_tick("prefill", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), batch_fill=1, tokens=1)
+        if req.trace is not None:
+            req.trace.slot = slot_idx
         self._slots[slot_idx] = self._new_slot(req)
         self._note_ttft(req)
         self._record_token(slot_idx, first)
@@ -1497,6 +1792,7 @@ class GenerationEngine:
         chunks a tick packs (Sarathi-style): decode ticks interleave every
         tick, so bounding prefill work a tick bounds the decode-cadence
         jitter long prompts inject."""
+        self._beat("packed-prefill")
         C = self._prefill_chunk_size
         max_chunks = self._prefill_batch
         if self._prefill_token_budget:
@@ -1506,12 +1802,7 @@ class GenerationEngine:
             if prog.cached_tokens and not prog.seeded:
                 # The cached prefix goes straight into the reserved row;
                 # those tokens never re-prefill.
-                t0 = time.perf_counter()
-                self._device_seed_slot(prog.cached_kv, prog.slot)
-                prog.seeded = True
-                prog.cached_kv = []
-                self._note_prefix_hit(prog)
-                self._record_tick("seed", time.perf_counter() - t0)
+                self._seed_reserved(prog)
             else:
                 chunk_progs.append(prog)
         if not chunk_progs:
@@ -1532,10 +1823,15 @@ class GenerationEngine:
         self.prefill_forwards += 1
         if self._on_prefill_batch is not None:
             self._on_prefill_batch(n)
-        self._record_tick("packed-prefill", time.perf_counter() - t0)
+        self._sync_tick()
+        # The forward computes every row of the bucket (parked pad rows
+        # too); the mean attended span is over the real chunks' offsets.
+        attended = float(offsets[:n].mean()) + C / 2
+        self._record_tick("packed-prefill", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), batch_fill=n, tokens=len(finals),
+                          cost=self._cost_prefill(len(ids), C, attended=attended))
         for i, prog in enumerate(chunk_progs):
-            if prog.req.stats is not None:
-                prog.req.stats.prefill_chunks += 1
+            self._note_chunk(prog)
             self._maybe_cache_chunk(prog)
             prog.next_idx += 1
             if prog.next_idx < len(prog.chunks):
@@ -1546,6 +1842,27 @@ class GenerationEngine:
             self._slots[prog.slot] = self._new_slot(prog.req)
             self._note_ttft(prog.req)
             self._record_token(prog.slot, firsts[i])
+
+    def _seed_reserved(self, prog: _PrefillProgress) -> None:
+        """A packed admission's radix-cached prefix seeded straight into
+        its reserved row: one seed tick."""
+        t0 = time.perf_counter()
+        self._device_seed_slot(prog.cached_kv, prog.slot)
+        prog.seeded = True
+        prog.cached_kv = []
+        self._note_prefix_hit(prog)
+        self._sync_tick()
+        self._record_tick("seed", t0, time.perf_counter() - t0, active_slots=self._occupied(),
+                          batch_fill=1, cost=self._cost_seed(prog.cached_tokens))
+        self._trace_event(prog.req.trace, "seed", slot=prog.slot)
+
+    def _note_chunk(self, prog: _PrefillProgress) -> None:
+        """A packed admission's chunk ran, in its reserved row."""
+        trace = prog.req.trace
+        if trace is not None:
+            trace.slot = prog.slot
+            trace.prefill_chunks += 1
+            self._trace_event(trace, "prefill_chunk", slot=prog.slot)
 
     def _device_chunks(self, ids, slots, offsets, finals) -> dict[int, int]:
         """The packed forward, then the finalize of each row whose chunk
@@ -1571,7 +1888,7 @@ class GenerationEngine:
         slot = self._slots[slot_idx]
         assert slot is not None
         if slot.future.cancelled():
-            self._finish(slot)
+            self._finish_trace(slot, "cancelled")
             self._slots[slot_idx] = None
             return
         slot.generated.append(token)
@@ -1583,6 +1900,8 @@ class GenerationEngine:
         if slot.t_last_token > 0.0 and self.on_itl is not None:
             self.on_itl(now - slot.t_last_token)
         slot.t_last_token = now
+        if slot.trace is not None:
+            slot.trace.note_token(now)
         self.tokens_generated += 1
         if self.on_tokens is not None:
             self.on_tokens(1)
@@ -1595,17 +1914,23 @@ class GenerationEngine:
                 _log.exception("on_token callback failed; disabling it for "
                                "this request")
                 slot.on_token = None
-        done = slot.remaining <= 0 or (
-            slot.eos_id is not None and token == slot.eos_id
-        )
-        if done:
-            self._finish(slot)
+        eos = slot.eos_id is not None and token == slot.eos_id
+        if slot.remaining <= 0 or eos:
+            self._finish_trace(slot, "eos" if eos else "length")
             _safe_resolve(slot.future, np.asarray(slot.generated, np.int32))
             self._slots[slot_idx] = None
 
-    def _finish(self, slot: _Slot) -> None:
+    def _finish_trace(self, slot: _Slot, reason: str) -> None:
+        """A slot's request is done: its token count, and its trace closed
+        and handed to the recorder's completed ring."""
         if self.on_request_tokens is not None:
             self.on_request_tokens(len(slot.generated))
+        if slot.trace is None:
+            return
+        slot.trace.finish(reason)
+        self._trace_event(slot.trace, "finish", slot=slot.trace.slot)
+        if self._recorder is not None:
+            self._recorder.complete(slot.trace)
 
     def _note_step(self, active: int, wall_s: float) -> None:
         if self.on_step is not None:
@@ -1644,12 +1969,15 @@ class GenerationEngine:
             self._step_fused(active_np, sampling)
             return
         t0 = time.perf_counter()
+        self._beat("decode")
         self._device_step(active_np, window, sampling)
         toks = self._tokens[:, 0].cpu().numpy()
         wall = time.perf_counter() - t0
         self.decode_forwards += 1
-        self._record_tick("decode", wall)
-        self._note_step(int(active_np.sum()), wall)
+        n_active = int(active_np.sum())
+        self._record_tick("decode", t0, wall, active_slots=n_active, tokens=n_active,
+                          cost=self._cost_decode(window))
+        self._note_step(n_active, wall)
         for i, was_active in enumerate(active_np):
             if was_active and self._slots[i] is not None:
                 self._record_token(i, int(toks[i]))
@@ -1708,7 +2036,7 @@ class GenerationEngine:
         prog = self._program
         prog.load(self._tokens, self._cache.lengths, self._keys, self._temps, self._topk,
                   self._topp, active_np, remaining, eos_ids)
-        pending = None  # (host buffer, t0) of the dispatch not yet harvested
+        pending = None  # (host buffer, t0, window) of the dispatch not yet harvested
         while True:
             # The window covers the LAST step's positions: a row crossing a
             # bucket edge inside the K steps must already be covered.
@@ -1717,6 +2045,7 @@ class GenerationEngine:
             window = decode_window_bucket(min(needed_hi + K - 1, self.capacity),
                                           self.capacity)
             t0 = time.perf_counter()
+            self._beat("multistep")
             handle = self._device_multistep(window, sampling)
             for i in range(B):
                 emit = min(int(rem_hi[i]), K)
@@ -1724,7 +2053,7 @@ class GenerationEngine:
                 rem_hi[i] -= emit
             if pending is not None:
                 self._harvest_fused(*pending)  # lag-1: tick N+1 is in flight
-            pending = (handle, t0)
+            pending = (handle, t0, window)
             may_be_active = any(self._slots[i] is not None and rem_hi[i] > 0
                                 for i in range(B))
             if (not may_be_active or self._stop.is_set() or self._pending
@@ -1740,7 +2069,7 @@ class GenerationEngine:
         if sampling:
             self._keys = prog.keys.clone()
 
-    def _harvest_fused(self, handle: int, t0: float) -> None:
+    def _harvest_fused(self, handle: int, t0: float, window: int) -> None:
         """Wait for one fused tick's token block and credit its tokens.
 
         ``valid[i]`` counts the steps row ``i`` was active for: columns at
@@ -1751,9 +2080,12 @@ class GenerationEngine:
         toks, valid = self._program.harvest(handle)
         end = time.perf_counter()
         wall = end - t0
+        K = self._decode_steps
         active_slots = int((valid > 0).sum())
         self.decode_forwards += 1
-        self._record_tick("multistep", wall)
+        self._record_tick("multistep", t0, wall, active_slots=active_slots,
+                          tokens=int(valid.sum()), steps=K,
+                          cost=self._cost_decode(window, steps=K))
         self._note_step(active_slots, wall)
         for i in range(self.max_slots):
             n = int(valid[i])
@@ -1808,12 +2140,16 @@ class GenerationEngine:
             toks[i, 1:1 + len(drafts[i])] = drafts[i]
             draft_len[i] = len(drafts[i])
         t0 = time.perf_counter()
+        self._beat("verify")
         greedy, accepted = self._device_verify(toks, active_np, draft_len, window)
         wall = time.perf_counter() - t0
         self.decode_forwards += 1
         self.spec_verify_ticks += 1
-        self._record_tick("verify", wall)
-        self._note_step(int(active_np.sum()), wall)
+        n_active = int(active_np.sum())
+        acc_total = int(accepted[active_np].sum())
+        self._record_tick("verify", t0, wall, active_slots=n_active, tokens=n_active + acc_total,
+                          spec_accepted=acc_total, cost=self._cost_decode(window, s_draft + 1))
+        self._note_step(n_active, wall)
         for i, was_active in enumerate(active_np):
             slot = self._slots[i]
             if not was_active or slot is None:
@@ -1823,9 +2159,9 @@ class GenerationEngine:
             if n_prop:
                 self.spec_proposed_tokens += n_prop
                 self.spec_accepted_tokens += n_acc
-                if slot.stats is not None:
-                    slot.stats.spec_proposed += n_prop
-                    slot.stats.spec_accepted += n_acc
+                if slot.trace is not None:
+                    slot.trace.spec_proposed += n_prop
+                    slot.trace.spec_accepted += n_acc
                 if self._on_spec is not None:
                     self._on_spec(n_prop, n_acc)
             # The accepted draft prefix, then the bonus token; stop early
@@ -1895,17 +2231,13 @@ class GenerationEngine:
             for prog in self._pending[:max_chunks]:
                 if prog.cached_tokens and not prog.seeded:
                     # Seeds stay their own op: a radix copy is not a forward.
-                    t0 = time.perf_counter()
-                    self._device_seed_slot(prog.cached_kv, prog.slot)
-                    prog.seeded = True
-                    prog.cached_kv = []
-                    self._note_prefix_hit(prog)
-                    self._record_tick("seed", time.perf_counter() - t0)
+                    self._seed_reserved(prog)
                 else:
                     chunk_progs.append(prog)
         if not occupied.any() and not chunk_progs:
             self._note_step(0, 0.0)
             return
+        self._beat("superstep")
         K = self._decode_steps
         sampling = any(s is not None and s.sampling for s in self._slots)
         drafts: list[list[int]] = [[] for _ in range(B)]
@@ -1914,7 +2246,7 @@ class GenerationEngine:
         (ids, roles, offsets, counts, draft_len, active, remaining, eos_ids, last_pos,
          final_lens, slot_keys, r_temps, r_tks, r_tps) = self._parked_superstep()
         decode_hi = other_hi = 0
-        n_ver = 0
+        n_dec = n_ver = 0
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -1936,6 +2268,7 @@ class GenerationEngine:
                 if slot.eos_id is not None:
                     eos_ids[i] = slot.eos_id
                 decode_hi = max(decode_hi, pos)
+                n_dec += 1
         C = self._prefill_chunk_size
         for prog in chunk_progs:
             i, req = prog.slot, prog.req
@@ -1971,12 +2304,18 @@ class GenerationEngine:
                 self._on_prefill_batch(n_pre)
         if n_ver:
             self.spec_verify_ticks += 1
-        self._record_tick("superstep", wall)
+        finals = sum(1 for prog in chunk_progs if prog.next_idx == len(prog.chunks) - 1)
+        acc_total = int(out.accepted[occupied].sum()) if n_ver else 0
+        self._record_tick("superstep", t0, wall, active_slots=int(occupied.sum()),
+                          batch_fill=n_pre,
+                          tokens=int(out.valid.sum()) + n_ver + acc_total + finals,
+                          spec_accepted=acc_total, steps=K,
+                          cost=self._cost_superstep(window, self._super_width, K),
+                          roles={"prefill": n_pre, "decode": n_dec, "verify": n_ver})
         self._note_step(int(occupied.sum()), wall)
         # Prefill harvest: the packed tick's bookkeeping.
         for prog in chunk_progs:
-            if prog.req.stats is not None:
-                prog.req.stats.prefill_chunks += 1
+            self._note_chunk(prog)
             self._maybe_cache_chunk(prog)
             prog.next_idx += 1
             if prog.next_idx < len(prog.chunks):
@@ -1996,9 +2335,9 @@ class GenerationEngine:
                 slot.draft.observe(n_prop, n_acc)
                 self.spec_proposed_tokens += n_prop
                 self.spec_accepted_tokens += n_acc
-                if slot.stats is not None:
-                    slot.stats.spec_proposed += n_prop
-                    slot.stats.spec_accepted += n_acc
+                if slot.trace is not None:
+                    slot.trace.spec_proposed += n_prop
+                    slot.trace.spec_accepted += n_acc
                 if self._on_spec is not None:
                     self._on_spec(n_prop, n_acc)
                 for j in range(n_acc + 1):
@@ -2031,13 +2370,30 @@ class GenerationEngine:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
-            if not self._admit_phase():
-                return  # shutdown sentinel
-            try:
-                self._step()
-            except Exception:
-                _log.exception("decode step failed")
-                self._fail_all_and_recover()
+            # The idle stamp is overwritten just before each dispatch, so a
+            # wedged tick is charged to its kind.
+            self._beat("idle")
+            with self._turnstile:
+                pass
+            with self._tick_gate:
+                if not self._admit_phase():
+                    return  # shutdown sentinel
+                try:
+                    self._step()
+                except Exception:
+                    _log.exception("decode step failed")
+                    self._fail_all_and_recover()
+
+    @contextlib.contextmanager
+    def between_ticks(self):
+        """A context in which the scheduler launches nothing: entered
+        between two iterations (at most one idle poll away), held until
+        exit.  For work that must not run beside a dispatch: the
+        profiler's start and stop, which deadlocked against a concurrent
+        CUDA graph replay on the card.  Never entered on the scheduler
+        thread itself (its hooks included)."""
+        with self._turnstile, self._tick_gate:
+            yield
 
     def _admit_phase(self) -> bool:
         """Admission work for one scheduler iteration: whole-prompt mode
@@ -2057,6 +2413,7 @@ class GenerationEngine:
                 self._chunk_tick()
             except Exception as exc:
                 _log.exception("chunked prefill failed")
+                self._note_admission_crash([prog.req])
                 self._pending = []
                 self._seq_state = None
                 if not prog.req.future.done():
@@ -2066,7 +2423,7 @@ class GenerationEngine:
         while self._free_slot() is not None:
             try:
                 idle = all(s is None for s in self._slots)
-                req = self._dequeue(idle, 1.0)
+                req = self._dequeue(idle, self._idle_poll_s)
             except queue.Empty:
                 break
             if req is not None:
@@ -2086,6 +2443,7 @@ class GenerationEngine:
                 self._admit(req)
             except Exception as exc:  # keep the scheduler alive
                 _log.exception("admit failed")
+                self._note_admission_crash([req])
                 if not req.future.done():
                     _safe_fail(req.future, exc)
                 self._fail_all_and_recover()
@@ -2098,14 +2456,16 @@ class GenerationEngine:
             self._admit_restore(rec)
         except Exception as exc:
             _log.exception("preemption restore failed")
+            self._note_admission_crash([rec])
             if not rec.future.done():
+                self._abort_trace(rec.trace, "error")
                 _safe_fail(rec.future, exc)
             self._fail_all_and_recover()
 
-    @staticmethod
-    def _refuse_at_shutdown(req: "_Request | _Preempted | None") -> None:
+    def _refuse_at_shutdown(self, req: "_Request | _Preempted | None") -> None:
         """Fail a request dequeued after shutdown began (None: the sentinel)."""
         if req is not None and not req.future.done():
+            self._abort_trace(req.trace, "shutdown")
             _safe_fail(
                 req.future,
                 EngineShutdown("engine shut down before admission; retry on another replica"),
@@ -2120,7 +2480,7 @@ class GenerationEngine:
         while self._free_slot() is not None:
             idle = not self._pending and all(s is None for s in self._slots)
             try:
-                req = self._dequeue(idle and not popped, 1.0)
+                req = self._dequeue(idle and not popped, self._idle_poll_s)
             except queue.Empty:
                 break
             if req is not None:
@@ -2150,6 +2510,7 @@ class GenerationEngine:
             self._packed_tick()
         except Exception as exc:
             _log.exception("packed prefill failed")
+            self._note_admission_crash([p.req for p in self._pending])
             for prog in self._pending:
                 if not prog.req.future.done():
                     _safe_fail(prog.req.future, exc)
@@ -2166,6 +2527,7 @@ class GenerationEngine:
         batch-1 scratch and survive)."""
         for i, slot in enumerate(self._slots):
             if slot is not None and not slot.future.done():
+                self._abort_trace(slot.trace, "error")
                 _safe_fail(
                     slot.future,
                     RuntimeError("generation step failed; see server log"),
@@ -2174,6 +2536,7 @@ class GenerationEngine:
         if self._packed:
             for prog in self._pending:
                 if not prog.req.future.done():
+                    self._abort_trace(prog.req.trace, "error")
                     _safe_fail(
                         prog.req.future,
                         RuntimeError("generation step failed; see server log"),

@@ -29,6 +29,7 @@ from ..models.registry import BUILDERS, Predictor
 from .generation import resolve_device
 
 _log = logging.getLogger("tpumlops_torch.loader")
+_capacity_log = logging.getLogger("tpumlops.capacity")
 
 QUANTIZE_MODES = ("none", "int8", "int8kv")
 
@@ -286,7 +287,9 @@ def load_predictor(
             params = quantize_llama(params)
         _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
                   flavor, hf_dir, dev, quantize)
-        return BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs)
+        return _log_capacity(
+            BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs),
+            quantize)
     if flavor not in BUILDERS:
         raise ModelLoadError(
             f"flavor {flavor!r} is not yet ported (the port serves "
@@ -318,4 +321,17 @@ def load_predictor(
     kwargs = dict(meta.get("builder_kwargs", {}))
     if flavor == "llama-generate":
         dtype = dtype or torch.bfloat16
-    return BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs)
+    return _log_capacity(BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs), quantize)
+
+
+def _log_capacity(predictor: Predictor, quantize: str) -> Predictor:
+    """Stamp a causal LM's model-capacity line (weights by dtype, KV bytes
+    a row, the cache rows that fit), with or without device telemetry;
+    returns the predictor."""
+    lm = predictor.causal_lm
+    if lm:
+        from .device_telemetry import capacity_log_line
+
+        _capacity_log.info("%s", capacity_log_line(lm["params"], lm["cfg"],
+                                                   kv_quant=quantize == "int8kv"))
+    return predictor

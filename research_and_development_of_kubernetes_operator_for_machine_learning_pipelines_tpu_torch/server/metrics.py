@@ -15,7 +15,10 @@ operator, the autoscaler and the router read the generation families
 (``tpumlops_ttft_seconds``, ``_itl_seconds``, ``_engine_queue_depth``,
 ``_admission_wait_ms``, ``_engine_shed``, ``_engine_preempt``,
 ``_cold_start_seconds``, ``_model_ready``, ...), some through
-``histogram_quantile``.  Names,
+``histogram_quantile``.  The watchdog and poison families are always
+registered; the device telemetry families (``tpumlops_device_*``,
+``tpumlops_compile_*``) only with ``device_telemetry=True``, so a replica
+without it exposes what it did before.  Names,
 types, label names and bucket bounds are the reference's, so its PromQL
 reads a port replica unchanged.  The card's machine has no
 ``prometheus_client``: the text exposition (format 0.0.4) is written here
@@ -143,7 +146,8 @@ class Histogram(_Family):
 
 
 class ServerMetrics:
-    def __init__(self, deployment_name: str, predictor_name: str, namespace: str):
+    def __init__(self, deployment_name: str, predictor_name: str, namespace: str,
+                 device_telemetry: bool = False):
         self.identity = {
             "deployment_name": deployment_name,
             "predictor_name": predictor_name,
@@ -292,6 +296,70 @@ class ServerMetrics:
         self.ready = Gauge(
             "tpumlops_model_ready", "1 once the model is loaded and warmed",
             ident, lock)
+        # Failure containment: the watchdog families sit at 0 until
+        # --watchdog-deadline-s arms the monitor; the poison counters back
+        # the always-on quarantine.
+        self.watchdog_stalls = Counter(
+            "tpumlops_engine_watchdog_stalls",
+            "Scheduler ticks that exceeded the watchdog deadline "
+            "(each flips /readyz unready and journals a watchdog event)",
+            ident, lock)
+        self.watchdog_tick_age = Gauge(
+            "tpumlops_engine_watchdog_last_tick_age_seconds",
+            "Age of the scheduler's last heartbeat as seen by the "
+            "watchdog monitor (0 while disarmed; climbs during a stall)",
+            ident, lock)
+        self.poison_quarantined = Counter(
+            "tpumlops_engine_poison_quarantined",
+            "Prompt fingerprints quarantined after repeated "
+            "admission/prefill crashes", ident, lock)
+        self.poison_rejected = Counter(
+            "tpumlops_engine_poison_rejected",
+            "Submissions refused (typed 422) because their prompt "
+            "fingerprint is quarantined", ident, lock)
+        families = [
+            self.watchdog_stalls, self.watchdog_tick_age,
+            self.poison_quarantined, self.poison_rejected,
+        ]
+        # Device telemetry (server/device_telemetry.py), registered only
+        # when it is on: even an unobserved family adds HELP/TYPE lines.
+        self.device_hbm_bytes = None
+        self.device_mfu = None
+        self.device_hbm_bw_util = None
+        self.compile_seconds = None
+        self.compile_cache_hits = None
+        self.compile_cache_misses = None
+        if device_telemetry:
+            self.device_hbm_bytes = Gauge(
+                "tpumlops_device_hbm_bytes",
+                "Analytic HBM ledger: bytes held on device by component "
+                "(weights_<dtype>, kv_cache, sampling_state, cuda_graph_pool, total)",
+                ident + ["component"], lock)
+            self.device_mfu = Gauge(
+                "tpumlops_device_mfu",
+                "Model FLOPs utilization of the most recent engine tick "
+                "of each kind (analytic cost model / device peak)",
+                ident + ["kind"], lock)
+            self.device_hbm_bw_util = Gauge(
+                "tpumlops_device_hbm_bw_util",
+                "HBM bandwidth utilization of the most recent engine "
+                "tick of each kind (analytic bytes / device peak)",
+                ident + ["kind"], lock)
+            self.compile_seconds = Counter(
+                "tpumlops_compile_seconds",
+                "Kernel build (nvcc) and CUDA graph capture wall seconds, "
+                "by the kernel or program they were for",
+                ident + ["op"], lock)
+            self.compile_cache_hits = Counter(
+                "tpumlops_compile_cache_hits",
+                "Kernel builds served by a library already in the build "
+                "directory", ident, lock)
+            self.compile_cache_misses = Counter(
+                "tpumlops_compile_cache_misses",
+                "Kernel builds that ran nvcc", ident, lock)
+            families += [self.device_hbm_bytes, self.device_mfu, self.device_hbm_bw_util,
+                         self.compile_seconds, self.compile_cache_hits,
+                         self.compile_cache_misses]
         self._families = (
             self.client_requests, self.server_requests, self.batch_size,
             self.queue_seconds, self.batch_run_seconds, self.pipeline_wait_seconds,
@@ -307,7 +375,7 @@ class ServerMetrics:
             self.spec_proposed_tokens, self.spec_accepted_tokens,
             self.spec_accepted_len, self.spec_acceptance_rate,
             self.shed, self.preempt, self.model_load_seconds, self.cold_start_seconds,
-            self.ready,
+            self.ready, *families,
         )
 
     def observe_request(self, seconds: float, code: int = 200,
@@ -350,6 +418,39 @@ class ServerMetrics:
         """``event``: "evict" (a slot reclaimed, its K/V parked through the
         prefix cache) or "restore" (the sequence re-admitted)."""
         self.preempt.inc({**self.identity, "event": event})
+
+    def inc_watchdog_stall(self) -> None:
+        self.watchdog_stalls.inc(self.identity)
+
+    def set_watchdog_tick_age(self, seconds: float) -> None:
+        self.watchdog_tick_age.set(self.identity, seconds)
+
+    def inc_poison(self, action: str) -> None:
+        """``action``: "quarantined" (a fingerprint crossed the crash
+        threshold) or "rejected" (a submit refused with the typed 422)."""
+        if action == "quarantined":
+            self.poison_quarantined.inc(self.identity)
+        else:
+            self.poison_rejected.inc(self.identity)
+
+    # -- device telemetry (families exist only with device_telemetry) ---------
+
+    def observe_hbm_component(self, component: str, nbytes: int) -> None:
+        if self.device_hbm_bytes is not None:
+            self.device_hbm_bytes.set({**self.identity, "component": component}, nbytes)
+
+    def observe_device_util(self, kind: str, mfu: float, bw_util: float) -> None:
+        if self.device_mfu is not None:
+            self.device_mfu.set({**self.identity, "kind": kind}, mfu)
+            self.device_hbm_bw_util.set({**self.identity, "kind": kind}, bw_util)
+
+    def observe_compile(self, op: str, seconds: float) -> None:
+        if self.compile_seconds is not None:
+            self.compile_seconds.inc({**self.identity, "op": op}, seconds)
+
+    def observe_compile_cache(self, hit: bool) -> None:
+        if self.compile_cache_hits is not None:
+            (self.compile_cache_hits if hit else self.compile_cache_misses).inc(self.identity)
 
     def observe_admission_wait(self, seconds: float) -> None:
         self.admission_wait_ms.observe(self.identity, seconds * 1000)

@@ -285,14 +285,50 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("channel", object()), ("watchdog", object()), ("telemetry", object()),
+    ("channel", object()),
     ("mesh_shape", {"tp": 2}),
-    ("recorder", object()),
 ])
 def test_unported_engine_options_raise(tiny, option, value):
     _, tcfg, _, tp = tiny
     with pytest.raises(ValueError, match="not yet ported"):
         TG.GenerationEngine(tp, tcfg, device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("option", ["watchdog", "telemetry", "recorder"])
+def test_observability_options_serve_the_reference_tokens(tiny, dense_refs, option):
+    """The watchdog, device telemetry and the flight recorder are accepted
+    (they raised before they were ported): an engine with one of them on
+    answers the reference's greedy tokens, and the option saw the run."""
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server.device_telemetry import (
+        DeviceTelemetry,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server.flight_recorder import (
+        FlightRecorder,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server.watchdog import (
+        EngineWatchdog,
+    )
+
+    _, tcfg, _, tp = tiny
+    exits = []
+    value = {"watchdog": lambda: EngineWatchdog(deadline_s=30.0, on_exit=lambda: exits.append(1)),
+             "telemetry": DeviceTelemetry,
+             "recorder": lambda: FlightRecorder(256)}[option]()
+    outs, engine = _run_engine(tp, tcfg, **{option: value})
+    assert outs == dense_refs
+    dispatches = sum(engine.dispatches_total.values())
+    if option == "watchdog":
+        assert value.stalls_total == 0 and not exits
+        assert value._thread is None and not value._armed  # stopped at shutdown
+        assert value.slot_inventory == engine._slot_inventory
+    elif option == "telemetry":
+        assert set(value.last_util) == {"prefill", "decode"}
+        for util in value.last_util.values():
+            assert 0.0 < util["hbm_bw_util"] <= 1.0 and 0.0 < util["mfu"] <= 1.0
+        assert value.ledger.components["kv_cache"] == 3 * value.ledger.kv_bytes_per_row
+    else:
+        assert value.ticks_recorded == dispatches
+        assert value.traces_recorded == 0  # no request carried a trace
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu(tiny, monkeypatch):

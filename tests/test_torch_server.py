@@ -220,12 +220,29 @@ def test_health_routes(server):
     assert _call(server + "/v2/health/ready") == (200, {"ready": True, "lifecycle": "ready"})
 
 
+def test_generate_debug_returns_the_timing_block(server, refs):
+    """``"debug": true`` (refused before it was ported) answers the tokens
+    and the request's timing block: one row, its prefill chunk, its tokens
+    and finish reason, and the queue and first-token times."""
+    expected, _ = refs
+    prompt, n = PROMPTS[0]
+    code, body = _call(server + "/v2/models/tiny/generate",
+                       {"prompt_ids": prompt, "max_new_tokens": n, "debug": True})
+    assert code == 200 and body["outputs"][0]["data"] == expected[0]
+    timing = body["timing"]
+    assert timing["tokens"] == n and timing["prefill_chunks"] == 1
+    assert timing["finish_reasons"] == ["length"] and len(timing["rows"]) == 1
+    row = timing["rows"][0]
+    assert row["prompt_tokens"] == len(prompt) and row["tokens"] == n
+    assert 0 <= row["queue_ms"] <= row["ttft_ms"] <= row["total_ms"]
+    assert timing["request_id"] == row["request_id"] != ""
+
+
 @pytest.mark.parametrize("path,body,code,needle", [
     ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "max_new_token": 3}, 400, "unknown key"),
     ("/v2/models/tiny/generate", {"inputs": [{"name": "prompt_ids", "shape": [1, 2],
                                               "data": [1, 2]}],
                                   "parameters": {"temperatur": 1.0}}, 400, "unknown key"),
-    ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "debug": True}, 400, "not yet ported"),
     ("/v2/models/tiny/generate", {"prompt_ids": []}, 400, "empty"),
     ("/v2/models/tiny/generate", {"prompt_ids": [1, 2], "max_new_tokens": 100}, 400, "capacity"),
     ("/v2/models/tiny/generate", {"inputs": [{"name": "x", "shape": [1], "data": [1]}]},

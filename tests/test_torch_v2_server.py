@@ -509,4 +509,6 @@ def test_metrics_count_responses_and_match_the_reference_families(server):
         "tpumlops_prefix_cache_evictions", "tpumlops_prefix_cache_l2_hits",
         "tpumlops_prefix_cache_l2_spills", "tpumlops_prefix_cache_l2_evictions",
         "tpumlops_spec_proposed_tokens", "tpumlops_spec_accepted_tokens",
-        "tpumlops_spec_accepted_len", "tpumlops_spec_acceptance_rate"}
+        "tpumlops_spec_accepted_len", "tpumlops_spec_acceptance_rate",
+        "tpumlops_engine_watchdog_stalls", "tpumlops_engine_watchdog_last_tick_age_seconds",
+        "tpumlops_engine_poison_quarantined", "tpumlops_engine_poison_rejected"}
