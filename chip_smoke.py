@@ -82,7 +82,12 @@ and exits non-zero):
    (``<port>.scripts.proto_dmajor_attention``) in process, with its
    parity assert and its launch counts.
 4. Loader: writes a tiny native artifact, starts ``python -m
-   <port>.server --quantize int8kv`` as a subprocess and calls /generate.
+   <port>.server --quantize int8kv`` as a subprocess and calls /generate;
+   the process flags: ``--metrics-port`` answers ``/metrics``; SIGTERM with
+   ``--drain-s 1`` turns ``/readyz`` to 503 while a generate sent inside the
+   lag is answered 200, then the process exits 0; with ``--log-format
+   json`` every log line is a JSON object and the completion line carries
+   the request id.
 5. Serving at full width: Llama-2-7B (all 32 layers), one draw of random
    bf16 weights from a seed serving all three quantize modes behind the
    same ``build_server`` over HTTP.  5b: ``quantize: none`` (bf16
@@ -290,6 +295,31 @@ and exits non-zero):
    (the cost model over its wall) at most 1.05; the Chrome trace's
    invariants; the timeseries ring's utilization; then one replay on the
    recaptured graphs bit-equal to eager (``_graph_vs_eager``).
+   5i: the KV handoff on the bf16 tree: a ``--fleet-role prefill`` and a
+   ``--fleet-role decode`` server (``none``, split K 1, 4 slots, the prefix
+   cache at chunks of 256 with 1024 MB) on the one weight tree, over HTTP.
+   A 600-token prompt exported cold (the exporter prefills; 2 chunks,
+   256 MiB) and warm (the same bytes), imported (512 tokens), its chunks
+   read back bit-equal to the exporter's; 16 greedy tokens on the importer
+   bit-equal to the exporter's own cache-hit serve; a corrupt blob 400, a
+   blob of chunks of 128 tokens 409; the ``kv-import`` tick on
+   ``/debug/trace``; then the imported chunks evicted by four other prompts
+   and the prompt served cold on the importer: agreement reported, and the
+   recompute's time beside the handoff's (export, serialize, wire,
+   deserialize, import ms); launch identities over the served traffic.
+   5j: snapshot and attach on the ``int8`` tree: a snapshot written under
+   ``build/`` (deleted after; the free disk checked first, depth cut only
+   if it cannot hold the tree), a ``--warm-pool`` server (split K 4, 4
+   slots, chunks of 256) prewarmed from it: ``/readyz`` 503 ``warm-pool``,
+   generate 503 ``warm_pool_empty``; ``POST /admin/attach`` restores it
+   (``restored`` true, graphs captured after the restore) and one greedy
+   request is bit-equal to the same tree served directly; a second attach
+   is a no-op; a flipped byte fails the restore typed (``SnapshotError``),
+   and on a one-layer full-width artifact an attach of a snapshot with a
+   flipped byte loads cold, bakes again and serves.  The snapshot's GiB,
+   write s, restore s and GB/s, capture s and attach wall beside the cold
+   path of the same run (the quantize from the bf16 draw, then the direct
+   server's start); launch identities over the attached replica's request.
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -315,6 +345,8 @@ import gc
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -2129,14 +2161,15 @@ def phase_loader_subprocess() -> None:
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         art = loader.save_native_model(Path(tmp) / "tiny", "llama-generate", params,
                                        config=dataclasses.asdict(cfg))
-        port = _free_port()
+        port, mport = _free_port(), _free_port()
         log_path = OUT_DIR / "server_subprocess.log"
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONWARNINGS="ignore")
         with open(log_path, "w") as logf:
             proc = subprocess.Popen(
                 [sys.executable, "-m", f"{PKG}.server", "--model-uri", str(art),
                  "--quantize", "int8kv", "--host", "127.0.0.1", "--port", str(port),
-                 "--max-slots", "2", "--prefill-chunk", "16"],
+                 "--max-slots", "2", "--prefill-chunk", "16", "--drain-s", "1",
+                 "--metrics-port", str(mport), "--log-format", "json"],
                 cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
             try:
                 base = f"http://127.0.0.1:{port}"
@@ -2162,6 +2195,8 @@ def phase_loader_subprocess() -> None:
                 log(f"loader + server subprocess (int8kv, tiny): 2 prompts -> 12 tokens each "
                     f"in {time.perf_counter() - t0:.2f} s")
                 DETAIL["subprocess_tokens"] = toks
+                DETAIL["subprocess_flags"] = _process_flags(proc, base, mport, log_path,
+                                                            cfg.vocab_size)
             finally:
                 proc.terminate()
                 try:
@@ -2169,6 +2204,58 @@ def phase_loader_subprocess() -> None:
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.wait()
+
+
+def _process_flags(proc, base: str, mport: int, log_path: Path, vocab: int) -> dict:
+    """The server process's flags: ``--metrics-port`` answers ``/metrics``;
+    after SIGTERM ``/readyz`` is 503 while a generate sent inside the
+    ``--drain-s 1`` lag is answered 200, then the process exits 0; every
+    line of its ``--log-format json`` log parses, and the completion line
+    carries the request id."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=10) as r:
+        if r.status != 200 or b"tpumlops_model_ready" not in r.read():
+            raise AssertionError("the --metrics-port listener did not serve /metrics")
+    proc.send_signal(signal.SIGTERM)
+    t_sig = time.perf_counter()
+    while _call("GET", base + "/readyz", timeout=5)[0] != 503:
+        if time.perf_counter() - t_sig > 1.0:
+            raise AssertionError("/readyz still 200 1 s after SIGTERM")
+        time.sleep(0.02)
+    not_ready_s = time.perf_counter() - t_sig
+    req = urllib.request.Request(base + "/v2/models/model/generate",
+                                 data=json.dumps({"prompt_ids": [5, 9, 2],
+                                                  "max_new_tokens": 4}).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "X-Request-Id": "smoke-lag-1"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        _check_outputs(json.loads(r.read()), [4], vocab)
+    answered_s = time.perf_counter() - t_sig
+    if answered_s > 1.0:
+        raise AssertionError(f"the lag's generate was answered {answered_s:.2f} s after "
+                             "SIGTERM, past --drain-s 1")
+    code = proc.wait(timeout=60)
+    exit_s = time.perf_counter() - t_sig
+    if code != 0:
+        raise AssertionError(f"the server exited {code} after SIGTERM; see {log_path}")
+    lines = [ln for ln in log_path.read_text().splitlines() if ln.strip()]
+    try:
+        records = [json.loads(ln) for ln in lines]
+    except ValueError as e:
+        raise AssertionError(f"--log-format json wrote a line that is no JSON ({e}); "
+                             f"see {log_path}") from None
+    done = [r_ for r_ in records if r_.get("request_id") == "smoke-lag-1"
+            and r_.get("logger", "").endswith("server.requests")]
+    if len(done) != 1 or "code=200" not in done[0]["message"]:
+        raise AssertionError(f"no completion line with request_id smoke-lag-1: {done}")
+    res = {"not_ready_after_s": not_ready_s, "lag_generate_answered_s": answered_s,
+           "exit_after_s": exit_s, "json_lines": len(records),
+           "wall_s": time.perf_counter() - t0}
+    log(f"server flags: /metrics on --metrics-port; SIGTERM -> /readyz 503 after "
+        f"{not_ready_s * 1e3:.0f} ms, a generate in the lag answered 200 after "
+        f"{answered_s * 1e3:.0f} ms, exit 0 after {exit_s:.2f} s; {len(records)} log lines, "
+        "all JSON, the completion line with its request id")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5777,6 +5864,469 @@ def phase_serve_7b_observed(da, rn, fa, ss, smi: str, params, ms_none: dict) -> 
 
 
 # ---------------------------------------------------------------------------
+# Phase 5i: the KV handoff between a prefill and a decode replica
+# ---------------------------------------------------------------------------
+
+HANDOFF_PROMPT = 600  # tokens: 2 whole chunks of 256 to hand off, 88 to prefill
+HANDOFF_NEW = 16
+
+
+def _http_bytes(method: str, url: str, data: bytes | None = None,
+                content_type: str = "application/json", timeout: float = 600):
+    """(status, raw body, headers) of one HTTP call whose body or answer is
+    binary (a KV handoff blob)."""
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": content_type})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _fleet_server(app, predictor, role: str, device: str):
+    config = app.ServerConfig(
+        model_name="llama2-7b", host="127.0.0.1", port=0, quantize="none", max_slots=4,
+        device=device, prefix_cache=True, prefix_cache_chunk=256,
+        prefix_cache_budget_mb=1024, trace_ring=1024, fleet_role=role)
+    srv = app.build_server(predictor, config)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _debug_generate(url: str, prompt, n: int, vocab: int) -> tuple[list[int], dict, float]:
+    t0 = time.perf_counter()
+    resp = _post(url, {"prompt_ids": prompt, "max_new_tokens": n, "debug": True})
+    wall = time.perf_counter() - t0
+    return _check_outputs(resp, [n], vocab)[0], resp["timing"], wall
+
+
+def phase_serve_7b_handoff(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
+    """Phase 5i on Llama-2-7B, uncut (``params``: the bf16 tree): a
+    ``--fleet-role prefill`` and a ``--fleet-role decode`` server (``none``,
+    split K 1, 4 slots, prefix cache chunks of 256, 1024 MB: 8 chunks) on the
+    one weight tree, each with its own KV and radix caches, over HTTP.  A
+    600-token prompt is exported cold (the exporter prefills) and warm (the
+    same bytes), imported, read back bit-equal; the importer's 16 greedy
+    tokens equal the exporter's own cache-hit serve; a corrupt blob is a
+    400, chunks of 128 tokens a 409; the ``kv-import`` tick is on
+    ``/debug/trace``; four other prompts evict the imported chunks and the
+    prompt is served cold on the importer (agreement reported).  Launch
+    identities over the served traffic (counters set to 0 just before it)."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    kv = import_module(f"{PKG}.server.kv_transfer")
+    cfg = llama.LlamaConfig.llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    tag = "7B handoff none"
+    t_phase = time.perf_counter()
+    gc.collect()  # earlier phases' engines in reference cycles
+    torch.cuda.empty_cache()
+    predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+    rng = np.random.default_rng(61)
+    prompt = rng.integers(1, V, HANDOFF_PROMPT).tolist()
+    others = [rng.integers(1, V, 520).tolist() for _ in range(4)]
+    servers = [_fleet_server(app, predictor, role, device) for role in ("prefill", "decode")]
+    (exp_srv, _, exp_base), (imp_srv, _, imp_base) = servers
+    exp, imp = exp_srv.engine, imp_srv.engine
+    gen_path = "/v2/models/llama2-7b/generate"
+    res: dict = {}
+    try:
+        for _, _, base in servers:
+            _post(base + gen_path, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up
+            if _call("GET", base + "/readyz")[1].get("fleetRole") not in ("prefill", "decode"):
+                raise AssertionError(f"{tag}: /readyz names no fleet role")
+        torch.cuda.synchronize()
+        engines = (exp, imp)
+        disp0 = {e: dict(e.dispatches_total) for e in engines}
+        pre0 = {e: e.prefill_forwards for e in engines}
+        da.launches = rn.launches = fa.launches = 0
+        body = json.dumps({"prompt_ids": prompt}).encode()
+
+        t0 = time.perf_counter()
+        code, blob, hdrs = _http_bytes("POST", exp_base + "/admin/kv/export", body)
+        export_cold_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200 or hdrs.get("X-Tpumlops-Kv-Tokens") != "512":
+            raise AssertionError(f"{tag}: cold export answered {code} {hdrs} {blob[:200]!r}")
+        t0 = time.perf_counter()
+        code, blob2, _ = _http_bytes("POST", exp_base + "/admin/kv/export", body)
+        export_warm_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200 or blob2 != blob:
+            raise AssertionError(f"{tag}: the warm export differs from the cold one")
+        arr = np.asarray(prompt, np.int32)
+        t0 = time.perf_counter()
+        matched, exp_chunks = exp.export_prefix_kv(arr)
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = kv.serialize_chunks(256, arr, exp_chunks)
+        serialize_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        kv.deserialize_chunks(blob, pin_memory=device == "cuda")
+        deserialize_ms = (time.perf_counter() - t0) * 1e3
+        if matched != 512 or again != blob:
+            raise AssertionError(f"{tag}: {matched} tokens in the exporter's cache, or its "
+                                 "chunks serialize to other bytes than the export's")
+        del again
+
+        t0 = time.perf_counter()
+        code, raw, _ = _http_bytes("POST", imp_base + "/admin/kv/import", blob,
+                                   "application/octet-stream")
+        import_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200 or json.loads(raw) != {"imported_tokens": 512, "chunks": 2}:
+            raise AssertionError(f"{tag}: import answered {code} {raw[:300]!r}")
+        got, imp_chunks = imp.export_prefix_kv(arr)
+        same = got == 512 and all(torch.equal(a, b) for pa, pb in zip(exp_chunks, imp_chunks)
+                                  for a, b in zip(pa, pb))
+        if not same:
+            raise AssertionError(f"{tag}: the imported chunks, read back, differ from the "
+                                 "exported ones")
+        del imp_chunks
+        imp_toks, imp_timing, imp_wall = _debug_generate(imp_base + gen_path, prompt,
+                                                         HANDOFF_NEW, V)
+        exp_toks, exp_timing, _ = _debug_generate(exp_base + gen_path, prompt, HANDOFF_NEW, V)
+        if imp_timing["cached_tokens"] != 512 or exp_timing["cached_tokens"] != 512:
+            raise AssertionError(f"{tag}: cached tokens {imp_timing['cached_tokens']} / "
+                                 f"{exp_timing['cached_tokens']}, expected 512 / 512")
+        if imp_toks != exp_toks:
+            raise AssertionError(f"{tag}: the importer's tokens {imp_toks} differ from the "
+                                 f"exporter's cache-hit serve {exp_toks}")
+
+        corrupt = bytearray(blob)
+        corrupt[-1] ^= 0xFF
+        code, raw, _ = _http_bytes("POST", imp_base + "/admin/kv/import", bytes(corrupt),
+                                   "application/octet-stream")
+        if code != 400 or json.loads(raw).get("reason") != "bad_blob":
+            raise AssertionError(f"{tag}: a corrupt blob answered {code} {raw[:200]!r}")
+        del corrupt
+        half = kv.serialize_chunks(128, arr, [(k[:, :, :128], v[:, :, :128])
+                                              for k, v in exp_chunks])
+        code, raw, _ = _http_bytes("POST", imp_base + "/admin/kv/import", half,
+                                   "application/octet-stream")
+        if code != 409 or json.loads(raw).get("reason") != "geometry_mismatch":
+            raise AssertionError(f"{tag}: chunks of 128 tokens answered {code} {raw[:200]!r}")
+        del half, exp_chunks
+        trace = _call("GET", imp_base + "/debug/trace")[1]
+        ticks = [e for e in trace["traceEvents"]
+                 if e.get("cat") == "tick" and e.get("name") == "kv-import"]
+        if len(ticks) != 1:
+            raise AssertionError(f"{tag}: {len(ticks)} kv-import ticks on /debug/trace")
+        import_tick_ms = ticks[0]["dur"] / 1e3
+
+        ev0 = imp.prefix_evictions
+        for p in others:
+            _post(imp_base + gen_path, {"prompt_ids": p, "max_new_tokens": 1})
+        cold_toks, cold_timing, cold_wall = _debug_generate(imp_base + gen_path, prompt,
+                                                            HANDOFF_NEW, V)
+        if imp.prefix_evictions - ev0 < 2 or cold_timing["cached_tokens"] != 0:
+            raise AssertionError(f"{tag}: the cold serve found {cold_timing['cached_tokens']} "
+                                 f"cached tokens after {imp.prefix_evictions - ev0} evictions")
+        torch.cuda.synchronize()
+        decodes = sum(e.dispatches_total.get("decode", 0) - disp0[e].get("decode", 0)
+                      for e in engines)
+        prefills = sum(e.prefill_forwards - pre0[e] for e in engines)
+        launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches}
+        want = {"da": L * decodes, "rn": (2 * L + 1) * (decodes + prefills), "fa": L * prefills}
+        if launches != want or not all(launches.values()):
+            raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+        res = {
+            "blob_bytes": len(blob), "tokens": 512, "chunks": 2,
+            "export_cold_ms": export_cold_ms, "export_warm_ms": export_warm_ms,
+            "lookup_ms": lookup_ms, "serialize_ms": serialize_ms,
+            "wire_ms": export_warm_ms - lookup_ms - serialize_ms,
+            "deserialize_ms": deserialize_ms, "import_ms": import_ms,
+            "import_tick_ms": import_tick_ms,
+            "ttft_after_import_ms": imp_timing["ttft_ms"], "wall_after_import_s": imp_wall,
+            "ttft_cold_ms": cold_timing["ttft_ms"], "wall_cold_s": cold_wall,
+            "prefix_recompute_ms": cold_timing["ttft_ms"] - imp_timing["ttft_ms"],
+            "handoff_ms": export_warm_ms + import_ms,
+            "token_agreement_vs_cold": _agreement([imp_toks], [cold_toks]),
+            "tokens_after_import": imp_toks, "tokens_cold": cold_toks,
+            "decode_ticks": decodes, "prefill_forwards": prefills, "launches": launches,
+        }
+    finally:
+        for srv, th, _ in servers:
+            srv.shutdown_all()
+            th.join(timeout=30)
+        del servers, exp_srv, imp_srv, exp, imp, predictor
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: {res['blob_bytes'] / 2**20:.0f} MiB blob (512 tokens); export cold "
+        f"{res['export_cold_ms']:.1f} ms (its prefill included), warm {export_warm_ms:.1f} ms "
+        f"(lookup {lookup_ms:.1f}, serialize {serialize_ms:.1f}, wire {res['wire_ms']:.1f}); "
+        f"deserialize {deserialize_ms:.1f} ms; import {import_ms:.1f} ms (its tick "
+        f"{import_tick_ms:.2f} ms); TTFT after the import {res['ttft_after_import_ms']:.1f} ms "
+        f"against {res['ttft_cold_ms']:.1f} ms cold (the prefix's recompute "
+        f"{res['prefix_recompute_ms']:.1f} ms); the importer's 16 tokens equal the "
+        f"exporter's cache-hit serve; agreement with the cold serve "
+        f"{res['token_agreement_vs_cold']:.3f}; launches {res['launches']}; phase wall "
+        f"{res['wall_s']:.1f} s on {smi}")
+    DETAIL["serve_7b_handoff_none"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 5j: weight snapshots, the warm pool and attach
+# ---------------------------------------------------------------------------
+
+ATTACH_PROMPT = 300
+ATTACH_NEW = 16
+ATTACH_K = 4
+SNAPSHOT_DIR = ROOT / "build" / "smoke_snapshots"  # ignored by git, deleted after
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _cut_depth(tree, n: int):
+    """The tree with its first ``n`` layers (every leaf under ``layers`` is
+    stacked on the layer axis); widths unchanged."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+
+    return {**tree, "layers": cut(tree["layers"])}
+
+
+def _attach_server(app, config):
+    srv = app.build_server(None, config)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def phase_serve_7b_attach(da, rn, fa, smi: str, params, quantize_s: float,
+                          device: str = "cuda") -> dict:
+    """Phase 5j on Llama-2-7B (``params``: the ``int8`` tree, quantized from
+    the bf16 draw in ``quantize_s``): its snapshot written under
+    ``SNAPSHOT_DIR`` (the free disk checked first; the depth cut only if the
+    disk cannot hold it), a ``--warm-pool`` server (split K 4, 4 slots,
+    chunks of 256) prewarmed from it, the typed 503s before an attach, the
+    attach (a restore, graphs captured after it), one greedy request
+    bit-equal to the same tree served directly, a second attach a no-op, a
+    flipped byte a typed ``SnapshotError``; on a one-layer full-width
+    artifact, an attach of a snapshot with a flipped byte loads cold, bakes
+    again and serves.  The attach against the cold path of this run: the
+    quantize, then the direct server's start (its graph capture)."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    registry = import_module(f"{PKG}.models.registry")
+    app = import_module(f"{PKG}.server.app")
+    loader = import_module(f"{PKG}.server.loader")
+    snap = import_module(f"{PKG}.server.snapshot")
+    cfg = llama.LlamaConfig.llama2_7b()
+    tag = "7B attach int8"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    SNAPSHOT_DIR.mkdir(parents=True)
+    tree_bytes = _tree_bytes(params)
+    full_layers = cfg.num_layers
+    per_layer = _tree_bytes(params["layers"]) // full_layers
+    free = shutil.disk_usage(SNAPSHOT_DIR).free
+    # The 7B snapshot, the one-layer artifact (bf16) and its two bakes, with room.
+    small = 3 * (tree_bytes - _tree_bytes(params["layers"]) + 2 * per_layer)
+    layers = cfg.num_layers
+    if 1.1 * tree_bytes + small > free:
+        layers = int((free / 1.1 - small - (tree_bytes - per_layer * layers)) // per_layer)
+        if layers < 1:
+            raise AssertionError(f"{tag}: {free / 2**30:.1f} GiB free cannot hold one layer")
+        params = _cut_depth(params, layers)
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        tree_bytes = _tree_bytes(params)
+    L, V = cfg.num_layers, cfg.vocab_size
+    uri = "smoke/llama2-7b-int8"
+    res: dict = {"free_disk_gib": free / 2**30, "layers": L,
+                 "cut": None if L == full_layers else f"depth {L} of {full_layers} (disk)"}
+    rng = np.random.default_rng(71)
+    body = {"prompt_ids": rng.integers(1, V, ATTACH_PROMPT).tolist(),
+            "max_new_tokens": ATTACH_NEW}
+    conf = dict(model_name="llama2-7b", host="127.0.0.1", port=0, quantize="int8",
+                max_slots=4, prefill_chunk=256, decode_steps=ATTACH_K, device=device,
+                snapshot_dir=str(SNAPSHOT_DIR))
+    try:
+        ident = snap.snapshot_identity(uri, "int8", loader.SNAPSHOT_MESH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spath = snap.write_snapshot(SNAPSHOT_DIR, params, identity=ident,
+                                    flavor="llama-generate", config=dataclasses.asdict(cfg))
+        res["write_s"] = time.perf_counter() - t0
+        manifest = snap.read_manifest(spath)
+        res["snapshot_gib"] = manifest["total_bytes"] / 2**30
+        if manifest["total_bytes"] != tree_bytes:
+            raise AssertionError(f"{tag}: the snapshot holds {manifest['total_bytes']} B of a "
+                                 f"{tree_bytes} B tree")
+
+        t0 = time.perf_counter()
+        wp, wth, wbase = _attach_server(app, app.ServerConfig(warm_pool=True, model_uri=uri,
+                                                              **conf))
+        res["warm_pool_boot_s"] = time.perf_counter() - t0
+        try:
+            code, ready, _ = _call("GET", wbase + "/readyz")
+            if code != 503 or ready.get("lifecycle") != "warm-pool":
+                raise AssertionError(f"{tag}: /readyz before an attach {code} {ready}")
+            code, shed, hdrs = _call("POST", wbase + "/v2/models/llama2-7b/generate", body)
+            if code != 503 or shed.get("reason") != "warm_pool_empty":
+                raise AssertionError(f"{tag}: generate before an attach {code} {shed}")
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            code, att, _ = _call("POST", wbase + "/admin/attach", {"model_uri": uri})
+            res["attach_wall_s"] = time.perf_counter() - t0
+            if code != 200 or att.get("restored") is not True:
+                raise AssertionError(f"{tag}: the attach answered {code} {att} (a restore "
+                                     "was expected, not a cold load)")
+            stats = att["load_breakdown_s"]
+            res.update(restore_s=stats["restore_s"], disk_s=stats["disk_s"],
+                       transfer_s=stats["transfer_s"], read_gib=stats["read_gib"],
+                       capture_s=att["capture_s"],
+                       restore_gb_per_s=manifest["total_bytes"] / 1e9 / stats["restore_s"],
+                       snapshot_hash=att["snapshot_hash"])
+            engine = wp.engine
+            res["graphs"] = len(engine._program.graphs)
+            if res["graphs"] == 0:
+                raise AssertionError(f"{tag}: the attached engine captured no graph")
+            if _call("GET", wbase + "/readyz")[0] != 200:
+                raise AssertionError(f"{tag}: /readyz not 200 after the attach")
+            disp0, pre0 = dict(engine.dispatches_total), engine.prefill_forwards
+            base0 = {engine: (engine._program.replays, disp0.get("multistep", 0))}
+            da.launches = rn.launches = fa.launches = 0
+            attached = _check_outputs(_post(wbase + "/v2/models/llama2-7b/generate", body),
+                                      [ATTACH_NEW], V)[0]
+            _settle([engine], base0)
+            torch.cuda.synchronize()
+            d = engine.dispatches_total.get("decode", 0) - disp0.get("decode", 0)
+            m = engine.dispatches_total.get("multistep", 0) - disp0.get("multistep", 0)
+            p = engine.prefill_forwards - pre0
+            launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches}
+            want = {"da": L * (d + ATTACH_K * m),
+                    "rn": (2 * L + 1) * (d + ATTACH_K * m + p), "fa": L * p}
+            if launches != want or not all(launches.values()) or m == 0:
+                raise AssertionError(f"{tag}: launches {launches}, expected {want} "
+                                     f"({d} decode ticks, {m} multistep, {p} prefills)")
+            res.update(launches=launches, decode_ticks=d, multistep=m, prefill_forwards=p)
+            code, noop, _ = _call("POST", wbase + "/admin/attach", {"model_uri": uri})
+            if code != 200 or noop.get("noop") is not True or wp.engine is not engine:
+                raise AssertionError(f"{tag}: a second attach answered {code} {noop}")
+            del engine
+        finally:
+            wp.shutdown_all()
+            wth.join(timeout=30)
+            del wp
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        chunk = sorted(spath.glob("chunk-*.bin"))[0]
+        with open(chunk, "r+b") as f:
+            f.seek(1000)
+            byte = f.read(1)
+            f.seek(1000)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            snap.load_snapshot(spath, identity=ident, device=device)
+        except snap.SnapshotError as e:
+            if type(e) is not snap.SnapshotError or "CRC" not in str(e):
+                raise
+            res["flipped_byte"] = str(e)
+        else:
+            raise AssertionError(f"{tag}: a snapshot with a flipped byte restored")
+
+        # The cold path of this run: the quantize from the bf16 draw, then a
+        # direct server's start on the same tree (its graph capture).
+        predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        ds = app.build_server(predictor, app.ServerConfig(**{**conf, "snapshot_dir": ""}))
+        res["direct_start_s"] = time.perf_counter() - t0
+        dth = threading.Thread(target=ds.serve_forever, daemon=True)
+        dth.start()
+        try:
+            direct = _check_outputs(
+                _post(f"http://127.0.0.1:{ds.server_address[1]}/v2/models/llama2-7b/generate",
+                      body), [ATTACH_NEW], V)[0]
+        finally:
+            ds.shutdown_all()
+            dth.join(timeout=30)
+            del ds, predictor
+            gc.collect()
+            torch.cuda.empty_cache()
+        if attached != direct:
+            raise AssertionError(f"{tag}: the attached replica's tokens {attached} differ from "
+                                 f"the tree served directly {direct}")
+        res.update(tokens=attached, quantize_s=quantize_s,
+                   cold_path_s=quantize_s + res["direct_start_s"])
+
+        res["fallback"] = _attach_fallback(app, loader, snap, llama, conf, device)
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: snapshot {res['snapshot_gib']:.2f} GiB ({L} layers) written in "
+        f"{res['write_s']:.2f} s; warm pool booted in {res['warm_pool_boot_s']:.2f} s; attach "
+        f"{res['attach_wall_s']:.2f} s (restore {res['restore_s']:.2f} s, "
+        f"{res['restore_gb_per_s']:.2f} GB/s; capture {res['capture_s']:.2f} s, "
+        f"{res['graphs']} graphs) against the cold path {res['cold_path_s']:.2f} s (quantize "
+        f"{quantize_s:.2f} s + start {res['direct_start_s']:.2f} s); the attached tokens equal "
+        f"the direct serve; a flipped byte failed typed; the fallback served after a cold "
+        f"load; launches {res['launches']}; phase wall {res['wall_s']:.1f} s on {smi}")
+    DETAIL["serve_7b_attach_int8"] = res
+    return res
+
+
+def _attach_fallback(app, loader, snap, llama, conf: dict, device: str) -> dict:
+    """On a one-layer Llama-2-7B-width artifact (bf16, drawn from a seed):
+    a cold load bakes its snapshot, one byte of it is flipped, and a
+    warm-pool attach of it fails the restore typed, moves it aside, loads
+    cold, bakes again and serves."""
+    import torch
+
+    cfg1 = llama.LlamaConfig.llama2_7b(num_layers=1)
+    art = SNAPSHOT_DIR / "layer1"
+    tree = llama.init(torch.Generator(device=device).manual_seed(3), cfg1,
+                      dtype=torch.bfloat16, device=device)
+    loader.save_native_model(art, "llama-generate", tree, config=dataclasses.asdict(cfg1))
+    del tree
+    uri, sdir = str(art), str(SNAPSHOT_DIR / "fallback")
+    loader.load_predictor(uri, quantize="int8", device=device, snapshot_dir=sdir)
+    spath = snap.snapshot_path_for(sdir, uri)
+    chunk = sorted(spath.glob("chunk-*.bin"))[0]
+    raw = bytearray(chunk.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    chunk.write_bytes(bytes(raw))
+    del raw
+    srv, th, base = _attach_server(app, app.ServerConfig(
+        **{**conf, "decode_steps": 1, "snapshot_dir": sdir, "warm_pool": True,
+           "model_uri": uri}))
+    try:
+        t0 = time.perf_counter()
+        code, att, _ = _call("POST", base + "/admin/attach", {"model_uri": uri})
+        wall = time.perf_counter() - t0
+        if code != 200 or att.get("restored") is not False:
+            raise AssertionError(f"fallback attach answered {code} {att}")
+        if not list(spath.parent.glob(f"{spath.name}.corrupt-*")):
+            raise AssertionError("the corrupt snapshot was not moved aside")
+        if not (spath / snap.MANIFEST_NAME).exists():
+            raise AssertionError("the cold load did not bake the snapshot again")
+        _check_outputs(_post(base + "/v2/models/llama2-7b/generate",
+                             {"prompt_ids": [5, 9, 2, 7], "max_new_tokens": 4}),
+                       [4], cfg1.vocab_size)
+    finally:
+        srv.shutdown_all()
+        th.join(timeout=30)
+    return {"attach_wall_s": wall, "load_breakdown_s": att["load_breakdown_s"]}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: BERT-base at full width over /v2/models/{name}/infer
 # ---------------------------------------------------------------------------
 
@@ -6047,11 +6597,14 @@ def main() -> int:
     preempt = {"none": phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "none")}
     stage("5h observed")
     observed = phase_serve_7b_observed(da, rn, fa, ss, smi, params, multistep["none"])
+    stage("5i handoff none")
+    handoff = phase_serve_7b_handoff(da, rn, fa, smi, params)
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    log(f"7B: quantized to int8 on the card in {time.perf_counter() - t0:.1f} s; "
+    log(f"7B: quantized to int8 on the card in {quantize_s:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     stage("dense int8")
     dense["int8"] = phase_serve_7b_dense(da, rn, fa, smi, params, "int8", 256)
@@ -6067,6 +6620,8 @@ def main() -> int:
     unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv")
     stage("5g preempt int8kv")
     preempt["int8kv"] = phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "int8kv")
+    stage("5j attach int8")
+    attach = phase_serve_7b_attach(da, rn, fa, smi, params, quantize_s)
     del params
     torch.cuda.empty_cache()
     stage("6 bert")
@@ -6089,7 +6644,8 @@ def main() -> int:
                       + sum(r["launches"]["da"] for r in multistep.values())
                       + sum(r["launches"]["da"] for r in unified.values())
                       + sum(r["launches"]["da"] for r in preempt.values())
-                      + observed["launches"]["da"]),
+                      + observed["launches"]["da"] + handoff["launches"]["da"]
+                      + attach["launches"]["da"]),
          # the verify chunk instance's share of them (phases 5c, 5f and 5g)
          "verify_launches": (spec["va_launches"]
                              + sum(r["launches"]["va"] for r in unified.values())
@@ -6104,7 +6660,8 @@ def main() -> int:
                       + sum(r["launches"]["rn"] for r in multistep.values())
                       + sum(r["launches"]["rn"] for r in unified.values())
                       + sum(r["launches"]["rn"] for r in preempt.values())
-                      + observed["launches"]["rn"]),
+                      + observed["launches"]["rn"] + handoff["launches"]["rn"]
+                      + attach["launches"]["rn"]),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
@@ -6115,7 +6672,8 @@ def main() -> int:
                       + sum(r["launches"]["fa"] for r in multistep.values())
                       + sum(r["launches"]["fa"] for r in unified.values())
                       + sum(r["launches"]["fa"] for r in preempt.values())
-                      + observed["launches"]["fa"]),
+                      + observed["launches"]["fa"] + handoff["launches"]["fa"]
+                      + attach["launches"]["fa"]),
          **fa_res},
         *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
            "replaces": f"{jax_pkg}/ops/flash_attention.py:62",

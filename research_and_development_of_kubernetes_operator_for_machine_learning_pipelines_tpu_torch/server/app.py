@@ -62,6 +62,43 @@ Routes:
   ``PROFILE_KEEP_DIRS`` kept).  Its stop holds the scheduler for seconds
   on a busy replica, which a watchdog with a short deadline counts.
 
+- ``POST /admin/kv/export`` (the generate body: ``{"prompt_ids": [...]}``)
+  -- the prompt's whole-chunk prefix K/V as one handoff blob
+  (``application/octet-stream``, ``server/kv_transfer.py``'s wire format,
+  the JAX package's byte for byte) with ``X-Tpumlops-Kv-Tokens``; a prefix
+  not in the radix cache yet is prefilled first by one
+  ``max_new_tokens=1`` admission.  400 ``prompt_too_short`` (no whole
+  chunk), 503 ``export_unavailable`` with ``Retry-After`` (the prefix did
+  not land in the cache), 429 on a shed.  ``POST /admin/kv/import`` (a
+  blob) -- inserts its chunks into the radix cache (one ``kv-import``
+  tick); 400 ``bad_blob`` on a corrupt blob, 409 ``geometry_mismatch`` /
+  ``dtype_mismatch``, else ``{"imported_tokens", "chunks"}``.  Both need
+  the prefix cache (409 ``prefix_cache_disabled``) and count in the request
+  metric under ``service`` ``kv-export`` / ``kv-import``.  A request the
+  router relays after a handoff carries ``X-Tpumlops-Handoff: <ms>``, which
+  its trace records (``handoff_ms``, the ``kv-handoff`` span).
+  ``--fleet-role prefill|decode`` (needs ``--prefix-cache 1``) is advisory:
+  ``/readyz`` names it as ``fleetRole``.
+- ``POST /admin/attach`` (``--warm-pool 1``, which needs ``--snapshot-dir``)
+  -- ``{"model_uri": ..., "replace": false, "wake_start_wall": s?}``: a
+  warm-pool replica boots with no weights (``/readyz`` 503 ``warm-pool``,
+  prediction routes 503 ``warm_pool_empty`` with ``Retry-After: 5``) and
+  attaches a model on demand, restored from its snapshot where there is
+  one, then its engine is built and started (kernel libraries loaded, CUDA
+  graphs captured into a fresh pool); the answer reports ``restored``,
+  ``restore_s``, ``capture_s`` and the load's stages.  400 on a server that
+  is no warm pool or a body without ``model_uri``; 409 while terminating,
+  on a second attach without ``"replace": true``, and on a replace whose
+  snapshot's geometry differs (``geometry_incompatible``); the same uri
+  and snapshot hash again is a no-op.  ``/readyz`` names the attached
+  ``model`` and its ``snapshotHash``.  A warm pool also answers
+  ``/v2/models/{any}/generate``, ``/infer`` and ``/ready`` (the
+  multiplexer addresses models by its own ids); a generate there holds
+  its share of the admission budget under that model name.
+- ``--snapshot-dir DIR`` bakes the served tree into a snapshot after the
+  first cold load and restores it on later boots and attaches
+  (``server/snapshot.py``).
+
 Every response echoes ``X-Request-Id`` (the request's, a W3C
 ``traceparent`` trace id, or a new one), and every 400, 429 and 500 body
 of ``/generate`` carries it as ``request_id``.  Each answered
@@ -90,12 +127,20 @@ MFU and bandwidth shares by tick kind, compile observatory; with its
 503 ``stalled`` until it completes; past ``s + g`` the process exits so
 the pod restarts); ``--compile-cache-dir`` is the node-local directory of
 built kernels.
+
+Process flags: on SIGTERM the replica first turns NotReady (``/readyz``
+503) and keeps admitting for ``--drain-s`` seconds (the endpoint lag of a
+terminating pod), then drains; ``--metrics-port`` (default 6000, 0 off)
+serves ``/metrics`` on a listener of its own; ``--log-format json`` writes
+every log line as one JSON object, the completion lines with their
+``request_id``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import logging
 import math
@@ -142,6 +187,8 @@ _GEN_PARAM_KEYS = frozenset(
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
+
+FLEET_ROLES = ("unified", "prefill", "decode")
 
 _MODEL_ROUTE = re.compile(r"^/v2/models/([^/]+)(?:/(generate|infer|ready))?$")
 _READY_ROUTES = frozenset({"/readyz", "/healthz", "/v2/health/ready"})
@@ -292,6 +339,17 @@ class ServerConfig:
     device_telemetry: bool = False
     watchdog_deadline_s: float = 0.0
     watchdog_grace_s: float = 30.0
+    # Disaggregated fleets (--fleet-role): advisory, named on /readyz; a
+    # prefill or decode replica needs the prefix cache, whose chunks the
+    # KV handoff moves.
+    fleet_role: str = "unified"
+    # Weight snapshots (--snapshot-dir, "" off) and the warm pool
+    # (--warm-pool): a replica booted with no weights attaches one on
+    # POST /admin/attach.  model_uri is the boot model, whose snapshot's
+    # geometry a warm pool prewarms.
+    snapshot_dir: str = ""
+    warm_pool: bool = False
+    model_uri: str = ""
 
     def __post_init__(self):
         """The reference's startup checks of the serving features (its
@@ -346,6 +404,14 @@ class ServerConfig:
         if not (0 <= self.timeseries_ring <= 86400):
             raise ValueError(
                 f"observability.timeseriesRing must be in [0, 86400], got {self.timeseries_ring}")
+        if self.fleet_role not in FLEET_ROLES:
+            raise ValueError(f"--fleet-role must be one of {list(FLEET_ROLES)}, "
+                             f"got {self.fleet_role!r}")
+        if self.fleet_role != "unified" and not self.prefix_cache:
+            raise ValueError("--fleet-role prefill/decode requires --prefix-cache 1 "
+                             "(KV handoff moves radix prefix-cache chunks)")
+        if self.warm_pool and not self.snapshot_dir:
+            raise ValueError("--warm-pool requires --snapshot-dir")
 
     @property
     def prefix_cache_chunk_tokens(self) -> int:
@@ -464,7 +530,26 @@ def _log_completion(summary: dict, code: int) -> None:
         summary["queue_ms"], summary["ttft_ms"], summary["prefill_chunks"],
         summary["cached_tokens"], summary["spec_accepted"], summary["spec_proposed"],
         ",".join(summary["finish_reasons"]),
+        extra={"request_id": summary["request_id"]},
     )
+
+
+def _stamp_handoff(headers, traces) -> None:
+    """A request the router relays after a prefill-to-decode KV handoff
+    carries ``X-Tpumlops-Handoff: <ms>``, the handoff wall it measured:
+    ``t_handoff`` anchors the relay in this process's clock, ``handoff_ms``
+    keeps the router's number.  A malformed stamp marks nothing."""
+    hdr = headers.get("X-Tpumlops-Handoff")
+    if not hdr:
+        return
+    try:
+        hms = float(hdr)
+    except ValueError:
+        return
+    now = time.perf_counter()
+    for tr in traces:
+        tr.t_handoff = now
+        tr.handoff_ms = hms
 
 
 def parse_generate(body: dict) -> tuple[list, dict]:
@@ -565,7 +650,9 @@ def parse_v2_inputs(body: dict) -> dict[str, np.ndarray]:
 class ModelServer(ThreadingHTTPServer):
     """The HTTP server plus the engine it fronts: a ``GenerationEngine``
     for a causal LM (``batcher`` None), or an ``InferenceEngine`` behind a
-    ``DynamicBatcher`` for the V2 predict path."""
+    ``DynamicBatcher`` for the V2 predict path.  A warm-pool server
+    (``attach_fn`` set) starts with neither and attaches a model on
+    ``POST /admin/attach``."""
 
     daemon_threads = True
     # listen() backlog: the default of 5 resets connections under a burst
@@ -575,7 +662,8 @@ class ModelServer(ThreadingHTTPServer):
     def __init__(self, address, engine, model_name: str, metrics: ServerMetrics,
                  predictor, batcher: DynamicBatcher | None = None,
                  drain_grace_s: float = 20.0, cold_start_anchor: float | None = None,
-                 recorder=None, telemetry=None, timeseries=None):
+                 recorder=None, telemetry=None, timeseries=None,
+                 config: ServerConfig | None = None, watchdog=None, attach_fn=None):
         self.engine = engine
         self.model_name = model_name
         self.metrics = metrics
@@ -597,7 +685,184 @@ class ModelServer(ThreadingHTTPServer):
         self.telemetry = telemetry
         self.timeseries = timeseries
         self._profile_lock = threading.Lock()
+        # What install() builds engines from, and the fleet role /readyz names.
+        self._config = config or ServerConfig(model_name=model_name)
+        self._watchdog = watchdog
+        self.fleet_role = self._config.fleet_role
+        self.snapshot_dir = self._config.snapshot_dir
+        # The warm pool: attach_fn(model_uri, load_stats) loads a predictor;
+        # the attached model's uri, snapshot hash and geometry.
+        self.attach_fn = attach_fn
+        self.attached_model_uri: str | None = None
+        self.attached_snapshot_hash: str | None = None
+        self._attached_geometry: dict | None = None
+        self._attach_lock = threading.Lock()
         super().__init__(address, _Handler)
+
+    # -- the engine and the warm pool ------------------------------------------
+
+    def install(self, predictor, warmup: bool = True) -> None:
+        """Build and start the engine a loaded predictor needs: a
+        ``GenerationEngine`` for a causal LM (``warmup`` builds the kernels;
+        a graph engine on the card captures its graphs), else an
+        ``InferenceEngine`` behind a started ``DynamicBatcher`` (warmed
+        through it, so the batch histograms count those batches)."""
+        conf, m = self._config, self.metrics
+        batcher = None
+        if predictor.causal_lm is not None:
+            engine = make_gen_engine(predictor, conf, m, recorder=self.recorder,
+                                     telemetry=self.telemetry, watchdog=self._watchdog,
+                                     timeseries=self.timeseries)
+            try:
+                engine.start(warmup=warmup)
+            except Exception:
+                engine.shutdown()
+                raise
+        else:
+            engine = InferenceEngine(predictor, max_batch_size=conf.max_batch_size,
+                                     on_compile=m.inc_compilations)
+            # Pipelined: the collector launches batch N+1 while N runs.
+            batcher = DynamicBatcher(
+                run_batch=engine.predict_async,
+                max_batch_size=conf.max_batch_size,
+                max_batch_delay_ms=conf.max_batch_delay_ms,
+                on_batch=m.observe_batch,
+                materialize=engine.materialize,
+            )
+            batcher.start()
+            if warmup:
+                try:
+                    engine.warmup(predict=lambda ex: batcher.submit_batch(ex).result())
+                except Exception:
+                    batcher.stop()
+                    raise
+        self.predictor, self.engine, self.batcher = predictor, engine, batcher
+
+    def release(self) -> None:
+        """Stop the engine and drop the model, so its tree, cache and graph
+        pool go back to the device before another model loads."""
+        if self.batcher is not None:
+            self.batcher.stop()
+        elif self.engine is not None:
+            self.engine.shutdown()
+        self.engine = self.batcher = self.predictor = None
+        gc.collect()  # an engine's reference cycles hold device memory
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    def _snapshot_probe(self, model_uri: str) -> tuple[str | None, dict | None]:
+        """``(content_hash, geometry)`` of ``model_uri``'s snapshot, or
+        ``(None, None)`` when there is none yet (a first attach of a model
+        bakes it during the load)."""
+        if not self.snapshot_dir:
+            return None, None
+        try:
+            from . import snapshot as _snap
+
+            spath = _snap.snapshot_path_for(self.snapshot_dir, model_uri)
+            if not (spath / _snap.MANIFEST_NAME).exists():
+                return None, None
+            manifest = _snap.read_manifest(spath)
+            geom = manifest.get("config")
+            return manifest.get("content_hash"), dict(geom) if isinstance(geom, dict) else None
+        except Exception:
+            return None, None
+
+    def attach(self, model_uri: str, replace: bool = False,
+               wake_start: float | None = None) -> tuple[int, dict]:
+        """Attach ``model_uri`` to this warm-pool server: ``(code, body)``.
+
+        The model restores from its snapshot where there is one (else it
+        loads cold and bakes one); then its engine is built and started: the
+        kernel libraries load and a graph engine captures its graphs into a
+        fresh pool, because a graph holds the addresses of the weights it
+        was captured on.  A replace stops the old engine and releases its
+        tree and graph pool first.  The same uri and snapshot hash again is
+        a no-op; a replace whose snapshot geometry differs from the attached
+        model's is refused before anything stops."""
+        if self.terminating or self.lifecycle == "shutdown":
+            return 409, {"error": "server is terminating"}
+        with self._attach_lock:
+            req_hash, req_geom = self._snapshot_probe(model_uri)
+            if (self.engine is not None and self.attached_model_uri == model_uri
+                    and req_hash is not None and self.attached_snapshot_hash == req_hash):
+                return 200, {"lifecycle": self.lifecycle, "model_uri": model_uri,
+                             "snapshot_hash": req_hash, "noop": True}
+            if self.engine is not None and not replace:
+                return 409, {"error": 'a model is already attached; pass "replace": true '
+                                      "to swap it", "lifecycle": self.lifecycle}
+            if (self.engine is not None and req_geom is not None
+                    and self._attached_geometry is not None
+                    and req_geom != self._attached_geometry):
+                return 409, {
+                    "error": f"snapshot geometry of {model_uri} does not match the "
+                             "attached model's engine",
+                    "reason": "geometry_incompatible",
+                    "attached_model_uri": self.attached_model_uri,
+                    "lifecycle": self.lifecycle,
+                }
+            t_receipt = time.time()
+            if wake_start is not None:
+                self.metrics.observe_cold_start("wake", t_receipt - wake_start)
+            anchor = wake_start if wake_start is not None else t_receipt
+            self._cold_anchor = anchor
+            if self.engine is not None:
+                self.lifecycle = "loading"
+                self.metrics.set_ready(False)
+                self.release()
+                self.attached_model_uri = self.attached_snapshot_hash = None
+                self._attached_geometry = None
+            load_stats: dict = {}
+            try:
+                predictor = self.attach_fn(model_uri, load_stats)
+                self.metrics.observe_model_load(load_stats)
+                restored = load_stats.get("restore_s") is not None
+                self.metrics.observe_cold_start(
+                    "restore" if restored else "load",
+                    load_stats.get("restore_s") or load_stats.get("wall_s") or 0.0)
+                t_warm = time.perf_counter()
+                self.install(predictor, warmup=True)
+                capture_s = time.perf_counter() - t_warm
+                self.metrics.observe_cold_start("compile", capture_s)
+                self.metrics.observe_cold_start("total", time.time() - anchor)
+                self.attached_model_uri = model_uri
+                self.attached_snapshot_hash, self._attached_geometry = (
+                    self._snapshot_probe(model_uri))
+                self.lifecycle = "ready"
+                self.metrics.set_ready(True)
+                if self.timeseries is not None:
+                    self.timeseries.mark("attach")  # the detector's new baseline
+            except Exception as e:
+                _log.exception("attach of %s failed", model_uri)
+                self.release()
+                self.attached_model_uri = self.attached_snapshot_hash = None
+                self._attached_geometry = None
+                self.lifecycle = "warm-pool"
+                return 500, {"error": f"attach failed: {e}"}
+        return 200, {
+            "lifecycle": self.lifecycle,
+            "model_uri": model_uri,
+            "snapshot_hash": self.attached_snapshot_hash,
+            "restored": restored,
+            "restore_s": load_stats.get("restore_s"),
+            "capture_s": round(capture_s, 3),
+            "load_breakdown_s": load_stats,
+        }
+
+    def readiness(self) -> tuple[int, dict]:
+        """The lifecycle probe's answer: 200 only while ``ready``."""
+        ready = self.lifecycle == "ready"
+        body = {"ready": ready, "lifecycle": self.lifecycle}
+        if self.fleet_role != "unified":
+            body["fleetRole"] = self.fleet_role
+        if self.lifecycle == "draining":
+            body["inFlight"] = self.inflight()
+        if self.attach_fn is not None:
+            # What is on the device, for the multiplexer's bin-packer.
+            body["model"] = self.attached_model_uri
+            if self.attached_snapshot_hash is not None:
+                body["snapshotHash"] = self.attached_snapshot_hash
+        return (200 if ready else 503), body
 
     @property
     def serves(self) -> str:
@@ -742,7 +1007,11 @@ class ModelServer(ThreadingHTTPServer):
 
     def generate(self, body: dict, prompts, max_new, eos_id, sampling,
                  request_id: str = "", debug: bool = False,
-                 trace_context: tuple[str, str] = ("", "")) -> dict:
+                 trace_context: tuple[str, str] = ("", ""), headers=None,
+                 model: str | None = None) -> dict:
+        """Serve one non-streamed /generate.  ``headers`` carry the router's
+        handoff stamp; ``model`` (a warm pool's multiplexed route) holds the
+        request's estimate against that model's share until it is done."""
         def row_seed(i: int) -> int | None:
             # Distinct stream per row, reproducible from the request seed.
             base = sampling["seed"]
@@ -750,19 +1019,27 @@ class ModelServer(ThreadingHTTPServer):
 
         # Reserve the whole request's estimate first: admitted whole or
         # shed whole, never siblings generating into abandoned futures.
-        self.engine.reserve_admission(sum(int(p.size) + max_new for p in prompts),
-                                      slo_class=sampling.get("slo_class"))
-        traces = [RequestTrace(request_id=request_id if len(prompts) == 1 else f"{request_id}/{i}",
-                               trace_id=trace_context[0], parent_span=trace_context[1])
-                  for i in range(len(prompts))]
-        futures = [
-            self.engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
-                               request_id=traces[i].request_id, trace=traces[i],
-                               est_reserved=True)
-            for i, p in enumerate(prompts)
-        ]
-        wait(futures)
-        outs = [f.result() for f in futures]
+        est = sum(int(p.size) + max_new for p in prompts)
+        engine = self.engine
+        engine.reserve_admission(est, slo_class=sampling.get("slo_class"), model=model)
+        try:
+            traces = [RequestTrace(request_id=request_id if len(prompts) == 1
+                                   else f"{request_id}/{i}",
+                                   trace_id=trace_context[0], parent_span=trace_context[1])
+                      for i in range(len(prompts))]
+            if headers is not None:
+                _stamp_handoff(headers, traces)
+            futures = [
+                engine.submit(p, max_new, eos_id, **{**sampling, "seed": row_seed(i)},
+                              request_id=traces[i].request_id, trace=traces[i],
+                              est_reserved=True)
+                for i, p in enumerate(prompts)
+            ]
+            wait(futures)
+            outs = [f.result() for f in futures]
+        finally:
+            if model is not None:
+                engine.release_model_admission(model, est)
         self.note_first_token()
         summary = _timing_summary(request_id, traces)
         _log_completion(summary, 200)
@@ -839,7 +1116,7 @@ class ModelServer(ThreadingHTTPServer):
         self.server_close()
         if self.batcher is not None:
             self.batcher.stop()
-        else:
+        elif self.engine is not None:
             self.engine.shutdown()
 
 
@@ -884,16 +1161,16 @@ class _Handler(BaseHTTPRequestHandler):
             live = srv.lifecycle != "shutdown"
             self._reply(200 if live else 503, {"live": live, "lifecycle": srv.lifecycle})
         elif path in _READY_ROUTES or (
-                m is not None and m.group(2) == "ready" and m.group(1) == srv.model_name):
-            ready = srv.lifecycle == "ready"
-            body = {"ready": ready, "lifecycle": srv.lifecycle}
-            if srv.lifecycle == "draining":
-                body["inFlight"] = srv.inflight()
-            self._reply(200 if ready else 503, body)
+                m is not None and m.group(2) == "ready"
+                and (m.group(1) == srv.model_name or srv.attach_fn is not None)):
+            self._reply(*srv.readiness())
         elif path == "/metrics":
             self._send(200, srv.metrics.render(), CONTENT_TYPE)
         elif m is not None and m.group(2) is None and m.group(1) == srv.model_name:
-            self._reply(200, srv.metadata())
+            if srv.engine is None:
+                self._not_attached()
+            else:
+                self._reply(200, srv.metadata())
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -946,18 +1223,38 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/debug/profile":
             self._profile(raw)
             return
+        if self.path == "/admin/attach":
+            self._admin_attach(raw)
+            return
+        if self.path == "/admin/kv/export":
+            self._kv_export(raw)
+            return
+        if self.path == "/admin/kv/import":
+            self._kv_import(raw)
+            return
         m = _MODEL_ROUTE.match(self.path)
+        # A warm pool answers any model name (the multiplexer's ids).
+        known = m is not None and (m.group(1) == srv.model_name or srv.attach_fn is not None)
+        if known and m.group(2) in ("generate", "infer") and srv.engine is None:
+            self._not_attached()
+            return
         if m is None or m.group(2) != srv.serves:
             self._reply(404, {"error": f"no route {self.path} for this model "
                                        f"(it serves /{srv.serves})"})
             return
-        if m.group(1) != srv.model_name:
+        if not known:
             self._reply(404, {"error": f"unknown model {m.group(1)!r}"})
             return
         with srv.answering():
-            self._answer(raw)
+            self._answer(raw, model=m.group(1) if m.group(1) != srv.model_name else None)
 
-    def _answer(self, raw: bytes) -> None:
+    def _not_attached(self) -> None:
+        """A warm-pool replica with no model: a typed 503 its clients retry."""
+        self._reply(503, {"error": "no model attached to this warm-pool replica",
+                          "reason": "warm_pool_empty", "retry_after_s": 5,
+                          "request_id": self._rid}, {"Retry-After": "5"})
+
+    def _answer(self, raw: bytes, model: str | None = None) -> None:
         srv = self.server
         t0 = time.perf_counter()
         code, payload, headers = 200, None, None
@@ -975,7 +1272,8 @@ class _Handler(BaseHTTPRequestHandler):
                     return
                 payload = srv.generate(body, prompts, max_new, eos_id, sampling,
                                        request_id=self._rid, debug=debug,
-                                       trace_context=context)
+                                       trace_context=context, headers=self.headers,
+                                       model=model)
         except EngineOverloaded as e:
             code, headers = 429, {"Retry-After": str(e.retry_after_s)}
             payload = {"error": str(e), "reason": e.reason,
@@ -1015,6 +1313,7 @@ class _Handler(BaseHTTPRequestHandler):
         srv = self.server
         tokens: queue.Queue = queue.Queue()
         trace = RequestTrace(request_id=self._rid, trace_id=context[0], parent_span=context[1])
+        _stamp_handoff(self.headers, [trace])
         fut = srv.engine.submit(prompt, max_new, eos_id, **sampling,
                                 on_token=tokens.put, request_id=self._rid, trace=trace)
         fut.add_done_callback(lambda f: tokens.put(None))
@@ -1114,6 +1413,155 @@ class _Handler(BaseHTTPRequestHandler):
             srv._profile_lock.release()
         self._reply(200, {"trace_dir": out_dir, "duration_s": duration, "evicted": evicted})
 
+    def _admin_attach(self, raw: bytes) -> None:
+        srv = self.server
+        if srv.attach_fn is None:
+            self._reply(400, {"error": "not a warm-pool server (boot with --warm-pool 1 to "
+                                       "attach models at runtime)"})
+            return
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("attach body must be a JSON object")
+            model_uri = body.get("model_uri")
+            if not model_uri or not isinstance(model_uri, str):
+                raise ValueError('attach requires "model_uri"')
+            replace = bool(body.get("replace", False))
+            wake = body.get("wake_start_wall")
+            wake = float(wake) if wake is not None else None
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        self._reply(*srv.attach(model_uri, replace, wake))
+
+    def _kv_engine(self):
+        """The engine the KV routes work on, or None with the error sent: a
+        warm pool with no model (503), no causal LM (400), or no prefix
+        cache (409 ``prefix_cache_disabled``: the handoff unit is its chunk)."""
+        srv = self.server
+        if srv.engine is None:
+            self._not_attached()
+            return None
+        engine = srv.gen_engine
+        if engine is None:
+            self._reply(400, {"error": f"model {srv.model_name} is not a causal LM"})
+            return None
+        if engine._prefix_cache is None:
+            self._reply(409, {"error": "KV handoff requires the radix prefix cache; enable "
+                                       "spec.tpu.prefixCache (--prefix-cache 1)",
+                              "reason": "prefix_cache_disabled"})
+            return None
+        return engine
+
+    def _kv_export(self, raw: bytes) -> None:
+        """``POST /admin/kv/export``: the prompt's whole-chunk prefix K/V as
+        one handoff blob; a prefix not in the radix cache yet is prefilled
+        first (one ``max_new_tokens=1`` admission, whose write-backs land
+        the chunks), then read again."""
+        from . import kv_transfer
+
+        engine = self._kv_engine()
+        if engine is None:
+            return
+        srv = self.server
+        t0 = time.perf_counter()
+        code, payload, headers = 200, None, None
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("export body must be a JSON object")
+            prompt_ids = body.get("prompt_ids")
+            if prompt_ids is None:
+                raise ValueError('export requires "prompt_ids"')
+            if prompt_ids and not np.isscalar(prompt_ids[0]):
+                if len(prompt_ids) != 1:
+                    raise ValueError("export supports exactly one prompt sequence")
+                prompt_ids = prompt_ids[0]
+            prompt = engine.validate(prompt_ids, 1)
+            covered = engine.exportable_prefix_tokens(prompt)
+            if covered <= 0:
+                code, payload = 400, {"error": f"prompt of {prompt.size} tokens has no "
+                                               "whole-chunk prefix to export",
+                                      "reason": "prompt_too_short"}
+                return
+            matched, chunks = engine.export_prefix_kv(prompt)
+            if matched < covered:
+                trace_id, span = trace_context_from_headers(self.headers)
+                trace = RequestTrace(request_id=self._rid, trace_id=trace_id,
+                                     parent_span=span)
+                engine.submit(prompt, 1, request_id=self._rid, trace=trace).result()
+                matched, chunks = engine.export_prefix_kv(prompt)
+            if matched <= 0 or not chunks:
+                code, headers = 503, {"Retry-After": "1"}
+                payload = {"error": "prefix did not land in the radix cache (budget too "
+                                    "small for the prompt?)",
+                           "reason": "export_unavailable", "retry_after_s": 1}
+                return
+            blob = kv_transfer.serialize_chunks(engine._prefill_chunk_size, prompt, chunks)
+            self._send(200, blob, "application/octet-stream",
+                       {"X-Tpumlops-Kv-Tokens": str(matched)})
+        except EngineOverloaded as e:
+            code, headers = 429, {"Retry-After": str(e.retry_after_s)}
+            payload = {"error": str(e), "reason": e.reason, "retry_after_s": e.retry_after_s}
+            if e.slo_class is not None:
+                payload["slo_class"] = e.slo_class
+        except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+            code, payload = 400, {"error": str(e)}
+        except Exception as e:
+            _log.exception("kv export failed")
+            code, payload = 500, {"error": str(e)}
+        finally:
+            srv.metrics.observe_request(time.perf_counter() - t0, code=code,
+                                        service="kv-export")
+            if payload is not None:
+                self._reply(code, payload, headers)
+
+    def _kv_import(self, raw: bytes) -> None:
+        """``POST /admin/kv/import``: insert a handoff blob's chunks into the
+        radix cache.  Its geometry and dtype must be this engine's exactly:
+        a mismatch is a 409, never a cast."""
+        from . import kv_transfer
+
+        engine = self._kv_engine()
+        if engine is None:
+            return
+        srv = self.server
+        t0 = time.perf_counter()
+        code = 200
+        try:
+            try:
+                header, chunks = kv_transfer.deserialize_chunks(
+                    raw, pin_memory=engine._device.type == "cuda")
+            except kv_transfer.KvTransferError as e:
+                code, payload = 400, {"error": str(e), "reason": "bad_blob"}
+                return
+            cfg, C = engine._cfg, engine._prefill_chunk_size
+            expected = [cfg.num_layers, 1, C, cfg.num_kv_heads, cfg.head_dim]
+            if int(header["chunk_tokens"]) != C or list(header["kv_shape"]) != expected:
+                code, payload = 409, {
+                    "error": f"handoff geometry {header['kv_shape']} @ "
+                             f"{header['chunk_tokens']} tokens does not match this engine "
+                             f"({expected} @ {C})",
+                    "reason": "geometry_mismatch"}
+                return
+            want = kv_transfer.dtype_name(engine._dtype)
+            if header["dtype"] != want:
+                code, payload = 409, {"error": f"handoff dtype {header['dtype']} does not "
+                                               f"match engine dtype {want}",
+                                      "reason": "dtype_mismatch"}
+                return
+            imported = engine.import_prefix_kv(kv_transfer.chunk_token_ids(header), chunks)
+            payload = {"imported_tokens": int(imported), "chunks": len(chunks)}
+        except (ValueError, KeyError, TypeError) as e:
+            code, payload = 400, {"error": str(e)}
+        except Exception as e:
+            _log.exception("kv import failed")
+            code, payload = 500, {"error": str(e)}
+        finally:
+            srv.metrics.observe_request(time.perf_counter() - t0, code=code,
+                                        service="kv-import")
+            self._reply(code, payload)
+
     def _admin_drain(self, raw: bytes) -> None:
         srv = self.server
         try:
@@ -1145,8 +1593,15 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     started (and warmed) and the server reads ready.  Call
     ``serve_forever()`` (on any thread) and ``shutdown_all()`` to stop.
 
-    ``load_stats`` (``{"wall_s": s}``) and ``boot_wall`` (the process's
-    start, ``time.time()``) feed the model-load and cold-start gauges."""
+    ``load_stats`` (the loader's stage seconds) and ``boot_wall`` (the
+    process's start, ``time.time()``) feed the model-load and cold-start
+    gauges.
+
+    ``config.warm_pool``: ``predictor`` is None and the server boots with no
+    weights (lifecycle ``warm-pool``); ``warmup`` prewarms from the boot
+    model's snapshot (:func:`prewarm_from_snapshot`), and ``POST
+    /admin/attach`` loads a model through ``load_predictor`` with the
+    server's quantize mode, device, type and snapshot directory."""
     anchor = time.time() if boot_wall is None else boot_wall
     telemetry = None
     if config.device_telemetry:
@@ -1181,58 +1636,42 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
                                   grace_s=config.watchdog_grace_s,
                                   on_age=metrics.set_watchdog_tick_age)
     metrics.set_ready(False)
-    if load_stats:
-        metrics.observe_model_load(load_stats)
-        metrics.observe_cold_start("load", load_stats.get("wall_s") or 0.0)
-    t_warm = time.time()
-    batcher = None
-    if predictor.causal_lm is not None:
-        engine = make_gen_engine(predictor, config, metrics, recorder=recorder,
-                                 telemetry=telemetry, watchdog=watchdog,
-                                 timeseries=timeseries)
-        stop = engine.shutdown
-    else:
-        engine = InferenceEngine(predictor, max_batch_size=config.max_batch_size,
-                                 on_compile=metrics.inc_compilations)
-        # Pipelined: the collector launches batch N+1 while N runs.
-        batcher = DynamicBatcher(
-            run_batch=engine.predict_async,
-            max_batch_size=config.max_batch_size,
-            max_batch_delay_ms=config.max_batch_delay_ms,
-            on_batch=metrics.observe_batch,
-            materialize=engine.materialize,
-        )
-        batcher.start()
-        stop = batcher.stop
-        if warmup:
-            # Through the batcher, so the warmup launches on the thread
-            # that serves (the batch histograms count these batches).
-            try:
-                engine.warmup(predict=lambda ex: batcher.submit_batch(ex).result())
-            except Exception:
-                stop()
-                raise
-    try:
-        srv = ModelServer((config.host, config.port), engine, config.model_name,
-                          metrics, predictor=predictor, batcher=batcher,
-                          drain_grace_s=config.drain_grace_s,
-                          cold_start_anchor=anchor, recorder=recorder,
-                          telemetry=telemetry, timeseries=timeseries)
-    except Exception:
-        stop()
-        raise
+    attach_fn = None
+    if config.warm_pool:
+        if predictor is not None:
+            raise ValueError("a warm-pool server boots with no predictor")
+        from .loader import load_predictor
+
+        def attach_fn(model_uri: str, stats: dict):
+            return load_predictor(model_uri, quantize=config.quantize, device=config.device,
+                                  dtype=_DTYPES[config.dtype], load_stats=stats,
+                                  snapshot_dir=config.snapshot_dir)
+    srv = ModelServer((config.host, config.port), None, config.model_name, metrics,
+                      predictor=None, drain_grace_s=config.drain_grace_s,
+                      cold_start_anchor=anchor, recorder=recorder, telemetry=telemetry,
+                      timeseries=timeseries, config=config, watchdog=watchdog,
+                      attach_fn=attach_fn)
     if watchdog is not None:
-        # Wired before the engine starts (and arms it): a stall must never
+        # Wired before an engine starts (and arms it): a stall must never
         # fire into unassigned hooks.
         watchdog.on_stall = srv.note_watchdog_stall
         watchdog.on_recover = srv.note_watchdog_recover
-    if batcher is None:
-        try:
-            engine.start(warmup=warmup)
-        except Exception:
-            srv.server_close()
-            stop()
-            raise
+    if config.warm_pool:
+        if warmup:
+            prewarm_from_snapshot(config)
+        srv.lifecycle = "warm-pool"
+        return srv
+    if load_stats:
+        metrics.observe_model_load(load_stats)
+        restored = load_stats.get("restore_s") is not None
+        metrics.observe_cold_start("restore" if restored else "load",
+                                   load_stats.get("restore_s") or load_stats.get("wall_s") or 0.0)
+    t_warm = time.time()
+    try:
+        srv.install(predictor, warmup=warmup)
+    except Exception:
+        srv.server_close()
+        raise
     metrics.observe_cold_start("compile", time.time() - t_warm)
     metrics.observe_cold_start("total", time.time() - anchor)
     srv.lifecycle = "ready"
@@ -1240,6 +1679,63 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     if timeseries is not None:
         timeseries.mark("warmup")  # samples before it are start-up, not serving
     return srv
+
+
+def prewarm_from_snapshot(config: ServerConfig) -> float | None:
+    """A warm pool's start-up work, from the boot model's snapshot manifest:
+    the kernel build, then one eager forward on a zero tree of the
+    manifest's geometry (the dtypes and shapes the real weights will have),
+    which loads the kernel libraries and the cuBLAS handles; then the zero
+    tree is released, so the replica holds no weights.  The counterpart of
+    the reference's compile sweep: an eager port compiles nothing more, and
+    CUDA graphs are captured at attach, on the attached weights.
+    Best-effort; returns the seconds, or None when there is no snapshot to
+    read a geometry from."""
+    from ..models import llama
+    from ..models.registry import BUILDERS
+    from . import snapshot as _snap
+    from .generation import resolve_device
+    from .loader import _build_config, _unflatten
+
+    if not config.snapshot_dir:
+        return None
+    spath = _snap.snapshot_path_for(config.snapshot_dir, config.model_uri)
+    if not (spath / _snap.MANIFEST_NAME).exists():
+        _log.info("warm-pool prewarm skipped: no snapshot at %s yet", spath)
+        return None
+    t0 = time.perf_counter()
+    try:
+        manifest = _snap.read_manifest(spath)
+        _snap.check_placeable(manifest)
+        if manifest["flavor"] != "llama-generate":
+            return None
+        dev = resolve_device(config.device)
+        if dev.type == "cuda":
+            from ..ops import _build
+
+            _build.build()
+        flat = {leaf["key"]: torch.zeros(leaf["shape"], dtype=_snap.TORCH_DTYPES[leaf["dtype"]],
+                                         device=dev)
+                for leaf in manifest["leaves"]}
+        cfg = _build_config(manifest["flavor"], manifest.get("config", {}))
+        pred = BUILDERS[manifest["flavor"]](_unflatten(flat), cfg=cfg,
+                                            dtype=_DTYPES[config.dtype])
+        del flat
+        prompt = torch.zeros((1, min(16, cfg.max_seq - 1)), dtype=torch.int64, device=dev)
+        llama.generate_greedy(pred.causal_lm["params"], prompt, 1, cfg, _DTYPES[config.dtype])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        del pred
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        wall = time.perf_counter() - t0
+        _log.info("warm-pool prewarm: kernels built and one forward at the snapshot's "
+                  "geometry in %.1fs (zero tree released)", wall)
+        return wall
+    except Exception as e:
+        _log.warning("warm-pool prewarm failed (attach still works): %s", e)
+        return None
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -1342,6 +1838,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="node-local directory of the built CUDA kernels (a library "
                          "already there loads without nvcc); empty = build/torch_kernels/ "
                          "beside the package")
+    ap.add_argument("--fleet-role", default="unified", choices=list(FLEET_ROLES),
+                    help="disaggregated-fleet role of this replica (advisory: named on "
+                         "/readyz; the router's role table decides who exports and who "
+                         "imports KV); prefill and decode need --prefix-cache 1")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="weight snapshot directory: the served (post-quantize) tree is "
+                         "baked here after the first cold load and restored on later boots "
+                         "and attaches with no transform work; empty disables")
+    ap.add_argument("--warm-pool", type=int, default=0,
+                    help="1 boots a warm-pool replica: no weights, the kernels built and "
+                         "loaded from the --model-uri snapshot's geometry, POST /admin/attach "
+                         "loads a model on demand; requires --snapshot-dir")
+    ap.add_argument("--drain-s", type=float, default=3.0,
+                    help="seconds to keep admitting, NotReady, after SIGTERM before the "
+                         "drain begins, so requests still routed here during the endpoint "
+                         "lag are served")
+    ap.add_argument("--metrics-port", type=int, default=6000,
+                    help="a second listener serving /metrics only (the manifest's metrics "
+                         "port); 0 disables it")
+    ap.add_argument("--log-format", default="text", choices=["text", "json"],
+                    help="json: one JSON object a log line, the request completion lines "
+                         "with their request_id")
     ap.add_argument("--predictor-name", default="v1")
     ap.add_argument("--deployment-name", default="")
     ap.add_argument("--namespace", default="default")
@@ -1378,37 +1896,100 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         device_telemetry=bool(args.device_telemetry),
         watchdog_deadline_s=args.watchdog_deadline_s,
         watchdog_grace_s=args.watchdog_grace_s,
+        fleet_role=args.fleet_role, snapshot_dir=args.snapshot_dir,
+        warm_pool=bool(args.warm_pool), model_uri=args.model_uri,
     )
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    """The ``--metrics-port`` listener: ``GET /metrics`` only."""
+
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        _log.debug("%s - " + fmt, self.address_string(), *args)
+
+    def do_GET(self):
+        if urlsplit(self.path).path == "/metrics":
+            code, data, ctype = 200, self.server.metrics.render(), CONTENT_TYPE
+        else:
+            code, ctype = 404, "application/json"
+            data = json.dumps({"error": f"no route {self.path} (this port serves "
+                                        "/metrics only)"}).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+def serve_metrics(host: str, port: int, metrics: ServerMetrics) -> ThreadingHTTPServer:
+    """Start a listener for ``/metrics`` alone on a daemon thread; returns
+    it (``shutdown()`` stops it)."""
+    httpd = ThreadingHTTPServer((host, port), _MetricsHandler)
+    httpd.daemon_threads = True
+    httpd.metrics = metrics
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="metrics-listener").start()
+    return httpd
 
 
 def main(argv: list[str] | None = None) -> None:
+    from ..utils.logging import configure as configure_logging
     from .loader import load_predictor
 
     boot_wall = time.time()
-    args = build_arg_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    config = config_from_args(args)
+    ap = build_arg_parser()
+    args = ap.parse_args(argv)
+    configure_logging(json_format=args.log_format == "json")
+    try:
+        config = config_from_args(args)
+    except ValueError as e:
+        ap.error(str(e))
     from ..utils.compile_cache import enable_persistent_compile_cache
 
     enable_persistent_compile_cache(args.compile_cache_dir)  # before any kernel loads
-    t_load = time.perf_counter()
-    predictor = load_predictor(
-        args.model_uri, quantize=args.quantize, device=args.device,
-        dtype=_DTYPES[args.dtype],
-    )
-    srv = build_server(predictor, config,
-                       load_stats={"wall_s": time.perf_counter() - t_load},
-                       boot_wall=boot_wall)
+    if config.warm_pool:
+        predictor, srv = None, build_server(None, config, boot_wall=boot_wall)
+    else:
+        load_stats: dict = {}
+        predictor = load_predictor(
+            args.model_uri, quantize=args.quantize, device=args.device,
+            dtype=_DTYPES[args.dtype], load_stats=load_stats,
+            snapshot_dir=config.snapshot_dir or None,
+        )
+        srv = build_server(predictor, config, load_stats=load_stats, boot_wall=boot_wall)
+    metrics_httpd = None
+    if args.metrics_port:
+        try:
+            metrics_httpd = serve_metrics(config.host, args.metrics_port, srv.metrics)
+        except OSError as e:
+            # The main port serves /metrics as well: a taken metrics port
+            # costs the second listener, not the replica.
+            _log.error("metrics listener on port %d failed (%s); /metrics stays on the "
+                       "main port", args.metrics_port, e)
+
+    def _terminate() -> None:
+        # The endpoint lag: a terminating pod leaves the endpoints a little
+        # after SIGTERM, so for --drain-s the replica reads NotReady and
+        # still admits; only then does the drain stop admissions.
+        if srv.lifecycle == "ready":
+            srv.lifecycle = "draining"
+            srv.metrics.set_ready(False)
+        time.sleep(max(0.0, args.drain_s))
+        _log.info("termination signal; draining (grace %.1fs)", args.drain_grace_seconds)
+        srv.terminate(args.drain_grace_seconds)
+        if metrics_httpd is not None:
+            metrics_httpd.shutdown()
 
     def _term(_signum, _frame):
-        _log.info("termination signal; draining (grace %.1fs)", args.drain_grace_seconds)
-        threading.Thread(target=srv.terminate, args=(args.drain_grace_seconds,),
-                         daemon=True).start()
+        _log.info("termination signal; endpoint lag %.1fs before drain", args.drain_s)
+        threading.Thread(target=_terminate, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _term)
     host, port = srv.server_address[:2]
-    _log.info("serving %s (%s) on %s:%d", config.model_name, predictor.name, host, port)
+    what = predictor.name if predictor is not None else "warm pool"
+    _log.info("serving %s (%s) on %s:%d (metrics on %s)", config.model_name, what, host, port,
+              args.metrics_port or f"{port}/metrics")
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

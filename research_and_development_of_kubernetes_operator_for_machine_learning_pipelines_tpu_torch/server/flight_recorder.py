@@ -2,11 +2,12 @@
 (port of the JAX package's ``server/flight_recorder.py``; standard library
 only, the same record shapes and Chrome export).
 
-The port's engine records every tick kind below but ``kv-import``, whose
-KV transfer is not ported yet; its record format and the ``kv-handoff``
-span are kept, so a port replica's journal reads as the reference's.
-Besides the dispatch kinds, a preempting engine records
-``preempt-evict`` and ``preempt-restore`` ticks.
+The port's engine records every tick kind below, ``kv-import`` included
+(a handed-off prefix inserted into the radix cache,
+``GenerationEngine.import_prefix_kv``), and a request the router relays
+after a KV handoff carries its ``kv-handoff`` span, so a port replica's
+journal reads as the reference's.  Besides the dispatch kinds, a
+preempting engine records ``preempt-evict`` and ``preempt-restore`` ticks.
 
 Every serving metric this server exports is an aggregate — when one
 request's TTFT blows p99 the histograms cannot say whether it lost the

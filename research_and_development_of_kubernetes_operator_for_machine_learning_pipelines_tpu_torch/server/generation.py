@@ -132,6 +132,17 @@ token, key row (no split) and sampling rows in place.  No token is
 generated twice (``preempt_recomputed_tokens`` stays 0); ``on_preempt``
 (``evict``/``restore``) per event.
 
+Control ops and the KV handoff: ``run_control(fn)`` runs ``fn`` on the
+scheduler thread at the next admission phase (a ``_Wake`` item unblocks an
+idle scheduler; every scheduler loop drains the ops there: the split tick,
+the packed path, the K-step burst once its harvest is in, the super tick),
+and fails them with :class:`EngineShutdown` at shutdown.  With the prefix
+cache on, ``export_prefix_kv`` reads a prompt's whole-chunk prefix out of
+the radix cache and ``import_prefix_kv`` inserts handed-off chunks into
+it, journalled as one ``kv-import`` tick; both run as control ops, since
+the radix cache is the scheduler's alone.  An import stops at a chunk
+whose parent path the cache has meanwhile evicted.
+
 Not ported yet (each raises ``ValueError("... not yet ported")`` when
 asked for): the mesh and multi-host (``mesh_shape``, ``channel``).
 """
@@ -215,6 +226,14 @@ def _safe_fail(fut: Future, exc: Exception) -> None:
     except Exception:
         pass
 
+
+class _Wake:
+    """Queue item that only unblocks the scheduler's idle wait (a control op
+    arrived): it carries no request and is never the None shutdown
+    sentinel."""
+
+
+_WAKE = _Wake()
 
 # SLO priority classes, highest first: a higher class drains first from
 # the admission queue and, under preemption, may evict a lower one.
@@ -670,7 +689,9 @@ class GenerationEngine:
         self._inflight_reqs = 0  # submitted futures not yet done
         self._draining = False
         self.shed_total = 0
-        self._queue: queue.Queue[_Request | None] = queue.Queue()
+        self._queue: queue.Queue[_Request | _Wake | None] = queue.Queue()
+        # (fn, future) pairs run on the scheduler thread (run_control).
+        self._control_ops: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         if telemetry is not None:
@@ -849,12 +870,13 @@ class GenerationEngine:
             if slot is not None and not slot.future.done():
                 self._abort_trace(slot.trace, "shutdown")
                 slot.future.cancel()
+        self._fail_control_ops()
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if req is not None:
+            if req is not None and not isinstance(req, _Wake):
                 self._release_queued(req)
                 self._refuse_at_shutdown(req)
         if self._class_queues is not None:
@@ -1183,14 +1205,14 @@ class GenerationEngine:
 
     def _drain_to_classes(self) -> None:
         """Move every submission waiting in the transport queue into its
-        class deque (classes armed).  The shutdown sentinel goes back into
-        the queue, for the admission loop to see."""
+        class deque (classes armed).  The shutdown sentinel and a ``_Wake``
+        go back into the queue, for the admission loop to see."""
         while True:
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 return
-            if item is None:
+            if item is None or isinstance(item, _Wake):
                 self._queue.put(item)
                 return
             self._class_queues[item.slo_class].append(item)
@@ -1208,7 +1230,7 @@ class GenerationEngine:
             if self._class_queues[name]:
                 return self._class_queues[name].popleft()
         item = self._queue.get(block=block, timeout=timeout)
-        if item is None:
+        if item is None or isinstance(item, _Wake):
             return item
         # More may have landed meanwhile: admit in class order, not arrival.
         self._class_queues[item.slo_class].append(item)
@@ -1592,6 +1614,109 @@ class GenerationEngine:
     def _note_prefix_l2(self, kind: str) -> None:
         if self._on_prefix_l2 is not None:
             self._on_prefix_l2(kind)
+
+    # -- control ops and the KV handoff (disaggregated prefill/decode) -------
+
+    def run_control(self, fn: Callable[[], object]) -> Future:
+        """Run ``fn`` on the scheduler thread at the next admission phase
+        (thread-safe); returns a future of its result.  A control op takes
+        no cache row and runs with every slot busy: it is for state the
+        scheduler owns alone (the radix prefix cache)."""
+        fut: Future = Future()
+        if self._stop.is_set():
+            # The scheduler will never pop it: fail now, not at the
+            # caller's timeout.
+            _safe_fail(fut, EngineShutdown("engine shut down before the control op ran"))
+            return fut
+        self._control_ops.put((fn, fut))
+        self._queue.put(_WAKE)  # unblock an idle scheduler promptly
+        if self._stop.is_set():
+            # Raced shutdown: its drain may have missed this op.  Both
+            # drains take with get_nowait and failing twice is harmless.
+            self._fail_control_ops()
+        return fut
+
+    def _drain_control_ops(self) -> None:
+        while True:
+            try:
+                fn, fut = self._control_ops.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                _safe_resolve(fut, fn())
+            except Exception as exc:
+                _safe_fail(fut, exc)
+
+    def _fail_control_ops(self) -> None:
+        while True:
+            try:
+                _fn, fut = self._control_ops.get_nowait()
+            except queue.Empty:
+                return
+            _safe_fail(fut, EngineShutdown("engine shut down before the control op ran"))
+
+    def _require_prefix_cache(self) -> RadixPrefixCache:
+        if self._prefix_cache is None:
+            raise RuntimeError(
+                "KV handoff requires the radix prefix cache: enable "
+                "spec.tpu.prefixCache (--prefix-cache 1)"
+            )
+        return self._prefix_cache
+
+    def exportable_prefix_tokens(self, prompt) -> int:
+        """Whole-chunk tokens of ``prompt`` a handoff can cover (the radix
+        lookup stops strictly below the prompt's length)."""
+        C = self._require_prefix_cache().chunk_tokens
+        return ((int(np.asarray(prompt).size) - 1) // C) * C
+
+    def export_prefix_kv(self, prompt, timeout: float | None = 60.0) -> tuple[int, list]:
+        """The committed prefix K/V of ``prompt`` in the radix cache:
+        ``(matched_tokens, [(k, v), ...])``, host tensors ``[L, 1, C, NKV,
+        D]``.  The lookup (an LRU-touching walk) runs as a control op; the
+        chunks are never written in place, so they serialize from any
+        thread."""
+        cache = self._require_prefix_cache()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        return self.run_control(lambda: cache.lookup(prompt)).result(timeout)
+
+    def import_prefix_kv(self, prompt, chunks: list, timeout: float | None = 60.0) -> int:
+        """Insert handed-off prefix chunks (host tensors, or numpy arrays
+        that ``convert.to_tensor`` takes) into the radix cache; returns the
+        tokens now covered.  Runs as a control op and journals one
+        ``kv-import`` tick.  It stops at a chunk whose parent path was
+        evicted meanwhile."""
+        from ..convert import to_tensor
+
+        cache = self._require_prefix_cache()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        C = cache.chunk_tokens
+        if len(chunks) * C > prompt.size:
+            raise ValueError(
+                f"{len(chunks)} chunks of {C} tokens exceed the {prompt.size}-token prompt"
+            )
+        pin = self._device.type == "cuda"
+
+        def host(x) -> torch.Tensor:
+            t = x if isinstance(x, torch.Tensor) else to_tensor(x)
+            if pin and not t.is_pinned():
+                t = t.pin_memory()  # the seed's copy to the card is one DMA
+            return t
+
+        pairs = [(host(k), host(v)) for k, v in chunks]
+
+        def op() -> int:
+            t0 = time.perf_counter()
+            installed = 0
+            for idx, (k, v) in enumerate(pairs):
+                if not cache.insert_chunk(prompt, idx, k, v):
+                    break  # the parent path was evicted mid-walk
+                installed += 1
+            self._record_tick("kv-import", t0, time.perf_counter() - t0,
+                              active_slots=self._occupied(), batch_fill=installed,
+                              tokens=installed * C)
+            return installed * C
+
+        return int(self.run_control(op).result(timeout))
 
     def _device_seed(self, cached_kv: list, length: int) -> None:
         """A fresh scratch cache with the cached chunks copied in at their
@@ -2401,8 +2526,9 @@ class GenerationEngine:
         admission by ONE chunk (or starts a new one), so a decode tick is
         never more than one prefill chunk away.  Under preemption it first
         evicts at most one lower-class slot for waiting higher-class work;
-        every burst has drained its harvest by then.  Returns False on the
-        shutdown sentinel."""
+        every burst has drained its harvest by then.  Control ops run first.
+        Returns False on the shutdown sentinel."""
+        self._drain_control_ops()
         if self._preemption:
             self._maybe_preempt()
         if self._packed:
@@ -2426,6 +2552,9 @@ class GenerationEngine:
                 req = self._dequeue(idle, self._idle_poll_s)
             except queue.Empty:
                 break
+            if isinstance(req, _Wake):
+                self._drain_control_ops()
+                continue
             if req is not None:
                 self._release_queued(req)  # left the admission queue
             if req is None or self._stop.is_set():
@@ -2483,6 +2612,9 @@ class GenerationEngine:
                 req = self._dequeue(idle and not popped, self._idle_poll_s)
             except queue.Empty:
                 break
+            if isinstance(req, _Wake):
+                self._drain_control_ops()
+                continue
             if req is not None:
                 self._release_queued(req)  # left the admission queue
             if req is None or self._stop.is_set():

@@ -10,6 +10,16 @@ holds the flattened tree (keys joined with ``|``), ``config.json`` the
 flavor, config and builder kwargs.  A bfloat16 leaf reads back as the
 raw two-byte ``|V2`` where numpy has no bfloat16, and is reinterpreted
 bit for bit (``convert.to_tensor``).
+
+``snapshot_dir`` turns on pre-baked weight snapshots
+(``server/snapshot.py``): a valid snapshot of the model restores the
+served tree straight onto the device with no transform work; a miss loads
+cold and, for a causal LM, bakes the snapshot once from the served
+(post-quantize) tree.  A mismatched snapshot is one warning and a cold
+load; a corrupt one is moved aside (``<path>.corrupt-<pid>``) and baked
+again.  The port serves on one device, so its identity's mesh is
+``SNAPSHOT_MESH``, the JAX package's default ``meshShape``: a snapshot
+baked by a JAX replica at that mesh restores here, and the other way.
 """
 
 from __future__ import annotations
@@ -18,6 +28,8 @@ import dataclasses
 import importlib
 import json
 import logging
+import os
+import time
 from pathlib import Path
 from typing import Any
 
@@ -32,6 +44,10 @@ _log = logging.getLogger("tpumlops_torch.loader")
 _capacity_log = logging.getLogger("tpumlops.capacity")
 
 QUANTIZE_MODES = ("none", "int8", "int8kv")
+
+# The mesh of a snapshot's identity: one device, named as the JAX package's
+# default meshShape names it.
+SNAPSHOT_MESH = {"dp": 1, "tp": 1}
 
 
 class ModelLoadError(Exception):
@@ -245,6 +261,8 @@ def load_predictor(
     quantize: str | None = None,
     device=None,
     dtype=torch.bfloat16,
+    load_stats: dict | None = None,
+    snapshot_dir: str | None = None,
 ) -> Predictor:
     """Load a native artifact, or a HuggingFace Llama checkpoint, onto
     ``device`` (``cuda`` unless named).
@@ -260,13 +278,48 @@ def load_predictor(
       dense weights from the stored values (``quantize_bert``) and, unless
       the artifact pins ``hidden_act``, switches the MLP to tanh-GELU, as
       the reference's loader does; ``int8kv`` is an error (BERT has no KV
-      cache)."""
-    from ..models.quantization import quantize_bert, quantize_llama
+      cache).
 
+    ``load_stats`` receives the load's stage seconds: ``restore_s``,
+    ``disk_s``, ``transfer_s`` and ``read_gib`` when a snapshot served it,
+    else ``quantize_s`` (quantized loads) and ``wall_s``.  ``snapshot_dir``:
+    see the module docstring."""
     quantize = quantize or "none"
     if quantize not in QUANTIZE_MODES:
         raise ModelLoadError(f"unknown quantize mode {quantize!r}")
     dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if snapshot_dir:
+        pred = _try_restore_snapshot(model_uri, snapshot_dir, quantize, dev, dtype,
+                                     load_stats)
+        if pred is not None:
+            return pred
+    pred, flavor, meta = _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats)
+    if snapshot_dir:
+        _maybe_write_snapshot(pred, model_uri, snapshot_dir, quantize, flavor, meta)
+    if load_stats is not None and "wall_s" not in load_stats:
+        load_stats["wall_s"] = round(time.perf_counter() - t0, 3)
+    return pred
+
+
+def _quantize_timed(params, dev: torch.device, stats: dict | None):
+    """``quantize_llama`` with its seconds in ``stats["quantize_s"]`` (the
+    card waited for, so the stage is the device's work)."""
+    from ..models.quantization import quantize_llama
+
+    t0 = time.perf_counter()
+    params = quantize_llama(params)
+    if stats is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stats["quantize_s"] = round(time.perf_counter() - t0, 3)
+    return params
+
+
+def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
+    """The load without a snapshot: ``(predictor, flavor, artifact meta)``."""
+    from ..models.quantization import quantize_bert
+
     path = resolve_uri(model_uri)
     cfg_file = path / "config.json"
     meta = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
@@ -284,12 +337,13 @@ def load_predictor(
             params = _cast_floats(params, dtype)
         params = _to_device(params, dev)
         if quantize != "none":
-            params = quantize_llama(params)
+            params = _quantize_timed(params, dev, load_stats)
         _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
                   flavor, hf_dir, dev, quantize)
-        return _log_capacity(
+        pred = _log_capacity(
             BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs),
             quantize)
+        return pred, flavor, {"config": dataclasses.asdict(cfg), "builder_kwargs": kwargs}
     if flavor not in BUILDERS:
         raise ModelLoadError(
             f"flavor {flavor!r} is not yet ported (the port serves "
@@ -300,7 +354,7 @@ def load_predictor(
     if flavor == "llama-generate":
         params = _read_npz(path / "params.npz", dev, dtype)
         if quantize != "none":
-            params = quantize_llama(params)
+            params = _quantize_timed(params, dev, load_stats)
     else:
         if quantize == "int8kv":
             raise ModelLoadError(
@@ -321,7 +375,79 @@ def load_predictor(
     kwargs = dict(meta.get("builder_kwargs", {}))
     if flavor == "llama-generate":
         dtype = dtype or torch.bfloat16
-    return _log_capacity(BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs), quantize)
+    pred = _log_capacity(BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs), quantize)
+    return pred, flavor, meta
+
+
+def _try_restore_snapshot(model_uri: str, snapshot_dir: str, quantize: str,
+                          dev: torch.device, dtype, load_stats: dict | None):
+    """A restore from the model's snapshot, or None for a cold load: never
+    baked (silent), baked for another identity or layout (one warning), or
+    corrupt (a warning, and the snapshot moved aside so the cold load
+    bakes it again)."""
+    from . import snapshot as _snap
+
+    spath = _snap.snapshot_path_for(snapshot_dir, model_uri)
+    if not (spath / _snap.MANIFEST_NAME).exists():
+        return None
+    ident = _snap.snapshot_identity(model_uri, quantize, SNAPSHOT_MESH)
+    try:
+        stats: dict = {}
+        params, manifest = _snap.load_snapshot(spath, identity=ident, stats=stats,
+                                               device=dev)
+        flavor = manifest["flavor"]
+        if flavor not in BUILDERS:
+            raise _snap.SnapshotMismatch(f"snapshot flavor {flavor!r} is not ported")
+        cfg = _build_config(flavor, manifest.get("config", {}))
+        if dtype is not None:
+            params = _cast_floats(params, dtype)  # a no-op at the baked type
+        pred = BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16,
+                                **manifest.get("builder_kwargs", {}))
+        if load_stats is not None:
+            load_stats.update(stats)
+        _log.info("restored %s from snapshot %s (%.2f GiB in %.2fs, zero transform work)",
+                  flavor, spath, stats.get("read_gib", 0.0), stats.get("restore_s", 0.0))
+        return _log_capacity(pred, quantize)
+    except _snap.SnapshotMismatch as e:
+        _log.warning("snapshot invalidated, falling back to cold load (will re-bake): %s", e)
+    except _snap.SnapshotError as e:
+        _log.warning("snapshot unusable (%s), falling back to cold load", e)
+        # Moved aside: its manifest still matches the identity, so without
+        # this the bake after the cold load would skip it and every later
+        # restore would fail on the same chunks.
+        try:
+            os.replace(spath, f"{spath}.corrupt-{os.getpid()}")
+        except OSError:
+            pass
+    return None
+
+
+def _maybe_write_snapshot(pred: Predictor, model_uri: str, snapshot_dir: str,
+                          quantize: str, flavor: str, meta: dict) -> None:
+    """Bake the snapshot after a cold load, from the served tree: once (a
+    snapshot valid for this identity is left alone), causal LMs only.  A
+    failed write is a warning; serving goes on."""
+    from . import snapshot as _snap
+
+    lm = pred.causal_lm
+    if not lm:
+        return
+    ident = _snap.snapshot_identity(model_uri, quantize, SNAPSHOT_MESH)
+    spath = _snap.snapshot_path_for(snapshot_dir, model_uri)
+    try:
+        if (spath / _snap.MANIFEST_NAME).exists():
+            try:
+                _snap.check_identity(_snap.read_manifest(spath), ident)
+                return  # already baked for this identity
+            except _snap.SnapshotError:
+                pass  # stale or corrupt: bake again below
+        _snap.write_snapshot(
+            snapshot_dir, lm["params"], identity=ident, flavor=flavor,
+            config=dict(meta.get("config", {})),
+            builder_kwargs={"eos_id": int(lm["eos_id"])} if lm.get("eos_id") is not None else {},
+        )
+    except Exception as e:
+        _log.warning("snapshot write failed (serving unaffected): %s", e)
 
 
 def _log_capacity(predictor: Predictor, quantize: str) -> Predictor:

@@ -496,11 +496,18 @@ class ServerMetrics:
         if counter is not None:
             counter.inc(self.identity)
 
+    # The loader's stage keys -> the gauge's stage label (the reference's).
+    _LOAD_STAGES = {"disk_s": "disk", "transfer_s": "transfer", "quantize_s": "quantize",
+                    "shard_s": "shard", "restore_s": "restore", "wall_s": "total"}
+
     def observe_model_load(self, stats: dict) -> None:
-        """A load's stage walls: ``wall_s`` is stage "total"."""
-        if stats.get("wall_s") is not None:
-            self.model_load_seconds.set({**self.identity, "stage": "total"},
-                                        float(stats["wall_s"]))
+        """A load's stage walls (a stage absent from ``stats`` makes no
+        child): ``wall_s`` is stage "total", a snapshot's ``restore_s``
+        stage "restore"."""
+        for key, stage in self._LOAD_STAGES.items():
+            if stats.get(key) is not None:
+                self.model_load_seconds.set({**self.identity, "stage": stage},
+                                            float(stats[key]))
 
     def observe_cold_start(self, stage: str, seconds: float) -> None:
         self.cold_start_seconds.set({**self.identity, "stage": stage},

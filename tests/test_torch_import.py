@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package.
+"""The PyTorch port imports neither JAX nor the JAX package, nor
+``ml_dtypes`` (the card's machine has none: the port reads and writes
+bfloat16 through int16 views).
 
 The JAX package's ``server/__init__.py`` imports its engine, which imports
 JAX, so even a numpy-only reference module would pull JAX in; the port
@@ -18,7 +20,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch"
 JAX_PKG = "research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu"
-FORBIDDEN = ("jax", "jaxlib", "tpumlops", JAX_PKG)
+FORBIDDEN = ("jax", "jaxlib", "tpumlops", JAX_PKG, "ml_dtypes")
 
 SOURCES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -40,7 +42,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "tpumlops", {JAX_PKG!r}))
+             if m.split(".")[0] in ("jax", "jaxlib", "tpumlops", {JAX_PKG!r}, "ml_dtypes"))
 print(len(names))
 assert not bad, bad
 """
