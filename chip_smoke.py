@@ -330,6 +330,32 @@ and exits non-zero):
    the engine's batch dispatches, and ``/metrics`` must count the 200s and
    the 400.  Prints B32/S128 batch latency p50/p99, requests/s, peak memory
    and the device busy share.
+7. The V2 flavors, each loaded by the port's loader and served in process
+   behind ``build_server``.  ResNet-50 at full width and depth (25.6M
+   parameters, 224 x 224 x 3, 1000 classes; seeded He-normal weights and
+   random folded batch norms) written as a native artifact and loaded
+   through an ``s3://`` URI with ``TPUMLOPS_ARTIFACT_MIRROR`` set to the
+   directory (the loader's serving-type cast must not reach it: the tree
+   it holds on the card is f32): a B2 request over
+   ``/v2/models/{name}/infer`` and a B1 ``data.tensor`` request over
+   ``/api/v1.0/predictions``, both against the same forward in f64 on the
+   card (RESNET_TOL of the largest logit; top-1 equal but at a near tie,
+   RESNET_GAP), with their walls; the engine's batch latency at B 1, 8
+   and 32 (p50, p99, images/s, the device idle share) and the peak
+   memory.  An xgboost JSON forest (200 trees of depth 6 on 32 features,
+   ``binary:logistic``, from a seed) written with ``save_xgboost_model``:
+   it must take the product form, which at B 256 (rows on a split and a
+   NaN row among them) must equal the gather form on the card within
+   XGB_TOL and both a numpy traversal on the host within XGB_HOST_TOL;
+   each form's device ms at B 256, and the served p50 of a V2 request.
+   An iris logistic regression (3 classes, 4 features; an object with
+   ``coef_``, ``intercept_`` and ``predict_proba``, as the card's machine
+   has no sklearn) from a ``model.pkl``: V2 infer (B150 and 16 singles)
+   and the Seldon route with ``data.ndarray``, class ids equal to numpy's;
+   three feedback rewards (1, -0.5, 2) must show on ``/metrics`` as
+   ``tpumlops_feedback_reward_total`` 2.5 and three requests under
+   ``service="feedback"``, with the predictions and latency counts
+   unchanged.  Prints the phase's wall on a line of its own.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.  Details, and the server
@@ -6336,6 +6362,12 @@ def _attach_fallback(app, loader, snap, llama, conf: dict, device: str) -> dict:
 # buckets), so cuBLAS may sum in another order, and int8 adds the per-token
 # activation rounding of the other batch's GEMM shapes.
 BERT_TOL = {"none": 3e-2, "int8": 5e-2}
+# Phase 7: ResNet-50's served logits (f32 images, TF32 convolutions)
+# against the same forward in f64 on the card, the largest absolute
+# difference over the largest f64 logit; a row's top-1 must agree unless its
+# f64 top-2 gap is under RESNET_GAP x that largest difference (a near tie).
+RESNET_TOL = 5e-3
+RESNET_GAP = 2.0
 
 
 def _post_code(url: str, body: dict, timeout: float = 600) -> tuple[int, dict]:
@@ -6523,6 +6555,438 @@ def phase_serve_bert(fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the V2 flavors (ResNet-50, xgboost, iris) and the Seldon routes
+# ---------------------------------------------------------------------------
+
+RESNET_IMAGE = 224
+RESNET_BATCHES = (1, 8, 32)
+# xgboost margins, absolute and relative: the product form against the
+# gather form (tests/test_models_tabular.py's parity bar for the two
+# forms), and each against a numpy traversal on the host summed in f64
+# (200 f32 leaf sums: each addition rounds by up to 2^-24 of a partial sum),
+# whose sigmoid the served probabilities also meet.
+XGB_TOL = 1e-6
+XGB_HOST_TOL = 1e-5
+XGB_TREES, XGB_DEPTH, XGB_FEATURES, XGB_B = 200, 6, 32, 256
+
+
+class _IrisLogistic:
+    """What the ``sklearn-linear`` builder reads of a fitted
+    ``LogisticRegression`` (the card's machine has no sklearn): ``coef_``,
+    ``intercept_`` and a ``predict_proba``."""
+
+    def __init__(self, rng):
+        self.coef_ = rng.normal(size=(3, 4))
+        self.intercept_ = rng.normal(size=3)
+
+    def predict_proba(self, x):
+        import numpy as np
+
+        z = np.asarray(x) @ self.coef_.T + self.intercept_
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+
+def _xgb_forest(rng) -> tuple[dict, list]:
+    """A seeded xgboost JSON model (the layout ``Booster.save_model`` writes,
+    as tests/test_models_tabular.py builds it): XGB_TREES full binary trees
+    of depth XGB_DEPTH on XGB_FEATURES features, ``binary:logistic``."""
+    n_int = 2**XGB_DEPTH - 1
+    n = 2 * n_int + 1
+    trees = []
+    for _ in range(XGB_TREES):
+        left = [2 * i + 1 if i < n_int else -1 for i in range(n)]
+        right = [2 * i + 2 if i < n_int else -1 for i in range(n)]
+        split_idx = [int(rng.integers(XGB_FEATURES)) if i < n_int else 0 for i in range(n)]
+        cond = [float(rng.normal()) if i < n_int else float(0.1 * rng.normal())
+                for i in range(n)]
+        trees.append({
+            "base_weights": [0.0] * n, "categories": [], "categories_nodes": [],
+            "categories_segments": [], "categories_sizes": [], "default_left": [1] * n,
+            "id": len(trees), "left_children": left, "loss_changes": [0.0] * n,
+            "parents": [2147483647] * n, "right_children": right,
+            "split_conditions": cond, "split_indices": split_idx, "split_type": [0] * n,
+            "sum_hessian": [1.0] * n,
+            "tree_param": {"num_deleted": "0", "num_feature": str(XGB_FEATURES),
+                           "num_nodes": str(n), "size_leaf_vector": "1"},
+        })
+    model = {"learner": {
+        "attributes": {}, "feature_names": [], "feature_types": [],
+        "gradient_booster": {"model": {
+            "gbtree_model_param": {"num_parallel_tree": "1", "num_trees": str(XGB_TREES)},
+            "iteration_indptr": list(range(XGB_TREES + 1)), "tree_info": [0] * XGB_TREES,
+            "trees": trees}, "name": "gbtree"},
+        "learner_model_param": {"base_score": "0.5", "boost_from_average": "1",
+                                "num_class": "0", "num_feature": str(XGB_FEATURES),
+                                "num_target": "1"},
+        "objective": {"name": "binary:logistic",
+                      "reg_loss_param": {"scale_pos_weight": "1"}}},
+        "version": [2, 0, 0]}
+    return model, trees
+
+
+def _xgb_host_margins(trees, X, base_margin: float):
+    """An independent numpy traversal with xgboost's strict ``<`` (a NaN
+    goes right, as the reference routes it), in f64."""
+    import numpy as np
+
+    out = np.full(X.shape[0], base_margin, np.float64)
+    rows = np.arange(X.shape[0])
+    for t in trees:
+        left, right = np.asarray(t["left_children"]), np.asarray(t["right_children"])
+        feat, cond = np.asarray(t["split_indices"]), np.asarray(t["split_conditions"], np.float32)
+        node = np.zeros(X.shape[0], np.int64)
+        while (left[node] != -1).any():
+            inner = left[node] != -1
+            go_left = X[rows, feat[node]] < cond[node]
+            nxt = np.where(go_left, left[node], right[node])
+            node = np.where(inner, nxt, node)
+        out += cond[node]
+    return out
+
+
+def _serve_in_process(app, pred, name: str, max_batch_size: int, device: str):
+    config = app.ServerConfig(model_name=name, host="127.0.0.1", port=0, device=device,
+                              max_batch_size=max_batch_size, max_batch_delay_ms=2)
+    t0 = time.perf_counter()
+    srv = app.build_server(pred, config)
+    warmup_s = time.perf_counter() - t0
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, f"http://127.0.0.1:{srv.server_address[1]}", warmup_s
+
+
+def _stop_server(srv, th) -> None:
+    srv.shutdown_all()
+    th.join(timeout=30)
+    if th.is_alive():
+        raise AssertionError("a phase 7 server thread did not stop")
+
+
+def _v2_tensor(x, name: str = "x") -> dict:
+    return {"inputs": [{"name": name, "datatype": "FP32", "shape": list(x.shape),
+                        "data": x.reshape(-1).tolist()}]}
+
+
+def _v2_out(resp: dict):
+    import numpy as np
+
+    out = resp["outputs"][0]
+    return np.asarray(out["data"]).reshape(out["shape"])
+
+
+def _phase7_resnet(resnet, loader, app, scratch: Path, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    cfg = resnet.ResNetConfig.resnet50()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = resnet.init(gen, cfg, device=device)
+
+    def random_bn(node):
+        if isinstance(node, list):
+            return [random_bn(v) for v in node]
+        if set(node) == {"scale", "bias"}:
+            c = node["scale"].shape[0]
+
+            def draw(lo, hi):
+                return lo + (hi - lo) * torch.rand(c, generator=gen, device=device)
+
+            return resnet.fold_batchnorm(draw(0.5, 1.5), 0.1 * draw(-1, 1),
+                                         0.1 * draw(-1, 1), draw(0.5, 2.0))
+        return {k: (random_bn(v) if isinstance(v, (dict, list)) else v)
+                for k, v in node.items()}
+
+    params = random_bn(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    art = loader.save_native_model(scratch / "bucket" / "models" / "resnet50",
+                                   "resnet-classifier", params,
+                                   config=dataclasses.asdict(cfg),
+                                   builder_kwargs={"image_size": RESNET_IMAGE})
+    # The object-store URI through the mirror: s3://<bucket>/<path>.
+    os.environ[loader.MIRROR_ENV] = str(scratch)
+    uri = "s3://bucket/models/resnet50"
+    if loader.resolve_uri(uri) != art:
+        raise AssertionError(f"the mirror resolved {uri} to {loader.resolve_uri(uri)}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+    t0 = time.perf_counter()
+    stats: dict = {}
+    pred = loader.load_predictor(uri, device=device, load_stats=stats)  # default dtype bf16
+    load_s = time.perf_counter() - t0
+    resident = (torch.cuda.memory_allocated() - held0) if device == "cuda" else None
+    # The loader's bf16 cast must not reach ResNet: the served tree (its
+    # OIHW serving copy of the convs, the BN and fc leaves) is f32.
+    if resident is not None and resident < 0.95 * 4 * n_params:
+        raise AssertionError(f"ResNet-50 holds {resident / 2**20:.1f} MiB on the card for "
+                             f"{n_params} parameters: not f32")
+    if pred.name != "resnet-classifier" or pred.metadata["num_classes"] != cfg.num_classes:
+        raise AssertionError(f"loaded {pred.name} {pred.metadata}")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    srv, th, base, warmup_s = _serve_in_process(app, pred, "resnet50", 32, device)
+    try:
+        rng = np.random.default_rng(7)
+        imgs = rng.normal(size=(2, RESNET_IMAGE, RESNET_IMAGE, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        code, resp, _ = _call("POST", base + "/v2/models/resnet50/infer", _v2_tensor(imgs))
+        v2_wall_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200:
+            raise AssertionError(f"ResNet V2 infer answered {code}: {resp}")
+        served = _v2_out(resp).astype(np.float64)
+        t0 = time.perf_counter()
+        code, sresp, _ = _call("POST", base + "/api/v1.0/predictions", {"data": {"tensor": {
+            "shape": [1, RESNET_IMAGE, RESNET_IMAGE, 3], "values": imgs[:1].reshape(-1).tolist()}}})
+        seldon_wall_ms = (time.perf_counter() - t0) * 1e3
+        if code != 200:
+            raise AssertionError(f"ResNet Seldon predictions answered {code}: {sresp}")
+        seldon = np.asarray(sresp["data"]["ndarray"], np.float64)
+        p64 = _cast_tree(params, torch.float64)
+        with torch.no_grad():
+            ref = resnet.forward(p64, torch.from_numpy(imgs.astype(np.float64)).to(device),
+                                 cfg).double().cpu().numpy()
+        del p64
+        if served.shape != ref.shape or seldon.shape != (1, cfg.num_classes):
+            raise AssertionError(f"logit shapes {served.shape} / {seldon.shape}")
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(served - ref).max())
+        seldon_err = float(np.abs(seldon - ref[:1]).max())
+        if not np.isfinite(served).all() or err > RESNET_TOL * scale \
+                or seldon_err > RESNET_TOL * scale:
+            raise AssertionError(f"ResNet-50 logits vs f64: max_abs_err {err:.3e} / Seldon "
+                                 f"{seldon_err:.3e} over a scale of {scale:.3e} "
+                                 f"(tol {RESNET_TOL} x scale)")
+        top2 = np.sort(ref, axis=1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > RESNET_GAP * err
+        agree = served.argmax(1) == ref.argmax(1)
+        if not agree[clear].all():
+            raise AssertionError(f"ResNet-50 top-1 differs from f64 on a clear row: "
+                                 f"{served.argmax(1)} vs {ref.argmax(1)}")
+        eng = srv.engine
+        lat = {}
+        for b in RESNET_BATCHES:
+            ex = {"x": rng.normal(size=(b, RESNET_IMAGE, RESNET_IMAGE, 3)).astype(np.float32)}
+            for _ in range(3):
+                eng.predict(ex)
+            walls = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                eng.predict(ex)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof, prof_wall_ms = profile_device(lambda: eng.predict(ex), iters=10)
+            busy_ms = sum(prof.values())
+            p50 = _percentile_ms(walls, 50)
+            lat[b] = {"p50_ms": p50, "p99_ms": _percentile_ms(walls, 99),
+                      "images_per_s": b / (p50 / 1e3), "busy_ms_10": busy_ms,
+                      "wall_ms_10": prof_wall_ms,
+                      "idle_share": 1 - busy_ms / prof_wall_ms if prof_wall_ms else None,
+                      "top": sorted(prof.items(), key=lambda kv: -kv[1])[:5]}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    finally:
+        _stop_server(srv, th)
+        os.environ.pop(loader.MIRROR_ENV, None)
+    res = {"n_params": n_params, "uri": uri, "load_s": load_s, "load_stats": stats,
+           "resident_mib": None if resident is None else resident / 2**20,
+           "warmup_s": warmup_s, "max_abs_err": err, "seldon_max_abs_err": seldon_err,
+           "logit_scale": scale, "top1_agree": agree.tolist(), "top1_clear": clear.tolist(),
+           "v2_b2_wall_ms": v2_wall_ms, "seldon_b1_wall_ms": seldon_wall_ms,
+           "batches": lat, "max_memory_gib": peak}
+    log(f"ResNet-50 ({n_params} parameters, {RESNET_IMAGE}x{RESNET_IMAGE}) via {uri}: load "
+        f"{load_s:.2f} s ({res['resident_mib'] or 0:.1f} MiB on the card, f32), warmup "
+        f"{warmup_s:.2f} s; logits vs f64 max_abs_err {err:.3e} (Seldon {seldon_err:.3e}) over "
+        f"a scale {scale:.3e} (tol {RESNET_TOL} x scale), top-1 {agree.tolist()}")
+    log(f"  HTTP walls: V2 infer B2 {v2_wall_ms:.1f} ms, Seldon data.tensor B1 "
+        f"{seldon_wall_ms:.1f} ms; peak {peak or 0:.2f} GiB")
+    for b, r in lat.items():
+        log(f"  engine B{b}: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+            f"{r['images_per_s']:.1f} images/s, device busy {r['busy_ms_10']:.1f} of "
+            f"{r['wall_ms_10']:.1f} ms over 10 batches (idle share "
+            f"{(r['idle_share'] or 0):.3f})")
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _phase7_xgboost(tabular, loader, app, scratch: Path, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    model, trees_json = _xgb_forest(rng)
+    art = loader.save_xgboost_model(scratch / "xgb", model)
+    t0 = time.perf_counter()
+    pred = loader.load_predictor(str(art), device=device)
+    load_s = time.perf_counter() - t0
+    if pred.metadata["eval_form"] != "gemm" or pred.metadata["n_trees"] != XGB_TREES:
+        raise AssertionError(f"xgboost loaded as {pred.metadata}")
+    X = rng.normal(size=(XGB_B, XGB_FEATURES)).astype(np.float32)
+    for r in range(8):  # rows exactly on a split: strict < sends them right
+        t = trees_json[r]
+        X[r, t["split_indices"][0]] = np.float32(t["split_conditions"][0])
+    X[8, :4] = np.nan  # NaN goes right at every node
+    base = float(np.log(0.5 / 0.5))
+    host = _xgb_host_margins(trees_json, X, base)
+    trees, _ = tabular.from_xgboost_json(model)
+    gemm_fn, form = tabular.lower_forest(trees, device)
+    gather_trees = tabular._to_device(trees, device)
+    xd = torch.from_numpy(X).to(device)
+    gemm = gemm_fn(xd).double().cpu().numpy()
+    gather = tabular.eval_forest(gather_trees, xd).double().cpu().numpy()
+    err_forms = float(np.abs(gemm - gather).max())
+    err_host = float(max(np.abs(gemm - host).max(), np.abs(gather - host).max()))
+    if form != "gemm" or not np.isfinite(gemm).all() \
+            or (np.abs(gemm - gather) > XGB_TOL + XGB_TOL * np.abs(gather)).any() \
+            or (np.abs(gemm - host) > XGB_HOST_TOL + XGB_HOST_TOL * np.abs(host)).any() \
+            or (np.abs(gather - host) > XGB_HOST_TOL + XGB_HOST_TOL * np.abs(host)).any():
+        raise AssertionError(f"xgboost margins: gemm vs gather {err_forms:.3e} (tol {XGB_TOL}), "
+                             f"vs host {err_host:.3e} (tol {XGB_HOST_TOL}), abs + rel")
+    served = pred.predict(X).double().cpu().numpy()
+    prob_err = float(np.abs(served - 1 / (1 + np.exp(-host))).max())
+    if prob_err > XGB_HOST_TOL:
+        raise AssertionError(f"xgboost probabilities vs host: {prob_err:.3e}")
+    if device == "cuda":
+        gemm_ms = cuda_time_ms(lambda: gemm_fn(xd))
+        gather_ms = cuda_time_ms(lambda: tabular.eval_forest(gather_trees, xd))
+    else:
+        gemm_ms = gather_ms = None
+    srv, th, base_url, warmup_s = _serve_in_process(app, pred, "xgb", XGB_B, device)
+    try:
+        body = _v2_tensor(X[9:])  # no NaN on the JSON wire
+        walls = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            code, resp, _ = _call("POST", base_url + "/v2/models/xgb/infer", body)
+            walls.append(time.perf_counter() - t0)
+            if code != 200:
+                raise AssertionError(f"xgboost V2 infer answered {code}: {resp}")
+        got = _v2_out(resp)
+        if np.abs(got - served[9:]).max() > XGB_TOL:
+            raise AssertionError("served xgboost probabilities differ from the predictor's")
+    finally:
+        _stop_server(srv, th)
+    res = {"trees": XGB_TREES, "depth": XGB_DEPTH, "features": XGB_FEATURES, "batch": XGB_B,
+           "load_s": load_s, "eval_form": form, "max_abs_err_forms": err_forms,
+           "max_abs_err_host": err_host, "prob_max_abs_err": prob_err,
+           "gemm_device_ms": gemm_ms, "gather_device_ms": gather_ms,
+           "served_rows": XGB_B - 9, "served_p50_ms": _percentile_ms(walls, 50),
+           "served_p99_ms": _percentile_ms(walls, 99), "warmup_s": warmup_s}
+    log(f"xgboost {XGB_TREES} trees depth {XGB_DEPTH} on {XGB_FEATURES} features, "
+        f"binary:logistic, eval_form {form}: margins gemm vs gather {err_forms:.3e} (tol "
+        f"{XGB_TOL}), vs host {err_host:.3e} (tol {XGB_HOST_TOL}); B{XGB_B} device ms gemm "
+        f"{gemm_ms if gemm_ms is None else round(gemm_ms, 4)}, gather "
+        f"{gather_ms if gather_ms is None else round(gather_ms, 4)}; served V2 B{XGB_B - 9} "
+        f"p50 {res['served_p50_ms']:.2f} ms, p99 {res['served_p99_ms']:.2f} ms")
+    return res
+
+
+def _phase7_iris(loader, app, scratch: Path, device: str) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    model = _IrisLogistic(rng)
+    art = loader.save_sklearn_model(scratch / "iris", model, "sklearn-linear")
+    pred = loader.load_predictor(str(art), device=device)
+    if pred.name != "sklearn-linear" or pred.metadata != {"n_features": 4, "n_classes": 3}:
+        raise AssertionError(f"iris loaded as {pred.name} {pred.metadata}")
+    lo, hi = np.array([4.3, 2.0, 1.0, 0.1]), np.array([7.9, 4.4, 6.9, 2.5])
+    X = (lo + (hi - lo) * rng.random((150, 4))).astype(np.float32)
+    want = (X.astype(np.float64) @ model.coef_.T + model.intercept_).argmax(1)
+    srv, th, base, warmup_s = _serve_in_process(app, pred, "iris", 8, device)
+    try:
+        code, resp, _ = _call("POST", base + "/v2/models/iris/infer", _v2_tensor(X))
+        if code != 200 or resp["outputs"][0]["datatype"] != "INT32":
+            raise AssertionError(f"iris V2 infer answered {code}: {resp}")
+        v2 = _v2_out(resp)
+        with ThreadPoolExecutor(8) as pool:
+            singles = list(pool.map(lambda i: _call("POST", base + "/v2/models/iris/infer",
+                                                    _v2_tensor(X[i:i + 1])), range(16)))
+        code, sresp, _ = _call("POST", base + "/api/v1.0/predictions",
+                               {"data": {"ndarray": X[:5].tolist()}})
+        if code != 200 or any(c != 200 for c, _, _ in singles):
+            raise AssertionError(f"iris Seldon answered {code}: {sresp}")
+        got_single = np.asarray([_v2_out(r)[0] for _, r, _ in singles])
+        if not (np.array_equal(v2, want) and np.array_equal(got_single, want[:16])
+                and np.array_equal(sresp["data"]["ndarray"], want[:5])):
+            raise AssertionError("iris class ids differ from numpy's argmax")
+        before = _scrape(base)
+        for reward in (1, -0.5, 2):
+            code, fresp, _ = _call("POST", base + "/api/v1.0/feedback",
+                                   {"reward": reward, "response": {"data": {"ndarray": [[0]]}}})
+            if (code, fresp) != (200, {"meta": {}}):
+                raise AssertionError(f"feedback answered {code}: {fresp}")
+        after = _scrape(base)
+        fam = "seldon_api_executor_server_requests_seconds_count"
+        lat = "seldon_api_executor_client_requests_seconds_count"
+        reward_total = _value(after, "tpumlops_feedback_reward_total")
+        fb = _value(after, fam, service="feedback") - _value(before, fam, service="feedback")
+        dpred = (_value(after, fam, service="predictions")
+                 - _value(before, fam, service="predictions"))
+        dlat = _value(after, lat) - _value(before, lat)
+        if reward_total != 2.5 or fb != 3 or dpred != 0 or dlat != 0:
+            raise AssertionError(f"feedback metrics: reward {reward_total}, feedback "
+                                 f"count +{fb}, predictions +{dpred}, latency +{dlat}")
+        n_pred = _value(after, fam, service="predictions", code="200")
+    finally:
+        _stop_server(srv, th)
+    res = {"rows": len(X), "singles": len(singles), "agree": 1.0, "warmup_s": warmup_s,
+           "feedback_reward_total": reward_total, "feedback_count": fb,
+           "predictions_200": n_pred}
+    log(f"iris (3 classes, 4 features) from model.pkl: V2 infer B150 and 16 singles, Seldon "
+        f"ndarray B5, class ids equal to numpy's; feedback 1, -0.5, 2 -> "
+        f"tpumlops_feedback_reward_total {reward_total}, service=\"feedback\" +{fb:.0f}, "
+        f"predictions +{dpred:.0f}")
+    return res
+
+
+def phase_serve_v2_flavors(device: str = "cuda") -> dict:
+    """ResNet-50 (a native artifact through an ``s3://`` URI and the
+    artifact mirror), an xgboost JSON forest and an iris logistic
+    regression from a ``model.pkl``, each loaded by the port's loader and
+    served in process (V2 infer, the Seldon route, feedback)."""
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    resnet = import_module(f"{PKG}.models.resnet")
+    tabular = import_module(f"{PKG}.models.tabular")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    scratch = ROOT / "build"  # ignored by git
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        out = {"resnet50": _phase7_resnet(resnet, loader, app, Path(tmp), device)}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["xgboost"] = _phase7_xgboost(tabular, loader, app, Path(tmp), device)
+        out["iris"] = _phase7_iris(loader, app, Path(tmp), device)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 7 wall {out['wall_s']:.1f} s")
+    DETAIL["serve_v2_flavors"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6626,6 +7090,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage("6 bert")
     bert = phase_serve_bert(fa)
+    stage("7 v2 flavors")
+    phase_serve_v2_flavors()
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
     # jax itself may arrive with torch.profiler's own imports where it is

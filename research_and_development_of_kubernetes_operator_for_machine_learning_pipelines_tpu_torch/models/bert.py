@@ -14,6 +14,9 @@ the same layout, so attention adds no transpose or copy.  The reference
 divides the f32 scores by sqrt(head_dim); the kernel multiplies q by
 1/sqrt(head_dim) first, which differs by rounding only (nothing at
 head_dim 16 or 64, where the scale is a power of two).
+
+``from_torch`` converts a HuggingFace checkpoint into the tree (the
+loader's HF branch).
 """
 
 from __future__ import annotations
@@ -178,3 +181,52 @@ def classify(
     _, pooled = encode(params, input_ids, attention_mask, token_type_ids, cfg, dtype)
     c = params["classifier"]
     return dense(pooled, c["w"], c["b"]).to(torch.float32)
+
+
+def from_torch(torch_model, cfg: BertConfig) -> dict:
+    """Convert a HuggingFace ``BertModel`` or ``BertForSequenceClassification``
+    (or its state dict) into the parameter tree, float32 on the CPU, dense
+    weights transposed to ``[in, out]``."""
+    sd = torch_model if isinstance(torch_model, dict) else torch_model.state_dict()
+    sd = {k: v.detach().cpu().float() for k, v in sd.items()}
+    prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
+
+    def t(name):
+        return sd[prefix + name].contiguous()
+
+    def lin(name):
+        return {"w": t(f"{name}.weight").T.contiguous(), "b": t(f"{name}.bias")}
+
+    def ln(name):
+        return {"scale": t(f"{name}.weight"), "bias": t(f"{name}.bias")}
+
+    params = {
+        "embeddings": {
+            "word": t("embeddings.word_embeddings.weight"),
+            "position": t("embeddings.position_embeddings.weight"),
+            "token_type": t("embeddings.token_type_embeddings.weight"),
+            "ln": ln("embeddings.LayerNorm"),
+        },
+        "layers": [],
+        "pooler": lin("pooler.dense"),
+    }
+    for i in range(cfg.num_layers):
+        base = f"encoder.layer.{i}"
+        params["layers"].append({
+            "attn": {
+                "q": lin(f"{base}.attention.self.query"),
+                "k": lin(f"{base}.attention.self.key"),
+                "v": lin(f"{base}.attention.self.value"),
+                "o": lin(f"{base}.attention.output.dense"),
+                "ln": ln(f"{base}.attention.output.LayerNorm"),
+            },
+            "mlp": {
+                "up": lin(f"{base}.intermediate.dense"),
+                "down": lin(f"{base}.output.dense"),
+                "ln": ln(f"{base}.output.LayerNorm"),
+            },
+        })
+    if "classifier.weight" in sd:
+        params["classifier"] = {"w": sd["classifier.weight"].T.contiguous(),
+                                "b": sd["classifier.bias"].contiguous()}
+    return params

@@ -38,6 +38,16 @@ Routes:
   goes through the dynamic batcher, a larger client batch is padded to a
   warmed batch bucket.  400 for bad input or an overlong sequence, 500 for
   a runtime failure.
+- ``POST /api/v1.0/predictions`` (classifiers) -- the Seldon protocol:
+  ``{"data": {"ndarray": [[...]]}}`` or ``{"data": {"tensor": {"shape":
+  [...], "values": [...]}}}`` in (as FP32, one input ``x``), ``{"data":
+  {"ndarray": ...}, "meta": {}}`` out, 400 on a bad body; counted in the
+  gate's latency histogram like ``/infer``.
+- ``POST /api/v1.0/feedback`` -- Seldon's feedback API: ``{"reward": r,
+  ...}`` adds ``r`` (a number, else 400) to
+  ``tpumlops_feedback_reward_total`` and answers ``{"meta": {}}``; counted
+  under ``service="feedback"`` in the request metric, never in the latency
+  histogram.
 - ``GET /v2/models/{name}`` -- model metadata.
 - ``GET /metrics`` -- Prometheus text exposition (``server/metrics.py``);
   both POST routes record every answered request in the gate's families.
@@ -1068,6 +1078,23 @@ class ModelServer(ThreadingHTTPServer):
         return {"model_name": self.model_name, "id": body.get("id", ""),
                 "outputs": _to_v2_outputs(out)}
 
+    def seldon_predict(self, body: dict) -> dict:
+        """Seldon protocol: ``data.ndarray`` or ``data.tensor`` as one FP32
+        input ``x``; the first output back as ``data.ndarray``."""
+        data = body.get("data", {})
+        if "ndarray" in data:
+            arr = np.asarray(data["ndarray"], dtype=np.float32)
+        elif "tensor" in data:
+            t = data["tensor"]
+            arr = np.asarray(t["values"], np.float32).reshape(t["shape"])
+        else:
+            raise ValueError("data.ndarray or data.tensor required")
+        if arr.ndim == 0 or arr.shape[0] == 0:
+            raise ValueError(f"data needs a non-empty batch dimension, got shape {list(arr.shape)}")
+        out = self._run({"x": arr})
+        out_arr = np.asarray(out if not isinstance(out, tuple) else out[0])
+        return {"data": {"ndarray": out_arr.tolist()}, "meta": {}}
+
     def _run(self, inputs: dict[str, np.ndarray]):
         """Batch 1 via the dynamic batcher, larger client batches padded to
         warmed batch buckets; both always on sequence buckets."""
@@ -1100,7 +1127,7 @@ class ModelServer(ThreadingHTTPServer):
     def metadata(self) -> dict:
         p = self.predictor
         return {"name": self.model_name, "platform": "tpumlops-torch",
-                "flavor": p.name, "metadata": p.metadata}
+                "flavor": p.name, "jittable": p.jittable, "metadata": p.metadata}
 
     def shutdown_all(self) -> None:
         """Stop serving, then stop the engine (failing what is queued)."""
@@ -1232,6 +1259,19 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/admin/kv/import":
             self._kv_import(raw)
             return
+        if self.path == "/api/v1.0/feedback":
+            self._feedback(raw)
+            return
+        if self.path == "/api/v1.0/predictions":
+            if srv.engine is None:
+                self._not_attached()
+            elif srv.serves != "infer":
+                self._reply(404, {"error": f"no route {self.path} for this model "
+                                           f"(it serves /{srv.serves})"})
+            else:
+                with srv.answering():
+                    self._answer(raw, seldon=True)
+            return
         m = _MODEL_ROUTE.match(self.path)
         # A warm pool answers any model name (the multiplexer's ids).
         known = m is not None and (m.group(1) == srv.model_name or srv.attach_fn is not None)
@@ -1254,7 +1294,7 @@ class _Handler(BaseHTTPRequestHandler):
                           "reason": "warm_pool_empty", "retry_after_s": 5,
                           "request_id": self._rid}, {"Retry-After": "5"})
 
-    def _answer(self, raw: bytes, model: str | None = None) -> None:
+    def _answer(self, raw: bytes, model: str | None = None, seldon: bool = False) -> None:
         srv = self.server
         t0 = time.perf_counter()
         code, payload, headers = 200, None, None
@@ -1262,7 +1302,9 @@ class _Handler(BaseHTTPRequestHandler):
             body = json.loads(raw or b"{}")
             if not isinstance(body, dict):
                 raise ValueError("request body must be a JSON object")
-            if srv.serves == "infer":
+            if seldon:
+                payload = srv.seldon_predict(body)
+            elif srv.serves == "infer":
                 payload = srv.infer(body)
             else:
                 prompts, max_new, eos_id, sampling, stream, debug = srv.prepare_generate(body)
@@ -1297,6 +1339,31 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             srv.metrics.observe_request(time.perf_counter() - t0, code=code)
         self._reply(code, payload, headers)
+
+    def _feedback(self, raw: bytes) -> None:
+        """Seldon's feedback API: the reward is summed into
+        ``tpumlops_feedback_reward_total`` and the post counted under
+        ``service="feedback"``; feedback is reward signal, not inference, so
+        nothing runs on the model (and a warm pool with none answers too)."""
+        srv = self.server
+        t0 = time.perf_counter()
+        code, payload = 200, {"meta": {}}
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("feedback body must be a JSON object")
+            reward = body.get("reward", 0.0)
+            if not isinstance(reward, (int, float)):
+                raise ValueError("reward must be a number")
+            srv.metrics.observe_feedback_reward(float(reward))
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            code, payload = 400, {"error": str(e), "request_id": self._rid}
+        except Exception as e:
+            _log.exception("feedback handling failed")
+            code, payload = 500, {"error": str(e), "request_id": self._rid}
+        finally:
+            srv.metrics.observe_request(time.perf_counter() - t0, code=code, service="feedback")
+        self._reply(code, payload)
 
     def _chunk(self, data: bytes) -> None:
         self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))

@@ -1,8 +1,23 @@
 """Model loading: URI -> artifact directory -> Predictor (port of the JAX
-package's ``server/loader.py``; the native ``params.npz`` + ``config.json``
-artifact of flavors ``llama-generate`` and ``bert-classifier``, and a
-HuggingFace Llama checkpoint, bare or inside an MLflow transformers
-artifact).
+package's ``server/loader.py``).
+
+Tiered resolution, in the reference's order:
+
+1. the native artifact, ``params.npz`` + ``config.json``, of the
+   tree-of-tensors flavors (``llama-generate``, ``bert-classifier``,
+   ``resnet-classifier``);
+2. a HuggingFace Llama or BERT checkpoint, bare or inside an MLflow
+   transformers artifact (needs ``transformers``, imported only then);
+3. an MLflow xgboost artifact in xgboost's JSON format (no xgboost
+   needed; a binary model is refused with how to re-save it);
+4. a pickled sklearn model, ``model.pkl`` (needs sklearn to unpickle),
+   served as ``sklearn-linear``, ``sklearn-forest`` or, for anything else
+   with a ``predict``, the host-side ``pyfunc`` tier.
+
+URIs: local paths and ``file://`` load directly; object-store URIs
+(``s3://``, ``gs://``) resolve under ``TPUMLOPS_ARTIFACT_MIRROR``, a local
+mount of the buckets (``s3://<bucket>/<path>`` is ``<mirror>/<bucket>/
+<path>``), so the server needs no cloud SDK.
 
 The artifact layout is the reference's, so an artifact written by the
 JAX package's ``save_native_model`` loads here unchanged: ``params.npz``
@@ -29,6 +44,7 @@ import importlib
 import json
 import logging
 import os
+import pickle
 import time
 from pathlib import Path
 from typing import Any
@@ -37,13 +53,15 @@ import numpy as np
 import torch
 
 from ..convert import to_numpy, to_tensor
-from ..models.registry import BUILDERS, Predictor
+from ..models.registry import BUILDERS, Predictor, get_builder
 from .generation import resolve_device
 
 _log = logging.getLogger("tpumlops_torch.loader")
 _capacity_log = logging.getLogger("tpumlops.capacity")
 
 QUANTIZE_MODES = ("none", "int8", "int8kv")
+
+MIRROR_ENV = "TPUMLOPS_ARTIFACT_MIRROR"
 
 # The mesh of a snapshot's identity: one device, named as the JAX package's
 # default meshShape names it.
@@ -55,14 +73,19 @@ class ModelLoadError(Exception):
 
 
 def resolve_uri(model_uri: str) -> Path:
-    """Resolve a model URI (a local path or ``file://``) to a directory."""
+    """Resolve a model URI to a local directory (an object-store URI
+    through the ``MIRROR_ENV`` mirror)."""
     if model_uri.startswith("file://"):
         path = Path(model_uri[len("file://"):])
     elif "://" in model_uri:
-        raise ModelLoadError(
-            f"cannot load {model_uri!r}: object-store URIs are not yet ported "
-            "(local paths and file:// only)"
-        )
+        scheme, rest = model_uri.split("://", 1)
+        mirror = os.environ.get(MIRROR_ENV)
+        if not mirror:
+            raise ModelLoadError(
+                f"cannot fetch {model_uri!r}: no {MIRROR_ENV} mirror configured "
+                f"(mount the {scheme} bucket and set {MIRROR_ENV})"
+            )
+        path = Path(mirror) / rest
     else:
         path = Path(model_uri)
     if not path.exists():
@@ -136,13 +159,56 @@ def save_native_model(
     return path
 
 
+def save_sklearn_model(path: str | Path, model: Any, flavor: str) -> Path:
+    """Write an MLflow-sklearn-compatible artifact (pickle + MLmodel)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "model.pkl", "wb") as f:
+        pickle.dump(model, f)
+    (path / "MLmodel").write_text(
+        "flavors:\n"
+        "  sklearn:\n"
+        "    pickled_model: model.pkl\n"
+        "  python_function:\n"
+        "    loader_module: mlflow.sklearn\n"
+        f"# tpumlops flavor hint: {flavor}\n"
+    )
+    (path / "config.json").write_text(json.dumps({"flavor": flavor}))
+    return path
+
+
+def save_xgboost_model(path: str | Path, model_json: dict) -> Path:
+    """Write an MLflow-xgboost-compatible artifact from a parsed JSON model
+    (the dict ``Booster.save_model("model.json")`` produces)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "model.json").write_text(json.dumps(model_json))
+    (path / "MLmodel").write_text(
+        "flavors:\n"
+        "  xgboost:\n"
+        "    data: model.json\n"
+        "    model_format: json\n"
+        "  python_function:\n"
+        "    loader_module: mlflow.xgboost\n"
+        "    data: model.json\n"
+    )
+    return path
+
+
 _CONFIG_CLASSES = {
     "bert-classifier": ("bert", "BertConfig"),
+    "resnet-classifier": ("resnet", "ResNetConfig"),
     "llama-generate": ("llama", "LlamaConfig"),
 }
 
+# Flavors whose float leaves take the serving ``dtype``; ResNet computes in
+# the images' dtype from leaves kept as stored, as the reference does.
+_SERVING_CAST = ("llama-generate", "bert-classifier")
+
 
 def _build_config(flavor: str, config_dict: dict) -> Any:
+    if flavor not in _CONFIG_CLASSES:
+        return None
     mod_name, cls_name = _CONFIG_CLASSES[flavor]
     cls = getattr(importlib.import_module(f"..models.{mod_name}", __package__), cls_name)
     known = set(cls.__dataclass_fields__)
@@ -174,6 +240,8 @@ def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
 def _to_device(tree: Any, dev: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -211,48 +279,79 @@ def _find_hf_checkpoint(path: Path) -> Path | None:
 
 def _load_transformers(hf_dir: Path):
     """HF checkpoint -> (flavor, float32 params on the CPU, config, builder
-    kwargs), through ``llama.from_torch``.  ``transformers`` is imported
-    here, only when an HF checkpoint is loaded."""
-    from ..models import llama
-
+    kwargs, raw config), through ``llama.from_torch`` or
+    ``bert.from_torch``.  ``transformers`` is imported here, only when an
+    HF checkpoint is loaded.  The raw config pins BERT's ``hidden_act``, as
+    the checkpoint's own config does."""
     hf_cfg = json.loads((hf_dir / "config.json").read_text())
     model_type = hf_cfg.get("model_type")
-    if model_type == "bert":
-        raise ModelLoadError(
-            "the HF loader for bert is not yet ported (use a native artifact)"
-        )
-    if model_type != "llama":
-        raise ModelLoadError(
-            f"unsupported transformers model_type {model_type!r} (supported: llama)"
-        )
-    scaling = hf_cfg.get("rope_scaling")
-    if scaling:
-        # The port's RoPE is plain theta-based: a scaled checkpoint would
-        # serve silently degraded tokens.
-        raise ModelLoadError(
-            f"rope_scaling {scaling!r} is not supported (plain RoPE only)"
-        )
-    from transformers import LlamaForCausalLM
+    if model_type == "llama":
+        from ..models import llama
 
-    tm = LlamaForCausalLM.from_pretrained(hf_dir)
-    cfg = llama.LlamaConfig(
-        vocab_size=int(hf_cfg["vocab_size"]),
-        hidden_size=int(hf_cfg["hidden_size"]),
-        num_layers=int(hf_cfg["num_hidden_layers"]),
-        num_heads=int(hf_cfg["num_attention_heads"]),
-        num_kv_heads=int(hf_cfg.get("num_key_value_heads")
-                         or hf_cfg["num_attention_heads"]),
-        intermediate_size=int(hf_cfg["intermediate_size"]),
-        max_seq=int(hf_cfg.get("max_position_embeddings", 4096)),
-        rope_theta=float(hf_cfg.get("rope_theta", 10000.0)),
-        rms_eps=float(hf_cfg.get("rms_norm_eps", 1e-5)),
+        scaling = hf_cfg.get("rope_scaling")
+        if scaling:
+            # The port's RoPE is plain theta-based: a scaled checkpoint would
+            # serve silently degraded tokens.
+            raise ModelLoadError(
+                f"rope_scaling {scaling!r} is not supported (plain RoPE only)"
+            )
+        from transformers import LlamaForCausalLM
+
+        tm = LlamaForCausalLM.from_pretrained(hf_dir)
+        cfg = llama.LlamaConfig(
+            vocab_size=int(hf_cfg["vocab_size"]),
+            hidden_size=int(hf_cfg["hidden_size"]),
+            num_layers=int(hf_cfg["num_hidden_layers"]),
+            num_heads=int(hf_cfg["num_attention_heads"]),
+            num_kv_heads=int(hf_cfg.get("num_key_value_heads")
+                             or hf_cfg["num_attention_heads"]),
+            intermediate_size=int(hf_cfg["intermediate_size"]),
+            max_seq=int(hf_cfg.get("max_position_embeddings", 4096)),
+            rope_theta=float(hf_cfg.get("rope_theta", 10000.0)),
+            rms_eps=float(hf_cfg.get("rms_norm_eps", 1e-5)),
+        )
+        params = llama.from_torch(tm, cfg)
+        eos = hf_cfg.get("eos_token_id")
+        if isinstance(eos, list):  # some checkpoints ship a list of eos ids
+            eos = eos[0] if eos else None
+        kwargs = {"eos_id": int(eos)} if eos is not None else {}
+        return "llama-generate", params, cfg, kwargs, {}
+    if model_type == "bert":
+        from ..models import bert
+
+        # HF's "gelu" is exact erf; the *_tanh / _new spellings are the tanh
+        # approximation.  Another activation would serve wrong logits.
+        hf_act = str(hf_cfg.get("hidden_act", "gelu"))
+        act_map = {
+            "gelu": "gelu",
+            "gelu_python": "gelu",
+            "gelu_new": "gelu_tanh",
+            "gelu_pytorch_tanh": "gelu_tanh",
+        }
+        if hf_act not in act_map:
+            raise ModelLoadError(
+                f"unsupported BERT hidden_act {hf_act!r} (supported: {sorted(act_map)})"
+            )
+        from transformers import BertForSequenceClassification
+
+        tm = BertForSequenceClassification.from_pretrained(hf_dir)
+        cfg = bert.BertConfig(
+            vocab_size=int(hf_cfg["vocab_size"]),
+            hidden_size=int(hf_cfg["hidden_size"]),
+            num_layers=int(hf_cfg["num_hidden_layers"]),
+            num_heads=int(hf_cfg["num_attention_heads"]),
+            intermediate_size=int(hf_cfg["intermediate_size"]),
+            max_position_embeddings=int(hf_cfg.get("max_position_embeddings", 512)),
+            type_vocab_size=int(hf_cfg.get("type_vocab_size", 2)),
+            layer_norm_eps=float(hf_cfg.get("layer_norm_eps", 1e-12)),
+            num_labels=int(getattr(tm.config, "num_labels", 2)),
+            hidden_act=act_map[hf_act],
+        )
+        return ("bert-classifier", bert.from_torch(tm, cfg), cfg, {},
+                {"hidden_act": act_map[hf_act]})
+    raise ModelLoadError(
+        f"unsupported transformers model_type {model_type!r} (supported: llama, bert)"
     )
-    params = llama.from_torch(tm, cfg)
-    eos = hf_cfg.get("eos_token_id")
-    if isinstance(eos, list):  # some checkpoints ship a list of eos ids
-        eos = eos[0] if eos else None
-    kwargs = {"eos_id": int(eos)} if eos is not None else {}
-    return "llama-generate", params, cfg, kwargs
 
 
 def load_predictor(
@@ -264,12 +363,14 @@ def load_predictor(
     load_stats: dict | None = None,
     snapshot_dir: str | None = None,
 ) -> Predictor:
-    """Load a native artifact, or a HuggingFace Llama checkpoint, onto
-    ``device`` (``cuda`` unless named).
+    """Load a model artifact (see the module docstring) onto ``device``
+    (``cuda`` unless named).
 
-    Float leaves are cast to ``dtype`` (None keeps them as stored; an HF
-    checkpoint's float32 weights are stored as bfloat16 first, as the
-    reference serves them, and ``eos_id`` comes from its config).
+    Float leaves of ``llama-generate`` and ``bert-classifier`` are cast to
+    ``dtype`` (None keeps them as stored; an HF checkpoint's float32
+    weights are stored as bfloat16 first, as the reference serves them, and
+    ``eos_id`` comes from its config).  ``resnet-classifier`` keeps its
+    leaves as stored and computes in the images' dtype.
 
     - ``llama-generate``: ``quantize`` ``int8``/``int8kv`` turns the layer
       matmuls and the LM head into int8 leaves on the device (``int8kv``
@@ -279,6 +380,7 @@ def load_predictor(
       the artifact pins ``hidden_act``, switches the MLP to tanh-GELU, as
       the reference's loader does; ``int8kv`` is an error (BERT has no KV
       cache).
+    - every other flavor refuses any ``quantize`` but ``none``.
 
     ``load_stats`` receives the load's stage seconds: ``restore_s``,
     ``disk_s``, ``transfer_s`` and ``read_gib`` when a snapshot served it,
@@ -316,52 +418,22 @@ def _quantize_timed(params, dev: torch.device, stats: dict | None):
     return params
 
 
-def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
-    """The load without a snapshot: ``(predictor, flavor, artifact meta)``."""
+def _finish(flavor: str, params, cfg, raw_config: dict, quantize: str,
+            dev: torch.device, dtype, stats: dict | None):
+    """The shared tail of the tree-of-tensors flavors: quantize (refused
+    where the flavor has no int8 path) and the serving-type cast; returns
+    ``(params, cfg)``."""
     from ..models.quantization import quantize_bert
 
-    path = resolve_uri(model_uri)
-    cfg_file = path / "config.json"
-    meta = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
-    flavor = flavor or meta.get("flavor")
-    if not (path / "params.npz").exists():
-        hf_dir = _find_hf_checkpoint(path)
-        if hf_dir is None:
-            raise ModelLoadError(
-                f"{path} is not a recognized artifact (no params.npz or "
-                "HuggingFace checkpoint)"
-            )
-        flavor, params, cfg, kwargs = _load_transformers(hf_dir)
-        params = _cast_floats(params, torch.bfloat16)
-        if dtype is not None:
-            params = _cast_floats(params, dtype)
-        params = _to_device(params, dev)
-        if quantize != "none":
-            params = _quantize_timed(params, dev, load_stats)
-        _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
-                  flavor, hf_dir, dev, quantize)
-        pred = _log_capacity(
-            BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs),
-            quantize)
-        return pred, flavor, {"config": dataclasses.asdict(cfg), "builder_kwargs": kwargs}
-    if flavor not in BUILDERS:
-        raise ModelLoadError(
-            f"flavor {flavor!r} is not yet ported (the port serves "
-            f"{', '.join(sorted(BUILDERS))})"
-        )
-    raw_config = meta.get("config", {})
-    cfg = _build_config(flavor, raw_config)
     if flavor == "llama-generate":
-        params = _read_npz(path / "params.npz", dev, dtype)
         if quantize != "none":
-            params = _quantize_timed(params, dev, load_stats)
-    else:
+            params = _quantize_timed(params, dev, stats)
+    elif flavor == "bert-classifier":
         if quantize == "int8kv":
             raise ModelLoadError(
                 "int8kv quantizes a KV cache; bert-classifier has none -- use "
                 "quantize: int8"
             )
-        params = _read_npz(path / "params.npz", dev, None)
         if quantize == "int8":
             params = quantize_bert(params)
             if "hidden_act" not in raw_config:
@@ -370,13 +442,128 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
                           "artifact without a hidden_act pin")
         if dtype is not None:
             params = _cast_floats(params, dtype)
-    _log.info("loaded native %s model from %s onto %s (quantize=%s)",
-              flavor, path, dev, quantize)
-    kwargs = dict(meta.get("builder_kwargs", {}))
-    if flavor == "llama-generate":
-        dtype = dtype or torch.bfloat16
-    pred = _log_capacity(BUILDERS[flavor](params, cfg=cfg, dtype=dtype, **kwargs), quantize)
-    return pred, flavor, meta
+    elif quantize != "none":
+        raise ModelLoadError(
+            f"quantize={quantize!r} is not supported for flavor {flavor!r} "
+            "(supported: llama-generate, bert-classifier)"
+        )
+    return params, cfg
+
+
+def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
+    """The load without a snapshot: ``(predictor, flavor, artifact meta)``."""
+    path = resolve_uri(model_uri)
+    cfg_file = path / "config.json"
+    meta = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
+    flavor = flavor or meta.get("flavor")
+    serving_dtype = dtype or torch.bfloat16
+
+    if (path / "params.npz").exists():
+        if not flavor:
+            raise ModelLoadError(f"{path} has params.npz but no flavor recorded")
+        if flavor not in _CONFIG_CLASSES:
+            raise ModelLoadError(
+                f"flavor {flavor!r} has no params.npz layout (native flavors: "
+                f"{', '.join(sorted(_CONFIG_CLASSES))})"
+            )
+        raw_config = meta.get("config", {})
+        cfg = _build_config(flavor, raw_config)
+        # Llama is read straight at the serving type; the others as stored.
+        params = _read_npz(path / "params.npz", dev,
+                           dtype if flavor == "llama-generate" else None)
+        params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
+                              load_stats)
+        _log.info("loaded native %s model from %s onto %s (quantize=%s)",
+                  flavor, path, dev, quantize)
+        kwargs = dict(meta.get("builder_kwargs", {}))
+        # BERT with dtype None computes in its stored type; Llama never does.
+        build_dtype = serving_dtype if flavor == "llama-generate" else dtype
+        pred = _log_capacity(get_builder(flavor)(params, cfg=cfg, dtype=build_dtype, **kwargs),
+                             quantize)
+        return pred, flavor, meta
+
+    hf_dir = _find_hf_checkpoint(path)
+    if hf_dir is not None:
+        flavor, params, cfg, kwargs, raw_config = _load_transformers(hf_dir)
+        params = _cast_floats(params, torch.bfloat16)
+        if flavor == "llama-generate" and dtype is not None:
+            params = _cast_floats(params, dtype)
+        params = _to_device(params, dev)
+        params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
+                              load_stats)
+        _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
+                  flavor, hf_dir, dev, quantize)
+        pred = _log_capacity(get_builder(flavor)(params, cfg=cfg, dtype=serving_dtype,
+                                                 **kwargs), quantize)
+        return pred, flavor, {"config": dataclasses.asdict(cfg), "builder_kwargs": kwargs}
+
+    if quantize != "none":
+        # What remains are sklearn / xgboost / pyfunc artifacts, with no
+        # weight matmuls to quantize: refuse loudly instead of ignoring.
+        raise ModelLoadError(
+            f"quantize={quantize!r} is only supported for the tree-of-tensors "
+            "flavors (llama-generate, bert-classifier)"
+        )
+
+    xgb_file = _find_xgboost_file(path)
+    if xgb_file is not None:
+        raw = xgb_file.read_bytes()
+        if raw.lstrip()[:1] != b"{":
+            raise ModelLoadError(
+                f"{xgb_file.name} is a binary xgboost model (UBJ/legacy); "
+                're-save it as JSON (booster.save_model("model.json")) for '
+                "device-native serving, or use the pyfunc tier"
+            )
+        _log.info("loaded xgboost JSON model from %s onto %s", xgb_file, dev)
+        return get_builder("xgboost")(json.loads(raw), device=dev), "xgboost", meta
+
+    if (path / "model.pkl").exists():
+        # An MLflow sklearn artifact is a pickle: unpickling runs the code
+        # it names, so serve only artifacts from a trusted registry.
+        with open(path / "model.pkl", "rb") as f:
+            model = pickle.load(f)
+        flavor = flavor or _sniff_sklearn_flavor(model)
+        _log.info("loaded sklearn %s model from %s as flavor %s",
+                  type(model).__name__, path, flavor)
+        return get_builder(flavor)(model, device=dev), flavor, meta
+
+    raise ModelLoadError(
+        f"{path} is not a recognized artifact "
+        "(no params.npz, HuggingFace checkpoint, xgboost model file, or model.pkl)"
+    )
+
+
+def _find_xgboost_file(path: Path) -> Path | None:
+    """The model file of an MLflow xgboost artifact: the MLmodel's
+    ``data: <file>``, else a conventional name."""
+    mlmodel = path / "MLmodel"
+    if mlmodel.exists():
+        text = mlmodel.read_text()
+        if "xgboost" not in text:
+            return None  # a declared non-xgboost artifact: no name sniffing
+        for line in text.splitlines():
+            line = line.strip()
+            if line.startswith("data:"):
+                cand = path / line.split(":", 1)[1].strip().strip("\"'")
+                if cand.exists():
+                    return cand
+    for name in ("model.json", "model.ubj", "model.xgb", "model.bst"):
+        cand = path / name
+        if cand.exists():
+            return cand
+    return None
+
+
+def _sniff_sklearn_flavor(model: Any) -> str:
+    name = type(model).__name__
+    if hasattr(model, "estimators_"):
+        return "sklearn-forest"
+    if hasattr(model, "coef_"):
+        return "sklearn-linear"
+    if hasattr(model, "predict"):
+        _log.warning("model %s has no device lowering; using the pyfunc tier", name)
+        return "pyfunc"
+    raise ModelLoadError(f"cannot serve object of type {name}")
 
 
 def _try_restore_snapshot(model_uri: str, snapshot_dir: str, quantize: str,
@@ -397,9 +584,9 @@ def _try_restore_snapshot(model_uri: str, snapshot_dir: str, quantize: str,
                                                device=dev)
         flavor = manifest["flavor"]
         if flavor not in BUILDERS:
-            raise _snap.SnapshotMismatch(f"snapshot flavor {flavor!r} is not ported")
+            raise _snap.SnapshotMismatch(f"snapshot flavor {flavor!r} is not registered")
         cfg = _build_config(flavor, manifest.get("config", {}))
-        if dtype is not None:
+        if dtype is not None and flavor in _SERVING_CAST:
             params = _cast_floats(params, dtype)  # a no-op at the baked type
         pred = BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16,
                                 **manifest.get("builder_kwargs", {}))

@@ -9,6 +9,7 @@ The operator's promotion gate queries these series by name
   latency and the request count;
 - ``seldon_api_executor_server_requests_seconds_count`` with a ``code``
   label: the error rate (``code!="200"``), and ``service`` for feedback;
+- ``tpumlops_feedback_reward_total`` gauge: the sum of posted rewards;
 
 all keyed by ``{deployment_name, predictor_name, namespace}``.  The
 operator, the autoscaler and the router read the generation families
@@ -108,6 +109,11 @@ class Gauge(_Family):
         key = self._key(labels)
         with self._lock:
             self._children[key] = [float(value)]
+
+    def inc(self, labels: dict, amount: float = 1.0) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._children.setdefault(key, [0.0])[0] += float(amount)
 
     def render(self) -> list[str]:
         lines = [f"# HELP {self.name} {self.doc}", f"# TYPE {self.name} gauge"]
@@ -296,6 +302,14 @@ class ServerMetrics:
         self.ready = Gauge(
             "tpumlops_model_ready", "1 once the model is loaded and warmed",
             ident, lock)
+        # Reward telemetry of the Seldon feedback API; the feedback count
+        # is server_requests{service="feedback"}.  A gauge, not a counter:
+        # rewards are any float (a negative one is a penalty).
+        self.feedback_reward = Gauge(
+            "tpumlops_feedback_reward_total",
+            "Running sum of rewards posted to the feedback endpoint "
+            "(may decrease: negative rewards are penalties)",
+            ident, lock)
         # Failure containment: the watchdog families sit at 0 until
         # --watchdog-deadline-s arms the monitor; the poison counters back
         # the always-on quarantine.
@@ -375,7 +389,7 @@ class ServerMetrics:
             self.spec_proposed_tokens, self.spec_accepted_tokens,
             self.spec_accepted_len, self.spec_acceptance_rate,
             self.shed, self.preempt, self.model_load_seconds, self.cold_start_seconds,
-            self.ready, *families,
+            self.ready, self.feedback_reward, *families,
         )
 
     def observe_request(self, seconds: float, code: int = 200,
@@ -386,6 +400,9 @@ class ServerMetrics:
             self.client_requests.observe(self.identity, seconds)
         self.server_requests.observe(
             {**self.identity, "code": str(code), "service": service}, seconds)
+
+    def observe_feedback_reward(self, reward: float) -> None:
+        self.feedback_reward.inc(self.identity, reward)
 
     def observe_batch(self, size: int, queue_seconds: float, run_seconds: float = 0.0,
                       pipeline_wait_seconds: float = 0.0) -> None:

@@ -71,10 +71,9 @@ from tpumlops.server.metrics import ServerMetrics as JaxServerMetrics
 
 JCFG = J.LlamaConfig.tiny(max_seq=64)
 TCFG = T.LlamaConfig.tiny(max_seq=64)
-# The reference families a port server does not register yet: the
-# tensor-parallel collective walls (the mesh) and the feedback route's
-# reward sum (the Seldon routes).
-NOT_YET = {"tpumlops_engine_collective_seconds", "tpumlops_feedback_reward_total"}
+# The reference family a port server does not register yet: the
+# tensor-parallel collective walls (the mesh).
+NOT_YET = {"tpumlops_engine_collective_seconds"}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -163,7 +163,7 @@ def _fake_checkpoint(tmp_path, **hf_cfg):
     ({"model_type": "llama", "rope_scaling": {"rope_type": "llama3", "factor": 8.0}},
      "rope_scaling"),
     ({"model_type": "gpt2"}, "model_type"),
-    ({"model_type": "bert"}, "not yet ported"),
+    ({"model_type": "bert", "hidden_act": "relu"}, "hidden_act"),
 ])
 def test_refused_checkpoints(tmp_path, hf_cfg, needle):
     art = _fake_checkpoint(tmp_path, **hf_cfg)

@@ -124,16 +124,17 @@ def test_port_artifact_round_trip(tmp_path, artifact):
     assert torch.equal(q["q8"], q2["q8"]) and torch.equal(q["scale"], q2["scale"])
 
 
-def test_loader_rejects_what_is_not_ported(tmp_path, artifact):
+def test_loader_rejects_what_is_not_ported(tmp_path, artifact, monkeypatch):
     path, _ = artifact
     with pytest.raises(tloader.ModelLoadError, match="does not exist"):
         tloader.resolve_uri(str(tmp_path / "missing"))
-    with pytest.raises(tloader.ModelLoadError, match="not yet ported"):
+    monkeypatch.delenv(tloader.MIRROR_ENV, raising=False)
+    with pytest.raises(tloader.ModelLoadError, match=tloader.MIRROR_ENV):
         tloader.resolve_uri("s3://bucket/model")
     with pytest.raises(tloader.ModelLoadError, match="quantize"):
         tloader.load_predictor(str(path), quantize="int4", device="cpu")
-    with pytest.raises(tloader.ModelLoadError, match="not yet ported"):
-        tloader.load_predictor(str(path), flavor="resnet-classifier", device="cpu")
+    with pytest.raises(tloader.ModelLoadError, match="no params.npz layout"):
+        tloader.load_predictor(str(path), flavor="sklearn-linear", device="cpu")
 
 
 @pytest.fixture(scope="module")

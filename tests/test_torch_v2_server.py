@@ -505,6 +505,7 @@ def test_metrics_count_responses_and_match_the_reference_families(server):
         "tpumlops_engine_dispatches", "tpumlops_engine_shed", "tpumlops_engine_preempt",
         "tpumlops_model_load_seconds",
         "tpumlops_cold_start_seconds", "tpumlops_model_ready",
+        "tpumlops_feedback_reward_total",
         "tpumlops_prefix_cache_hits", "tpumlops_prefix_cache_cached_tokens",
         "tpumlops_prefix_cache_evictions", "tpumlops_prefix_cache_l2_hits",
         "tpumlops_prefix_cache_l2_spills", "tpumlops_prefix_cache_l2_evictions",
