@@ -356,6 +356,36 @@ and exits non-zero):
    ``tpumlops_feedback_reward_total`` 2.5 and three requests under
    ``service="feedback"``, with the predictions and latency counts
    unchanged.  Prints the phase's wall on a line of its own.
+8. A served replica at ``--mesh-shape {"dp": 2, "tp": 2}``: Llama-2-7B's
+   widths (H 4096, 32 heads and 32 KV heads, MLP 11008, vocab 32000) cut
+   to MESH_LAYERS layers for the time limit, random bf16 weights from a
+   seeded generator written once as a native artifact under ``build/``
+   (deleted after).  Four rank processes on the one card, started as the
+   app starts them (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+   ``JAX_PROCESS_ID``), each loading its block through the loader; the
+   backend is gloo (``parallel.distributed.choose_backend``: four ranks,
+   one card), read from the leader's log.  Traffic over ``/generate``: a
+   request that puts a two-chunk prefix in the radix cache, then five
+   concurrent greedy requests of 32 tokens (two cold, two seeded from the
+   cached prefix, one repeating pattern the n-gram drafter proposes from).
+   At ``--dtype float32`` every request's tokens must equal a tp-1, dp-1
+   engine's in this process on the same artifact and options (a differing
+   token prints its position and that engine's top-2 logit margin); then
+   at bf16 the agreement is reported, not asserted.  Every request
+   completes, SIGTERM to the leader ends every rank with 0, every rank
+   launched the same kernels (decode attention, its verify instance,
+   RMSNorm and flash attention each more than once), the seed, verify
+   and decode ops all ran, and each rank's peak allocation (the load
+   included) and reserve stay within MESH_PEAK_SLACK and
+   MESH_RESERVED_SLACK of its HBM ledger.  Prints, per rank, its decode/verify/chunk op
+   walls, its measured collective host seconds, its HBM ledger against
+   ``torch.cuda.memory_allocated()``, ``max_memory_allocated()`` and
+   ``memory_reserved()`` and its launches (each rank's
+   ``TPUMLOPS_RANK_REPORT_DIR`` report), and the leader's analytic
+   collective seconds (``tpumlops_engine_collective_seconds``, NVLink
+   rate); last a one-rank ``nccl`` group's ``all_reduce`` in a process of
+   its own (a world of two or more NCCL ranks needs two cards).  The
+   phase's wall beside MESH_BUDGET_S.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.  Details, and the server
@@ -369,6 +399,7 @@ import dataclasses
 import faulthandler
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -6987,6 +7018,375 @@ def phase_serve_v2_flavors(device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: a served replica of four ranks ({"dp": 2, "tp": 2}) on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = {"dp": 2, "tp": 2}
+MESH_LAYERS = 2   # Llama-2-7B's widths cut to this depth (the smoke's time limit)
+MESH_NEW = 32     # greedy tokens a request
+MESH_CHUNK = 64   # prefill chunk, the prefix cache's reuse unit
+MESH_BUDGET_S = 100.0  # phase 8's share of SMOKE_LIMIT_S
+# A rank's peak allocation and its allocator's reserve over its HBM ledger
+# (the ledger counts the rank's blocks, cache rows and sampling state; the
+# slack is the activations, logits and allocator rounding beside them).
+MESH_PEAK_SLACK = 0.25
+MESH_RESERVED_SLACK = 0.35
+
+
+def _mesh_argv(art: Path, dtype: str, port: int, device: str) -> list[str]:
+    return ["--model-uri", str(art), "--dtype", dtype, "--host", "127.0.0.1",
+            "--port", str(port), "--metrics-port", "0", "--max-slots", "4",
+            "--prefill-chunk", str(MESH_CHUNK), "--prefix-cache", "1",
+            "--speculative", "1", "--speculative-draft-tokens", "4",
+            "--device-telemetry", "1", "--drain-s", "0", "--device", device]
+
+
+def _mesh_prompts(vocab: int) -> dict:
+    """The traffic: a warm-up request that puts a two-chunk prefix in the
+    radix cache, then a burst of five: two cold prompts, two that share
+    the cached prefix (each seeded from it), and one repeating pattern the
+    n-gram drafter proposes from (verify ticks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    ids = lambda n: [int(t) for t in rng.integers(3, vocab, n)]  # noqa: E731
+    shared = ids(2 * MESH_CHUNK)
+    pattern = ids(6)
+    return {"warm": shared + ids(20),
+            "burst": {"cold_a": ids(120), "cold_b": ids(90), "shared_a": shared + ids(25),
+                      "shared_b": shared + ids(9), "spec": pattern * 12}}
+
+
+def _mesh_traffic(url: str, prompts: dict, vocab: int) -> dict:
+    """The warm-up alone, then the burst concurrently; each request's
+    greedy tokens."""
+    gen = url + "/v2/models/model/generate"
+    out = {"warm": _check_outputs(_post(gen, {"prompt_ids": prompts["warm"],
+                                              "max_new_tokens": MESH_NEW}),
+                                  [MESH_NEW], vocab)[0]}
+    names = list(prompts["burst"])
+    with ThreadPoolExecutor(len(names)) as ex:
+        futs = {n: ex.submit(_post, gen, {"prompt_ids": prompts["burst"][n],
+                                          "max_new_tokens": MESH_NEW}) for n in names}
+        for n in names:
+            out[n] = _check_outputs(futs[n].result(timeout=600), [MESH_NEW], vocab)[0]
+    return out
+
+
+def _mesh_reference(app, loader, art: Path, dtype: str, prompts: dict, device: str):
+    """The same traffic through a tp-1, dp-1 engine in this process, on the
+    same artifact and options; returns (tokens by request, predictor)."""
+    import torch
+    from importlib import import_module
+
+    metrics_mod = import_module(f"{PKG}.server.metrics")
+    pred = loader.load_predictor(str(art), device=device, dtype=app._DTYPES[dtype])
+    conf = app.config_from_args(app.build_arg_parser().parse_args(
+        _mesh_argv(art, dtype, 0, device)))
+    engine = app.make_gen_engine(pred, conf, metrics_mod.ServerMetrics("smoke", "v1", "smoke"))
+    engine.start()
+    try:
+        out = {"warm": engine.generate(prompts["warm"], MESH_NEW, timeout=600).tolist()}
+        futs = {n: engine.submit(p, MESH_NEW) for n, p in prompts["burst"].items()}
+        out.update({n: f.result(timeout=600).tolist() for n, f in futs.items()})
+    finally:
+        engine.shutdown()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, pred
+
+
+def _top2_margin(llama, pred, prompt: list, toks: list, pos: int, device: str) -> float:
+    """The tp-1 model's margin between its top two logits where token
+    ``pos`` is drawn (teacher-forced on its own tokens, in f32)."""
+    import torch
+
+    lm = pred.causal_lm
+    ids = torch.tensor([list(prompt) + list(toks[:pos])], device=device)
+    logits, _ = llama.prefill(lm["params"], ids, lm["cfg"], torch.float32)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path) -> dict:
+    """Four rank processes started as the app starts them (the process
+    group from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID, ``--mesh-shape``), not waited for."""
+    world = math.prod(MESH_SHAPE.values())
+    coord = _free_port()
+    shutil.rmtree(report_dir, ignore_errors=True)
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONWARNINGS="ignore",
+                   OMP_NUM_THREADS="1", JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
+                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(rank),
+                   TPUMLOPS_RANK_REPORT_DIR=str(report_dir))
+        log_path = OUT_DIR / f"mesh_{tag}_rank{rank}.log"
+        logs.append(log_path)
+        with open(log_path, "w") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.server",
+                 *_mesh_argv(art, dtype, 0, device), "--mesh-shape", json.dumps(MESH_SHAPE)],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT))
+    return {"tag": tag, "procs": procs, "logs": logs, "report_dir": report_dir,
+            "t0": time.perf_counter()}
+
+
+def _await_unit(unit: dict) -> str:
+    """The leader's URL once it serves (every rank up: the leader serves
+    after the process group formed and its engine started)."""
+    procs, logs = unit["procs"], unit["logs"]
+    serving = re.compile(r"serving model \(llama-generate\) on 127\.0\.0\.1:(\d+)")
+    deadline = time.time() + 300
+    while True:
+        m = serving.search(logs[0].read_text())
+        if m:
+            unit["start_s"] = time.perf_counter() - unit["t0"]
+            return f"http://127.0.0.1:{m.group(1)}"
+        dead = [r for r, p in enumerate(procs) if p.poll() is not None]
+        if dead or time.time() > deadline:
+            _kill_unit(unit)
+            raise AssertionError(f"mesh {unit['tag']}: ranks {dead} exited before the leader "
+                                 f"served (or 300 s passed); see {logs[0]}")
+        time.sleep(0.2)
+
+
+def _kill_unit(unit: dict) -> None:
+    for p in unit["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _stop_units(units) -> None:
+    """SIGTERM to each leader: it drains, stops its engine and releases its
+    followers; every rank must exit 0."""
+    for unit in units:
+        unit["procs"][0].send_signal(signal.SIGTERM)
+    for unit in units:
+        codes = []
+        for p, log_path in zip(unit["procs"], unit["logs"]):
+            try:
+                codes.append(p.wait(timeout=120))
+            except subprocess.TimeoutExpired:
+                _kill_unit(unit)
+                raise AssertionError(f"rank did not exit within 120 s of the leader's SIGTERM; "
+                                     f"see {log_path}") from None
+        if codes != [0] * len(unit["procs"]):
+            raise AssertionError(f"mesh {unit['tag']}: rank exit codes {codes}; "
+                                 f"see {unit['logs']}")
+
+
+def _nccl_one_rank() -> subprocess.Popen:
+    """A one-rank nccl group and an all_reduce, in a process of its own
+    (the NCCL library loads and runs on the card); read with
+    :func:`_nccl_result`."""
+    code = (
+        "import json, torch, torch.distributed as dist\n"
+        f"dist.init_process_group('nccl', init_method='tcp://127.0.0.1:{_free_port()}', "
+        "world_size=1, rank=0)\n"
+        "x = torch.ones(1 << 20, device='cuda')\n"
+        "dist.all_reduce(x); torch.cuda.synchronize()\n"
+        "print(json.dumps({'ok': bool((x == 1).all()), 'nccl': '.'.join(map(str, "
+        "torch.cuda.nccl.version())), 'backend': dist.get_backend()}))\n"
+        "dist.destroy_process_group()\n")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONWARNINGS="ignore"))
+
+
+def _nccl_result(proc: subprocess.Popen) -> dict:
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("one-rank nccl all_reduce did not finish within 120 s") from None
+    line = (out.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not line.startswith("{"):
+        raise AssertionError(f"one-rank nccl all_reduce failed ({proc.returncode}): "
+                             f"{err[-2000:]}")
+    res = json.loads(line)
+    if not res["ok"]:
+        raise AssertionError(f"one-rank nccl all_reduce gave a wrong sum: {res}")
+    return res
+
+
+def _mesh_run(unit: dict, url: str, prompts: dict, vocab: int) -> dict:
+    """One served unit's traffic and the leader's analytic collective
+    seconds (the unit is stopped after, with the other)."""
+    try:
+        t1 = time.perf_counter()
+        toks = _mesh_traffic(url, prompts, vocab)
+        traffic_s = time.perf_counter() - t1
+        samples = _scrape(url)
+        coll = {op: _value(samples, "tpumlops_engine_collective_seconds_total", op=op)
+                for op in ("all_reduce", "all_gather")}
+    except BaseException:
+        _kill_unit(unit)
+        raise
+    return {"tokens": toks, "start_s": unit["start_s"], "traffic_s": traffic_s,
+            "collective_s_analytic": coll}
+
+
+def _mesh_reports(unit: dict, run: dict) -> None:
+    """After the stop: the backend from the leader's log, each rank's report."""
+    backend = re.search(r"model collectives over (\w+)", unit["logs"][0].read_text())
+    run["backend"] = backend.group(1) if backend else None
+    run["reports"] = [json.loads((unit["report_dir"] / f"rank-{r}.json").read_text())
+                      for r in range(len(unit["procs"]))]
+
+
+def _rank_lines(tag: str, run: dict, smi: str) -> None:
+    """Per rank: its decode and verify tick walls, its measured collective
+    host seconds, its HBM ledger against the allocator (allocated, peak
+    allocated and reserved), its launches."""
+    for rep in run["reports"]:
+        ops = rep["ops"]
+        walls = {k: (f"{1e3 * ops[k]['seconds'] / ops[k]['count']:.2f} ms mean, "
+                     f"{1e3 * ops[k]['max_s']:.2f} max x{ops[k]['count']}")
+                 for k in ("gen_step", "gen_verify", "gen_chunk") if k in ops}
+        coll = {k: f"{v['seconds']:.3f} s/{v['calls']}" for k, v in rep["collectives"].items()}
+        led = rep.get("ledger", {})
+        alloc = rep.get("memory_allocated")
+        pct = (f" ({100.0 * (led['total'] - alloc) / alloc:+.1f}% vs allocated "
+               f"{alloc / 2**30:.3f} GiB; peak {rep['max_memory_allocated'] / 2**30:.3f} GiB, "
+               f"reserved {rep['memory_reserved'] / 2**30:.3f} GiB)" if alloc else "")
+        log(f"mesh {tag} rank {rep['rank']} {rep['mesh']['coords']}: ticks {walls}; "
+            f"collectives {coll}; ledger {led.get('total', 0) / 2**30:.3f} GiB{pct}; "
+            f"launches {rep['launches']} [{smi}]")
+
+
+def _check_rank_memory(tag: str, run: dict) -> None:
+    """Each rank's peak allocation and reserve against its HBM ledger: a
+    rank that loaded the whole model before cutting its block (or kept
+    full-size blocks reserved) exceeds it by the model's size."""
+    for rep in run["reports"]:
+        total = rep["ledger"]["total"]
+        for key, slack in (("max_memory_allocated", MESH_PEAK_SLACK),
+                           ("memory_reserved", MESH_RESERVED_SLACK)):
+            if rep[key] > total * (1.0 + slack):
+                raise AssertionError(
+                    f"mesh {tag} rank {rep['rank']}: {key} {rep[key]} B exceeds its HBM "
+                    f"ledger {total} B by more than {100 * slack:.0f}%")
+
+
+def phase_serve_mesh(smi: str, device: str = "cuda") -> dict:
+    """A served replica at ``--mesh-shape {"dp": 2, "tp": 2}``: four rank
+    processes on the one card (gloo), Llama-2-7B's widths at MESH_LAYERS
+    layers, from a bf16 native artifact drawn from a seed; its greedy
+    tokens at f32 against a tp-1 engine in this process (equal), then at
+    bf16 (agreement reported); the backend, the ranks' tick walls, HBM
+    ledgers, collective seconds and launches; a one-rank nccl group.  For
+    the time limit the f32 and bf16 units boot side by side while this
+    process runs the tp-1 references, then serve their traffic in turns
+    (the other unit idle in its control channel)."""
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    distributed = import_module(f"{PKG}.parallel.distributed")
+    cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    want_backend = distributed.choose_backend(math.prod(MESH_SHAPE.values()), device)
+    out: dict = {"mesh": MESH_SHAPE, "layers": MESH_LAYERS, "backend_expected": want_backend,
+                 "cut": f"depth {cfg.num_layers} of Llama-2-7B's 32 layers (time limit); "
+                        "widths whole"}
+    scratch = ROOT / "build" / "smoke_mesh"  # ignored by git, deleted after
+    shutil.rmtree(scratch, ignore_errors=True)
+    units: list = []
+    nccl = None
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(18)
+        params = llama.init(gen, cfg, dtype=torch.bfloat16, device=device)
+        art = loader.save_native_model(scratch / f"llama2-7b-{MESH_LAYERS}l", "llama-generate",
+                                       params, config=dataclasses.asdict(cfg))
+        del params
+        out["artifact_s"] = time.perf_counter() - t0
+        out["artifact_gib"] = (art / "params.npz").stat().st_size / 2**30
+        prompts = _mesh_prompts(cfg.vocab_size)
+        dtypes = ("float32", "bfloat16")
+        if device == "cuda":
+            nccl = _nccl_one_rank()
+        units = [_launch_unit(art, dt, device, dt, OUT_DIR / f"mesh_{dt}_reports")
+                 for dt in dtypes]
+        refs, preds, ref_s = {}, {}, {}
+        for dt in dtypes:  # while the units boot
+            t1 = time.perf_counter()
+            refs[dt], preds[dt] = _mesh_reference(app, loader, art, dt, prompts, device)
+            ref_s[dt] = time.perf_counter() - t1
+        urls = [_await_unit(u) for u in units]
+        runs = {dt: _mesh_run(u, url, prompts, cfg.vocab_size)
+                for dt, u, url in zip(dtypes, units, urls)}
+        _stop_units(units)
+        for dt, u in zip(dtypes, units):
+            _mesh_reports(u, runs[dt])
+        for dt in dtypes:
+            run, ref = runs[dt], refs[dt]
+            run["reference_s"] = ref_s[dt]
+            names = list(ref)
+            same = {n: run["tokens"][n] == ref[n] for n in names}
+            agree = sum(a == b for n in names for a, b in zip(run["tokens"][n], ref[n]))
+            run["agreement"] = agree / sum(len(ref[n]) for n in names)
+            if dt == "float32":
+                for n in names:
+                    if not same[n]:
+                        pos = next(i for i, (a, b) in enumerate(zip(run["tokens"][n], ref[n]))
+                                   if a != b)
+                        prompt = prompts["warm"] if n == "warm" else prompts["burst"][n]
+                        margin = _top2_margin(llama, preds[dt], prompt, ref[n], pos, device)
+                        log(f"mesh f32: {n} differs at token {pos} (tp-1 top-2 margin "
+                            f"{margin:.3g})")
+                if not all(same.values()):
+                    raise AssertionError(f"mesh f32 tokens differ from the tp-1 engine's: {same}")
+            if run["backend"] != want_backend:
+                raise AssertionError(f"mesh {dt}: ranks used {run['backend']}, "
+                                     f"expected {want_backend}")
+            launches = [rep["launches"] for rep in run["reports"]]
+            if any(la != launches[0] for la in launches):
+                raise AssertionError(f"mesh {dt}: the ranks' launches differ: {launches}")
+            if device == "cuda":
+                for k in ("decode_attention", "verify_attention", "rmsnorm", "flash_attention"):
+                    if launches[0][k] <= 0:
+                        raise AssertionError(f"mesh {dt}: no {k} launch on the ranks")
+                _check_rank_memory(dt, run)
+            ops = run["reports"][0]["ops"]
+            for k in ("gen_seed", "gen_verify", "gen_step"):
+                if k not in ops:
+                    raise AssertionError(f"mesh {dt}: no {k} op ran: {sorted(ops)}")
+            log(f"mesh {dt}: backend {run['backend']}, {len(names)} requests x {MESH_NEW} "
+                f"tokens, agreement with the tp-1 engine {run['agreement']:.3f}; boot "
+                f"{run['start_s']:.1f} s (both units side by side), traffic "
+                f"{run['traffic_s']:.1f} s, tp-1 reference {ref_s[dt]:.1f} s; analytic NVLink "
+                f"collective s {run['collective_s_analytic']}")
+            _rank_lines(dt, run, smi)
+        del preds
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["runs"] = runs
+        if nccl is not None:
+            out["nccl_one_rank"] = _nccl_result(nccl)
+            nccl = None
+            log(f"mesh: one-rank nccl all_reduce ok (NCCL {out['nccl_one_rank']['nccl']}); "
+                "a world of two or more nccl ranks waits for a machine with two cards")
+    finally:
+        for u in units:
+            _kill_unit(u)
+        if nccl is not None:
+            nccl.kill()
+            nccl.communicate()
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8 wall {out['wall_s']:.1f} s (budget {MESH_BUDGET_S:.0f} s; artifact "
+        f"{out['artifact_s']:.1f} s, {out['artifact_gib']:.2f} GiB); {out['cut']}; {smi}")
+    DETAIL["serve_mesh"] = out
+    return out
+
 def main() -> int:
     import torch
 
@@ -7015,6 +7415,10 @@ def main() -> int:
     for m in pkgutil.walk_packages(pkg.__path__, PKG + "."):
         if not m.name.endswith("__main__"):
             import_module(m.name)
+    for name in ("parallel.mesh", "parallel.sharding", "parallel.collectives",
+                 "parallel.distributed", "models.partition", "server.multihost"):
+        if f"{PKG}.{name}" not in sys.modules:
+            raise AssertionError(f"the import check missed {PKG}.{name}")
     pulled = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tpumlops", JAX_PKG))
     if pulled:
         raise AssertionError(f"the port pulled in {pulled[:5]}")
@@ -7092,6 +7496,8 @@ def main() -> int:
     bert = phase_serve_bert(fa)
     stage("7 v2 flavors")
     phase_serve_v2_flavors()
+    stage("8 mesh")
+    phase_serve_mesh(smi)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
     # jax itself may arrive with torch.profiler's own imports where it is

@@ -34,6 +34,18 @@ one forward through the verify chunk kernel with a live count a row, then
 the decode rows' K - 1 further steps).  The int8 position-major cache of
 ``_block`` (no engine caller, here or in the JAX package) keeps the
 reference's einsum chain.
+
+Every entry takes ``mesh`` (a ``parallel.ServingMesh``), or None for one
+device, which is the code path above unchanged.  On a mesh the parameters
+and the KV cache are this rank's blocks (``models/partition.py``, the
+Megatron split) and the collectives the reference's XLA inserts are
+explicit: a tp ``psum`` after the o and down projections (the int8 scale of
+o/down factors out of the sum) and after the vocab-split embedding lookup,
+an all-gather of the vocab-split ``lm_head`` columns, so the logits are
+whole on every rank, and under dp a rank runs its block of cache rows and
+the rows' logits are gathered.  The kernels take the rank's heads as they
+are: decode attention at NKV/tp heads, flash at H/tp, RMSNorm on the full
+(replicated) residual.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from ..ops.decode_attention import (
     verify_attention_dense,
 )
 from ..ops.flash_attention import flash_attention, flash_attention_ragged
+from ..parallel.collectives import all_gather_concat, psum
 from .common import matmul_f32, rms_norm
 from .quantization import is_quantized, quantize_tensor
 
@@ -80,6 +93,79 @@ def _qmatmul(x: torch.Tensor, w) -> torch.Tensor:
         y = matmul_f32(x, w["q8"].to(x.dtype))
         return y * w["scale"].to(torch.float32)
     return matmul_f32(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The sharded forward: a rank's block and the collectives XLA inserts in the
+# reference (``models/partition.py``'s rule table)
+# ---------------------------------------------------------------------------
+
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def _heads(cfg: "LlamaConfig", mesh) -> tuple[int, int, int]:
+    """This rank's (query heads, KV heads, head dim): the heads split over tp."""
+    tp = _tp(mesh)
+    return cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
+
+
+def _dp_rows(mesh, batch: int) -> slice | None:
+    """This rank's block of the ``batch`` cache rows under dp > 1 (None:
+    every row is this rank's)."""
+    if mesh is None or mesh.dp == 1:
+        return None
+    n = batch // mesh.dp
+    lo = mesh.index("dp") * n
+    return slice(lo, lo + n)
+
+
+def _rows(t, rows: slice | None):
+    return t if rows is None or t is None else t[rows]
+
+
+def _dp_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every dp shard's rows of ``t``, concatenated in row order."""
+    if mesh is None or mesh.dp == 1:
+        return t
+    return all_gather_concat(t, mesh.group("dp"), axis=0)
+
+
+def _embed(params: dict, ids: torch.Tensor, dtype, mesh) -> torch.Tensor:
+    """The embedding lookup; at tp > 1 each rank holds a block of vocab
+    rows: ids outside it read zeros, and the tp psum adds the one rank's
+    row to zeros (exact)."""
+    table = params["embed"]
+    if _tp(mesh) == 1:
+        return table[ids].to(dtype)
+    rows = table.shape[0]
+    local = ids - mesh.index("tp") * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return psum(x, mesh.group("tp")).to(dtype)
+
+
+def _qmatmul_rows(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """The o/down projection, split on its INPUT axis at tp > 1: each rank's
+    f32 partial product, summed over tp; the int8 scale (per output
+    channel, replicated) multiplies the sum."""
+    if _tp(mesh) == 1:
+        return _qmatmul(x, w)
+    g = mesh.group("tp")
+    if is_quantized(w):
+        return psum(matmul_f32(x, w["q8"].to(x.dtype)), g) * w["scale"].to(torch.float32)
+    return psum(matmul_f32(x, w.to(x.dtype)), g)
+
+
+def _lm_head(params: dict, x: torch.Tensor, mesh) -> torch.Tensor:
+    """f32 logits over the whole vocab: at tp > 1 each rank's vocab columns,
+    all-gathered, so sampling sees the replicated logits."""
+    logits = _qmatmul(x, params["lm_head"])
+    if _tp(mesh) == 1:
+        return logits
+    return all_gather_concat(logits, mesh.group("tp"), axis=-1)
 
 
 @dataclass(frozen=True)
@@ -138,8 +224,10 @@ class KVCache(NamedTuple):
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
-               device=None) -> "KVCache":
-        shape = (cfg.num_layers, batch, cfg.max_seq, cfg.num_kv_heads, cfg.head_dim)
+               device=None, mesh=None) -> "KVCache":
+        """``mesh``: this rank's heads (tp), every row (the scratch is
+        replicated over dp)."""
+        shape = (cfg.num_layers, batch, cfg.max_seq, _heads(cfg, mesh)[1], cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -149,7 +237,8 @@ class KVCache(NamedTuple):
 
 class RaggedKVCache(NamedTuple):
     """Multi-slot cache with per-row lengths, head-major:
-    k/v ``[L, B, NKV, T, D]``, lengths int32 ``[B]``."""
+    k/v ``[L, B, NKV, T, D]``, lengths int32 ``[B]``.  On a mesh a rank
+    holds ``[L, B/dp, NKV/tp, T, D]`` and every row's length."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -157,8 +246,8 @@ class RaggedKVCache(NamedTuple):
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
-               device=None) -> "RaggedKVCache":
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq, cfg.head_dim)
+               device=None, mesh=None) -> "RaggedKVCache":
+        shape = _ragged_shape(cfg, batch, mesh)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -179,8 +268,8 @@ class QuantRaggedKVCache(NamedTuple):
     lengths: torch.Tensor
 
     @classmethod
-    def create(cls, cfg: LlamaConfig, batch: int, device=None) -> "QuantRaggedKVCache":
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq, cfg.head_dim)
+    def create(cls, cfg: LlamaConfig, batch: int, device=None, mesh=None) -> "QuantRaggedKVCache":
+        shape = _ragged_shape(cfg, batch, mesh)
         sshape = shape[:-1] + (1,)
         return cls(
             k8=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -189,6 +278,12 @@ class QuantRaggedKVCache(NamedTuple):
             v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
+
+
+def _ragged_shape(cfg: LlamaConfig, batch: int, mesh) -> tuple[int, ...]:
+    rows = _dp_rows(mesh, batch)
+    b = batch if rows is None else rows.stop - rows.start
+    return (cfg.num_layers, b, _heads(cfg, mesh)[1], cfg.max_seq, cfg.head_dim)
 
 
 def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -311,18 +406,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def _mlp(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: dict, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     xn = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     gate = _qmatmul(xn, lp["gate"])
     up = _qmatmul(xn, lp["up"])
     act = F.silu(gate) * up
-    down = _qmatmul(act.to(x.dtype), lp["down"]).to(x.dtype)
+    down = _qmatmul_rows(act.to(x.dtype), lp["down"], mesh).to(x.dtype)
     return x + down
 
 
-def _qkv(x: torch.Tensor, lp: dict, cos, sin, cfg: LlamaConfig):
+def _qkv(x: torch.Tensor, lp: dict, cos, sin, cfg: LlamaConfig, mesh=None):
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nh, nkv, hd = _heads(cfg, mesh)
     xn = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q = _qmatmul(xn, lp["q"]).to(x.dtype).reshape(b, s, nh, hd)
     k = _qmatmul(xn, lp["k"]).to(x.dtype).reshape(b, s, nkv, hd)
@@ -341,6 +436,7 @@ def _block(
     mask_bias: torch.Tensor | None,
     cfg: LlamaConfig,
     window: int | None = None,
+    mesh=None,
 ):
     """One decoder layer over a fixed-capacity cache (prefill and chunked
     prefill).  x: [B,S,H]; cache_k/v: [B,T,NKV,D] views of the layer's
@@ -359,8 +455,8 @@ def _block(
     ``mask_bias``'s key axis is window-sized.  Returns (y, cache_k,
     cache_v)."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    nh, nkv, hd = _heads(cfg, mesh)
+    q, k, v = _qkv(x, lp, cos, sin, cfg, mesh)
 
     if not isinstance(cache_k, tuple):
         cache_k[:, start:start + s] = k.to(cache_k.dtype)
@@ -372,8 +468,8 @@ def _block(
         out = flash_attention(q.transpose(1, 2), kk, vv, causal=True, kv_len=start + s,
                               scale=1.0 / math.sqrt(hd), q_offset=start)
         ctx = out.transpose(1, 2).reshape(b, s, nh * hd)
-        x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
-        return _mlp(x, lp, cfg), cache_k, cache_v
+        x = x + _qmatmul_rows(ctx, lp["o"], mesh).to(x.dtype)
+        return _mlp(x, lp, cfg, mesh), cache_k, cache_v
 
     k8, ks = cache_k
     v8, vs = cache_v
@@ -399,8 +495,8 @@ def _block(
     probs = (probs * vscale).to(x.dtype)
     ctx = torch.einsum("bngqk,bknd->bqngd", probs, v8.to(x.dtype))
     ctx = ctx.reshape(b, s, nh * hd)
-    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
-    return _mlp(x, lp, cfg), cache_k, cache_v
+    x = x + _qmatmul_rows(ctx, lp["o"], mesh).to(x.dtype)
+    return _mlp(x, lp, cfg, mesh), cache_k, cache_v
 
 
 def _block_decode_deferred(
@@ -413,6 +509,7 @@ def _block_decode_deferred(
     mask_bias: torch.Tensor,
     cfg: LlamaConfig,
     window: int,
+    mesh=None,
 ):
     """One decoder layer for single-token ragged decode with the cache
     READ-ONLY: returns ``(y, k_new, v_new)``; :func:`decode_ragged`
@@ -424,8 +521,8 @@ def _block_decode_deferred(
     over the bf16 one (their plain versions on the CPU; the dense one is
     the reference's chain)."""
     b, s, _ = x.shape  # s == 1
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    nh, nkv, hd = _heads(cfg, mesh)
+    q, k, v = _qkv(x, lp, cos, sin, cfg, mesh)
     group = nh // nkv
     qg = q.reshape(b, s, nkv, group, hd)
     k_self = k[:, 0][:, :, None, :]                     # [B, NKV, 1, D]
@@ -453,8 +550,8 @@ def _block_decode_deferred(
             mask_bias[:, 0],
         )
     ctx = ctx4[:, None].to(x.dtype).reshape(b, s, nh * hd)
-    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
-    return _mlp(x, lp, cfg), k, v
+    x = x + _qmatmul_rows(ctx, lp["o"], mesh).to(x.dtype)
+    return _mlp(x, lp, cfg, mesh), k, v
 
 
 def forward(
@@ -463,10 +560,14 @@ def forward(
     cache: KVCache,
     cfg: LlamaConfig,
     dtype=torch.bfloat16,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run ``input_ids`` [B,S] from ``cache.length`` (prefill, S = prompt;
     decode, S = 1).  Writes the cache in place.  Returns (logits
-    [B,S,vocab] float32, cache).
+    [B,S,vocab] float32, cache).  ``mesh`` (a ``parallel.ServingMesh``, or
+    None for one device): the parameters and the cache are this rank's
+    blocks (``models/partition.py``), every rank runs every row (the
+    scratch is replicated over dp) and the logits are whole.
 
     Attention reads only positions [0, start+S): the reference attends
     the whole buffer under a mask whose later columns are -1e9, whose
@@ -486,7 +587,7 @@ def forward(
             f"max_seq={cfg.max_seq}"
         )
     device = input_ids.device
-    x = params["embed"][input_ids].to(dtype)
+    x = _embed(params, input_ids, dtype, mesh)
     positions = start + torch.arange(s, device=device)
     cos, sin = rope_cos_sin(positions, cfg)
     window = start + s
@@ -500,20 +601,20 @@ def forward(
         ck = cache.k[l] if not isinstance(cache.k, tuple) else tuple(t[l] for t in cache.k)
         cv = cache.v[l] if not isinstance(cache.v, tuple) else tuple(t[l] for t in cache.v)
         x, _, _ = _block(x, _layer(params["layers"], l), ck, cv, start, cos, sin,
-                         mask_bias, cfg, window=window)
+                         mask_bias, cfg, window=window, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _qmatmul(x, params["lm_head"])
+    logits = _lm_head(params, x, mesh)
     return logits, KVCache(cache.k, cache.v, start + s)
 
 
-def prefill(params, input_ids, cfg, dtype=torch.bfloat16):
-    cache = KVCache.create(cfg, input_ids.shape[0], dtype, input_ids.device)
-    return forward(params, input_ids, cache, cfg, dtype)
+def prefill(params, input_ids, cfg, dtype=torch.bfloat16, mesh=None):
+    cache = KVCache.create(cfg, input_ids.shape[0], dtype, input_ids.device, mesh)
+    return forward(params, input_ids, cache, cfg, dtype, mesh)
 
 
-def decode_step(params, token_ids, cache, cfg, dtype=torch.bfloat16):
+def decode_step(params, token_ids, cache, cfg, dtype=torch.bfloat16, mesh=None):
     """One greedy decode step: token_ids [B,1] -> (logits [B,1,V], cache)."""
-    return forward(params, token_ids, cache, cfg, dtype)
+    return forward(params, token_ids, cache, cfg, dtype, mesh)
 
 
 def generate_greedy(
@@ -522,6 +623,7 @@ def generate_greedy(
     num_new_tokens: int,
     cfg: LlamaConfig,
     dtype=torch.bfloat16,
+    mesh=None,
 ) -> torch.Tensor:
     """Greedy generation: prefill, then ``num_new_tokens`` decode steps
     (the first new token comes from the prefill).  Returns [B, new]."""
@@ -531,12 +633,12 @@ def generate_greedy(
             f"prompt ({prompt_ids.shape[1]}) + new tokens ({num_new_tokens}) "
             f"= {total} exceeds KV-cache capacity max_seq={cfg.max_seq}"
         )
-    logits, cache = prefill(params, prompt_ids, cfg, dtype)
+    logits, cache = prefill(params, prompt_ids, cfg, dtype, mesh)
     tok = torch.argmax(logits[:, -1:, :], dim=-1)
     out = []
     for _ in range(num_new_tokens):
         out.append(tok)
-        logits, cache = decode_step(params, tok, cache, cfg, dtype)
+        logits, cache = decode_step(params, tok, cache, cfg, dtype, mesh)
         tok = torch.argmax(logits[:, -1:, :], dim=-1)
     return torch.cat(out, dim=1)
 
@@ -554,6 +656,7 @@ def decode_ragged(
     active: torch.Tensor | None = None,
     dtype=torch.bfloat16,
     window: int | None = None,
+    mesh=None,
 ):
     """One decode step where every batch row is at its OWN position.
 
@@ -564,13 +667,15 @@ def decode_ragged(
     row computes but writes nothing.  ``window`` bounds the attended
     prefix (a bucket above every active row's position).  The cache is
     updated in place.  Returns (logits ``[B, 1, vocab]`` f32, cache with
-    advanced lengths)."""
+    advanced lengths).  Under dp > 1 (``mesh``) a rank runs its block of
+    rows over its cache rows, and the logits of every row are gathered."""
     b, s = token_ids.shape
     if s != 1:
         raise ValueError(f"decode_ragged is single-token: got chunk of {s}")
     quant = isinstance(cache, QuantRaggedKVCache)
-    lengths = cache.lengths
-    x = params["embed"][token_ids].to(dtype)
+    rows = _dp_rows(mesh, b)
+    lengths = _rows(cache.lengths, rows)
+    x = _embed(params, _rows(token_ids, rows), dtype, mesh)
     positions = lengths[:, None]
     cos, sin = rope_cos_sin(positions, cfg)  # [B, 1, D]
 
@@ -589,14 +694,19 @@ def decode_ragged(
             ck, cv = cache.k[l], cache.v[l]
         x, k_new, v_new = _block_decode_deferred(
             x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg,
-            window=window,
+            window=window, mesh=mesh,
         )
         k_news.append(k_new[:, 0])
         v_news.append(v_new[:, 0])
-    return _finish_decode(
+    logits = _finish_decode(
         params, x, torch.stack(k_news), torch.stack(v_news), cache, lengths,
-        active, quant, cfg,
+        _rows(active, rows), quant, cfg, mesh,
     )
+    if active is None:
+        advance = torch.ones((b,), dtype=torch.int32, device=cache.lengths.device)
+    else:
+        advance = active.to(torch.int32)
+    return _dp_gather(logits, mesh), cache._replace(lengths=cache.lengths + advance)
 
 
 def decode_multistep(
@@ -612,6 +722,7 @@ def decode_multistep(
     sample_carry=None,
     dtype=torch.bfloat16,
     window: int | None = None,
+    mesh=None,
 ):
     """``steps`` (K) decode iterations chained on the device: the
     reference's ``lax.scan`` is a Python loop over :func:`decode_ragged`,
@@ -641,7 +752,7 @@ def decode_multistep(
     tok_seq, emit_seq = [], []
     for _ in range(int(steps)):
         logits, cache = decode_ragged(params, toks, cache, cfg, active=act, dtype=dtype,
-                                      window=window)
+                                      window=window, mesh=mesh)
         carry, nxt = sample_fn(logits[:, -1, :], carry)
         nxt = torch.where(act, nxt.to(toks.dtype), toks[:, 0])
         emit_seq.append(act)
@@ -654,17 +765,15 @@ def decode_multistep(
     return tok_block, valid, toks, cache, act, rem, carry
 
 
-def _finish_decode(params, x, k_news, v_news, cache, lengths, active, quant, cfg):
-    """Shared decode tail: final norm, lm_head, and the cache commit of
-    every layer's new row ``[L, B, NKV, D]``."""
-    b = x.shape[0]
+def _finish_decode(params, x, k_news, v_news, cache, lengths, active, quant, cfg, mesh=None):
+    """Shared decode tail: final norm, lm_head, and the in-place cache
+    commit of every layer's new row ``[L, B, NKV, D]`` at ``lengths`` (this
+    rank's rows, and ``active`` with them).  Returns the logits."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _qmatmul(x, params["lm_head"])
+    logits = _lm_head(params, x, mesh)
     if active is None:
-        advance = torch.ones((b,), dtype=torch.int32, device=lengths.device)
         write_pos = lengths
     else:
-        advance = active.to(torch.int32)
         # Inactive rows write NOTHING: parked at capacity, dropped below.
         capacity = (cache.k8 if quant else cache.k).shape[3]
         write_pos = torch.where(active, lengths, torch.full_like(lengths, capacity))
@@ -675,10 +784,10 @@ def _finish_decode(params, x, k_news, v_news, cache, lengths, active, quant, cfg
         _commit_rows(cache.k_scale, kqs, write_pos)
         _commit_rows(cache.v8, vq, write_pos)
         _commit_rows(cache.v_scale, vqs, write_pos)
-        return logits, cache._replace(lengths=lengths + advance)
+        return logits
     _commit_rows(cache.k, k_news.to(cache.k.dtype), write_pos)
     _commit_rows(cache.v, v_news.to(cache.v.dtype), write_pos)
-    return logits, cache._replace(lengths=lengths + advance)
+    return logits
 
 
 def _commit_rows(buf: torch.Tensor, vals: torch.Tensor, lengths: torch.Tensor) -> None:
@@ -706,6 +815,7 @@ def insert_sequence(
     seq: KVCache,
     slot: int,
     length: int,
+    mesh=None,
 ):
     """Install a prefilled single-sequence cache into batch row ``slot``.
 
@@ -718,10 +828,16 @@ def insert_sequence(
     and are never attended before decode overwrites them (the decode mask
     is strict), so copying the prefix alone gives the same tokens at a
     fraction of the work on a 4096-position cache.  Returns the cache with
-    row ``slot``'s length set."""
+    row ``slot``'s length set.  Under dp > 1 only the rank whose block holds
+    ``slot`` writes its K/V; every rank sets the length."""
     slot = int(slot)
     lengths = cache.lengths.clone()
     lengths[slot] = int(length)
+    rows = _dp_rows(mesh, lengths.shape[0])
+    if rows is not None:
+        if not rows.start <= slot < rows.stop:
+            return cache._replace(lengths=lengths)
+        slot -= rows.start
     tp = min(int(seq.length), seq.k.shape[2])
     # position-major [L, 1, Tp, NKV, D] -> head-major [L, 1, NKV, Tp, D]
     seq_k = seq.k[:, :, :tp].transpose(2, 3)
@@ -755,6 +871,7 @@ def _block_verify_deferred(
     cfg: LlamaConfig,
     window: int,
     counts: torch.Tensor | None = None,
+    mesh=None,
 ):
     """One decoder layer for multi-token ragged verify with the cache
     READ-ONLY: ``x`` is ``[B, S, H]``, row ``i``'s S tokens at positions
@@ -776,8 +893,8 @@ def _block_verify_deferred(
     row) parks the attention of each row's columns at and past its count:
     their outputs are zeros, which nothing downstream reads."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    nh, nkv, hd = _heads(cfg, mesh)
+    q, k, v = _qkv(x, lp, cos, sin, cfg, mesh)
     group = nh // nkv
     # Query rows r = j * G + g of each (slot, kv head): [B, NKV, S*G, D].
     rows = q.reshape(b, s, nkv, group, hd).transpose(1, 2).reshape(b, nkv, s * group, hd)
@@ -802,8 +919,8 @@ def _block_verify_deferred(
         )
     ctx = (ctx4.to(x.dtype).reshape(b, nkv, s, group, hd).transpose(1, 2)
            .reshape(b, s, nh * hd))
-    x = x + _qmatmul(ctx, lp["o"]).to(x.dtype)
-    return _mlp(x, lp, cfg), k, v, kv8
+    x = x + _qmatmul_rows(ctx, lp["o"], mesh).to(x.dtype)
+    return _mlp(x, lp, cfg, mesh), k, v, kv8
 
 
 def verify_ragged(
@@ -814,6 +931,7 @@ def verify_ragged(
     dtype=torch.bfloat16,
     window: int | None = None,
     active: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Score S tokens a slot in ONE forward (self-speculative verify).
 
@@ -824,11 +942,13 @@ def verify_ragged(
     advances each row by its accepted count + 1, which is the rollback of
     rejected writes (positions at or past a row's length are never
     attended before they are overwritten).  ``active`` (bool ``[B]``)
-    parks inactive rows' writes (:func:`_commit_chunk`)."""
+    parks inactive rows' writes (:func:`_commit_chunk`).  Under dp > 1 a
+    rank runs and commits its block of rows; the logits are gathered."""
     b, s = token_ids.shape
     quant = isinstance(cache, QuantRaggedKVCache)
-    lengths = cache.lengths
-    x = params["embed"][token_ids].to(dtype)
+    rows = _dp_rows(mesh, b)
+    lengths = _rows(cache.lengths, rows)
+    x = _embed(params, _rows(token_ids, rows), dtype, mesh)
     positions = lengths[:, None] + torch.arange(s, device=lengths.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg)              # [B, S, D]
 
@@ -850,18 +970,20 @@ def verify_ragged(
             ck, cv = cache.k[l], cache.v[l]
         x, k_new, v_new, kv8 = _block_verify_deferred(
             x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg, window=window,
+            mesh=mesh,
         )
         k_news.append(k_new)
         v_news.append(v_new)
         kv8s.append(kv8)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _qmatmul(x, params["lm_head"])
+    logits = _lm_head(params, x, mesh)
+    active = _rows(active, rows)
     if quant:
         k8, ks, v8, vs = (torch.stack(t) for t in zip(*kv8s))
         _commit_chunk(cache, (k8, ks), (v8, vs), lengths, quant, active)
     else:
         _commit_chunk(cache, torch.stack(k_news), torch.stack(v_news), lengths, quant, active)
-    return logits, cache
+    return _dp_gather(logits, mesh), cache
 
 
 def _commit_chunk(cache, k_news, v_news, lengths, quant, active=None) -> None:
@@ -944,6 +1066,7 @@ def _block_prefill_ragged(
     cos: torch.Tensor,
     sin: torch.Tensor,
     cfg: LlamaConfig,
+    mesh=None,
 ):
     """One decoder layer of a packed prefill with the cache READ-ONLY:
     ``x`` ``[B_p, C, H]``, row ``b``'s chunk at positions ``offsets[b] ..
@@ -958,8 +1081,8 @@ def _block_prefill_ragged(
     softmax, the attention lines of the reference's
     ``_block_verify_deferred`` with a per-row cache-row indirection."""
     b, s, _ = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _qkv(x, lp, cos, sin, cfg)
+    nh, _, hd = _heads(cfg, mesh)
+    q, k, v = _qkv(x, lp, cos, sin, cfg, mesh)
     if isinstance(cache_k, tuple):
         k8, ks = cache_k
         v8, vs = cache_v
@@ -968,8 +1091,8 @@ def _block_prefill_ragged(
     else:
         kv8 = None
         ctx = flash_attention_ragged(q, cache_k, cache_v, slots, offsets, k, v)
-    x = x + _qmatmul(ctx.to(x.dtype).reshape(b, s, nh * hd), lp["o"]).to(x.dtype)
-    return _mlp(x, lp, cfg), k, v, kv8
+    x = x + _qmatmul_rows(ctx.to(x.dtype).reshape(b, s, nh * hd), lp["o"], mesh).to(x.dtype)
+    return _mlp(x, lp, cfg, mesh), k, v, kv8
 
 
 def prefill_chunks_ragged(
@@ -980,6 +1103,7 @@ def prefill_chunks_ragged(
     offsets: torch.Tensor,
     cfg: LlamaConfig,
     dtype=torch.bfloat16,
+    mesh=None,
 ):
     """Packed multi-admission prefill: one forward for ``B_p`` sequences'
     next prompt chunks under ONE weight stream.
@@ -995,10 +1119,36 @@ def prefill_chunks_ragged(
     Returns ``(logits [B_p, C, vocab] f32, cache)`` with each real row's
     chunk K/V committed in place at ``(slots[b], offsets[b] + j)`` after the
     layer loop and ``lengths`` UNCHANGED: the engine sets a slot's length
-    when its last chunk lands."""
+    when its last chunk lands.
+
+    Under dp > 1 each packed row belongs to the dp shard that holds its
+    cache row: a rank runs only its own rows (the ranks of one tp group
+    share a shard, so they run the same rows), and each row's logits reach
+    every rank through a dp psum of the owner's rows and zeros elsewhere
+    (exact)."""
+    rows = _dp_rows(mesh, cache.lengths.shape[0])
+    if rows is not None:
+        slot_list = slots.tolist()
+        own = [i for i, sl in enumerate(slot_list) if rows.start <= sl < rows.stop]
+        b, s = token_ids.shape
+        logits = torch.zeros((b, s, cfg.vocab_size), dtype=torch.float32,
+                             device=token_ids.device)
+        if own:
+            idx = torch.as_tensor(own, device=token_ids.device)
+            part, cache = _prefill_chunks_local(params, token_ids[idx], cache,
+                                                slots[idx] - rows.start, offsets[idx], cfg,
+                                                dtype, mesh)
+            logits[idx] = part
+        return psum(logits, mesh.group("dp")), cache
+    return _prefill_chunks_local(params, token_ids, cache, slots, offsets, cfg, dtype, mesh)
+
+
+def _prefill_chunks_local(params, token_ids, cache, slots, offsets, cfg, dtype, mesh):
+    """:func:`prefill_chunks_ragged` over this rank's cache rows (``slots``
+    index them)."""
     b, s = token_ids.shape
     quant = isinstance(cache, QuantRaggedKVCache)
-    x = params["embed"][token_ids].to(dtype)
+    x = _embed(params, token_ids, dtype, mesh)
     positions = offsets.to(torch.int64)[:, None] + torch.arange(s, device=offsets.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg)              # [B_p, C, D]
 
@@ -1010,11 +1160,11 @@ def prefill_chunks_ragged(
         else:
             ck, cv = cache.k[l], cache.v[l]
         x, k_new, v_new, kv8 = _block_prefill_ragged(
-            x, _layer(params["layers"], l), ck, cv, slots, offsets, cos, sin, cfg,
+            x, _layer(params["layers"], l), ck, cv, slots, offsets, cos, sin, cfg, mesh,
         )
         news.append(kv8 if quant else (k_new, v_new))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _qmatmul(x, params["lm_head"])
+    logits = _lm_head(params, x, mesh)
     stacked = [torch.stack(t) for t in zip(*news)]
     if quant:
         k8, ks, v8, vs = stacked
@@ -1067,6 +1217,7 @@ def super_step_ragged(
     sample_carry=None,
     dtype=torch.bfloat16,
     window: int | None = None,
+    mesh=None,
 ):
     """ONE dispatch advancing a ragged batch of MIXED roles (the
     reference's ``super_step_ragged``): per row a packed-prefill chunk
@@ -1100,7 +1251,9 @@ def super_step_ragged(
     greedy [B, S], accepted [B], toks [B, 1], cache, active_out,
     remaining_out, carry_out)``: lengths advance by each decode row's
     emitted count and each active verify row's accepted + 1 (prefill rows
-    advance at the engine's finalize)."""
+    advance at the engine's finalize).  Under dp > 1 a rank runs and
+    commits its block of rows in the wide forward; the logits are gathered
+    and the rest runs on every row, replicated."""
     from .sampling import speculative_accept
 
     b, s = token_block.shape
@@ -1117,11 +1270,13 @@ def super_step_ragged(
     base = torch.where(roles == ROLE_PREFILL, offsets, lengths).to(torch.int32)
     counts = counts.to(torch.int32).contiguous()
 
-    x = params["embed"][token_block].to(dtype)
-    positions = base.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
+    rows = _dp_rows(mesh, b)
+    base_l, counts_l = _rows(base, rows), _rows(counts, rows)
+    x = _embed(params, _rows(token_block, rows), dtype, mesh)
+    positions = base_l.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
     cos, sin = rope_cos_sin(positions, cfg)              # [B, S, D]
     key_pos = torch.arange(window, device=dev)
-    valid_mask = key_pos[None, :] < base[:, None]        # [B, W], strict
+    valid_mask = key_pos[None, :] < base_l[:, None]      # [B, W], strict
     mask_bias = torch.where(valid_mask, 0.0, -1e9).to(torch.float32)[:, None, None]
 
     news = []  # each layer's block as the cache stores it
@@ -1133,17 +1288,18 @@ def super_step_ragged(
             ck, cv = cache.k[l], cache.v[l]
         x, k_new, v_new, kv8 = _block_verify_deferred(
             x, _layer(params["layers"], l), ck, cv, cos, sin, mask_bias, cfg, window=window,
-            counts=counts,
+            counts=counts_l, mesh=mesh,
         )
         news.append(kv8 if quant else (k_new, v_new))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = _qmatmul(x, params["lm_head"])              # [B, S, vocab] f32
+    logits = _lm_head(params, x, mesh)                   # [B, S, vocab] f32
     stacked = [torch.stack(t) for t in zip(*news)]
     if quant:
         k8, ks, v8, vs = stacked
-        _commit_block_at(cache, (k8, ks), (v8, vs), base, counts, quant)
+        _commit_block_at(cache, (k8, ks), (v8, vs), base_l, counts_l, quant)
     else:
-        _commit_block_at(cache, *stacked, base, counts, quant)
+        _commit_block_at(cache, *stacked, base_l, counts_l, quant)
+    logits = _dp_gather(logits, mesh)
 
     # Verify rows: exact greedy acceptance over the wide logits (columns
     # past draft_len are capped out by the per-row budget).
@@ -1168,7 +1324,7 @@ def super_step_ragged(
     if steps > 1:
         tok_rest, valid_rest, toks2, cache, act2, rem2, carry = decode_multistep(
             params, toks1, cache, cfg, act1, remaining1, eos_ids, steps - 1, sample_fn,
-            sample_carry=carry, dtype=dtype, window=window,
+            sample_carry=carry, dtype=dtype, window=window, mesh=mesh,
         )
         tok_block_out = torch.cat([nxt_d[:, None], tok_rest], dim=1)
         valid = valid0 + valid_rest

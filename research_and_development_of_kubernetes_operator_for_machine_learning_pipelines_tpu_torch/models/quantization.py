@@ -24,8 +24,26 @@ def quantize_tensor(w: torch.Tensor, axis: int = -2) -> dict[str, torch.Tensor]:
     w32 = w.to(torch.float32)
     amax = torch.amax(torch.abs(w32), dim=axis, keepdim=True)
     scale = torch.clamp(amax, min=1e-12) / 127.0
-    q8 = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
-    return {"q8": q8, "scale": scale}
+    return {"q8": quantize_with_scale(w32, scale), "scale": scale}
+
+
+def channel_scale(w: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """:func:`quantize_tensor`'s ``scale`` of ``w``, reduced one slice of
+    the leading axis at a time (``axis`` not the leading one), so a stacked
+    ``[L, in, out]`` leaf needs one layer's f32 copy in flight."""
+    if w.ndim > 2 and axis % w.ndim != 0:
+        dim = axis if axis < 0 else axis - 1  # the axis within one slice
+        amax = torch.stack([torch.amax(torch.abs(p.to(torch.float32)), dim=dim, keepdim=True)
+                            for p in w])
+    else:
+        amax = torch.amax(torch.abs(w.to(torch.float32)), dim=axis, keepdim=True)
+    return torch.clamp(amax, min=1e-12) / 127.0
+
+
+def quantize_with_scale(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_tensor`'s ``q8`` of ``w`` under a given ``scale``
+    (a block of a leaf under its cut of the whole leaf's scale)."""
+    return torch.clamp(torch.round(w.to(torch.float32) / scale), -127, 127).to(torch.int8)
 
 
 def dequantize_tensor(q: dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:

@@ -321,15 +321,17 @@ def _build_llama(
     max_new_tokens: int = 64,
     eos_id: int | None = None,
     dtype=torch.bfloat16,
+    mesh=None,
     **_kw,
 ) -> Predictor:
+    """``mesh``: ``params`` is this rank's block on it (``models/partition``)."""
     from . import llama
 
     example_len = min(16, cfg.max_seq // 4)
     max_new_tokens = min(max_new_tokens, cfg.max_seq - example_len)
 
     def predict(prompt_ids):
-        return llama.generate_greedy(params, prompt_ids, max_new_tokens, cfg, dtype)
+        return llama.generate_greedy(params, prompt_ids, max_new_tokens, cfg, dtype, mesh)
 
     return Predictor(
         name="llama-generate",

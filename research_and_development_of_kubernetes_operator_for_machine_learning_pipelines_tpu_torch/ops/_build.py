@@ -10,6 +10,12 @@ where a PyTorch extension takes minutes.
 
 A missing ``nvcc`` or a failed build raises; there is no fallback.
 
+Ranks of one host start cold together and would build into one
+directory at once: the build and the load hold an exclusive ``flock`` on
+``BUILD_DIR/.build.lock``, so one process compiles each library and the
+others find it built (the kernel releases the lock of a process that
+dies).
+
 ``BUILD_DIR`` is the node-local cache of built libraries
 (``utils/compile_cache.enable_persistent_compile_cache`` points it
 elsewhere, ``--compile-cache-dir``); each build reports its outcome there,
@@ -18,7 +24,9 @@ a hit for a library already built and a miss with nvcc's seconds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,10 +77,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """The build directory's lock across processes (and threads: each
+    holder opens its own file description)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a+") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names=SOURCES) -> dict[str, float]:
     """Compile every missing library of ``names`` in parallel; returns
-    the wall seconds each build took (0.0 for one already built)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    the wall seconds each build took (0.0 for one already built, here or
+    by another process while this one waited for the lock)."""
+    with _dir_lock():
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict[str, float]:
     todo = [n for n in names if not library_path(n).exists()]
     seconds = {n: 0.0 for n in names}
     for n in names:
@@ -118,8 +144,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if not library_path(name).exists():
-                build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            with _dir_lock():
+                if not library_path(name).exists():
+                    _build_locked((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

@@ -168,11 +168,13 @@ from concurrent.futures import wait
 from contextlib import contextmanager
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
 
+from ..models.partition import mesh_device_count
 from .batching import DynamicBatcher, apply_seq_pad, next_bucket
 from .engine import InferenceEngine
 from .flight_recorder import RequestTrace
@@ -360,11 +362,21 @@ class ServerConfig:
     snapshot_dir: str = ""
     warm_pool: bool = False
     model_uri: str = ""
+    # spec.tpu.meshShape (--mesh-shape): {"dp": 1, "tp": 1} is one rank; a
+    # mesh of several ranks runs one process a rank (README, "A tp or dp
+    # unit").
+    mesh_shape: dict | None = None
 
     def __post_init__(self):
         """The reference's startup checks of the serving features (its
         ``TpuSpec``, ``PrefixCacheSpec`` and ``SpeculativeSpec``), the
         caches' and speculation's only when enabled."""
+        self.mesh_shape = parse_mesh_shape(self.mesh_shape)
+        if mesh_device_count(self.mesh_shape) > 1 and (self.warm_pool or self.snapshot_dir):
+            raise ValueError(
+                f"meshShape {self.mesh_shape}: weight snapshots and the warm pool at a "
+                "world above one rank (the sharded snapshot layout) are not yet ported"
+            )
         if self.prefill_batch < 1:
             raise ValueError(f"spec.tpu.prefillBatch must be >= 1, got {self.prefill_batch!r}")
         if not (1 <= self.decode_steps <= 16):
@@ -446,6 +458,34 @@ class ServerConfig:
             adaptive=self.speculative_adaptive)
 
 
+def parse_mesh_shape(value) -> dict:
+    """Structural meshShape validation (the reference's
+    ``utils/config._parse_mesh_shape``): unknown axes and sizes that are
+    not positive integers raise ``ValueError``; absent is ``{"dp": 1,
+    "tp": 1}``, one rank."""
+    from ..parallel.mesh import MESH_AXIS_ORDER
+
+    mesh = dict(value or {"dp": 1, "tp": 1})
+    unknown = set(mesh) - set(MESH_AXIS_ORDER)
+    if unknown:
+        raise ValueError(
+            f"spec.tpu.meshShape has unknown axes {sorted(unknown)}; "
+            f"known: {list(MESH_AXIS_ORDER)}"
+        )
+    out = {}
+    for axis, size in mesh.items():
+        try:
+            n = int(size)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"spec.tpu.meshShape.{axis} must be a positive integer, got {size!r}"
+            ) from None
+        if n < 1:
+            raise ValueError(f"spec.tpu.meshShape.{axis} must be >= 1, got {n}")
+        out[axis] = n
+    return out
+
+
 def _fan(*fns):
     """Chain observer callbacks onto one engine hook (the timeseries ring
     rides the metrics callbacks); None entries drop out, and a single one
@@ -465,10 +505,11 @@ def _fan(*fns):
 
 def make_gen_engine(predictor, config: ServerConfig, metrics: ServerMetrics,
                     recorder=None, telemetry=None, watchdog=None,
-                    timeseries=None) -> GenerationEngine:
+                    timeseries=None, channel=None) -> GenerationEngine:
     """Construct the GenerationEngine for a causal-LM predictor, its hooks
     feeding ``metrics``' generation families and, when given, the
-    timeseries ring."""
+    timeseries ring.  ``channel``: a leader's ``multihost.UnitChannel``
+    (a follower's engine takes none and is never started)."""
     m, ts = metrics, timeseries
     return GenerationEngine(
         predictor.causal_lm["params"],
@@ -507,6 +548,8 @@ def make_gen_engine(predictor, config: ServerConfig, metrics: ServerMetrics,
         telemetry=telemetry,
         watchdog=watchdog,
         on_poison=_fan(m.inc_poison, ts and ts.inc_poison),
+        mesh_shape=config.mesh_shape,
+        channel=channel,
     )
 
 
@@ -673,8 +716,12 @@ class ModelServer(ThreadingHTTPServer):
                  predictor, batcher: DynamicBatcher | None = None,
                  drain_grace_s: float = 20.0, cold_start_anchor: float | None = None,
                  recorder=None, telemetry=None, timeseries=None,
-                 config: ServerConfig | None = None, watchdog=None, attach_fn=None):
+                 config: ServerConfig | None = None, watchdog=None, attach_fn=None,
+                 unit_channel=None):
         self.engine = engine
+        # A leader of several ranks: the channel its engine broadcasts on,
+        # closed (followers released) at shutdown.
+        self.unit_channel = unit_channel
         self.model_name = model_name
         self.metrics = metrics
         self.predictor = predictor
@@ -722,7 +769,7 @@ class ModelServer(ThreadingHTTPServer):
         if predictor.causal_lm is not None:
             engine = make_gen_engine(predictor, conf, m, recorder=self.recorder,
                                      telemetry=self.telemetry, watchdog=self._watchdog,
-                                     timeseries=self.timeseries)
+                                     timeseries=self.timeseries, channel=self.unit_channel)
             try:
                 engine.start(warmup=warmup)
             except Exception:
@@ -1145,6 +1192,11 @@ class ModelServer(ThreadingHTTPServer):
             self.batcher.stop()
         elif self.engine is not None:
             self.engine.shutdown()
+        if self.unit_channel is not None:
+            # After the engine: no broadcast can follow the release.
+            from .multihost import OP_SHUTDOWN, encode_message
+
+            self.unit_channel.close_with(encode_message(OP_SHUTDOWN))
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -1655,10 +1707,13 @@ class _Handler(BaseHTTPRequestHandler):
 
 def build_server(predictor, config: ServerConfig, warmup: bool = True,
                  load_stats: dict | None = None,
-                 boot_wall: float | None = None) -> ModelServer:
+                 boot_wall: float | None = None, transport=None) -> ModelServer:
     """Engine + bound HTTP server for a loaded predictor; the engine is
     started (and warmed) and the server reads ready.  Call
     ``serve_forever()`` (on any thread) and ``shutdown_all()`` to stop.
+    ``transport`` (a leader's ``multihost`` transport): the engine
+    broadcasts every device op on a ``UnitChannel`` over it, and
+    ``shutdown_all`` releases the followers.
 
     ``load_stats`` (the loader's stage seconds) and ``boot_wall`` (the
     process's start, ``time.time()``) feed the model-load and cold-start
@@ -1713,11 +1768,16 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
             return load_predictor(model_uri, quantize=config.quantize, device=config.device,
                                   dtype=_DTYPES[config.dtype], load_stats=stats,
                                   snapshot_dir=config.snapshot_dir)
+    unit_channel = None
+    if transport is not None:
+        from .multihost import UnitChannel
+
+        unit_channel = UnitChannel(transport)
     srv = ModelServer((config.host, config.port), None, config.model_name, metrics,
                       predictor=None, drain_grace_s=config.drain_grace_s,
                       cold_start_anchor=anchor, recorder=recorder, telemetry=telemetry,
                       timeseries=timeseries, config=config, watchdog=watchdog,
-                      attach_fn=attach_fn)
+                      attach_fn=attach_fn, unit_channel=unit_channel)
     if watchdog is not None:
         # Wired before an engine starts (and arms it): a stall must never
         # fire into unassigned hooks.
@@ -1932,6 +1992,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--namespace", default="default")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; the CPU only when named)")
+    ap.add_argument("--mesh-shape", default='{"dp": 1, "tp": 1}',
+                    help="spec.tpu.meshShape as JSON: a mesh of several ranks runs one "
+                         "process a rank, formed from JAX_COORDINATOR_ADDRESS, "
+                         "JAX_NUM_PROCESSES and JAX_PROCESS_ID")
     return ap
 
 
@@ -1965,7 +2029,18 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         watchdog_grace_s=args.watchdog_grace_s,
         fleet_role=args.fleet_role, snapshot_dir=args.snapshot_dir,
         warm_pool=bool(args.warm_pool), model_uri=args.model_uri,
+        mesh_shape=_mesh_arg(args.mesh_shape),
     )
+
+
+def _mesh_arg(text: str) -> dict:
+    try:
+        value = json.loads(text)
+    except json.JSONDecodeError as e:
+        raise ValueError(f"--mesh-shape must be a JSON object, got {text!r}: {e}") from None
+    if not isinstance(value, dict):
+        raise ValueError(f"--mesh-shape must be a JSON object, got {text!r}")
+    return value
 
 
 class _MetricsHandler(BaseHTTPRequestHandler):
@@ -2000,6 +2075,155 @@ def serve_metrics(host: str, port: int, metrics: ServerMetrics) -> ThreadingHTTP
     return httpd
 
 
+class _FollowerHealth(BaseHTTPRequestHandler):
+    """A follower's live/ready listener: ``{"role": "follower", "ok": true}``."""
+
+    def log_message(self, fmt, *args):
+        _log.debug("%s - " + fmt, self.address_string(), *args)
+
+    def do_GET(self):
+        if urlsplit(self.path).path in ("/v2/health/live", "/v2/health/ready", "/healthz",
+                                        "/readyz", "/livez"):
+            code, payload = 200, {"role": "follower", "ok": True}
+        else:
+            code, payload = 404, {"error": f"no route {self.path} on a follower"}
+        data = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+def serve_follower_health(host: str, port: int) -> ThreadingHTTPServer:
+    """The follower's listener on a daemon thread (the unit's shared
+    readiness probe: a follower that joined the process group is ready)."""
+    httpd = ThreadingHTTPServer((host, port), _FollowerHealth)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True, name="follower-health").start()
+    return httpd
+
+
+# A directory each rank of a unit writes ``rank-<r>.json`` into as it exits
+# (unset: none is written): its ops' walls, its collectives' host seconds,
+# its kernel launches and its HBM ledger beside the allocator's counts
+# (allocated, peak allocated, reserved).
+RANK_REPORT_ENV = "TPUMLOPS_RANK_REPORT_DIR"
+
+
+def write_rank_report(engine, op_stats: dict) -> Path | None:
+    """This rank's report into ``$TPUMLOPS_RANK_REPORT_DIR`` (see
+    ``RANK_REPORT_ENV``); None when the variable is unset."""
+    directory = os.environ.get(RANK_REPORT_ENV)
+    if not directory:
+        return None
+    import torch.distributed as dist
+
+    from ..ops import flash_attention
+    from ..parallel import collectives, distributed
+    from .cuda_graphs import _COUNTERS
+    from .device_telemetry import build_hbm_ledger
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    launches = {name: int(getattr(m, a)) for name, (m, a) in _COUNTERS.items()}
+    launches["flash_attention_ragged"] = int(flash_attention.ragged_launches)
+    report = {
+        "rank": rank,
+        "backend": distributed.backend_name(),
+        "ops": {op: {"count": c, "seconds": t, "max_s": m}
+                for op, (c, t, m) in sorted(op_stats.items())},
+        "collectives": {op: {"calls": collectives.calls[op],
+                             "seconds": collectives.seconds[op]}
+                        for op in sorted(collectives.calls)},
+        "launches": launches,
+    }
+    if engine is not None:
+        mesh = engine._mesh
+        ledger = build_hbm_ledger(engine._params, engine._cfg, engine.max_slots,
+                                  kv_quant=engine._kv_quant,
+                                  dtype_bytes=engine._dtype.itemsize,
+                                  mesh_shape=mesh.shape if mesh is not None else None)
+        report["device"] = str(engine._device)
+        report["mesh"] = None if mesh is None else {"shape": mesh.shape, "coords": mesh.coords}
+        report["ledger"] = dict(ledger.components, total=ledger.device_total())
+        if engine._device.type == "cuda":
+            # Now, at the process's peak (the load included) and what the
+            # caching allocator holds from the card.
+            report["memory_allocated"] = int(torch.cuda.memory_allocated(engine._device))
+            report["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(engine._device))
+            report["memory_reserved"] = int(torch.cuda.memory_reserved(engine._device))
+    out = Path(directory) / f"rank-{rank}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return out
+
+
+def form_unit(config: ServerConfig):
+    """Join the process group of a mesh of several ranks (one process a
+    rank, from ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID``); returns ``(transport, rank device, local rank)``, or
+    ``(None, config.device, 0)`` for one rank.  A rank takes
+    ``cuda:(local_rank % device_count)`` (``parallel.distributed.local_rank``:
+    ``LOCAL_RANK``, else the rank's place in its host's block of
+    ``LOCAL_WORLD_SIZE`` ranks, all on one host when unset), or the CPU when
+    ``--device cpu``."""
+    world = mesh_device_count(config.mesh_shape)
+    if world <= 1:
+        return None, config.device, 0
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+    from .multihost import TorchDistTransport
+
+    dev_type = torch.device(config.device).type if config.device else "cuda"
+    if not distributed.maybe_initialize_distributed(device_type=dev_type):
+        raise ValueError(
+            f"meshShape {config.mesh_shape} spans {world} ranks: set JAX_COORDINATOR_ADDRESS "
+            "(host:port of rank 0), JAX_NUM_PROCESSES and JAX_PROCESS_ID"
+        )
+    if dist.get_world_size() != world:
+        raise ValueError(f"meshShape {config.mesh_shape} spans {world} ranks, but the "
+                         f"process group has {dist.get_world_size()}")
+    rank = dist.get_rank()
+    local_rank = distributed.local_rank(rank, world)
+    device = distributed.rank_device(dev_type, local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    _log.info("rank %d of %d (local rank %d) on %s; model collectives over %s",
+              rank, world, local_rank, device, distributed.backend_name())
+    return TorchDistTransport(), str(device), local_rank
+
+
+def run_follower(config: ServerConfig, transport, local_rank: int) -> int:
+    """A follower rank: load its block of the model, build the same engine
+    (never started) and repeat the leader's ops until it releases the unit.
+    Only a follower that is the first rank of a host of its own
+    (``LOCAL_RANK`` 0: the leader holds local rank 0 on its host) answers
+    the unit's health probe on ``--port``; ranks that share the leader's
+    host are answered for by the leader.  Returns the ops run."""
+    from .loader import load_predictor
+    from .multihost import follower_loop
+
+    health = serve_follower_health(config.host, config.port) if local_rank == 0 else None
+    predictor = load_predictor(config.model_uri, quantize=config.quantize,
+                               device=config.device, dtype=_DTYPES[config.dtype],
+                               mesh_shape=config.mesh_shape)
+    metrics = ServerMetrics(deployment_name=config.deployment_name or config.model_name,
+                            predictor_name=config.predictor_name, namespace=config.namespace)
+    gen_engine = None
+    if predictor.causal_lm is not None:
+        gen_engine = make_gen_engine(predictor, config, metrics)
+    _log.info("follower ready; repeating the leader's ops")
+    stats: dict = {}
+    try:
+        steps = follower_loop(None, transport, gen_engine=gen_engine, stats=stats)
+    finally:
+        if health is not None:
+            health.shutdown()
+    write_rank_report(gen_engine, stats)
+    return steps
+
+
 def main(argv: list[str] | None = None) -> None:
     from ..utils.logging import configure as configure_logging
     from .loader import load_predictor
@@ -2015,16 +2239,25 @@ def main(argv: list[str] | None = None) -> None:
     from ..utils.compile_cache import enable_persistent_compile_cache
 
     enable_persistent_compile_cache(args.compile_cache_dir)  # before any kernel loads
+    transport, device, local_rank = form_unit(config)
+    config.device = device
+    if transport is not None and not transport.is_leader:
+        run_follower(config, transport, local_rank)
+        from ..parallel.distributed import shutdown_distributed
+
+        shutdown_distributed()
+        return
     if config.warm_pool:
         predictor, srv = None, build_server(None, config, boot_wall=boot_wall)
     else:
         load_stats: dict = {}
         predictor = load_predictor(
-            args.model_uri, quantize=args.quantize, device=args.device,
+            args.model_uri, quantize=args.quantize, device=config.device,
             dtype=_DTYPES[args.dtype], load_stats=load_stats,
-            snapshot_dir=config.snapshot_dir or None,
+            snapshot_dir=config.snapshot_dir or None, mesh_shape=config.mesh_shape,
         )
-        srv = build_server(predictor, config, load_stats=load_stats, boot_wall=boot_wall)
+        srv = build_server(predictor, config, load_stats=load_stats, boot_wall=boot_wall,
+                           transport=transport)
     metrics_httpd = None
     if args.metrics_port:
         try:
@@ -2035,18 +2268,23 @@ def main(argv: list[str] | None = None) -> None:
             _log.error("metrics listener on port %d failed (%s); /metrics stays on the "
                        "main port", args.metrics_port, e)
 
+    terminated = threading.Event()
+
     def _terminate() -> None:
         # The endpoint lag: a terminating pod leaves the endpoints a little
         # after SIGTERM, so for --drain-s the replica reads NotReady and
         # still admits; only then does the drain stop admissions.
-        if srv.lifecycle == "ready":
-            srv.lifecycle = "draining"
-            srv.metrics.set_ready(False)
-        time.sleep(max(0.0, args.drain_s))
-        _log.info("termination signal; draining (grace %.1fs)", args.drain_grace_seconds)
-        srv.terminate(args.drain_grace_seconds)
-        if metrics_httpd is not None:
-            metrics_httpd.shutdown()
+        try:
+            if srv.lifecycle == "ready":
+                srv.lifecycle = "draining"
+                srv.metrics.set_ready(False)
+            time.sleep(max(0.0, args.drain_s))
+            _log.info("termination signal; draining (grace %.1fs)", args.drain_grace_seconds)
+            srv.terminate(args.drain_grace_seconds)
+            if metrics_httpd is not None:
+                metrics_httpd.shutdown()
+        finally:
+            terminated.set()
 
     def _term(_signum, _frame):
         _log.info("termination signal; endpoint lag %.1fs before drain", args.drain_s)
@@ -2061,3 +2299,13 @@ def main(argv: list[str] | None = None) -> None:
         srv.serve_forever()
     except KeyboardInterrupt:
         srv.shutdown_all()
+        terminated.set()
+    if transport is not None:
+        # The followers are released at the end of the shutdown (after the
+        # engine's last op), on the terminating thread: the group outlives it.
+        terminated.wait(timeout=args.drain_grace_seconds + 60.0)
+        engine = srv.gen_engine
+        write_rank_report(engine, engine.op_stats if engine is not None else {})
+        from ..parallel.distributed import shutdown_distributed
+
+        shutdown_distributed()

@@ -79,9 +79,10 @@ class _GraphProgram:
     and the launch counts each graph records at capture and adds at every
     replay.  A subclass defines :meth:`_run`, the call on its buffers."""
 
-    def __init__(self, params, cfg, cache, dtype, device):
+    def __init__(self, params, cfg, cache, dtype, device, mesh=None):
         self._params = params
         self._cfg = cfg
+        self._mesh = mesh  # parallel.ServingMesh: this rank's block (eager only)
         self._dtype = dtype
         self.device = torch.device(device)
         b = int(cache.lengths.shape[0])
@@ -214,8 +215,8 @@ class MultistepProgram(_GraphProgram):
     """``steps`` decode iterations on static buffers over ``cache``, chained
     from one dispatch to the next, harvested one tick late."""
 
-    def __init__(self, params, cfg, cache, steps: int, dtype, device):
-        super().__init__(params, cfg, cache, dtype, device)
+    def __init__(self, params, cfg, cache, steps: int, dtype, device, mesh=None):
+        super().__init__(params, cfg, cache, dtype, device, mesh)
         self.steps = int(steps)
         b, dev = self.batch, self.device
         self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -239,7 +240,7 @@ class MultistepProgram(_GraphProgram):
         tok_block, valid, toks, cache, act, rem, carry = llama.decode_multistep(
             self._params, self.tokens, self.cache, self._cfg, self.active, self.remaining,
             self.eos_ids, self.steps, sample, sample_carry=carry0, dtype=self._dtype,
-            window=window,
+            window=window, mesh=self._mesh,
         )
         self.tok_block.copy_(tok_block)
         self.valid.copy_(valid)
@@ -316,8 +317,8 @@ class SuperstepProgram(_GraphProgram):
     state it chains is the engine's device state, which lives in the
     program's buffers."""
 
-    def __init__(self, params, cfg, cache, steps: int, width: int, dtype, device):
-        super().__init__(params, cfg, cache, dtype, device)
+    def __init__(self, params, cfg, cache, steps: int, width: int, dtype, device, mesh=None):
+        super().__init__(params, cfg, cache, dtype, device, mesh)
         self.steps = int(steps)
         self.width = int(width)
         b, s, k = self.batch, self.width, self.steps
@@ -361,7 +362,7 @@ class SuperstepProgram(_GraphProgram):
             offsets=a["offsets"], counts=a["counts"], draft_len=a["draft_len"],
             active=a["active"], remaining=a["remaining"], eos_ids=a["eos_ids"],
             steps=self.steps, sample_fn=sample, sample_carry=carry0, dtype=self._dtype,
-            window=window,
+            window=window, mesh=self._mesh,
         )
         keys_run = carry if sampling else self.keys
         is_final = a["last_pos"] >= 0

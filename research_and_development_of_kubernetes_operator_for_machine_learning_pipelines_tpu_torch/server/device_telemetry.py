@@ -32,14 +32,24 @@ Three parts:
   ``tpumlops_device_{mfu,hbm_bw_util}{kind}`` gauges.
 
 Not ported: ``cost_from_analysis``, which parses an XLA ``Compiled``
-object's cost analysis (the port holds none), and the collective walls of
-a tensor-parallel mesh (the port serves one card: ``param_device_count``
-is 1).
+object's cost analysis (the port holds none).
+
+On a mesh of several ranks (one process a rank) everything is per rank:
+the ledger counts the rank's blocks (its weight shards, ``B/dp`` cache
+rows of ``NKV/tp`` heads: ``models/partition.engine_state_shapes``), and at
+tp > 1 each tick's analytic collective wall (the Megatron all-reduce pair
+a layer and the logits all-gather, ``LlamaCostModel.collective_bytes``,
+over ``DevicePeaks.link_bytes_per_s``) feeds
+``tpumlops_engine_collective_seconds{op}``.
 
 Peaks: the NVIDIA H100 SXM's published dense rates (989e12 bf16 tensor
-FLOP/s, 3.35e12 B/s, 80 GiB), matched on ``torch.cuda.get_device_name()``.
-Anywhere else (the CPU, another card) the same figures stand, marked
-``assumed``, so the ratios stay computable.
+FLOP/s, 3.35e12 B/s, 80 GiB; NVLink 4 at 900 GB/s a GPU both ways, so
+450e9 B/s each way, NVIDIA's H100 data sheet, at the card's 700 W limit),
+matched on ``torch.cuda.get_device_name()``.  Anywhere else (the CPU,
+another card) the same figures stand, marked ``assumed``, so the ratios
+stay computable.  The collective walls are the NVLink deployment's
+estimate: ranks that share one card (gloo, staged through the host) run
+their collectives far slower, which ``chip_smoke.py`` phase 8 measures.
 
 Error bars: the FLOPs count is exact for the matmul tree and counts the
 attention at the full padded window, so MFU is a lower bound on "useful"
@@ -83,6 +93,9 @@ class DevicePeaks:
     hbm_bytes: int  # HBM capacity
     source: str  # "detected" | "assumed"
     chips: int = 1
+    # One direction of the card's GPU-to-GPU interconnect (the collective
+    # walls divide by it): NVLink 4, 900 GB/s both ways.
+    link_bytes_per_s: float = 450e9
 
     def scaled(self, chips: int) -> "DevicePeaks":
         n = max(1, int(chips))
@@ -172,10 +185,11 @@ def weights_bytes_by_dtype(params) -> dict[str, int]:
     return out
 
 
-def kv_cache_bytes_per_row(cfg, kv_quant: bool, dtype_bytes: int = 2) -> int:
+def kv_cache_bytes_per_row(cfg, kv_quant: bool, dtype_bytes: int = 2, tp: int = 1) -> int:
     """Bytes one cache row (slot at full ``max_seq``) holds: k + v across
-    all layers, plus the int8kv layout's per-(pos, head) f32 scales."""
-    elems = cfg.num_layers * cfg.num_kv_heads * cfg.max_seq * cfg.head_dim
+    all layers, plus the int8kv layout's per-(pos, head) f32 scales; at
+    ``tp`` > 1 a rank's ``NKV/tp`` heads of it."""
+    elems = cfg.num_layers * (cfg.num_kv_heads // max(1, int(tp))) * cfg.max_seq * cfg.head_dim
     if kv_quant:
         # int8 values + f32 scale per head_dim group, for k and v each.
         return 2 * (elems + (elems // cfg.head_dim) * 4)
@@ -245,14 +259,22 @@ def build_hbm_ledger(
     kv_quant: bool = False,
     dtype_bytes: int = 2,
     prefix_cache_budget_bytes: int = 0,
+    mesh_shape=None,
 ) -> HbmLedger:
+    """The ledger of one rank: ``params`` as held (a rank's blocks on a
+    mesh), the cache at ``B/dp`` rows of ``NKV/tp`` heads, the replicated
+    sampling state whole."""
+    from ..models.partition import dp_degree, tp_degree
+
     ledger = HbmLedger(
-        kv_bytes_per_row=kv_cache_bytes_per_row(cfg, kv_quant, dtype_bytes),
+        kv_bytes_per_row=kv_cache_bytes_per_row(cfg, kv_quant, dtype_bytes,
+                                                tp_degree(mesh_shape)),
         max_slots=int(max_slots),
     )
     for dtype, nbytes in weights_bytes_by_dtype(params).items():
         ledger.components[f"weights_{dtype}"] = nbytes
-    ledger.components["kv_cache"] = ledger.kv_bytes_per_row * int(max_slots)
+    ledger.components["kv_cache"] = (ledger.kv_bytes_per_row * int(max_slots)
+                                     // dp_degree(mesh_shape))
     ledger.components["sampling_state"] = sampling_state_bytes(max_slots)
     if prefix_cache_budget_bytes:
         ledger.host_components["prefix_cache_budget"] = int(
@@ -261,13 +283,14 @@ def build_hbm_ledger(
     return ledger
 
 
-def capacity_log_line(params, cfg, kv_quant: bool) -> str:
+def capacity_log_line(params, cfg, kv_quant: bool, tp: int = 1) -> str:
     """The model-capacity startup line ``server/loader.py`` stamps (even
-    with telemetry off): weights by dtype, KV bytes/row, max cache rows."""
+    with telemetry off): weights by dtype, KV bytes/row, max cache rows;
+    a rank's own at ``tp`` > 1 (``params`` its blocks)."""
     peaks = detect_peaks().scaled(param_device_count(params))
     by_dtype = weights_bytes_by_dtype(params)
     total = sum(by_dtype.values())
-    per_row = kv_cache_bytes_per_row(cfg, kv_quant)
+    per_row = kv_cache_bytes_per_row(cfg, kv_quant, tp=tp)
     spare = peaks.hbm_bytes - total
     rows = max(0, spare // per_row) if per_row else 0
     dtypes = ", ".join(
@@ -560,6 +583,11 @@ class LlamaCostModel:
 # ---------------------------------------------------------------------------
 
 
+# Tick kinds that run a forward (and so its collectives at tp > 1).
+_FORWARD_KINDS = frozenset({"decode", "verify", "multistep", "prefill", "packed-prefill",
+                            "superstep"})
+
+
 class DeviceTelemetry:
     """One object per server process: ledger + observatory + cost model.
 
@@ -596,16 +624,18 @@ class DeviceTelemetry:
 
     def attach_model(self, params, cfg, max_slots: int,
                      kv_quant: bool = False, dtype_bytes: int = 2,
-                     prefix_cache_budget_bytes: int = 0) -> None:
+                     prefix_cache_budget_bytes: int = 0, mesh_shape=None) -> None:
         """Build the ledger + cost model once the engine geometry is
-        known; exports the per-component HBM gauges."""
+        known; exports the per-component HBM gauges.  ``mesh_shape``: the
+        rank's blocks (``params`` is its shard) and the collective walls."""
         self.ledger = build_hbm_ledger(
             params, cfg, max_slots, kv_quant=kv_quant,
             dtype_bytes=dtype_bytes,
             prefix_cache_budget_bytes=prefix_cache_budget_bytes,
+            mesh_shape=mesh_shape,
         )
         self.cost = LlamaCostModel.for_model(
-            params, cfg, kv_quant=kv_quant, dtype_bytes=dtype_bytes,
+            params, cfg, kv_quant=kv_quant, dtype_bytes=dtype_bytes, mesh_shape=mesh_shape,
         )
         self._export_ledger()
 
@@ -625,10 +655,12 @@ class DeviceTelemetry:
         self._metrics.observe_hbm_component("total", self.ledger.device_total())
 
     def tick_util(self, kind: str, wall_s: float, flops: float,
-                  hbm_bytes: float) -> dict:
+                  hbm_bytes: float, tokens: float | None = None) -> dict:
         """Join one tick's wall with its program cost: MFU and HBM-BW
         utilization, clamped to (0, 1] (see the module docstring's error
-        bars).  Returns the dict merged onto the recorder tick."""
+        bars).  ``tokens``: the positions one rank's forward ran in the
+        dispatch (rows x positions x steps), which size its collectives at
+        tp > 1.  Returns the dict merged onto the recorder tick."""
         wall = max(wall_s, 1e-9)
         mfu = min(1.0, flops / wall / self.peaks.flops_per_s)
         bw = min(1.0, hbm_bytes / wall / self.peaks.hbm_bytes_per_s)
@@ -638,6 +670,20 @@ class DeviceTelemetry:
             "mfu": float(f"{mfu:.3g}") if flops > 0 else 0.0,
             "hbm_bw_util": float(f"{bw:.3g}"),
         }
+        if self.cost is not None and self.cost.tp > 1 and kind in _FORWARD_KINDS:
+            # The dispatch's collective bytes over the link rate, by op.
+            # Without the dispatch's own count, the tokens come back from
+            # its flops as the reference does (2 x matmul params a token),
+            # which also counts the attention at the padded window.
+            if tokens is None:
+                tokens = flops / max(1.0, 2.0 * self.cost.matmul_params)
+            total = 0.0
+            for op, nbytes in self.cost.collective_bytes(tokens).items():
+                secs = nbytes / self.peaks.link_bytes_per_s
+                total += secs
+                if self._metrics is not None:
+                    self._metrics.observe_collective(op, secs)
+            util["collective_s"] = float(f"{total:.3g}")
         with self._util_lock:
             self.last_util[kind] = util
         if self._metrics is not None:
@@ -656,6 +702,7 @@ class DeviceTelemetry:
                 "flops_per_s": self.peaks.flops_per_s,
                 "hbm_bytes_per_s": self.peaks.hbm_bytes_per_s,
                 "hbm_bytes": self.peaks.hbm_bytes,
+                "link_bytes_per_s": self.peaks.link_bytes_per_s,
             },
             "hbm": self.ledger.snapshot(self.peaks) if self.ledger else None,
             "utilization": utilization,

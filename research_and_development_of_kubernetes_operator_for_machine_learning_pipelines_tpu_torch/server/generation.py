@@ -143,8 +143,23 @@ it, journalled as one ``kv-import`` tick; both run as control ops, since
 the radix cache is the scheduler's alone.  An import stops at a chunk
 whose parent path the cache has meanwhile evicted.
 
-Not ported yet (each raises ``ValueError("... not yet ported")`` when
-asked for): the mesh and multi-host (``mesh_shape``, ``channel``).
+Tensor and data parallelism (``mesh_shape`` with ``tp`` and/or ``dp`` above
+1): one process a rank, each holding its block of the weights and of the
+KV cache (``models/partition.py``) and running the sharded forward
+(``models/llama.py``, ``mesh=``).  Rank 0 leads: its engine runs the
+scheduler and hands every device op to ``channel`` (a
+``server/multihost.UnitChannel``), which broadcasts the op's host inputs
+before running it (``OP_GEN_*``); every other rank's engine is never
+started and repeats each op through its ``replay_*`` method
+(``multihost.follower_loop``).  Sampling state is replicated, so the host
+truth of every slot is the same on every rank; a seed carries the whole
+heads' K/V and each rank takes its own, and a read for the prefix cache
+gathers the heads (and the owning dp shard's row) back.  Under dp > 1
+``_free_slot`` admits into the least-loaded block of cache rows.  A failed
+op on the leader broadcasts ``OP_GEN_RESET``.  Not yet ported (each raises
+``ValueError`` at construction, before any device state): ``sp`` > 1, and
+on CUDA the graph-replayed paths (``decode_steps`` > 1, ``unified_step``)
+at a world above one rank, whose gloo collectives no CUDA graph captures.
 """
 
 from __future__ import annotations
@@ -164,12 +179,31 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..models import partition
 from ..models import prng
 from ..models.sampling import sample_chain_step, speculative_accept
 from ..ops.decode_attention import MAX_VERIFY_S
+from ..parallel.collectives import all_gather_concat, psum
 from .batching import next_bucket
 from .cuda_graphs import MultistepProgram, SuperstepProgram
 from .flight_recorder import RequestTrace
+from .multihost import (
+    OP_GEN_ADMIT,
+    OP_GEN_CHUNK,
+    OP_GEN_CHUNKS,
+    OP_GEN_INSERT,
+    OP_GEN_MULTISTEP,
+    OP_GEN_READ,
+    OP_GEN_RESET,
+    OP_GEN_RESTORE,
+    OP_GEN_SEED,
+    OP_GEN_SEED_SLOT,
+    OP_GEN_STEP,
+    OP_GEN_SUPERSTEP,
+    OP_GEN_VERIFY,
+    encode_message,
+    note_op,
+)
 from .prefix_cache import RadixPrefixCache
 from .speculative import DraftState, draft_chain, pad_to_chain, propose_ngram
 
@@ -404,21 +438,39 @@ class _PrefillProgress:
     slot: int = -1  # packed mode: the reserved cache row (-1: the scratch)
 
 
-# Engine options of the reference that this port does not have yet, with
-# the value that means "off".  Anything else raises instead of being
-# silently ignored.
-_NOT_PORTED = {
-    "channel": None,
-    "mesh_shape": None,
-}
+# Engine options of the reference that this port does not have yet (none
+# left: the mesh's unported axis and paths are refused in the constructor).
+_NOT_PORTED: dict = {}
 
 
-def _is_off(name: str, value) -> bool:
-    if value is None or value == _NOT_PORTED[name]:
-        return True
-    if name == "mesh_shape":
-        return int(np.prod([int(n) for n in dict(value).values()] or [1])) == 1
-    return False
+def pick_free_slot(slots: Sequence, reserved, dp: int) -> int | None:
+    """The cache row an admission takes: the first free row, or under dp > 1
+    a free row of the least-loaded dp block of ``len(slots) / dp``
+    contiguous rows (ties to the lowest index), so admissions spread over
+    the dp shards instead of parking every sequence on the first."""
+    free = [i for i, s in enumerate(slots) if s is None and i not in reserved]
+    if not free:
+        return None
+    if dp <= 1:
+        return free[0]
+    rows = len(slots) // dp
+
+    def shard_load(shard: int) -> int:
+        return sum(1 for i in range(shard * rows, (shard + 1) * rows)
+                   if slots[i] is not None or i in reserved)
+
+    return min(free, key=lambda i: (shard_load(i // rows), i))
+
+
+# The host inputs of a super-step tick, in ``_device_superstep``'s order.
+_SUPERSTEP_ARGS = ("ids", "roles", "offsets", "counts", "draft_len", "active", "remaining",
+                   "eos_ids", "last_pos", "final_lens", "slot_keys", "r_temps", "r_tks",
+                   "r_tps", "window", "sampling")
+
+
+def _key_data(key: torch.Tensor | None):
+    """A slot key as the channel carries it: its two words on the host."""
+    return None if key is None else key.cpu().numpy()
 
 
 class GenerationEngine:
@@ -467,23 +519,27 @@ class GenerationEngine:
         telemetry=None,  # device_telemetry.DeviceTelemetry | None
         watchdog=None,  # watchdog.EngineWatchdog | None
         on_poison: Callable[[str], None] | None = None,  # "quarantined" | "rejected"
-        **unported,
+        mesh_shape=None,  # {"dp": D, "tp": T}: one rank of a world of D * T
+        channel=None,  # multihost.UnitChannel: the leader's op broadcast
     ):
-        for name, value in unported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected engine option {name!r}")
-            if not _is_off(name, value):
-                raise ValueError(f"engine option {name}={value!r} is not yet ported")
         self._device = resolve_device(device)
         embed_dev = params["embed"].device
         if embed_dev.type != self._device.type:
             raise ValueError(
                 f"params live on {embed_dev}, engine device is {self._device}"
             )
-        self._params = params
         self._cfg = cfg
         self._eos_default = eos_id
         self.max_slots = int(max_slots)
+        self._channel = channel
+        # A leader's device ops by kind: [count, total s, max s] (broadcast
+        # included), the counterpart of a follower loop's stats.
+        self.op_stats: dict[str, list] = {}
+        self._mesh = None
+        self._dp = 1
+        if mesh_shape and partition.mesh_device_count(mesh_shape) > 1:
+            params = self._init_mesh(params, cfg, dict(mesh_shape), decode_steps, unified_step)
+        self._params = params
         self.capacity = int(cfg.max_seq)
         self._dtype = dtype or torch.bfloat16
         self._kv_quant = bool(kv_quant)
@@ -699,8 +755,46 @@ class GenerationEngine:
                 params, cfg, self.max_slots, kv_quant=self._kv_quant,
                 dtype_bytes=self._dtype.itemsize,
                 prefix_cache_budget_bytes=int(prefix_cache.budget_bytes) if prefix_enabled else 0,
+                mesh_shape=self._mesh.shape if self._mesh is not None else None,
             )
         self._reset_device_state()
+
+    def _init_mesh(self, params, cfg, mesh_shape: dict, decode_steps, unified_step):
+        """Check a mesh of several ranks (typed errors, before any device
+        state), build this rank's ``ServingMesh`` and return its block of the
+        parameters (a full tree is cut here; the loader's block passes)."""
+        bad = {a: int(n) for a, n in mesh_shape.items()
+               if a not in ("dp", "sp", "tp") and int(n) > 1}
+        if bad:
+            raise ValueError(
+                "the generation engine shards over dp/sp/tp only; meshShape axes "
+                f"{bad} must be 1 (no pipeline or expert parallelism exists here)"
+            )
+        dp = partition.dp_degree(mesh_shape)
+        if dp > 1 and self.max_slots % dp:
+            raise ValueError(
+                f"meshShape dp={dp} does not divide maxSlots {self.max_slots}: the ragged "
+                "cache's row axis shards over dp in equal blocks"
+            )
+        partition.validate_llama_mesh(cfg, mesh_shape)
+        if partition.sp_degree(mesh_shape) > 1:
+            raise ValueError(
+                f"meshShape sp={partition.sp_degree(mesh_shape)}: sequence parallelism "
+                "(ring-attention prefill) is not yet ported"
+            )
+        if self._device.type == "cuda" and ((decode_steps or 1) > 1 or unified_step):
+            raise ValueError(
+                "decode_steps > 1 and unified_step replay CUDA graphs, and graph capture "
+                "across ranks is not yet ported: at a world above one rank the gloo "
+                "collectives run on the host, where no graph captures them"
+            )
+        from ..parallel import build_mesh
+
+        self._mesh = build_mesh(mesh_shape)
+        self._dp = self._mesh.dp
+        if params["embed"].shape[0] == cfg.vocab_size and self._mesh.tp > 1:
+            params = partition.shard_llama_params(params, self._mesh)
+        return params
 
     def _reset_device_state(self) -> None:
         """(Re)allocate the KV cache, the per-slot token and sampling state
@@ -710,10 +804,11 @@ class GenerationEngine:
         left the cache half-updated."""
         dev = self._device
         if self._kv_quant:
-            self._cache = llama.QuantRaggedKVCache.create(self._cfg, self.max_slots, dev)
+            self._cache = llama.QuantRaggedKVCache.create(self._cfg, self.max_slots, dev,
+                                                          self._mesh)
         else:
             self._cache = llama.RaggedKVCache.create(
-                self._cfg, self.max_slots, self._dtype, dev
+                self._cfg, self.max_slots, self._dtype, dev, self._mesh
             )
         self._tokens = torch.zeros((self.max_slots, 1), dtype=torch.int64, device=dev)
         self._temps = torch.zeros((self.max_slots,), dtype=torch.float32, device=dev)
@@ -727,11 +822,11 @@ class GenerationEngine:
         if self._unified:
             self._program = SuperstepProgram(self._params, self._cfg, self._cache,
                                              self._decode_steps, self._super_width,
-                                             self._dtype, dev)
+                                             self._dtype, dev, self._mesh)
             self._bind_program_state()
         elif self._fused:
             self._program = MultistepProgram(self._params, self._cfg, self._cache,
-                                             self._decode_steps, self._dtype, dev)
+                                             self._decode_steps, self._dtype, dev, self._mesh)
         if self._program is not None and self._capture:
             self._capture_graphs()
 
@@ -1189,10 +1284,19 @@ class GenerationEngine:
     # -- scheduler -----------------------------------------------------------
 
     def _free_slot(self) -> int | None:
-        for i, s in enumerate(self._slots):
-            if s is None and i not in self._reserved:
-                return i
-        return None
+        return pick_free_slot(self._slots, self._reserved, self._dp)
+
+    def _run_op(self, op: str, inputs: dict, fn: Callable[[], object]):
+        """Run a device op; on a leader, broadcast its host inputs first (the
+        channel makes the pair atomic), so every follower repeats it, and
+        note the op's wall in ``op_stats``."""
+        if self._channel is None:
+            return fn()
+        t0 = time.perf_counter()
+        try:
+            return self._channel.run(encode_message(op, inputs), fn)
+        finally:
+            note_op(self.op_stats, op, time.perf_counter() - t0)
 
     def _queued_work(self) -> bool:
         """A submission waits, in the transport queue or a class deque: a
@@ -1291,7 +1395,7 @@ class GenerationEngine:
         C = self._prefill_chunk_size
         hist = slot.prompt_len + len(slot.generated) - 1
         full = self._committed_tokens(slot.prompt, slot.generated, hist)
-        chunks = [self._read_chunk_slot(idx, ci * C) for ci in range(-(-hist // C))]
+        chunks = [self._read_op(idx, ci * C) for ci in range(-(-hist // C))]
         # Whole-token chunks only: the tail holds positions past hist.
         for ci in range(hist // C):
             if not self._prefix_cache.has_chunk(full, ci):
@@ -1332,14 +1436,19 @@ class GenerationEngine:
         matched, cached = self._prefix_cache.lookup(full)
         matched = min(matched, (hist // C) * C)
         seed = list(cached[: matched // C]) + list(rec.chunks[matched // C:])
-        self._device_seed_slot(seed, slot_idx)
+        self._seed_slot_op(seed, slot_idx)
         if matched:
             self.prefix_hits += 1
             self.prefix_cached_tokens += matched
             if self._on_prefix_hit is not None:
                 self._on_prefix_hit(matched)
-        self._device_restore(slot_idx, hist, int(rec.generated[-1]), rec.key,
-                             rec.temperature, rec.top_k, rec.top_p)
+        pending = int(rec.generated[-1])
+        self._run_op(
+            OP_GEN_RESTORE,
+            {"slot": slot_idx, "length": hist, "pending": pending, "key_data": rec.key.numpy(),
+             "temp": rec.temperature, "tk": rec.top_k, "tp": rec.top_p},
+            lambda: self._device_restore(slot_idx, hist, pending, rec.key, rec.temperature,
+                                         rec.top_k, rec.top_p))
         self._slots[slot_idx] = _Slot(
             future=rec.future, remaining=rec.remaining, eos_id=rec.eos_id,
             sampling=rec.sampling, on_token=rec.on_token, prompt_len=int(rec.prompt.size),
@@ -1355,6 +1464,12 @@ class GenerationEngine:
         self._trace_event(rec.trace, "preempt-restore", slot=slot_idx)
         if self._on_preempt is not None:
             self._on_preempt("restore")
+
+    def replay_restore(self, slot, length, pending, key_data, temp, tk, tp) -> None:
+        """Follower side of a preemption restore."""
+        self._device_restore(int(slot), int(length), int(pending),
+                             torch.as_tensor(np.asarray(key_data)), float(temp), int(tk),
+                             float(tp))
 
     def _device_restore(self, slot: int, length: int, pending: int, key: torch.Tensor,
                         temp: float, tk: int, tp: float) -> None:
@@ -1391,8 +1506,10 @@ class GenerationEngine:
         """Journal one device dispatch of ``kind``, started at ``t0``, that
         took ``wall_s`` seconds: the dispatch counter, the tick metric and,
         when on, the flight recorder.  ``cost`` is the tick's analytic
-        ``(flops, hbm_bytes)`` (device telemetry only, else None), joined
-        with the wall into MFU and bandwidth shares; ``steps`` > 0 marks a
+        ``(flops, hbm_bytes, tokens)`` (device telemetry only, else None;
+        ``tokens`` the positions a rank's forward ran), joined with the
+        wall into MFU and bandwidth shares and, at tp > 1, collective
+        seconds; ``steps`` > 0 marks a
         fused tick (K steps in the one dispatch), ``roles`` a super-step
         tick's {prefill, decode, verify} rows."""
         self.dispatches_total[kind] = self.dispatches_total.get(kind, 0) + 1
@@ -1409,33 +1526,44 @@ class GenerationEngine:
                                 tokens=tokens, spec_accepted=spec_accepted, util=util,
                                 steps=steps, roles=roles)
 
+    def _rank_rows(self, rows: int) -> float:
+        """The rows of ``rows`` one rank's forward runs: a dp shard's block."""
+        return rows / (self._mesh.dp if self._mesh is not None else 1)
+
     def _cost_decode(self, window: int, s: int = 1, steps: int = 1):
-        """Analytic (flops, bytes) of one decode or verify tick: the program
-        computes every cache row, so the cost counts ``max_slots``; a fused
-        tick pays K steps, each at the pre-picked window."""
+        """Analytic (flops, bytes, tokens) of one decode or verify tick: the
+        program computes every cache row, so the cost counts ``max_slots``
+        (a rank its dp block); a fused tick pays K steps, each at the
+        pre-picked window."""
         if self._telemetry is None or self._telemetry.cost is None:
             return None
         flops, nbytes = self._telemetry.cost.decode(self.max_slots, window, s)
         if steps > 1:
             flops, nbytes = flops * steps, nbytes * steps
-        return flops, nbytes
+        return flops, nbytes, self._rank_rows(self.max_slots) * s * steps
 
     def _cost_superstep(self, window: int, s: int, steps: int):
-        """Analytic (flops, bytes) of one super-step: the S-wide forward and
-        ``steps - 1`` fused single-token steps, at the pre-picked window."""
+        """Analytic (flops, bytes, tokens) of one super-step: the S-wide
+        forward and ``steps - 1`` fused single-token steps, at the
+        pre-picked window."""
         if self._telemetry is None or self._telemetry.cost is None:
             return None
-        return self._telemetry.cost.superstep(self.max_slots, window, s, steps)
+        flops, nbytes = self._telemetry.cost.superstep(self.max_slots, window, s, steps)
+        return flops, nbytes, self._rank_rows(self.max_slots) * (s + steps - 1)
 
-    def _cost_prefill(self, rows: int, chunk: int, attended=None):
+    def _cost_prefill(self, rows: int, chunk: int, attended=None, packed: bool = False):
+        """A prefill of ``rows`` rows of ``chunk`` positions; ``packed``
+        rows are split over the dp shards (the mean a rank runs), a single
+        row's prefill runs on every rank."""
         if self._telemetry is None or self._telemetry.cost is None:
             return None
-        return self._telemetry.cost.prefill(rows, chunk, attended)
+        flops, nbytes = self._telemetry.cost.prefill(rows, chunk, attended)
+        return flops, nbytes, (self._rank_rows(rows) if packed else rows) * chunk
 
     def _cost_seed(self, tokens: int):
         if self._telemetry is None or self._telemetry.cost is None:
             return None
-        return self._telemetry.cost.seed(tokens)
+        return (*self._telemetry.cost.seed(tokens), 0.0)
 
     def _sync_tick(self) -> None:
         """With the recorder or telemetry on, wait for the card before a
@@ -1488,13 +1616,14 @@ class GenerationEngine:
             return prng.fold_in(self._boot_key, self._seed_counter)
         return prng.key(req.seed, self._device)
 
-    def _install_slot(self, slot_idx, row_logits, slot_key, req: _Request) -> int:
+    def _install_slot(self, slot_idx, row_logits, slot_key, temp: float, tk: int,
+                      tp: float) -> int:
         """Set the slot's sampling state and draw its first token from the
         prefill's last real row: split the request's key once, keep the
         carry for decode, draw with the other half."""
-        self._temps[slot_idx] = req.temperature
-        self._topk[slot_idx] = req.top_k
-        self._topp[slot_idx] = req.top_p
+        self._temps[slot_idx] = temp
+        self._topk[slot_idx] = tk
+        self._topp[slot_idx] = tp
         if slot_key is None:  # greedy: the sampling step would return the argmax
             first = torch.argmax(row_logits.to(torch.float32))
         else:
@@ -1547,7 +1676,11 @@ class GenerationEngine:
         slot_key = self._slot_key_for(req)
         t0 = time.perf_counter()
         self._beat("admit")
-        first = self._device_admit(ids, slot_idx, L, slot_key, req)  # read back: synced
+        first = self._run_op(  # read back: synced
+            OP_GEN_ADMIT,
+            {"ids": ids, "slot": slot_idx, "length": L, "key_data": _key_data(slot_key),
+             "temp": req.temperature, "tk": req.top_k, "tp": req.top_p},
+            lambda: self._device_admit(ids, slot_idx, L, slot_key, req))
         self.prefill_forwards += 1
         self._record_tick("prefill", t0, time.perf_counter() - t0, active_slots=self._occupied(),
                           batch_fill=1, tokens=1, cost=self._cost_prefill(1, bucket))
@@ -1560,9 +1693,23 @@ class GenerationEngine:
 
     def _device_admit(self, ids, slot_idx, L, slot_key, req) -> int:
         ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
-        logits, seq = llama.prefill(self._params, ids_t, self._cfg, self._dtype)
-        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
-        return self._install_slot(slot_idx, logits[0, L - 1], slot_key, req)
+        logits, seq = llama.prefill(self._params, ids_t, self._cfg, self._dtype, self._mesh)
+        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L, self._mesh)
+        return self._install_slot(slot_idx, logits[0, L - 1], slot_key, req.temperature,
+                                  req.top_k, req.top_p)
+
+    def _key(self, key_data) -> torch.Tensor | None:
+        return None if key_data is None else torch.as_tensor(
+            np.asarray(key_data), dtype=torch.int64, device=self._device)
+
+    def replay_admit(self, ids, slot, length, key_data, temp, tk, tp) -> None:
+        """Follower side of a whole-prompt admission (the request as the
+        op carries it: its prompt and sampling parameters)."""
+        ids = np.asarray(ids)
+        req = _Request(prompt=ids[0, :int(length)], max_new_tokens=0, eos_id=None,
+                       future=Future(), temperature=float(temp), top_k=int(tk),
+                       top_p=float(tp))
+        self._device_admit(ids, int(slot), int(length), self._key(key_data), req)
 
     # -- chunked prefill (one chunk shape; decode interleaves) ---------------
 
@@ -1576,18 +1723,28 @@ class GenerationEngine:
 
     def _device_chunk(self, ids: np.ndarray, fresh: bool) -> None:
         if fresh:
-            seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device)
+            seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device, self._mesh)
             self._seq_state = (None, seq)
         _, seq = self._seq_state
         ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
-        logits, seq = llama.forward(self._params, ids_t, seq, self._cfg, self._dtype)
+        logits, seq = llama.forward(self._params, ids_t, seq, self._cfg, self._dtype,
+                                    self._mesh)
         self._seq_state = (logits[0], seq)
 
-    def _device_insert(self, slot_idx, L, slot_key, req, last_idx) -> int:
+    def replay_chunk(self, ids, fresh) -> None:
+        """Follower side of one prefill chunk."""
+        self._device_chunk(np.asarray(ids), bool(fresh))
+
+    def _device_insert(self, slot_idx, L, slot_key, temp, tk, tp, last_idx) -> int:
         last_logits, seq = self._seq_state
         self._seq_state = None
-        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L)
-        return self._install_slot(slot_idx, last_logits[last_idx], slot_key, req)
+        self._cache = llama.insert_sequence(self._cache, seq, slot_idx, L, self._mesh)
+        return self._install_slot(slot_idx, last_logits[last_idx], slot_key, temp, tk, tp)
+
+    def replay_insert(self, slot, length, key_data, temp, tk, tp, last_idx) -> None:
+        """Follower side of a chunked admission's insert."""
+        self._device_insert(int(slot), int(length), self._key(key_data), float(temp),
+                            int(tk), float(tp), int(last_idx))
 
     # -- radix prefix cache --------------------------------------------------
 
@@ -1722,28 +1879,72 @@ class GenerationEngine:
         """A fresh scratch cache with the cached chunks copied in at their
         offsets (host to card; one DMA a tensor from pinned host memory),
         its length set to ``length``.  No logits yet: a suffix chunk always
-        follows (the match stops below the prompt length)."""
-        seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device)
+        follows (the match stops below the prompt length).  A chunk holds
+        every head; a rank of a tp mesh copies in its own."""
+        seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device, self._mesh)
         C = self._prefill_chunk_size
         for i, (ck, cv) in enumerate(cached_kv):
-            seq.k[:, :, i * C:(i + 1) * C].copy_(ck, non_blocking=True)
-            seq.v[:, :, i * C:(i + 1) * C].copy_(cv, non_blocking=True)
+            seq.k[:, :, i * C:(i + 1) * C].copy_(self._head_block(ck), non_blocking=True)
+            seq.v[:, :, i * C:(i + 1) * C].copy_(self._head_block(cv), non_blocking=True)
         self._seq_state = (None, seq._replace(length=int(length)))
 
-    def _read_chunk(self, start: int):
-        """The scratch cache's K/V ``[L, 1, C, NKV, D]`` at ``start``,
-        copied to host memory (pinned on a CUDA engine, so a later seed is
-        one DMA).  The copy waits for the chunk's forward."""
-        _, seq = self._seq_state
-        C = self._prefill_chunk_size
+    def replay_seed(self, ks, vs, length) -> None:
+        """Follower side of a prefix-cache seed of the scratch cache."""
+        self._device_seed(list(zip(ks, vs)), int(length))
+
+    def _head_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of a position-major ``[L, 1, C, NKV, D]`` chunk."""
+        if self._mesh is None or self._mesh.tp == 1:
+            return t
+        n = t.shape[3] // self._mesh.tp
+        h0 = self._mesh.index("tp") * n
+        return t[:, :, :, h0:h0 + n]
+
+    def _gather_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's heads of a position-major chunk, in head order."""
+        if self._mesh is None or self._mesh.tp == 1:
+            return t
+        return all_gather_concat(t, self._mesh.group("tp"), axis=3)
+
+    def _to_host(self, srcs) -> list:
+        """Copies in host memory (pinned on a CUDA engine, so a later seed is
+        one DMA); the copy waits for the forward that wrote them."""
         pin = self._device.type == "cuda"
         out = []
-        for buf in (seq.k, seq.v):
-            src = buf[:, :, start:start + C]
+        for src in srcs:
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
             host.copy_(src)
             out.append(host)
         return out
+
+    def _read_op(self, slot: int, start: int):
+        """A chunk's K/V for the prefix cache: the scratch cache's (``slot``
+        -1) or cache row ``slot``'s.  On a mesh of several ranks the read
+        gathers across ranks, so it is an op every rank runs."""
+        if slot < 0:
+            def fn():
+                return self._read_chunk(start)
+        else:
+            def fn():
+                return self._read_chunk_slot(slot, start)
+        if self._mesh is None:
+            return fn()
+        return self._run_op(OP_GEN_READ, {"slot": int(slot), "start": int(start)}, fn)
+
+    def replay_read(self, slot, start) -> None:
+        """Follower side of a read: join its gathers, keep nothing."""
+        if int(slot) < 0:
+            self._read_chunk(int(start))
+        else:
+            self._read_chunk_slot(int(slot), int(start))
+
+    def _read_chunk(self, start: int):
+        """The scratch cache's K/V ``[L, 1, C, NKV, D]`` at ``start``, every
+        head, copied to host memory."""
+        _, seq = self._seq_state
+        C = self._prefill_chunk_size
+        return self._to_host(self._gather_heads(buf[:, :, start:start + C])
+                             for buf in (seq.k, seq.v))
 
     def _read_chunk_slot(self, slot: int, start: int):
         """Packed mode's :meth:`_read_chunk`: cache row ``slot``'s K/V at
@@ -1751,35 +1952,52 @@ class GenerationEngine:
         (the radix cache's layout, so entries serve either mode), copied to
         host memory (pinned on a CUDA engine).  The int8 cache dequantizes
         on the way out; requantizing ``code * scale`` in bf16 gives the code
-        and the scale back (the per-head max is kept)."""
+        and the scale back (the per-head max is kept).  Under dp > 1 the row's
+        shard reads it and a dp psum (its values plus zeros) brings it to
+        every rank."""
         C = self._prefill_chunk_size
-        at = (slice(None), slice(slot, slot + 1), slice(None), slice(start, start + C))
+        rows = llama._dp_rows(self._mesh, self.max_slots)
+        owned = rows is None or rows.start <= slot < rows.stop
+        local = slot if rows is None else (slot - rows.start if owned else 0)
+        at = (slice(None), slice(local, local + 1), slice(None), slice(start, start + C))
         cache = self._cache
         if self._kv_quant:
             bufs = [(q8[at].to(self._dtype) * sc[at]).to(self._dtype)
                     for q8, sc in ((cache.k8, cache.k_scale), (cache.v8, cache.v_scale))]
         else:
             bufs = [cache.k[at], cache.v[at]]
-        pin = self._device.type == "cuda"
-        out = []
-        for src in bufs:
-            src = src.transpose(2, 3)  # head-major -> position-major
-            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
-            host.copy_(src)
-            out.append(host)
-        return out
+        if rows is not None:
+            bufs = [psum(b if owned else torch.zeros_like(b), self._mesh.group("dp"))
+                    for b in bufs]
+        # head-major -> position-major
+        return self._to_host(self._gather_heads(b.transpose(2, 3)) for b in bufs)
+
+    def _seed_slot_op(self, cached_kv: list, slot: int) -> None:
+        self._run_op(OP_GEN_SEED_SLOT, {"ks": [k for k, _ in cached_kv],
+                                        "vs": [v for _, v in cached_kv], "slot": int(slot)},
+                     lambda: self._device_seed_slot(cached_kv, slot))
+
+    def replay_seed_slot(self, ks, vs, slot) -> None:
+        """Follower side of a seed of a cache row."""
+        self._device_seed_slot(list(zip(ks, vs)), int(slot))
 
     def _device_seed_slot(self, cached_kv: list, slot: int) -> None:
         """Packed mode's :meth:`_device_seed`: the cached chunks (host
         pairs ``[L, 1, C, NKV, D]``, position-major) copied into the reserved
         cache row ``slot`` at their offsets, head-major, quantized on the
-        int8 cache (one DMA a tensor from pinned host memory)."""
+        int8 cache (one DMA a tensor from pinned host memory).  On a mesh a
+        rank copies its heads, and under dp only the row's shard copies."""
         C = self._prefill_chunk_size
         cache = self._cache
+        rows = llama._dp_rows(self._mesh, self.max_slots)
+        if rows is not None:
+            if not rows.start <= slot < rows.stop:
+                return
+            slot -= rows.start
         for i, (ck, cv) in enumerate(cached_kv):
             at = (slice(None), slice(slot, slot + 1), slice(None), slice(i * C, (i + 1) * C))
-            kh, vh = (x.to(self._device, non_blocking=True).transpose(2, 3).to(self._dtype)
-                      for x in (ck, cv))
+            kh, vh = (self._head_block(x).to(self._device, non_blocking=True).transpose(2, 3)
+                      .to(self._dtype) for x in (ck, cv))
             if self._kv_quant:
                 cache.k8[at], cache.k_scale[at] = llama._quant_kv(kh)
                 cache.v8[at], cache.v_scale[at] = llama._quant_kv(vh)
@@ -1810,10 +2028,7 @@ class GenerationEngine:
         chunk_idx = start // C
         if self._prefix_cache.has_chunk(prog.req.prompt, chunk_idx):
             return
-        if prog.slot >= 0:
-            ck, cv = self._read_chunk_slot(prog.slot, start)
-        else:
-            ck, cv = self._read_chunk(start)
+        ck, cv = self._read_op(prog.slot, start)
         self._prefix_cache.insert_chunk(prog.req.prompt, chunk_idx, ck, cv)
 
     def _chunk_tick(self) -> None:
@@ -1830,7 +2045,10 @@ class GenerationEngine:
             # fresh scratch cache; those tokens never re-prefill.  The
             # suffix chunks start next tick (the decode cadence is kept).
             t0 = time.perf_counter()
-            self._device_seed(prog.cached_kv, prog.cached_tokens)
+            kv, n = prog.cached_kv, prog.cached_tokens
+            self._run_op(OP_GEN_SEED, {"ks": [k for k, _ in kv], "vs": [v for _, v in kv],
+                                       "length": n},
+                         lambda: self._device_seed(kv, n))
             prog.seeded = True
             prog.cached_kv = []  # the cache keeps the host copies
             self._note_prefix_hit(prog)
@@ -1843,7 +2061,9 @@ class GenerationEngine:
         ids = prog.chunks[prog.next_idx]
         offset = prog.cached_tokens + prog.next_idx * C
         t0 = time.perf_counter()
-        self._device_chunk(ids, fresh=prog.next_idx == 0 and not prog.seeded)
+        fresh = prog.next_idx == 0 and not prog.seeded
+        self._run_op(OP_GEN_CHUNK, {"ids": ids, "fresh": fresh},
+                     lambda: self._device_chunk(ids, fresh=fresh))
         self.prefill_forwards += 1
         self._sync_tick()
         self._record_tick("prefill", t0, time.perf_counter() - t0,
@@ -1863,10 +2083,13 @@ class GenerationEngine:
         L = int(req.prompt.size)
         slot_key = self._slot_key_for(req)
         t0 = time.perf_counter()
-        first = self._device_insert(  # read back: synced
-            slot_idx, L, slot_key, req,
-            last_idx=(L - 1) - prog.cached_tokens - C * (len(prog.chunks) - 1),
-        )
+        last_idx = (L - 1) - prog.cached_tokens - C * (len(prog.chunks) - 1)
+        first = self._run_op(  # read back: synced
+            OP_GEN_INSERT,
+            {"slot": slot_idx, "length": L, "key_data": _key_data(slot_key),
+             "temp": req.temperature, "tk": req.top_k, "tp": req.top_p, "last_idx": last_idx},
+            lambda: self._device_insert(slot_idx, L, slot_key, req.temperature, req.top_k,
+                                        req.top_p, last_idx))
         self._record_tick("prefill", t0, time.perf_counter() - t0,
                           active_slots=self._occupied(), batch_fill=1, tokens=1)
         if req.trace is not None:
@@ -1935,15 +2158,22 @@ class GenerationEngine:
         n = len(chunk_progs)
         ids, slots, offsets = self._parked_batch(self._pack_bucket(n),
                                                  [p.slot for p in chunk_progs])
-        finals = []  # (row, progress, last real position in the chunk, key)
+        # (row, slot, length, last real position in the chunk, key, temp, tk, tp)
+        finals = []
         for i, prog in enumerate(chunk_progs):
             ids[i] = prog.chunks[prog.next_idx][0]
             offsets[i] = prog.cached_tokens + prog.next_idx * C
             if prog.next_idx == len(prog.chunks) - 1:
-                last = int(prog.req.prompt.size) - 1 - int(offsets[i])
-                finals.append((i, prog, last, self._slot_key_for(prog.req)))
+                req = prog.req
+                L = int(req.prompt.size)
+                finals.append((i, prog.slot, L, L - 1 - int(offsets[i]),
+                               self._slot_key_for(req), req.temperature, req.top_k, req.top_p))
         t0 = time.perf_counter()
-        firsts = self._device_chunks(ids, slots, offsets, finals)
+        firsts = self._run_op(
+            OP_GEN_CHUNKS,
+            {"ids": ids, "slots": slots, "offsets": offsets,
+             "finals": [f[:4] + (_key_data(f[4]),) + f[5:] for f in finals]},
+            lambda: self._device_chunks(ids, slots, offsets, finals))
         self.prefill_chunks_dispatched += n
         self.prefill_forwards += 1
         if self._on_prefill_batch is not None:
@@ -1954,7 +2184,8 @@ class GenerationEngine:
         attended = float(offsets[:n].mean()) + C / 2
         self._record_tick("packed-prefill", t0, time.perf_counter() - t0,
                           active_slots=self._occupied(), batch_fill=n, tokens=len(finals),
-                          cost=self._cost_prefill(len(ids), C, attended=attended))
+                          cost=self._cost_prefill(len(ids), C, attended=attended,
+                                                  packed=True))
         for i, prog in enumerate(chunk_progs):
             self._note_chunk(prog)
             self._maybe_cache_chunk(prog)
@@ -1972,7 +2203,7 @@ class GenerationEngine:
         """A packed admission's radix-cached prefix seeded straight into
         its reserved row: one seed tick."""
         t0 = time.perf_counter()
-        self._device_seed_slot(prog.cached_kv, prog.slot)
+        self._seed_slot_op(prog.cached_kv, prog.slot)
         prog.seeded = True
         prog.cached_kv = []
         self._note_prefix_hit(prog)
@@ -1998,13 +2229,18 @@ class GenerationEngine:
         logits, self._cache = llama.prefill_chunks_ragged(
             self._params, torch.as_tensor(ids, device=dev), self._cache,
             torch.as_tensor(slots, device=dev), torch.as_tensor(offsets, device=dev),
-            self._cfg, self._dtype,
+            self._cfg, self._dtype, self._mesh,
         )
         firsts = {}
-        for row, prog, last, slot_key in finals:
-            self._cache.lengths[prog.slot] = int(prog.req.prompt.size)
-            firsts[row] = self._install_slot(prog.slot, logits[row, last], slot_key, prog.req)
+        for row, slot, length, last, slot_key, temp, tk, tp in finals:
+            self._cache.lengths[slot] = int(length)
+            firsts[row] = self._install_slot(slot, logits[row, last], slot_key, temp, tk, tp)
         return firsts
+
+    def replay_chunks(self, ids, slots, offsets, finals) -> None:
+        """Follower side of a packed prefill forward and its finalizes."""
+        finals = [f[:4] + (self._key(f[4]),) + tuple(f[5:]) for f in finals]
+        self._device_chunks(np.asarray(ids), np.asarray(slots), np.asarray(offsets), finals)
 
     def _record_token(self, slot_idx: int, token: int, t: float | None = None) -> None:
         """Credit one emitted token to a slot at time ``t`` (now when
@@ -2095,7 +2331,8 @@ class GenerationEngine:
             return
         t0 = time.perf_counter()
         self._beat("decode")
-        self._device_step(active_np, window, sampling)
+        self._run_op(OP_GEN_STEP, {"active": active_np, "window": window, "sampling": sampling},
+                     lambda: self._device_step(active_np, window, sampling))
         toks = self._tokens[:, 0].cpu().numpy()
         wall = time.perf_counter() - t0
         self.decode_forwards += 1
@@ -2107,11 +2344,15 @@ class GenerationEngine:
             if was_active and self._slots[i] is not None:
                 self._record_token(i, int(toks[i]))
 
+    def replay_step(self, active, window, sampling) -> None:
+        """Follower side of a decode tick."""
+        self._device_step(np.asarray(active), int(window), bool(sampling))
+
     def _device_step(self, active_np, window: int, sampling: bool) -> None:
         active = torch.as_tensor(active_np, device=self._device)
         logits, self._cache = llama.decode_ragged(
             self._params, self._tokens, self._cache, self._cfg, active,
-            self._dtype, window,
+            self._dtype, window, self._mesh,
         )
         last = logits[:, -1, :]
         if sampling:
@@ -2161,6 +2402,9 @@ class GenerationEngine:
         prog = self._program
         prog.load(self._tokens, self._cache.lengths, self._keys, self._temps, self._topk,
                   self._topp, active_np, remaining, eos_ids)
+        # The burst entry's host inputs ride the first op; chained ones carry
+        # none: each follower chains from its own replay's state.
+        entry = {"active": active_np, "remaining": remaining, "eos_ids": eos_ids}
         pending = None  # (host buffer, t0, window) of the dispatch not yet harvested
         while True:
             # The window covers the LAST step's positions: a row crossing a
@@ -2171,7 +2415,10 @@ class GenerationEngine:
                                           self.capacity)
             t0 = time.perf_counter()
             self._beat("multistep")
-            handle = self._device_multistep(window, sampling)
+            handle = self._run_op(
+                OP_GEN_MULTISTEP, {"window": window, "sampling": sampling, **entry},
+                lambda: self._device_multistep(window, sampling))
+            entry = {}
             for i in range(B):
                 emit = min(int(rem_hi[i]), K)
                 hi[i] += emit
@@ -2223,6 +2470,22 @@ class GenerationEngine:
                 if self._slots[i] is None:
                     break  # finished (EOS, budget) or cancelled mid-block
 
+    def replay_multistep(self, window, sampling, active=None, remaining=None,
+                         eos_ids=None) -> None:
+        """Follower side of a fused K-step dispatch: a burst's first op loads
+        the program from the engine's state, and after every dispatch the
+        chained state is the engine's (the leader copies it back at the
+        burst's end, before anything else reads it)."""
+        prog = self._program
+        if active is not None:
+            prog.load(self._tokens, self._cache.lengths, self._keys, self._temps,
+                      self._topk, self._topp, active, remaining, eos_ids)
+        self._device_multistep(int(window), bool(sampling))
+        self._tokens = prog.tokens.clone()
+        self._cache = self._cache._replace(lengths=prog.lengths.clone())
+        if sampling:
+            self._keys = prog.keys.clone()
+
     def _device_multistep(self, window: int, sampling: bool) -> int:
         """One K-step dispatch on the program's chained state; returns the
         host buffer its harvest reads."""
@@ -2266,7 +2529,10 @@ class GenerationEngine:
             draft_len[i] = len(drafts[i])
         t0 = time.perf_counter()
         self._beat("verify")
-        greedy, accepted = self._device_verify(toks, active_np, draft_len, window)
+        greedy, accepted = self._run_op(
+            OP_GEN_VERIFY,
+            {"toks": toks, "active": active_np, "draft_len": draft_len, "window": window},
+            lambda: self._device_verify(toks, active_np, draft_len, window))
         wall = time.perf_counter() - t0
         self.decode_forwards += 1
         self.spec_verify_ticks += 1
@@ -2296,6 +2562,11 @@ class GenerationEngine:
                 if self._slots[i] is None:
                     break
 
+    def replay_verify(self, toks, active, draft_len, window) -> None:
+        """Follower side of a speculative verify tick."""
+        self._device_verify(np.asarray(toks), np.asarray(active), np.asarray(draft_len),
+                            int(window))
+
     def _device_verify(self, toks, active_np, draft_len, window):
         """``verify_ragged``, the greedy argmax, ``speculative_accept``,
         then each active row's length advanced by accepted + 1 (the
@@ -2306,6 +2577,7 @@ class GenerationEngine:
         active = torch.as_tensor(active_np, device=dev)
         logits, self._cache = llama.verify_ragged(
             self._params, toks_t, self._cache, self._cfg, self._dtype, window, active,
+            self._mesh,
         )
         greedy = torch.argmax(logits, dim=-1)
         accepted, nxt = speculative_accept(
@@ -2414,9 +2686,10 @@ class GenerationEngine:
         window = superstep_window(decode_hi, other_hi, K, self.capacity)
         n_pre = len(chunk_progs)
         t0 = time.perf_counter()
-        out = self._device_superstep(ids, roles, offsets, counts, draft_len, active,
-                                     remaining, eos_ids, last_pos, final_lens, slot_keys,
-                                     r_temps, r_tks, r_tps, window, sampling)
+        args = (ids, roles, offsets, counts, draft_len, active, remaining, eos_ids, last_pos,
+                final_lens, slot_keys, r_temps, r_tks, r_tps, window, sampling)
+        out = self._run_op(OP_GEN_SUPERSTEP, dict(zip(_SUPERSTEP_ARGS, args)),
+                           lambda: self._device_superstep(*args))
         end = time.perf_counter()
         wall = end - t0
         # The finalize draws every row's first token; a sampling tick adds K steps.
@@ -2479,6 +2752,11 @@ class GenerationEngine:
                 self._record_token(i, int(out.tok_block[i, j]), t=base + span * (j + 1) / n)
                 if self._slots[i] is None:
                     break  # finished (EOS, budget) or cancelled mid-block
+
+    def replay_superstep(self, **inputs) -> None:
+        """Follower side of a unified super-step tick (self-contained host
+        inputs: nothing chains from the leader)."""
+        self._device_superstep(*(inputs[k] for k in _SUPERSTEP_ARGS))
 
     def _device_superstep(self, ids, roles, offsets, counts, draft_len, active, remaining,
                           eos_ids, last_pos, final_lens, slot_keys, r_temps, r_tks, r_tps,
@@ -2676,6 +2954,13 @@ class GenerationEngine:
             self._pending = []
             self._reserved.clear()
         try:
-            self._reset_device_state()
+            # Followers ran the op that failed here (or failed it first):
+            # every rank drops to the same fresh state, or each later
+            # replayed op would run on disagreeing state.
+            self._run_op(OP_GEN_RESET, {}, self._reset_device_state)
         except Exception:
             _log.exception("device state reallocation failed")
+
+    def replay_reset(self) -> None:
+        """Follower side of the leader's recovery."""
+        self._reset_device_state()

@@ -32,9 +32,21 @@ served tree straight onto the device with no transform work; a miss loads
 cold and, for a causal LM, bakes the snapshot once from the served
 (post-quantize) tree.  A mismatched snapshot is one warning and a cold
 load; a corrupt one is moved aside (``<path>.corrupt-<pid>``) and baked
-again.  The port serves on one device, so its identity's mesh is
-``SNAPSHOT_MESH``, the JAX package's default ``meshShape``: a snapshot
-baked by a JAX replica at that mesh restores here, and the other way.
+again.  A snapshot's identity's mesh is ``SNAPSHOT_MESH``, the JAX
+package's default ``meshShape``: a snapshot baked by a JAX replica at that
+mesh restores here, and the other way.
+
+``mesh_shape`` of several ranks (one process a rank, the process group
+formed first: ``parallel/distributed.py``): a Llama is validated against
+the mesh, then each rank reads the native artifact or the HF checkpoint
+one leaf at a time on the host (:func:`_llama_blocks`): the leaf at the
+serving type, its int8 scale from the whole leaf (so an o/down scale is
+the whole channel's before the row split), cut to the rank's block by the
+rule table (``models/partition.LLAMA_PARTITION_RULES``), and only the
+block copied to the device.  A rank's device never holds a full leaf;
+its host reads a native artifact one leaf at a time (``transformers``
+loads an HF checkpoint whole first).  Every other flavor, and snapshots,
+serve on one rank and refuse such a mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import numpy as np
 import torch
 
 from ..convert import to_numpy, to_tensor
+from ..models import quantization
 from ..models.registry import BUILDERS, Predictor, get_builder
 from .generation import resolve_device
 
@@ -226,14 +239,67 @@ def _cast_floats(tree: Any, dtype) -> Any:
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+def _leaf_dtype(key: str, dtype):
+    # int8 leaves of a pre-quantized tree keep their type (``to_tensor``
+    # casts float leaves only); their scales stay f32 whatever the serving
+    # type.
+    return None if key.endswith(f"{_SEP}scale") else dtype
+
+
 def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
     with np.load(path, allow_pickle=False) as npz:
-        flat = {}
-        for key in npz.files:
-            # int8 leaves of a pre-quantized tree keep their type; their
-            # scales stay f32 whatever the serving type.
-            leaf_dtype = None if key.endswith(f"{_SEP}scale") else dtype
-            flat[key] = to_tensor(npz[key], dev, leaf_dtype)
+        flat = {key: to_tensor(npz[key], dev, _leaf_dtype(key, dtype)) for key in npz.files}
+    return _unflatten(flat)
+
+
+# The Llama leaves ``quantize_llama`` turns into int8, by flattened key.
+_LLAMA_QUANTIZED = frozenset(
+    [f"layers{_SEP}{n}" for n in quantization._LLAMA_LAYER_MATS] + ["lm_head"]
+)
+
+
+def _place(block: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """Copy one of a rank's blocks to its device (every tensor a rank of a
+    mesh keeps goes through here)."""
+    return block.to(dev)
+
+
+def _llama_blocks(leaves, mesh, dev: torch.device, quantize: str,
+                  stats: dict | None) -> Any:
+    """This rank's blocks of a Llama tree from ``leaves``, an iterable of
+    ``(flattened key, full host tensor at the serving type)`` read one at a
+    time.  A leaf ``quantize_llama`` quantizes takes its scale from the
+    whole leaf (``quantization.channel_scale``), then the rule table cuts
+    the leaf as its ``q8`` plane and the scale as its ``scale`` plane, and
+    the block quantizes with its cut of the scale: equal, code for code, to
+    cutting the quantized full tree.  Only blocks are copied to ``dev``;
+    each full leaf is dropped before the next is read."""
+    from ..models.partition import shard_llama_params
+
+    flat: dict[str, Any] = {}
+    quantize_s = 0.0
+    for key, leaf in leaves:
+        quantized = quantize != "none" and key in _LLAMA_QUANTIZED
+        if quantized:
+            t0 = time.perf_counter()
+            part = {f"{key}{_SEP}q8": leaf,
+                    f"{key}{_SEP}scale": quantization.channel_scale(leaf)}
+            quantize_s += time.perf_counter() - t0
+        else:
+            part = {key: leaf}
+        del leaf
+        block = _flatten(shard_llama_params(_unflatten(part), mesh))
+        del part
+        if quantized:
+            t0 = time.perf_counter()
+            q8 = f"{key}{_SEP}q8"
+            block[q8] = quantization.quantize_with_scale(block[q8], block[f"{key}{_SEP}scale"])
+            quantize_s += time.perf_counter() - t0
+        for k, b in block.items():
+            flat[k] = _place(b, dev)
+        del block
+    if stats is not None and quantize != "none":
+        stats["quantize_s"] = round(quantize_s, 3)
     return _unflatten(flat)
 
 
@@ -362,6 +428,7 @@ def load_predictor(
     dtype=torch.bfloat16,
     load_stats: dict | None = None,
     snapshot_dir: str | None = None,
+    mesh_shape: dict | None = None,
 ) -> Predictor:
     """Load a model artifact (see the module docstring) onto ``device``
     (``cuda`` unless named).
@@ -384,13 +451,26 @@ def load_predictor(
 
     ``load_stats`` receives the load's stage seconds: ``restore_s``,
     ``disk_s``, ``transfer_s`` and ``read_gib`` when a snapshot served it,
-    else ``quantize_s`` (quantized loads) and ``wall_s``.  ``snapshot_dir``:
-    see the module docstring."""
+    else ``quantize_s`` (quantized loads) and ``wall_s``.  ``snapshot_dir``
+    and ``mesh_shape``: see the module docstring."""
     quantize = quantize or "none"
     if quantize not in QUANTIZE_MODES:
         raise ModelLoadError(f"unknown quantize mode {quantize!r}")
     dev = resolve_device(device)
     t0 = time.perf_counter()
+    from ..models.partition import mesh_device_count
+
+    if mesh_device_count(mesh_shape) > 1:
+        if snapshot_dir:
+            raise ModelLoadError(
+                f"meshShape {dict(mesh_shape)}: weight snapshots at a world above one rank "
+                "(the sharded snapshot layout) are not yet ported"
+            )
+        pred, _, _ = _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats,
+                                mesh_shape=dict(mesh_shape))
+        if load_stats is not None and "wall_s" not in load_stats:
+            load_stats["wall_s"] = round(time.perf_counter() - t0, 3)
+        return pred
     if snapshot_dir:
         pred = _try_restore_snapshot(model_uri, snapshot_dir, quantize, dev, dtype,
                                      load_stats)
@@ -450,7 +530,42 @@ def _finish(flavor: str, params, cfg, raw_config: dict, quantize: str,
     return params, cfg
 
 
-def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
+def _mesh_for_flavor(flavor: str, cfg: Any, mesh_shape: dict | None):
+    """This rank's mesh for a Llama on a mesh of several ranks, the geometry
+    checked first (a bad tp fails typed here, before any weight is read);
+    None for one rank.  Every other flavor serves on one rank (BERT's tp is
+    not yet ported)."""
+    from ..models import partition
+
+    if partition.mesh_device_count(mesh_shape) <= 1:
+        return None
+    if flavor != "llama-generate":
+        raise ModelLoadError(
+            f"meshShape {mesh_shape}: flavor {flavor!r} serves on one rank; its tensor "
+            "and data parallelism are not yet ported"
+        )
+    try:
+        partition.validate_llama_mesh(cfg, mesh_shape)
+    except ValueError as e:
+        raise ModelLoadError(str(e)) from None
+    from ..parallel import build_mesh
+
+    mesh = build_mesh(mesh_shape)
+    _log.info("loading this rank's blocks of %s over mesh %s (rank %d, coordinates %s)",
+              flavor, mesh_shape, mesh.rank, mesh.coords)
+    return mesh
+
+
+def _hf_leaves(params: Any, dtype):
+    """An HF Llama's leaves one at a time, cast as the one-rank path casts
+    the tree (bfloat16 first, as the reference serves a checkpoint, then
+    ``dtype``)."""
+    for key, leaf in _flatten(params).items():
+        leaf = leaf.to(torch.bfloat16)
+        yield key, (leaf.to(dtype) if dtype is not None else leaf)
+
+
+def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=None):
     """The load without a snapshot: ``(predictor, flavor, artifact meta)``."""
     path = resolve_uri(model_uri)
     cfg_file = path / "config.json"
@@ -468,35 +583,51 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats):
             )
         raw_config = meta.get("config", {})
         cfg = _build_config(flavor, raw_config)
-        # Llama is read straight at the serving type; the others as stored.
-        params = _read_npz(path / "params.npz", dev,
-                           dtype if flavor == "llama-generate" else None)
-        params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
-                              load_stats)
+        mesh = _mesh_for_flavor(flavor, cfg, mesh_shape)
+        if mesh is not None:
+            with np.load(path / "params.npz", allow_pickle=False) as npz:
+                params = _llama_blocks(
+                    ((k, to_tensor(npz[k], None, _leaf_dtype(k, dtype))) for k in npz.files),
+                    mesh, dev, quantize, load_stats)
+        else:
+            # Llama is read straight at the serving type; the others as stored.
+            params = _read_npz(path / "params.npz", dev,
+                               dtype if flavor == "llama-generate" else None)
+            params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
+                                  load_stats)
         _log.info("loaded native %s model from %s onto %s (quantize=%s)",
                   flavor, path, dev, quantize)
         kwargs = dict(meta.get("builder_kwargs", {}))
+        if mesh is not None:
+            kwargs["mesh"] = mesh
         # BERT with dtype None computes in its stored type; Llama never does.
         build_dtype = serving_dtype if flavor == "llama-generate" else dtype
         pred = _log_capacity(get_builder(flavor)(params, cfg=cfg, dtype=build_dtype, **kwargs),
-                             quantize)
+                             quantize, mesh.tp if mesh is not None else 1)
         return pred, flavor, meta
 
     hf_dir = _find_hf_checkpoint(path)
     if hf_dir is not None:
         flavor, params, cfg, kwargs, raw_config = _load_transformers(hf_dir)
-        params = _cast_floats(params, torch.bfloat16)
-        if flavor == "llama-generate" and dtype is not None:
-            params = _cast_floats(params, dtype)
-        params = _to_device(params, dev)
-        params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
-                              load_stats)
+        mesh = _mesh_for_flavor(flavor, cfg, mesh_shape)
+        if mesh is not None:
+            params = _llama_blocks(_hf_leaves(params, dtype), mesh, dev, quantize,
+                                   load_stats)
+        else:
+            params = _cast_floats(params, torch.bfloat16)
+            if flavor == "llama-generate" and dtype is not None:
+                params = _cast_floats(params, dtype)
+            params = _to_device(params, dev)
+            params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
+                                  load_stats)
         _log.info("loaded transformers %s model from %s onto %s (quantize=%s)",
                   flavor, hf_dir, dev, quantize)
         pred = _log_capacity(get_builder(flavor)(params, cfg=cfg, dtype=serving_dtype,
-                                                 **kwargs), quantize)
+                                                 **kwargs, **({"mesh": mesh} if mesh else {})),
+                             quantize, mesh.tp if mesh is not None else 1)
         return pred, flavor, {"config": dataclasses.asdict(cfg), "builder_kwargs": kwargs}
 
+    _mesh_for_flavor(flavor or "sklearn/xgboost/pyfunc", None, mesh_shape)
     if quantize != "none":
         # What remains are sklearn / xgboost / pyfunc artifacts, with no
         # weight matmuls to quantize: refuse loudly instead of ignoring.
@@ -637,14 +768,14 @@ def _maybe_write_snapshot(pred: Predictor, model_uri: str, snapshot_dir: str,
         _log.warning("snapshot write failed (serving unaffected): %s", e)
 
 
-def _log_capacity(predictor: Predictor, quantize: str) -> Predictor:
+def _log_capacity(predictor: Predictor, quantize: str, tp: int = 1) -> Predictor:
     """Stamp a causal LM's model-capacity line (weights by dtype, KV bytes
-    a row, the cache rows that fit), with or without device telemetry;
-    returns the predictor."""
+    a row, the cache rows that fit; a rank's own at ``tp`` > 1), with or
+    without device telemetry; returns the predictor."""
     lm = predictor.causal_lm
     if lm:
         from .device_telemetry import capacity_log_line
 
         _capacity_log.info("%s", capacity_log_line(lm["params"], lm["cfg"],
-                                                   kv_quant=quantize == "int8kv"))
+                                                   kv_quant=quantize == "int8kv", tp=tp))
     return predictor

@@ -343,6 +343,7 @@ class ServerMetrics:
         self.compile_seconds = None
         self.compile_cache_hits = None
         self.compile_cache_misses = None
+        self.engine_collective_seconds = None
         if device_telemetry:
             self.device_hbm_bytes = Gauge(
                 "tpumlops_device_hbm_bytes",
@@ -359,6 +360,13 @@ class ServerMetrics:
                 "HBM bandwidth utilization of the most recent engine "
                 "tick of each kind (analytic bytes / device peak)",
                 ident + ["kind"], lock)
+            self.engine_collective_seconds = Counter(
+                "tpumlops_engine_collective_seconds",
+                "Estimated interconnect collective wall seconds per engine "
+                "dispatch at tp > 1, by op (all_reduce = the Megatron "
+                "o/down psum pair per layer, all_gather = the vocab-"
+                "sharded logits gather), from the analytic cost model",
+                ident + ["op"], lock)
             self.compile_seconds = Counter(
                 "tpumlops_compile_seconds",
                 "Kernel build (nvcc) and CUDA graph capture wall seconds, "
@@ -372,7 +380,7 @@ class ServerMetrics:
                 "tpumlops_compile_cache_misses",
                 "Kernel builds that ran nvcc", ident, lock)
             families += [self.device_hbm_bytes, self.device_mfu, self.device_hbm_bw_util,
-                         self.compile_seconds, self.compile_cache_hits,
+                         self.engine_collective_seconds, self.compile_seconds, self.compile_cache_hits,
                          self.compile_cache_misses]
         self._families = (
             self.client_requests, self.server_requests, self.batch_size,
@@ -455,6 +463,10 @@ class ServerMetrics:
     def observe_hbm_component(self, component: str, nbytes: int) -> None:
         if self.device_hbm_bytes is not None:
             self.device_hbm_bytes.set({**self.identity, "component": component}, nbytes)
+
+    def observe_collective(self, op: str, seconds: float) -> None:
+        if self.engine_collective_seconds is not None:
+            self.engine_collective_seconds.inc({**self.identity, "op": op}, seconds)
 
     def observe_device_util(self, kind: str, mfu: float, bw_util: float) -> None:
         if self.device_mfu is not None:

@@ -29,8 +29,9 @@ piece to the card asynchronously; a buffer is reused once its copy is done.
 
 Only the single-device layout is ported.  The JAX package's tensor-parallel
 layout (a leaf's ``shards``, an identity with a mesh of more than one
-device) waits for the port's parallelism: such a manifest is a
-:class:`SnapshotMismatch`, a miss and a cold load, never a partial restore.
+device) waits for the sharded snapshot layout, the slice after the port's
+tp and dp: such a manifest is a :class:`SnapshotMismatch`, a miss and a
+cold load, never a partial restore.
 
 Identity and invalidation: keyed by a content hash of ``(model uri,
 quantize mode, mesh shape, format version)``; any mismatch misses and the
@@ -278,7 +279,8 @@ def check_placeable(manifest: dict) -> None:
     if devices > 1 or any("shards" in leaf for leaf in manifest["leaves"]):
         raise SnapshotMismatch(
             f"snapshot baked for mesh {mesh} in the sharded layout; the port "
-            "restores single-device snapshots only")
+            "restores single-device snapshots only (the sharded snapshot layout "
+            "is the next slice of its parallelism)")
 
 
 def load_snapshot(path: str | Path, *, identity: dict[str, Any] | None = None,

@@ -7,7 +7,9 @@ against the JAX package.
   bf16 and int8 trees, dense and int8kv caches); the HBM ledger, its
   snapshot (the same peaks), the weight bytes by dtype and the KV row
   bytes equal the reference's; ``tick_util`` equals the reference's on the
-  same peaks and clamps the same way.
+  same peaks and clamps the same way.  At tp > 1 the collective seconds
+  count the dispatch's own tokens (a rank's rows x positions x steps), not
+  tokens read back from flops that count the attention's padded window.
 - Peaks: the H100's published figures, detected on a card whose name
   holds "H100", else the same figures marked ``assumed``; the caching
   allocator's counts under the reference's keys; the capacity line.
@@ -17,7 +19,8 @@ against the JAX package.
   watchdog disarmed around a recapture.
 - A port server with every option on: ``/debug/*``, the ``debug``
   timing block, the 422 of a quarantined prompt, ``/debug/profile``, and
-  exactly the reference's ``/metrics`` families less the two listed.
+  exactly the reference's ``/metrics`` families (``NOT_YET`` lists those
+  still to be ported: none).
 """
 
 import http.client
@@ -71,9 +74,9 @@ from tpumlops.server.metrics import ServerMetrics as JaxServerMetrics
 
 JCFG = J.LlamaConfig.tiny(max_seq=64)
 TCFG = T.LlamaConfig.tiny(max_seq=64)
-# The reference family a port server does not register yet: the
-# tensor-parallel collective walls (the mesh).
-NOT_YET = {"tpumlops_engine_collective_seconds"}
+# The reference families a port server does not register yet (the
+# tensor-parallel collective walls came with the mesh).
+NOT_YET: set = set()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -161,6 +164,38 @@ def test_tick_util_equals_the_reference_on_the_same_peaks():
     snap = port.snapshot()
     assert snap["peaks"]["device"] == "nvidia-h100 (assumed)" and snap["hbm"] is None
     assert snap["utilization"] == port.last_util
+
+
+def test_collective_seconds_count_the_dispatch_tokens():
+    """A tp-2, dp-2 engine's decode, K-step, verify, super-step and packed
+    ticks size their collectives by the positions one rank's forward ran;
+    without that count ``tick_util`` derives the tokens from flops as the
+    reference does, which overcounts a long window."""
+    import types
+
+    _, tp = _trees("f32")
+    tel = tdt.DeviceTelemetry()
+    tel.attach_model(tp, TCFG, 4, mesh_shape={"dp": 2, "tp": 2})
+    link = tel.peaks.link_bytes_per_s
+    eng = SimpleNamespace(_telemetry=tel, max_slots=4, _mesh=SimpleNamespace(dp=2))
+    eng._rank_rows = types.MethodType(TG.GenerationEngine._rank_rows, eng)
+    cost = {name: types.MethodType(getattr(TG.GenerationEngine, f"_cost_{name}"), eng)
+            for name in ("decode", "superstep", "prefill", "seed")}
+    cases = ((cost["decode"](48), 2.0), (cost["decode"](48, steps=4), 8.0),
+             (cost["decode"](48, 5), 10.0), (cost["superstep"](48, 8, 4), 22.0),
+             (cost["prefill"](1, 16), 16.0), (cost["prefill"](4, 8, packed=True), 16.0))
+    for (flops, nbytes, tokens), want in cases:
+        assert tokens == want
+        util = tel.tick_util("decode", 0.01, flops, nbytes, tokens)
+        coll = tel.cost.collective_bytes(want)
+        assert util["collective_s"] == float(f"{sum(coll.values()) / link:.3g}")
+    flops, nbytes, tokens = cost["decode"](4000)
+    derived = flops / (2.0 * tel.cost.matmul_params)
+    assert derived > 1.5 * tokens  # the padded window's attention flops
+    coll = tel.cost.collective_bytes(derived)
+    assert tel.tick_util("decode", 0.01, flops, nbytes)["collective_s"] == float(
+        f"{sum(coll.values()) / link:.3g}")
+    assert cost["seed"](8)[2] == 0.0
 
 
 def test_peaks_are_the_h100s_detected_on_an_h100_and_assumed_elsewhere(monkeypatch):
@@ -466,8 +501,10 @@ def test_families_match_the_reference_and_stay_off_when_disabled():
         m.observe_compile("multistep", 0.5)
         m.observe_compile_cache(True)
         m.observe_compile_cache(False)
+        m.observe_collective("all_reduce", 0.002)
     want, got = families(ref.exposition().decode()), families(port.render().decode())
-    for name in ("tpumlops_engine_watchdog_stalls", "tpumlops_engine_watchdog_last_tick_age_seconds",
+    for name in ("tpumlops_engine_collective_seconds",
+                 "tpumlops_engine_watchdog_stalls", "tpumlops_engine_watchdog_last_tick_age_seconds",
                  "tpumlops_engine_poison_quarantined", "tpumlops_engine_poison_rejected",
                  "tpumlops_device_hbm_bytes", "tpumlops_device_mfu", "tpumlops_device_hbm_bw_util",
                  "tpumlops_compile_seconds", "tpumlops_compile_cache_hits",

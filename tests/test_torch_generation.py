@@ -285,10 +285,12 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("channel", object()),
-    ("mesh_shape", {"tp": 2}),
+    ("mesh_shape", {"sp": 2}),
+    ("mesh_shape", {"tp": 2, "sp": 2}),
 ])
 def test_unported_engine_options_raise(tiny, option, value):
+    """Sequence parallelism is the mesh's one axis still to be ported: refused
+    at construction, before any world or device state is needed."""
     _, tcfg, _, tp = tiny
     with pytest.raises(ValueError, match="not yet ported"):
         TG.GenerationEngine(tp, tcfg, device="cpu", **{option: value})
