@@ -4561,6 +4561,10 @@ UNI_K = 4          # decode_steps of both engines
 UNI_REPEATS = 2    # turns, split then unified, then the other way
 UNI_NEW = 24       # new tokens a request
 UNI_BURST = (300, 700, 1000, 1500)  # phase 5d's burst
+# Llama-2-7B's widths at this depth in the int8kv turns of phases 5f and 5g
+# (their engines copy every int8 weight to bf16 each forward, 2.4-3.6x the
+# `none` turns' walls at 32 layers): cut for the smoke's time limit.
+INT8KV_LAYERS = 8
 
 
 def _superstep_vs_eager(engine, prng, lengths=(5, 130, 700, 1500)) -> dict:
@@ -4711,7 +4715,8 @@ def _superstep_vs_eager(engine, prng, lengths=(5, 130, 700, 1500)) -> dict:
     return out
 
 
-def phase_serve_7b_unified(da, rn, fa, ss, smi: str, params, quantize: str) -> dict:
+def phase_serve_7b_unified(da, rn, fa, ss, smi: str, params, quantize: str,
+                           layers: int | None = None) -> dict:
     """Llama-2-7B served by the split engine and the unified super-step
     engine (``--unified-step 1``) on one weight tree, K 4, prefill chunks of
     256 packed 4 at a time, speculation with 4 drafts, in turns: replay
@@ -4720,7 +4725,8 @@ def phase_serve_7b_unified(da, rn, fa, ss, smi: str, params, quantize: str) -> d
     phase 5d's burst, SSE ITL over four seeded streams, the idle share of
     one request, every unified tick a super-step replay (seeds aside) with
     mixed ticks among them, the launch identities of the unified engine's
-    ticks, and greedy agreement between the two engines (reported)."""
+    ticks, and greedy agreement between the two engines (reported).
+    ``layers``: the tree cut to its first ``layers`` layers (widths whole)."""
     import numpy as np
     import torch
     from importlib import import_module
@@ -4732,9 +4738,11 @@ def phase_serve_7b_unified(da, rn, fa, ss, smi: str, params, quantize: str) -> d
     gen = import_module(f"{PKG}.server.generation")
 
     cfg = llama.LlamaConfig.llama2_7b()
+    if layers is not None and layers < cfg.num_layers:
+        params, cfg = _cut_depth(params, layers), dataclasses.replace(cfg, num_layers=layers)
     L = cfg.num_layers
     V = cfg.vocab_size
-    tag = f"7B unified {quantize}"
+    tag = f"7B unified {quantize}" + (f" ({L} layers)" if layers else "")
     predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5277,7 +5285,8 @@ def _preempt_traffic(s: dict, V: int, rng) -> dict:
             "be_bodies": be}
 
 
-def phase_serve_7b_preempt(da, rn, fa, ss, smi: str, params, quantize: str) -> dict:
+def phase_serve_7b_preempt(da, rn, fa, ss, smi: str, params, quantize: str,
+                           layers: int | None = None) -> dict:
     """Phase 5g on Llama-2-7B, uncut: (a) an engine driven by hand
     (``_preempt_by_hand``), the split engine at K 4 on ``none``, the unified
     one on int8kv; (b) a server with ``--slo-class batch --preemption 1``
@@ -5287,7 +5296,8 @@ def phase_serve_7b_preempt(da, rn, fa, ss, smi: str, params, quantize: str) -> d
     the launch identities over the served traffic (counters set to 0 just
     before it); on ``none`` also the same traffic on a server with classes
     but no preemption, whose interactive TTFT the preempting one's is set
-    beside and whose best-effort streams are the clean run."""
+    beside and whose best-effort streams are the clean run.  ``layers``:
+    the tree cut to its first ``layers`` layers (widths whole)."""
     import numpy as np
     import torch
     from importlib import import_module
@@ -5296,9 +5306,11 @@ def phase_serve_7b_preempt(da, rn, fa, ss, smi: str, params, quantize: str) -> d
     registry = import_module(f"{PKG}.models.registry")
     app = import_module(f"{PKG}.server.app")
     cfg = llama.LlamaConfig.llama2_7b()
+    if layers is not None and layers < cfg.num_layers:
+        params, cfg = _cut_depth(params, layers), dataclasses.replace(cfg, num_layers=layers)
     L, V = cfg.num_layers, cfg.vocab_size
     K = 4
-    tag = f"7B preempt {quantize}"
+    tag = f"7B preempt {quantize}" + (f" ({L} layers)" if layers else "")
     predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6135,6 +6147,10 @@ def phase_serve_7b_handoff(da, rn, fa, smi: str, params, device: str = "cuda") -
 ATTACH_PROMPT = 300
 ATTACH_NEW = 16
 ATTACH_K = 4
+# Llama-2-7B's widths at this depth for 5j's snapshot, attach and direct
+# start (at 32 layers the attach's capture alone took 41-60 s): cut for the
+# smoke's time limit.
+ATTACH_LAYERS = 8
 SNAPSHOT_DIR = ROOT / "build" / "smoke_snapshots"  # ignored by git, deleted after
 
 
@@ -6164,15 +6180,17 @@ def phase_serve_7b_attach(da, rn, fa, smi: str, params, quantize_s: float,
                           device: str = "cuda") -> dict:
     """Phase 5j on Llama-2-7B (``params``: the ``int8`` tree, quantized from
     the bf16 draw in ``quantize_s``): its snapshot written under
-    ``SNAPSHOT_DIR`` (the free disk checked first; the depth cut only if the
-    disk cannot hold it), a ``--warm-pool`` server (split K 4, 4 slots,
-    chunks of 256) prewarmed from it, the typed 503s before an attach, the
+    ``SNAPSHOT_DIR`` (the free disk checked first; fewer layers only if the
+    disk cannot hold ``ATTACH_LAYERS``), a ``--warm-pool`` server (split K 4,
+    4 slots, chunks of 256) prewarmed from it, the typed 503s before an attach, the
     attach (a restore, graphs captured after it), one greedy request
     bit-equal to the same tree served directly, a second attach a no-op, a
     flipped byte a typed ``SnapshotError``; on a one-layer full-width
     artifact, an attach of a snapshot with a flipped byte loads cold, bakes
     again and serves.  The attach against the cold path of this run: the
-    quantize, then the direct server's start (its graph capture)."""
+    quantize, then the direct server's start (its graph capture).  The tree
+    is cut to its first ``ATTACH_LAYERS`` layers (widths whole), or fewer
+    where the disk cannot hold that."""
     import numpy as np
     import torch
     from importlib import import_module
@@ -6195,18 +6213,20 @@ def phase_serve_7b_attach(da, rn, fa, smi: str, params, quantize_s: float,
     free = shutil.disk_usage(SNAPSHOT_DIR).free
     # The 7B snapshot, the one-layer artifact (bf16) and its two bakes, with room.
     small = 3 * (tree_bytes - _tree_bytes(params["layers"]) + 2 * per_layer)
-    layers = cfg.num_layers
-    if 1.1 * tree_bytes + small > free:
-        layers = int((free / 1.1 - small - (tree_bytes - per_layer * layers)) // per_layer)
+    layers, why = min(cfg.num_layers, ATTACH_LAYERS), "time limit"
+    if 1.1 * (tree_bytes - per_layer * (full_layers - layers)) + small > free:
+        layers = int((free / 1.1 - small - (tree_bytes - per_layer * full_layers)) // per_layer)
+        why = "disk"
         if layers < 1:
             raise AssertionError(f"{tag}: {free / 2**30:.1f} GiB free cannot hold one layer")
+    if layers < full_layers:
         params = _cut_depth(params, layers)
         cfg = dataclasses.replace(cfg, num_layers=layers)
         tree_bytes = _tree_bytes(params)
     L, V = cfg.num_layers, cfg.vocab_size
     uri = "smoke/llama2-7b-int8"
     res: dict = {"free_disk_gib": free / 2**30, "layers": L,
-                 "cut": None if L == full_layers else f"depth {L} of {full_layers} (disk)"}
+                 "cut": None if L == full_layers else f"depth {L} of {full_layers} ({why})"}
     rng = np.random.default_rng(71)
     body = {"prompt_ids": rng.integers(1, V, ATTACH_PROMPT).tolist(),
             "max_new_tokens": ATTACH_NEW}
@@ -7387,6 +7407,395 @@ def phase_serve_mesh(smi: str, device: str = "cuda") -> dict:
     DETAIL["serve_mesh"] = out
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 9: the control plane's canary (BERT-base promoted 0 -> 100%)
+# ---------------------------------------------------------------------------
+
+CANARY_RATE = 50.0   # V2 requests a second through the router (open loop)
+CANARY_SEQ = 128     # tokens a request (B1)
+CANARY_BUDGET_S = 60.0  # phase 9's share of SMOKE_LIMIT_S
+# The reference's canary: 10% steps from 10%, its error-rate gate at the
+# default 2%, and its latency gate with tolerances the router's histograms
+# can resolve on one card: two equal BERT-base servers there differ by up
+# to 13% in mean latency as the traffic share moves (the busier server
+# queues longer), and a p95 interpolated in the 10/25/50 ms buckets jumps
+# 1.85x when a few requests cross 25 ms; at the default 5% the gate refused
+# 78 times in one promotion and ran out of attempts in another (PERF.md,
+# §6).  So p95 may double (one bucket) and the mean may rise 25%, as the
+# reference's own live local-plane canaries relax them
+# (``clients.localplane.relaxed_gate_spec``).  Only the pacing is cut to
+# seconds.  A canary with no traffic in the window gets the reference's
+# warm-up requests, sent to it directly (a just-started server's first
+# requests are its slowest).  The kernel cache is the checkout's, which the
+# servers share.
+CANARY_SPEC = {
+    "modelName": "bert-base", "modelAlias": "prod", "backend": "cuda",
+    "monitoringInterval": 0.2,
+    "thresholds": {"latencyP95": 1.0, "latencyAvg": 0.25},
+    "canary": {"stepInterval": 0.5, "attemptDelay": 0.3, "maxAttempts": 100,
+               "metricsWindow": 2, "warmupRequests": 32},
+    "cuda": {"gpuTopology": "h100-1",
+             "compileCacheDir": str(ROOT / "build" / "torch_kernels")},
+}
+_ROUTER_BUILD: dict = {}
+
+
+def start_router_build() -> None:
+    """Compile the port's ``native/router.cc`` with g++ on a thread while the
+    kernels build and the early phases run; phase 9 joins it."""
+    from importlib import import_module
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            _ROUTER_BUILD["path"] = import_module(f"{PKG}.clients.router").build_router()
+        except BaseException as e:  # re-raised by phase 9
+            _ROUTER_BUILD["error"] = e
+        _ROUTER_BUILD["s"] = time.perf_counter() - t0
+
+    _ROUTER_BUILD["thread"] = threading.Thread(target=build, daemon=True, name="router-build")
+    _ROUTER_BUILD["thread"].start()
+
+
+class _Journal:
+    """The runtime's recorder: every gate and transition record, in order."""
+
+    def __init__(self):
+        self.records: list = []
+
+    def record(self, namespace: str, name: str, rec) -> None:
+        self.records.append(rec)
+
+
+def _paced_traffic(url: str, body: bytes, rate: float, stop: threading.Event, out: dict):
+    """Open-loop V2 traffic at ``rate`` requests a second until ``stop``;
+    ``out`` counts what was sent and every answer that was not a 2xx."""
+    def one():
+        try:
+            req = urllib.request.Request(url, data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                r.read()
+                ok = 200 <= r.status < 300
+        except Exception:
+            ok = False
+        with out["lock"]:
+            out["non_2xx" if not ok else "ok"] += 1
+
+    with ThreadPoolExecutor(16) as pool:
+        t_next = time.perf_counter()
+        while not stop.is_set():
+            pool.submit(one)
+            out["sent"] += 1
+            t_next += 1.0 / rate
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+
+
+def _pod_argv(builder, config, version: str, uri: str, port: int, device: str) -> list[str]:
+    """The command a ``backend: cuda`` pod of ``version`` runs, from the
+    operator's own manifest, on a local port."""
+    manifest = builder.build_deployment(
+        name="bert-base", namespace="models", owner_uid="smoke", config=config,
+        current_version=version, new_model_uri=uri, traffic_current=100)
+    pod = manifest["spec"]["predictors"][0]["componentSpecs"][0]["spec"]
+    (c,) = pod["containers"]
+    if c["command"][:2] != ["python", "-m"] or c["resources"]["limits"] != {"nvidia.com/gpu": "1"}:
+        raise AssertionError(f"canary: the pod runs {c['command']} with {c['resources']}")
+    return ([sys.executable] + c["command"][1:] + c["args"]
+            + ["--host", "127.0.0.1", "--port", str(port), "--metrics-port", "0",
+               "--drain-s", "0", "--device", device])
+
+
+def _batches(base: str) -> float:
+    """Batches the server's engine ran (its warm-up's included)."""
+    return _value(_scrape(base), "tpumlops_batch_size_count")
+
+
+def _server_launches(report: Path) -> dict:
+    """The kernel launches a server process counted, from the report it
+    wrote as it exited."""
+    return json.loads(report.read_text())["launches"]
+
+
+def phase_control_plane_canary(fa, smi: str, device: str = "cuda") -> dict:
+    """The port's control plane drives a canary on the card: two BERT-base
+    native artifacts (phase 6's config and dtype, seeds 1 and 2), each
+    served by its own process running the command of the operator's
+    ``backend: cuda`` manifest (``python -m <port>.server``), the port's
+    native router (``native/router.cc``) splitting open-loop V2 traffic
+    (B1, S128, ``CANARY_RATE`` a second), and the port's ``OperatorRuntime``
+    on a ``SystemClock`` over the fakes (``SyncingKube``), its judge reading
+    the router's histograms (``CANARY_SPEC``'s gate).  v1 is served until ``Stable``; then the alias
+    moves to v2, which is promoted in 10% steps to 100% with v1's predictor
+    deleted.  Fails unless the CR is ``Stable`` on v2 at weight 100 with v1
+    gone, every server's flash launches are 12 x its batches with the
+    traffic's batches among them, and v2's logits for a fixed batch are
+    within ``BERT_TOL`` of the plain-attention forward."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    bert = import_module(f"{PKG}.models.bert")
+    loader = import_module(f"{PKG}.server.loader")
+    lp = import_module(f"{PKG}.clients.localplane")
+    rmod = import_module(f"{PKG}.clients.router")
+    base = import_module(f"{PKG}.clients.base")
+    fakes = import_module(f"{PKG}.clients.fakes")
+    builder = import_module(f"{PKG}.operator.builder")
+    runtime = import_module(f"{PKG}.operator.runtime")
+    clock = import_module(f"{PKG}.utils.clock")
+    config = import_module(f"{PKG}.utils.config")
+    tag = "control-plane canary"
+    spec = json.loads(json.dumps(CANARY_SPEC))
+    op_config = config.OperatorConfig.from_spec(spec)
+    cfg = bert.BertConfig.base()
+    bert_config = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "hidden_act"}
+    scratch = ROOT / "build"  # ignored by git
+    scratch.mkdir(exist_ok=True)
+    procs: dict = {}
+    router = rt = None
+    res: dict = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        try:
+            uris, ports, bases = {}, {}, {}
+            t0 = time.perf_counter()
+            for seed in (1, 2):
+                params = bert.init(torch.Generator(device=device).manual_seed(seed), cfg,
+                                   dtype=torch.bfloat16, device=device)
+                uris[f"v{seed}"] = str(loader.save_native_model(
+                    Path(tmp) / f"bert-base-v{seed}", "bert-classifier", params,
+                    config=bert_config, builder_kwargs={"seq_len": CANARY_SEQ}))
+                del params
+            res["artifacts_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            OUT_DIR.mkdir(exist_ok=True)
+            for pred, uri in uris.items():
+                ports[pred] = lp.free_port()
+                bases[pred] = f"http://127.0.0.1:{ports[pred]}"
+                argv = _pod_argv(builder, op_config, pred[1:], uri, ports[pred], device)
+                log_f = open(OUT_DIR / f"canary_{pred}.log", "w")
+                procs[pred] = (subprocess.Popen(
+                    argv, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+                    env={**os.environ, "TPUMLOPS_RANK_REPORT_DIR": f"{tmp}/report_{pred}"}),
+                    log_f)
+            for pred, (proc, log_f) in procs.items():
+                deadline = time.perf_counter() + 120
+                while True:
+                    if proc.poll() is not None:
+                        raise AssertionError(f"{tag}: the {pred} server exited {proc.returncode}"
+                                             f" (its log: {log_f.name})")
+                    try:
+                        urllib.request.urlopen(bases[pred] + "/v2/health/ready", timeout=1)
+                        break
+                    except Exception:
+                        if time.perf_counter() > deadline:
+                            raise AssertionError(f"{tag}: the {pred} server never became ready")
+                        time.sleep(0.1)
+            res["servers_s"] = time.perf_counter() - t0
+            boot_batches = {pred: _batches(b) for pred, b in bases.items()}
+            if "thread" in _ROUTER_BUILD:
+                _ROUTER_BUILD["thread"].join()
+                if "error" in _ROUTER_BUILD:
+                    raise _ROUTER_BUILD["error"]
+            binary = rmod.build_router()
+            res["router_build_s"] = _ROUTER_BUILD.get("s")
+            if binary.parent != ROOT / "build" / "native":
+                raise AssertionError(f"{tag}: the router was built at {binary}")
+            router = rmod.RouterProcess(port=lp.free_port(), backends={},
+                                        namespace="models", binary=binary).start()
+            sync = rmod.RouterSync(router.admin, lambda pred: ("127.0.0.1", ports[pred]))
+            kube = lp.SyncingKube(sync)
+            registry = fakes.FakeRegistry()
+            for pred, uri in uris.items():
+                registry.register("bert-base", pred[1:], uri)
+            registry.set_alias("bert-base", "prod", "1")
+            journal = _Journal()
+            rng = np.random.default_rng(9)
+            ids = rng.integers(1, cfg.vocab_size, (1, CANARY_SEQ)).astype(np.int32)
+            warmed: dict = {}
+
+            def warmup(deployment, predictor, namespace, n, model=None):
+                for _ in range(n):
+                    _post(f"{bases[predictor]}/v2/models/{model}/infer", _v2_ids(ids))
+                warmed[predictor] = warmed.get(predictor, 0) + n
+
+            rt = runtime.OperatorRuntime(kube, registry,
+                                         metrics=rmod.RouterMetricsSource(router.admin),
+                                         clock=clock.SystemClock(), sync_interval_s=0.05,
+                                         recorder=journal, warmup=warmup)
+            ref = base.ObjectRef(namespace="models", name="bert-base", **base.MLFLOWMODEL)
+            sd_ref = base.ObjectRef(namespace="models", name="bert-base",
+                                    **base.SELDONDEPLOYMENT)
+
+            def status():
+                return kube.get(ref).get("status") or {}
+
+            # The router's histograms, scraped while both versions serve:
+            # a version's series leave the router with its predictor.
+            scraped: dict = {}
+
+            def scrape():
+                parsed = rmod.parse_prometheus_text(router.admin.metrics_text())
+                for (name, labels), v in parsed.items():
+                    lab = dict(labels)
+                    if name == "seldon_api_executor_client_requests_seconds_bucket":
+                        scraped.setdefault(lab.get("predictor_name"), {})[float(lab["le"])] = v
+
+            def wait(pred, what, limit):
+                deadline = time.perf_counter() + limit
+                t_scrape = 0.0
+                while not pred():
+                    if time.perf_counter() - t_scrape > 0.25:
+                        scrape()
+                        t_scrape = time.perf_counter()
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(f"{tag}: timed out waiting for {what}; status "
+                                             f"{json.dumps(status(), default=str)[:600]}")
+                    time.sleep(0.02)
+
+            kube.create(ref, {"spec": spec})
+            threading.Thread(target=rt.serve, daemon=True, name="operator").start()
+            wait(lambda: status().get("phase") == "Stable", "v1 Stable", 20)
+            if router.admin.get_weights() != {"v1": 100}:
+                raise AssertionError(f"{tag}: weights at v1 Stable {router.admin.get_weights()}")
+            body = json.dumps(_v2_ids(ids)).encode()
+            url = f"http://127.0.0.1:{router.port}/v2/models/bert-base/infer"
+            traffic = {"sent": 0, "ok": 0, "non_2xx": 0, "lock": threading.Lock()}
+            stop = threading.Event()
+            gen = threading.Thread(target=_paced_traffic, daemon=True,
+                                   args=(url, body, CANARY_RATE, stop, traffic))
+            gen.start()
+            try:
+                wait(lambda: traffic["ok"] >= 50, "baseline traffic on v1", 10)
+                n_journal = len(journal.records)
+                t_move = time.perf_counter()
+                registry.set_alias("bert-base", "prod", "2")
+                wait(lambda: status().get("phase") == "Stable"
+                     and status().get("currentModelVersion") == "2", "v2 Stable at 100%",
+                     CANARY_BUDGET_S)
+                res["to_100_s"] = time.perf_counter() - t_move
+            finally:
+                stop.set()
+                gen.join(timeout=30)
+            weights = router.admin.get_weights()
+            predictors = [p["name"] for p in kube.get(sd_ref)["spec"]["predictors"]]
+            st = status()
+            if (st.get("trafficCurrent") != 100 or weights != {"v2": 100}
+                    or predictors != ["v2"] or st.get("previousModelVersion") is not None):
+                raise AssertionError(f"{tag}: after the promotion status {st.get('phase')} "
+                                     f"traffic {st.get('trafficCurrent')}, router weights "
+                                     f"{weights}, predictors {predictors}")
+            records = journal.records[n_journal:]
+            gates = [r for r in records if hasattr(r, "margins")]
+            steps = sorted({r.traffic_after for r in gates if r.promote})
+            res.update(
+                sent=traffic["sent"], ok=traffic["ok"], non_2xx=traffic["non_2xx"],
+                warmup_requests=warmed,
+                weights=weights, predictors=predictors, reasons=kube.event_reasons(),
+                steps=steps,
+                gates=[{"traffic_before": r.traffic_before, "traffic_after": r.traffic_after,
+                        "attempt": r.attempt, "promote": r.promote, "reasons": list(r.reasons),
+                        "margins": dict(r.margins), "new": dict(r.new_metrics),
+                        "old": dict(r.old_metrics), "timings": dict(r.timings)}
+                       for r in gates])
+            for g in res["gates"]:
+                new, old = g["new"], g["old"]
+
+                def ms(m, k):
+                    v = m.get(k)
+                    return "-" if v is None else f"{1e3 * v:.2f}"
+
+                log(f"{tag}: gate {g['traffic_before']} -> {g['traffic_after']}% attempt "
+                    f"{g['attempt']}: {'promote' if g['promote'] else 'refuse'}; p95 new / "
+                    f"old {ms(new, 'latency_95th')} / {ms(old, 'latency_95th')} ms, mean "
+                    f"{ms(new, 'latency_avg')} / {ms(old, 'latency_avg')} ms, errors "
+                    f"{new.get('error_rate')} / {old.get('error_rate')}, samples "
+                    f"{new.get('request_count')} / {old.get('request_count')}; step wall "
+                    f"{1e3 * sum(g['timings'].values()):.1f} ms (gate read "
+                    f"{1e3 * g['timings'].get('gate_read', 0.0):.1f} ms)"
+                    + ("" if g["promote"] else f"; {g['reasons']}"))
+            if steps != list(range(20, 101, 10)):
+                raise AssertionError(f"{tag}: the promoted steps {steps}, not 20..100 by 10")
+
+            # p50 / p99 a version from the router's cumulative histograms
+            # (v1's as last scraped before its predictor left).
+            scrape()
+            lat = {}
+            for pred in ("v1", "v2"):
+                b = sorted(scraped.get(pred, {}).items())
+                lat[pred] = {"p50_ms": 1e3 * (rmod._histogram_quantile(0.5, b) or 0.0),
+                             "p99_ms": 1e3 * (rmod._histogram_quantile(0.99, b) or 0.0),
+                             "count": b[-1][1] if b else 0.0}
+            res["latency"] = lat
+
+            # v2's logits for a fixed batch through the router, against the
+            # plain-attention forward of the same ids (phase 6's check).
+            batch = rng.integers(1, cfg.vocab_size, (4, CANARY_SEQ)).astype(np.int32)
+            out = _post(url, _v2_ids(batch))["outputs"][0]
+            got = np.asarray(out["data"], np.float32).reshape(out["shape"])
+            pred2 = loader.load_predictor(uris["v2"], device=device, dtype=torch.bfloat16)
+            orig = bert.flash_attention
+            bert.flash_attention = fa.flash_attention_reference
+            try:
+                want = pred2.predict(batch).float().cpu().numpy()
+            finally:
+                bert.flash_attention = orig
+            del pred2
+            tol = BERT_TOL["none"]
+            err = np.abs(got - want)
+            res["max_abs_err"] = float(err.max())
+            if not np.isfinite(got).all() or (err > tol + tol * np.abs(want)).any():
+                raise AssertionError(f"{tag}: v2's logits disagree with the plain path: "
+                                     f"max_abs_err {res['max_abs_err']:.3e} (tol {tol})")
+
+            # Each server's flash launches, from the report it writes as it
+            # exits: 12 a batch, its warm-up's batches and the traffic's.
+            batches = {pred: _batches(b) for pred, b in bases.items()}
+            for proc, log_f in procs.values():
+                proc.send_signal(signal.SIGTERM)
+            res["launches"], res["batches"] = {}, {}
+            for pred, (proc, log_f) in procs.items():
+                if proc.wait(timeout=60) != 0:
+                    raise AssertionError(f"{tag}: the {pred} server exited {proc.returncode}")
+                launches = _server_launches(Path(tmp) / f"report_{pred}" / "rank-0.json")
+                n = launches["flash_attention"]
+                served = batches[pred] - boot_batches[pred]
+                res["launches"][pred], res["batches"][pred] = n, (boot_batches[pred], served)
+                if served <= 0 or n != cfg.num_layers * batches[pred]:
+                    raise AssertionError(f"{tag}: the {pred} server launched flash {n} times "
+                                         f"for {batches[pred]:.0f} batches ({served:.0f} served "
+                                         f"in the phase); expected {cfg.num_layers} x")
+        finally:
+            if rt is not None:
+                rt.stop()
+            if router is not None:
+                router.stop()
+            for proc, log_f in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                log_f.close()
+            torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: v1 -> v2 promoted to 100% in {res['to_100_s']:.2f} s after the alias move "
+        f"(steps {res['steps']}, {len(res['gates'])} gate reads); router p50 / p99 v1 "
+        f"{lat['v1']['p50_ms']:.2f} / {lat['v1']['p99_ms']:.2f} ms ({lat['v1']['count']:.0f}), "
+        f"v2 {lat['v2']['p50_ms']:.2f} / {lat['v2']['p99_ms']:.2f} ms "
+        f"({lat['v2']['count']:.0f}); {res['sent']} requests at {CANARY_RATE:.0f}/s, "
+        f"{res['non_2xx']} not 2xx, warm-up requests {res['warmup_requests']}; flash launches by server {res['launches']} (= "
+        f"{cfg.num_layers} x batches, warm-up and served: {res['batches']}); v2 logits "
+        f"max_abs_err {res['max_abs_err']:.3e} (tol {BERT_TOL['none']}); v1's predictor gone, "
+        f"weights {res['weights']}; artifacts {res['artifacts_s']:.1f} s, servers "
+        f"{res['servers_s']:.1f} s, router build {res['router_build_s']} s; phase wall "
+        f"{res['wall_s']:.1f} s on {smi}")
+    if res["wall_s"] > CANARY_BUDGET_S:
+        log(f"{tag}: WARNING phase wall {res['wall_s']:.1f} s over its "
+            f"{CANARY_BUDGET_S:.0f} s share")
+    DETAIL["control_plane_canary"] = res
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -7405,6 +7814,7 @@ def main() -> int:
     import_module(f"{PKG}.utils.tracing").keep_cupti()
     t_start = time.perf_counter()
     smi = phase_device()
+    start_router_build()  # g++ beside the kernels' nvcc; phase 9 joins it
     stage("2 build")
     phase_build()
     # Every port module, then the import check, before any profiler runs
@@ -7416,7 +7826,9 @@ def main() -> int:
         if not m.name.endswith("__main__"):
             import_module(m.name)
     for name in ("parallel.mesh", "parallel.sharding", "parallel.collectives",
-                 "parallel.distributed", "models.partition", "server.multihost"):
+                 "parallel.distributed", "models.partition", "server.multihost",
+                 "utils.config", "clients.router", "clients.localplane",
+                 "operator.reconciler", "operator.runtime"):
         if f"{PKG}.{name}" not in sys.modules:
             raise AssertionError(f"the import check missed {PKG}.{name}")
     pulled = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tpumlops", JAX_PKG))
@@ -7485,9 +7897,11 @@ def main() -> int:
     stage("5e multistep int8kv")
     multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256)
     stage("5f unified int8kv")
-    unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv")
+    unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv",
+                                               layers=INT8KV_LAYERS)
     stage("5g preempt int8kv")
-    preempt["int8kv"] = phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "int8kv")
+    preempt["int8kv"] = phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "int8kv",
+                                               layers=INT8KV_LAYERS)
     stage("5j attach int8")
     attach = phase_serve_7b_attach(da, rn, fa, smi, params, quantize_s)
     del params
@@ -7498,6 +7912,8 @@ def main() -> int:
     phase_serve_v2_flavors()
     stage("8 mesh")
     phase_serve_mesh(smi)
+    stage("9 control-plane canary")
+    phase_control_plane_canary(fa, smi)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
     # jax itself may arrive with torch.profiler's own imports where it is

@@ -1876,7 +1876,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
     ap.add_argument("--quantize", default="none", choices=["none", "int8", "int8kv"])
     ap.add_argument("--max-slots", type=int, default=4)
-    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill size (0 or unset = whole-prompt)")
     ap.add_argument("--prefill-batch", type=int, default=1,
                     help="concurrent admissions whose next prompt chunks batch into ONE "
                          "prefill forward a tick (1 = single-admission pipeline; > 1 needs "
@@ -1884,6 +1885,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-token-budget", type=int, default=0,
                     help="prompt tokens prefilled a tick, Sarathi-style (0 = uncapped); "
                          "bounds decode-cadence jitter under long-prompt bursts")
+    ap.add_argument("--sp-prefill-threshold", type=int, default=1024,
+                    help="prompt length at or over which a cold prompt prefills through "
+                         "the sequence-parallel ring pass; effective only when meshShape "
+                         "carries sp > 1, which this server refuses (the operator's "
+                         "manifests pass it always)")
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode iterations fused into ONE dispatch a tick (a CUDA graph "
                          "captured at startup, on-device sampling and EOS latch, lag-1 token "
@@ -2005,7 +2011,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
     return ServerConfig(
         model_name=args.model_name, host=args.host, port=args.port,
         dtype=args.dtype, quantize=args.quantize, max_slots=args.max_slots,
-        prefill_chunk=args.prefill_chunk, device=args.device,
+        prefill_chunk=args.prefill_chunk or None, device=args.device,
         prefill_batch=args.prefill_batch, prefill_token_budget=args.prefill_token_budget,
         decode_steps=args.decode_steps, unified_step=bool(args.unified_step),
         slo_class=args.slo_class or None, preemption=bool(args.preemption),
@@ -2104,9 +2110,10 @@ def serve_follower_health(host: str, port: int) -> ThreadingHTTPServer:
     return httpd
 
 
-# A directory each rank of a unit writes ``rank-<r>.json`` into as it exits
-# (unset: none is written): its ops' walls, its collectives' host seconds,
-# its kernel launches and its HBM ledger beside the allocator's counts
+# A directory each server process (each rank of a unit) writes
+# ``rank-<r>.json`` into as it exits (unset: none is written): its ops'
+# walls, its collectives' host seconds, its kernel launches and, for a
+# generation engine, its HBM ledger beside the allocator's counts
 # (allocated, peak allocated, reserved).
 RANK_REPORT_ENV = "TPUMLOPS_RANK_REPORT_DIR"
 
@@ -2300,12 +2307,13 @@ def main(argv: list[str] | None = None) -> None:
     except KeyboardInterrupt:
         srv.shutdown_all()
         terminated.set()
-    if transport is not None:
+    if transport is not None or os.environ.get(RANK_REPORT_ENV):
         # The followers are released at the end of the shutdown (after the
         # engine's last op), on the terminating thread: the group outlives it.
         terminated.wait(timeout=args.drain_grace_seconds + 60.0)
         engine = srv.gen_engine
         write_rank_report(engine, engine.op_stats if engine is not None else {})
+    if transport is not None:
         from ..parallel.distributed import shutdown_distributed
 
         shutdown_distributed()

@@ -65,3 +65,26 @@ def test_source_has_no_jax_import(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+CONTROL_PLANE = ("utils.clock", "utils.journey_trace", "utils.config", "clients.base",
+                 "clients.fakes", "clients.router", "clients.localplane", "operator.state",
+                 "operator.uri", "operator.judge", "operator.rollout_recorder",
+                 "operator.builder", "operator.autoscaler", "operator.reconciler",
+                 "operator.runtime")
+
+
+def test_the_walk_and_the_scan_reach_the_control_plane():
+    """``clients/`` and ``operator/`` are packages the import walk enters
+    and the AST scan covers; ``native/`` holds the port's own router
+    source (no Python)."""
+    import pkgutil
+
+    walked = {m.name for m in pkgutil.walk_packages([str(ROOT / PORT)], PORT + ".")}
+    scanned = {str(p.relative_to(ROOT / PORT))[:-3].replace("/", ".") for p in SOURCES
+               if p.is_relative_to(ROOT / PORT)}
+    for name in CONTROL_PLANE:
+        assert f"{PORT}.{name}" in walked, name
+        assert name in scanned, name
+    assert (ROOT / PORT / "native" / "router.cc").is_file()
+    assert not list((ROOT / PORT / "native").glob("*.py"))
