@@ -1687,6 +1687,99 @@ def phase_flash_attention(fa) -> dict:
                 for k in ("llama_prompt_s1024", "llama_chunk_off768")}}
 
 
+# The log-sum-exp of the flash kernel (ring attention's blocks) against the
+# plain version's, absolute and relative: f32 keeps the scores the plain
+# version keeps; bf16 sums the probabilities rounded to bf16 (relative 2^-9
+# each), so its l, and log(l), move by up to ~2^-9.
+LSE_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
+
+
+def phase_flash_lse(fa) -> dict:
+    """The flash kernel with its log-sum-exp output (``return_lse=True``)
+    against the plain version's at the ring's block shapes: Llama-2-7B's
+    heads (H32, and H16 a tp-2 rank), D128, one 1024-position block of a
+    2048-token prompt at sp 2 (S = T = 1024), the diagonal block (causal)
+    and an off-diagonal one, f32 and bf16; a kv_len edge (a partial key
+    range, and kv_len 0: every row -inf, its output the mean of V).  The
+    output within FLASH_TOL, the log-sum-exp within LSE_TOL; times beside
+    the plain version's, the bound and (bf16) the library's flash
+    attention, which returns a logsumexp too."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for dt, tag in ((bf, "bf16"), (f32, "f32")):
+        for h in (32, 16):
+            for causal in (True, False):
+                cases[f"ring_{tag}_h{h}_{'diag' if causal else 'off'}"] = dict(
+                    shape=(1, h, 1024, 1024, 128, dt), causal=causal)
+        cases[f"ring_{tag}_kv_len700"] = dict(shape=(1, 32, 1024, 1024, 128, dt), kv_len=700)
+        cases[f"ring_{tag}_kv_len0"] = dict(shape=(1, 16, 200, 1024, 128, dt), kv_len=0)
+    results, worst, worst_lse = {}, 0.0, 0.0
+    for name, spec in cases.items():
+        B, H, S, T, D, dtype = spec.pop("shape")
+        c = _flash_case(gen, B, H, S, T, D, dtype, **spec)
+        # The ring's layout: q a [B, H, S, D] view of [B, S, H, D], k/v dense blocks.
+        q = c["q"].transpose(1, 2).contiguous().transpose(1, 2)
+        args = (q, c["k"].contiguous(), c["v"].contiguous())
+        kw = dict(causal=c["causal"], kv_len=c["kv_len"], return_lse=True)
+        lse0 = fa.lse_launches
+        out, lse = fa.flash_attention(*args, **kw)
+        if fa.lse_launches != lse0 + 1:
+            raise AssertionError(f"flash lse {name}: the launch was not counted")
+        ref, ref_lse = fa.flash_attention_reference(*(x.float() for x in args), **kw)
+        torch.cuda.synchronize()
+        key = str(dtype).replace("torch.", "")
+        tol, ltol = FLASH_TOL[key], LSE_TOL[key]
+        err = (out.float() - ref).abs()
+        if not bool(torch.isfinite(out.float()).all()) or bool((err > tol + tol * ref.abs()).any()):
+            raise AssertionError(f"flash lse {name}: output max_abs_err {float(err.max()):.3e}")
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)):
+            raise AssertionError(f"flash lse {name}: -inf rows differ from the plain version's")
+        fin = torch.isfinite(ref_lse)
+        lerr = (lse[fin] - ref_lse[fin]).abs()
+        lerr_max = float(lerr.max()) if lerr.numel() else 0.0
+        if lerr.numel() and bool((lerr > ltol + ltol * ref_lse[fin].abs()).any()):
+            raise AssertionError(f"flash lse {name}: log-sum-exp max_abs_err {lerr_max:.3e} "
+                                 f"(tol {ltol} abs + {ltol} rel)")
+        if c["kv_len"] == 0 and not bool(torch.isneginf(lse).all()):
+            raise AssertionError(f"flash lse {name}: kv_len 0 rows are not -inf")
+        worst, worst_lse = max(worst, float(err.max())), max(worst_lse, lerr_max)
+        fn = lambda: fa.flash_attention(*args, **kw)  # noqa: E731
+        ms = cuda_time_ms(fn, iters=100)
+        device_ms = kernel_device_ms(fn, "flash_attention_kernel")
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(*args, **kw), iters=20)
+        nbytes, flops = _flash_work(c)
+        nbytes += B * H * S * 4  # the log-sum-exp written
+        peak = BF16_TENSOR_FLOPS if dtype == bf else F32_FLOPS
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        library_ms = library_lse_err = None
+        if dtype == bf and c["kv_len"] is None:
+            lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+                *args, 0.0, c["causal"], False, scale=1.0 / D ** 0.5)
+            library_ms = cuda_time_ms(lib, iters=100)
+            library_lse_err = float((lib()[1].float() - lse).abs().max())
+        results[name] = {"shape": [B, H, S, T, D, key], "causal": c["causal"],
+                         "kv_len": c["kv_len"], "max_abs_err": float(err.max()),
+                         "lse_max_abs_err": lerr_max, "ms": ms, "device_ms": device_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms, "library_lse_max_abs_diff": library_lse_err}
+        log(f"flash lse {name} {results[name]['shape']} causal {c['causal']} kv_len "
+            f"{c['kv_len']}: max_abs_err {float(err.max()):.3e}, lse {lerr_max:.3e}; kernel "
+            f"{ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} ms, library flash "
+            f"{library_ms} ms (its lse differs by {library_lse_err}), bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+    DETAIL["flash_attention_lse"] = results
+    head = results["ring_bf16_h16_diag"]
+    return {"max_abs_err": worst, "lse_max_abs_err": worst_lse, "ms": head["ms"],
+            "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": "B1 H16 (tp 2) S=T=1024 D128 bf16, causal (the ring's diagonal block)",
+            "off_diagonal": {k: results[k] for k in ("ring_bf16_h16_off", "ring_bf16_h32_off")}}
+
+
 def _ragged_case(gen, Bp, C, H, NKV, offsets, slots, n_slots, int8, near_clip=False,
                  T=4096, D=128, layers=1):
     """Inputs of one ragged flash case at the engine's layouts: q [Bp, C, H,
@@ -7094,9 +7187,13 @@ def _mesh_traffic(url: str, prompts: dict, vocab: int) -> dict:
     return out
 
 
-def _mesh_reference(app, loader, art: Path, dtype: str, prompts: dict, device: str):
+def _mesh_reference(app, loader, art: Path, dtype: str, prompts: dict, device: str,
+                    sequential: bool = False, chunk_s: dict | None = None):
     """The same traffic through a tp-1, dp-1 engine in this process, on the
-    same artifact and options; returns (tokens by request, predictor)."""
+    same artifact and options; returns (tokens by request, predictor).
+    ``sequential``: ``prompts`` is {name: prompt}, sent one at a time, and
+    ``chunk_s`` receives each request's prefill chunk forwards' seconds
+    (each synchronized)."""
     import torch
     from importlib import import_module
 
@@ -7105,11 +7202,31 @@ def _mesh_reference(app, loader, art: Path, dtype: str, prompts: dict, device: s
     conf = app.config_from_args(app.build_arg_parser().parse_args(
         _mesh_argv(art, dtype, 0, device)))
     engine = app.make_gen_engine(pred, conf, metrics_mod.ServerMetrics("smoke", "v1", "smoke"))
+    spent = [0.0]
+    if chunk_s is not None:
+        real = engine._device_chunk
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            real(*args, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+        engine._device_chunk = timed
     engine.start()
     try:
-        out = {"warm": engine.generate(prompts["warm"], MESH_NEW, timeout=600).tolist()}
-        futs = {n: engine.submit(p, MESH_NEW) for n, p in prompts["burst"].items()}
-        out.update({n: f.result(timeout=600).tolist() for n, f in futs.items()})
+        if sequential:
+            out = {}
+            for n, p in prompts.items():
+                spent[0] = 0.0
+                out[n] = engine.generate(p, MESH_NEW, timeout=600).tolist()
+                if chunk_s is not None:
+                    chunk_s[n] = spent[0]
+        else:
+            out = {"warm": engine.generate(prompts["warm"], MESH_NEW, timeout=600).tolist()}
+            futs = {n: engine.submit(p, MESH_NEW) for n, p in prompts["burst"].items()}
+            out.update({n: f.result(timeout=600).tolist() for n, f in futs.items()})
     finally:
         engine.shutdown()
     if device == "cuda":
@@ -7129,11 +7246,13 @@ def _top2_margin(llama, pred, prompt: list, toks: list, pos: int, device: str) -
     return float(top[0] - top[1])
 
 
-def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path) -> dict:
+def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path,
+                 mesh_shape: dict = MESH_SHAPE, extra: tuple = ()) -> dict:
     """Four rank processes started as the app starts them (the process
     group from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID, ``--mesh-shape``), not waited for."""
-    world = math.prod(MESH_SHAPE.values())
+    JAX_PROCESS_ID, ``--mesh-shape``), not waited for; ``extra`` flags
+    after the unit's own."""
+    world = math.prod(mesh_shape.values())
     coord = _free_port()
     shutil.rmtree(report_dir, ignore_errors=True)
     procs, logs = [], []
@@ -7147,7 +7266,8 @@ def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path)
         with open(log_path, "w") as logf:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", f"{PKG}.server",
-                 *_mesh_argv(art, dtype, 0, device), "--mesh-shape", json.dumps(MESH_SHAPE)],
+                 *_mesh_argv(art, dtype, 0, device), "--mesh-shape", json.dumps(mesh_shape),
+                 *extra],
                 cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT))
     return {"tag": tag, "procs": procs, "logs": logs, "report_dir": report_dir,
             "t0": time.perf_counter()}
@@ -7292,7 +7412,30 @@ def _check_rank_memory(tag: str, run: dict) -> None:
                     f"ledger {total} B by more than {100 * slack:.0f}%")
 
 
-def phase_serve_mesh(smi: str, device: str = "cuda") -> dict:
+def mesh_artifact(device: str = "cuda") -> Path:
+    """Phase 8's artifact, which phase 8b shares: Llama-2-7B's widths at
+    MESH_LAYERS layers, bf16 weights drawn from a seed, in the native
+    layout under ``build/`` (ignored by git; the caller deletes it)."""
+    import torch
+    from importlib import import_module
+
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    scratch = ROOT / "build" / "smoke_mesh"
+    shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(18)
+    params = llama.init(gen, cfg, dtype=torch.bfloat16, device=device)
+    art = loader.save_native_model(scratch / f"llama2-7b-{MESH_LAYERS}l", "llama-generate",
+                                   params, config=dataclasses.asdict(cfg))
+    del params
+    log(f"mesh artifact: {time.perf_counter() - t0:.1f} s, "
+        f"{(art / 'params.npz').stat().st_size / 2**30:.2f} GiB")
+    return art
+
+
+def phase_serve_mesh(smi: str, art: Path, device: str = "cuda") -> dict:
     """A served replica at ``--mesh-shape {"dp": 2, "tp": 2}``: four rank
     processes on the one card (gloo), Llama-2-7B's widths at MESH_LAYERS
     layers, from a bf16 native artifact drawn from a seed; its greedy
@@ -7315,19 +7458,9 @@ def phase_serve_mesh(smi: str, device: str = "cuda") -> dict:
     out: dict = {"mesh": MESH_SHAPE, "layers": MESH_LAYERS, "backend_expected": want_backend,
                  "cut": f"depth {cfg.num_layers} of Llama-2-7B's 32 layers (time limit); "
                         "widths whole"}
-    scratch = ROOT / "build" / "smoke_mesh"  # ignored by git, deleted after
-    shutil.rmtree(scratch, ignore_errors=True)
     units: list = []
     nccl = None
     try:
-        t0 = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(18)
-        params = llama.init(gen, cfg, dtype=torch.bfloat16, device=device)
-        art = loader.save_native_model(scratch / f"llama2-7b-{MESH_LAYERS}l", "llama-generate",
-                                       params, config=dataclasses.asdict(cfg))
-        del params
-        out["artifact_s"] = time.perf_counter() - t0
-        out["artifact_gib"] = (art / "params.npz").stat().st_size / 2**30
         prompts = _mesh_prompts(cfg.vocab_size)
         dtypes = ("float32", "bfloat16")
         if device == "cuda":
@@ -7400,12 +7533,237 @@ def phase_serve_mesh(smi: str, device: str = "cuda") -> dict:
         if nccl is not None:
             nccl.kill()
             nccl.communicate()
-        shutil.rmtree(scratch, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
-    log(f"phase 8 wall {out['wall_s']:.1f} s (budget {MESH_BUDGET_S:.0f} s; artifact "
-        f"{out['artifact_s']:.1f} s, {out['artifact_gib']:.2f} GiB); {out['cut']}; {smi}")
+    log(f"phase 8 wall {out['wall_s']:.1f} s (budget {MESH_BUDGET_S:.0f} s); {out['cut']}; "
+        f"{smi}")
     DETAIL["serve_mesh"] = out
     return out
+
+# ---------------------------------------------------------------------------
+# Phase 8b: a served {"sp": 2, "tp": 2} replica (the ring prefill) and its
+# sharded snapshot, on phase 8's artifact
+# ---------------------------------------------------------------------------
+
+SP_MESH = {"sp": 2, "tp": 2}
+SP_THRESHOLD = 512  # --sp-prefill-threshold: the cold prompt rides the ring
+SP_LONG = 1500      # the cold prompt (a 2048-position bucket: 1024 a ring rank)
+SP_SHORT = 60       # under the threshold: the chunked path
+SP_SHARED = 1024    # the third prompt's prefix taken from the first (16 chunks of 64)
+
+
+def _sp_prompts(vocab: int) -> dict:
+    """Sent one at a time: a cold long prompt (the ring pass, whose whole
+    chunks go back into the radix cache), a short one, and one that shares
+    the long one's first SP_SHARED tokens (seeded from those chunks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(82)
+    ids = lambda n: [int(t) for t in rng.integers(3, vocab, n)]  # noqa: E731
+    long = ids(SP_LONG)
+    return {"long": long, "short": ids(SP_SHORT), "shared": long[:SP_SHARED] + ids(40)}
+
+
+def _sp_traffic(url: str, prompts: dict, vocab: int) -> dict:
+    gen = url + "/v2/models/model/generate"
+    out, walls = {}, {}
+    for name, prompt in prompts.items():
+        t0 = time.perf_counter()
+        out[name] = _check_outputs(_post(gen, {"prompt_ids": prompt,
+                                               "max_new_tokens": MESH_NEW}),
+                                   [MESH_NEW], vocab)[0]
+        walls[name] = time.perf_counter() - t0
+    return {"tokens": out, "request_s": walls}
+
+
+def _sp_served(unit: dict, prompts: dict, vocab: int) -> dict:
+    """Wait for the unit, send the traffic, read /metrics, stop the unit
+    and read its rank reports."""
+    try:
+        url = _await_unit(unit)
+        run = _sp_traffic(url, prompts, vocab)
+        samples = _scrape(url)
+        run["sp_dispatches"] = _value(samples, "tpumlops_engine_dispatches_total",
+                                      op="sp-prefill")
+        run["prefix_hits"] = _value(samples, "tpumlops_prefix_cache_hits_total")
+        run["load_s"] = {stage: _value(samples, "tpumlops_model_load_seconds", stage=stage)
+                         for stage in ("restore", "total")}
+        run["start_s"] = unit["start_s"]
+    except BaseException:
+        _kill_unit(unit)
+        raise
+    _stop_units([unit])
+    _mesh_reports(unit, run)
+    return run
+
+
+def _sp_checks(tag: str, run: dict, device: str) -> None:
+    """sp-prefill ran once (the long prompt; the shared one is warm, the
+    short one under the threshold), the shared prompt was seeded from the
+    ring's write-back, every rank replayed the ring and launched flash
+    with its log-sum-exp once a layer a block it ran (rank of sp index s:
+    s + 1 blocks, the later ones lie above the diagonal)."""
+    if run["sp_dispatches"] != 1:
+        raise AssertionError(f"mesh sp {tag}: {run['sp_dispatches']} sp-prefill dispatches, "
+                             "expected 1")
+    if run["prefix_hits"] < 1:
+        raise AssertionError(f"mesh sp {tag}: the shared prompt missed the radix cache")
+    for rep in run["reports"]:
+        ops = rep["ops"]
+        for op in ("gen_sp_prefill", "gen_seed"):
+            if ops.get(op, {}).get("count", 0) != 1:
+                raise AssertionError(f"mesh sp {tag} rank {rep['rank']}: {op} ran "
+                                     f"{ops.get(op, {}).get('count', 0)} times, expected 1")
+        if device == "cuda":
+            want = MESH_LAYERS * (rep["mesh"]["coords"]["sp"] + 1)
+            got = rep["launches"]["flash_attention_lse"]
+            if got != want:
+                raise AssertionError(f"mesh sp {tag} rank {rep['rank']}: {got} flash launches "
+                                     f"with the log-sum-exp, expected {want}")
+
+
+def _sp_compare(tag: str, run: dict, ref: dict, prompts: dict, llama, pred, device: str,
+                exact: bool) -> float:
+    names = list(ref)
+    agree = sum(a == b for n in names for a, b in zip(run["tokens"][n], ref[n]))
+    share = agree / sum(len(ref[n]) for n in names)
+    if exact and any(run["tokens"][n] != ref[n] for n in names):
+        for n in names:
+            if run["tokens"][n] != ref[n]:
+                pos = next(i for i, (a, b) in enumerate(zip(run["tokens"][n], ref[n]))
+                           if a != b)
+                margin = _top2_margin(llama, pred, prompts[n], ref[n], pos, device)
+                log(f"mesh sp {tag}: {n} differs at token {pos} (tp-1 top-2 margin "
+                    f"{margin:.3g})")
+        raise AssertionError(f"mesh sp {tag}: tokens differ from the tp-1 engine's")
+    return share
+
+
+def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
+    """A served ``--mesh-shape {"sp": 2, "tp": 2}`` replica, four ranks on
+    the one card, ``--sp-prefill-threshold 512``, on phase 8's artifact:
+    the f32 and bf16 units boot side by side while this process runs the
+    tp-1, sp-1 references, then serve a cold ~1500-token prompt (the ring
+    prefill), a short one and one sharing the long one's prefix, in turns.
+    f32 tokens equal the reference's (bf16 agreement reported).  Then a
+    second f32 start with ``--snapshot-dir`` loads cold and bakes the
+    sharded snapshot, and a third restores it (its ``restore`` load stage),
+    serves the same tokens and keeps each rank's peak within its HBM
+    ledger."""
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    snap = import_module(f"{PKG}.server.snapshot")
+    cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    prompts = _sp_prompts(cfg.vocab_size)
+    extra = ("--sp-prefill-threshold", str(SP_THRESHOLD))
+    snapdir = ROOT / "build" / "smoke_sp_snapshots"  # ignored by git, deleted after
+    shutil.rmtree(snapdir, ignore_errors=True)
+    out: dict = {"mesh": SP_MESH, "layers": MESH_LAYERS, "threshold": SP_THRESHOLD,
+                 "prompts": {n: len(p) for n, p in prompts.items()},
+                 "cut": f"depth {MESH_LAYERS} of Llama-2-7B's 32 layers (time limit); widths "
+                        "whole"}
+    dtypes = ("float32", "bfloat16")
+    units: list = []
+    try:
+        units = [_launch_unit(art, dt, device, f"sp_{dt}", OUT_DIR / f"mesh_sp_{dt}_reports",
+                              SP_MESH, extra) for dt in dtypes]
+        refs, preds = {}, {}
+        for dt in dtypes:  # while the units boot
+            t1 = time.perf_counter()
+            out[f"reference_chunk_s_{dt}"] = {}
+            refs[dt], preds[dt] = _mesh_reference(app, loader, art, dt, prompts, device,
+                                                  sequential=True,
+                                                  chunk_s=out[f"reference_chunk_s_{dt}"])
+            out[f"reference_s_{dt}"] = time.perf_counter() - t1
+        runs = {}
+        for dt, unit in zip(dtypes, units):
+            runs[dt] = _sp_served(unit, prompts, cfg.vocab_size)
+            _sp_checks(dt, runs[dt], device)
+            runs[dt]["agreement"] = _sp_compare(dt, runs[dt], refs[dt], prompts, llama,
+                                                preds[dt], device, exact=dt == "float32")
+        units = []
+        # The second start bakes, the third restores (f32).
+        t1 = time.perf_counter()
+        bake = _launch_unit(art, "float32", device, "sp_bake", OUT_DIR / "mesh_sp_bake_reports",
+                            SP_MESH, extra + ("--snapshot-dir", str(snapdir)))
+        units = [bake]
+        _await_unit(bake)
+        out["bake_start_s"] = bake["start_s"]
+        _stop_units([bake])
+        units = []
+        spath = snap.snapshot_path_for(str(snapdir), str(art))
+        manifest = snap.read_manifest(spath)
+        if manifest["identity"]["mesh_shape"] != SP_MESH:
+            raise AssertionError(f"mesh sp bake: identity {manifest['identity']}")
+        sharded = [leaf for leaf in manifest["leaves"] if "shards" in leaf]
+        if not sharded or any(len(leaf["shards"]) != SP_MESH["tp"] for leaf in sharded):
+            raise AssertionError("mesh sp bake: not one shard a tp block in the manifest")
+        out["bake_s"] = time.perf_counter() - t1
+        out["snapshot_gib"] = manifest["total_bytes"] / 2**30
+        t1 = time.perf_counter()
+        restore = _launch_unit(art, "float32", device, "sp_restore",
+                               OUT_DIR / "mesh_sp_restore_reports", SP_MESH,
+                               extra + ("--snapshot-dir", str(snapdir)))
+        units = [restore]
+        runs["restore"] = _sp_served(restore, prompts, cfg.vocab_size)
+        units = []
+        out["restore_phase_s"] = time.perf_counter() - t1
+        run = runs["restore"]
+        if not run["load_s"]["restore"] > 0:
+            raise AssertionError(f"mesh sp restore: no restore load stage: {run['load_s']}")
+        _sp_checks("restore", run, device)
+        if run["tokens"] != refs["float32"]:
+            raise AssertionError("mesh sp restore: tokens differ from the tp-1 engine's")
+        if run["tokens"] != runs["float32"]["tokens"]:
+            raise AssertionError("mesh sp restore: tokens differ from the cold unit's")
+        for tag in ("float32", "bfloat16", "restore"):
+            r = runs[tag]
+            ring = [rep["ops"]["gen_sp_prefill"] for rep in r["reports"]]
+            shift_s = [rep["collectives"].get("ring_shift", {}).get("seconds")
+                       for rep in r["reports"]]
+            chunk = r["reports"][0]["ops"]["gen_chunk"]
+            r["chunk_ms_mean"] = 1e3 * chunk["seconds"] / chunk["count"]
+            log(f"mesh sp {tag}: agreement with the tp-1 engine "
+                f"{r.get('agreement', 1.0):.3f}; boot {r['start_s']:.1f} s; the leader's "
+                f"{MESH_CHUNK}-token chunk op {r['chunk_ms_mean']:.1f} ms mean x"
+                f"{chunk['count']} (a chunked prefill of the long prompt: "
+                f"{-(-SP_LONG // MESH_CHUNK)} of them); request walls "
+                f"{ {k: round(v, 3) for k, v in r['request_s'].items()} } s; ring pass op "
+                f"{[round(1e3 * o['seconds'], 1) for o in ring]} ms a rank; ring_shift host "
+                f"s {shift_s}; "
+                f"load stages {r['load_s']}; [{smi}]")
+            _rank_lines(f"sp_{tag}", r, smi)
+        # Each rank's peak within its HBM ledger at f32, after the cold load
+        # and after the restore (a restore that held more than its blocks
+        # would show here).  At bf16 the ring pass's f32 activations at 1024
+        # positions a rank outweigh the slack of a halved ledger: reported
+        # by the rank lines above, not asserted.
+        if device == "cuda":
+            for tag in ("float32", "restore"):
+                _check_rank_memory(f"sp {tag}", runs[tag])
+        out["runs"] = runs
+        del preds
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        for u in units:
+            _kill_unit(u)
+        shutil.rmtree(snapdir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh sp: the tp-1 engine's chunked prefill of each prompt (synchronized chunk "
+        f"forwards) f32 {out.get('reference_chunk_s_float32')} s, bf16 "
+        f"{out.get('reference_chunk_s_bfloat16')} s; {smi}")
+    log(f"phase 8b wall {out['wall_s']:.1f} s (bake start {out.get('bake_s', 0):.1f} s, "
+        f"restore start and traffic {out.get('restore_phase_s', 0):.1f} s, snapshot "
+        f"{out.get('snapshot_gib', 0):.2f} GiB); {out['cut']}; {smi}")
+    DETAIL["serve_mesh_sp"] = out
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Phase 9: the control plane's canary (BERT-base promoted 0 -> 100%)
@@ -7825,7 +8183,8 @@ def main() -> int:
     for m in pkgutil.walk_packages(pkg.__path__, PKG + "."):
         if not m.name.endswith("__main__"):
             import_module(m.name)
-    for name in ("parallel.mesh", "parallel.sharding", "parallel.collectives",
+    for name in ("ops.ring_attention", "parallel.mesh", "parallel.sharding",
+                 "parallel.collectives",
                  "parallel.distributed", "models.partition", "server.multihost",
                  "utils.config", "clients.router", "clients.localplane",
                  "operator.reconciler", "operator.runtime"):
@@ -7847,6 +8206,7 @@ def main() -> int:
     da_res["verify"] = phase_verify_attention(da)
     rn_res = phase_rmsnorm(rn)
     fa_res = phase_flash_attention(fa)
+    lse_res = phase_flash_lse(fa)
     ragged_res = phase_flash_ragged(fa)
     dm = import_module(f"{PKG}.ops.dmajor_attention")
     stage("3b dmajor")
@@ -7911,7 +8271,13 @@ def main() -> int:
     stage("7 v2 flavors")
     phase_serve_v2_flavors()
     stage("8 mesh")
-    phase_serve_mesh(smi)
+    art = mesh_artifact()
+    try:
+        phase_serve_mesh(smi, art)
+        stage("8b mesh sp")
+        mesh_sp = phase_serve_mesh_sp(smi, art)
+    finally:
+        shutil.rmtree(art.parent, ignore_errors=True)
     stage("9 control-plane canary")
     phase_control_plane_canary(fa, smi)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
@@ -7963,6 +8329,14 @@ def main() -> int:
                       + observed["launches"]["fa"] + handoff["launches"]["fa"]
                       + attach["launches"]["fa"]),
          **fa_res},
+        # The same kernel's log-sum-exp instance: the ring blocks of phase
+        # 8b's sp prefills, every rank of its three served units.
+        {"name": "flash_attention_lse", "route": "cuda",
+         "source": f"{PKG}/csrc/flash_attention.cu",
+         "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
+         "launches": sum(rep["launches"]["flash_attention_lse"]
+                         for run in mesh_sp["runs"].values() for rep in run["reports"]),
+         **lse_res},
         *({"name": name, "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
            "replaces": f"{jax_pkg}/ops/flash_attention.py:62",
            "launches": launches, "max_abs_err": ragged_res["max_abs_err"],

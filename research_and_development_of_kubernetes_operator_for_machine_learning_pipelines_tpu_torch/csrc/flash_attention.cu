@@ -23,6 +23,15 @@
 // exp(-inf - -inf).  Any S and T: ragged query and key tiles are masked
 // here, nothing is padded on the host.
 //
+// Log-sum-exp output (ring attention's blocks).  With `lse` given, each
+// row also writes m + log(l) of its scaled scores, in natural units (the
+// bf16 kernel keeps m in log2 units and l as the sum of the rounded p), to
+// a contiguous f32 [B, H, S]; a row with no visible key (kv_len <= 0: its
+// max is still -1e30) writes -inf, and its output is the mean of V as
+// before.  A caller that merges two blocks' outputs weighs each by
+// exp(lse - logaddexp(lse_a, lse_b)).  Without it the kernels run as they
+// did: the one added store sits behind a null test after the key loop.
+//
 // Query offset (Llama's chunked prefill).  Query row i sits at key
 // position q_offset + i: a chunk of S queries at cache offset q_offset
 // attends the cached prefix and itself (q_offset + S <= T, checked by the
@@ -163,6 +172,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2) flash_attention_
     const __nv_bfloat16* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
     const float* __restrict__ bias, long long bias_sb,
     __nv_bfloat16* __restrict__ o, long long o_sb, long long o_sh, long long o_ss,
+    float* __restrict__ lse,
     int H, int S, int T_len, int kv_len, int q_offset, int group, float scale) {
   using L = MmaLayout<D>;
   constexpr int LD = L::kLd;
@@ -344,6 +354,19 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2) flash_attention_
   }
   // l >= 1: the key that set the final max has p = 1, exact in bf16.
   const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+  if (lse != nullptr && lane % 4 == 0) {
+    // The row's log-sum-exp in natural units: m and l are in log2 units.
+    // A row whose every key is masked (max still -1e30) has none: -inf.
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lrow = lse + (long long)bh * S + q0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (q0 + row0 + r * 8 < S) {
+        lrow[row0 + r * 8] =
+            m_run[r] > kNegInf ? (m_run[r] + log2f(l_run[r])) * kLn2 : -INFINITY;
+      }
+    }
+  }
   __nv_bfloat16* obase = o + (long long)b * o_sb + (long long)h * o_sh;
   // This warp's 16 rows go through its own rows of the Q tile (read into
   // registers at the first tile), then out with 16-byte stores.
@@ -387,6 +410,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
     const float* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
     const float* __restrict__ bias, long long bias_sb,
     float* __restrict__ o, long long o_sb, long long o_sh, long long o_ss,
+    float* __restrict__ lse,
     int H, int S, int T_len, int kv_len, int q_offset, int group, float scale) {
   constexpr int DS = D / kTPR;            // elements a thread owns
   constexpr int NG = DS / kW;             // 16-byte groups a thread owns
@@ -497,6 +521,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel_f32(
     }
   }
 
+  if (row_valid && lse != nullptr && sub == 0) {
+    // The row's log-sum-exp; a row whose every key is masked has none: -inf.
+    lse[(long long)bh * S + qi] = m > kNegInf ? m + logf(l) : -INFINITY;
+  }
   if (row_valid) {
     const float inv = 1.f / l;  // l >= 1: the largest score gives p = 1
     float* orow = o + (long long)b * o_sb + (long long)h * o_sh + (long long)qi * o_ss;
@@ -677,6 +705,7 @@ struct Args {
   const void* v; long long vs[3];
   const float* bias; long long bias_sb;
   void* o; long long os[3];
+  float* lse;
   int B, H, S, T_len, kv_len, q_offset, group;
   float scale;
 };
@@ -696,7 +725,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), a.qs[0], a.qs[1], a.qs[2],
       static_cast<const T*>(a.k), a.ks[0], a.ks[1], a.ks[2],
       static_cast<const T*>(a.v), a.vs[0], a.vs[1], a.vs[2],
-      a.bias, a.bias_sb, static_cast<T*>(a.o), a.os[0], a.os[1], a.os[2],
+      a.bias, a.bias_sb, static_cast<T*>(a.o), a.os[0], a.os[1], a.os[2], a.lse,
       a.H, a.S, a.T_len, a.kv_len, a.q_offset, a.group, a.scale);
   return cudaGetLastError();
 }
@@ -708,7 +737,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.q), a.qs[0], a.qs[1], a.qs[2],
       static_cast<const float*>(a.k), a.ks[0], a.ks[1], a.ks[2],
       static_cast<const float*>(a.v), a.vs[0], a.vs[1], a.vs[2],
-      a.bias, a.bias_sb, static_cast<float*>(a.o), a.os[0], a.os[1], a.os[2],
+      a.bias, a.bias_sb, static_cast<float*>(a.o), a.os[0], a.os[1], a.os[2], a.lse,
       a.H, a.S, a.T_len, a.kv_len, a.q_offset, a.group, a.scale);
   return cudaGetLastError();
 }
@@ -788,15 +817,18 @@ int ragged_occupancy() {
 // last axis of q, k, v and o is dense, and for bf16 the bases and strides
 // of q, k, v and o are 16-byte aligned (the wrapper checks q, k and v, and
 // allocates o).  bias may be null.  q and o have H heads, k and v H /
-// group; query row i sits at key position q_offset + i.  Returns the
-// launch's cudaError_t; nothing is synchronised.
+// group; query row i sits at key position q_offset + i.  lse, when not
+// null, is a contiguous f32 [B, H, S] that receives each row's
+// log-sum-exp of its scaled scores (-inf for a row with no visible key);
+// null leaves the kernels as they were.  Returns the launch's
+// cudaError_t; nothing is synchronised.
 extern "C" int flash_attention_launch(
     int dtype, int D, int causal,
     const void* q, long long q_sb, long long q_sh, long long q_ss,
     const void* k, long long k_sb, long long k_sh, long long k_st,
     const void* v, long long v_sb, long long v_sh, long long v_st,
     const float* bias, long long bias_sb,
-    void* o, long long o_sb, long long o_sh, long long o_ss,
+    void* o, long long o_sb, long long o_sh, long long o_ss, float* lse,
     int B, int H, int S, int T_len, int kv_len, int q_offset, int group, float scale,
     void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T_len <= 0 || group <= 0 || H % group != 0 ||
@@ -804,8 +836,8 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 0x7fffffffLL || (S + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, {q_sb, q_sh, q_ss}, k, {k_sb, k_sh, k_st}, v, {v_sb, v_sh, v_st},
-               bias, bias_sb, o, {o_sb, o_sh, o_ss}, B, H, S, T_len, kv_len, q_offset, group,
-               scale};
+               bias, bias_sb, o, {o_sb, o_sh, o_ss}, lse, B, H, S, T_len, kv_len, q_offset,
+               group, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return causal ? (int)by_dim<false, true>(D, a, st) : (int)by_dim<false, false>(D, a, st);

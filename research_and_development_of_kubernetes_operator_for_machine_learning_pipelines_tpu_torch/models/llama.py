@@ -23,7 +23,9 @@ queries at their cache offset against the prefix, grouped K/V heads read
 in place); and the fused decode attention, over the int8 window or the
 dense one (one launch per layer per decode step); and the verify chunk
 instance of the decode kernel for self-speculative verify (one launch per
-layer per verify forward); and the ragged instance of the flash kernel
+layer per verify forward); flash with its log-sum-exp for the blocks of
+the sequence-parallel prefill (``prefill_ring``: one launch a layer a
+ring step, less the blocks wholly above the diagonal); and the ragged instance of the flash kernel
 for packed multi-admission prefill (one launch per layer per packed
 forward: each packed row's chunk against the window of its cache row, int8
 or bf16, and its own causal keys).  ``decode_multistep`` chains K
@@ -65,6 +67,7 @@ from ..ops.decode_attention import (
     verify_attention_dense,
 )
 from ..ops.flash_attention import flash_attention, flash_attention_ragged
+from ..ops.ring_attention import ring_attention
 from ..parallel.collectives import all_gather_concat, psum
 from .common import matmul_f32, rms_norm
 from .quantization import is_quantized, quantize_tensor
@@ -615,6 +618,66 @@ def prefill(params, input_ids, cfg, dtype=torch.bfloat16, mesh=None):
 def decode_step(params, token_ids, cache, cfg, dtype=torch.bfloat16, mesh=None):
     """One greedy decode step: token_ids [B,1] -> (logits [B,1,V], cache)."""
     return forward(params, token_ids, cache, cfg, dtype, mesh)
+
+
+def _ring_block(x: torch.Tensor, lp: dict, cos: torch.Tensor, sin: torch.Tensor,
+                cfg: LlamaConfig, mesh, axis_name: str):
+    """One decoder layer over this rank's sequence shard with ring
+    attention in place of the cache (the prompt IS the context).  x:
+    ``[B, S/sp, H]``.  Heads split over tp as in :func:`_block` (``_qkv``,
+    ``_heads``), the tp psums after o and down; the ring's blocks take the
+    grouped K/V heads as they are.  Returns ``(y, k, v)``, k and v this
+    layer's ``[B, S/sp, NKV/tp, D]`` rows (k rope'd, what ``_block``
+    writes to the cache)."""
+    b, s, _ = x.shape
+    nh, _, hd = _heads(cfg, mesh)
+    q, k, v = _qkv(x, lp, cos, sin, cfg, mesh)
+    ctx = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         mesh.group(axis_name), causal=True, scale=1.0 / math.sqrt(hd))
+    ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
+    x = x + _qmatmul_rows(ctx, lp["o"], mesh).to(x.dtype)
+    return _mlp(x, lp, cfg, mesh), k, v
+
+
+def prefill_ring(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig, *, mesh,
+                 last_idx: int, dtype=torch.bfloat16, axis_name: str = "sp"):
+    """Sequence-parallel prefill: the whole padded prompt in ONE pass, the
+    sequence split over ``axis_name`` of ``mesh`` (rank ``i`` of the ring
+    runs positions ``[i S/sp, (i + 1) S/sp)``) and ring attention
+    (``ops/ring_attention.py``) in place of the dense scores.
+
+    ``input_ids`` ``[1, S]`` is the whole prompt, padded to a length the sp
+    degree divides, the same on every rank; ``last_idx`` is the final REAL
+    row.  Returns ``(logits [1, V] f32, k_all, v_all)``: the logits of that
+    row (its hidden state psummed over sp from the rank that holds it, one
+    row plus zeros: exact), and each layer's K/V for the whole padded
+    prompt, ``[L, 1, S, NKV/tp, D]`` all-gathered over sp (decode runs
+    replicated over sp), the position-major scratch layout
+    :func:`insert_sequence` takes.  Pad rows carry unused K/V, as in the
+    reference; the insert's length caps what is read."""
+    b, s = input_ids.shape
+    n, r, group = mesh.size(axis_name), mesh.index(axis_name), mesh.group(axis_name)
+    if s % n:
+        raise ValueError(f"sp prefill: {s} positions do not split over sp={n}")
+    if s > cfg.max_seq:
+        raise ValueError(f"sp prefill of {s} positions exceeds KV-cache capacity "
+                         f"max_seq={cfg.max_seq}")
+    c = s // n
+    x = _embed(params, input_ids[:, r * c:(r + 1) * c], dtype, mesh)
+    cos, sin = rope_cos_sin(r * c + torch.arange(c, device=input_ids.device), cfg)
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        x, k, v = _ring_block(x, _layer(params["layers"], l), cos, sin, cfg, mesh, axis_name)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    owner, row = divmod(int(last_idx), c)
+    last = x[:, row] if owner == r else torch.zeros_like(x[:, 0])
+    last = psum(last.to(torch.float32), group).to(x.dtype)  # [1, H]
+    logits = _lm_head(params, last, mesh)
+    k_all = all_gather_concat(torch.stack(ks), group, axis=2)
+    v_all = all_gather_concat(torch.stack(vs), group, axis=2)
+    return logits, k_all, v_all
 
 
 def generate_greedy(

@@ -49,6 +49,12 @@ CUDA-core kernel.  The bf16 kernel copies Q, K and V tiles with 16-byte
 asks q, k and v for 16-byte aligned bases and strides; it raises
 otherwise and never reroutes.
 
+**The log-sum-exp output** (``return_lse=True``, ring attention's blocks,
+``ops/ring_attention.py``): the dense kernel also writes each row's
+``m + log(l)`` of its scaled scores as f32 ``[B, H, S]``, ``-inf`` for a
+row with no visible key (``kv_len <= 0``); the plain version takes the
+log-sum-exp of the same scores.  Without it the kernel runs as before.
+
 **The ragged instance** (:func:`flash_attention_ragged`, packed
 multi-admission prefill, ``models/llama.py`` ``prefill_chunks_ragged``):
 the attention lines of the JAX package's ``_block_verify_deferred``
@@ -101,8 +107,10 @@ from .decode_attention import _verify_chain
 NEG_INF = -1e30
 
 # Kernel launches since import (the plain version never counts): the
-# dense kernel's, and the ragged instance's.
+# dense kernel's, the share of them that wrote the log-sum-exp, and the
+# ragged instance's.
 launches = 0
+lse_launches = 0
 ragged_launches = 0
 
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -177,12 +185,16 @@ def flash_attention_reference(
     scale: float | None = None,
     bias: torch.Tensor | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch version with the kernel's contract: the
     ``attention_reference`` chain plus the key bias, the query offset and
     grouped K/V heads, with the softmax in f32 and the probabilities kept
     in f32 (f64 for f64 inputs) for the product with V, as the kernel
-    keeps them.  Returned in the kernel's layout."""
+    keeps them.  Returned in the kernel's layout.  ``return_lse``: also
+    each row's log-sum-exp ``[B, H, S]`` over its visible keys' scaled
+    scores (the f32 scores, or f64 ones for f64 inputs), ``-inf`` for a
+    row with none."""
     b, h, s_q, d = q.shape
     nkv, t = k.shape[1], k.shape[2]
     _check_offset_and_groups(q, k, q_offset)
@@ -202,8 +214,17 @@ def flash_attention_reference(
     wide = torch.float64 if q.dtype == torch.float64 else torch.float32
     # The kernel's layout: a [B, H, S, D] view of a [B, S, H, D] buffer.
     out = torch.einsum("bngqk,bnkd->bqngd", p.to(wide), v.to(wide))
-    out = out.reshape(b, s_q, h, d).contiguous()
-    return out.to(q.dtype).transpose(1, 2)
+    out = out.reshape(b, s_q, h, d).contiguous().to(q.dtype).transpose(1, 2)
+    if not return_lse:
+        return out
+    if q.dtype == torch.float64:
+        sw = torch.einsum("bngqd,bnkd->bngqk", qg, k) * scale
+        if bias is not None:
+            sw = sw + bias.to(torch.float64)[:, None, None, None, :]
+    else:
+        sw = s
+    sw = torch.where(valid, sw, torch.tensor(-math.inf, dtype=sw.dtype, device=q.device))
+    return out, torch.logsumexp(sw, dim=-1).reshape(b, h, s_q)
 
 
 def _check_offset_and_groups(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> None:
@@ -232,7 +253,7 @@ def _kernel():
             vp, ll, ll, ll,
             vp, ll, ll, ll,
             vp, ll,
-            vp, ll, ll, ll,
+            vp, ll, ll, ll, vp,
             i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         fn.restype = ctypes.c_int
@@ -240,8 +261,8 @@ def _kernel():
     return _fn
 
 
-def _launch(q, k, v, causal, kv_len, scale, bias, q_offset):
-    global launches
+def _launch(q, k, v, causal, kv_len, scale, bias, q_offset, return_lse=False):
+    global launches, lse_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)) + ((("bias", bias),) if bias is not None else ()):
@@ -290,6 +311,8 @@ def _launch(q, k, v, causal, kv_len, scale, bias, q_offset):
     kv = t if kv_len is None else int(kv_len)
     scale = scale if scale is not None else 1.0 / (d**0.5)
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = _kernel()(
         _DTYPES[q.dtype], d, int(bool(causal)),
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -298,13 +321,17 @@ def _launch(q, k, v, causal, kv_len, scale, bias, q_offset):
         bias.data_ptr() if bias is not None else None,
         bias.stride(0) if bias is not None else 0,
         out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        lse.data_ptr() if lse is not None else None,
         b, h, s_q, t, kv, int(q_offset), h // nkv, float(scale),
         _build.current_stream(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
     launches += 1
-    return out
+    if lse is None:
+        return out
+    lse_launches += 1
+    return out, lse
 
 
 def flash_attention(
@@ -316,16 +343,20 @@ def flash_attention(
     scale: float | None = None,
     bias: torch.Tensor | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention over ``[B, H, S, D]`` x ``[B, NKV, T, D]`` -> ``[B, H, S,
-    D]``, query row i at key position ``q_offset + i``.
+    D]``, query row i at key position ``q_offset + i``.  ``return_lse``
+    returns ``(out, lse)`` with each row's f32 log-sum-exp ``[B, H, S]``
+    (``-inf`` where no key is visible), which ring attention merges by.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises (unsupported type, D, device, alignment, offset,
     grouping, build or launch), never falling back."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, kv_len, scale, bias, int(q_offset))
-    return _launch(q, k, v, causal, kv_len, scale, bias, int(q_offset))
+        return flash_attention_reference(q, k, v, causal, kv_len, scale, bias, int(q_offset),
+                                         return_lse)
+    return _launch(q, k, v, causal, kv_len, scale, bias, int(q_offset), return_lse)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ reference's:
 
 - ``dp`` -- data parallel (cache rows split; replicated weights)
 - ``tp`` -- tensor parallel (heads/mlp/vocab split; activations summed)
-- ``sp`` -- sequence parallel (ring attention; not on the port's path yet)
+- ``sp`` -- sequence parallel (the ring-attention prefill, ``ops/ring_attention.py``)
 - ``pp`` -- pipeline parallel, ``ep`` -- expert parallel
 
 Ranks are laid out in ``MESH_AXIS_ORDER``, outer to inner, so ``tp`` --
@@ -101,6 +101,36 @@ def build_mesh(mesh_shape: Mapping[str, int], rank: int | None = None,
     when none is); the product of the sizes must equal ``world``.  Every
     rank must call this in the same order: each axis's groups are made with
     ``torch.distributed.new_group``, which all ranks enter for every group."""
+    place = placement(mesh_shape, rank, world)
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    axis_names, sizes = tuple(place.shape), tuple(place.shape.values())
+    rank, total = place.rank, place.world
+    groups: dict[str, object] = {}
+    if total > 1:
+        if not live:
+            raise RuntimeError(
+                f"meshShape {dict(mesh_shape)} spans {total} ranks: initialize "
+                "torch.distributed first (parallel.maybe_initialize_distributed)"
+            )
+        for a, n in zip(axis_names, sizes):
+            if n == 1:
+                continue
+            for ranks in _axis_groups(axis_names, sizes, a):
+                g = dist.new_group(ranks)
+                if int(rank) in ranks:
+                    groups[a] = g
+    place.groups = groups
+    return place
+
+
+def placement(mesh_shape: Mapping[str, int], rank: int | None = None,
+              world: int | None = None) -> ServingMesh:
+    """This rank's :class:`ServingMesh` without process groups: the axis
+    sizes in ``MESH_AXIS_ORDER`` and its coordinates (what a rank's block
+    of a leaf depends on).  ``rank``/``world`` default to the initialized
+    process group's; the sizes must multiply to ``world``."""
     unknown = set(mesh_shape) - set(MESH_AXIS_ORDER)
     if unknown:
         raise ValueError(
@@ -127,22 +157,7 @@ def build_mesh(mesh_shape: Mapping[str, int], rank: int | None = None,
         coords[a] = rest % n
         rest //= n
     coords = {a: coords[a] for a in axis_names}
-    groups: dict[str, object] = {}
-    if total > 1:
-        if not live:
-            raise RuntimeError(
-                f"meshShape {dict(mesh_shape)} spans {total} ranks: initialize "
-                "torch.distributed first (parallel.maybe_initialize_distributed)"
-            )
-        for a, n in zip(axis_names, sizes):
-            if n == 1:
-                continue
-            for ranks in _axis_groups(axis_names, sizes, a):
-                g = dist.new_group(ranks)
-                if int(rank) in ranks:
-                    groups[a] = g
-    return ServingMesh(shape=dict(zip(axis_names, sizes)), rank=int(rank), coords=coords,
-                       groups=groups)
+    return ServingMesh(shape=dict(zip(axis_names, sizes)), rank=int(rank), coords=coords)
 
 
 def local_mesh(mesh_shape: Mapping[str, int] | None = None) -> ServingMesh:

@@ -366,16 +366,20 @@ class ServerConfig:
     # mesh of several ranks runs one process a rank (README, "A tp or dp
     # unit").
     mesh_shape: dict | None = None
+    # sp > 1: a cold prompt of at least this many tokens prefills through
+    # the ring-attention pass instead of serial chunks.
+    sp_prefill_threshold: int = 1024
 
     def __post_init__(self):
         """The reference's startup checks of the serving features (its
         ``TpuSpec``, ``PrefixCacheSpec`` and ``SpeculativeSpec``), the
         caches' and speculation's only when enabled."""
         self.mesh_shape = parse_mesh_shape(self.mesh_shape)
-        if mesh_device_count(self.mesh_shape) > 1 and (self.warm_pool or self.snapshot_dir):
+        if mesh_device_count(self.mesh_shape) > 1 and self.warm_pool:
             raise ValueError(
-                f"meshShape {self.mesh_shape}: weight snapshots and the warm pool at a "
-                "world above one rank (the sharded snapshot layout) are not yet ported"
+                f"meshShape {self.mesh_shape}: the warm pool at a world above one rank is "
+                "not yet ported (its attach moves every rank's state: the next slice of "
+                "the port's parallelism)"
             )
         if self.prefill_batch < 1:
             raise ValueError(f"spec.tpu.prefillBatch must be >= 1, got {self.prefill_batch!r}")
@@ -550,6 +554,7 @@ def make_gen_engine(predictor, config: ServerConfig, metrics: ServerMetrics,
         on_poison=_fan(m.inc_poison, ts and ts.inc_poison),
         mesh_shape=config.mesh_shape,
         channel=channel,
+        sp_prefill_threshold=config.sp_prefill_threshold,
     )
 
 
@@ -1886,10 +1891,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="prompt tokens prefilled a tick, Sarathi-style (0 = uncapped); "
                          "bounds decode-cadence jitter under long-prompt bursts")
     ap.add_argument("--sp-prefill-threshold", type=int, default=1024,
-                    help="prompt length at or over which a cold prompt prefills through "
-                         "the sequence-parallel ring pass; effective only when meshShape "
-                         "carries sp > 1, which this server refuses (the operator's "
-                         "manifests pass it always)")
+                    help="prompt length at or over which a cold prompt (no cached prefix) "
+                         "prefills in one sequence-parallel ring pass; effective only when "
+                         "--mesh-shape carries sp > 1")
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode iterations fused into ONE dispatch a tick (a CUDA graph "
                          "captured at startup, on-device sampling and EOS latch, lag-1 token "
@@ -2036,6 +2040,7 @@ def config_from_args(args: argparse.Namespace) -> ServerConfig:
         fleet_role=args.fleet_role, snapshot_dir=args.snapshot_dir,
         warm_pool=bool(args.warm_pool), model_uri=args.model_uri,
         mesh_shape=_mesh_arg(args.mesh_shape),
+        sp_prefill_threshold=args.sp_prefill_threshold,
     )
 
 
@@ -2134,6 +2139,7 @@ def write_rank_report(engine, op_stats: dict) -> Path | None:
     rank = dist.get_rank() if dist.is_initialized() else 0
     launches = {name: int(getattr(m, a)) for name, (m, a) in _COUNTERS.items()}
     launches["flash_attention_ragged"] = int(flash_attention.ragged_launches)
+    launches["flash_attention_lse"] = int(flash_attention.lse_launches)
     report = {
         "rank": rank,
         "backend": distributed.backend_name(),
@@ -2214,6 +2220,7 @@ def run_follower(config: ServerConfig, transport, local_rank: int) -> int:
     health = serve_follower_health(config.host, config.port) if local_rank == 0 else None
     predictor = load_predictor(config.model_uri, quantize=config.quantize,
                                device=config.device, dtype=_DTYPES[config.dtype],
+                               snapshot_dir=config.snapshot_dir or None,
                                mesh_shape=config.mesh_shape)
     metrics = ServerMetrics(deployment_name=config.deployment_name or config.model_name,
                             predictor_name=config.predictor_name, namespace=config.namespace)

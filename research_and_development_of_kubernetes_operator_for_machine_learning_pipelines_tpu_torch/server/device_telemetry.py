@@ -585,7 +585,7 @@ class LlamaCostModel:
 
 # Tick kinds that run a forward (and so its collectives at tp > 1).
 _FORWARD_KINDS = frozenset({"decode", "verify", "multistep", "prefill", "packed-prefill",
-                            "superstep"})
+                            "superstep", "sp-prefill"})
 
 
 class DeviceTelemetry:
@@ -670,15 +670,21 @@ class DeviceTelemetry:
             "mfu": float(f"{mfu:.3g}") if flops > 0 else 0.0,
             "hbm_bw_util": float(f"{bw:.3g}"),
         }
-        if self.cost is not None and self.cost.tp > 1 and kind in _FORWARD_KINDS:
+        if self.cost is not None and (self.cost.tp > 1 or kind == "sp-prefill") \
+                and kind in _FORWARD_KINDS:
             # The dispatch's collective bytes over the link rate, by op.
             # Without the dispatch's own count, the tokens come back from
             # its flops as the reference does (2 x matmul params a token),
             # which also counts the attention at the padded window.
             if tokens is None:
                 tokens = flops / max(1.0, 2.0 * self.cost.matmul_params)
+            coll = self.cost.collective_bytes(tokens)
+            if kind == "sp-prefill":
+                # The ring's K/V shard forwards, the sp axis's collective
+                # (a rank ran tokens / sp of the prompt's positions).
+                coll = {**coll, **self.cost.ring_bytes(tokens * self.cost.sp)}
             total = 0.0
-            for op, nbytes in self.cost.collective_bytes(tokens).items():
+            for op, nbytes in coll.items():
                 secs = nbytes / self.peaks.link_bytes_per_s
                 total += secs
                 if self._metrics is not None:

@@ -156,10 +156,20 @@ truth of every slot is the same on every rank; a seed carries the whole
 heads' K/V and each rank takes its own, and a read for the prefix cache
 gathers the heads (and the owning dp shard's row) back.  Under dp > 1
 ``_free_slot`` admits into the least-loaded block of cache rows.  A failed
-op on the leader broadcasts ``OP_GEN_RESET``.  Not yet ported (each raises
-``ValueError`` at construction, before any device state): ``sp`` > 1, and
-on CUDA the graph-replayed paths (``decode_steps`` > 1, ``unified_step``)
-at a world above one rank, whose gloo collectives no CUDA graph captures.
+op on the leader broadcasts ``OP_GEN_RESET``.  Not yet ported (it raises
+``ValueError`` at construction, before any device state): on CUDA the
+graph-replayed paths (``decode_steps`` > 1, ``unified_step``) at a world
+above one rank, whose gloo collectives no CUDA graph captures.
+
+Sequence parallelism (``sp`` > 1, a power of two no larger than the
+smallest prompt bucket, dividing the prefill chunk): a cold prompt of at
+least ``sp_prefill_threshold`` tokens (no radix-cached prefix) prefills in
+ONE ring-attention pass over its bucket, the sequence split over the sp
+ranks (``llama.prefill_ring``, ``OP_GEN_SP_PREFILL``; a ``sp-prefill``
+tick), writes its whole chunks back into the radix cache and inserts
+through the scratch like a chunked admission.  Decode runs replicated over
+sp.  Every other prompt keeps its path; ``{"sp": 1}`` is the engine
+without a mesh.
 """
 
 from __future__ import annotations
@@ -198,6 +208,7 @@ from .multihost import (
     OP_GEN_RESTORE,
     OP_GEN_SEED,
     OP_GEN_SEED_SLOT,
+    OP_GEN_SP_PREFILL,
     OP_GEN_STEP,
     OP_GEN_SUPERSTEP,
     OP_GEN_VERIFY,
@@ -519,8 +530,9 @@ class GenerationEngine:
         telemetry=None,  # device_telemetry.DeviceTelemetry | None
         watchdog=None,  # watchdog.EngineWatchdog | None
         on_poison: Callable[[str], None] | None = None,  # "quarantined" | "rejected"
-        mesh_shape=None,  # {"dp": D, "tp": T}: one rank of a world of D * T
+        mesh_shape=None,  # {"dp": D, "sp": S, "tp": T}: one rank of a world of D * S * T
         channel=None,  # multihost.UnitChannel: the leader's op broadcast
+        sp_prefill_threshold: int = 1024,
     ):
         self._device = resolve_device(device)
         embed_dev = params["embed"].device
@@ -537,8 +549,16 @@ class GenerationEngine:
         self.op_stats: dict[str, list] = {}
         self._mesh = None
         self._dp = 1
+        # sp > 1: a cold prompt of at least sp_prefill_threshold tokens
+        # prefills in ONE ring-attention pass, the sequence split over sp
+        # (llama.prefill_ring), then inserts through the scratch path.
+        self._sp = 1
+        self._sp_threshold = int(sp_prefill_threshold)
         if mesh_shape and partition.mesh_device_count(mesh_shape) > 1:
-            params = self._init_mesh(params, cfg, dict(mesh_shape), decode_steps, unified_step)
+            chunk = prefill_chunk or (prefix_cache.chunk_tokens if prefix_cache is not None
+                                      and prefix_cache.enabled else None)
+            params = self._init_mesh(params, cfg, dict(mesh_shape), decode_steps, unified_step,
+                                     chunk)
         self._params = params
         self.capacity = int(cfg.max_seq)
         self._dtype = dtype or torch.bfloat16
@@ -759,7 +779,7 @@ class GenerationEngine:
             )
         self._reset_device_state()
 
-    def _init_mesh(self, params, cfg, mesh_shape: dict, decode_steps, unified_step):
+    def _init_mesh(self, params, cfg, mesh_shape: dict, decode_steps, unified_step, chunk):
         """Check a mesh of several ranks (typed errors, before any device
         state), build this rank's ``ServingMesh`` and return its block of the
         parameters (a full tree is cut here; the loader's block passes)."""
@@ -777,10 +797,12 @@ class GenerationEngine:
                 "cache's row axis shards over dp in equal blocks"
             )
         partition.validate_llama_mesh(cfg, mesh_shape)
-        if partition.sp_degree(mesh_shape) > 1:
+        partition.validate_mesh_for_model(mesh_shape, prefill_chunk=chunk)
+        sp = partition.sp_degree(mesh_shape)
+        if sp > 1 and (sp & (sp - 1) or sp > _MIN_BUCKET):
             raise ValueError(
-                f"meshShape sp={partition.sp_degree(mesh_shape)}: sequence parallelism "
-                "(ring-attention prefill) is not yet ported"
+                f"meshShape sp={sp} must be a power of two <= {_MIN_BUCKET} so every "
+                "prefill bucket divides evenly across the ring"
             )
         if self._device.type == "cuda" and ((decode_steps or 1) > 1 or unified_step):
             raise ValueError(
@@ -792,6 +814,7 @@ class GenerationEngine:
 
         self._mesh = build_mesh(mesh_shape)
         self._dp = self._mesh.dp
+        self._sp = self._mesh.sp
         if params["embed"].shape[0] == cfg.vocab_size and self._mesh.tp > 1:
             params = partition.shard_llama_params(params, self._mesh)
         return params
@@ -1745,6 +1768,96 @@ class GenerationEngine:
         """Follower side of a chunked admission's insert."""
         self._device_insert(int(slot), int(length), self._key(key_data), float(temp),
                             int(tk), float(tp), int(last_idx))
+
+    # -- sequence-parallel prefill (meshShape sp > 1) -------------------------
+
+    def _sp_eligible(self, req: _Request) -> bool:
+        """Long cold prompts ride the ring: one sequence-parallel pass
+        instead of L/C serial chunk forwards.  Short prompts and warm
+        prefixes keep their paths (a radix-cached prefix already skips the
+        prefill the ring would split)."""
+        return self._sp > 1 and int(req.prompt.size) >= self._sp_threshold
+
+    def _admit_sp(self, req: _Request) -> None:
+        """Admit ``req`` through the sequence-parallel prefill: one ring pass
+        over the bucket-padded prompt into the scratch cache, the radix
+        write-back of its whole chunks, then the scratch insert."""
+        slot_idx = self._free_slot()
+        assert slot_idx is not None
+        L = int(req.prompt.size)
+        bucket = prefill_bucket(L, self.capacity)
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :L] = req.prompt
+        self._beat("prefill")
+        ts = time.perf_counter()
+        self._run_op(OP_GEN_SP_PREFILL, {"ids": ids, "length": L},
+                     lambda: self._device_sp_prefill(ids, L))
+        self.prefill_forwards += 1
+        self._sync_tick()
+        self._record_tick("sp-prefill", ts, time.perf_counter() - ts,
+                          active_slots=self._occupied(), batch_fill=1,
+                          cost=self._cost_sp_prefill(bucket))
+        self._trace_event(req.trace, "sp_prefill")
+        self._cache_sp_chunks(req)
+        slot_key = self._slot_key_for(req)
+        t0 = time.perf_counter()
+        # The ring pass selected the final real row: last_idx 0 indexes the
+        # [1, V] logits it left in the scratch state.
+        first = self._run_op(  # read back: synced
+            OP_GEN_INSERT,
+            {"slot": slot_idx, "length": L, "key_data": _key_data(slot_key),
+             "temp": req.temperature, "tk": req.top_k, "tp": req.top_p, "last_idx": 0},
+            lambda: self._device_insert(slot_idx, L, slot_key, req.temperature, req.top_k,
+                                        req.top_p, 0))
+        self._record_tick("prefill", t0, time.perf_counter() - t0,
+                          active_slots=self._occupied(), batch_fill=1, tokens=1)
+        if req.trace is not None:
+            req.trace.slot = slot_idx
+            req.trace.prefill_chunks += 1  # the whole prompt at once
+        self._slots[slot_idx] = self._new_slot(req)
+        self._note_ttft(req)
+        self._record_token(slot_idx, first)
+
+    def _cache_sp_chunks(self, req: _Request) -> None:
+        """Radix write-back after a ring prefill: every WHOLE chunk of the
+        prompt (a padded tail never enters the cache) the tree does not
+        hold, read from the freshly filled scratch, so a later request
+        sharing the prefix seeds from them as if chunked prefill had
+        written them."""
+        if self._prefix_cache is None or self._prefill_chunk_size is None:
+            return
+        C = self._prefill_chunk_size
+        for chunk_idx in range(int(req.prompt.size) // C):
+            if self._prefix_cache.has_chunk(req.prompt, chunk_idx):
+                continue
+            ck, cv = self._read_op(-1, chunk_idx * C)
+            self._prefix_cache.insert_chunk(req.prompt, chunk_idx, ck, cv)
+
+    def _device_sp_prefill(self, ids: np.ndarray, length: int) -> None:
+        """The ring pass into a fresh scratch cache: its K/V at positions
+        ``[0, bucket)``, its length ``length``, and the last real row's
+        ``[1, V]`` logits beside it."""
+        seq = llama.KVCache.create(self._cfg, 1, self._dtype, self._device, self._mesh)
+        ids_t = torch.as_tensor(ids, dtype=torch.int64, device=self._device)
+        logits, k_all, v_all = llama.prefill_ring(self._params, ids_t, self._cfg,
+                                                  mesh=self._mesh, last_idx=int(length) - 1,
+                                                  dtype=self._dtype)
+        n = k_all.shape[2]
+        seq.k[:, :, :n] = k_all.to(seq.k.dtype)
+        seq.v[:, :, :n] = v_all.to(seq.v.dtype)
+        self._seq_state = (logits, seq._replace(length=int(length)))
+
+    def replay_sp_prefill(self, ids, length) -> None:
+        """Follower side of a ring prefill."""
+        self._device_sp_prefill(np.asarray(ids), int(length))
+
+    def _cost_sp_prefill(self, tokens: int):
+        """One ring pass over ``tokens`` padded positions: the work of a
+        whole-prompt prefill of them, a rank running its ``1/sp`` share."""
+        if self._telemetry is None or self._telemetry.cost is None:
+            return None
+        flops, nbytes = self._telemetry.cost.sp_prefill(tokens)
+        return flops, nbytes, tokens / self._sp
 
     # -- radix prefix cache --------------------------------------------------
 
@@ -2844,8 +2957,18 @@ class GenerationEngine:
                 continue
             self._note_admission_wait(req)
             if self._prefill_chunk_size is not None:
-                self._pending.append(self._make_progress(req))
+                prog = self._make_progress(req)
+                if self._sp_eligible(req) and not prog.cached_tokens:
+                    # A long cold prompt: one ring pass now instead of L/C
+                    # serial chunk ticks (a warm prefix keeps the seed and
+                    # its suffix chunks).
+                    self._admit_sp_or_fail(req)
+                    continue
+                self._pending.append(prog)
                 return True  # first chunk (or seed) runs next iteration's admit phase
+            if self._sp_eligible(req):
+                self._admit_sp_or_fail(req)
+                continue
             try:
                 self._admit(req)
             except Exception as exc:  # keep the scheduler alive
@@ -2855,6 +2978,19 @@ class GenerationEngine:
                     _safe_fail(req.future, exc)
                 self._fail_all_and_recover()
         return True
+
+    def _admit_sp_or_fail(self, req: _Request) -> None:
+        """:meth:`_admit_sp`; a failure fails the request, drops the stale
+        scratch and recovers the device state."""
+        try:
+            self._admit_sp(req)
+        except Exception as exc:
+            _log.exception("sp prefill failed")
+            self._note_admission_crash([req])
+            self._seq_state = None
+            if not req.future.done():
+                _safe_fail(req.future, exc)
+            self._fail_all_and_recover()
 
     def _restore_or_fail(self, rec: _Preempted) -> None:
         """Restore an evicted sequence; a failed restore fails its own
@@ -2906,6 +3042,12 @@ class GenerationEngine:
                 continue
             self._note_admission_wait(req)
             prog = self._make_progress(req)
+            if self._sp_eligible(req) and not prog.cached_tokens:
+                # A long cold prompt: the ring pass (the batch-1 scratch, no
+                # reserved row) instead of packing its L/C chunks.
+                self._admit_sp_or_fail(req)
+                popped = True
+                continue
             prog.slot = self._free_slot()
             self._reserved.add(prog.slot)
             self._pending.append(prog)

@@ -45,8 +45,12 @@ the whole channel's before the row split), cut to the rank's block by the
 rule table (``models/partition.LLAMA_PARTITION_RULES``), and only the
 block copied to the device.  A rank's device never holds a full leaf;
 its host reads a native artifact one leaf at a time (``transformers``
-loads an HF checkpoint whole first).  Every other flavor, and snapshots,
-serve on one rank and refuse such a mesh.
+loads an HF checkpoint whole first).  Every other flavor serves on one
+rank and refuses such a mesh.  With ``snapshot_dir`` the ranks restore
+together (the sharded layout of ``server/snapshot.py``: each rank reads its
+blocks and the replicated leaves) or, on a miss anywhere, load cold
+together and bake, each rank writing its blocks; they agree on each step
+over the control group, so no rank takes another path.
 """
 
 from __future__ import annotations
@@ -461,13 +465,17 @@ def load_predictor(
     from ..models.partition import mesh_device_count
 
     if mesh_device_count(mesh_shape) > 1:
+        mesh_shape = dict(mesh_shape)
+        pred = None
         if snapshot_dir:
-            raise ModelLoadError(
-                f"meshShape {dict(mesh_shape)}: weight snapshots at a world above one rank "
-                "(the sharded snapshot layout) are not yet ported"
-            )
-        pred, _, _ = _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats,
-                                mesh_shape=dict(mesh_shape))
+            pred = _try_restore_sharded(model_uri, snapshot_dir, quantize, dev, dtype,
+                                        load_stats, mesh_shape)
+        if pred is None:
+            pred, flavor, meta = _load_cold(model_uri, flavor, quantize, dev, dtype,
+                                            load_stats, mesh_shape=mesh_shape)
+            if snapshot_dir:
+                _maybe_write_sharded(pred, model_uri, snapshot_dir, quantize, flavor, meta,
+                                     mesh_shape)
         if load_stats is not None and "wall_s" not in load_stats:
             load_stats["wall_s"] = round(time.perf_counter() - t0, 3)
         return pred
@@ -764,6 +772,120 @@ def _maybe_write_snapshot(pred: Predictor, model_uri: str, snapshot_dir: str,
             config=dict(meta.get("config", {})),
             builder_kwargs={"eos_id": int(lm["eos_id"])} if lm.get("eos_id") is not None else {},
         )
+    except Exception as e:
+        _log.warning("snapshot write failed (serving unaffected): %s", e)
+
+
+def _agree(flag: bool, strongest: bool = False) -> bool:
+    """Every rank's ``flag`` joined over the world-wide control group: all
+    of them (``strongest``: any of them), so the ranks of a unit take one
+    path together."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import control_group
+
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX if strongest else dist.ReduceOp.MIN,
+                    group=control_group())
+    return bool(t.item())
+
+
+def _try_restore_sharded(model_uri: str, snapshot_dir: str, quantize: str,
+                         dev: torch.device, dtype, load_stats: dict | None, mesh_shape: dict):
+    """:func:`_try_restore_snapshot` on a mesh of several ranks (every rank
+    calls it together): the ranks agree the manifest matches this
+    identity, build the mesh, each restores its own blocks and the
+    replicated leaves (``snapshot.load_snapshot(mesh=)``), and they agree
+    again.  A miss or a failure anywhere is a cold load on every rank; a
+    corrupt snapshot is moved aside by rank 0."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import control_group
+    from . import snapshot as _snap
+
+    spath = _snap.snapshot_path_for(snapshot_dir, model_uri)
+    ident = _snap.snapshot_identity(model_uri, quantize, mesh_shape)
+    manifest, why = None, None
+    if (spath / _snap.MANIFEST_NAME).exists():
+        try:
+            manifest = _snap.read_manifest(spath)
+            _snap.check_identity(manifest, ident)
+            if manifest.get("flavor") != "llama-generate":
+                raise _snap.SnapshotMismatch(
+                    f"snapshot flavor {manifest.get('flavor')!r} serves on one rank")
+        except _snap.SnapshotError as e:
+            manifest, why = None, e
+    if not _agree(manifest is not None):
+        if why is not None and dist.get_rank() == 0:
+            _log.warning("snapshot invalidated, falling back to cold load (will re-bake): %s",
+                         why)
+        return None
+    cfg = _build_config("llama-generate", manifest.get("config", {}))
+    mesh = _mesh_for_flavor("llama-generate", cfg, mesh_shape)
+    stats: dict = {}
+    params, corrupt = None, False
+    try:
+        params, _ = _snap.load_snapshot(spath, identity=ident, stats=stats, device=dev,
+                                        mesh=mesh)
+    except _snap.SnapshotMismatch as e:
+        _log.warning("snapshot invalidated, falling back to cold load (will re-bake): %s", e)
+    except _snap.SnapshotError as e:
+        _log.warning("snapshot unusable (%s), falling back to cold load", e)
+        corrupt = True
+    if not _agree(params is not None):
+        if _agree(corrupt, strongest=True) and dist.get_rank() == 0:
+            try:
+                os.replace(spath, f"{spath}.corrupt-{os.getpid()}")
+            except OSError:
+                pass
+        dist.barrier(group=control_group())
+        return None
+    if dtype is not None:
+        params = _cast_floats(params, dtype)  # a no-op at the baked type
+    pred = BUILDERS["llama-generate"](params, cfg=cfg, dtype=dtype or torch.bfloat16,
+                                      mesh=mesh, **manifest.get("builder_kwargs", {}))
+    if load_stats is not None:
+        load_stats.update(stats)
+    _log.info("restored this rank's blocks from snapshot %s (%.2f GiB in %.2fs, zero "
+              "transform work; mesh %s, coordinates %s)", spath, stats.get("read_gib", 0.0),
+              stats.get("restore_s", 0.0), mesh_shape, mesh.coords)
+    return _log_capacity(pred, quantize, mesh.tp)
+
+
+def _maybe_write_sharded(pred: Predictor, model_uri: str, snapshot_dir: str, quantize: str,
+                         flavor: str, meta: dict, mesh_shape: dict) -> None:
+    """:func:`_maybe_write_snapshot` on a mesh of several ranks (every rank
+    calls it together): once for the identity, in the sharded layout, each
+    rank writing its own blocks.  A failed write is a warning on every
+    rank; serving goes on."""
+    from ..models import partition
+    from . import snapshot as _snap
+
+    lm = pred.causal_lm
+    ident = _snap.snapshot_identity(model_uri, quantize, mesh_shape)
+    spath = _snap.snapshot_path_for(snapshot_dir, model_uri)
+    baked = False
+    if (spath / _snap.MANIFEST_NAME).exists():
+        try:
+            _snap.check_identity(_snap.read_manifest(spath), ident)
+            baked = True
+        except _snap.SnapshotError:
+            pass  # stale or corrupt: bake again below
+    if _agree(baked) or not lm:
+        return
+    from ..parallel import match_partition_rules
+    from ..parallel.mesh import placement
+
+    # The rule table matched on each flattened key as a "/" path.
+    flat = {k.replace(_SEP, "/"): v for k, v in _flatten(lm["params"]).items()}
+    specs = match_partition_rules(partition.LLAMA_PARTITION_RULES, flat)
+    try:
+        _snap.write_snapshot(
+            snapshot_dir, lm["params"], identity=ident, flavor=flavor,
+            config=dict(meta.get("config", {})),
+            builder_kwargs={"eos_id": int(lm["eos_id"])} if lm.get("eos_id") is not None else {},
+            mesh=placement(mesh_shape),
+            specs={k.replace("/", _SEP): v for k, v in specs.items()})
     except Exception as e:
         _log.warning("snapshot write failed (serving unaffected): %s", e)
 

@@ -50,7 +50,7 @@ OP_GEN_SEED_SLOT = "gen_seed_slot"  # packed prefill / restore: seed a cache row
 OP_GEN_MULTISTEP = "gen_multistep"  # fused K-step decode tick (replayed);
 #   chained ticks of a burst carry no burst-entry inputs: the state each
 #   rank's OWN previous replay left keeps the unit in lockstep
-OP_GEN_SP_PREFILL = "gen_sp_prefill"  # sp ring prefill (not yet ported)
+OP_GEN_SP_PREFILL = "gen_sp_prefill"  # sp ring prefill into the scratch (replayed)
 OP_GEN_RESTORE = "gen_restore"  # preemption restore: a slot's state rows
 OP_GEN_SUPERSTEP = "gen_superstep"  # unified ragged super-step tick
 # The port's own op: a prefix-cache read of a chunk's K/V gathers every
@@ -77,6 +77,7 @@ _REPLAY = {
     OP_GEN_SUPERSTEP: "replay_superstep",
     OP_GEN_RESTORE: "replay_restore",
     OP_GEN_READ: "replay_read",
+    OP_GEN_SP_PREFILL: "replay_sp_prefill",
 }
 
 
@@ -288,8 +289,6 @@ def follower_loop(engine: Any, transport: GroupTransport, gen_engine: Any = None
         try:  # the op's wall is noted whether it ran or raised
             if op == OP_PREDICT:
                 engine.predict(inputs)
-            elif op == OP_GEN_SP_PREFILL:
-                raise ValueError("sequence-parallel prefill (OP_GEN_SP_PREFILL) is not yet ported")
             elif op in _REPLAY:
                 if gen_engine is None:
                     raise RuntimeError("GEN op on a unit without a gen engine")
@@ -297,7 +296,7 @@ def follower_loop(engine: Any, transport: GroupTransport, gen_engine: Any = None
             else:  # unknown op: skip rather than desync the group
                 _log.warning("follower ignoring unknown op %r", op)
         except Exception:
-            if op in _REPLAY or op == OP_GEN_SP_PREFILL:
+            if op in _REPLAY:
                 # Generation is STATEFUL: a rank that failed an op the
                 # leader ran now disagrees with every other rank.  Fail
                 # loud: leave the loop, so the process group breaks, the

@@ -27,11 +27,24 @@ The restore streams: a reader thread reads each leaf in pieces into a ring
 of pinned host buffers and checks its CRC, while this thread copies each
 piece to the card asynchronously; a buffer is reused once its copy is done.
 
-Only the single-device layout is ported.  The JAX package's tensor-parallel
-layout (a leaf's ``shards``, an identity with a mesh of more than one
-device) waits for the sharded snapshot layout, the slice after the port's
-tp and dp: such a manifest is a :class:`SnapshotMismatch`, a miss and a
-cold load, never a partial restore.
+The sharded layout (a mesh of several ranks, one process a rank) is the
+reference's: a leaf the mesh partitions carries ``spec`` (its
+PartitionSpec as data, axes the mesh lacks dropped) and ``shards``, one
+``(file, offset, nbytes, crc32, start, shape)`` record a DISTINCT block
+(ranks that differ only on an axis the spec does not name hold the same
+block, which is written once), sorted by start; a replicated leaf keeps
+the flat record.  A manifest either package writes restores in the other.
+Each rank writes its own blocks: the ranks whose coordinates are 0 on
+every axis a leaf's spec leaves out write that leaf's block into chunk
+files of their own (``chunk-r<rank>-<n>.bin``) in one staging directory
+the leader names, rank 0 writes the replicated leaves, and the leader
+gathers the records (small host objects over the world-wide gloo control
+group), writes the manifest and renames the directory into place.  No
+block crosses the process group and no rank holds another's.  A restore
+reads this rank's block of each sharded leaf (the record whose start is
+the rank's block origin on the running mesh) and every replicated leaf,
+nothing else; a layout the running mesh cannot place (a sharded leaf on
+one device, a missing block) is a :class:`SnapshotMismatch`.
 
 Identity and invalidation: keyed by a content hash of ``(model uri,
 quantize mode, mesh shape, format version)``; any mismatch misses and the
@@ -153,6 +166,55 @@ def _leaf_bytes(leaf: Any) -> tuple[str, list, np.ndarray]:
     return arr.dtype.name, list(arr.shape), arr.reshape(-1).view(np.uint8)
 
 
+def _spec_data(spec, mesh_shape: dict) -> list:
+    """A PartitionSpec as the manifest stores it: an axis name, a list of
+    them, or None a dimension, axes the mesh lacks dropped (the reference's
+    ``_spec_on_mesh`` then ``_spec_to_data``)."""
+    out = []
+    for entry in spec:
+        if isinstance(entry, (tuple, list)):
+            out.append([str(a) for a in entry if a in mesh_shape] or None)
+        else:
+            out.append(str(entry) if entry is not None and entry in mesh_shape else None)
+    return out
+
+
+def _entry_axes(entry) -> list:
+    if entry is None:
+        return []
+    return list(entry) if isinstance(entry, (tuple, list)) else [entry]
+
+
+def block_of(shape, spec_data: list, mesh) -> tuple[tuple, tuple] | None:
+    """``(start, block shape)`` of this rank's block of a leaf of full
+    ``shape`` cut by ``spec_data`` on ``mesh`` (a ``parallel.ServingMesh``),
+    the cut ``parallel.sharding`` makes; None when no axis of the spec has
+    size > 1 there (the leaf is replicated)."""
+    start, block, cut = [], [], False
+    for d, size in enumerate(shape):
+        entry = spec_data[d] if d < len(spec_data) else None
+        axes = [a for a in _entry_axes(entry) if mesh.size(a) > 1]
+        n, idx = 1, 0
+        for a in axes:  # row-major over the entry's axes
+            n *= mesh.size(a)
+            idx = idx * mesh.size(a) + mesh.index(a)
+        if size % n:
+            raise SnapshotMismatch(f"axis {d} of size {size} does not split into {n} blocks")
+        w = size // n
+        start.append(idx * w)
+        block.append(w)
+        cut = cut or n > 1
+    return (tuple(start), tuple(block)) if cut else None
+
+
+def _writes_block(spec_data: list, mesh) -> bool:
+    """Whether this rank writes its block of a leaf cut by ``spec_data``:
+    the first of the ranks that hold the same block (coordinate 0 on every
+    axis the spec does not name)."""
+    named = {a for entry in spec_data for a in _entry_axes(entry)}
+    return all(mesh.index(a) == 0 for a in mesh.shape if a not in named)
+
+
 def _crc(data, value: int = 0) -> int:
     # zlib.crc32 is binascii.crc32's CRC-32 and lets go of the GIL on
     # large buffers, so the reader thread's checks overlap the copies.
@@ -164,79 +226,191 @@ def _crc(data, value: int = 0) -> int:
 # ---------------------------------------------------------------------------
 
 
+class _ChunkWriter:
+    """Appends leaf bytes to chunk files ``<prefix><n>.bin`` of at most
+    ``chunk_bytes`` (a larger blob gets a file of its own)."""
+
+    def __init__(self, directory: Path, prefix: str, chunk_bytes: int):
+        self.dir, self.prefix, self.chunk_bytes = directory, prefix, chunk_bytes
+        # "used" starts past the bound so the first blob opens file 0.
+        self.idx, self.f, self.used, self.total = -1, None, chunk_bytes + 1, 0
+
+    def emit(self, raw: np.ndarray) -> dict:
+        """Write one blob; its ``file``, ``offset``, ``nbytes`` and ``crc32``."""
+        n = int(raw.size)
+        if self.used + n > self.chunk_bytes and self.used > 0:
+            self.close()
+            self.idx += 1
+            self.f = open(self.dir / self.name, "wb")
+            self.used = 0
+        off = self.used
+        self.f.write(memoryview(raw))
+        self.used += n
+        self.total += n
+        return {"file": self.name, "offset": off, "nbytes": n, "crc32": _crc(memoryview(raw))}
+
+    @property
+    def name(self) -> str:
+        return f"{self.prefix}{self.idx:05d}.bin"
+
+    def close(self) -> None:
+        if self.f is not None:
+            self.f.close()
+            self.f = None
+
+
+def _manifest(identity, flavor, config, builder_kwargs, total: int, leaves: list) -> dict:
+    return {
+        "format_version": FORMAT_VERSION,
+        "identity": identity,
+        "content_hash": content_hash(identity),
+        "flavor": flavor,
+        "config": config or {},
+        "builder_kwargs": builder_kwargs or {},
+        "total_bytes": total,
+        "leaves": leaves,
+    }
+
+
+def _publish(staging: Path, target: Path, manifest: dict) -> None:
+    (staging / MANIFEST_NAME).write_text(json.dumps(manifest, indent=1))
+    if target.exists():
+        shutil.rmtree(target)
+    os.replace(staging, target)
+
+
 def write_snapshot(snapshot_dir: str | Path, params: Any, *, identity: dict[str, Any],
                    flavor: str, config: dict | None = None,
                    builder_kwargs: dict | None = None,
-                   chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> Path:
+                   chunk_bytes: int = DEFAULT_CHUNK_BYTES, mesh=None,
+                   specs: dict | None = None) -> Path:
     """Write the tree as a snapshot; returns its path.
 
     Atomic: everything is staged in a temporary directory beside the target
     and renamed into place, so a crash mid-write leaves no half-snapshot.
-    Writing over a snapshot of the same model uri replaces it whole."""
+    Writing over a snapshot of the same model uri replaces it whole.
+
+    ``mesh`` (a ``parallel.ServingMesh`` of several ranks): ``params`` is
+    this rank's block tree and ``specs`` maps each flattened key to its
+    PartitionSpec; every rank of the world calls this together and the
+    sharded layout is written (the module docstring)."""
     from .loader import _flatten
 
     target = snapshot_path_for(snapshot_dir, identity["model_uri"])
     target.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     flat = _flatten(params)
-    staging = Path(tempfile.mkdtemp(prefix=".snapshot-", dir=str(target.parent)))
-    try:
-        leaves = []
-        # The chunk file being filled; "used" starts past the bound so the
-        # first leaf opens chunk 0.
-        state = {"idx": -1, "f": None, "used": chunk_bytes + 1, "total": 0}
-
-        def emit(raw: np.ndarray) -> tuple[str, int]:
-            n = int(raw.size)
-            if state["used"] + n > chunk_bytes and state["used"] > 0:
-                if state["f"] is not None:
-                    state["f"].close()
-                state["idx"] += 1
-                state["f"] = open(staging / f"chunk-{state['idx']:05d}.bin", "wb")
-                state["used"] = 0
-            off = state["used"]
-            state["f"].write(memoryview(raw))
-            state["used"] += n
-            state["total"] += n
-            return f"chunk-{state['idx']:05d}.bin", off
-
+    if mesh is not None and mesh.world > 1:
+        total, n_leaves = _write_sharded(target, flat, identity, flavor, config,
+                                         builder_kwargs, chunk_bytes, mesh, specs or {})
+    else:
+        staging = Path(tempfile.mkdtemp(prefix=".snapshot-", dir=str(target.parent)))
+        w = _ChunkWriter(staging, "chunk-", chunk_bytes)
         try:
-            for key in sorted(flat):
-                name, shape, raw = _leaf_bytes(flat[key])
-                fname, off = emit(raw)
-                leaves.append({
-                    "key": key,
-                    "dtype": name,
-                    "shape": shape,
-                    "file": fname,
-                    "offset": off,
-                    "nbytes": int(raw.size),
-                    "crc32": _crc(memoryview(raw)),
-                })
-        finally:
-            if state["f"] is not None:
-                state["f"].close()
-        total = state["total"]
-        manifest = {
-            "format_version": FORMAT_VERSION,
-            "identity": identity,
-            "content_hash": content_hash(identity),
-            "flavor": flavor,
-            "config": config or {},
-            "builder_kwargs": builder_kwargs or {},
-            "total_bytes": total,
-            "leaves": leaves,
-        }
-        (staging / MANIFEST_NAME).write_text(json.dumps(manifest, indent=1))
-        if target.exists():
-            shutil.rmtree(target)
-        os.replace(staging, target)
-    except BaseException:
-        shutil.rmtree(staging, ignore_errors=True)
-        raise
-    _log.info("wrote snapshot %s: %d leaves, %.2f GiB in %.1fs", target, len(leaves),
+            leaves = []
+            try:
+                for key in sorted(flat):
+                    name, shape, raw = _leaf_bytes(flat[key])
+                    leaves.append({"key": key, "dtype": name, "shape": shape, **w.emit(raw)})
+            finally:
+                w.close()
+            _publish(staging, target, _manifest(identity, flavor, config, builder_kwargs,
+                                                w.total, leaves))
+        except BaseException:
+            shutil.rmtree(staging, ignore_errors=True)
+            raise
+        total, n_leaves = w.total, len(leaves)
+    _log.info("wrote snapshot %s: %d leaves, %.2f GiB in %.1fs", target, n_leaves,
               total / 2**30, time.perf_counter() - t0)
     return target
+
+
+def _write_sharded(target: Path, flat: dict, identity, flavor, config, builder_kwargs,
+                   chunk_bytes: int, mesh, specs: dict) -> tuple[int, int]:
+    """Every rank's part of a sharded write (the module docstring); returns
+    the snapshot's total bytes and leaf count on every rank, or raises
+    :class:`SnapshotError` on every rank when any rank failed."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import control_group
+
+    group = control_group()
+    rank = dist.get_rank()
+    box = [str(tempfile.mkdtemp(prefix=".snapshot-", dir=str(target.parent)))
+           if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=group)
+    staging = Path(box[0])
+    mine: dict = {"flat": [], "blocks": [], "error": None}
+    w = _ChunkWriter(staging, f"chunk-r{rank:03d}-", chunk_bytes)
+    try:
+        try:
+            for key in sorted(flat):
+                leaf = flat[key]
+                spec = _spec_data(specs.get(key, ()), mesh.shape)
+                # ``leaf`` is this rank's block: the full leaf is it times the splits.
+                full = ([int(b) * n for b, n in zip(leaf.shape, _splits(spec, mesh))]
+                        if len(spec) == len(leaf.shape) else list(leaf.shape))
+                blk = block_of(full, spec, mesh) if len(spec) == len(leaf.shape) else None
+                if blk is None:
+                    if rank == 0:
+                        name, shape, raw = _leaf_bytes(leaf)
+                        mine["flat"].append({"key": key, "dtype": name, "shape": shape,
+                                             **w.emit(raw)})
+                    continue
+                if not _writes_block(spec, mesh):
+                    continue
+                start, bshape = blk
+                name, _, raw = _leaf_bytes(leaf)
+                mine["blocks"].append({"key": key, "dtype": name, "shape": full, "spec": spec,
+                                       "shard": {**w.emit(raw), "start": list(start),
+                                                 "shape": list(bshape)}})
+        finally:
+            w.close()
+    except Exception as e:  # every rank still joins the gather below
+        mine["error"] = f"rank {rank}: {e}"
+    mine["total"] = w.total
+    parts = [None] * dist.get_world_size() if rank == 0 else None
+    dist.gather_object(mine, parts, dst=0, group=group)
+    result = [None]
+    if rank == 0:
+        errors = [p["error"] for p in parts if p["error"]]
+        try:
+            if errors:
+                raise SnapshotError("; ".join(errors))
+            entries = {e["key"]: e for e in parts[0]["flat"]}
+            for p in parts:
+                for b in p["blocks"]:
+                    e = entries.setdefault(b["key"], {k: b[k] for k in
+                                                      ("key", "dtype", "shape", "spec")}
+                                           | {"shards": []})
+                    e["shards"].append(b["shard"])
+            for e in entries.values():
+                if "shards" in e:
+                    e["shards"].sort(key=lambda r: tuple(r["start"]))
+            total = sum(p["total"] for p in parts)
+            leaves = [entries[k] for k in sorted(entries)]
+            _publish(staging, target, _manifest(identity, flavor, config, builder_kwargs,
+                                                total, leaves))
+            result = [(total, len(leaves))]
+        except Exception as e:
+            shutil.rmtree(staging, ignore_errors=True)
+            result = [f"{type(e).__name__}: {e}"]
+    dist.broadcast_object_list(result, src=0, group=group)
+    if isinstance(result[0], str):
+        raise SnapshotError(f"sharded snapshot write failed: {result[0]}")
+    return result[0]
+
+
+def _splits(spec_data: list, mesh) -> list[int]:
+    """The blocks each dimension of a leaf cut by ``spec_data`` splits into
+    on ``mesh``."""
+    out = []
+    for entry in spec_data:
+        n = 1
+        for a in _entry_axes(entry):
+            n *= mesh.size(a)
+        out.append(n)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -271,20 +445,74 @@ def check_identity(manifest: dict, identity: dict[str, Any]) -> None:
             f"requested {identity}")
 
 
-def check_placeable(manifest: dict) -> None:
-    """Raise :class:`SnapshotMismatch` for a layout this port cannot place: a
-    leaf stored by shards, or an identity whose mesh spans several devices."""
-    mesh = (manifest.get("identity") or {}).get("mesh_shape") or {}
-    devices = int(np.prod([int(v) for v in mesh.values()] or [1]))
-    if devices > 1 or any("shards" in leaf for leaf in manifest["leaves"]):
+def _record(key: str, dtype: str, shape, rec: dict) -> dict:
+    """One read of the restore: a flat leaf, or this rank's block of one."""
+    try:
+        out = {"key": str(key), "dtype": TORCH_DTYPES[dtype],
+               "shape": [int(d) for d in shape], "file": str(rec["file"]),
+               "offset": int(rec["offset"]), "nbytes": int(rec["nbytes"]),
+               "crc32": int(rec["crc32"])}
+    except (KeyError, TypeError, ValueError) as e:
+        raise SnapshotError(f"malformed snapshot leaf {key!r}: {e}") from e
+    want = int(np.prod(out["shape"], dtype=np.int64)) * out["dtype"].itemsize
+    if out["nbytes"] != want:
+        raise SnapshotError(f"snapshot leaf {key!r}: {out['nbytes']} bytes do not fit shape "
+                            f"{out['shape']} x {dtype}")
+    return out
+
+
+def read_plan(manifest: dict, mesh=None) -> list[dict]:
+    """The records a restore on ``mesh`` (a ``parallel.ServingMesh``; None
+    or one rank: a single device) reads: every flat leaf, and of each
+    sharded leaf only the block this rank holds.  A layout the mesh cannot
+    place raises :class:`SnapshotMismatch`: a sharded leaf on a single
+    device, a spec naming an axis the mesh does not split, a missing
+    block."""
+    single = mesh is None or mesh.world == 1
+    ident_mesh = (manifest.get("identity") or {}).get("mesh_shape") or {}
+    devices = int(np.prod([int(v) for v in ident_mesh.values()] or [1]))
+    if single and (devices > 1 or any("shards" in leaf for leaf in manifest["leaves"])):
         raise SnapshotMismatch(
-            f"snapshot baked for mesh {mesh} in the sharded layout; the port "
-            "restores single-device snapshots only (the sharded snapshot layout "
-            "is the next slice of its parallelism)")
+            f"snapshot baked for mesh {ident_mesh} in the sharded layout; a single-device "
+            "restore cannot place it (it restores on a mesh of as many ranks)")
+    if not single and devices != mesh.world:
+        raise SnapshotMismatch(f"snapshot baked for mesh {ident_mesh} ({devices} devices); "
+                               f"this mesh {mesh.shape} has {mesh.world} ranks")
+    records = []
+    for leaf in manifest["leaves"]:
+        if not isinstance(leaf, dict):
+            raise SnapshotError(f"malformed snapshot leaf {leaf!r}")
+        key = leaf.get("key")
+        if "shards" not in leaf:
+            records.append(_record(key, leaf.get("dtype"), leaf.get("shape"), leaf))
+            continue
+        try:
+            shape = [int(d) for d in leaf["shape"]]
+            spec = list(leaf["spec"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise SnapshotError(f"malformed sharded snapshot leaf {key!r}: {e}") from e
+        if any(a not in mesh.shape for entry in spec for a in _entry_axes(entry)):
+            raise SnapshotMismatch(f"snapshot leaf {key!r} is cut over {spec}, axes this mesh "
+                                   f"{mesh.shape} lacks")
+        blk = block_of(shape, spec, mesh)
+        start, bshape = blk if blk is not None else ((0,) * len(shape), tuple(shape))
+        match = [r for r in leaf["shards"] if tuple(r.get("start", ())) == start]
+        if not match or tuple(match[0].get("shape", ())) != bshape:
+            raise SnapshotMismatch(f"snapshot leaf {key!r} has no block at {list(start)} of "
+                                   f"shape {list(bshape)} for this rank of mesh {mesh.shape}")
+        records.append(_record(key, leaf.get("dtype"), bshape, match[0]))
+    return records
+
+
+def check_placeable(manifest: dict, mesh=None) -> None:
+    """Raise :class:`SnapshotMismatch` for a layout the running mesh cannot
+    place (:func:`read_plan`)."""
+    read_plan(manifest, mesh)
 
 
 def load_snapshot(path: str | Path, *, identity: dict[str, Any] | None = None,
-                  stats: dict | None = None, device=None) -> tuple[Any, dict[str, Any]]:
+                  stats: dict | None = None, device=None,
+                  mesh=None) -> tuple[Any, dict[str, Any]]:
     """Restore ``(params, manifest)`` from a snapshot directory onto
     ``device`` (``cuda`` unless named).
 
@@ -293,7 +521,9 @@ def load_snapshot(path: str | Path, *, identity: dict[str, Any] | None = None,
     or truncated chunk or a CRC mismatch raises :class:`SnapshotError` and
     nothing is returned.  ``stats`` receives ``restore_s``, ``disk_s`` (the
     reader's reads and CRCs), ``transfer_s`` (this thread's copy launches
-    and waits) and ``read_gib``."""
+    and waits) and ``read_gib``.  ``mesh`` (a ``parallel.ServingMesh`` of
+    several ranks): the tree returned is this rank's blocks, and only they
+    and the replicated leaves are read."""
     from .generation import resolve_device
     from .loader import _unflatten
 
@@ -302,25 +532,7 @@ def load_snapshot(path: str | Path, *, identity: dict[str, Any] | None = None,
     manifest = read_manifest(path)
     if identity is not None:
         check_identity(manifest, identity)
-    check_placeable(manifest)
-    records = []
-    for leaf in manifest["leaves"]:
-        try:
-            records.append({
-                "key": str(leaf["key"]), "dtype": TORCH_DTYPES[leaf["dtype"]],
-                "shape": [int(d) for d in leaf["shape"]], "file": str(leaf["file"]),
-                "offset": int(leaf["offset"]), "nbytes": int(leaf["nbytes"]),
-                "crc32": int(leaf["crc32"]),
-            })
-        except (KeyError, TypeError, ValueError) as e:
-            raise SnapshotError(f"malformed snapshot leaf {leaf!r}: {e}") from e
-        rec = records[-1]
-        want = int(np.prod(rec["shape"], dtype=np.int64)) * rec["dtype"].itemsize
-        if rec["nbytes"] != want:
-            raise SnapshotError(
-                f"snapshot leaf {rec['key']!r}: {rec['nbytes']} bytes do not fit shape "
-                f"{rec['shape']} x {leaf['dtype']}")
-
+    records = read_plan(manifest, mesh)
     cuda = dev.type == "cuda"
     t_wall = time.perf_counter()
     timing = {"disk_s": 0.0, "transfer_s": 0.0, "read_bytes": 0}

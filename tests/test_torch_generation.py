@@ -285,14 +285,15 @@ def test_engine_recovers_after_failed_step(tiny, dense_refs):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh_shape", {"sp": 2}),
-    ("mesh_shape", {"tp": 2, "sp": 2}),
+    ("mesh_shape", {"sp": 3}),
+    ("mesh_shape", {"tp": 2, "sp": 32}),
 ])
 def test_unported_engine_options_raise(tiny, option, value):
-    """Sequence parallelism is the mesh's one axis still to be ported: refused
-    at construction, before any world or device state is needed."""
+    """An sp degree the ring cannot split every prompt bucket over (not a
+    power of two, or past the smallest bucket) is refused at construction,
+    before any world or device state is needed."""
     _, tcfg, _, tp = tiny
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="must be a power of two"):
         TG.GenerationEngine(tp, tcfg, device="cpu", **{option: value})
 
 

@@ -194,6 +194,9 @@ class _FailingGen:
     def replay_step(self, **kw):
         raise RuntimeError("injected replay failure")
 
+    def replay_sp_prefill(self, **kw):
+        raise RuntimeError("injected sp replay failure")
+
 
 def test_a_follower_gen_failure_ends_its_loop():
     """Generation is stateful: a rank that failed an op the leader ran
@@ -204,7 +207,8 @@ def test_a_follower_gen_failure_ends_its_loop():
     stats = {}
     with pytest.raises(RuntimeError, match="injected"):
         TM.follower_loop(None, _Scripted(msgs), gen_engine=_FailingGen(), stats=stats)
-    with pytest.raises(ValueError, match="not yet ported"):
+    # The ring prefill replays like every other generation op.
+    with pytest.raises(RuntimeError, match="injected sp replay"):
         TM.follower_loop(None, _Scripted([TM.encode_message(TM.OP_GEN_SP_PREFILL, {})]),
                          gen_engine=_FailingGen())
     with pytest.raises(RuntimeError, match="without a gen engine"):

@@ -110,8 +110,8 @@ def test_default_mesh_builds_no_sharded_state(mesh_shape):
     ({"ep": 2, "tp": 2}, "dp/sp/tp only"),
     ({"tp": 3}, "tp=3 does not divide"),
     ({"dp": 3}, "dp=3 does not divide maxSlots"),
-    ({"sp": 2}, "not yet ported"),
-    ({"sp": 2, "dp": 2}, "not yet ported"),
+    ({"sp": 3}, "sp=3 must be a power of two"),
+    ({"sp": 32, "dp": 2}, "sp=32 must be a power of two"),
 ])
 def test_unservable_meshes_are_refused_typed(mesh_shape, match):
     params, cfg = _tiny_torch()

@@ -325,3 +325,89 @@ def forward_and_engine_case(rank: int, world: int, mesh_shape: dict, cfg_kw: dic
     """:func:`forward_case` then :func:`engine_case` in one world (one spawn)."""
     return {"forward": forward_case(rank, world, mesh_shape, cfg_kw, trees),
             "engine": engine_case(rank, world, mesh_shape, cfg_kw, tree, runs)}
+
+
+def ring_case(rank: int, world: int, cases: list) -> list:
+    """Ring attention on an ``{"sp": world}`` mesh, each case ``(q, k, v,
+    causal)`` of global numpy arrays: the plain ring and the ring through
+    the (plain) flash with its log-sum-exp, each cut to this rank's shard
+    and gathered back (``ring_attention_sharded``)."""
+    import importlib
+
+    import torch
+
+    R = importlib.import_module(f"{PKG}.ops.ring_attention")
+    mesh = _port()["parallel"].build_mesh({"sp": world})
+    out = []
+    for q, k, v, causal in cases:
+        q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+        out.append({name: R.ring_attention_sharded(q, k, v, mesh, causal=causal, fn=fn).numpy()
+                    for name, fn in (("plain", R.ring_attention_reference),
+                                     ("flash", R.ring_attention_flash))})
+    return out
+
+
+def prefill_ring_case(rank: int, world: int, mesh_shape: dict, cfg_kw: dict, tree: dict,
+                      ids: np.ndarray, last_idx: int) -> dict:
+    """``llama.prefill_ring`` on ``mesh_shape``: the logits and this rank's
+    K/V (every position, its tp heads)."""
+    import torch
+
+    m = _port()
+    L = m["models.llama"]
+    cfg = L.LlamaConfig(**cfg_kw)
+    mesh = m["parallel"].build_mesh(mesh_shape)
+    params = m["convert"].from_jax_numpy(tree)
+    if mesh.tp > 1:
+        params = m["models.partition"].shard_llama_params(params, mesh)
+    lg, k_all, v_all = L.prefill_ring(params, torch.from_numpy(ids).long(), cfg, mesh=mesh,
+                                      last_idx=last_idx, dtype=torch.float64)
+    return {"logits": lg.numpy(), "k": k_all.numpy(), "v": v_all.numpy(),
+            "coords": dict(mesh.coords)}
+
+
+def sharded_snapshot_case(rank: int, world: int, art: str, mesh_shape: dict,
+                          loads: list) -> list:
+    """``load_predictor`` on ``mesh_shape`` once for each ``(snapshot dir,
+    quantize)`` of ``loads``, in order: each load's tree (flattened, as
+    bits with the dtype's name), its load stats, the snapshot records this
+    rank read (key, file, offset, nbytes) and the loader's warnings."""
+    import importlib
+    import logging
+
+    import torch
+
+    loader = importlib.import_module(f"{PKG}.server.loader")
+    snap = importlib.import_module(f"{PKG}.server.snapshot")
+    reads: list = []
+    real = snap.read_plan
+
+    def plan(manifest, mesh=None):
+        recs = real(manifest, mesh)
+        reads.extend((r["key"], r["file"], r["offset"], r["nbytes"]) for r in recs)
+        return recs
+
+    snap.read_plan = plan
+    warnings: list = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    logging.getLogger("tpumlops_torch.loader").addHandler(Catch())
+    out = []
+    for snapdir, quantize in loads:
+        reads.clear()
+        warnings.clear()
+        stats: dict = {}
+        pred = loader.load_predictor(art, quantize=quantize, device="cpu",
+                                     dtype=torch.bfloat16, load_stats=stats,
+                                     snapshot_dir=snapdir, mesh_shape=mesh_shape)
+        flat = {}
+        for k, v in loader._flatten(pred.causal_lm["params"]).items():
+            bits = v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+            flat[k] = (str(v.dtype), bits.numpy().copy())
+        out.append({"params": flat, "stats": stats, "reads": list(reads),
+                    "warnings": list(warnings)})
+    return out
