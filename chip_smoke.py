@@ -3489,7 +3489,8 @@ def _ragged_at_burst(fa, rows_seen, capacity: int, n_rows: int) -> list[dict]:
     return out
 
 
-def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") -> dict:
+def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda",
+                          layers: int | None = None) -> dict:
     """Phase 5d: packed multi-admission prefill at Llama-2-7B int8kv
     (``params``: the int8 weight tree), 4 slots, chunks of 256,
     ``prefill_batch`` 4, no token budget, the prefix cache on (2 GiB, so
@@ -3507,7 +3508,9 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
     the ragged flash launches = 32 x prefill forwards (flash on the serial
     server), decode = 32 x decode ticks, RMSNorm = 65 x forwards, the
     prefix counters exactly the radix rules'.  Then one packed forward at
-    B_p = 4 against one serial chunk forward (device and wall ms)."""
+    B_p = 4 against one serial chunk forward (device and wall ms).
+    ``layers``: the tree cut to its first ``layers`` layers (widths whole;
+    the launch identities count L = ``layers``)."""
     import numpy as np
     import torch
     from importlib import import_module
@@ -3516,6 +3519,8 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
     registry = import_module(f"{PKG}.models.registry")
     app = import_module(f"{PKG}.server.app")
     cfg = llama.LlamaConfig.llama2_7b()
+    if layers is not None and layers < cfg.num_layers:
+        params, cfg = _cut_depth(params, layers), dataclasses.replace(cfg, num_layers=layers)
     V, L = cfg.vocab_size, cfg.num_layers
     rng = np.random.default_rng(41)
     lens = (300, 700, 1000, 1500)
@@ -3690,7 +3695,8 @@ def phase_serve_7b_packed(da, rn, fa, smi: str, params, device: str = "cuda") ->
            "da_launches": p["launches"]["decode"] + sr["launches"]["decode"],
            "rn_launches": p["launches"]["rmsnorm"] + sr["launches"]["rmsnorm"],
            "fa_launches": sr["launches"]["flash"], "ragged_launches": p["launches"]["ragged"]}
-    log(f"7B packed prefill (int8kv): the burst's 12 chunks in {p['burst_prefill_forwards']} "
+    log(f"7B packed prefill (int8kv, {L} layers): the burst's 12 chunks in "
+        f"{p['burst_prefill_forwards']} "
         f"packed forwards ({p['chunks_per_forward']:.2f} chunks a forward) against "
         f"{sr['burst_prefill_forwards']} serial (rows, pad rows a packed forward: "
         f"{p['burst_calls']}); TTFT p50/max packed {p['ttft_p50_ms']:.1f}/"
@@ -4378,13 +4384,14 @@ def _settle(engines, replays0, timeout: float = 60.0) -> None:
 
 
 def phase_serve_7b_multistep(da, rn, fa, ss, smi: str, params, quantize: str,
-                             prefill_chunk: int | None) -> dict:
+                             prefill_chunk: int | None, layers: int | None = None) -> dict:
     """Llama-2-7B served at ``decode_steps`` 1, 4 and 8 (three servers on
     one weight tree, driven in turns): graph replay against the eager call,
     tok/s alone and four concurrent, TTFT, SSE ITL over four seeded
     streams, the idle share of one request, the graphs' count, capture
     seconds and pool bytes, peak memory, ``/metrics``, the launch
-    identities with replays counted, and token agreement against K = 1."""
+    identities with replays counted, and token agreement against K = 1.
+    ``layers``: the tree cut to its first ``layers`` layers (widths whole)."""
     import numpy as np
     import torch
     from importlib import import_module
@@ -4396,8 +4403,10 @@ def phase_serve_7b_multistep(da, rn, fa, ss, smi: str, params, quantize: str,
     gen = import_module(f"{PKG}.server.generation")
 
     cfg = llama.LlamaConfig.llama2_7b()
+    if layers is not None and layers < cfg.num_layers:
+        params, cfg = _cut_depth(params, layers), dataclasses.replace(cfg, num_layers=layers)
     L = cfg.num_layers
-    tag = f"7B multistep {quantize}"
+    tag = f"7B multistep {quantize}" + (f" ({L} layers)" if layers is not None else "")
     predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4654,9 +4663,10 @@ UNI_K = 4          # decode_steps of both engines
 UNI_REPEATS = 2    # turns, split then unified, then the other way
 UNI_NEW = 24       # new tokens a request
 UNI_BURST = (300, 700, 1000, 1500)  # phase 5d's burst
-# Llama-2-7B's widths at this depth in the int8kv turns of phases 5f and 5g
-# (their engines copy every int8 weight to bf16 each forward, 2.4-3.6x the
-# `none` turns' walls at 32 layers): cut for the smoke's time limit.
+# Llama-2-7B's widths at this depth in the int8kv turns of phases 5d, 5e,
+# 5f and 5g (their engines copy every int8 weight to bf16 each forward,
+# 2.4-3.6x the `none` turns' walls at 32 layers): cut for the smoke's time
+# limit (5d and 5e since PR 21, when phase 8c came).
 INT8KV_LAYERS = 8
 
 
@@ -6820,8 +6830,9 @@ def _v2_out(resp: dict):
     return np.asarray(out["data"]).reshape(out["shape"])
 
 
-def _phase7_resnet(resnet, loader, app, scratch: Path, device: str) -> dict:
-    import numpy as np
+def _resnet50_params(resnet, device: str):
+    """ResNet-50 drawn from seed 0 with random folded BN statistics (so BN
+    is no identity); phases 7 and 8c serve it."""
     import torch
 
     cfg = resnet.ResNetConfig.resnet50()
@@ -6842,7 +6853,14 @@ def _phase7_resnet(resnet, loader, app, scratch: Path, device: str) -> dict:
         return {k: (random_bn(v) if isinstance(v, (dict, list)) else v)
                 for k, v in node.items()}
 
-    params = random_bn(params)
+    return random_bn(params), cfg
+
+
+def _phase7_resnet(resnet, loader, app, scratch: Path, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    params, cfg = _resnet50_params(resnet, device)
     n_params = sum(t.numel() for t in _leaves(params))
     art = loader.save_native_model(scratch / "bucket" / "models" / "resnet50",
                                    "resnet-classifier", params,
@@ -7247,11 +7265,12 @@ def _top2_margin(llama, pred, prompt: list, toks: list, pos: int, device: str) -
 
 
 def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path,
-                 mesh_shape: dict = MESH_SHAPE, extra: tuple = ()) -> dict:
+                 mesh_shape: dict = MESH_SHAPE, extra: tuple = (), argv=None) -> dict:
     """Four rank processes started as the app starts them (the process
     group from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
     JAX_PROCESS_ID, ``--mesh-shape``), not waited for; ``extra`` flags
-    after the unit's own."""
+    after the unit's own (``argv``: its own flags, phase 8's Llama server's
+    when None)."""
     world = math.prod(mesh_shape.values())
     coord = _free_port()
     shutil.rmtree(report_dir, ignore_errors=True)
@@ -7266,18 +7285,20 @@ def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path,
         with open(log_path, "w") as logf:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", f"{PKG}.server",
-                 *_mesh_argv(art, dtype, 0, device), "--mesh-shape", json.dumps(mesh_shape),
-                 *extra],
+                 *(argv or _mesh_argv(art, dtype, 0, device)),
+                 "--mesh-shape", json.dumps(mesh_shape), *extra],
                 cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT))
     return {"tag": tag, "procs": procs, "logs": logs, "report_dir": report_dir,
             "t0": time.perf_counter()}
 
 
-def _await_unit(unit: dict) -> str:
-    """The leader's URL once it serves (every rank up: the leader serves
-    after the process group formed and its engine started)."""
+def _await_unit(unit: dict, what: str = "llama-generate") -> str:
+    """The leader's URL once it serves ``what`` (a flavor, or ``warm pool``;
+    every rank up: the leader serves after the process group formed and its
+    engine started)."""
     procs, logs = unit["procs"], unit["logs"]
-    serving = re.compile(r"serving model \(llama-generate\) on 127\.0\.0\.1:(\d+)")
+    serving = re.compile(r"serving model \(" + re.escape(what)
+                         + r"\) on 127\.0\.0\.1:(\d+)")
     deadline = time.time() + 300
     while True:
         m = serving.search(logs[0].read_text())
@@ -7478,6 +7499,7 @@ def phase_serve_mesh(smi: str, art: Path, device: str = "cuda") -> dict:
         _stop_units(units)
         for dt, u in zip(dtypes, units):
             _mesh_reports(u, runs[dt])
+        out["reference_tokens"] = refs
         for dt in dtypes:
             run, ref = runs[dt], refs[dt]
             run["reference_s"] = ref_s[dt]
@@ -7737,13 +7759,12 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
                 f"s {shift_s}; "
                 f"load stages {r['load_s']}; [{smi}]")
             _rank_lines(f"sp_{tag}", r, smi)
-        # Each rank's peak within its HBM ledger at f32, after the cold load
-        # and after the restore (a restore that held more than its blocks
-        # would show here).  At bf16 the ring pass's f32 activations at 1024
-        # positions a rank outweigh the slack of a halved ledger: reported
-        # by the rank lines above, not asserted.
+        # Each rank's peak within its HBM ledger, after the cold loads (f32,
+        # bf16) and after the restore (a restore that held more than its
+        # blocks would show here).  The ledger counts the ring pass's
+        # activations at sp > 1 (``ring_activations``).
         if device == "cuda":
-            for tag in ("float32", "restore"):
+            for tag in ("float32", "bfloat16", "restore"):
                 _check_rank_memory(f"sp {tag}", runs[tag])
         out["runs"] = runs
         del preds
@@ -7762,6 +7783,266 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
         f"restore start and traffic {out.get('restore_phase_s', 0):.1f} s, snapshot "
         f"{out.get('snapshot_gib', 0):.2f} GiB); {out['cut']}; {smi}")
     DETAIL["serve_mesh_sp"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8c: the V2 path and the warm pool across ranks ({"dp": 2, "tp": 2})
+# ---------------------------------------------------------------------------
+
+V2_POOL_BATCH = 8    # unit (a)'s --max-batch-size: its BERT and ResNet batches
+V2_LAT_N = 20        # unit (b)'s timed requests a shape
+V2_WEIGHTLESS = 64 * 2**20  # what a weightless rank may hold (kernel tables, buffers)
+
+
+def _v2_argv(art: Path, dtype: str, device: str, max_batch: int) -> list[str]:
+    return ["--model-uri", str(art), "--dtype", dtype, "--host", "127.0.0.1", "--port", "0",
+            "--metrics-port", "0", "--drain-s", "0", "--device", device,
+            "--max-batch-size", str(max_batch), "--max-batch-delay-ms", "5"]
+
+
+def _unit_ranks(url: str) -> list:
+    """Every rank's report, gathered by the leader (``GET /debug/ranks``)."""
+    code, body, _ = _call("GET", url + "/debug/ranks", timeout=600)
+    if code != 200:
+        raise AssertionError(f"/debug/ranks answered {code}: {body}")
+    return body["ranks"]
+
+
+def _check_pool_memory(tag: str, reports: list, device: str) -> list:
+    """Each rank's peak since the last release within its HBM ledger at
+    MESH_PEAK_SLACK: a rank still holding the model before would exceed it
+    by that model's blocks.  Returns (rank, peak GiB, ledger GiB) rows."""
+    rows = []
+    for rep in reports:
+        total = rep["ledger"]["total"]
+        peak = rep.get("max_memory_allocated", 0)
+        rows.append((rep["rank"], peak / 2**30, total / 2**30))
+        if device == "cuda" and peak > total * (1.0 + MESH_PEAK_SLACK):
+            raise AssertionError(
+                f"mesh v2 {tag} rank {rep['rank']}: peak {peak} B exceeds its HBM ledger "
+                f"{total} B ({rep['ledger']}) by more than {100 * MESH_PEAK_SLACK:.0f}%")
+    return rows
+
+
+def _attach(url: str, uri: str, replace: bool = False) -> tuple[int, dict]:
+    code, body, _ = _call("POST", url + "/admin/attach", {"model_uri": uri, "replace": replace},
+                          timeout=900)
+    return code, body
+
+
+def _logits_out(resp: dict):
+    import numpy as np
+
+    out = resp["outputs"][0]
+    return np.asarray(out["data"], np.float32).reshape(out["shape"])
+
+
+def _bert_close(tag: str, got, ref, tol: float) -> float:
+    import numpy as np
+
+    err = np.abs(got - ref)
+    if got.shape != ref.shape or not np.isfinite(got).all() or (
+            err > tol + tol * np.abs(ref)).any():
+        raise AssertionError(f"mesh v2 {tag}: logits disagree with the one-rank port: "
+                             f"max_abs_err {float(err.max()):.3e} (tol {tol} abs + rel)")
+    return float(err.max())
+
+
+def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda") -> dict:
+    """Two units of four ranks (``{"dp": 2, "tp": 2}``, gloo on the one card):
+
+    (a) a ``--warm-pool 1`` unit in f32 with a snapshot dir, booted once
+    for every attach: weightless at boot; an attach of a URI that does not
+    exist answers 500 and leaves it in the warm pool; phase 8's artifact
+    attached serves phase 8's tp-1 f32 tokens; a ``replace`` with BERT-base
+    (phase 6's draw) answers the one-rank port's logits within
+    BERT_TOL["none"], one with ResNet-50 (phase 7's draw) within RESNET_TOL;
+    after each attach every rank's peak since the release stays within its
+    HBM ledger (the old model is gone).
+
+    (b) BERT-base int8 in bf16: logits within BERT_TOL["int8"] of the
+    one-rank int8 port; B1 and B32/S128 request latency (HTTP, p50/p99),
+    flash launches and gloo collective host seconds per rank."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    llama = import_module(f"{PKG}.models.llama")
+    bert = import_module(f"{PKG}.models.bert")
+    resnet = import_module(f"{PKG}.models.resnet")
+    loader = import_module(f"{PKG}.server.loader")
+    cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    bcfg = bert.BertConfig.base()
+    scratch = ROOT / "build" / "smoke_mesh_v2"  # ignored by git, deleted after
+    shutil.rmtree(scratch, ignore_errors=True)
+    snapdir = scratch / "snapshots"
+    out: dict = {"mesh": MESH_SHAPE, "pool_batch": V2_POOL_BATCH}
+    units: list = []
+    try:
+        t1 = time.perf_counter()
+        params = bert.init(torch.Generator(device=device).manual_seed(0), bcfg,
+                           dtype=torch.bfloat16, device=device)
+        config = {k: v for k, v in dataclasses.asdict(bcfg).items() if k != "hidden_act"}
+        bert_art = loader.save_native_model(scratch / "bert-base", "bert-classifier", params,
+                                            config=config, builder_kwargs={"seq_len": 128})
+        del params
+        rparams, rcfg = _resnet50_params(resnet, device)
+        resnet_art = loader.save_native_model(scratch / "resnet50", "resnet-classifier",
+                                              rparams, config=dataclasses.asdict(rcfg),
+                                              builder_kwargs={"image_size": RESNET_IMAGE})
+        del rparams
+        out["artifacts_s"] = time.perf_counter() - t1
+        pool = _launch_unit(art, "float32", device, "v2_pool", OUT_DIR / "mesh_v2_pool_reports",
+                            MESH_SHAPE, ("--warm-pool", "1", "--snapshot-dir", str(snapdir),
+                                         "--max-batch-size", str(V2_POOL_BATCH)))
+        units.append(pool)
+        bunit = _launch_unit(bert_art, "bfloat16", device, "v2_bert_int8",
+                             OUT_DIR / "mesh_v2_bert_reports", MESH_SHAPE, ("--quantize", "int8"),
+                             argv=_v2_argv(bert_art, "bfloat16", device, 32))
+        units.append(bunit)
+        # The one-rank references while the units boot.
+        t1 = time.perf_counter()
+        rng = np.random.default_rng(83)
+        ids8 = rng.integers(1, bcfg.vocab_size, (V2_POOL_BATCH, 128)).astype(np.int32)
+        ids32 = rng.integers(1, bcfg.vocab_size, (32, 128)).astype(np.int32)
+        ids1 = rng.integers(1, bcfg.vocab_size, (1, 128)).astype(np.int32)
+        imgs = rng.standard_normal((V2_POOL_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)).astype(
+            np.float32)
+        refs = {}
+        for name, uri, kw, x in (
+                ("bert_f32", bert_art, dict(dtype=torch.float32), ids8),
+                ("bert_int8", bert_art, dict(quantize="int8", dtype=torch.bfloat16), ids32),
+                ("resnet", resnet_art, {}, imgs)):
+            pred = loader.load_predictor(str(uri), device=device, **kw)
+            refs[name] = pred.predict(x).float().cpu().numpy()
+            del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["references_s"] = time.perf_counter() - t1
+
+        # (a) the warm-pool unit
+        url = _await_unit(pool, "warm pool")
+        out["pool_start_s"] = pool["start_s"]
+        boot = _unit_ranks(url)
+        out["weightless_gib"] = [rep.get("memory_allocated", 0) / 2**30 for rep in boot]
+        if any("ledger" in rep for rep in boot) or (device == "cuda" and any(
+                rep["memory_allocated"] > V2_WEIGHTLESS for rep in boot)):
+            raise AssertionError(f"mesh v2 pool: a rank is not weightless at boot: "
+                                 f"{out['weightless_gib']} GiB")
+        code, body = _attach(url, str(scratch / "no-such-model"))
+        ready = _call("GET", url + "/readyz")
+        if code != 500 or ready[0] != 503 or ready[1].get("lifecycle") != "warm-pool":
+            raise AssertionError(f"mesh v2 pool: a missing model answered {code} {body}, "
+                                 f"then /readyz {ready[:2]}")
+        steps: dict = {}
+        t1 = time.perf_counter()
+        code, body = _attach(url, str(art))
+        if code != 200:
+            raise AssertionError(f"mesh v2 pool: the Llama attach answered {code}: {body}")
+        steps["llama"] = {"attach_s": time.perf_counter() - t1, "load": body["load_breakdown_s"]}
+        toks = _mesh_traffic(url, _mesh_prompts(cfg.vocab_size), cfg.vocab_size)
+        if toks != mesh_out["reference_tokens"]["float32"]:
+            raise AssertionError("mesh v2 pool: the attached Llama's f32 tokens differ from "
+                                 "phase 8's tp-1 engine's")
+        steps["llama"]["memory"] = _check_pool_memory("llama", _unit_ranks(url), device)
+        for name, uri, ref_key, request in (
+                ("bert", bert_art, "bert_f32", _v2_ids(ids8)),
+                ("resnet", resnet_art, "resnet", _v2_tensor(imgs))):
+            t1 = time.perf_counter()
+            code, body = _attach(url, str(uri), replace=True)
+            if code != 200:
+                raise AssertionError(f"mesh v2 pool: the {name} replace answered {code}: {body}")
+            step = {"attach_s": time.perf_counter() - t1, "load": body["load_breakdown_s"]}
+            code, resp, _ = _call("POST", url + "/v2/models/model/infer", request)
+            if code != 200:
+                raise AssertionError(f"mesh v2 pool: {name} infer answered {code}: {resp}")
+            got, ref = _logits_out(resp), refs[ref_key]
+            if name == "bert":
+                step["max_abs_err"] = _bert_close("pool bert", got, ref, BERT_TOL["none"])
+            else:
+                step["rel_err"] = float(np.abs(got - ref).max() / np.abs(ref).max())
+                if got.shape != ref.shape or not step["rel_err"] <= RESNET_TOL:
+                    raise AssertionError(f"mesh v2 pool: ResNet-50 logits {step['rel_err']:.3e} "
+                                         f"from the one-rank port's (tol {RESNET_TOL})")
+            reports = _unit_ranks(url)
+            step["memory"] = _check_pool_memory(name, reports, device)
+            step["follower_ops"] = reports[1]["ops"]
+            steps[name] = step
+        ops = steps["resnet"]["follower_ops"]
+        if ops.get("detach", {}).get("count") != 3 or ops.get("attach", {}).get("count") != 4:
+            raise AssertionError(f"mesh v2 pool: follower ops {sorted(ops)}: expected 4 "
+                                 "attaches and 3 detaches")
+        _stop_units([pool])
+        units.remove(pool)
+        out["pool"] = steps
+        for name, step in steps.items():
+            log(f"mesh v2 pool {name}: attach {step['attach_s']:.1f} s (load stages "
+                f"{step['load']}); per rank (rank, peak GiB, ledger GiB) {step['memory']}"
+                + (f"; logits max_abs_err {step['max_abs_err']:.3e}" if "max_abs_err" in step
+                   else "") + (f"; rel_err {step['rel_err']:.3e}" if "rel_err" in step else "")
+                + f" [{smi}]")
+
+        # (b) BERT-base int8 over four ranks
+        burl = _await_unit(bunit, "bert-classifier")
+        out["bert_start_s"] = bunit["start_s"]
+        infer = burl + "/v2/models/model/infer"
+        code, resp, _ = _call("POST", infer, _v2_ids(ids32))
+        if code != 200:
+            raise AssertionError(f"mesh v2 bert int8: infer answered {code}: {resp}")
+        b = {"max_abs_err": _bert_close("bert int8", _logits_out(resp), refs["bert_int8"],
+                                        BERT_TOL["int8"])}
+        before = _unit_ranks(burl)
+        for shape, x in (("b1", ids1), ("b32", ids32)):
+            body = _v2_ids(x)
+            for _ in range(3):
+                _call("POST", infer, body)
+            lat = []
+            for _ in range(V2_LAT_N):
+                t1 = time.perf_counter()
+                code, resp, _ = _call("POST", infer, body)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                if code != 200:
+                    raise AssertionError(f"mesh v2 bert int8 {shape}: {code} {resp}")
+            b[shape] = {"p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99))}
+        after = _unit_ranks(burl)
+        flash, coll = [], []
+        for r0, r1 in zip(before, after):
+            n = r1["launches"]["flash_attention"] - r0["launches"]["flash_attention"]
+            flash.append(n)
+            coll.append({k: round(v["seconds"] - r0["collectives"].get(k, {}).get("seconds", 0.0),
+                                  4) for k, v in r1["collectives"].items()})
+        batches = 2 * (3 + V2_LAT_N)
+        if device == "cuda" and flash != [bcfg.num_layers * batches] * len(flash):
+            raise AssertionError(f"mesh v2 bert int8: flash launches per rank {flash}, expected "
+                                 f"{bcfg.num_layers} x {batches} batches on every rank")
+        follower = after[1]["ops"]["predict"]["count"] - before[1]["ops"]["predict"]["count"]
+        if follower != batches:
+            raise AssertionError(f"mesh v2 bert int8: the follower replayed {follower} of "
+                                 f"{batches} batches")
+        b.update(flash_launches=flash, collective_s=coll, batches=batches,
+                 memory=_check_pool_memory("bert int8", after, device))
+        _stop_units([bunit])
+        units.remove(bunit)
+        out["bert_int8"] = b
+        log(f"mesh v2 bert int8 {MESH_SHAPE} bf16: logits vs the one-rank int8 port "
+            f"max_abs_err {b['max_abs_err']:.3e} (tol {BERT_TOL['int8']}); request latency "
+            f"B1/S128 p50 {b['b1']['p50_ms']:.2f} ms p99 {b['b1']['p99_ms']:.2f} ms, B32/S128 "
+            f"p50 {b['b32']['p50_ms']:.2f} ms p99 {b['b32']['p99_ms']:.2f} ms (HTTP, "
+            f"{V2_LAT_N} each); flash launches per rank {flash} for {batches} batches "
+            f"({bcfg.num_layers} x, H {bcfg.num_heads // MESH_SHAPE['tp']} a rank); gloo "
+            f"collective host s per rank over those batches {coll}; per rank (rank, peak GiB, "
+            f"ledger GiB) {b['memory']} [{smi}]")
+    finally:
+        for u in units:
+            _kill_unit(u)
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8c wall {out['wall_s']:.1f} s; boots: pool {out.get('pool_start_s', 0):.1f} s, "
+        f"bert int8 {out.get('bert_start_s', 0):.1f} s; {smi}")
+    DETAIL["serve_mesh_v2"] = out
     return out
 
 
@@ -8253,9 +8534,10 @@ def main() -> int:
     stage("5c spec")
     spec = phase_serve_7b_spec(da, rn, fa, smi, params)
     stage("5d packed int8kv")
-    packed = phase_serve_7b_packed(da, rn, fa, smi, params)
+    packed = phase_serve_7b_packed(da, rn, fa, smi, params, layers=INT8KV_LAYERS)
     stage("5e multistep int8kv")
-    multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256)
+    multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256,
+                                                   layers=INT8KV_LAYERS)
     stage("5f unified int8kv")
     unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv",
                                                layers=INT8KV_LAYERS)
@@ -8273,9 +8555,11 @@ def main() -> int:
     stage("8 mesh")
     art = mesh_artifact()
     try:
-        phase_serve_mesh(smi, art)
+        mesh = phase_serve_mesh(smi, art)
         stage("8b mesh sp")
         mesh_sp = phase_serve_mesh_sp(smi, art)
+        stage("8c mesh v2 and warm pool")
+        phase_serve_mesh_v2(smi, art, mesh)
     finally:
         shutil.rmtree(art.parent, ignore_errors=True)
     stage("9 control-plane canary")

@@ -17,6 +17,18 @@ head_dim 16 or 64, where the scale is a power of two).
 
 ``from_torch`` converts a HuggingFace checkpoint into the tree (the
 loader's HF branch).
+
+``mesh`` (a ``parallel.ServingMesh``): ``params`` is this rank's block of
+the tree (``models/partition.shard_bert_params``), and the collectives that
+XLA inserts in the reference are explicit.  The word embedding holds a
+block of vocab rows: ids outside it read zeros and a tp ``psum`` adds the
+one rank's row (exact).  q, k, v and up are column-split, so attention runs
+the flash kernel at NH/tp heads with the same key bias; o and down are
+row-split: a tp ``psum`` of the partial products, then the bias once.
+int8 o and down take each row's activation scale as a tp ``pmax`` and sum
+the exact int32 products (``quantization.dense_q8(group=)``), so a sharded
+rank's int8 logits equal the one-rank port's.  The reference shards no
+batch on the predict path, so every dp group runs the whole batch.
 """
 
 from __future__ import annotations
@@ -26,8 +38,14 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.flash_attention import flash_attention
-from .common import dense, gelu, gelu_tanh, init_dense, layer_norm, take_embedding
+from ..parallel.collectives import psum
+from .common import dense, gelu, gelu_tanh, init_dense, layer_norm, matmul_f32, take_embedding
 from .quantization import dense_q8, is_quantized
+
+
+def _tp_group(mesh):
+    """The tp process group (None on one rank or a tp of 1)."""
+    return None if mesh is None else mesh.group("tp")
 
 
 def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -35,6 +53,33 @@ def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
     if is_quantized(p["w"]):
         return dense_q8(x, p["w"], p.get("b"))
     return dense(x, p["w"], p["b"])
+
+
+def _dense_rows(x: torch.Tensor, p: dict, group) -> torch.Tensor:
+    """:func:`_dense` of a matrix split on its INPUT axis over ``group``:
+    the partial products summed over the group (f32, or int32 for int8
+    leaves), then the replicated bias once."""
+    if group is None:
+        return _dense(x, p)
+    if is_quantized(p["w"]):
+        return dense_q8(x, p["w"], p.get("b"), group=group)
+    y = psum(matmul_f32(x, p["w"].to(x.dtype)), group)
+    return (y + p["b"].to(torch.float32)).to(x.dtype)
+
+
+def _word_embedding(table: torch.Tensor, ids: torch.Tensor, wide, mesh) -> torch.Tensor:
+    """The word rows of ``ids`` in ``wide``; at tp > 1 ``table`` is this
+    rank's block of vocab rows, ids outside it read zeros, and the tp psum
+    adds the one rank's row to zeros (exact)."""
+    group = _tp_group(mesh)
+    if group is None:
+        return take_embedding(table, ids, wide)
+    rows = table.shape[0]
+    local = ids - mesh.index("tp") * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], take_embedding(table, local.clamp(0, rows - 1), wide),
+                    torch.zeros((), dtype=wide, device=table.device))
+    return psum(x, group)
 
 
 @dataclass(frozen=True)
@@ -115,14 +160,16 @@ def init(gen: torch.Generator, cfg: BertConfig, dtype=torch.float32, device=None
 
 
 def _self_attention(p: dict, x: torch.Tensor, mask_bias: torch.Tensor,
-                    cfg: BertConfig) -> torch.Tensor:
-    b, s, h = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+                    cfg: BertConfig, mesh=None) -> torch.Tensor:
+    b, s, _ = x.shape
+    group = _tp_group(mesh)
+    # This rank's heads: q/k/v are column-split over tp.
+    nh, hd = cfg.num_heads // (1 if group is None else mesh.tp), cfg.head_dim
     q = _dense(x, p["q"]).view(b, s, nh, hd).transpose(1, 2)
     k = _dense(x, p["k"]).view(b, s, nh, hd).transpose(1, 2)
     v = _dense(x, p["v"]).view(b, s, nh, hd).transpose(1, 2)
     ctx = flash_attention(q, k, v, scale=1.0 / hd**0.5, bias=mask_bias)
-    return _dense(ctx.transpose(1, 2).reshape(b, s, h), p["o"])
+    return _dense_rows(ctx.transpose(1, 2).reshape(b, s, nh * hd), p["o"], group)
 
 
 def encode(
@@ -132,8 +179,10 @@ def encode(
     token_type_ids: torch.Tensor | None = None,
     cfg: BertConfig = BertConfig(),
     dtype=torch.float32,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Return (sequence_output [B, S, H], pooled_output [B, H])."""
+    """Return (sequence_output [B, S, H], pooled_output [B, H]); ``mesh``:
+    see the module docstring."""
     b, s = input_ids.shape
     dev = input_ids.device
     if attention_mask is None:
@@ -146,7 +195,7 @@ def encode(
     wide = torch.promote_types(emb["word"].dtype, torch.float32)
     positions = torch.arange(s, device=dev)
     x = (
-        take_embedding(emb["word"], input_ids.long(), wide)
+        _word_embedding(emb["word"], input_ids.long(), wide, mesh)
         + take_embedding(emb["position"], positions, wide)[None]
         + take_embedding(emb["token_type"], token_type_ids.long(), wide)
     ).to(dtype)
@@ -156,12 +205,13 @@ def encode(
     mask_bias = (1.0 - attention_mask.to(torch.float32)) * -1e9
 
     act = gelu_tanh if cfg.hidden_act == "gelu_tanh" else gelu
+    group = _tp_group(mesh)
     for layer in params["layers"]:
-        a = _self_attention(layer["attn"], x, mask_bias, cfg)
+        a = _self_attention(layer["attn"], x, mask_bias, cfg, mesh)
         x = layer_norm(x + a, layer["attn"]["ln"]["scale"], layer["attn"]["ln"]["bias"],
                        cfg.layer_norm_eps)
         m = act(_dense(x, layer["mlp"]["up"]))
-        m = _dense(m, layer["mlp"]["down"])
+        m = _dense_rows(m, layer["mlp"]["down"], group)
         x = layer_norm(x + m, layer["mlp"]["ln"]["scale"], layer["mlp"]["ln"]["bias"],
                        cfg.layer_norm_eps)
 
@@ -176,9 +226,11 @@ def classify(
     token_type_ids: torch.Tensor | None = None,
     cfg: BertConfig = BertConfig(),
     dtype=torch.float32,
+    mesh=None,
 ) -> torch.Tensor:
-    """Sentence-classification logits [B, num_labels], f32."""
-    _, pooled = encode(params, input_ids, attention_mask, token_type_ids, cfg, dtype)
+    """Sentence-classification logits [B, num_labels], f32 (every rank of a
+    ``mesh`` returns the same)."""
+    _, pooled = encode(params, input_ids, attention_mask, token_type_ids, cfg, dtype, mesh)
     c = params["classifier"]
     return dense(pooled, c["w"], c["b"]).to(torch.float32)
 

@@ -1,5 +1,6 @@
 """Tensor- and data-parallel partition rules for the Llama serving stack
-(port of the JAX package's ``models/partition.py``).
+(port of the JAX package's ``models/partition.py``), and BERT's rule table
+(the reference's ``bert.param_logical_axes`` through ``TRANSFORMER_RULES``).
 
 One rule table (regex path -> :class:`~..parallel.sharding.PartitionSpec`)
 maps the Llama parameter tree onto a ``{"dp": D, "tp": T}`` mesh, the
@@ -20,6 +21,16 @@ Where XLA inserts the collectives in the reference, ``models/llama.py``
 makes them explicit: a tp ``psum`` after the o and down projections and
 the embedding, an all-gather of the vocab-split logits, and over dp an
 all-gather of the rows' logits.
+
+BERT (``BERT_PARTITION_RULES``): q, k, v and up split their output axis
+and their bias, o and down their input axis (bias replicated), the word
+embedding its vocab rows; the position and token-type embeddings, every
+LayerNorm, the pooler and the classifier replicate.  int8 leaves: ``q8``
+shards like its matrix, a column-split matrix's ``scale`` on its output
+axis, o's and down's ``scale`` replicate.  ``models/bert.py`` makes the
+collectives explicit.  Every other flavor (ResNet, the tabular, linear,
+xgboost and pyfunc tiers) replicates whole, as the reference's
+``resnet.param_logical_axes`` and its loader's ``else`` branch do.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ import math
 from typing import Any, Mapping
 
 from ..parallel import AXIS_DATA, AXIS_SEQ, AXIS_TENSOR, match_partition_rules, shard_pytree
-from ..parallel.sharding import PartitionSpec, shard_shape
+from ..parallel.sharding import PartitionSpec, logical_spec, shard_shape
 
 P = PartitionSpec
 TP = AXIS_TENSOR
@@ -50,6 +61,26 @@ LLAMA_PARTITION_RULES: tuple[tuple[str, PartitionSpec], ...] = (
     (r"embed$", P(TP, None)),
     (r"lm_head$", P(None, TP)),
     (r"(attn_norm|mlp_norm|final_norm)$", P()),
+)
+
+# BERT: ``bert.param_logical_axes`` of the reference, each leaf's logical
+# axes mapped through ``TRANSFORMER_RULES`` (heads, mlp and vocab on tp,
+# embed replicated).  Matched against "/"-joined paths such as
+# "layers/0/attn/q/w" (or "layers/#0/attn/q/w/q8", a flattened key); a leaf
+# no rule names replicates.
+_BERT_COLUMN = r"(attn/(q|k|v)|mlp/up)"
+_BERT_ROW = r"(attn/o|mlp/down)"
+BERT_PARTITION_RULES: tuple[tuple[str, PartitionSpec], ...] = (
+    (_BERT_COLUMN + r"/w/q8$", logical_spec(("embed", "heads"))),
+    (_BERT_COLUMN + r"/w/scale$", logical_spec((None, "heads"))),
+    (_BERT_ROW + r"/w/q8$", logical_spec(("heads", "embed"))),
+    (_BERT_ROW + r"/w/scale$", P()),
+    (r"attn/(q|k|v)/w$", logical_spec(("embed", "heads"))),
+    (r"mlp/up/w$", logical_spec(("embed", "mlp"))),
+    (_BERT_COLUMN + r"/b$", logical_spec(("heads",))),
+    (r"attn/o/w$", logical_spec(("heads", "embed"))),
+    (r"mlp/down/w$", logical_spec(("mlp", "embed"))),
+    (r"embeddings/word$", logical_spec(("vocab", "embed"))),
 )
 
 RAGGED_KV_SPEC = P(None, None, TP, None, None)
@@ -164,6 +195,41 @@ def validate_llama_mesh(cfg, mesh_shape: Mapping[str, int] | None) -> None:
         intermediate_size=cfg.intermediate_size,
         vocab_size=cfg.vocab_size,
     )
+
+
+def validate_bert_mesh(cfg, mesh_shape: Mapping[str, int] | None) -> None:
+    """Reject a meshShape the BERT geometry cannot shard (heads, MLP width,
+    vocab rows), typed, before any weight is read.  BERT-base's vocab of
+    30522 refuses tp 4: the reference's ``device_put`` would fail on that
+    shape."""
+    validate_mesh_for_model(
+        mesh_shape,
+        num_heads=cfg.num_heads,
+        intermediate_size=cfg.intermediate_size,
+        vocab_size=cfg.vocab_size,
+    )
+
+
+def bert_param_specs(params: Any) -> Any:
+    """PartitionSpec tree for a BERT parameter tree (float or int8)."""
+    return match_partition_rules(BERT_PARTITION_RULES, params)
+
+
+def shard_bert_params(params: Any, mesh) -> Any:
+    """This rank's block of a full BERT parameter tree (numpy or torch)."""
+    return shard_pytree(params, bert_param_specs(params), mesh)
+
+
+# Flavor -> its rule table; a flavor not named here replicates every leaf.
+FLAVOR_RULES: dict[str, tuple[tuple[str, PartitionSpec], ...]] = {
+    "llama-generate": LLAMA_PARTITION_RULES,
+    "bert-classifier": BERT_PARTITION_RULES,
+}
+
+
+def flavor_rules(flavor: str) -> tuple[tuple[str, PartitionSpec], ...]:
+    """The rule table of ``flavor`` (empty: every leaf ``P()``)."""
+    return FLAVOR_RULES.get(flavor, ())
 
 
 def llama_param_specs(params: Any) -> Any:

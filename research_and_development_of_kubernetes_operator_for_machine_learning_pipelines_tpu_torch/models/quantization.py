@@ -86,7 +86,8 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
-def dense_q8(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None) -> torch.Tensor:
+def dense_q8(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None,
+             group=None) -> torch.Tensor:
     """Dynamic-activation int8 matmul: ``x [..., in] @ q8 [in, out]``.
 
     Activations quantize per row (per token) with :func:`quantize_tensor`
@@ -94,11 +95,22 @@ def dense_q8(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None) -> torch.
     int32 product, and rescale by ``a_scale * w_scale`` in f32 (the
     reference's ``dense_q8``).  The reference runs this under jit, where
     ``/ 127`` becomes ``* (1/127)``; this port divides, as the formula is
-    written (ROADMAP C), so an activation code can sit one step away."""
-    qa = quantize_tensor(x, axis=-1)
-    x8, a_scale = qa["q8"], qa["scale"]
+    written (ROADMAP C), so an activation code can sit one step away.
+
+    ``group`` (a tp process group): ``x`` and ``q8`` are this rank's
+    blocks of a matrix split on its INPUT axis.  Each row's absmax is the
+    max over the group (the whole row's, as XLA's reduction over the
+    sharded axis), the exact int32 partial products are summed over the
+    group, then rescaled: equal, bit for bit, to the one-rank product."""
+    from ..parallel.collectives import pmax, psum
+
+    x32 = x.to(torch.float32)
+    amax = pmax(torch.amax(torch.abs(x32), dim=-1, keepdim=True), group)
+    a_scale = torch.clamp(amax, min=1e-12) / 127.0
+    x8 = quantize_with_scale(x32, a_scale)
     k = x8.shape[-1]
     y = _int_mm(x8.reshape(-1, k), qw["q8"]).reshape(*x8.shape[:-1], -1)
+    y = psum(y, group)
     y32 = y.to(torch.float32) * a_scale * qw["scale"].reshape(-1)
     if b is not None:
         y32 = y32 + b.to(torch.float32)

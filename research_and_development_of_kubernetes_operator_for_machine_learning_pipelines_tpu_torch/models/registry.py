@@ -15,7 +15,9 @@ The loader resolves an artifact to a *flavor* and asks this registry for a
 - ``validate``  -- checks a request's inputs on the host before they are
   batched; a bad request fails alone with a 400 (an out-of-range index
   on the card is a device-side assert that would end the process);
-- ``causal_lm`` -- handles for the continuous-batching generation engine.
+- ``causal_lm`` -- handles for the continuous-batching generation engine;
+- ``tree`` -- the served tree of the other tree-of-tensors flavors (BERT,
+  ResNet), which the sharded snapshot bakes.
 
 The sklearn, forest and xgboost builders take ``device`` (``cuda`` unless
 named); the tree-of-tensors flavors run where their weights are.
@@ -45,6 +47,9 @@ class Predictor:
     validate: Callable[[dict], None] | None = None
     # False: a host callable (the pyfunc tier), not a device function.
     jittable: bool = True
+    # {"params", "cfg"} of a BERT or ResNet predictor: the tree it serves
+    # (a rank's block on a mesh) and its config.
+    tree: dict | None = None
 
 
 BUILDERS: dict[str, Callable[..., Predictor]] = {}
@@ -216,8 +221,10 @@ def _build_bert(
     seq_len: int = 128,
     seq_buckets: bool = True,
     dtype=torch.bfloat16,
+    mesh=None,
     **_kw,
 ) -> Predictor:
+    """``mesh``: ``params`` is this rank's block on it (``models/partition``)."""
     from . import bert
 
     cfg = cfg or bert.BertConfig.base()
@@ -234,7 +241,7 @@ def _build_bert(
     def predict(input_ids, attention_mask=None, token_type_ids=None):
         return bert.classify(
             params, as_ids(input_ids), as_ids(attention_mask), as_ids(token_type_ids),
-            cfg=cfg, dtype=dtype,
+            cfg=cfg, dtype=dtype, mesh=mesh,
         )
 
     def validate(inputs):
@@ -280,6 +287,7 @@ def _build_bert(
             "min_bucket": 16,
             "max_len": cfg.max_position_embeddings,
         },
+        tree={"params": params, "cfg": cfg},
     )
 
 
@@ -311,6 +319,7 @@ def _build_resnet(params: Any, cfg: Any = None, image_size: int = 224, **_kw) ->
         example_input=lambda b: np.zeros((b, image_size, image_size, 3), np.float32),
         validate=validate,
         metadata={"image_size": image_size, "num_classes": cfg.num_classes},
+        tree={"params": params, "cfg": cfg},
     )
 
 

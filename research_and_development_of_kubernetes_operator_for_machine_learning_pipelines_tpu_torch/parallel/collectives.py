@@ -6,7 +6,7 @@ axis's process group (``ServingMesh.group(axis)``); ``None`` is an axis of
 size 1, on which every helper is the identity.  Each helper is functional:
 it returns a new tensor and leaves its input alone.
 
-- ``psum``, ``pmean``, ``all_gather_concat``, ``reduce_scatter``,
+- ``psum``, ``pmax``, ``pmean``, ``all_gather_concat``, ``reduce_scatter``,
   ``axis_index`` -- the named primitives;
 - :func:`ring_shift` (point-to-point, ``batch_isend_irecv``) and
   :func:`ring_shift_bidirectional`;
@@ -64,6 +64,16 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone()
     with _timed("all_reduce"):
         dist.all_reduce(out, group=group)
+    return out
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max over the group's ranks."""
+    if _size(group) == 1:
+        return x
+    out = x.clone()
+    with _timed("all_reduce_max"):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

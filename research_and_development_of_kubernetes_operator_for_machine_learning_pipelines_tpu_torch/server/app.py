@@ -375,12 +375,6 @@ class ServerConfig:
         ``TpuSpec``, ``PrefixCacheSpec`` and ``SpeculativeSpec``), the
         caches' and speculation's only when enabled."""
         self.mesh_shape = parse_mesh_shape(self.mesh_shape)
-        if mesh_device_count(self.mesh_shape) > 1 and self.warm_pool:
-            raise ValueError(
-                f"meshShape {self.mesh_shape}: the warm pool at a world above one rank is "
-                "not yet ported (its attach moves every rank's state: the next slice of "
-                "the port's parallelism)"
-            )
         if self.prefill_batch < 1:
             raise ValueError(f"spec.tpu.prefillBatch must be >= 1, got {self.prefill_batch!r}")
         if not (1 <= self.decode_steps <= 16):
@@ -783,6 +777,13 @@ class ModelServer(ThreadingHTTPServer):
         else:
             engine = InferenceEngine(predictor, max_batch_size=conf.max_batch_size,
                                      on_compile=m.inc_compilations)
+            if self.unit_channel is not None:
+                # Every batch is broadcast on the unit's channel before it
+                # launches, so the followers replay it (OP_PREDICT).
+                from .multihost import MultihostEngine
+
+                engine = MultihostEngine(engine, self.unit_channel.transport,
+                                         channel=self.unit_channel)
             # Pipelined: the collector launches batch N+1 while N runs.
             batcher = DynamicBatcher(
                 run_batch=engine.predict_async,
@@ -802,15 +803,36 @@ class ModelServer(ThreadingHTTPServer):
 
     def release(self) -> None:
         """Stop the engine and drop the model, so its tree, cache and graph
-        pool go back to the device before another model loads."""
+        pool go back to the device before another model loads.  On a unit
+        the followers drop theirs too (``OP_DETACH``) and stay for the next
+        attach; each rank's peak allocation restarts from what it holds."""
         if self.batcher is not None:
             self.batcher.stop()
         elif self.engine is not None:
             self.engine.shutdown()
         self.engine = self.batcher = self.predictor = None
-        gc.collect()  # an engine's reference cycles hold device memory
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+        if self.unit_channel is not None and not self.unit_channel.closed:
+            from .multihost import OP_DETACH, encode_message
+
+            self.unit_channel.run(encode_message(OP_DETACH),
+                                  lambda: free_device_memory(reset_peak=True))
+        else:
+            free_device_memory()
+
+    def rank_reports(self) -> list:
+        """Every rank's :func:`rank_report`, gathered to the leader of a
+        unit (``OP_REPORT``)."""
+        from .multihost import OP_REPORT, encode_message, gather_reports
+
+        gen = self.gen_engine
+
+        def mine():
+            return gather_reports(rank_report(
+                gen.op_stats if gen is not None else {}, gen_engine=gen,
+                predict_engine=self.engine if self.batcher is not None else None,
+                device=self._config.device, mesh_shape=self._config.mesh_shape))
+
+        return self.unit_channel.run(encode_message(OP_REPORT), mine)
 
     def _snapshot_probe(self, model_uri: str) -> tuple[str | None, dict | None]:
         """``(content_hash, geometry)`` of ``model_uri``'s snapshot, or
@@ -1292,6 +1314,15 @@ class _Handler(BaseHTTPRequestHandler):
             from ..utils.tracing import GLOBAL_TRACER
 
             self._reply(200, {"spans": GLOBAL_TRACER.as_dict()})
+        elif path == "/debug/ranks":
+            if srv.unit_channel is None:
+                self._reply(404, {"error": "not the leader of a unit of several ranks "
+                                           "(--mesh-shape)"})
+                return
+            try:
+                self._reply(200, {"ranks": srv.rank_reports()})
+            except RuntimeError as e:  # the unit is shut down
+                self._reply(409, {"error": str(e)})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -1763,21 +1794,26 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
                                   grace_s=config.watchdog_grace_s,
                                   on_age=metrics.set_watchdog_tick_age)
     metrics.set_ready(False)
-    attach_fn = None
-    if config.warm_pool:
-        if predictor is not None:
-            raise ValueError("a warm-pool server boots with no predictor")
-        from .loader import load_predictor
-
-        def attach_fn(model_uri: str, stats: dict):
-            return load_predictor(model_uri, quantize=config.quantize, device=config.device,
-                                  dtype=_DTYPES[config.dtype], load_stats=stats,
-                                  snapshot_dir=config.snapshot_dir)
     unit_channel = None
     if transport is not None:
         from .multihost import UnitChannel
 
         unit_channel = UnitChannel(transport)
+    attach_fn = None
+    if config.warm_pool:
+        if predictor is not None:
+            raise ValueError("a warm-pool server boots with no predictor")
+
+        def attach_fn(model_uri: str, stats: dict):
+            if unit_channel is None:
+                return _load_model(config, model_uri, stats)
+            # A unit op: every rank loads its part, and the ranks agree that
+            # each succeeded (else every rank stays in the warm pool).
+            from .multihost import OP_ATTACH, encode_message
+
+            return unit_channel.run(
+                encode_message(OP_ATTACH, {"model_uri": model_uri}),
+                lambda: _agreed(lambda: _load_model(config, model_uri, stats)))
     srv = ModelServer((config.host, config.port), None, config.model_name, metrics,
                       predictor=None, drain_grace_s=config.drain_grace_s,
                       cold_start_anchor=anchor, recorder=recorder, telemetry=telemetry,
@@ -1813,6 +1849,53 @@ def build_server(predictor, config: ServerConfig, warmup: bool = True,
     return srv
 
 
+def free_device_memory(reset_peak: bool = False) -> None:
+    """Collect the dropped model's reference cycles and return the
+    allocator's free blocks to the card (``reset_peak``: the peak
+    allocation restarts from what is held)."""
+    gc.collect()  # an engine's reference cycles hold device memory
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        if reset_peak:
+            torch.cuda.reset_peak_memory_stats()
+
+
+def _load_model(config: ServerConfig, model_uri: str, stats: dict | None = None):
+    """``model_uri`` loaded on this rank with the server's quantize mode,
+    device, type, snapshot directory and mesh (``stats``: the loader's
+    stage seconds)."""
+    from .loader import load_predictor
+
+    return load_predictor(model_uri, quantize=config.quantize, device=config.device,
+                          dtype=_DTYPES[config.dtype], load_stats=stats,
+                          snapshot_dir=config.snapshot_dir or None,
+                          mesh_shape=config.mesh_shape)
+
+
+def _agreed(fn):
+    """``fn()`` on this rank, then the unit's agreement (every rank joins it)
+    that it succeeded on every rank; raises on every rank when it failed on
+    any (this rank's own error where it was this rank's)."""
+    from .loader import ModelLoadError, _agree
+
+    try:
+        out, err = fn(), None
+    except Exception as e:
+        out, err = None, e
+    if not _agree(err is None):
+        raise err or ModelLoadError("the attach failed on another rank of the unit")
+    return out
+
+
+def follower_engines(predictor, config: ServerConfig, metrics: ServerMetrics):
+    """A follower's ``(engine, gen_engine)`` for ``predictor``: a
+    never-started ``GenerationEngine`` for a causal LM, else an
+    ``InferenceEngine`` (the replay of the leader's ``OP_PREDICT``)."""
+    if predictor.causal_lm is not None:
+        return None, make_gen_engine(predictor, config, metrics)
+    return InferenceEngine(predictor, max_batch_size=config.max_batch_size), None
+
+
 def prewarm_from_snapshot(config: ServerConfig) -> float | None:
     """A warm pool's start-up work, from the boot model's snapshot manifest:
     the kernel build, then one eager forward on a zero tree of the
@@ -1822,39 +1905,64 @@ def prewarm_from_snapshot(config: ServerConfig) -> float | None:
     the reference's compile sweep: an eager port compiles nothing more, and
     CUDA graphs are captured at attach, on the attached weights.
     Best-effort; returns the seconds, or None when there is no snapshot to
-    read a geometry from."""
+    read a geometry from.  On a unit every rank runs it together, on its
+    own blocks of the geometry (the Llama rule table's cut of each leaf,
+    the forward's collectives included), once the ranks agree that each
+    can."""
     from ..models import llama
+    from ..models.partition import LLAMA_PARTITION_RULES, mesh_device_count
     from ..models.registry import BUILDERS
+    from ..parallel import match_partition_rules
+    from ..parallel.sharding import shard_shape
     from . import snapshot as _snap
     from .generation import resolve_device
-    from .loader import _build_config, _unflatten
+    from .loader import _agree, _build_config, _mesh_for_flavor, _unflatten
 
     if not config.snapshot_dir:
         return None
+    unit = mesh_device_count(config.mesh_shape) > 1
     spath = _snap.snapshot_path_for(config.snapshot_dir, config.model_uri)
-    if not (spath / _snap.MANIFEST_NAME).exists():
-        _log.info("warm-pool prewarm skipped: no snapshot at %s yet", spath)
+    manifest = None
+    if (spath / _snap.MANIFEST_NAME).exists():
+        try:
+            manifest = _snap.read_manifest(spath)
+            if not unit:
+                _snap.check_placeable(manifest)
+            if manifest["flavor"] != "llama-generate":
+                manifest = None
+        except Exception as e:
+            _log.warning("warm-pool prewarm skipped: %s", e)
+            manifest = None
+    if unit and not _agree(manifest is not None):
+        manifest = None
+    if manifest is None:
+        _log.info("warm-pool prewarm skipped: no Llama snapshot at %s yet", spath)
         return None
     t0 = time.perf_counter()
     try:
-        manifest = _snap.read_manifest(spath)
-        _snap.check_placeable(manifest)
-        if manifest["flavor"] != "llama-generate":
-            return None
         dev = resolve_device(config.device)
         if dev.type == "cuda":
             from ..ops import _build
 
             _build.build()
-        flat = {leaf["key"]: torch.zeros(leaf["shape"], dtype=_snap.TORCH_DTYPES[leaf["dtype"]],
-                                         device=dev)
-                for leaf in manifest["leaves"]}
         cfg = _build_config(manifest["flavor"], manifest.get("config", {}))
+        mesh = _mesh_for_flavor(manifest["flavor"], cfg, config.mesh_shape) if unit else None
+        shapes = {leaf["key"]: torch.empty(leaf["shape"], device="meta")
+                  for leaf in manifest["leaves"]}
+        if mesh is not None:  # this rank's block of each leaf
+            specs = match_partition_rules(
+                LLAMA_PARTITION_RULES, {k.replace("|", "/"): v for k, v in shapes.items()})
+            shapes = {k: torch.empty(shard_shape(v.shape, specs[k.replace("|", "/")],
+                                                 mesh.shape), device="meta")
+                      for k, v in shapes.items()}
+        dtypes = {leaf["key"]: _snap.TORCH_DTYPES[leaf["dtype"]] for leaf in manifest["leaves"]}
+        flat = {k: torch.zeros(v.shape, dtype=dtypes[k], device=dev) for k, v in shapes.items()}
         pred = BUILDERS[manifest["flavor"]](_unflatten(flat), cfg=cfg,
-                                            dtype=_DTYPES[config.dtype])
+                                            dtype=_DTYPES[config.dtype], mesh=mesh)
         del flat
         prompt = torch.zeros((1, min(16, cfg.max_seq - 1)), dtype=torch.int64, device=dev)
-        llama.generate_greedy(pred.causal_lm["params"], prompt, 1, cfg, _DTYPES[config.dtype])
+        llama.generate_greedy(pred.causal_lm["params"], prompt, 1, cfg, _DTYPES[config.dtype],
+                              *(() if mesh is None else (mesh,)))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         del pred
@@ -2123,18 +2231,36 @@ def serve_follower_health(host: str, port: int) -> ThreadingHTTPServer:
 RANK_REPORT_ENV = "TPUMLOPS_RANK_REPORT_DIR"
 
 
-def write_rank_report(engine, op_stats: dict) -> Path | None:
-    """This rank's report into ``$TPUMLOPS_RANK_REPORT_DIR`` (see
-    ``RANK_REPORT_ENV``); None when the variable is unset."""
+def write_rank_report(engine, op_stats: dict, predict_engine=None, device=None,
+                      mesh_shape=None) -> Path | None:
+    """This rank's :func:`rank_report` into ``$TPUMLOPS_RANK_REPORT_DIR`` (see
+    ``RANK_REPORT_ENV``) as ``rank-<r>.json``; None when the variable is
+    unset."""
     directory = os.environ.get(RANK_REPORT_ENV)
     if not directory:
         return None
+    report = rank_report(op_stats, gen_engine=engine, predict_engine=predict_engine,
+                         device=device, mesh_shape=mesh_shape)
+    out = Path(directory) / f"rank-{report['rank']}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return out
+
+
+def rank_report(op_stats: dict, gen_engine=None, predict_engine=None, device=None,
+                mesh_shape=None) -> dict:
+    """This rank's walls of each replayed op, its collectives' calls and
+    host seconds, its kernel launches and, where it serves a model, its HBM
+    ledger (``build_hbm_ledger`` for a generation engine,
+    ``build_predict_ledger`` for a predict engine) beside the allocator's
+    counts on the card (allocated, peak allocated, reserved; a weightless
+    warm-pool rank reports these alone)."""
     import torch.distributed as dist
 
     from ..ops import flash_attention
     from ..parallel import collectives, distributed
     from .cuda_graphs import _COUNTERS
-    from .device_telemetry import build_hbm_ledger
+    from .device_telemetry import build_hbm_ledger, build_predict_ledger
 
     rank = dist.get_rank() if dist.is_initialized() else 0
     launches = {name: int(getattr(m, a)) for name, (m, a) in _COUNTERS.items()}
@@ -2150,25 +2276,39 @@ def write_rank_report(engine, op_stats: dict) -> Path | None:
                         for op in sorted(collectives.calls)},
         "launches": launches,
     }
+    engine = gen_engine
+    ledger = None
     if engine is not None:
         mesh = engine._mesh
         ledger = build_hbm_ledger(engine._params, engine._cfg, engine.max_slots,
                                   kv_quant=engine._kv_quant,
                                   dtype_bytes=engine._dtype.itemsize,
                                   mesh_shape=mesh.shape if mesh is not None else None)
-        report["device"] = str(engine._device)
+        device = engine._device
         report["mesh"] = None if mesh is None else {"shape": mesh.shape, "coords": mesh.coords}
+    else:
+        from ..models.partition import mesh_device_count
+        from ..parallel.mesh import placement
+
+        if mesh_device_count(mesh_shape) > 1 and dist.is_initialized():
+            place = placement(mesh_shape)
+            report["mesh"] = {"shape": place.shape, "coords": place.coords}
+        if predict_engine is not None and predict_engine.predictor.tree is not None:
+            report["flavor"] = predict_engine.predictor.name
+            ledger = build_predict_ledger(predict_engine.predictor,
+                                          predict_engine.max_batch_size)
+    if ledger is not None:
         report["ledger"] = dict(ledger.components, total=ledger.device_total())
-        if engine._device.type == "cuda":
-            # Now, at the process's peak (the load included) and what the
-            # caching allocator holds from the card.
-            report["memory_allocated"] = int(torch.cuda.memory_allocated(engine._device))
-            report["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(engine._device))
-            report["memory_reserved"] = int(torch.cuda.memory_reserved(engine._device))
-    out = Path(directory) / f"rank-{rank}.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(report, indent=1))
-    return out
+    device = torch.device(device) if device is not None else None
+    if device is not None:
+        report["device"] = str(device)
+        if device.type == "cuda":
+            # Now, the peak since the process began (or since the last
+            # release on a unit) and what the caching allocator holds.
+            report["memory_allocated"] = int(torch.cuda.memory_allocated(device))
+            report["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(device))
+            report["memory_reserved"] = int(torch.cuda.memory_reserved(device))
+    return report
 
 
 def form_unit(config: ServerConfig):
@@ -2188,6 +2328,14 @@ def form_unit(config: ServerConfig):
     from ..parallel import distributed
     from .multihost import TorchDistTransport
 
+    if config.warm_pool and distributed.local_world_size(world) < world:
+        # The reference serves the warm pool where one process holds the
+        # unit; here that is a unit whose ranks share one host.
+        raise ValueError(
+            f"--warm-pool is single-host only (a multi-host unit cannot attach weights "
+            f"after its process group formed): meshShape {config.mesh_shape} spans "
+            f"{world} ranks, {distributed.local_world_size(world)} on this host "
+            "(LOCAL_WORLD_SIZE)")
     dev_type = torch.device(config.device).type if config.device else "cuda"
     if not distributed.maybe_initialize_distributed(device_type=dev_type):
         raise ValueError(
@@ -2209,38 +2357,63 @@ def form_unit(config: ServerConfig):
 
 def run_follower(config: ServerConfig, transport, local_rank: int) -> int:
     """A follower rank: load its block of the model, build the same engine
-    (never started) and repeat the leader's ops until it releases the unit.
-    Only a follower that is the first rank of a host of its own
-    (``LOCAL_RANK`` 0: the leader holds local rank 0 on its host) answers
-    the unit's health probe on ``--port``; ranks that share the leader's
-    host are answered for by the leader.  Returns the ops run."""
-    from .loader import load_predictor
-    from .multihost import follower_loop
+    (a never-started ``GenerationEngine``, or an ``InferenceEngine`` for a
+    predict flavor) and repeat the leader's ops until it releases the unit.
+    A follower of a ``--warm-pool`` unit boots weightless (after the
+    prewarm, which every rank runs together), and its engines come and go
+    with the leader's ``OP_ATTACH`` / ``OP_DETACH``.  Only a follower that
+    is the first rank of a host of its own (``LOCAL_RANK`` 0: the leader
+    holds local rank 0 on its host) answers the unit's health probe on
+    ``--port``; ranks that share the leader's host are answered for by the
+    leader.  Returns the ops run."""
+    from .multihost import FollowerEngines, follower_loop
 
     health = serve_follower_health(config.host, config.port) if local_rank == 0 else None
-    predictor = load_predictor(config.model_uri, quantize=config.quantize,
-                               device=config.device, dtype=_DTYPES[config.dtype],
-                               snapshot_dir=config.snapshot_dir or None,
-                               mesh_shape=config.mesh_shape)
     metrics = ServerMetrics(deployment_name=config.deployment_name or config.model_name,
                             predictor_name=config.predictor_name, namespace=config.namespace)
-    gen_engine = None
-    if predictor.causal_lm is not None:
-        gen_engine = make_gen_engine(predictor, config, metrics)
-    _log.info("follower ready; repeating the leader's ops")
     stats: dict = {}
+
+    def report(engines, op_stats):
+        return rank_report(op_stats, gen_engine=engines.gen_engine,
+                           predict_engine=engines.engine, device=config.device,
+                           mesh_shape=config.mesh_shape)
+
+    if config.warm_pool:
+        prewarm_from_snapshot(config)
+
+        def attach(model_uri: str):
+            try:
+                predictor = _agreed(lambda: _load_model(config, model_uri))
+            except Exception:
+                _log.exception("attach of %s failed on this rank or another; back to the "
+                               "warm pool", model_uri)
+                free_device_memory(reset_peak=True)
+                return None, None
+            # After the agreement, where the leader builds its own: a
+            # generation engine on a mesh forms its process groups.
+            return follower_engines(predictor, config, metrics)
+
+        engines = FollowerEngines(attach_fn=attach, report_fn=report,
+                                  release_fn=lambda *_: free_device_memory(reset_peak=True))
+        _log.info("follower of a warm-pool unit ready (weightless); waiting on the leader")
+    else:
+        predictor = _load_model(config, config.model_uri)
+        engines = FollowerEngines(*follower_engines(predictor, config, metrics),
+                                  report_fn=report)
+        del predictor
+        _log.info("follower ready; repeating the leader's ops")
     try:
-        steps = follower_loop(None, transport, gen_engine=gen_engine, stats=stats)
+        steps = follower_loop(None, transport, stats=stats, engines=engines)
     finally:
         if health is not None:
             health.shutdown()
-    write_rank_report(gen_engine, stats)
+    write_rank_report(engines.gen_engine, stats, predict_engine=engines.engine,
+                      device=config.device, mesh_shape=config.mesh_shape)
     return steps
 
 
 def main(argv: list[str] | None = None) -> None:
     from ..utils.logging import configure as configure_logging
-    from .loader import load_predictor
 
     boot_wall = time.time()
     ap = build_arg_parser()
@@ -2262,14 +2435,11 @@ def main(argv: list[str] | None = None) -> None:
         shutdown_distributed()
         return
     if config.warm_pool:
-        predictor, srv = None, build_server(None, config, boot_wall=boot_wall)
+        predictor, srv = None, build_server(None, config, boot_wall=boot_wall,
+                                            transport=transport)
     else:
         load_stats: dict = {}
-        predictor = load_predictor(
-            args.model_uri, quantize=args.quantize, device=config.device,
-            dtype=_DTYPES[args.dtype], load_stats=load_stats,
-            snapshot_dir=config.snapshot_dir or None, mesh_shape=config.mesh_shape,
-        )
+        predictor = _load_model(config, args.model_uri, load_stats)
         srv = build_server(predictor, config, load_stats=load_stats, boot_wall=boot_wall,
                            transport=transport)
     metrics_httpd = None
@@ -2319,7 +2489,9 @@ def main(argv: list[str] | None = None) -> None:
         # engine's last op), on the terminating thread: the group outlives it.
         terminated.wait(timeout=args.drain_grace_seconds + 60.0)
         engine = srv.gen_engine
-        write_rank_report(engine, engine.op_stats if engine is not None else {})
+        write_rank_report(engine, engine.op_stats if engine is not None else {},
+                          predict_engine=srv.engine if srv.batcher is not None else None,
+                          device=config.device, mesh_shape=config.mesh_shape)
     if transport is not None:
         from ..parallel.distributed import shutdown_distributed
 

@@ -263,8 +263,11 @@ def build_hbm_ledger(
 ) -> HbmLedger:
     """The ledger of one rank: ``params`` as held (a rank's blocks on a
     mesh), the cache at ``B/dp`` rows of ``NKV/tp`` heads, the replicated
-    sampling state whole."""
-    from ..models.partition import dp_degree, tp_degree
+    sampling state whole; at sp > 1 also the port's own
+    ``ring_activations`` (:func:`ring_activation_bytes` at ``max_seq``
+    positions, in the activations' ``dtype_bytes``), which the reference's
+    ledger, counting no activations, lacks."""
+    from ..models.partition import dp_degree, sp_degree, tp_degree
 
     ledger = HbmLedger(
         kv_bytes_per_row=kv_cache_bytes_per_row(cfg, kv_quant, dtype_bytes,
@@ -276,11 +279,90 @@ def build_hbm_ledger(
     ledger.components["kv_cache"] = (ledger.kv_bytes_per_row * int(max_slots)
                                      // dp_degree(mesh_shape))
     ledger.components["sampling_state"] = sampling_state_bytes(max_slots)
+    if sp_degree(mesh_shape) > 1:
+        ledger.components["ring_activations"] = ring_activation_bytes(
+            cfg, cfg.max_seq, mesh_shape, dtype_bytes)
     if prefix_cache_budget_bytes:
         ledger.host_components["prefix_cache_budget"] = int(
             prefix_cache_budget_bytes
         )
     return ledger
+
+
+def ring_activation_bytes(cfg, positions: int, mesh_shape, dtype_bytes: int = 2) -> int:
+    """What one rank holds during the sp ring prefill of a ``positions``-long
+    padded prompt (``llama.prefill_ring``), beyond its weights and cache:
+
+    - the K/V of every layer, ``2 L`` planes of ``NKV/tp x D`` in the
+      activations' type: its own ``positions/sp`` rows stacked, then the
+      sp all-gather's parts and their concatenation (the whole prompt
+      each);
+    - one layer's f32 working set at ``positions/sp`` rows: three
+      ``I/tp``-wide MLP planes (gate, up, their product), three
+      ``H/tp x D`` attention planes (the ring's output, a block's partial,
+      their merge) and three ``H``-wide residual planes."""
+    from ..models.partition import sp_degree, tp_degree
+
+    sp, tp = sp_degree(mesh_shape), tp_degree(mesh_shape)
+    rows = int(positions) // sp
+    kv_row = (cfg.num_kv_heads // tp) * cfg.head_dim * int(dtype_bytes)
+    kv = 2 * cfg.num_layers * kv_row * (rows + 2 * int(positions))
+    layer = 4 * rows * 3 * (cfg.intermediate_size // tp
+                            + (cfg.num_heads // tp) * cfg.head_dim + cfg.hidden_size)
+    return kv + layer
+
+
+def predict_activation_bytes(predictor, batch: int) -> int:
+    """The port's estimate of the forward's f32 working set on one rank at
+    the largest warmed ``batch`` (the ledger's ``activations`` term of a
+    predict flavor): BERT at its longest sequence bucket, three planes of
+    the residual width and three of this rank's MLP width (``I/tp``: the
+    word block's rows give tp) a position; ResNet-50 six feature maps of
+    its stem's output (``image/2`` square at the stem width) an image.
+    Other flavors: 0."""
+    tree = predictor.tree or {}
+    cfg = tree.get("cfg")
+    if predictor.name == "bert-classifier":
+        seq = int((predictor.seq_pad or {}).get("max_len")
+                  or predictor.metadata.get("seq_len", 128))
+        tp = max(1, cfg.vocab_size // int(tree["params"]["embeddings"]["word"].shape[0]))
+        return 4 * int(batch) * seq * 3 * (cfg.hidden_size + cfg.intermediate_size // tp)
+    if predictor.name == "resnet-classifier":
+        side = int(predictor.metadata.get("image_size", 224)) // 2
+        return 4 * 6 * int(batch) * side * side * cfg.width
+    return 0
+
+
+def build_predict_ledger(predictor, max_batch_size: int) -> HbmLedger:
+    """The ledger of one rank of a predict flavor (BERT, ResNet): its tree
+    as held (a rank's blocks on a mesh) by dtype, ResNet's serving copy of
+    its convolutions (``resnet.prepare``), and the forward's
+    :func:`predict_activation_bytes` at ``max_batch_size``."""
+    ledger = HbmLedger()
+    tree = predictor.tree or {}
+    if "params" in tree:
+        for dtype, nbytes in weights_bytes_by_dtype(tree["params"]).items():
+            ledger.components[f"weights_{dtype}"] = nbytes
+    if predictor.name == "resnet-classifier":
+        from ..models.resnet import _CONV_KEYS
+
+        ledger.components["prepared_convs"] = sum(
+            int(leaf.numel()) * leaf.element_size() for leaf in _conv_leaves(tree["params"],
+                                                                            _CONV_KEYS))
+    ledger.components["activations"] = predict_activation_bytes(predictor, max_batch_size)
+    return ledger
+
+
+def _conv_leaves(node, keys):
+    if isinstance(node, list):
+        for v in node:
+            yield from _conv_leaves(v, keys)
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            if k in keys:
+                yield v
+            else:
+                yield from _conv_leaves(v, keys)
 
 
 def capacity_log_line(params, cfg, kv_quant: bool, tp: int = 1) -> str:

@@ -37,20 +37,24 @@ package's default ``meshShape``: a snapshot baked by a JAX replica at that
 mesh restores here, and the other way.
 
 ``mesh_shape`` of several ranks (one process a rank, the process group
-formed first: ``parallel/distributed.py``): a Llama is validated against
-the mesh, then each rank reads the native artifact or the HF checkpoint
-one leaf at a time on the host (:func:`_llama_blocks`): the leaf at the
-serving type, its int8 scale from the whole leaf (so an o/down scale is
-the whole channel's before the row split), cut to the rank's block by the
-rule table (``models/partition.LLAMA_PARTITION_RULES``), and only the
-block copied to the device.  A rank's device never holds a full leaf;
-its host reads a native artifact one leaf at a time (``transformers``
-loads an HF checkpoint whole first).  Every other flavor serves on one
-rank and refuses such a mesh.  With ``snapshot_dir`` the ranks restore
-together (the sharded layout of ``server/snapshot.py``: each rank reads its
-blocks and the replicated leaves) or, on a miss anywhere, load cold
-together and bake, each rank writing its blocks; they agree on each step
-over the control group, so no rank takes another path.
+formed first: ``parallel/distributed.py``): a Llama or a BERT is validated
+against the mesh, then each rank reads the native artifact or the HF
+checkpoint one leaf at a time on the host (:func:`_blocks`): the leaf
+(a Llama's at the serving type, a BERT's as stored), its int8 scale from
+the whole leaf (so an o/down scale is the whole channel's before the row
+split), cut to the rank's block by the flavor's rule table
+(``models/partition.LLAMA_PARTITION_RULES`` / ``BERT_PARTITION_RULES``),
+and only the block copied to the device.  A rank's device never holds a
+full leaf; its host reads a native artifact one leaf at a time
+(``transformers`` loads an HF checkpoint whole first).  Every other flavor
+(ResNet, the linear, forest, xgboost and pyfunc tiers) is replicated: each
+rank loads the whole model, as on one rank.  With ``snapshot_dir`` the
+ranks restore together (the sharded layout of ``server/snapshot.py``: each
+rank reads its blocks and the replicated leaves) or, on a miss anywhere,
+load cold together and bake, each rank writing its blocks; they agree on
+each step over the control group, so no rank takes another path.  Every
+native flavor bakes on a mesh (the reference bakes causal LMs only, and
+restores any flavor's snapshot).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import json
 import logging
 import os
 import pickle
+import re
 import time
 from pathlib import Path
 from typing import Any
@@ -260,6 +265,18 @@ def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
 _LLAMA_QUANTIZED = frozenset(
     [f"layers{_SEP}{n}" for n in quantization._LLAMA_LAYER_MATS] + ["lm_head"]
 )
+# The BERT leaves ``quantize_bert`` turns into int8: each encoder layer's
+# six dense weights.
+_BERT_QUANTIZED = re.compile(
+    r"layers\|#\d+\|(" + "|".join(f"{g}\\|{n}" for g, n in quantization._BERT_LAYER_MATS)
+    + r")\|w")
+
+
+def _quantized_key(flavor: str, key: str) -> bool:
+    """Whether the int8 modes quantize ``flavor``'s leaf at flattened ``key``."""
+    if flavor == "llama-generate":
+        return key in _LLAMA_QUANTIZED
+    return flavor == "bert-classifier" and _BERT_QUANTIZED.fullmatch(key) is not None
 
 
 def _place(block: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -268,22 +285,26 @@ def _place(block: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return block.to(dev)
 
 
-def _llama_blocks(leaves, mesh, dev: torch.device, quantize: str,
-                  stats: dict | None) -> Any:
-    """This rank's blocks of a Llama tree from ``leaves``, an iterable of
-    ``(flattened key, full host tensor at the serving type)`` read one at a
-    time.  A leaf ``quantize_llama`` quantizes takes its scale from the
-    whole leaf (``quantization.channel_scale``), then the rule table cuts
-    the leaf as its ``q8`` plane and the scale as its ``scale`` plane, and
-    the block quantizes with its cut of the scale: equal, code for code, to
-    cutting the quantized full tree.  Only blocks are copied to ``dev``;
-    each full leaf is dropped before the next is read."""
-    from ..models.partition import shard_llama_params
+def _blocks(flavor: str, leaves, mesh, dev: torch.device, quantize: str,
+            stats: dict | None, cast=None) -> Any:
+    """This rank's blocks of a Llama or BERT tree from ``leaves``, an
+    iterable of ``(flattened key, full host tensor)`` read one at a time.
+    A leaf the int8 modes quantize (``quantize_llama`` / ``quantize_bert``)
+    takes its scale from the whole leaf (``quantization.channel_scale``),
+    then the flavor's rule table cuts the leaf as its ``q8`` plane and the
+    scale as its ``scale`` plane, and the block quantizes with its cut of
+    the scale: equal, code for code, to cutting the quantized full tree.
+    Every other float block is cast to ``cast`` (None: kept).  Only blocks
+    are copied to ``dev``; each full leaf is dropped before the next is
+    read."""
+    from ..models.partition import flavor_rules
+    from ..parallel import match_partition_rules, shard_pytree
 
+    rules = flavor_rules(flavor)
     flat: dict[str, Any] = {}
     quantize_s = 0.0
     for key, leaf in leaves:
-        quantized = quantize != "none" and key in _LLAMA_QUANTIZED
+        quantized = quantize != "none" and _quantized_key(flavor, key)
         if quantized:
             t0 = time.perf_counter()
             part = {f"{key}{_SEP}q8": leaf,
@@ -292,13 +313,18 @@ def _llama_blocks(leaves, mesh, dev: torch.device, quantize: str,
         else:
             part = {key: leaf}
         del leaf
-        block = _flatten(shard_llama_params(_unflatten(part), mesh))
-        del part
+        # The rule table matched on each flattened key as a "/" path.
+        paths = {k.replace(_SEP, "/"): v for k, v in part.items()}
+        block = {k.replace("/", _SEP): v for k, v in
+                 shard_pytree(paths, match_partition_rules(rules, paths), mesh).items()}
+        del part, paths
         if quantized:
             t0 = time.perf_counter()
             q8 = f"{key}{_SEP}q8"
             block[q8] = quantization.quantize_with_scale(block[q8], block[f"{key}{_SEP}scale"])
             quantize_s += time.perf_counter() - t0
+        elif cast is not None and block[key].is_floating_point():
+            block[key] = block[key].to(cast)
         for k, b in block.items():
             flat[k] = _place(b, dev)
         del block
@@ -471,8 +497,8 @@ def load_predictor(
             pred = _try_restore_sharded(model_uri, snapshot_dir, quantize, dev, dtype,
                                         load_stats, mesh_shape)
         if pred is None:
-            pred, flavor, meta = _load_cold(model_uri, flavor, quantize, dev, dtype,
-                                            load_stats, mesh_shape=mesh_shape)
+            pred, flavor, meta = _load_cold_unit(model_uri, flavor, quantize, dev, dtype,
+                                                 load_stats, mesh_shape)
             if snapshot_dir:
                 _maybe_write_sharded(pred, model_uri, snapshot_dir, quantize, flavor, meta,
                                      mesh_shape)
@@ -506,54 +532,78 @@ def _quantize_timed(params, dev: torch.device, stats: dict | None):
     return params
 
 
+def _check_quantize(flavor: str, quantize: str) -> None:
+    """Refuse a quantize mode ``flavor`` has no path for, before any weight
+    is read."""
+    if flavor == "bert-classifier" and quantize == "int8kv":
+        raise ModelLoadError(
+            "int8kv quantizes a KV cache; bert-classifier has none -- use "
+            "quantize: int8"
+        )
+    if flavor not in ("llama-generate", "bert-classifier") and quantize != "none":
+        raise ModelLoadError(
+            f"quantize={quantize!r} is not supported for flavor {flavor!r} "
+            "(supported: llama-generate, bert-classifier)"
+        )
+
+
+def _int8_act(cfg, raw_config: dict):
+    """BERT's int8 path: tanh-GELU unless the artifact pins ``hidden_act``."""
+    if "hidden_act" in raw_config:
+        return cfg
+    _log.info("int8 path substituting hidden_act=gelu_tanh for an "
+              "artifact without a hidden_act pin")
+    return dataclasses.replace(cfg, hidden_act="gelu_tanh")
+
+
 def _finish(flavor: str, params, cfg, raw_config: dict, quantize: str,
             dev: torch.device, dtype, stats: dict | None):
-    """The shared tail of the tree-of-tensors flavors: quantize (refused
-    where the flavor has no int8 path) and the serving-type cast; returns
-    ``(params, cfg)``."""
+    """The shared tail of the tree-of-tensors flavors on one rank: quantize
+    (the mode checked by :func:`_check_quantize` first) and the
+    serving-type cast; returns ``(params, cfg)``."""
     from ..models.quantization import quantize_bert
 
     if flavor == "llama-generate":
         if quantize != "none":
             params = _quantize_timed(params, dev, stats)
     elif flavor == "bert-classifier":
-        if quantize == "int8kv":
-            raise ModelLoadError(
-                "int8kv quantizes a KV cache; bert-classifier has none -- use "
-                "quantize: int8"
-            )
         if quantize == "int8":
             params = quantize_bert(params)
-            if "hidden_act" not in raw_config:
-                cfg = dataclasses.replace(cfg, hidden_act="gelu_tanh")
-                _log.info("int8 path substituting hidden_act=gelu_tanh for an "
-                          "artifact without a hidden_act pin")
+            cfg = _int8_act(cfg, raw_config)
         if dtype is not None:
             params = _cast_floats(params, dtype)
-    elif quantize != "none":
-        raise ModelLoadError(
-            f"quantize={quantize!r} is not supported for flavor {flavor!r} "
-            "(supported: llama-generate, bert-classifier)"
-        )
     return params, cfg
 
 
+def _sharded(flavor: str | None) -> bool:
+    """Whether ``flavor`` shards over a mesh (a rule table of its own);
+    every other flavor is replicated."""
+    from ..models.partition import FLAVOR_RULES
+
+    return flavor in FLAVOR_RULES
+
+
 def _mesh_for_flavor(flavor: str, cfg: Any, mesh_shape: dict | None):
-    """This rank's mesh for a Llama on a mesh of several ranks, the geometry
-    checked first (a bad tp fails typed here, before any weight is read);
-    None for one rank.  Every other flavor serves on one rank (BERT's tp is
-    not yet ported)."""
+    """This rank's mesh on a mesh of several ranks (None for one rank).  A
+    Llama or a BERT has its geometry checked first (a bad tp fails typed
+    here, before any weight is read) and gets the mesh with its process
+    groups; every other flavor is replicated and gets this rank's place
+    only (``parallel.mesh.placement``: no collective runs)."""
     from ..models import partition
 
     if partition.mesh_device_count(mesh_shape) <= 1:
         return None
-    if flavor != "llama-generate":
-        raise ModelLoadError(
-            f"meshShape {mesh_shape}: flavor {flavor!r} serves on one rank; its tensor "
-            "and data parallelism are not yet ported"
-        )
+    if not _sharded(flavor):
+        from ..parallel.mesh import placement
+
+        mesh = placement(mesh_shape)
+        _log.info("loading %s whole on every rank of mesh %s (replicated)", flavor,
+                  mesh_shape)
+        return mesh
+    validate = (partition.validate_llama_mesh if flavor == "llama-generate"
+                else partition.validate_bert_mesh)
     try:
-        partition.validate_llama_mesh(cfg, mesh_shape)
+        validate(cfg, mesh_shape)
     except ValueError as e:
         raise ModelLoadError(str(e)) from None
     from ..parallel import build_mesh
@@ -565,16 +615,55 @@ def _mesh_for_flavor(flavor: str, cfg: Any, mesh_shape: dict | None):
 
 
 def _hf_leaves(params: Any, dtype):
-    """An HF Llama's leaves one at a time, cast as the one-rank path casts
-    the tree (bfloat16 first, as the reference serves a checkpoint, then
-    ``dtype``)."""
+    """An HF checkpoint's leaves one at a time, cast as the one-rank path
+    casts the tree (bfloat16 first, as the reference serves a checkpoint,
+    then ``dtype`` where not None)."""
     for key, leaf in _flatten(params).items():
         leaf = leaf.to(torch.bfloat16)
         yield key, (leaf.to(dtype) if dtype is not None else leaf)
 
 
-def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=None):
-    """The load without a snapshot: ``(predictor, flavor, artifact meta)``."""
+class _UnitSteps:
+    """The agreements of a cold load on a mesh of several ranks, so that
+    every rank enters the same collectives whatever fails where: one once
+    the artifact's flavor and geometry are read (:meth:`planned`, before
+    any mesh is built), and one after the load (in :func:`_load_cold_unit`)
+    when the first passed.  A rank that fails before the first joins it
+    with a failure; a failure after it is the second's."""
+
+    def __init__(self) -> None:
+        self.planned_ok: bool | None = None  # None: this rank never reached the step
+
+    def planned(self) -> None:
+        self.planned_ok = _agree(True)
+        if not self.planned_ok:
+            raise ModelLoadError("the load failed on another rank of the unit")
+
+
+def _load_cold_unit(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape):
+    """:func:`_load_cold` on every rank of a mesh together (see
+    :class:`_UnitSteps`): it raises on every rank when it failed on any."""
+    steps = _UnitSteps()
+    try:
+        out, err = _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats,
+                              mesh_shape=mesh_shape, steps=steps), None
+    except Exception as e:
+        out, err = None, e
+    if steps.planned_ok is None:
+        _agree(False)  # the step the other ranks wait in
+    if steps.planned_ok and not _agree(err is None):
+        err = err or ModelLoadError("the load failed on another rank of the unit")
+    if err is not None:
+        raise err
+    return out
+
+
+def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=None,
+               steps: _UnitSteps | None = None):
+    """The load without a snapshot: ``(predictor, flavor, artifact meta)``.
+    ``steps``: a mesh's agreements (:class:`_UnitSteps`), taken before any
+    mesh is built."""
+    planned = steps.planned if steps is not None else (lambda: None)
     path = resolve_uri(model_uri)
     cfg_file = path / "config.json"
     meta = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
@@ -591,12 +680,22 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=N
             )
         raw_config = meta.get("config", {})
         cfg = _build_config(flavor, raw_config)
+        _check_quantize(flavor, quantize)
+        planned()
         mesh = _mesh_for_flavor(flavor, cfg, mesh_shape)
-        if mesh is not None:
+        if mesh is not None and _sharded(flavor):
+            llama = flavor == "llama-generate"
+            # Llama is read straight at the serving type; BERT as stored, and
+            # cast after its int8 leaves are cut.
+            read_dtype = dtype if llama else None
             with np.load(path / "params.npz", allow_pickle=False) as npz:
-                params = _llama_blocks(
-                    ((k, to_tensor(npz[k], None, _leaf_dtype(k, dtype))) for k in npz.files),
-                    mesh, dev, quantize, load_stats)
+                params = _blocks(
+                    flavor,
+                    ((k, to_tensor(npz[k], None, _leaf_dtype(k, read_dtype)))
+                     for k in npz.files),
+                    mesh, dev, quantize, load_stats, cast=None if llama else dtype)
+            if flavor == "bert-classifier" and quantize == "int8":
+                cfg = _int8_act(cfg, raw_config)
         else:
             # Llama is read straight at the serving type; the others as stored.
             params = _read_npz(path / "params.npz", dev,
@@ -606,7 +705,7 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=N
         _log.info("loaded native %s model from %s onto %s (quantize=%s)",
                   flavor, path, dev, quantize)
         kwargs = dict(meta.get("builder_kwargs", {}))
-        if mesh is not None:
+        if mesh is not None and _sharded(flavor):
             kwargs["mesh"] = mesh
         # BERT with dtype None computes in its stored type; Llama never does.
         build_dtype = serving_dtype if flavor == "llama-generate" else dtype
@@ -617,10 +716,15 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=N
     hf_dir = _find_hf_checkpoint(path)
     if hf_dir is not None:
         flavor, params, cfg, kwargs, raw_config = _load_transformers(hf_dir)
+        _check_quantize(flavor, quantize)
+        planned()
         mesh = _mesh_for_flavor(flavor, cfg, mesh_shape)
         if mesh is not None:
-            params = _llama_blocks(_hf_leaves(params, dtype), mesh, dev, quantize,
-                                   load_stats)
+            llama = flavor == "llama-generate"
+            params = _blocks(flavor, _hf_leaves(params, dtype if llama else None), mesh, dev,
+                             quantize, load_stats, cast=None if llama else dtype)
+            if flavor == "bert-classifier" and quantize == "int8":
+                cfg = _int8_act(cfg, raw_config)
         else:
             params = _cast_floats(params, torch.bfloat16)
             if flavor == "llama-generate" and dtype is not None:
@@ -635,7 +739,9 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=N
                              quantize, mesh.tp if mesh is not None else 1)
         return pred, flavor, {"config": dataclasses.asdict(cfg), "builder_kwargs": kwargs}
 
-    _mesh_for_flavor(flavor or "sklearn/xgboost/pyfunc", None, mesh_shape)
+    # What remains (sklearn, xgboost, pyfunc) is replicated on a mesh: every
+    # rank loads the whole model.
+    planned()
     if quantize != "none":
         # What remains are sklearn / xgboost / pyfunc artifacts, with no
         # weight matmuls to quantize: refuse loudly instead of ignoring.
@@ -810,9 +916,9 @@ def _try_restore_sharded(model_uri: str, snapshot_dir: str, quantize: str,
         try:
             manifest = _snap.read_manifest(spath)
             _snap.check_identity(manifest, ident)
-            if manifest.get("flavor") != "llama-generate":
+            if manifest.get("flavor") not in _CONFIG_CLASSES:
                 raise _snap.SnapshotMismatch(
-                    f"snapshot flavor {manifest.get('flavor')!r} serves on one rank")
+                    f"snapshot flavor {manifest.get('flavor')!r} has no native layout")
         except _snap.SnapshotError as e:
             manifest, why = None, e
     if not _agree(manifest is not None):
@@ -820,8 +926,9 @@ def _try_restore_sharded(model_uri: str, snapshot_dir: str, quantize: str,
             _log.warning("snapshot invalidated, falling back to cold load (will re-bake): %s",
                          why)
         return None
-    cfg = _build_config("llama-generate", manifest.get("config", {}))
-    mesh = _mesh_for_flavor("llama-generate", cfg, mesh_shape)
+    flavor = manifest["flavor"]
+    cfg = _build_config(flavor, manifest.get("config", {}))
+    mesh = _mesh_for_flavor(flavor, cfg, mesh_shape)
     stats: dict = {}
     params, corrupt = None, False
     try:
@@ -840,15 +947,17 @@ def _try_restore_sharded(model_uri: str, snapshot_dir: str, quantize: str,
                 pass
         dist.barrier(group=control_group())
         return None
-    if dtype is not None:
+    if dtype is not None and flavor in _SERVING_CAST:
         params = _cast_floats(params, dtype)  # a no-op at the baked type
-    pred = BUILDERS["llama-generate"](params, cfg=cfg, dtype=dtype or torch.bfloat16,
-                                      mesh=mesh, **manifest.get("builder_kwargs", {}))
+    kwargs = dict(manifest.get("builder_kwargs", {}))
+    if _sharded(flavor):
+        kwargs["mesh"] = mesh
+    pred = BUILDERS[flavor](params, cfg=cfg, dtype=dtype or torch.bfloat16, **kwargs)
     if load_stats is not None:
         load_stats.update(stats)
-    _log.info("restored this rank's blocks from snapshot %s (%.2f GiB in %.2fs, zero "
-              "transform work; mesh %s, coordinates %s)", spath, stats.get("read_gib", 0.0),
-              stats.get("restore_s", 0.0), mesh_shape, mesh.coords)
+    _log.info("restored this rank's blocks of %s from snapshot %s (%.2f GiB in %.2fs, zero "
+              "transform work; mesh %s, coordinates %s)", flavor, spath,
+              stats.get("read_gib", 0.0), stats.get("restore_s", 0.0), mesh_shape, mesh.coords)
     return _log_capacity(pred, quantize, mesh.tp)
 
 
@@ -856,12 +965,15 @@ def _maybe_write_sharded(pred: Predictor, model_uri: str, snapshot_dir: str, qua
                          flavor: str, meta: dict, mesh_shape: dict) -> None:
     """:func:`_maybe_write_snapshot` on a mesh of several ranks (every rank
     calls it together): once for the identity, in the sharded layout, each
-    rank writing its own blocks.  A failed write is a warning on every
-    rank; serving goes on."""
+    rank writing its own blocks, for every native flavor (a replicated one
+    is written whole by rank 0).  A BERT's config records the ``hidden_act``
+    it serves (the int8 path's substitution included).  A failed write is a
+    warning on every rank; serving goes on."""
     from ..models import partition
     from . import snapshot as _snap
 
     lm = pred.causal_lm
+    tree = lm or pred.tree
     ident = _snap.snapshot_identity(model_uri, quantize, mesh_shape)
     spath = _snap.snapshot_path_for(snapshot_dir, model_uri)
     baked = False
@@ -871,19 +983,25 @@ def _maybe_write_sharded(pred: Predictor, model_uri: str, snapshot_dir: str, qua
             baked = True
         except _snap.SnapshotError:
             pass  # stale or corrupt: bake again below
-    if _agree(baked) or not lm:
+    if _agree(baked) or not tree:
         return
     from ..parallel import match_partition_rules
     from ..parallel.mesh import placement
 
     # The rule table matched on each flattened key as a "/" path.
-    flat = {k.replace(_SEP, "/"): v for k, v in _flatten(lm["params"]).items()}
-    specs = match_partition_rules(partition.LLAMA_PARTITION_RULES, flat)
+    flat = {k.replace(_SEP, "/"): v for k, v in _flatten(tree["params"]).items()}
+    specs = match_partition_rules(partition.flavor_rules(flavor), flat)
+    config = dict(meta.get("config", {}))
+    if lm:
+        kwargs = {"eos_id": int(lm["eos_id"])} if lm.get("eos_id") is not None else {}
+    else:
+        kwargs = dict(meta.get("builder_kwargs", {}))
+        if flavor == "bert-classifier":
+            config["hidden_act"] = tree["cfg"].hidden_act
     try:
         _snap.write_snapshot(
-            snapshot_dir, lm["params"], identity=ident, flavor=flavor,
-            config=dict(meta.get("config", {})),
-            builder_kwargs={"eos_id": int(lm["eos_id"])} if lm.get("eos_id") is not None else {},
+            snapshot_dir, tree["params"], identity=ident, flavor=flavor,
+            config=config, builder_kwargs=kwargs,
             mesh=placement(mesh_shape),
             specs={k.replace("/", _SEP): v for k, v in specs.items()})
     except Exception as e:

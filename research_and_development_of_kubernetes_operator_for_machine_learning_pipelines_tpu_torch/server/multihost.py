@@ -22,6 +22,13 @@ A follower's failed generation op is fatal to it (its state would
 disagree with every other rank's): it exits its loop, and the leader's
 next collective fails, so the unit restarts.  The leader's failed op
 broadcasts ``OP_GEN_RESET`` (``GenerationEngine._fail_all_and_recover``).
+
+A warm-pool unit's followers hold their engines in a
+:class:`FollowerEngines`, which the port's own unit ops swap:
+``OP_ATTACH`` loads a model on every rank (the ranks agree that each
+succeeded, or every rank stays in the warm pool), ``OP_DETACH`` drops it
+and frees the card's memory, ``OP_REPORT`` gathers each rank's report to
+the leader.  Only ``OP_SHUTDOWN`` ends a follower's loop.
 """
 
 from __future__ import annotations
@@ -56,6 +63,12 @@ OP_GEN_SUPERSTEP = "gen_superstep"  # unified ragged super-step tick
 # The port's own op: a prefix-cache read of a chunk's K/V gathers every
 # rank's heads (and the owning dp shard's row), so every rank joins it.
 OP_GEN_READ = "gen_read"
+# The port's warm-pool unit ops: attach a model on every rank ({model_uri}),
+# drop it (a release or a replace; the followers stay), and gather every
+# rank's report to the leader.
+OP_ATTACH = "attach"
+OP_DETACH = "detach"
+OP_REPORT = "report"
 
 # Round 1 of a broadcast is the payload's byte length as uint32; round 2 is
 # the payload.  Two rounds because a broadcast needs same-shape buffers on
@@ -245,14 +258,33 @@ class MultihostEngine:
     def max_batch_size(self) -> int:
         return self._engine.max_batch_size
 
+    @property
+    def dispatches(self) -> int:
+        return self._engine.dispatches
+
     def predict(self, inputs: Mapping[str, np.ndarray]) -> Any:
         return self.channel.run(
             encode_message(OP_PREDICT, inputs),
             lambda: self._engine.predict(inputs),
         )
 
-    def warmup(self) -> float:
-        return self._engine.warmup(predict=self.predict)
+    def predict_async(self, inputs: Mapping[str, np.ndarray]) -> Any:
+        """The batcher's launch: broadcast and launch under the channel's
+        lock, so the followers replay batches in the order the leader
+        launches them (the batcher launches batch N+1 while N runs; a
+        follower replays each synchronously)."""
+        return self.channel.run(
+            encode_message(OP_PREDICT, inputs),
+            lambda: self._engine.predict_async(inputs),
+        )
+
+    def materialize(self, out: Any) -> Any:
+        return self._engine.materialize(out)
+
+    def warmup(self, predict=None) -> float:
+        """``predict``: the dispatch path (the server passes its batcher's,
+        whose launches broadcast through :meth:`predict_async`)."""
+        return self._engine.warmup(predict=predict or self.predict)
 
     def shutdown(self) -> None:
         """Release the followers; without this they wait on the broadcast
@@ -270,15 +302,63 @@ def note_op(stats: dict | None, op: str, seconds: float) -> None:
     row[2] = max(row[2], seconds)
 
 
+class FollowerEngines:
+    """What a follower replays on: its predict ``engine`` (an
+    ``InferenceEngine``) and its ``gen_engine`` (a never-started
+    ``GenerationEngine``), either None.  A warm-pool unit's attach swaps
+    them: ``attach_fn(model_uri)`` returns the pair (None, None when any
+    rank failed: every rank stays in the warm pool; it joins the unit's
+    agreement itself and raises nothing), ``release_fn(engine,
+    gen_engine)`` frees a pair.  ``report_fn(engines, stats)`` builds this
+    rank's report for ``OP_REPORT``."""
+
+    def __init__(self, engine: Any = None, gen_engine: Any = None, attach_fn=None,
+                 release_fn=None, report_fn=None) -> None:
+        self.engine = engine
+        self.gen_engine = gen_engine
+        self.attach_fn = attach_fn
+        self.release_fn = release_fn
+        self.report_fn = report_fn
+
+    def attach(self, model_uri: str) -> None:
+        if self.attach_fn is None:
+            raise RuntimeError("attach on a unit that is not a warm pool")
+        self.detach()
+        self.engine, self.gen_engine = self.attach_fn(model_uri)
+
+    def detach(self) -> None:
+        engine, gen_engine = self.engine, self.gen_engine
+        self.engine = self.gen_engine = None
+        if self.release_fn is not None:
+            self.release_fn(engine, gen_engine)
+
+
+def gather_reports(report: dict) -> list | None:
+    """Every rank's ``report`` gathered to the leader over the world-wide
+    control group: the list in rank order on the leader, None elsewhere."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import control_group
+
+    leader = dist.get_rank() == 0
+    out = [None] * dist.get_world_size() if leader else None
+    dist.gather_object(report, out, dst=0, group=control_group())
+    return out
+
+
 def follower_loop(engine: Any, transport: GroupTransport, gen_engine: Any = None,
-                  stats: dict | None = None) -> int:
+                  stats: dict | None = None, engines: FollowerEngines | None = None) -> int:
     """Run on ranks 1..N-1: repeat broadcast ops until shutdown.
 
     ``gen_engine`` (a never-started ``GenerationEngine``) repeats the
-    leader's generation ops.  ``stats`` (op -> [count, total s, max s])
-    receives each op's wall.  Returns the number of ops run."""
+    leader's generation ops, ``engine`` its predict batches; ``engines``
+    (a :class:`FollowerEngines`) holds them instead where an attach can swap
+    them.  ``stats`` (op -> [count, total s, max s]) receives each op's
+    wall.  Returns the number of ops run."""
     if transport.is_leader:
         raise ValueError("follower_loop must not run on the leader")
+    if engines is None:
+        engines = FollowerEngines(engine, gen_engine)
     steps = 0
     while True:
         op, inputs = decode_message(transport.broadcast(None))
@@ -288,11 +368,23 @@ def follower_loop(engine: Any, transport: GroupTransport, gen_engine: Any = None
         t0 = time.perf_counter()
         try:  # the op's wall is noted whether it ran or raised
             if op == OP_PREDICT:
-                engine.predict(inputs)
+                if engines.engine is None:
+                    raise RuntimeError("predict on a unit without a predict engine")
+                engines.engine.predict(inputs)
             elif op in _REPLAY:
-                if gen_engine is None:
+                if engines.gen_engine is None:
                     raise RuntimeError("GEN op on a unit without a gen engine")
-                getattr(gen_engine, _REPLAY[op])(**(inputs or {}))
+                getattr(engines.gen_engine, _REPLAY[op])(**(inputs or {}))
+            elif op == OP_ATTACH:
+                engines.attach(**inputs)
+            elif op == OP_DETACH:
+                engines.detach()
+            elif op == OP_REPORT:
+                try:  # the leader waits in the gather: always join it
+                    report = engines.report_fn(engines, stats) if engines.report_fn else {}
+                except Exception as e:
+                    report = {"error": f"{type(e).__name__}: {e}"}
+                gather_reports(report)
             else:  # unknown op: skip rather than desync the group
                 _log.warning("follower ignoring unknown op %r", op)
         except Exception:
@@ -306,6 +398,7 @@ def follower_loop(engine: Any, transport: GroupTransport, gen_engine: Any = None
                 raise
             # predict is stateless: the leader's handler gets the same error
             # and stays up; a follower that died could not rejoin the group.
+            # An attach's failure was agreed on by every rank inside it.
             _log.exception("follower step %r failed; continuing", op)
         finally:
             note_op(stats, op, time.perf_counter() - t0)

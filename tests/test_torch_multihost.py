@@ -147,7 +147,9 @@ def test_op_names_and_the_length_type_are_the_reference_ones():
     ref = {k: v for k, v in vars(JM).items() if k.startswith("OP_")}
     port = {k: v for k, v in vars(TM).items() if k.startswith("OP_")}
     assert {k: port[k] for k in ref} == ref
-    assert set(port) - set(ref) == {"OP_GEN_READ"}  # the port's own: gathered reads
+    # the port's own: gathered reads, and the warm-pool unit's attach,
+    # detach and rank reports
+    assert set(port) - set(ref) == {"OP_GEN_READ", "OP_ATTACH", "OP_DETACH", "OP_REPORT"}
     assert TM._LEN_DTYPE is JM._LEN_DTYPE
 
 

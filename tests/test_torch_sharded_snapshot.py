@@ -16,7 +16,7 @@ bf16 Llama (4 heads, 2 K/V heads) in the reference's native layout.
   distinct block is written once.
 - A restoring rank reads the replicated leaves and its own blocks only.
 - A tp-1 bake misses on a tp-2 mesh: one warning, a cold load, a new bake.
-- The warm pool at a world above one rank is still refused.
+- The warm pool at a world above one rank is refused across hosts only.
 """
 
 import dataclasses
@@ -222,9 +222,14 @@ def test_a_tp1_bake_misses_on_a_tp2_mesh(model, tmp_path):
         snap.load_snapshot(spath, device="cpu")
 
 
-def test_the_warm_pool_is_refused_at_a_world_above_one_rank(tmp_path):
-    with pytest.raises(ValueError, match="warm pool at a world above one rank is not yet"):
-        tapp.ServerConfig(mesh_shape=TP2, warm_pool=True, snapshot_dir=str(tmp_path))
+def test_the_warm_pool_is_refused_at_a_world_above_one_rank(tmp_path, monkeypatch):
+    """Across hosts only: a unit whose ranks do not all share one host
+    (``LOCAL_WORLD_SIZE`` below the world) is refused before its process
+    group forms; on one host the config is accepted."""
+    warm = tapp.ServerConfig(mesh_shape=TP2, warm_pool=True, snapshot_dir=str(tmp_path))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="--warm-pool is single-host only"):
+        tapp.form_unit(warm)
     conf = tapp.ServerConfig(mesh_shape=TP2, snapshot_dir=str(tmp_path))
     assert conf.snapshot_dir == str(tmp_path)
     args = tapp.build_arg_parser().parse_args(

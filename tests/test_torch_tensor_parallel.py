@@ -399,7 +399,7 @@ def test_a_loading_rank_holds_its_blocks_and_one_full_leaf(artifact, monkeypatch
                     del leaf
 
         stats = {}
-        got = tloader._flatten(tloader._llama_blocks(leaves(), mesh, cpu, quantize, stats))
+        got = tloader._flatten(tloader._blocks("llama-generate", leaves(), mesh, cpu, quantize, stats))
         assert alive and all(ref() is None for ref in alive)
         assert sorted(got) == sorted(want)
         for key in want:

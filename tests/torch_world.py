@@ -411,3 +411,171 @@ def sharded_snapshot_case(rank: int, world: int, art: str, mesh_shape: dict,
         out.append({"params": flat, "stats": stats, "reads": list(reads),
                     "warnings": list(warnings)})
     return out
+
+
+def bert_forward_case(rank: int, world: int, mesh_shape: dict, cfg_kw: dict, trees: dict,
+                      inputs: tuple) -> dict:
+    """BERT's sharded forward on ``mesh_shape``: for each tree of ``trees``
+    (name -> (numpy tree, torch dtype name)) this rank's cut of it
+    (``partition.shard_bert_params``), then ``classify`` and ``encode`` on
+    ``inputs`` (ids, mask, token types); and a tp ``pmax``."""
+    import importlib
+
+    import torch
+
+    m = _port()
+    B = importlib.import_module(f"{PKG}.models.bert")
+    C = m["parallel.collectives"]
+    cfg = B.BertConfig(**cfg_kw)
+    mesh = m["parallel"].build_mesh(mesh_shape)
+    ids, mask, tt = (None if x is None else torch.from_numpy(x) for x in inputs)
+    out: dict = {"coords": dict(mesh.coords)}
+    for name, (tree, dtype) in trees.items():
+        params = m["models.partition"].shard_bert_params(
+            m["convert"].from_jax_numpy(tree), mesh)
+        dt = getattr(torch, dtype)
+        seq, pooled = B.encode(params, ids, mask, tt, cfg, dt, mesh)
+        out[name] = {"logits": B.classify(params, ids, mask, tt, cfg, dt, mesh).numpy(),
+                     "seq": seq.numpy(), "pooled": pooled.numpy()}
+    x = torch.tensor([float(rank), -float(rank), 3.0], dtype=torch.float64)
+    out["pmax"] = C.pmax(x, mesh.group("tp")).numpy()
+    out["pmax_calls"] = C.calls.get("all_reduce_max", 0)
+    return out
+
+
+def _tree_bits(tree) -> dict:
+    """A tree of tensors flattened as the loader flattens it, each leaf as
+    (dtype name, numpy bits)."""
+    import importlib
+
+    import torch
+
+    loader = importlib.import_module(f"{PKG}.server.loader")
+    flat = {}
+    for k, v in loader._flatten(tree).items():
+        bits = v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+        flat[k] = (str(v.dtype), bits.numpy().copy())
+    return flat
+
+
+def load_case(rank: int, world: int, mesh_shape: dict, loads: list) -> list:
+    """``load_predictor`` on ``mesh_shape`` for each ``(uri, quantize, dtype
+    name, snapshot dir, inputs)`` of ``loads``, in order: the prediction on
+    ``inputs`` (kwargs, or the one positional input), the served tree as
+    bits, the load stats, the loader's warnings and how many leaves were
+    read from an npz; a typed refusal's message in place of the rest."""
+    import importlib
+    import logging
+
+    import torch
+
+    loader = importlib.import_module(f"{PKG}.server.loader")
+    reads = [0]
+    real = loader.to_tensor
+
+    def counted(*a, **kw):
+        reads[0] += 1
+        return real(*a, **kw)
+
+    loader.to_tensor = counted
+    warnings: list = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    logging.getLogger("tpumlops_torch.loader").addHandler(Catch())
+    out = []
+    for uri, quantize, dtype, snapdir, inputs in loads:
+        reads[0] = 0
+        warnings.clear()
+        stats: dict = {}
+        try:
+            pred = loader.load_predictor(uri, quantize=quantize, device="cpu",
+                                         dtype=getattr(torch, dtype), load_stats=stats,
+                                         snapshot_dir=snapdir, mesh_shape=mesh_shape)
+        except loader.ModelLoadError as e:
+            out.append({"refused": str(e), "reads": reads[0]})
+            continue
+        y = pred.predict(**inputs) if len(inputs) > 1 else pred.predict(*inputs.values())
+        tree = pred.tree or pred.causal_lm
+        out.append({"y": y.detach().cpu().numpy(), "flavor": pred.name,
+                    "params": _tree_bits(tree["params"]) if tree else None,
+                    "hidden_act": getattr(tree["cfg"], "hidden_act", None) if tree else None,
+                    "stats": stats, "warnings": list(warnings), "reads": reads[0]})
+    return out
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 120.0):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def unit_case(rank: int, world: int, units: list) -> list:
+    """Served units, one after another in this world, each as the app runs
+    them: ``argv`` parsed into the server's config, ``form_unit``, then the
+    leader's ``build_server`` (after ``load_predictor`` unless
+    ``--warm-pool``) serving on a thread, the followers in ``run_follower``.
+    The leader sends each ``(method, path, body)`` of ``plan`` and returns
+    the answers; ``fail_rank`` makes that rank's first sharded block read
+    raise (an attach that fails on one rank).  A follower returns its ops
+    run."""
+    import importlib
+    import threading
+
+    app = importlib.import_module(f"{PKG}.server.app")
+    loader = importlib.import_module(f"{PKG}.server.loader")
+    out = []
+    for argv, plan, fail_rank in units:
+        config = app.config_from_args(app.build_arg_parser().parse_args(argv))
+        transport, device, local_rank = app.form_unit(config)
+        config.device = device
+        if rank == fail_rank:
+            real, failed = loader._blocks, [False]
+
+            def once(*a, **kw):
+                if not failed[0]:
+                    failed[0] = True
+                    raise RuntimeError("injected block read failure")
+                return real(*a, **kw)
+
+            loader._blocks = once
+        try:
+            if rank != 0:
+                out.append({"steps": app.run_follower(config, transport, local_rank=1)})
+                continue
+            pred = None
+            if not config.warm_pool:
+                pred = loader.load_predictor(config.model_uri, quantize=config.quantize,
+                                             device=config.device,
+                                             dtype=app._DTYPES[config.dtype],
+                                             mesh_shape=config.mesh_shape)
+            srv = app.build_server(pred, config, transport=transport)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                answers = [_http(srv.server_address[1], *step) for step in plan]
+            finally:
+                srv.shutdown_all()
+                thread.join(timeout=30)
+            out.append({"answers": answers})
+        finally:
+            if rank == fail_rank:
+                loader._blocks = real
+    return out
+
+
+def calls_case(rank: int, world: int, calls: list) -> list:
+    """Several rank bodies of this file in one world, in order: each
+    ``(name, args)`` called as ``name(rank, world, *args)``."""
+    return [globals()[name](rank, world, *args) for name, args in calls]
