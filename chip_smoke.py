@@ -193,7 +193,8 @@ and exits non-zero):
    ms, the prep and draw kernels alone, the sort's own device ms, the
    plain chain's, and the bound of the kernels' work.  Then on the bf16
    tree (``quantize: none``, whole prompts) and, after the quantization,
-   on int8kv (chunks of 256): three servers
+   on int8kv (chunks of 256), both cut to ``INT8KV_LAYERS`` layers (widths
+   whole): three servers
    on one weight tree at ``decode_steps`` 1, 4 and 8 (the fused ones
    capture one CUDA graph per window bucket and token rule at start: the
    count, the seconds and the pool's bytes are printed); one replay of a
@@ -221,7 +222,8 @@ and exits non-zero):
    stream's agreement with K = 1 (reported: the wider pre-picked window
    changes the decode kernel's split and can flip bf16 near-ties).
    5f: the unified ragged super-step on the bf16 tree (``none``) and,
-   after the quantization, on int8kv: two servers on one weight tree, the
+   after the quantization, on int8kv, both at ``INT8KV_LAYERS`` layers: two
+   servers on one weight tree, the
    split engine and the unified one built from ``--unified-step 1`` (both
    K 4, chunks of 256 packed 4, speculation with 4 drafts); the unified
    engine's graphs (2 x |window buckets|), capture seconds and pool bytes;
@@ -249,7 +251,8 @@ and exits non-zero):
    greedy agreement of the two engines (reported).
    5g: SLO classes and mid-decode preemption on the bf16 tree (``none``,
    the split engine at K 4) and, after the quantization, on int8kv (the
-   unified engine, K 4, chunks of 256 packed 4, 4 drafts), 4 slots, the
+   unified engine, K 4, chunks of 256 packed 4, 4 drafts; both at
+   ``INT8KV_LAYERS`` layers), 4 slots, the
    prefix cache at 512 MiB with L2 256 MiB, ``--slo-class batch
    --preemption 1``.  (a) An engine driven by hand, never started: four
    best-effort streams (300 + 40, one seeded and sampled), and once each
@@ -386,6 +389,23 @@ and exits non-zero):
    rate); last a one-rank ``nccl`` group's ``all_reduce`` in a process of
    its own (a world of two or more NCCL ranks needs two cards).  The
    phase's wall beside MESH_BUDGET_S.
+9. The control plane's canary: BERT-base v1 -> v2 promoted in 10% steps
+   by the port's ``OperatorRuntime`` through the port's router, each
+   version a server process of the operator's ``backend: cuda`` manifest.
+9b. The control plane's judgment on a shared warm pool (sharing phase 9's
+   router build): four Llama models at Llama-2-7B's widths cut to
+   MESH_LAYERS layers (bf16 artifacts of seeds 11-14, served f32) on three
+   ``--warm-pool 1`` server processes behind the router in
+   model-multiplexing mode, r1's leg through a ``ChaosProxy``; four CRs
+   with ``spec.multiplex``, ``spec.slo`` and ``spec.anomaly`` in the port's
+   ``OperatorRuntime``: parked requests attached and answered with a
+   direct f32 engine's tokens, the straggler r1 flagged from the router's
+   legs, a replace journaled, SLO records recomputed, a suggested plan
+   equal to a re-plan with the detected H100 peaks, RMSNorm / flash /
+   decode launches on every replica, and ``python -m <port>.operator
+   --leader-elect`` taking its Lease and stopping on SIGTERM (see
+   ``phase_control_plane_judgment``).  The phase's wall beside
+   JUDGE_BUDGET_S.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.  Details, and the server
@@ -4607,8 +4627,8 @@ def phase_serve_7b_multistep(da, rn, fa, ss, smi: str, params, quantize: str,
         def agree(a, b):
             return float(np.mean([x == y for x, y in zip(a, b)]))
 
-        res = {"quantize": quantize, "graph_vs_eager": graph_eager, "launches": launches,
-               "sampled_alone": sampled,
+        res = {"quantize": quantize, "layers": L, "graph_vs_eager": graph_eager,
+               "launches": launches, "sampled_alone": sampled,
                "per_k": per_k, "metrics": metrics, "peak_gib": peak, "peak_built_gib": peak_built,
                "by_k": {}}
         for K in MS_STEPS:
@@ -4665,8 +4685,9 @@ UNI_NEW = 24       # new tokens a request
 UNI_BURST = (300, 700, 1000, 1500)  # phase 5d's burst
 # Llama-2-7B's widths at this depth in the int8kv turns of phases 5d, 5e,
 # 5f and 5g (their engines copy every int8 weight to bf16 each forward,
-# 2.4-3.6x the `none` turns' walls at 32 layers): cut for the smoke's time
-# limit (5d and 5e since PR 21, when phase 8c came).
+# 2.4-3.6x the `none` turns' walls at 32 layers) and in the `none` turns of
+# 5e, 5f and 5g: cut for the smoke's time limit (5d and 5e int8kv when phase
+# 8c came, the three `none` turns when phase 9b did).
 INT8KV_LAYERS = 8
 
 
@@ -5795,15 +5816,21 @@ def phase_serve_7b_observed(da, rn, fa, ss, smi: str, params, ms_none: dict) -> 
                                    "temperature": 0.8, "top_k": 50, "top_p": 0.95,
                                    "seed": 4321}), [16], V)
         base_tok_s = ms_none["by_k"][4]["single_tok_s"]
+        # Against 5e's K 4 server only where 5e served the same depth.
+        same_depth = ms_none.get("layers", L) == L
         res["overhead"] = {"tok_s": tok_s, "phase_5e_k4_tok_s": base_tok_s,
+                           "phase_5e_layers": ms_none.get("layers", L),
                            "on_over_off": float(np.median(tok_s["on"])
                                                 / np.median(tok_s["off"])),
-                           "on_over_5e": float(np.median(tok_s["on"]) / np.median(base_tok_s))}
+                           "on_over_5e": (float(np.median(tok_s["on"]) / np.median(base_tok_s))
+                                          if same_depth else None)}
+        vs_5e = (f"{res['overhead']['on_over_5e']:.3f}" if same_depth
+                 else f"not comparable (5e served {ms_none.get('layers')} layers)")
         log(f"{tag}: single 5+{MS_NEW} tok/s with every option on "
             f"{[round(x, 2) for x in tok_s['on']]}, off on the same server "
             f"{[round(x, 2) for x in tok_s['off']]} (in turns): on / off "
             f"{res['overhead']['on_over_off']:.3f}; against phase 5e's K 4 server "
-            f"{[round(x, 2) for x in base_tok_s]}: {res['overhead']['on_over_5e']:.3f}")
+            f"{[round(x, 2) for x in base_tok_s]}: {vs_5e}")
 
         # /debug/profile under traffic.
         stop_traffic = threading.Event()
@@ -8435,6 +8462,551 @@ def phase_control_plane_canary(fa, smi: str, device: str = "cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9b: the control plane's judgment on a shared warm pool
+# ---------------------------------------------------------------------------
+
+JUDGE_BUDGET_S = 100.0  # phase 9b's share of SMOKE_LIMIT_S
+JUDGE_SEEDS = (11, 12, 13, 14)  # one artifact a seed, models mux0..mux3
+JUDGE_NEW = 8  # greedy tokens a request
+JUDGE_PROMPT = 24  # prompt tokens a request
+JUDGE_SLOW_S = 0.35  # ChaosProxy's hold on each response of replica r1
+JUDGE_REPLICAS = ("r0", "r1", "r2")
+JUDGE_CLIENTS = 3  # concurrent clients of the straggler traffic
+# The SLO every member CR declares: TTFT and ITL p99 from the pool's live
+# series, 99% objective over 5 minutes (the phase is shorter: no sample
+# leaves the window, so a recomputation sees every one).
+JUDGE_SLO = {"ttftP99Ms": 2000, "itlP99Ms": 500, "availabilityPct": 99.0, "windowMinutes": 5}
+JUDGE_OBJECTIVE = {"ttftP99Ms": 2000.0}
+
+
+def _judge_cuda(snapdir: Path) -> dict:
+    return {"gpuTopology": "h100-1", "dtype": "float32",
+            "snapshot": {"enabled": True, "dir": str(snapdir)},
+            "observability": {"timeseriesRing": 64},
+            "compileCacheDir": str(ROOT / "build" / "torch_kernels")}
+
+
+def _judge_pool_spec(snapdir: Path) -> dict:
+    """The spec whose warm-pool manifest the pool servers run."""
+    return {"modelName": "pool", "modelAlias": "prod", "backend": "cuda",
+            "cuda": _judge_cuda(snapdir),
+            "autoscaling": {"enabled": True, "minReplicas": 1, "maxReplicas": 3,
+                            "targetQueueDepthPerReplica": 2,
+                            "warmPoolSize": len(JUDGE_REPLICAS)}}
+
+
+def _judge_spec(name: str, arts: Path, snapdir: Path) -> dict:
+    return {"modelName": name, "modelAlias": "prod", "backend": "cuda",
+            "artifactRoot": str(arts), "monitoringInterval": 0.3,
+            "cuda": _judge_cuda(snapdir), "observability": {"historyLimit": 64},
+            "multiplex": {"poolRef": "shared"}, "slo": dict(JUDGE_SLO),
+            "anomaly": {"driftPct": 0, "windowSeconds": 5, "baselineSeconds": 5}}
+
+
+def _pool_argv(builder, config, uri: str, port: int, device: str) -> list[str]:
+    """The command of the operator's warm-pool manifest (``--warm-pool 1``)
+    for ``config``, on a local port."""
+    (dep,) = builder.build_warm_pool_manifests(
+        name="pool", namespace="models", owner_uid="smoke", config=config, version="1",
+        model_uri=uri)
+    (c,) = dep["spec"]["template"]["spec"]["containers"]
+    if "--warm-pool" not in c["args"] or c["resources"]["limits"] != {"nvidia.com/gpu": "1"}:
+        raise AssertionError(f"9b: the pool pod runs {c['args']} with {c['resources']}")
+    return ([sys.executable] + c["command"][1:] + c["args"]
+            + ["--host", "127.0.0.1", "--port", str(port), "--metrics-port", "0",
+               "--drain-s", "0", "--device", device])
+
+
+def _judge_generate(port: int, model: str, prompt: list, timeout: float = 300) -> tuple:
+    """(status, body, seconds) of one /generate through the router."""
+    t0 = time.perf_counter()
+    code, body, _ = _call("POST", f"http://127.0.0.1:{port}/v2/models/{model}/generate",
+                          {"prompt_ids": prompt, "max_new_tokens": JUDGE_NEW}, timeout=timeout)
+    return code, body, time.perf_counter() - t0
+
+
+def _judge_references(app, loader, metrics_mod, uris: dict, argv: list, prompts: dict,
+                      device: str) -> dict:
+    """Each model's greedy tokens from a direct one-process engine in f32,
+    on the pool servers' own options."""
+    import torch
+
+    args = argv[argv.index("-m") + 2:]
+    i = args.index("--warm-pool")
+    del args[i:i + 2]
+    out = {}
+    for name, uri in uris.items():
+        args[args.index("--model-uri") + 1] = uri
+        conf = app.config_from_args(app.build_arg_parser().parse_args(args))
+        pred = loader.load_predictor(uri, device=device, dtype=torch.float32)
+        engine = app.make_gen_engine(pred, conf, metrics_mod.ServerMetrics("smoke", "v1", "smoke"))
+        engine.start()
+        try:
+            out[name] = {k: engine.generate(p, JUDGE_NEW, timeout=600).tolist()
+                         for k, p in prompts[name].items()}
+        finally:
+            engine.shutdown()
+        del pred, engine
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _slo_recomputed(slo_mod, rec, name: str, tracker, spec) -> list:
+    """Every SloRecord of ``name`` against a fresh ``SloTracker`` fed the
+    live tracker's samples up to the record's wall: (slo, field, journaled,
+    recomputed) where they differ."""
+    bad = []
+    for r in rec:
+        samples = [s for s in tracker._windows.get(r["slo"], ()) if s.wall <= r["ts"]]
+        fresh = slo_mod.SloTracker()
+        for s in samples:
+            fresh.observe(r["slo"], s.wall, s.good, s.observed)
+        ev = fresh.evaluate(r["slo"], r["ts"], spec.window_minutes * 60.0,
+                            spec.availability_pct, slo_mod.target_of(spec, r["slo"]))
+        for field, want in (("attainment", ev.attainment), ("burnRate", ev.burn_rate),
+                            ("budgetRemaining", ev.budget_remaining), ("samples", ev.samples)):
+            if r[field] != want:
+                bad.append((name, r["slo"], field, r[field], want))
+    return bad
+
+
+def phase_control_plane_judgment(smi: str, device: str = "cuda", cfg=None) -> dict:
+    """The rest of the port's operator on the card: four Llama models
+    (Llama-2-7B's widths at ``MESH_LAYERS`` layers unless ``cfg`` is given;
+    bf16 artifacts of seeds 11-14, served f32) share three ``--warm-pool 1``
+    servers (the operator's warm-pool manifest's command, one snapshot dir,
+    a timeseries ring each) behind the port's router in model-multiplexing
+    mode, r1's leg through a ``ChaosProxy`` holding each response
+    ``JUDGE_SLOW_S``.  Four ``MlflowModel`` CRs (``backend: cuda``,
+    ``h100-1``, ``spec.multiplex`` on pool ``shared``, ``spec.slo``,
+    ``spec.anomaly``) run in the port's ``OperatorRuntime`` on a
+    ``SystemClock`` with the pool's ``Multiplexer``, ``PoolMetrics``, the
+    rings and ``OperatorTelemetry``.  Fails unless: (1) requests to mux0-2
+    park until the packer attaches each, then answer 200 with the direct f32
+    engine's tokens; (2) the observatory names r1 from the router's leg
+    series, ``status.anomalies`` carries it and the Multiplexer holds r1 as
+    a straggler; (3) a request to mux3 makes the packer replace an
+    attachment, journaled as ``kind: "mux"`` in mux3's history, and answers
+    the direct engine's tokens; (4) every CR's SloRecords agree with
+    ``SloTracker`` recomputed from the samples, and the telemetry exports
+    ``tpumlops_operator_slo_*``; (5) ``spec.planner`` (suggest) on mux3 with
+    the router's journey export journals the plan a re-plan with
+    ``detect_peaks()`` gives; (6) each replica launched RMSNorm, flash and
+    decode attention (on the card); (7) ``python -m <port>.operator
+    --leader-elect`` against the port's ``EnvtestServer`` takes its Lease,
+    serves ``/metrics`` and exits 0 within 10 s of SIGTERM."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    metrics_mod = import_module(f"{PKG}.server.metrics")
+    lp = import_module(f"{PKG}.clients.localplane")
+    rmod = import_module(f"{PKG}.clients.router")
+    base = import_module(f"{PKG}.clients.base")
+    fakes = import_module(f"{PKG}.clients.fakes")
+    chaos_mod = import_module(f"{PKG}.clients.chaos")
+    envtest = import_module(f"{PKG}.clients.envtest")
+    kube_rest = import_module(f"{PKG}.clients.kube_rest")
+    builder = import_module(f"{PKG}.operator.builder")
+    runtime = import_module(f"{PKG}.operator.runtime")
+    mux_mod = import_module(f"{PKG}.operator.multiplexer")
+    anomaly = import_module(f"{PKG}.operator.anomaly")
+    slo_mod = import_module(f"{PKG}.operator.slo")
+    planner = import_module(f"{PKG}.operator.planner")
+    telemetry_mod = import_module(f"{PKG}.operator.telemetry")
+    leader = import_module(f"{PKG}.operator.leader")
+    clock = import_module(f"{PKG}.utils.clock")
+    config = import_module(f"{PKG}.utils.config")
+    jt = import_module(f"{PKG}.utils.journey_trace")
+    dtel = import_module(f"{PKG}.server.device_telemetry")
+    tag = "9b judgment"
+    cfg = cfg or llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    V = cfg.vocab_size
+    scratch = ROOT / "build" / "smoke_judge"  # ignored by git, deleted after
+    shutil.rmtree(scratch, ignore_errors=True)
+    arts, snapdir = scratch / "arts", scratch / "snaps"
+    names = [f"mux{i}" for i in range(len(JUDGE_SEEDS))]
+    OUT_DIR.mkdir(exist_ok=True)
+    res: dict = {"walls": {}}
+    procs: dict = {}
+    env_srv = op_proc = router = chaos = sync = rt = None
+    stop_traffic = threading.Event()
+    try:
+        # (7) first: the operator process boots beside everything else.
+        env_srv = envtest.EnvtestServer().start()
+        mport = _free_port()
+        op_log = open(OUT_DIR / "judge_operator.log", "w")
+        op_proc = (subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.operator", "--kube-url", env_srv.url,
+             "--leader-elect", "--metrics-port", str(mport), "--namespace", "models",
+             "--log-level", "WARNING"], cwd=ROOT, stdout=op_log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT),
+                 "MLFLOW_TRACKING_URI": "http://127.0.0.1:9"}), op_log)
+
+        t0 = time.perf_counter()
+        uris = {}
+        for name, seed in zip(names, JUDGE_SEEDS):
+            params = llama.init(torch.Generator(device=device).manual_seed(seed), cfg,
+                                dtype=torch.bfloat16, device=device)
+            uris[name] = str(loader.save_native_model(arts / name, "llama-generate", params,
+                                                      config=dataclasses.asdict(cfg)))
+            del params
+            if name == names[0]:
+                # The pool boots on mux0's geometry while the rest are written.
+                pool_config = config.OperatorConfig.from_spec(_judge_pool_spec(snapdir))
+                ports = {r: _free_port() for r in JUDGE_REPLICAS}
+                t_boot = time.perf_counter()
+                for r in JUDGE_REPLICAS:
+                    argv = _pool_argv(builder, pool_config, uris[name], ports[r], device)
+                    log_f = open(OUT_DIR / f"judge_{r}.log", "w")
+                    procs[r] = (subprocess.Popen(
+                        argv, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+                        env={**os.environ, "PYTHONPATH": str(ROOT),
+                             "TPUMLOPS_RANK_REPORT_DIR": str(scratch / f"report_{r}")}), log_f)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        res["walls"]["artifacts_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(21)
+        prompts = {n: {"wake": [int(t) for t in rng.integers(3, V, JUDGE_PROMPT)]}
+                   for n in names}
+        t0 = time.perf_counter()
+        refs = _judge_references(app, loader, metrics_mod, uris, argv, prompts, device)
+        res["walls"]["references_s"] = time.perf_counter() - t0
+        for r, (proc, log_f) in procs.items():
+            deadline = time.perf_counter() + 180
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"{tag}: pool server {r} exited {proc.returncode} "
+                                         f"(its log: {log_f.name})")
+                try:
+                    code, body, _ = _call("GET", f"http://127.0.0.1:{ports[r]}/readyz",
+                                          timeout=2)
+                except (urllib.error.URLError, OSError):
+                    code = body = None
+                if code == 503 and isinstance(body, dict) and body.get("lifecycle") == "warm-pool":
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{tag}: pool server {r} never reached the warm pool")
+                time.sleep(0.1)
+        res["walls"]["pool_boot_s"] = time.perf_counter() - t_boot
+
+        if "thread" in _ROUTER_BUILD:
+            _ROUTER_BUILD["thread"].join()
+            if "error" in _ROUTER_BUILD:
+                raise _ROUTER_BUILD["error"]
+        chaos = chaos_mod.ChaosProxy(ports["r1"])
+        # Every response r1 relays is held: the router pools its upstream
+        # connections, so a hold of each connection's first response only
+        # would slow a handful of r1's legs.
+        chaos.inject_slow(JUDGE_SLOW_S, times=10**6, each_response=True)
+        legs = {r: ("127.0.0.1", chaos.port if r == "r1" else ports[r]) for r in JUDGE_REPLICAS}
+        router = rmod.RouterProcess(
+            port=_free_port(), backends={r: (h, p, 50) for r, (h, p) in legs.items()},
+            namespace="models", deployment="pool", binary=rmod.build_router(),
+            park_buffer=16, park_timeout_s=300.0, mux_models=1, journey_ring=256,
+            timeseries_ring=64).start()
+        attach_walls: list = []
+
+        def timed_attach(replica, uri, replace=False, wake_start_wall=None):
+            t = time.perf_counter()
+            out = mux_mod.http_attach(replica, uri, replace=replace,
+                                      wake_start_wall=wake_start_wall, timeout_s=600.0)
+            attach_walls.append({"replica": replica.name, "model": uri_to_name.get(uri),
+                                 "replace": replace, "s": time.perf_counter() - t,
+                                 "restored": out.get("restored")})
+            return out
+
+        uri_to_name = {u: n for n, u in uris.items()}
+        mux = mux_mod.Multiplexer(
+            "shared", [mux_mod.MuxReplica(r, url=f"http://127.0.0.1:{ports[r]}")
+                       for r in JUDGE_REPLICAS],
+            attach=timed_attach, parked=lambda: router.admin.parked().get("models") or {})
+        sync = lp.MuxRouterSync(router.admin, mux, legs, uri_to_name.get, "models",
+                                "pool").start()
+        sources = [{"name": r, "base_url": f"http://127.0.0.1:{ports[r]}"}
+                   for r in JUDGE_REPLICAS]
+        sources.append({"name": "router", "kind": "router",
+                        "base_url": f"http://127.0.0.1:{router.port}"})
+
+        def holders(name):
+            return [ports[r.name] for r in mux.replicas
+                    if r.attached_uri and r.attached_uri == uris.get(name)]
+
+        kube = fakes.FakeKube()
+        registry = fakes.FakeRegistry()
+        for n, u in uris.items():
+            registry.register(n, "1", u)
+            registry.set_alias(n, "prod", "1")
+        telemetry = telemetry_mod.OperatorTelemetry()
+        rt = runtime.OperatorRuntime(
+            kube, registry, metrics=lp.PoolMetrics(holders, rmod.RouterMetricsSource(router.admin)),
+            clock=clock.SystemClock(), sync_interval_s=0.05, telemetry=telemetry,
+            mux_pools={"shared": mux}, ring_sources=anomaly.ring_sources_from(sources))
+
+        def ref(n):
+            return base.ObjectRef(namespace="models", name=n, **base.MLFLOWMODEL)
+
+        def status(n):
+            return kube.get(ref(n)).get("status") or {}
+
+        def wait(pred, what, limit):
+            deadline = time.perf_counter() + limit
+            while not pred():
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{tag}: timed out waiting for {what}; statuses "
+                                         + json.dumps({n: {k: status(n).get(k) for k in (
+                                             "phase", "multiplex", "anomalies", "error")}
+                                             for n in names}, default=str)[:1500])
+                time.sleep(0.05)
+
+        for n in names:
+            kube.create(ref(n), {"spec": _judge_spec(n, arts, snapdir)})
+        threading.Thread(target=rt.serve, daemon=True, name="operator").start()
+        wait(lambda: all(status(n).get("phase") == "Stable"
+                         and (status(n).get("multiplex") or {}).get("pool") == "shared"
+                         for n in names), "four members Stable on the pool", 30)
+
+        # (1) cold wake: mux0-2 park until the packer attaches each.
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:
+            futs = {n: ex.submit(_judge_generate, router.port, n, prompts[n]["wake"])
+                    for n in names[:3]}
+            wait(lambda: sum((router.admin.parked().get("models") or {}).values()) >= 1
+                 or all(f.done() for f in futs.values()), "a parked request", 30)
+            woken = {n: f.result(timeout=600) for n, f in futs.items()}
+        res["walls"]["wake_s"] = time.perf_counter() - t0
+        res["park_to_200_s"] = {n: w[2] for n, w in woken.items()}
+        for n, (code, body, _) in woken.items():
+            if code != 200:
+                raise AssertionError(f"{tag}: {n}'s parked request answered {code}: {body}")
+            got = _check_outputs(body, [JUDGE_NEW], V)[0]
+            if got != refs[n]["wake"]:
+                raise AssertionError(f"{tag}: {n}'s tokens {got} differ from its direct f32 "
+                                     f"engine's {refs[n]['wake']}")
+        held = {r.name: uri_to_name.get(r.attached_uri) for r in mux.replicas}
+        if sorted(v for v in held.values() if v) != names[:3]:
+            raise AssertionError(f"{tag}: after the wake the pool holds {held}")
+        if "MuxAttached" not in kube.event_reasons():
+            raise AssertionError(f"{tag}: no MuxAttached event")
+
+        # (2) the straggler: traffic on mux0-2 until the verdict names r1.
+        sent = {"ok": 0, "bad": 0}
+
+        def client(i):
+            k = i
+            while not stop_traffic.is_set():
+                n = names[k % 3]
+                k += 1
+                code, _, _ = _judge_generate(router.port, n, prompts[n]["wake"], timeout=120)
+                sent["ok" if code == 200 else "bad"] += 1
+
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=client, args=(i,), daemon=True)
+                for i in range(JUDGE_CLIENTS)]
+        for th in pool:
+            th.start()
+
+        def flagged(n):
+            return [v for v in status(n).get("anomalies") or []
+                    if v.get("replica") == "r1" and v.get("series", "").startswith("router_leg_")]
+
+        try:
+            wait(lambda: all(flagged(n) for n in names[:3]) and "r1" in mux._stragglers,
+                 "the verdict on r1", 90)
+        finally:
+            stop_traffic.set()
+            for th in pool:
+                th.join(timeout=150)
+        res["walls"]["verdict_s"] = time.perf_counter() - t0
+        res["straggler_traffic"] = dict(sent)
+        verdicts = flagged(names[0])
+        res["verdict"] = verdicts
+        res["anomaly_z"] = max(abs(v["z"]) for v in verdicts)
+        others = sorted({v["replica"] for n in names for v in status(n).get("anomalies") or []}
+                        - {"r1"})
+        res["other_flagged"] = others
+        if sent["bad"]:
+            raise AssertionError(f"{tag}: {sent['bad']} straggler-traffic requests failed")
+
+        # (3) mux3 alone: the packer replaces one attachment.
+        t0 = time.perf_counter()
+        code, body, secs = _judge_generate(router.port, names[3], prompts[names[3]]["wake"])
+        res["walls"]["replace_s"] = time.perf_counter() - t0
+        res["park_to_200_s"][names[3]] = secs
+        if code != 200:
+            raise AssertionError(f"{tag}: mux3's request answered {code}: {body}")
+        got = _check_outputs(body, [JUDGE_NEW], V)[0]
+        if got != refs[names[3]]["wake"]:
+            raise AssertionError(f"{tag}: mux3's tokens {got} differ from its direct f32 "
+                                 f"engine's {refs[names[3]]['wake']}")
+        wait(lambda: any(h.get("kind") == "mux" and h.get("action") == "replace"
+                         for h in status(names[3]).get("history") or []),
+             "mux3's replace record", 15)
+        replace = [h for h in status(names[3])["history"]
+                   if h.get("kind") == "mux" and h.get("action") == "replace"][0]
+        res["replace"] = {k: replace.get(k) for k in ("replica", "displaced", "parked",
+                                                       "snapshotHash")}
+        if replace["replica"] == "r1" or not replace.get("snapshotHash"):
+            raise AssertionError(f"{tag}: the replace {replace} went to the straggler "
+                                 "or echoed no snapshot hash")
+
+        # (5) the planner, suggest mode, on the router's journey export.
+        trace = router.admin.journeys()
+        spec3 = kube.get(ref(names[3]))["spec"]
+        profile = {"num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
+                   "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+                   "head_dim": cfg.head_dim, "intermediate_size": cfg.intermediate_size,
+                   "vocab_size": cfg.vocab_size}
+        spec3["planner"] = {"enabled": True, "applyMode": "suggest",
+                            "objective": dict(JUDGE_OBJECTIVE), "trace": trace,
+                            "model": profile}
+        obj3 = kube.get(ref(names[3]))
+        obj3["spec"] = spec3
+        kube.replace(ref(names[3]), obj3)
+        wait(lambda: status(names[3]).get("plan") is not None
+             and any(h.get("kind") == "plan" for h in status(names[3]).get("history") or []),
+             "mux3's plan", 20)
+        peaks = dtel.detect_peaks()
+        if device == "cuda" and (peaks.kind != "nvidia-h100" or peaks.source != "detected"):
+            raise AssertionError(f"{tag}: detect_peaks() on the card gave {peaks}")
+        replan = planner.plan(jt.load_journey_trace(trace), JUDGE_OBJECTIVE,
+                              profile=planner.ModelProfile.from_spec(profile), peaks=peaks,
+                              chips_available=config.GPU_TOPOLOGIES["h100-1"].cards)
+        plan = status(names[3])["plan"]
+        if plan != replan:
+            raise AssertionError(f"{tag}: status.plan {plan} differs from the re-plan {replan}")
+        plan_rec = [h for h in status(names[3])["history"] if h.get("kind") == "plan"][-1]
+        if plan_rec["applyMode"] != "suggest" or plan_rec["knobs"] != plan["knobs"]:
+            raise AssertionError(f"{tag}: the plan record {plan_rec} is not the plan's")
+        ttft = lp.PoolMetrics(lambda _: [ports[r] for r in JUDGE_REPLICAS]).engine_metrics(
+            "pool", "v1", "models", slo_tails=True).ttft_p99_s
+        res["plan"] = {"knobs": plan["knobs"], "predicted_ttft_p99_ms":
+                       plan["predicted"]["ttftP99Ms"], "requests": plan["trace"]["requests"],
+                       "measured_ttft_p99_ms": None if ttft is None else 1e3 * ttft,
+                       "peaks": {"kind": peaks.kind, "source": peaks.source}}
+
+        # (4) SLO records against a recomputation from the same samples.
+        text = telemetry.exposition().decode()
+        res["slo"] = {}
+        for n in names:
+            rec = rt._entries[("models", n)].reconciler
+            spec = config.OperatorConfig.from_spec(kube.get(ref(n))["spec"]).slo
+            recs = [h for h in status(n).get("history") or [] if h.get("kind") == "slo"]
+            kinds = {r["slo"] for r in recs}
+            if not {"ttft_p99", "itl_p99"} <= kinds:
+                raise AssertionError(f"{tag}: {n}'s SLO records cover {sorted(kinds)}")
+            bad = _slo_recomputed(slo_mod, recs, n, rec._slo_tracker, spec)
+            if bad:
+                raise AssertionError(f"{tag}: SLO records disagree with SloTracker: {bad[:4]}")
+            for r in recs:
+                if r["slo"] in ("ttft_p99", "itl_p99") and (r["observed"] is None
+                                                           or r["samples"] < 1):
+                    raise AssertionError(f"{tag}: {n}'s {r['slo']} record {r} has no sample")
+            res["slo"][n] = {s: len(rec._slo_tracker._windows.get(s, ()))
+                             for s in ("ttft_p99", "itl_p99", "availability")}
+            for fam in ("tpumlops_operator_slo_attainment", "tpumlops_operator_slo_burn_rate",
+                        "tpumlops_operator_slo_error_budget_remaining"):
+                if f'name="{n}"' not in text or fam not in text:
+                    raise AssertionError(f"{tag}: {fam} for {n} missing from the telemetry")
+        for fam in ("tpumlops_operator_mux_moves_total", "tpumlops_operator_anomaly_active"):
+            if fam not in text:
+                raise AssertionError(f"{tag}: {fam} missing from the telemetry")
+        res["attach"] = attach_walls
+        res["mux_moves"] = mux.moves_total
+
+        # (7) the operator process: its Lease, /metrics, SIGTERM.
+        proc, _ = op_proc
+        kube_rest_client = kube_rest.KubeRestClient(env_srv.url)
+        lease_ref = base.ObjectRef(namespace="tpumlops-system", name="tpumlops-operator",
+                                   **leader.LEASE)
+        deadline = time.perf_counter() + 30
+        lease = op_text = None
+        while lease is None or op_text is None:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"{tag}: the operator process (exit {proc.poll()}) took "
+                                     f"no Lease or served no /metrics; lease {lease}")
+            try:
+                lease = kube_rest_client.get(lease_ref)
+                if not lease["spec"].get("holderIdentity"):
+                    lease = None
+                op_text = _call("GET", f"http://127.0.0.1:{mport}/metrics", timeout=2)[1]
+            except Exception:
+                time.sleep(0.1)
+        for fam in ("tpumlops_operator_reconcile_total", "tpumlops_operator_slo_attainment",
+                    "tpumlops_operator_mux_moves_total", "tpumlops_operator_resources"):
+            if f"# TYPE {fam}" not in op_text:
+                raise AssertionError(f"{tag}: the operator process's /metrics lacks {fam}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        res["operator_exit_s"] = time.perf_counter() - t0
+        if rc != 0 or res["operator_exit_s"] > 10.0:
+            raise AssertionError(f"{tag}: the operator process exited {rc} "
+                                 f"{res['operator_exit_s']:.2f} s after SIGTERM")
+        res["lease_holder"] = lease["spec"]["holderIdentity"]
+
+        # (6) each replica's launches, from the report it writes as it exits.
+        rt.stop()
+        rt = None
+        for proc, _ in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        res["launches"] = {}
+        for r, (proc, _) in procs.items():
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"{tag}: pool server {r} exited {proc.returncode}")
+            launches = _server_launches(scratch / f"report_{r}" / "rank-0.json")
+            res["launches"][r] = {k: launches[k] for k in ("rmsnorm", "flash_attention",
+                                                           "decode_attention")}
+            if device == "cuda" and min(res["launches"][r].values()) <= 0:
+                raise AssertionError(f"{tag}: replica {r} launched {res['launches'][r]}")
+    finally:
+        stop_traffic.set()
+        if rt is not None:
+            rt.stop()
+        if sync is not None:
+            sync.stop()
+        if router is not None:
+            router.stop()
+        if chaos is not None:
+            chaos.stop()
+        for proc, log_f in list(procs.values()) + ([op_proc] if op_proc else []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            log_f.close()
+        if env_srv is not None:
+            env_srv.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    att = ", ".join(f"{a['model']}->{a['replica']}{' (replace)' if a['replace'] else ''} "
+                    f"{a['s']:.2f} s" for a in res["attach"])
+    log(f"{tag}: attaches {att}; park to 200 "
+        f"{ {n: round(s, 2) for n, s in res['park_to_200_s'].items()} } s; the verdict on r1 "
+        f"(|z| {res['anomaly_z']:.1f}, {res['straggler_traffic']['ok']} requests, "
+        f"{res['walls']['verdict_s']:.1f} s; other replicas flagged {res['other_flagged']}); "
+        f"mux3 replaced {res['replace']['displaced']} on {res['replace']['replica']}; SLO "
+        f"samples {res['slo']}; plan {res['plan']['knobs']} predicts TTFT p99 "
+        f"{res['plan']['predicted_ttft_p99_ms']:.3f} ms against a measured "
+        f"{res['plan']['measured_ttft_p99_ms']} ms (the replicas' histograms) over "
+        f"{res['plan']['requests']} journeys; launches {res['launches']}; operator process "
+        f"exit {res['operator_exit_s']:.2f} s after SIGTERM; walls "
+        f"{ {k: round(v, 1) for k, v in res['walls'].items()} }; phase wall "
+        f"{res['wall_s']:.1f} s on {smi}")
+    if res["wall_s"] > JUDGE_BUDGET_S:
+        log(f"{tag}: WARNING phase wall {res['wall_s']:.1f} s over its "
+            f"{JUDGE_BUDGET_S:.0f} s share")
+    DETAIL["control_plane_judgment"] = res
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -8468,7 +9040,9 @@ def main() -> int:
                  "parallel.collectives",
                  "parallel.distributed", "models.partition", "server.multihost",
                  "utils.config", "clients.router", "clients.localplane",
-                 "operator.reconciler", "operator.runtime"):
+                 "operator.reconciler", "operator.runtime", "operator.multiplexer",
+                 "operator.anomaly", "operator.slo", "operator.planner", "operator.telemetry",
+                 "operator.leader", "clients.kube_rest", "clients.envtest", "clients.chaos"):
         if f"{PKG}.{name}" not in sys.modules:
             raise AssertionError(f"the import check missed {PKG}.{name}")
     pulled = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tpumlops", JAX_PKG))
@@ -8511,11 +9085,14 @@ def main() -> int:
     stage("sampled step kernels")
     ss_res = phase_sample_step(ss, import_module(f"{PKG}.models.prng"))
     stage("5e multistep none")
-    multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "none", None)}
+    multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "none", None,
+                                                  layers=INT8KV_LAYERS)}
     stage("5f unified none")
-    unified = {"none": phase_serve_7b_unified(da, rn, fa, ss, smi, params, "none")}
+    unified = {"none": phase_serve_7b_unified(da, rn, fa, ss, smi, params, "none",
+                                              layers=INT8KV_LAYERS)}
     stage("5g preempt none")
-    preempt = {"none": phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "none")}
+    preempt = {"none": phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "none",
+                                              layers=INT8KV_LAYERS)}
     stage("5h observed")
     observed = phase_serve_7b_observed(da, rn, fa, ss, smi, params, multistep["none"])
     stage("5i handoff none")
@@ -8564,6 +9141,8 @@ def main() -> int:
         shutil.rmtree(art.parent, ignore_errors=True)
     stage("9 control-plane canary")
     phase_control_plane_canary(fa, smi)
+    stage("9b control-plane judgment")
+    judge = phase_control_plane_judgment(smi)
     if any(m.split(".")[0] in ("tpumlops", JAX_PKG) for m in sys.modules):
         raise AssertionError("the JAX package was imported")
     # jax itself may arrive with torch.profiler's own imports where it is
@@ -8583,7 +9162,8 @@ def main() -> int:
                       + sum(r["launches"]["da"] for r in unified.values())
                       + sum(r["launches"]["da"] for r in preempt.values())
                       + observed["launches"]["da"] + handoff["launches"]["da"]
-                      + attach["launches"]["da"]),
+                      + attach["launches"]["da"]
+                      + sum(r["decode_attention"] for r in judge["launches"].values())),
          # the verify chunk instance's share of them (phases 5c, 5f and 5g)
          "verify_launches": (spec["va_launches"]
                              + sum(r["launches"]["va"] for r in unified.values())
@@ -8599,7 +9179,8 @@ def main() -> int:
                       + sum(r["launches"]["rn"] for r in unified.values())
                       + sum(r["launches"]["rn"] for r in preempt.values())
                       + observed["launches"]["rn"] + handoff["launches"]["rn"]
-                      + attach["launches"]["rn"]),
+                      + attach["launches"]["rn"]
+                      + sum(r["rmsnorm"] for r in judge["launches"].values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
          "source": f"{PKG}/csrc/flash_attention.cu",
@@ -8611,7 +9192,8 @@ def main() -> int:
                       + sum(r["launches"]["fa"] for r in unified.values())
                       + sum(r["launches"]["fa"] for r in preempt.values())
                       + observed["launches"]["fa"] + handoff["launches"]["fa"]
-                      + attach["launches"]["fa"]),
+                      + attach["launches"]["fa"]
+                      + sum(r["flash_attention"] for r in judge["launches"].values())),
          **fa_res},
         # The same kernel's log-sum-exp instance: the ring blocks of phase
         # 8b's sp prefills, every rank of its three served units.

@@ -7,10 +7,11 @@ Kubernetes API server, the MLflow tracking server, Prometheus, and (via
 Seldon) the inference data plane (SURVEY.md §1).  Here every dependency is
 a small protocol (``base``); the operator core only sees the protocol.
 This package has the in-memory fakes (``fakes``), the native canary
-router (``router``, ``native/router.cc``) and the local data plane of live
-PyTorch servers behind it (``localplane``).  The JAX package's REST
-clients (``kube_rest``, ``mlflow_rest``, ``prom_http``) come with a later
-slice.
+router (``router``, ``native/router.cc``), the local data plane of live
+PyTorch servers behind it (``localplane``), the REST clients
+(``kube_rest``, ``mlflow_rest``, ``prom_http``, ``dataplane``) on the
+standard library's HTTP (``transport``), the fault injector and proxy
+(``chaos``) and a loopback apiserver (``envtest``).
 """
 
 from .base import (

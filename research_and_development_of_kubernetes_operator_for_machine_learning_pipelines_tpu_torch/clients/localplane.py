@@ -40,6 +40,8 @@ __all__ = [
     "relaxed_gate_spec",
     "LocalReplicaSet",
     "ReplicaSetMetrics",
+    "PoolMetrics",
+    "MuxRouterSync",
 ]
 
 
@@ -476,6 +478,126 @@ class ReplicaSetMetrics:
             ttft_p99_s=p99("tpumlops_ttft_seconds"),
             itl_p99_s=p99("tpumlops_itl_seconds"),
         )
+
+
+class PoolMetrics:
+    """Metrics of the models multiplexed onto one shared warm pool
+    (``spec.multiplex``).
+
+    A pool replica's metric identity is fixed at its boot, whichever model
+    it holds, so the engine series of one model are those of the replicas
+    that hold it NOW: ``holders(model_name)`` names their ports (the
+    multiplexer's attached table).  ``engine_metrics`` sums their queue
+    depth and, with ``slo_tails``, reads the TTFT / ITL p99 of their
+    summed cumulative buckets (the replica's lifetime, as
+    :class:`ReplicaSetMetrics` reads it); a model held nowhere reads
+    all-None (unobservable, never a pass).  ``model_metrics`` is the
+    ``gate`` source's (the router's histograms) or the no-traffic shape.
+    """
+
+    _FAMILIES = ("tpumlops_ttft_seconds", "tpumlops_itl_seconds")
+
+    def __init__(self, holders, gate=None, timeout: float = 2.0):
+        self._holders = holders  # Callable[[str], list[int]]
+        self._gate = gate
+        self._timeout = timeout
+
+    def model_metrics(self, deployment_name, predictor_name, namespace, window_s=60):
+        if self._gate is None:
+            return ModelMetrics()
+        return self._gate.model_metrics(deployment_name, predictor_name, namespace, window_s)
+
+    def engine_metrics(self, deployment_name, predictor_name, namespace, window_s=60,
+                       slo_tails=False) -> EngineMetrics:
+        from .router import _histogram_quantile
+
+        depth: float | None = None
+        buckets: dict[str, dict[float, float]] = {f: {} for f in self._FAMILIES}
+        for port in list(self._holders(deployment_name)):
+            try:
+                text = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=self._timeout
+                ).read().decode()
+            except Exception:
+                continue
+            for (name, labels), value in parse_prometheus_text(text).items():
+                if name == ReplicaSetMetrics._FAMILY:
+                    depth = (depth or 0.0) + value
+                elif slo_tails and name.endswith("_bucket"):
+                    fam = name[: -len("_bucket")]
+                    le = dict(labels).get("le")
+                    if fam in buckets and le is not None:
+                        b = buckets[fam]
+                        b[float(le)] = b.get(float(le), 0.0) + value
+
+        def p99(fam: str) -> float | None:
+            b = sorted(buckets[fam].items())
+            if not b or b[-1][1] <= 0:
+                return None
+            return _histogram_quantile(0.99, b)
+
+        return EngineMetrics(
+            queue_depth=depth,
+            ttft_p99_s=p99("tpumlops_ttft_seconds") if slo_tails else None,
+            itl_p99_s=p99("tpumlops_itl_seconds") if slo_tails else None,
+        )
+
+
+class MuxRouterSync:
+    """The endpoint sync of a multiplexed pool (``RouterSync``'s role for
+    ``spec.multiplex``): whenever the multiplexer's attached table changes,
+    PUT the router config with each backend's ``model`` so the router
+    routes by model and releases that model's parked requests.
+
+    ``backends`` maps a replica name to the (host, port) the router
+    forwards to (a proxy's, where one stands in front); ``model_of(uri)``
+    names the model an attached uri serves."""
+
+    def __init__(self, router_admin, mux, backends: dict, model_of, namespace: str,
+                 deployment: str, weight: int = 50, interval_s: float = 0.05):
+        self.admin, self.mux = router_admin, mux
+        self.backends = dict(backends)
+        self.model_of = model_of
+        self.namespace, self.deployment = namespace, deployment
+        self.weight = int(weight)
+        self.interval_s = float(interval_s)
+        self._last: dict | None = None
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def held(self) -> dict:
+        return {r.name: (self.model_of(r.attached_uri) if r.attached_uri else "")
+                for r in self.mux.replicas}
+
+    def sync_once(self) -> None:
+        held = self.held()
+        if held == self._last:
+            return
+        self.admin.set_config(
+            [{"name": n, "host": host, "port": port, "weight": self.weight,
+              "model": held.get(n, "")}
+             for n, (host, port) in self.backends.items()],
+            namespace=self.namespace, deployment=self.deployment, mux_models=1,
+        )
+        self._last = held
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.sync_once()
+            except Exception:
+                pass  # router mid-restart: the next tick pushes again
+            self._stop.wait(self.interval_s)
+
+    def start(self) -> "MuxRouterSync":
+        self._thread = threading.Thread(target=self._run, daemon=True, name="mux-sync")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
 
 
 class TrafficGenerator:

@@ -15,6 +15,11 @@ level-triggered state machine:
 - ``reconciler`` — the per-resource reconcile step (ref ``:26-361``,
                    without the infinite handler of §3.5(1))
 - ``runtime``    — the watch/timer engine that drives reconcilers
+- ``slo``, ``anomaly``, ``multiplexer``, ``planner`` — ``spec.slo``,
+  ``spec.anomaly``, ``spec.multiplex`` and ``spec.planner``
+- ``telemetry``  — the operator's own ``/metrics`` and debug endpoints
+- ``leader``     — Lease-based leader election
+- ``__main__``   — ``python -m <package>_torch.operator``
 """
 
 from .builder import build_deployment

@@ -505,7 +505,8 @@ class CrWatcher:
         self._stop.set()
         if self._thread is not None:
             # A real watch blocked in a read only observes stop after the
-            # client's 15s read timeout — join must outlast it.
+            # client's read timeout (5 s for KubeRestClient) — join must
+            # outlast it.
             self._thread.join(timeout=20)
 
 

@@ -64,13 +64,18 @@ def _escape(v: str) -> str:
     return v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
 
 
-def _labels(pairs) -> str:
+def _labels(pairs, sort: bool = False) -> str:
+    pairs = sorted(pairs) if sort else list(pairs)
     if not pairs:
         return ""
     return "{" + ",".join(f'{k}="{_escape(str(v))}"' for k, v in pairs) + "}"
 
 
 class _Family:
+    # Labels in declaration order; True writes them sorted by name, as
+    # ``prometheus_client``'s exposition does.
+    sort_labels = False
+
     def __init__(self, name: str, doc: str, label_names, lock):
         self.name, self.doc = name, doc
         self.label_names = tuple(label_names)
@@ -82,6 +87,12 @@ class _Family:
             raise ValueError(f"{self.name}: labels {sorted(labels)}, "
                              f"expected {sorted(self.label_names)}")
         return tuple(str(labels[n]) for n in self.label_names)
+
+    def remove(self, labels: dict) -> None:
+        """Drop one child; KeyError when it does not exist."""
+        key = self._key(labels)
+        with self._lock:
+            del self._children[key]
 
 
 class Counter(_Family):
@@ -100,7 +111,8 @@ class Counter(_Family):
         lines = [f"# HELP {self.name}_total {self.doc}",
                  f"# TYPE {self.name}_total counter"]
         for key, (v,) in sorted(self._children.items()):
-            lines.append(f"{self.name}_total{_labels(zip(self.label_names, key))} {_num(v)}")
+            lines.append(f"{self.name}_total{_labels(zip(self.label_names, key), self.sort_labels)} "
+                         f"{_num(v)}")
         return lines
 
 
@@ -118,7 +130,8 @@ class Gauge(_Family):
     def render(self) -> list[str]:
         lines = [f"# HELP {self.name} {self.doc}", f"# TYPE {self.name} gauge"]
         for key, (v,) in sorted(self._children.items()):
-            lines.append(f"{self.name}{_labels(zip(self.label_names, key))} {_num(v)}")
+            lines.append(f"{self.name}{_labels(zip(self.label_names, key), self.sort_labels)} "
+                         f"{_num(v)}")
         return lines
 
 
@@ -144,10 +157,10 @@ class Histogram(_Family):
             running = 0
             for bound, c in zip(self.buckets, counts):
                 running += c
-                lines.append(f"{self.name}_bucket{_labels(pairs + [('le', _num(bound))])} "
-                             f"{_num(running)}")
-            lines.append(f"{self.name}_count{_labels(pairs)} {_num(running)}")
-            lines.append(f"{self.name}_sum{_labels(pairs)} {_num(total)}")
+                le = _labels(pairs + [("le", _num(bound))], self.sort_labels)
+                lines.append(f"{self.name}_bucket{le} {_num(running)}")
+            lines.append(f"{self.name}_count{_labels(pairs, self.sort_labels)} {_num(running)}")
+            lines.append(f"{self.name}_sum{_labels(pairs, self.sort_labels)} {_num(total)}")
         return lines
 
 

@@ -11,8 +11,9 @@ and ``gpuTopology`` names an entry of :data:`GPU_TOPOLOGIES`.
 
 Not yet ported, refused at parse with a ``ValueError`` naming the field: a
 topology of more than one card (one process a card needs the unit
-launcher), ``spec.slo``, ``spec.planner``, ``spec.anomaly`` and
-``spec.multiplex``.  The server's own configuration is
+launcher).  ``spec.slo``, ``spec.planner``, ``spec.anomaly`` and
+``spec.multiplex`` parse and serve as in the JAX package.  The server's own
+configuration is
 ``server/app.py``'s ``ServerConfig``.
 """
 
@@ -1810,17 +1811,6 @@ class OperatorConfig:
                 f"({GPU_TOPOLOGIES[cuda.topology].cards} cards): "
                 f"{MULTI_CARD_REFUSAL}; use h100-1"
             )
-        for field_name, on in (
-            ("spec.slo", slo.enabled),
-            ("spec.planner", planner.enabled),
-            ("spec.anomaly", anomaly.enabled),
-            ("spec.multiplex", bool(spec.get("multiplex"))),
-        ):
-            if on:
-                raise NotYetPorted(
-                    f"{field_name}: not yet ported (its operator module "
-                    "comes with a later control-plane slice)"
-                )
         return cls(
             model_name=str(model_name),
             model_alias=str(model_alias),

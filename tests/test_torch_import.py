@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, nor
 ``ml_dtypes`` (the card's machine has none: the port reads and writes
-bfloat16 through int16 views).
+bfloat16 through int16 views), nor ``httpx`` or ``prometheus_client``
+(the AST scan).
 
 The JAX package's ``server/__init__.py`` imports its engine, which imports
 JAX, so even a numpy-only reference module would pull JAX in; the port
@@ -20,7 +21,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch"
 JAX_PKG = "research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu"
-FORBIDDEN = ("jax", "jaxlib", "tpumlops", JAX_PKG, "ml_dtypes")
+# httpx and prometheus_client: the card's machine has neither (the port's
+# REST clients and operator telemetry are on the standard library).
+FORBIDDEN = ("jax", "jaxlib", "tpumlops", JAX_PKG, "ml_dtypes", "httpx", "prometheus_client")
 
 SOURCES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -8,9 +8,9 @@ after the mapping of ``torch_operator_map`` (``tpu`` -> ``cuda``,
 ``v5e-N`` -> ``h100-N``, ``spec.tpu`` -> ``spec.cuda``).  The parsed
 dataclasses are equal field by field and the errors equal apart from that
 vocabulary.  Where the JAX package accepts a spec that the port does not
-serve yet (a topology of more than one card, ``spec.slo``,
-``spec.planner``, ``spec.anomaly``, ``spec.multiplex``), the port refuses
-it with a ``NotYetPorted`` naming the field.
+serve yet (a topology of more than one card), the port refuses it with a
+``NotYetPorted`` naming the field; ``spec.slo``, ``spec.planner``,
+``spec.anomaly`` and ``spec.multiplex`` parse to the JAX package's fields.
 """
 
 from __future__ import annotations
@@ -146,18 +146,20 @@ def test_one_card_parses_and_seldon_ignores_the_topology():
                         "cuda": {"gpuTopology": "h100-1", "snapshot": {"enabled": True}}}),
 ])
 def test_an_unported_feature_is_refused_by_name(field, section):
+    """The four fields the port once refused by name now parse to the JAX
+    package's fields on ``backend: cuda``, ``h100-1``."""
     spec = minimal(backend="cuda", **section)
     spec.setdefault("cuda", {"gpuTopology": "h100-1"})
     ref_spec = {**spec, "backend": "tpu", "tpu": M.port_tpu(spec["cuda"])}
     ref_spec["tpu"]["tpuTopology"] = "v5e-1"
     ref_spec["tpu"].pop("gpuTopology")
     ref_spec.pop("cuda")
-    try:
-        JC.OperatorConfig.from_spec(ref_spec)
-    except ValueError as e:  # the planner's trace is the JAX package's own concern
-        assert field == "spec.planner", e
-    with pytest.raises(PC.NotYetPorted, match=rf"^{field}: not yet ported"):
-        PC.OperatorConfig.from_spec(spec)
+    ref = JC.OperatorConfig.from_spec(ref_spec)
+    got = PC.OperatorConfig.from_spec(spec)
+    assert dataclasses.asdict(got) == M.port_fields(ref)
+    key = field.removeprefix("spec.")
+    assert dataclasses.asdict(getattr(got, key)) == dataclasses.asdict(getattr(ref, key))
+    assert M.refused_feature(spec) is None
 
 
 def test_the_jax_backend_and_its_spec_are_refused_naming_cuda():

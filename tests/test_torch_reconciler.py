@@ -273,21 +273,31 @@ def test_rollback_restores_the_stable_version():
 
 @pytest.mark.parametrize("section", [
     {"slo": {"ttftP99Ms": 250}},
-    {"backend": "cuda", "cuda": {"gpuTopology": "h100-8"}},
-    {"backend": "cuda", "multiplex": {"poolRef": "pool"},
-     "cuda": {"gpuTopology": "h100-1", "snapshot": {"enabled": True}}},
+    {"backend": "tpu", "tpu": {"tpuTopology": "v5e-8"}},
+    {"backend": "tpu", "multiplex": {"poolRef": "pool"},
+     "tpu": {"tpuTopology": "v5e-1", "snapshot": {"enabled": True}}},
 ])
 def test_an_unported_feature_is_an_invalid_spec_on_the_cr(section):
-    """The port's refusal lands as any bad spec does: ``status.error``,
-    one ``InvalidSpec`` event, and no data plane."""
+    """A topology of more than one card is still refused as any bad spec
+    is (``status.error``, one ``InvalidSpec`` event, no data plane);
+    ``spec.slo`` and ``spec.multiplex`` are served and reach ``Stable``
+    with the JAX package's trace."""
     w = World(PORT, section)
     w.step()
     w.step()
     status = w.kube.get(w.cr)["status"]
-    assert "invalid spec" in status["error"] and "not yet ported" in status["error"]
-    assert w.kube.event_reasons().count("InvalidSpec") == 1
-    with pytest.raises(PORT.base.NotFound):
-        w.kube.get(w.sd)
+    if section.get("tpu", {}).get("tpuTopology") == "v5e-8":
+        assert "invalid spec" in status["error"] and "not yet ported" in status["error"]
+        assert w.kube.event_reasons().count("InvalidSpec") == 1
+        with pytest.raises(PORT.base.NotFound):
+            w.kube.get(w.sd)
+        return
+    assert status["phase"] == "Stable" and not status.get("error"), status
+    assert "InvalidSpec" not in w.kube.event_reasons()
+    ref = World(REF, section)
+    ref.step()
+    ref.step()
+    assert w.result() == _port_view(ref.result())
 
 
 def _runtime_canary(pkg, extra):

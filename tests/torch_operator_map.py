@@ -93,7 +93,8 @@ def port_fields(obj) -> dict:
 
 def refused_feature(port_spec_: dict) -> str | None:
     """The field the port refuses as not yet ported, for a spec the JAX
-    package accepts; None when the port serves it."""
+    package accepts (a topology of more than one card); None when the port
+    serves it."""
     if not isinstance(port_spec_, dict):
         return None
     from importlib import import_module
@@ -104,14 +105,4 @@ def refused_feature(port_spec_: dict) -> str | None:
         info = config.GPU_TOPOLOGIES.get(topo)
         if info is not None and info.cards > 1:
             return "spec.cuda.gpuTopology"
-    for key in ("slo", "planner", "anomaly"):
-        section = port_spec_.get(key)
-        if section is None:
-            continue
-        parsed = getattr(config, {"slo": "SloSpec", "planner": "PlannerSpec",
-                                  "anomaly": "AnomalySpec"}[key]).from_spec(section)
-        if parsed.enabled:
-            return f"spec.{key}"
-    if port_spec_.get("multiplex"):
-        return "spec.multiplex"
     return None
