@@ -7,11 +7,13 @@
 SHELL    := /bin/bash
 
 PKG      := research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu
+TORCH_PKG := $(PKG)_torch
 REGISTRY ?= tpumlops
 TAG      ?= latest
 DOCKER   ?= docker
 
 .PHONY: images operator-image server-image router-image router-bin \
+        torch-images torch-operator-image torch-server-image torch-router-image \
         install uninstall test test-fast test-e2e test-all lint \
         bench-contract metrics-contract compile-budget plan-contract \
         bench-history metrics-catalog verify bench
@@ -29,6 +31,21 @@ server-image:
 router-image:
 	$(DOCKER) build -f $(PKG)/deploy/docker/Dockerfile.router \
 	  -t $(REGISTRY)/router:$(TAG) .
+
+# The PyTorch/CUDA port's three images (its deploy/ names them).
+torch-images: torch-operator-image torch-server-image torch-router-image
+
+torch-operator-image:
+	$(DOCKER) build -f $(TORCH_PKG)/deploy/docker/Dockerfile.operator \
+	  -t $(REGISTRY)/torch-operator:$(TAG) .
+
+torch-server-image:
+	$(DOCKER) build -f $(TORCH_PKG)/deploy/docker/Dockerfile.server \
+	  -t $(REGISTRY)/torch-server:$(TAG) .
+
+torch-router-image:
+	$(DOCKER) build -f $(TORCH_PKG)/deploy/docker/Dockerfile.router \
+	  -t $(REGISTRY)/torch-router:$(TAG) .
 
 # Local (no docker): compile the native router with the system toolchain.
 router-bin:

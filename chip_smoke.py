@@ -363,11 +363,17 @@ and exits non-zero):
    widths (H 4096, 32 heads and 32 KV heads, MLP 11008, vocab 32000) cut
    to MESH_LAYERS layers for the time limit, random bf16 weights from a
    seeded generator written once as a native artifact under ``build/``
-   (deleted after).  Four rank processes on the one card, started as the
-   app starts them (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-   ``JAX_PROCESS_ID``), each loading its block through the loader; the
-   backend is gloo (``parallel.distributed.choose_backend``: four ranks,
-   one card), read from the leader's log.  Traffic over ``/generate``: a
+   (deleted after).  Each unit starts as its pod would: the command,
+   arguments and environment of the pod the operator builds for an
+   ``h100-4`` CR with the phase's options (``python -m
+   <port>.server.launch``, the unit launcher), plus the flags a CR cannot
+   state (a local port, ``--drain-s 0``, ``--max-slots``) and the
+   launcher's ``--ranks-share-card`` (printed: the four ranks share the
+   one card).  The launcher starts the four rank processes, each loading
+   its block through the loader; the backend is gloo
+   (``parallel.distributed.choose_backend``: four ranks, one card), read
+   from the leader's log; the launcher's seconds from its start to the
+   leader serving are printed.  Traffic over ``/generate``: a
    request that puts a two-chunk prefix in the radix cache, then five
    concurrent greedy requests of 32 tokens (two cold, two seeded from the
    cached prefix, one repeating pattern the n-gram drafter proposes from).
@@ -375,7 +381,8 @@ and exits non-zero):
    engine's in this process on the same artifact and options (a differing
    token prints its position and that engine's top-2 logit margin); then
    at bf16 the agreement is reported, not asserted.  Every request
-   completes, SIGTERM to the leader ends every rank with 0, every rank
+   completes, SIGTERM to the launcher ends every rank with 0 and the
+   launcher with 0, every rank
    launched the same kernels (decode attention, its verify instance,
    RMSNorm and flash attention each more than once), the seed, verify
    and decode ops all ran, and each rank's peak allocation (the load
@@ -7192,12 +7199,66 @@ MESH_PEAK_SLACK = 0.25
 MESH_RESERVED_SLACK = 0.35
 
 
-def _mesh_argv(art: Path, dtype: str, port: int, device: str) -> list[str]:
-    return ["--model-uri", str(art), "--dtype", dtype, "--host", "127.0.0.1",
-            "--port", str(port), "--metrics-port", "0", "--max-slots", "4",
-            "--prefill-chunk", str(MESH_CHUNK), "--prefix-cache", "1",
-            "--speculative", "1", "--speculative-draft-tokens", "4",
-            "--device-telemetry", "1", "--drain-s", "0", "--device", device]
+# The CR of every unit of phases 8-8c: an h100-4 node, the kernel cache the
+# smoke built (phase 1b).  Each unit's pod comes from the operator's own
+# manifest for it (``_unit_pod``); the smoke runs its launcher.
+UNIT_TOPOLOGY = "h100-4"
+UNIT_CARDS = 4
+
+
+def _unit_cr(uri: Path, cuda: dict, warm_pool: bool = False) -> dict:
+    spec = {"modelName": "model", "modelAlias": "smoke", "backend": "cuda",
+            "cuda": {"gpuTopology": UNIT_TOPOLOGY,
+                     "compileCacheDir": str(ROOT / "build" / "torch_kernels"), **cuda}}
+    if warm_pool:
+        spec["autoscaling"] = {"warmPoolSize": 1}
+    return spec
+
+
+def _mesh_cuda(dtype: str, mesh: dict = MESH_SHAPE, **more) -> dict:
+    """Phase 8's server options as ``spec.cuda``."""
+    return {"meshShape": mesh, "dtype": dtype, "maxSlots": 4, "prefillChunk": MESH_CHUNK,
+            "prefixCache": {"enabled": True}, "speculative": {"enabled": True, "draftTokens": 4},
+            "observability": {"deviceTelemetry": True}, **more}
+
+
+def _unit_local(device: str, max_slots: int | None = 4) -> list[str]:
+    """The flags a CR cannot state: a local listener, no drain lag, the
+    device, and ``--max-slots`` (``spec.cuda.maxSlots`` is no server flag
+    of the manifest)."""
+    return (["--host", "127.0.0.1", "--port", "0", "--metrics-port", "0", "--drain-s", "0",
+             "--device", device] + (["--max-slots", str(max_slots)] if max_slots else []))
+
+
+def _unit_pod(uri: Path, cuda: dict, warm_pool: bool = False) -> dict:
+    """The container of the ``h100-4`` pod the operator builds for this
+    unit (``build_deployment``; the warm-pool manifest for a pool), checked
+    to run the launcher on the node's cards with a memory ``/dev/shm``."""
+    from importlib import import_module
+
+    builder = import_module(f"{PKG}.operator.builder")
+    config = import_module(f"{PKG}.utils.config")
+    cfg = config.OperatorConfig.from_spec(_unit_cr(uri, cuda, warm_pool))
+    if warm_pool:
+        (dep,) = builder.build_warm_pool_manifests("model", "smoke", "smoke", cfg, "1", str(uri))
+        pod = dep["spec"]["template"]["spec"]
+    else:
+        manifest = builder.build_deployment(
+            name="model", namespace="smoke", owner_uid="smoke", config=cfg,
+            current_version="1", new_model_uri=str(uri), traffic_current=100)
+        pod = manifest["spec"]["predictors"][0]["componentSpecs"][0]["spec"]
+    (c,) = pod["containers"]
+    if (c["command"] != ["python", "-m", builder.LAUNCH_MODULE]
+            or c["resources"]["limits"] != {"nvidia.com/gpu": str(UNIT_CARDS)}
+            or {"name": "dshm", "emptyDir": {"medium": "Memory"}} not in pod["volumes"]):
+        raise AssertionError(f"mesh: the {UNIT_TOPOLOGY} pod runs {c['command']} with "
+                             f"{c['resources']} and volumes {pod.get('volumes')}")
+    return c
+
+
+def _mesh_argv(art: Path, dtype: str, device: str) -> list[str]:
+    """Phase 8's server arguments: the manifest's, then the local flags."""
+    return _unit_pod(art, _mesh_cuda(dtype))["args"] + _unit_local(device)
 
 
 def _mesh_prompts(vocab: int) -> dict:
@@ -7245,7 +7306,7 @@ def _mesh_reference(app, loader, art: Path, dtype: str, prompts: dict, device: s
     metrics_mod = import_module(f"{PKG}.server.metrics")
     pred = loader.load_predictor(str(art), device=device, dtype=app._DTYPES[dtype])
     conf = app.config_from_args(app.build_arg_parser().parse_args(
-        _mesh_argv(art, dtype, 0, device)))
+        _mesh_argv(art, dtype, device) + ["--mesh-shape", json.dumps({"dp": 1, "tp": 1})]))
     engine = app.make_gen_engine(pred, conf, metrics_mod.ServerMetrics("smoke", "v1", "smoke"))
     spent = [0.0]
     if chunk_s is not None:
@@ -7291,79 +7352,81 @@ def _top2_margin(llama, pred, prompt: list, toks: list, pos: int, device: str) -
     return float(top[0] - top[1])
 
 
-def _launch_unit(art: Path, dtype: str, device: str, tag: str, report_dir: Path,
-                 mesh_shape: dict = MESH_SHAPE, extra: tuple = (), argv=None) -> dict:
-    """Four rank processes started as the app starts them (the process
-    group from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID, ``--mesh-shape``), not waited for; ``extra`` flags
-    after the unit's own (``argv``: its own flags, phase 8's Llama server's
-    when None)."""
-    world = math.prod(mesh_shape.values())
-    coord = _free_port()
+def _launch_unit(uri: Path, cuda: dict, device: str, tag: str, report_dir: Path,
+                 warm_pool: bool = False, max_slots: int | None = 4) -> dict:
+    """A unit started as its pod starts: the launcher of the ``h100-4``
+    manifest (``_unit_pod``) with the manifest's arguments and environment,
+    then the local flags, and ``--ranks-share-card`` (the unit's four ranks
+    share the one card of this machine; the operator never emits it).  The
+    launcher's output, each rank's lines prefixed ``[rank r]``, goes to
+    ``chiprun_out/mesh_<tag>_launcher.log``; not waited for."""
+    c = _unit_pod(uri, cuda, warm_pool)
+    world = math.prod(cuda["meshShape"].values())
     shutil.rmtree(report_dir, ignore_errors=True)
-    procs, logs = [], []
-    for rank in range(world):
-        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONWARNINGS="ignore",
-                   OMP_NUM_THREADS="1", JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
-                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(rank),
-                   TPUMLOPS_RANK_REPORT_DIR=str(report_dir))
-        log_path = OUT_DIR / f"mesh_{tag}_rank{rank}.log"
-        logs.append(log_path)
-        with open(log_path, "w") as logf:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", f"{PKG}.server",
-                 *(argv or _mesh_argv(art, dtype, 0, device)),
-                 "--mesh-shape", json.dumps(mesh_shape), *extra],
-                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT))
-    return {"tag": tag, "procs": procs, "logs": logs, "report_dir": report_dir,
-            "t0": time.perf_counter()}
+    env = dict(os.environ, **{e["name"]: e["value"] for e in c["env"]}, PYTHONPATH=str(ROOT),
+               PYTHONWARNINGS="ignore", OMP_NUM_THREADS="1",
+               TPUMLOPS_RANK_REPORT_DIR=str(report_dir))
+    argv = ([sys.executable] + c["command"][1:] + c["args"] + _unit_local(device, max_slots)
+            + ["--ranks-share-card"])
+    launcher_log = OUT_DIR / f"mesh_{tag}_launcher.log"
+    log(f"mesh {tag}: the launcher of the {UNIT_TOPOLOGY} manifest "
+        f"({' '.join(c['command'])}), {world} ranks, --ranks-share-card added (one card here)")
+    with open(launcher_log, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    return {"tag": tag, "launcher": proc, "launcher_log": launcher_log, "world": world,
+            "report_dir": report_dir, "t0": time.perf_counter()}
 
 
 def _await_unit(unit: dict, what: str = "llama-generate") -> str:
     """The leader's URL once it serves ``what`` (a flavor, or ``warm pool``;
     every rank up: the leader serves after the process group formed and its
-    engine started)."""
-    procs, logs = unit["procs"], unit["logs"]
-    serving = re.compile(r"serving model \(" + re.escape(what)
+    engine started).  ``start_s``: the launcher's seconds from its start to
+    the leader serving."""
+    serving = re.compile(r"\[rank 0\] .*serving model \(" + re.escape(what)
                          + r"\) on 127\.0\.0\.1:(\d+)")
     deadline = time.time() + 300
     while True:
-        m = serving.search(logs[0].read_text())
+        m = serving.search(unit["launcher_log"].read_text(errors="replace"))
         if m:
             unit["start_s"] = time.perf_counter() - unit["t0"]
+            log(f"mesh {unit['tag']}: the leader served {unit['start_s']:.1f} s after the "
+                "launcher started")
             return f"http://127.0.0.1:{m.group(1)}"
-        dead = [r for r, p in enumerate(procs) if p.poll() is not None]
-        if dead or time.time() > deadline:
+        code = unit["launcher"].poll()
+        if code is not None or time.time() > deadline:
             _kill_unit(unit)
-            raise AssertionError(f"mesh {unit['tag']}: ranks {dead} exited before the leader "
-                                 f"served (or 300 s passed); see {logs[0]}")
+            raise AssertionError(f"mesh {unit['tag']}: the launcher exited ({code}) before the "
+                                 f"leader served (or 300 s passed); see {unit['launcher_log']}")
         time.sleep(0.2)
 
 
 def _kill_unit(unit: dict) -> None:
-    for p in unit["procs"]:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    """SIGKILL to the launcher: its ranks die with it (``PR_SET_PDEATHSIG``)."""
+    p = unit["launcher"]
+    if p.poll() is None:
+        p.kill()
+        p.wait()
 
 
 def _stop_units(units) -> None:
-    """SIGTERM to each leader: it drains, stops its engine and releases its
-    followers; every rank must exit 0."""
+    """SIGTERM to each launcher: it goes to the leader, which drains, stops
+    its engine and releases its followers; every rank must exit 0, and the
+    launcher then exits 0."""
     for unit in units:
-        unit["procs"][0].send_signal(signal.SIGTERM)
+        unit["launcher"].send_signal(signal.SIGTERM)
     for unit in units:
-        codes = []
-        for p, log_path in zip(unit["procs"], unit["logs"]):
-            try:
-                codes.append(p.wait(timeout=120))
-            except subprocess.TimeoutExpired:
-                _kill_unit(unit)
-                raise AssertionError(f"rank did not exit within 120 s of the leader's SIGTERM; "
-                                     f"see {log_path}") from None
-        if codes != [0] * len(unit["procs"]):
-            raise AssertionError(f"mesh {unit['tag']}: rank exit codes {codes}; "
-                                 f"see {unit['logs']}")
+        try:
+            code = unit["launcher"].wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            _kill_unit(unit)
+            raise AssertionError(f"mesh {unit['tag']}: the launcher did not exit within 120 s "
+                                 f"of SIGTERM; see {unit['launcher_log']}") from None
+        text = unit["launcher_log"].read_text()
+        every = f"every rank exited 0 ({list(range(unit['world']))})"
+        if code != 0 or every not in text:
+            raise AssertionError(f"mesh {unit['tag']}: the launcher exited {code}: "
+                                 f"{text[-2000:]}")
+        unit["launcher_code"] = code
 
 
 def _nccl_one_rank() -> subprocess.Popen:
@@ -7420,10 +7483,12 @@ def _mesh_run(unit: dict, url: str, prompts: dict, vocab: int) -> dict:
 
 def _mesh_reports(unit: dict, run: dict) -> None:
     """After the stop: the backend from the leader's log, each rank's report."""
-    backend = re.search(r"model collectives over (\w+)", unit["logs"][0].read_text())
+    backend = re.search(r"\[rank 0\] .*model collectives over (\w+)",
+                        unit["launcher_log"].read_text(errors="replace"))
     run["backend"] = backend.group(1) if backend else None
     run["reports"] = [json.loads((unit["report_dir"] / f"rank-{r}.json").read_text())
-                      for r in range(len(unit["procs"]))]
+                      for r in range(unit["world"])]
+    run["launcher_code"] = unit.get("launcher_code")
 
 
 def _rank_lines(tag: str, run: dict, smi: str) -> None:
@@ -7513,7 +7578,7 @@ def phase_serve_mesh(smi: str, art: Path, device: str = "cuda") -> dict:
         dtypes = ("float32", "bfloat16")
         if device == "cuda":
             nccl = _nccl_one_rank()
-        units = [_launch_unit(art, dt, device, dt, OUT_DIR / f"mesh_{dt}_reports")
+        units = [_launch_unit(art, _mesh_cuda(dt), device, dt, OUT_DIR / f"mesh_{dt}_reports")
                  for dt in dtypes]
         refs, preds, ref_s = {}, {}, {}
         for dt in dtypes:  # while the units boot
@@ -7561,8 +7626,9 @@ def phase_serve_mesh(smi: str, art: Path, device: str = "cuda") -> dict:
                 if k not in ops:
                     raise AssertionError(f"mesh {dt}: no {k} op ran: {sorted(ops)}")
             log(f"mesh {dt}: backend {run['backend']}, {len(names)} requests x {MESH_NEW} "
-                f"tokens, agreement with the tp-1 engine {run['agreement']:.3f}; boot "
-                f"{run['start_s']:.1f} s (both units side by side), traffic "
+                f"tokens, agreement with the tp-1 engine {run['agreement']:.3f}; launcher "
+                f"start to the leader serving {run['start_s']:.1f} s (both units side by side), "
+                f"launcher exit {run['launcher_code']}; traffic "
                 f"{run['traffic_s']:.1f} s, tp-1 reference {ref_s[dt]:.1f} s; analytic NVLink "
                 f"collective s {run['collective_s_analytic']}")
             _rank_lines(dt, run, smi)
@@ -7708,7 +7774,9 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
     snap = import_module(f"{PKG}.server.snapshot")
     cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
     prompts = _sp_prompts(cfg.vocab_size)
-    extra = ("--sp-prefill-threshold", str(SP_THRESHOLD))
+    def sp_cuda(dtype: str, **more) -> dict:
+        return _mesh_cuda(dtype, SP_MESH, spPrefillThreshold=SP_THRESHOLD, **more)
+
     snapdir = ROOT / "build" / "smoke_sp_snapshots"  # ignored by git, deleted after
     shutil.rmtree(snapdir, ignore_errors=True)
     out: dict = {"mesh": SP_MESH, "layers": MESH_LAYERS, "threshold": SP_THRESHOLD,
@@ -7718,8 +7786,8 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
     dtypes = ("float32", "bfloat16")
     units: list = []
     try:
-        units = [_launch_unit(art, dt, device, f"sp_{dt}", OUT_DIR / f"mesh_sp_{dt}_reports",
-                              SP_MESH, extra) for dt in dtypes]
+        units = [_launch_unit(art, sp_cuda(dt), device, f"sp_{dt}",
+                              OUT_DIR / f"mesh_sp_{dt}_reports") for dt in dtypes]
         refs, preds = {}, {}
         for dt in dtypes:  # while the units boot
             t1 = time.perf_counter()
@@ -7737,8 +7805,9 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
         units = []
         # The second start bakes, the third restores (f32).
         t1 = time.perf_counter()
-        bake = _launch_unit(art, "float32", device, "sp_bake", OUT_DIR / "mesh_sp_bake_reports",
-                            SP_MESH, extra + ("--snapshot-dir", str(snapdir)))
+        snapshot = {"snapshot": {"enabled": True, "dir": str(snapdir)}}
+        bake = _launch_unit(art, sp_cuda("float32", **snapshot), device, "sp_bake",
+                            OUT_DIR / "mesh_sp_bake_reports")
         units = [bake]
         _await_unit(bake)
         out["bake_start_s"] = bake["start_s"]
@@ -7754,9 +7823,8 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
         out["bake_s"] = time.perf_counter() - t1
         out["snapshot_gib"] = manifest["total_bytes"] / 2**30
         t1 = time.perf_counter()
-        restore = _launch_unit(art, "float32", device, "sp_restore",
-                               OUT_DIR / "mesh_sp_restore_reports", SP_MESH,
-                               extra + ("--snapshot-dir", str(snapdir)))
+        restore = _launch_unit(art, sp_cuda("float32", **snapshot), device, "sp_restore",
+                               OUT_DIR / "mesh_sp_restore_reports")
         units = [restore]
         runs["restore"] = _sp_served(restore, prompts, cfg.vocab_size)
         units = []
@@ -7776,8 +7844,9 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
                        for rep in r["reports"]]
             chunk = r["reports"][0]["ops"]["gen_chunk"]
             r["chunk_ms_mean"] = 1e3 * chunk["seconds"] / chunk["count"]
-            log(f"mesh sp {tag}: agreement with the tp-1 engine "
-                f"{r.get('agreement', 1.0):.3f}; boot {r['start_s']:.1f} s; the leader's "
+            log(f"mesh sp {tag}: backend {r['backend']}, launcher exit {r['launcher_code']}; "
+                f"agreement with the tp-1 engine {r.get('agreement', 1.0):.3f}; launcher start "
+                f"to the leader serving {r['start_s']:.1f} s; the leader's "
                 f"{MESH_CHUNK}-token chunk op {r['chunk_ms_mean']:.1f} ms mean x"
                 f"{chunk['count']} (a chunked prefill of the long prompt: "
                 f"{-(-SP_LONG // MESH_CHUNK)} of them); request walls "
@@ -7822,10 +7891,10 @@ V2_LAT_N = 20        # unit (b)'s timed requests a shape
 V2_WEIGHTLESS = 64 * 2**20  # what a weightless rank may hold (kernel tables, buffers)
 
 
-def _v2_argv(art: Path, dtype: str, device: str, max_batch: int) -> list[str]:
-    return ["--model-uri", str(art), "--dtype", dtype, "--host", "127.0.0.1", "--port", "0",
-            "--metrics-port", "0", "--drain-s", "0", "--device", device,
-            "--max-batch-size", str(max_batch), "--max-batch-delay-ms", "5"]
+def _v2_cuda(dtype: str, max_batch: int, **more) -> dict:
+    """A V2 unit's server options as ``spec.cuda``."""
+    return {"meshShape": MESH_SHAPE, "dtype": dtype, "maxBatchSize": max_batch,
+            "maxBatchDelayMs": 5, **more}
 
 
 def _unit_ranks(url: str) -> list:
@@ -7921,13 +7990,12 @@ def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda
                                               builder_kwargs={"image_size": RESNET_IMAGE})
         del rparams
         out["artifacts_s"] = time.perf_counter() - t1
-        pool = _launch_unit(art, "float32", device, "v2_pool", OUT_DIR / "mesh_v2_pool_reports",
-                            MESH_SHAPE, ("--warm-pool", "1", "--snapshot-dir", str(snapdir),
-                                         "--max-batch-size", str(V2_POOL_BATCH)))
+        pool = _launch_unit(art, _mesh_cuda("float32", maxBatchSize=V2_POOL_BATCH,
+                                            snapshot={"enabled": True, "dir": str(snapdir)}),
+                            device, "v2_pool", OUT_DIR / "mesh_v2_pool_reports", warm_pool=True)
         units.append(pool)
-        bunit = _launch_unit(bert_art, "bfloat16", device, "v2_bert_int8",
-                             OUT_DIR / "mesh_v2_bert_reports", MESH_SHAPE, ("--quantize", "int8"),
-                             argv=_v2_argv(bert_art, "bfloat16", device, 32))
+        bunit = _launch_unit(bert_art, _v2_cuda("bfloat16", 32, quantize="int8"), device,
+                             "v2_bert_int8", OUT_DIR / "mesh_v2_bert_reports", max_slots=None)
         units.append(bunit)
         # The one-rank references while the units boot.
         t1 = time.perf_counter()
@@ -7953,6 +8021,8 @@ def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda
         url = _await_unit(pool, "warm pool")
         out["pool_start_s"] = pool["start_s"]
         boot = _unit_ranks(url)
+        out["pool_backend"] = sorted({rep["backend"] for rep in boot})
+        log(f"mesh v2 pool: backend {out['pool_backend']} on every rank")
         out["weightless_gib"] = [rep.get("memory_allocated", 0) / 2**30 for rep in boot]
         if any("ledger" in rep for rep in boot) or (device == "cuda" and any(
                 rep["memory_allocated"] > V2_WEIGHTLESS for rep in boot)):
@@ -8050,11 +8120,13 @@ def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda
             raise AssertionError(f"mesh v2 bert int8: the follower replayed {follower} of "
                                  f"{batches} batches")
         b.update(flash_launches=flash, collective_s=coll, batches=batches,
-                 memory=_check_pool_memory("bert int8", after, device))
+                 memory=_check_pool_memory("bert int8", after, device),
+                 backend=sorted({rep["backend"] for rep in after}))
         _stop_units([bunit])
         units.remove(bunit)
         out["bert_int8"] = b
-        log(f"mesh v2 bert int8 {MESH_SHAPE} bf16: logits vs the one-rank int8 port "
+        log(f"mesh v2 bert int8 {MESH_SHAPE} bf16 (backend {b['backend']}, launcher exit "
+            f"{bunit.get('launcher_code')}): logits vs the one-rank int8 port "
             f"max_abs_err {b['max_abs_err']:.3e} (tol {BERT_TOL['int8']}); request latency "
             f"B1/S128 p50 {b['b1']['p50_ms']:.2f} ms p99 {b['b1']['p99_ms']:.2f} ms, B32/S128 "
             f"p50 {b['b32']['p50_ms']:.2f} ms p99 {b['b32']['p99_ms']:.2f} ms (HTTP, "
@@ -8067,8 +8139,9 @@ def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda
             _kill_unit(u)
         shutil.rmtree(scratch, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
-    log(f"phase 8c wall {out['wall_s']:.1f} s; boots: pool {out.get('pool_start_s', 0):.1f} s, "
-        f"bert int8 {out.get('bert_start_s', 0):.1f} s; {smi}")
+    log(f"phase 8c wall {out['wall_s']:.1f} s; launcher start to the leader serving: pool "
+        f"{out.get('pool_start_s', 0):.1f} s, bert int8 {out.get('bert_start_s', 0):.1f} s; "
+        f"launcher exits {pool.get('launcher_code')}, {bunit.get('launcher_code')}; {smi}")
     DETAIL["serve_mesh_v2"] = out
     return out
 
@@ -8165,8 +8238,11 @@ def _pod_argv(builder, config, version: str, uri: str, port: int, device: str) -
         current_version=version, new_model_uri=uri, traffic_current=100)
     pod = manifest["spec"]["predictors"][0]["componentSpecs"][0]["spec"]
     (c,) = pod["containers"]
-    if c["command"][:2] != ["python", "-m"] or c["resources"]["limits"] != {"nvidia.com/gpu": "1"}:
-        raise AssertionError(f"canary: the pod runs {c['command']} with {c['resources']}")
+    if (c["command"] != ["python", "-m", f"{PKG}.server"]
+            or c["resources"]["limits"] != {"nvidia.com/gpu": "1"}
+            or any(v["name"] == "dshm" for v in pod.get("volumes", []))):
+        raise AssertionError(f"canary: the pod runs {c['command']} with {c['resources']} and "
+                             f"volumes {pod.get('volumes')}")
     return ([sys.executable] + c["command"][1:] + c["args"]
             + ["--host", "127.0.0.1", "--port", str(port), "--metrics-port", "0",
                "--drain-s", "0", "--device", device])

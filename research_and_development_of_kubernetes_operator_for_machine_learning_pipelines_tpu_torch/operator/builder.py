@@ -8,19 +8,25 @@ Two backends:
   ``kfserving``, predictor names ``v<version>``, weighted ``traffic``;
   byte-for-byte the JAX package's manifests.
 - ``cuda``   — this package's first-party data plane: each predictor is the
-  PyTorch server (``python -m <package>.server``) on one NVIDIA H100,
-  requested as ``nvidia.com/gpu`` and placed by the GPU product label with
-  a toleration for ``nvidia.com/gpu``.  Everything else is the JAX
-  package's ``tpu`` manifest: names, labels, owner references, ports,
-  probes, the metrics port, the compile-cache and snapshot volumes and the
-  warm-pool and fleet-pool manifests.  The Seldon CR shape (predictor list
-  + traffic weights) is retained so the promotion loop and metric identity
-  (``deployment_name``/``predictor_name``/``namespace``,
-  ``mlflow_operator.py:367``) are unchanged.
+  PyTorch server on NVIDIA H100s, requested as ``nvidia.com/gpu`` (the
+  cards of one host) and placed by the GPU product label with a toleration
+  for ``nvidia.com/gpu``.  Everything else is the JAX package's ``tpu``
+  manifest: names, labels, owner references, ports, probes, the metrics
+  port, the compile-cache and snapshot volumes, the warm-pool and
+  fleet-pool manifests and the worker unit across hosts.  The Seldon CR
+  shape (predictor list + traffic weights) is retained so the promotion
+  loop and metric identity (``deployment_name``/``predictor_name``/
+  ``namespace``, ``mlflow_operator.py:367``) are unchanged.
 
-A unit of more than one card (one process a card) needs a launcher this
-package does not have yet; the config refuses such topologies, and
-:func:`build_worker_unit_manifests` builds none.
+The server runs one process a rank.  A pod of one card runs it directly
+(``python -m <package>.server``); a pod of several cards runs the unit
+launcher (``python -m <package>.server.launch``) with the same arguments,
+which starts one server rank a card and gives each its rank-level
+variables; the pod mounts a memory-backed ``/dev/shm`` for NCCL between its
+processes.  Across hosts the pods are an indexed StatefulSet
+(:func:`build_worker_unit_manifests`) and each tells its launcher the
+unit's hosts, its own index and pod 0's address through the pod-level
+variables of ``server/launch.py``.
 
 Owner references (``:158-169``) make the cluster GC the deployment when the
 ``MlflowModel`` CR is deleted.
@@ -31,13 +37,8 @@ from __future__ import annotations
 import json
 from typing import Any, Mapping
 
-from ..utils.config import (
-    GPU_TOPOLOGIES,
-    MULTI_CARD_REFUSAL,
-    CudaSpec,
-    NotYetPorted,
-    OperatorConfig,
-)
+from ..server.launch import COORDINATOR_ENV, HOST_INDEX_ENV, HOSTS_ENV
+from ..utils.config import GPU_TOPOLOGIES, CudaSpec, OperatorConfig
 
 SELDON_API_VERSION = "machinelearning.seldon.io/v1"
 MLFLOWMODEL_API_VERSION = "mlflow.nizepart.com/v1alpha1"
@@ -82,8 +83,17 @@ def _seldon_predictor(
     }
 
 
-# The module a pod runs: this package's server.
+# The module a pod runs: this package's server, or on a pod of several
+# cards the launcher that starts one server rank a card.
 SERVER_MODULE = __name__.split(".")[0] + ".server"
+LAUNCH_MODULE = SERVER_MODULE + ".launch"
+
+COORDINATOR_PORT = 8476  # torch.distributed rendezvous of rank 0 (leader pod)
+
+
+def worker_unit_name(deployment_name: str, version: str) -> str:
+    """Name of the pod unit (and its headless Service) for one predictor."""
+    return f"{deployment_name}-v{version}-workers"
 
 
 def _topology_info(config: OperatorConfig):
@@ -96,16 +106,6 @@ def _topology_info(config: OperatorConfig):
     return info
 
 
-def _single_card(config: OperatorConfig):
-    """The topology's facts, refusing a unit of more than one card."""
-    info = _topology_info(config)
-    if info.cards > 1:
-        raise NotYetPorted(
-            f"spec.cuda.gpuTopology {config.cuda.topology!r}: {MULTI_CARD_REFUSAL}"
-        )
-    return info
-
-
 def _cuda_pod_spec(
     version: str,
     model_uri: str,
@@ -113,15 +113,17 @@ def _cuda_pod_spec(
     deployment_name: str,
     namespace: str,
 ) -> dict[str, Any]:
-    """Pod spec of a GPU predictor: the JAX package's ``_tpu_pod_spec`` with
-    this package's server command, an ``nvidia.com/gpu`` request, the GPU
-    product nodeSelector and its toleration, and no ``JAX_PLATFORMS``."""
+    """Pod spec for one host of a GPU predictor (shared by the predictor's
+    componentSpecs, the StatefulSet across hosts and the pools): the JAX
+    package's ``_tpu_pod_spec`` with this package's server command (the
+    launcher on a pod of several cards), an ``nvidia.com/gpu`` request, the
+    GPU product nodeSelector and its toleration, and no ``JAX_PLATFORMS``."""
     cuda: CudaSpec = config.cuda
-    info = _single_card(config)
+    info = _topology_info(config)
     container = {
         "name": f"tpu-server-{version}",
         "image": config.server_image,
-        "command": ["python", "-m", SERVER_MODULE],
+        "command": ["python", "-m", LAUNCH_MODULE if info.cards > 1 else SERVER_MODULE],
         "args": [
             "--model-uri", model_uri,
             "--model-name", config.model_name,
@@ -228,6 +230,29 @@ def _cuda_pod_spec(
         # snapshot dir is node-local like the kernel cache: a woken pod on
         # the same host restores without re-downloading or re-quantizing.
         container["args"] += ["--snapshot-dir", cuda.snapshot.dir]
+    if info.hosts > 1:
+        unit = worker_unit_name(deployment_name, version)
+        container["env"] += [
+            # Pod-level: the launcher turns these into each rank's
+            # JAX_PROCESS_ID / JAX_NUM_PROCESSES / LOCAL_RANK.  Rank 0 runs
+            # on pod 0, whose stable DNS name comes from the unit's
+            # headless Service.
+            {
+                "name": COORDINATOR_ENV,
+                "value": f"{unit}-0.{unit}.{namespace}.svc.cluster.local:{COORDINATOR_PORT}",
+            },
+            {"name": HOSTS_ENV, "value": str(info.hosts)},
+            # pod index -> host index (k8s >=1.28 sets this label on
+            # StatefulSet pods)
+            {
+                "name": HOST_INDEX_ENV,
+                "valueFrom": {
+                    "fieldRef": {
+                        "fieldPath": "metadata.labels['apps.kubernetes.io/pod-index']"
+                    }
+                },
+            },
+        ]
     if config.minio_secret:
         container["envFrom"] = [{"secretRef": {"name": config.minio_secret}}]
     pod: dict[str, Any] = {}
@@ -271,6 +296,15 @@ def _cuda_pod_spec(
                 },
             }
         )
+    if info.cards > 1:
+        # NCCL between the rank processes of one pod moves data through
+        # shared memory: more than the runtime's 64 MiB default /dev/shm.
+        container.setdefault("volumeMounts", []).append(
+            {"name": "dshm", "mountPath": "/dev/shm"}
+        )
+        pod.setdefault("volumes", []).append(
+            {"name": "dshm", "emptyDir": {"medium": "Memory"}}
+        )
     return {
         **pod,
         "nodeSelector": {"nvidia.com/gpu.product": info.product},
@@ -294,8 +328,17 @@ def _cuda_predictor(
     namespace: str,
     replicas: int | None = None,
 ) -> dict[str, Any]:
-    """First-party GPU predictor: this package's server on one H100."""
-    return {
+    """First-party GPU predictor: this package's server on H100s.
+
+    Topologies across hosts make one predictor = ``hosts`` pods run as an
+    indexed StatefulSet behind a headless Service (see
+    ``build_worker_unit_manifests`` — the reconciler applies those
+    alongside this routing manifest): pod 0 holds rank 0, the leader, and
+    is the only pod routed traffic reaches (followers replay its ops,
+    ``server/multihost.py``).
+    """
+    info = _topology_info(config)
+    predictor: dict[str, Any] = {
         "graph": {
             "name": f"tpu-server-{version}",
             "implementation": "TRITON_SERVER",  # pre-packaged V2-protocol slot
@@ -305,20 +348,41 @@ def _cuda_predictor(
         },
         "name": f"v{version}",
         # data-parallel copies of the predictor — DP in SURVEY §2.3's
-        # inventory.  ``replicas`` is the autoscaler's live count
-        # (None = spec.cuda.replicas, byte-for-byte the fixed topology).
+        # inventory (single-host only; units across hosts reject
+        # replicas > 1 at config parse).  ``replicas`` is the autoscaler's
+        # live count (None = spec.cuda.replicas, byte-for-byte the fixed
+        # topology).
         "replicas": (
             config.cuda.replicas if replicas is None else int(replicas)
         ),
         "traffic": traffic,
-        "componentSpecs": [
+    }
+    if info.hosts > 1:
+        # Routing-only predictor: NO componentSpecs, or a Seldon controller
+        # consuming this CR would materialize a second copy of the pods the
+        # operator's StatefulSet already owns (and Deployment pods lack the
+        # pod-index label the env fieldRef needs).
+        predictor["gpuWorkerUnit"] = {
+            "name": worker_unit_name(deployment_name, version),
+            "hosts": info.hosts,
+            "cardsPerHost": info.cards_per_host,
+            "ranksPerHost": info.ranks_per_host(config.cuda.mesh_shape),
+            "coordinatorPort": COORDINATOR_PORT,
+            # the routed Service must select only pod index 0: followers
+            # serve health but no inference frontend
+            "serviceSelectorExtra": {
+                "apps.kubernetes.io/pod-index": "0",
+            },
+        }
+    else:
+        predictor["componentSpecs"] = [
             {
                 "spec": _cuda_pod_spec(
                     version, model_uri, config, deployment_name, namespace
                 )
             }
-        ],
-    }
+        ]
+    return predictor
 
 
 def build_worker_unit_manifests(
@@ -329,10 +393,93 @@ def build_worker_unit_manifests(
     version: str,
     model_uri: str,
 ) -> list[dict[str, Any]]:
-    """The objects of a unit of several hosts: none on one card (the
-    Seldon-shaped componentSpecs cover it).  A larger unit is refused."""
-    _single_card(config)
-    return []
+    """First-party materialization of one predictor unit across hosts.
+
+    The reference outsources pod creation to Seldon's controller; a unit of
+    several hosts is beyond what that controller models (N pods = one
+    predictor), so for ``hosts > 1`` the *operator* owns the unit:
+
+    - a headless Service giving every pod a stable DNS name (the
+      coordinator address in the pod env resolves to pod 0);
+    - a routed Service selecting pod index 0 only — the leader owns the
+      HTTP frontend, so router traffic weights keep meaning "percent of
+      requests to this unit" and metric identity stays keyed by one
+      predictor name;
+    - an indexed StatefulSet (``podManagementPolicy: Parallel`` — pods
+      must start together because the process group's rendezvous blocks
+      until every rank joins; OrderedReady would deadlock pod 0's
+      readiness against pods that don't exist yet).
+
+    Returns ``[]`` for topologies of one host (Seldon-shaped componentSpecs
+    cover those).
+    """
+    info = _topology_info(config)
+    if info.hosts <= 1:
+        return []
+    unit = worker_unit_name(name, version)
+    labels = {
+        "app": unit,
+        "tpumlops/deployment": name,
+        "tpumlops/predictor": f"v{version}",
+    }
+    owner = owner_reference(name, owner_uid)
+    pod_spec = _cuda_pod_spec(version, model_uri, config, name, namespace)
+    headless = {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {
+            "name": unit,
+            "namespace": namespace,
+            "labels": labels,
+            "ownerReferences": owner,
+        },
+        "spec": {
+            "clusterIP": "None",
+            "selector": {"app": unit},
+            # publish addresses before readiness so the coordinator DNS
+            # name resolves while the process group is still forming
+            "publishNotReadyAddresses": True,
+            "ports": [{"name": "coordinator", "port": COORDINATOR_PORT}],
+        },
+    }
+    routed = {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {
+            "name": f"{name}-v{version}",
+            "namespace": namespace,
+            "labels": labels,
+            "ownerReferences": owner,
+        },
+        "spec": {
+            "selector": {"app": unit, "apps.kubernetes.io/pod-index": "0"},
+            "ports": [
+                {"name": "http", "port": 9000, "targetPort": 9000},
+                {"name": "metrics", "port": 6000, "targetPort": 6000},
+            ],
+        },
+    }
+    statefulset = {
+        "apiVersion": "apps/v1",
+        "kind": "StatefulSet",
+        "metadata": {
+            "name": unit,
+            "namespace": namespace,
+            "labels": labels,
+            "ownerReferences": owner,
+        },
+        "spec": {
+            "serviceName": unit,
+            "replicas": info.hosts,
+            "podManagementPolicy": "Parallel",
+            "selector": {"matchLabels": {"app": unit}},
+            "template": {
+                "metadata": {"labels": labels},
+                "spec": pod_spec,
+            },
+        },
+    }
+    return [headless, routed, statefulset]
 
 
 def build_warm_pool_manifests(

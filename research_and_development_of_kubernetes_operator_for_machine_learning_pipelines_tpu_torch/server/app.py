@@ -185,6 +185,7 @@ from .generation import (
     GenerationEngine,
     PoisonRequest,
 )
+from .launch import SHARE_CARD_ENV
 from .metrics import CONTENT_TYPE, ServerMetrics
 from .prefix_cache import PrefixCacheConfig
 from .speculative import SpeculativeConfig
@@ -2328,15 +2329,24 @@ def form_unit(config: ServerConfig):
     from ..parallel import distributed
     from .multihost import TorchDistTransport
 
-    if config.warm_pool and distributed.local_world_size(world) < world:
+    local_world = distributed.local_world_size(world)
+    if config.warm_pool and local_world < world:
         # The reference serves the warm pool where one process holds the
         # unit; here that is a unit whose ranks share one host.
         raise ValueError(
             f"--warm-pool is single-host only (a multi-host unit cannot attach weights "
             f"after its process group formed): meshShape {config.mesh_shape} spans "
-            f"{world} ranks, {distributed.local_world_size(world)} on this host "
+            f"{world} ranks, {local_world} on this host "
             "(LOCAL_WORLD_SIZE)")
     dev_type = torch.device(config.device).type if config.device else "cuda"
+    if dev_type == "cuda" and not os.environ.get(SHARE_CARD_ENV):
+        # Before the rendezvous: ranks that outnumber the cards would share
+        # them in silence (and the backend would fall back to gloo).
+        cards = torch.cuda.device_count()
+        if cards < local_world:
+            raise ValueError(
+                f"{local_world} ranks on this host (LOCAL_WORLD_SIZE) but {cards} cards: one "
+                "rank a card, unless the launcher's --ranks-share-card says they share")
     if not distributed.maybe_initialize_distributed(device_type=dev_type):
         raise ValueError(
             f"meshShape {config.mesh_shape} spans {world} ranks: set JAX_COORDINATOR_ADDRESS "

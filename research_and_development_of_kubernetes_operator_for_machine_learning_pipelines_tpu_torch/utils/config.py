@@ -9,12 +9,15 @@ package's first-party data plane (the JAX package's ``tpu``): ``spec.cuda``
 (:class:`CudaSpec`) holds ``TpuSpec``'s fields, defaults and validation,
 and ``gpuTopology`` names an entry of :data:`GPU_TOPOLOGIES`.
 
-Not yet ported, refused at parse with a ``ValueError`` naming the field: a
-topology of more than one card (one process a card needs the unit
-launcher).  ``spec.slo``, ``spec.planner``, ``spec.anomaly`` and
-``spec.multiplex`` parse and serve as in the JAX package.  The server's own
-configuration is
-``server/app.py``'s ``ServerConfig``.
+Every topology of :data:`GPU_TOPOLOGIES` parses as the JAX package's
+topologies do: a unit of several cards runs one server process a rank,
+started by ``server/launch.py``.  One case is refused at parse with a
+:class:`NotYetPorted` naming ``spec.cuda.meshShape``: a mesh smaller than
+a unit that spans hosts (the JAX package runs it on a device prefix; a
+port that runs one process a card has no whole number of ranks a host
+for it).  ``spec.slo``, ``spec.planner``, ``spec.anomaly`` and
+``spec.multiplex`` parse and serve as in the JAX package.  The server's
+own configuration is ``server/app.py``'s ``ServerConfig``.
 """
 
 from __future__ import annotations
@@ -60,14 +63,25 @@ class GpuTopologyInfo:
     def cards_per_host(self) -> int:
         return self.cards // self.hosts
 
-    def check_mesh(self, name: str, mesh_shape: Mapping[str, int]) -> None:
-        """Over-subscription only: a mesh SMALLER than the unit is legal
-        (the server builds it over a device prefix — a {dp:1, tp:1} debug
-        CR on an h100-8 node runs fine, idle cards and all); a mesh larger
-        than the unit can never schedule."""
+    @staticmethod
+    def mesh_devices(mesh_shape: Mapping[str, int]) -> int:
+        """The ranks (cards) a ``meshShape`` spans: the product of its axes."""
         n = 1
         for v in mesh_shape.values():
             n *= int(v)
+        return n
+
+    def ranks_per_host(self, mesh_shape: Mapping[str, int]) -> int:
+        """The rank processes each pod of the unit starts: the whole mesh on
+        one host; across hosts the mesh fills every card, a host's share."""
+        return max(1, self.mesh_devices(mesh_shape) // self.hosts)
+
+    def check_mesh(self, name: str, mesh_shape: Mapping[str, int]) -> None:
+        """Over-subscription only: a mesh SMALLER than a one-host unit is
+        legal (the unit runs prod(meshShape) ranks and leaves the other
+        cards idle — a {dp:1, tp:1} debug CR on an h100-8 node runs fine);
+        a mesh larger than the unit can never schedule."""
+        n = self.mesh_devices(mesh_shape)
         if n > self.cards:
             raise ValueError(
                 f"meshShape {dict(mesh_shape)} uses {n} "
@@ -94,9 +108,11 @@ GPU_TOPOLOGIES: dict[str, GpuTopologyInfo] = {
     "h100-16": GpuTopologyInfo(H100_PRODUCT, 16, hosts=2),
 }
 
-# The refusal of every unit of more than one card, until the port has a
-# launcher that starts one process a card.
-MULTI_CARD_REFUSAL = "not yet ported: one process a card needs the unit launcher"
+# The one unit the port refuses: a mesh smaller than a unit across hosts.
+PARTIAL_MULTI_HOST_REFUSAL = (
+    "not yet ported: a unit across hosts runs one process a card, so its mesh "
+    "must fill every card of every host"
+)
 
 
 @dataclass(frozen=True)
@@ -1805,12 +1821,16 @@ class OperatorConfig:
         planner = PlannerSpec.from_spec(spec.get("planner"))
         # What the port cannot serve yet is refused last, after every check
         # the JAX package makes: a spec it rejects fails here the same way.
-        if backend == "cuda" and GPU_TOPOLOGIES[cuda.topology].cards > 1:
-            raise NotYetPorted(
-                f"spec.cuda.gpuTopology {cuda.topology!r} "
-                f"({GPU_TOPOLOGIES[cuda.topology].cards} cards): "
-                f"{MULTI_CARD_REFUSAL}; use h100-1"
-            )
+        if backend == "cuda":
+            info = GPU_TOPOLOGIES[cuda.topology]
+            used = info.mesh_devices(cuda.mesh_shape)
+            if info.hosts > 1 and used < info.cards:
+                raise NotYetPorted(
+                    f"spec.cuda.meshShape {dict(cuda.mesh_shape)} uses {used} of "
+                    f"gpuTopology {cuda.topology!r}'s {info.cards} cards on "
+                    f"{info.hosts} hosts: {PARTIAL_MULTI_HOST_REFUSAL}; use a "
+                    "mesh of every card or a topology of one host"
+                )
         return cls(
             model_name=str(model_name),
             model_alias=str(model_alias),

@@ -187,14 +187,32 @@ def test_the_server_command_parses_on_the_port_server():
 
 
 def test_a_unit_of_several_cards_is_refused_by_the_builder():
+    """The name is the refusal this test pinned before the launcher: a unit
+    of several cards on one host is now one pod that runs the launcher with
+    the server's arguments unchanged, asks for every card of the host and
+    mounts a memory-backed /dev/shm; it has no worker unit (one host)."""
     import dataclasses
 
     _, cfg = _configs(TPU_SPECS[0])
-    big = dataclasses.replace(cfg, cuda=dataclasses.replace(cfg.cuda, topology="h100-8"))
-    with pytest.raises(PC.NotYetPorted, match="unit launcher"):
-        _build(PB, big, _states()[0])
-    with pytest.raises(PC.NotYetPorted, match="unit launcher"):
-        PB.build_worker_unit_manifests("iris", "models", "u", big, "1", "u")
+    big = dataclasses.replace(cfg, cuda=dataclasses.replace(
+        cfg.cuda, topology="h100-8", mesh_shape={"dp": 1, "tp": 8}))
+    one = _build(PB, cfg, _states()[0])["spec"]["predictors"][0]
+    pred = _build(PB, big, _states()[0])["spec"]["predictors"][0]
+    assert "gpuWorkerUnit" not in pred
+    pod = pred["componentSpecs"][0]["spec"]
+    (c,) = pod["containers"]
+    (c1,) = one["componentSpecs"][0]["spec"]["containers"]
+    assert c["command"] == ["python", "-m", PB.LAUNCH_MODULE]
+    assert c1["command"] == ["python", "-m", PB.SERVER_MODULE]
+    mesh = c["args"].index("--mesh-shape")
+    assert c["args"][mesh + 1] == json.dumps({"dp": 1, "tp": 8})
+    assert c["args"][:mesh] == c1["args"][:mesh] and c["args"][mesh + 2:] == c1["args"][mesh + 2:]
+    assert c["resources"]["limits"] == {"nvidia.com/gpu": "8"}
+    assert {"name": "dshm", "mountPath": "/dev/shm"} in c["volumeMounts"]
+    assert {"name": "dshm", "emptyDir": {"medium": "Memory"}} in pod["volumes"]
+    assert [e["name"] for e in c["env"]] == [e["name"] for e in c1["env"]]
+    assert all(v["name"] != "dshm" for v in one["componentSpecs"][0]["spec"].get("volumes", []))
+    assert PB.build_worker_unit_manifests("iris", "models", "u", big, "1", "u") == []
 
 
 @pytest.mark.parametrize("weights", [{"v1": 70, "v2": 30}, {"v2": 100}, {"v9": 5}, {}])

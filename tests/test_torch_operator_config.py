@@ -7,9 +7,10 @@ with the three entry points wrapped, then goes through both packages
 after the mapping of ``torch_operator_map`` (``tpu`` -> ``cuda``,
 ``v5e-N`` -> ``h100-N``, ``spec.tpu`` -> ``spec.cuda``).  The parsed
 dataclasses are equal field by field and the errors equal apart from that
-vocabulary.  Where the JAX package accepts a spec that the port does not
-serve yet (a topology of more than one card), the port refuses it with a
-``NotYetPorted`` naming the field; ``spec.slo``, ``spec.planner``,
+vocabulary.  Every topology parses as the JAX package's does, one card or
+several; where the JAX package accepts a spec that the port does not serve
+yet (a mesh smaller than a unit that spans hosts), the port refuses it with
+a ``NotYetPorted`` naming the field; ``spec.slo``, ``spec.planner``,
 ``spec.anomaly`` and ``spec.multiplex`` parse to the JAX package's fields.
 """
 
@@ -114,12 +115,29 @@ def minimal(**extra):
 
 @pytest.mark.parametrize("topology", ["h100-2", "h100-4", "h100-8", "h100-16"])
 def test_a_topology_of_more_than_one_card_is_refused(topology):
-    with pytest.raises(PC.NotYetPorted, match=rf"spec.cuda.gpuTopology '{topology}'.*unit "
-                                              "launcher"):
-        PC.OperatorConfig.from_spec(minimal(backend="cuda", cuda={"gpuTopology": topology}))
-    # The default topology is the JAX package's v5e-8 mapped: refused too.
-    with pytest.raises(PC.NotYetPorted, match="h100-8"):
-        PC.OperatorConfig.from_spec(minimal(backend="cuda"))
+    """The name is the refusal this test pinned while units of several cards
+    waited for the launcher: each such topology now parses with a mesh of
+    every card (and, on one host, with a smaller one, the other cards idle);
+    only a mesh smaller than a unit across hosts is still refused."""
+    info = PC.GPU_TOPOLOGIES[topology]
+    full = {"dp": 1, "tp": info.cards}
+    cfg = PC.OperatorConfig.from_spec(minimal(backend="cuda", cuda={"gpuTopology": topology,
+                                                                     "meshShape": full}))
+    assert (cfg.cuda.topology, dict(cfg.cuda.mesh_shape)) == (topology, full)
+    assert info.ranks_per_host(full) == info.cards_per_host
+    small = minimal(backend="cuda", cuda={"gpuTopology": topology,
+                                          "meshShape": {"dp": 1, "tp": 2}})
+    if info.hosts == 1:
+        assert PC.OperatorConfig.from_spec(small).cuda.mesh_shape == {"dp": 1, "tp": 2}
+        assert info.ranks_per_host({"dp": 1, "tp": 2}) == 2
+    else:
+        with pytest.raises(PC.NotYetPorted, match=r"^spec.cuda.meshShape .* uses 2 of "
+                                                  rf"gpuTopology '{topology}'.*every card"):
+            PC.OperatorConfig.from_spec(small)
+    # The default topology is the JAX package's v5e-8 mapped, with the default
+    # {dp: 1, tp: 1} mesh: one rank, seven cards idle, as in the JAX package.
+    cfg = PC.OperatorConfig.from_spec(minimal(backend="cuda"))
+    assert cfg.cuda.topology == "h100-8" and cfg.cuda.mesh_shape == {"dp": 1, "tp": 1}
 
 
 def test_one_card_parses_and_seldon_ignores_the_topology():

@@ -273,20 +273,23 @@ def test_rollback_restores_the_stable_version():
 
 @pytest.mark.parametrize("section", [
     {"slo": {"ttftP99Ms": 250}},
-    {"backend": "tpu", "tpu": {"tpuTopology": "v5e-8"}},
+    {"backend": "tpu", "tpu": {"tpuTopology": "v5e-16"}},
     {"backend": "tpu", "multiplex": {"poolRef": "pool"},
      "tpu": {"tpuTopology": "v5e-1", "snapshot": {"enabled": True}}},
+    {"backend": "tpu", "tpu": {"tpuTopology": "v5e-8", "meshShape": {"dp": 1, "tp": 8}}},
+    {"backend": "tpu", "tpu": {"tpuTopology": "v5e-16", "meshShape": {"dp": 1, "tp": 16}}},
 ])
 def test_an_unported_feature_is_an_invalid_spec_on_the_cr(section):
-    """A topology of more than one card is still refused as any bad spec
-    is (``status.error``, one ``InvalidSpec`` event, no data plane);
-    ``spec.slo`` and ``spec.multiplex`` are served and reach ``Stable``
-    with the JAX package's trace."""
+    """A mesh smaller than a unit across hosts (h100-16 at the default
+    {dp: 1, tp: 1}) is still refused as any bad spec is (``status.error``,
+    one ``InvalidSpec`` event, no data plane); ``spec.slo``,
+    ``spec.multiplex`` and units of several cards, on one host or across
+    two, are served and reach ``Stable`` with the JAX package's trace."""
     w = World(PORT, section)
     w.step()
     w.step()
     status = w.kube.get(w.cr)["status"]
-    if section.get("tpu", {}).get("tpuTopology") == "v5e-8":
+    if section.get("tpu", {}) == {"tpuTopology": "v5e-16"}:
         assert "invalid spec" in status["error"] and "not yet ported" in status["error"]
         assert w.kube.event_reasons().count("InvalidSpec") == 1
         with pytest.raises(PORT.base.NotFound):

@@ -93,16 +93,18 @@ def port_fields(obj) -> dict:
 
 def refused_feature(port_spec_: dict) -> str | None:
     """The field the port refuses as not yet ported, for a spec the JAX
-    package accepts (a topology of more than one card); None when the port
-    serves it."""
+    package accepts: a mesh smaller than a unit that spans hosts (the JAX
+    package runs it on a device prefix); None when the port serves it,
+    every other topology of one card or several included."""
     if not isinstance(port_spec_, dict):
         return None
     from importlib import import_module
 
     config = import_module(f"{PORT}.utils.config")
     if port_spec_.get("backend") == "cuda":
-        topo = (port_spec_.get("cuda") or {}).get("gpuTopology", "h100-8")
-        info = config.GPU_TOPOLOGIES.get(topo)
-        if info is not None and info.cards > 1:
-            return "spec.cuda.gpuTopology"
+        cuda = port_spec_.get("cuda") or {}
+        info = config.GPU_TOPOLOGIES.get(cuda.get("gpuTopology", "h100-8"))
+        mesh = cuda.get("meshShape") or {"dp": 1, "tp": 1}
+        if info is not None and info.hosts > 1 and info.mesh_devices(mesh) < info.cards:
+            return "spec.cuda.meshShape"
     return None
