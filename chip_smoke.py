@@ -45,11 +45,14 @@ and exits non-zero):
    also over a ladder of windows, with its split count.  The decode
    kernel's verify chunk instance (self-speculative verify) against its
    plain versions, int8 and bf16/f32 windows: NKV 32 G 1 and a synthetic
-   NKV 8 at G 4 and 8, B 4, W 768 and 4096, S 2, 3, 5, 17 and 65, lengths
-   0, 1, W - 1 and W / 2 in one batch, chunk rows near the int8 clip, bf16
-   and f32 q, within the decode checks' tolerance; its time over S at W 768
-   beside the S = 1 decode kernel on the same window, its plain version
-   and (dense) SDPA over the window plus the chunk with a boolean mask;
+   NKV 8 at G 4 and 8, B 4, W 768 and 4096, S 2, 3, 5, 17 and 65, S 128,
+   256, 512 and 1024 at G 1 and S 1024 at G 4 (a super-step as wide as the
+   shipped CRs' prefill chunk), lengths 0, 1, W - 1 and W / 2 in one batch,
+   chunk rows near the int8 clip, bf16 and f32 q, within the decode checks'
+   tolerance, and an empty chunk or rows that are not S x G raising before
+   a launch; its time over S (2 .. 1024) at W 768 beside the S = 1 decode
+   kernel on the same window, its plain version and (dense) SDPA over the
+   window plus the chunk with a boolean mask;
    with a live count a slot (``counts``, the unified super-step's) at S =
    256: counts 1 / 5 / 256 / 0 against the plain version with them (int8
    and bf16/f32 windows, W 768 and 4096, parked rows exactly zero), and
@@ -64,9 +67,7 @@ and exits non-zero):
    check a cache at D 64; timed at Llama-2-7B's packed shape (B_p 4, C 256,
    offsets 0/256/768/3840, H = NKV = 32, D 128) on both caches beside its
    plain version, its bound and, on the bf16 cache, SDPA over the gathered window plus the chunk with a
-   boolean mask (the decode kernel's verify instance takes at most 65
-   chunk positions, so it is not timed at 256); a misaligned q must raise
-   ValueError.
+   boolean mask; a misaligned q must raise ValueError.
 3b. D-major decode attention against its plain version at the layout
    probe's shapes (B = 8 and 32, NKV=16, D=128, W=512), at W = 96, 192,
    768, 4096, at D=64, with bf16 q and with a W of 97 sliced from a wider
@@ -277,7 +278,8 @@ and exits non-zero):
    preemption, evict and restore ms (synchronized host walls), KV bytes an
    eviction, L2 hits, and the preempted greedy streams' agreement with the
    clean run (reported: the window buckets differ).
-   5h: the observed replica on the bf16 tree: one ``none`` split K 4
+   5h: the observed replica on the bf16 tree cut to ``INT8KV_LAYERS``
+   layers (widths whole): one ``none`` split K 4
    server, 4 slots (5e's K 4 server), with ``--trace-ring``,
    ``--timeseries-ring``, ``--device-telemetry`` and
    ``--watchdog-deadline-s 2`` on.  The HBM ledger against
@@ -396,6 +398,18 @@ and exits non-zero):
    rate); last a one-rank ``nccl`` group's ``all_reduce`` in a process of
    its own (a world of two or more NCCL ranks needs two cards).  The
    phase's wall beside MESH_BUDGET_S.
+8b. ``{"sp": 2, "tp": 2}`` on phase 8's artifact (the ring prefill, a
+   sharded snapshot baked and restored; the restored unit at
+   ``--decode-steps 4``) and 8c, the V2 path and the warm pool across
+   ranks: see ``phase_serve_mesh_sp`` and ``phase_serve_mesh_v2``.
+8d. The port's shipped ``deploy/examples/llama-7b-tp4.yaml`` through its
+   ``h100-4`` manifest: three units of four ranks side by side on phase
+   8's artifact in f32, its split engine (K 4, packed chunks of 512, the
+   prefix cache) and the same with ``unifiedStep`` (a super-step 512 wide),
+   both over an f32 KV cache with greedy tokens equal to a one-rank engine
+   whose program is captured, and the CR's int8kv as shipped (its tokens'
+   agreement and int8 codes against one rank reported); the uncaptured
+   program on every rank (see ``phase_serve_mesh_tp4``).
 9. The control plane's canary: BERT-base v1 -> v2 promoted in 10% steps
    by the port's ``OperatorRuntime`` through the port's router, each
    version a server process of the operator's ``backend: cuda`` manifest.
@@ -1194,10 +1208,13 @@ def phase_verify_attention(da) -> dict:
     """The decode kernel's verify chunk instance (both windows) against its
     plain versions: Llama-2-7B's shape (NKV 32, D 128, G 1) and grouped
     heads on a synthetic NKV 8 (G 4, 8), B 4, W 768 and 4096, S 2, 3, 5,
-    17, 65, lengths 0, 1, W - 1 and W / 2 in one batch, chunk rows near the
-    int8 clip, bf16 and f32 q; then its time over S at W 768 beside the
-    S = 1 decode kernel on the same window, the plain version and (dense)
-    SDPA over the window plus the chunk with a boolean mask."""
+    17, 65, S 128 / 256 / 512 / 1024 at G 1 and S 1024 at G 4 (a super-step
+    as wide as a prefill chunk), lengths 0, 1, W - 1 and W / 2 in one
+    batch, chunk rows near the int8 clip, bf16 and f32 q; a malformed chunk
+    (no position, rows not S x G) raises before a launch; then its time over
+    S (2 .. 1024) at W 768 beside the S = 1 decode kernel on the same
+    window, the plain version and (dense) SDPA over the window plus the
+    chunk with a boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -1205,12 +1222,15 @@ def phase_verify_attention(da) -> dict:
     D, B = 128, 4
     worst, checks = 0.0, 0
     cases = [(NKV, G, S) for NKV, G in ((32, 1), (8, 4), (8, 8)) for S in (2, 3, 5, 17, 65)]
-    cases += [(32, 1, 128), (32, 1, 256)]  # up to the prefill chunk
+    cases += [(32, 1, 128), (32, 1, 256)]  # up to the split engine's prefill chunk
+    # A super-step as wide as the shipped CRs' prefill chunk of 512, and 1024:
+    # the chunk keys past 256 in tiles (f32 q) or 64-key slices (bf16 q).
+    cases += [(32, 1, 512), (32, 1, 1024), (8, 4, 1024)]
     for dense in (False, True):
         for NKV, G, S in cases:
             for dtype in (torch.bfloat16, torch.float32):
                 inputs = _va_inputs(B, NKV, S, G, D, 4096, 1, dtype, gen, dense,
-                                    near_clip=S in (3, 17, 128))
+                                    near_clip=S in (3, 17, 128, 512))
                 for W in (768, 4096):
                     what = (f"{'dense' if dense else 'int8'} NKV={NKV} G={G} S={S} "
                             f"{str(dtype).replace('torch.', '')}")
@@ -1230,22 +1250,29 @@ def phase_verify_attention(da) -> dict:
                                          f"{'dense' if dense else 'int8'} {what}"))
             checks += 1
             del inputs
-    # Past the cap: 257 positions raise before anything launches.
-    q, k, ks, v, vs, kc, vc, rt = _va_inputs(1, 2, 257, 1, D, 64, 1, torch.bfloat16, gen, False)
-    before = da.launches
-    try:
-        da.verify_attention(*_va_args((q, k, ks, v, vs, kc, vc, rt), 64, [64]))
-    except ValueError as e:
-        if "chunk positions" not in str(e):
-            raise
-    else:
-        raise AssertionError("verify attention took 257 chunk positions")
-    if da.launches != before:
-        raise AssertionError("a refused verify call counted a launch")
+    # A malformed chunk raises before anything launches: no chunk position,
+    # and query rows that are not S x G.
+    for what, s_q, s_c in (("an empty chunk", 0, 0), ("6 rows for 4 positions", 6, 4)):
+        q, k, ks, v, vs, kc, vc, rt = _va_inputs(1, 2, max(s_c, 1), 1, D, 64, 1,
+                                                 torch.bfloat16, gen, False)
+        q = torch.zeros((1, 2, s_q, D), dtype=torch.bfloat16, device="cuda")
+        kc, vc = kc[:, :, :s_c], vc[:, :, :s_c]
+        rt = tuple(t[:, :, :s_c] for t in rt)
+        before = (da.launches, da.verify_launches)
+        try:
+            da.verify_attention(*_va_args((q, k, ks, v, vs, kc, vc, rt), 64, [64]))
+        except ValueError as e:
+            if "chunk position" not in str(e) and "query rows" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"verify attention took {what}")
+        if (da.launches, da.verify_launches) != before:
+            raise AssertionError(f"a refused verify call ({what}) counted a launch")
     log(f"verify attention: {checks} checks (int8 and bf16/f32 windows, G 1/4/8, S 2..65, "
-        f"and S 128/256 at G 1, W 768 and 4096, lengths 0/1/W-1/W/2, rows near the int8 "
-        f"clip; D 64 and 4-byte-aligned rows at S 5), max_abs_err {worst:.3e} (tol {DA_TOL} "
-        f"abs + {DA_TOL} rel); S = 257 raises")
+        f"S 128/256/512/1024 at G 1 and S 1024 at G 4, W 768 and 4096, lengths "
+        f"0/1/W-1/W/2, rows near the int8 clip; D 64 and 4-byte-aligned rows at S 5), "
+        f"max_abs_err {worst:.3e} (tol {DA_TOL} abs + {DA_TOL} rel); an empty chunk and rows "
+        f"that are not S x G raise")
 
     # Time at Llama-2-7B's shape, the window rotating over 8 layers of one
     # cache (> the 50 MB L2) as consecutive layers do.
@@ -1254,7 +1281,7 @@ def phase_verify_attention(da) -> dict:
     timing, sweep = {}, {}
     for dense in (False, True):
         tag = "dense" if dense else "int8"
-        for S in (2, 3, 5, 17, 65, 128, 256):
+        for S in (2, 3, 5, 17, 65, 128, 256, 512, 1024):
             inputs = _va_inputs(B, NKV, S, G, D, 4096, layers, torch.bfloat16, gen, dense)
             views = [_va_args(inputs, W, lengths, layer=l) for l in range(layers)]
             q, k, ks, v, vs, kc, vc, _ = inputs
@@ -1281,7 +1308,8 @@ def phase_verify_attention(da) -> dict:
                    "device_ms": kernel_device_ms(kern, "attention_kernel"),
                    "s1_ms": cuda_time_ms(one, iters=100),
                    "s1_device_ms": kernel_device_ms(one, "attention_kernel"),
-                   "plain_ms": cuda_time_ms(plain, iters=20 if S <= 65 else 5),
+                   "plain_ms": cuda_time_ms(plain, iters=20 if S <= 65 else 5 if S <= 256
+                                            else 2, warmup=1 if S > 256 else 3),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "plan": da.verify_plan(B, NKV, S * G, W)._asdict(),
                    "device_ms_by_kernel": device_ms_by_kernel(kern, "attention_kernel")}
@@ -1896,7 +1924,8 @@ def phase_flash_ragged(fa) -> dict:
     with a parked row) and 8; permuted, non-contiguous slots of a 10-row
     cache; offsets 0, 256, 768, 3840 and off the 64-key tiles; G 1, 4, 8;
     chunks of 256 and 100; chunk rows near the int8 clip; D 128, and D 64
-    once a cache.  Then its time at
+    once a cache; f32 q at C 512 (the verify chunk kernel's f32 instance,
+    int8 and f32 caches, within DA_TOL).  Then its time at
     Llama-2-7B's packed shape (B_p 4, C 256, offsets 0/256/768/3840, H =
     NKV = 32, D 128) on both caches, with the profiler's device time, the
     plain version's, the bound and, on the bf16 cache, SDPA over the
@@ -1906,6 +1935,10 @@ def phase_flash_ragged(fa) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from importlib import import_module
+
+    llama_mod = import_module(f"{PKG}.models.llama")
+    da_mod = import_module(f"{PKG}.ops.decode_attention")
     gen = torch.Generator(device="cuda").manual_seed(9753)
     perm = np.random.default_rng(5).permutation(10).tolist()
     T, NS = 4096, 10
@@ -1936,6 +1969,37 @@ def phase_flash_ragged(fa) -> dict:
         f"row/8, C 256 and 100, permuted slots, offsets 0..3990 on and off the tiles, rows "
         f"near the int8 clip, D 128 and 64), max_abs_err {worst:.3e} (tol "
         f"{FLASH_TOL['bfloat16']} abs + rel)")
+    # f32 q (an f32 replica's packed prefill, phase 8d): the verify chunk
+    # kernel's f32-q instance on each row's gathered window, int8 and f32
+    # caches, C 512 with a parked row, against the plain version (DA_TOL).
+    f32_worst, f32_checks = 0.0, 0
+    for int8 in (True, False):
+        for NKV in (32, 8):
+            c = _ragged_case(gen, 4, 512, 32, NKV, [0, 512, 1100, T], perm[:4], NS, int8,
+                             near_clip=True)
+            c["q"], c["kc"], c["vc"] = (c[n].float() for n in ("q", "kc", "vc"))
+            if int8:
+                c["rt"] = (*llama_mod._quant_kv(c["kc"]), *llama_mod._quant_kv(c["vc"]))
+            else:
+                c["k"], c["v"] = c["k"].float(), c["v"].float()
+            args = _ragged_args(c)
+            before = (fa.ragged_launches, da_mod.verify_launches)
+            out = fa.flash_attention_ragged(*args)
+            ref = fa.flash_attention_ragged_reference(*args)
+            torch.cuda.synchronize()
+            if (fa.ragged_launches, da_mod.verify_launches) != (before[0], before[1] + 1):
+                raise AssertionError("ragged flash f32: not one verify launch")
+            err = (out - ref).abs()
+            if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()) or bool(
+                    (err > DA_TOL + DA_TOL * ref.abs()).any()):
+                raise AssertionError(f"ragged flash f32 q disagrees: {'int8' if int8 else 'f32'}"
+                                     f" cache NKV={NKV} max_abs_err {float(err.max()):.3e}")
+            f32_worst = max(f32_worst, float(err.max()))
+            f32_checks += 1
+            del c, args, out, ref
+    log(f"ragged flash f32 q (through the verify chunk kernel's f32 instance): {f32_checks} "
+        f"checks (int8 and f32 caches, G 1 and 4, B_p 4 with a parked row, C 512), "
+        f"max_abs_err {f32_worst:.3e} (tol {DA_TOL} abs + rel)")
 
     # Time at the packed shape, the cache rotating over 4 layers (> the
     # 50 MB L2 on the int8 cache's window) as consecutive layers do.
@@ -4694,7 +4758,8 @@ UNI_BURST = (300, 700, 1000, 1500)  # phase 5d's burst
 # 5f and 5g (their engines copy every int8 weight to bf16 each forward,
 # 2.4-3.6x the `none` turns' walls at 32 layers) and in the `none` turns of
 # 5e, 5f and 5g: cut for the smoke's time limit (5d and 5e int8kv when phase
-# 8c came, the three `none` turns when phase 9b did).
+# 8c came, the three `none` turns when phase 9b did, 5h's `none` server when
+# phase 8d did).
 INT8KV_LAYERS = 8
 
 
@@ -5665,8 +5730,10 @@ def _chrome_trace_invariants(doc: dict) -> None:
             raise AssertionError(f"a token of {rid} outside its span")
 
 
-def phase_serve_7b_observed(da, rn, fa, ss, smi: str, params, ms_none: dict) -> dict:
-    """Phase 5h on Llama-2-7B, uncut: one ``none`` split K 4 server (4
+def phase_serve_7b_observed(da, rn, fa, ss, smi: str, params, ms_none: dict,
+                            layers: int | None = None) -> dict:
+    """Phase 5h on Llama-2-7B (``layers``: the tree cut to its first
+    ``layers`` layers, widths whole, as 5e's): one ``none`` split K 4 server (4
     slots, whole prompts, phase 5e's K 4 server) with ``--trace-ring``,
     ``--timeseries-ring``, ``--device-telemetry`` and
     ``--watchdog-deadline-s`` all on.  The HBM ledger against the caching
@@ -5694,8 +5761,10 @@ def phase_serve_7b_observed(da, rn, fa, ss, smi: str, params, ms_none: dict) -> 
     app = import_module(f"{PKG}.server.app")
     build = import_module(f"{PKG}.ops._build")
     cfg = llama.LlamaConfig.llama2_7b()
+    if layers is not None and layers < cfg.num_layers:
+        params, cfg = _cut_depth(params, layers), dataclasses.replace(cfg, num_layers=layers)
     L, V, K = cfg.num_layers, cfg.vocab_size, 4
-    tag = "7B observed none"
+    tag = "7B observed none" + (f" ({L} layers)" if layers is not None else "")
     t_phase = time.perf_counter()
     predictor = registry._build_llama(params, cfg, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
@@ -7499,7 +7568,8 @@ def _rank_lines(tag: str, run: dict, smi: str) -> None:
         ops = rep["ops"]
         walls = {k: (f"{1e3 * ops[k]['seconds'] / ops[k]['count']:.2f} ms mean, "
                      f"{1e3 * ops[k]['max_s']:.2f} max x{ops[k]['count']}")
-                 for k in ("gen_step", "gen_verify", "gen_chunk") if k in ops}
+                 for k in ("gen_step", "gen_verify", "gen_chunk", "gen_chunks", "gen_multistep",
+                           "gen_superstep") if k in ops}
         coll = {k: f"{v['seconds']:.3f} s/{v['calls']}" for k, v in rep["collectives"].items()}
         led = rep.get("ledger", {})
         alloc = rep.get("memory_allocated")
@@ -7664,6 +7734,7 @@ SP_THRESHOLD = 512  # --sp-prefill-threshold: the cold prompt rides the ring
 SP_LONG = 1500      # the cold prompt (a 2048-position bucket: 1024 a ring rank)
 SP_SHORT = 60       # under the threshold: the chunked path
 SP_SHARED = 1024    # the third prompt's prefix taken from the first (16 chunks of 64)
+SP_RESTORE_K = 4    # the restored unit's decode steps: the long-context CR's K
 
 
 def _sp_prompts(vocab: int) -> dict:
@@ -7699,6 +7770,9 @@ def _sp_served(unit: dict, prompts: dict, vocab: int) -> dict:
         samples = _scrape(url)
         run["sp_dispatches"] = _value(samples, "tpumlops_engine_dispatches_total",
                                       op="sp-prefill")
+        run["dispatches"] = {op: _value(samples, "tpumlops_engine_dispatches_total", op=op)
+                             for op in ("decode", "verify", "multistep", "superstep")}
+        run["program"] = _call("GET", url + "/debug/device")[1].get("program")
         run["prefix_hits"] = _value(samples, "tpumlops_prefix_cache_hits_total")
         run["load_s"] = {stage: _value(samples, "tpumlops_model_load_seconds", stage=stage)
                          for stage in ("restore", "total")}
@@ -7761,8 +7835,11 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
     prefill), a short one and one sharing the long one's prefix, in turns.
     f32 tokens equal the reference's (bf16 agreement reported).  Then a
     second f32 start with ``--snapshot-dir`` loads cold and bakes the
-    sharded snapshot, and a third restores it (its ``restore`` load stage),
-    serves the same tokens and keeps each rank's peak within its HBM
+    sharded snapshot, and a third restores it (its ``restore`` load stage)
+    at ``--decode-steps`` SP_RESTORE_K, the long-context CR's combination
+    (the ring prefill beside K-step bursts, uncaptured at a world of four:
+    multistep dispatches, no decode tick, ``/debug/device`` naming the
+    mode), serves the same tokens and keeps each rank's peak within its HBM
     ledger."""
     import torch
     from importlib import import_module
@@ -7822,9 +7899,11 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
             raise AssertionError("mesh sp bake: not one shard a tp block in the manifest")
         out["bake_s"] = time.perf_counter() - t1
         out["snapshot_gib"] = manifest["total_bytes"] / 2**30
+        # The restore serves the long-context CR's combination: the ring
+        # prefill beside K-step bursts (K 4, uncaptured at a world of 4).
         t1 = time.perf_counter()
-        restore = _launch_unit(art, sp_cuda("float32", **snapshot), device, "sp_restore",
-                               OUT_DIR / "mesh_sp_restore_reports")
+        restore = _launch_unit(art, sp_cuda("float32", decodeSteps=SP_RESTORE_K, **snapshot),
+                               device, "sp_restore", OUT_DIR / "mesh_sp_restore_reports")
         units = [restore]
         runs["restore"] = _sp_served(restore, prompts, cfg.vocab_size)
         units = []
@@ -7833,8 +7912,16 @@ def phase_serve_mesh_sp(smi: str, art: Path, device: str = "cuda") -> dict:
         if not run["load_s"]["restore"] > 0:
             raise AssertionError(f"mesh sp restore: no restore load stage: {run['load_s']}")
         _sp_checks("restore", run, device)
-        if run["tokens"] != refs["float32"]:
-            raise AssertionError("mesh sp restore: tokens differ from the tp-1 engine's")
+        if run["dispatches"]["multistep"] < 1 or run["dispatches"]["decode"] > 0:
+            raise AssertionError(f"mesh sp restore at K {SP_RESTORE_K}: dispatches "
+                                 f"{run['dispatches']}, expected multistep and no decode tick")
+        want_mode = ("multistep, uncaptured "
+                     f"({'world %d' % math.prod(SP_MESH.values()) if device == 'cuda' else 'cpu'})")
+        if run["program"] != want_mode:
+            raise AssertionError(f"mesh sp restore: /debug/device program {run['program']!r}, "
+                                 f"expected {want_mode!r}")
+        _sp_compare("restore", run, refs["float32"], prompts, llama, preds["float32"], device,
+                    exact=True)
         if run["tokens"] != runs["float32"]["tokens"]:
             raise AssertionError("mesh sp restore: tokens differ from the cold unit's")
         for tag in ("float32", "bfloat16", "restore"):
@@ -8143,6 +8230,387 @@ def phase_serve_mesh_v2(smi: str, art: Path, mesh_out: dict, device: str = "cuda
         f"{out.get('pool_start_s', 0):.1f} s, bert int8 {out.get('bert_start_s', 0):.1f} s; "
         f"launcher exits {pool.get('launcher_code')}, {bunit.get('launcher_code')}; {smi}")
     DETAIL["serve_mesh_v2"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8d: the port's shipped llama-7b-tp4 CR ({"dp": 1, "tp": 4}, K 4)
+# ---------------------------------------------------------------------------
+
+TP4_EXAMPLE = "llama-7b-tp4.yaml"  # in the port's deploy/examples
+TP4_MESH = {"dp": 1, "tp": 4}
+TP4_SLOTS = 4       # the CR's maxSlots 32 at phase 8's 4: a unified tick runs slots x 512 rows
+TP4_NEW = 16        # tokens a request
+TP4_COLD = 1100     # the cold prompt: three chunks of 512 (the last partial), packed
+TP4_SHARED = 1024   # the second prompt's prefix: the cold prompt's first two chunks
+TP4_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 1234}
+# tag -> (what runs a decode tick, quantize).  "k4" and "unified": the CR's
+# split engine and the same with unifiedStep, int8 weights over an f32 KV
+# cache, greedy tokens held equal to one rank's.  "shipped": the CR as it
+# ships (int8kv), tokens reported: its int8 K/V quantizer turns the last-bit
+# differences of tp 4's sums into whole code steps (PERF.md §6).
+TP4_VARIANTS = {"k4": ("multistep", "int8"), "unified": ("superstep", "int8"),
+                "shipped": ("multistep", "int8kv")}
+
+
+def _cr_scalar(text: str):
+    t = text.strip().strip("\"'")
+    if t in ("true", "false"):
+        return t == "true"
+    for cast in (int, float):
+        try:
+            return cast(t)
+        except ValueError:
+            pass
+    return t
+
+
+def read_example_cr(name: str) -> dict:
+    """One CR of the port's ``deploy/examples`` as a dict.  The card's
+    machine may lack a YAML library, so this reads the subset the CR is
+    written in: block mappings by indentation, ``{ a: 1, b: 2 }`` flow
+    mappings, ``#`` comments, and boolean, number and string scalars (a
+    sequence or a second document raises)."""
+    root: dict = {}
+    stack = [(-1, root)]
+    for raw in (ROOT / PKG / "deploy" / "examples" / name).read_text().splitlines():
+        line = "" if raw.lstrip().startswith("#") else re.sub(r"\s+#.*$", "", raw).rstrip()
+        if not line.strip():
+            continue
+        if line.strip() == "---" or line.lstrip().startswith("- "):
+            raise ValueError(f"{name}: {line.strip()!r} is outside the subset read here")
+        indent = len(line) - len(line.lstrip())
+        key, _, value = line.strip().partition(":")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent, value = stack[-1][1], value.strip()
+        if not value:
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+        elif value.startswith("{"):
+            parent[key] = {k.strip(): _cr_scalar(v) for k, v in
+                           (item.split(":", 1) for item in value.strip("{} ").split(","))}
+        else:
+            parent[key] = _cr_scalar(value)
+    return root
+
+
+def _tp4_cuda(unified: bool, quantize: str) -> tuple[dict, dict]:
+    """The shipped CR's ``spec.cuda`` as this phase serves it, and what it
+    changes: option -> (the CR's value, the served one; None drops it)."""
+    spec = read_example_cr(TP4_EXAMPLE)["spec"]
+    cuda = dict(spec["cuda"])
+    shipped = {"gpuTopology": UNIT_TOPOLOGY, "meshShape": TP4_MESH, "quantize": "int8kv",
+               "decodeSteps": 4, "prefillChunk": 512, "prefillBatch": 4}
+    if spec["backend"] != "cuda" or any(cuda.get(k) != v for k, v in shipped.items()) or (
+            cuda["prefixCache"].get("chunkTokens") != 512):
+        raise AssertionError(f"mesh tp4: {TP4_EXAMPLE} no longer ships {shipped}: {cuda}")
+    changed = {
+        "dtype": (cuda.get("dtype", "bfloat16"), "float32"),  # tokens held exactly
+        "maxSlots": (cuda.get("maxSlots"), TP4_SLOTS),
+        "snapshot": (cuda.get("snapshot"), None),  # no bake: 8b bakes and restores
+        "compileCacheDir": (cuda.get("compileCacheDir"), str(ROOT / "build" / "torch_kernels")),
+    }
+    if quantize != cuda["quantize"]:
+        changed["quantize"] = (cuda["quantize"], quantize)
+    if unified:
+        changed["unifiedStep"] = (cuda.get("unifiedStep", False), True)
+    for k, (_, v) in changed.items():
+        if v is None:
+            cuda.pop(k, None)
+        else:
+            cuda[k] = v
+    return cuda, changed
+
+
+def _tp4_prompts(vocab: int) -> dict:
+    """Sent one at a time: a cold prompt of three chunks (packed), one
+    sharing its first two chunks (a prefix-cache seed), two short greedy
+    prompts and a seeded sampled one; name -> (prompt, sampling)."""
+    import numpy as np
+
+    rng = np.random.default_rng(84)
+    ids = lambda n: [int(t) for t in rng.integers(3, vocab, n)]  # noqa: E731
+    cold = ids(TP4_COLD)
+    return {"cold": (cold, {}), "shared": (cold[:TP4_SHARED] + ids(40), {}),
+            "short_a": (ids(20), {}), "short_b": (ids(57), {}),
+            "sampled": (ids(30), dict(TP4_SAMPLED))}
+
+
+def _tp4_reference(app, loader, art: Path, cuda: dict, prompts: dict, device: str) -> dict:
+    """The traffic through a one-rank engine in this process with the
+    unit's options, one request at a time; its program is captured into
+    CUDA graphs.  Returns its tokens, its program's mode and graphs, its
+    dispatches by kind, the cold prompt's first prefix chunk (K/V as the
+    radix cache holds it) and the predictor (for a margin)."""
+    import torch
+    from importlib import import_module
+
+    metrics_mod = import_module(f"{PKG}.server.metrics")
+    argv = (_unit_pod(art, cuda)["args"] + _unit_local(device, TP4_SLOTS)
+            + ["--mesh-shape", json.dumps({"dp": 1, "tp": 1})])
+    conf = app.config_from_args(app.build_arg_parser().parse_args(argv))
+    pred = loader.load_predictor(str(art), quantize=conf.quantize, device=device,
+                                 dtype=app._DTYPES[conf.dtype])
+    engine = app.make_gen_engine(pred, conf, metrics_mod.ServerMetrics("smoke", "v1", "smoke"))
+    engine.start()
+    try:
+        prog = engine._program
+        replays0 = prog.replays
+        toks = {}
+        for n, (p, kw) in prompts.items():
+            toks[n] = engine.submit(p, TP4_NEW, **kw).result(timeout=600).tolist()
+        _, chunks = engine.export_prefix_kv(prompts["cold"][0][:TP4_SHARED])
+        res = {"tokens": toks, "mode": prog.mode, "captured": prog.captured,
+               "graphs": len(prog.graphs), "replays": prog.replays - replays0,
+               "dispatches": dict(engine.dispatches_total), "chunk": chunks[0], "pred": pred}
+    finally:
+        engine.shutdown()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res
+
+
+def _tp4_served(unit: dict, prompts: dict, vocab: int) -> dict:
+    """Wait for the unit, send the traffic one request at a time, read
+    ``/metrics``, ``/debug/device`` and the cold prompt's first prefix
+    chunk (``/admin/kv/export``), stop the unit, read its reports."""
+    from importlib import import_module
+
+    kv_transfer = import_module(f"{PKG}.server.kv_transfer")
+    try:
+        url = _await_unit(unit)
+        gen = url + "/v2/models/model/generate"
+        toks, walls = {}, {}
+        for n, (p, kw) in prompts.items():
+            t0 = time.perf_counter()
+            toks[n] = _check_outputs(_post(gen, {"prompt_ids": p, "max_new_tokens": TP4_NEW,
+                                                 **kw}), [TP4_NEW], vocab)[0]
+            walls[n] = time.perf_counter() - t0
+        samples = _scrape(url)
+        status, blob, _ = _http_bytes("POST", url + "/admin/kv/export", json.dumps(
+            {"prompt_ids": prompts["cold"][0][:TP4_SHARED]}).encode())
+        if status != 200:
+            raise AssertionError(f"mesh {unit['tag']}: /admin/kv/export answered {status}")
+        run = {"tokens": toks, "request_s": walls, "start_s": unit["start_s"],
+               "dispatches": {op: _value(samples, "tpumlops_engine_dispatches_total", op=op)
+                              for op in ("decode", "verify", "multistep", "superstep",
+                                         "packed-prefill", "prefill", "seed")},
+               "prefix_hits": _value(samples, "tpumlops_prefix_cache_hits_total"),
+               "program": _call("GET", url + "/debug/device")[1].get("program"),
+               "chunk": kv_transfer.deserialize_chunks(blob)[1][0]}
+    except BaseException:
+        _kill_unit(unit)
+        raise
+    _stop_units([unit])
+    _mesh_reports(unit, run)
+    return run
+
+
+def _code_steps(got, ref) -> dict:
+    """Each layer's K and V of one prefix chunk (``[L, 1, C, NKV, D]``, the
+    int8 cache dequantized) against one rank's: the elements that differ by
+    half a quantization step of their (position, head) or more, and the
+    largest difference in steps."""
+    out = {}
+    for name, x, y in (("k", got[0], ref[0]), ("v", got[1], ref[1])):
+        x, y = x.float(), y.float()
+        step = (y.abs().amax(-1, keepdim=True) / 127.0).clamp(min=1e-30)
+        d = (x - y).abs() / step
+        out[name] = {"differing": (d >= 0.5).sum(dim=(1, 2, 3, 4)).tolist(),
+                     "max_steps": [round(float(v), 3) for v in d.amax(dim=(1, 2, 3, 4))],
+                     "of": int(x[0].numel())}
+    return out
+
+
+def _sampled_gap(llama, pred, prompt: list, toks: list, pos: int, kw: dict,
+                 device: str) -> float:
+    """The one-rank model's smallest gap between adjacent scaled logits among
+    the ranks a sampled draw keeps (top-k, then top-p) where token ``pos``
+    is drawn (teacher-forced on its own tokens, in f32): the Gumbel noise
+    goes by sorted rank, so two kept logits closer than the tp sums'
+    rounding trade their noise and can change the draw."""
+    import torch
+
+    lm = pred.causal_lm
+    ids = torch.tensor([list(prompt) + list(toks[:pos])], device=device)
+    logits, _ = llama.prefill(lm["params"], ids, lm["cfg"], torch.float32)
+    s = torch.sort(logits[0, -1].float() / kw["temperature"], descending=True).values
+    s = s[:kw["top_k"]]
+    p = torch.softmax(s, dim=0)
+    kept = int(((torch.cumsum(p, 0) - p) < kw["top_p"]).sum())
+    return float((s[:kept - 1] - s[1:kept]).min()) if kept > 1 else float("inf")
+
+
+def _first_diff(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _tp4_checks(tag: str, run: dict, ref: dict, prompts: dict, want_backend: str,
+                device: str) -> None:
+    """The unit against the one-rank engine and its own ranks: see
+    :func:`phase_serve_mesh_tp4`."""
+    kind, quantize = TP4_VARIANTS[tag]
+    world = math.prod(TP4_MESH.values())
+    if quantize != "int8kv":
+        greedy = [n for n, (_, kw) in prompts.items() if not kw]
+        if any(run["tokens"][n] != ref["tokens"][n] for n in greedy):
+            raise AssertionError(f"mesh tp4 {tag}: f32 greedy tokens differ from the one-rank "
+                                 f"engine's: first differing token {run['first_diff']}")
+    if device == "cuda" and (not ref["captured"] or ref["mode"] != f"{kind}, captured"
+                             or ref["replays"] < 1):
+        raise AssertionError(f"mesh tp4 {tag}: the one-rank engine's program {ref['mode']} "
+                             f"replayed {ref['replays']} graphs")
+    want_mode = f"{kind}, uncaptured ({'world %d' % world if device == 'cuda' else 'cpu'})"
+    if run["program"] != want_mode:
+        raise AssertionError(f"mesh tp4 {tag}: /debug/device program {run['program']!r}, "
+                             f"expected {want_mode!r}")
+    d = run["dispatches"]
+    others = {"decode", "verify", "multistep", "superstep"} - {kind}
+    if d[kind] < 1 or any(d[k] for k in others):
+        raise AssertionError(f"mesh tp4 {tag}: the leader's dispatches {d}: expected {kind} "
+                             f"and no other decode kind")
+    if run["prefix_hits"] < 1 or d["seed"] < 1:
+        raise AssertionError(f"mesh tp4 {tag}: the shared prompt was not seeded from the "
+                             f"prefix cache ({run['prefix_hits']} hits, dispatches {d})")
+    if run["backend"] != want_backend:
+        raise AssertionError(f"mesh tp4 {tag}: ranks used {run['backend']}, expected "
+                             f"{want_backend}")
+    reps = run["reports"]
+    ops = [{k: v["count"] for k, v in rep["ops"].items() if k.startswith("gen_")}
+           for rep in reps]
+    if any(o != ops[0] for o in ops[1:]):
+        raise AssertionError(f"mesh tp4 {tag}: a follower replayed other ops than the leader "
+                             f"dispatched: {ops}")
+    if ops[0].get(f"gen_{kind}", 0) != d[kind]:
+        raise AssertionError(f"mesh tp4 {tag}: {ops[0]} ops for {d[kind]} {kind} dispatches")
+    launches = [rep["launches"] for rep in reps]
+    if any(la != launches[0] for la in launches):
+        raise AssertionError(f"mesh tp4 {tag}: the ranks' launches differ: {launches}")
+    if device == "cuda":
+        # decode attention, RMSNorm and the verify instance at 512 positions:
+        # the super-step's (unified) or, f32 q, the packed chunks' (split)
+        for k in ("decode_attention", "rmsnorm", "verify_attention"):
+            if launches[0][k] <= 0:
+                raise AssertionError(f"mesh tp4 {tag}: no {k} launch on the ranks")
+        _check_rank_memory(f"tp4 {tag}", run)
+
+
+def phase_serve_mesh_tp4(smi: str, art: Path, device: str = "cuda") -> dict:
+    """The port's shipped ``deploy/examples/llama-7b-tp4.yaml`` on the card:
+    its ``h100-4`` manifest built by the operator's builder, three units of
+    four ranks started side by side through the launcher with
+    ``--ranks-share-card`` (gloo), each serving phase 8's artifact in f32
+    (every option changed from the CR is printed): (a) ``k4``, the CR's
+    split engine (``{"dp": 1, "tp": 4}``, ``decodeSteps`` 4,
+    ``prefillChunk`` 512, ``prefillBatch`` 4, the prefix cache in chunks of
+    512) and (b) ``unified``, the same with ``unifiedStep`` (a super-step
+    512 wide), both with int8 weights over an f32 KV cache; (c)
+    ``shipped``, the CR's int8kv.  The traffic, one request at a time: a
+    cold 1100-token prompt (three packed chunks), one sharing its first
+    1024 tokens (seeded from the prefix cache), two short greedy prompts
+    and a seeded sampled one.  Against an in-process one-rank engine with
+    the same options (its program captured): (a) and (b)'s greedy tokens
+    equal; every unit's agreement, first differing tokens (with the one-rank
+    top-2 margin, or for the sampled draw the smallest gap between kept
+    logits, there) and the int8 codes of the cold prompt's first chunk
+    against one rank's are printed.  Each unit: the leader's dispatches
+    show multistep (a, c) or superstep (b) and no other decode kind; every
+    follower replayed the leader's ops; ``/debug/device`` reports the
+    uncaptured program; every rank launched the same kernels; each rank's
+    peak stays within its HBM ledger; every launcher exits 0 after
+    SIGTERM.  Prints the leader's K-step and super-step op walls."""
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    app = import_module(f"{PKG}.server.app")
+    distributed = import_module(f"{PKG}.parallel.distributed")
+    cfg = llama.LlamaConfig.llama2_7b(num_layers=MESH_LAYERS)
+    prompts = _tp4_prompts(cfg.vocab_size)
+    want_backend = distributed.choose_backend(math.prod(TP4_MESH.values()), device)
+    cudas, changed = {}, {}
+    for tag, (kind, quantize) in TP4_VARIANTS.items():
+        cudas[tag], changed[tag] = _tp4_cuda(kind == "superstep", quantize)
+    out: dict = {"example": TP4_EXAMPLE, "mesh": TP4_MESH, "layers": MESH_LAYERS,
+                 "changed": {tag: {k: list(v) for k, v in c.items()}
+                             for tag, c in changed.items()},
+                 "prompts": {n: len(p) for n, (p, _) in prompts.items()},
+                 "cut": f"depth {MESH_LAYERS} of Llama-2-7B's 32 layers (time limit); widths "
+                        "whole"}
+    log(f"mesh tp4: {TP4_EXAMPLE} served with these options changed (CR -> served): "
+        f"{json.dumps(out['changed'])}")
+    units: list = []
+    try:
+        units = [_launch_unit(art, cudas[tag], device, f"tp4_{tag}",
+                              OUT_DIR / f"mesh_tp4_{tag}_reports", max_slots=TP4_SLOTS)
+                 for tag in TP4_VARIANTS]
+        refs = {}
+        for tag in TP4_VARIANTS:  # while the units boot
+            t1 = time.perf_counter()
+            refs[tag] = _tp4_reference(app, loader, art, cudas[tag], prompts, device)
+            refs[tag]["s"] = time.perf_counter() - t1
+        runs = {}
+        for tag, unit in zip(TP4_VARIANTS, units):
+            runs[tag] = _tp4_served(unit, prompts, cfg.vocab_size)
+        units = []
+        for tag, (kind, quantize) in TP4_VARIANTS.items():
+            run, ref = runs[tag], refs[tag]
+            leader = run["reports"][0]["ops"]
+            op = leader.get(f"gen_{kind}", {"count": 0, "seconds": 0.0, "max_s": 0.0})
+            run["op_ms_mean"] = 1e3 * op["seconds"] / max(op["count"], 1)
+            run["op_ms_max"] = 1e3 * op["max_s"]
+            agree = sum(a == b for n in ref["tokens"]
+                        for a, b in zip(run["tokens"][n], ref["tokens"][n]))
+            run["agreement"] = agree / sum(len(t) for t in ref["tokens"].values())
+            run["first_diff"] = {n: _first_diff(run["tokens"][n], ref["tokens"][n])
+                                 for n in ref["tokens"]}
+            run["at_first_diff"] = {}
+            for n, pos in run["first_diff"].items():
+                if pos is None:
+                    continue
+                prompt, kw = prompts[n]
+                run["at_first_diff"][n] = (
+                    {"min_kept_gap": _sampled_gap(llama, ref["pred"], prompt, ref["tokens"][n],
+                                                  pos, kw, device)} if kw else
+                    {"top2_margin": _top2_margin(llama, ref["pred"], prompt, ref["tokens"][n],
+                                                 pos, device)})
+            run["kv_codes"] = (_code_steps(run["chunk"], ref["chunk"])
+                               if quantize == "int8kv" else None)
+            log(f"mesh tp4 {tag} ({kind}, {quantize}): backend {run['backend']}, launcher exit "
+                f"{run['launcher_code']}; program {run['program']!r} (one rank: "
+                f"{ref['mode']!r}, {ref['graphs']} graphs, {ref['replays']} replays); "
+                f"agreement with the one-rank engine {run['agreement']:.3f}, first differing "
+                f"token {run['first_diff']} ({run['at_first_diff']}); the leader's {kind} op "
+                f"{run['op_ms_mean']:.1f} ms mean, {run['op_ms_max']:.1f} max x{op['count']}; "
+                f"dispatches {run['dispatches']}; prefix hits {run['prefix_hits']}; request "
+                f"walls { {k: round(v, 3) for k, v in run['request_s'].items()} } s; launcher "
+                f"start to the leader serving {run['start_s']:.1f} s; one-rank reference "
+                f"{ref['s']:.1f} s; [{smi}]")
+            if run["kv_codes"] is not None:
+                log(f"mesh tp4 {tag}: the cold prompt's first chunk, int8 K/V elements that "
+                    f"differ from one rank's by half a step or more, by layer: "
+                    f"{json.dumps(run['kv_codes'])}")
+            _rank_lines(f"tp4_{tag}", run, smi)
+        for tag in TP4_VARIANTS:
+            _tp4_checks(tag, runs[tag], refs[tag], prompts, want_backend, device)
+        for run in runs.values():
+            del run["chunk"]
+        out["runs"] = runs
+        out["reference"] = {tag: {k: v for k, v in r.items() if k not in ("pred", "chunk")}
+                            for tag, r in refs.items()}
+        del refs
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        for u in units:
+            _kill_unit(u)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8d wall {out['wall_s']:.1f} s; {out['cut']}; {smi}")
+    DETAIL["serve_mesh_tp4"] = out
     return out
 
 
@@ -9170,7 +9638,8 @@ def main() -> int:
     preempt = {"none": phase_serve_7b_preempt(da, rn, fa, ss, smi, params, "none",
                                               layers=INT8KV_LAYERS)}
     stage("5h observed")
-    observed = phase_serve_7b_observed(da, rn, fa, ss, smi, params, multistep["none"])
+    observed = phase_serve_7b_observed(da, rn, fa, ss, smi, params, multistep["none"],
+                                       layers=INT8KV_LAYERS)
     stage("5i handoff none")
     handoff = phase_serve_7b_handoff(da, rn, fa, smi, params)
     t0 = time.perf_counter()
@@ -9213,6 +9682,8 @@ def main() -> int:
         mesh_sp = phase_serve_mesh_sp(smi, art)
         stage("8c mesh v2 and warm pool")
         phase_serve_mesh_v2(smi, art, mesh)
+        stage("8d mesh tp4 example")
+        phase_serve_mesh_tp4(smi, art)
     finally:
         shutil.rmtree(art.parent, ignore_errors=True)
     stage("9 control-plane canary")

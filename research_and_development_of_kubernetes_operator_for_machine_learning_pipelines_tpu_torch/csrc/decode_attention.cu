@@ -108,7 +108,9 @@
 //   p * v in f32 from the exact V row, so DA_TOL (1e-4) holds.
 // - One piece: the block writes the rows.  Several: each writes its f32
 //   partial and `verify_attention_kernel_join`, launched by the same C
-//   call, joins them.  S is capped at kMaxS = 256 (the prefill chunk).
+//   call, joins them.  S takes any width: a row group streams its chunk
+//   keys in 64-key tiles like the window's (the prefill chunk of a
+//   super-step, 512 or 1024, as well as a draft chain).
 // - A live count a slot (`counts`, optional).  The unified super-step
 //   (models/llama.py `super_step_ragged`) gives every row one static
 //   width S but a row commits 1 (decode), draft + 1 (verify) or the
@@ -483,10 +485,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel_combine(
 }
 
 // Verify (f32 q): merges the splits' partials of one (slot, head, row)
-// and joins the row's chunk term, the at most S chunk keys j <= s: their
-// scores first (one warp a key, into shared memory), then one max-rescale
-// over the splits and the keys per d.
-constexpr int kMaxS = 256;  // chunk positions: up to the prefill chunk
+// and joins the row's chunk term, its s + 1 chunk keys j <= s, in tiles of
+// kMaxS keys: a tile's scores first (one warp a key, into the shared score
+// row), then, per d, one max-rescale of the running max, sum and
+// accumulator over the tile (the first tile's max also takes the splits').
+constexpr int kMaxS = 256;  // chunk keys a tile: the shared score row
+static_assert(kThreads >= kMaxD, "one column a thread in the merge");
 
 template <typename T, bool SCALED>
 __global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
@@ -496,53 +500,68 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel_merge(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     float* __restrict__ out, int R, int G, int S, int D, int splits, float scale,
     const int* __restrict__ counts, int nkv) {
-  __shared__ float sm_cs[kMaxS];  // the row's chunk scores
+  __shared__ float sm_cs[kMaxS];  // one tile of the row's chunk scores
   const int bn = blockIdx.x;
   const int row = blockIdx.y;
   const int s = row / G;           // the row's chunk position
+  const int d = threadIdx.x;       // this thread's column (d < D)
   if (counts != nullptr && s >= __ldg(counts + bn / nkv)) {  // parked: zeros
-    for (int d = threadIdx.x; d < D; d += kThreads) out[((long long)bn * R + row) * D + d] = 0.f;
+    if (d < D) out[((long long)bn * R + row) * D + d] = 0.f;
     return;
   }
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long cbase = (long long)bn * S;  // this (slot, head)'s chunk rows
   const T* qr = q + ((long long)bn * R + row) * D;
-  for (int j = warp; j <= s; j += kWarps) {  // warp-uniform; later positions are masked
-    float acc = 0.f;
-    if (SCALED && j < s) {  // an earlier position: the quantize round-trip
-      const int8_t* kr = k8c + (cbase + j) * D;
-      for (int d = lane; d < D; d += 32) acc += to_f32(qr[d]) * scale * (float)kr[d];
-      acc = warp_sum(acc) * __ldg(ksc + cbase + j);
-    } else {  // the diagonal, or any position of a dense chunk: exact
-      const T* kr = k_chunk + (cbase + j) * D;
-      for (int d = lane; d < D; d += 32) acc += to_f32(qr[d]) * scale * to_f32(kr[d]);
-      acc = warp_sum(acc);
-    }
-    if (lane == 0) sm_cs[j] = acc;
-  }
-  __syncthreads();
   const long long slot0 = ((long long)bn * gridDim.y + row) * splits;
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float mx = -INFINITY;
+  float mx = -INFINITY, den = 0.f, num = 0.f;
+  if (d < D) {
     for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, part_ml[(slot0 + sp) * 2]);
-    for (int j = 0; j <= s; ++j) mx = fmaxf(mx, sm_cs[j]);  // finite: the diagonal
-    float den = 0.f, num = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const long long slot = slot0 + sp;
-      const float f = expf(part_ml[slot * 2] - mx);  // 0 for an empty split
-      den += part_ml[slot * 2 + 1] * f;
-      num += part_acc[slot * D + d] * f;
+  }
+  for (int j0 = 0; j0 <= s; j0 += kMaxS) {
+    const int n = min(kMaxS, s + 1 - j0);  // this tile's keys; later positions are masked
+    if (j0 > 0) __syncthreads();           // the previous tile's scores are consumed
+    for (int jj = warp; jj < n; jj += kWarps) {  // warp-uniform
+      const int j = j0 + jj;
+      float acc = 0.f;
+      if (SCALED && j < s) {  // an earlier position: the quantize round-trip
+        const int8_t* kr = k8c + (cbase + j) * D;
+        for (int e = lane; e < D; e += 32) acc += to_f32(qr[e]) * scale * (float)kr[e];
+        acc = warp_sum(acc) * __ldg(ksc + cbase + j);
+      } else {  // the diagonal, or any position of a dense chunk: exact
+        const T* kr = k_chunk + (cbase + j) * D;
+        for (int e = lane; e < D; e += 32) acc += to_f32(qr[e]) * scale * to_f32(kr[e]);
+        acc = warp_sum(acc);
+      }
+      if (lane == 0) sm_cs[jj] = acc;
     }
-    for (int j = 0; j <= s; ++j) {
-      const float p = expf(sm_cs[j] - mx);
+    __syncthreads();
+    if (d >= D) continue;
+    float tmx = mx;
+    for (int jj = 0; jj < n; ++jj) tmx = fmaxf(tmx, sm_cs[jj]);  // finite: chunk scores
+    if (j0 == 0) {  // the splits, against the first tile's max
+      for (int sp = 0; sp < splits; ++sp) {
+        const long long slot = slot0 + sp;
+        const float f = expf(part_ml[slot * 2] - tmx);  // 0 for an empty split
+        den += part_ml[slot * 2 + 1] * f;
+        num += part_acc[slot * D + d] * f;
+      }
+    } else {  // the running sums, to this tile's max
+      const float f = expf(mx - tmx);
+      den *= f;
+      num *= f;
+    }
+    mx = tmx;
+    for (int jj = 0; jj < n; ++jj) {
+      const int j = j0 + jj;
+      const float p = expf(sm_cs[jj] - mx);
       const float v = SCALED && j < s ? (float)v8c[(cbase + j) * D + d] * __ldg(vsc + cbase + j)
                                       : to_f32(v_chunk[(cbase + j) * D + d]);
       den += p;
       num += p * v;
     }
-    out[((long long)bn * R + row) * D + d] = num / den;
   }
+  if (d < D) out[((long long)bn * R + row) * D + d] = num / den;
 }
 
 // Verify (bf16 q) on the tensor cores: one block a (slot, kv head, group
@@ -767,9 +786,13 @@ int dispatch(int dtype, int cache, int vec, int G, const Args& a, cudaStream_t s
                     : (int)by_vec<bf16, bf16, false>(vec, G, a, st);
 }
 
+// The join kernel's grid rows: 512 / D query rows a block.
+inline unsigned join_blocks_y(int R, int D) { return (unsigned)((R + 512 / D - 1) / (512 / D)); }
+
 // The bf16 verify: the pieces, then (several) their join.
 template <typename C, int D>
 cudaError_t launch_verify(const Args& a, int rows, int vec, cudaStream_t stream) {
+  if (a.splits > 1 && join_blocks_y(a.R, D) > 65535u) return cudaErrorInvalidValue;
   constexpr int bytes =
       chunk_attn::Layout<D, Cache<C>::kScaled, kVerifyStages>::template bytes<kVerifyWarps>();
   auto kernel = verify_attention_kernel<C, D>;
@@ -793,7 +816,7 @@ cudaError_t launch_verify(const Args& a, int rows, int vec, cudaStream_t stream)
       a.counts);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  verify_attention_kernel_join<D><<<dim3((unsigned)(a.B * a.nkv), (a.R + 512 / D - 1) / (512 / D)),
+  verify_attention_kernel_join<D><<<dim3((unsigned)(a.B * a.nkv), join_blocks_y(a.R, D)),
                                     256, 0, stream>>>(part_acc, part_ml,
                                                       static_cast<float*>(a.out), a.R, a.splits,
                                                       a.counts, a.nkv, a.group);
@@ -882,7 +905,7 @@ extern "C" int verify_attention_launch(
     const void* v8c, const void* vsc, const void* mask, long long m_sb,
     void* out, void* part, int B, int nkv, int W, int D, int splits, int chunk, int R, int S,
     int group, int rows, float scale, const void* counts, void* stream) {
-  if (S < 1 || S > kMaxS || group < 1 || R != S * group ||
+  if (S < 1 || group < 1 || (long long)S * group != R ||
       (cache == 0 && (k8c == nullptr || ksc == nullptr || v8c == nullptr || vsc == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }

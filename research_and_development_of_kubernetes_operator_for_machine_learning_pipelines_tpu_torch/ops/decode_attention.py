@@ -57,8 +57,10 @@ Row ``r`` attends the window ``[0, W)`` under the mask and the chunk keys
 ``j <= s`` in one softmax.  The diagonal ``j == s`` is exact; on the int8
 window every earlier chunk key and value goes through the round-trip
 (``k8c * ksc``, ``v8c * vsc``), as it would have through the cache on the
-sequential path.  At S = 1 it is the decode kernel's function.  S runs up
-to ``MAX_VERIFY_S`` (256, the prefill chunk).
+sequential path.  At S = 1 it is the decode kernel's function.  S takes
+any width from 1: a draft chain, or a super-step's prefill chunk (512 or
+1024 as the shipped CRs serve), each kernel streaming the chunk's keys in
+tiles.
 
 An optional ``counts`` (int32 ``[B]``) gives each slot's live chunk
 positions, for the unified super-step (``models/llama.py``
@@ -111,9 +113,8 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _verify_fn = None
-# Chunk positions the verify instance takes: up to the prefill chunk (the
-# kernel's kMaxS).
-MAX_VERIFY_S = 256
+# Query rows of the f32-q verify (one a block on the grid's y axis).
+MAX_F32_VERIFY_ROWS = 65535
 # The bf16 verify's plan (``verify_plan``): keys a staged tile, query rows
 # a block by the row count (its 4 warps split a tile's 16-key slices 4, 2
 # or 1 ways), and the blocks the window pieces aim to fill: one wave of
@@ -366,8 +367,9 @@ def _verify_shapes(q, k_chunk, counts=None) -> tuple[int, int]:
                          f"{tuple(k_chunk.shape)} must be [B, NKV, rows, D]")
     r, d = q.shape[2], q.shape[3]
     s = k_chunk.shape[2]
-    if not 1 <= s <= MAX_VERIFY_S:
-        raise ValueError(f"verify attention takes 1..{MAX_VERIFY_S} chunk positions, got {s}")
+    if s < 1:
+        raise ValueError(f"verify attention takes at least 1 chunk position, got {s} "
+                         "chunk positions")
     if r % s or r // s not in _GROUPS:
         raise ValueError(f"verify attention: {r} query rows for {s} chunk positions; "
                          f"the kernel takes S * G rows with G in {_GROUPS}")
@@ -419,6 +421,9 @@ def _launch_verify(q, k8, ks, v8, vs, k_chunk, v_chunk, k8c, ksc, v8c, vsc, mask
     else:
         # f32 q: one query row a block, every split's partial to the merge
         # kernel that joins the chunk term.
+        if r > MAX_F32_VERIFY_ROWS:
+            raise ValueError(f"verify attention: {r} query rows with f32 q; the kernel takes "
+                             f"at most {MAX_F32_VERIFY_ROWS}")
         splits = num_splits(b, nkv * r, w)
         chunk, rows = split_len(w, splits), 0
         part = torch.empty(b * nkv * r * splits * (d + 2), dtype=torch.float32, device=q.device)

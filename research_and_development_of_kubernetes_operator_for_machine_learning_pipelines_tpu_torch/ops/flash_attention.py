@@ -61,7 +61,7 @@ the attention lines of the JAX package's ``_block_verify_deferred``
 (``models/llama.py:1039-1169``, which reaches no Pallas kernel there) at
 the prefill chunk, on cache rows picked by ``slots``:
 
-  q          [B_p, C, H, D]    the packed chunks' queries, bf16
+  q          [B_p, C, H, D]    the packed chunks' queries, bf16 or f32
   k/v_cache  [NS, NKV, T, D]   one layer of the head-major ragged cache:
                                int8 with f32 scales [NS, NKV, T, 1], or
                                q's type with none
@@ -90,7 +90,12 @@ bf16: :func:`ragged_plan` fixes, from C and T alone, query tiles of
 ``RAGGED_ROWS`` rows and window pieces of ``RAGGED_PIECE`` keys; a
 block whose piece lies past its row's window exits, a row of one piece is
 written by its block, and a merge kernel launched by the same call joins
-the f32 partials of a row whose window spans several pieces.
+the f32 partials of a row whose window spans several pieces.  With f32 q
+(an f32 replica's packed prefill) the same function runs on the verify
+chunk kernel's f32-q instance (``ops.decode_attention``: one query row a
+block on the CUDA cores, the chunk joined by its merge kernel), each
+packed row's window taken as a copy of its cache row; its launch counts as
+a verify launch there, not here.
 """
 
 from __future__ import annotations
@@ -102,7 +107,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .decode_attention import _verify_chain
+from .decode_attention import _verify_chain, verify_attention, verify_attention_dense
 
 NEG_INF = -1e30
 
@@ -364,6 +369,37 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 
 
+def _verify_layouts(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale, v_scale,
+                    chunk8):
+    """A ragged call in the verify chunk's layouts (``ops.decode_attention``):
+    q ``[B_p, NKV, C * G, D]`` (row ``j * G + g``), each packed row's window
+    gathered by ``slots`` (a copy of its cache row) with its scales, the
+    strict mask ``key < offsets[b]`` (no key for a parked row), and the
+    chunk and its round-trip ``[B_p, NKV, C, D]``."""
+    b, c, h, d = q.shape
+    nkv, t = k_cache.shape[1], k_cache.shape[2]
+    if nkv <= 0 or h % nkv:
+        raise ValueError(f"ragged flash attention: {h} query heads do not group over {nkv} "
+                         "K/V heads")
+    rows = slots.to(torch.int64)
+    win = torch.where((offsets > 0) & (offsets < t), offsets, 0)
+    key = torch.arange(t, device=q.device)
+    mask = torch.where(key[None, :] < win[:, None], 0.0, -1e9).to(torch.float32)[:, None, :]
+    return {"q": q.reshape(b, c, nkv, h // nkv, d).transpose(1, 2).reshape(b, nkv, -1, d),
+            "k": k_cache[rows], "v": v_cache[rows],
+            "ks": None if k_scale is None else k_scale[rows],
+            "vs": None if v_scale is None else v_scale[rows],
+            "kc": k_chunk.transpose(1, 2), "vc": v_chunk.transpose(1, 2), "mask": mask,
+            "rt": None if chunk8 is None else tuple(x.transpose(1, 2) for x in chunk8)}
+
+
+def _from_verify_layout(out, q):
+    """The verify chunk's ``[B_p, NKV, C * G, D]`` output as ``[B_p, C, H, D]``."""
+    b, c, h, d = q.shape
+    nkv = out.shape[1]
+    return out.reshape(b, nkv, c, h // nkv, d).transpose(1, 2).reshape(b, c, h, d)
+
+
 def flash_attention_ragged_reference(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk,
                                      k_scale=None, v_scale=None, chunk8=None):
     """Plain PyTorch version of :func:`flash_attention_ragged`: the
@@ -372,22 +408,11 @@ def flash_attention_ragged_reference(q, k_cache, v_cache, slots, offsets, k_chun
     ``ops.decode_attention`` over the chunk (the JAX ``_block_verify_deferred``
     lines), scores and softmax in f32.  Returns ``[B_p, C, H, D]`` in f32
     (f64 for f64 inputs)."""
-    b, c, h, d = q.shape
-    nkv, t = k_cache.shape[1], k_cache.shape[2]
-    g = h // nkv
-    rows = slots.to(torch.int64)
-    win = torch.where((offsets > 0) & (offsets < t), offsets, 0)
-    key = torch.arange(t, device=q.device)
-    mask = torch.where(key[None, :] < win[:, None], 0.0, -1e9).to(torch.float32)[:, None, :]
-    # Query row r = j * G + g of each (row, kv head), as the verify chain takes it.
-    qr = q.reshape(b, c, nkv, g, d).transpose(1, 2).reshape(b, nkv, c * g, d)
-    rt = None if chunk8 is None else tuple(x.transpose(1, 2) for x in chunk8)
-    out = _verify_chain(
-        qr, k_cache[rows], v_cache[rows], k_chunk.transpose(1, 2), v_chunk.transpose(1, 2),
-        mask, None if k_scale is None else k_scale[rows],
-        None if v_scale is None else v_scale[rows], rt,
-    )
-    return out.reshape(b, nkv, c, g, d).transpose(1, 2).reshape(b, c, h, d)
+    a = _verify_layouts(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale,
+                        v_scale, chunk8)
+    out = _verify_chain(a["q"], a["k"], a["v"], a["kc"], a["vc"], a["mask"], a["ks"], a["vs"],
+                        a["rt"])
+    return _from_verify_layout(out, q)
 
 
 def _ragged_kernel():
@@ -483,15 +508,40 @@ def _launch_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scal
     return out
 
 
+def _ragged_as_verify(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale=None,
+                      v_scale=None, chunk8=None):
+    """The ragged function through the verify chunk instance
+    (``ops.decode_attention.verify_attention`` / ``verify_attention_dense``)
+    on :func:`_verify_layouts`: on the card it launches the verify kernel
+    (the f32-q path of :func:`flash_attention_ragged`), on the CPU its plain
+    version.  Returns ``[B_p, C, H, D]`` f32."""
+    a = _verify_layouts(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale,
+                        v_scale, chunk8)
+    if k_cache.dtype == torch.int8:
+        if a["ks"] is None or a["vs"] is None or a["rt"] is None:
+            raise ValueError("ragged flash attention: an int8 cache needs its scales and the "
+                             "chunk's round-trip codes")
+        k8c, ksc, v8c, vsc = a["rt"]
+        out = verify_attention(a["q"], a["k"], a["ks"], a["v"], a["vs"], a["kc"], a["vc"], k8c,
+                               ksc, v8c, vsc, a["mask"])
+    else:
+        out = verify_attention_dense(a["q"], a["k"], a["v"], a["kc"], a["vc"], a["mask"])
+    return _from_verify_layout(out, q)
+
+
 def flash_attention_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk,
                            k_scale=None, v_scale=None, chunk8=None):
     """Packed-prefill attention: each packed row's chunk against the window
     of its cache row and its own causal keys, one softmax (layouts in the
     module docstring).  A CPU tensor takes the plain version; a CUDA
-    tensor launches the ragged kernel or raises (type, shape, D, grouping,
+    tensor launches the ragged kernel (bf16 q) or the verify chunk
+    kernel's f32-q instance (f32 q), or raises (type, shape, D, grouping,
     contiguity, alignment, build or launch), never falling back."""
     if q.device.type == "cpu":
         return flash_attention_ragged_reference(q, k_cache, v_cache, slots, offsets, k_chunk,
                                                 v_chunk, k_scale, v_scale, chunk8)
+    if q.dtype == torch.float32:
+        return _ragged_as_verify(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk,
+                                 k_scale, v_scale, chunk8)
     return _launch_ragged(q, k_cache, v_cache, slots, offsets, k_chunk, v_chunk, k_scale,
                           v_scale, chunk8)

@@ -2284,7 +2284,8 @@ def rank_report(op_stats: dict, gen_engine=None, predict_engine=None, device=Non
         ledger = build_hbm_ledger(engine._params, engine._cfg, engine.max_slots,
                                   kv_quant=engine._kv_quant,
                                   dtype_bytes=engine._dtype.itemsize,
-                                  mesh_shape=mesh.shape if mesh is not None else None)
+                                  mesh_shape=mesh.shape if mesh is not None else None,
+                                  tick_rows=engine.widest_tick_rows)
         device = engine._device
         report["mesh"] = None if mesh is None else {"shape": mesh.shape, "coords": mesh.coords}
     else:

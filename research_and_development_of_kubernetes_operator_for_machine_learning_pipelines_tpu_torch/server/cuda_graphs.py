@@ -34,10 +34,19 @@ thousand at Llama-2-7B's 32 layers) from one host call.
   graph keeps its node list after instantiation, so a check can read the
   kernels a replay launches (:meth:`_GraphProgram.kernel_nodes`) without a
   profiler.  Off by default: the node lists cost host memory.
+- **Captured or not, decided at construction.**  A program on the card
+  with no mesh (one rank) is captured.  A program with a mesh (a world
+  above one rank) runs uncaptured, on gloo and NCCL alike: each tick calls
+  the same ``_run`` eagerly on the same static buffers, with the chaining,
+  the pinned readbacks and their events unchanged, and the launch counters
+  count its launches as the single-step path counts them.  The leader's
+  dispatch and every follower's replay take that path.  The capture of
+  collectives into the graphs is not ported (gloo's are host calls, which
+  no graph captures).  On the CPU (the tests, ``device='cpu'``) the program
+  runs uncaptured too, which exercises everything but the graph.
 - **No fallback.**  A capture or a replay that fails on the card raises,
-  and so does a variant that was never captured.  On the CPU (the tests,
-  ``device='cpu'``) the program runs the same call eagerly on the same
-  buffers, which exercises everything but the graph.
+  and so does a variant that was never captured; nothing chooses the
+  uncaptured path after an error.
 
 The super-step takes a host array for every input of a tick (the engine
 rebuilds the rows' roles each tick, as the reference does): they go
@@ -71,20 +80,37 @@ _COUNTERS = {"decode_attention": (decode_attention, "launches"),
 KEEP_GRAPHS = False
 
 
+def program_mode(device, mesh=None) -> tuple[bool, str]:
+    """Whether a program on ``device`` over ``mesh`` (a
+    ``parallel.ServingMesh``, None for one rank) is captured into CUDA
+    graphs, and why: on the card with no mesh only.  The one place the
+    choice is made; a program makes it once, at construction."""
+    if torch.device(device).type != "cuda":
+        return False, "uncaptured (cpu)"
+    if mesh is not None and mesh.world > 1:
+        return False, f"uncaptured (world {mesh.world})"
+    return True, "captured"
+
+
 class _GraphProgram:
     """What the two programs share: the engine's device state as static
     buffers (tokens, lengths, keys, temperatures, top-k, top-p; the cache in
     place), one private graph pool, the capture of one graph a (window,
     token rule) on a side stream after one eager warm-up run a token rule,
     and the launch counts each graph records at capture and adds at every
-    replay.  A subclass defines :meth:`_run`, the call on its buffers."""
+    replay; or, uncaptured (:func:`program_mode`), the same call eagerly on
+    the same buffers each tick.  A subclass defines :meth:`_run`, the call
+    on its buffers."""
+
+    kind = ""  # the tick kind it dispatches
 
     def __init__(self, params, cfg, cache, dtype, device, mesh=None):
         self._params = params
         self._cfg = cfg
-        self._mesh = mesh  # parallel.ServingMesh: this rank's block (eager only)
+        self._mesh = mesh  # parallel.ServingMesh: this rank's block (uncaptured)
         self._dtype = dtype
         self.device = torch.device(device)
+        self.captured, self.why = program_mode(self.device, mesh)
         b = int(cache.lengths.shape[0])
         self.batch = b
         dev = self.device
@@ -98,9 +124,15 @@ class _GraphProgram:
         self.cuda = dev.type == "cuda"
         # (window, sampling) -> (graph, {counter name: launches a replay})
         self.graphs: dict[tuple[int, bool], tuple] = {}
-        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if self.captured else None
         self.capture_s = 0.0
         self.replays = 0
+
+    @property
+    def mode(self) -> str:
+        """What runs a tick, as ``/debug/device`` reports it, e.g.
+        ``"multistep, uncaptured (world 4)"``."""
+        return f"{self.kind}, {self.why}"
 
     def _run(self, window: int, sampling: bool) -> None:
         raise NotImplementedError
@@ -135,8 +167,9 @@ class _GraphProgram:
         """Capture one graph per (window, sampling mode) on the staged,
         parked inputs; the keys and tokens are restored after the warm-up
         runs, which may split or rewrite them.  ``on_graph(seconds)`` is
-        called after each graph with the wall of its capture."""
-        if not self.cuda:
+        called after each graph with the wall of its capture.  An
+        uncaptured program records nothing."""
+        if not self.captured:
             return
         self._check_parked()
         saved = (self.keys.clone(), self.tokens.clone())
@@ -173,10 +206,11 @@ class _GraphProgram:
         self.capture_s += time.perf_counter() - t0
 
     def _replay(self, window: int, sampling: bool) -> None:
-        """One tick: the graph's replay on the card (its recorded launches
-        added to the counters), the eager call on the CPU."""
+        """One tick: the graph's replay (its recorded launches added to the
+        counters), or, uncaptured, the eager call (its wrappers count their
+        own launches)."""
         key = (int(window), bool(sampling))
-        if self.cuda:
+        if self.captured:
             graph, deltas = self.graphs[key]  # a missing variant raises: no eager fallback
             graph.replay()
             for name, n in deltas.items():
@@ -214,6 +248,8 @@ class _GraphProgram:
 class MultistepProgram(_GraphProgram):
     """``steps`` decode iterations on static buffers over ``cache``, chained
     from one dispatch to the next, harvested one tick late."""
+
+    kind = "multistep"
 
     def __init__(self, params, cfg, cache, steps: int, dtype, device, mesh=None):
         super().__init__(params, cfg, cache, dtype, device, mesh)
@@ -266,9 +302,8 @@ class MultistepProgram(_GraphProgram):
         self.eos_ids.copy_(torch.from_numpy(np.asarray(eos_np, np.int32)))
 
     def dispatch(self, window: int, sampling: bool) -> int:
-        """One fused tick: a graph replay on the card, the eager call on the
-        CPU; then the outputs' copy into a host buffer.  Returns the
-        buffer's index for :meth:`harvest`."""
+        """One fused tick (:meth:`_replay`), then the outputs' copy into a
+        host buffer.  Returns the buffer's index for :meth:`harvest`."""
         self._replay(window, sampling)
         i = self._flip
         self._flip ^= 1
@@ -316,6 +351,8 @@ class SuperstepProgram(_GraphProgram):
     values.  Every input of a tick is a host array (:meth:`stage`); the
     state it chains is the engine's device state, which lives in the
     program's buffers."""
+
+    kind = "superstep"
 
     def __init__(self, params, cfg, cache, steps: int, width: int, dtype, device, mesh=None):
         super().__init__(params, cfg, cache, dtype, device, mesh)
@@ -413,8 +450,8 @@ class SuperstepProgram(_GraphProgram):
             self._staged.record()
 
     def dispatch(self, window: int, sampling: bool) -> SuperstepOut:
-        """One tick on the staged inputs (a graph replay on the card, the
-        eager call on the CPU), then its synchronous readback."""
+        """One tick on the staged inputs (:meth:`_replay`), then its
+        synchronous readback."""
         self._replay(window, sampling)
         self._out_host.copy_(self._out, non_blocking=self.cuda)
         if self._event is not None:

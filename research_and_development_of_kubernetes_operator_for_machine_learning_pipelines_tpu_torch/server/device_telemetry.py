@@ -260,14 +260,17 @@ def build_hbm_ledger(
     dtype_bytes: int = 2,
     prefix_cache_budget_bytes: int = 0,
     mesh_shape=None,
+    tick_rows: int | None = None,
 ) -> HbmLedger:
     """The ledger of one rank: ``params`` as held (a rank's blocks on a
     mesh), the cache at ``B/dp`` rows of ``NKV/tp`` heads, the replicated
     sampling state whole; at sp > 1 also the port's own
     ``ring_activations`` (:func:`ring_activation_bytes` at ``max_seq``
-    positions, in the activations' ``dtype_bytes``), which the reference's
-    ledger, counting no activations, lacks."""
-    from ..models.partition import dp_degree, sp_degree, tp_degree
+    positions, in the activations' ``dtype_bytes``), and at a world above
+    one rank with ``tick_rows`` (the engine's widest tick) its own
+    ``tick_activations`` (:func:`tick_activation_bytes`), both of which the
+    reference's ledger, counting no activations, lacks."""
+    from ..models.partition import dp_degree, mesh_device_count, sp_degree, tp_degree
 
     ledger = HbmLedger(
         kv_bytes_per_row=kv_cache_bytes_per_row(cfg, kv_quant, dtype_bytes,
@@ -282,6 +285,9 @@ def build_hbm_ledger(
     if sp_degree(mesh_shape) > 1:
         ledger.components["ring_activations"] = ring_activation_bytes(
             cfg, cfg.max_seq, mesh_shape, dtype_bytes)
+    if tick_rows and mesh_device_count(mesh_shape) > 1:
+        ledger.components["tick_activations"] = tick_activation_bytes(
+            params, cfg, tick_rows, mesh_shape, dtype_bytes)
     if prefix_cache_budget_bytes:
         ledger.host_components["prefix_cache_budget"] = int(
             prefix_cache_budget_bytes
@@ -310,6 +316,43 @@ def ring_activation_bytes(cfg, positions: int, mesh_shape, dtype_bytes: int = 2)
     layer = 4 * rows * 3 * (cfg.intermediate_size // tp
                             + (cfg.num_heads // tp) * cfg.head_dim + cfg.hidden_size)
     return kv + layer
+
+
+def tick_activation_bytes(params, cfg, rows: int, mesh_shape, dtype_bytes: int = 2) -> int:
+    """What one rank holds beyond its weights, cache and state during a tick
+    of ``rows`` rows at a world above one rank, where the K-step and
+    super-step programs run uncaptured (on one rank the same working set
+    lies in their graph pool, measured as ``cuda_graph_pool``):
+
+    - the f32 logits: this rank's ``V/tp`` columns, then the tp all-gather's
+      parts and their concatenation (the whole vocabulary each);
+    - with int8 weights, the activations'-type copy of the largest int8
+      matmul block (``_qmatmul`` copies the codes for each call);
+    - one layer's f32 working set, as :func:`ring_activation_bytes` counts
+      it: three ``I/tp``-wide MLP planes, three ``H/tp x D`` attention
+      planes and three ``H``-wide residual planes."""
+    from ..models.partition import tp_degree
+
+    tp = tp_degree(mesh_shape)
+    rows = int(rows)
+    logits = 4 * rows * cfg.vocab_size * (2 * tp + 1) // tp
+    copy = 0
+    for path, leaf in _quantized_blocks(params):
+        per = int(leaf.numel()) // (int(leaf.shape[0]) if path[0] == "layers" else 1)
+        copy = max(copy, per * int(dtype_bytes))
+    layer = 4 * rows * 3 * (cfg.intermediate_size // tp
+                            + (cfg.num_heads // tp) * cfg.head_dim + cfg.hidden_size)
+    return logits + copy + layer
+
+
+def _quantized_blocks(tree, path=()):
+    """``(path, q8)`` of every int8 matmul leaf (a ``{"q8", "scale"}`` node)."""
+    if isinstance(tree, dict):
+        if "q8" in tree and "scale" in tree:
+            yield path, tree["q8"]
+            return
+        for k, v in tree.items():
+            yield from _quantized_blocks(v, path + (k,))
 
 
 def predict_activation_bytes(predictor, batch: int) -> int:
@@ -690,6 +733,9 @@ class DeviceTelemetry:
         # the /debug/device handler thread.
         self._util_lock = threading.Lock()
         self.last_util: dict[str, dict] = {}
+        # What runs the engine's K-step or super-step tick (its program's
+        # ``mode``, set at the engine's start), None without a program.
+        self.program: str | None = None
         if metrics is not None:
             self.bind_metrics(metrics)
 
@@ -706,15 +752,18 @@ class DeviceTelemetry:
 
     def attach_model(self, params, cfg, max_slots: int,
                      kv_quant: bool = False, dtype_bytes: int = 2,
-                     prefix_cache_budget_bytes: int = 0, mesh_shape=None) -> None:
+                     prefix_cache_budget_bytes: int = 0, mesh_shape=None,
+                     tick_rows: int | None = None) -> None:
         """Build the ledger + cost model once the engine geometry is
         known; exports the per-component HBM gauges.  ``mesh_shape``: the
-        rank's blocks (``params`` is its shard) and the collective walls."""
+        rank's blocks (``params`` is its shard) and the collective walls;
+        ``tick_rows``: the engine's widest tick (its activations, counted
+        at a world above one rank)."""
         self.ledger = build_hbm_ledger(
             params, cfg, max_slots, kv_quant=kv_quant,
             dtype_bytes=dtype_bytes,
             prefix_cache_budget_bytes=prefix_cache_budget_bytes,
-            mesh_shape=mesh_shape,
+            mesh_shape=mesh_shape, tick_rows=tick_rows,
         )
         self.cost = LlamaCostModel.for_model(
             params, cfg, kv_quant=kv_quant, dtype_bytes=dtype_bytes, mesh_shape=mesh_shape,
@@ -795,4 +844,5 @@ class DeviceTelemetry:
             "hbm": self.ledger.snapshot(self.peaks) if self.ledger else None,
             "utilization": utilization,
             "compile": self.observatory.snapshot(),
+            "program": self.program,
         }

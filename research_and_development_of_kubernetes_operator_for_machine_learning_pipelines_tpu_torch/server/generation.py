@@ -60,9 +60,10 @@ scheduler owes nothing else (no admission in flight or queued, no draft
 in hand), a BURST runs K decode steps a dispatch (``llama.decode_multistep``
 with the sampling chain and the EOS latch on the device), and harvests
 each dispatch's token block one tick late, after the next dispatch is
-in flight.  On the card every dispatch replays a CUDA graph captured at
-start for its (window, token rule) (``server/cuda_graphs.py``); the
-window is pre-picked to cover every row's length + K - 1.  K = 1 is the
+in flight.  On the card, on one rank, every dispatch replays a CUDA graph
+captured at start for its (window, token rule) (``server/cuda_graphs.py``);
+at a world above one rank the same program runs uncaptured.  The window
+is pre-picked to cover every row's length + K - 1.  K = 1 is the
 single-step tick.
 
 Unified ragged super-step (``unified_step``): EVERY tick is one dispatch,
@@ -72,11 +73,11 @@ all-greedy tick with a draft in hand, verifies; up to the packed budget of
 in-flight packed admissions ride the same dispatch as prefill rows, and
 the rows whose chunk completes their prompt are finalized inside it (their
 sampling state, length and first token).  The block is one static width,
-``max(draft_tokens + 1, prefill_chunk)`` (at most the verify chunk kernel's
-256 positions), and each row tells the kernel how many of its columns are
-live.  On the card every tick replays a CUDA graph captured at start for
-its (window, token rule); the tick's inputs are host arrays, read back
-synchronously.  The split engine's decode, verify, multistep and
+``max(draft_tokens + 1, prefill_chunk)``, and each row tells the kernel
+how many of its columns are live.  On the card, on one rank, every tick
+replays a CUDA graph captured at start for its (window, token rule), and
+at a world above one rank the program runs uncaptured; the tick's inputs
+are host arrays, read back synchronously.  The split engine's decode, verify, multistep and
 packed-prefill programs are never built or run; seeds stay their own op.
 
 Observability and containment (each off unless given; off, the loop is
@@ -156,10 +157,10 @@ truth of every slot is the same on every rank; a seed carries the whole
 heads' K/V and each rank takes its own, and a read for the prefix cache
 gathers the heads (and the owning dp shard's row) back.  Under dp > 1
 ``_free_slot`` admits into the least-loaded block of cache rows.  A failed
-op on the leader broadcasts ``OP_GEN_RESET``.  Not yet ported (it raises
-``ValueError`` at construction, before any device state): on CUDA the
-graph-replayed paths (``decode_steps`` > 1, ``unified_step``) at a world
-above one rank, whose gloo collectives no CUDA graph captures.
+op on the leader broadcasts ``OP_GEN_RESET``.  The K-step and super-step
+programs (``decode_steps`` > 1, ``unified_step``) run uncaptured at a
+world above one rank, on the leader and on every follower alike: the
+capture of their collectives into CUDA graphs is not ported.
 
 Sequence parallelism (``sp`` > 1, a power of two no larger than the
 smallest prompt bucket, dividing the prefill chunk): a cold prompt of at
@@ -192,7 +193,6 @@ from ..models import llama
 from ..models import partition
 from ..models import prng
 from ..models.sampling import sample_chain_step, speculative_accept
-from ..ops.decode_attention import MAX_VERIFY_S
 from ..parallel.collectives import all_gather_concat, psum
 from .batching import next_bucket
 from .cuda_graphs import MultistepProgram, SuperstepProgram
@@ -557,8 +557,7 @@ class GenerationEngine:
         if mesh_shape and partition.mesh_device_count(mesh_shape) > 1:
             chunk = prefill_chunk or (prefix_cache.chunk_tokens if prefix_cache is not None
                                       and prefix_cache.enabled else None)
-            params = self._init_mesh(params, cfg, dict(mesh_shape), decode_steps, unified_step,
-                                     chunk)
+            params = self._init_mesh(params, cfg, dict(mesh_shape), chunk)
         self._params = params
         self.capacity = int(cfg.max_seq)
         self._dtype = dtype or torch.bfloat16
@@ -716,8 +715,7 @@ class GenerationEngine:
         self._fused = self._decode_steps > 1
         # Unified ragged super-step: every tick one dispatch of decode,
         # verify and packed-prefill rows.  Its static block width is the
-        # largest verify chain and the prefill chunk (1 with neither); the
-        # verify chunk kernel it runs takes at most MAX_VERIFY_S.
+        # largest verify chain and the prefill chunk (1 with neither).
         self._unified = bool(unified_step)
         sw = 1
         if self._spec is not None:
@@ -725,14 +723,10 @@ class GenerationEngine:
         if self._packed:
             sw = max(sw, int(self._prefill_chunk_size))
         self._super_width = sw
-        if self._unified and sw > MAX_VERIFY_S:
-            raise ValueError(
-                f"unified_step: the super-step width max(draftTokens + 1, prefillChunk) = "
-                f"{sw} exceeds the {MAX_VERIFY_S} chunk positions the verify chunk kernel "
-                "takes; use a prefillChunk of at most 256 or the split engine"
-            )
-        # The graph program: the super-step on a unified engine, the fused
-        # multi-step burst on a split one with K > 1, else none.
+        # The program: the super-step on a unified engine, the fused
+        # multi-step burst on a split one with K > 1, else none.  On the
+        # card it replays CUDA graphs on one rank and runs uncaptured at a
+        # world above one (``cuda_graphs.program_mode``).
         self._program: MultistepProgram | SuperstepProgram | None = None
         self._capture = False  # graphs wanted (a started CUDA engine)
         # Device dispatches by tick kind, as the reference keeps them.
@@ -776,10 +770,30 @@ class GenerationEngine:
                 dtype_bytes=self._dtype.itemsize,
                 prefix_cache_budget_bytes=int(prefix_cache.budget_bytes) if prefix_enabled else 0,
                 mesh_shape=self._mesh.shape if self._mesh is not None else None,
+                tick_rows=self.widest_tick_rows,
             )
         self._reset_device_state()
 
-    def _init_mesh(self, params, cfg, mesh_shape: dict, decode_steps, unified_step, chunk):
+    @property
+    def widest_tick_rows(self) -> int:
+        """Rows of the widest forward a tick of this engine runs (its logits
+        and one layer's working set scale with them): a decode tick's slots,
+        a verify tick's draft chains, a super-step's width a slot, a packed
+        call's bucket of chunks or one chunk, or, unchunked, a whole
+        prompt's largest bucket."""
+        rows = self.max_slots
+        if self._spec is not None:
+            rows = max(rows, self.max_slots * (int(self._spec.draft_tokens) + 1))
+        if self._unified:
+            rows = max(rows, self.max_slots * self._super_width)
+        if self._prefill_chunk_size:
+            bucket = 1 << (self._prefill_batch - 1).bit_length()
+            rows = max(rows, self._prefill_chunk_size * bucket)
+        else:
+            rows = max(rows, self.capacity)
+        return rows
+
+    def _init_mesh(self, params, cfg, mesh_shape: dict, chunk):
         """Check a mesh of several ranks (typed errors, before any device
         state), build this rank's ``ServingMesh`` and return its block of the
         parameters (a full tree is cut here; the loader's block passes)."""
@@ -803,12 +817,6 @@ class GenerationEngine:
             raise ValueError(
                 f"meshShape sp={sp} must be a power of two <= {_MIN_BUCKET} so every "
                 "prefill bucket divides evenly across the ring"
-            )
-        if self._device.type == "cuda" and ((decode_steps or 1) > 1 or unified_step):
-            raise ValueError(
-                "decode_steps > 1 and unified_step replay CUDA graphs, and graph capture "
-                "across ranks is not yet ported: at a world above one rank the gloo "
-                "collectives run on the host, where no graph captures them"
             )
         from ..parallel import build_mesh
 
@@ -868,7 +876,7 @@ class GenerationEngine:
     def _capture_graphs(self) -> None:
         """One graph per window bucket and token rule, on all-inactive rows
         or a parked super-step (what the reference's warmup sweep
-        compiles)."""
+        compiles); an uncaptured program records none (its pool stays 0)."""
         prog = self._program
         windows = decode_window_buckets(self.capacity)
         kind = "multistep"
@@ -894,9 +902,10 @@ class GenerationEngine:
         if self._telemetry is not None:
             self._telemetry.set_component("cuda_graph_pool",
                                           prog.pool_bytes("allocated_size"))
-        _log.info("captured %d %s graphs (K=%d) in %.2f s; pool %.1f MiB",
-                  len(prog.graphs), kind, self._decode_steps, prog.capture_s,
-                  prog.pool_bytes() / 2**20)
+        if prog.captured:
+            _log.info("captured %d %s graphs (K=%d) in %.2f s; pool %.1f MiB",
+                      len(prog.graphs), kind, self._decode_steps, prog.capture_s,
+                      prog.pool_bytes() / 2**20)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -917,6 +926,10 @@ class GenerationEngine:
         if self._program is not None and self._device.type == "cuda":
             self._capture = True
             self._capture_graphs()
+        if self._program is not None:
+            _log.info("program: %s", self._program.mode)
+            if self._telemetry is not None:
+                self._telemetry.program = self._program.mode
         if obs is not None:
             obs.end_warmup()
         if self._watchdog is not None:
@@ -2485,7 +2498,7 @@ class GenerationEngine:
         """A fused-decode burst with lag-1 readback.
 
         Each iteration dispatches ONE K-step program (a graph replay on the
-        card), then harvests the PREVIOUS dispatch's token block, so the
+        card at one rank), then harvests the PREVIOUS dispatch's token block, so the
         host's work for tick N (the sync, the SSE events) overlaps tick
         N+1 on the device.  Chained dispatches take no host input: the
         program's static buffers carry the tokens, lengths, active mask,

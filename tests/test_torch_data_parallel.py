@@ -14,8 +14,9 @@ port's ranks are spawned gloo worlds, the JAX references run here:
   prompts, and the unified super-step (eager), token for token against the
   JAX engine; the replicated state bit-equal on both ranks and each rank's
   cache rows the tp-1 engine's;
-- the composed ``{"dp": 2, "tp": 2}`` mesh, plain and with the full
-  composition.
+- the composed ``{"dp": 2, "tp": 2}`` mesh, plain, with the full
+  composition and on the unified super-step (the program uncaptured, as
+  every program at a world above one rank runs).
 """
 
 import jax
@@ -92,7 +93,8 @@ def _world(name, tree):
             _WORLDS[name] = W.run(W.engine_case, 2, {"dp": 2}, W.CFG_KW, tree, runs,
                                   timeout=240)
         else:
-            runs = [({}, W.GREEDY + W.SAMPLED), (W.composition_kw(), W.COMPOSITION)]
+            runs = [({}, W.GREEDY + W.SAMPLED), (W.composition_kw(), W.COMPOSITION),
+                    (UNIFIED, W.GREEDY)]
             _WORLDS[name] = W.run(W.engine_case, 4, {"dp": 2, "tp": 2}, W.CFG_KW, tree, runs,
                                   timeout=300)
     return _WORLDS[name]
@@ -167,8 +169,8 @@ def test_dp2_state_after_replay_is_the_tp1_engines_rows(model):
             np.testing.assert_allclose(x, full[:, 2 * r:2 * r + 2].numpy(), **KV_TOL)
 
 
-@pytest.mark.parametrize("run,reqs", [(0, W.GREEDY + W.SAMPLED), (1, W.COMPOSITION)],
-                         ids=["plain", "composed"])
+@pytest.mark.parametrize("run,reqs", [(0, W.GREEDY + W.SAMPLED), (1, W.COMPOSITION),
+                                      (2, W.GREEDY)], ids=["plain", "composed", "unified"])
 def test_dp2_tp2_mesh_matches_the_jax_engine(model, refs, run, reqs):
     ranks = _world("dp2tp2", model[2])
     assert ranks[0][run]["tokens"] == _want(refs, reqs)
@@ -178,3 +180,7 @@ def test_dp2_tp2_mesh_matches_the_jax_engine(model, refs, run, reqs):
         np.testing.assert_array_equal(rank[run]["state"]["keys"], ranks[0][run]["state"]["keys"])
     if run == 1:
         assert ranks[0][run]["prefix_hits"] >= 1 and ranks[0][run]["spec_verify_ticks"] >= 1
+    if run == 2:  # every decode tick a super-step, replayed by every follower
+        dispatches = ranks[0][run]["dispatches"]
+        assert dispatches.get("superstep", 0) > 0
+        assert not {"decode", "multistep", "verify", "packed-prefill"} & set(dispatches)

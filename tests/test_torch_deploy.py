@@ -10,7 +10,10 @@
   ``GPU_TOPOLOGIES``.
 - Every example CR is the JAX package's example of the same name in the
   port's vocabulary, parses through ``OperatorConfig.from_spec`` and builds
-  through every manifest builder without a refusal.
+  through every manifest builder without a refusal; every CR on
+  ``backend: cuda`` takes its pod's server arguments through the
+  generation engine's construction on a CUDA device at the CR's mesh
+  without a refusal.
 - Every Dockerfile ``COPY`` source exists; the images are the ones the
   manifests, the config and the Makefile name; the package data ships the
   files; the operator's import closure pulls no torch.
@@ -170,6 +173,73 @@ def test_every_example_parses_and_builds_without_a_refusal(name):
         (c,) = pod["containers"]
         assert c["command"][-1] == (PB.LAUNCH_MODULE if info.cards > 1 else PB.SERVER_MODULE)
         assert c["resources"]["limits"] == {"nvidia.com/gpu": str(info.cards_per_host)}
+
+
+def _cuda_docs() -> list[tuple[str, int]]:
+    return [(name, i) for name, docs in _examples(PORT).items() for i, doc in enumerate(docs)
+            if doc["spec"].get("backend") == "cuda"]
+
+
+@pytest.mark.parametrize("name,i", _cuda_docs())
+def test_every_cuda_example_passes_the_engines_construction_checks(monkeypatch, name, i):
+    """The server arguments of the pod the operator builds for the CR, parsed
+    by the server, through ``make_gen_engine`` on a CUDA device at the CR's
+    mesh: every option check the engine makes at construction passes (the
+    card and the world are stood in for; construction stops at its first
+    device allocation, after the checks)."""
+    import types
+
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch import (  # noqa: E501
+        parallel,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (  # noqa: E501
+        llama as TL,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.parallel import (  # noqa: E501
+        mesh as pmesh,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (  # noqa: E501
+        app as tapp,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (  # noqa: E501
+        generation as TG,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (  # noqa: E501
+        metrics as tmetrics,
+    )
+
+    doc = _examples(PORT)[name][i]
+    cfg = PC.OperatorConfig.from_spec(doc["spec"])
+    meta = doc["metadata"]
+    args = (meta["name"], meta["namespace"], "uid")
+    sd = PB.build_deployment(*args, cfg, "1", "s3://mlflow/1", 100)
+    units = PB.build_worker_unit_manifests(*args, cfg, "1", "s3://mlflow/1")
+    pod = (units[2]["spec"]["template"]["spec"] if units
+           else sd["spec"]["predictors"][0]["componentSpecs"][0]["spec"])
+    (c,) = pod["containers"]
+    conf = tapp.config_from_args(tapp.build_arg_parser().parse_args(c["args"]))
+    assert conf.mesh_shape == cfg.cuda.mesh_shape
+
+    class Reached(Exception):
+        pass
+
+    def key(*a, **kw):
+        raise Reached  # the boot key: the engine's first tensor on the card
+
+    cuda = types.SimpleNamespace(type="cuda")
+    world = 1
+    for n in conf.mesh_shape.values():
+        world *= int(n)
+    monkeypatch.setattr(TG, "resolve_device", lambda device=None: cuda)
+    monkeypatch.setattr(parallel, "build_mesh",
+                        lambda shape: pmesh.placement(shape, rank=0, world=world))
+    monkeypatch.setattr(TG.prng, "key", key)
+    lm = TL.LlamaConfig.llama2_7b(max_seq=32768 if "32k" in doc["spec"]["modelName"] else 4096)
+    predictor = types.SimpleNamespace(causal_lm={
+        "params": {"embed": types.SimpleNamespace(device=cuda, shape=(1, 1))}, "cfg": lm})
+    metrics = tmetrics.ServerMetrics(meta["name"], "v1", meta["namespace"])
+    with pytest.raises(Reached):
+        tapp.make_gen_engine(predictor, conf, metrics)
 
 
 def test_the_shipped_examples_land_their_fields():

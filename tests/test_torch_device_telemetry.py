@@ -330,6 +330,83 @@ def test_graph_captures_are_attributed_and_the_watchdog_disarmed_around_them(mon
         tcc.detach_observatory(tel.observatory)
 
 
+def test_tick_activations_count_the_widest_tick_at_a_world_above_one_rank():
+    """Where the K-step and super-step programs run uncaptured (a world
+    above one rank) the ledger counts the widest tick's working set, which
+    one rank holds in its graph pool: the f32 logits with the tp all-gather's
+    parts and concatenation, an activations'-type copy of the largest int8
+    block, one layer's f32 planes.  Absent at one rank and without rows."""
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.models import (  # noqa: E501
+        quantization,
+    )
+
+    q = quantization.quantize_llama(T.init(torch.Generator().manual_seed(0), TCFG))
+    tp2 = {"dp": 1, "tp": 2}
+    assert "tick_activations" not in tdt.build_hbm_ledger(q, TCFG, 4, tick_rows=64).components
+    assert "tick_activations" not in tdt.build_hbm_ledger(q, TCFG, 4, mesh_shape=tp2).components
+    got = tdt.build_hbm_ledger(q, TCFG, 4, dtype_bytes=4, mesh_shape=tp2,
+                               tick_rows=64).components["tick_activations"]
+    cfg = TCFG
+    logits = 4 * 64 * cfg.vocab_size * (1 + 1 + 0.5)
+    copy = max(q["lm_head"]["q8"].numel(),
+               max(leaf["q8"][0].numel() for leaf in _q8_leaves(q["layers"]))) * 4
+    layer = 4 * 64 * 3 * (cfg.intermediate_size // 2 + (cfg.num_heads // 2) * cfg.head_dim
+                          + cfg.hidden_size)
+    assert got == logits + copy + layer == tdt.tick_activation_bytes(q, cfg, 64, tp2, 4)
+    plain = T.init(torch.Generator().manual_seed(0), TCFG)  # no int8 block: no copy
+    assert tdt.tick_activation_bytes(plain, cfg, 64, tp2, 4) == logits + layer
+
+
+def _q8_leaves(tree):
+    if isinstance(tree, dict) and "q8" in tree:
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _q8_leaves(v)
+
+
+@pytest.mark.parametrize("kw,rows", [
+    ({}, 64),                                              # a whole prompt's largest bucket
+    ({"prefill_chunk": 16}, 16),                           # one chunk
+    ({"prefill_chunk": 16, "prefill_batch": 3}, 64),       # a packed bucket of 4 chunks
+    ({"prefill_chunk": 8, "unified_step": True, "prefill_batch": 2}, 4 * 8),  # slots x width
+    ({"prefill_chunk": 8, "speculative": True}, 4 * 3),    # 4 slots' draft chains over the chunk
+])
+def test_the_engines_widest_tick(kw, rows):
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (  # noqa: E501
+        speculative as tsp,
+    )
+
+    if kw.pop("speculative", False):
+        kw["speculative"] = tsp.SpeculativeConfig(enabled=True, draft_tokens=2)
+    params = T.init(torch.Generator().manual_seed(0), TCFG)
+    engine = TG.GenerationEngine(params, TCFG, max_slots=4, dtype=torch.float32, device="cpu",
+                                 **kw)
+    assert engine.widest_tick_rows == rows
+
+
+@pytest.mark.parametrize("kw,want", [({"decode_steps": 4}, "multistep, uncaptured (cpu)"),
+                                     ({"unified_step": True}, "superstep, uncaptured (cpu)"),
+                                     ({}, None)])
+def test_debug_device_reports_the_programs_mode(kw, want):
+    """``/debug/device`` names what runs the K-step or super-step tick (the
+    program's kind, captured or not and why), set at the engine's start;
+    None without a program."""
+    tp = convert.from_jax_numpy(jax.device_get(J.init(jax.random.key(0), JCFG,
+                                                      dtype=jnp.float32)))
+    tel = tdt.DeviceTelemetry()
+    engine = TG.GenerationEngine(tp, TCFG, max_slots=2, dtype=torch.float32, device="cpu",
+                                 telemetry=tel, **kw)
+    assert tel.snapshot()["program"] is None
+    engine.start(warmup=False)
+    try:
+        assert tel.snapshot()["program"] == want
+        assert tel.ledger.components.get("cuda_graph_pool", 0) == 0
+    finally:
+        engine.shutdown()
+        tcc.detach_observatory(tel.observatory)
+
+
 # -- the served surface, every option on ------------------------------------------------
 
 

@@ -483,6 +483,30 @@ def test_ragged_plain_matches_the_reference_lines(quant, H, NKV):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("H,NKV", [(4, 4), (8, 2)], ids=["G1", "G4"])
+def test_ragged_through_the_verify_instance_matches_the_reference_lines(quant, H, NKV):
+    """The f32-q path of the wrapper on the card runs the ragged function
+    through the verify chunk instance; here its layouts (each row's window
+    gathered by its slot, the strict mask from its offset, q and the chunk
+    in the verify layouts) go through the verify instance's plain version:
+    equal to the JAX lines as the plain ragged version is, and to the plain
+    ragged version with a parked row (offset at capacity) among them."""
+    a = _ragged_inputs(3, 12, H, NKV, 5, 64, [0, 37, 64 - 1], [4, 1, 2], quant, seed=H)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = _jax_ragged_lines(*(None if a[n] is None else jnp.asarray(a[n]) for n in
+                                   ("q", "k", "v", "slots", "offsets", "kc", "vc", "ks", "vs")))
+        want = np.asarray(want)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got = _port_ragged(a, fn=tfa._ragged_as_verify).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    a["offsets"] = np.asarray([0, 37, 64], np.int32)  # the last row parked
+    np.testing.assert_allclose(_port_ragged(a, fn=tfa._ragged_as_verify).numpy(),
+                               _port_ragged(a).numpy(), rtol=1e-12, atol=1e-12)
+
+
 def _ragged_piece(qq, segs, pos, rnd):
     """One warp's online softmax over a piece in f64 torch, as
     ``csrc/chunk_attention.cuh`` runs it for the ragged kernel: queries

@@ -14,7 +14,8 @@ references run here, on its 8 host devices.
   ``{"sp": 2}``, ``{"sp": 4}`` and ``{"sp": 2, "tp": 2}``, threshold 16: a
   32-token cold prompt rides the ring (one ``sp-prefill`` dispatch, as the
   JAX engine counts it), a shorter one keeps the dense path, and both
-  stream the unsharded tokens (JAX ``generate_greedy``).  At sp 2 also
+  stream the unsharded tokens (JAX ``generate_greedy``); at ``{"sp": 2,
+  "tp": 2}`` also with ``decode_steps`` 4 after the ring.  At sp 2 also
   int8kv (equal to the unsharded int8kv engine), chunked prefill with the
   prefix cache seeded from the ring's write-back (a hit), and packed
   prefill.
@@ -120,7 +121,10 @@ RUNS = {
         ("packed", {**SP_KW, "prefill_chunk": 8, "prefill_batch": 2}, PACKED),
     ]),
     "sp4": ({"sp": 4}, [("whole", SP_KW, [LONG, SHORT])]),
-    "sp2tp2": ({"sp": 2, "tp": 2}, [("whole", SP_KW, [LONG, (_prompt(10, 32), 6, {})])]),
+    "sp2tp2": ({"sp": 2, "tp": 2}, [
+        ("whole", SP_KW, [LONG, (_prompt(10, 32), 6, {})]),
+        ("k4", {**SP_KW, "decode_steps": 4}, [(_prompt(32, 51), 9, {}), (_prompt(12, 52), 7, {})]),
+    ]),
 }
 _WORLDS: dict = {}
 
@@ -169,6 +173,23 @@ def test_sp_engine_streams_the_unsharded_tokens(trees, name):
     # the follower's replicated state is the leader's
     for f in followers:
         for k in ("tokens", "lengths", "temps"):
+            np.testing.assert_array_equal(f["state"][k], leader["state"][k])
+
+
+def test_a_k4_burst_composes_with_the_ring_at_sp2_tp2(trees):
+    """The long-context CR's combination at ``{"sp": 2, "tp": 2}``:
+    ``decode_steps`` 4 (the program uncaptured, as at any world above one
+    rank) after a cold 32-token prompt rides the ring; both streams equal
+    the unsharded greedy ones, the decode ticks are K-step dispatches, and
+    every follower replayed as many ops as the leader's other followers."""
+    leader, *followers = _engine_world(trees, "sp2tp2")["k4"]
+    reqs = RUNS["sp2tp2"][1][1][2]
+    assert leader["tokens"] == [_greedy(trees, p, n) for p, n, _ in reqs]
+    assert leader["dispatches"].get("sp-prefill", 0) == 1
+    assert leader["dispatches"].get("multistep", 0) > 0
+    assert len({f["steps"] for f in followers}) == 1 and followers[0]["steps"] > 0
+    for f in followers:
+        for k in ("tokens", "lengths", "keys"):
             np.testing.assert_array_equal(f["state"][k], leader["state"][k])
 
 

@@ -440,7 +440,8 @@ def test_kernel_past_64_rows_matches_the_reference_lines(quant, S, G, W, splits)
 
 @pytest.mark.parametrize("b,nkv,r,w", [(4, 32, 5, 768), (4, 32, 65, 768), (4, 32, 256, 4096),
                                        (1, 1, 1, 1), (3, 2, 17, 97), (8, 8, 520, 4096),
-                                       (2, 4, 33, 63), (4, 32, 2, 16)])
+                                       (2, 4, 33, 63), (4, 32, 2, 16), (4, 32, 1024, 4096),
+                                       (4, 8, 4096, 4096)])
 @pytest.mark.parametrize("blocks", [None, 1, 7, 10_000])
 def test_verify_plan_covers_every_key_and_row_once(b, nkv, r, w, blocks):
     """The plan's pieces cover the window's positions exactly once, in
@@ -462,14 +463,14 @@ def test_verify_plan_covers_every_key_and_row_once(b, nkv, r, w, blocks):
 
 
 def test_row_tile_and_refusals():
-    """The widest chunk the kernel takes, 256 positions (the prefill
-    chunk) x G 8 = 2048 query rows, has its plain answer; 66 positions,
-    one past the old cap, is taken; more than 256 positions, rows that are
-    not S x G with G in 1, 2, 4, 8, and other head dims are refused."""
+    """Chunks of 256 positions x G 8 = 2048 query rows, 66 positions and
+    257, one past the cap the kernel had until it streamed its chunk keys
+    in tiles, have their plain answers; an empty chunk, rows that are not S
+    x G with G in 1, 2, 4, 8, and other head dims are refused."""
     t = lambda *sh: torch.zeros(sh)
     mask = torch.zeros((1, 1, 16))
     kv = torch.ones((1, 2, 16, 16), dtype=torch.float64)
-    for s, g in ((256, 8), (66, 1)):
+    for s, g in ((256, 8), (66, 1), (257, 1)):
         q = torch.from_numpy(np.random.default_rng(s).standard_normal((1, 2, s * g, 16)))
         chunk = torch.ones((1, 2, s, 16), dtype=torch.float64)
         out = tda.verify_attention_dense(q, kv, kv, chunk, chunk, mask)
@@ -477,7 +478,7 @@ def test_row_tile_and_refusals():
         torch.testing.assert_close(out, torch.ones_like(out))  # every value row is ones
     for q, kc, needle in ((t(1, 2, 6, 16), t(1, 2, 4, 16), "query rows"),
                           (t(1, 2, 3 * 16, 16), t(1, 2, 3, 16), "query rows"),
-                          (t(1, 2, 257, 16), t(1, 2, 257, 16), "chunk positions"),
+                          (t(1, 2, 0, 16), t(1, 2, 0, 16), "chunk positions"),
                           (t(1, 2, 4, 24), t(1, 2, 4, 24), "takes D")):
         with pytest.raises(ValueError, match=needle):
             tda.verify_attention_dense(q, t(1, 2, 16, q.shape[-1]), t(1, 2, 16, q.shape[-1]),
@@ -486,6 +487,57 @@ def test_row_tile_and_refusals():
                                    t(1, 2, 2, 16), t(1, 2, 2, 16), mask)]
     with pytest.raises(ValueError, match="unsupported device"):
         tda.verify_attention_dense(*meta)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_models():
+    kw = dict(max_seq=1024, **CONFIGS["gqa"])
+    jcfg, tcfg = J.LlamaConfig.tiny(**kw), T.LlamaConfig.tiny(**kw)
+    jp = J.init(jax.random.key(0), jcfg, dtype=jnp.float64)
+    return jcfg, tcfg, jp, convert.from_jax_numpy(jax.device_get(jp))
+
+
+@pytest.mark.parametrize("cache", ["dense", "int8"])
+@pytest.mark.parametrize("S", [257, 512])
+def test_verify_ragged_past_256_positions_matches_the_reference(S, cache):
+    """``verify_ragged`` with chunks of 257 and 512 positions (a super-step
+    as wide as a prefill chunk past the kernel's old 256) on a 1024-position
+    cache, the plain verify attention inside, against the JAX
+    ``verify_ragged`` in f64: slot 0 at length 100, slot 1 inactive, slot 2
+    at 300; logits, argmax and the committed cache.  Layer 1's K/V rows come
+    from layer 0's attention, which both sides round to f32 (its softmax
+    over up to 812 keys), so the float cache is held at the logits'
+    tolerance."""
+    quant = cache == "int8"
+    jcfg, tcfg, jp, tp = _wide_models()
+    if quant:
+        jc, tc = J.QuantRaggedKVCache.create(jcfg, 3), T.QuantRaggedKVCache.create(tcfg, 3)
+    else:
+        jc = J.RaggedKVCache.create(jcfg, 3, jnp.float64)
+        tc = T.RaggedKVCache.create(tcfg, 3, torch.float64)
+    for slot, n in ((0, 100), (2, 300)):
+        ids = np.zeros((1, 512), np.int32)
+        ids[0, :n] = np.random.default_rng(slot).integers(0, 256, n)
+        _, jseq = _jprefill(jp, jnp.asarray(ids), jcfg, dtype=jnp.float64)
+        _, tseq = T.prefill(tp, torch.from_numpy(ids).long(), tcfg, dtype=torch.float64)
+        jc = _jinsert(jc, jseq, jnp.int32(slot), jnp.int32(n))
+        tc = T.insert_sequence(tc, tseq, slot, n)
+    toks = np.random.default_rng(S).integers(0, 256, (3, S)).astype(np.int32)
+    active = np.array([True, False, True])
+    jl, jc = _jverify(jp, jnp.asarray(toks), jc, jcfg, dtype=jnp.float64, window=512,
+                      active=jnp.asarray(active))
+    tl, tc = T.verify_ragged(tp, torch.from_numpy(toks).long(), tc, tcfg, torch.float64,
+                             window=512, active=torch.from_numpy(active))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    assert tl.argmax(-1).tolist() == np.asarray(jnp.argmax(jl, -1)).tolist()
+    assert tc.lengths.tolist() == [100, 0, 300] == np.asarray(jc.lengths).tolist()
+    for name, jx, tx in zip(jc._fields, jc, tc):
+        jx, tx = np.asarray(jx), tx.numpy()
+        if jx.dtype == np.int8:
+            # an int8 code may sit on a rounding boundary: at most one step
+            assert np.abs(tx.astype(int) - jx.astype(int)).max() <= 1, name
+        else:
+            np.testing.assert_allclose(tx, jx, **LOGIT_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])

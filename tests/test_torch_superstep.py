@@ -421,14 +421,57 @@ def test_engine_gating_builds_one_program_not_both(tiny):
 
 @pytest.mark.parametrize("chunk", [512, 1024])
 def test_a_super_width_over_the_verify_kernel_is_refused(tiny, chunk):
+    """A super-step as wide as a prefill chunk past 256 positions is taken
+    (it was refused while the verify kernel held at most 256 chunk
+    positions): the program's width is the chunk, as on the split engine."""
     _, tp = tiny
     cfg = T.LlamaConfig.tiny(max_seq=4096)
-    with pytest.raises(ValueError, match=r"exceeds the 256 chunk positions"):
-        TG.GenerationEngine(tp, cfg, max_slots=2, dtype=torch.float64, device="cpu",
-                            unified_step=True, prefill_chunk=chunk, prefill_batch=2)
-    # the split engine takes it
-    TG.GenerationEngine(tp, cfg, max_slots=2, dtype=torch.float64, device="cpu",
-                        prefill_chunk=chunk, prefill_batch=2)
+    unified = TG.GenerationEngine(tp, cfg, max_slots=2, dtype=torch.float64, device="cpu",
+                                  unified_step=True, prefill_chunk=chunk, prefill_batch=2)
+    assert unified._super_width == unified._program.width == chunk
+    assert isinstance(unified._program, TCG.SuperstepProgram)
+    # the split engine takes it too
+    split = TG.GenerationEngine(tp, cfg, max_slots=2, dtype=torch.float64, device="cpu",
+                                prefill_chunk=chunk, prefill_batch=2)
+    assert split._program is None and split._prefill_chunk_size == chunk
+
+
+WIDE_CFG = dict(max_seq=2048)
+
+
+@pytest.fixture(scope="module")
+def wide(x64):
+    jcfg = J.LlamaConfig.tiny(**WIDE_CFG)
+    jp = J.init(jax.random.key(3), jcfg, dtype=jnp.float64)
+    return jcfg, jp, convert.from_jax_numpy(jax.device_get(jp))
+
+
+@pytest.mark.parametrize("chunk", [512, 1024])
+def test_a_wide_unified_engine_equals_the_jax_unified_engine(wide, chunk):
+    """A one-rank unified engine whose super-step is as wide as a prefill
+    chunk of 512 or 1024 positions, on a tiny Llama with 2048 positions,
+    against the JAX package's unified engine at the same width (f64,
+    greedy): a 700-token prompt (two chunks of 512, or one of 1024) packed
+    beside a short one, then decode rows in the same wide block."""
+    jcfg, jp, tp = wide
+    rng = np.random.default_rng(chunk)
+    prompts = [(rng.integers(1, 250, 700).tolist(), 6), ([5, 9, 2], 9)]
+    kw = dict(max_slots=2, prefill_chunk=chunk, prefill_batch=2, decode_steps=4)
+    jeng = JG.GenerationEngine(jp, jcfg, dtype=jnp.float64, unified_step=True, **kw)
+    jfuts = [jeng.submit(p, n) for p, n in prompts]
+    jeng.start(warmup=False)
+    try:
+        want = [f.result(timeout=300).tolist() for f in jfuts]
+    finally:
+        jeng.shutdown()
+    seen = []
+    engine = TG.GenerationEngine(tp, T.LlamaConfig.tiny(**WIDE_CFG), dtype=torch.float64,
+                                 device="cpu", unified_step=True, on_dispatch=seen.append,
+                                 **kw)
+    assert engine._program.width == chunk
+    got = _run(engine, [((p, n), {}) for p, n in prompts])
+    assert got == want
+    assert set(seen) == {"superstep"}
 
 
 def test_greedy_parity_and_one_dispatch_kind_a_tick(tiny):

@@ -6,7 +6,9 @@ one tree both sides run.  The port's ranks are spawned gloo worlds
 (``torch_world``); the JAX references run here.
 
 - Construction: the default mesh builds no sharded state; pp/ep, an
-  indivisible tp or dp and sp > 1 are refused, typed, before any world.
+  indivisible tp or dp and sp > 1 are refused, typed, before any world;
+  the K-step and unified programs are captured on the card at world 1
+  only and taken uncaptured at a world above one rank.
 - The sharded forward at tp 2 and 4 (``prefill``, a chunk, two
   ``decode_ragged`` steps, ``verify_ragged``; float, int8 weights and the
   int8 cache) against the JAX forward, logits and every rank's cache
@@ -120,18 +122,50 @@ def test_unservable_meshes_are_refused_typed(mesh_shape, match):
                             mesh_shape=mesh_shape)
 
 
-@pytest.mark.parametrize("kw", [{"decode_steps": 4}, {"unified_step": True}])
-def test_graph_paths_across_ranks_are_refused_on_cuda(monkeypatch, kw):
-    """On the card the K-step and unified engines replay CUDA graphs, which
-    cannot capture a gloo collective: refused typed at construction, before
-    any world or device state (the device is stood in for: no card here)."""
+@pytest.mark.parametrize("kw,kind", [({"decode_steps": 4}, "multistep"),
+                                     ({"unified_step": True}, "superstep")])
+def test_graph_paths_across_ranks_are_refused_on_cuda(monkeypatch, kw, kind):
+    """The K-step and unified programs decide at construction whether they
+    are captured: on the card at world 1 they are, at a world above one
+    rank they run uncaptured (gloo and NCCL alike), on the CPU never.  The
+    engine on the card takes them at a world above one rank: its
+    construction passes every option check and reaches the mesh's build
+    (the device and the world are stood in for: no card here)."""
     import types
 
-    monkeypatch.setattr(TG, "resolve_device", lambda device=None: torch.device("cuda"))
-    _, cfg = _tiny_torch()
-    params = {"embed": types.SimpleNamespace(device=torch.device("cuda"), shape=(128, 64))}
-    with pytest.raises(ValueError, match="graph capture across ranks is not yet ported"):
-        TG.GenerationEngine(params, cfg, max_slots=4, mesh_shape={"tp": 2}, **kw)
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch import (  # noqa: E501
+        parallel,
+    )
+    from research_and_development_of_kubernetes_operator_for_machine_learning_pipelines_tpu_torch.server import (  # noqa: E501
+        cuda_graphs as TCG,
+    )
+
+    cuda = torch.device("cuda")
+    assert TCG.program_mode(cuda) == (True, "captured")
+    assert TCG.program_mode(cuda, types.SimpleNamespace(world=1)) == (True, "captured")
+    assert TCG.program_mode(cuda, types.SimpleNamespace(world=4)) == (
+        False, "uncaptured (world 4)")
+    assert TCG.program_mode("cpu", types.SimpleNamespace(world=4)) == (
+        False, "uncaptured (cpu)")
+
+    # A CPU engine's program: uncaptured, its mode named by its tick kind.
+    params, cfg = _tiny_torch()
+    engine = TG.GenerationEngine(params, cfg, max_slots=2, dtype=torch.float64, device="cpu",
+                                 **kw)
+    assert engine._program.mode == f"{kind}, uncaptured (cpu)"
+    assert not engine._program.captured and engine._program.pool is None
+
+    class Reached(Exception):
+        pass
+
+    def build_mesh(shape):
+        raise Reached(shape)
+
+    monkeypatch.setattr(TG, "resolve_device", lambda device=None: cuda)
+    monkeypatch.setattr(parallel, "build_mesh", build_mesh)
+    stub = {"embed": types.SimpleNamespace(device=cuda, shape=(128, 64))}
+    with pytest.raises(Reached):
+        TG.GenerationEngine(stub, cfg, max_slots=4, mesh_shape={"tp": 2}, **kw)
 
 
 # -- the sharded forward -----------------------------------------------------------
