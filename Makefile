@@ -16,7 +16,8 @@ DOCKER   ?= docker
         torch-images torch-operator-image torch-server-image torch-router-image \
         install uninstall test test-fast test-e2e test-all lint \
         bench-contract metrics-contract compile-budget plan-contract \
-        bench-history metrics-catalog verify bench
+        bench-history metrics-catalog torch-plan-contract torch-metrics-catalog \
+        verify bench
 
 images: operator-image server-image router-image
 
@@ -141,6 +142,16 @@ bench-history:
 # router planes export — both directions.
 metrics-catalog:
 	env JAX_PLATFORMS=cpu python scripts/check_metrics_catalog.py
+
+# The port's planner on the H100's rooflines: its own committed plan of
+# the same fixture trace, byte for byte.
+torch-plan-contract:
+	python -m $(TORCH_PKG).scripts.plan --dry-run \
+	  --expect tests/fixtures/journey_plan_h100.json > /dev/null
+
+# The port's three planes against the same catalog, both directions.
+torch-metrics-catalog:
+	python -m $(TORCH_PKG).scripts.check_metrics_catalog
 
 verify: lint bench-contract metrics-contract compile-budget plan-contract \
         bench-history metrics-catalog

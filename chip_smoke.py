@@ -11,7 +11,9 @@ and exits non-zero):
 1. Device: the card's name and power limit (nvidia-smi).
 2. Build: every CUDA kernel from ``csrc/`` (one nvcc each, in parallel),
    with each kernel instance's registers, static shared memory and spills
-   from the ``ptxas`` report.
+   from the ``ptxas`` report; the import check of every port module; the
+   port's ``scripts/check_metrics_catalog.py`` (its three planes against
+   ``docs/OBSERVABILITY.md``'s catalog).
 3. Kernels against their plain PyTorch versions, on the card:
    decode attention at every window bucket up to 4096 (G = 1, 2, 4, 8;
    strided windows of a real cache buffer; lengths 0, mid and W), and
@@ -194,7 +196,7 @@ and exits non-zero):
    ms, the prep and draw kernels alone, the sort's own device ms, the
    plain chain's, and the bound of the kernels' work.  Then on the bf16
    tree (``quantize: none``, whole prompts) and, after the quantization,
-   on int8kv (chunks of 256), both cut to ``INT8KV_LAYERS`` layers (widths
+   on int8kv (chunks of 256), both cut to ``MS_LAYERS`` layers (widths
    whole): three servers
    on one weight tree at ``decode_steps`` 1, 4 and 8 (the fused ones
    capture one CUDA graph per window bucket and token rule at start: the
@@ -278,7 +280,7 @@ and exits non-zero):
    preemption, evict and restore ms (synchronized host walls), KV bytes an
    eviction, L2 hits, and the preempted greedy streams' agreement with the
    clean run (reported: the window buckets differ).
-   5h: the observed replica on the bf16 tree cut to ``INT8KV_LAYERS``
+   5h: the observed replica on the bf16 tree cut to ``MS_LAYERS``
    layers (widths whole): one ``none`` split K 4
    server, 4 slots (5e's K 4 server), with ``--trace-ring``,
    ``--timeseries-ring``, ``--device-telemetry`` and
@@ -325,6 +327,18 @@ and exits non-zero):
    write s, restore s and GB/s, capture s and attach wall beside the cold
    path of the same run (the quantize from the bf16 draw, then the direct
    server's start); launch identities over the attached replica's request.
+   5k: the 7B rehearsal, the port's ``scripts/gen_7b_checkpoint.py`` and
+   ``scripts/rehearse_7b_load.py``: before the quantize, the bf16 draw
+   (all 32 layers) written through the generator's writer under ``build/``
+   (the free disk checked first; the bytes and the write's seconds); after
+   5j, ``rehearse`` on it: the loader's streamed int8 load (each matrix
+   quantized on the card as it arrives), its seconds, stages and read GB/s,
+   the card's resident and peak memory above what the phase held, a
+   16-token prefill and 8 greedy decode steps at window 512 (flash, RMSNorm
+   and the bf16-window decode kernel, counted); every loaded leaf bit-equal
+   to phase 5's ``quantize_llama`` tree and the same chain on that tree
+   giving the same tokens, its logits within REHEARSAL_TOL; the artifact
+   deleted.  The phase's wall beside REHEARSAL_BUDGET_S.
 6. Serving BERT-base at full width (12 layers, random weights from a
    seed) over ``/v2/models/{name}/infer``: a native artifact written by
    the port's writer, loaded with quantize none (bf16, erf GELU) and int8
@@ -410,6 +424,13 @@ and exits non-zero):
    whose program is captured, and the CR's int8kv as shipped (its tokens'
    agreement and int8 codes against one rank reported); the uncaptured
    program on every rank (see ``phase_serve_mesh_tp4``).
+8e. The port's ``scripts/rehearse_tp8_dryrun.py`` on phase 8's artifact:
+   eight ranks from the launcher's rank plan on the one card (gloo), each
+   loading its blocks at ``{"tp": 8}`` int8 in bf16 and checking every int8
+   leaf is its block of the whole leaf quantized, one 16-token prefill a
+   rank; every rank's logits equal and within TP8_TOL of a one-rank int8
+   load of the same artifact; each rank's RMSNorm and flash launches (see
+   ``phase_tp8_dryrun``).  The phase's wall beside TP8_BUDGET_S.
 9. The control plane's canary: BERT-base v1 -> v2 promoted in 10% steps
    by the port's ``OperatorRuntime`` through the port's router, each
    version a server process of the operator's ``backend: cuda`` manifest.
@@ -424,7 +445,12 @@ and exits non-zero):
    legs, a replace journaled, SLO records recomputed, a suggested plan
    equal to a re-plan with the detected H100 peaks, RMSNorm / flash /
    decode launches on every replica, and ``python -m <port>.operator
-   --leader-elect`` taking its Lease and stopping on SIGTERM (see
+   --leader-elect`` taking its Lease and stopping on SIGTERM; before the
+   teardown the port's ``scripts/plan.py`` on the router's journey export
+   (a file) byte for byte the planner's plan, and ``scripts/stitch_trace.py``
+   on the router and the replicas (each with a flight recorder of
+   JUDGE_TRACE_RING) writing Chrome trace JSON whose router track and a
+   replica's hold the export's request ids (see
    ``phase_control_plane_judgment``).  The phase's wall beside
    JUDGE_BUDGET_S.
 
@@ -439,6 +465,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import gc
+import io
 import json
 import math
 import os
@@ -4761,6 +4788,9 @@ UNI_BURST = (300, 700, 1000, 1500)  # phase 5d's burst
 # 8c came, the three `none` turns when phase 9b did, 5h's `none` server when
 # phase 8d did).
 INT8KV_LAYERS = 8
+# 5e's turns (both quantize modes) and 5h's server, which 5h compares with
+# 5e's at the same depth, cut further when phases 5k and 8e came.
+MS_LAYERS = 4
 
 
 def _superstep_vs_eager(engine, prng, lengths=(5, 130, 700, 1500)) -> dict:
@@ -6607,6 +6637,116 @@ def _attach_fallback(app, loader, snap, llama, conf: dict, device: str) -> dict:
         srv.shutdown_all()
         th.join(timeout=30)
     return {"attach_wall_s": wall, "load_breakdown_s": att["load_breakdown_s"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5k: the 7B rehearsal (the repo-root CLIs' artifact and its load)
+# ---------------------------------------------------------------------------
+
+REHEARSAL_DIR = ROOT / "build" / "smoke_ckpt7b"  # ignored by git, deleted after
+REHEARSAL_BUDGET_S = 60.0  # phase 5k's share of SMOKE_LIMIT_S: the write, load and decode
+# The loaded model's last logits against phase 5's tree's through the same
+# chain, max |difference| over max |logit|: the same leaves and kernels, so
+# 0 unless a GEMM picks another order between the two runs.
+REHEARSAL_TOL = 1e-3
+
+
+def phase_7b_write(params) -> dict:
+    """Phase 5k's first half: phase 5's bf16 draw (all 32 layers) written
+    through the port's ``scripts/gen_7b_checkpoint.py`` writer under
+    ``build/`` at the reference's geometry (max_seq 1024), after the disk's
+    free space is checked against the tree's bytes."""
+    from importlib import import_module
+
+    gen = import_module(f"{PKG}.scripts.gen_7b_checkpoint")
+    quant = import_module(f"{PKG}.models.quantization")
+    g = gen.GEOMETRY
+    shapes = {"embed": (g["vocab_size"], g["hidden_size"]),
+              "q": (g["num_layers"], g["hidden_size"], g["hidden_size"]),
+              "down": (g["num_layers"], g["intermediate_size"], g["hidden_size"])}
+    got = {"embed": tuple(params["embed"].shape), "q": tuple(params["layers"]["q"].shape),
+           "down": tuple(params["layers"]["down"].shape)}
+    if got != shapes:
+        raise AssertionError(f"5k: phase 5's tree {got} is not the artifact's geometry {shapes}")
+    need = quant.quantized_bytes(params)
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    REHEARSAL_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(REHEARSAL_DIR.parent).free
+    if free < need + (1 << 30):
+        raise AssertionError(f"5k: the 7B artifact needs {need} bytes (and 1 GiB spare) but "
+                             f"{free} bytes are free under {REHEARSAL_DIR.parent}")
+    t0 = time.perf_counter()
+    nbytes = gen.write_checkpoint(REHEARSAL_DIR, params)
+    write_s = time.perf_counter() - t0
+    log(f"5k: phase 5's bf16 tree written through gen_7b_checkpoint: {nbytes / 1e9:.2f} GB "
+        f"in {write_s:.1f} s ({nbytes / 1e9 / write_s:.2f} GB/s; {free / 1e9:.1f} GB were free)")
+    return {"path": REHEARSAL_DIR, "bytes": nbytes, "write_s": write_s, "free_bytes": free}
+
+
+def phase_7b_rehearsal(da, rn, fa, smi: str, written: dict, want: dict) -> dict:
+    """Phase 5k's second half: ``scripts/rehearse_7b_load.py``'s
+    ``rehearse`` on the artifact ``phase_7b_write`` wrote (the loader's
+    streamed int8 load at full depth, the memory above what the card held
+    before, 8 greedy steps after a 16-token prefill), launch counts over it
+    (counters set to 0 just before); then every loaded leaf bit-equal to
+    ``want``, phase 5's ``quantize_llama`` of the same bf16 tree, and the
+    same greedy chain on ``want`` giving the same tokens and logits bit for
+    bit.  The artifact is deleted at the end."""
+    import torch
+    from importlib import import_module
+
+    rehearse = import_module(f"{PKG}.scripts.rehearse_7b_load")
+    loader = import_module(f"{PKG}.server.loader")
+    t_phase = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        da.launches = rn.launches = fa.launches = 0
+        out = rehearse.rehearse(written["path"], "cuda", log=lambda m: log(f"5k: {m}"))
+        launches = {"da": da.launches, "rn": rn.launches, "fa": fa.launches}
+        pred = out.pop("predictor")
+        got = loader._flatten(pred.causal_lm["params"])
+        ref = loader._flatten(want)
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"5k: the loaded tree's leaves {sorted(got)} are not "
+                                 f"phase 5's {sorted(ref)}")
+        differ = [k for k in ref if not (got[k].dtype == ref[k].dtype
+                                         and torch.equal(got[k], ref[k]))]
+        if differ:
+            raise AssertionError(f"5k: loaded leaves {differ} differ from quantize_llama's")
+        tokens, logits = rehearse.greedy_chain(want, pred.causal_lm["cfg"], torch.device("cuda"))
+        logits = logits.float().cpu()
+        same = torch.equal(logits, out["logits"])
+        gap = float((logits - out["logits"]).abs().max() / logits.abs().max())
+        if tokens != out["tokens"] or gap > REHEARSAL_TOL:
+            raise AssertionError(f"5k: the loaded model's tokens {out['tokens']} are not phase "
+                                 f"5's tree's {tokens}, or its logits are {gap:.3e} away")
+        del pred, got, logits
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"5k: the rehearsal launched {launches}")
+    finally:
+        shutil.rmtree(written["path"], ignore_errors=True)
+        torch.cuda.empty_cache()
+    stats = out["load_stats"]
+    res = {"write_s": written["write_s"], "bytes": written["bytes"], "load_s": out["load_s"],
+           "load_stats": stats, "read_gb_s": stats["read_gib"] * 2**30 / 1e9 / out["load_s"],
+           "stored_bytes": out["stored_bytes"], "loaded": out["loaded"],
+           "decoded": out["decoded"], "decode_s": out["decode_s"], "tokens": out["tokens"],
+           "launches": launches, "leaves_equal": len(ref), "logits_bit_equal": same,
+           "layers": int(want["layers"]["attn_norm"].shape[0]),
+           "wall_s": written["write_s"] + time.perf_counter() - t_phase}
+    log(f"5k: {res['layers']} layers loaded int8 in {out['load_s']:.2f} s (stages {stats}; "
+        f"read {res['read_gb_s']:.2f} GB/s, warm page cache), resident "
+        f"{out['loaded']['allocated'] / 2**30:.2f} GiB, load peak "
+        f"{out['loaded']['peak'] / 2**30:.2f} GiB, decode peak "
+        f"{out['decoded']['peak'] / 2**30:.2f} GiB above the {_tree_bytes(want) / 2**30:.2f} "
+        f"GiB phase 5 held; {len(ref)} leaves bit-equal to quantize_llama's; greedy "
+        f"{out['tokens']} ({out['decode_s']:.2f} s), the logits bit-equal to phase 5's tree's: "
+        f"{same}; launches {launches}; phase wall {res['wall_s']:.1f} s with the write; {smi}")
+    if res["wall_s"] > REHEARSAL_BUDGET_S:
+        log(f"5k: WARNING phase wall {res['wall_s']:.1f} s over its "
+            f"{REHEARSAL_BUDGET_S:.0f} s share")
+    DETAIL["rehearse_7b_load"] = res
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -8615,6 +8755,86 @@ def phase_serve_mesh_tp4(smi: str, art: Path, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8e: the tp-8 dry run (scripts/rehearse_tp8_dryrun.py) as eight ranks
+# ---------------------------------------------------------------------------
+
+TP8_BUDGET_S = 45.0  # phase 8e's share of SMOKE_LIMIT_S
+# Each rank's bf16 logits against a one-rank int8 load of the same artifact,
+# max |difference| over max |logit|: the ranks' int8 leaves are quantized on
+# the host and one rank's on the card, where a scale may round one f32 ulp
+# apart (and then a code one step); bf16 activations summed across 8 row
+# blocks in another order may round one bf16 step (2^-8) apart.
+TP8_TOL = 2e-2
+
+
+def phase_tp8_dryrun(smi: str, art: Path, device: str = "cuda") -> dict:
+    """``scripts/rehearse_tp8_dryrun.py``'s ``dryrun`` on phase 8's artifact
+    (Llama-2-7B's widths at MESH_LAYERS layers): eight ranks started by the
+    launcher's rank plan on the one card (gloo, ``--ranks-share-card``),
+    each loading its blocks at ``{"tp": 8}`` int8 in bf16, checking every
+    int8 leaf is its block of the whole leaf quantized, and running one
+    16-token prefill; every rank's logits equal (the dry run's check), and
+    within TP8_TOL of a one-rank int8 load of the same artifact in this
+    process.  Each rank's RMSNorm and flash launches over its prefill (2L +
+    1 and L)."""
+    import torch
+    from importlib import import_module
+
+    dry = import_module(f"{PKG}.scripts.rehearse_tp8_dryrun")
+    llama = import_module(f"{PKG}.models.llama")
+    loader = import_module(f"{PKG}.server.loader")
+    tag = "8e tp8 dry run"
+    t_phase = time.perf_counter()
+    res = dry.dryrun(art, device, torch.bfloat16, timeout=300)
+    pred = loader.load_predictor(str(art), quantize="int8", device=device, dtype=torch.bfloat16)
+    p, cfg = pred.causal_lm["params"], pred.causal_lm["cfg"]
+    ids = torch.ones((1, dry.PROMPT), dtype=torch.long, device=device)
+    ref = llama.prefill(p, ids, cfg, dtype=torch.bfloat16)[0].float().cpu()
+    # One rank's int8 leaves (quantized on the card) against the same leaves
+    # quantized on the host, as the ranks' are: scales and codes that differ.
+    apart = {"scales": 0, "codes": 0, "of_scales": 0, "of_codes": 0, "max_code_step": 0}
+    for key, host in res["whole"].items():
+        card = p["lm_head"] if key == "lm_head" else p["layers"][key.split("|")[1]]
+        apart["scales"] += int((card["scale"].cpu() != host["scale"]).sum())
+        step = (card["q8"].cpu().int() - host["q8"].int()).abs()
+        apart["codes"] += int((step > 0).sum())
+        apart["max_code_step"] = max(apart["max_code_step"], int(step.max()))
+        apart["of_scales"] += host["scale"].numel()
+        apart["of_codes"] += host["q8"].numel()
+    del pred, p
+    torch.cuda.empty_cache()
+    gap = float((res["logits"] - ref).abs().max() / ref.abs().max())
+    if not gap <= TP8_TOL:
+        raise AssertionError(f"{tag}: the ranks' logits are {gap:.3e} of max |logit| from one "
+                             f"rank's (tolerance {TP8_TOL})")
+    want = ({"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": cfg.num_layers}
+            if device == "cuda" else {"rmsnorm": 0, "flash_attention": 0})
+    for r in res["ranks"]:
+        if r["launches"] != want or r["backend"] != "gloo" or len(r["blocks"]) != 8:
+            raise AssertionError(f"{tag}: rank {r['rank']} launched {r['launches']} (want "
+                                 f"{want}) over {r['backend']}, blocks {r['blocks']}")
+    out = {"gap": gap, "apart": apart, "wall_s": time.perf_counter() - t_phase,
+           "unit_wall_s": res["wall_s"],
+           "share_card": res["share_card"],
+           "ranks": [{k: r[k] for k in ("rank", "device", "backend", "load_s", "load_stats",
+                                        "prefill_s", "load_peak_bytes", "launches")}
+                     for r in res["ranks"]],
+           "blocks": res["ranks"][0]["blocks"]}
+    log(f"{tag}: 8 ranks over gloo on the one card (shared: {res['share_card']}), each "
+        f"holding its blocks ({out['blocks'][0]}, ...); loads "
+        f"{[round(r['load_s'], 2) for r in out['ranks']]} s, load peaks "
+        f"{[round((r['load_peak_bytes'] or 0) / 2**30, 3) for r in out['ranks']]} GiB, prefills "
+        f"{[round(r['prefill_s'], 2) for r in out['ranks']]} s; logits equal across ranks, "
+        f"{gap:.3e} of max |logit| from one rank's (tolerance {TP8_TOL}); one rank's int8 "
+        f"leaves (quantized on the card) against the host's: {apart}; the unit "
+        f"{res['wall_s']:.1f} s, phase wall {out['wall_s']:.1f} s; {smi}")
+    if out["wall_s"] > TP8_BUDGET_S:
+        log(f"{tag}: WARNING phase wall {out['wall_s']:.1f} s over its {TP8_BUDGET_S:.0f} s share")
+    DETAIL["tp8_dryrun"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the control plane's canary (BERT-base promoted 0 -> 100%)
 # ---------------------------------------------------------------------------
 
@@ -9022,12 +9242,13 @@ JUDGE_CLIENTS = 3  # concurrent clients of the straggler traffic
 # leaves the window, so a recomputation sees every one).
 JUDGE_SLO = {"ttftP99Ms": 2000, "itlP99Ms": 500, "availabilityPct": 99.0, "windowMinutes": 5}
 JUDGE_OBJECTIVE = {"ttftP99Ms": 2000.0}
+JUDGE_TRACE_RING = 256  # each pool server's flight recorder: the stitcher's replica tracks
 
 
 def _judge_cuda(snapdir: Path) -> dict:
     return {"gpuTopology": "h100-1", "dtype": "float32",
             "snapshot": {"enabled": True, "dir": str(snapdir)},
-            "observability": {"timeseriesRing": 64},
+            "observability": {"timeseriesRing": 64, "traceRing": JUDGE_TRACE_RING},
             "compileCacheDir": str(ROOT / "build" / "torch_kernels")}
 
 
@@ -9114,6 +9335,66 @@ def _slo_recomputed(slo_mod, rec, name: str, tracker, spec) -> list:
             if r[field] != want:
                 bad.append((name, r["slo"], field, r[field], want))
     return bad
+
+
+def _judge_clis(trace: dict, router_port: int, ports: dict, scratch: Path, planner, jt,
+                peaks) -> dict:
+    """Phase 9b's repo-root CLIs on the live fleet: ``scripts/plan.py`` on
+    the router's journey export written to a file, byte for byte the
+    planner's plan of the same trace (the CLI's ``--expect``); and
+    ``scripts/stitch_trace.py`` against the router and the three replicas,
+    whose output must be Chrome trace JSON with one process track each and
+    request ids of the router's journey export on the router's track and on
+    a replica's."""
+    from importlib import import_module
+
+    plan_cli = import_module(f"{PKG}.scripts.plan")
+    stitch_cli = import_module(f"{PKG}.scripts.stitch_trace")
+    stitch_mod = import_module(f"{PKG}.utils.trace_stitch")
+    tag = "9b CLIs"
+    t0 = time.perf_counter()
+    trace_file, expect_file = scratch / "journeys.json", scratch / "plan.json"
+    trace_file.write_text(json.dumps(trace))
+    ms = JUDGE_OBJECTIVE["ttftP99Ms"]
+    want = planner.plan(jt.load_journey_trace(trace), JUDGE_OBJECTIVE, peaks=peaks,
+                        chips_available=1)
+    expect_file.write_text(json.dumps(want, indent=1, sort_keys=True) + "\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = plan_cli.main(["--trace", str(trace_file), "--objective-ttft-p99-ms", str(ms),
+                              "--chips", "1", "--dry-run", "--expect", str(expect_file)])
+    if code != 0 or json.loads(buf.getvalue()) != want:
+        raise AssertionError(f"{tag}: plan exited {code} on the journey export")
+    out_file = scratch / "fleet_trace.json"
+    code = stitch_cli.main(["--router", f"http://127.0.0.1:{router_port}", "-o", str(out_file)]
+                           + [a for r in JUDGE_REPLICAS
+                              for a in ("--replica", f"http://127.0.0.1:{ports[r]}")])
+    doc = json.loads(out_file.read_text())
+    events = doc.get("traceEvents") if isinstance(doc, dict) else None
+    if code != 0 or not isinstance(events, list) or not all(
+            isinstance(e, dict) and {"ph", "pid"} <= set(e) for e in events):
+        raise AssertionError(f"{tag}: stitch_trace exited {code} or wrote no Chrome trace")
+    names = {e["pid"]: e["args"]["name"] for e in events
+             if e["ph"] == "M" and e.get("name") == "process_name"}
+    if sorted(names.values()) != ["replica-0", "replica-1", "replica-2", "router"]:
+        raise AssertionError(f"{tag}: the stitched tracks are {names}")
+    ids = stitch_mod.request_ids_by_pid(doc)
+    exported = {str(r["request_id"]) for r in trace.get("requests") or []}
+    router_pid = next(p for p, n in names.items() if n == "router")
+    on_router = ids.get(router_pid, set()) & exported
+    shared = {p: len(on_router & v) for p, v in ids.items() if p != router_pid}
+    if not on_router or not any(shared.values()):
+        raise AssertionError(f"{tag}: no request id of the journey export on the router's "
+                             f"track and a replica's ({len(on_router)} on the router's, "
+                             f"{shared} shared)")
+    out = {"plan_knobs": want["knobs"], "trace_events": len(events),
+           "router_ids": len(on_router), "shared_ids_by_replica_pid": shared,
+           "wall_s": time.perf_counter() - t0}
+    log(f"{tag}: plan on the {len(trace.get('requests') or [])}-journey export equal to the "
+        f"planner's; stitch_trace {len(events)} events on 4 tracks, {len(on_router)} "
+        f"exported request ids on the router's, shared with the replicas' {shared}; "
+        f"{out['wall_s']:.2f} s")
+    return out
 
 
 def phase_control_plane_judgment(smi: str, device: str = "cuda", cfg=None) -> dict:
@@ -9360,16 +9641,25 @@ def phase_control_plane_judgment(smi: str, device: str = "cuda", cfg=None) -> di
             return [v for v in status(n).get("anomalies") or []
                     if v.get("replica") == "r1" and v.get("series", "").startswith("router_leg_")]
 
+        seen: dict = {}
+
+        def verdict_on_r1():
+            # The verdicts that met the wait, kept: a later read may find
+            # them expired once the traffic stops.
+            now = {n: flagged(n) for n in names[:3]}
+            if all(now.values()) and "r1" in mux._stragglers:
+                seen.update(now)
+            return bool(seen)
+
         try:
-            wait(lambda: all(flagged(n) for n in names[:3]) and "r1" in mux._stragglers,
-                 "the verdict on r1", 90)
+            wait(verdict_on_r1, "the verdict on r1", 90)
         finally:
             stop_traffic.set()
             for th in pool:
                 th.join(timeout=150)
         res["walls"]["verdict_s"] = time.perf_counter() - t0
         res["straggler_traffic"] = dict(sent)
-        verdicts = flagged(names[0])
+        verdicts = seen[names[0]]
         res["verdict"] = verdicts
         res["anomaly_z"] = max(abs(v["z"]) for v in verdicts)
         others = sorted({v["replica"] for n in names for v in status(n).get("anomalies") or []}
@@ -9434,6 +9724,7 @@ def phase_control_plane_judgment(smi: str, device: str = "cuda", cfg=None) -> di
                        plan["predicted"]["ttftP99Ms"], "requests": plan["trace"]["requests"],
                        "measured_ttft_p99_ms": None if ttft is None else 1e3 * ttft,
                        "peaks": {"kind": peaks.kind, "source": peaks.source}}
+        res["clis"] = _judge_clis(trace, router.port, ports, scratch, planner, jt, peaks)
 
         # (4) SLO records against a recomputation from the same samples.
         text = telemetry.exposition().decode()
@@ -9586,12 +9877,20 @@ def main() -> int:
                  "utils.config", "clients.router", "clients.localplane",
                  "operator.reconciler", "operator.runtime", "operator.multiplexer",
                  "operator.anomaly", "operator.slo", "operator.planner", "operator.telemetry",
-                 "operator.leader", "clients.kube_rest", "clients.envtest", "clients.chaos"):
+                 "operator.leader", "clients.kube_rest", "clients.envtest", "clients.chaos",
+                 "scripts.plan", "scripts.stitch_trace", "scripts.gen_7b_checkpoint",
+                 "scripts.rehearse_7b_load", "scripts.rehearse_tp8_dryrun",
+                 "scripts.check_metrics_catalog"):
         if f"{PKG}.{name}" not in sys.modules:
             raise AssertionError(f"the import check missed {PKG}.{name}")
     pulled = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tpumlops", JAX_PKG))
     if pulled:
         raise AssertionError(f"the port pulled in {pulled[:5]}")
+    # The port's three metric planes against the catalog, both directions.
+    problems, families = import_module(f"{PKG}.scripts.check_metrics_catalog").check()
+    if problems:
+        raise AssertionError(f"the metrics catalog is out of sync: {problems[:5]}")
+    log(f"metrics catalog: {families} families across the port's 3 planes, as documented")
     # Every graph keeps its nodes, which _replay_launches reads.
     import_module(f"{PKG}.server.cuda_graphs").KEEP_GRAPHS = True
     da = import_module(f"{PKG}.ops.decode_attention")
@@ -9630,7 +9929,7 @@ def main() -> int:
     ss_res = phase_sample_step(ss, import_module(f"{PKG}.models.prng"))
     stage("5e multistep none")
     multistep = {"none": phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "none", None,
-                                                  layers=INT8KV_LAYERS)}
+                                                  layers=MS_LAYERS)}
     stage("5f unified none")
     unified = {"none": phase_serve_7b_unified(da, rn, fa, ss, smi, params, "none",
                                               layers=INT8KV_LAYERS)}
@@ -9639,15 +9938,21 @@ def main() -> int:
                                               layers=INT8KV_LAYERS)}
     stage("5h observed")
     observed = phase_serve_7b_observed(da, rn, fa, ss, smi, params, multistep["none"],
-                                       layers=INT8KV_LAYERS)
+                                       layers=MS_LAYERS)
     stage("5i handoff none")
     handoff = phase_serve_7b_handoff(da, rn, fa, smi, params)
+    stage("5k 7B rehearsal: the write")
+    written = phase_7b_write(params)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = quant.quantize_llama(params)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
+    quantize_peak = torch.cuda.max_memory_allocated() - held
     torch.cuda.empty_cache()
-    log(f"7B: quantized to int8 on the card in {quantize_s:.1f} s; "
+    log(f"7B: quantized to int8 on the card in {quantize_s:.2f} s (one layer's matrix at a "
+        f"time; peak {quantize_peak / 2**30:.2f} GiB above the bf16 tree); "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     stage("dense int8")
     dense["int8"] = phase_serve_7b_dense(da, rn, fa, smi, params, "int8", 256)
@@ -9659,7 +9964,7 @@ def main() -> int:
     packed = phase_serve_7b_packed(da, rn, fa, smi, params, layers=INT8KV_LAYERS)
     stage("5e multistep int8kv")
     multistep["int8kv"] = phase_serve_7b_multistep(da, rn, fa, ss, smi, params, "int8kv", 256,
-                                                   layers=INT8KV_LAYERS)
+                                                   layers=MS_LAYERS)
     stage("5f unified int8kv")
     unified["int8kv"] = phase_serve_7b_unified(da, rn, fa, ss, smi, params, "int8kv",
                                                layers=INT8KV_LAYERS)
@@ -9668,6 +9973,8 @@ def main() -> int:
                                                layers=INT8KV_LAYERS)
     stage("5j attach int8")
     attach = phase_serve_7b_attach(da, rn, fa, smi, params, quantize_s)
+    stage("5k 7B rehearsal")
+    rehearsal = phase_7b_rehearsal(da, rn, fa, smi, written, params)
     del params
     torch.cuda.empty_cache()
     stage("6 bert")
@@ -9684,6 +9991,8 @@ def main() -> int:
         phase_serve_mesh_v2(smi, art, mesh)
         stage("8d mesh tp4 example")
         phase_serve_mesh_tp4(smi, art)
+        stage("8e tp8 dry run")
+        tp8 = phase_tp8_dryrun(smi, art)
     finally:
         shutil.rmtree(art.parent, ignore_errors=True)
     stage("9 control-plane canary")
@@ -9709,7 +10018,7 @@ def main() -> int:
                       + sum(r["launches"]["da"] for r in unified.values())
                       + sum(r["launches"]["da"] for r in preempt.values())
                       + observed["launches"]["da"] + handoff["launches"]["da"]
-                      + attach["launches"]["da"]
+                      + attach["launches"]["da"] + rehearsal["launches"]["da"]
                       + sum(r["decode_attention"] for r in judge["launches"].values())),
          # the verify chunk instance's share of them (phases 5c, 5f and 5g)
          "verify_launches": (spec["va_launches"]
@@ -9726,7 +10035,8 @@ def main() -> int:
                       + sum(r["launches"]["rn"] for r in unified.values())
                       + sum(r["launches"]["rn"] for r in preempt.values())
                       + observed["launches"]["rn"] + handoff["launches"]["rn"]
-                      + attach["launches"]["rn"]
+                      + attach["launches"]["rn"] + rehearsal["launches"]["rn"]
+                      + sum(r["launches"]["rmsnorm"] for r in tp8["ranks"])
                       + sum(r["rmsnorm"] for r in judge["launches"].values())),
          **rn_res},
         {"name": "flash_attention", "route": "cuda",
@@ -9739,7 +10049,8 @@ def main() -> int:
                       + sum(r["launches"]["fa"] for r in unified.values())
                       + sum(r["launches"]["fa"] for r in preempt.values())
                       + observed["launches"]["fa"] + handoff["launches"]["fa"]
-                      + attach["launches"]["fa"]
+                      + attach["launches"]["fa"] + rehearsal["launches"]["fa"]
+                      + sum(r["launches"]["flash_attention"] for r in tp8["ranks"])
                       + sum(r["flash_attention"] for r in judge["launches"].values())),
          **fa_res},
         # The same kernel's log-sum-exp instance: the ring blocks of phase

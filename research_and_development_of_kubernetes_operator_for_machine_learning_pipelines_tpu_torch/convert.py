@@ -25,14 +25,17 @@ def _is_bf16(arr: np.ndarray) -> bool:
     )
 
 
-def to_tensor(arr: np.ndarray, device=None, dtype=None) -> torch.Tensor:
-    """One numpy leaf -> tensor; ``dtype`` applies to float leaves only."""
-    arr = np.asarray(arr)
+def to_tensor(arr: np.ndarray, device=None, dtype=None, copy: bool = True) -> torch.Tensor:
+    """One numpy leaf -> tensor; ``dtype`` applies to float leaves only.
+    ``copy=False`` lets the tensor share a contiguous, writable ``arr``'s
+    memory (a leaf the caller hands over, such as one ``np.load`` read)."""
+    arr = np.ascontiguousarray(arr)
+    if copy or not arr.flags.writeable:
+        arr = arr.copy()
     if _is_bf16(arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        t = torch.from_numpy(arr)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device) if device is not None else t

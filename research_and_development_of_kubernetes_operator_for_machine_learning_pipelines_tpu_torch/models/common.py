@@ -7,10 +7,28 @@ cast back, so the CPU tests can hold the models to the JAX ones in f64.
 
 from __future__ import annotations
 
+from typing import Any, Iterator
+
 import torch
 import torch.nn.functional as F
 
 from ..ops.rmsnorm import rmsnorm
+
+
+def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensors of a parameter tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def count_params(params: Any) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,21 @@ def channel_scale(w: torch.Tensor, axis: int = -2) -> torch.Tensor:
     return torch.clamp(amax, min=1e-12) / 127.0
 
 
+def quantize_stacked(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """:func:`quantize_tensor` of a weight, one slice of a stacked ``[L, in,
+    out]`` leaf at a time (a 2-D weight whole), so one layer's f32
+    temporaries are in flight, not the leaf's: equal bit for bit, since the
+    scale reduces over ``in`` within a layer."""
+    if w.ndim < 3:
+        return quantize_tensor(w)
+    q8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32, device=w.device)
+    for i, p in enumerate(w):
+        q = quantize_tensor(p)
+        q8[i], scale[i] = q["q8"], q["scale"]
+    return {"q8": q8, "scale": scale}
+
+
 def quantize_with_scale(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """:func:`quantize_tensor`'s ``q8`` of ``w`` under a given ``scale``
     (a block of a leaf under its cut of the whole leaf's scale)."""
@@ -55,6 +70,13 @@ def is_quantized(leaf: Any) -> bool:
     return isinstance(leaf, dict) and "q8" in leaf and "scale" in leaf
 
 
+def quantized_bytes(params: Any) -> int:
+    """Total parameter bytes as stored (int8 leaves count 1 byte/elem)."""
+    from .common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
 # Llama matmul weights worth quantizing: everything the decode step streams
 # in full.  Norm vectors and the embedding gather stay as they are.
 _LLAMA_LAYER_MATS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -63,13 +85,14 @@ _LLAMA_LAYER_MATS = ("q", "k", "v", "o", "gate", "up", "down")
 def quantize_llama(params: dict) -> dict:
     """A params tree with the layer matmuls and lm_head as int8 leaves.
 
-    Quantizes one leaf at a time on the leaf's own device, so a 7B tree
-    needs one f32 copy of its largest matrix in flight, not of the tree."""
+    Quantizes one layer's matrix at a time on the leaf's own device
+    (:func:`quantize_stacked`), so a 7B tree needs the f32 temporaries of
+    its largest matrix in flight, not of a leaf or the tree."""
     out = dict(params)
     out["layers"] = dict(params["layers"])
     for name in _LLAMA_LAYER_MATS:
-        out["layers"][name] = quantize_tensor(params["layers"][name])
-    out["lm_head"] = quantize_tensor(params["lm_head"])
+        out["layers"][name] = quantize_stacked(params["layers"][name])
+    out["lm_head"] = quantize_stacked(params["lm_head"])
     return out
 
 

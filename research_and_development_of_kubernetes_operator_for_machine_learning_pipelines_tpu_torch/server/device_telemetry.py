@@ -31,8 +31,10 @@ Three parts:
   recorder ticks, Perfetto counter tracks in ``/debug/trace``, and
   ``tpumlops_device_{mfu,hbm_bw_util}{kind}`` gauges.
 
-Not ported: ``cost_from_analysis``, which parses an XLA ``Compiled``
-object's cost analysis (the port holds none).
+``cost_from_analysis`` parses the ``{"flops", "bytes accessed"}``
+payload of an XLA ``Compiled.cost_analysis()`` (a dict, or a one-item
+list), the reference's adapter for tooling that holds a compiled
+program; the port's engine never does, and counts analytically.
 
 On a mesh of several ranks (one process a rank) everything is per rank:
 the ledger counts the rank's blocks (its weight shards, ``B/dp`` cache
@@ -160,17 +162,6 @@ def measured_memory() -> dict | None:
 # ---------------------------------------------------------------------------
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _dtype_name(t) -> str:
     return str(t.dtype).removeprefix("torch.")
 
@@ -178,8 +169,10 @@ def _dtype_name(t) -> str:
 def weights_bytes_by_dtype(params) -> dict[str, int]:
     """Parameter bytes grouped by dtype as stored (int8 leaves count
     1 byte/elem; their f32 scale planes land under float32)."""
+    from ..models.common import tree_leaves
+
     out: dict[str, int] = {}
-    for leaf in _leaves(params):
+    for leaf in tree_leaves(params):
         name = _dtype_name(leaf)
         out[name] = out.get(name, 0) + int(leaf.numel()) * leaf.element_size()
     return out
@@ -565,6 +558,21 @@ class CompileObservatory:
 # ---------------------------------------------------------------------------
 
 
+def cost_from_analysis(analysis) -> tuple[float, float] | None:
+    """Parse an XLA ``Compiled.cost_analysis()`` payload into ``(flops,
+    hbm_bytes)``: a dict, or a one-item list of dicts as older jax
+    returns; None when it carries neither count."""
+    if isinstance(analysis, (list, tuple)):
+        analysis = analysis[0] if analysis else None
+    if not isinstance(analysis, dict):
+        return None
+    flops = float(analysis.get("flops", 0.0))
+    nbytes = float(analysis.get("bytes accessed", 0.0))
+    if flops <= 0.0 and nbytes <= 0.0:
+        return None
+    return flops, nbytes
+
+
 @dataclass(frozen=True)
 class LlamaCostModel:
     """Analytic per-program FLOPs / HBM-bytes for the llama serving
@@ -595,10 +603,9 @@ class LlamaCostModel:
                   dtype_bytes: int = 2,
                   mesh_shape=None) -> "LlamaCostModel":
         from ..models.llama import matmul_param_count
+        from ..models.quantization import quantized_bytes
 
-        wbytes = sum(
-            int(leaf.numel()) * leaf.element_size() for leaf in _leaves(params)
-        )
+        wbytes = quantized_bytes(params)
         hd = cfg.head_dim
         kv_eb = 1 + 4.0 / hd if kv_quant else float(dtype_bytes)
         if mesh_shape:

@@ -141,10 +141,11 @@ def _pump(stream, prefix: bytes, lock: threading.Lock) -> None:
 
 
 class Unit:
-    """This host's rank processes."""
+    """This host's rank processes: ``python -m <module> <server_argv>`` a
+    rank (the server unless another module is named)."""
 
     def __init__(self, server_argv: list[str], plans: list[dict[str, str]],
-                 share_card: bool = False):
+                 share_card: bool = False, module: str = SERVER_MODULE):
         self.procs: list[subprocess.Popen] = []
         self.ranks = [int(p["JAX_PROCESS_ID"]) for p in plans]
         preexec = _die_with_parent()
@@ -153,7 +154,7 @@ class Unit:
             if share_card:
                 env[SHARE_CARD_ENV] = "1"
             self.procs.append(subprocess.Popen(
-                [sys.executable, "-m", SERVER_MODULE, *server_argv], env=env,
+                [sys.executable, "-m", module, *server_argv], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, preexec_fn=preexec))
         # Started after every fork: a fork must not copy a pumping thread.
         lock = threading.Lock()

@@ -65,7 +65,9 @@ import json
 import logging
 import os
 import pickle
+import queue
 import re
+import threading
 import time
 from pathlib import Path
 from typing import Any
@@ -158,14 +160,13 @@ def save_native_model(
     builder_kwargs: dict | None = None,
 ) -> Path:
     """Write the native artifact layout from a tree of tensors (or numpy
-    arrays); bfloat16 leaves are stored as their raw bytes (``|V2``)."""
+    arrays), one leaf at a time: each leaf is copied to the host, written
+    and dropped before the next, so a tree on the card never needs a
+    whole host copy.  ``params.npz`` is what the reference's ``np.savez``
+    writes, byte for byte (:func:`_write_npz`)."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    flat = {
-        k: to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
-        for k, v in _flatten(params).items()
-    }
-    np.savez(path / "params.npz", **flat)
+    _write_npz(path / "params.npz", _flatten(params))
     meta = {
         "flavor": flavor,
         "config": config or {},
@@ -179,6 +180,27 @@ def save_native_model(
         f"    flavor: {flavor}\n"
     )
     return path
+
+
+def _write_npz(file: Path, flat: dict[str, Any]) -> None:
+    """``np.savez(file, **flat)``, each leaf turned into numpy only as it is
+    written.  A bfloat16 leaf (the raw two-byte ``|V2`` of
+    ``convert.to_numpy``) is written under the header numpy gives an
+    ``ml_dtypes.bfloat16`` array, ``<V2``, as the reference writes it."""
+    import zipfile
+
+    with zipfile.ZipFile(file, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in flat.items():
+            arr = to_numpy(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+                    np.lib.format.write_array_header_1_0(
+                        fid, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+                    fid.write(np.ascontiguousarray(arr).reshape(-1).view(np.uint8).data)
+                else:
+                    np.lib.format.write_array(fid, arr, allow_pickle=False)
+            del arr
 
 
 def save_sklearn_model(path: str | Path, model: Any, flavor: str) -> Path:
@@ -255,9 +277,91 @@ def _leaf_dtype(key: str, dtype):
     return None if key.endswith(f"{_SEP}scale") else dtype
 
 
-def _read_npz(path: Path, dev: torch.device, dtype) -> Any:
-    with np.load(path, allow_pickle=False) as npz:
-        flat = {key: to_tensor(npz[key], dev, _leaf_dtype(key, dtype)) for key in npz.files}
+def _prefetched(path: Path, took: dict):
+    """``(key, array)`` of ``path``'s leaves in order, each read from disk on a
+    thread while the caller works on the one before (at most two read ahead),
+    so the archive's reads overlap the copies to the card, as the
+    reference's reader does; ``took["disk_s"]`` sums the reads."""
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def reader() -> None:
+        try:
+            with np.load(path, allow_pickle=False) as npz:
+                for key in npz.files:
+                    if stop.is_set():
+                        return
+                    t0 = time.perf_counter()
+                    arr = npz[key]
+                    took["disk_s"] += time.perf_counter() - t0
+                    q.put((key, arr))
+            q.put(None)
+        except BaseException as e:  # handed to the consumer, which raises it
+            q.put(e)
+
+    th = threading.Thread(target=reader, daemon=True, name="npz-reader")
+    th.start()
+    try:
+        while (item := q.get()) is not None:
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        # A consumer that stops early must not strand the reader on a full
+        # queue (nor the archive open): drain until it ends.
+        stop.set()
+        while th.is_alive():
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        th.join()
+
+
+def _read_npz(path: Path, dev: torch.device, dtype, quantized=frozenset(),
+              stats: dict | None = None) -> Any:
+    """The tree of ``params.npz`` on ``dev``, read one leaf at a time (the
+    next read ahead on a thread, :func:`_prefetched`).  A leaf named in
+    ``quantized`` (flattened keys) turns into int8 on arrival
+    (``quantization.quantize_stacked`` on ``dev``) and its full copy is
+    dropped before the next leaf is taken, as the reference streams a Llama:
+    a 7B int8 load holds the int8 tree and one bf16 leaf, never the bf16
+    tree.  ``stats`` receives ``disk_s`` (the archive's reads, on the
+    reader), ``transfer_s`` (the copies to ``dev``), ``quantize_s`` (when
+    any leaf quantized) and ``read_gib``; the card is waited for at each
+    stage."""
+    def sync():
+        if stats is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    took = {"disk_s": 0.0, "transfer_s": 0.0, "quantize_s": 0.0}
+    nbytes = 0
+    flat: dict[str, Any] = {}
+    leaves = _prefetched(path, took)
+    try:
+        for key, arr in leaves:
+            t0 = time.perf_counter()
+            nbytes += arr.nbytes
+            leaf = to_tensor(arr, dev, _leaf_dtype(key, dtype), copy=False)
+            del arr
+            sync()
+            t1 = time.perf_counter()
+            took["transfer_s"] += t1 - t0
+            if key in quantized:
+                q = quantization.quantize_stacked(leaf)
+                del leaf
+                flat[f"{key}{_SEP}q8"], flat[f"{key}{_SEP}scale"] = q["q8"], q["scale"]
+                del q
+                sync()
+                took["quantize_s"] += time.perf_counter() - t1
+            else:
+                flat[key] = leaf
+    finally:
+        leaves.close()
+    if stats is not None:
+        stats.update({k: round(v, 3) for k, v in took.items()
+                      if k != "quantize_s" or quantized})
+        stats["read_gib"] = round(nbytes / 2**30, 3)
     return _unflatten(flat)
 
 
@@ -480,9 +584,10 @@ def load_predictor(
     - every other flavor refuses any ``quantize`` but ``none``.
 
     ``load_stats`` receives the load's stage seconds: ``restore_s``,
-    ``disk_s``, ``transfer_s`` and ``read_gib`` when a snapshot served it,
-    else ``quantize_s`` (quantized loads) and ``wall_s``.  ``snapshot_dir``
-    and ``mesh_shape``: see the module docstring."""
+    ``disk_s``, ``transfer_s`` and ``read_gib`` when a snapshot served it;
+    else ``quantize_s`` (quantized loads) and ``wall_s``, and for a native
+    artifact on one rank ``disk_s``, ``transfer_s`` and ``read_gib`` too.
+    ``snapshot_dir`` and ``mesh_shape``: see the module docstring."""
     quantize = quantize or "none"
     if quantize not in QUANTIZE_MODES:
         raise ModelLoadError(f"unknown quantize mode {quantize!r}")
@@ -696,10 +801,14 @@ def _load_cold(model_uri, flavor, quantize, dev, dtype, load_stats, mesh_shape=N
                     mesh, dev, quantize, load_stats, cast=None if llama else dtype)
             if flavor == "bert-classifier" and quantize == "int8":
                 cfg = _int8_act(cfg, raw_config)
+        elif flavor == "llama-generate":
+            # Read straight at the serving type, its matrices quantized on
+            # arrival in the int8 modes.
+            params = _read_npz(path / "params.npz", dev, dtype,
+                               _LLAMA_QUANTIZED if quantize != "none" else frozenset(),
+                               load_stats)
         else:
-            # Llama is read straight at the serving type; the others as stored.
-            params = _read_npz(path / "params.npz", dev,
-                               dtype if flavor == "llama-generate" else None)
+            params = _read_npz(path / "params.npz", dev, None, stats=load_stats)
             params, cfg = _finish(flavor, params, cfg, raw_config, quantize, dev, dtype,
                                   load_stats)
         _log.info("loaded native %s model from %s onto %s (quantize=%s)",
